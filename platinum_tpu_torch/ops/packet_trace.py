@@ -1,0 +1,334 @@
+"""Wide-BVH ray tracing on the GPU: the CUDA kernel, its plain version and
+the host glue.
+
+Port of platinum_tpu/ops/pallas_trace.py. `make_packet_tracer` keeps its
+name and returns the same (trace_closest, trace_any) pair over the
+accel.wide arrays. Rays are sorted by direction octant + origin Morton
+code (`_ray_sort_key`), traced as flat (8, R) SoA rows and unsorted;
+closest hits map kernel slot ids to triangle ids through `wslot`.
+
+`trace_wide` is the wrapper of the hand-written CUDA kernel
+(csrc/wide_trace.cu), which replaces the TPU kernel `_make_kernel` in its
+closest-hit and any-hit modes. On CUDA tensors it launches the kernel or
+raises; on CPU tensors it runs `trace_wide_plain`, the plain PyTorch
+version: a brute force over the same (B, 10, 256) coefficient blocks with
+the same accept tests, which the tests and chip_smoke.py hold the kernel
+against. The kernel is built with nvcc from the sources in this package at
+first use, into platinum_tpu_torch/_build/, and rebuilt when the source
+hash changes.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+import torch
+
+from platinum_tpu_torch.ops.intersect import INF, HitRecord
+
+DET_EPS = 1e-12
+SORT_MIN_RAYS = 1024   # the JAX tracer sorts waves of >= 2 x 4 x 128 rays
+SORT_MIN_NODES = 64    # ... over trees of more than 64 nodes
+DEAD_KEY = 1 << 30     # sort key of inactive rays (to the back)
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(PKG_DIR, "csrc", "wide_trace.cu")
+BUILD_DIR = os.path.join(PKG_DIR, "_build")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+# Kernel launches per mode, counted where the wrapper launches and nowhere
+# else (chip_smoke.py reads them to show the render went through the kernel)
+LAUNCHES = {"closest": 0, "any": 0}
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(path):
+        raise RuntimeError("nvcc not found: building the wide-BVH CUDA kernel "
+                           "needs the CUDA toolkit")
+    return path
+
+
+def build_kernel() -> str:
+    """Compile csrc/wide_trace.cu to a shared library named by the source
+    hash (reused when present) and return its path. Raises on failure."""
+    with open(CSRC, "rb") as f:
+        src = f.read()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = os.path.join(BUILD_DIR, f"wide_trace_{tag}.so")
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    try:
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, CSRC],
+                              capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{proc.stderr[-4000:]}")
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out
+
+
+def _library():
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_kernel())
+            lib.wide_trace_launch.restype = ctypes.c_int
+            lib.wide_trace_launch.argtypes = [
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_void_p]
+            lib.wide_trace_error_string.restype = ctypes.c_char_p
+            lib.wide_trace_error_string.argtypes = [ctypes.c_int]
+            _lib = lib
+        return _lib
+
+
+def _check(name, x, dtype, shape, device):
+    if x.device != device:
+        raise ValueError(f"{name} is on {x.device}, rays on {device}")
+    if x.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {x.dtype}")
+    if tuple(x.shape[1:]) != tuple(shape[1:]) or x.dim() != len(shape):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(x.shape)}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} must be contiguous and 16-byte aligned")
+
+
+def trace_wide(rays, nodes, blocks, meta, any_hit: bool):
+    """Trace one wave over the wide BVH.
+
+    rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
+    (N, 16, 8) f32; blocks: (B, 10, 256) f32; meta: (N*16,) i32. Returns
+    (t, sid, u, v), each (R,): t = best t (tmax on a miss), sid = block*64
+    + slot of the hit (-1 on a miss; any-hit: 1 if occluded), barycentrics
+    u, v. CPU tensors take the plain version; CUDA tensors the kernel."""
+    if rays.device.type == "cpu":
+        return trace_wide_plain(rays, nodes, blocks, meta, any_hit)
+    if rays.device.type != "cuda":
+        raise ValueError(f"trace_wide: unsupported device {rays.device}")
+    dev = rays.device
+    r = rays.shape[1]
+    _check("rays", rays, torch.float32, (8, r), dev)
+    _check("nodes", nodes, torch.float32, (nodes.shape[0], 16, 8), dev)
+    _check("blocks", blocks, torch.float32, (blocks.shape[0], 10, 256), dev)
+    _check("meta", meta, torch.int32, (nodes.shape[0] * 16,), dev)
+    if meta.shape[0] != nodes.shape[0] * 16:
+        raise ValueError("meta must hold 16 entries per node")
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    sid = torch.empty(r, dtype=torch.int32, device=dev)
+    u = torch.empty(r, dtype=torch.float32, device=dev)
+    v = torch.empty(r, dtype=torch.float32, device=dev)
+    if r == 0:
+        return t, sid, u, v
+    lib = _library()
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.wide_trace_launch(
+            rays.data_ptr(), r, nodes.data_ptr(), blocks.data_ptr(),
+            meta.data_ptr(), int(bool(any_hit)), t.data_ptr(), sid.data_ptr(),
+            u.data_ptr(), v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError("wide_trace kernel launch failed: "
+                           + lib.wide_trace_error_string(rc).decode())
+    LAUNCHES["any" if any_hit else "closest"] += 1
+    return t, sid, u, v
+
+
+def ray_features(rays: torch.Tensor) -> torch.Tensor:
+    """(8, R) rays -> (10, R) MT features [d, o x d, o, 1]."""
+    ox, oy, oz, dx, dy, dz = rays[0], rays[1], rays[2], rays[3], rays[4], rays[5]
+    return torch.stack([dx, dy, dz,
+                        oy * dz - oz * dy,
+                        oz * dx - ox * dz,
+                        ox * dy - oy * dx,
+                        ox, oy, oz, torch.ones_like(ox)])
+
+
+def _no_tf32(device):
+    """The plain version's block product is the "highest" fp32 tier."""
+    if device.type == "cuda":
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        if (torch.backends.cuda.matmul.allow_tf32
+                or torch.backends.cudnn.allow_tf32):
+            raise RuntimeError("TF32 could not be disabled")
+
+
+def trace_wide_plain(rays, nodes, blocks, meta, any_hit: bool,
+                     max_elems: int | None = None):
+    """Plain PyTorch version of `trace_wide`, with the same outputs.
+
+    Brute force over every coefficient block, independent of the tree
+    (`nodes` and `meta` are unused): one fp32 product of the blocks as
+    (B*256, 10) with the features (10, R), chunked over blocks and rays so
+    that no temporary exceeds `max_elems` floats (2^26 = 256 MB on a GPU),
+    then the kernel's accept tests. Closest hit: min t, ties to the lowest
+    block*64 + slot. Only rays with tmax > tmin are traced."""
+    dev = rays.device
+    _no_tf32(dev)
+    r = rays.shape[1]
+    n_blocks = blocks.shape[0]
+    if max_elems is None:
+        max_elems = 1 << (26 if dev.type == "cuda" else 22)
+    t_out = rays[7].clone()
+    sid_out = torch.full((r,), -1, dtype=torch.int32, device=dev)
+    u_out = torch.zeros(r, dtype=torch.float32, device=dev)
+    v_out = torch.zeros(r, dtype=torch.float32, device=dev)
+    live = torch.nonzero(rays[7] > rays[6]).squeeze(1)
+    if live.numel() == 0 or n_blocks == 0:
+        return t_out, sid_out, u_out, v_out
+    feat = ray_features(rays[:, live])
+    tmin, tmax = rays[6, live], rays[7, live]
+    coef = blocks.transpose(1, 2).reshape(n_blocks * 256, 10)
+    nr = max(1, min(live.numel(), max_elems // 256))
+    nb = max(1, min(n_blocks, max_elems // (256 * nr)))
+    for r0 in range(0, live.numel(), nr):
+        fr = feat[:, r0:r0 + nr]
+        k = fr.shape[1]
+        lo, hi = tmin[r0:r0 + k], tmax[r0:r0 + k]
+        best = hi.clone()
+        sid = torch.full((k,), -1, dtype=torch.int64, device=dev)
+        bu = torch.zeros(k, device=dev)
+        bv = torch.zeros(k, device=dev)
+        occ = torch.zeros(k, dtype=torch.bool, device=dev)
+        for b0 in range(0, n_blocks, nb):
+            bcount = min(nb, n_blocks - b0)
+            out = (coef[b0 * 256:(b0 + bcount) * 256] @ fr).view(
+                bcount, 4, 64, k)
+            sign = torch.where(out[:, 0] >= 0.0, 1.0, -1.0)
+            out = out * sign[:, None]
+            ad, us, vs, ts = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+            cull = hi if any_hit else best
+            ok = ((ad > DET_EPS) & (us >= 0.0) & (vs >= 0.0)
+                  & (us + vs <= ad) & (ts > lo * ad) & (ts < cull * ad))
+            if any_hit:
+                occ |= ok.reshape(-1, k).any(dim=0)
+                continue
+            t = torch.where(ok, ts / torch.clamp(ad, min=1e-37), INF)
+            tb, arg = torch.min(t.reshape(-1, k), dim=0)
+            found = tb < best
+            pick = arg[None]
+            iad = 1.0 / torch.clamp(ad.reshape(-1, k).gather(0, pick)[0],
+                                    min=1e-37)
+            bu = torch.where(found, us.reshape(-1, k).gather(0, pick)[0] * iad, bu)
+            bv = torch.where(found, vs.reshape(-1, k).gather(0, pick)[0] * iad, bv)
+            sid = torch.where(found, b0 * 64 + arg, sid)
+            best = torch.where(found, tb, best)
+        idx = live[r0:r0 + k]
+        if any_hit:
+            sid_out[idx] = torch.where(occ, 1, -1).to(torch.int32)
+        else:
+            t_out[idx] = best
+            sid_out[idx] = sid.to(torch.int32)
+            u_out[idx] = bu
+            v_out[idx] = bv
+    return t_out, sid_out, u_out, v_out
+
+
+def _part1by2(x):
+    """Spread 10 bits of x so there are two zero bits between each."""
+    x = x & 0x3FF
+    x = (x | (x << 16)) & 0x030000FF
+    x = (x | (x << 8)) & 0x0300F00F
+    x = (x | (x << 4)) & 0x030C30C3
+    x = (x | (x << 2)) & 0x09249249
+    return x
+
+
+def _ray_sort_key(o, d, lo, inv_extent):
+    """Direction-octant (high bits) + 21-bit Morton code of the origin, in
+    int32 (pallas_trace.py:1295-1314)."""
+    q = torch.clamp((o - lo) * inv_extent, 0.0, 1.0)
+    qi = (q * 127.0).to(torch.int32)
+    morton = (_part1by2(qi[:, 0])
+              | (_part1by2(qi[:, 1]) << 1)
+              | (_part1by2(qi[:, 2]) << 2))
+    octant = ((d[:, 0] < 0).to(torch.int32)
+              + 2 * (d[:, 1] < 0).to(torch.int32)
+              + 4 * (d[:, 2] < 0).to(torch.int32))
+    return (octant << 21) | morton
+
+
+def sort_frame(nodes):
+    """(lo, 1/extent) of the scene for the Morton key, from the root
+    node's valid child slots; nodes: (N, 16, 8)."""
+    root = nodes[0]
+    valid = root[:, 6:7] != -1.0
+    lo = torch.where(valid, root[:, 0:3], 1e30).amin(dim=0)
+    hi = torch.where(valid, root[:, 3:6], -1e30).amax(dim=0)
+    return lo, 1.0 / torch.clamp(hi - lo, 1e-12, 1e30)
+
+
+def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
+                       sort: bool | None = None, trace_fn=trace_wide):
+    """(trace_closest, trace_any) over the packed wide-BVH tensors.
+
+    wnodes: (N, 128) f32 node rows; wtris: (B, 10, 256) f32 coefficient
+    blocks; wmeta: (N*16,) i32 child meta; wslot: (B*64,) i32 slot ->
+    triangle id (None if slot ids are triangle ids). `sort` reorders each
+    wave by octant + Morton key (default: trees of more than 64 nodes).
+    `trace_fn` traces one (8, R) wave: the kernel wrapper `trace_wide`, or
+    `trace_wide_plain` to hold a render to the plain version."""
+    n_nodes = wnodes.shape[0]
+    nodes = wnodes.reshape(n_nodes, 16, 8).contiguous()
+    blocks = wtris.contiguous()
+    meta = wmeta.to(torch.int32).contiguous()
+    slot_map = wslot.long() if wslot is not None else None
+    if sort is None:
+        sort = n_nodes > SORT_MIN_NODES
+
+    scene_lo, inv_extent = sort_frame(nodes)
+
+    def _run(o, d, tmin, tmax, active, any_hit):
+        r = o.shape[0]
+        dev = o.device
+        tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
+        tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
+        if active is not None:
+            tmax = torch.where(active, tmax, tmin - 1.0)
+        perm = None
+        if sort and r >= SORT_MIN_RAYS:
+            key = _ray_sort_key(o, d, scene_lo, inv_extent)
+            if active is not None:
+                key = torch.where(active, key, DEAD_KEY)
+            perm = torch.argsort(key, stable=True)
+            o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
+        rays = torch.stack([o[:, 0], o[:, 1], o[:, 2],
+                            d[:, 0], d[:, 1], d[:, 2], tmin, tmax])
+        t, sid, u, v = trace_fn(rays, nodes, blocks, meta, any_hit)
+        if perm is not None:
+            inv = torch.empty_like(perm)
+            inv[perm] = torch.arange(r, device=dev)
+            t, sid, u, v = t[inv], sid[inv], u[inv], v[inv]
+        if slot_map is not None and not any_hit:
+            sid = torch.where(sid >= 0, slot_map[torch.clamp(sid, min=0).long()]
+                              .to(torch.int32), -1)
+        hit = sid >= 0
+        return HitRecord(t=torch.where(hit, t, INF), tri=sid,
+                         bary=torch.stack([u, v], dim=-1), hit=hit)
+
+    def trace_closest(o, d, tmin, tmax, active=None) -> HitRecord:
+        return _run(o, d, tmin, tmax, active, any_hit=False)
+
+    def trace_any(o, d, tmin, tmax, active=None) -> torch.Tensor:
+        return _run(o, d, tmin, tmax, active, any_hit=True).hit
+
+    return trace_closest, trace_any

@@ -1,0 +1,340 @@
+"""Progressive path-tracing integrator, wavefront over bounces, in torch.
+
+Port of platinum_tpu/render/integrator.py: all rays of a sample advance in
+lockstep through a masked bounce loop (trace -> env/emission -> BSDF
+sample -> NEE shadow trace -> update) with per-lane active masks. The JAX
+`lax.while_loop` is a Python loop that stops after `max_bounces` or when
+no lane is active. The estimator, including its documented deviations
+from the Metal reference, is the JAX package's.
+
+Not ported yet, each raising NotImplementedError until its own change:
+wavefront compaction (`compact=True`), deferred shadows (`fuse_shadow`),
+chunked shading (`chunk_shade`), sample-batched waves (`spp_batch > 1`),
+the breadth-first and binary-BVH tracers (`tracer="bf"/"bvh"`),
+alpha-tested materials, textures, the Z-sampler, two-level instancing and
+the packet-kernel variants (octant order, reduced MT precision, streaming).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from platinum_tpu_torch.models import bsdf as bsdf_mod
+from platinum_tpu_torch.models import lights as lights_mod
+from platinum_tpu_torch.models.camera_rays import spawn_camera_rays
+from platinum_tpu_torch.ops import samplers as smp
+from platinum_tpu_torch.ops.frame import normalize
+from platinum_tpu_torch.ops.hitdata import interpolate_hit
+from platinum_tpu_torch.ops.intersect import make_brute_tracer
+from platinum_tpu_torch.render.types import FlatScene, RenderSettings
+
+RAY_EPS = 1e-3
+
+
+def _check_supported(flat: FlatScene, settings: RenderSettings,
+                     features: frozenset):
+    """Refuse, by name, every option whose path is not ported yet."""
+    todo = []
+    if settings.compact or settings.compact_plan is not None:
+        todo.append("compact=True / compact_plan (wavefront compaction)")
+    if settings.fuse_shadow:
+        todo.append("fuse_shadow")
+    if settings.chunk_shade:
+        todo.append("chunk_shade")
+    if settings.spp_batch > 1:
+        todo.append("spp_batch > 1")
+    if settings.tracer in ("bf", "bvh"):
+        todo.append(f"tracer={settings.tracer!r}")
+    if "alpha" in features:
+        todo.append("alpha-tested (cutout) materials")
+    if flat.atlas is not None:
+        todo.append("textures (ops/texturing.py)")
+    if flat.instances is not None or flat.wbvh_parts is not None:
+        todo.append("instanced or partitioned wide BVHs")
+    if todo:
+        raise NotImplementedError(
+            "not ported to platinum_tpu_torch yet (see ROADMAP queue 1): "
+            + ", ".join(todo))
+
+
+def make_tracers(flat: FlatScene, settings: RenderSettings):
+    """(trace_closest, trace_any) for the scene: the wide-BVH packet
+    tracer for "packet"/"auto" when the scene has one, else brute force."""
+    if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
+        if settings.oct_order or settings.mt_precision != "highest" \
+                or flat.wbvh_stream:
+            raise NotImplementedError(
+                "packet-kernel variants oct_order / mt_precision != "
+                "'highest' / streamed blocks are not ported yet (ROADMAP "
+                "queue 2: K4-K7)")
+        from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
+
+        return make_packet_tracer(flat.wbvh_nodes, flat.wbvh_tris,
+                                  flat.wbvh_meta, flat.wbvh_slot)
+    if settings.tracer in ("bf", "bvh"):
+        raise NotImplementedError(
+            f"tracer={settings.tracer!r} is not ported yet (ROADMAP queue 2)")
+    return make_brute_tracer(flat.geometry)
+
+
+def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx):
+    """Camera rays + fresh path state for one sample of every pixel."""
+    dev = flat.camera.position.device
+    pix = torch.arange(settings.num_pixels, device=dev)
+    n = pix.shape[0]
+    px = pix % settings.width
+    py = pix // settings.width
+
+    stream = smp.make_stream(settings.sampler, px, py, sample_idx)
+    stream, pixel_jitter = stream.next_2d()
+    stream, lens_u = stream.next_2d()
+    o, d = spawn_camera_rays(flat.camera, px, py, pixel_jitter, lens_u)
+
+    return dict(
+        o=o,
+        d=d,
+        L=torch.zeros((n, 3), device=dev),
+        atten=torch.ones((n, 3), device=dev),
+        active=torch.ones((n,), dtype=torch.bool, device=dev),
+        prev_pdf=torch.zeros((n,), device=dev),
+        prev_spec=torch.ones((n,), dtype=torch.bool, device=dev),
+        stream=stream,
+        bounce=0,
+        rays=torch.zeros((), device=dev),
+        slot=torch.arange(n, dtype=torch.int32, device=dev),
+    )
+
+
+def make_bounce_body(flat: FlatScene, settings: RenderSettings,
+                     features: frozenset, tracers=None):
+    """body(state) -> state for ONE bounce of the wavefront loop."""
+    _check_supported(flat, settings, features)
+    trace_closest, trace_any = tracers or make_tracers(flat, settings)
+    geom, mats, lights, env = flat.geometry, flat.materials, flat.lights, flat.env
+    luts = flat.luts
+    multiscatter = bool(settings.flags & 1)
+
+    use_mis = settings.kernel == "mis"
+    env_on = "env" in features
+    lights_on = "area_lights" in features
+    has_env = env.count > 0 if env_on else False
+    has_lights = lights.count > 0 if lights_on else False
+    p_inf = (lights_mod.p_infinite(lights, env) if (env_on and lights_on)
+             else (1.0 if env_on else 0.0))
+
+    def body(s):
+        o, d, atten, L, active = s["o"], s["d"], s["atten"], s["L"], s["active"]
+        stream = s["stream"]
+        bounce = s["bounce"]
+        n = o.shape[0]
+        dev = o.device
+
+        rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
+        hit = rec.hit & active
+        miss = active & ~rec.hit
+
+        # environment + background on miss
+        if env_on:
+            env_le = lights_mod.env_radiance(env, d)
+            if use_mis:
+                env_pdf_full = lights_mod.env_pdf_of_dir(env, d) * p_inf
+                w_env = torch.where(
+                    s["prev_spec"], 1.0,
+                    s["prev_pdf"] / torch.clamp(s["prev_pdf"] + env_pdf_full,
+                                                min=1e-20))
+            else:
+                w_env = torch.ones((n,), device=dev)
+            L = L + torch.where((miss & has_env)[:, None],
+                                atten * env_le * w_env[:, None], 0.0)
+
+        rays_new = s["rays"] + torch.sum(active.to(torch.float32)) * (
+            2.0 if use_mis else 1.0)
+
+        hd = interpolate_hit(geom, rec, o, d)
+        ctx = bsdf_mod.make_shading_context(mats, hd.mat_idx)
+
+        # emission on hit (MIS against NEE)
+        le = bsdf_mod.emitted_radiance(ctx, hd.wo, luts, features=features)
+        if use_mis and lights_on:
+            cos_hit = torch.abs(torch.sum(d * hd.gnormal, dim=-1))
+            dist2_hit = torch.sum((hd.pos - o) ** 2, dim=-1)
+            light_pdf_hit = (
+                (1.0 - p_inf)
+                * (ctx.emission[:, 1] * np.pi
+                   / torch.clamp(lights.total_power, min=1e-20))
+                * dist2_hit / torch.clamp(cos_hit, min=1e-20))
+            w_emit = torch.where(
+                s["prev_spec"] | ~has_lights, 1.0,
+                s["prev_pdf"] / torch.clamp(s["prev_pdf"] + light_pdf_hit,
+                                            min=1e-20))
+        else:
+            w_emit = torch.ones((n,), device=dev)
+        L = L + torch.where(hit[:, None], atten * le * w_emit[:, None], 0.0)
+
+        # BSDF sampling
+        stream, r2 = stream.next_2d()
+        stream, r3 = stream.next_1d()
+        stream, r4 = stream.next_1d()
+        stream, rc = stream.next_2d()
+        r4 = torch.cat([r2, r3[:, None], r4[:, None]], dim=-1)
+        samp = bsdf_mod.sample(ctx, hd.wo, r4, rc, luts,
+                               multiscatter=multiscatter, features=features,
+                               mixture_pdf=settings.mixture_pdf)
+
+        # next-event estimation: the shadow ray is traced right after
+        sh = None
+        if use_mis and (env_on or lights_on):
+            stream, u_nee2 = stream.next_2d()
+            stream, u_sel = stream.next_1d()
+            if env_on and lights_on:
+                use_env_light = (u_sel < p_inf) & has_env
+                u_area = torch.where(
+                    p_inf < 1.0,
+                    (u_sel - p_inf) / torch.clamp(1.0 - p_inf, min=1e-20), 0.0)
+                ls_env = lights_mod.sample_env_light(env, u_nee2)
+                ls_area = lights_mod.sample_area_light(
+                    geom, lights, hd.pos, u_area, u_nee2)
+                sel = use_env_light[:, None]
+                li = torch.where(sel, ls_env.li, ls_area.li)
+                wi_world = torch.where(sel, ls_env.wi, ls_area.wi)
+                dist = torch.where(use_env_light, ls_env.dist, ls_area.dist)
+                l_pdf = torch.where(use_env_light, ls_env.pdf, ls_area.pdf)
+                p_light = torch.where(use_env_light, p_inf,
+                                      (1.0 - p_inf) * ls_area.p_light)
+            elif env_on:
+                lsmp = lights_mod.sample_env_light(env, u_nee2)
+                li, wi_world, dist, l_pdf = lsmp.li, lsmp.wi, lsmp.dist, lsmp.pdf
+                p_light = torch.ones((n,), device=dev)
+            else:
+                lsmp = lights_mod.sample_area_light(geom, lights, hd.pos,
+                                                    u_sel, u_nee2)
+                li, wi_world, dist, l_pdf = lsmp.li, lsmp.wi, lsmp.dist, lsmp.pdf
+                p_light = lsmp.p_light
+
+            wi_local = torch.stack(
+                [torch.sum(wi_world * hd.frame_t, -1),
+                 torch.sum(wi_world * hd.frame_b, -1),
+                 torch.sum(wi_world * hd.normal, -1)], dim=-1)
+            ev = bsdf_mod.evaluate(ctx, hd.wo, wi_local, luts,
+                                   multiscatter=multiscatter,
+                                   features=features)
+            f_nonzero = torch.sum(ev.f * ev.f, dim=-1) > 0.0
+            do_nee = hit & bsdf_mod.wants_nee(ctx) & f_nonzero
+            if env_on and lights_on:
+                do_nee = do_nee & (has_lights | has_env)
+            ld = (li * ev.f * torch.abs(wi_local[..., 2:3])
+                  / torch.clamp(p_light * l_pdf + ev.pdf, min=1e-20)[..., None])
+            sh = dict(org=hd.pos, dir=wi_world,
+                      dist=torch.where(do_nee, dist, 0.0),
+                      ld=torch.where(do_nee[:, None], atten * ld, 0.0),
+                      do=do_nee)
+
+        # continue the path
+        cont = (samp.flags & (bsdf_mod.SAMPLE_REFLECTED
+                              | bsdf_mod.SAMPLE_TRANSMITTED)) != 0
+        pdf_ok = samp.pdf > 0.0
+        atten_new = atten * samp.f * torch.abs(samp.wi[..., 2:3]) / torch.clamp(
+            samp.pdf, min=1e-20)[..., None]
+
+        # Russian roulette after the first bounce (kernel.metal:655-663)
+        stream, u_rr = stream.next_1d()
+        q = torch.clamp(1.0 - torch.amax(atten_new, dim=-1), min=0.0)
+        if bounce == 0:
+            q = torch.zeros_like(q)
+        killed = u_rr < q
+        atten_new = atten_new / torch.clamp(1.0 - q, min=1e-20)[..., None]
+        active_new = hit & cont & pdf_ok & ~killed
+
+        wi_world_next = normalize(hd.frame_t * samp.wi[..., 0:1]
+                                  + hd.frame_b * samp.wi[..., 1:2]
+                                  + hd.normal * samp.wi[..., 2:3])
+
+        if sh is not None:
+            occ = trace_any(sh["org"], sh["dir"], RAY_EPS,
+                            sh["dist"] - RAY_EPS, active=sh["do"])
+            L = L + torch.where((sh["do"] & ~occ)[:, None], sh["ld"], 0.0)
+
+        return dict(
+            o=torch.where(hit[:, None], hd.pos, o),
+            d=torch.where(hit[:, None], wi_world_next, d),
+            L=L,
+            atten=torch.where(active_new[:, None], atten_new, atten),
+            active=active_new,
+            prev_pdf=torch.where(hit, samp.pdf, s["prev_pdf"]),
+            # weight-1 MIS for segments the light strategy cannot reach
+            # (see the JAX integrator's comment at this line)
+            prev_spec=torch.where(
+                hit, ((samp.flags & (bsdf_mod.SAMPLE_SPECULAR
+                                     | bsdf_mod.SAMPLE_TRANSMITTED)) != 0)
+                | ((hd.wo[..., 2] <= -bsdf_mod.MIN_COS)
+                   & (ctx.transmission > 0.0)),
+                s["prev_spec"]),
+            stream=stream,
+            bounce=bounce + 1,
+            rays=rays_new,
+            slot=s["slot"],
+        )
+
+    return body
+
+
+def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
+                  tracers=None, return_stats: bool = False,
+                  features: frozenset = bsdf_mod.ALL_FEATURES):
+    """Trace one sample per pixel; returns (R, 3) radiance. With
+    return_stats also the number of rays traced (closest + shadow).
+    `tracers` overrides the (trace_closest, trace_any) pair."""
+    state = init_path_state(flat, settings, sample_idx)
+    body = make_bounce_body(flat, settings, features, tracers)
+    while state["bounce"] < settings.max_bounces \
+            and bool(state["active"].any()):
+        state = body(state)
+    if return_stats:
+        return state["L"], state["rays"]
+    return state["L"]
+
+
+def render_step(flat: FlatScene, settings: RenderSettings,
+                accum: torch.Tensor, accum_count: int,
+                sample_seed: int | None = None,
+                features: frozenset = bsdf_mod.ALL_FEATURES) -> torch.Tensor:
+    """One progressive spp step: running mean into the (H*W, 3)
+    accumulator. `sample_seed` (default accum_count) seeds the sampler."""
+    if settings.spp_batch > 1:
+        raise NotImplementedError("spp_batch > 1 is not ported yet")
+    if sample_seed is None:
+        sample_seed = accum_count
+    radiance = render_sample(flat, settings, sample_seed, features=features)
+    k = float(accum_count)
+    return (accum * k + radiance) / (k + 1.0)
+
+
+def render_step_n(flat: FlatScene, settings: RenderSettings,
+                  accum: torch.Tensor, accum_count: int, count: int,
+                  features: frozenset = bsdf_mod.ALL_FEATURES) -> torch.Tensor:
+    """`count` progressive spp steps; the same running-mean formula as the
+    JAX render_step_n (sum of the samples, then one blend)."""
+    if settings.spp_batch > 1:
+        raise NotImplementedError("spp_batch > 1 is not ported yet")
+    total = torch.zeros((settings.num_pixels, 3), device=accum.device)
+    for i in range(count):
+        total = total + render_sample(flat, settings, accum_count + i,
+                                      features=features)
+    k = float(accum_count)
+    return (accum * k + total) / (k + float(count))
+
+
+def render(flat: FlatScene, settings: RenderSettings,
+           features: frozenset = bsdf_mod.ALL_FEATURES,
+           spp_per_call: int = 8) -> torch.Tensor:
+    """Render settings.spp samples; (H, W, 3) linear working-space radiance."""
+    accum = torch.zeros((settings.num_pixels, 3),
+                        device=flat.camera.position.device)
+    done = 0
+    while done < settings.spp:
+        n = min(spp_per_call, settings.spp - done)
+        accum = render_step_n(flat, settings, accum, done, n,
+                              features=features)
+        done += n
+    return accum.reshape(settings.height, settings.width, 3)

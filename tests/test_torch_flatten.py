@@ -1,0 +1,83 @@
+"""platinum_tpu_torch flattener and converter vs the JAX package's: every
+array leaf of the FlatScene equal, dtype and values."""
+
+import dataclasses
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+from platinum_tpu.app.scenes import make_colonnade_scene, make_cornell_scene
+from platinum_tpu.render.flatten import analyze_features as janalyze
+from platinum_tpu.render.flatten import flatten_scene as jflatten
+from platinum_tpu.render.types import RenderSettings as JSettings
+from platinum_tpu_torch.convert import flat_from_numpy
+from platinum_tpu_torch.render.flatten import analyze_features, flatten_scene
+from platinum_tpu_torch.render.types import RenderSettings
+
+torch.set_num_threads(1)
+
+SCENES = {
+    "cornell": (make_cornell_scene, dict(width=32, height=32)),
+    # the small colonnade: 29,090 triangles, 139 wide nodes
+    "colonnade_small": (lambda: make_colonnade_scene(sphere_res=(12, 16)),
+                        dict(width=32, height=32, tracer="packet",
+                             instancing="off")),
+}
+
+
+def _leaves(port, ref, path=""):
+    """Yield (path, port tensor, reference numpy) for every array leaf."""
+    for f in dataclasses.fields(port):
+        p, r = getattr(port, f.name), getattr(ref, f.name)
+        name = f"{path}.{f.name}"
+        if dataclasses.is_dataclass(p):
+            yield from _leaves(p, r, name)
+        elif isinstance(p, torch.Tensor):
+            yield name, p, r
+        else:
+            assert p == r or (p is None and r is None), name
+
+
+def _assert_equal(port, ref):
+    n = 0
+    for name, p, r in _leaves(port, ref):
+        r = np.asarray(r)
+        got = p.cpu().numpy()
+        assert got.dtype == r.dtype, (name, got.dtype, r.dtype)
+        assert got.shape == r.shape, (name, got.shape, r.shape)
+        assert np.array_equal(got, r, equal_nan=True), name
+        n += 1
+    return n
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def scene_pair(request):
+    make, kw = SCENES[request.param]
+    scene, cam = make()
+    ref = jax.tree.map(np.asarray, jflatten(scene, cam, JSettings(**kw)))
+    return request.param, scene, cam, kw, ref
+
+
+def test_flatten_matches_jax_leaf_for_leaf(scene_pair):
+    name, scene, cam, kw, ref = scene_pair
+    flat = flatten_scene(scene, cam, RenderSettings(**kw))
+    n = _assert_equal(flat, ref)
+    assert n > 40
+    if name == "colonnade_small":
+        assert flat.geometry.indices.shape[0] == 29_090
+        assert flat.wbvh_nodes.shape[0] == 139
+    assert analyze_features(flat) == janalyze(ref)
+
+
+def test_flat_from_numpy_matches_jax_leaf_for_leaf(scene_pair):
+    _, _, _, _, ref = scene_pair
+    _assert_equal(flat_from_numpy(ref, "cpu"), ref)
+
+
+def test_instanced_flatten_raises_naming_the_roadmap_item():
+    scene, cam = make_colonnade_scene(columns=2, rows=2, sphere_res=(6, 8))
+    with pytest.raises(NotImplementedError, match="instancing"):
+        flatten_scene(scene, cam, RenderSettings(tracer="packet",
+                                                 instancing="auto"))
