@@ -19,7 +19,8 @@ from platinum_tpu_torch.render import types as T
 
 _NESTED = {"geometry": T.Geometry, "materials": T.MaterialTable,
            "lights": T.LightTable, "env": T.EnvironmentLight,
-           "camera": T.CameraConstants, "luts": Luts}
+           "camera": T.CameraConstants, "luts": Luts,
+           "instances": T.InstanceTable}
 
 
 def _leaf(x, device):
@@ -34,10 +35,9 @@ def _convert(src, cls, device):
         v = getattr(src, f.name, None)
         if f.name in _NESTED and v is not None:
             kw[f.name] = _convert(v, _NESTED[f.name], device)
-        elif f.name in ("instances", "wbvh_parts") and v is not None:
+        elif f.name == "wbvh_parts" and v is not None:
             raise NotImplementedError(
-                f"FlatScene.{f.name} (two-level instancing / partitioned "
-                f"BVHs) is not ported yet")
+                "FlatScene.wbvh_parts (partitioned BVHs) is not ported yet")
         else:
             kw[f.name] = _leaf(v, device)
     return cls(**kw)

@@ -1,15 +1,34 @@
-// Closest-hit and any-hit traversal of the 16-wide BVH on Hopper (sm_90a).
+// Closest-hit and any-hit traversal of the 16-wide BVH on Hopper (sm_90a),
+// one-level and two-level (instanced).
 //
 // Replaces the Pallas TPU kernel `_make_kernel` of
-// platinum_tpu/ops/pallas_trace.py (built by `_build_call`), in its two
-// modes on the render path: closest hit (every path wave) and any hit (every
-// NEE shadow wave). The layout contract is platinum_tpu/accel/wide.py's:
+// platinum_tpu/ops/pallas_trace.py (built by `_build_call`) in the four
+// modes on the render paths: closest hit (every path wave, K1) and any hit
+// (every NEE shadow wave, K2) over one tree, and both again over the
+// two-level TLAS/BLAS tree of accel/tlas.py (K3, `n_inst > 0`). The layout
+// contract is platinum_tpu/accel/wide.py's:
 //   nodes  (N, 16, 8) f32  child records [lo.xyz, hi.xyz, meta, pad]
 //   blocks (B, 10, 256) f32 Moller-Trumbore coefficients of 64 triangles,
 //          columns [det x64 | u*det x64 | v*det x64 | t*det x64], rows the
 //          ray features F = [d, o x d, o, 1]
 //   meta   (N*16,) i32     >= 0 inner child row, -1 empty slot,
 //                          <= -2 leaf: val = -meta - 2 = first_block*32 + n
+//                          (instanced: val = inst<<19 | block<<5 | n)
+//   inst_feat (I, 10, 128) f32, instanced only: the instance's 10x10
+//          feature transform T in lanes 0..9, F_object = T F_world
+//
+// Two-level mode (K3). The TLAS rows and every instance's copy of its
+// mesh's BLAS rows are world-space node rows of one tree, so the walk and
+// its slab tests are K1's, in world space. A leaf names its instance; on
+// entering a leaf of another instance than the last, the thread computes
+// the 10 object-space features F_obj = T F_world (100 fp32 FMAs, T read
+// through the read-only cache) and keeps them while the following leaves
+// belong to the same instance. The MT blocks are the mesh library's,
+// shared by all instances of a mesh, tested with F_obj. t is invariant
+// under the transform (the direction is transformed unnormalised), so
+// the running best t culls across instances unchanged; the closest-hit
+// mode also writes the instance of the best hit.
+//
 // What is computed is the TPU kernel's contract, not its packet and
 // superstep schedule: one thread walks one ray with a private node stack
 // (local memory, accel.wide.KERNEL_STACK entries, a bound build_wide_bvh
@@ -18,8 +37,15 @@
 // block with 10-term fp32 dot products on the CUDA cores (the "highest"
 // tier: no TF32, no tensor cores). Closest hit keeps the block's minimum t
 // with ties to the lowest slot and replaces the running best only on a
-// strictly smaller t, as the TPU kernel does; the id returned is
-// block*64 + slot. Any hit returns at the first accepted triangle.
+// strictly smaller t, as the TPU kernel does (the same rule in both
+// levels: an exact-t tie across blocks or instances keeps the one visited
+// first); the id returned is block*64 + slot. Any hit returns at the first
+// accepted triangle.
+//
+// A counting instantiation (kCount) also writes, per ray, the node pops,
+// the (ray, block) MT tests and the instance entries (T F products) it
+// made; chip_smoke.py reads them to compute each mode's least possible
+// time. It is a separate entry point and never on the render path.
 //
 // What bounds it on the card: dependent global-memory loads. Every pop reads
 // a 512-byte node and every leaf a 10 KB block, and the next load's address
@@ -61,22 +87,33 @@ struct Ray {
   float f[10];
 };
 
+// One 64-triangle block's four MT outputs for triangles s0..s0+3, as
+// 10-term fp32 dots of the coefficient rows with the features f.
+__device__ __forceinline__ void block_dots(const float* __restrict__ blk,
+                                           const float* f, int s0,
+                                           float4 a[4]) {
+#pragma unroll
+  for (int q = 0; q < 4; ++q) a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    const float fk = f[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 c = __ldg(reinterpret_cast<const float4*>(
+          blk + k * 256 + q * kBlockTris + s0));
+      a[q].x += c.x * fk; a[q].y += c.y * fk;
+      a[q].z += c.z * fk; a[q].w += c.w * fk;
+    }
+  }
+}
+
 // Any hit in one block: the division-free accept test.
 __device__ __forceinline__ bool block_any(const float* __restrict__ blk,
-                                          const Ray& r) {
+                                          const float* f, float tmin,
+                                          float tmax) {
   for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
-    float4 a[4] = {};
-#pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      const float fk = r.f[k];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 c = __ldg(reinterpret_cast<const float4*>(
-            blk + k * 256 + q * kBlockTris + s0));
-        a[q].x += c.x * fk; a[q].y += c.y * fk;
-        a[q].z += c.z * fk; a[q].w += c.w * fk;
-      }
-    }
+    float4 a[4];
+    block_dots(blk, f, s0, a);
     const float det[4] = {a[0].x, a[0].y, a[0].z, a[0].w};
     const float ud[4] = {a[1].x, a[1].y, a[1].z, a[1].w};
     const float vd[4] = {a[2].x, a[2].y, a[2].z, a[2].w};
@@ -87,7 +124,7 @@ __device__ __forceinline__ bool block_any(const float* __restrict__ blk,
       const float ad = det[j] * s, us = ud[j] * s, vs = vd[j] * s,
                   ts = td[j] * s;
       if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
-          ts > r.tmin * ad && ts < r.tmax * ad)
+          ts > tmin * ad && ts < tmax * ad)
         return true;
     }
   }
@@ -95,27 +132,19 @@ __device__ __forceinline__ bool block_any(const float* __restrict__ blk,
 }
 
 // Closest hit in one block, folded into the running best (strict <).
-__device__ __forceinline__ void block_closest(const float* __restrict__ blk,
-                                              int block, const Ray& r,
-                                              float& best, int& sid,
-                                              float& bu, float& bv) {
+// Returns true when it replaced the best.
+__device__ __forceinline__ bool block_closest(const float* __restrict__ blk,
+                                              int block, const float* f,
+                                              float tmin, float& best,
+                                              int& sid, float& bu,
+                                              float& bv) {
   const float best0 = best;
   float tb = __int_as_float(0x7f800000);  // +inf
   int slot = -1;
   float sel_us = 0.f, sel_vs = 0.f, sel_ad = 0.f;
   for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
-    float4 a[4] = {};
-#pragma unroll
-    for (int k = 0; k < 10; ++k) {
-      const float fk = r.f[k];
-#pragma unroll
-      for (int q = 0; q < 4; ++q) {
-        const float4 c = __ldg(reinterpret_cast<const float4*>(
-            blk + k * 256 + q * kBlockTris + s0));
-        a[q].x += c.x * fk; a[q].y += c.y * fk;
-        a[q].z += c.z * fk; a[q].w += c.w * fk;
-      }
-    }
+    float4 a[4];
+    block_dots(blk, f, s0, a);
     const float det[4] = {a[0].x, a[0].y, a[0].z, a[0].w};
     const float ud[4] = {a[1].x, a[1].y, a[1].z, a[1].w};
     const float vd[4] = {a[2].x, a[2].y, a[2].z, a[2].w};
@@ -126,7 +155,7 @@ __device__ __forceinline__ void block_closest(const float* __restrict__ blk,
       const float ad = det[j] * s, us = ud[j] * s, vs = vd[j] * s,
                   ts = td[j] * s;
       if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
-          ts > r.tmin * ad && ts < best0 * ad) {
+          ts > tmin * ad && ts < best0 * ad) {
         const float t = ts / fmaxf(ad, 1e-37f);
         if (t < tb) {  // ascending slots: ties keep the lowest slot
           tb = t; slot = s0 + j; sel_us = us; sel_vs = vs; sel_ad = ad;
@@ -140,17 +169,21 @@ __device__ __forceinline__ void block_closest(const float* __restrict__ blk,
     sid = block * kBlockTris + slot;
     bu = sel_us * iad;
     bv = sel_vs * iad;
+    return true;
   }
+  return false;
 }
 
-template <bool kAnyHit>
+template <bool kAnyHit, bool kInst, bool kCount>
 __global__ void __launch_bounds__(kThreads)
 wide_trace_kernel(const float* __restrict__ rays, int n_rays,
                   const float* __restrict__ nodes,
                   const float* __restrict__ blocks,
                   const int* __restrict__ meta,
+                  const float* __restrict__ inst_feat,
                   float* __restrict__ t_out, int* __restrict__ sid_out,
-                  float* __restrict__ u_out, float* __restrict__ v_out) {
+                  float* __restrict__ u_out, float* __restrict__ v_out,
+                  int* __restrict__ inst_out, int* __restrict__ counts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
   Ray r;
@@ -172,8 +205,12 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
   r.f[6] = r.ox; r.f[7] = r.oy; r.f[8] = r.oz; r.f[9] = 1.f;
 
   float best = r.tmax, bu = 0.f, bv = 0.f;
-  int sid = -1;
+  int sid = -1, best_inst = 0;
   bool occluded = false;
+  int n_pops = 0, n_tests = 0, n_xforms = 0;
+  // instanced: object-space features of instance cur_inst
+  float fo[10];
+  int cur_inst = -1;
   // A ray with tmax <= tmin (dead lanes carry tmax = tmin - 1) can accept
   // no triangle: skip the walk.
   if (r.tmax > r.tmin) {
@@ -182,6 +219,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
     stack[sp++] = 0;
     for (int pops = 0; sp > 0 && pops < kMaxPops; ++pops) {
       const int n = stack[--sp];
+      if (kCount) ++n_pops;
       const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
       const int* mrow = meta + n * kWidth;
       for (int c = 0; c < kWidth; ++c) {
@@ -203,13 +241,36 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
           continue;
         }
         const int val = -mc - 2;
-        const int b0 = val >> 5, nb = val & 31;
+        const int nb = val & 31;
+        int b0 = val >> 5;
+        const float* f = r.f;
+        int inst = 0;
+        if (kInst) {
+          b0 = (val >> 5) & 0x3FFF;
+          inst = val >> 19;
+          if (inst != cur_inst) {
+            const float* tm = inst_feat + (size_t)inst * 10 * 128;
+#pragma unroll
+            for (int k = 0; k < 10; ++k) {
+              float acc = 0.f;
+#pragma unroll
+              for (int j = 0; j < 10; ++j)
+                acc = fmaf(__ldg(tm + k * 128 + j), r.f[j], acc);
+              fo[k] = acc;
+            }
+            cur_inst = inst;
+            if (kCount) ++n_xforms;
+          }
+          f = fo;
+        }
         for (int j = 0; j < nb; ++j) {
           const float* blk = blocks + (size_t)(b0 + j) * kBlockFloats;
+          if (kCount) ++n_tests;
           if (kAnyHit) {
-            if (block_any(blk, r)) { occluded = true; break; }
-          } else {
-            block_closest(blk, b0 + j, r, best, sid, bu, bv);
+            if (block_any(blk, f, r.tmin, r.tmax)) { occluded = true; break; }
+          } else if (block_closest(blk, b0 + j, f, r.tmin, best, sid, bu,
+                                   bv)) {
+            best_inst = inst;
           }
         }
         if (kAnyHit && occluded) break;
@@ -221,6 +282,46 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
   sid_out[i] = kAnyHit ? (occluded ? 1 : -1) : sid;
   u_out[i] = bu;
   v_out[i] = bv;
+  if (kInst && !kAnyHit) inst_out[i] = best_inst;
+  if (kCount) {
+    counts[i] = n_pops;
+    counts[n_rays + i] = n_tests;
+    counts[2 * n_rays + i] = n_xforms;
+  }
+}
+
+template <bool kAnyHit, bool kInst, bool kCount>
+void launch(const dim3& grid, cudaStream_t s, const float* rays, int n_rays,
+            const float* nodes, const float* blocks, const int* meta,
+            const float* inst_feat, float* t_out, int* sid_out, float* u_out,
+            float* v_out, int* inst_out, int* counts) {
+  wide_trace_kernel<kAnyHit, kInst, kCount><<<grid, kThreads, 0, s>>>(
+      rays, n_rays, nodes, blocks, meta, inst_feat, t_out, sid_out, u_out,
+      v_out, inst_out, counts);
+}
+
+template <bool kCount>
+void dispatch(int any_hit, bool inst, const dim3& grid, cudaStream_t s,
+              const float* rays, int n_rays, const float* nodes,
+              const float* blocks, const int* meta, const float* inst_feat,
+              float* t_out, int* sid_out, float* u_out, float* v_out,
+              int* inst_out, int* counts) {
+  if (any_hit && inst)
+    launch<true, true, kCount>(grid, s, rays, n_rays, nodes, blocks, meta,
+                               inst_feat, t_out, sid_out, u_out, v_out,
+                               inst_out, counts);
+  else if (any_hit)
+    launch<true, false, kCount>(grid, s, rays, n_rays, nodes, blocks, meta,
+                                inst_feat, t_out, sid_out, u_out, v_out,
+                                inst_out, counts);
+  else if (inst)
+    launch<false, true, kCount>(grid, s, rays, n_rays, nodes, blocks, meta,
+                                inst_feat, t_out, sid_out, u_out, v_out,
+                                inst_out, counts);
+  else
+    launch<false, false, kCount>(grid, s, rays, n_rays, nodes, blocks, meta,
+                                 inst_feat, t_out, sid_out, u_out, v_out,
+                                 inst_out, counts);
 }
 
 }  // namespace
@@ -229,19 +330,26 @@ extern "C" {
 
 // Launches one traversal wave on `stream` and returns cudaGetLastError()
 // (0 on success). rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy, dz, tmin,
-// tmax]; outputs (n_rays,) each. Allocates nothing and does not synchronise.
+// tmax]; outputs (n_rays,) each. inst_feat non-null selects the two-level
+// mode, which also writes inst_out in closest-hit mode. counts non-null
+// selects the counting instantiation: (3, n_rays) i32 rows of node pops,
+// MT block tests and instance entries. Allocates nothing and does not
+// synchronise.
 int wide_trace_launch(const float* rays, int n_rays, const float* nodes,
-                      const float* blocks, const int* meta, int any_hit,
-                      float* t_out, int* sid_out, float* u_out, float* v_out,
-                      void* stream) {
+                      const float* blocks, const int* meta,
+                      const float* inst_feat, int any_hit, float* t_out,
+                      int* sid_out, float* u_out, float* v_out,
+                      int* inst_out, int* counts, void* stream) {
   const dim3 grid((n_rays + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (any_hit)
-    wide_trace_kernel<true><<<grid, kThreads, 0, s>>>(
-        rays, n_rays, nodes, blocks, meta, t_out, sid_out, u_out, v_out);
+  const bool inst = inst_feat != nullptr;
+  if (counts != nullptr)
+    dispatch<true>(any_hit, inst, grid, s, rays, n_rays, nodes, blocks, meta,
+                   inst_feat, t_out, sid_out, u_out, v_out, inst_out, counts);
   else
-    wide_trace_kernel<false><<<grid, kThreads, 0, s>>>(
-        rays, n_rays, nodes, blocks, meta, t_out, sid_out, u_out, v_out);
+    dispatch<false>(any_hit, inst, grid, s, rays, n_rays, nodes, blocks,
+                    meta, inst_feat, t_out, sid_out, u_out, v_out, inst_out,
+                    counts);
   return static_cast<int>(cudaGetLastError());
 }
 

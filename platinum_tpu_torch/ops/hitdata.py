@@ -1,9 +1,13 @@
 """Hit-point shading data interpolation.
 
-Port of `interpolate_hit` (platinum_tpu/ops/hitdata.py:47) for world-space
-(baked) geometry: barycentric interpolation of normals and UVs, the
-geometric normal from the edge cross product, the shading frame from
-normal + tangent (+ handedness), and the outgoing direction in it.
+Port of `interpolate_hit` (platinum_tpu/ops/hitdata.py:47): barycentric
+interpolation of normals and UVs, the geometric normal from the edge cross
+product, the shading frame from normal + tangent (+ handedness), and the
+outgoing direction in it. Geometry is world space (instances baked), or on
+the two-level path an object-space mesh library: then `instances` gives
+each lane its instance's linear part A and normal matrix, and the
+material slot of the library row resolves through the per-(instance,
+slot) table.
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ class HitData:
 
 
 def interpolate_hit(geometry: Geometry, rec: HitRecord, o: torch.Tensor,
-                    d: torch.Tensor) -> HitData:
+                    d: torch.Tensor, instances=None) -> HitData:
     tri = torch.where(rec.hit, rec.tri, 0)   # safe index on misses
     u = rec.bary[..., 0:1]
     v = rec.bary[..., 1:2]
@@ -53,6 +57,24 @@ def interpolate_hit(geometry: Geometry, rec: HitRecord, o: torch.Tensor,
     sign = tangent4[..., 3]
     gnormal = frame_ops.normalize(frame_ops.cross(geo[..., 3:6], geo[..., 6:9]))
     mat_idx = geo[..., 9].to(torch.int32)   # value float, see flatten
+
+    if instances is not None and rec.inst is not None:
+        inst = torch.where(rec.hit, rec.inst, 0)
+        irow = lookup.rows(instances.rows, inst)       # (R, 24)
+        a = irow[..., 0:9].reshape(-1, 3, 3)
+        nm = irow[..., 9:18].reshape(-1, 3, 3)
+
+        def xf(m, v):
+            return torch.einsum("rij,rj->ri", m, v)
+
+        normal = frame_ops.normalize(xf(nm, normal))
+        gnormal = frame_ops.normalize(xf(nm, gnormal))
+        tangent = frame_ops.normalize(xf(a, tangent))
+        # the library row holds the material SLOT
+        n_slots = instances.slot_mat.shape[1]
+        flat_ids = inst * n_slots + torch.clamp(mat_idx, 0, n_slots - 1)
+        mat_idx = lookup.rows(instances.slot_mat.reshape(-1, 1),
+                              flat_ids)[..., 0].to(torch.int32)
 
     t = torch.where(rec.hit, rec.t, 0.0)
     pos = o + d * t[..., None]

@@ -25,6 +25,9 @@ class HitRecord:
     tri: torch.Tensor    # (R,) i32 triangle index, -1 on miss
     bary: torch.Tensor   # (R, 2) barycentric (u, v) for vertices 1, 2
     hit: torch.Tensor    # (R,) bool
+    # (R,) i32 instance id, set only by the two-level (TLAS/BLAS) tracer;
+    # None for world-space baked geometry
+    inst: torch.Tensor | None = None
 
 
 def fold_closest(best: HitRecord, rec: HitRecord) -> HitRecord:
@@ -35,6 +38,8 @@ def fold_closest(best: HitRecord, rec: HitRecord) -> HitRecord:
         tri=torch.where(closer, rec.tri, best.tri),
         bary=torch.where(closer[:, None], rec.bary, best.bary),
         hit=best.hit | closer,
+        inst=(torch.where(closer, rec.inst, best.inst)
+              if best.inst is not None else None),
     )
 
 

@@ -1,7 +1,8 @@
 """GGX energy-compensation LUTs: loading and clamp-to-edge sampling.
 
 Torch counterpart of platinum_tpu/ops/luts.py. The tables come from the
-same bundle (platinum_tpu/resources/ggx_luts.npz, chosen exactly as the JAX
+port's copy of the same bundle (platinum_tpu_torch/resources/ggx_luts.npz,
+a copy of platinum_tpu/resources/ggx_luts.npz, chosen exactly as the JAX
 package's `_bundle_path` chooses it); the two coat tables are computed at
 load by the same deterministic quadrature. `get_host_luts()` returns the
 numpy view the flattener bakes per-material energy rows from;
@@ -19,11 +20,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-import platinum_tpu
 from platinum_tpu_torch.render.types import TensorStruct
 
-RESOURCE_DIR = os.path.join(os.path.dirname(platinum_tpu.__file__),
-                            "resources")
+RESOURCE_DIR = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "resources")
 LUT_BUNDLE = os.path.join(RESOURCE_DIR, "ggx_luts.npz")
 LUT_BUNDLE_REF = os.path.join(RESOURCE_DIR, "ggx_luts_ref.npz")
 

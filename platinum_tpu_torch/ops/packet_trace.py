@@ -9,11 +9,15 @@ closest hits map kernel slot ids to triangle ids through `wslot`.
 
 `trace_wide` is the wrapper of the hand-written CUDA kernel
 (csrc/wide_trace.cu), which replaces the TPU kernel `_make_kernel` in its
-closest-hit and any-hit modes. On CUDA tensors it launches the kernel or
-raises; on CPU tensors it runs `trace_wide_plain`, the plain PyTorch
-version: a brute force over the same (B, 10, 256) coefficient blocks with
-the same accept tests, which the tests and chip_smoke.py hold the kernel
-against. The kernel is built with nvcc from the sources in this package at
+closest-hit and any-hit modes over one tree (K1, K2) and over the
+two-level instanced tree of accel/tlas.py (K3, given `inst_feat`). On CUDA
+tensors it launches the kernel or raises; on CPU tensors it runs the plain
+PyTorch version (`trace_wide_plain`, `trace_wide_inst_plain`): a brute
+force over the same (B, 10, 256) coefficient blocks with the same accept
+tests, which the tests and chip_smoke.py hold the kernel against.
+`trace_wide_counts` runs the kernel's counting instantiation (node pops,
+MT block tests, instance entries per ray) for chip_smoke.py's bounds; it
+is not on the render path. The kernel is built with nvcc from the sources in this package at
 first use, into platinum_tpu_torch/_build/, and rebuilt when the source
 hash changes.
 """
@@ -44,8 +48,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
 # Kernel launches per mode, counted where the wrapper launches and nowhere
-# else (chip_smoke.py reads them to show the render went through the kernel)
-LAUNCHES = {"closest": 0, "any": 0}
+# else (chip_smoke.py reads them to show the render went through the
+# kernel): K1 "closest", K2 "any", K3 "inst_closest" and "inst_any"
+LAUNCHES = {"closest": 0, "any": 0, "inst_closest": 0, "inst_any": 0}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -92,7 +97,8 @@ def _library():
             lib.wide_trace_launch.restype = ctypes.c_int
             lib.wide_trace_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p]
             lib.wide_trace_error_string.restype = ctypes.c_char_p
@@ -112,18 +118,11 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def trace_wide(rays, nodes, blocks, meta, any_hit: bool):
-    """Trace one wave over the wide BVH.
-
-    rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
-    (N, 16, 8) f32; blocks: (B, 10, 256) f32; meta: (N*16,) i32. Returns
-    (t, sid, u, v), each (R,): t = best t (tmax on a miss), sid = block*64
-    + slot of the hit (-1 on a miss; any-hit: 1 if occluded), barycentrics
-    u, v. CPU tensors take the plain version; CUDA tensors the kernel."""
-    if rays.device.type == "cpu":
-        return trace_wide_plain(rays, nodes, blocks, meta, any_hit)
-    if rays.device.type != "cuda":
-        raise ValueError(f"trace_wide: unsupported device {rays.device}")
+def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count):
+    """Check the inputs, allocate the outputs and launch one wave of the
+    kernel on the current stream. Returns (t, sid, u, v, inst, counts);
+    inst is None outside the instanced closest-hit mode, counts None
+    unless `count`."""
     dev = rays.device
     r = rays.shape[1]
     _check("rays", rays, torch.float32, (8, r), dev)
@@ -132,24 +131,73 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool):
     _check("meta", meta, torch.int32, (nodes.shape[0] * 16,), dev)
     if meta.shape[0] != nodes.shape[0] * 16:
         raise ValueError("meta must hold 16 entries per node")
+    if inst_feat is not None:
+        _check("inst_feat", inst_feat, torch.float32,
+               (inst_feat.shape[0], 10, 128), dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     sid = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
+    inst = (torch.empty(r, dtype=torch.int32, device=dev)
+            if inst_feat is not None and not any_hit else None)
+    counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
+              if count else None)
     if r == 0:
-        return t, sid, u, v
+        return t, sid, u, v, inst, counts
     lib = _library()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wide_trace_launch(
             rays.data_ptr(), r, nodes.data_ptr(), blocks.data_ptr(),
-            meta.data_ptr(), int(bool(any_hit)), t.data_ptr(), sid.data_ptr(),
-            u.data_ptr(), v.data_ptr(), stream)
+            meta.data_ptr(),
+            inst_feat.data_ptr() if inst_feat is not None else None,
+            int(bool(any_hit)), t.data_ptr(), sid.data_ptr(), u.data_ptr(),
+            v.data_ptr(), inst.data_ptr() if inst is not None else None,
+            counts.data_ptr() if counts is not None else None, stream)
     if rc != 0:
         raise RuntimeError("wide_trace kernel launch failed: "
                            + lib.wide_trace_error_string(rc).decode())
-    LAUNCHES["any" if any_hit else "closest"] += 1
+    return t, sid, u, v, inst, counts
+
+
+def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None):
+    """Trace one wave over the wide BVH.
+
+    rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
+    (N, 16, 8) f32; blocks: (B, 10, 256) f32; meta: (N*16,) i32;
+    inst_feat: (I, 10, 128) f32 feature transforms of an instanced tree
+    (accel.tlas), or None for a one-level tree. Returns (t, sid, u, v),
+    each (R,): t = best t (tmax on a miss), sid = block*64 + slot of the
+    hit (-1 on a miss; any-hit: 1 if occluded), barycentrics u, v; the
+    instanced closest-hit mode adds inst, the instance of the hit. CPU
+    tensors take the plain version; CUDA tensors the kernel."""
+    if rays.device.type == "cpu":
+        if inst_feat is not None:
+            return trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit,
+                                         inst_feat)
+        return trace_wide_plain(rays, nodes, blocks, meta, any_hit)
+    if rays.device.type != "cuda":
+        raise ValueError(f"trace_wide: unsupported device {rays.device}")
+    t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, any_hit,
+                                    inst_feat, count=False)
+    mode = "any" if any_hit else "closest"
+    LAUNCHES[mode if inst_feat is None else "inst_" + mode] += 1
+    if inst_feat is not None and not any_hit:
+        return t, sid, u, v, inst
     return t, sid, u, v
+
+
+def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
+                      inst_feat=None) -> dict:
+    """The work one wave of `trace_wide` does, from the kernel's counting
+    instantiation (CUDA tensors only; not counted in LAUNCHES): total node
+    pops, (ray, block) MT tests and instance entries (T F products)."""
+    if rays.device.type != "cuda":
+        raise ValueError("trace_wide_counts runs the CUDA kernel only")
+    counts = _launch(rays, nodes, blocks, meta, any_hit, inst_feat,
+                     count=True)[5]
+    pops, tests, xforms = counts.long().sum(dim=1).tolist()
+    return {"pops": pops, "mt_tests": tests, "inst_entries": xforms}
 
 
 def ray_features(rays: torch.Tensor) -> torch.Tensor:
@@ -172,9 +220,85 @@ def _no_tf32(device):
             raise RuntimeError("TF32 could not be disabled")
 
 
+def _fold_blocks(coef, b_start, b_end, nb, feat, lo, hi, any_hit, st):
+    """Fold coefficient blocks [b_start, b_end) into the running state st
+    (best, sid, bu, bv, occ, found) of k rays with features feat (10, k):
+    the kernel's accept tests, one fp32 product per chunk of nb blocks,
+    closest hit replacing the best only on a strictly smaller t (ties to
+    the lowest block*64 + slot). st["found"] marks the rays whose best
+    changed in this call."""
+    k = feat.shape[1]
+    st["found"] = torch.zeros(k, dtype=torch.bool, device=feat.device)
+    for b0 in range(b_start, b_end, nb):
+        bcount = min(nb, b_end - b0)
+        out = (coef[b0 * 256:(b0 + bcount) * 256] @ feat).view(
+            bcount, 4, 64, k)
+        sign = torch.where(out[:, 0] >= 0.0, 1.0, -1.0)
+        out = out * sign[:, None]
+        ad, us, vs, ts = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+        cull = hi if any_hit else st["best"]
+        ok = ((ad > DET_EPS) & (us >= 0.0) & (vs >= 0.0)
+              & (us + vs <= ad) & (ts > lo * ad) & (ts < cull * ad))
+        if any_hit:
+            st["occ"] |= ok.reshape(-1, k).any(dim=0)
+            continue
+        t = torch.where(ok, ts / torch.clamp(ad, min=1e-37), INF)
+        tb, arg = torch.min(t.reshape(-1, k), dim=0)
+        found = tb < st["best"]
+        pick = arg[None]
+        iad = 1.0 / torch.clamp(ad.reshape(-1, k).gather(0, pick)[0],
+                                min=1e-37)
+        st["bu"] = torch.where(
+            found, us.reshape(-1, k).gather(0, pick)[0] * iad, st["bu"])
+        st["bv"] = torch.where(
+            found, vs.reshape(-1, k).gather(0, pick)[0] * iad, st["bv"])
+        st["sid"] = torch.where(found, b0 * 64 + arg, st["sid"])
+        st["best"] = torch.where(found, tb, st["best"])
+        st["found"] |= found
+
+
+def _plain_setup(rays, n_blocks, max_elems):
+    """Outputs initialised to misses, the live rays (tmax > tmin), their
+    features and the ray / block chunk sizes of the plain versions."""
+    dev = rays.device
+    _no_tf32(dev)
+    r = rays.shape[1]
+    if max_elems is None:
+        max_elems = 1 << (26 if dev.type == "cuda" else 22)
+    outs = (rays[7].clone(),
+            torch.full((r,), -1, dtype=torch.int32, device=dev),
+            torch.zeros(r, dtype=torch.float32, device=dev),
+            torch.zeros(r, dtype=torch.float32, device=dev))
+    live = torch.nonzero(rays[7] > rays[6]).squeeze(1)
+    nr = max(1, min(live.numel(), max_elems // 256))
+    nb = max(1, min(n_blocks, max_elems // (256 * nr)))
+    return outs, live, nr, nb
+
+
+def _plain_state(hi):
+    k = hi.shape[0]
+    dev = hi.device
+    return {"best": hi.clone(),
+            "sid": torch.full((k,), -1, dtype=torch.int64, device=dev),
+            "bu": torch.zeros(k, device=dev), "bv": torch.zeros(k, device=dev),
+            "occ": torch.zeros(k, dtype=torch.bool, device=dev)}
+
+
+def _plain_store(outs, idx, st, any_hit):
+    t_out, sid_out, u_out, v_out = outs
+    if any_hit:
+        sid_out[idx] = torch.where(st["occ"], 1, -1).to(torch.int32)
+    else:
+        t_out[idx] = st["best"]
+        sid_out[idx] = st["sid"].to(torch.int32)
+        u_out[idx] = st["bu"]
+        v_out[idx] = st["bv"]
+
+
 def trace_wide_plain(rays, nodes, blocks, meta, any_hit: bool,
                      max_elems: int | None = None):
-    """Plain PyTorch version of `trace_wide`, with the same outputs.
+    """Plain PyTorch version of `trace_wide` on a one-level tree (K1, K2),
+    with the same outputs.
 
     Brute force over every coefficient block, independent of the tree
     (`nodes` and `meta` are unused): one fp32 product of the blocks as
@@ -182,65 +306,79 @@ def trace_wide_plain(rays, nodes, blocks, meta, any_hit: bool,
     that no temporary exceeds `max_elems` floats (2^26 = 256 MB on a GPU),
     then the kernel's accept tests. Closest hit: min t, ties to the lowest
     block*64 + slot. Only rays with tmax > tmin are traced."""
-    dev = rays.device
-    _no_tf32(dev)
-    r = rays.shape[1]
     n_blocks = blocks.shape[0]
-    if max_elems is None:
-        max_elems = 1 << (26 if dev.type == "cuda" else 22)
-    t_out = rays[7].clone()
-    sid_out = torch.full((r,), -1, dtype=torch.int32, device=dev)
-    u_out = torch.zeros(r, dtype=torch.float32, device=dev)
-    v_out = torch.zeros(r, dtype=torch.float32, device=dev)
-    live = torch.nonzero(rays[7] > rays[6]).squeeze(1)
+    outs, live, nr, nb = _plain_setup(rays, n_blocks, max_elems)
     if live.numel() == 0 or n_blocks == 0:
-        return t_out, sid_out, u_out, v_out
+        return outs
     feat = ray_features(rays[:, live])
     tmin, tmax = rays[6, live], rays[7, live]
     coef = blocks.transpose(1, 2).reshape(n_blocks * 256, 10)
-    nr = max(1, min(live.numel(), max_elems // 256))
-    nb = max(1, min(n_blocks, max_elems // (256 * nr)))
     for r0 in range(0, live.numel(), nr):
         fr = feat[:, r0:r0 + nr]
         k = fr.shape[1]
         lo, hi = tmin[r0:r0 + k], tmax[r0:r0 + k]
-        best = hi.clone()
-        sid = torch.full((k,), -1, dtype=torch.int64, device=dev)
-        bu = torch.zeros(k, device=dev)
-        bv = torch.zeros(k, device=dev)
-        occ = torch.zeros(k, dtype=torch.bool, device=dev)
-        for b0 in range(0, n_blocks, nb):
-            bcount = min(nb, n_blocks - b0)
-            out = (coef[b0 * 256:(b0 + bcount) * 256] @ fr).view(
-                bcount, 4, 64, k)
-            sign = torch.where(out[:, 0] >= 0.0, 1.0, -1.0)
-            out = out * sign[:, None]
-            ad, us, vs, ts = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
-            cull = hi if any_hit else best
-            ok = ((ad > DET_EPS) & (us >= 0.0) & (vs >= 0.0)
-                  & (us + vs <= ad) & (ts > lo * ad) & (ts < cull * ad))
-            if any_hit:
-                occ |= ok.reshape(-1, k).any(dim=0)
+        st = _plain_state(hi)
+        _fold_blocks(coef, 0, n_blocks, nb, fr, lo, hi, any_hit, st)
+        _plain_store(outs, live[r0:r0 + k], st, any_hit)
+    return outs
+
+
+def instance_block_ranges(meta, n_inst: int):
+    """(I, 2) int64 [first, end) library block range of each instance of
+    an instanced tree, from its leaf metas (inst<<19 | block<<5 | n): the
+    blocks of the instance's mesh, since every block of a mesh is a leaf
+    block of its BLAS."""
+    m = meta.long()
+    val = -m[m <= -2] - 2
+    inst = val >> 19
+    b0 = (val >> 5) & 0x3FFF
+    b1 = b0 + (val & 31)
+    lo = torch.full((n_inst,), 1 << 30, dtype=torch.int64, device=m.device)
+    hi = torch.zeros(n_inst, dtype=torch.int64, device=m.device)
+    lo = lo.scatter_reduce(0, inst, b0, reduce="amin")
+    hi = hi.scatter_reduce(0, inst, b1, reduce="amax")
+    return torch.stack([torch.minimum(lo, hi), hi], dim=1)
+
+
+def trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit: bool,
+                          inst_feat, max_elems: int | None = None):
+    """Plain PyTorch version of `trace_wide` on an instanced tree (K3).
+
+    Independent of the tree's nodes: for every instance, in order, the
+    blocks of its mesh (`instance_block_ranges`) are brute-forced with the
+    ray features transformed by its T (one fp32 (10, 10) x (10, R)
+    product) and K1's accept tests. Closest hit keeps the minimum t, ties
+    to the lowest (instance, block*64 + slot), and adds inst, the
+    instance of the hit (0 on a miss)."""
+    n_inst = inst_feat.shape[0]
+    outs, live, nr, nb = _plain_setup(rays, blocks.shape[0], max_elems)
+    inst_out = torch.zeros(rays.shape[1], dtype=torch.int32,
+                           device=rays.device)
+    if live.numel() == 0 or blocks.shape[0] == 0:
+        return outs if any_hit else (*outs, inst_out)
+    ranges = instance_block_ranges(meta, n_inst).tolist()
+    tmat = inst_feat[:, :, 0:10]
+    feat = ray_features(rays[:, live])
+    tmin, tmax = rays[6, live], rays[7, live]
+    coef = blocks.transpose(1, 2).reshape(blocks.shape[0] * 256, 10)
+    for r0 in range(0, live.numel(), nr):
+        fr = feat[:, r0:r0 + nr]
+        k = fr.shape[1]
+        lo, hi = tmin[r0:r0 + k], tmax[r0:r0 + k]
+        st = _plain_state(hi)
+        best_inst = torch.zeros(k, dtype=torch.int32, device=rays.device)
+        for i, (b_lo, b_hi) in enumerate(ranges):
+            if b_hi <= b_lo:
                 continue
-            t = torch.where(ok, ts / torch.clamp(ad, min=1e-37), INF)
-            tb, arg = torch.min(t.reshape(-1, k), dim=0)
-            found = tb < best
-            pick = arg[None]
-            iad = 1.0 / torch.clamp(ad.reshape(-1, k).gather(0, pick)[0],
-                                    min=1e-37)
-            bu = torch.where(found, us.reshape(-1, k).gather(0, pick)[0] * iad, bu)
-            bv = torch.where(found, vs.reshape(-1, k).gather(0, pick)[0] * iad, bv)
-            sid = torch.where(found, b0 * 64 + arg, sid)
-            best = torch.where(found, tb, best)
+            _fold_blocks(coef, b_lo, b_hi, nb, tmat[i] @ fr, lo, hi,
+                         any_hit, st)
+            if not any_hit:
+                best_inst = torch.where(st["found"], i, best_inst)
         idx = live[r0:r0 + k]
-        if any_hit:
-            sid_out[idx] = torch.where(occ, 1, -1).to(torch.int32)
-        else:
-            t_out[idx] = best
-            sid_out[idx] = sid.to(torch.int32)
-            u_out[idx] = bu
-            v_out[idx] = bv
-    return t_out, sid_out, u_out, v_out
+        _plain_store(outs, idx, st, any_hit)
+        if not any_hit:
+            inst_out[idx] = best_inst
+    return outs if any_hit else (*outs, inst_out)
 
 
 def _part1by2(x):
@@ -278,24 +416,41 @@ def sort_frame(nodes):
 
 
 def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
-                       sort: bool | None = None, trace_fn=trace_wide):
+                       sort: bool | None = None, trace_fn=trace_wide,
+                       inst_feat=None):
     """(trace_closest, trace_any) over the packed wide-BVH tensors.
 
     wnodes: (N, 128) f32 node rows; wtris: (B, 10, 256) f32 coefficient
     blocks; wmeta: (N*16,) i32 child meta; wslot: (B*64,) i32 slot ->
-    triangle id (None if slot ids are triangle ids). `sort` reorders each
-    wave by octant + Morton key (default: trees of more than 64 nodes).
+    triangle id (None if slot ids are triangle ids). `inst_feat` ((I, 10,
+    128) feature transforms, accel.tlas) selects the two-level tree: hit
+    records then carry the instance id. `sort` reorders each wave by
+    octant + Morton key (default: trees of more than 64 nodes).
     `trace_fn` traces one (8, R) wave: the kernel wrapper `trace_wide`, or
-    `trace_wide_plain` to hold a render to the plain version."""
+    `trace_wide_plain` / `trace_wide_inst_plain` to hold a render to the
+    plain version."""
     n_nodes = wnodes.shape[0]
     nodes = wnodes.reshape(n_nodes, 16, 8).contiguous()
     blocks = wtris.contiguous()
     meta = wmeta.to(torch.int32).contiguous()
     slot_map = wslot.long() if wslot is not None else None
+    if inst_feat is not None:
+        inst_feat = inst_feat.to(torch.float32).contiguous()
+    else:
+        # an instanced tree (leaf vals carry inst << 19) traced without
+        # inst_feat would decode garbage block ids; plain block ids never
+        # reach the block count (pallas_trace.py:1414-1424)
+        lv = -meta[meta <= -2].long() - 2
+        if lv.numel() and int((lv >> 5).max()) >= blocks.shape[0]:
+            raise ValueError(
+                "instanced wide-BVH (leaf vals carry instance tags) passed "
+                "without inst_feat; pass the (I, 10, 128) feature "
+                "transforms from accel.tlas / render.flatten")
     if sort is None:
         sort = n_nodes > SORT_MIN_NODES
 
     scene_lo, inv_extent = sort_frame(nodes)
+    extra = () if inst_feat is None else (inst_feat,)
 
     def _run(o, d, tmin, tmax, active, any_hit):
         r = o.shape[0]
@@ -313,17 +468,23 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
             o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
         rays = torch.stack([o[:, 0], o[:, 1], o[:, 2],
                             d[:, 0], d[:, 1], d[:, 2], tmin, tmax])
-        t, sid, u, v = trace_fn(rays, nodes, blocks, meta, any_hit)
+        out = trace_fn(rays, nodes, blocks, meta, any_hit, *extra)
+        t, sid, u, v = out[:4]
+        inst = out[4] if len(out) > 4 else None
         if perm is not None:
             inv = torch.empty_like(perm)
             inv[perm] = torch.arange(r, device=dev)
             t, sid, u, v = t[inv], sid[inv], u[inv], v[inv]
+            if inst is not None:
+                inst = inst[inv]
         if slot_map is not None and not any_hit:
             sid = torch.where(sid >= 0, slot_map[torch.clamp(sid, min=0).long()]
                               .to(torch.int32), -1)
         hit = sid >= 0
         return HitRecord(t=torch.where(hit, t, INF), tri=sid,
-                         bary=torch.stack([u, v], dim=-1), hit=hit)
+                         bary=torch.stack([u, v], dim=-1), hit=hit,
+                         inst=(torch.where(hit, inst, 0)
+                               if inst is not None else None))
 
     def trace_closest(o, d, tmin, tmax, active=None) -> HitRecord:
         return _run(o, d, tmin, tmax, active, any_hit=False)

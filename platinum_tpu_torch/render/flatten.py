@@ -1,11 +1,12 @@
 """Scene -> FlatScene compiler ("the flattener"), torch edition.
 
-Port of the baked (non-instanced) path of platinum_tpu/render/flatten.py
-(:321-585) and `analyze_features` (:811). The host work is the same numpy
-code over the JAX-free scene graph, the BVH builders and the 16-wide
-packer of `platinum_tpu.accel`; the result is a FlatScene of tensors on an
-explicit device. Two-level instancing (ROADMAP queue 1, "instancing with
-K3") and partitioned beyond-budget structures raise NotImplementedError.
+Port of platinum_tpu/render/flatten.py: the baked path (:321-585), the
+two-level instanced path (`_flatten_instanced`, :587-780) and
+`analyze_features` (:811). The host work is the same numpy code over this
+package's copies of the scene graph (core/), the BVH builders, the 16-wide
+packer and the TLAS assembler (accel/); the result is a FlatScene of
+tensors on the card, or on the CPU when asked. Partitioned beyond-budget
+structures (accel/partition.py) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -13,11 +14,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from platinum_tpu.core import colorspace as cs
-from platinum_tpu.core.environment import build_alias_table
-from platinum_tpu.core.material import NUM_TEXTURE_SLOTS, Material, TextureSlot
-from platinum_tpu.core.scene import Scene
-from platinum_tpu.core.texture import Texture
+from platinum_tpu_torch.accel import get_builder
+from platinum_tpu_torch.accel.tlas import build_instanced_bvh
+from platinum_tpu_torch.accel.wide import build_octant_orders, build_wide_bvh
+from platinum_tpu_torch.core import colorspace as cs
+from platinum_tpu_torch.core.environment import build_alias_table
+from platinum_tpu_torch.core.material import NUM_TEXTURE_SLOTS, Material, TextureSlot
+from platinum_tpu_torch.core.scene import Scene
+from platinum_tpu_torch.core.texture import Texture
 from platinum_tpu_torch.ops import luts as luts_mod
 from platinum_tpu_torch.render.types import (
     MAT_ANISOTROPIC,
@@ -28,9 +32,11 @@ from platinum_tpu_torch.render.types import (
     EnvironmentLight,
     FlatScene,
     Geometry,
+    InstanceTable,
     LightTable,
     MaterialTable,
     RenderSettings,
+    resolve_device,
 )
 
 F = np.float32
@@ -307,13 +313,19 @@ def flatten_scene(
     camera_node_id: int | None = None,
     settings: RenderSettings | None = None,
     accel_min_tris: int = 32,
-    device="cpu",
+    device="cuda",
+    host_accel_out: dict | None = None,
 ) -> FlatScene:
-    """Compile `scene` to a FlatScene of tensors on `device`.
+    """Compile `scene` to a FlatScene of tensors on `device` (the card by
+    default; raises when there is none). `host_accel_out`, when a dict,
+    receives the host-side instanced structure ({"ibvh", "mesh_wides",
+    "mesh_tri_base", "instances"}) so that the Renderer can refit an
+    instance's transform without a rebuild.
 
     Leaf for leaf the same arrays as the JAX package's flatten_scene on the
     baked path. Scenes textured (atlas) flatten fine but are refused by
     the integrator until ops/texturing.py is ported."""
+    device = resolve_device(device)
     settings = settings or RenderSettings()
     working = cs.get_colorspace(settings.working_space)
     idt = cs.transform(cs.BT709, working)
@@ -361,10 +373,9 @@ def flatten_scene(
                 for i in instances]
         use_instancing = min(dets) > 1e-12
     if use_instancing:
-        raise NotImplementedError(
-            "two-level instancing is not ported yet (ROADMAP queue 1: "
-            "'instancing with K3'); flatten with RenderSettings("
-            "instancing='off')")
+        return _flatten_instanced(
+            scene, camera_node_id, settings, instances, material_row,
+            texture_entry, mat_ids, tex_assets, idt, device, host_accel_out)
 
     # Geometry: bake instances into world space
     positions, normals, tangents, uvs, indices, tri_mats = [], [], [], [], [], []
@@ -410,8 +421,6 @@ def flatten_scene(
     bvh_arrays = {}
     bvh_host = None
     if len(indices) >= accel_min_tris:
-        from platinum_tpu.accel import get_builder
-
         bvh = bvh_host = get_builder()(
             positions[indices[:, 0]],
             positions[indices[:, 1]],
@@ -471,8 +480,6 @@ def flatten_scene(
         bn[:, 7] = bvh_host.tri_start.astype(np.int32).view(np.float32)
         bn[:, 8] = bvh_host.tri_count.astype(np.int32).view(np.float32)
         bvh_arrays["bvh_nodes"] = _t(bn, device)
-        from platinum_tpu.accel.wide import build_octant_orders, build_wide_bvh
-
         stream = settings.stream == "on" or (
             settings.stream == "auto"
             and len(tri_geo) > settings.partition_tris)
@@ -510,6 +517,181 @@ def flatten_scene(
         atlas_table=_t(atlas_table, device) if atlas_table is not None else None,
         luts=luts_mod.load_luts(device),
         **bvh_arrays,
+    )
+
+
+def _flatten_instanced(scene, camera_node_id, settings, instances,
+                       material_row, texture_entry, mat_ids, tex_assets,
+                       idt, device, host_accel_out=None):
+    """Two-level TLAS/BLAS flatten (JAX `_flatten_instanced`): geometry is
+    an object-space library of the unique meshes (stored once), each
+    instance adds world-space BLAS node rows and a feature-transform
+    matrix (accel.tlas), and shading resolves per-(instance, slot)
+    materials and world transforms per lane (ops.hitdata)."""
+    mesh_index: dict = {}
+    mesh_list: list = []
+    for inst in instances:
+        if id(inst.mesh) not in mesh_index:
+            mesh_index[id(inst.mesh)] = len(mesh_list)
+            mesh_list.append(inst.mesh)
+
+    # mesh library: object space, BVH-ordered, one wide BVH per mesh
+    positions, normals, tangents, uvs, indices = [], [], [], [], []
+    tri_slots, mesh_tri_base, mesh_wides = [], [], []
+    v_off = t_off = 0
+    builder = get_builder()
+    for mesh in mesh_list:
+        p = mesh.positions
+        idx = mesh.indices.astype(np.int64)
+        bvh = builder(p[idx[:, 0]], p[idx[:, 1]], p[idx[:, 2]],
+                      max_leaf=settings.accel_max_leaf)
+        idxm = idx[bvh.tri_order]
+        positions.append(p.astype(F))
+        normals.append(mesh.normals.astype(F))
+        tangents.append(mesh.tangents.astype(F))
+        uvs.append(mesh.uvs.astype(F))
+        indices.append(idxm + v_off)
+        tri_slots.append(mesh.material_slots[bvh.tri_order].astype(np.int32))
+        mesh_tri_base.append(t_off)
+        v0 = p[idxm[:, 0]]
+        tg = np.concatenate([v0, p[idxm[:, 1]] - v0, p[idxm[:, 2]] - v0,
+                             np.zeros((len(idxm), 3), F)], -1).astype(F)
+        mesh_wides.append(build_wide_bvh(bvh, tg,
+                                         leaf_cap=settings.wide_leaf_cap))
+        v_off += mesh.num_vertices
+        t_off += len(idxm)
+
+    positions = np.concatenate(positions)
+    normals = np.concatenate(normals)
+    tangents = np.concatenate(tangents)
+    uvs = np.concatenate(uvs)
+    indices = np.concatenate(indices).astype(np.int32)
+    tri_slots_l = np.concatenate(tri_slots)
+
+    # per-instance tables
+    n_inst = len(instances)
+    max_slots = max(m.num_material_slots for m in mesh_list)
+    inst_rows = np.zeros((n_inst, 24), F)
+    slot_mat = np.zeros((n_inst, max_slots), F)
+    inst_mesh_mat = []
+    for i, inst in enumerate(instances):
+        mi = mesh_index[id(inst.mesh)]
+        m, nm = np.asarray(inst.transform, np.float64), inst.normal_transform
+        inst_mesh_mat.append((mi, m))
+        inst_rows[i, 0:9] = m[:3, :3].reshape(-1)
+        inst_rows[i, 9:18] = np.asarray(nm, np.float64).reshape(-1)
+        inst_rows[i, 18] = float(inst.node_id)
+        for s in range(inst.mesh.num_material_slots):
+            mid = (inst.material_ids[s]
+                   if s < len(inst.material_ids) else None)
+            slot_mat[i, s] = material_row(mid)
+
+    # one resident structure; a projected size over the budget would need
+    # the partitioned structures of accel/partition.py, not ported yet
+    projected = (sum(w.tri_blocks.nbytes for w in mesh_wides)
+                 + sum(mesh_wides[mi].nodes.nbytes + 10 * 128 * 4
+                       for mi, _ in inst_mesh_mat))
+    inst_stream = settings.stream == "on" or (
+        settings.stream == "auto" and projected > settings.partition_bytes)
+    if projected > settings.partition_bytes and not inst_stream:
+        raise NotImplementedError(
+            "partitioned instanced structures (accel/tlas.py "
+            "partition_instanced, accel/partition.py) are not ported yet; "
+            "use RenderSettings(stream='auto') for one structure")
+    ibvh = build_instanced_bvh(mesh_wides, mesh_tri_base, inst_mesh_mat)
+    if host_accel_out is not None:
+        host_accel_out.update(ibvh=ibvh, mesh_wides=mesh_wides,
+                              mesh_tri_base=list(mesh_tri_base),
+                              instances=list(instances))
+
+    materials, flags, emission = _material_arrays(
+        scene, mat_ids, idt, texture_entry, device)
+
+    # lights: world-space emissive triangles, per instance
+    lv0, le1, le2, lem = [], [], [], []
+    for i, inst in enumerate(instances):
+        mi = mesh_index[id(inst.mesh)]
+        base = mesh_tri_base[mi]
+        n_tri = mesh_list[mi].num_triangles
+        slots = tri_slots_l[base:base + n_tri]
+        rows = slot_mat[i, np.clip(slots, 0, max_slots - 1)].astype(np.int64)
+        em = (flags[rows] & MAT_EMISSIVE) != 0
+        if not em.any():
+            continue
+        tr = indices[base:base + n_tri][em]
+        a = np.asarray(inst.transform, np.float64)
+        wp = positions[tr.reshape(-1)] @ a[:3, :3].T + a[:3, 3]
+        wp = wp.reshape(-1, 3, 3).astype(F)
+        lv0.append(wp[:, 0])
+        le1.append(wp[:, 1] - wp[:, 0])
+        le2.append(wp[:, 2] - wp[:, 0])
+        lem.append(emission[rows[em]])
+    if lv0:
+        lights = _light_table(np.concatenate(lv0), np.concatenate(le1),
+                              np.concatenate(le2), np.concatenate(lem),
+                              device)
+    else:
+        z = np.zeros((0, 3), F)
+        lights = _light_table(z, z, z, z, device)
+
+    env_light = _environment_light(scene, idt, device)
+    atlas, atlas_table = _pack_atlas(tex_assets)
+
+    # packed per-triangle library rows
+    tri = indices
+    v0o = positions[tri[:, 0]]
+    t_cnt = len(tri)
+    tri_geo = np.zeros((t_cnt, 12), F)
+    tri_geo[:, 0:3] = v0o
+    tri_geo[:, 3:6] = positions[tri[:, 1]] - v0o
+    tri_geo[:, 6:9] = positions[tri[:, 2]] - v0o
+    tri_geo[:, 9] = tri_slots_l.astype(F)   # SLOT id, resolved per instance
+    tri_shade = np.zeros((t_cnt, 24), F)
+    tri_shade[:, 0:3] = normals[tri[:, 0]]
+    tri_shade[:, 3:6] = normals[tri[:, 1]]
+    tri_shade[:, 6:9] = normals[tri[:, 2]]
+    tri_shade[:, 9:13] = tangents[tri[:, 0]]
+    tri_shade[:, 13:15] = uvs[tri[:, 0]]
+    tri_shade[:, 15:17] = uvs[tri[:, 1]]
+    tri_shade[:, 17:19] = uvs[tri[:, 2]]
+
+    return FlatScene(
+        geometry=Geometry(
+            positions=_t(positions, device),
+            normals=_t(normals, device),
+            tangents=_t(tangents, device),
+            uvs=_t(uvs, device),
+            indices=_t(indices, device),
+            tri_material=_t(tri_slots_l, device),
+            tri_geo=_t(tri_geo, device),
+            tri_shade=_t(tri_shade, device),
+        ),
+        materials=materials,
+        lights=lights,
+        env=env_light,
+        camera=_camera_constants(scene, camera_node_id, settings, device),
+        idt=_t(idt, device),
+        atlas=_t(atlas, device) if atlas is not None else None,
+        atlas_table=_t(atlas_table, device) if atlas_table is not None else None,
+        luts=luts_mod.load_luts(device),
+        wbvh_stream=inst_stream,
+        **_instanced_accel_arrays(ibvh, device),
+        instances=InstanceTable(
+            rows=_t(inst_rows, device),
+            slot_mat=_t(slot_mat, device),
+            feat=_t(ibvh.inst_feat, device),
+        ),
+    )
+
+
+def _instanced_accel_arrays(ibvh, device) -> dict:
+    """FlatScene accel fields of one resident TLAS/BLAS structure."""
+    return dict(
+        wbvh_nodes=_t(ibvh.nodes, device),
+        wbvh_tris=_t(ibvh.tri_blocks, device),
+        wbvh_meta=_t(ibvh.meta, device),
+        wbvh_slot=_t(ibvh.tri_of_slot.astype(np.int32), device),
+        wbvh_order=_t(build_octant_orders(np.asarray(ibvh.nodes)), device),
     )
 
 

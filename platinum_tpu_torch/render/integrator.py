@@ -7,15 +7,23 @@ sample -> NEE shadow trace -> update) with per-lane active masks. The JAX
 no lane is active. The estimator, including its documented deviations
 from the Metal reference, is the JAX package's.
 
+With `settings.compact` the wavefront shrinks on a schedule of
+(cap, bounce_limit) segments (`_compaction_plan`, or a measured plan from
+render/autoplan.py): between segments `_compact_state` keeps a uniform
+random subset of the live lanes, drawn from the same threefry bits as the
+JAX package (ops/threefry.py), so the two select the same lanes.
+
 Not ported yet, each raising NotImplementedError until its own change:
-wavefront compaction (`compact=True`), deferred shadows (`fuse_shadow`),
-chunked shading (`chunk_shade`), sample-batched waves (`spp_batch > 1`),
-the breadth-first and binary-BVH tracers (`tracer="bf"/"bvh"`),
-alpha-tested materials, textures, the Z-sampler, two-level instancing and
-the packet-kernel variants (octant order, reduced MT precision, streaming).
+deferred shadows (`fuse_shadow`), chunked shading (`chunk_shade`),
+sample-batched waves (`spp_batch > 1`), the breadth-first and binary-BVH
+tracers (`tracer="bf"/"bvh"`), alpha-tested materials, textures, the
+Z-sampler, partitioned structures and the packet-kernel variants (octant
+order, reduced MT precision, streaming).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -24,6 +32,7 @@ from platinum_tpu_torch.models import bsdf as bsdf_mod
 from platinum_tpu_torch.models import lights as lights_mod
 from platinum_tpu_torch.models.camera_rays import spawn_camera_rays
 from platinum_tpu_torch.ops import samplers as smp
+from platinum_tpu_torch.ops import threefry
 from platinum_tpu_torch.ops.frame import normalize
 from platinum_tpu_torch.ops.hitdata import interpolate_hit
 from platinum_tpu_torch.ops.intersect import make_brute_tracer
@@ -36,8 +45,6 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
                      features: frozenset):
     """Refuse, by name, every option whose path is not ported yet."""
     todo = []
-    if settings.compact or settings.compact_plan is not None:
-        todo.append("compact=True / compact_plan (wavefront compaction)")
     if settings.fuse_shadow:
         todo.append("fuse_shadow")
     if settings.chunk_shade:
@@ -50,8 +57,8 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
         todo.append("alpha-tested (cutout) materials")
     if flat.atlas is not None:
         todo.append("textures (ops/texturing.py)")
-    if flat.instances is not None or flat.wbvh_parts is not None:
-        todo.append("instanced or partitioned wide BVHs")
+    if flat.wbvh_parts is not None:
+        todo.append("partitioned wide BVHs (accel/partition.py)")
     if todo:
         raise NotImplementedError(
             "not ported to platinum_tpu_torch yet (see ROADMAP queue 1): "
@@ -70,18 +77,28 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
                 "queue 2: K4-K7)")
         from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
 
-        return make_packet_tracer(flat.wbvh_nodes, flat.wbvh_tris,
-                                  flat.wbvh_meta, flat.wbvh_slot)
+        return make_packet_tracer(
+            flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+            inst_feat=(flat.instances.feat
+                       if flat.instances is not None else None))
+    if flat.instances is not None:
+        raise ValueError(
+            "instanced FlatScene requires the packet tracer "
+            "(settings.tracer='packet'/'auto'); rebuild with "
+            "instancing='off' for the brute tracer")
     if settings.tracer in ("bf", "bvh"):
         raise NotImplementedError(
             f"tracer={settings.tracer!r} is not ported yet (ROADMAP queue 2)")
     return make_brute_tracer(flat.geometry)
 
 
-def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx):
-    """Camera rays + fresh path state for one sample of every pixel."""
+def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
+                    pixel_ids=None):
+    """Camera rays + fresh path state for one sample of every pixel, or of
+    the pixels `pixel_ids` (autoplan's probe)."""
     dev = flat.camera.position.device
-    pix = torch.arange(settings.num_pixels, device=dev)
+    pix = (torch.arange(settings.num_pixels, device=dev) if pixel_ids is None
+           else torch.as_tensor(pixel_ids, device=dev).long())
     n = pix.shape[0]
     px = pix % settings.width
     py = pix // settings.width
@@ -151,7 +168,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         rays_new = s["rays"] + torch.sum(active.to(torch.float32)) * (
             2.0 if use_mis else 1.0)
 
-        hd = interpolate_hit(geom, rec, o, d)
+        hd = interpolate_hit(geom, rec, o, d, instances=flat.instances)
         ctx = bsdf_mod.make_shading_context(mats, hd.mat_idx)
 
         # emission on hit (MIS against NEE)
@@ -279,20 +296,124 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
     return body
 
 
+def _take_lanes(x, sel, n: int):
+    """x[sel] for every per-lane tensor of a state leaf (streams are
+    dataclasses of per-lane tensors and scalars); other leaves as they are."""
+    if isinstance(x, torch.Tensor):
+        return x[sel] if x.dim() >= 1 and x.shape[0] == n else x
+    if dataclasses.is_dataclass(x):
+        return dataclasses.replace(x, **{
+            f.name: _take_lanes(getattr(x, f.name), sel, n)
+            for f in dataclasses.fields(x)})
+    return x
+
+
+def _compact_state(state, cap: int, sel_key):
+    """Shrink the wavefront to `cap` lanes (the JAX `_compact_state`).
+
+    Live lanes sort ahead of dead ones under a uniform random key drawn
+    from `sel_key` (threefry, bitwise JAX's), and the first `cap` survive.
+    The sort must be stable: a 2^18-lane draw has thousands of equal keys
+    on u's 2^-23 grid, and jnp.argsort breaks those ties by lane index.
+    When more than `cap` lanes are live, the survivors carry the
+    Horvitz-Thompson weight live/cap on their throughput, which keeps the
+    estimator unbiased. Banked radiance (state["L"], by state["slot"])
+    must be scattered out by the caller first."""
+    n = state["o"].shape[0]
+    active = state["active"]
+    dev = active.device
+    live = torch.sum(active.to(torch.float32))
+    u = threefry.uniform(sel_key, n, dev)
+    sel = torch.argsort(torch.where(active, u, 2.0), stable=True)[:cap]
+    w = torch.clamp(live / float(cap), min=1.0)
+    new = {k: _take_lanes(v, sel, n) for k, v in state.items()}
+    new["atten"] = new["atten"] * w
+    new["L"] = torch.zeros((cap, 3), device=dev)
+    return new
+
+
+def _compaction_plan(n: int, settings: RenderSettings):
+    """[(cap, bounce_limit)] segments (the JAX `_compaction_plan`): full
+    width for two bounces, then halve every two bounces down to n/8 in
+    multiples of 512 lanes; or settings.compact_plan (explicit or measured
+    by render/autoplan.py) with caps scaled to this wave's share of the
+    full wave, clamped to [512, n] and equal-cap segments merged."""
+    if isinstance(settings.compact_plan, str):
+        raise ValueError(
+            "compact_plan='auto' must be resolved before rendering: call "
+            "autoplan.resolve_auto_plan(flat, settings) (Renderer."
+            "start_render and integrator.render do)")
+    if settings.compact_plan is not None and not settings.compact:
+        raise ValueError("compact_plan requires settings.compact=True")
+    if not settings.compact or n < 8192 or settings.max_bounces <= 3:
+        return [(n, settings.max_bounces)]
+    if settings.compact_plan is not None:
+        from platinum_tpu_torch.render import autoplan
+
+        n_full = settings.num_pixels * max(1, settings.spp_batch)
+        scale = n / n_full if n_full > n else 1.0
+
+        def _cap(c):
+            c = int(c)
+            if scale < 1.0:
+                c = -(-int(c * scale) // 512) * 512
+            return min(max(c, 512), n)
+
+        clamped = tuple((_cap(c), int(b)) for c, b in settings.compact_plan)
+        autoplan.validate_plan(clamped, n, settings.max_bounces)
+        merged = []
+        for cap, b in clamped:
+            if merged and merged[-1][0] == cap:
+                merged[-1] = (cap, b)
+            else:
+                merged.append((cap, b))
+        return merged
+    plan = [(n, 2)]
+    cap, b = n, 2
+    while b < settings.max_bounces:
+        cap = max((cap // 2 + 511) // 512 * 512, 512)
+        nb = (min(b + 2, settings.max_bounces) if cap > 512
+              else settings.max_bounces)
+        plan.append((cap, nb))
+        b = nb
+        if cap == 512:
+            break
+    if plan[-1][1] < settings.max_bounces:
+        plan.append((plan[-1][0], settings.max_bounces))
+    return plan
+
+
 def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
                   tracers=None, return_stats: bool = False,
                   features: frozenset = bsdf_mod.ALL_FEATURES):
     """Trace one sample per pixel; returns (R, 3) radiance. With
     return_stats also the number of rays traced (closest + shadow).
-    `tracers` overrides the (trace_closest, trace_any) pair."""
+    `tracers` overrides the (trace_closest, trace_any) pair. With
+    settings.compact the wave shrinks between the plan's segments; lane
+    selection keys on PRNGKey(0) folded with the sample index, then with
+    the segment index, as in the JAX package."""
     state = init_path_state(flat, settings, sample_idx)
     body = make_bounce_body(flat, settings, features, tracers)
-    while state["bounce"] < settings.max_bounces \
-            and bool(state["active"].any()):
-        state = body(state)
+    n = state["o"].shape[0]
+    plan = _compaction_plan(n, settings)
+    out = None
+    if len(plan) > 1:
+        out = torch.zeros((n, 3), device=state["o"].device)
+        base_key = threefry.fold_in(threefry.PRNGKey(0), int(sample_idx))
+    for si, (cap, blimit) in enumerate(plan):
+        if cap < state["o"].shape[0]:
+            out.index_add_(0, state["slot"], state["L"])
+            state = _compact_state(state, cap,
+                                   threefry.fold_in(base_key, si))
+        while state["bounce"] < blimit and bool(state["active"].any()):
+            state = body(state)
+    if out is None:
+        out = state["L"]
+    else:
+        out.index_add_(0, state["slot"], state["L"])
     if return_stats:
-        return state["L"], state["rays"]
-    return state["L"]
+        return out, state["rays"]
+    return out
 
 
 def render_step(flat: FlatScene, settings: RenderSettings,
@@ -328,7 +449,12 @@ def render_step_n(flat: FlatScene, settings: RenderSettings,
 def render(flat: FlatScene, settings: RenderSettings,
            features: frozenset = bsdf_mod.ALL_FEATURES,
            spp_per_call: int = 8) -> torch.Tensor:
-    """Render settings.spp samples; (H, W, 3) linear working-space radiance."""
+    """Render settings.spp samples; (H, W, 3) linear working-space radiance.
+    compact_plan="auto" is resolved here first (render/autoplan.py)."""
+    if settings.compact_plan == "auto":
+        from platinum_tpu_torch.render import autoplan
+
+        settings = autoplan.resolve_auto_plan(flat, settings)
     accum = torch.zeros((settings.num_pixels, 3),
                         device=flat.camera.position.device)
     done = 0

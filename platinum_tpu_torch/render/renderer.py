@@ -2,24 +2,29 @@
 
 Port of the library entry point of platinum_tpu/render/renderer.py
 (README "Library API"): `Renderer(scene)`, `start_render` latches settings
-and flattens the scene onto the device, `render()` advances one
-progressive sample, `status` reports Ready/Busy/Done, `readback()` pulls
-the image to the host and `export_exr` writes it through the shared
-io/exr.py. GMoN buckets raise; the preview ladder, checkpoints, progress
-and timing properties and `export_png` (post stack and tonemap) are not
-ported yet.
+and flattens the scene onto the device (resolving compact_plan="auto"),
+`render()` advances one progressive sample, `status` reports
+Ready/Busy/Done, `readback()` pulls the image to the host, `export_exr`
+writes it through io/exr.py, and `update_instance_transform` refits an
+instanced scene after a transform edit. GMoN buckets raise; the preview
+ladder, checkpoints, progress and timing properties, `export_png` (post
+stack and tonemap) and the partitioned branch of the transform edit are
+not ported yet.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import enum
 
 import numpy as np
 import torch
 
-from platinum_tpu_torch.render import integrator
+from platinum_tpu_torch.accel.tlas import update_instance_transform
+from platinum_tpu_torch.render import autoplan, integrator
 from platinum_tpu_torch.render.flatten import analyze_features, flatten_scene
-from platinum_tpu_torch.render.types import FLAG_GMON, FlatScene, RenderSettings
+from platinum_tpu_torch.render.types import (FLAG_GMON, FlatScene,
+                                             RenderSettings, resolve_device)
 
 
 class RenderStatus(enum.IntFlag):
@@ -29,13 +34,12 @@ class RenderStatus(enum.IntFlag):
 
 
 class Renderer:
-    def __init__(self, scene, device=None):
+    def __init__(self, scene, device="cuda"):
         """`device`: where the scene and the accumulator live (default:
-        the current CUDA device when there is one, else the CPU)."""
+        the current CUDA device; raises when there is none, and runs on
+        the CPU only when asked with device="cpu")."""
         self.scene = scene
-        self.device = torch.device(
-            device if device is not None
-            else ("cuda" if torch.cuda.is_available() else "cpu"))
+        self.device = resolve_device(device)
         self.settings: RenderSettings | None = None
         self.flat: FlatScene | None = None
         self._accum = None
@@ -47,9 +51,14 @@ class Renderer:
         self.settings = settings or self.settings or RenderSettings()
         if self.settings.flags & FLAG_GMON and self.settings.gmon_buckets > 1:
             raise NotImplementedError("GMoN accumulation is not ported yet")
+        self._host_accel = {}
         self.flat = flatten_scene(self.scene, camera_node_id, self.settings,
-                                  device=self.device)
+                                  device=self.device,
+                                  host_accel_out=self._host_accel)
         self._features = analyze_features(self.flat)
+        if self.settings.compact_plan == "auto":
+            self.settings = autoplan.resolve_auto_plan(self.flat,
+                                                       self.settings)
         self._accum = torch.zeros((self.settings.num_pixels, 3),
                                   device=self.device)
         self._accumulated = 0
@@ -62,6 +71,38 @@ class Renderer:
             self.flat, self.settings, self._accum, self._accumulated,
             sample_seed=self._accumulated, features=self._features)
         self._accumulated += 1
+
+    def update_instance_transform(self, node_id: int, transform=None):
+        """Apply a transform edit without rebuilding the BVH (instanced
+        scenes; the JAX Renderer's single-structure branch): the
+        instance's world-space BLAS rows and feature matrix are recomputed,
+        the TLAS is refit in place, the changed tables are uploaded and
+        accumulation restarts. Raises for a scene that is not instanced."""
+        if not self._host_accel or self.flat.instances is None:
+            raise ValueError("scene is not instanced; call start_render()")
+        if transform is not None:
+            self.scene.node(node_id).transform = transform
+        idx = next((i for i, inst in enumerate(self._host_accel["instances"])
+                    if inst.node_id == node_id), None)
+        if idx is None:
+            raise KeyError(f"node {node_id} is not a mesh instance")
+        ibvh = self._host_accel["ibvh"]
+        m = self.scene.world_transform(node_id)
+        update_instance_transform(ibvh, self._host_accel["mesh_wides"], idx, m)
+        a = np.asarray(m[:3, :3], np.float64)
+        rows = self.flat.instances.rows.clone()
+        rows[idx, 0:9] = torch.from_numpy(a.reshape(-1).astype(np.float32))
+        rows[idx, 9:18] = torch.from_numpy(
+            np.linalg.inv(a).T.reshape(-1).astype(np.float32))
+        feat = self.flat.instances.feat.clone()
+        feat[idx] = torch.from_numpy(ibvh.inst_feat[idx]).to(self.device)
+        self.flat = dataclasses.replace(
+            self.flat,
+            wbvh_nodes=torch.from_numpy(ibvh.nodes).to(self.device),
+            instances=dataclasses.replace(self.flat.instances, rows=rows,
+                                          feat=feat))
+        self._accum = torch.zeros_like(self._accum)
+        self._accumulated = 0
 
     @property
     def status(self) -> RenderStatus:
@@ -77,6 +118,6 @@ class Renderer:
         return self._accum.cpu().numpy().reshape(s.height, s.width, 3)
 
     def export_exr(self, path: str):
-        from platinum_tpu.io.exr import write_exr
+        from platinum_tpu_torch.io.exr import write_exr
 
         write_exr(path, self.readback())

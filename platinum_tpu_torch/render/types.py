@@ -25,6 +25,17 @@ FLAG_MULTISCATTER_GGX = 1
 FLAG_GMON = 2
 
 
+def resolve_device(device) -> torch.device:
+    """torch.device(device); a CUDA device must be present (the entry
+    points default to the card and never fall back to the CPU)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: platinum_tpu_torch runs on the GPU by default; "
+            "pass device='cpu' to run on the CPU")
+    return dev
+
+
 def _move(x, device):
     if isinstance(x, torch.Tensor):
         return x.to(device)
@@ -121,10 +132,25 @@ class CameraConstants(TensorStruct):
 
 
 @dataclass(frozen=True)
+class InstanceTable(TensorStruct):
+    """Per-instance data of the two-level (TLAS/BLAS) path (accel.tlas):
+    geometry stays in object space, once per mesh, and shading transforms
+    interpolated vectors per lane with these rows."""
+
+    # (I, 24) f32 [A row-major 9 | normal matrix row-major 9 | node id |
+    # pad 5], A the object -> world linear part
+    rows: torch.Tensor
+    # (I, S) f32 material-table row per (instance, material slot)
+    slot_mat: torch.Tensor
+    # (I, 10, 128) f32 MT feature transforms T in lanes 0..9 (kernel input)
+    feat: torch.Tensor
+
+
+@dataclass(frozen=True)
 class FlatScene(TensorStruct):
     """The flattened scene: same fields as the JAX package's FlatScene.
-    `instances` (two-level instancing) and `wbvh_parts` (partitioned
-    structures) stay None in this package until their tracers are ported."""
+    `wbvh_parts` (partitioned structures) stays None in this package until
+    its tracer is ported."""
 
     geometry: Geometry
     materials: MaterialTable
@@ -150,7 +176,7 @@ class FlatScene(TensorStruct):
     atlas: torch.Tensor | None = None
     atlas_table: torch.Tensor | None = None
     luts: object | None = None   # ops.luts.Luts
-    instances: object | None = None
+    instances: InstanceTable | None = None
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,1 @@
+"""Copies of the JAX package's host modules (platinum_tpu/utils/), numpy only."""

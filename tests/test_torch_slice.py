@@ -26,6 +26,8 @@ from platinum_tpu.render.flatten import analyze_features as janalyze
 from platinum_tpu.render.flatten import flatten_scene as jflatten
 from platinum_tpu.render.renderer import Renderer as JRenderer
 from platinum_tpu.render.types import RenderSettings as JSettings
+from platinum_tpu_torch.app.scenes import (
+    make_cornell_scene as make_port_cornell)
 from platinum_tpu_torch.convert import flat_from_numpy
 from platinum_tpu_torch.render import integrator
 from platinum_tpu_torch.render.flatten import analyze_features
@@ -42,6 +44,11 @@ CONFIGS = {
         lambda: make_colonnade_scene(sphere_res=(12, 16)),
         dict(width=32, height=32, spp=2, max_bounces=8, kernel="mis",
              sampler="halton", tracer="packet", instancing="off")),
+    # two-level instancing: the plain K3 version against K3 in interpret mode
+    "colonnade_small_packet_instanced": (
+        lambda: make_colonnade_scene(sphere_res=(12, 16)),
+        dict(width=32, height=32, spp=2, max_bounces=8, kernel="mis",
+             sampler="halton", tracer="packet", instancing="on")),
     "cornell_brute": (
         make_cornell_scene,
         dict(width=32, height=32, spp=2, max_bounces=8, kernel="mis",
@@ -122,6 +129,7 @@ def test_renderer_api_matches_jax_renderer(tmp_path):
     jr.render_all()
     ref = jr.readback()
 
+    scene, cam = make_port_cornell()
     r = Renderer(scene, device="cpu")
     assert r.status == RenderStatus.READY
     r.start_render(cam, RenderSettings(**kw))
@@ -137,7 +145,7 @@ def test_renderer_api_matches_jax_renderer(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    dict(compact=True), dict(fuse_shadow=True), dict(chunk_shade=64),
+    dict(fuse_shadow=True), dict(chunk_shade=64),
     dict(spp_batch=2), dict(tracer="bvh"), dict(tracer="bf"),
     dict(sampler="z"), dict(oct_order=True), dict(mt_precision="high")])
 def test_unported_options_raise(override):

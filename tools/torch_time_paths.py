@@ -1,0 +1,130 @@
+"""Time the port's render paths on the GPU, step by step, optionally under
+torch.profiler.
+
+    python3 tools/torch_time_paths.py --config headline_compact --spp 8
+    python3 tools/torch_time_paths.py --config instanced --profile
+    python3 tools/torch_time_paths.py --root OTHER_CHECKOUT --config headline
+
+Configs (bench.py's, at 512x512, 8 bounces, mis, halton, the packet
+tracer): `headline` = sponza_class_512 without compaction, `headline_compact`
+= sponza_class_512 (compact=True, compact_plan="auto"), `instanced` =
+sponza_instanced_512 (instancing="on", compact=True). `--root` imports
+platinum_tpu_torch from another checkout, so two versions can be timed in
+turns within one call on one card; a checkout whose port has no scenes
+module of its own takes the colonnade from that checkout's JAX package
+scenes module (numpy only). Prints one JSON line per run: the card and its
+power limit, the per-step wall times (host clock around work that ends in
+a device synchronise; the first step pays first-use set-up), the rays per
+spp (the integrator's own count) and, with --profile, one more spp under
+torch.profiler: device kernel time, busy share, kernel launches and the
+trace kernels' device time. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import os
+import subprocess
+import sys
+import time
+
+CONFIGS = {
+    "headline": dict(compact=False, instancing="off"),
+    "headline_compact": dict(compact=True, compact_plan="auto",
+                             instancing="off"),
+    "instanced": dict(compact=True, instancing="on"),
+}
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="headline")
+    ap.add_argument("--spp", type=int, default=8)
+    ap.add_argument("--profile", action="store_true")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    import platinum_tpu_torch
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.flatten import analyze_features
+    from platinum_tpu_torch.render.renderer import Renderer, RenderStatus
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    if not platinum_tpu_torch.__file__.startswith(root):
+        raise SystemExit(f"imported {platinum_tpu_torch.__file__}, "
+                         f"not the port under {root}")
+    own = os.path.join(root, "platinum_tpu_torch", "app", "scenes.py")
+    scenes = importlib.import_module(
+        "platinum_tpu_torch.app.scenes" if os.path.exists(own)
+        else "platinum_tpu.app.scenes")
+    scene, cam = scenes.make_colonnade_scene()
+    settings = RenderSettings(width=512, height=512, spp=args.spp,
+                              max_bounces=8, kernel="mis", sampler="halton",
+                              tracer="packet", **CONFIGS[args.config])
+    r = Renderer(scene, device="cuda")
+    r.start_render(cam, settings)
+    steps = []
+    while not r.status & RenderStatus.DONE:
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    s = r.settings
+    feats = analyze_features(r.flat)
+    rays = float(integrator.render_sample(r.flat, s, 0, return_stats=True,
+                                          features=feats)[1])
+    out = dict(
+        card=subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True,
+            text=True).stdout.strip(),
+        root=args.root, config=args.config, steps_ms=steps,
+        ms_per_spp=sum(steps[1:]) / max(1, len(steps) - 1),
+        rays_per_spp=rays,
+        # a port from before compaction has no plan: one full-width segment
+        plan=[list(x) for x in getattr(
+            integrator, "_compaction_plan",
+            lambda n, st: [(n, st.max_bounces)])(s.num_pixels, s)])
+    out["mrays_per_s"] = rays / out["ms_per_spp"] / 1e3
+    if args.profile:
+        out.update(_profile(integrator, r, s, feats))
+    print(json.dumps(out), flush=True)
+
+
+def _profile(integrator, r, s, feats):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        integrator.render_sample(r.flat, s, 1, features=feats)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device_us, trace_us, launches = 0.0, {}, 0
+    for ev in prof.key_averages():
+        if ev.key == "cudaLaunchKernel":
+            launches += ev.count
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        dt = ev.self_device_time_total
+        device_us += dt
+        if "wide_trace" in ev.key:
+            trace_us[ev.key[:60]] = [dt / 1e3, ev.count]
+    return dict(profiled_wall_ms=wall, device_kernel_ms=device_us / 1e3,
+                device_busy=device_us / 1e3 / wall, kernel_launches=launches,
+                trace_kernels_ms_count=trace_us)
+
+
+if __name__ == "__main__":
+    main()
