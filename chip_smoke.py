@@ -16,6 +16,26 @@ Phases, one printed block each (any failure exits non-zero):
      certified borderline in float64 (`_borderline`, `_fp32_ambiguous`)
   3b. K3 vs plain: the same for the two-level modes on the colonnade
      flattened with instancing="on"
+  3c. K4 ("high"), K5 ("two_phase") and K7 (octant order)
+     vs plain on the colonnade's camera and bounce waves, as in 3: the
+     16,384-ray subsets, then the whole waves held, timed and counted
+     (K4's certification adds the bf16 split error to the fp32 forward
+     error, and K4's t must equal its plain version's to HIGH_T_RTOL,
+     a few fp32 ulps, wherever the ids agree)
+  3d. K5 and K7 against K1 on the whole waves: hit set and t bit for bit,
+     ids equal outside exact-t ties; every exception printed and
+     certified
+  3e. K4 against K1 on the whole waves with the bars of
+     tests/test_pallas_trace.py:209-220, held on the camera wave (rays from
+     free space, as in that test) and printed for the bounce wave; on both
+     waves K4's t must differ from K1's on >= TIER_DIFF_MIN of the hits
+     where the triangles agree (the tier is not fp32)
+  3f. K6 (streamed blocks) on bistro_class_studio's tree (the colonnade at
+     24x12, 1.08M triangles, flattened with stream="auto") vs plain on
+     16,384-ray subsets of its own 960x540 waves, then on the whole
+     518,400-ray waves, timed and counted, and bit for bit against K1/K2
+     on the same tree (K1/K2 timed there too); the instanced stream modes
+     on the colonnade flattened with instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
      modes must launch
@@ -27,11 +47,24 @@ Phases, one printed block each (any failure exits non-zero):
      camera wave must match a fresh flatten of the moved scene
   4c. the headline with compaction (bench.py's sponza_class_512 cut to
      4 spp): compact=True, compact_plan="auto", instancing="off"
+  4d. sponza_class_512_mt3_knob cut to 4 spp: 4c with mt_precision="high";
+     only K4 ("closest+high") and K2 may launch; the image mean within 1%
+     of 4c's
+  4e. bistro_class_studio at its 4 spp: the 1.08M-triangle colonnade at
+     960x540, 4 bounces, compact=True (static plan), instancing="off",
+     stream="auto"; the tree must stream, and only the K6 modes may
+     launch. Its edit-loop cadence waits for the preview ladder
+  4f. the headline (4c's settings) at 2 spp with neither option (K1), with
+     mt_precision="two_phase" (K5) and with oct_order=True (K7); each
+     launches only its closest mode and K2, and each image mean is within
+     MEAN_RTOL of the K1 render's
   5. K1/K2 kernel path against the plain path end to end: the colonnade
      at 64x64, 1 spp, default tracers vs the plain tracer pair
   5b. the same for the instanced colonnade at 96x96 x 1 spp (9,216 lanes,
      so the static plan compacts) with the plain K3 pair; and
      ops/threefry.uniform on the card bitwise equal to the CPU
+  5c. the same per new mode at 64x64 x 1 spp: "high", "two_phase",
+     oct_order, and stream="on" on the headline colonnade
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -58,9 +91,28 @@ N_CMP = 16_384                     # rays per compared wave
 N_WAVE = 512 * 512                 # rays per main-path wave
 SEED = 20261016
 MOVED_NODE = "col_6_4"             # the column the transform edit moves
+MEAN_TIER_RTOL = 0.01              # 4d: image mean of "high" vs "highest"
+# K4 against its plain version where the ids agree: both form the same
+# exact bf16 products and differ at most in the order of fp32 sums, so t
+# holds to a few ulps (2^-23 = 1.2e-7); the bf16x3-vs-fp32 gap is ~1e-5
+# relative and moves t's bits on ~99.5% of hits (CPU plain versions, small
+# colonnade), so an fp32 K4 fails TIER_DIFF_MIN
+HIGH_T_RTOL = 1e-6
+TIER_DIFF_MIN = 0.9
+BISTRO = dict(columns=24, rows=12)  # bench.py's bistro_class_studio scene
+# bf16 split products per MT dot term of each tier, and the bound on what
+# the "high" split drops per term, relative to |c| |F| (l*l and the split
+# residuals, <= 2^-16, taken with 4x headroom). "default" (1-pass bf16) is
+# not held here: its t errors move hits across node boxes, so its walk
+# and its brute-force plain version disagree by design on scene waves
+# (tests/test_torch_gpu.py holds it on a random soup)
+TIER_PASSES = {"highest": 0, "high": 3, "default": 1, "two_phase": 4}
+SPLIT_REL = {"highest": 0.0, "high": 2.0 ** -14}
 # least-time model (H100 SXM data sheet, 700 W): fp32 outside the tensor
-# cores and HBM3 bandwidth
+# cores, dense bf16 on the tensor cores (the unit the reduced MT tiers
+# exist for) and HBM3 bandwidth
 PEAK_FP32 = 67e12
+PEAK_BF16 = 989e12
 PEAK_BYTES = 3.35e12
 MT_FLOP = 64 * 4 * 10 * 2          # one (ray, block) test: 64 tris x 4 dots
 SLAB_FLOP = 12                     # one child slab test: 6 sub + 6 mul
@@ -114,30 +166,31 @@ def _rays(o, d, tmin, tmax):
                         tmin.expand(r), tmax.expand(r)]).contiguous()
 
 
-def _wave_points(baked, dev):
+def _wave_points(baked, dev, width=512, height=512):
     """World-space wave sources from a numpy seed: camera rays of the
-    512x512 view, N_WAVE surface points with random directions, and
-    segments from the same points to random points on the lights."""
+    width x height view, as many surface points with random directions,
+    and segments from the same points to random points on the lights."""
     from platinum_tpu_torch.render.integrator import init_path_state
     from platinum_tpu_torch.render.types import RenderSettings
 
+    n = width * height
     rng = np.random.default_rng(SEED)
-    st = init_path_state(baked, RenderSettings(width=512, height=512,
+    st = init_path_state(baked, RenderSettings(width=width, height=height,
                                                sampler="halton"), 0)
 
-    def surface_points(table, n):
-        rows = table[torch.from_numpy(rng.integers(0, table.shape[0], n))
+    def surface_points(table, count):
+        rows = table[torch.from_numpy(rng.integers(0, table.shape[0], count))
                      .to(dev)]
-        b = torch.from_numpy(rng.random((n, 2), np.float32)).to(dev)
+        b = torch.from_numpy(rng.random((count, 2), np.float32)).to(dev)
         b = torch.where(b.sum(-1, keepdim=True) > 1.0, 1.0 - b, b)
         return rows[:, 0:3] + rows[:, 3:6] * b[:, 0:1] + rows[:, 6:9] * b[:, 1:2]
 
-    p = surface_points(baked.geometry.tri_geo, N_WAVE)
-    d = torch.from_numpy(rng.normal(size=(N_WAVE, 3)).astype(np.float32)).to(dev)
+    p = surface_points(baked.geometry.tri_geo, n)
+    d = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32)).to(dev)
     d = d / d.norm(dim=-1, keepdim=True)
-    seg = surface_points(baked.lights.packed, N_WAVE) - p
+    seg = surface_points(baked.lights.packed, n) - p
     dist = seg.norm(dim=-1)
-    sample = torch.from_numpy(rng.choice(N_WAVE, N_CMP, replace=False)).to(dev)
+    sample = torch.from_numpy(rng.choice(n, N_CMP, replace=False)).to(dev)
     return dict(cam_o=st["o"], cam_d=st["d"], p=p, d=d, seg=seg / dist[:, None],
                 dist=dist, sample=sample)
 
@@ -204,7 +257,7 @@ def _coef_slots(blocks, meta_slots):
     return c.reshape(10, 4, nb * 64).cpu().numpy(), meta_slots >= 0
 
 
-def _fp32_ambiguous(ray, objects, det_eps=1e-12):
+def _fp32_ambiguous(ray, objects, det_eps=1e-12, tier="highest"):
     """True when some triangle's accept test, or the order of two
     accepted triangles' t, is not decided by fp32 arithmetic: evaluated
     in float64 with a forward error bound for the kernel's own fp32 path
@@ -213,7 +266,10 @@ def _fp32_ambiguous(ray, objects, det_eps=1e-12):
     bound of flipping. This certifies rays that `_borderline`'s fixed
     thresholds miss where the features are ill-conditioned: a ray that
     leaves a surface almost tangentially, far from the world origin, has
-    object-space o x d terms made of cancelling world-space terms.
+    object-space o x d terms made of cancelling world-space terms. At a
+    reduced tier each dot also carries the bf16 split's error,
+    SPLIT_REL[tier] |c| |F|, so the criterion holds the split operands to
+    the same forward-error test.
     objects: [(T (10, 10), coefficients (10, 4, S), valid (S,)), ...]."""
     o, d, tmin, tmax = ray[0:3], ray[3:6], ray[6], ray[7]
     fw = np.concatenate([d, np.cross(o, d), o, [1.0]])
@@ -226,7 +282,8 @@ def _fp32_ambiguous(ray, objects, det_eps=1e-12):
         eo = GAMMA10 * (np.abs(tm) @ np.abs(fw)) + np.abs(tm) @ ew
         c = coef[:, :, valid]
         q = np.einsum("kcn,k->cn", c, fo)
-        e = (GAMMA10 * np.einsum("kcn,k->cn", np.abs(c), np.abs(fo))
+        e = ((GAMMA10 + SPLIT_REL[tier])
+             * np.einsum("kcn,k->cn", np.abs(c), np.abs(fo))
              + np.einsum("kcn,k->cn", np.abs(c), eo))
         s = np.where(q[0] >= 0.0, 1.0, -1.0)
         ad, us, vs, ts = q[0] * s, q[1] * s, q[2] * s, q[3] * s
@@ -273,7 +330,7 @@ def _borderline_instanced(ray, objects):
     return False
 
 
-def _compare(name, k, p, any_hit, rays, certify):
+def _compare(name, k, p, any_hit, rays, certify, t_tol=(T_RTOL, T_ATOL)):
     """Hold kernel outputs k to plain outputs p on the wave `rays`;
     returns max |t_k - t_p| over common hits (closest) or max
     |occluded_k - occluded_p| (any).
@@ -282,8 +339,8 @@ def _compare(name, k, p, any_hit, rays, certify):
     its t ties; >= 99.5% must agree, every ray that does not must be
     certified borderline in float64 (`certify(ray)`: one fp32 summation
     order accepts a grazed triangle the other rejects), and t holds to
-    rtol/atol wherever the ids agree. A fifth output (the instance) must
-    be equal wherever the ids are."""
+    t_tol (rtol, atol) wherever the ids agree. A fifth output (the
+    instance) must be equal wherever the ids are."""
     hk, hp = k[1] >= 0, p[1] >= 0
     both = hk & hp
     same = k[1] == p[1]
@@ -308,9 +365,9 @@ def _compare(name, k, p, any_hit, rays, certify):
         check(bool((k[4][common] == p[4][common]).all()),
               f"{name}: instance ids differ where the triangle ids agree")
     tk, tp = k[0][common], p[0][common]
-    t_ok = torch.isclose(tk, tp, rtol=T_RTOL, atol=T_ATOL)
-    check(bool(t_ok.all()), f"{name}: t differs beyond rtol={T_RTOL} "
-                            f"atol={T_ATOL} on {int((~t_ok).sum())} rays")
+    t_ok = torch.isclose(tk, tp, rtol=t_tol[0], atol=t_tol[1])
+    check(bool(t_ok.all()), f"{name}: t differs beyond rtol={t_tol[0]} "
+                            f"atol={t_tol[1]} on {int((~t_ok).sum())} rays")
     err = float((tk - tp).abs().max()) if common.any() else 0.0
     print(f"  {name}: {agree:.4%} of rays agree, {int(both.sum())} common "
           f"hits, {int((both & ~same & tie).sum())} id differences in t "
@@ -333,77 +390,168 @@ def _time_ms(fn, reps, warm=True):
     return start.elapsed_time(stop) / reps
 
 
-def _bound(counts, n_rays, in_bytes, out_bytes_per_ray):
+def _bound(counts, n_rays, in_bytes, out_bytes_per_ray, tier="highest"):
     """Least time of one wave on the card, in ms: the larger of the
-    operations this run's rays needed over the fp32 peak and the bytes of
-    each input read once and each output written once over HBM's rate."""
-    flops = (counts["mt_tests"] * MT_FLOP + counts["pops"] * 16 * SLAB_FLOP
-             + counts["inst_entries"] * XFORM_FLOP)
+    operations this run's rays needed over their peaks and the bytes of
+    each input read once and each output written once over HBM's rate.
+    Slab tests, instance entries, fp32 MT tests and two_phase's refine
+    tests count at the fp32 peak; a reduced tier's MT tests count as its
+    bf16 products (TIER_PASSES: three for "high", one for "default", four
+    with the magnitude product for two_phase's broad phase) at the dense
+    bf16 tensor-core peak."""
+    fp32 = (counts["pops"] * 16 * SLAB_FLOP
+            + counts["inst_entries"] * XFORM_FLOP
+            + counts["refine_tests"] * MT_FLOP)
+    bf16 = 0
+    if tier == "highest":
+        fp32 += counts["mt_tests"] * MT_FLOP
+    else:
+        bf16 = counts["mt_tests"] * MT_FLOP * TIER_PASSES[tier]
     nbytes = in_bytes + 32 * n_rays + out_bytes_per_ray * n_rays
-    t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+    t_ops = fp32 / PEAK_FP32 + bf16 / PEAK_BF16
+    t_bytes = nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
-            "operations" if t_ops >= t_bytes else "bytes", flops, nbytes)
+            "operations" if t_ops >= t_bytes else "bytes", fp32 + bf16,
+            nbytes)
+
+
+JOBS = (("camera closest", "camera", False),
+        ("bounce closest", "bounce", False),
+        ("shadow any", "shadow", True))
+
+
+def _synced_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
-               inst_feat=None):
-    """Hold the kernel's closest (camera, bounce) and any-hit (shadow)
-    modes on one tree to the plain version: 16,384-ray subsets, then the
-    whole waves, timed and counted. Returns {mode: row fields}."""
+               inst_feat=None, mode=None, jobs=JOBS):
+    """Hold one kernel mode (`mode`: trace_wide's worder / mt_precision /
+    stream) on one tree to its plain version: 16,384-ray subsets, then the
+    whole waves, each timed against its plain version and counted.
+    "high" holds t to HIGH_T_RTOL. Returns ({"closest"/"any": row
+    fields}, {wave: kernel outputs on the whole wave})."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    plain = pt.trace_wide_plain if inst_feat is None else (
-        lambda *a: pt.trace_wide_inst_plain(*a, inst_feat))
-    extra = () if inst_feat is None else (inst_feat,)
-    in_bytes = (nodes.numel() * 4 + blocks.numel() * 4 + meta.numel() * 4
-                + (inst_feat.numel() * 4 if inst_feat is not None else 0))
-    jobs = (("camera closest", "camera", False),
-            ("bounce closest", "bounce", False),
-            ("shadow any", "shadow", True))
+    mode = mode or {}
+    tier = mode.get("mt_precision", "highest")
+    in_bytes = sum(x.numel() * 4 for x in (nodes, blocks, meta, inst_feat,
+                                           mode.get("worder"))
+                   if x is not None)
+    t_tol = (HIGH_T_RTOL, 0.0) if tier == "high" else (T_RTOL, T_ATOL)
     errs = {"closest": 0.0, "any": 0.0}
     for name, wave, any_hit in jobs:
         sub = waves[wave][:, sample].contiguous()
-        k = pt.trace_wide(sub, nodes, blocks, meta, any_hit, *extra)
-        torch.cuda.synchronize()
-        p = plain(sub, nodes, blocks, meta, any_hit)
-        torch.cuda.synchronize()
-        mode = "any" if any_hit else "closest"
-        errs[mode] = max(errs[mode], _compare(f"{label} {name}", k, p,
-                                              any_hit, sub, certify))
-    rows = {}
+        k = pt.trace_wide(sub, nodes, blocks, meta, any_hit, inst_feat,
+                          **mode)
+        p = pt.trace_wide_reference(sub, nodes, blocks, meta, any_hit,
+                                    inst_feat, **mode)
+        kind = "any" if any_hit else "closest"
+        errs[kind] = max(errs[kind], _compare(f"{label} {name}", k, p,
+                                              any_hit, sub, certify, t_tol))
+    rows, outs = {}, {}
     for name, wave, any_hit in jobs:
         rays = waves[wave]
         out = {}
 
         def kernel():
             out["k"] = pt.trace_wide(rays, nodes, blocks, meta, any_hit,
-                                     *extra)
-
-        def run_plain():
-            out["p"] = plain(rays, nodes, blocks, meta, any_hit)
+                                     inst_feat, **mode)
 
         kms = _time_ms(kernel, 20)
-        pms = _time_ms(run_plain, 1, warm=False)
-        mode = "any" if any_hit else "closest"
-        errs[mode] = max(errs[mode], _compare(
-            f"{label} {name} (whole wave)", out["k"], out["p"], any_hit,
-            rays, certify))
+        kind = "any" if any_hit else "closest"
+        p, pms = _synced_ms(lambda: pt.trace_wide_reference(
+            rays, nodes, blocks, meta, any_hit, inst_feat, **mode))
+        errs[kind] = max(errs[kind], _compare(
+            f"{label} {name} (whole wave)", out["k"], p, any_hit, rays,
+            certify, t_tol))
         counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
-                                      *extra)
+                                      inst_feat, **mode)
         out_bytes = 16 + (4 if inst_feat is not None and not any_hit else 0)
         bms, by, flops, nbytes = _bound(counts, rays.shape[1], in_bytes,
-                                        out_bytes)
+                                        out_bytes,
+                                        "highest" if any_hit else tier)
+        outs[wave] = out["k"]
         print(f"  {label} time per {rays.shape[1]}-ray wave, {name}: kernel "
-              f"{kms:.3f} ms, plain {pms:.1f} ms; {counts['pops']} pops, "
-              f"{counts['mt_tests']} MT block tests, "
-              f"{counts['inst_entries']} instance entries -> "
+              f"{kms:.3f} ms, plain {pms:.1f} ms; "
+              f"{counts['pops']} pops, {counts['mt_tests']} MT block tests, "
+              f"{counts['inst_entries']} instance entries, "
+              f"{counts['refine_tests']} fp32 refine / re-walk tests, "
+              f"{counts['rewalks']} rays walked again -> "
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
               f"{bms:.4f} ms by {by}", flush=True)
         if wave != "camera":
-            rows[mode] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
-    for mode in rows:
-        rows[mode]["max_abs_err"] = errs[mode]
-    return rows
+            rows[kind] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+    for kind in rows:
+        rows[kind]["max_abs_err"] = errs[kind]
+    return rows, outs
+
+
+def _bitwise(name, k, ref, rays, certify, caveat=""):
+    """Hold kernel outputs k to a reference mode's on one wave bit for
+    bit: hit set (occlusion) and t equal on every ray, ids (and
+    instances) equal except at exact-t ties, where the two walks may meet
+    the tied blocks in another order. Every other ray is printed and must
+    be certified by `certify`."""
+    hk, hr = k[1] >= 0, ref[1] >= 0
+    both = hk & hr
+    t_diff = both & (k[0].view(torch.int32) != ref[0].view(torch.int32))
+    bad = (hk != hr) | t_diff
+    tie = both & ~t_diff & (k[1] != ref[1])
+    if len(k) > 4:
+        tie = tie | (both & ~t_diff & (k[4] != ref[4]))
+    host = rays.double().cpu().numpy()
+    idx = torch.nonzero(bad).squeeze(1).cpu().tolist()
+    for i in idx:
+        print(f"    exception ray {i}: hit {bool(hk[i])}/{bool(hr[i])}, "
+              f"t {float(k[0][i])!r}/{float(ref[0][i])!r}, id "
+              f"{int(k[1][i])}/{int(ref[1][i])}, certified "
+              f"{certify(host[:, i])}{caveat}", flush=True)
+    uncertified = [i for i in idx if not certify(host[:, i])]
+    check(not uncertified, f"{name}: rays {uncertified[:8]} differ from "
+                           f"the reference without a borderline triangle")
+    print(f"  {name}: hit set and t bit for bit on {rays.shape[1] - len(idx)}"
+          f" of {rays.shape[1]} rays ({len(idx)} certified exceptions), "
+          f"{int(tie.sum())} id differences at exact-t ties", flush=True)
+
+
+def _jax_bars(name, k, ref, hold=True):
+    """K4 against K1 with tests/test_pallas_trace.py:209-220's bars: hit
+    sets agree on > 99.8%, the same triangle on > 99% of common hits, t
+    to rtol 1e-3 / atol 3e-4 there. The bars were set for rays that start
+    in free space; with `hold` False (rays that leave a surface, where the
+    tier's error decides self-intersections near tmin) the numbers are
+    printed and not held."""
+    h1, h2 = ref[1] >= 0, k[1] >= 0
+    agree = (h1 == h2).float().mean().item()
+    common = h1 & h2
+    same = common & (k[1] == ref[1])
+    frac = same.sum().item() / max(1, common.sum().item())
+    ok = torch.isclose(k[0][same], ref[0][same], rtol=1e-3, atol=3e-4)
+    err = float((k[0][same] - ref[0][same]).abs().max())
+    print(f"  {name}: hit sets agree on {agree:.4%}, same triangle on "
+          f"{frac:.4%} of {int(common.sum())} common hits, "
+          f"{int((~ok).sum())} of them beyond the t bar, max |dt| "
+          f"{err:.3e}{'' if hold else ' (reported, not held)'}", flush=True)
+    check(not hold or (agree > 0.998 and frac > 0.99 and bool(ok.all())),
+          f"{name}: outside the bars of tests/test_pallas_trace.py")
+
+
+def _tier_moves_t(name, k, ref):
+    """A reduced tier is not fp32: where K4 and K1 hit the same triangle,
+    K4's t must differ from K1's in its bits on >= TIER_DIFF_MIN of the
+    rays."""
+    same = (ref[1] >= 0) & (k[1] == ref[1])
+    moved = (k[0][same].view(torch.int32)
+             != ref[0][same].view(torch.int32)).float().mean().item()
+    print(f"  {name}: t differs from K1's in its bits on {moved:.4%} of "
+          f"{int(same.sum())} same-triangle hits", flush=True)
+    check(moved >= TIER_DIFF_MIN, f"{name}: t equals K1's on too many hits; "
+                                  f"the tier computes fp32")
 
 
 def phase_k1k2(scene, cam, dev):
@@ -425,14 +573,14 @@ def phase_k1k2(scene, cam, dev):
     tri64 = flat.geometry.tri_geo[:, 0:9].double().cpu().numpy()
     coef, valid = _coef_slots(flat.wbvh_tris, flat.wbvh_slot.cpu().numpy())
     fp32 = [(np.eye(10), coef, valid)]
-    rows = _hold_tree("K1/K2", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
-                      pts["sample"], lambda ray: _borderline(ray, tri64)
-                      or _fp32_ambiguous(ray, fp32))
-    return pts, rows
+    rows, outs = _hold_tree(
+        "K1/K2", nodes, flat.wbvh_tris, flat.wbvh_meta, waves, pts["sample"],
+        lambda ray: _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32))
+    return dict(flat=flat, nodes=nodes, pts=pts, waves=waves, tri64=tri64,
+                fp32=fp32, outs=outs), rows
 
 
 def phase_k3(scene, cam, dev, pts):
-    from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.render.flatten import flatten_scene
     from platinum_tpu_torch.render.types import RenderSettings
 
@@ -451,6 +599,19 @@ def phase_k3(scene, cam, dev, pts):
           f"{int(flat.lights.count)} lights", flush=True)
     nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
     waves = _waves(pts, nodes, dev)
+    rows, _ = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
+                         pts["sample"], _instanced_certify(flat, host),
+                         inst_feat=flat.instances.feat)
+    return rows
+
+
+def _instanced_certify(flat, host):
+    """`certify` for an instanced tree: `_borderline` in each instance's
+    object space, or the fp32 forward-error test through each instance's
+    T (host: flatten_scene's host_accel_out)."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    ibvh = host["ibvh"]
     lib64 = flat.geometry.tri_geo[:, 0:9].double().cpu().numpy()
     coef, valid = _coef_slots(flat.wbvh_tris, flat.wbvh_slot.cpu().numpy())
     tmats = flat.instances.feat[:, :, 0:10].double().cpu().numpy()
@@ -466,11 +627,112 @@ def phase_k3(scene, cam, dev, pts):
                         lib64[base:base + n]))
         sl = slice(ranges[i][0] * 64, ranges[i][1] * 64)
         fp32.append((tmats[i], coef[:, :, sl], valid[sl]))
-    rows = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
-                      pts["sample"],
-                      lambda ray: _borderline_instanced(ray, objects)
-                      or _fp32_ambiguous(ray, fp32),
-                      inst_feat=flat.instances.feat)
+    return (lambda ray: _borderline_instanced(ray, objects)
+            or _fp32_ambiguous(ray, fp32))
+
+
+def phase_variants(ctx):
+    """3c-3e: K4, K5 and K7 on the colonnade's camera and bounce waves."""
+    flat, nodes, waves = ctx["flat"], ctx["nodes"], ctx["waves"]
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    closest = JOBS[:2]
+    rows, outs = {}, {}
+    print("K4, K5, K7 vs plain on the colonnade (3c):", flush=True)
+    for key, mode, tier in (
+            ("K4", dict(mt_precision="high"), "high"),
+            ("K5", dict(mt_precision="two_phase"), "highest"),
+            ("K7", dict(worder=flat.wbvh_order), "highest")):
+        def certify(ray, tier=tier):
+            return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32,
+                                                              tier=tier)
+        rows[key], outs[key] = _hold_tree(
+            key, nodes, blocks, meta, waves, ctx["pts"]["sample"], certify,
+            mode=mode, jobs=closest)
+    print("K5, K7 against K1 on the whole waves (3d):", flush=True)
+    caveat = (" (two_phase keeps two candidate blocks; a third inside the "
+              "bf16x3 bound of the winner is the tier's documented caveat, "
+              "pallas_trace.py:174-177)")
+    for key in ("K5", "K7"):
+        for _, wave, _ in closest:
+            _bitwise(f"{key} {wave}", outs[key][wave], ctx["outs"][wave],
+                     waves[wave],
+                     lambda ray: _borderline(ray, tri64)
+                     or _fp32_ambiguous(ray, fp32),
+                     caveat if key == "K5" else "")
+    print("K4 against K1 on the whole waves (3e):", flush=True)
+    for _, wave, _ in closest:
+        _jax_bars(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave],
+                  hold=wave == "camera")
+        _tier_moves_t(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave])
+    return {k: rows[k]["closest"] for k in ("K4", "K5", "K7")}
+
+
+def phase_stream(scene_small, cam_small, dev, pts_small):
+    """3f: K6 on bistro_class_studio's tree, and the instanced stream
+    modes on the colonnade."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.flatten import flatten_scene
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene(**BISTRO)
+    t0 = time.perf_counter()
+    flat = flatten_scene(scene, cam, RenderSettings(
+        width=960, height=540, tracer="packet", instancing="off",
+        stream="auto"), device=dev)
+    t_flat = time.perf_counter() - t0
+    check(flat.wbvh_stream, "the bistro tree does not stream")
+    print(f"K6 vs plain (3f): bistro colonnade flattened in {t_flat:.2f} s: "
+          f"{flat.geometry.indices.shape[0]} triangles, "
+          f"{flat.wbvh_nodes.shape[0]} wide nodes, "
+          f"{flat.wbvh_tris.shape[0]} MT blocks "
+          f"({flat.wbvh_tris.numel() * 4 / 1e6:.1f} MB), "
+          f"{int(flat.lights.count)} lights, wbvh_stream {flat.wbvh_stream}",
+          flush=True)
+    nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    pts = _wave_points(flat, dev, 960, 540)
+    waves = _waves(pts, nodes, dev)
+    tri64 = flat.geometry.tri_geo[:, 0:9].double().cpu().numpy()
+    coef, valid = _coef_slots(blocks, flat.wbvh_slot.cpu().numpy())
+    fp32 = [(np.eye(10), coef, valid)]
+
+    def certify(ray):
+        return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
+
+    rows, outs = _hold_tree("K6", nodes, blocks, meta, waves, pts["sample"],
+                            certify, mode=dict(stream=True))
+    for name, wave, any_hit in JOBS:
+        ref = {}
+
+        def k1():
+            ref["k"] = pt.trace_wide(waves[wave], nodes, blocks, meta, any_hit)
+
+        kms = _time_ms(k1, 20)
+        print(f"  K1/K2 time per {waves[wave].shape[1]}-ray wave on the "
+              f"bistro tree, {name}: {kms:.3f} ms", flush=True)
+        _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], ref["k"],
+                 waves[wave], certify)
+    del coef, valid, fp32
+
+    host = {}
+    flat = flatten_scene(scene_small, cam_small, RenderSettings(
+        width=512, height=512, tracer="packet", instancing="on",
+        stream="on"), device=dev, host_accel_out=host)
+    check(flat.wbvh_stream, "instancing='on', stream='on' does not stream")
+    nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
+    waves = _waves(pts_small, nodes, dev)
+    inst_certify = _instanced_certify(flat, host)
+    inst_rows, inst_outs = _hold_tree(
+        "K6 instanced", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
+        pts_small["sample"], inst_certify, inst_feat=flat.instances.feat,
+        mode=dict(stream=True))
+    for _, wave, any_hit in JOBS:
+        ref = pt.trace_wide(waves[wave], nodes, flat.wbvh_tris,
+                            flat.wbvh_meta, any_hit, flat.instances.feat)
+        _bitwise(f"K6 instanced against K3, {wave}", inst_outs[wave], ref,
+                 waves[wave], inst_certify)
     return rows
 
 
@@ -511,12 +773,20 @@ def _render_path(label, scene, cam, settings, renderer_device=None):
         exr_bytes = os.path.getsize(path)
     check(exr_bytes > 0, f"{label}: empty EXR")
     plan = integrator._compaction_plan(s.num_pixels, s)
+    ran = {k: v for k, v in launches.items() if v}
     print(f"{label}: {s.width}x{s.height} x {s.spp} spp x {s.max_bounces} "
           f"bounces: {ms_spp:.1f} ms/spp after the first step "
           f"({steps[0] * 1e3:.1f} ms), {rays_spp / ms_spp / 1e3:.2f} Mrays/s "
           f"({rays_spp:.0f} rays/spp), mean {img.mean():.4f}, plan {plan}, "
-          f"launches {launches}, EXR {exr_bytes} bytes", flush=True)
-    return renderer, launches
+          f"launches {ran}, EXR {exr_bytes} bytes", flush=True)
+    return renderer, launches, float(img.mean())
+
+
+def _only(label, launches, allowed):
+    """Every mode in `allowed` launched on the path, and no other."""
+    ran = {k for k, v in launches.items() if v}
+    check(ran == set(allowed),
+          f"{label} launched {sorted(ran)}, expected {sorted(allowed)}")
 
 
 def phase_headline_plain(scene, cam, dev):
@@ -525,8 +795,8 @@ def phase_headline_plain(scene, cam, dev):
     settings = RenderSettings(width=512, height=512, spp=2, max_bounces=8,
                               kernel="mis", sampler="halton",
                               tracer="packet", instancing="off")
-    _, launches = _render_path("headline without compaction", scene, cam,
-                               settings, renderer_device=dev)
+    _, launches, _ = _render_path("headline without compaction", scene,
+                                  cam, settings, renderer_device=dev)
     check(launches["closest"] > 0 and launches["any"] > 0,
           f"the render did not launch both K1/K2 modes: {launches}")
 
@@ -541,8 +811,8 @@ def phase_instanced(scene, cam, dev):
     settings = RenderSettings(width=512, height=512, spp=4, max_bounces=8,
                               kernel="mis", sampler="halton",
                               tracer="packet", compact=True, instancing="on")
-    renderer, launches = _render_path("instanced main path", scene, cam,
-                                      settings)
+    renderer, launches, _ = _render_path("instanced main path", scene, cam,
+                                         settings)
     check(launches["inst_closest"] > 0 and launches["inst_any"] > 0,
           f"the instanced render did not launch both K3 modes: {launches}")
     check(launches["closest"] == 0 and launches["any"] == 0,
@@ -576,66 +846,132 @@ def phase_instanced(scene, cam, dev):
     return launches
 
 
+HEADLINE = dict(width=512, height=512, max_bounces=8, kernel="mis",
+                sampler="halton", tracer="packet", compact=True,
+                instancing="off", compact_plan="auto")
+
+
 def phase_headline_compact(scene, cam):
     from platinum_tpu_torch.render.types import RenderSettings
 
-    settings = RenderSettings(width=512, height=512, spp=4, max_bounces=8,
-                              kernel="mis", sampler="halton",
-                              tracer="packet", compact=True,
-                              instancing="off", compact_plan="auto")
-    renderer, launches = _render_path("headline with compaction", scene, cam,
-                                      settings)
+    settings = RenderSettings(spp=4, **HEADLINE)
+    renderer, launches, mean = _render_path("headline with compaction",
+                                            scene, cam, settings)
     check(isinstance(renderer.settings.compact_plan, tuple),
           f"compact_plan not resolved: {renderer.settings.compact_plan}")
-    check(launches["closest"] > 0 and launches["any"] > 0,
-          f"the headline did not launch both K1/K2 modes: {launches}")
-    check(launches["inst_closest"] == 0 and launches["inst_any"] == 0,
-          f"the headline launched K3: {launches}")
+    _only("the headline", launches, ("closest", "any"))
+    return launches, mean
+
+
+def phase_mt3_knob(scene, cam, head_mean):
+    """4d: sponza_class_512_mt3_knob (bench.py:244-252) cut to 4 spp."""
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    settings = RenderSettings(spp=4, mt_precision="high", **HEADLINE)
+    _, launches, mean = _render_path("sponza_class_512_mt3_knob", scene, cam,
+                                     settings)
+    _only("the mt3 knob", launches, ("closest+high", "any"))
+    rel = abs(mean / head_mean - 1.0)
+    print(f"  image mean {mean:.5f} against 4c's {head_mean:.5f} "
+          f"(rel {rel:.2e})", flush=True)
+    check(rel <= MEAN_TIER_RTOL, "the mt3 knob's mean is off the headline's")
     return launches
 
 
-def _end_to_end(label, flat, settings, plain_fn):
+def phase_bistro():
+    """4e: bistro_class_studio (bench.py:348-380) at its own 4 spp."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene(**BISTRO)
+    settings = RenderSettings(width=960, height=540, spp=4, max_bounces=4,
+                              kernel="mis", sampler="halton",
+                              tracer="packet", compact=True,
+                              instancing="off", stream="auto")
+    renderer, launches, _ = _render_path("bistro_class_studio", scene, cam,
+                                         settings)
+    flat = renderer.flat
+    check(flat.wbvh_stream, "the bistro render did not stream its blocks")
+    print(f"  {flat.geometry.indices.shape[0]} triangles, "
+          f"{flat.wbvh_tris.shape[0]} MT blocks "
+          f"({flat.wbvh_tris.numel() * 4 / 1e6:.1f} MB), wbvh_stream "
+          f"{flat.wbvh_stream}; interact_ms_per_frame (the edit-loop "
+          f"cadence) not measured: it needs the preview ladder, not ported",
+          flush=True)
+    _only("the bistro", launches, ("stream+closest", "stream+any"))
+    return launches
+
+
+def phase_exact_options(scene, cam):
+    """4f: the headline at 2 spp with neither option, with two_phase and
+    with oct_order."""
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    out = {}
+    _, _, base = _render_path("headline at 2 spp (K1)", scene, cam,
+                              RenderSettings(spp=2, **HEADLINE))
+    for label, opt, key in (("two_phase", dict(mt_precision="two_phase"),
+                             "closest+two_phase"),
+                            ("oct_order", dict(oct_order=True),
+                             "closest+oct")):
+        _, launches, mean = _render_path(
+            f"headline at 2 spp with {label}", scene, cam,
+            RenderSettings(spp=2, **opt, **HEADLINE))
+        _only(f"the {label} headline", launches, (key, "any"))
+        rel = abs(mean / base - 1.0)
+        print(f"  image mean {mean:.5f} against K1's {base:.5f} "
+              f"(rel {rel:.2e})", flush=True)
+        check(rel <= MEAN_RTOL, f"the {label} render's mean is off K1's")
+        out[label] = launches
+    return out
+
+
+def _end_to_end(label, flat, settings):
+    """One sample through the default tracers (the kernel) against the
+    same sample through the packet tracer over the plain versions
+    (trace_wide_reference) in the same mode."""
     from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.render.flatten import analyze_features
     from platinum_tpu_torch.render.integrator import render_sample
 
     feats = analyze_features(flat)
     inst_feat = flat.instances.feat if flat.instances is not None else None
-    plain = pt.make_packet_tracer(flat.wbvh_nodes, flat.wbvh_tris,
-                                  flat.wbvh_meta, flat.wbvh_slot,
-                                  trace_fn=plain_fn, inst_feat=inst_feat)
+    plain = pt.make_packet_tracer(
+        flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+        trace_fn=pt.trace_wide_reference, inst_feat=inst_feat,
+        worder=flat.wbvh_order if settings.oct_order else None,
+        stream=flat.wbvh_stream, mt_precision=settings.mt_precision)
+    _zero_launches()
     img_k = render_sample(flat, settings, 0, features=feats).cpu().numpy()
+    ran = {k: v for k, v in _launches().items() if v}
     img_p = render_sample(flat, settings, 0, tracers=plain,
                           features=feats).cpu().numpy()
     close = np.isclose(img_k, img_p, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1)
     rel = abs(img_k.mean() / img_p.mean() - 1.0)
     print(f"{label}: {close.mean():.4%} of pixels within rtol={PIX_RTOL} "
           f"atol={PIX_ATOL} ({int((~close).sum())} outside), mean "
-          f"{img_k.mean():.5f} vs {img_p.mean():.5f} (rel {rel:.2e})",
-          flush=True)
+          f"{img_k.mean():.5f} vs {img_p.mean():.5f} (rel {rel:.2e}), "
+          f"kernel launches {ran}", flush=True)
     check(bool(np.isfinite(img_k).all()), f"{label}: kernel render not finite")
     check(close.mean() >= AGREE, f"{label}: renders differ per pixel")
     check(rel <= MEAN_RTOL, f"{label}: render means differ")
 
 
 def phase_end_to_end(scene, cam, dev):
-    from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.ops import threefry
     from platinum_tpu_torch.render.flatten import flatten_scene
     from platinum_tpu_torch.render.types import RenderSettings
 
-    settings = RenderSettings(width=64, height=64, spp=1, max_bounces=8,
-                              kernel="mis", sampler="halton",
-                              tracer="packet", instancing="off")
-    _end_to_end("end to end K1/K2 64x64x1",
-                flatten_scene(scene, cam, settings, device=dev), settings,
-                pt.trace_wide_plain)
+    small = dict(width=64, height=64, spp=1, max_bounces=8, kernel="mis",
+                 sampler="halton", tracer="packet", instancing="off")
+    settings = RenderSettings(**small)
+    flat = flatten_scene(scene, cam, settings, device=dev)
+    _end_to_end("end to end K1/K2 64x64x1", flat, settings)
     settings = RenderSettings(width=96, height=96, spp=1, max_bounces=8,
                               kernel="mis", sampler="halton",
                               tracer="packet", compact=True, instancing="on")
     _end_to_end("end to end K3 96x96x1, compacted",
-                flatten_scene(scene, cam, settings, device=dev), settings,
-                pt.trace_wide_inst_plain)
+                flatten_scene(scene, cam, settings, device=dev), settings)
     key = threefry.fold_in(threefry.fold_in(threefry.PRNGKey(0), 3), 1)
     gpu = threefry.uniform(key, N_WAVE, dev).cpu()
     cpu = threefry.uniform(key, N_WAVE, "cpu")
@@ -643,39 +979,69 @@ def phase_end_to_end(scene, cam, dev):
           "threefry draws on the card differ from the CPU")
     print(f"threefry: {N_WAVE} uniforms on the card bitwise equal to the CPU",
           flush=True)
+    # 5c: each new mode's kernel path against its plain path
+    for label, opt in (("K4 high", dict(mt_precision="high")),
+                       ("K5 two_phase", dict(mt_precision="two_phase")),
+                       ("K7 oct_order", dict(oct_order=True))):
+        settings = RenderSettings(**small, **opt)
+        _end_to_end(f"end to end {label} 64x64x1", flat, settings)
+    settings = RenderSettings(**dict(small, stream="on"))
+    _end_to_end("end to end K6 stream='on' 64x64x1",
+                flatten_scene(scene, cam, settings, device=dev), settings)
 
 
 def main():
+    t_start = time.perf_counter()
     dev = phase_device()
     phase_build()
     from platinum_tpu_torch.app.scenes import make_colonnade_scene
 
     scene, cam = make_colonnade_scene()
-    pts, k12 = phase_k1k2(scene, cam, dev)
-    k3 = phase_k3(scene, cam, dev, pts)
+    ctx, k12 = phase_k1k2(scene, cam, dev)
+    k3 = phase_k3(scene, cam, dev, ctx["pts"])
+    k457 = phase_variants(ctx)
+    k6 = phase_stream(scene, cam, dev, ctx["pts"])
+    del ctx
     phase_headline_plain(scene, cam, dev)
     inst_launches = phase_instanced(scene, cam, dev)
     scene, cam = make_colonnade_scene()   # the column moved above
-    head_launches = phase_headline_compact(scene, cam)
+    head_launches, head_mean = phase_headline_compact(scene, cam)
+    knob_launches = phase_mt3_knob(scene, cam, head_mean)
+    bistro_launches = phase_bistro()
+    exact_launches = phase_exact_options(scene, cam)
     phase_end_to_end(scene, cam, dev)
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
-    table = (("wide_trace closest (K1)", "platinum_tpu/ops/pallas_trace.py:99",
+    pallas = "platinum_tpu/ops/pallas_trace.py"
+    table = (("wide_trace closest (K1)", f"{pallas}:99",
               k12["closest"], head_launches["closest"]),
-             ("wide_trace any-hit (K2)", "platinum_tpu/ops/pallas_trace.py:399",
+             ("wide_trace any-hit (K2)", f"{pallas}:399",
               k12["any"], head_launches["any"]),
-             ("wide_trace instanced closest (K3)",
-              "platinum_tpu/ops/pallas_trace.py:358",
+             ("wide_trace instanced closest (K3)", f"{pallas}:358",
               k3["closest"], inst_launches["inst_closest"]),
-             ("wide_trace instanced any-hit (K3)",
-              "platinum_tpu/ops/pallas_trace.py:358",
-              k3["any"], inst_launches["inst_any"]))
+             ("wide_trace instanced any-hit (K3)", f"{pallas}:358",
+              k3["any"], inst_launches["inst_any"]),
+             ("wide_trace closest mt_precision=high (K4)", f"{pallas}:187",
+              k457["K4"], knob_launches["closest+high"]),
+             ("wide_trace closest mt_precision=two_phase (K5)",
+              f"{pallas}:416", k457["K5"],
+              exact_launches["two_phase"]["closest+two_phase"]),
+             ("wide_trace streamed closest (K6)", f"{pallas}:559",
+              k6["closest"], bistro_launches["stream+closest"]),
+             ("wide_trace streamed any-hit (K6)", f"{pallas}:559",
+              k6["any"], bistro_launches["stream+any"]),
+             ("wide_trace closest oct_order (K7)", f"{pallas}:623",
+              k457["K7"], exact_launches["oct_order"]["closest+oct"]))
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches, max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
                     library_ms=None)
                for name, replaces, row, launches in table]
+    check(all(k["launches"] > 0 for k in kernels),
+          "a kernel of the main paths was never launched")
+    print(f"total wall time {time.perf_counter() - t_start:.1f} s",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,18 +8,24 @@ code (`_ray_sort_key`), traced as flat (8, R) SoA rows and unsorted;
 closest hits map kernel slot ids to triangle ids through `wslot`.
 
 `trace_wide` is the wrapper of the hand-written CUDA kernel
-(csrc/wide_trace.cu), which replaces the TPU kernel `_make_kernel` in its
-closest-hit and any-hit modes over one tree (K1, K2) and over the
-two-level instanced tree of accel/tlas.py (K3, given `inst_feat`). On CUDA
-tensors it launches the kernel or raises; on CPU tensors it runs the plain
-PyTorch version (`trace_wide_plain`, `trace_wide_inst_plain`): a brute
-force over the same (B, 10, 256) coefficient blocks with the same accept
-tests, which the tests and chip_smoke.py hold the kernel against.
-`trace_wide_counts` runs the kernel's counting instantiation (node pops,
-MT block tests, instance entries per ray) for chip_smoke.py's bounds; it
-is not on the render path. The kernel is built with nvcc from the sources in this package at
-first use, into platinum_tpu_torch/_build/, and rebuilt when the source
-hash changes.
+(csrc/wide_trace.cu), which replaces the TPU kernel `_make_kernel` in the
+modes the render paths reach: closest hit and any hit over one tree (K1,
+K2) and over the two-level instanced tree of accel/tlas.py (K3, given
+`inst_feat`); the Moller-Trumbore precision tiers "high" / "default" (K4)
+and "two_phase" (K5) of closest hit; streamed leaf blocks (K6, `stream`)
+and the near-first octant order (K7, `worder`). On CUDA tensors it
+launches the kernel or raises; on CPU tensors it runs the plain PyTorch
+version (`trace_wide_plain`, `trace_wide_inst_plain`,
+`trace_wide_two_phase_plain`): a brute force over the same (B, 10, 256)
+coefficient blocks with the same accept tests and the same split
+products, which the tests and chip_smoke.py hold the kernel against. K6
+and K7 change the order of the walk, not what it computes, so their plain
+versions are K1's/K3's. `trace_wide_counts` runs the kernel's counting
+instantiation (node pops, MT block tests, instance entries and refine
+tests per ray) for chip_smoke.py's bounds; it is not on the render path.
+The kernel is built with nvcc from the sources in this package at first
+use, into platinum_tpu_torch/_build/, and rebuilt when the source hash
+changes.
 """
 
 from __future__ import annotations
@@ -47,10 +53,42 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-# Kernel launches per mode, counted where the wrapper launches and nowhere
-# else (chip_smoke.py reads them to show the render went through the
-# kernel): K1 "closest", K2 "any", K3 "inst_closest" and "inst_any"
-LAUNCHES = {"closest": 0, "any": 0, "inst_closest": 0, "inst_any": 0}
+# Moller-Trumbore precision tiers of the closest-hit modes, with the
+# kernel's codes (pallas_trace.py `mt_dot`): "highest" fp32 (K1), "high"
+# bf16x3 and "default" 1-pass bf16 (K4), "two_phase" bf16x3 broad phase +
+# fp32 refine of each ray's top-2 candidate blocks (K5). Any hit is exact
+# fp32 under every tier (pallas_trace.py:390).
+PRECISIONS = {"highest": 0, "high": 1, "default": 2, "two_phase": 3}
+TP_K = 1.25e-4        # two_phase error-bound factor (pallas_trace.py:438)
+TP_ABS = 1e-6         # two_phase absolute widening (pallas_trace.py:180)
+
+
+def launch_key(any_hit: bool, instanced: bool = False,
+               mt_precision: str = "highest", oct_order: bool = False,
+               stream: bool = False) -> str:
+    """LAUNCHES key of one kernel mode: "closest" / "any" (K1, K2), an
+    "inst_" prefix for the two-level tree (K3), a "stream+" prefix for
+    streamed blocks (K6), a "+<tier>" suffix for closest hit below
+    "highest" (K4, K5) and "+oct" for the octant order (K7; the packet
+    tracer asks it for closest hit only)."""
+    key = ("inst_" if instanced else "") + ("any" if any_hit else "closest")
+    if stream:
+        key = "stream+" + key
+    if not any_hit and mt_precision != "highest":
+        key += "+" + mt_precision
+    if oct_order:
+        key += "+oct"
+    return key
+
+
+# Kernel launches per mode (`launch_key`), counted where the wrapper
+# launches and nowhere else (chip_smoke.py reads them to show that a render
+# went through the kernel)
+LAUNCHES = {launch_key(a, i, p, o, s): 0
+            for a in (False, True) for i in (False, True)
+            for p in (PRECISIONS if not a else ("highest",))
+            for o in (False, True)
+            for s in (False, True) if not (s and p == "two_phase")}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -98,9 +136,10 @@ def _library():
             lib.wide_trace_launch.argtypes = [
                 ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p]
+                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.c_void_p]
             lib.wide_trace_error_string.restype = ctypes.c_char_p
             lib.wide_trace_error_string.argtypes = [ctypes.c_int]
             _lib = lib
@@ -118,11 +157,27 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count):
+def check_mode(mt_precision: str, stream: bool):
+    """Refuse what the JAX package refuses: an unknown tier, and two_phase
+    over streamed blocks (its refine re-reads the candidate blocks;
+    pallas_trace.py:1200-1202)."""
+    if mt_precision not in PRECISIONS:
+        raise ValueError(f"unknown mt_precision {mt_precision!r}; one of "
+                         f"{sorted(PRECISIONS)}")
+    if mt_precision == "two_phase" and stream:
+        raise ValueError("mt_precision='two_phase' needs resident blocks: "
+                         "it cannot trace a streamed structure "
+                         "(flat.wbvh_stream); use stream='off' or another "
+                         "tier")
+
+
+def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
+            worder=None, mt_precision="highest", stream=False):
     """Check the inputs, allocate the outputs and launch one wave of the
     kernel on the current stream. Returns (t, sid, u, v, inst, counts);
     inst is None outside the instanced closest-hit mode, counts None
-    unless `count`."""
+    unless `count`. The caller has checked the mode (`check_mode`); the C
+    entry refuses a bad one again."""
     dev = rays.device
     r = rays.shape[1]
     _check("rays", rays, torch.float32, (8, r), dev)
@@ -134,70 +189,110 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count):
     if inst_feat is not None:
         _check("inst_feat", inst_feat, torch.float32,
                (inst_feat.shape[0], 10, 128), dev)
+    if worder is not None:
+        _check("worder", worder, torch.int32, (nodes.shape[0] * 16,), dev)
+        if worder.shape[0] != nodes.shape[0] * 16:
+            raise ValueError("worder must hold 16 words per node")
     t = torch.empty(r, dtype=torch.float32, device=dev)
     sid = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
     inst = (torch.empty(r, dtype=torch.int32, device=dev)
             if inst_feat is not None and not any_hit else None)
-    counts = (torch.empty((3, r), dtype=torch.int32, device=dev)
+    counts = (torch.empty((5, r), dtype=torch.int32, device=dev)
               if count else None)
     if r == 0:
         return t, sid, u, v, inst, counts
     lib = _library()
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+        cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wide_trace_launch(
             rays.data_ptr(), r, nodes.data_ptr(), blocks.data_ptr(),
             meta.data_ptr(),
             inst_feat.data_ptr() if inst_feat is not None else None,
-            int(bool(any_hit)), t.data_ptr(), sid.data_ptr(), u.data_ptr(),
-            v.data_ptr(), inst.data_ptr() if inst is not None else None,
-            counts.data_ptr() if counts is not None else None, stream)
+            worder.data_ptr() if worder is not None else None,
+            int(bool(any_hit)), PRECISIONS[mt_precision], int(bool(stream)),
+            t.data_ptr(), sid.data_ptr(), u.data_ptr(), v.data_ptr(),
+            inst.data_ptr() if inst is not None else None,
+            counts.data_ptr() if counts is not None else None, cuda_stream)
     if rc != 0:
         raise RuntimeError("wide_trace kernel launch failed: "
                            + lib.wide_trace_error_string(rc).decode())
     return t, sid, u, v, inst, counts
 
 
-def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None):
+def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
+               worder=None, mt_precision: str = "highest",
+               stream: bool = False):
     """Trace one wave over the wide BVH.
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
     (N, 16, 8) f32; blocks: (B, 10, 256) f32; meta: (N*16,) i32;
     inst_feat: (I, 10, 128) f32 feature transforms of an instanced tree
-    (accel.tlas), or None for a one-level tree. Returns (t, sid, u, v),
-    each (R,): t = best t (tmax on a miss), sid = block*64 + slot of the
-    hit (-1 on a miss; any-hit: 1 if occluded), barycentrics u, v; the
-    instanced closest-hit mode adds inst, the instance of the hit. CPU
+    (accel.tlas), or None for a one-level tree. `worder` ((N*16,) i32,
+    accel.wide.build_octant_orders) walks children near-first (K7);
+    `mt_precision` is the closest-hit tier (PRECISIONS; any hit is exact
+    fp32 under every tier); `stream` queues each node's leaf blocks and
+    prefetches them into L2 before they are tested (K6). Returns (t, sid,
+    u, v), each (R,): t = best t (tmax on a miss), sid = block*64 + slot
+    of the hit (-1 on a miss; any-hit: 1 if occluded), barycentrics u, v;
+    the instanced closest-hit mode adds inst, the instance of the hit. CPU
     tensors take the plain version; CUDA tensors the kernel."""
+    check_mode(mt_precision, stream)   # also for any hit, as JAX does
+    prec = "highest" if any_hit else mt_precision
     if rays.device.type == "cpu":
-        if inst_feat is not None:
-            return trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit,
-                                         inst_feat)
-        return trace_wide_plain(rays, nodes, blocks, meta, any_hit)
+        return trace_wide_reference(rays, nodes, blocks, meta, any_hit,
+                                    inst_feat, worder, mt_precision, stream)
     if rays.device.type != "cuda":
         raise ValueError(f"trace_wide: unsupported device {rays.device}")
     t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, any_hit,
-                                    inst_feat, count=False)
-    mode = "any" if any_hit else "closest"
-    LAUNCHES[mode if inst_feat is None else "inst_" + mode] += 1
+                                    inst_feat, False, worder, prec, stream)
+    LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
+                        worder is not None, stream)] += 1
     if inst_feat is not None and not any_hit:
         return t, sid, u, v, inst
     return t, sid, u, v
 
 
+def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
+                         inst_feat=None, worder=None,
+                         mt_precision: str = "highest",
+                         stream: bool = False):
+    """The plain PyTorch version of the kernel mode `trace_wide` would
+    launch with these arguments, on any device, with its outputs:
+    `trace_wide_two_phase_plain` for two_phase closest hit, else
+    `trace_wide_plain` / `trace_wide_inst_plain` at the closest-hit tier.
+    The walk order (`worder`) and streaming change how the kernel visits
+    blocks, not what it computes, so they select nothing here."""
+    check_mode(mt_precision, stream)
+    prec = "highest" if any_hit else mt_precision
+    if prec == "two_phase":
+        return trace_wide_two_phase_plain(rays, nodes, blocks, meta,
+                                          inst_feat)
+    if inst_feat is not None:
+        return trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit,
+                                     inst_feat, mt_precision=prec)
+    return trace_wide_plain(rays, nodes, blocks, meta, any_hit,
+                            mt_precision=prec)
+
+
 def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
-                      inst_feat=None) -> dict:
+                      inst_feat=None, worder=None,
+                      mt_precision: str = "highest",
+                      stream: bool = False) -> dict:
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
-    pops, (ray, block) MT tests and instance entries (T F products)."""
+    pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
+    entries (T F products), two_phase's fp32 block tests (refine and
+    exact re-walk) and its re-walked rays."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
-    counts = _launch(rays, nodes, blocks, meta, any_hit, inst_feat,
-                     count=True)[5]
-    pops, tests, xforms = counts.long().sum(dim=1).tolist()
-    return {"pops": pops, "mt_tests": tests, "inst_entries": xforms}
+    counts = _launch(rays, nodes, blocks, meta, any_hit, inst_feat, True,
+                     worder, "highest" if any_hit else mt_precision,
+                     stream)[5]
+    pops, tests, xforms, refine, rewalks = counts.long().sum(dim=1).tolist()
+    return {"pops": pops, "mt_tests": tests, "inst_entries": xforms,
+            "refine_tests": refine, "rewalks": rewalks}
 
 
 def ray_features(rays: torch.Tensor) -> torch.Tensor:
@@ -211,7 +306,7 @@ def ray_features(rays: torch.Tensor) -> torch.Tensor:
 
 
 def _no_tf32(device):
-    """The plain version's block product is the "highest" fp32 tier."""
+    """Every fp32 product of the plain versions is exact fp32: no TF32."""
     if device.type == "cuda":
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
@@ -220,19 +315,42 @@ def _no_tf32(device):
             raise RuntimeError("TF32 could not be disabled")
 
 
-def _fold_blocks(coef, b_start, b_end, nb, feat, lo, hi, any_hit, st):
+def _bf16(x):
+    """x rounded to bf16 (to nearest even) and back to fp32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+def mt_product(coef, feat, mt_precision: str = "highest"):
+    """Coefficient rows (M, 10) times features (10, k) at an MT tier, as
+    the TPU kernel's `mt_dot` forms it (pallas_trace.py:187-204):
+    "highest" one fp32 product; "high" and "two_phase" split both sides
+    into h = bf16(x), l = bf16(x - h) and add the three products
+    d(ch, fh) + d(ch, fl) + d(cl, fh) in that order; "default" d(ch, fh)
+    alone. Products of bf16 values are exact in fp32, so only the fp32
+    sums round."""
+    if mt_precision == "highest":
+        return coef @ feat
+    ch, fh = _bf16(coef), _bf16(feat)
+    hh = ch @ fh
+    if mt_precision == "default":
+        return hh
+    return (hh + ch @ _bf16(feat - fh)) + _bf16(coef - ch) @ fh
+
+
+def _fold_blocks(coef, b_start, b_end, nb, feat, lo, hi, any_hit, st,
+                 mt_precision="highest"):
     """Fold coefficient blocks [b_start, b_end) into the running state st
     (best, sid, bu, bv, occ, found) of k rays with features feat (10, k):
-    the kernel's accept tests, one fp32 product per chunk of nb blocks,
-    closest hit replacing the best only on a strictly smaller t (ties to
-    the lowest block*64 + slot). st["found"] marks the rays whose best
-    changed in this call."""
+    the kernel's accept tests on the tier's product (`mt_product`) per
+    chunk of nb blocks, closest hit replacing the best only on a strictly
+    smaller t (ties to the lowest block*64 + slot). st["found"] marks the
+    rays whose best changed in this call."""
     k = feat.shape[1]
     st["found"] = torch.zeros(k, dtype=torch.bool, device=feat.device)
     for b0 in range(b_start, b_end, nb):
         bcount = min(nb, b_end - b0)
-        out = (coef[b0 * 256:(b0 + bcount) * 256] @ feat).view(
-            bcount, 4, 64, k)
+        out = mt_product(coef[b0 * 256:(b0 + bcount) * 256], feat,
+                         mt_precision).view(bcount, 4, 64, k)
         sign = torch.where(out[:, 0] >= 0.0, 1.0, -1.0)
         out = out * sign[:, None]
         ad, us, vs, ts = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
@@ -296,20 +414,26 @@ def _plain_store(outs, idx, st, any_hit):
 
 
 def trace_wide_plain(rays, nodes, blocks, meta, any_hit: bool,
-                     max_elems: int | None = None):
-    """Plain PyTorch version of `trace_wide` on a one-level tree (K1, K2),
-    with the same outputs.
+                     max_elems: int | None = None,
+                     mt_precision: str = "highest"):
+    """Plain PyTorch version of `trace_wide` on a one-level tree (K1, K2,
+    K4; also of the streamed and octant-ordered walks K6, K7, which
+    compute the same function), with the same outputs.
 
     Brute force over every coefficient block, independent of the tree
-    (`nodes` and `meta` are unused): one fp32 product of the blocks as
-    (B*256, 10) with the features (10, R), chunked over blocks and rays so
-    that no temporary exceeds `max_elems` floats (2^26 = 256 MB on a GPU),
-    then the kernel's accept tests. Closest hit: min t, ties to the lowest
-    block*64 + slot. Only rays with tmax > tmin are traced."""
+    (`nodes` and `meta` are unused): the product of the blocks as
+    (B*256, 10) with the features (10, R) at the closest-hit tier
+    `mt_precision` ("highest", "high" or "default"; `mt_product`, no
+    TF32), chunked over blocks and rays so that no temporary exceeds
+    `max_elems` floats (2^26 = 256 MB on a GPU), then the kernel's accept
+    tests. Closest hit: min t, ties to the lowest block*64 + slot. Any hit
+    is exact fp32 under every tier. Only rays with tmax > tmin are
+    traced."""
     n_blocks = blocks.shape[0]
     outs, live, nr, nb = _plain_setup(rays, n_blocks, max_elems)
     if live.numel() == 0 or n_blocks == 0:
         return outs
+    prec = "highest" if any_hit else mt_precision
     feat = ray_features(rays[:, live])
     tmin, tmax = rays[6, live], rays[7, live]
     coef = blocks.transpose(1, 2).reshape(n_blocks * 256, 10)
@@ -318,7 +442,7 @@ def trace_wide_plain(rays, nodes, blocks, meta, any_hit: bool,
         k = fr.shape[1]
         lo, hi = tmin[r0:r0 + k], tmax[r0:r0 + k]
         st = _plain_state(hi)
-        _fold_blocks(coef, 0, n_blocks, nb, fr, lo, hi, any_hit, st)
+        _fold_blocks(coef, 0, n_blocks, nb, fr, lo, hi, any_hit, st, prec)
         _plain_store(outs, live[r0:r0 + k], st, any_hit)
     return outs
 
@@ -341,21 +465,25 @@ def instance_block_ranges(meta, n_inst: int):
 
 
 def trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit: bool,
-                          inst_feat, max_elems: int | None = None):
-    """Plain PyTorch version of `trace_wide` on an instanced tree (K3).
+                          inst_feat, max_elems: int | None = None,
+                          mt_precision: str = "highest"):
+    """Plain PyTorch version of `trace_wide` on an instanced tree (K3; K4,
+    K6 and K7 on the two-level tree).
 
     Independent of the tree's nodes: for every instance, in order, the
     blocks of its mesh (`instance_block_ranges`) are brute-forced with the
     ray features transformed by its T (one fp32 (10, 10) x (10, R)
-    product) and K1's accept tests. Closest hit keeps the minimum t, ties
-    to the lowest (instance, block*64 + slot), and adds inst, the
-    instance of the hit (0 on a miss)."""
+    product), the closest-hit tier's product and K1's accept tests.
+    Closest hit keeps the minimum t, ties to the lowest (instance,
+    block*64 + slot), and adds inst, the instance of the hit (0 on a
+    miss)."""
     n_inst = inst_feat.shape[0]
     outs, live, nr, nb = _plain_setup(rays, blocks.shape[0], max_elems)
     inst_out = torch.zeros(rays.shape[1], dtype=torch.int32,
                            device=rays.device)
     if live.numel() == 0 or blocks.shape[0] == 0:
         return outs if any_hit else (*outs, inst_out)
+    prec = "highest" if any_hit else mt_precision
     ranges = instance_block_ranges(meta, n_inst).tolist()
     tmat = inst_feat[:, :, 0:10]
     feat = ray_features(rays[:, live])
@@ -371,7 +499,7 @@ def trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit: bool,
             if b_hi <= b_lo:
                 continue
             _fold_blocks(coef, b_lo, b_hi, nb, tmat[i] @ fr, lo, hi,
-                         any_hit, st)
+                         any_hit, st, prec)
             if not any_hit:
                 best_inst = torch.where(st["found"], i, best_inst)
         idx = live[r0:r0 + k]
@@ -379,6 +507,159 @@ def trace_wide_inst_plain(rays, nodes, blocks, meta, any_hit: bool,
         if not any_hit:
             inst_out[idx] = best_inst
     return outs if any_hit else (*outs, inst_out)
+
+
+def _broad_blocks(coef, b0, bcount, feat, lo):
+    """Broad phase of two_phase on blocks [b0, b0 + bcount) for k rays
+    (pallas_trace.py:416-461): the bf16x3 product, the 1-pass bf16
+    magnitude product |c| |F|, error bounds e = TP_K * magnitude; per
+    (block, ray) the least loose t and a sound lower bound of the t of any
+    hit the block can hold ((ts - e_t) / (ad + e_det) over its loose
+    triangles, -inf where not positive or the determinant's sign is
+    unreliable); both inf where the block admits nothing."""
+    k = feat.shape[1]
+    c = coef[b0 * 256:(b0 + bcount) * 256]
+    out = mt_product(c, feat, "high").view(bcount, 4, 64, k)
+    mag = (_bf16(c).abs() @ _bf16(feat).abs()).view(bcount, 4, 64, k)
+    sign = torch.where(out[:, 0] >= 0.0, 1.0, -1.0)
+    out = out * sign[:, None]
+    ad, us, vs, ts = out[:, 0], out[:, 1], out[:, 2], out[:, 3]
+    e = TP_K * mag
+    e_det, e_u, e_v, e_t = e[:, 0], e[:, 1], e[:, 2], e[:, 3]
+    unrel = (ad <= e_det) & (mag[:, 0] > 0.0)
+    solid = ad > e_det
+    loose = unrel | (solid & (us >= -e_u) & (vs >= -e_v)
+                     & (us + vs <= ad + e_u + e_v + e_det)
+                     & (ts > lo * ad - lo * e_det - e_t - TP_ABS))
+    tl_val = torch.where(unrel, 3e36, ts * (1.0 / torch.clamp(ad, min=1e-37)))
+    num = ts - e_t
+    lo_val = torch.where(unrel | (num < 0.0), -INF, num / (ad + e_det))
+    return (torch.where(loose, tl_val, INF).amin(dim=1),
+            torch.where(loose, lo_val, INF).amin(dim=1))
+
+
+def _keep_two(cand, t_new, lo_new, tag_new):
+    """Merge (n, k) block candidates (loose t, lower bound, tag), in
+    visiting order, into the two of least t per ray; a tie keeps the
+    earlier one, as the kernel's strict-< slots do. The lower bounds of
+    the blocks not kept lower the ray's `evicted` bound."""
+    t_keep, lo_keep, tag_keep, evicted = cand
+    got = t_new < 3e37
+    ts = torch.cat([t_keep, torch.where(got, t_new, 3e38)])
+    los = torch.cat([lo_keep, torch.where(got, lo_new, INF)])
+    tags = torch.cat([tag_keep, torch.where(got, tag_new, -1)])
+    order = torch.argsort(ts, dim=0, stable=True)
+    pick, rest = order[:2], order[2:]
+    evicted = torch.minimum(evicted, los.gather(0, rest).amin(dim=0))
+    return (ts.gather(0, pick), los.gather(0, pick), tags.gather(0, pick),
+            evicted)
+
+
+def trace_wide_two_phase_plain(rays, nodes, blocks, meta, inst_feat=None,
+                               max_elems: int | None = None):
+    """Plain PyTorch version of `trace_wide` at mt_precision="two_phase"
+    (K5): closest hit over a one-level tree, or an instanced one given
+    `inst_feat`, with K1's (K3's) outputs.
+
+    The kernel's two phases in brute force, independent of the tree: the
+    broad phase (`_broad_blocks`) runs over every block (every instance's
+    blocks with its object features, in instance order) and keeps each
+    ray's two blocks of least loose t, tagged inst << 14 | block as in the
+    TPU kernel, and the least lower bound over the blocks not kept; the
+    refine re-tests the distinct candidates in ascending tag order with
+    the exact fp32 product and K1's accept tests against tmax, committing
+    a strictly smaller t, from best = tmax; a ray whose not-kept blocks
+    could still beat the refined best is traced again by the exact brute
+    force (`trace_wide_plain` / `trace_wide_inst_plain`), as the kernel
+    walks it again. The broad phase's cull bound only prunes the kernel's
+    walk, so it has no counterpart here: the brute force sees every
+    block."""
+    n_blocks = blocks.shape[0]
+    dev = rays.device
+    outs, live, nr, nb = _plain_setup(rays, n_blocks, max_elems)
+    inst_out = torch.zeros(rays.shape[1], dtype=torch.int32, device=dev)
+    done = outs if inst_feat is None else (*outs, inst_out)
+    if live.numel() == 0 or n_blocks == 0:
+        return done
+    if inst_feat is None:
+        groups = [(0, 0, n_blocks, None)]
+        tmat = None
+    else:
+        tmat = inst_feat[:, :, 0:10]
+        ranges = instance_block_ranges(meta, inst_feat.shape[0]).tolist()
+        groups = [(i, lo, hi, tmat[i]) for i, (lo, hi) in enumerate(ranges)
+                  if hi > lo]
+    feat = ray_features(rays[:, live])
+    tmin, tmax = rays[6, live], rays[7, live]
+    coef = blocks.transpose(1, 2).reshape(n_blocks * 256, 10)
+    blk_rows = blocks.transpose(1, 2)                      # (B, 256, 10)
+    n_ref = max(1, nr * 256 // 2560)   # refine gathers 2,560 floats a ray
+    again = []
+    for r0 in range(0, live.numel(), nr):
+        fr = feat[:, r0:r0 + nr]
+        k = fr.shape[1]
+        lo, hi = tmin[r0:r0 + k], tmax[r0:r0 + k]
+        cand = (torch.full((2, k), 3e38, device=dev),
+                torch.full((2, k), INF, device=dev),
+                torch.full((2, k), -1, dtype=torch.int64, device=dev),
+                torch.full((k,), INF, device=dev))
+        for inst, b_lo, b_hi, tm in groups:
+            fg = fr if tm is None else tm @ fr
+            for b0 in range(b_lo, b_hi, nb):
+                bcount = min(nb, b_hi - b0)
+                t_l, t_lo = _broad_blocks(coef, b0, bcount, fg, lo)
+                tags = ((inst << 14) + torch.arange(
+                    b0, b0 + bcount, device=dev))[:, None].expand(-1, k)
+                cand = _keep_two(cand, t_l, t_lo, tags)
+        c1, c2 = cand[2][0], cand[2][1]
+        first = torch.where((c1 >= 0) & (c2 >= 0), torch.minimum(c1, c2),
+                            torch.maximum(c1, c2))
+        second = torch.where((c1 >= 0) & (c2 >= 0) & (c1 != c2),
+                             torch.maximum(c1, c2), -1)
+        st = _plain_state(hi)
+        best_inst = torch.zeros(k, dtype=torch.int64, device=dev)
+        for tag in (first, second):
+            for s0 in range(0, k, n_ref):
+                sel = s0 + torch.nonzero(tag[s0:s0 + n_ref] >= 0).squeeze(1)
+                if sel.numel() == 0:
+                    continue
+                b = tag[sel] & 0x3FFF
+                f = fr[:, sel]
+                if tmat is not None:
+                    f = torch.bmm(tmat[tag[sel] >> 14],
+                                  f.T[:, :, None])[..., 0].T
+                out = torch.bmm(blk_rows[b], f.T[:, :, None])[..., 0]
+                out = out.T.reshape(4, 64, -1)
+                sign = torch.where(out[0] >= 0.0, 1.0, -1.0)
+                ad, us, vs, ts = out * sign
+                ok = ((ad > DET_EPS) & (us >= 0.0) & (vs >= 0.0)
+                      & (us + vs <= ad) & (ts > lo[sel] * ad)
+                      & (ts < hi[sel] * ad))
+                t = torch.where(ok, ts / torch.clamp(ad, min=1e-37), INF)
+                tb, arg = torch.min(t, dim=0)
+                found = tb < st["best"][sel]
+                pick = arg[None]
+                iad = 1.0 / torch.clamp(ad.gather(0, pick)[0], min=1e-37)
+                f_sel = sel[found]
+                st["best"][f_sel] = tb[found]
+                st["sid"][f_sel] = (b * 64 + arg)[found]
+                st["bu"][f_sel] = (us.gather(0, pick)[0] * iad)[found]
+                st["bv"][f_sel] = (vs.gather(0, pick)[0] * iad)[found]
+                best_inst[f_sel] = (tag[sel] >> 14)[found]
+        idx = live[r0:r0 + k]
+        _plain_store(outs, idx, st, False)
+        inst_out[idx] = best_inst.to(torch.int32)
+        again.append(idx[cand[3] < st["best"]])
+    again = torch.cat(again)
+    if again.numel():
+        sub = rays[:, again]
+        exact = (trace_wide_plain(sub, nodes, blocks, meta, False, max_elems)
+                 if inst_feat is None else
+                 trace_wide_inst_plain(sub, nodes, blocks, meta, False,
+                                       inst_feat, max_elems))
+        for dst, src in zip(done, exact):
+            dst[again] = src
+    return done
 
 
 def _part1by2(x):
@@ -417,7 +698,8 @@ def sort_frame(nodes):
 
 def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
                        sort: bool | None = None, trace_fn=trace_wide,
-                       inst_feat=None):
+                       inst_feat=None, worder=None, stream: bool = False,
+                       mt_precision: str = "highest"):
     """(trace_closest, trace_any) over the packed wide-BVH tensors.
 
     wnodes: (N, 128) f32 node rows; wtris: (B, 10, 256) f32 coefficient
@@ -425,15 +707,30 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     triangle id (None if slot ids are triangle ids). `inst_feat` ((I, 10,
     128) feature transforms, accel.tlas) selects the two-level tree: hit
     records then carry the instance id. `sort` reorders each wave by
-    octant + Morton key (default: trees of more than 64 nodes).
-    `trace_fn` traces one (8, R) wave: the kernel wrapper `trace_wide`, or
-    `trace_wide_plain` / `trace_wide_inst_plain` to hold a render to the
-    plain version."""
+    octant + Morton key (default: trees of more than 64 nodes). As in the
+    JAX package's make_packet_tracer: `worder` ((N*16,) i32 octant orders,
+    accel.wide.build_octant_orders) walks closest-hit waves near-first
+    (K7; any-hit waves keep the plain walk, pallas_trace.py:1459);
+    `stream` traces a streamed structure (K6); `mt_precision` is the MT
+    tier of closest-hit waves (PRECISIONS: K1, K4, K5; any hit stays exact
+    fp32). An unknown tier and two_phase over streamed blocks raise, as
+    they do in the JAX package; unlike the JAX package, two_phase is not
+    refused on the accelerator (its refusal there rests on TPU
+    measurements and a Mosaic reduce fault, pallas_trace.py:1383-1397).
+    `trace_fn` traces one (8, R) wave with trace_wide's arguments: the
+    kernel wrapper `trace_wide`, or `trace_wide_reference` to hold a
+    render to the plain version."""
+    check_mode(mt_precision, stream)
     n_nodes = wnodes.shape[0]
     nodes = wnodes.reshape(n_nodes, 16, 8).contiguous()
     blocks = wtris.contiguous()
     meta = wmeta.to(torch.int32).contiguous()
     slot_map = wslot.long() if wslot is not None else None
+    if worder is not None:
+        worder = worder.to(torch.int32).contiguous()
+        if worder.shape != (n_nodes * 16,):
+            raise ValueError(f"worder must be ({n_nodes * 16},) octant "
+                             f"orders, got {tuple(worder.shape)}")
     if inst_feat is not None:
         inst_feat = inst_feat.to(torch.float32).contiguous()
     else:
@@ -450,7 +747,6 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         sort = n_nodes > SORT_MIN_NODES
 
     scene_lo, inv_extent = sort_frame(nodes)
-    extra = () if inst_feat is None else (inst_feat,)
 
     def _run(o, d, tmin, tmax, active, any_hit):
         r = o.shape[0]
@@ -468,7 +764,9 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
             o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
         rays = torch.stack([o[:, 0], o[:, 1], o[:, 2],
                             d[:, 0], d[:, 1], d[:, 2], tmin, tmax])
-        out = trace_fn(rays, nodes, blocks, meta, any_hit, *extra)
+        out = trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
+                       worder=None if any_hit else worder,
+                       mt_precision=mt_precision, stream=stream)
         t, sid, u, v = out[:4]
         inst = out[4] if len(out) > 4 else None
         if perm is not None:

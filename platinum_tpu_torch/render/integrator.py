@@ -13,12 +13,17 @@ render/autoplan.py): between segments `_compact_state` keeps a uniform
 random subset of the live lanes, drawn from the same threefry bits as the
 JAX package (ops/threefry.py), so the two select the same lanes.
 
+The packet tracer takes the scene's octant orders when
+`settings.oct_order` (K7), its streamed blocks when `flat.wbvh_stream`
+(K6) and the MT tier `settings.mt_precision` (K4, K5), as the JAX
+make_tracers does; none of them is ever dropped: a combination the
+kernel cannot run raises.
+
 Not ported yet, each raising NotImplementedError until its own change:
 deferred shadows (`fuse_shadow`), chunked shading (`chunk_shade`),
 sample-batched waves (`spp_batch > 1`), the breadth-first and binary-BVH
 tracers (`tracer="bf"/"bvh"`), alpha-tested materials, textures, the
-Z-sampler, partitioned structures and the packet-kernel variants (octant
-order, reduced MT precision, streaming).
+Z-sampler and partitioned structures.
 """
 
 from __future__ import annotations
@@ -67,20 +72,29 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
 
 def make_tracers(flat: FlatScene, settings: RenderSettings):
     """(trace_closest, trace_any) for the scene: the wide-BVH packet
-    tracer for "packet"/"auto" when the scene has one, else brute force."""
-    if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
-        if settings.oct_order or settings.mt_precision != "highest" \
-                or flat.wbvh_stream:
-            raise NotImplementedError(
-                "packet-kernel variants oct_order / mt_precision != "
-                "'highest' / streamed blocks are not ported yet (ROADMAP "
-                "queue 2: K4-K7)")
-        from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
+    tracer for "packet"/"auto" when the scene has one (with the octant
+    order, streamed blocks and MT tier of JAX integrator.py:92-101), else
+    brute force. The packet kernel's options raise where they cannot be
+    honoured: an unknown tier, two_phase over streamed blocks, oct_order
+    without octant orders, and a tier or order asked of the brute
+    tracer."""
+    from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
 
+    if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
+        if settings.oct_order and flat.wbvh_order is None:
+            raise ValueError("oct_order=True needs the scene's octant "
+                             "orders (FlatScene.wbvh_order)")
         return make_packet_tracer(
             flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
             inst_feat=(flat.instances.feat
-                       if flat.instances is not None else None))
+                       if flat.instances is not None else None),
+            worder=flat.wbvh_order if settings.oct_order else None,
+            stream=flat.wbvh_stream, mt_precision=settings.mt_precision)
+    if settings.oct_order or settings.mt_precision != "highest":
+        raise ValueError(
+            f"oct_order / mt_precision={settings.mt_precision!r} are "
+            f"options of the packet kernel, and this scene traces with the "
+            f"brute tracer (tracer={settings.tracer!r}, no wide BVH)")
     if flat.instances is not None:
         raise ValueError(
             "instanced FlatScene requires the packet tracer "

@@ -184,7 +184,23 @@ class RenderSettings:
     """Static render configuration. Fields and defaults equal the JAX
     package's RenderSettings (platinum_tpu/render/types.py:203-311), which
     documents each knob; options this package does not implement yet raise
-    NotImplementedError where they are read."""
+    NotImplementedError where they are read.
+
+    The packet kernel's options, as this package runs them on the card
+    (csrc/wide_trace.cu) and, on CPU tensors, through its plain versions:
+    `oct_order` walks closest-hit waves near-first by the scene's octant
+    orders (K7; same results as the plain walk); `mt_precision` is the MT
+    tier of closest-hit waves: "highest" fp32 (K1), "high" bf16x3 and
+    "default" 1-pass bf16 (K4; borderline hits drift), "two_phase" bf16x3
+    broad phase + fp32 refine (K5; the "highest" results); any-hit waves
+    stay fp32 under every tier. An unknown tier raises ValueError where
+    render/integrator.make_tracers reads it. `stream` decides at flatten
+    time whether a scene over `partition_tris` (baked) or
+    `partition_bytes` (instanced) traces as one structure with streamed
+    leaf blocks (K6, FlatScene.wbvh_stream): "auto" and "on" stream
+    ("on" always), "off" would partition, which is not ported yet and
+    raises. two_phase over a streamed structure raises, as in the JAX
+    package."""
 
     width: int = 512
     height: int = 512

@@ -1,6 +1,8 @@
 """The CUDA wide-BVH kernel on the card: one-level (K1, K2) and two-level
-(K3) modes against their plain PyTorch versions, the wrapper's input
-checks, and the threefry draws on the card against the CPU. Every test
+(K3) modes, the MT tiers (K4, K5), streamed blocks (K6) and the octant
+order (K7) against their plain PyTorch versions and, for the modes that
+compute K1's function, against K1 bit for bit; the wrapper's input checks
+and refusals, and the threefry draws on the card against the CPU. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
 installed (`python -m pytest tests/test_torch_gpu.py -m gpu`)."""
@@ -10,7 +12,7 @@ import pytest
 import torch
 
 from platinum_tpu_torch.accel.bvh import build_bvh
-from platinum_tpu_torch.accel.wide import build_wide_bvh
+from platinum_tpu_torch.accel.wide import build_octant_orders, build_wide_bvh
 from platinum_tpu_torch.ops import packet_trace as pt
 from platinum_tpu_torch.ops import threefry
 
@@ -37,7 +39,8 @@ def soup_on_card():
     dev = torch.device("cuda")
     return (torch.from_numpy(wide.nodes).reshape(-1, 16, 8).to(dev),
             torch.from_numpy(wide.tri_blocks).to(dev),
-            torch.from_numpy(wide.meta).to(dev))
+            torch.from_numpy(wide.meta).to(dev),
+            torch.from_numpy(build_octant_orders(wide.nodes)).to(dev))
 
 
 def _rays(n, tmax, dev):
@@ -52,7 +55,7 @@ def _rays(n, tmax, dev):
 
 @pytest.mark.parametrize("any_hit,tmax", [(False, np.inf), (True, 8.0)])
 def test_kernel_matches_plain_version(soup_on_card, any_hit, tmax):
-    nodes, blocks, meta = soup_on_card
+    nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4096, tmax, nodes.device)
     before = dict(pt.LAUNCHES)
     k = pt.trace_wide(rays, nodes, blocks, meta, any_hit)
@@ -71,7 +74,7 @@ def test_kernel_matches_plain_version(soup_on_card, any_hit, tmax):
 
 
 def test_wrapper_refuses_bad_inputs(soup_on_card):
-    nodes, blocks, meta = soup_on_card
+    nodes, blocks, meta, _ = soup_on_card
     rays = _rays(256, np.inf, nodes.device)
     with pytest.raises(TypeError):
         pt.trace_wide(rays, nodes, blocks, meta.long(), False)
@@ -95,13 +98,13 @@ def instanced_on_card():
         width=48, height=48, instancing="on", tracer="packet"),
         accel_min_tris=1, device="cuda")
     return (flat.wbvh_nodes.reshape(-1, 16, 8).contiguous(), flat.wbvh_tris,
-            flat.wbvh_meta, flat.instances.feat)
+            flat.wbvh_meta, flat.instances.feat, flat.wbvh_order)
 
 
 @pytest.mark.parametrize("any_hit,tmax", [(False, np.inf), (True, 6.0)])
 def test_instanced_kernel_matches_plain_version(instanced_on_card, any_hit,
                                                 tmax):
-    nodes, blocks, meta, feat = instanced_on_card
+    nodes, blocks, meta, feat, _ = instanced_on_card
     rays = _rays(4096, tmax, nodes.device)
     before = dict(pt.LAUNCHES)
     k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=feat)
@@ -119,6 +122,151 @@ def test_instanced_kernel_matches_plain_version(instanced_on_card, any_hit,
         assert (k[4][both][same] == p[4][both][same]).all()
         torch.testing.assert_close(k[0][both], p[0][both],
                                    rtol=1e-4, atol=1e-5)
+
+
+# "high" against its plain version: both form the same exact bf16
+# products and differ at most in the order of fp32 sums, so t holds to a
+# few ulps where the ids agree; against K1 its t must differ in its bits on
+# >= TIER_DIFF_MIN of the common hits (bf16x3 is not fp32)
+HIGH_T_RTOL = 1e-6
+TIER_DIFF_MIN = 0.9
+
+
+def _hold_to_plain(k, p, mode, rtol=1e-4, atol=1e-5):
+    """The K1 test's bars: >= 99.5% equal hit sets, ids equal outside
+    t ties, t to rtol 1e-4 / atol 1e-5 (or the given bar) where the ids
+    agree."""
+    hk, hp = k[1] >= 0, p[1] >= 0
+    assert (hk == hp).float().mean() > 0.995 and hp.sum() > 100, mode
+    both = hk & hp
+    same = k[1][both] == p[1][both]
+    tie = torch.isclose(k[0][both], p[0][both], rtol=1e-5, atol=1e-6)
+    assert (same | tie).all(), mode
+    torch.testing.assert_close(k[0][both][same], p[0][both][same],
+                               rtol=rtol, atol=atol)
+
+
+def _hold_high(k, p, k1, mode):
+    """K4 "high": t to HIGH_T_RTOL of its plain version, and moved off
+    K1's (fp32) t on >= TIER_DIFF_MIN of the same-triangle hits."""
+    _hold_to_plain(k, p, mode, rtol=HIGH_T_RTOL, atol=0.0)
+    same = (k1[1] >= 0) & (k[1] == k1[1])
+    moved = (k[0][same].view(torch.int32)
+             != k1[0][same].view(torch.int32)).float().mean().item()
+    assert same.sum() > 100 and moved >= TIER_DIFF_MIN, (mode, moved)
+
+
+def _bitwise(k, ref, mode):
+    """Hit set and t bit for bit; ids and instances equal (the soups here
+    have no exact-t ties across blocks)."""
+    hk, hr = k[1] >= 0, ref[1] >= 0
+    assert torch.equal(hk, hr), mode
+    assert torch.equal(k[0][hr], ref[0][hr]), mode
+    for a, b in zip(k[1:], ref[1:]):
+        assert torch.equal(a, b), mode
+
+
+MODES = [dict(mt_precision="high"), dict(mt_precision="default"),
+         dict(mt_precision="two_phase"), dict(stream=True),
+         dict(oct=True), dict(oct=True, stream=True),
+         dict(oct=True, mt_precision="high")]
+
+
+@pytest.mark.parametrize("mode", MODES, ids=lambda m: "+".join(
+    f"{k}={v}" for k, v in m.items()))
+def test_variant_matches_plain_and_k1(soup_on_card, mode):
+    """K4-K7 closest hit against their plain versions; K5, K6 and K7 (and
+    K7 over K4) bit for bit against the mode without them."""
+    nodes, blocks, meta, worder = soup_on_card
+    rays = _rays(4096, np.inf, nodes.device)
+    kw = dict(mode)
+    oct_on = kw.pop("oct", False)
+    key = pt.launch_key(False, False, kw.get("mt_precision", "highest"),
+                        oct_on, kw.get("stream", False))
+    before = pt.LAUNCHES[key]
+    k = pt.trace_wide(rays, nodes, blocks, meta, False,
+                      worder=worder if oct_on else None, **kw)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES[key] == before + 1
+    p = pt.trace_wide_reference(rays, nodes, blocks, meta, False, **kw)
+    tier = kw.get("mt_precision", "highest")
+    if tier == "high":
+        _hold_high(k, p, pt.trace_wide(rays, nodes, blocks, meta, False), key)
+    else:
+        _hold_to_plain(k, p, key)
+    if tier in ("highest", "two_phase") or oct_on:
+        base = pt.trace_wide(rays, nodes, blocks, meta, False,
+                             mt_precision="high" if tier == "high"
+                             else "highest")
+        _bitwise(k, base, key)
+
+
+def test_streamed_any_hit_equals_k2(soup_on_card):
+    nodes, blocks, meta, _ = soup_on_card
+    rays = _rays(4096, 8.0, nodes.device)
+    before = pt.LAUNCHES["stream+any"]
+    k = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
+    assert pt.LAUNCHES["stream+any"] == before + 1
+    _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, True), "stream+any")
+
+
+@pytest.mark.parametrize("mode", [dict(mt_precision="high"),
+                                  dict(mt_precision="two_phase"),
+                                  dict(stream=True), dict(oct=True)],
+                         ids=lambda m: "+".join(f"{k}={v}"
+                                                for k, v in m.items()))
+def test_instanced_variant_matches_plain_and_k3(instanced_on_card, mode):
+    nodes, blocks, meta, feat, worder = instanced_on_card
+    rays = _rays(4096, np.inf, nodes.device)
+    kw = dict(mode)
+    oct_on = kw.pop("oct", False)
+    k = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
+                      worder=worder if oct_on else None, **kw)
+    p = pt.trace_wide_reference(rays, nodes, blocks, meta, False, feat, **kw)
+    torch.cuda.synchronize()
+    if kw.get("mt_precision") == "high":
+        _hold_high(k, p, pt.trace_wide(rays, nodes, blocks, meta, False,
+                                       inst_feat=feat), str(mode))
+    else:
+        _hold_to_plain(k, p, str(mode))
+    assert (k[4][(k[1] >= 0) & (k[1] == p[1])]
+            == p[4][(k[1] >= 0) & (k[1] == p[1])]).all()
+    if kw.get("mt_precision") != "high":
+        _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, False,
+                                  inst_feat=feat), str(mode))
+    if kw.get("stream"):
+        shadow = _rays(4096, 6.0, nodes.device)
+        _bitwise(pt.trace_wide(shadow, nodes, blocks, meta, True,
+                               inst_feat=feat, stream=True),
+                 pt.trace_wide(shadow, nodes, blocks, meta, True,
+                               inst_feat=feat), "stream+inst_any")
+
+
+def test_modes_that_cannot_run_raise(soup_on_card):
+    """A tier or flag the kernel cannot honour raises; it never returns
+    the plain version's or another mode's results."""
+    nodes, blocks, meta, worder = soup_on_card
+    rays = _rays(256, np.inf, nodes.device)
+    before = dict(pt.LAUNCHES)
+    with pytest.raises(ValueError, match="two_phase"):
+        pt.trace_wide(rays, nodes, blocks, meta, False,
+                      mt_precision="two_phase", stream=True)
+    with pytest.raises(ValueError, match="unknown mt_precision"):
+        pt.trace_wide(rays, nodes, blocks, meta, False, mt_precision="low")
+    with pytest.raises(ValueError, match="worder"):
+        pt.trace_wide(rays, nodes, blocks, meta, False, worder=worder[:-16])
+    assert pt.LAUNCHES == before
+    # the C entry refuses the same combinations by itself
+    lib = pt._library()
+    out = torch.empty(256, device=nodes.device)
+    sid = torch.empty(256, dtype=torch.int32, device=nodes.device)
+    for prec, stream in ((7, 0), (3, 1)):
+        rc = lib.wide_trace_launch(
+            rays.data_ptr(), 256, nodes.data_ptr(), blocks.data_ptr(),
+            meta.data_ptr(), None, None, 0, prec, stream, out.data_ptr(),
+            sid.data_ptr(), out.data_ptr(), out.data_ptr(), None, None,
+            torch.cuda.current_stream().cuda_stream)
+        assert rc != 0
 
 
 def test_threefry_on_card_matches_cpu():

@@ -2,22 +2,28 @@
 torch.profiler.
 
     python3 tools/torch_time_paths.py --config headline_compact --spp 8
-    python3 tools/torch_time_paths.py --config instanced --profile
+    python3 tools/torch_time_paths.py --config bistro --profile
     python3 tools/torch_time_paths.py --root OTHER_CHECKOUT --config headline
 
 Configs (bench.py's, at 512x512, 8 bounces, mis, halton, the packet
-tracer): `headline` = sponza_class_512 without compaction, `headline_compact`
-= sponza_class_512 (compact=True, compact_plan="auto"), `instanced` =
-sponza_instanced_512 (instancing="on", compact=True). `--root` imports
-platinum_tpu_torch from another checkout, so two versions can be timed in
-turns within one call on one card; a checkout whose port has no scenes
-module of its own takes the colonnade from that checkout's JAX package
-scenes module (numpy only). Prints one JSON line per run: the card and its
-power limit, the per-step wall times (host clock around work that ends in
-a device synchronise; the first step pays first-use set-up), the rays per
-spp (the integrator's own count) and, with --profile, one more spp under
+tracer, unless they say otherwise): `headline` = sponza_class_512 without
+compaction, `headline_compact` = sponza_class_512 (compact=True,
+compact_plan="auto"), `instanced` = sponza_instanced_512 (instancing="on",
+compact=True), `mt3_knob` = sponza_class_512_mt3_knob (headline_compact
+with mt_precision="high", K4), `two_phase` and `oct_order` =
+headline_compact with mt_precision="two_phase" (K5) or oct_order=True
+(K7), `bistro` = bistro_class_studio (the colonnade at 24x12, 1.08M
+triangles, 960x540, 4 bounces, compact=True with the static plan,
+stream="auto": streamed blocks, K6). `--root` imports platinum_tpu_torch
+from another checkout, so two versions can be timed in turns within one
+call on one card; a checkout whose port has no scenes module of its own
+takes the colonnade from that checkout's JAX package scenes module (numpy
+only). Prints one JSON line per run: the card and its power limit, the
+per-step wall times (host clock around work that ends in a device
+synchronise; the first step pays first-use set-up), the rays per spp (the
+integrator's own count) and, with --profile, one more spp under
 torch.profiler: device kernel time, busy share, kernel launches and the
-trace kernels' device time. Needs a CUDA device.
+trace kernels' device time by mode. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,12 +36,18 @@ import subprocess
 import sys
 import time
 
+HEADLINE = dict(compact=True, compact_plan="auto", instancing="off")
 CONFIGS = {
     "headline": dict(compact=False, instancing="off"),
-    "headline_compact": dict(compact=True, compact_plan="auto",
-                             instancing="off"),
+    "headline_compact": HEADLINE,
     "instanced": dict(compact=True, instancing="on"),
+    "mt3_knob": dict(HEADLINE, mt_precision="high"),
+    "two_phase": dict(HEADLINE, mt_precision="two_phase"),
+    "oct_order": dict(HEADLINE, oct_order=True),
+    "bistro": dict(width=960, height=540, max_bounces=4, compact=True,
+                   instancing="off", stream="auto"),
 }
+SCENES = {"bistro": dict(columns=24, rows=12)}   # make_colonnade_scene's
 
 
 def main():
@@ -66,10 +78,11 @@ def main():
     scenes = importlib.import_module(
         "platinum_tpu_torch.app.scenes" if os.path.exists(own)
         else "platinum_tpu.app.scenes")
-    scene, cam = scenes.make_colonnade_scene()
-    settings = RenderSettings(width=512, height=512, spp=args.spp,
-                              max_bounces=8, kernel="mis", sampler="halton",
-                              tracer="packet", **CONFIGS[args.config])
+    scene, cam = scenes.make_colonnade_scene(**SCENES.get(args.config, {}))
+    kw = dict(width=512, height=512, max_bounces=8, kernel="mis",
+              sampler="halton", tracer="packet")
+    kw.update(CONFIGS[args.config])
+    settings = RenderSettings(spp=args.spp, **kw)
     r = Renderer(scene, device="cuda")
     r.start_render(cam, settings)
     steps = []
@@ -120,7 +133,7 @@ def _profile(integrator, r, s, feats):
         dt = ev.self_device_time_total
         device_us += dt
         if "wide_trace" in ev.key:
-            trace_us[ev.key[:60]] = [dt / 1e3, ev.count]
+            trace_us[ev.key[:160]] = [dt / 1e3, ev.count]
     return dict(profiled_wall_ms=wall, device_kernel_ms=device_us / 1e3,
                 device_busy=device_us / 1e3 / wall, kernel_launches=launches,
                 trace_kernels_ms_count=trace_us)

@@ -1,0 +1,81 @@
+"""Time the wide-BVH kernel per wave on the GPU: K1/K2 (each leaf tested
+as it is found) and the streamed mode (K6: each node's leaves queued and
+drained after its slab tests, each queued block prefetched into L2) on
+the waves chip_smoke.py builds for the headline colonnade (271k triangles,
+512x512) and for bistro_class_studio's tree (the colonnade at 24x12, 1.08M
+triangles, 960x540).
+
+    python3 tools/torch_time_waves.py
+    python3 tools/torch_time_waves.py --root OTHER_CHECKOUT
+
+`--root` imports platinum_tpu_torch and chip_smoke.py (its `_wave_points`,
+`_waves`, `JOBS` and `_time_ms`) from another checkout, so two versions of
+the kernel can be timed in turns within one call on one card. Prints one
+JSON line: the card and its power limit, and per tree, wave and mode the
+kernel's ms per wave (CUDA events around --reps launches after one
+warm-up). Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+TREES = (("headline", {}, (512, 512)),
+         ("bistro", dict(columns=24, rows=12), (960, 540)))
+MODES = (("k1", {}), ("stream", dict(stream=True)))
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--root", default=os.path.dirname(
+        os.path.dirname(os.path.abspath(__file__))))
+    ap.add_argument("--reps", type=int, default=20)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SystemExit("needs a CUDA device")
+    import chip_smoke as cs
+    import platinum_tpu_torch
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.flatten import flatten_scene
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    for mod in (cs, platinum_tpu_torch):
+        if not mod.__file__.startswith(root):
+            raise SystemExit(f"imported {mod.__file__}, not {root}'s")
+    dev = torch.device("cuda", 0)
+    pt.build_kernel()
+    out = dict(card=subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip(), root=args.root, ms={})
+    for tree, scene_kw, (width, height) in TREES:
+        scene, cam = make_colonnade_scene(**scene_kw)
+        flat = flatten_scene(scene, cam, RenderSettings(
+            width=width, height=height, tracer="packet", instancing="off",
+            stream="auto"), device=dev)
+        nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
+        blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+        waves = cs._waves(cs._wave_points(flat, dev, width, height), nodes,
+                          dev)
+        for _, wave, any_hit in cs.JOBS:
+            for mode, kw in MODES:
+                out["ms"][f"{tree} {wave} {mode}"] = cs._time_ms(
+                    lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
+                                          any_hit, **kw), args.reps)
+        del flat, nodes, blocks, meta, waves
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+
+
+if __name__ == "__main__":
+    main()
