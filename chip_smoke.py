@@ -5,8 +5,9 @@
 Phases, one printed block each (any failure exits non-zero):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit
-  2. build: compiles the wide-BVH kernel (csrc/wide_trace.cu) and the
-     native BVH builder from the checkout
+  2. build: compiles both kernel sources (csrc/wide_trace.cu,
+     csrc/stream_mt.cu; one nvcc each, started together) and the native
+     BVH construction library from the checkout
   3. K1/K2 vs plain: the kernel's closest-hit and any-hit modes against
      the plain PyTorch version on the full colonnade (271k triangles), on
      16,384 rays each of a camera wave, a bounce-like wave from surface
@@ -18,7 +19,8 @@ Phases, one printed block each (any failure exits non-zero):
      flattened with instancing="on"
   3c. K4 ("high"), K5 ("two_phase") and K7 (octant order)
      vs plain on the colonnade's camera and bounce waves, as in 3: the
-     16,384-ray subsets, then the whole waves held, timed and counted
+     16,384-ray subsets, then the whole waves timed and counted and held
+     (K4 both; K5 and K7 the bounce wave: 3d holds them to K1 on both)
      (K4's certification adds the bf16 split error to the fp32 forward
      error, and K4's t must equal its plain version's to HIGH_T_RTOL,
      a few fp32 ulps, wherever the ids agree)
@@ -32,9 +34,10 @@ Phases, one printed block each (any failure exits non-zero):
      where the triangles agree (the tier is not fp32)
   3f. K6 (streamed blocks) on bistro_class_studio's tree (the colonnade at
      24x12, 1.08M triangles, flattened with stream="auto") vs plain on
-     16,384-ray subsets of its own 960x540 waves, then on the whole
-     518,400-ray waves, timed and counted, and bit for bit against K1/K2
-     on the same tree (K1/K2 timed there too); the instanced stream modes
+     16,384-ray subsets of its own 960x540 waves and on the whole
+     518,400-ray bounce and shadow waves, timed and counted, and bit for
+     bit against K1/K2 on all three whole waves of the same tree (K1/K2
+     timed there too); the instanced stream modes
      on the colonnade flattened with instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
@@ -65,6 +68,42 @@ Phases, one printed block each (any failure exits non-zero):
      ops/threefry.uniform on the card bitwise equal to the CPU
   5c. the same per new mode at 64x64 x 1 spp: "high", "two_phase",
      oct_order, and stream="on" on the headline colonnade
+  3g. K8, the paired launch: paired(camera wave, shadow wave) and
+     paired(bounce wave, shadow wave) bit for bit K1 / K2 on the whole
+     waves, once with the any-hit wave cut to 100,000 rays, timed against
+     K1 and K2 launched one after the other, counted per wave; on the
+     bistro tree with stream=True against K6; through the tracer's
+     `trace_closest.paired` entry, which is the path that counts its
+     launches
+  3h. K9, the pipelined walk, with and without the flat push: closest and
+     any hit against K1/K2 as 3d holds K5 and K7, and on the instanced
+     colonnade against K3, with counts and times; against the plain
+     version on the 16,384-ray subsets; both timed and held to K1/K2 on
+     the bistro tree's whole waves too
+  3i. the ablation modes: "empty" and "nomt" miss everything, "nomt" pops
+     no fewer nodes than K1 and tests no block, "count" is K1 with u = the
+     ray's pops, "fix64" is K1 on every ray whose walk ends within 64
+     pops; launch floor / walk / MT split of each headline wave and the
+     bistro bounce wave, on the classic and the queued walk; through
+     make_packet_tracer(profile=...), the path that counts their launches
+  3j. K15, the leaf-pair kernel: against its plain version on every
+     level's real pairs of the camera, bounce and shadow waves; the whole
+     ray-stream tracer against K1/K2 bit for bit on the whole waves; every
+     level's pair and leaf-pair counts beside the JAX module's static caps;
+     time per wave split into kernel and host glue
+  4g. sponza_class_512's settings with the ray-stream pair as `tracers=`,
+     2 spp through integrator.render_step_n; only K15 may launch; image
+     mean within MEAN_RTOL of 4f's K1 render at the same 2 spp
+  4i. sponza_class_512's settings with the pipelined packet tracer
+     (pipe=True, then flat_walk=True) as `tracers=`, 2 spp each through
+     integrator.render_step_n; only the K9 modes may launch; image mean
+     within MEAN_RTOL of 4f's K1 render at the same 2 spp
+  4h. sponza_class_512 at 4 spp with fuse_shadow, with spp_batch=2 and
+     with chunk_shade=65536, against 4c: image mean to MEAN_RTOL, largest
+     per-pixel difference printed, trace launches and all kernel launches
+     per spp printed beside 4c's
+  5d. kernel path against plain path at 64x64 x 1 spp for pipe, flat_walk
+     and the ray-stream pair
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -74,6 +113,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -117,6 +157,12 @@ PEAK_BYTES = 3.35e12
 MT_FLOP = 64 * 4 * 10 * 2          # one (ray, block) test: 64 tris x 4 dots
 SLAB_FLOP = 12                     # one child slab test: 6 sub + 6 mul
 XFORM_FLOP = 10 * 10 * 2           # one instance entry: F_obj = T F
+# The static capacities of the JAX ray-stream module, as multiples of the
+# wave size R (platinum_tpu/ops/raystream.py:59-64): the port sizes every
+# level's pair list exactly; 3j prints each level's counts beside them
+PAIR_CAPS = (2.0, 2.0, 1.5, 1.5, 1.25, 1.25, 1.25, 1.25)
+LEAF_CAP = 1.5
+CAP_FLOOR = 16384
 
 
 def check(cond, msg):
@@ -136,28 +182,52 @@ def phase_device():
     return torch.device("cuda", 0)
 
 
+def _instantiations(path):
+    """Kernel instantiations in a built library, from cuobjdump's resource
+    listing (one "Function" line each); None without cuobjdump."""
+    tool = os.path.join(os.path.dirname(shutil.which("nvcc")
+                                        or "/usr/local/cuda/bin/nvcc"),
+                        "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "--dump-resource-usage", path],
+                         capture_output=True, text=True).stdout
+    return sum(1 for line in out.splitlines()
+               if line.lstrip().startswith("Function "))
+
+
 def phase_build():
     from platinum_tpu_torch.accel.native import native_available
     from platinum_tpu_torch.ops import packet_trace as pt
 
     t0 = time.perf_counter()
-    path = pt.build_kernel()
+    paths = pt.build_kernels()
+    t_kernels = time.perf_counter() - t0
     check(native_available(), "the native BVH builder did not build")
-    print(f"build: {time.perf_counter() - t0:.2f} s -> "
-          f"{os.path.relpath(path)} and the native BVH builder", flush=True)
+    counts = {k: _instantiations(v) for k, v in paths.items()}
+    print(f"build: both kernel sources in {t_kernels:.2f} s (one nvcc each, "
+          f"started together), instantiations {counts}; with the native "
+          f"BVH library {time.perf_counter() - t0:.2f} s -> "
+          f"{[os.path.relpath(v) for v in paths.values()]}", flush=True)
 
 
 def _zero_launches():
     from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.ops import raystream as rs
 
-    for mode in pt.LAUNCHES:
-        pt.LAUNCHES[mode] = 0
+    for table in (pt.LAUNCHES, rs.LAUNCHES):
+        for mode in table:
+            table[mode] = 0
 
 
 def _launches():
+    """Launch counts of both kernel sources; the leaf-pair kernel's modes
+    carry a "stream_mt " prefix."""
     from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.ops import raystream as rs
 
-    return dict(pt.LAUNCHES)
+    return {**pt.LAUNCHES,
+            **{f"stream_mt {k}": v for k, v in rs.LAUNCHES.items()}}
 
 
 def _rays(o, d, tmin, tmax):
@@ -429,12 +499,18 @@ def _synced_ms(fn):
 
 
 def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
-               inst_feat=None, mode=None, jobs=JOBS):
+               inst_feat=None, mode=None, jobs=JOBS, whole_plain=True,
+               plain_rows=None):
     """Hold one kernel mode (`mode`: trace_wide's worder / mt_precision /
-    stream) on one tree to its plain version: 16,384-ray subsets, then the
-    whole waves, each timed against its plain version and counted.
-    "high" holds t to HIGH_T_RTOL. Returns ({"closest"/"any": row
-    fields}, {wave: kernel outputs on the whole wave})."""
+    stream / pipe / flat_walk) on one tree to its plain version:
+    16,384-ray subsets, then the whole waves, each timed and counted, and
+    with `whole_plain` (True, or the names of the waves it holds for) held
+    to the plain version there too. Without it the row's plain time is `plain_rows`' (the rows of a mode with the same
+    plain version, measured on the same whole waves in this run) or, with
+    no such rows, the plain version's time on the 16,384-ray subset
+    (`plain_rays` then says so). "high" holds t to HIGH_T_RTOL. Returns
+    ({"closest"/"any": row fields}, {wave: kernel outputs on the whole
+    wave})."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     mode = mode or {}
@@ -444,13 +520,15 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
                    if x is not None)
     t_tol = (HIGH_T_RTOL, 0.0) if tier == "high" else (T_RTOL, T_ATOL)
     errs = {"closest": 0.0, "any": 0.0}
+    sub_ms = {}
     for name, wave, any_hit in jobs:
         sub = waves[wave][:, sample].contiguous()
         k = pt.trace_wide(sub, nodes, blocks, meta, any_hit, inst_feat,
                           **mode)
-        p = pt.trace_wide_reference(sub, nodes, blocks, meta, any_hit,
-                                    inst_feat, **mode)
+        p, pms = _synced_ms(lambda: pt.trace_wide_reference(
+            sub, nodes, blocks, meta, any_hit, inst_feat, **mode))
         kind = "any" if any_hit else "closest"
+        sub_ms[kind] = pms
         errs[kind] = max(errs[kind], _compare(f"{label} {name}", k, p,
                                               any_hit, sub, certify, t_tol))
     rows, outs = {}, {}
@@ -464,11 +542,21 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
 
         kms = _time_ms(kernel, 20)
         kind = "any" if any_hit else "closest"
-        p, pms = _synced_ms(lambda: pt.trace_wide_reference(
-            rays, nodes, blocks, meta, any_hit, inst_feat, **mode))
-        errs[kind] = max(errs[kind], _compare(
-            f"{label} {name} (whole wave)", out["k"], p, any_hit, rays,
-            certify, t_tol))
+        extra = {}
+        if whole_plain is True or (whole_plain and wave in whole_plain):
+            p, pms = _synced_ms(lambda: pt.trace_wide_reference(
+                rays, nodes, blocks, meta, any_hit, inst_feat, **mode))
+            errs[kind] = max(errs[kind], _compare(
+                f"{label} {name} (whole wave)", out["k"], p, any_hit, rays,
+                certify, t_tol))
+            plain = f"plain {pms:.1f} ms"
+        elif plain_rows is not None:
+            pms = plain_rows[kind]["plain_ms"]
+            plain = f"plain {pms:.1f} ms (the same plain version, from above)"
+        else:
+            pms = sub_ms[kind]
+            extra = dict(plain_rays=N_CMP)
+            plain = f"plain {pms:.1f} ms on the {N_CMP}-ray subset"
         counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                       inst_feat, **mode)
         out_bytes = 16 + (4 if inst_feat is not None and not any_hit else 0)
@@ -477,7 +565,7 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
                                         "highest" if any_hit else tier)
         outs[wave] = out["k"]
         print(f"  {label} time per {rays.shape[1]}-ray wave, {name}: kernel "
-              f"{kms:.3f} ms, plain {pms:.1f} ms; "
+              f"{kms:.3f} ms, {plain}; "
               f"{counts['pops']} pops, {counts['mt_tests']} MT block tests, "
               f"{counts['inst_entries']} instance entries, "
               f"{counts['refine_tests']} fp32 refine / re-walk tests, "
@@ -485,10 +573,20 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
               f"{bms:.4f} ms by {by}", flush=True)
         if wave != "camera":
-            rows[kind] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by)
+            rows[kind] = dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                              counts=counts, **extra)
     for kind in rows:
         rows[kind]["max_abs_err"] = errs[kind]
     return rows, outs
+
+
+def _flat_mode(meta):
+    """trace_wide's arguments for the flat push over a tree whose leaves
+    are looked up once, here, and not again inside every timed launch."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    check(pt._single_block_leaves(meta), "a leaf owns more than one block")
+    return dict(flat_walk=True, checked=True)
 
 
 def _bitwise(name, k, ref, rays, certify, caveat=""):
@@ -599,9 +697,21 @@ def phase_k3(scene, cam, dev, pts):
           f"{int(flat.lights.count)} lights", flush=True)
     nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
     waves = _waves(pts, nodes, dev)
-    rows, _ = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
-                         pts["sample"], _instanced_certify(flat, host),
-                         inst_feat=flat.instances.feat)
+    certify = _instanced_certify(flat, host)
+    rows, outs = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta,
+                            waves, pts["sample"], certify,
+                            inst_feat=flat.instances.feat)
+    print("K9, the pipelined walk, on the instanced colonnade (3h):",
+          flush=True)
+    for key, mode in (("pipe", dict(pipe=True)),
+                      ("flat_walk", _flat_mode(flat.wbvh_meta))):
+        _, pipe_outs = _hold_tree(
+            f"K9 {key} instanced", nodes, flat.wbvh_tris, flat.wbvh_meta,
+            waves, pts["sample"], certify, inst_feat=flat.instances.feat,
+            mode=mode, whole_plain=False, plain_rows=rows)
+        for _, wave, _ in JOBS:
+            _bitwise(f"K9 {key} instanced against K3, {wave}",
+                     pipe_outs[wave], outs[wave], waves[wave], certify)
     return rows
 
 
@@ -639,16 +749,21 @@ def phase_variants(ctx):
     closest = JOBS[:2]
     rows, outs = {}, {}
     print("K4, K5, K7 vs plain on the colonnade (3c):", flush=True)
-    for key, mode, tier in (
-            ("K4", dict(mt_precision="high"), "high"),
-            ("K5", dict(mt_precision="two_phase"), "highest"),
-            ("K7", dict(worder=flat.wbvh_order), "highest")):
+    # K5 and K7 are K1 bit for bit on both whole waves (3d), and K1 is held
+    # to its plain version on both (3); their own plain versions (30 s and
+    # 8 s a wave) run on the whole bounce wave, whose time enters the
+    # kernel table, and on the camera wave's subset. K4 is not K1's
+    # function and keeps both whole waves
+    for key, mode, tier, whole in (
+            ("K4", dict(mt_precision="high"), "high", True),
+            ("K5", dict(mt_precision="two_phase"), "highest", ("bounce",)),
+            ("K7", dict(worder=flat.wbvh_order), "highest", ("bounce",))):
         def certify(ray, tier=tier):
             return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32,
                                                               tier=tier)
         rows[key], outs[key] = _hold_tree(
             key, nodes, blocks, meta, waves, ctx["pts"]["sample"], certify,
-            mode=mode, jobs=closest)
+            mode=mode, jobs=closest, whole_plain=whole)
     print("K5, K7 against K1 on the whole waves (3d):", flush=True)
     caveat = (" (two_phase keeps two candidate blocks; a third inside the "
               "bf16x3 bound of the winner is the tier's documented caveat, "
@@ -666,6 +781,373 @@ def phase_variants(ctx):
                   hold=wave == "camera")
         _tier_moves_t(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave])
     return {k: rows[k]["closest"] for k in ("K4", "K5", "K7")}
+
+
+def _exact(name, got, ref):
+    """Every output equal bit for bit: the same walk."""
+    for a, b in zip(got, ref):
+        check(torch.equal(a, b), f"{name}: differs from the unpaired kernel")
+
+
+def _paired_waves(label, nodes, blocks, meta, closest, shadow, ref_c, ref_a,
+                  stream=False):
+    """One paired launch over two whole waves: bit for bit the unpaired
+    modes' outputs `ref_c` / `ref_a`, timed against those two modes
+    launched one after the other, and counted per wave. Returns (paired
+    ms, apart ms, counts of the closest wave, counts of the any-hit
+    wave)."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    res = {}
+
+    def paired():
+        res["k"] = pt.trace_wide_paired(closest, shadow, nodes, blocks, meta,
+                                        stream=stream)
+
+    def apart():
+        pt.trace_wide(closest, nodes, blocks, meta, False, stream=stream)
+        pt.trace_wide(shadow, nodes, blocks, meta, True, stream=stream)
+
+    ms = _time_ms(paired, 20)
+    ms_apart = _time_ms(apart, 20)
+    got_c, occ = res["k"]
+    _exact(f"{label} closest half", got_c, ref_c)
+    check(torch.equal(occ, ref_a[1][:occ.shape[0]]),
+          f"{label}: the any-hit half differs from the unpaired kernel")
+    cc, ca = pt.trace_wide_paired_counts(closest, shadow, nodes, blocks, meta,
+                                         stream=stream)
+    print(f"  {label}: {closest.shape[1]} + {shadow.shape[1]} rays bit for "
+          f"bit the unpaired modes; one paired launch {ms:.3f} ms, the two "
+          f"modes one after the other {ms_apart:.3f} ms; closest wave "
+          f"{cc['pops']} pops, {cc['mt_tests']} MT block tests, any-hit "
+          f"wave {ca['pops']} pops, {ca['mt_tests']} MT block tests",
+          flush=True)
+    return ms, ms_apart, cc, ca
+
+
+def phase_paired(ctx, k12):
+    """3g: K8 on the headline tree."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+
+    flat, nodes, waves, outs = (ctx["flat"], ctx["nodes"], ctx["waves"],
+                                ctx["outs"])
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+    sample = ctx["pts"]["sample"]
+
+    def certify(ray):
+        return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
+
+    print("K8, the paired launch (3g):", flush=True)
+    sub_c = waves["bounce"][:, sample].contiguous()
+    sub_a = waves["shadow"][:, sample].contiguous()
+    kc, ka = pt.trace_wide_paired(sub_c, sub_a, nodes, blocks, meta)
+    err = max(
+        _compare("K8 bounce half vs plain", kc,
+                 pt.trace_wide_reference(sub_c, nodes, blocks, meta, False),
+                 False, sub_c, certify),
+        _compare("K8 shadow half vs plain", (sub_a[7], ka),
+                 pt.trace_wide_reference(sub_a, nodes, blocks, meta, True),
+                 True, sub_a, certify))
+    shadow = waves["shadow"]
+    for wave in ("camera", "bounce"):
+        ms, _, cc, ca = _paired_waves(
+            f"paired({wave}, shadow)", nodes, blocks, meta, waves[wave],
+            shadow, outs[wave], outs["shadow"])
+    # the bounds are K1's and K2's: the paired launch does their work
+    for got, ref in ((cc, k12["closest"]["counts"]),
+                     (ca, k12["any"]["counts"])):
+        check(got["pops"] == ref["pops"]
+              and got["mt_tests"] == ref["mt_tests"],
+              f"the paired launch's counts {got} differ from {ref}")
+    cut = shadow[:, :100_000].contiguous()
+    _paired_waves("paired(bounce, shadow cut to 100,000)", nodes, blocks,
+                  meta, waves["bounce"], cut, outs["bounce"], outs["shadow"])
+    _paired_waves("paired(camera cut to 100,000, shadow)", nodes, blocks,
+                  meta, waves["camera"][:, :100_000].contiguous(), shadow,
+                  [x[:100_000] for x in outs["camera"]], outs["shadow"])
+
+    # the path: the tracer's own entry, on the same two waves
+    tc, ta = pt.make_packet_tracer(flat.wbvh_nodes, blocks, meta,
+                                   flat.wbvh_slot)
+    b, sh = waves["bounce"], shadow
+    _zero_launches()
+    rec, occ = tc.paired(b[0:3].T, b[3:6].T, RAY_EPS, float("inf"),
+                         sh[0:3].T, sh[3:6].T, RAY_EPS, sh[7])
+    launches = _launches()
+    _only("trace_closest.paired", launches, ("paired",))
+    ref = tc(b[0:3].T, b[3:6].T, RAY_EPS, float("inf"))
+    check(torch.equal(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)
+          and torch.equal(occ, ta(sh[0:3].T, sh[3:6].T, RAY_EPS, sh[7])),
+          "trace_closest.paired differs from trace_closest / trace_any")
+    print(f"  trace_closest.paired(bounce, shadow): one launch "
+          f"({launches['paired']}), equal to trace_closest and trace_any",
+          flush=True)
+    c, a = k12["closest"], k12["any"]
+    return dict(ms=ms, plain_ms=c["plain_ms"] + a["plain_ms"],
+                bound_ms=c["bound_ms"] + a["bound_ms"],
+                bound_by=c["bound_by"], max_abs_err=err,
+                launches=launches["paired"])
+
+
+def phase_pipe(ctx, k12):
+    """3h: K9 on the headline tree, with and without the flat push."""
+    flat, nodes, waves = ctx["flat"], ctx["nodes"], ctx["waves"]
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+
+    def certify(ray):
+        return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
+
+    rows = {}
+    print("K9, the pipelined walk (3h):", flush=True)
+    for key, mode in (("K9 pipe", dict(pipe=True)),
+                      ("K9 flat_walk", _flat_mode(flat.wbvh_meta))):
+        rows[key], outs = _hold_tree(
+            key, nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
+            ctx["pts"]["sample"], certify, mode=mode, whole_plain=False,
+            plain_rows=k12)
+        for _, wave, _ in JOBS:
+            _bitwise(f"{key} against K1/K2, {wave}", outs[wave],
+                     ctx["outs"][wave], waves[wave], certify)
+        for kind in ("closest", "any"):
+            got, ref = rows[key][kind]["counts"], k12[kind]["counts"]
+            print(f"  {key} {kind} (bounce / shadow wave): "
+                  f"{got['pops']} pops against K1/K2's {ref['pops']} "
+                  f"({got['pops'] / ref['pops'] - 1:+.2%}), "
+                  f"{got['mt_tests']} MT block tests against "
+                  f"{ref['mt_tests']} "
+                  f"({got['mt_tests'] / ref['mt_tests'] - 1:+.2%})",
+                  flush=True)
+    return rows
+
+
+PROFILE_MODES = ("empty", "nomt", "fix64", "count")
+
+
+def _profile_times(label, nodes, blocks, meta, rays, any_hit):
+    """Launch floor / walk / MT split of one wave: the times of "empty",
+    "nomt" and the full walk, on the classic and the queued walk."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    for walk, stream in (("classic", False), ("queued", True)):
+        ms = {prof: _time_ms(lambda prof=prof: pt.trace_wide(
+            rays, nodes, blocks, meta, any_hit, stream=stream, profile=prof),
+            20) for prof in ("empty", "nomt", "none")}
+        print(f"  {label}, {walk} walk: empty {ms['empty']:.3f} ms, nomt "
+              f"{ms['nomt']:.3f} ms, full {ms['none']:.3f} ms -> launch "
+              f"floor {ms['empty']:.3f}, walk "
+              f"{ms['nomt'] - ms['empty']:.3f}, MT "
+              f"{ms['none'] - ms['nomt']:.3f} ms", flush=True)
+
+
+def phase_profile(ctx, k12):
+    """3i: the ablation modes on the headline tree."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+
+    flat, nodes, waves = ctx["flat"], ctx["nodes"], ctx["waves"]
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    # what each mode reads beside its rays: "empty" nothing, "nomt" the
+    # tree without the blocks, "fix64" and "count" all of K1's inputs
+    walk_bytes = sum(x.numel() * 4 for x in (nodes, meta))
+    in_bytes = {"empty": 0, "nomt": walk_bytes,
+                "fix64": walk_bytes + blocks.numel() * 4,
+                "count": walk_bytes + blocks.numel() * 4}
+    print("the ablation modes (3i):", flush=True)
+    rows = {}
+    for name, wave, any_hit in JOBS:
+        rays, k1 = waves[wave], ctx["outs"][wave]
+        n = rays.shape[1]
+        per_ray = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                       per_ray=True)
+        pops = per_ray[0]
+        for stream in (False, True):
+            for prof in ("empty", "nomt"):
+                k = pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                  stream=stream, profile=prof)
+                p = pt.trace_wide_reference(rays, nodes, blocks, meta,
+                                            any_hit, profile=prof)
+                check(all(torch.equal(a, b) for a, b in zip(k, p)),
+                      f"profile={prof} on the {wave} wave does not miss "
+                      f"everything (stream={stream})")
+        nomt = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                    profile="nomt")
+        check(nomt["mt_tests"] == 0 and nomt["pops"] >= int(pops.sum()),
+              f"profile=nomt on the {wave} wave: {nomt} against K1's "
+              f"{int(pops.sum())} pops")
+        count = pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                              profile="count")
+        check(torch.equal(count[0], k1[0]) and torch.equal(count[1], k1[1])
+              and torch.equal(count[3], k1[3]),
+              f"profile=count on the {wave} wave: t, id or v differ from K1")
+        check(torch.equal(count[2], pops.float()),
+              f"profile=count on the {wave} wave: u is not the ray's pops")
+        fix = pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                            profile="fix64")
+        short = pops <= 64
+        check(all(torch.equal(a[short], b[short]) for a, b in zip(fix, k1)),
+              f"profile=fix64 on the {wave} wave differs from K1 on a ray "
+              f"whose walk ends within 64 pops")
+        print(f"  {name}: empty and nomt miss everything; nomt pops "
+              f"{nomt['pops']} nodes (K1/K2 {int(pops.sum())}) and tests no "
+              f"block; count's t, id, v are K1's and u the ray's pops (max "
+              f"{int(pops.max())}); fix64 is K1 on the {int(short.sum())} of "
+              f"{n} rays that end within 64 pops", flush=True)
+        _profile_times(name, nodes, blocks, meta, rays, any_hit)
+        if wave != "bounce":
+            continue
+        # rows of the kernel table: closest hit on the bounce wave
+        kind = k12["closest"]
+        sub = rays[:, ctx["pts"]["sample"]].contiguous()
+        sub_short = short[ctx["pts"]["sample"]]
+        plain = pt.trace_wide_reference(sub, nodes, blocks, meta, False)
+        # fix64's own pops and block tests, from its counting
+        # instantiation: no more pops than K1's capped at 64 a ray
+        walked = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                      profile="fix64")
+        check(0 < walked["pops"] <= int(torch.clamp(pops, max=64).sum())
+              and 0 < walked["mt_tests"] <= kind["counts"]["mt_tests"],
+              f"profile=fix64 counts {walked} against K1's "
+              f"{kind['counts']}")
+        for prof in PROFILE_MODES:
+            ms = _time_ms(lambda: pt.trace_wide(
+                rays, nodes, blocks, meta, False, profile=prof), 20)
+            k = pt.trace_wide(sub, nodes, blocks, meta, False, profile=prof)
+            p, pms = _synced_ms(lambda: pt.trace_wide_reference(
+                sub, nodes, blocks, meta, False, profile=prof))
+            hit = (k[1] >= 0) & (plain[1] == k[1])
+            if prof == "fix64":
+                hit &= sub_short
+            # count, fix64: |t - K1's plain t| on common hits; empty, nomt:
+            # largest difference of the hit flags from the all-miss version
+            err = (float((k[0][hit] - plain[0][hit]).abs().max())
+                   if prof in ("fix64", "count") else
+                   float((k[1] != p[1]).float().max()))
+            counts = {"empty": dict(kind["counts"], pops=0, mt_tests=0),
+                      "nomt": nomt, "fix64": walked,
+                      "count": kind["counts"]}[prof]
+            bms, by, flops, nbytes = _bound(counts, n, in_bytes[prof], 16)
+            print(f"  profile={prof} on the bounce wave: {ms:.3f} ms; "
+                  f"{counts['pops']} pops, {counts['mt_tests']} MT block "
+                  f"tests -> {flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, "
+                  f"bound {bms:.4f} ms by {by}", flush=True)
+            rows[prof] = dict(ms=ms, plain_ms=pms, plain_rays=N_CMP,
+                              bound_ms=bms, bound_by=by, max_abs_err=err)
+    # the path: make_packet_tracer(profile=...) on the bounce and shadow
+    # waves
+    b, sh = waves["bounce"], waves["shadow"]
+    for prof in PROFILE_MODES:
+        tc, ta = pt.make_packet_tracer(flat.wbvh_nodes, blocks, meta,
+                                       flat.wbvh_slot, profile=prof)
+        _zero_launches()
+        rec = tc(b[0:3].T, b[3:6].T, RAY_EPS, float("inf"))
+        occ = ta(sh[0:3].T, sh[3:6].T, RAY_EPS, sh[7])
+        launches = _launches()
+        _only(f"make_packet_tracer(profile={prof!r})", launches,
+              (f"closest@{prof}", f"any@{prof}"))
+        if prof in ("empty", "nomt"):
+            check(not rec.hit.any() and not occ.any(),
+                  f"the profile={prof} tracer hit something")
+        rows[prof]["launches"] = (launches[f"closest@{prof}"]
+                                  + launches[f"any@{prof}"])
+    return rows
+
+
+def phase_raystream(ctx):
+    """3j: K15 and the ray-stream tracer on the headline tree."""
+    from platinum_tpu_torch.ops import raystream as rs
+
+    flat, waves = ctx["flat"], ctx["waves"]
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+    coef, valid = fp32[0][1], fp32[0][2]
+    slot_tri = flat.wbvh_slot.cpu().numpy()
+
+    def certify(ray):
+        return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
+
+    def certify_pair(ray9):
+        """A (ray, block) pair, its block id in a ninth row: borderline
+        against the block's own 64 triangles."""
+        sl = slice(int(ray9[8]) * 64, int(ray9[8]) * 64 + 64)
+        tris = slot_tri[sl]
+        return (_borderline(ray9[:8], tri64[tris[tris >= 0]])
+                or _fp32_ambiguous(ray9[:8], [(np.eye(10), coef[:, :, sl],
+                                               valid[sl])]))
+
+    print("K15, the leaf-pair kernel and the ray-stream tracer (3j):",
+          flush=True)
+    rows = {}
+    for name, wave, any_hit in JOBS:
+        rays = waves[wave]
+        n = rays.shape[1]
+        o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+        levels = []
+
+        def timed_mt(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            stop = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = rs.stream_mt(*args)
+            stop.record()
+            levels.append((args[:4], out, start, stop))
+            return out
+
+        pair = rs.make_stream_tracer(flat.wbvh_nodes, blocks, meta,
+                                     mt_fn=timed_mt)
+        trace = pair[1] if any_hit else pair[0]
+        trace(o, d, rays[6], rays[7])              # first use: not timed
+        levels.clear()
+        (res, stats), wall_ms = _synced_ms(
+            lambda: trace.with_levels(o, d, rays[6], rays[7]))
+        kernel_ms = sum(a.elapsed_time(b) for _, _, a, b in levels)
+        # the whole tracer against K1 / K2
+        got = ((rays[7], torch.where(res, 1, -1)) if any_hit else
+               (res.t, res.tri, res.bary[:, 0], res.bary[:, 1]))
+        _bitwise(f"ray-stream tracer against K1/K2, {wave}", got,
+                 ctx["outs"][wave], rays, certify)
+        # every level's pairs against the plain version
+        err, plain_ms, n_pairs, flops, nbytes = 0.0, 0.0, 0, 0, 36 * n
+        for lvl, ((w, limit, pr, pb), out, _, _) in enumerate(levels):
+            p, pms = _synced_ms(lambda: rs.stream_mt_plain(
+                w, limit, pr, pb, blocks, any_hit))
+            plain_ms += pms
+            idx = pr.long()
+            pair_rays = torch.cat([w[0:7, idx], limit[idx][None],
+                                   pb[None].float()])
+            err = max(err, _compare(
+                f"K15 {name}, leaf level {lvl} ({pr.shape[0]} pairs)", out, p,
+                any_hit, pair_rays, certify_pair))
+            n_pairs += pr.shape[0]
+            flops += pr.shape[0] * MT_FLOP
+            nbytes += pr.shape[0] * 24 + int(torch.unique(pb).numel()) * 10240
+        for st in stats:
+            lvl = st["level"]
+            cap = (1.0 if lvl == 0 else
+                   PAIR_CAPS[min(lvl - 1, len(PAIR_CAPS) - 1)])
+            fits = (st["pairs"] <= max(cap * n, CAP_FLOOR)
+                    and st["leaf_pairs"] <= max(LEAF_CAP * n, CAP_FLOOR))
+            print(f"    {wave} level {lvl}: {st['pairs'] / n:.3f} R pairs "
+                  f"(cap {cap} R), {st['leaf_pairs'] / n:.3f} R leaf pairs "
+                  f"(cap {LEAF_CAP} R): "
+                  f"{'fits' if fits else 'OVERFLOWS'} the JAX module's "
+                  f"static caps", flush=True)
+        t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+        print(f"  ray-stream tracer per {n}-ray wave, {name}: "
+              f"{wall_ms:.1f} ms in all, {kernel_ms:.3f} ms of it in "
+              f"{len(levels)} K15 launches over {n_pairs} pairs "
+              f"({n_pairs / n:.2f} R), {wall_ms - kernel_ms:.1f} ms host "
+              f"glue and torch ops; plain version {plain_ms:.1f} ms; "
+              f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
+              f"{max(t_ops, t_bytes) * 1e3:.4f} ms", flush=True)
+        if wave != "camera":
+            rows["any" if any_hit else "closest"] = dict(
+                ms=kernel_ms, plain_ms=plain_ms,
+                bound_ms=max(t_ops, t_bytes) * 1e3,
+                bound_by="operations" if t_ops >= t_bytes else "bytes",
+                max_abs_err=err)
+    return rows
 
 
 def phase_stream(scene_small, cam_small, dev, pts_small):
@@ -701,19 +1183,48 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
     def certify(ray):
         return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
 
+    # the plain version takes ~60 s per whole bistro wave: the two waves of
+    # the kernel table are held to it, the camera wave on its subset and,
+    # below, bit for bit to K1
     rows, outs = _hold_tree("K6", nodes, blocks, meta, waves, pts["sample"],
-                            certify, mode=dict(stream=True))
+                            certify, mode=dict(stream=True),
+                            whole_plain=("bounce", "shadow"))
+    refs, ref_ms = {}, {}
     for name, wave, any_hit in JOBS:
-        ref = {}
-
         def k1():
-            ref["k"] = pt.trace_wide(waves[wave], nodes, blocks, meta, any_hit)
+            refs[wave] = pt.trace_wide(waves[wave], nodes, blocks, meta,
+                                       any_hit)
 
-        kms = _time_ms(k1, 20)
+        ref_ms[wave] = _time_ms(k1, 20)
         print(f"  K1/K2 time per {waves[wave].shape[1]}-ray wave on the "
-              f"bistro tree, {name}: {kms:.3f} ms", flush=True)
-        _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], ref["k"],
+              f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
+        _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
                  waves[wave], certify)
+    print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
+    for key, mode in (("pipe", dict(pipe=True)),
+                      ("flat_walk", _flat_mode(meta))):
+        for name, wave, any_hit in JOBS:
+            got = {}
+
+            def k9():
+                got["k"] = pt.trace_wide(waves[wave], nodes, blocks, meta,
+                                         any_hit, **mode)
+
+            kms = _time_ms(k9, 20)
+            _bitwise(f"K9 {key} against K1/K2, bistro {wave}", got["k"],
+                     refs[wave], waves[wave], certify)
+            print(f"  K9 {key} time per {waves[wave].shape[1]}-ray wave on "
+                  f"the bistro tree, {name}: {kms:.3f} ms (K1/K2 "
+                  f"{ref_ms[wave]:.3f} ms)", flush=True)
+    print("K8 with stream=True against K6 on the bistro tree (3g):",
+          flush=True)
+    _paired_waves("bistro paired(bounce, shadow), stream=True", nodes, blocks,
+                  meta, waves["bounce"], waves["shadow"], outs["bounce"],
+                  outs["shadow"], stream=True)
+    print("launch floor / walk / MT on the bistro bounce wave (3i):",
+          flush=True)
+    _profile_times("bistro bounce closest", nodes, blocks, meta,
+                   waves["bounce"], False)
     del coef, valid, fp32
 
     host = {}
@@ -739,8 +1250,11 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
 def _render_path(label, scene, cam, settings, renderer_device=None):
     """Drive one main path through the Renderer API: start_render,
     render() until done (timed per step), readback, EXR export, and the
-    rays per spp from render_sample's own count. Launch counts are zeroed
-    just before start_render and read just after the last step."""
+    rays per spp from render_sample's own count of the first sample (or
+    batch). Launch counts are zeroed
+    just before start_render and read just after the last step; the
+    renderer returned carries those of start_render alone (the auto plan's
+    probe) as `probe_launches`."""
     from platinum_tpu_torch.render import integrator
     from platinum_tpu_torch.render.flatten import analyze_features
     from platinum_tpu_torch.render.renderer import Renderer, RenderStatus
@@ -749,6 +1263,8 @@ def _render_path(label, scene, cam, settings, renderer_device=None):
                 else Renderer(scene, device=renderer_device))
     _zero_launches()
     renderer.start_render(cam, settings)
+    # what start_render itself launched: the auto plan's probe sample
+    renderer.probe_launches = _launches()
     steps = []
     while not renderer.status & RenderStatus.DONE:
         t0 = time.perf_counter()
@@ -762,11 +1278,11 @@ def _render_path(label, scene, cam, settings, renderer_device=None):
     check(bool(np.isfinite(img).all()), f"{label}: non-finite values")
     check(float(img.mean()) > 0.0, f"{label}: image mean {img.mean()} <= 0")
     feats = analyze_features(renderer.flat)
-    rays = sum(float(integrator.render_sample(
-        renderer.flat, s, i, return_stats=True, features=feats)[1])
-        for i in range(s.spp))
-    ms_spp = float(np.mean(steps[1:])) * 1e3
-    rays_spp = rays / s.spp
+    batch = max(1, s.spp_batch)        # a step renders `batch` samples
+    # rays per spp: counted on the first batch, rendered once more
+    rays_spp = float(integrator.render_sample(
+        renderer.flat, s, 0, return_stats=True, features=feats)[1]) / batch
+    ms_spp = float(np.mean(steps[1:])) * 1e3 / batch
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "render.exr")
         renderer.export_exr(path)
@@ -777,7 +1293,8 @@ def _render_path(label, scene, cam, settings, renderer_device=None):
     print(f"{label}: {s.width}x{s.height} x {s.spp} spp x {s.max_bounces} "
           f"bounces: {ms_spp:.1f} ms/spp after the first step "
           f"({steps[0] * 1e3:.1f} ms), {rays_spp / ms_spp / 1e3:.2f} Mrays/s "
-          f"({rays_spp:.0f} rays/spp), mean {img.mean():.4f}, plan {plan}, "
+          f"({rays_spp:.0f} rays/spp, from the first sample), mean "
+          f"{img.mean():.4f}, plan {plan}, "
           f"launches {ran}, EXR {exr_bytes} bytes", flush=True)
     return renderer, launches, float(img.mean())
 
@@ -860,7 +1377,7 @@ def phase_headline_compact(scene, cam):
     check(isinstance(renderer.settings.compact_plan, tuple),
           f"compact_plan not resolved: {renderer.settings.compact_plan}")
     _only("the headline", launches, ("closest", "any"))
-    return launches, mean
+    return launches, mean, renderer
 
 
 def phase_mt3_knob(scene, cam, head_mean):
@@ -923,27 +1440,196 @@ def phase_exact_options(scene, cam):
               f"(rel {rel:.2e})", flush=True)
         check(rel <= MEAN_RTOL, f"the {label} render's mean is off K1's")
         out[label] = launches
+    return out, base
+
+
+def phase_raystream_render(scene, cam, base_mean):
+    """4g: sponza_class_512's settings at 2 spp through
+    integrator.render_step_n with the ray-stream pair as `tracers=`."""
+    from platinum_tpu_torch.ops import raystream as rs
+    from platinum_tpu_torch.render import autoplan, integrator
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    settings = RenderSettings(spp=2, **HEADLINE)
+    flat = flatten_scene(scene, cam, settings)
+    settings = autoplan.resolve_auto_plan(flat, settings)  # probes with K1/K2
+    feats = analyze_features(flat)
+    pair = rs.make_stream_tracer(flat.wbvh_nodes, flat.wbvh_tris,
+                                 flat.wbvh_meta, flat.wbvh_slot)
+    accum = torch.zeros((settings.num_pixels, 3), device=flat.wbvh_nodes.device)
+    _zero_launches()
+    img, ms = _synced_ms(lambda: integrator.render_step_n(
+        flat, settings, accum, 0, 2, features=feats, tracers=pair))
+    launches = _launches()
+    _only("the ray-stream render", launches,
+          ("stream_mt closest", "stream_mt any"))
+    img = img.cpu().numpy()
+    check(bool(np.isfinite(img).all()), "the ray-stream render is not finite")
+    rel = abs(float(img.mean()) / base_mean - 1.0)
+    ran = {k: v for k, v in launches.items() if v}
+    print(f"headline through the ray-stream pair (4g): 512x512 x 2 spp in "
+          f"{ms:.1f} ms ({ms / 2:.1f} ms/spp, the first use included), mean "
+          f"{img.mean():.5f} against K1's {base_mean:.5f} at the same 2 spp "
+          f"(rel {rel:.2e}), plan {settings.compact_plan}, launches {ran}",
+          flush=True)
+    check(rel <= MEAN_RTOL, "the ray-stream render's mean is off K1's")
+    return launches
+
+
+def phase_pipe_render(scene, cam, base_mean):
+    """4i: sponza_class_512's settings at 2 spp through
+    integrator.render_step_n with the pipelined packet tracer as
+    `tracers=`, without and with the flat push. Returns {"pipe" /
+    "flat_walk": launch counts}."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render import autoplan, integrator
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    settings = RenderSettings(spp=2, **HEADLINE)
+    flat = flatten_scene(scene, cam, settings)
+    settings = autoplan.resolve_auto_plan(flat, settings)  # probes with K1/K2
+    feats = analyze_features(flat)
+    out = {}
+    for key, opt in (("pipe", dict(pipe=True)),
+                     ("flat_walk", dict(flat_walk=True))):
+        pair = pt.make_packet_tracer(flat.wbvh_nodes, flat.wbvh_tris,
+                                     flat.wbvh_meta, flat.wbvh_slot, **opt)
+        accum = torch.zeros((settings.num_pixels, 3),
+                            device=flat.wbvh_nodes.device)
+        _zero_launches()
+        img, ms = _synced_ms(lambda: integrator.render_step_n(
+            flat, settings, accum, 0, 2, features=feats, tracers=pair))
+        launches = _launches()
+        prefix = "flat+" if key == "flat_walk" else "pipe+"
+        _only(f"the {key} headline", launches,
+              (prefix + "closest", prefix + "any"))
+        img = img.cpu().numpy()
+        check(bool(np.isfinite(img).all()), f"the {key} render is not finite")
+        rel = abs(float(img.mean()) / base_mean - 1.0)
+        ran = {k: v for k, v in launches.items() if v}
+        print(f"headline through the packet tracer with {key}=True (4i): "
+              f"512x512 x 2 spp in {ms:.1f} ms ({ms / 2:.1f} ms/spp), mean "
+              f"{img.mean():.5f} against K1's {base_mean:.5f} at the same 2 "
+              f"spp (rel {rel:.2e}), plan {settings.compact_plan}, launches "
+              f"{ran}", flush=True)
+        check(rel <= MEAN_RTOL, f"the {key} render's mean is off K1's")
+        out[key] = launches
     return out
 
 
-def _end_to_end(label, flat, settings):
+def _kernel_launches(renderer):
+    """All device kernel launches of one render_sample call per sample it
+    renders, counted by torch.profiler (cudaLaunchKernel calls)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from platinum_tpu_torch.render import integrator
+
+    s = renderer.settings
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        integrator.render_sample(renderer.flat, s, 0,
+                                 features=renderer._features)
+        torch.cuda.synchronize()
+    count = sum(ev.count for ev in prof.key_averages()
+                if ev.key == "cudaLaunchKernel")
+    check(count > 0, "torch.profiler saw no kernel launch")
+    return count / max(1, s.spp_batch)
+
+
+def phase_wave_modes(scene, cam, head, head_launches):
+    """4h: the headline at 4 spp with fuse_shadow, spp_batch=2 and
+    chunk_shade=65536 against 4c (`head`, rendered above)."""
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    def per_spp(renderer, launches, key):
+        """Trace launches of one mode per sample, the probe's apart."""
+        return (launches[key] - renderer.probe_launches[key]) / spp
+
+    img0 = head.readback()
+    spp = head.settings.spp
+    base_all = _kernel_launches(head)
+    base = {k: per_spp(head, head_launches, k) for k in ("closest", "any")}
+    print(f"wave-shaping modes against 4c (4h): 4c launches "
+          f"{base['closest']:.1f} closest and {base['any']:.1f} any-hit "
+          f"trace kernels and {base_all:.0f} kernels of all kinds per spp "
+          f"(the auto plan's probe apart), plan "
+          f"{head.settings.compact_plan}", flush=True)
+    out = {}
+    for label, opt in (("fuse_shadow", dict(fuse_shadow=True)),
+                       ("spp_batch=2", dict(spp_batch=2)),
+                       ("chunk_shade=65536", dict(chunk_shade=65536))):
+        renderer, launches, mean = _render_path(
+            f"headline with {label}", scene, cam,
+            RenderSettings(spp=spp, **opt, **HEADLINE))
+        _only(f"the {label} headline", launches, ("closest", "any"))
+        img = renderer.readback()
+        rel = abs(mean / float(img0.mean()) - 1.0)
+        diff = float(np.abs(img - img0).max())
+        same_plan = renderer.settings.compact_plan == head.settings.compact_plan
+        bars = ""
+        if label != "spp_batch=2":
+            # the same rays and the same numbers, summed in another order
+            check(same_plan, f"{label} resolved another plan than 4c")
+            bars = (f", within the JAX tests' Cornell bars: 1e-6 "
+                    f"{np.allclose(img, img0, rtol=1e-6, atol=1e-6)}, 2e-4 "
+                    f"{np.allclose(img, img0, rtol=2e-4, atol=2e-4)}")
+        all_spp = _kernel_launches(renderer)
+        got = {k: per_spp(renderer, launches, k) for k in ("closest", "any")}
+        print(f"  {label}: mean {mean:.5f} against 4c's {img0.mean():.5f} "
+              f"(rel {rel:.2e}), largest per-pixel difference {diff:.3e}"
+              f"{bars}; per spp {got['closest']:.1f} closest and "
+              f"{got['any']:.1f} any-hit trace launches (4c "
+              f"{base['closest']:.1f} and {base['any']:.1f}) and "
+              f"{all_spp:.0f} kernel launches of all kinds (4c "
+              f"{base_all:.0f}); plan {renderer.settings.compact_plan}",
+              flush=True)
+        check(rel <= MEAN_RTOL, f"the {label} render's mean is off 4c's")
+        if label == "fuse_shadow":
+            # K2 only from resolve_pending: once per plan segment
+            plan = integrator._compaction_plan(renderer.settings.num_pixels,
+                                               renderer.settings)
+            check(got["any"] <= len(plan),
+                  f"fuse_shadow launched K2 {got['any']} times per spp, "
+                  f"more than once per plan segment ({len(plan)})")
+            check(got["closest"] <= base["closest"],
+                  "fuse_shadow launched more closest waves than 4c")
+        out[label] = launches
+    return out
+
+
+def _end_to_end(label, flat, settings, pairs=None):
     """One sample through the default tracers (the kernel) against the
     same sample through the packet tracer over the plain versions
-    (trace_wide_reference) in the same mode."""
+    (trace_wide_reference) in the same mode; or, given `pairs` = (kernel
+    tracer pair, plain tracer pair), through those as `tracers=`. Returns
+    the kernel render's launch counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.render.flatten import analyze_features
     from platinum_tpu_torch.render.integrator import render_sample
 
     feats = analyze_features(flat)
-    inst_feat = flat.instances.feat if flat.instances is not None else None
-    plain = pt.make_packet_tracer(
-        flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
-        trace_fn=pt.trace_wide_reference, inst_feat=inst_feat,
-        worder=flat.wbvh_order if settings.oct_order else None,
-        stream=flat.wbvh_stream, mt_precision=settings.mt_precision)
+    kernel = None
+    if pairs is not None:
+        kernel, plain = pairs
+    else:
+        inst_feat = (flat.instances.feat if flat.instances is not None
+                     else None)
+        plain = pt.make_packet_tracer(
+            flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+            trace_fn=pt.trace_wide_reference, inst_feat=inst_feat,
+            worder=flat.wbvh_order if settings.oct_order else None,
+            stream=flat.wbvh_stream, mt_precision=settings.mt_precision)
     _zero_launches()
-    img_k = render_sample(flat, settings, 0, features=feats).cpu().numpy()
-    ran = {k: v for k, v in _launches().items() if v}
+    img_k = render_sample(flat, settings, 0, tracers=kernel,
+                          features=feats).cpu().numpy()
+    launches = _launches()
+    ran = {k: v for k, v in launches.items() if v}
     img_p = render_sample(flat, settings, 0, tracers=plain,
                           features=feats).cpu().numpy()
     close = np.isclose(img_k, img_p, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1)
@@ -955,6 +1641,7 @@ def _end_to_end(label, flat, settings):
     check(bool(np.isfinite(img_k).all()), f"{label}: kernel render not finite")
     check(close.mean() >= AGREE, f"{label}: renders differ per pixel")
     check(rel <= MEAN_RTOL, f"{label}: render means differ")
+    return launches
 
 
 def phase_end_to_end(scene, cam, dev):
@@ -988,32 +1675,85 @@ def phase_end_to_end(scene, cam, dev):
     settings = RenderSettings(**dict(small, stream="on"))
     _end_to_end("end to end K6 stream='on' 64x64x1",
                 flatten_scene(scene, cam, settings, device=dev), settings)
+    # 5d: the pipelined walk and the ray-stream pair, as `tracers=`
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.ops import raystream as rs
+
+    settings = RenderSettings(**small)
+    tree = (flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot)
+    out = {}
+    for key, opt in (("pipe", dict(pipe=True)),
+                     ("flat_walk", dict(flat_walk=True))):
+        out[key] = _end_to_end(
+            f"end to end K9 {key} 64x64x1", flat, settings,
+            (pt.make_packet_tracer(*tree, **opt),
+             pt.make_packet_tracer(*tree, trace_fn=pt.trace_wide_reference,
+                                   **opt)))
+        prefix = "flat+" if key == "flat_walk" else "pipe+"
+        _only(f"the {key} render", out[key],
+              (prefix + "closest", prefix + "any"))
+    out["raystream"] = _end_to_end(
+        "end to end K15 ray-stream pair 64x64x1", flat, settings,
+        (rs.make_stream_tracer(*tree),
+         rs.make_stream_tracer(*tree, mt_fn=rs.stream_mt_plain)))
+    _only("the ray-stream render", out["raystream"],
+          ("stream_mt closest", "stream_mt any"))
+    return out
 
 
 def main():
     t_start = time.perf_counter()
+    laps = [t_start]
+
+    def lap(phases):
+        """Print the wall time since the last lap: where the script's
+        time goes."""
+        torch.cuda.synchronize()
+        laps.append(time.perf_counter())
+        print(f"[{phases}: {laps[-1] - laps[-2]:.1f} s, "
+              f"{laps[-1] - t_start:.1f} s so far]", flush=True)
+
     dev = phase_device()
     phase_build()
+    lap("1-2 build")
     from platinum_tpu_torch.app.scenes import make_colonnade_scene
 
     scene, cam = make_colonnade_scene()
     ctx, k12 = phase_k1k2(scene, cam, dev)
+    lap("3 K1/K2")
     k3 = phase_k3(scene, cam, dev, ctx["pts"])
+    lap("3b K3, 3h instanced")
     k457 = phase_variants(ctx)
+    lap("3c-3e K4, K5, K7")
+    k8 = phase_paired(ctx, k12)
+    k9 = phase_pipe(ctx, k12)
+    prof = phase_profile(ctx, k12)
+    lap("3g-3i K8, K9, ablation")
+    k15 = phase_raystream(ctx)
+    lap("3j K15")
     k6 = phase_stream(scene, cam, dev, ctx["pts"])
+    lap("3f K6 and the bistro tree")
     del ctx
     phase_headline_plain(scene, cam, dev)
     inst_launches = phase_instanced(scene, cam, dev)
     scene, cam = make_colonnade_scene()   # the column moved above
-    head_launches, head_mean = phase_headline_compact(scene, cam)
+    head_launches, head_mean, head = phase_headline_compact(scene, cam)
+    lap("4-4c renders")
+    phase_wave_modes(scene, cam, head, head_launches)
+    del head
+    lap("4h wave modes")
     knob_launches = phase_mt3_knob(scene, cam, head_mean)
     bistro_launches = phase_bistro()
-    exact_launches = phase_exact_options(scene, cam)
+    exact_launches, base_mean = phase_exact_options(scene, cam)
+    stream_launches = phase_raystream_render(scene, cam, base_mean)
+    pipe_launches = phase_pipe_render(scene, cam, base_mean)
+    lap("4d-4g, 4i renders")
     phase_end_to_end(scene, cam, dev)
+    lap("5-5d end to end")
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"
-    table = (("wide_trace closest (K1)", f"{pallas}:99",
+    table = [("wide_trace closest (K1)", f"{pallas}:99",
               k12["closest"], head_launches["closest"]),
              ("wide_trace any-hit (K2)", f"{pallas}:399",
               k12["any"], head_launches["any"]),
@@ -1031,13 +1771,41 @@ def main():
              ("wide_trace streamed any-hit (K6)", f"{pallas}:559",
               k6["any"], bistro_launches["stream+any"]),
              ("wide_trace closest oct_order (K7)", f"{pallas}:623",
-              k457["K7"], exact_launches["oct_order"]["closest+oct"]))
+              k457["K7"], exact_launches["oct_order"]["closest+oct"]),
+             ("wide_trace paired closest + any-hit (K8)", f"{pallas}:1519",
+              k8, k8["launches"]),
+             ("wide_trace pipelined closest (K9 pipe)", f"{pallas}:803",
+              k9["K9 pipe"]["closest"], pipe_launches["pipe"]["pipe+closest"]),
+             ("wide_trace pipelined any-hit (K9 pipe)", f"{pallas}:803",
+              k9["K9 pipe"]["any"], pipe_launches["pipe"]["pipe+any"]),
+             ("wide_trace pipelined closest, flat push (K9 flat_walk)",
+              f"{pallas}:1071", k9["K9 flat_walk"]["closest"],
+              pipe_launches["flat_walk"]["flat+closest"]),
+             ("wide_trace pipelined any-hit, flat push (K9 flat_walk)",
+              f"{pallas}:1071", k9["K9 flat_walk"]["any"],
+              pipe_launches["flat_walk"]["flat+any"])]
+    table += [(f"wide_trace closest profile={mode}", f"{pallas}:{line}",
+               prof[mode], prof[mode]["launches"])
+              for mode, line in (("empty", 740), ("nomt", 352),
+                                 ("fix64", 519), ("count", 788))]
     kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
                     launches=launches, max_abs_err=row["max_abs_err"],
                     ms=row["ms"], plain_ms=row["plain_ms"],
                     bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=None)
+                    library_ms=None,
+                    **({"plain_rays": row["plain_rays"]}
+                       if "plain_rays" in row else {}))
                for name, replaces, row, launches in table]
+    stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"
+    for kind, mode in (("closest", "closest"), ("any", "any-hit")):
+        row = k15[kind]
+        kernels.append(dict(
+            name=f"stream_mt {mode} (K15)", route="cuda", source=stream_src,
+            replaces="platinum_tpu/ops/raystream.py:214",
+            launches=stream_launches[f"stream_mt {kind}"],
+            max_abs_err=row["max_abs_err"], ms=row["ms"],
+            plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",

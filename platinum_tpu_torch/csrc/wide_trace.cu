@@ -1,11 +1,12 @@
 // Closest-hit and any-hit traversal of the 16-wide BVH on Hopper (sm_90a),
 // one-level and two-level (instanced), at four Moller-Trumbore precision
-// tiers, with leaf blocks tested as found or queued per node (streamed or
-// near-first).
+// tiers, with leaf blocks tested as found, queued per node (streamed or
+// near-first) or kept in a backlog across nodes (pipelined), a closest-hit
+// and an any-hit wave in one launch, and the ablation modes.
 //
-// Replaces the Pallas TPU kernel `_make_kernel` of
-// platinum_tpu/ops/pallas_trace.py (built by `_build_call`) in the modes
-// the render paths reach:
+// Replaces the Pallas TPU kernels `_make_kernel` and `_make_kernel_pipe`
+// of platinum_tpu/ops/pallas_trace.py (built by `_build_call`) in every
+// mode:
 //   K1 closest hit and K2 any hit over one tree;
 //   K3 both again over the two-level TLAS/BLAS tree of accel/tlas.py
 //      (`n_inst > 0`);
@@ -15,7 +16,15 @@
 //   K6 stream=True: leaf blocks queued per node, each block's 10,240 B
 //      prefetched into L2 as it is queued, the queue drained oldest first;
 //   K7 oct_order: children visited in a per-(node, octant) near-first
-//      order (accel.wide.build_octant_orders).
+//      order (accel.wide.build_octant_orders);
+//   K8 the paired launch (`trace_paired`): one grid over a closest-hit
+//      wave and an any-hit wave, each thread taking its mode from its ray
+//      index (kPaired, at the kernel below);
+//   K9 pipe / flat_walk (`_make_kernel_pipe`): the pipelined walk
+//      (walk_pipe below);
+//   the ablation modes of `profile=` ("empty", "nomt", "fix64", "count":
+//      wrong results by design, for splitting a wave's time into launch
+//      floor, walk and block tests; kProf).
 // The layout contract is platinum_tpu/accel/wide.py's:
 //   nodes  (N, 16, 8) f32  child records [lo.xyz, hi.xyz, meta, pad]
 //   blocks (B, 10, 256) f32 Moller-Trumbore coefficients of 64 triangles,
@@ -34,7 +43,8 @@
 // (local memory, accel.wide.KERNEL_STACK entries, a bound build_wide_bvh
 // asserts every tree fits), slab-tests each popped node's 16 children with
 // the TPU kernel's reciprocal guard and hit test, and intersects leaf
-// blocks with 10-term dot products on the CUDA cores. Closest hit keeps the
+// blocks with 10-term dot products on the CUDA cores (csrc/mt_block.cuh,
+// shared with the ray-stream tracer's leaf-pair kernel). Closest hit keeps the
 // block's minimum t with ties to the lowest slot and replaces the running
 // best only on a strictly smaller t, as the TPU kernel does (an exact-t tie
 // across blocks or instances keeps the one visited first); the id returned
@@ -135,26 +145,32 @@
 // reference rounds each product; results agree to the borderline-certified
 // tolerance the tests state. Divisions are IEEE (no fast-math).
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "mt_block.cuh"
 
 namespace {
 
+using namespace mt_block;
+
 constexpr int kWidth = 16;
-constexpr int kBlockTris = 64;
-constexpr int kBlockFloats = 10 * 4 * kBlockTris;  // 2560
-constexpr unsigned kBlockBytes = kBlockFloats * 4;  // 10,240
 constexpr int kStack = 256;         // accel.wide.KERNEL_STACK
+constexpr int kLeafQ = 64;          // accel.wide.KERNEL_LEAFQ: most blocks
+                                    // one node's leaves hold
+constexpr int kPipeQ = 256;         // backlog entries of the pipelined walk
+constexpr int kPipeDrain = 4;       // its block tests per iteration
 constexpr int kMaxPops = 1 << 22;   // guard against malformed trees
-constexpr float kDetEps = 1e-12f;
 constexpr int kThreads = 128;
 
-// MT precision tiers, the wrapper's codes (ops/packet_trace.py PRECISIONS)
-constexpr int kHighest = 0;
-constexpr int kHigh = 1;
-constexpr int kDefault = 2;
-constexpr int kTwoPhase = 3;
+// walks (kWalk)
+constexpr int kClassic = 0;   // each leaf tested as it is found (K1)
+constexpr int kQueued = 1;    // per-node leaf queue (K6, K7)
+constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9)
+constexpr int kPipeFlat = 3;  // K9 with 16 predicated pushes per node
+// ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
+constexpr int kProfNone = 0;
+constexpr int kProfEmpty = 1;   // no walk
+constexpr int kProfNoMt = 2;    // the walk with every block test skipped
+constexpr int kProfFix64 = 3;   // exactly 64 loop iterations
+constexpr int kProfCount = 4;   // the iteration count in place of u
 // two_phase widening and error-bound constants (pallas_trace.py:179-180,
 // 438)
 constexpr float kTpRel = 1e-5f;
@@ -166,20 +182,6 @@ __device__ __forceinline__ float guarded_inv(float v) {
   // pallas_trace.py invd: |v| < 1e-20 -> +-1e-20 (sign kept, -0 -> +)
   const float tiny = v < 0.f ? -1e-20f : 1e-20f;
   return 1.0f / (fabsf(v) < 1e-20f ? tiny : v);
-}
-
-__device__ __forceinline__ float bf16_rn(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// h = bf16(x), l = bf16(x - h) for the 10 features (pallas_trace.py:194-197)
-__device__ __forceinline__ void split_features(const float* f, float* fh,
-                                               float* fl) {
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    fh[k] = bf16_rn(f[k]);
-    fl[k] = bf16_rn(f[k] - fh[k]);
-  }
 }
 
 // F_obj = T F: the instance's feature transform, read through the
@@ -209,149 +211,6 @@ struct Ray {
   float fh[10];  // their bf16 split (reduced tiers, one-level mode)
   float fl[10];
 };
-
-// One 64-triangle block's four MT outputs for triangles s0..s0+3, as
-// 10-term fp32 dots of the coefficient rows with the features f.
-__device__ __forceinline__ void block_dots(const float* __restrict__ blk,
-                                           const float* f, int s0,
-                                           float4 a[4]) {
-#pragma unroll
-  for (int q = 0; q < 4; ++q) a[q] = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const float fk = f[k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 c = __ldg(reinterpret_cast<const float4*>(
-          blk + k * 256 + q * kBlockTris + s0));
-      a[q].x += c.x * fk; a[q].y += c.y * fk;
-      a[q].z += c.z * fk; a[q].w += c.w * fk;
-    }
-  }
-}
-
-// The same outputs at a reduced tier, out[q*4 + j] for output q of
-// triangle s0+j, from the features' split (fh, fl) and each coefficient's
-// split as it is loaded: kHigh and kTwoPhase sum h*h, h*l and l*h in
-// three accumulators and add them in that order; kDefault forms h*h alone.
-// kTwoPhase also returns the magnitude dots mag = |h|*|h| (the 1-pass bf16
-// product of |blk| and |feat|, bf16 rounding being symmetric).
-template <int kPrec>
-__device__ __forceinline__ void block_dots_split(
-    const float* __restrict__ blk, const float* fh, const float* fl, int s0,
-    float out[16], float mag[16]) {
-  float hh[16], hl[16], lh[16];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    hh[i] = 0.f; hl[i] = 0.f; lh[i] = 0.f;
-    if (kPrec == kTwoPhase) mag[i] = 0.f;
-  }
-#pragma unroll
-  for (int k = 0; k < 10; ++k) {
-    const float fhk = fh[k];
-    const float flk = kPrec == kDefault ? 0.f : fl[k];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 c = __ldg(reinterpret_cast<const float4*>(
-          blk + k * 256 + q * kBlockTris + s0));
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int i = q * 4 + j;
-        const float ch = bf16_rn(cv[j]);
-        hh[i] = fmaf(ch, fhk, hh[i]);
-        if (kPrec != kDefault) {
-          const float cl = bf16_rn(cv[j] - ch);
-          hl[i] = fmaf(ch, flk, hl[i]);
-          lh[i] = fmaf(cl, fhk, lh[i]);
-        }
-        if (kPrec == kTwoPhase) mag[i] = fmaf(fabsf(ch), fabsf(fhk), mag[i]);
-      }
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < 16; ++i)
-    out[i] = kPrec == kDefault ? hh[i] : (hh[i] + hl[i]) + lh[i];
-}
-
-// Any hit in one block: the division-free accept test, always fp32.
-__device__ __forceinline__ bool block_any(const float* __restrict__ blk,
-                                          const float* f, float tmin,
-                                          float tmax) {
-  for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
-    float4 a[4];
-    block_dots(blk, f, s0, a);
-    const float det[4] = {a[0].x, a[0].y, a[0].z, a[0].w};
-    const float ud[4] = {a[1].x, a[1].y, a[1].z, a[1].w};
-    const float vd[4] = {a[2].x, a[2].y, a[2].z, a[2].w};
-    const float td[4] = {a[3].x, a[3].y, a[3].z, a[3].w};
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s = det[j] >= 0.f ? 1.f : -1.f;
-      const float ad = det[j] * s, us = ud[j] * s, vs = vd[j] * s,
-                  ts = td[j] * s;
-      if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
-          ts > tmin * ad && ts < tmax * ad)
-        return true;
-    }
-  }
-  return false;
-}
-
-// Closest hit in one block at tier kPrec (highest, high or default),
-// folded into the running best (strict <). Returns true when it replaced
-// the best.
-template <int kPrec>
-__device__ __forceinline__ bool block_closest(
-    const float* __restrict__ blk, int block, const float* f,
-    const float* fh, const float* fl, float tmin, float& best, int& sid,
-    float& bu, float& bv) {
-  const float best0 = best;
-  float tb = __int_as_float(0x7f800000);  // +inf
-  int slot = -1;
-  float sel_us = 0.f, sel_vs = 0.f, sel_ad = 0.f;
-  for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
-    float det[4], ud[4], vd[4], td[4];
-    if (kPrec == kHighest) {
-      float4 a[4];
-      block_dots(blk, f, s0, a);
-      det[0] = a[0].x; det[1] = a[0].y; det[2] = a[0].z; det[3] = a[0].w;
-      ud[0] = a[1].x; ud[1] = a[1].y; ud[2] = a[1].z; ud[3] = a[1].w;
-      vd[0] = a[2].x; vd[1] = a[2].y; vd[2] = a[2].z; vd[3] = a[2].w;
-      td[0] = a[3].x; td[1] = a[3].y; td[2] = a[3].z; td[3] = a[3].w;
-    } else {
-      float out[16], mag[16];
-      block_dots_split<kPrec>(blk, fh, fl, s0, out, mag);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        det[j] = out[j]; ud[j] = out[4 + j];
-        vd[j] = out[8 + j]; td[j] = out[12 + j];
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float s = det[j] >= 0.f ? 1.f : -1.f;
-      const float ad = det[j] * s, us = ud[j] * s, vs = vd[j] * s,
-                  ts = td[j] * s;
-      if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
-          ts > tmin * ad && ts < best0 * ad) {
-        const float t = ts / fmaxf(ad, 1e-37f);
-        if (t < tb) {  // ascending slots: ties keep the lowest slot
-          tb = t; slot = s0 + j; sel_us = us; sel_vs = vs; sel_ad = ad;
-        }
-      }
-    }
-  }
-  if (slot >= 0 && tb < best) {
-    const float iad = 1.0f / fmaxf(sel_ad, 1e-37f);
-    best = tb;
-    sid = block * kBlockTris + slot;
-    bu = sel_us * iad;
-    bv = sel_vs * iad;
-    return true;
-  }
-  return false;
-}
 
 // two_phase broad-phase state of one ray: cull bound, the two candidate
 // blocks of smallest loose t with a sound lower bound of their hits' t,
@@ -422,9 +281,16 @@ __device__ __forceinline__ void block_broad(const float* __restrict__ blk,
   }
 }
 
-template <bool kAnyHit, bool kInst, bool kCount, int kPrec, bool kQueue>
+// One instantiation per mode. kAnyHit, kInst, kPrec and kCount as above;
+// kWalk picks the walk, kProf an ablation mode of the classic and queued
+// walks, and kPaired takes closest or any hit per thread from its ray
+// index (K8): rays below n_split are a closest-hit wave, the others an
+// any-hit wave. n_split is a multiple of the block size, so no warp holds
+// rays of both waves.
+template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
+          int kProf, bool kPaired>
 __global__ void __launch_bounds__(kThreads)
-wide_trace_kernel(const float* __restrict__ rays, int n_rays,
+wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
                   const float* __restrict__ nodes,
                   const float* __restrict__ blocks,
                   const int* __restrict__ meta,
@@ -434,8 +300,11 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
                   float* __restrict__ u_out, float* __restrict__ v_out,
                   int* __restrict__ inst_out, int* __restrict__ counts) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
+  constexpr bool kQueue = kWalk == kQueued;
+  constexpr bool kSteps = kCount || kProf == kProfCount;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_rays) return;
+  const bool any_hit = kPaired ? i >= n_split : kAnyHit;
   Ray r;
   r.ox = rays[i];
   r.oy = rays[n_rays + i];
@@ -448,11 +317,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
   r.ix = guarded_inv(dx);
   r.iy = guarded_inv(dy);
   r.iz = guarded_inv(dz);
-  r.f[0] = dx; r.f[1] = dy; r.f[2] = dz;
-  r.f[3] = r.oy * dz - r.oz * dy;
-  r.f[4] = r.oz * dx - r.ox * dz;
-  r.f[5] = r.ox * dy - r.oy * dx;
-  r.f[6] = r.ox; r.f[7] = r.oy; r.f[8] = r.oz; r.f[9] = 1.f;
+  ray_features(r.ox, r.oy, r.oz, dx, dy, dz, r.f);
   if (kSplit && !kInst) split_features(r.f, r.fh, r.fl);
 
   float best = r.tmax, bu = 0.f, bv = 0.f;
@@ -471,22 +336,18 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
   // the node-test bound: the running best (closest), tmax (any hit), or
   // the widened cull bound (two_phase broad phase)
   auto cull_now = [&]() -> float {
-    if (kAnyHit) return r.tmax;
+    if (any_hit) return r.tmax;
     if (kPrec == kTwoPhase && broad) return cd.cull * (1.0f + kTpRel) + kTpAbs;
     return best;
   };
 
-  // test the blocks of leaf `val` (returns early on an any-hit occlusion)
-  auto visit_leaf = [&](int val) {
-    const int nb = val & 31;
-    int b0 = val >> 5;
-    int inst = 0;
+  // test block b of instance inst (an any-hit ray sets `occluded`)
+  auto visit_block = [&](int inst, int b) {
+    if (kProf == kProfNoMt) return;
     const float* f = r.f;
     const float* fh = r.fh;
     const float* fl = r.fl;
     if (kInst) {
-      b0 = (val >> 5) & 0x3FFF;
-      inst = val >> 19;
       if (inst != cur_inst) {
         object_features(inst_feat, inst, r.f, fo);
         if (kSplit) split_features(fo, foh, fol);
@@ -495,25 +356,48 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
       }
       f = fo; fh = foh; fl = fol;
     }
-    for (int j = 0; j < nb; ++j) {
-      const int b = b0 + j;
-      const float* blk = blocks + (size_t)b * kBlockFloats;
-      if (kCount) {
-        if (kPrec == kTwoPhase && !broad) ++n_refine; else ++n_tests;
-      }
-      if (kAnyHit) {
-        if (block_any(blk, f, r.tmin, r.tmax)) { occluded = true; return; }
-      } else if (kPrec == kTwoPhase) {
-        if (broad)
-          block_broad(blk, kInst ? (inst << 14 | b) : b, fh, fl, r.tmin, cd);
-        else if (block_closest<kHighest>(blk, b, f, fh, fl, r.tmin, best,
-                                         sid, bu, bv))
-          best_inst = inst;
-      } else if (block_closest<kPrec>(blk, b, f, fh, fl, r.tmin, best, sid,
-                                      bu, bv)) {
-        best_inst = inst;
-      }
+    const float* blk = blocks + (size_t)b * kBlockFloats;
+    if (kCount) {
+      if (kPrec == kTwoPhase && !broad) ++n_refine; else ++n_tests;
     }
+    if (any_hit) {
+      if (block_any<kHighest>(blk, f, nullptr, nullptr, r.tmin, r.tmax))
+        occluded = true;
+    } else if (kPrec == kTwoPhase) {
+      if (broad)
+        block_broad(blk, kInst ? (inst << 14 | b) : b, fh, fl, r.tmin, cd);
+      else if (block_closest<kHighest>(blk, b, f, fh, fl, r.tmin, best, sid,
+                                       bu, bv))
+        best_inst = inst;
+    } else if (block_closest<kPrec>(blk, b, f, fh, fl, r.tmin, best, sid,
+                                    bu, bv)) {
+      best_inst = inst;
+    }
+  };
+
+  // test the blocks of leaf `val` (returns early on an any-hit occlusion)
+  auto visit_leaf = [&](int val) {
+    const int nb = val & 31;
+    const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
+    const int inst = kInst ? val >> 19 : 0;
+    for (int j = 0; j < nb; ++j) {
+      visit_block(inst, b0 + j);
+      if (any_hit && occluded) return;
+    }
+  };
+
+  // slab test of child c of a node against the bound `cull`; on a hit,
+  // tnear is the entry distance
+  auto slab = [&](const float4* rec, int c, float cull, float& tnear) -> bool {
+    const float4 a = __ldg(rec + 2 * c);      // lo.xyz, hi.x
+    const float4 b = __ldg(rec + 2 * c + 1);  // hi.yz, meta, pad
+    const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
+    const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
+    const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
+    tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)), fminf(t0z, t1z));
+    const float tfar =
+        fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)), fmaxf(t0z, t1z));
+    return tnear <= tfar && tfar >= r.tmin && tnear <= cull;
   };
 
   const int octant = (dx < 0.f) + 2 * (dy < 0.f) + 4 * (dz < 0.f);
@@ -521,9 +405,12 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
     int stack[kStack];
     int sp = 0;
     stack[sp++] = 0;
-    for (int pops = 0; sp > 0 && pops < kMaxPops; ++pops) {
+    for (int pops = 0;
+         kProf == kProfFix64 ? pops < 64 : (sp > 0 && pops < kMaxPops);
+         ++pops) {
+      if (kProf == kProfFix64 && sp == 0) continue;
       const int n = stack[--sp];
-      if (kCount) ++n_pops;
+      if (kSteps) ++n_pops;
       const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
       const int* mrow = meta + n * kWidth;
       // queued walks: leaf hits of this node, in the order found
@@ -542,18 +429,8 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
           c = ((j < 8 ? w0 : w1) >> (4 * (j & 7))) & 15;
         const int mc = __ldg(mrow + c);
         if (mc == -1) continue;  // empty slot: bounds are placeholders
-        const float4 a = __ldg(rec + 2 * c);      // lo.xyz, hi.x
-        const float4 b = __ldg(rec + 2 * c + 1);  // hi.yz, meta, pad
-        const float t0x = (a.x - r.ox) * r.ix, t1x = (a.w - r.ox) * r.ix;
-        const float t0y = (a.y - r.oy) * r.iy, t1y = (b.x - r.oy) * r.iy;
-        const float t0z = (a.z - r.oz) * r.iz, t1z = (b.y - r.oz) * r.iz;
-        const float tnear = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                                  fminf(t0z, t1z));
-        const float tfar = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                                 fmaxf(t0z, t1z));
-        if (!(tnear <= tfar && tfar >= r.tmin &&
-              tnear <= (kQueue ? cull0 : cull_now())))
-          continue;
+        float tnear;
+        if (!slab(rec, c, kQueue ? cull0 : cull_now(), tnear)) continue;
         if (mc >= 0) {
           stack[sp < kStack ? sp : kStack - 1] = mc;
           sp = sp < kStack ? sp + 1 : kStack;
@@ -562,7 +439,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
         const int val = -mc - 2;
         if (!kQueue) {
           visit_leaf(val);
-          if (kAnyHit && occluded) break;
+          if (any_hit && occluded) break;
           continue;
         }
         qv[q] = val;
@@ -579,19 +456,115 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
           const int e = worder != nullptr ? q - 1 - k : k;
           if (!(qt[e] <= cull_now())) continue;
           visit_leaf(qv[e]);
-          if (kAnyHit && occluded) break;
+          if (any_hit && occluded) break;
         }
       }
-      if (kAnyHit && occluded) break;
+      if (any_hit && occluded) {
+        if (kProf != kProfFix64) break;
+        sp = 0;
+      }
+    }
+  };
+
+  // The pipelined walk (K9). The leaf blocks a node's expansion finds go
+  // to a backlog that outlives the node: every iteration pops at most one
+  // node, held back while its leaves (at most kLeafQ blocks in a tree of
+  // accel.wide; blocks beyond the backlog's room are tested at once)
+  // might not fit the backlog, and then tests at most kPipeDrain blocks from the
+  // backlog's top, so that the threads of a warp meet again after a
+  // bounded amount of block work. Children are culled against `stale`,
+  // the bound as it stood at the start of the iteration before (a best t
+  // only falls, so a stale bound admits more nodes and loses no hit); a
+  // backlog entry whose entry distance has fallen behind the running best
+  // is dropped untested, and each block is tested against the running
+  // best with K1's block code, so hit set and t are K1's. kPipeFlat
+  // pushes the 16 children by predicated writes with no inner loop (a
+  // write not taken lands in a dump slot past the end), which needs
+  // single-block leaves.
+  auto walk_pipe = [&]() {
+    int stack[kStack + 1];
+    int lqv[kPipeQ + 1];
+    float lqt[kPipeQ + 1];
+    int sp = 0, lq = 0;
+    stack[sp++] = 0;
+    float stale = cull_now();
+    for (int it = 0; (sp > 0 || lq > 0) && it < kMaxPops; ++it) {
+      const float snap = cull_now();
+      if (sp > 0 && lq <= kPipeQ - kLeafQ) {
+        const int n = stack[--sp];
+        if (kCount) ++n_pops;
+        const float4* rec =
+            reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
+        const int* mrow = meta + n * kWidth;
+        if (kWalk == kPipeFlat) {
+#pragma unroll
+          for (int c = 0; c < kWidth; ++c) {
+            const int mc = __ldg(mrow + c);
+            float tnear;
+            const bool take = slab(rec, c, stale, tnear) && mc != -1;
+            const bool inner = take && mc >= 0;
+            const bool leaf = take && mc <= -2;
+            stack[inner ? (sp < kStack ? sp : kStack - 1) : kStack] = mc;
+            sp += inner && sp < kStack;
+            const int val = -mc - 2;
+            const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
+                                  : val >> 5;
+            lqv[leaf ? lq : kPipeQ] = tag;
+            lqt[leaf ? lq : kPipeQ] = tnear;
+            lq += leaf;
+          }
+        } else {
+          for (int c = 0; c < kWidth; ++c) {
+            const int mc = __ldg(mrow + c);
+            if (mc == -1) continue;
+            float tnear;
+            if (!slab(rec, c, stale, tnear)) continue;
+            if (mc >= 0) {
+              stack[sp < kStack ? sp : kStack - 1] = mc;
+              sp = sp < kStack ? sp + 1 : kStack;
+              continue;
+            }
+            const int val = -mc - 2;
+            const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
+                                  : val >> 5;
+            for (int k = 0; k < (val & 31); ++k) {
+              if (lq == kPipeQ) {
+                // a node whose leaves hold more than kLeafQ blocks (no
+                // tree of accel.wide): test now what the backlog cannot
+                // take, so that no block is lost
+                if (!(tnear <= cull_now())) continue;
+                visit_block(kInst ? tag >> 14 : 0,
+                            (kInst ? tag & 0x3FFF : tag) + k);
+                if (any_hit && occluded) return;
+                continue;
+              }
+              lqv[lq] = tag + k;
+              lqt[lq] = tnear;
+              ++lq;
+            }
+          }
+        }
+      }
+      for (int k = 0; k < kPipeDrain && lq > 0; ++k) {
+        --lq;
+        if (!(lqt[lq] <= cull_now())) continue;
+        const int tag = lqv[lq];
+        visit_block(kInst ? tag >> 14 : 0, kInst ? tag & 0x3FFF : tag);
+        if (any_hit && occluded) return;
+      }
+      stale = snap;
     }
   };
 
   // A ray with tmax <= tmin (dead lanes carry tmax = tmin - 1) can accept
   // no triangle: skip the walk.
   bool fell_back = false;
-  if (r.tmax > r.tmin) walk();
+  if (kProf != kProfEmpty && r.tmax > r.tmin) {
+    if constexpr (kWalk == kPipe || kWalk == kPipeFlat) walk_pipe();
+    else walk();
+  }
 
-  if (kPrec == kTwoPhase && !kAnyHit && r.tmax > r.tmin) {
+  if (kPrec == kTwoPhase && !any_hit && r.tmax > r.tmin) {
     // refine: the distinct candidates in ascending order, exact fp32
     best = r.tmax;
     sid = -1;
@@ -634,9 +607,9 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays,
     }
   }
 
-  t_out[i] = kAnyHit ? r.tmax : best;
-  sid_out[i] = kAnyHit ? (occluded ? 1 : -1) : sid;
-  u_out[i] = bu;
+  t_out[i] = any_hit ? r.tmax : best;
+  sid_out[i] = any_hit ? (occluded ? 1 : -1) : sid;
+  u_out[i] = kProf == kProfCount ? static_cast<float>(n_pops) : bu;
   v_out[i] = bv;
   if (kInst && !kAnyHit) inst_out[i] = best_inst;
   if (kCount) {
@@ -653,6 +626,7 @@ struct Launch {
   cudaStream_t stream;
   const float* rays;
   int n_rays;
+  int n_split;
   const float* nodes;
   const float* blocks;
   const int* meta;
@@ -667,27 +641,31 @@ struct Launch {
   int* counts;
 };
 
-template <bool kAnyHit, bool kInst, bool kCount, int kPrec, bool kQueue>
+template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
+          int kProf = kProfNone, bool kPaired = false>
 void launch(const Launch& l) {
-  wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kQueue>
+  wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>
       <<<l.grid, kThreads, 0, l.stream>>>(
-          l.rays, l.n_rays, l.nodes, l.blocks, l.meta, l.inst_feat,
-          l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out, l.v_out,
-          l.inst_out, l.counts);
+          l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.meta,
+          l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
+          l.v_out, l.inst_out, l.counts);
 }
 
-template <bool kAnyHit, bool kInst, bool kCount, bool kQueue>
+constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
+
+// K1-K7: the classic or queued walk at a tier
+template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
     // any hit is exact fp32 under every tier (pallas_trace.py:390)
-    launch<true, kInst, kCount, kHighest, kQueue>(l);
+    launch<true, kInst, kCount, kHighest, kWalk>(l);
   } else {
     switch (prec) {
-      case kHighest: launch<false, kInst, kCount, kHighest, kQueue>(l); break;
-      case kHigh: launch<false, kInst, kCount, kHigh, kQueue>(l); break;
-      case kDefault: launch<false, kInst, kCount, kDefault, kQueue>(l); break;
-      case kTwoPhase: launch<false, kInst, kCount, kTwoPhase, kQueue>(l); break;
-      default: return static_cast<int>(cudaErrorInvalidValue);
+      case kHighest: launch<false, kInst, kCount, kHighest, kWalk>(l); break;
+      case kHigh: launch<false, kInst, kCount, kHigh, kWalk>(l); break;
+      case kDefault: launch<false, kInst, kCount, kDefault, kWalk>(l); break;
+      case kTwoPhase: launch<false, kInst, kCount, kTwoPhase, kWalk>(l); break;
+      default: return kBadMode;
     }
   }
   return 0;
@@ -695,8 +673,8 @@ int by_precision(int prec, const Launch& l) {
 
 template <bool kAnyHit, bool kInst, bool kCount>
 int by_walk(int prec, bool queue, const Launch& l) {
-  return queue ? by_precision<kAnyHit, kInst, kCount, true>(prec, l)
-               : by_precision<kAnyHit, kInst, kCount, false>(prec, l);
+  return queue ? by_precision<kAnyHit, kInst, kCount, kQueued>(prec, l)
+               : by_precision<kAnyHit, kInst, kCount, kClassic>(prec, l);
 }
 
 template <bool kCount>
@@ -708,38 +686,149 @@ int by_mode(int any_hit, int prec, bool queue, const Launch& l) {
   return by_walk<false, false, kCount>(prec, queue, l);
 }
 
+// K8: one launch over a closest-hit and an any-hit wave, one tree level,
+// the classic or the streamed walk, the closest half at any tier. The
+// counting instantiation exists at the fp32 tier.
+template <bool kCount, int kWalk>
+int paired(int prec, const Launch& l) {
+  switch (prec) {
+    case kHighest:
+      launch<false, false, kCount, kHighest, kWalk, kProfNone, true>(l);
+      return 0;
+    case kHigh:
+      if constexpr (!kCount) {
+        launch<false, false, false, kHigh, kWalk, kProfNone, true>(l);
+        return 0;
+      }
+      return kBadMode;
+    case kDefault:
+      if constexpr (!kCount) {
+        launch<false, false, false, kDefault, kWalk, kProfNone, true>(l);
+        return 0;
+      }
+      return kBadMode;
+    case kTwoPhase:
+      if constexpr (!kCount && kWalk == kClassic) {
+        launch<false, false, false, kTwoPhase, kClassic, kProfNone, true>(l);
+        return 0;
+      }
+      return kBadMode;
+  }
+  return kBadMode;
+}
+
+// K9: the pipelined walk, fp32, with or without the flat push
+template <bool kCount, int kWalk>
+int piped(int any_hit, const Launch& l) {
+  const bool inst = l.inst_feat != nullptr;
+  if (any_hit && inst) launch<true, true, kCount, kHighest, kWalk>(l);
+  else if (any_hit) launch<true, false, kCount, kHighest, kWalk>(l);
+  else if (inst) launch<false, true, kCount, kHighest, kWalk>(l);
+  else launch<false, false, kCount, kHighest, kWalk>(l);
+  return 0;
+}
+
+// The ablation modes of K1/K2 (and of the queued walk, for "empty" and
+// "nomt"): one tree level, fp32. "nomt" and "fix64" have counting
+// instantiations.
+template <bool kAnyHit, bool kCount, int kWalk>
+int profiled(int prof, const Launch& l) {
+  switch (prof) {
+    case kProfNoMt:
+      launch<kAnyHit, false, kCount, kHighest, kWalk, kProfNoMt>(l);
+      return 0;
+    case kProfEmpty:
+      if constexpr (!kCount) {
+        launch<kAnyHit, false, false, kHighest, kWalk, kProfEmpty>(l);
+        return 0;
+      }
+      return kBadMode;
+    case kProfFix64:
+      if constexpr (kWalk == kClassic) {
+        launch<kAnyHit, false, kCount, kHighest, kClassic, kProfFix64>(l);
+        return 0;
+      }
+      return kBadMode;
+    case kProfCount:
+      if constexpr (!kCount && kWalk == kClassic) {
+        launch<kAnyHit, false, false, kHighest, kClassic, kProfCount>(l);
+        return 0;
+      }
+      return kBadMode;
+  }
+  return kBadMode;
+}
+
+template <bool kCount>
+int dispatch(int any_hit, int prec, int stream, int walk, int prof,
+             const Launch& l) {
+  const bool inst = l.inst_feat != nullptr;
+  const bool queue = l.worder != nullptr || stream != 0;
+  if (any_hit == 2) {
+    if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone)
+      return kBadMode;
+    return stream ? paired<kCount, kQueued>(prec, l)
+                  : paired<kCount, kClassic>(prec, l);
+  }
+  if (walk != 0) {
+    if (queue || prof != kProfNone || (!any_hit && prec != kHighest))
+      return kBadMode;
+    return walk == 2 ? piped<kCount, kPipeFlat>(any_hit, l)
+                     : piped<kCount, kPipe>(any_hit, l);
+  }
+  if (prof != kProfNone) {
+    if (inst || l.worder != nullptr || (!any_hit && prec != kHighest))
+      return kBadMode;
+    if (any_hit)
+      return queue ? profiled<true, kCount, kQueued>(prof, l)
+                   : profiled<true, kCount, kClassic>(prof, l);
+    return queue ? profiled<false, kCount, kQueued>(prof, l)
+                 : profiled<false, kCount, kClassic>(prof, l);
+  }
+  return by_mode<kCount>(any_hit, prec, queue, l);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Launches one traversal wave on `stream` and returns cudaGetLastError()
-// (0 on success; cudaErrorInvalidValue for an unknown tier or two_phase
-// with streamed blocks). rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy,
-// dz, tmin, tmax]; outputs (n_rays,) each. inst_feat non-null selects the
-// two-level mode, which also writes inst_out in closest-hit mode. mt_prec:
-// 0 highest, 1 high, 2 default, 3 two_phase (closest hit only). worder
-// non-null selects the near-first octant order; stream != 0 queues and
-// prefetches the leaf blocks. counts non-null selects the counting
-// instantiation: (5, n_rays) i32 rows of node pops, MT block tests,
-// instance entries, fp32 refine / re-walk block tests and re-walks.
-// Allocates nothing and does not synchronise.
-int wide_trace_launch(const float* rays, int n_rays, const float* nodes,
-                      const float* blocks, const int* meta,
-                      const float* inst_feat, const int* worder,
-                      int any_hit, int mt_prec, int stream, float* t_out,
+// (0 on success; cudaErrorInvalidValue for a mode that does not exist).
+// rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; outputs
+// (n_rays,) each. any_hit: 0 closest, 1 any hit, 2 paired (K8): rays below
+// n_split, a multiple of 128, are a closest-hit wave and the others an
+// any-hit wave, over one tree level, with the classic or the streamed
+// walk. inst_feat non-null selects the two-level mode, which also writes
+// inst_out in closest-hit mode. mt_prec: 0 highest, 1 high, 2 default,
+// 3 two_phase (closest hit only). worder non-null selects the near-first
+// octant order; stream != 0 queues and prefetches the leaf blocks. walk:
+// 0 the classic or queued walk, 1 the pipelined walk (K9), 2 the same
+// with the flat push (single-block leaves only); both fp32, without
+// stream or octant order. profile: 0 none, 1 empty, 2 nomt, 3 fix64,
+// 4 count, on the one-level fp32 walk (empty and nomt also with stream).
+// counts non-null selects the counting instantiation: (5, n_rays) i32 rows
+// of node pops, MT block tests, instance entries, fp32 refine / re-walk
+// block tests and re-walks. Allocates nothing and does not synchronise.
+int wide_trace_launch(const float* rays, int n_rays, int n_split,
+                      const float* nodes, const float* blocks,
+                      const int* meta, const float* inst_feat,
+                      const int* worder, int any_hit, int mt_prec,
+                      int stream, int walk, int profile, float* t_out,
                       int* sid_out, float* u_out, float* v_out,
                       int* inst_out, int* counts, void* cuda_stream) {
   if (mt_prec < kHighest || mt_prec > kTwoPhase ||
-      (mt_prec == kTwoPhase && stream))
-    return static_cast<int>(cudaErrorInvalidValue);
+      (mt_prec == kTwoPhase && stream) || any_hit < 0 || any_hit > 2 ||
+      walk < 0 || walk > 2 || profile < kProfNone || profile > kProfCount ||
+      (any_hit == 2 && (n_split < 0 || n_split > n_rays ||
+                        n_split % kThreads != 0)))
+    return kBadMode;
   const Launch l{dim3((n_rays + kThreads - 1) / kThreads),
-                 static_cast<cudaStream_t>(cuda_stream), rays, n_rays, nodes,
-                 blocks, meta, inst_feat, worder, stream, t_out, sid_out,
-                 u_out, v_out, inst_out, counts};
-  const bool queue = worder != nullptr || stream != 0;
+                 static_cast<cudaStream_t>(cuda_stream), rays, n_rays,
+                 n_split, nodes, blocks, meta, inst_feat, worder, stream,
+                 t_out, sid_out, u_out, v_out, inst_out, counts};
   const int rc = counts != nullptr
-                     ? by_mode<true>(any_hit, mt_prec, queue, l)
-                     : by_mode<false>(any_hit, mt_prec, queue, l);
+                     ? dispatch<true>(any_hit, mt_prec, stream, walk, profile, l)
+                     : dispatch<false>(any_hit, mt_prec, stream, walk, profile, l);
   if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

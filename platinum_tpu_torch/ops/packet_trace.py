@@ -8,24 +8,30 @@ code (`_ray_sort_key`), traced as flat (8, R) SoA rows and unsorted;
 closest hits map kernel slot ids to triangle ids through `wslot`.
 
 `trace_wide` is the wrapper of the hand-written CUDA kernel
-(csrc/wide_trace.cu), which replaces the TPU kernel `_make_kernel` in the
-modes the render paths reach: closest hit and any hit over one tree (K1,
-K2) and over the two-level instanced tree of accel/tlas.py (K3, given
-`inst_feat`); the Moller-Trumbore precision tiers "high" / "default" (K4)
-and "two_phase" (K5) of closest hit; streamed leaf blocks (K6, `stream`)
-and the near-first octant order (K7, `worder`). On CUDA tensors it
-launches the kernel or raises; on CPU tensors it runs the plain PyTorch
-version (`trace_wide_plain`, `trace_wide_inst_plain`,
-`trace_wide_two_phase_plain`): a brute force over the same (B, 10, 256)
-coefficient blocks with the same accept tests and the same split
-products, which the tests and chip_smoke.py hold the kernel against. K6
-and K7 change the order of the walk, not what it computes, so their plain
-versions are K1's/K3's. `trace_wide_counts` runs the kernel's counting
-instantiation (node pops, MT block tests, instance entries and refine
-tests per ray) for chip_smoke.py's bounds; it is not on the render path.
-The kernel is built with nvcc from the sources in this package at first
-use, into platinum_tpu_torch/_build/, and rebuilt when the source hash
-changes.
+(csrc/wide_trace.cu), which replaces the TPU kernels `_make_kernel` and
+`_make_kernel_pipe` in every mode: closest hit and any hit over one tree
+(K1, K2) and over the two-level instanced tree of accel/tlas.py (K3,
+given `inst_feat`); the Moller-Trumbore precision tiers "high" /
+"default" (K4) and "two_phase" (K5) of closest hit; streamed leaf blocks
+(K6, `stream`) and the near-first octant order (K7, `worder`); the
+pipelined walk with its flat push (K9, `pipe`, `flat_walk`) and the
+ablation modes (`profile`). `trace_wide_paired` launches a closest-hit and
+an any-hit wave as one grid (K8). On CUDA tensors they launch the kernel
+or raise; on CPU tensors they run the plain PyTorch version
+(`trace_wide_plain`, `trace_wide_inst_plain`,
+`trace_wide_two_phase_plain`, `trace_wide_profile_plain`): a brute force
+over the same (B, 10, 256) coefficient blocks with the same accept tests
+and the same split products, which the tests and chip_smoke.py hold the
+kernel against. K6, K7 and K9 change the order of the walk, not what it
+computes, so their plain versions are K1's/K3's. `trace_wide_counts` runs
+the kernel's counting instantiation (node pops, MT block tests, instance
+entries and refine tests per ray) for chip_smoke.py's bounds; it is not on
+the render path. The TPU kernel's `pops`, `ordered`, `packets`, `drain`,
+`FUSED_DRAIN` and `FEAT_SCRATCH` shape the schedule of its 128-ray
+packets and change no result; a kernel with one thread per ray has no
+packet to schedule, so they have no counterpart here. The kernel is built
+with nvcc from the sources in this package at first use, into
+platinum_tpu_torch/_build/, and rebuilt when a source's hash changes.
 """
 
 from __future__ import annotations
@@ -37,6 +43,7 @@ import shutil
 import subprocess
 import tempfile
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -48,10 +55,13 @@ SORT_MIN_NODES = 64    # ... over trees of more than 64 nodes
 DEAD_KEY = 1 << 30     # sort key of inactive rays (to the back)
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-CSRC = os.path.join(PKG_DIR, "csrc", "wide_trace.cu")
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+CSRC_SHARED = (os.path.join(CSRC_DIR, "mt_block.cuh"),)  # every source's
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
+# --split-compile=0: the optimiser runs over the template instantiations
+# on every CPU thread
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
 
 # Moller-Trumbore precision tiers of the closest-hit modes, with the
 # kernel's codes (pallas_trace.py `mt_dot`): "highest" fp32 (K1), "high"
@@ -62,22 +72,45 @@ PRECISIONS = {"highest": 0, "high": 1, "default": 2, "two_phase": 3}
 TP_K = 1.25e-4        # two_phase error-bound factor (pallas_trace.py:438)
 TP_ABS = 1e-6         # two_phase absolute widening (pallas_trace.py:180)
 
+# Ablation modes of the classic walk, with the kernel's codes
+# (pallas_trace.py:81-84, 352, 519, 740, 788). WRONG RESULTS by design,
+# for timing only: "empty" loads, initialises and stores without walking
+# (the launch floor); "nomt" walks with every block test skipped; "fix64"
+# runs exactly 64 loop iterations whatever the stack holds; "count"
+# returns the thread's iteration count in place of u (its t, id and v are
+# the walk's own).
+PROFILES = {"none": 0, "empty": 1, "nomt": 2, "fix64": 3, "count": 4}
+PROFILE = "none"      # make_packet_tracer's default ablation mode
+PAIR_ALIGN = 128      # the kernel's block size: K8's any-hit rays start at
+                      # a multiple of it, so no warp holds both waves
+
 
 def launch_key(any_hit: bool, instanced: bool = False,
                mt_precision: str = "highest", oct_order: bool = False,
-               stream: bool = False) -> str:
+               stream: bool = False, pipe: bool = False,
+               flat_walk: bool = False, profile: str = "none",
+               paired: bool = False) -> str:
     """LAUNCHES key of one kernel mode: "closest" / "any" (K1, K2), an
     "inst_" prefix for the two-level tree (K3), a "stream+" prefix for
     streamed blocks (K6), a "+<tier>" suffix for closest hit below
     "highest" (K4, K5) and "+oct" for the octant order (K7; the packet
-    tracer asks it for closest hit only)."""
-    key = ("inst_" if instanced else "") + ("any" if any_hit else "closest")
+    tracer asks it for closest hit only); "paired" in place of closest /
+    any for the paired launch (K8); a "pipe+" or "flat+" prefix for the
+    pipelined walk (K9); an "@<mode>" suffix for an ablation mode."""
+    key = "paired" if paired else (
+        ("inst_" if instanced else "") + ("any" if any_hit else "closest"))
     if stream:
         key = "stream+" + key
-    if not any_hit and mt_precision != "highest":
+    if flat_walk:
+        key = "flat+" + key
+    elif pipe:
+        key = "pipe+" + key
+    if (paired or not any_hit) and mt_precision != "highest":
         key += "+" + mt_precision
     if oct_order:
         key += "+oct"
+    if profile != "none":
+        key += "@" + profile
     return key
 
 
@@ -89,37 +122,50 @@ LAUNCHES = {launch_key(a, i, p, o, s): 0
             for p in (PRECISIONS if not a else ("highest",))
             for o in (False, True)
             for s in (False, True) if not (s and p == "two_phase")}
+LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True): 0
+                 for p in PRECISIONS for s in (False, True)
+                 if not (s and p == "two_phase")})
+LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f): 0
+                 for a in (False, True) for i in (False, True)
+                 for f in (False, True)})
+LAUNCHES.update({launch_key(a, stream=s, profile=m): 0
+                 for a in (False, True) for m in PROFILES if m != "none"
+                 for s in ((False, True) if m in ("empty", "nomt")
+                           else (False,))})
 
-_lib = None
+_libs = {}
 _lib_lock = threading.Lock()
 
 
 def _nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: building the wide-BVH CUDA kernel "
+        raise RuntimeError("nvcc not found: building the CUDA kernels "
                            "needs the CUDA toolkit")
     return path
 
 
-def build_kernel() -> str:
-    """Compile csrc/wide_trace.cu to a shared library named by the source
-    hash (reused when present) and return its path. Raises on failure."""
-    with open(CSRC, "rb") as f:
-        src = f.read()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    out = os.path.join(BUILD_DIR, f"wide_trace_{tag}.so")
+def build_kernel(name: str = "wide_trace") -> str:
+    """Compile csrc/<name>.cu to a shared library named by the hash of the
+    source and the headers it shares (reused when present) and return its
+    path. Raises on failure."""
+    source = os.path.join(CSRC_DIR, name + ".cu")
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in (source, *CSRC_SHARED):
+        with open(path, "rb") as f:
+            digest.update(f.read())
+    out = os.path.join(BUILD_DIR, f"{name}_{digest.hexdigest()[:16]}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, CSRC],
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{proc.stderr[-4000:]}")
+            raise RuntimeError(f"nvcc failed on {name}.cu "
+                               f"({proc.returncode}):\n{proc.stderr[-4000:]}")
         os.replace(tmp, out)
     finally:
         if os.path.exists(tmp):
@@ -127,23 +173,35 @@ def build_kernel() -> str:
     return out
 
 
-def _library():
-    global _lib
+def build_kernels(names=("wide_trace", "stream_mt")) -> dict:
+    """Build several kernel sources at once, one nvcc each, all started
+    together; {name: library path}. Raises if any build fails."""
+    with ThreadPoolExecutor(max_workers=len(names)) as pool:
+        return dict(zip(names, pool.map(build_kernel, names)))
+
+
+def load_library(name: str, declare):
+    """The ctypes library of csrc/<name>.cu, built at first use and kept;
+    `declare(lib)` sets the argument types of its entry points once."""
     with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build_kernel())
-            lib.wide_trace_launch.restype = ctypes.c_int
-            lib.wide_trace_launch.argtypes = [
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                ctypes.c_void_p]
-            lib.wide_trace_error_string.restype = ctypes.c_char_p
-            lib.wide_trace_error_string.argtypes = [ctypes.c_int]
-            _lib = lib
-        return _lib
+        if name not in _libs:
+            lib = ctypes.CDLL(build_kernel(name))
+            declare(lib)
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.wide_trace_launch.restype = i
+    lib.wide_trace_launch.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i, i,
+                                      p, p, p, p, p, p, p]
+    lib.wide_trace_error_string.restype = ctypes.c_char_p
+    lib.wide_trace_error_string.argtypes = [i]
+
+
+def _library():
+    return load_library("wide_trace", _declare)
 
 
 def _check(name, x, dtype, shape, device):
@@ -157,27 +215,60 @@ def _check(name, x, dtype, shape, device):
         raise ValueError(f"{name} must be contiguous and 16-byte aligned")
 
 
-def check_mode(mt_precision: str, stream: bool):
-    """Refuse what the JAX package refuses: an unknown tier, and two_phase
-    over streamed blocks (its refine re-reads the candidate blocks;
-    pallas_trace.py:1200-1202)."""
+def check_mode(mt_precision: str, stream: bool, pipe: bool = False,
+               flat_walk: bool = False, profile: str = "none"):
+    """Refuse what the JAX package refuses (pallas_trace.py:1196-1203): an
+    unknown tier or ablation mode; two_phase over streamed blocks or on
+    the pipelined walk (its refine re-reads the candidate blocks);
+    streamed blocks on the pipelined walk. Beyond it: the pipelined walk
+    has no reduced tier and no ablation mode (the JAX package runs fp32
+    and ignores `profile` there without a word). Over streamed blocks the
+    kernel has "empty" and "nomt" alone, for timing the queued walk;
+    `make_packet_tracer` refuses every ablation mode there, as the JAX
+    package does."""
     if mt_precision not in PRECISIONS:
         raise ValueError(f"unknown mt_precision {mt_precision!r}; one of "
                          f"{sorted(PRECISIONS)}")
+    if profile not in PROFILES:
+        raise ValueError(f"unknown profile {profile!r}; one of "
+                         f"{sorted(PROFILES)}")
     if mt_precision == "two_phase" and stream:
         raise ValueError("mt_precision='two_phase' needs resident blocks: "
                          "it cannot trace a streamed structure "
                          "(flat.wbvh_stream); use stream='off' or another "
                          "tier")
+    pipe = pipe or flat_walk
+    if stream and pipe:
+        raise ValueError("streamed leaf blocks run on the default walk "
+                         "only: not with pipe / flat_walk")
+    if stream and profile in ("fix64", "count"):
+        raise ValueError(f"profile={profile!r} exists on the classic walk "
+                         f"only, not over streamed blocks")
+    if pipe and mt_precision != "highest":
+        raise ValueError(f"the pipelined walk (pipe / flat_walk) is fp32: "
+                         f"it has no mt_precision={mt_precision!r}")
+    if pipe and profile != "none":
+        raise ValueError("the pipelined walk has no profile modes")
+
+
+def _single_block_leaves(meta) -> bool:
+    """Every leaf of the tree owns exactly one MT block (the answer costs
+    a device sync)."""
+    m = meta[meta <= -2]
+    return bool((((-m - 2) & 31) == 1).all())
 
 
 def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
-            worder=None, mt_precision="highest", stream=False):
+            worder=None, mt_precision="highest", stream=False, walk=0,
+            profile="none", n_split=0):
     """Check the inputs, allocate the outputs and launch one wave of the
-    kernel on the current stream. Returns (t, sid, u, v, inst, counts);
-    inst is None outside the instanced closest-hit mode, counts None
-    unless `count`. The caller has checked the mode (`check_mode`); the C
-    entry refuses a bad one again."""
+    kernel on the current stream. any_hit: False, True, or 2 for the
+    paired launch (rays below `n_split` closest hit, the others any hit);
+    walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
+    push. Returns (t, sid, u, v, inst, counts); inst is None outside the
+    instanced closest-hit mode, counts None unless `count`. The caller
+    has checked the mode (`check_mode`); the C entry refuses a bad one
+    again."""
     dev = rays.device
     r = rays.shape[1]
     _check("rays", rays, torch.float32, (8, r), dev)
@@ -198,7 +289,7 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
     inst = (torch.empty(r, dtype=torch.int32, device=dev)
-            if inst_feat is not None and not any_hit else None)
+            if inst_feat is not None and any_hit is False else None)
     counts = (torch.empty((5, r), dtype=torch.int32, device=dev)
               if count else None)
     if r == 0:
@@ -207,11 +298,12 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
     with torch.cuda.device(dev):
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wide_trace_launch(
-            rays.data_ptr(), r, nodes.data_ptr(), blocks.data_ptr(),
+            rays.data_ptr(), r, n_split, nodes.data_ptr(), blocks.data_ptr(),
             meta.data_ptr(),
             inst_feat.data_ptr() if inst_feat is not None else None,
             worder.data_ptr() if worder is not None else None,
-            int(bool(any_hit)), PRECISIONS[mt_precision], int(bool(stream)),
+            int(any_hit), PRECISIONS[mt_precision], int(bool(stream)), walk,
+            PROFILES[profile],
             t.data_ptr(), sid.data_ptr(), u.data_ptr(), v.data_ptr(),
             inst.data_ptr() if inst is not None else None,
             counts.data_ptr() if counts is not None else None, cuda_stream)
@@ -221,9 +313,21 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
     return t, sid, u, v, inst, counts
 
 
+def _walk_code(meta, pipe: bool, flat_walk: bool, checked: bool) -> int:
+    """The kernel's walk code; the flat push needs single-block leaves
+    (pallas_trace.py:841-844 states it, the JAX package does not check),
+    which is looked up here unless the caller has `checked` the tree."""
+    if flat_walk and not checked and not _single_block_leaves(meta):
+        raise ValueError("flat_walk needs every leaf to own exactly one MT "
+                         "block (wide_leaf_cap <= 64, the build default)")
+    return 2 if flat_walk else int(bool(pipe))
+
+
 def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
                worder=None, mt_precision: str = "highest",
-               stream: bool = False):
+               stream: bool = False, pipe: bool = False,
+               flat_walk: bool = False, profile: str = "none",
+               checked: bool = False):
     """Trace one wave over the wide BVH.
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
@@ -233,22 +337,40 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     accel.wide.build_octant_orders) walks children near-first (K7);
     `mt_precision` is the closest-hit tier (PRECISIONS; any hit is exact
     fp32 under every tier); `stream` queues each node's leaf blocks and
-    prefetches them into L2 before they are tested (K6). Returns (t, sid,
-    u, v), each (R,): t = best t (tmax on a miss), sid = block*64 + slot
-    of the hit (-1 on a miss; any-hit: 1 if occluded), barycentrics u, v;
-    the instanced closest-hit mode adds inst, the instance of the hit. CPU
-    tensors take the plain version; CUDA tensors the kernel."""
-    check_mode(mt_precision, stream)   # also for any hit, as JAX does
+    prefetches them into L2 before they are tested (K6); `pipe` takes the
+    pipelined walk and `flat_walk` its flat push (K9), which looks the
+    tree's leaves up on every call (a device sync) unless the caller says
+    it has `checked` that each owns one block, as `make_packet_tracer`
+    does once; `profile` is an ablation mode of the one-level fp32 walk
+    (PROFILES: wrong results by design). Returns (t, sid, u, v), each (R,): t = best t (tmax on a
+    miss), sid = block*64 + slot of the hit (-1 on a miss; any-hit: 1 if
+    occluded), barycentrics u, v; the instanced closest-hit mode adds
+    inst, the instance of the hit. CPU tensors take the plain version;
+    CUDA tensors the kernel."""
+    # also for any hit, as JAX does
+    check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    if profile != "none" and (inst_feat is not None or worder is not None):
+        raise ValueError("the profile modes exist on the one-level walk "
+                         "without the octant order")
+    pipe = pipe or flat_walk
+    if pipe and worder is not None:
+        raise ValueError("the pipelined walk takes no octant order "
+                         "(pallas_trace.py:1459)")
+    walk = _walk_code(meta, pipe, flat_walk, checked)
     prec = "highest" if any_hit else mt_precision
     if rays.device.type == "cpu":
         return trace_wide_reference(rays, nodes, blocks, meta, any_hit,
-                                    inst_feat, worder, mt_precision, stream)
+                                    inst_feat, worder, mt_precision, stream,
+                                    pipe, flat_walk, profile)
     if rays.device.type != "cuda":
         raise ValueError(f"trace_wide: unsupported device {rays.device}")
-    t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, any_hit,
-                                    inst_feat, False, worder, prec, stream)
-    LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
-                        worder is not None, stream)] += 1
+    t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, bool(any_hit),
+                                    inst_feat, False, worder, prec, stream,
+                                    walk, profile)
+    if rays.shape[1]:       # an empty wave launches nothing
+        LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
+                            worder is not None, stream, pipe, flat_walk,
+                            profile)] += 1
     if inst_feat is not None and not any_hit:
         return t, sid, u, v, inst
     return t, sid, u, v
@@ -257,15 +379,22 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
 def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
                          inst_feat=None, worder=None,
                          mt_precision: str = "highest",
-                         stream: bool = False):
+                         stream: bool = False, pipe: bool = False,
+                         flat_walk: bool = False, profile: str = "none",
+                         checked: bool = False):
     """The plain PyTorch version of the kernel mode `trace_wide` would
     launch with these arguments, on any device, with its outputs:
+    `trace_wide_profile_plain` for an ablation mode,
     `trace_wide_two_phase_plain` for two_phase closest hit, else
     `trace_wide_plain` / `trace_wide_inst_plain` at the closest-hit tier.
-    The walk order (`worder`) and streaming change how the kernel visits
-    blocks, not what it computes, so they select nothing here."""
-    check_mode(mt_precision, stream)
+    The walk (`worder`, `stream`, `pipe`, `flat_walk`, `checked`) changes
+    how the kernel visits blocks, not what it computes, so it selects
+    nothing here."""
+    check_mode(mt_precision, stream, pipe, flat_walk, profile)
     prec = "highest" if any_hit else mt_precision
+    if profile != "none":
+        return trace_wide_profile_plain(rays, nodes, blocks, meta, any_hit,
+                                        profile)
     if prec == "two_phase":
         return trace_wide_two_phase_plain(rays, nodes, blocks, meta,
                                           inst_feat)
@@ -276,23 +405,113 @@ def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
                             mt_precision=prec)
 
 
+def trace_wide_profile_plain(rays, nodes, blocks, meta, any_hit: bool,
+                             profile: str):
+    """What an ablation mode must return, as far as that is defined:
+    "empty" and "nomt" test no triangle, so every ray misses; "count" is
+    the full walk with u replaced by the iteration count, which a brute
+    force does not have (0 here; on the card it is held to
+    `trace_wide_counts`' pops per ray); "fix64" stops after 64 iterations
+    and is timed only, its value is whatever the walk had found by then
+    (the full walk's, here)."""
+    if profile in ("empty", "nomt"):
+        r = rays.shape[1]
+        return (rays[7].clone(),
+                torch.full((r,), -1, dtype=torch.int32, device=rays.device),
+                torch.zeros(r, device=rays.device),
+                torch.zeros(r, device=rays.device))
+    t, sid, u, v = trace_wide_plain(rays, nodes, blocks, meta, any_hit)
+    return (t, sid, torch.zeros_like(u), v) if profile == "count" else (
+        t, sid, u, v)
+
+
+def pair_rays(rays_c, rays_a):
+    """One (8, n) ray table for the paired launch: the closest-hit wave,
+    dead rays (tmax < tmin) up to a multiple of PAIR_ALIGN, then the
+    any-hit wave. Returns (rays, n_split): the any-hit rays start at
+    n_split."""
+    nc = rays_c.shape[1]
+    n_split = -(-nc // PAIR_ALIGN) * PAIR_ALIGN
+    parts = [rays_c]
+    if n_split > nc:
+        pad = torch.zeros((8, n_split - nc), dtype=torch.float32,
+                          device=rays_c.device)
+        pad[7] = -1.0
+        parts.append(pad)
+    return torch.cat([*parts, rays_a], dim=1), n_split
+
+
+def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
+                      mt_precision: str = "highest", stream: bool = False):
+    """Trace a closest-hit wave and an independent any-hit wave in ONE
+    kernel launch (K8, pallas_trace.py `trace_paired`): one grid covers
+    both waves and each thread takes its mode from its ray index. One tree
+    level only; `stream` and the closest-hit tier are honoured, the
+    any-hit rays stay exact fp32. Either wave may be longer, or empty.
+    Returns ((t, sid, u, v) of the closest wave, the any-hit wave's sid:
+    1 occluded, -1 not): the same walks as `trace_wide`, so bit for bit
+    its results. CPU tensors take the two plain versions."""
+    check_mode(mt_precision, stream)
+    if rays_c.device.type == "cpu":
+        return (trace_wide_reference(rays_c, nodes, blocks, meta, False,
+                                     mt_precision=mt_precision,
+                                     stream=stream),
+                trace_wide_reference(rays_a, nodes, blocks, meta, True,
+                                     mt_precision=mt_precision,
+                                     stream=stream)[1])
+    if rays_c.device.type != "cuda":
+        raise ValueError(f"trace_wide_paired: unsupported device "
+                         f"{rays_c.device}")
+    nc = rays_c.shape[1]
+    rays, n_split = pair_rays(rays_c, rays_a)
+    t, sid, u, v, _, _ = _launch(rays, nodes, blocks, meta, 2, None, False,
+                                 None, mt_precision, stream, n_split=n_split)
+    if rays.shape[1]:
+        LAUNCHES[launch_key(False, mt_precision=mt_precision, stream=stream,
+                            paired=True)] += 1
+    return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
+
+
+def _count_sums(counts) -> dict:
+    pops, tests, xforms, refine, rewalks = counts.long().sum(dim=1).tolist()
+    return {"pops": pops, "mt_tests": tests, "inst_entries": xforms,
+            "refine_tests": refine, "rewalks": rewalks}
+
+
 def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
                       inst_feat=None, worder=None,
                       mt_precision: str = "highest",
-                      stream: bool = False) -> dict:
+                      stream: bool = False, pipe: bool = False,
+                      flat_walk: bool = False, profile: str = "none",
+                      per_ray: bool = False, checked: bool = False):
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
     entries (T F products), two_phase's fp32 block tests (refine and
-    exact re-walk) and its re-walked rays."""
+    exact re-walk) and its re-walked rays. With `per_ray`, the (5, R) i32
+    table of these per ray instead of their sums. Of the ablation modes
+    "nomt" and "fix64" have a counting instantiation."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
-    counts = _launch(rays, nodes, blocks, meta, any_hit, inst_feat, True,
-                     worder, "highest" if any_hit else mt_precision,
-                     stream)[5]
-    pops, tests, xforms, refine, rewalks = counts.long().sum(dim=1).tolist()
-    return {"pops": pops, "mt_tests": tests, "inst_entries": xforms,
-            "refine_tests": refine, "rewalks": rewalks}
+    check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    counts = _launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
+                     True, worder, "highest" if any_hit else mt_precision,
+                     stream, _walk_code(meta, pipe or flat_walk, flat_walk,
+                                        checked), profile)[5]
+    return counts if per_ray else _count_sums(counts)
+
+
+def trace_wide_paired_counts(rays_c, rays_a, nodes, blocks, meta,
+                             stream: bool = False):
+    """`trace_wide_counts` of the paired launch at the fp32 tier, split by
+    wave: (counts of the closest wave, counts of the any-hit wave)."""
+    if rays_c.device.type != "cuda":
+        raise ValueError("trace_wide_paired_counts runs the CUDA kernel only")
+    rays, n_split = pair_rays(rays_c, rays_a)
+    counts = _launch(rays, nodes, blocks, meta, 2, None, True, None,
+                     "highest", stream, n_split=n_split)[5]
+    return (_count_sums(counts[:, :rays_c.shape[1]]),
+            _count_sums(counts[:, n_split:]))
 
 
 def ray_features(rays: torch.Tensor) -> torch.Tensor:
@@ -699,7 +918,9 @@ def sort_frame(nodes):
 def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
                        sort: bool | None = None, trace_fn=trace_wide,
                        inst_feat=None, worder=None, stream: bool = False,
-                       mt_precision: str = "highest"):
+                       mt_precision: str = "highest",
+                       pipe: bool = False, flat_walk: bool = False,
+                       profile: str | None = None):
     """(trace_closest, trace_any) over the packed wide-BVH tensors.
 
     wnodes: (N, 128) f32 node rows; wtris: (B, 10, 256) f32 coefficient
@@ -710,27 +931,49 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     octant + Morton key (default: trees of more than 64 nodes). As in the
     JAX package's make_packet_tracer: `worder` ((N*16,) i32 octant orders,
     accel.wide.build_octant_orders) walks closest-hit waves near-first
-    (K7; any-hit waves keep the plain walk, pallas_trace.py:1459);
-    `stream` traces a streamed structure (K6); `mt_precision` is the MT
-    tier of closest-hit waves (PRECISIONS: K1, K4, K5; any hit stays exact
-    fp32). An unknown tier and two_phase over streamed blocks raise, as
-    they do in the JAX package; unlike the JAX package, two_phase is not
-    refused on the accelerator (its refusal there rests on TPU
-    measurements and a Mosaic reduce fault, pallas_trace.py:1383-1397).
-    `trace_fn` traces one (8, R) wave with trace_wide's arguments: the
-    kernel wrapper `trace_wide`, or `trace_wide_reference` to hold a
-    render to the plain version."""
-    check_mode(mt_precision, stream)
+    (K7; any-hit waves keep the plain walk, and so does the pipelined
+    walk, pallas_trace.py:1459); `stream` traces a streamed structure
+    (K6); `mt_precision` is the MT tier of closest-hit waves (PRECISIONS:
+    K1, K4, K5; any hit stays exact fp32); `pipe` takes the
+    pipelined walk and `flat_walk`, which implies it, its flat push (K9);
+    `profile` (default PROFILE) is an ablation mode (PROFILES). An unknown
+    tier, two_phase over streamed blocks, and `pipe` or `profile` with
+    `stream` raise, as they do in the JAX package; so do `pipe` with a
+    reduced tier (the JAX package silently runs fp32) and `flat_walk` over
+    a tree with a multi-block leaf (the JAX package does not check).
+    Unlike the JAX package, two_phase is not refused on the accelerator
+    (its refusal there rests on TPU measurements and a Mosaic reduce
+    fault, pallas_trace.py:1383-1397). `trace_fn` traces one (8, R) wave
+    with trace_wide's arguments: the kernel wrapper `trace_wide`, or
+    `trace_wide_reference` to hold a render to the plain version.
+
+    `trace_closest.paired(oc, dc, tminc, tmaxc, oa, da, tmina, tmaxa,
+    active_c=None, active_a=None)` traces a closest-hit wave and an
+    any-hit wave in one launch (K8) and returns (HitRecord, occluded);
+    one tree level only."""
+    pipe = bool(pipe) or flat_walk
+    profile = PROFILE if profile is None else profile
+    check_mode(mt_precision, stream, pipe, flat_walk, profile)
     n_nodes = wnodes.shape[0]
     nodes = wnodes.reshape(n_nodes, 16, 8).contiguous()
     blocks = wtris.contiguous()
     meta = wmeta.to(torch.int32).contiguous()
     slot_map = wslot.long() if wslot is not None else None
+    if flat_walk:
+        # once, here: raises on a multi-block leaf
+        _walk_code(meta, True, True, checked=False)
+    if profile != "none" and (inst_feat is not None or stream
+                              or worder is not None):
+        raise ValueError("the profile modes exist on the classic one-level "
+                         "walk only: not with an instanced tree, streamed "
+                         "blocks or the octant order")
     if worder is not None:
         worder = worder.to(torch.int32).contiguous()
         if worder.shape != (n_nodes * 16,):
             raise ValueError(f"worder must be ({n_nodes * 16},) octant "
                              f"orders, got {tuple(worder.shape)}")
+        if pipe:
+            worder = None   # pallas_trace.py:1459: no octant order there
     if inst_feat is not None:
         inst_feat = inst_feat.to(torch.float32).contiguous()
     else:
@@ -747,8 +990,15 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         sort = n_nodes > SORT_MIN_NODES
 
     scene_lo, inv_extent = sort_frame(nodes)
+    walk_opts = {}
+    if pipe:
+        walk_opts.update(pipe=True, flat_walk=flat_walk, checked=flat_walk)
+    if profile != "none":
+        walk_opts.update(profile=profile)
 
-    def _run(o, d, tmin, tmax, active, any_hit):
+    def _sorted_wave(o, d, tmin, tmax, active):
+        """One wave as (8, R) rows in kernel order, and the permutation
+        that sorted it (None if it was not sorted)."""
         r = o.shape[0]
         dev = o.device
         tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
@@ -764,18 +1014,17 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
             o, d, tmin, tmax = o[perm], d[perm], tmin[perm], tmax[perm]
         rays = torch.stack([o[:, 0], o[:, 1], o[:, 2],
                             d[:, 0], d[:, 1], d[:, 2], tmin, tmax])
-        out = trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
-                       worder=None if any_hit else worder,
-                       mt_precision=mt_precision, stream=stream)
-        t, sid, u, v = out[:4]
-        inst = out[4] if len(out) > 4 else None
-        if perm is not None:
-            inv = torch.empty_like(perm)
-            inv[perm] = torch.arange(r, device=dev)
-            t, sid, u, v = t[inv], sid[inv], u[inv], v[inv]
-            if inst is not None:
-                inst = inst[inv]
-        if slot_map is not None and not any_hit:
+        return rays, perm
+
+    def _unsort(perm, cols):
+        if perm is None:
+            return cols
+        inv = torch.empty_like(perm)
+        inv[perm] = torch.arange(perm.shape[0], device=perm.device)
+        return [c[inv] if c is not None else None for c in cols]
+
+    def _record(t, sid, u, v, inst=None):
+        if slot_map is not None:
             sid = torch.where(sid >= 0, slot_map[torch.clamp(sid, min=0).long()]
                               .to(torch.int32), -1)
         hit = sid >= 0
@@ -784,10 +1033,48 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
                          inst=(torch.where(hit, inst, 0)
                                if inst is not None else None))
 
+    def _run(o, d, tmin, tmax, active, any_hit):
+        rays, perm = _sorted_wave(o, d, tmin, tmax, active)
+        out = trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
+                       worder=None if any_hit else worder,
+                       mt_precision=mt_precision, stream=stream, **walk_opts)
+        t, sid, u, v, inst = _unsort(
+            perm, [*out[:4], out[4] if len(out) > 4 else None])
+        if any_hit:
+            return sid >= 0
+        return _record(t, sid, u, v, inst)
+
     def trace_closest(o, d, tmin, tmax, active=None) -> HitRecord:
         return _run(o, d, tmin, tmax, active, any_hit=False)
 
     def trace_any(o, d, tmin, tmax, active=None) -> torch.Tensor:
-        return _run(o, d, tmin, tmax, active, any_hit=True).hit
+        return _run(o, d, tmin, tmax, active, any_hit=True)
 
+    def trace_paired(oc, dc, tminc, tmaxc, oa, da, tmina, tmaxa,
+                     active_c=None, active_a=None):
+        """A closest-hit wave and an independent any-hit wave in one
+        launch (K8). Each wave is sorted by its own key and unsorted on
+        its own permutation. Returns (HitRecord of the closest wave,
+        occlusion of the any-hit wave). As in the JAX package it honours
+        `stream` and the tier, never `pipe` or the octant order."""
+        if inst_feat is not None:
+            raise ValueError("paired tracing: non-instanced only")
+        if profile != "none":
+            raise ValueError("paired tracing has no profile modes")
+        rays_c, perm_c = _sorted_wave(oc, dc, tminc, tmaxc, active_c)
+        rays_a, perm_a = _sorted_wave(oa, da, tmina, tmaxa, active_a)
+        if trace_fn is trace_wide:
+            (t, sid, u, v), occ = trace_wide_paired(
+                rays_c, rays_a, nodes, blocks, meta, mt_precision, stream)
+        else:
+            t, sid, u, v = trace_fn(rays_c, nodes, blocks, meta, False, None,
+                                    mt_precision=mt_precision, stream=stream)
+            occ = trace_fn(rays_a, nodes, blocks, meta, True, None,
+                           mt_precision=mt_precision, stream=stream)[1]
+        rec = _record(*_unsort(perm_c, [t, sid, u, v]))
+        return rec, _unsort(perm_a, [occ])[0] >= 0
+
+    # the paired entry rides as an attribute so that the (closest, any)
+    # pair stays what callers unpack
+    trace_closest.paired = trace_paired
     return trace_closest, trace_any

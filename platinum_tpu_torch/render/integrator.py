@@ -19,11 +19,20 @@ The packet tracer takes the scene's octant orders when
 make_tracers does; none of them is ever dropped: a combination the
 kernel cannot run raises.
 
+The three wave-shaping modes are the JAX package's. `fuse_shadow` defers
+bounce k's shadow rays onto bounce k+1's closest-hit wave as extra lanes
+(one trace launch per bounce instead of two); what is still pending is
+settled by `body.resolve_pending` before every compaction and at the end.
+`chunk_shade` shades only the lanes that hit, in fixed-size chunks (a
+Python loop here, where the JAX package runs a `while_loop`).
+`spp_batch = B` traces B samples of every pixel in one wavefront and
+returns their per-pixel sum.
+
 Not ported yet, each raising NotImplementedError until its own change:
-deferred shadows (`fuse_shadow`), chunked shading (`chunk_shade`),
-sample-batched waves (`spp_batch > 1`), the breadth-first and binary-BVH
-tracers (`tracer="bf"/"bvh"`), alpha-tested materials, textures, the
-Z-sampler and partitioned structures.
+the breadth-first and binary-BVH tracers (`tracer="bf"/"bvh"`; the
+ray-stream tracer of ops/raystream.py is reached through `tracers=`, as
+in the JAX package), alpha-tested materials, textures, the Z-sampler and
+partitioned structures.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops import threefry
 from platinum_tpu_torch.ops.frame import normalize
 from platinum_tpu_torch.ops.hitdata import interpolate_hit
-from platinum_tpu_torch.ops.intersect import make_brute_tracer
+from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
 from platinum_tpu_torch.render.types import FlatScene, RenderSettings
 
 RAY_EPS = 1e-3
@@ -50,12 +59,6 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
                      features: frozenset):
     """Refuse, by name, every option whose path is not ported yet."""
     todo = []
-    if settings.fuse_shadow:
-        todo.append("fuse_shadow")
-    if settings.chunk_shade:
-        todo.append("chunk_shade")
-    if settings.spp_batch > 1:
-        todo.append("spp_batch > 1")
     if settings.tracer in ("bf", "bvh"):
         todo.append(f"tracer={settings.tracer!r}")
     if "alpha" in features:
@@ -106,10 +109,26 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
     return make_brute_tracer(flat.geometry)
 
 
+def _fuse_shadow_active(settings: RenderSettings, features: frozenset) -> bool:
+    return (settings.fuse_shadow and settings.kernel == "mis"
+            and "alpha" not in features
+            and ("env" in features or "area_lights" in features))
+
+
+def _empty_shadow(n: int, dev):
+    return dict(sh_org=torch.zeros((n, 3), device=dev),
+                sh_dir=torch.zeros((n, 3), device=dev),
+                sh_dist=torch.zeros((n,), device=dev),
+                sh_ld=torch.zeros((n, 3), device=dev),
+                sh_do=torch.zeros((n,), dtype=torch.bool, device=dev))
+
+
 def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
-                    pixel_ids=None):
+                    pixel_ids=None, with_shadow_state: bool = False):
     """Camera rays + fresh path state for one sample of every pixel, or of
-    the pixels `pixel_ids` (autoplan's probe)."""
+    the pixels `pixel_ids` (autoplan's probe; the lanes of a sample batch,
+    with `sample_idx` one index per lane). `with_shadow_state` adds the
+    empty deferred-shadow state of `fuse_shadow`."""
     dev = flat.camera.position.device
     pix = (torch.arange(settings.num_pixels, device=dev) if pixel_ids is None
            else torch.as_tensor(pixel_ids, device=dev).long())
@@ -134,6 +153,7 @@ def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
         bounce=0,
         rays=torch.zeros((), device=dev),
         slot=torch.arange(n, dtype=torch.int32, device=dev),
+        **(_empty_shadow(n, dev) if with_shadow_state else {}),
     )
 
 
@@ -154,14 +174,33 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
     p_inf = (lights_mod.p_infinite(lights, env) if (env_on and lights_on)
              else (1.0 if env_on else 0.0))
 
+    alpha_on = "alpha" in features
+    fuse_shadow = _fuse_shadow_active(settings, features)
+
     def body(s):
         o, d, atten, L, active = s["o"], s["d"], s["atten"], s["L"], s["active"]
-        stream = s["stream"]
         bounce = s["bounce"]
         n = o.shape[0]
         dev = o.device
 
-        rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
+        if fuse_shadow:
+            # last bounce's shadow rays ride this closest wave as n more
+            # lanes: a shadow lane is clear when nothing is hit before
+            # its light
+            rec2 = trace_closest(
+                torch.cat([o, s["sh_org"]]), torch.cat([d, s["sh_dir"]]),
+                RAY_EPS,
+                torch.cat([torch.full((n,), float("inf"), device=dev),
+                           s["sh_dist"] - RAY_EPS]),
+                active=torch.cat([active, s["sh_do"]]))
+            rec = HitRecord(t=rec2.t[:n], tri=rec2.tri[:n],
+                            bary=rec2.bary[:n], hit=rec2.hit[:n],
+                            inst=(rec2.inst[:n] if rec2.inst is not None
+                                  else None))
+            sh_clear = s["sh_do"] & ~rec2.hit[n:]
+            L = L + torch.where(sh_clear[:, None], s["sh_ld"], 0.0)
+        else:
+            rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
         hit = rec.hit & active
         miss = active & ~rec.hit
 
@@ -182,6 +221,51 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         rays_new = s["rays"] + torch.sum(active.to(torch.float32)) * (
             2.0 if use_mis else 1.0)
 
+        lane_state = dict(
+            o=o, d=d, atten=atten, L=L, hit=hit,
+            prev_pdf=s["prev_pdf"], prev_spec=s["prev_spec"],
+            stream=s["stream"], slot=s["slot"], bounce=bounce,
+            rec_t=rec.t, rec_tri=rec.tri, rec_bary=rec.bary,
+            **({"rec_inst": rec.inst} if rec.inst is not None else {}))
+
+        if (settings.chunk_shade and not alpha_on
+                and n > settings.chunk_shade
+                and n % settings.chunk_shade == 0):
+            upd = _chunked_shade(lane_state, _shade_lanes,
+                                 settings.chunk_shade)
+        else:
+            upd = _shade_lanes(lane_state)
+
+        # NEE occlusion: an any-hit wave right away, unless deferred onto
+        # the next bounce's closest wave (fuse_shadow)
+        if use_mis and (env_on or lights_on) and not fuse_shadow:
+            occ = trace_any(upd["sh_org"], upd["sh_dir"], RAY_EPS,
+                            upd["sh_dist"] - RAY_EPS, active=upd["sh_do"])
+            upd["L"] = upd["L"] + torch.where(
+                (upd["sh_do"] & ~occ)[:, None], upd["sh_ld"], 0.0)
+
+        out = dict(
+            o=upd["o"], d=upd["d"], L=upd["L"], atten=upd["atten"],
+            active=upd["active"], prev_pdf=upd["prev_pdf"],
+            prev_spec=upd["prev_spec"], stream=upd["stream"],
+            bounce=bounce + 1, rays=rays_new, slot=upd["slot"])
+        if fuse_shadow:
+            out.update({k: upd[k] for k in
+                        ("sh_org", "sh_dir", "sh_dist", "sh_ld", "sh_do")})
+        return out
+
+    def _shade_lanes(ls):
+        """Per-lane hit shading: interpolation, shading context, emission
+        with MIS, BSDF sampling, NEE light sampling (the shadow ray leaves
+        as sh_* state), Russian roulette, the next ray. A pure per-lane
+        map: it runs at full width or on chunks of sorted lanes."""
+        o, d, atten, L = ls["o"], ls["d"], ls["atten"], ls["L"]
+        hit, stream, bounce = ls["hit"], ls["stream"], ls["bounce"]
+        n = o.shape[0]
+        dev = o.device
+        rec = HitRecord(t=ls["rec_t"], tri=ls["rec_tri"], bary=ls["rec_bary"],
+                        hit=hit, inst=ls.get("rec_inst"))
+
         hd = interpolate_hit(geom, rec, o, d, instances=flat.instances)
         ctx = bsdf_mod.make_shading_context(mats, hd.mat_idx)
 
@@ -196,9 +280,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                    / torch.clamp(lights.total_power, min=1e-20))
                 * dist2_hit / torch.clamp(cos_hit, min=1e-20))
             w_emit = torch.where(
-                s["prev_spec"] | ~has_lights, 1.0,
-                s["prev_pdf"] / torch.clamp(s["prev_pdf"] + light_pdf_hit,
-                                            min=1e-20))
+                ls["prev_spec"] | ~has_lights, 1.0,
+                ls["prev_pdf"] / torch.clamp(ls["prev_pdf"] + light_pdf_hit,
+                                             min=1e-20))
         else:
             w_emit = torch.ones((n,), device=dev)
         L = L + torch.where(hit[:, None], atten * le * w_emit[:, None], 0.0)
@@ -213,8 +297,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                                multiscatter=multiscatter, features=features,
                                mixture_pdf=settings.mixture_pdf)
 
-        # next-event estimation: the shadow ray is traced right after
-        sh = None
+        # next-event estimation: the shadow ray leaves as state; the
+        # caller traces it
+        sh_next = None
         if use_mis and (env_on or lights_on):
             stream, u_nee2 = stream.next_2d()
             stream, u_sel = stream.next_1d()
@@ -256,10 +341,12 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                 do_nee = do_nee & (has_lights | has_env)
             ld = (li * ev.f * torch.abs(wi_local[..., 2:3])
                   / torch.clamp(p_light * l_pdf + ev.pdf, min=1e-20)[..., None])
-            sh = dict(org=hd.pos, dir=wi_world,
-                      dist=torch.where(do_nee, dist, 0.0),
-                      ld=torch.where(do_nee[:, None], atten * ld, 0.0),
-                      do=do_nee)
+            sh_next = dict(sh_org=hd.pos, sh_dir=wi_world,
+                           sh_dist=torch.where(do_nee, dist, 0.0),
+                           sh_ld=torch.where(do_nee[:, None], atten * ld, 0.0),
+                           sh_do=do_nee)
+        if sh_next is None:
+            sh_next = _empty_shadow(n, dev)
 
         # continue the path
         cont = (samp.flags & (bsdf_mod.SAMPLE_REFLECTED
@@ -281,18 +368,13 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                                   + hd.frame_b * samp.wi[..., 1:2]
                                   + hd.normal * samp.wi[..., 2:3])
 
-        if sh is not None:
-            occ = trace_any(sh["org"], sh["dir"], RAY_EPS,
-                            sh["dist"] - RAY_EPS, active=sh["do"])
-            L = L + torch.where((sh["do"] & ~occ)[:, None], sh["ld"], 0.0)
-
         return dict(
             o=torch.where(hit[:, None], hd.pos, o),
             d=torch.where(hit[:, None], wi_world_next, d),
             L=L,
             atten=torch.where(active_new[:, None], atten_new, atten),
             active=active_new,
-            prev_pdf=torch.where(hit, samp.pdf, s["prev_pdf"]),
+            prev_pdf=torch.where(hit, samp.pdf, ls["prev_pdf"]),
             # weight-1 MIS for segments the light strategy cannot reach
             # (see the JAX integrator's comment at this line)
             prev_spec=torch.where(
@@ -300,14 +382,78 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                                      | bsdf_mod.SAMPLE_TRANSMITTED)) != 0)
                 | ((hd.wo[..., 2] <= -bsdf_mod.MIN_COS)
                    & (ctx.transmission > 0.0)),
-                s["prev_spec"]),
+                ls["prev_spec"]),
             stream=stream,
-            bounce=bounce + 1,
-            rays=rays_new,
-            slot=s["slot"],
+            slot=ls["slot"],
+            **sh_next,
         )
 
+    def resolve_pending(s):
+        """Settle the deferred shadow rays still pending (at the end of
+        the loop, and before compaction drops lanes)."""
+        if not fuse_shadow:
+            return s
+        occ = trace_any(s["sh_org"], s["sh_dir"], RAY_EPS,
+                        s["sh_dist"] - RAY_EPS, active=s["sh_do"])
+        s = dict(s)
+        s["L"] = s["L"] + torch.where((s["sh_do"] & ~occ)[:, None],
+                                      s["sh_ld"], 0.0)
+        s.update(_empty_shadow(s["o"].shape[0], s["o"].device))
+        return s
+
+    body.resolve_pending = resolve_pending
     return body
+
+
+def _put_lanes(dst, src, off: int, n: int):
+    """Write a chunk's leaf `src` into rows [off, off + chunk) of the
+    full-width leaf `dst` (in place for per-lane tensors); a leaf that is
+    not per-lane (a stream's scalar dimension counter) takes the chunk's
+    value, the same in every chunk."""
+    if isinstance(dst, torch.Tensor):
+        if dst.dim() >= 1 and dst.shape[0] == n:
+            dst[off:off + src.shape[0]] = src
+            return dst
+        return src
+    if dataclasses.is_dataclass(dst):
+        return dataclasses.replace(dst, **{
+            f.name: _put_lanes(getattr(dst, f.name), getattr(src, f.name),
+                               off, n)
+            for f in dataclasses.fields(dst)})
+    return src
+
+
+def _chunked_shade(ls, shade_fn, chunk: int):
+    """Shade only the lanes that hit, in chunks of `chunk` lanes (the JAX
+    `_chunked_shade`).
+
+    Lanes are sorted hits first (stable), then ceil(hits / chunk) chunks
+    go through `shade_fn`; the other lanes pass through untouched with
+    active=False. Per-lane sampler streams are self-contained counters, so
+    a permuted and chunked lane draws what it draws at full width; only
+    dead lanes' streams go stale, and they never draw again. The JAX
+    package runs the chunks in a `while_loop` of one compiled program;
+    here they are a Python loop, each chunk a full pass of eager shading
+    ops, at the price of one host sync for the hit count."""
+    n = ls["o"].shape[0]
+    dev = ls["o"].device
+    key = torch.where(ls["hit"], 0, 1)
+    perm = torch.argsort(key, stable=True)
+    inv = torch.empty_like(perm)
+    inv[perm] = torch.arange(n, device=dev)
+    srt = {k: _take_lanes(v, perm, n) for k, v in ls.items()}
+    nch = -(-int(ls["hit"].sum()) // chunk)
+
+    out = dict(
+        o=srt["o"], d=srt["d"], L=srt["L"], atten=srt["atten"],
+        active=torch.zeros((n,), dtype=torch.bool, device=dev),
+        prev_pdf=srt["prev_pdf"], prev_spec=srt["prev_spec"],
+        stream=srt["stream"], slot=srt["slot"], **_empty_shadow(n, dev))
+    for i in range(nch):
+        sel = slice(i * chunk, (i + 1) * chunk)
+        cupd = shade_fn({k: _take_lanes(v, sel, n) for k, v in srt.items()})
+        out = {k: _put_lanes(out[k], cupd[k], i * chunk, n) for k in out}
+    return {k: _take_lanes(v, inv, n) for k, v in out.items()}
 
 
 def _take_lanes(x, sel, n: int):
@@ -405,22 +551,46 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     `tracers` overrides the (trace_closest, trace_any) pair. With
     settings.compact the wave shrinks between the plan's segments; lane
     selection keys on PRNGKey(0) folded with the sample index, then with
-    the segment index, as in the JAX package."""
-    state = init_path_state(flat, settings, sample_idx)
+    the segment index, as in the JAX package.
+
+    With settings.spp_batch = B > 1, B samples of every pixel ride one
+    wavefront: waves B times as wide and 1/B as many launches per spp.
+    The per-lane sampler streams draw what B separate calls with sample
+    indices sample_idx .. sample_idx + B - 1 draw, and the radiance
+    returned is the per-pixel SUM of the B samples (callers divide by
+    their spp count as usual)."""
+    fused = _fuse_shadow_active(settings, features)
+    dev = flat.camera.position.device
+    batch = max(1, settings.spp_batch)
+    if batch > 1:
+        npx = settings.num_pixels
+        pixel_ids = torch.arange(npx, device=dev).repeat(batch)
+        lane_idx = int(sample_idx) + torch.arange(
+            batch, device=dev).repeat_interleave(npx)
+        state = init_path_state(flat, settings, lane_idx, pixel_ids,
+                                with_shadow_state=fused)
+        state["slot"] = pixel_ids.to(torch.int32)
+    else:
+        state = init_path_state(flat, settings, sample_idx,
+                                with_shadow_state=fused)
     body = make_bounce_body(flat, settings, features, tracers)
     n = state["o"].shape[0]
     plan = _compaction_plan(n, settings)
     out = None
+    if len(plan) > 1 or batch > 1:
+        out = torch.zeros((settings.num_pixels, 3), device=dev)
     if len(plan) > 1:
-        out = torch.zeros((n, 3), device=state["o"].device)
         base_key = threefry.fold_in(threefry.PRNGKey(0), int(sample_idx))
     for si, (cap, blimit) in enumerate(plan):
         if cap < state["o"].shape[0]:
+            # pending deferred shadows must settle before lanes drop
+            state = body.resolve_pending(state)
             out.index_add_(0, state["slot"], state["L"])
             state = _compact_state(state, cap,
                                    threefry.fold_in(base_key, si))
         while state["bounce"] < blimit and bool(state["active"].any()):
             state = body(state)
+    state = body.resolve_pending(state)
     if out is None:
         out = state["L"]
     else:
@@ -433,29 +603,41 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
 def render_step(flat: FlatScene, settings: RenderSettings,
                 accum: torch.Tensor, accum_count: int,
                 sample_seed: int | None = None,
-                features: frozenset = bsdf_mod.ALL_FEATURES) -> torch.Tensor:
+                features: frozenset = bsdf_mod.ALL_FEATURES,
+                tracers=None) -> torch.Tensor:
     """One progressive spp step: running mean into the (H*W, 3)
     accumulator. `sample_seed` (default accum_count) seeds the sampler."""
     if settings.spp_batch > 1:
-        raise NotImplementedError("spp_batch > 1 is not ported yet")
+        # render_sample would sum spp_batch samples while this step's
+        # running mean assumes exactly one
+        raise ValueError("render_step is a 1-spp step; use render_step_n "
+                         "(or spp_batch=1) with sample-batched wavefronts")
     if sample_seed is None:
         sample_seed = accum_count
-    radiance = render_sample(flat, settings, sample_seed, features=features)
+    radiance = render_sample(flat, settings, sample_seed, tracers=tracers,
+                             features=features)
     k = float(accum_count)
     return (accum * k + radiance) / (k + 1.0)
 
 
 def render_step_n(flat: FlatScene, settings: RenderSettings,
                   accum: torch.Tensor, accum_count: int, count: int,
-                  features: frozenset = bsdf_mod.ALL_FEATURES) -> torch.Tensor:
+                  features: frozenset = bsdf_mod.ALL_FEATURES,
+                  tracers=None) -> torch.Tensor:
     """`count` progressive spp steps; the same running-mean formula as the
-    JAX render_step_n (sum of the samples, then one blend)."""
-    if settings.spp_batch > 1:
-        raise NotImplementedError("spp_batch > 1 is not ported yet")
+    JAX render_step_n (sum of the samples, then one blend). With
+    settings.spp_batch = B every render_sample sums B samples, so the
+    loop runs count / B times (count must be a multiple of B). `tracers`
+    overrides the (trace_closest, trace_any) pair, as in render_sample."""
+    batch = max(1, settings.spp_batch)
+    if count % batch != 0:
+        raise ValueError(f"count={count} not a multiple of "
+                         f"spp_batch={batch}")
     total = torch.zeros((settings.num_pixels, 3), device=accum.device)
-    for i in range(count):
-        total = total + render_sample(flat, settings, accum_count + i,
-                                      features=features)
+    for i in range(count // batch):
+        total = total + render_sample(flat, settings,
+                                      accum_count + i * batch,
+                                      tracers=tracers, features=features)
     k = float(accum_count)
     return (accum * k + total) / (k + float(count))
 

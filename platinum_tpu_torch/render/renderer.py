@@ -51,6 +51,11 @@ class Renderer:
         self.settings = settings or self.settings or RenderSettings()
         if self.settings.flags & FLAG_GMON and self.settings.gmon_buckets > 1:
             raise NotImplementedError("GMoN accumulation is not ported yet")
+        batch = max(1, self.settings.spp_batch)
+        if self.settings.spp % batch != 0:
+            # the JAX Renderer finds this out at its last batch
+            raise ValueError(f"settings.spp ({self.settings.spp}) must be a "
+                             f"multiple of spp_batch ({batch})")
         self._host_accel = {}
         self.flat = flatten_scene(self.scene, camera_node_id, self.settings,
                                   device=self.device,
@@ -64,13 +69,15 @@ class Renderer:
         self._accumulated = 0
 
     def render(self):
-        """One progressive step: one sample per pixel."""
+        """One progressive step: one sample per pixel, or spp_batch
+        samples per pixel in one sample-batched wavefront."""
         if self.flat is None or self.status & RenderStatus.DONE:
             return
-        self._accum = integrator.render_step(
+        batch = max(1, self.settings.spp_batch)
+        self._accum = integrator.render_step_n(
             self.flat, self.settings, self._accum, self._accumulated,
-            sample_seed=self._accumulated, features=self._features)
-        self._accumulated += 1
+            batch, features=self._features)
+        self._accumulated += batch
 
     def update_instance_transform(self, node_id: int, transform=None):
         """Apply a transform edit without rebuilding the BVH (instanced

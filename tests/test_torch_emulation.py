@@ -1,0 +1,327 @@
+"""The CUDA kernel sources themselves, run on the CPU thread by thread.
+
+tools/torch_emulate_kernels.py compiles platinum_tpu_torch/csrc/*.cu with
+g++ against a shim of the CUDA headers and runs every launch as a loop
+over threads. What the plain PyTorch versions cannot show without a card
+is held here: every mode of wide_trace.cu that computes K1's function
+(streamed blocks, the octant order, two_phase, the pipelined walk with
+and without the flat push, the paired launch) gives K1's / K2's results
+bit for bit, on one tree level and on the instanced tree; K1, K2 and the
+reduced tiers agree with their plain versions under the bars of
+tests/test_torch_gpu.py; the ablation modes do what they must; and the
+leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
+the bit. Skips where there is no g++.
+"""
+
+import os
+import shutil
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+
+import torch_emulate_kernels as emu  # noqa: E402
+from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
+from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
+
+torch.set_num_threads(1)
+HIGH_T_RTOL = 1e-6      # "high": the same exact bf16 products, a few ulps
+
+
+@pytest.fixture(scope="module")
+def emulation(tmp_path_factory):
+    if shutil.which("g++") is None:
+        pytest.skip("needs g++ to compile the kernel sources for the host")
+    return emu.Emulation(str(tmp_path_factory.mktemp("emulated_kernels")))
+
+
+@pytest.fixture(scope="module")
+def soup():
+    return emu.soup_tree(n_tris=1500, seed=4)
+
+
+RC = emu.soup_rays(1536, 1)
+RA = emu.soup_rays(1200, 2, tmax=8.0)
+
+
+def _hold_to_plain(k, p, rtol=1e-4, atol=1e-5):
+    hk, hp = k[1] >= 0, p[1] >= 0
+    assert (hk == hp).float().mean() > 0.995 and hp.sum() > 100
+    both = hk & hp
+    same = k[1][both] == p[1][both]
+    tie = torch.isclose(k[0][both], p[0][both], rtol=1e-5, atol=1e-6)
+    assert (same | tie).all()
+    torch.testing.assert_close(k[0][both][same], p[0][both][same],
+                               rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+def test_emulated_k1_k2_match_plain_versions(emulation, soup, any_hit):
+    nodes, blocks, meta, _ = soup
+    rays = RA if any_hit else RC
+    before = dict(pt.LAUNCHES)
+    with emulation:
+        k = emu.trace_wide(rays, nodes, blocks, meta, any_hit)
+    assert pt.LAUNCHES == before       # the wrapper's count is the card's
+    p = pt.trace_wide_plain(rays, nodes, blocks, meta, any_hit)
+    if any_hit:
+        assert (k[1] == p[1]).float().mean() > 0.995 and (p[1] > 0).sum() > 50
+    else:
+        _hold_to_plain(k, p)
+
+
+@pytest.mark.parametrize("tier", ["high", "default", "two_phase"])
+def test_emulated_tier_matches_its_plain_version(emulation, soup, tier):
+    nodes, blocks, meta, _ = soup
+    with emulation:
+        k = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+    p = pt.trace_wide_reference(RC, nodes, blocks, meta, False,
+                                mt_precision=tier)
+    if tier == "high":
+        _hold_to_plain(k, p, rtol=HIGH_T_RTOL, atol=0.0)
+    else:
+        _hold_to_plain(k, p)
+
+
+MODES = {"stream": dict(stream=True), "oct_order": dict(oct=True),
+         "stream+oct_order": dict(stream=True, oct=True),
+         "two_phase": dict(mt_precision="two_phase"),
+         "pipe": dict(pipe=True), "flat_walk": dict(flat_walk=True)}
+
+
+@pytest.mark.parametrize("name", sorted(MODES))
+def test_emulated_mode_is_k1_and_k2_bit_for_bit(emulation, soup, name):
+    """A mode that changes the walk changes no result: closest hit equal
+    to K1 in every output's bits, any hit equal to K2 (any hit takes no
+    octant order and no tier)."""
+    nodes, blocks, meta, worder = soup
+    kw = dict(MODES[name])
+    if kw.pop("oct", False):
+        kw["worder"] = worder
+    with emulation:
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
+        k = emu.trace_wide(RC, nodes, blocks, meta, False, **kw)
+        assert emu.same_bits(k, k1) and (k1[1] >= 0).sum() > 100
+        kw.pop("worder", None)
+        kw.pop("mt_precision", None)
+        k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
+        assert emu.same_bits(emu.trace_wide(RA, nodes, blocks, meta, True,
+                                            **kw), k2)
+
+
+def test_emulated_pipelined_walk_counts(emulation, soup):
+    """A stale bound admits more pops; a backlog entry behind the running
+    best is dropped untested, so no more blocks are tested than K1's
+    walk tests; per ray the counts are those `profile="count"` reports."""
+    nodes, blocks, meta, _ = soup
+    with emulation:
+        c1 = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)
+        c9 = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                            pipe=True)
+        cf = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                            flat_walk=True)
+    assert int(c9[0].sum()) >= int(c1[0].sum()) > 0
+    assert 0 < int(c9[1].sum()) <= int(c1[1].sum())
+    assert torch.equal(c9, cf)        # the flat push changes no count
+    assert not c9[2:].any()           # no instance entry, refine or re-walk
+
+
+def test_emulated_pipelined_walk_over_multi_block_leaves(emulation):
+    """Leaves of several blocks fill the backlog faster; the pipelined
+    walk stays K1 bit for bit, and the flat push refuses such a tree."""
+    nodes, blocks, meta, _ = emu.soup_tree(n_tris=1500, seed=4,
+                                           leaf_cap=31 * 8)
+    assert not pt._single_block_leaves(meta)
+    with emulation:
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
+        assert emu.same_bits(
+            emu.trace_wide(RC, nodes, blocks, meta, False, pipe=True), k1)
+        with pytest.raises(ValueError, match="exactly one MT block"):
+            emu.trace_wide(RC, nodes, blocks, meta, False, flat_walk=True)
+
+
+def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
+        emulation, soup):
+    """A node whose leaves hold more blocks than the backlog has room for
+    (no tree of accel.wide, which allows a node 64): one root whose 16
+    leaves own 24 blocks each (overlapping ranges of the soup's blocks),
+    384 against a backlog of 256. What does not fit is tested at once, so
+    closest hit and occlusion stay K1's / K2's bit for bit, and the plain
+    version's where it is not borderline."""
+    _, blocks, _, _ = soup
+    blocks = blocks[:15 * 7 + 24].contiguous()
+    nodes = torch.zeros((1, 16, 8))
+    nodes[0, :, 0:3], nodes[0, :, 3:6] = -100.0, 100.0
+    meta = -(torch.arange(16, dtype=torch.int32) * 7 * 32 + 24) - 2
+    nodes[0, :, 6] = meta.float()
+    with emulation:
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
+        k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
+        assert (k1[1] >= 0).sum() > 100 and (k2[1] > 0).sum() > 50
+        assert emu.same_bits(
+            emu.trace_wide(RC, nodes, blocks, meta, False, pipe=True), k1)
+        assert emu.same_bits(
+            emu.trace_wide(RA, nodes, blocks, meta, True, pipe=True), k2)
+        tests = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                               pipe=True)[1]
+    assert int(tests.max()) == 384     # every block of the node, none lost
+    _hold_to_plain(k1, pt.trace_wide_plain(RC, nodes, blocks, meta, False))
+
+
+@pytest.mark.parametrize("n_c,n_a", [(1536, 1200), (700, 1200), (1536, 100),
+                                     (0, 1200), (1536, 0)])
+@pytest.mark.parametrize("mode", [dict(), dict(mt_precision="high"),
+                                  dict(mt_precision="two_phase"),
+                                  dict(stream=True)],
+                         ids=lambda m: "+".join(m) or "fp32")
+def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
+    nodes, blocks, meta, _ = soup
+    rc, ra = RC[:, :n_c].contiguous(), RA[:, :n_a].contiguous()
+    with emulation:
+        closest, occ = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
+                                             **mode)
+        ref_c = emu.trace_wide(rc, nodes, blocks, meta, False, **mode)
+        ref_a = emu.trace_wide(ra, nodes, blocks, meta, True,
+                               stream=mode.get("stream", False))
+    assert emu.same_bits(closest, ref_c) and torch.equal(occ, ref_a[1])
+
+
+def test_emulated_profile_modes_do_what_they_must(emulation, soup):
+    nodes, blocks, meta, _ = soup
+    with emulation:
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
+        pops = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)[0]
+        for any_hit, rays in ((False, RC), (True, RA)):
+            for stream in (False, True):
+                for prof in ("empty", "nomt"):
+                    k = emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                       stream=stream, profile=prof)
+                    p = pt.trace_wide_profile_plain(rays, nodes, blocks, meta,
+                                                    any_hit, prof)
+                    assert all(torch.equal(a, b) for a, b in zip(k, p))
+        nomt = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                              profile="nomt")
+        assert not nomt[1].any() and int(nomt[0].sum()) >= int(pops.sum())
+        cnt = emu.trace_wide(RC, nodes, blocks, meta, False, profile="count")
+        assert emu.same_bits((cnt[0], cnt[1], cnt[3]), (k1[0], k1[1], k1[3]))
+        assert torch.equal(cnt[2], pops.float())
+        fix = emu.trace_wide(RC, nodes, blocks, meta, False, profile="fix64")
+        short = pops <= 64
+        assert short.all() and emu.same_bits(fix, k1)
+        fixc = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                              profile="fix64")
+        k1c = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)
+        assert torch.equal(fixc, k1c)   # every walk here ends within 64
+        with pytest.raises(RuntimeError, match="launch failed"):
+            emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
+                           profile="count")     # no such instantiation
+
+
+@pytest.fixture(scope="module")
+def instanced():
+    from instanced_scenes import instanced_scene
+    from platinum_tpu_torch.render.flatten import flatten_scene
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = instanced_scene("platinum_tpu_torch")
+    flat = flatten_scene(scene, cam, RenderSettings(
+        width=16, height=16, instancing="on", tracer="packet"),
+        accel_min_tris=1, device="cpu")
+    return (flat.wbvh_nodes.reshape(-1, 16, 8).contiguous(), flat.wbvh_tris,
+            flat.wbvh_meta, flat.instances.feat)
+
+
+def test_emulated_instanced_modes(emulation, instanced):
+    """K3 against its plain version, and the streamed and pipelined walks
+    over the two-level tree against K3 bit for bit, instance ids
+    included."""
+    nodes, blocks, meta, feat = instanced
+    flat_ok = pt._single_block_leaves(meta)
+    with emulation:
+        k3 = emu.trace_wide(RC, nodes, blocks, meta, False, inst_feat=feat)
+        a3 = emu.trace_wide(RA, nodes, blocks, meta, True, inst_feat=feat)
+        for kw in (dict(stream=True), dict(pipe=True)) + (
+                (dict(flat_walk=True),) if flat_ok else ()):
+            k = emu.trace_wide(RC, nodes, blocks, meta, False, inst_feat=feat,
+                               **kw)
+            assert len(k) == 5 and emu.same_bits(k, k3), kw
+            assert emu.same_bits(emu.trace_wide(RA, nodes, blocks, meta, True,
+                                                inst_feat=feat, **kw), a3), kw
+    p = pt.trace_wide_inst_plain(RC, nodes, blocks, meta, False, feat)
+    _hold_to_plain(k3, p)
+    same = (k3[1] >= 0) & (k3[1] == p[1])
+    assert torch.equal(k3[4][same], p[4][same])
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_emulated_stream_mt_matches_plain_version(emulation, soup, tier):
+    """K15 on every level's real pairs, closest and any hit."""
+    nodes, blocks, meta, _ = soup
+    wn = nodes.reshape(-1, 128)
+    for any_hit, rays in ((False, RC), (True, RA)):
+        calls = []
+
+        def capture(*args):
+            calls.append(args[:4])
+            return rs.stream_mt_plain(*args)
+
+        pair = rs.make_stream_tracer(wn, blocks, meta, mt_precision=tier,
+                                     mt_fn=capture)
+        pair[int(any_hit)](rays[0:3].T, rays[3:6].T, 1e-3, rays[7])
+        assert sum(c[2].shape[0] for c in calls) > rays.shape[1]
+        for wave, limit, pair_ray, pair_block in calls:
+            with emulation:
+                k = emu.stream_mt(wave, limit, pair_ray, pair_block, blocks,
+                                  any_hit, tier)
+            p = rs.stream_mt_plain(wave, limit, pair_ray, pair_block, blocks,
+                                   any_hit, tier)
+            hk, hp = k[1] >= 0, p[1] >= 0
+            assert (hk == hp).float().mean() > 0.995
+            if any_hit:
+                continue
+            both = hk & hp
+            same = k[1][both] == p[1][both]
+            tie = torch.isclose(k[0][both], p[0][both], rtol=1e-5, atol=1e-6)
+            assert (same | tie).all()
+            rtol, atol = ((HIGH_T_RTOL, 0.0) if tier == "high"
+                          else (1e-4, 1e-5))
+            torch.testing.assert_close(k[0][both][same], p[0][both][same],
+                                       rtol=rtol, atol=atol)
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+def test_emulated_stream_tracer_is_the_packet_tracer_bit_for_bit(
+        emulation, soup, tier):
+    """Both kernels include csrc/mt_block.cuh, so the breadth-first tracer
+    gives the depth-first one's hit set, t, ids and barycentrics in every
+    bit, at "highest" and at "high"; occlusion equals K2's at "highest"
+    (the ray-stream tracer's any hit runs at the tier, K2 at fp32)."""
+    nodes, blocks, meta, _ = soup
+    with emulation:
+        pair = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                     mt_precision=tier, mt_fn=emu.stream_mt)
+        rec = pair[0](RC[0:3].T, RC[3:6].T, 1e-3, float("inf"))
+        occ = pair[1](RA[0:3].T, RA[3:6].T, 1e-3, RA[7])
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+        k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
+    hit = k1[1] >= 0
+    assert torch.equal(rec.hit, hit) and hit.sum() > 100
+    assert emu.same_bits((rec.t[hit], rec.tri[hit], rec.bary[hit, 0],
+                          rec.bary[hit, 1]),
+                         (k1[0][hit], k1[1][hit], k1[2][hit], k1[3][hit]))
+    if tier == "highest":
+        assert torch.equal(occ, k2[1] > 0)
+
+
+def test_host_source_rewrites_every_launch():
+    for name in emu.SOURCES:
+        with open(os.path.join(pt.CSRC_DIR, name + ".cu")) as f:
+            text = emu.host_source(f.read())
+        assert "<<<" not in text and "asm volatile" not in text
+        assert "emu_launch(" in text
+    with pytest.raises(ValueError, match="no kernel launch"):
+        emu.host_source("int main() { return 0; }")

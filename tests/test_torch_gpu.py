@@ -1,7 +1,10 @@
 """The CUDA wide-BVH kernel on the card: one-level (K1, K2) and two-level
 (K3) modes, the MT tiers (K4, K5), streamed blocks (K6) and the octant
 order (K7) against their plain PyTorch versions and, for the modes that
-compute K1's function, against K1 bit for bit; the wrapper's input checks
+compute K1's function, against K1 bit for bit; the paired launch (K8), the
+pipelined walk (K9) and the ablation modes against K1/K2/K3; the leaf-pair
+kernel (K15) against its plain version and the ray-stream tracer against
+K1/K2 bit for bit; the wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
@@ -14,6 +17,7 @@ import torch
 from platinum_tpu_torch.accel.bvh import build_bvh
 from platinum_tpu_torch.accel.wide import build_octant_orders, build_wide_bvh
 from platinum_tpu_torch.ops import packet_trace as pt
+from platinum_tpu_torch.ops import raystream as rs
 from platinum_tpu_torch.ops import threefry
 
 pytestmark = pytest.mark.gpu
@@ -82,6 +86,19 @@ def test_wrapper_refuses_bad_inputs(soup_on_card):
         pt.trace_wide(rays[:, ::2], nodes, blocks, meta, False)
     with pytest.raises(ValueError, match="is on"):
         pt.trace_wide(rays, nodes.cpu(), blocks, meta, False)
+
+
+def test_empty_wave_launches_nothing(soup_on_card):
+    """A wave of no rays returns empty outputs and counts no launch."""
+    nodes, blocks, meta, _ = soup_on_card
+    rays = _rays(256, np.inf, nodes.device)[:, :0].contiguous()
+    before = dict(pt.LAUNCHES)
+    for any_hit in (False, True):
+        out = pt.trace_wide(rays, nodes, blocks, meta, any_hit)
+        assert all(x.shape == (0,) for x in out)
+    closest, occ = pt.trace_wide_paired(rays, rays, nodes, blocks, meta)
+    assert occ.shape == (0,) and closest[0].shape == (0,)
+    assert pt.LAUNCHES == before
 
 
 @pytest.fixture
@@ -260,13 +277,239 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     lib = pt._library()
     out = torch.empty(256, device=nodes.device)
     sid = torch.empty(256, dtype=torch.int32, device=nodes.device)
-    for prec, stream in ((7, 0), (3, 1)):
+    # (any_hit, tier, stream, walk, profile, n_split): an unknown tier,
+    # two_phase streamed, pipe with a tier / with stream / with a profile,
+    # a profile with a tier, fix64 streamed, a paired split inside a block
+    for any_hit, prec, stream, walk, prof, split in (
+            (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
+            (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
+            (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128)):
         rc = lib.wide_trace_launch(
-            rays.data_ptr(), 256, nodes.data_ptr(), blocks.data_ptr(),
-            meta.data_ptr(), None, None, 0, prec, stream, out.data_ptr(),
-            sid.data_ptr(), out.data_ptr(), out.data_ptr(), None, None,
-            torch.cuda.current_stream().cuda_stream)
-        assert rc != 0
+            rays.data_ptr(), 256, split, nodes.data_ptr(), blocks.data_ptr(),
+            meta.data_ptr(), None, None, any_hit, prec, stream, walk, prof,
+            out.data_ptr(), sid.data_ptr(), out.data_ptr(), out.data_ptr(),
+            None, None, torch.cuda.current_stream().cuda_stream)
+        assert rc != 0, (any_hit, prec, stream, walk, prof, split)
+    with pytest.raises(ValueError, match="fp32"):
+        pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
+                      mt_precision="high")
+    with pytest.raises(ValueError, match="default walk"):
+        pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
+                      stream=True)
+    assert pt.LAUNCHES == before
+
+
+@pytest.mark.parametrize("n_c,n_a", [(4096, 4096), (1000, 4096),
+                                     (4096, 300), (0, 2048), (2048, 0)])
+@pytest.mark.parametrize("mode", [dict(), dict(mt_precision="high"),
+                                  dict(mt_precision="two_phase"),
+                                  dict(stream=True)],
+                         ids=lambda m: "+".join(m) or "fp32")
+def test_paired_launch_is_k1_and_k2_bit_for_bit(soup_on_card, n_c, n_a, mode):
+    """K8: one launch, the closest half bit for bit the unpaired closest
+    mode at the tier / stream, the any-hit half bit for bit K2; either
+    wave longer, or empty."""
+    nodes, blocks, meta, _ = soup_on_card
+    rc = _rays(4096, np.inf, nodes.device)[:, :n_c].contiguous()
+    ra = _rays(4096, 8.0, nodes.device).flip(1)[:, :n_a].contiguous()
+    key = pt.launch_key(False, paired=True, **mode)
+    before = dict(pt.LAUNCHES)
+    closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta, **mode)
+    torch.cuda.synchronize()
+    after = dict(pt.LAUNCHES)
+    assert after.pop(key) == before.pop(key) + 1 and after == before
+    ref_c = pt.trace_wide(rc, nodes, blocks, meta, False, **mode)
+    ref_a = pt.trace_wide(ra, nodes, blocks, meta, True, **mode)
+    for a, b in zip(closest, ref_c):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ref_a[1])
+    if n_c == n_a:
+        assert (closest[1] >= 0).sum() > 100 and (occ > 0).sum() > 100
+
+
+def test_paired_tracer_entry_on_the_card(soup_on_card):
+    nodes, blocks, meta, _ = soup_on_card
+    tc, ta = pt.make_packet_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                   sort=True)
+    rc, ra = _rays(4096, np.inf, nodes.device), _rays(3000, 8.0, nodes.device)
+    oc, dc, oa, da = rc[0:3].T, rc[3:6].T, ra[0:3].T.flip(0), ra[3:6].T
+    before = pt.LAUNCHES["paired"]
+    rec, occ = tc.paired(oc, dc, TMIN, float("inf"), oa, da, TMIN, 8.0)
+    assert pt.LAUNCHES["paired"] == before + 1
+    ref = tc(oc, dc, TMIN, float("inf"))
+    assert torch.equal(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)
+    assert torch.equal(occ, ta(oa, da, TMIN, 8.0))
+
+
+@pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
+def test_pipelined_walk_is_k1_and_k2_bit_for_bit(soup_on_card, walk):
+    """K9 on one tree: hit set, t, ids and barycentrics of K1 / K2, and
+    its plain version (K1's) to K1's bars."""
+    nodes, blocks, meta, _ = soup_on_card
+    for any_hit, tmax in ((False, np.inf), (True, 8.0)):
+        rays = _rays(4096, tmax, nodes.device)
+        key = pt.launch_key(any_hit, pipe=True, flat_walk=walk == "flat_walk")
+        before = pt.LAUNCHES[key]
+        k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, **{walk: True})
+        assert pt.LAUNCHES[key] == before + 1
+        _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, any_hit), key)
+        if not any_hit:
+            _hold_to_plain(k, pt.trace_wide_reference(
+                rays, nodes, blocks, meta, False, **{walk: True}), key)
+        counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                      **{walk: True})
+        assert counts["pops"] > 0 and counts["mt_tests"] > 0
+
+
+@pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
+def test_instanced_pipelined_walk_is_k3_bit_for_bit(instanced_on_card, walk):
+    nodes, blocks, meta, feat, _ = instanced_on_card
+    if walk == "flat_walk" and not pt._single_block_leaves(meta):
+        with pytest.raises(ValueError, match="exactly one MT block"):
+            pt.trace_wide(_rays(64, np.inf, nodes.device), nodes, blocks,
+                          meta, False, inst_feat=feat, flat_walk=True)
+        return
+    for any_hit, tmax in ((False, np.inf), (True, 6.0)):
+        rays = _rays(4096, tmax, nodes.device)
+        k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=feat,
+                          **{walk: True})
+        _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                  inst_feat=feat), f"inst {walk} {any_hit}")
+
+
+def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
+    """One root whose 16 leaves own 24 blocks each: 384 against a backlog
+    of 256 (no tree of accel.wide holds more than 64 under a node). What
+    does not fit is tested at once: K1 / K2 bit for bit, every block
+    tested."""
+    _, blocks, _, _ = soup_on_card
+    dev = blocks.device
+    step = (blocks.shape[0] - 24) // 15      # overlapping 24-block ranges
+    assert step >= 1
+    blocks = blocks[:15 * step + 24].contiguous()
+    nodes = torch.zeros((1, 16, 8), device=dev)
+    nodes[0, :, 0:3], nodes[0, :, 3:6] = -100.0, 100.0
+    meta = -(torch.arange(16, dtype=torch.int32, device=dev) * step * 32
+             + 24) - 2
+    for any_hit, tmax in ((False, np.inf), (True, 8.0)):
+        rays = _rays(4096, tmax, dev)
+        k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, pipe=True)
+        ref = pt.trace_wide(rays, nodes, blocks, meta, any_hit)
+        for a, b in zip(k, ref):
+            assert torch.equal(a, b)
+        assert (ref[1] >= 0).sum() > 100
+    tests = pt.trace_wide_counts(_rays(4096, np.inf, dev), nodes, blocks,
+                                 meta, False, pipe=True, per_ray=True)[1]
+    assert int(tests.max()) == 384
+
+
+def test_profile_modes_do_what_they_must(soup_on_card):
+    """ "empty" and "nomt" miss everything; "nomt" pops no fewer nodes
+    than K1 and tests no block; "count" is K1 with u = the ray's pops;
+    "fix64" runs."""
+    nodes, blocks, meta, _ = soup_on_card
+    rays = _rays(4096, np.inf, nodes.device)
+    shadow = _rays(4096, 8.0, nodes.device)
+    k1 = pt.trace_wide(rays, nodes, blocks, meta, False)
+    pops = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                per_ray=True)
+    for prof in ("empty", "nomt"):
+        for any_hit, wave in ((False, rays), (True, shadow)):
+            for stream in (False, True):
+                key = pt.launch_key(any_hit, stream=stream, profile=prof)
+                before = pt.LAUNCHES[key]
+                k = pt.trace_wide(wave, nodes, blocks, meta, any_hit,
+                                  stream=stream, profile=prof)
+                assert pt.LAUNCHES[key] == before + 1
+                p = pt.trace_wide_reference(wave, nodes, blocks, meta,
+                                            any_hit, profile=prof)
+                for a, b in zip(k, p):
+                    assert torch.equal(a, b), key
+                assert (k[1] == -1).all()
+    nomt = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                profile="nomt")
+    assert nomt["mt_tests"] == 0 and nomt["pops"] >= int(pops[0].sum())
+    c = pt.trace_wide(rays, nodes, blocks, meta, False, profile="count")
+    assert torch.equal(c[0], k1[0]) and torch.equal(c[1], k1[1])
+    assert torch.equal(c[3], k1[3])
+    assert torch.equal(c[2], pops[0].float())
+    f = pt.trace_wide(rays, nodes, blocks, meta, False, profile="fix64")
+    torch.cuda.synchronize()
+    assert f[0].shape == k1[0].shape
+    short = pops[0] <= 64
+    for x, y in zip(f, k1):
+        assert torch.equal(x[short], y[short])
+    fc = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                              profile="fix64", per_ray=True)
+    assert torch.equal(fc[:, short], pops[:, short])
+    assert (fc[0] <= 64).all() and (fc[1][~short] <= pops[1][~short]).all()
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                             profile="count")
+
+
+def _level_pairs(tracer_args, rays, any_hit, tmax):
+    calls = []
+
+    def capture(*args):
+        calls.append(args[:4])
+        return rs.stream_mt(*args)
+
+    pair = rs.make_stream_tracer(*tracer_args, mt_fn=capture)
+    pair[int(any_hit)](rays[0:3].T, rays[3:6].T, TMIN, tmax)
+    return calls
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_stream_mt_kernel_matches_plain_version(soup_on_card, tier):
+    """K15 on every level's real pairs, closest and any hit: slots equal
+    outside t ties, t to the tier's bar (a few ulps at "high": the same
+    exact bf16 products), flags equal on >= 99.5%."""
+    nodes, blocks, meta, _ = soup_on_card
+    args = (nodes.reshape(-1, 128), blocks, meta)
+    for any_hit, tmax in ((False, float("inf")), (True, 8.0)):
+        rays = _rays(4096, tmax, nodes.device)
+        key = rs.launch_key(any_hit, tier)
+        for wave, limit, pair_ray, pair_block in _level_pairs(
+                args, rays, any_hit, tmax):
+            before = rs.LAUNCHES[key]
+            k = rs.stream_mt(wave, limit, pair_ray, pair_block, blocks,
+                             any_hit, tier)
+            assert rs.LAUNCHES[key] == before + 1
+            p = rs.stream_mt_plain(wave, limit, pair_ray, pair_block, blocks,
+                                   any_hit, tier)
+            hk, hp = k[1] >= 0, p[1] >= 0
+            assert (hk == hp).float().mean() > 0.995
+            if any_hit:
+                continue
+            both = hk & hp
+            same = k[1][both] == p[1][both]
+            tie = torch.isclose(k[0][both], p[0][both], rtol=1e-5, atol=1e-6)
+            assert (same | tie).all()
+            rtol, atol = (HIGH_T_RTOL, 0.0) if tier == "high" else (1e-4, 1e-5)
+            torch.testing.assert_close(k[0][both][same], p[0][both][same],
+                                       rtol=rtol, atol=atol)
+
+
+def test_stream_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
+    """The ray-stream tracer on the card against the packet tracer: hit
+    set and t bit for bit, ids equal (the soup has no exact-t ties
+    across blocks), occlusion equal."""
+    nodes, blocks, meta, _ = soup_on_card
+    sc, sa = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta)
+    pc, pa = pt.make_packet_tracer(nodes.reshape(-1, 128), blocks, meta)
+    rays = _rays(4096, np.inf, nodes.device)
+    o, d = rays[0:3].T, rays[3:6].T
+    rec, ref = sc(o, d, TMIN, float("inf")), pc(o, d, TMIN, float("inf"))
+    assert torch.equal(rec.hit, ref.hit) and ref.hit.sum() > 100
+    assert torch.equal(rec.t.view(torch.int32), ref.t.view(torch.int32))
+    assert torch.equal(rec.tri, ref.tri) and torch.equal(rec.bary, ref.bary)
+    assert torch.equal(sa(o, d, TMIN, 8.0), pa(o, d, TMIN, 8.0))
+    with pytest.raises(TypeError):
+        rs.stream_mt(rays, rays[7].contiguous(),
+                     torch.zeros(4, dtype=torch.int64, device=nodes.device),
+                     torch.zeros(4, dtype=torch.int32, device=nodes.device),
+                     blocks, False)
 
 
 def test_threefry_on_card_matches_cpu():

@@ -48,6 +48,43 @@ def test_source_imports_nothing_of_jax_or_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+def _cuda_sources():
+    csrc = os.path.join(PORT, "csrc")
+    return sorted(f for f in os.listdir(csrc) if f.endswith((".cu", ".cuh")))
+
+
+@pytest.mark.parametrize("name", _cuda_sources())
+def test_cuda_source_includes_only_the_toolkit_and_the_package(name):
+    """A kernel source builds from the checkout and the CUDA toolkit
+    alone: every #include names a toolkit / C header or a header of
+    csrc/ itself, so no generated or JAX-side file can slip in."""
+    import re
+
+    csrc = os.path.join(PORT, "csrc")
+    with open(os.path.join(csrc, name)) as f:
+        includes = re.findall(r'^\s*#\s*include\s*([<"])([^>"]+)[>"]',
+                              f.read(), re.M)
+    assert includes, f"{name} includes nothing"
+    for kind, header in includes:
+        if kind == "<":
+            assert header in ("cuda_runtime.h", "cuda_bf16.h", "stdint.h"), (
+                f"{name} includes <{header}>")
+        else:
+            assert os.path.exists(os.path.join(csrc, header)), (
+                f'{name} includes "{header}", not in csrc/')
+
+
+def test_every_cuda_source_is_package_data():
+    """csrc/*.cu and *.cuh ship with the package (pyproject.toml), or an
+    installed port could not build its kernels."""
+    with open(os.path.join(REPO, "pyproject.toml")) as f:
+        text = f.read()
+    assert {"wide_trace.cu", "stream_mt.cu", "mt_block.cuh"} <= set(
+        _cuda_sources())
+    for ext in {os.path.splitext(n)[1] for n in _cuda_sources()}:
+        assert f"csrc/*{ext}" in text, f"csrc/*{ext} is not package data"
+
+
 def test_port_runs_with_the_jax_package_hidden():
     """A fresh interpreter in which importing `platinum_tpu` or `jax`
     fails imports every module of the port, flattens Cornell with the

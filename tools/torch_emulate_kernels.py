@@ -1,0 +1,321 @@
+"""Run the port's CUDA kernel sources on the CPU, thread by thread.
+
+    python3 tools/torch_emulate_kernels.py
+
+Where there is no GPU and no nvcc, the kernels' plain PyTorch versions
+say nothing about the CUDA sources themselves: a wrong stack index, a
+backlog that overflows or a mode that dispatches to the wrong
+instantiation shows only on the card. This tool compiles
+platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
+headers (the qualifiers as empty macros, `float4`, `dim3`, `__ldg`,
+`__int_as_float`, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
+thread-local `blockIdx` / `threadIdx`), with the L2 prefetch `asm`
+removed and every `<<<grid, block>>>` launch rewritten into a loop over
+blocks and threads, and binds the result with the wrappers' own ctypes
+declarations. g++ gets `-ffp-contract=fast -march=native`, so products
+and sums contract to FMAs as nvcc contracts them where the host has FMA
+instructions. It says nothing about registers, memory traffic or time.
+
+As a module: `build(out_dir)` returns {source name: library path};
+`Emulation(out_dir)` is a context manager in which `trace_wide`,
+`trace_wide_paired`, `trace_wide_counts` and `stream_mt` of this module
+run the emulated kernels on CPU tensors (through the wrappers' own
+`_launch` / argument checks). Run as a script it holds every mode of
+wide_trace.cu and stream_mt.cu to its plain version, and the modes that
+compute K1's function to K1 bit for bit, on a random triangle soup.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+
+from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
+from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
+
+SHIM_RUNTIME = r"""
+#pragma once
+#include <cmath>
+#include <cstddef>
+#include <cstdint>
+#include <cstring>
+#include <math.h>
+#define __device__
+#define __global__
+#define __forceinline__ inline
+#define __restrict__
+#define __launch_bounds__(x)
+struct float4 { float x, y, z, w; };
+inline float4 make_float4(float x, float y, float z, float w) {
+  return {x, y, z, w};
+}
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
+};
+typedef void* cudaStream_t;
+typedef int cudaError_t;
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+inline int cudaGetLastError() { return 0; }
+inline const char* cudaGetErrorString(int c) {
+  return c ? "invalid value" : "no error";
+}
+template <class T> inline T __ldg(const T* p) { return *p; }
+inline float __int_as_float(int i) {
+  float f;
+  std::memcpy(&f, &i, 4);
+  return f;
+}
+// a rounded product that the compiler may not contract into an FMA
+inline float __fmul_rn(float a, float b) {
+  volatile float r = a * b;
+  return r;
+}
+inline size_t __cvta_generic_to_global(const void* p) { return (size_t)p; }
+extern thread_local dim3 blockIdx, threadIdx, blockDim;
+template <class F, class... A>
+void emu_launch(dim3 grid, int threads, F f, A... a) {
+  blockDim = dim3(threads);
+  for (unsigned b = 0; b < grid.x; ++b)
+    for (int t = 0; t < threads; ++t) {
+      blockIdx = dim3(b);
+      threadIdx = dim3(t);
+      f(a...);
+    }
+}
+"""
+
+SHIM_BF16 = r"""
+#pragma once
+#include <cstdint>
+#include <cstring>
+struct __nv_bfloat16 { uint16_t v; };
+inline __nv_bfloat16 __float2bfloat16_rn(float x) {
+  uint32_t u;
+  std::memcpy(&u, &x, 4);
+  if ((u & 0x7fffffff) > 0x7f800000) return {(uint16_t)((u >> 16) | 0x40)};
+  u += 0x7fff + ((u >> 16) & 1);
+  return {(uint16_t)(u >> 16)};
+}
+inline float __bfloat162float(__nv_bfloat16 b) {
+  uint32_t u = (uint32_t)b.v << 16;
+  float f;
+  std::memcpy(&f, &u, 4);
+  return f;
+}
+"""
+
+SOURCES = ("wide_trace", "stream_mt")
+
+
+def host_source(text: str) -> str:
+    """A CUDA source of csrc/ as C++ for the host: the prefetch `asm`
+    dropped, `kernel<...><<<grid, block, shared, stream>>>(args)` turned
+    into `emu_launch(grid, block, kernel<...>, args)`, and the thread
+    indices defined."""
+    text = re.sub(r"asm volatile\(.*?\);", "(void)p;", text, flags=re.S)
+    text, n = re.subn(
+        r"(\w+<[^;()]*?>)\s*<<<([^,]+),\s*([^,]+),[^>]*>>>\(",
+        r"emu_launch(\2, \3, \1, ", text, flags=re.S)
+    if n == 0:
+        raise ValueError("no kernel launch found to rewrite")
+    return text.replace(
+        "namespace {",
+        "thread_local dim3 blockIdx, threadIdx, blockDim;\nnamespace {", 1)
+
+
+def build(out_dir: str) -> dict:
+    """Compile the host versions of csrc/*.cu into `out_dir` with g++;
+    {source name: shared library path}. Raises where g++ is missing or
+    refuses a source."""
+    shim = os.path.join(out_dir, "shim")
+    os.makedirs(shim, exist_ok=True)
+    for name, text in (("cuda_runtime.h", SHIM_RUNTIME),
+                       ("cuda_bf16.h", SHIM_BF16)):
+        with open(os.path.join(shim, name), "w") as f:
+            f.write(text)
+    for header in pt.CSRC_SHARED:
+        with open(header) as f, open(os.path.join(
+                out_dir, os.path.basename(header)), "w") as g:
+            g.write(f.read())
+    libs = {}
+    for name in SOURCES:
+        with open(os.path.join(pt.CSRC_DIR, name + ".cu")) as f:
+            text = host_source(f.read())
+        cpp = os.path.join(out_dir, name + ".cpp")
+        with open(cpp, "w") as f:
+            f.write(text)
+        libs[name] = os.path.join(out_dir, name + "_host.so")
+        proc = subprocess.run(
+            ["g++", "-std=c++17", "-O2", "-ffp-contract=fast",
+             "-march=native", "-shared", "-fPIC", "-I", shim, "-I", out_dir,
+             "-o", libs[name], cpp], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"g++ failed on {name}:\n{proc.stderr[-3000:]}")
+    return libs
+
+
+class _NoStream:
+    cuda_stream = None
+
+
+class Emulation(contextlib.AbstractContextManager):
+    """Inside the context the wrappers' launch code reaches the emulated
+    libraries: their library table holds them, and the two torch.cuda
+    calls it makes (the device guard and the current stream) are
+    stand-ins. Outside it everything is as before."""
+
+    def __init__(self, out_dir: str):
+        self.libs = build(out_dir)
+
+    def __enter__(self):
+        self._saved = (dict(pt._libs), torch.cuda.device,
+                       torch.cuda.current_stream)
+        for name, declare in (("wide_trace", pt._declare),
+                              ("stream_mt", rs._declare)):
+            lib = ctypes.CDLL(self.libs[name])
+            declare(lib)
+            pt._libs[name] = lib
+        torch.cuda.device = lambda dev: contextlib.nullcontext()
+        torch.cuda.current_stream = lambda dev=None: _NoStream()
+        return self
+
+    def __exit__(self, *exc):
+        libs, torch.cuda.device, torch.cuda.current_stream = self._saved
+        pt._libs.clear()
+        pt._libs.update(libs)
+        return False
+
+
+def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
+               worder=None, mt_precision="highest", stream=False,
+               pipe=False, flat_walk=False, profile="none", count=False):
+    """`packet_trace.trace_wide` (or, with `count`, the (5, R) table of
+    `trace_wide_counts(per_ray=True)`) through the emulated kernel."""
+    pt.check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    out = pt._launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
+                     count, worder, "highest" if any_hit else mt_precision,
+                     stream, pt._walk_code(meta, pipe or flat_walk, flat_walk,
+                                           checked=False), profile)
+    if count:
+        return out[5]
+    return out[:5] if out[4] is not None else out[:4]
+
+
+def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
+                      mt_precision="highest", stream=False):
+    """`packet_trace.trace_wide_paired` through the emulated kernel."""
+    pt.check_mode(mt_precision, stream)
+    nc = rays_c.shape[1]
+    rays, n_split = pt.pair_rays(rays_c, rays_a)
+    t, sid, u, v, _, _ = pt._launch(rays, nodes, blocks, meta, 2, None,
+                                    False, None, mt_precision, stream,
+                                    n_split=n_split)
+    return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
+
+
+def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit,
+              mt_precision="highest"):
+    """`raystream.stream_mt` through the emulated kernel."""
+    n = pair_ray.shape[0]
+    t, u, v = (torch.empty(n) for _ in range(3))
+    slot = torch.empty(n, dtype=torch.int32)
+    if n:
+        rc = pt._libs["stream_mt"].stream_mt_launch(
+            rays.data_ptr(), rays.shape[1], limit.data_ptr(),
+            pair_ray.data_ptr(), pair_block.data_ptr(), n, blocks.data_ptr(),
+            blocks.shape[0], int(bool(any_hit)), pt.PRECISIONS[mt_precision],
+            t.data_ptr(), slot.data_ptr(), u.data_ptr(), v.data_ptr(), None)
+        if rc != 0:
+            raise RuntimeError(f"emulated stream_mt refused: {rc}")
+    return t, slot, u, v
+
+
+def soup_tree(n_tris=3000, seed=0, leaf_cap=16):
+    """The wide BVH of a random triangle soup (the recipe of
+    tests/test_pallas_trace.py) as (nodes, blocks, meta, worder)."""
+    from platinum_tpu_torch.accel.bvh import build_bvh
+    from platinum_tpu_torch.accel.wide import (build_octant_orders,
+                                               build_wide_bvh)
+
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(-4, 4, (n_tris, 3)).astype(np.float32)
+    v0, v1, v2 = (c + rng.normal(0, 0.3, (n_tris, 3)).astype(np.float32)
+                  for _ in range(3))
+    bvh = build_bvh(v0, v1, v2, max_leaf=4)
+    o = bvh.tri_order
+    geo = np.concatenate([v0[o], v1[o] - v0[o], v2[o] - v0[o],
+                          np.zeros((n_tris, 3), np.float32)], -1)
+    wide = build_wide_bvh(bvh, geo, leaf_cap=leaf_cap)
+    return (torch.from_numpy(wide.nodes).reshape(-1, 16, 8).contiguous(),
+            torch.from_numpy(wide.tri_blocks).contiguous(),
+            torch.from_numpy(wide.meta).to(torch.int32).contiguous(),
+            torch.from_numpy(build_octant_orders(wide.nodes)).to(torch.int32))
+
+
+def soup_rays(n, seed, tmax=float("inf")):
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-6, 6, (n, 3)).astype(np.float32)
+    d = rng.normal(0, 1, (n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o.T, d.T, np.full((1, n), 1e-3, np.float32),
+                           np.full((1, n), tmax, np.float32)])
+    return torch.from_numpy(rays).contiguous()
+
+
+def same_bits(a, b) -> bool:
+    return all(torch.equal(x.view(torch.int32), y.view(torch.int32))
+               for x, y in zip(a, b))
+
+
+def main():
+    nodes, blocks, meta, worder = soup_tree()
+    rc, ra = soup_rays(2048, 1), soup_rays(1500, 2, tmax=8.0)
+    with tempfile.TemporaryDirectory() as tmp, Emulation(tmp):
+        k1 = trace_wide(rc, nodes, blocks, meta, False)
+        k2 = trace_wide(ra, nodes, blocks, meta, True)
+        p1 = pt.trace_wide_plain(rc, nodes, blocks, meta, False)
+        p2 = pt.trace_wide_plain(ra, nodes, blocks, meta, True)
+        print(f"K1 vs plain: ids equal on "
+              f"{(k1[1] == p1[1]).float().mean():.4%}, K2 on "
+              f"{(k2[1] == p2[1]).float().mean():.4%}")
+        c1 = trace_wide(rc, nodes, blocks, meta, False, count=True)
+        for label, kw in (("stream", dict(stream=True)),
+                          ("oct_order", dict(worder=worder)),
+                          ("two_phase", dict(mt_precision="two_phase")),
+                          ("pipe", dict(pipe=True)),
+                          ("flat_walk", dict(flat_walk=True))):
+            k = trace_wide(rc, nodes, blocks, meta, False, **kw)
+            c = trace_wide(rc, nodes, blocks, meta, False, count=True, **kw)
+            print(f"{label}: bit for bit K1 {same_bits(k, k1)}; pops "
+                  f"{int(c[0].sum())} (K1 {int(c1[0].sum())}), MT tests "
+                  f"{int(c[1].sum())} (K1 {int(c1[1].sum())})")
+        (pc, pa) = trace_wide_paired(rc, ra, nodes, blocks, meta)
+        print(f"paired: closest half K1 {same_bits(pc, k1)}, any-hit half "
+              f"K2 {torch.equal(pa, k2[1])}")
+        cnt = trace_wide(rc, nodes, blocks, meta, False, profile="count")
+        print(f"profile=count: t, id K1's "
+              f"{same_bits((cnt[0], cnt[1]), (k1[0], k1[1]))}, u = pops "
+              f"{torch.equal(cnt[2], c1[0].float())}")
+        pair = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                     mt_fn=stream_mt)
+        rec = pair[0](rc[0:3].T.contiguous(), rc[3:6].T.contiguous(), 1e-3,
+                      float("inf"))
+        hit = k1[1] >= 0
+        print(f"ray-stream tracer vs K1: hits {torch.equal(rec.hit, hit)}, "
+              f"t bits {torch.equal(rec.t[hit], k1[0][hit])}, ids "
+              f"{torch.equal(rec.tri[hit], k1[1][hit])}")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,7 +14,12 @@ with mt_precision="high", K4), `two_phase` and `oct_order` =
 headline_compact with mt_precision="two_phase" (K5) or oct_order=True
 (K7), `bistro` = bistro_class_studio (the colonnade at 24x12, 1.08M
 triangles, 960x540, 4 bounces, compact=True with the static plan,
-stream="auto": streamed blocks, K6). `--root` imports platinum_tpu_torch
+stream="auto": streamed blocks, K6), `fuse_shadow`, `spp_batch2` and
+`chunk_shade` = headline_compact with fuse_shadow=True, spp_batch=2 (each
+step renders two samples; times and launches are per spp) or
+chunk_shade=65536, `raystream` = headline_compact traced by the
+breadth-first ray-stream pair (K15) as `tracers=`, stepped through
+integrator.render_step_n. `--root` imports platinum_tpu_torch
 from another checkout, so two versions can be timed in turns within one
 call on one card; a checkout whose port has no scenes module of its own
 takes the colonnade from that checkout's JAX package scenes module (numpy
@@ -46,6 +51,10 @@ CONFIGS = {
     "oct_order": dict(HEADLINE, oct_order=True),
     "bistro": dict(width=960, height=540, max_bounces=4, compact=True,
                    instancing="off", stream="auto"),
+    "fuse_shadow": dict(HEADLINE, fuse_shadow=True),
+    "spp_batch2": dict(HEADLINE, spp_batch=2),
+    "chunk_shade": dict(HEADLINE, chunk_shade=65536),
+    "raystream": HEADLINE,
 }
 SCENES = {"bistro": dict(columns=24, rows=12)}   # make_colonnade_scene's
 
@@ -85,16 +94,33 @@ def main():
     settings = RenderSettings(spp=args.spp, **kw)
     r = Renderer(scene, device="cuda")
     r.start_render(cam, settings)
+    s = r.settings
+    feats = analyze_features(r.flat)
+    batch = max(1, getattr(s, "spp_batch", 1))
+    tracers = None
     steps = []
-    while not r.status & RenderStatus.DONE:
+    if args.config == "raystream":
+        from platinum_tpu_torch.ops.raystream import make_stream_tracer
+
+        f = r.flat
+        tracers = make_stream_tracer(f.wbvh_nodes, f.wbvh_tris, f.wbvh_meta,
+                                     f.wbvh_slot)
+        accum = torch.zeros((s.num_pixels, 3), device="cuda")
+        for i in range(s.spp):
+            t0 = time.perf_counter()
+            accum = integrator.render_step_n(f, s, accum, i, 1,
+                                             features=feats, tracers=tracers)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0) * 1e3)
+    while tracers is None and not r.status & RenderStatus.DONE:
         t0 = time.perf_counter()
         r.render()
         torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0) * 1e3)
-    s = r.settings
-    feats = analyze_features(r.flat)
-    rays = float(integrator.render_sample(r.flat, s, 0, return_stats=True,
-                                          features=feats)[1])
+        steps.append((time.perf_counter() - t0) * 1e3 / batch)
+    stats = dict(return_stats=True, features=feats)
+    if tracers is not None:
+        stats["tracers"] = tracers
+    rays = float(integrator.render_sample(r.flat, s, 0, **stats)[1]) / batch
     out = dict(
         card=subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -109,21 +135,26 @@ def main():
             lambda n, st: [(n, st.max_bounces)])(s.num_pixels, s)])
     out["mrays_per_s"] = rays / out["ms_per_spp"] / 1e3
     if args.profile:
-        out.update(_profile(integrator, r, s, feats))
+        out.update(_profile(integrator, r, s, feats, tracers, batch))
     print(json.dumps(out), flush=True)
 
 
-def _profile(integrator, r, s, feats):
+def _profile(integrator, r, s, feats, tracers, batch):
+    """One render_sample call under torch.profiler; wall time, device
+    time and launches are per sample (the call renders `batch` of them)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    kw = dict(features=feats)
+    if tracers is not None:
+        kw["tracers"] = tracers
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        integrator.render_sample(r.flat, s, 1, features=feats)
+        integrator.render_sample(r.flat, s, batch, **kw)
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        wall = (time.perf_counter() - t0) * 1e3 / batch
     device_us, trace_us, launches = 0.0, {}, 0
     for ev in prof.key_averages():
         if ev.key == "cudaLaunchKernel":
@@ -132,10 +163,12 @@ def _profile(integrator, r, s, feats):
             continue
         dt = ev.self_device_time_total
         device_us += dt
-        if "wide_trace" in ev.key:
-            trace_us[ev.key[:160]] = [dt / 1e3, ev.count]
-    return dict(profiled_wall_ms=wall, device_kernel_ms=device_us / 1e3,
-                device_busy=device_us / 1e3 / wall, kernel_launches=launches,
+        if "wide_trace" in ev.key or "stream_mt" in ev.key:
+            trace_us[ev.key[:160]] = [dt / 1e3 / batch, ev.count / batch]
+    device_ms = device_us / 1e3 / batch
+    return dict(profiled_wall_ms=wall, device_kernel_ms=device_ms,
+                device_busy=device_ms / wall,
+                kernel_launches=launches / batch,
                 trace_kernels_ms_count=trace_us)
 
 
