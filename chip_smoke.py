@@ -5,9 +5,9 @@
 Phases, one printed block each (any failure exits non-zero):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit
-  2. build: compiles both kernel sources (csrc/wide_trace.cu,
-     csrc/stream_mt.cu; one nvcc each, started together) and the native
-     BVH construction library from the checkout
+  2. build: compiles the three kernel sources (csrc/wide_trace.cu,
+     csrc/stream_mt.cu, csrc/bf_stream.cu; one nvcc each, started
+     together) and the native BVH construction library from the checkout
   3. K1/K2 vs plain: the kernel's closest-hit and any-hit modes against
      the plain PyTorch version on the full colonnade (271k triangles), on
      16,384 rays each of a camera wave, a bounce-like wave from surface
@@ -34,11 +34,11 @@ Phases, one printed block each (any failure exits non-zero):
      where the triangles agree (the tier is not fp32)
   3f. K6 (streamed blocks) on bistro_class_studio's tree (the colonnade at
      24x12, 1.08M triangles, flattened with stream="auto") vs plain on
-     16,384-ray subsets of its own 960x540 waves and on the whole
-     518,400-ray bounce and shadow waves, timed and counted, and bit for
-     bit against K1/K2 on all three whole waves of the same tree (K1/K2
-     timed there too); the instanced stream modes
-     on the colonnade flattened with instancing="on", stream="on"
+     16,384-ray subsets of its own 960x540 waves (the plain version takes
+     about a minute a whole wave), timed and counted on the whole
+     518,400-ray waves, and bit for bit against K1/K2 on all three whole
+     waves of the same tree (K1/K2 timed there too); the instanced stream
+     modes on the colonnade flattened with instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
      modes must launch
@@ -91,6 +91,25 @@ Phases, one printed block each (any failure exits non-zero):
      ray-stream tracer against K1/K2 bit for bit on the whole waves; every
      level's pair and leaf-pair counts beside the JAX module's static caps;
      time per wave split into kernel and host glue
+  3k. K10-K14, the breadth-first pipeline (csrc/bf_stream.cu), on the
+     headline's whole camera, bounce and shadow waves (262,144 rays, one
+     segment each): the tracer (closest on camera and bounce, its own
+     any-hit mode on shadow) bit for bit K1/K2; then every level's K10,
+     K11 + K12 (on fresh buffers), K13 and, deepest first, K14 against
+     their plain versions on the recorded inputs, every output in every
+     bit; per level its tiles, nodes, live pairs and MT tiles against the
+     capacities and the pairs lost; per wave the tracer's time, the host
+     syncs torch's sync debug mode counts, the launches, each kernel's
+     time summed over the levels beside its plain version's and its
+     bound, and K14's yardstick (one scatter_reduce "amin" of packed
+     (t, slot) keys per level)
+  4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
+     Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
+     and K2 may launch, the image within RMSE BF_RMSE of 4f's K1 render at
+     the same 2 spp; launches per spp and per kernel
+  3c also times K4 at mt_precision="default" on the bounce wave, with its
+     bound (one bf16 product per block test), and launches it once
+     through make_packet_tracer
   4g. sponza_class_512's settings with the ray-stream pair as `tracers=`,
      2 spp through integrator.render_step_n; only K15 may launch; image
      mean within MEAN_RTOL of 4f's K1 render at the same 2 spp
@@ -205,29 +224,33 @@ def phase_build():
     t_kernels = time.perf_counter() - t0
     check(native_available(), "the native BVH builder did not build")
     counts = {k: _instantiations(v) for k, v in paths.items()}
-    print(f"build: both kernel sources in {t_kernels:.2f} s (one nvcc each, "
+    print(f"build: the kernel sources in {t_kernels:.2f} s (one nvcc each, "
           f"started together), instantiations {counts}; with the native "
           f"BVH library {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.relpath(v) for v in paths.values()]}", flush=True)
 
 
 def _zero_launches():
+    from platinum_tpu_torch.ops import bfstream as bf
     from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.ops import raystream as rs
 
-    for table in (pt.LAUNCHES, rs.LAUNCHES):
+    for table in (pt.LAUNCHES, rs.LAUNCHES, bf.LAUNCHES):
         for mode in table:
             table[mode] = 0
 
 
 def _launches():
-    """Launch counts of both kernel sources; the leaf-pair kernel's modes
-    carry a "stream_mt " prefix."""
+    """Launch counts of the three kernel sources; the leaf-pair kernel's
+    modes carry a "stream_mt " prefix, the breadth-first kernels' a "bf "
+    prefix."""
+    from platinum_tpu_torch.ops import bfstream as bf
     from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.ops import raystream as rs
 
     return {**pt.LAUNCHES,
-            **{f"stream_mt {k}": v for k, v in rs.LAUNCHES.items()}}
+            **{f"stream_mt {k}": v for k, v in rs.LAUNCHES.items()},
+            **{f"bf {k}": v for k, v in bf.LAUNCHES.items()}}
 
 
 def _rays(o, d, tmin, tmax):
@@ -780,7 +803,52 @@ def phase_variants(ctx):
         _jax_bars(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave],
                   hold=wave == "camera")
         _tier_moves_t(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave])
-    return {k: rows[k]["closest"] for k in ("K4", "K5", "K7")}
+    out = {k: rows[k]["closest"] for k in ("K4", "K5", "K7")}
+    out["K4 default"] = _default_tier_row(ctx)
+    return out
+
+
+def _default_tier_row(ctx):
+    """K4 at mt_precision="default" on the bounce wave (3c): timed,
+    counted and bounded (one bf16 product per block test); against its
+    plain version on the 16,384-ray subset, printed and not held (the
+    tier's t errors move hits across node boxes, so its walk and the brute
+    force disagree by design; tests/test_torch_gpu.py holds it on a soup);
+    its launch through make_packet_tracer(mt_precision="default")."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+
+    flat, nodes, b = ctx["flat"], ctx["nodes"], ctx["waves"]["bounce"]
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    mode = dict(mt_precision="default")
+    kms = _time_ms(lambda: pt.trace_wide(b, nodes, blocks, meta, False,
+                                         **mode), 20)
+    counts = pt.trace_wide_counts(b, nodes, blocks, meta, False, **mode)
+    in_bytes = sum(x.numel() * 4 for x in (nodes, blocks, meta))
+    bms, by, flops, nbytes = _bound(counts, b.shape[1], in_bytes, 16,
+                                    "default")
+    sub = b[:, ctx["pts"]["sample"]].contiguous()
+    k = pt.trace_wide(sub, nodes, blocks, meta, False, **mode)
+    p, pms = _synced_ms(lambda: pt.trace_wide_reference(
+        sub, nodes, blocks, meta, False, **mode))
+    same = (k[1] >= 0) & (k[1] == p[1])
+    err = float((k[0][same] - p[0][same]).abs().max())
+    agree = ((k[1] >= 0) == (p[1] >= 0)).float().mean().item()
+    tc, _ = pt.make_packet_tracer(flat.wbvh_nodes, blocks, meta,
+                                  flat.wbvh_slot, **mode)
+    _zero_launches()
+    tc(b[0:3].T, b[3:6].T, RAY_EPS, float("inf"))
+    launches = _launches()["closest+default"]
+    print(f"  K4 default time per {b.shape[1]}-ray wave, bounce closest: "
+          f"kernel {kms:.3f} ms, plain {pms:.1f} ms on the {N_CMP}-ray "
+          f"subset (hit sets agree on {agree:.4%}, max |dt| {err:.3e} where "
+          f"the ids agree, not held); {counts['pops']} pops, "
+          f"{counts['mt_tests']} MT block tests -> {flops / 1e9:.2f} GFLOP, "
+          f"{nbytes / 1e6:.1f} MB, bound {bms:.4f} ms by {by}; "
+          f"make_packet_tracer(mt_precision='default') launched it "
+          f"{launches} time(s)", flush=True)
+    return dict(ms=kms, plain_ms=pms, plain_rays=N_CMP, bound_ms=bms,
+                bound_by=by, max_abs_err=err, launches=launches)
 
 
 def _exact(name, got, ref):
@@ -1150,6 +1218,264 @@ def phase_raystream(ctx):
     return rows
 
 
+BF_ROWS = ("expand", "prefix", "emit", "mt", "bwd")
+
+
+def _bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _bf_work(seg, any_hit, occluded=0):
+    """{kernel: (bytes, fp32 operations)} of one traced segment's
+    launches, summed over its levels, from this run's counts: each input
+    the kernel reads once (the rows of the distinct nodes and blocks it
+    touches, the ray table once per launch), each output written once;
+    16 slab tests per live (ray, node) pair, one 64-triangle block test
+    per live MT pair (an occluded any-hit pair: one group of four, the
+    least its early exit can test)."""
+    st = seg["stat"].tolist()
+    rays_bytes = 32 * seg["take"]
+    work = {k: [0, 0] for k in BF_ROWS}
+    live = seg["take"]
+    mt_live = 0
+    for lvl in range(len(st) - 1):
+        n, nxt = st[lvl][0], st[lvl + 1]
+        nd, n_next = nxt[7], nxt[0]
+        live_next, live_mt = nxt[5], nxt[6]
+        mt_tiles = nxt[1] - st[lvl][1]
+        work["expand"][0] += (n * (4 + 512 + 512 + 64) + nd * 512
+                              + rays_bytes)
+        work["expand"][1] += live * 16 * SLAB_FLOP
+        work["prefix"][0] += (n * (4 + 64 + 4 + 64) + nd * (64 + 64) + 64
+                              + n_next * 4 + mt_tiles * 4
+                              + (n_next * 128 - live_next) * 4
+                              + (mt_tiles * 128 - live_mt) * 4)
+        work["emit"][0] += (n * (512 + 512 + 4 + 64) + nd * 64
+                            + (live_next + live_mt) * 4)
+        work["bwd"][0] += (n * (512 + 4 + 64) + nd * 64
+                           + (live_next + live_mt) * 16 + n * 128 * 16)
+        live = live_next
+        mt_live += live_mt
+    mtr = seg["levels"][-1]
+    n_mt = st[-1][1]
+    blocks_used = int(torch.unique(mtr["mt_units"][:n_mt]).numel())
+    work["mt"][0] = (n_mt * (512 + 4) + blocks_used * 10240 + rays_bytes
+                     + n_mt * 128 * 16)
+    work["mt"][1] = ((mt_live - occluded) * MT_FLOP
+                     + occluded * MT_FLOP // 16)
+    return work
+
+
+def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
+    """Every kernel of one traced wave (one segment) against its plain
+    version on the same inputs, on the card: integer outputs and K13's /
+    K14's results in every bit (the plain versions sum in the kernels'
+    order). Returns ({kernel: kernel ms summed over the wave's levels},
+    {kernel: plain ms}, K14's yardstick ms): each kernel timed over
+    `reps` launches on its recorded inputs, the yardstick being one
+    torch.scatter_reduce("amin") of packed (t, slot) int64 keys per
+    level."""
+    from platinum_tpu_torch.ops import bfstream as bf
+
+    rays, levels = seg["rays"], seg["levels"]
+    dev = rays.device
+    stat = seg["stat"].to(dev)
+    mtr = levels[-1]
+    mt_cap = mtr["mt_units"].shape[0]
+    ms = {k: 0.0 for k in BF_ROWS}
+    plain_ms = {k: 0.0 for k in BF_ROWS}
+
+    def fresh(cap_next):
+        return [torch.full((max(cap_next, 1) * 128,), -2, dtype=torch.int32,
+                           device=dev),
+                torch.full((mt_cap * 128,), -2, dtype=torch.int32,
+                           device=dev),
+                torch.full((mt_cap,), -2, dtype=torch.int32, device=dev),
+                torch.zeros(8, dtype=torch.int32, device=dev)]
+
+    for lvl, lv in enumerate(levels[:-1]):
+        n = int(seg["stat"][lvl, 0])
+        args = (lv["units"], stat[lvl], lv["pairs"], rays, nodes)
+        got = bf.bf_expand(*args)
+        ms["expand"] += _time_ms(lambda: bf.bf_expand(*args), reps)
+        ref, pms = _synced_ms(lambda: bf.bf_expand_plain(*args))
+        plain_ms["expand"] += pms
+        check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, ref)),
+              f"{label} level {lvl}: K10 differs from its plain version")
+        outs = []
+        for prefix, emit, key in ((bf.bf_prefix, bf.bf_emit, "kernel"),
+                                  (bf.bf_prefix_plain, bf.bf_emit_plain,
+                                   "plain")):
+            bufs = fresh(lv["cap_next"])
+            pargs = (lv["units"], stat[lvl], lv["counts"], meta,
+                     lv["cap_next"], mt_cap, *bufs)
+            out, t_p = _synced_ms(lambda: prefix(*pargs))
+            eargs = (lv["pairs"], lv["masks"], stat[lvl], out[0], out[2],
+                     out[1], bufs[0], bufs[1])
+            _, t_e = _synced_ms(lambda: emit(*eargs))
+            if key == "kernel":
+                ms["prefix"] += _time_ms(lambda: prefix(*pargs), reps)
+                ms["emit"] += _time_ms(lambda: emit(*eargs), reps)
+            else:
+                plain_ms["prefix"] += t_p
+                plain_ms["emit"] += t_e
+            outs.append((out, bufs))
+        (ko, kb), (po, pb) = outs
+        nd, nn = int(kb[3][7]), int(kb[3][0])
+        check(torch.equal(ko[0][:n], po[0][:n])
+              and torch.equal(ko[1][:nd * 16], po[1][:nd * 16])
+              and torch.equal(ko[2][:n], po[2][:n])
+              and torch.equal(ko[3][:nn], po[3][:nn])
+              and all(torch.equal(a, b) for a, b in zip(kb, pb))
+              and torch.equal(kb[3], stat[lvl + 1]),
+              f"{label} level {lvl}: K11 / K12 differ from their plain "
+              f"versions")
+    n_mt = int(seg["stat"][-1, 1])
+    margs = (mtr["mt_pairs"], mtr["mt_units"], stat[-1], rays, blocks,
+             any_hit)
+    got = bf.bf_mt(*margs)
+    ms["mt"] = _time_ms(lambda: bf.bf_mt(*margs), reps)
+    ref, plain_ms["mt"] = _synced_ms(lambda: bf.bf_mt_plain(*margs))
+    k = n_mt * 128
+    check(all(_bits(a[:k], b[:k]) for a, b in zip(got, ref)),
+          f"{label}: K13 differs from its plain version")
+    res_k = res_p = None
+    lib_ms = 0.0
+    for lvl in range(len(levels) - 2, -1, -1):
+        lv = levels[lvl]
+        n = int(seg["stat"][lvl, 0])
+        bargs = (lv["masks"], stat[lvl], lv["dn"], lv["uoff"], lv["base"])
+        child = res_k
+        res_k = bf.bf_bwd(*bargs, child, got)
+        ms["bwd"] += _time_ms(lambda: bf.bf_bwd(*bargs, child, got), reps)
+        res_p, pms = _synced_ms(lambda: bf.bf_bwd_plain(*bargs, res_p, ref))
+        plain_ms["bwd"] += pms
+        check(all(_bits(a[:n * 128], b[:n * 128])
+                  for a, b in zip(res_k, res_p)),
+              f"{label} level {lvl}: K14 differs from its plain version")
+        # the yardstick: the same per-pair minimum as one scatter_reduce
+        # of packed (t, slot) keys over the level's (pair, child) edges
+        sel, pos, in_mt = bf._routes(lv["masks"], n, lv["dn"], lv["uoff"],
+                                     lv["base"])
+        src_t = torch.where(in_mt, got[0][torch.where(sel & in_mt, pos, 0)],
+                            child[0][torch.where(sel & ~in_mt, pos, 0)]
+                            if child is not None else got[0][0])
+        src_s = torch.where(in_mt, got[1][torch.where(sel & in_mt, pos, 0)],
+                            child[1][torch.where(sel & ~in_mt, pos, 0)]
+                            if child is not None else got[1][0])
+        keys = ((src_t.view(torch.int32).long() << 32)
+                | (src_s.long() & 0xFFFFFFFF))[sel]
+        lane = torch.arange(n * 128, device=dev).view(n, 1, 128).expand(
+            -1, 16, -1)[sel]
+        out = torch.full((n * 128,), torch.iinfo(torch.int64).max,
+                         dtype=torch.int64, device=dev)
+        lib_ms += _time_ms(lambda: out.scatter_reduce_(0, lane, keys, "amin"),
+                           reps)
+        hit = res_k[1][:n * 128] >= 0
+        check(torch.equal(out[hit] & 0xFFFFFFFF,
+                          res_k[1][:n * 128][hit].long()),
+              f"{label} level {lvl}: the yardstick's minimum is not K14's")
+    return ms, plain_ms, lib_ms
+
+
+def phase_bf(ctx):
+    """3k: K10-K14 and the breadth-first tracer on the headline's whole
+    camera, bounce and shadow waves."""
+    import warnings
+
+    from platinum_tpu_torch.ops import bfstream as bf
+
+    flat, waves = ctx["flat"], ctx["waves"]
+    blocks, meta = flat.wbvh_tris, flat.wbvh_meta
+    nodes = ctx["nodes"]
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+
+    def certify(ray):
+        return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
+
+    print("K10-K14, the breadth-first pipeline, and its tracer (3k):",
+          flush=True)
+    tc, ta = bf.make_bf_tracer(flat.wbvh_nodes, blocks, meta)
+    rows = {}
+    for name, wave, any_hit in JOBS:
+        rays = waves[wave]
+        n = rays.shape[1]
+        o, d = rays[0:3].T.contiguous(), rays[3:6].T.contiguous()
+        trace = ta if any_hit else tc
+        trace(o, d, rays[6], rays[7])                # first use: not timed
+        _zero_launches()
+        (res, segs), wall_ms = _synced_ms(
+            lambda: trace.with_levels(o, d, rays[6], rays[7]))
+        launches = {k: v for k, v in bf.LAUNCHES.items() if v}
+        check(len(segs) == 1, f"{wave}: {len(segs)} segments, expected one")
+        seg = segs[0]
+        got = ((rays[7], torch.where(res, 1, -1)) if any_hit else
+               (res.t, res.tri, res.bary[:, 0], res.bary[:, 1]))
+        _bitwise(f"bf tracer against K1/K2, {wave}", got, ctx["outs"][wave],
+                 rays, certify)
+        st = seg["stat"].tolist()
+        for lvl in range(len(st) - 1):
+            nxt = st[lvl + 1]
+            cap = seg["caps"][lvl]
+            cap_next = seg["caps"][lvl + 1] if lvl + 2 < len(st) else 0
+            print(f"    {wave} level {lvl}: {st[lvl][0]} tiles (cap {cap}) "
+                  f"of {nxt[7]} nodes -> {nxt[0]} tiles with {nxt[5]} live "
+                  f"pairs next (cap {cap_next}), {nxt[1] - st[lvl][1]} MT "
+                  f"tiles with {nxt[6]} live pairs (cursor {nxt[1]} of "
+                  f"{seg['mt_cap']}), {nxt[2]} pairs lost", flush=True)
+        lost = sum(r[2] for r in st[1:])
+        # the host syncs of one traced wave: torch's own count
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("warn")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            trace(o, d, rays[6], rays[7])
+        torch.cuda.set_sync_debug_mode("default")
+        where = [f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+                 if "synchroniz" in str(w.message)]
+        syncs = len(where)
+        wave_ms = _time_ms(lambda: trace(o, d, rays[6], rays[7]), 5)
+        occluded = int(res.sum()) if any_hit else 0
+        ms, plain_ms, lib_ms = _bf_hold_wave(
+            f"3k {wave}", seg, nodes, meta, blocks, any_hit)
+        work = _bf_work(seg, any_hit, occluded)
+        print(f"  bf tracer per {n}-ray wave, {name}: {wave_ms:.3f} ms "
+              f"({wall_ms:.1f} ms with the level records), traced "
+              f"{seg['traces']} time(s), {lost} pairs lost, {syncs} host "
+              f"sync(s) (torch's sync debug mode: {where}); launches "
+              f"{launches}; "
+              f"kernel ms " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
+              + f" (sum {sum(ms.values()):.3f}); plain ms "
+              + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items())
+              + f"; K14's yardstick (scatter_reduce amin) {lib_ms:.3f} ms",
+              flush=True)
+        check(seg["traces"] == 1 or lost == 0, f"{wave}: pairs lost")
+        for k in BF_ROWS:
+            nbytes, flops = work[k]
+            t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
+            print(f"    {k}: {nbytes / 1e6:.2f} MB, {flops / 1e9:.3f} GFLOP "
+                  f"-> bound {max(t_ops, t_bytes) * 1e3:.4f} ms by "
+                  f"{'operations' if t_ops >= t_bytes else 'bytes'}",
+                  flush=True)
+            row = dict(ms=ms[k], plain_ms=plain_ms[k],
+                       bound_ms=max(t_ops, t_bytes) * 1e3,
+                       bound_by="operations" if t_ops >= t_bytes else "bytes",
+                       max_abs_err=0.0,
+                       library_ms=lib_ms if k == "bwd" else None)
+            if wave == "bounce" and k != "mt":
+                rows[k] = row
+            if k == "mt" and wave in ("bounce", "shadow"):
+                rows["mt any" if any_hit else "mt closest"] = row
+        if any_hit:
+            # K13's any-hit mode is on no render path: its launches are the
+            # tracer's own entry's on this wave
+            rows["mt any"]["launches"] = launches["mt any"]
+        # one read of the levels' status per trace, and no other
+        check(syncs <= seg["traces"], f"{wave}: {syncs} host syncs in one "
+                                      f"traced wave: {where}")
+    return rows
+
+
 def phase_stream(scene_small, cam_small, dev, pts_small):
     """3f: K6 on bistro_class_studio's tree, and the instanced stream
     modes on the colonnade."""
@@ -1183,12 +1509,13 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
     def certify(ray):
         return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
 
-    # the plain version takes ~60 s per whole bistro wave: the two waves of
-    # the kernel table are held to it, the camera wave on its subset and,
-    # below, bit for bit to K1
+    # the plain version takes ~60 s per whole bistro wave: every wave is
+    # held to it on its 16,384-ray subset and, below, bit for bit to K1/K2
+    # on the whole wave (K1/K2 keep their whole-wave plain hold on the
+    # headline tree, phase 3)
     rows, outs = _hold_tree("K6", nodes, blocks, meta, waves, pts["sample"],
                             certify, mode=dict(stream=True),
-                            whole_plain=("bounce", "shadow"))
+                            whole_plain=False)
     refs, ref_ms = {}, {}
     for name, wave, any_hit in JOBS:
         def k1():
@@ -1425,8 +1752,9 @@ def phase_exact_options(scene, cam):
     from platinum_tpu_torch.render.types import RenderSettings
 
     out = {}
-    _, _, base = _render_path("headline at 2 spp (K1)", scene, cam,
-                              RenderSettings(spp=2, **HEADLINE))
+    k1, _, base = _render_path("headline at 2 spp (K1)", scene, cam,
+                               RenderSettings(spp=2, **HEADLINE))
+    out["image"] = k1.readback()
     for label, opt, key in (("two_phase", dict(mt_precision="two_phase"),
                              "closest+two_phase"),
                             ("oct_order", dict(oct_order=True),
@@ -1475,6 +1803,43 @@ def phase_raystream_render(scene, cam, base_mean):
           f"(rel {rel:.2e}), plan {settings.compact_plan}, launches {ran}",
           flush=True)
     check(rel <= MEAN_RTOL, "the ray-stream render's mean is off K1's")
+    return launches
+
+
+BF_RMSE = 1e-3    # 4j against the packet render (ROADMAP's image bar)
+
+
+def phase_bf_render(scene, cam, base_img):
+    """4j: sponza_class_512's settings with tracer="bf" at 2 spp: closest
+    waves through K10-K14, any-hit waves through K2; held to the packet
+    render of 4f at the same 2 spp by RMSE."""
+    from platinum_tpu_torch.ops import bfstream as bf
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    settings = RenderSettings(spp=2, **dict(HEADLINE, tracer="bf"))
+    renderer, launches, mean = _render_path(
+        "headline with tracer='bf' (4j)", scene, cam, settings)
+    depth = bf._tree_depth(renderer.flat.wbvh_meta.cpu().numpy())
+    check(renderer.settings.bf_depth == depth,
+          f"the Renderer set bf_depth={renderer.settings.bf_depth}, the "
+          f"tree's depth is {depth}")
+    allowed = ("bf expand", "bf prefix", "bf emit", "bf bwd",
+               "bf mt closest", "any")
+    _only("the bf headline", launches, allowed)
+    img = renderer.readback()
+    rmse = float(np.sqrt(np.mean((img - base_img) ** 2)))
+    spp = renderer.settings.spp
+    per_spp = {k: (launches[k] - renderer.probe_launches[k]) / spp
+               for k in allowed}
+    print(f"  tracer='bf': RMSE {rmse:.3e} against 4f's K1 render at the "
+          f"same 2 spp (largest per-pixel difference "
+          f"{float(np.abs(img - base_img).max()):.3e}); trace launches per "
+          f"spp {per_spp} (the auto plan's probe apart: "
+          f"{ {k: renderer.probe_launches[k] for k in allowed} }); depth "
+          f"{depth}, so {depth + 1} launches of K10, K11, K12, K14 and one "
+          f"of K13 per closest wave; bf.LAUNCHES {dict(bf.LAUNCHES)}",
+          flush=True)
+    check(rmse <= BF_RMSE, f"the bf render is {rmse:.3e} RMSE off K1's")
     return launches
 
 
@@ -1731,6 +2096,8 @@ def main():
     lap("3g-3i K8, K9, ablation")
     k15 = phase_raystream(ctx)
     lap("3j K15")
+    kbf = phase_bf(ctx)
+    lap("3k K10-K14")
     k6 = phase_stream(scene, cam, dev, ctx["pts"])
     lap("3f K6 and the bistro tree")
     del ctx
@@ -1748,6 +2115,8 @@ def main():
     stream_launches = phase_raystream_render(scene, cam, base_mean)
     pipe_launches = phase_pipe_render(scene, cam, base_mean)
     lap("4d-4g, 4i renders")
+    bf_launches = phase_bf_render(scene, cam, exact_launches.pop("image"))
+    lap("4j bf render")
     phase_end_to_end(scene, cam, dev)
     lap("5-5d end to end")
 
@@ -1763,6 +2132,9 @@ def main():
               k3["any"], inst_launches["inst_any"]),
              ("wide_trace closest mt_precision=high (K4)", f"{pallas}:187",
               k457["K4"], knob_launches["closest+high"]),
+             ("wide_trace closest mt_precision=default (K4)",
+              f"{pallas}:187", k457["K4 default"],
+              k457["K4 default"]["launches"]),
              ("wide_trace closest mt_precision=two_phase (K5)",
               f"{pallas}:416", k457["K5"],
               exact_launches["two_phase"]["closest+two_phase"]),
@@ -1788,14 +2160,28 @@ def main():
                prof[mode], prof[mode]["launches"])
               for mode, line in (("empty", 740), ("nomt", 352),
                                  ("fix64", 519), ("count", 788))]
-    kernels = [dict(name=name, route="cuda", source=src, replaces=replaces,
-                    launches=launches, max_abs_err=row["max_abs_err"],
-                    ms=row["ms"], plain_ms=row["plain_ms"],
-                    bound_ms=row["bound_ms"], bound_by=row["bound_by"],
-                    library_ms=None,
+    bfj = "platinum_tpu/ops/bfstream.py"
+    bf_src = "platinum_tpu_torch/csrc/bf_stream.cu"
+    table = [(name, src, replaces, row, launches)
+             for name, replaces, row, launches in table]
+    for key, name, line in (("expand", "bf_expand (K10)", 215),
+                            ("prefix", "bf_prefix (K11)", 385),
+                            ("emit", "bf_emit (K12)", 548),
+                            ("mt closest", "bf_mt closest (K13)", 706),
+                            ("mt any", "bf_mt any-hit (K13)", 706),
+                            ("bwd", "bf_bwd (K14)", 850)):
+        row = kbf[key]
+        table.append((name, bf_src, f"{bfj}:{line}", row,
+                      row.get("launches", bf_launches[f"bf {key}"])))
+    kernels = [dict(name=name, route="cuda", source=source,
+                    replaces=replaces, launches=launches,
+                    max_abs_err=row["max_abs_err"], ms=row["ms"],
+                    plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+                    bound_by=row["bound_by"],
+                    library_ms=row.get("library_ms"),
                     **({"plain_rays": row["plain_rays"]}
                        if "plain_rays" in row else {}))
-               for name, replaces, row, launches in table]
+               for name, source, replaces, row, launches in table]
     stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"
     for kind, mode in (("closest", "closest"), ("any", "any-hit")):
         row = k15[kind]

@@ -1,12 +1,15 @@
 // Moller-Trumbore test of one ray against one 64-triangle coefficient
 // block, at every precision tier: the code both traversal kernels share.
 //
-// Included by wide_trace.cu (the depth-first packet-tracer port, K1-K9) and
+// Included by wide_trace.cu (the depth-first packet-tracer port, K1-K9),
 // stream_mt.cu (the leaf-pair kernel of the breadth-first ray-stream
-// tracer, K15), so that a (ray, triangle) pair gets the same t, to the
-// bit, from either: the ray features are formed by `ray_features` with its
+// tracer, K15) and bf_stream.cu (the MT kernel of the breadth-first
+// pipeline, K13), so that a (ray, triangle) pair gets the same t, to the
+// bit, from each: the ray features are formed by `ray_features` with its
 // products and FMAs spelled out, and the dots, accept tests and divisions
-// below are one piece of code.
+// below are one piece of code. `kShared` reads the block from shared
+// memory (K13 stages it there once per tile) instead of through the
+// read-only cache; the arithmetic is the same.
 //
 // Layout (platinum_tpu/accel/wide.py): a block is (10, 256) f32, columns
 // [det x64 | u*det x64 | v*det x64 | t*det x64] of 64 triangles, rows the
@@ -67,8 +70,17 @@ __device__ __forceinline__ void split_features(const float* f, float* fh,
   }
 }
 
+// Four coefficients of a block: through the read-only cache from device
+// memory, or from shared memory (kShared)
+template <bool kShared>
+__device__ __forceinline__ float4 load_coef(const float* p) {
+  if constexpr (kShared) return *reinterpret_cast<const float4*>(p);
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
 // One 64-triangle block's four MT outputs for triangles s0..s0+3, as
 // 10-term fp32 dots of the coefficient rows with the features f.
+template <bool kShared = false>
 __device__ __forceinline__ void block_dots(const float* __restrict__ blk,
                                            const float* f, int s0,
                                            float4 a[4]) {
@@ -79,8 +91,8 @@ __device__ __forceinline__ void block_dots(const float* __restrict__ blk,
     const float fk = f[k];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float4 c = __ldg(reinterpret_cast<const float4*>(
-          blk + k * 256 + q * kBlockTris + s0));
+      const float4 c =
+          load_coef<kShared>(blk + k * 256 + q * kBlockTris + s0);
       a[q].x += c.x * fk; a[q].y += c.y * fk;
       a[q].z += c.z * fk; a[q].w += c.w * fk;
     }
@@ -93,7 +105,7 @@ __device__ __forceinline__ void block_dots(const float* __restrict__ blk,
 // three accumulators and add them in that order; kDefault forms h*h alone.
 // kTwoPhase also returns the magnitude dots mag = |h|*|h| (the 1-pass bf16
 // product of |blk| and |feat|, bf16 rounding being symmetric).
-template <int kPrec>
+template <int kPrec, bool kShared = false>
 __device__ __forceinline__ void block_dots_split(
     const float* __restrict__ blk, const float* fh, const float* fl, int s0,
     float out[16], float mag[16]) {
@@ -109,8 +121,8 @@ __device__ __forceinline__ void block_dots_split(
     const float flk = kPrec == kDefault ? 0.f : fl[k];
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const float4 c = __ldg(reinterpret_cast<const float4*>(
-          blk + k * 256 + q * kBlockTris + s0));
+      const float4 c =
+          load_coef<kShared>(blk + k * 256 + q * kBlockTris + s0);
       const float cv[4] = {c.x, c.y, c.z, c.w};
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
@@ -133,21 +145,21 @@ __device__ __forceinline__ void block_dots_split(
 
 // The four outputs det, u*det, v*det, t*det of triangles s0..s0+3 at tier
 // kPrec (highest, high or default).
-template <int kPrec>
+template <int kPrec, bool kShared = false>
 __device__ __forceinline__ void block_outputs(
     const float* __restrict__ blk, const float* f, const float* fh,
     const float* fl, int s0, float det[4], float ud[4], float vd[4],
     float td[4]) {
   if (kPrec == kHighest) {
     float4 a[4];
-    block_dots(blk, f, s0, a);
+    block_dots<kShared>(blk, f, s0, a);
     det[0] = a[0].x; det[1] = a[0].y; det[2] = a[0].z; det[3] = a[0].w;
     ud[0] = a[1].x; ud[1] = a[1].y; ud[2] = a[1].z; ud[3] = a[1].w;
     vd[0] = a[2].x; vd[1] = a[2].y; vd[2] = a[2].z; vd[3] = a[2].w;
     td[0] = a[3].x; td[1] = a[3].y; td[2] = a[3].z; td[3] = a[3].w;
   } else {
     float out[16], mag[16];
-    block_dots_split<kPrec>(blk, fh, fl, s0, out, mag);
+    block_dots_split<kPrec, kShared>(blk, fh, fl, s0, out, mag);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       det[j] = out[j]; ud[j] = out[4 + j];
@@ -159,14 +171,14 @@ __device__ __forceinline__ void block_outputs(
 // Any hit in one block: the division-free accept test. The packet kernel
 // asks it at fp32 under every tier (pallas_trace.py:390); the leaf-pair
 // kernel at its own tier (raystream.py:156).
-template <int kPrec>
+template <int kPrec, bool kShared = false>
 __device__ __forceinline__ bool block_any(const float* __restrict__ blk,
                                           const float* f, const float* fh,
                                           const float* fl, float tmin,
                                           float tmax) {
   for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
     float det[4], ud[4], vd[4], td[4];
-    block_outputs<kPrec>(blk, f, fh, fl, s0, det, ud, vd, td);
+    block_outputs<kPrec, kShared>(blk, f, fh, fl, s0, det, ud, vd, td);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float s = det[j] >= 0.f ? 1.f : -1.f;
@@ -183,7 +195,7 @@ __device__ __forceinline__ bool block_any(const float* __restrict__ blk,
 // Closest hit in one block at tier kPrec (highest, high or default),
 // folded into the running best (strict <). Returns true when it replaced
 // the best.
-template <int kPrec>
+template <int kPrec, bool kShared = false>
 __device__ __forceinline__ bool block_closest(
     const float* __restrict__ blk, int block, const float* f,
     const float* fh, const float* fl, float tmin, float& best, int& sid,
@@ -194,7 +206,7 @@ __device__ __forceinline__ bool block_closest(
   float sel_us = 0.f, sel_vs = 0.f, sel_ad = 0.f;
   for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
     float det[4], ud[4], vd[4], td[4];
-    block_outputs<kPrec>(blk, f, fh, fl, s0, det, ud, vd, td);
+    block_outputs<kPrec, kShared>(blk, f, fh, fl, s0, det, ud, vd, td);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const float s = det[j] >= 0.f ? 1.f : -1.f;

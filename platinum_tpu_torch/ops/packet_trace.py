@@ -173,7 +173,7 @@ def build_kernel(name: str = "wide_trace") -> str:
     return out
 
 
-def build_kernels(names=("wide_trace", "stream_mt")) -> dict:
+def build_kernels(names=("wide_trace", "stream_mt", "bf_stream")) -> dict:
     """Build several kernel sources at once, one nvcc each, all started
     together; {name: library path}. Raises if any build fails."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:

@@ -28,11 +28,16 @@ Python loop here, where the JAX package runs a `while_loop`).
 `spp_batch = B` traces B samples of every pixel in one wavefront and
 returns their per-pixel sum.
 
+`tracer="bf"` traces closest-hit waves with the breadth-first tracer of
+ops/bfstream.py (K10-K14) and any-hit waves with the packet kernel (K2),
+as the JAX make_tracers does; a scene without a wide BVH falls through to
+the brute tracer there too.
+
 Not ported yet, each raising NotImplementedError until its own change:
-the breadth-first and binary-BVH tracers (`tracer="bf"/"bvh"`; the
-ray-stream tracer of ops/raystream.py is reached through `tracers=`, as
-in the JAX package), alpha-tested materials, textures, the Z-sampler and
-partitioned structures.
+the binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
+ops/raystream.py is reached through `tracers=`, as in the JAX package),
+alpha-tested materials, textures, the Z-sampler and partitioned
+structures.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
                      features: frozenset):
     """Refuse, by name, every option whose path is not ported yet."""
     todo = []
-    if settings.tracer in ("bf", "bvh"):
-        todo.append(f"tracer={settings.tracer!r}")
+    if settings.tracer == "bvh":
+        todo.append("tracer='bvh'")
     if "alpha" in features:
         todo.append("alpha-tested (cutout) materials")
     if flat.atlas is not None:
@@ -76,13 +81,31 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
 def make_tracers(flat: FlatScene, settings: RenderSettings):
     """(trace_closest, trace_any) for the scene: the wide-BVH packet
     tracer for "packet"/"auto" when the scene has one (with the octant
-    order, streamed blocks and MT tier of JAX integrator.py:92-101), else
-    brute force. The packet kernel's options raise where they cannot be
-    honoured: an unknown tier, two_phase over streamed blocks, oct_order
-    without octant orders, and a tier or order asked of the brute
-    tracer."""
+    order, streamed blocks and MT tier of JAX integrator.py:92-101); for
+    "bf" the breadth-first tracer's closest hit at the tier beside the
+    packet tracer's any hit (JAX integrator.py:66-85: two_phase maps to
+    "highest" there, and the breadth-first tracer refuses it); else brute
+    force. Options raise where they cannot be honoured: an unknown tier,
+    two_phase over streamed blocks or with "bf", oct_order without octant
+    orders, "bf" over an instanced or partitioned scene, and a tier or
+    order asked of the brute tracer."""
     from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
 
+    if settings.tracer == "bf" and flat.wbvh_nodes is not None:
+        from platinum_tpu_torch.ops.bfstream import make_bf_tracer
+
+        if flat.instances is not None or flat.wbvh_parts is not None:
+            raise ValueError("tracer='bf' requires a plain resident tree: "
+                             "instancing='off', no partitioning")
+        bf_c, _ = make_bf_tracer(
+            flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+            mt_precision=settings.mt_precision,
+            depth=settings.bf_depth or None)
+        _, pk_a = make_packet_tracer(
+            flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+            mt_precision=("highest" if settings.mt_precision == "two_phase"
+                          else settings.mt_precision))
+        return bf_c, pk_a
     if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
         if settings.oct_order and flat.wbvh_order is None:
             raise ValueError("oct_order=True needs the scene's octant "
@@ -103,9 +126,9 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
             "instanced FlatScene requires the packet tracer "
             "(settings.tracer='packet'/'auto'); rebuild with "
             "instancing='off' for the brute tracer")
-    if settings.tracer in ("bf", "bvh"):
+    if settings.tracer == "bvh":
         raise NotImplementedError(
-            f"tracer={settings.tracer!r} is not ported yet (ROADMAP queue 2)")
+            "tracer='bvh' is not ported yet (ROADMAP queue 1, item 11)")
     return make_brute_tracer(flat.geometry)
 
 

@@ -61,6 +61,14 @@ class Renderer:
                                   device=self.device,
                                   host_accel_out=self._host_accel)
         self._features = analyze_features(self.flat)
+        if self.settings.tracer == "bf" and self.flat.wbvh_meta is not None:
+            # the tree's depth once, here, as the JAX Renderer does
+            # (renderer.py:78-85); make_tracers hands it to the tracer
+            from platinum_tpu_torch.ops.bfstream import _tree_depth
+
+            self.settings = dataclasses.replace(
+                self.settings,
+                bf_depth=_tree_depth(self.flat.wbvh_meta.cpu().numpy()))
         if self.settings.compact_plan == "auto":
             self.settings = autoplan.resolve_auto_plan(self.flat,
                                                        self.settings)

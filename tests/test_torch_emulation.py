@@ -8,9 +8,12 @@ is held here: every mode of wide_trace.cu that computes K1's function
 and without the flat push, the paired launch) gives K1's / K2's results
 bit for bit, on one tree level and on the instanced tree; K1, K2 and the
 reduced tiers agree with their plain versions under the bars of
-tests/test_torch_gpu.py; the ablation modes do what they must; and the
+tests/test_torch_gpu.py; the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
-the bit. Skips where there is no g++.
+the bit; and the five kernels of bf_stream.cu (with their block scans,
+warp ballots and barriers, run as cooperating threads) give the plain
+versions' tables and results in every bit and the breadth-first tracer
+K1's. Skips where there is no g++.
 """
 
 import os
@@ -25,6 +28,7 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
 
 import torch_emulate_kernels as emu  # noqa: E402
+from platinum_tpu_torch.ops import bfstream as bf  # noqa: E402
 from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
 
@@ -315,6 +319,136 @@ def test_emulated_stream_tracer_is_the_packet_tracer_bit_for_bit(
                          (k1[0][hit], k1[1][hit], k1[2][hit], k1[3][hit]))
     if tier == "highest":
         assert torch.equal(occ, k2[1] > 0)
+
+
+def _bf_levels(steps, soup, tier, any_hit, rays, **kw):
+    nodes, blocks, meta, _ = soup
+    pair = bf.make_bf_tracer(nodes.reshape(-1, 128), blocks, meta,
+                             mt_precision=tier, seg_rays=1024, steps=steps,
+                             **kw)
+    return pair[int(any_hit)].with_levels(rays[0:3].T, rays[3:6].T, 1e-3,
+                                          rays[7])
+
+
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_emulated_bf_kernels_are_the_plain_versions(emulation, soup, tier,
+                                                    any_hit):
+    """Every level's status row, masks, counts, distinct nodes, offsets,
+    regions, unit tables and pair lanes, the MT list and K13's results,
+    and the traced result, in every bit."""
+    rays = RA if any_hit else RC
+    before = dict(bf.LAUNCHES)
+    with emulation:
+        res, segs = _bf_levels(emu.BF_STEPS, soup, tier, any_hit, rays)
+    assert bf.LAUNCHES == before
+    ref, refs = _bf_levels(None, soup, tier, any_hit, rays)
+    assert len(segs) == len(refs) == 2
+    for sk, sp in zip(segs, refs):
+        assert torch.equal(sk["stat"], sp["stat"])
+        for lvl, (a, b) in enumerate(zip(sk["levels"][:-1],
+                                         sp["levels"][:-1])):
+            n = int(sk["stat"][lvl, bf.NEXT])
+            nd = int(sk["stat"][lvl + 1, bf.DISTINCT])
+            for key in ("units", "pairs", "masks", "counts", "dn", "uoff"):
+                assert torch.equal(a[key][:n], b[key][:n]), (lvl, key)
+            assert torch.equal(a["base"][:nd * 16], b["base"][:nd * 16])
+        a, b = sk["levels"][-1], sp["levels"][-1]
+        k = int(sk["stat"][-1, bf.MT_CUR])
+        assert k > 0
+        assert torch.equal(a["mt_units"][:k], b["mt_units"][:k])
+        assert torch.equal(a["mt_pairs"][:k * 128], b["mt_pairs"][:k * 128])
+        assert emu.same_bits([x[:k * 128] for x in a["mt"]],
+                             [x[:k * 128] for x in b["mt"]])
+    if any_hit:
+        assert torch.equal(res, ref) and res.sum() > 50
+    else:
+        assert emu.same_bits((res.t, res.tri, res.bary),
+                             (ref.t, ref.tri, ref.bary))
+
+
+@pytest.mark.parametrize("tier", ["highest", "high"])
+def test_emulated_bf_tracer_is_the_packet_tracer_bit_for_bit(emulation, soup,
+                                                             tier):
+    """K13 includes csrc/mt_block.cuh as K1 does: the breadth-first
+    tracer's hit set, t, ids and barycentrics are K1's in every bit; its
+    any hit at "highest" is K2's."""
+    nodes, blocks, meta, _ = soup
+    with emulation:
+        rec, _ = _bf_levels(emu.BF_STEPS, soup, tier, False, RC)
+        occ, _ = _bf_levels(emu.BF_STEPS, soup, "highest", True, RA)
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+        k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
+    hit = k1[1] >= 0
+    assert torch.equal(rec.hit, hit) and hit.sum() > 100
+    assert emu.same_bits((rec.t[hit], rec.tri[hit], rec.bary[hit, 0],
+                          rec.bary[hit, 1]),
+                         (k1[0][hit], k1[1][hit], k1[2][hit], k1[3][hit]))
+    assert torch.equal(occ, k2[1] > 0)
+
+
+def test_emulated_bf_tracer_retraces_an_overflow(emulation, soup,
+                                                 monkeypatch):
+    """With the capacities forced small the emulated kernels report the
+    lost pairs and what each level needs, and the traces again give the
+    unshrunk result."""
+    ref, _ = _bf_levels(None, soup, "highest", False, RC)
+    monkeypatch.setattr(bf, "PAIR_CAP_MULT", (1.0,) * 10)
+    monkeypatch.setattr(bf, "CAP_SLACK_TILES", 0)
+    with emulation:
+        rec, segs = _bf_levels(emu.BF_STEPS, soup, "highest", False, RC)
+    assert all(s["traces"] > 1 for s in segs)
+    assert emu.same_bits((rec.t, rec.tri), (ref.t, ref.tri))
+
+
+BROKEN = r"""
+#include <cuda_runtime.h>
+namespace {
+__global__ void early_exit(int* out) {
+  if (threadIdx.x < 16) return;     // these threads never reach the barrier
+  __syncthreads();
+  out[threadIdx.x] = 1;
+}
+__global__ void half_ballot(int* out) {
+  if (threadIdx.x & 1) out[threadIdx.x] = __ballot_sync(0xffffffffu, 1);
+}
+__global__ void scan(int* out) {
+  int x = threadIdx.x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if ((int)(threadIdx.x & 31) >= o) x += y;
+  }
+  __syncthreads();
+  out[threadIdx.x] = x + (int)__ballot_sync(0xffffffffu, threadIdx.x < 40);
+}
+}  // namespace
+extern "C" int run(int which, int* out) {
+  if (which == 0) early_exit<<<1, 64, 0, nullptr>>>(out);
+  if (which == 1) half_ballot<<<1, 64, 0, nullptr>>>(out);
+  if (which == 2) scan<<<2, 64, 0, nullptr>>>(out);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_emulated_collectives_and_barrier_faults(emulation, tmp_path):
+    """The cooperative scheduler computes warp shuffles and ballots for
+    every lane, and a launch whose threads leave a barrier or a warp
+    collective to part of the block reports an error, as the card would
+    misbehave."""
+    import ctypes
+
+    emu._write_headers(str(tmp_path))
+    lib = ctypes.CDLL(emu.compile_source("broken", BROKEN, str(tmp_path)))
+    lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = torch.zeros(64, dtype=torch.int32)
+    assert lib.run(0, out.data_ptr()) != 0
+    assert lib.run(1, out.data_ptr()) != 0
+    assert lib.run(2, out.data_ptr()) == 0
+    lane = torch.arange(64) % 32
+    ballot = torch.tensor([-1, 0xFF], dtype=torch.int64).repeat_interleave(32)
+    expect = (torch.arange(64) - lane) * (lane + 1) + lane * (lane + 1) // 2
+    assert torch.equal(out.long(), (expect + ballot).to(torch.int32).long())
 
 
 def test_host_source_rewrites_every_launch():

@@ -4,7 +4,9 @@ order (K7) against their plain PyTorch versions and, for the modes that
 compute K1's function, against K1 bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the leaf-pair
 kernel (K15) against its plain version and the ray-stream tracer against
-K1/K2 bit for bit; the wrappers' input checks
+K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
+against their plain versions level by level and its tracer against K1/K2
+bit for bit, with its capacities forced small; the wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
@@ -16,6 +18,7 @@ import torch
 
 from platinum_tpu_torch.accel.bvh import build_bvh
 from platinum_tpu_torch.accel.wide import build_octant_orders, build_wide_bvh
+from platinum_tpu_torch.ops import bfstream as bf
 from platinum_tpu_torch.ops import packet_trace as pt
 from platinum_tpu_torch.ops import raystream as rs
 from platinum_tpu_torch.ops import threefry
@@ -510,6 +513,147 @@ def test_stream_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
                      torch.zeros(4, dtype=torch.int64, device=nodes.device),
                      torch.zeros(4, dtype=torch.int32, device=nodes.device),
                      blocks, False)
+
+
+def _bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _hold_bf_segment(seg, nodes, meta, blocks, any_hit, tier):
+    """Every kernel of one traced segment against its plain version on
+    the same inputs, on the card: all integer outputs, and K13's and
+    K14's results, in every bit (the plain versions sum in the kernels'
+    order). Each wrapper call launches and counts once."""
+    rays, stat, levels = seg["rays"], seg["stat"].cuda(), seg["levels"]
+    mtr = levels[-1]
+    mt_cap = mtr["mt_units"].shape[0]
+    dev = rays.device
+    for lvl, lv in enumerate(levels[:-1]):
+        n = int(stat[lvl, bf.NEXT])
+        args = (lv["units"], stat[lvl], lv["pairs"], rays, nodes)
+        before = bf.LAUNCHES["expand"]
+        got = bf.bf_expand(*args)
+        assert bf.LAUNCHES["expand"] == before + 1
+        ref = bf.bf_expand_plain(*args)
+        assert all(torch.equal(a[:n], b[:n]) for a, b in zip(got, ref))
+        outs = []
+        for prefix, emit in ((bf.bf_prefix, bf.bf_emit),
+                             (bf.bf_prefix_plain, bf.bf_emit_plain)):
+            bufs = [torch.full((max(lv["cap_next"], 1) * 128,), -2,
+                               dtype=torch.int32, device=dev),
+                    torch.full((mt_cap * 128,), -2, dtype=torch.int32,
+                               device=dev),
+                    torch.full((mt_cap,), -2, dtype=torch.int32, device=dev),
+                    torch.zeros(8, dtype=torch.int32, device=dev)]
+            dn, base, uoff, units_next = prefix(
+                lv["units"], stat[lvl], lv["counts"], meta, lv["cap_next"],
+                mt_cap, bufs[0], bufs[1], bufs[2], bufs[3])
+            emit(lv["pairs"], lv["masks"], stat[lvl], dn, uoff, base,
+                 bufs[0], bufs[1])
+            outs.append((dn[:n], uoff[:n], units_next, base, bufs))
+        (dk, uk, nk, bk, fk), (dp, up, np_, bp, fp) = outs
+        nd, nn = int(fk[3][bf.DISTINCT]), int(fk[3][bf.NEXT])
+        assert torch.equal(dk, dp) and torch.equal(uk, up)
+        assert torch.equal(bk[:nd * 16], bp[:nd * 16])
+        assert torch.equal(nk[:nn], np_[:nn])
+        assert all(torch.equal(a, b) for a, b in zip(fk, fp))
+        assert torch.equal(fk[3], stat[lvl + 1])
+    n_mt = int(stat[-1, bf.MT_CUR])
+    args = (mtr["mt_pairs"], mtr["mt_units"], stat[-1], rays, blocks,
+            any_hit, tier)
+    got, ref = bf.bf_mt(*args), bf.bf_mt_plain(*args)
+    k = n_mt * 128
+    assert all(_bits(a[:k], b[:k]) for a, b in zip(got, ref))
+    res_k = res_p = None
+    for lvl in range(len(levels) - 2, -1, -1):
+        lv = levels[lvl]
+        n = int(stat[lvl, bf.NEXT]) * 128
+        a = (lv["masks"], stat[lvl], lv["dn"], lv["uoff"], lv["base"])
+        res_k = bf.bf_bwd(*a, res_k, got)
+        res_p = bf.bf_bwd_plain(*a, res_p, ref)
+        assert all(_bits(x[:n], y[:n]) for x, y in zip(res_k, res_p))
+    return n_mt
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_bf_kernels_match_plain_versions(soup_on_card, tier):
+    """K10-K14 on every level of a 4,096-ray wave in two segments,
+    closest and any hit, against their plain versions on the same
+    inputs, bit for bit."""
+    nodes, blocks, meta, _ = soup_on_card
+    tc, ta = bf.make_bf_tracer(nodes.reshape(-1, 128), blocks, meta,
+                               mt_precision=tier, seg_rays=2048)
+    for trace, tmax in ((tc, float("inf")), (ta, 8.0)):
+        rays = _rays(4096, tmax, nodes.device)
+        _, segs = trace.with_levels(rays[0:3].T, rays[3:6].T, TMIN, tmax)
+        assert len(segs) == 2
+        for seg in segs:
+            assert _hold_bf_segment(seg, nodes, meta, blocks, trace is ta,
+                                    tier) > 0
+
+
+def test_bf_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
+    """The breadth-first tracer on the card against the packet tracer:
+    hit set, t, ids and barycentrics bit for bit (the soup has no exact-t
+    ties across blocks), its own any-hit mode equal to K2; the kernels of
+    a wave are launched depth + 1 times each and K13 once."""
+    nodes, blocks, meta, _ = soup_on_card
+    wn = nodes.reshape(-1, 128)
+    tc, ta = bf.make_bf_tracer(wn, blocks, meta)
+    pc, pa = pt.make_packet_tracer(wn, blocks, meta)
+    rays = _rays(4096, np.inf, nodes.device)
+    o, d = rays[0:3].T, rays[3:6].T
+    before = dict(bf.LAUNCHES)
+    rec, segs = tc.with_levels(o, d, TMIN, float("inf"))
+    levels = segs[0]["stat"].shape[0] - 1
+    ran = {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]}
+    assert ran == {"expand": levels, "prefix": levels, "emit": levels,
+                   "bwd": levels, "mt closest": 1}
+    ref = pc(o, d, TMIN, float("inf"))
+    assert torch.equal(rec.hit, ref.hit) and ref.hit.sum() > 100
+    assert _bits(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)
+    assert _bits(rec.bary, ref.bary)
+    assert torch.equal(ta(o, d, TMIN, 8.0), pa(o, d, TMIN, 8.0))
+    act = torch.arange(4096, device=nodes.device) % 3 != 0
+    occ = ta(o, d, TMIN, 8.0, active=act)
+    assert torch.equal(occ, pa(o, d, TMIN, 8.0, active=act))
+    assert not occ[~act].any()
+
+
+def test_bf_overflow_retraces_on_the_card(soup_on_card, monkeypatch):
+    """With the capacities forced small every segment is traced again
+    with what its levels reported they need; nothing is lost."""
+    nodes, blocks, meta, _ = soup_on_card
+    wn = nodes.reshape(-1, 128)
+    rays = _rays(4096, np.inf, nodes.device)
+    o, d = rays[0:3].T, rays[3:6].T
+    ref = bf.make_bf_tracer(wn, blocks, meta)[0](o, d, TMIN, float("inf"))
+    monkeypatch.setattr(bf, "PAIR_CAP_MULT", (1.0,) * 10)
+    monkeypatch.setattr(bf, "CAP_SLACK_TILES", 0)
+    monkeypatch.setattr(bf, "MT_CAP_MULT", 0.0)
+    monkeypatch.setattr(bf, "MT_WIN", 1)
+    tc, _ = bf.make_bf_tracer(wn, blocks, meta, seg_rays=1024)
+    rec, segs = tc.with_levels(o, d, TMIN, float("inf"))
+    assert all(s["traces"] > 1 for s in segs)
+    assert all(int(s["stat"][1:, bf.LOST].sum()) == 0 for s in segs)
+    assert _bits(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)
+    assert tc.with_overflow(o, d, TMIN, float("inf"))[1] == 0
+
+
+def test_bf_wrappers_refuse_bad_inputs(soup_on_card):
+    nodes, blocks, meta, _ = soup_on_card
+    dev = nodes.device
+    units = torch.zeros(2, dtype=torch.int32, device=dev)
+    level = torch.tensor([2, 0, 0, 0, 0, 0, 0, 0], dtype=torch.int32,
+                         device=dev)
+    pairs = torch.arange(256, dtype=torch.int32, device=dev).view(2, 128)
+    rays = _rays(256, np.inf, dev)
+    with pytest.raises(TypeError):
+        bf.bf_expand(units.long(), level, pairs, rays, nodes)
+    with pytest.raises(ValueError):
+        bf.bf_expand(units, level, pairs.view(4, 64), rays, nodes)
+    with pytest.raises(ValueError):
+        bf.bf_expand(units, level.cpu(), pairs, rays, nodes)
 
 
 def test_threefry_on_card_matches_cpu():

@@ -145,7 +145,7 @@ def test_renderer_api_matches_jax_renderer(tmp_path):
 
 
 @pytest.mark.parametrize("override", [
-    dict(tracer="bvh"), dict(tracer="bf"), dict(sampler="z")])
+    dict(tracer="bvh"), dict(sampler="z")])
 def test_unported_options_raise(override):
     scene, cam = make_cornell_scene()
     settings = RenderSettings(width=8, height=8, spp=1, max_bounces=2,

@@ -9,9 +9,13 @@ instantiation shows only on the card. This tool compiles
 platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
 headers (the qualifiers as empty macros, `float4`, `dim3`, `__ldg`,
 `__int_as_float`, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
-thread-local `blockIdx` / `threadIdx`), with the L2 prefetch `asm`
-removed and every `<<<grid, block>>>` launch rewritten into a loop over
-blocks and threads, and binds the result with the wrappers' own ctypes
+thread-local `blockIdx` / `threadIdx`, `__shared__` as a static), with
+the L2 prefetch `asm` removed and every `<<<grid, block>>>` launch
+rewritten into a call of `emu_launch`, which runs the blocks one after
+another and the threads of a block as coroutines (ucontext), so that
+`__syncthreads`, `__ballot_sync` and `__shfl_up_sync` act as on the card
+(a barrier only part of the block reaches makes the launch report an
+error), and binds the result with the wrappers' own ctypes
 declarations. g++ gets `-ffp-contract=fast -march=native`, so products
 and sums contract to FMAs as nvcc contracts them where the host has FMA
 instructions. It says nothing about registers, memory traffic or time.
@@ -19,10 +23,11 @@ instructions. It says nothing about registers, memory traffic or time.
 As a module: `build(out_dir)` returns {source name: library path};
 `Emulation(out_dir)` is a context manager in which `trace_wide`,
 `trace_wide_paired`, `trace_wide_counts` and `stream_mt` of this module
-run the emulated kernels on CPU tensors (through the wrappers' own
-`_launch` / argument checks). Run as a script it holds every mode of
-wide_trace.cu and stream_mt.cu to its plain version, and the modes that
-compute K1's function to K1 bit for bit, on a random triangle soup.
+and `make_bf_tracer(..., steps=BF_STEPS)` run the emulated kernels on CPU
+tensors (through the wrappers' own argument checks). Run as a script it
+holds every mode of wide_trace.cu and stream_mt.cu to its plain version,
+and the modes that compute K1's function to K1 bit for bit, on a random
+triangle soup.
 """
 
 from __future__ import annotations
@@ -34,27 +39,37 @@ import re
 import subprocess
 import sys
 import tempfile
+from concurrent.futures import ThreadPoolExecutor
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from platinum_tpu_torch.ops import bfstream as bf  # noqa: E402
 from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
 
 SHIM_RUNTIME = r"""
 #pragma once
+#include <ucontext.h>
+#include <algorithm>
 #include <cmath>
 #include <cstddef>
 #include <cstdint>
 #include <cstring>
+#include <functional>
+#include <vector>
 #include <math.h>
+using std::max;
+using std::min;
 #define __device__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
 #define __launch_bounds__(x)
+#define __shared__ static
+#define __align__(n) __attribute__((aligned(n)))
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -65,10 +80,22 @@ struct dim3 {
 };
 typedef void* cudaStream_t;
 typedef int cudaError_t;
-enum { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
-inline int cudaGetLastError() { return 0; }
+enum { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorEmulation = 2 };
+// a launch whose threads broke a barrier sets it; the next
+// cudaGetLastError() returns and clears it
+inline int& emu_error() {
+  static int e = 0;
+  return e;
+}
+inline int cudaGetLastError() {
+  const int e = emu_error();
+  emu_error() = 0;
+  return e;
+}
 inline const char* cudaGetErrorString(int c) {
-  return c ? "invalid value" : "no error";
+  return c == 2 ? "emulated threads broke a barrier (a thread skipped "
+                  "__syncthreads or a warp collective)"
+                : (c ? "invalid value" : "no error");
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __int_as_float(int i) {
@@ -82,16 +109,132 @@ inline float __fmul_rn(float a, float b) {
   return r;
 }
 inline size_t __cvta_generic_to_global(const void* p) { return (size_t)p; }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 extern thread_local dim3 blockIdx, threadIdx, blockDim;
+
+// The threads of a block run as coroutines (ucontext), one after another:
+// a thread runs until it returns or reaches __syncthreads() or a warp
+// collective, and the scheduler releases a barrier once every thread of
+// the block (of the warp, for a collective) has reached it, computing a
+// collective's results for all its lanes before any lane goes on. A
+// barrier that some threads reach while others have returned or wait
+// elsewhere is a fault, as on the card: the block is abandoned and the
+// launch reports an error.
+struct EmuThread {
+  ucontext_t ctx;
+  int state;       // 0 runnable, 1 at __syncthreads, 2 at a collective, 3 done
+  int op, val, arg;  // the collective (0 ballot, 1 shfl_up) and its operands
+  int res;
+};
+inline std::vector<EmuThread>& emu_threads() {
+  static std::vector<EmuThread> t;
+  return t;
+}
+inline int& emu_cur() {
+  static int c = 0;
+  return c;
+}
+inline ucontext_t& emu_sched() {
+  static ucontext_t c;
+  return c;
+}
+inline std::function<void()>& emu_body() {
+  static std::function<void()> f;
+  return f;
+}
+inline void emu_trampoline() {
+  emu_body()();
+  emu_threads()[emu_cur()].state = 3;
+  swapcontext(&emu_threads()[emu_cur()].ctx, &emu_sched());
+}
+inline int emu_wait(int state, int op = 0, int val = 0, int arg = 0) {
+  EmuThread& t = emu_threads()[emu_cur()];
+  t.state = state;
+  t.op = op;
+  t.val = val;
+  t.arg = arg;
+  swapcontext(&t.ctx, &emu_sched());
+  return emu_threads()[emu_cur()].res;
+}
+inline void __syncthreads() { emu_wait(1); }
+inline unsigned __ballot_sync(unsigned, int pred) {
+  return (unsigned)emu_wait(2, 0, pred != 0);
+}
+inline int __shfl_up_sync(unsigned, int v, int delta) {
+  return emu_wait(2, 1, v, delta);
+}
+// one scheduling round's barrier releases; false on a fault
+inline bool emu_release(int threads, bool& released, bool& finished) {
+  auto& th = emu_threads();
+  released = false;
+  for (int lo = 0; lo < threads; lo += 32) {
+    const int hi = std::min(lo + 32, threads);
+    int at = 0;
+    for (int i = lo; i < hi; ++i) at += th[i].state == 2;
+    if (at == 0) continue;
+    if (at != hi - lo) return false;
+    for (int i = lo; i < hi; ++i) {
+      if (th[i].op != th[lo].op) return false;
+      if (th[i].op == 0) {
+        int bits = 0;
+        for (int j = lo; j < hi; ++j) bits |= th[j].val << (j - lo);
+        th[i].res = bits;
+      } else {
+        const int src = i - th[i].arg;
+        th[i].res = src >= lo ? th[src].val : th[i].val;
+      }
+    }
+    for (int i = lo; i < hi; ++i) th[i].state = 0;
+    released = true;
+  }
+  if (released) return true;
+  int done = 0, at_bar = 0;
+  for (int i = 0; i < threads; ++i) {
+    done += th[i].state == 3;
+    at_bar += th[i].state == 1;
+  }
+  finished = done == threads;
+  if (finished) return true;
+  if (at_bar != threads) return false;
+  for (int i = 0; i < threads; ++i) th[i].state = 0;
+  released = true;
+  return true;
+}
 template <class F, class... A>
 void emu_launch(dim3 grid, int threads, F f, A... a) {
+  constexpr size_t kStack = 1 << 16;
+  static std::vector<std::vector<char>> stacks;
+  if ((int)stacks.size() < threads) stacks.resize(threads);
+  auto& th = emu_threads();
+  th.assign(threads, EmuThread{});
   blockDim = dim3(threads);
-  for (unsigned b = 0; b < grid.x; ++b)
-    for (int t = 0; t < threads; ++t) {
-      blockIdx = dim3(b);
-      threadIdx = dim3(t);
-      f(a...);
+  emu_body() = [&]() { f(a...); };
+  for (unsigned b = 0; b < grid.x; ++b) {
+    blockIdx = dim3(b);
+    for (int i = 0; i < threads; ++i) {
+      stacks[i].resize(kStack);
+      getcontext(&th[i].ctx);
+      th[i].ctx.uc_stack.ss_sp = stacks[i].data();
+      th[i].ctx.uc_stack.ss_size = kStack;
+      th[i].ctx.uc_link = nullptr;
+      makecontext(&th[i].ctx, emu_trampoline, 0);
+      th[i].state = 0;
     }
+    for (;;) {
+      for (int i = 0; i < threads; ++i)
+        if (th[i].state == 0) {
+          emu_cur() = i;
+          threadIdx = dim3(i);
+          swapcontext(&emu_sched(), &th[i].ctx);
+        }
+      bool released, finished = false;
+      if (!emu_release(threads, released, finished)) {
+        emu_error() = cudaErrorEmulation;
+        return;
+      }
+      if (finished) break;
+    }
+  }
 }
 """
 
@@ -115,17 +258,17 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 }
 """
 
-SOURCES = ("wide_trace", "stream_mt")
+SOURCES = ("wide_trace", "stream_mt", "bf_stream")
 
 
 def host_source(text: str) -> str:
     """A CUDA source of csrc/ as C++ for the host: the prefetch `asm`
-    dropped, `kernel<...><<<grid, block, shared, stream>>>(args)` turned
-    into `emu_launch(grid, block, kernel<...>, args)`, and the thread
-    indices defined."""
+    dropped, `kernel<...><<<grid, block, shared, stream>>>(args)` (with or
+    without template arguments) turned into `emu_launch(grid, block,
+    kernel<...>, args)`, and the thread indices defined."""
     text = re.sub(r"asm volatile\(.*?\);", "(void)p;", text, flags=re.S)
     text, n = re.subn(
-        r"(\w+<[^;()]*?>)\s*<<<([^,]+),\s*([^,]+),[^>]*>>>\(",
+        r"(\w+(?:<[^;()]*?>)?)\s*<<<([^,]+),\s*([^,]+),[^>]*>>>\(",
         r"emu_launch(\2, \3, \1, ", text, flags=re.S)
     if n == 0:
         raise ValueError("no kernel launch found to rewrite")
@@ -134,10 +277,9 @@ def host_source(text: str) -> str:
         "thread_local dim3 blockIdx, threadIdx, blockDim;\nnamespace {", 1)
 
 
-def build(out_dir: str) -> dict:
-    """Compile the host versions of csrc/*.cu into `out_dir` with g++;
-    {source name: shared library path}. Raises where g++ is missing or
-    refuses a source."""
+def _write_headers(out_dir: str) -> str:
+    """The CUDA header shims and csrc/'s shared headers in out_dir; returns
+    the shim directory."""
     shim = os.path.join(out_dir, "shim")
     os.makedirs(shim, exist_ok=True)
     for name, text in (("cuda_runtime.h", SHIM_RUNTIME),
@@ -148,21 +290,38 @@ def build(out_dir: str) -> dict:
         with open(header) as f, open(os.path.join(
                 out_dir, os.path.basename(header)), "w") as g:
             g.write(f.read())
-    libs = {}
-    for name in SOURCES:
+    return shim
+
+
+def compile_source(name: str, text: str, out_dir: str) -> str:
+    """Compile the host version of one CUDA source text with g++ into
+    out_dir (whose headers `_write_headers` has written); returns the
+    shared library's path. Raises where g++ refuses it."""
+    cpp = os.path.join(out_dir, name + ".cpp")
+    with open(cpp, "w") as f:
+        f.write(host_source(text))
+    lib = os.path.join(out_dir, name + "_host.so")
+    proc = subprocess.run(
+        ["g++", "-std=c++17", "-O2", "-ffp-contract=fast", "-march=native",
+         "-shared", "-fPIC", "-I", os.path.join(out_dir, "shim"), "-I",
+         out_dir, "-o", lib, cpp], capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"g++ failed on {name}:\n{proc.stderr[-3000:]}")
+    return lib
+
+
+def build(out_dir: str) -> dict:
+    """Compile the host versions of csrc/*.cu into `out_dir` with g++, one
+    process per source, all started together; {source name: shared
+    library path}. Raises where g++ is missing or refuses a source."""
+    _write_headers(out_dir)
+
+    def one(name):
         with open(os.path.join(pt.CSRC_DIR, name + ".cu")) as f:
-            text = host_source(f.read())
-        cpp = os.path.join(out_dir, name + ".cpp")
-        with open(cpp, "w") as f:
-            f.write(text)
-        libs[name] = os.path.join(out_dir, name + "_host.so")
-        proc = subprocess.run(
-            ["g++", "-std=c++17", "-O2", "-ffp-contract=fast",
-             "-march=native", "-shared", "-fPIC", "-I", shim, "-I", out_dir,
-             "-o", libs[name], cpp], capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed on {name}:\n{proc.stderr[-3000:]}")
-    return libs
+            return compile_source(name, f.read(), out_dir)
+
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
+        return dict(zip(SOURCES, pool.map(one, SOURCES)))
 
 
 class _NoStream:
@@ -182,7 +341,8 @@ class Emulation(contextlib.AbstractContextManager):
         self._saved = (dict(pt._libs), torch.cuda.device,
                        torch.cuda.current_stream)
         for name, declare in (("wide_trace", pt._declare),
-                              ("stream_mt", rs._declare)):
+                              ("stream_mt", rs._declare),
+                              ("bf_stream", bf._declare)):
             lib = ctypes.CDLL(self.libs[name])
             declare(lib)
             pt._libs[name] = lib
@@ -239,6 +399,12 @@ def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit,
         if rc != 0:
             raise RuntimeError(f"emulated stream_mt refused: {rc}")
     return t, slot, u, v
+
+
+# The five steps of the breadth-first tracer through the emulated kernels
+# (uncounted), for make_bf_tracer(steps=...) inside an Emulation
+BF_STEPS = dict(expand=bf.expand_kernel, prefix=bf.prefix_kernel,
+                emit=bf.emit_kernel, mt=bf.mt_kernel, bwd=bf.bwd_kernel)
 
 
 def soup_tree(n_tris=3000, seed=0, leaf_cap=16):

@@ -1,6 +1,6 @@
 """Registers, stack frame and spills of every kernel instantiation.
 
-    python3 tools/torch_kernel_resources.py [wide_trace] [stream_mt]
+    python3 tools/torch_kernel_resources.py [wide_trace] [stream_mt] [bf_stream]
 
 Compiles each source of platinum_tpu_torch/csrc with the package's nvcc
 flags plus `--resource-usage` into a temporary file and prints, per
@@ -61,7 +61,7 @@ def demangle(names):
 
 
 def main():
-    for name in sys.argv[1:] or ("wide_trace", "stream_mt"):
+    for name in sys.argv[1:] or ("wide_trace", "stream_mt", "bf_stream"):
         rows, seconds = resources(name)
         for label, (_, r) in zip(demangle([k for k, _ in rows]), rows):
             print(f"{label}: {r.get('registers')} registers, "
