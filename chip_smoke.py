@@ -17,16 +17,19 @@ Phases, one printed block each (any failure exits non-zero):
      certified borderline in float64 (`_borderline`, `_fp32_ambiguous`)
   3b. K3 vs plain: the same for the two-level modes on the colonnade
      flattened with instancing="on"
-  3c. K4 ("high"), K5 ("two_phase") and K7 (octant order)
+  3c. the pre-split planes of the colonnade's blocks (the split kernel
+     against its plain version in every bit, both timed), then K4
+     ("high"), K5 ("two_phase") and K7 (octant order), K4 and K5 over
+     those planes,
      vs plain on the colonnade's camera and bounce waves, as in 3: the
      16,384-ray subsets, then the whole waves timed and counted and held
      (K4 both; K5 and K7 the bounce wave: 3d holds them to K1 on both)
      (K4's certification adds the bf16 split error to the fp32 forward
      error, and K4's t must equal its plain version's to HIGH_T_RTOL,
      a few fp32 ulps, wherever the ids agree)
-  3d. K5 and K7 against K1 on the whole waves: hit set and t bit for bit,
-     ids equal outside exact-t ties; every exception printed and
-     certified
+  3d. K5 and K7 against K1 on the whole waves (K5 also on the shadow
+     wave, traced as closest hit): hit set and t bit for bit, ids equal
+     outside exact-t ties; every exception printed and certified
   3e. K4 against K1 on the whole waves with the bars of
      tests/test_pallas_trace.py:209-220, held on the camera wave (rays from
      free space, as in that test) and printed for the bounce wave; on both
@@ -49,10 +52,13 @@ Phases, one printed block each (any failure exits non-zero):
      column, one spp renders, and the refit tree's closest hits on a
      camera wave must match a fresh flatten of the moved scene
   4c. the headline with compaction (bench.py's sponza_class_512 cut to
-     4 spp): compact=True, compact_plan="auto", instancing="off"
+     4 spp): compact=True, compact_plan="auto", instancing="off"; then
+     the host syncs (torch's sync debug mode) and make_tracers calls of
+     one spp through render_step_n without `tracers=` (a pair per
+     sample) and through Renderer.render (the pair start_render built)
   4d. sponza_class_512_mt3_knob cut to 4 spp: 4c with mt_precision="high";
-     only K4 ("closest+high") and K2 may launch; the image mean within 1%
-     of 4c's
+     only K4 ("closest+high"), K2 and the split kernel (once, at
+     start_render) may launch; the image mean within 1% of 4c's
   4e. bistro_class_studio at its 4 spp: the 1.08M-triangle colonnade at
      960x540, 4 bounces, compact=True (static plan), instancing="off",
      stream="auto"; the tree must stream, and only the K6 modes may
@@ -90,7 +96,14 @@ Phases, one printed block each (any failure exits non-zero):
      level's real pairs of the camera, bounce and shadow waves; the whole
      ray-stream tracer against K1/K2 bit for bit on the whole waves; every
      level's pair and leaf-pair counts beside the JAX module's static caps;
-     time per wave split into kernel and host glue
+     time per wave split into kernel and host glue. Then K4 "high" against
+     the ray-stream tracer at "high" on the three whole waves (the shadow
+     wave as closest hit): hit set, t, ids and barycentrics bit for bit,
+     every exception borderline in float64 and K4's result on it, bit
+     for bit, that of its walk replayed one thread at a time with K15's
+     block tests (a reduced tier's t can fall in front of its own leaf's
+     box, so the two walks' culls can differ); with the warp drain's
+     distinct blocks per round and lanes per distinct block on each wave
   3k. K10-K14, the breadth-first pipeline (csrc/bf_stream.cu), on the
      headline's whole camera, bounce and shadow waves (262,144 rays, one
      segment each): the tracer (closest on camera and bounce, its own
@@ -101,8 +114,9 @@ Phases, one printed block each (any failure exits non-zero):
      capacities and the pairs lost; per wave the tracer's time, the host
      syncs torch's sync debug mode counts, the launches, each kernel's
      time summed over the levels beside its plain version's and its
-     bound, and K14's yardstick (one scatter_reduce "amin" of packed
-     (t, slot) keys per level)
+     bound, and one scatter_reduce "amin" of packed (t, slot) keys per
+     level over K14's pre-gathered edges (routing and gathers untimed: no
+     PyTorch call computes K14's function, so its library entry is null)
   4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
      Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
      and K2 may launch, the image within RMSE BF_RMSE of 4f's K1 render at
@@ -538,8 +552,14 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
 
     mode = mode or {}
     tier = mode.get("mt_precision", "highest")
-    in_bytes = sum(x.numel() * 4 for x in (nodes, blocks, meta, inst_feat,
-                                           mode.get("worder"))
+    # what the mode reads: the fp32 blocks (fp32 tests, any hit, two_phase's
+    # refine) and the pre-split planes (a reduced tier's closest hit); the
+    # jobs of a reduced tier are closest hit
+    fp32_blocks = tier in ("highest", "two_phase")
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in (nodes, blocks if fp32_blocks else None, meta,
+                             inst_feat, mode.get("worder"),
+                             mode.get("planes"))
                    if x is not None)
     t_tol = (HIGH_T_RTOL, 0.0) if tier == "high" else (T_RTOL, T_ATOL)
     errs = {"closest": 0.0, "any": 0.0}
@@ -587,10 +607,13 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
                                         out_bytes,
                                         "highest" if any_hit else tier)
         outs[wave] = out["k"]
+        drain = (f"{counts['drain_rounds']} warp drain rounds testing "
+                 f"{counts['distinct_blocks']} distinct blocks, "
+                 if counts["drain_rounds"] else "")
         print(f"  {label} time per {rays.shape[1]}-ray wave, {name}: kernel "
               f"{kms:.3f} ms, {plain}; "
               f"{counts['pops']} pops, {counts['mt_tests']} MT block tests, "
-              f"{counts['inst_entries']} instance entries, "
+              f"{drain}{counts['inst_entries']} instance entries, "
               f"{counts['refine_tests']} fp32 refine / re-walk tests, "
               f"{counts['rewalks']} rays walked again -> "
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
@@ -764,22 +787,50 @@ def _instanced_certify(flat, host):
             or _fp32_ambiguous(ray, fp32))
 
 
+def _split_planes_row(blocks):
+    """The pre-split planes of the colonnade's blocks (3c): the split
+    kernel's table against its plain version in every bit, each timed;
+    bound by bytes (4 B read and 4 B written per coefficient)."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    planes = pt.split_planes(blocks)
+    plain = pt.split_planes_plain(blocks)
+    check(torch.equal(planes.view(torch.int16), plain.view(torch.int16)),
+          "the split kernel's planes differ from their plain version")
+    del plain
+    kms = _time_ms(lambda: pt.split_planes(blocks), 20)
+    pms = _time_ms(lambda: pt.split_planes_plain(blocks), 5)
+    nbytes = blocks.numel() * 8
+    bms = nbytes / PEAK_BYTES * 1e3
+    print(f"  pre-split planes of {blocks.shape[0]} blocks "
+          f"({nbytes / 2 / 1e6:.1f} MB): the kernel's table bit for bit its "
+          f"plain version's; kernel {kms:.3f} ms, plain {pms:.3f} ms, bound "
+          f"{bms:.4f} ms by bytes", flush=True)
+    return planes, dict(ms=kms, plain_ms=pms, bound_ms=bms, bound_by="bytes",
+                        max_abs_err=0.0)
+
+
 def phase_variants(ctx):
     """3c-3e: K4, K5 and K7 on the colonnade's camera and bounce waves."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
     flat, nodes, waves = ctx["flat"], ctx["nodes"], ctx["waves"]
     tri64, fp32 = ctx["tri64"], ctx["fp32"]
     blocks, meta = flat.wbvh_tris, flat.wbvh_meta
     closest = JOBS[:2]
     rows, outs = {}, {}
     print("K4, K5, K7 vs plain on the colonnade (3c):", flush=True)
+    planes, planes_row = _split_planes_row(blocks)
+    ctx["planes"] = planes
     # K5 and K7 are K1 bit for bit on both whole waves (3d), and K1 is held
     # to its plain version on both (3); their own plain versions (30 s and
     # 8 s a wave) run on the whole bounce wave, whose time enters the
     # kernel table, and on the camera wave's subset. K4 is not K1's
     # function and keeps both whole waves
     for key, mode, tier, whole in (
-            ("K4", dict(mt_precision="high"), "high", True),
-            ("K5", dict(mt_precision="two_phase"), "highest", ("bounce",)),
+            ("K4", dict(mt_precision="high", planes=planes), "high", True),
+            ("K5", dict(mt_precision="two_phase", planes=planes), "highest",
+             ("bounce",)),
             ("K7", dict(worder=flat.wbvh_order), "highest", ("bounce",))):
         def certify(ray, tier=tier):
             return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32,
@@ -798,6 +849,14 @@ def phase_variants(ctx):
                      lambda ray: _borderline(ray, tri64)
                      or _fp32_ambiguous(ray, fp32),
                      caveat if key == "K5" else "")
+    # and K5 on the third wave, the shadow segments traced as closest hit
+    shadow = waves["shadow"]
+    _bitwise("K5 shadow (traced as closest hit)",
+             pt.trace_wide(shadow, nodes, blocks, meta, False,
+                           mt_precision="two_phase", planes=planes),
+             pt.trace_wide(shadow, nodes, blocks, meta, False), shadow,
+             lambda ray: _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32),
+             caveat)
     print("K4 against K1 on the whole waves (3e):", flush=True)
     for _, wave, _ in closest:
         _jax_bars(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave],
@@ -805,6 +864,7 @@ def phase_variants(ctx):
         _tier_moves_t(f"K4 {wave}", outs["K4"][wave], ctx["outs"][wave])
     out = {k: rows[k]["closest"] for k in ("K4", "K5", "K7")}
     out["K4 default"] = _default_tier_row(ctx)
+    out["planes"] = planes_row
     return out
 
 
@@ -820,11 +880,13 @@ def _default_tier_row(ctx):
 
     flat, nodes, b = ctx["flat"], ctx["nodes"], ctx["waves"]["bounce"]
     blocks, meta = flat.wbvh_tris, flat.wbvh_meta
-    mode = dict(mt_precision="default")
+    mode = dict(mt_precision="default", planes=ctx["planes"])
     kms = _time_ms(lambda: pt.trace_wide(b, nodes, blocks, meta, False,
                                          **mode), 20)
     counts = pt.trace_wide_counts(b, nodes, blocks, meta, False, **mode)
-    in_bytes = sum(x.numel() * 4 for x in (nodes, blocks, meta))
+    # the tier reads the h plane alone (mt_block.cuh lane_dots_split)
+    in_bytes = sum(x.numel() * x.element_size()
+                   for x in (nodes, ctx["planes"][:, 0], meta))
     bms, by, flops, nbytes = _bound(counts, b.shape[1], in_bytes, 16,
                                     "default")
     sub = b[:, ctx["pts"]["sample"]].contiguous()
@@ -835,7 +897,7 @@ def _default_tier_row(ctx):
     err = float((k[0][same] - p[0][same]).abs().max())
     agree = ((k[1] >= 0) == (p[1] >= 0)).float().mean().item()
     tc, _ = pt.make_packet_tracer(flat.wbvh_nodes, blocks, meta,
-                                  flat.wbvh_slot, **mode)
+                                  flat.wbvh_slot, mt_precision="default")
     _zero_launches()
     tc(b[0:3].T, b[3:6].T, RAY_EPS, float("inf"))
     launches = _launches()["closest+default"]
@@ -843,7 +905,10 @@ def _default_tier_row(ctx):
           f"kernel {kms:.3f} ms, plain {pms:.1f} ms on the {N_CMP}-ray "
           f"subset (hit sets agree on {agree:.4%}, max |dt| {err:.3e} where "
           f"the ids agree, not held); {counts['pops']} pops, "
-          f"{counts['mt_tests']} MT block tests -> {flops / 1e9:.2f} GFLOP, "
+          f"{counts['mt_tests']} MT block tests in "
+          f"{counts['drain_rounds']} warp drain rounds on "
+          f"{counts['distinct_blocks']} distinct blocks -> "
+          f"{flops / 1e9:.2f} GFLOP, "
           f"{nbytes / 1e6:.1f} MB, bound {bms:.4f} ms by {by}; "
           f"make_packet_tracer(mt_precision='default') launched it "
           f"{launches} time(s)", flush=True)
@@ -1120,6 +1185,125 @@ def phase_profile(ctx, k12):
         rows[prof]["launches"] = (launches[f"closest@{prof}"]
                                   + launches[f"any@{prof}"])
     return rows
+
+
+def _replay_walk(ray, nodes_np, meta_np, test_block):
+    """K4's walk for one ray as one thread takes it (wide_trace.cu
+    `warp_walk` and `drain` for one lane): pop a node, slab-test its 16
+    children against the best at the pop in the kernel's float32
+    arithmetic, push the inner hits, queue the leaves with their entry
+    distance and visit the queue in order, skipping an entry beyond the
+    running best; `test_block(b, best)` is the per-thread block test
+    against the running best, (t, id, u, v) with id -1 unless it lowers
+    it. Returns the ray's (t, id, u, v)."""
+    f32 = np.float32
+    o, d = ray[0:3].astype(f32), ray[3:6].astype(f32)
+    tmin, best = f32(ray[6]), f32(ray[7])
+    tiny = np.where(d < 0, f32(-1e-20), f32(1e-20))
+    inv = f32(1.0) / np.where(np.abs(d) < f32(1e-20), tiny, d)
+    hit = (-1, f32(0.0), f32(0.0))
+    stack = [0] if best > tmin else []
+    while stack:
+        n = stack.pop()
+        cull, queue = best, []
+        for c in range(16):
+            mc = int(meta_np[n * 16 + c])
+            if mc == -1:
+                continue
+            t0 = (nodes_np[n, c, 0:3] - o) * inv
+            t1 = (nodes_np[n, c, 3:6] - o) * inv
+            tnear, tfar = np.minimum(t0, t1).max(), np.maximum(t0, t1).min()
+            if not (tnear <= tfar and tfar >= tmin and tnear <= cull):
+                continue
+            if mc >= 0:
+                stack.append(mc)
+            else:
+                queue.append((-mc - 2, tnear))
+        check(len(stack) < 256, "the replayed walk overflows the stack")
+        for val, tnear in queue:
+            if not tnear <= best:
+                continue
+            for b in range(val >> 5, (val >> 5) + (val & 31)):
+                t, sid, u, v = test_block(b, best)
+                if sid >= 0:
+                    best, hit = f32(t), (sid, f32(u), f32(v))
+    return (best,) + hit
+
+
+def _hold_high_to_raystream(ctx):
+    """3j: K4 "high" closest against the ray-stream tracer at "high" on
+    the headline's three whole waves (the shadow wave traced as closest
+    hit). Both form each triangle's t with mt_block.cuh's arithmetic, K4
+    warp-wide over the pre-split planes, K15 one thread per (ray, block)
+    pair, so hit set, t, ids and barycentrics agree in every bit except
+    where the walks cull differently: at a reduced tier a triangle's t can
+    fall in front of its own leaf's box, and the depth-first walk culls by
+    its best at each pop, the breadth-first one by its per-ray best at
+    each level. Every ray that differs must be borderline in float64, and
+    K4's t, id and barycentrics on it must be those of a one-thread replay
+    of K4's walk (`_replay_walk`) whose block tests are K15's, in every
+    bit. Prints the warp drain's sharing counts per wave."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.ops import raystream as rs
+
+    flat, waves, planes = ctx["flat"], ctx["waves"], ctx["planes"]
+    nodes, blocks, meta = ctx["nodes"], flat.wbvh_tris, flat.wbvh_meta
+    tri64, fp32 = ctx["tri64"], ctx["fp32"]
+    nodes_np, meta_np = nodes.cpu().numpy(), meta.cpu().numpy()
+    dev = nodes.device
+    pair = rs.make_stream_tracer(flat.wbvh_nodes, blocks, meta,
+                                 mt_precision="high")
+    one = torch.zeros(1, dtype=torch.int32, device=dev)
+    print("K4 'high' against the ray-stream tracer at 'high' (3j):",
+          flush=True)
+
+    def certify(r):
+        if not (_borderline(r[:8], tri64)
+                or _fp32_ambiguous(r[:8], fp32, tier="high")):
+            return False
+        ray = torch.tensor(r[:8], dtype=torch.float32, device=dev)[:, None]
+
+        def test_block(b, best):
+            limit = torch.tensor([best], dtype=torch.float32, device=dev)
+            out = rs.stream_mt(ray, limit, one, one + b, blocks, False,
+                               "high")
+            return [x.item() for x in out]
+
+        got = _replay_walk(r, nodes_np, meta_np, test_block)
+        want = r[8:12].astype(np.float32)
+        return (int(got[1]) == int(want[1])
+                and np.array_equal(np.array(got, np.float32)[[0, 2, 3]]
+                                   .view(np.int32),
+                                   want[[0, 2, 3]].view(np.int32)))
+
+    sharing = {}
+    for _, wave, _ in JOBS:
+        rays = waves[wave]
+        k4 = pt.trace_wide(rays, nodes, blocks, meta, False,
+                           mt_precision="high", planes=planes)
+        res = pair[0](rays[0:3].T.contiguous(), rays[3:6].T.contiguous(),
+                      rays[6], rays[7])
+        ref = (res.t, res.tri, res.bary[:, 0], res.bary[:, 1])
+        # the ray and K4's t, id, u and v: what certify reads
+        rows = torch.cat([rays, k4[0][None], k4[1][None].float(),
+                          k4[2][None], k4[3][None]])
+        _bitwise(f"K4 high against the ray-stream tracer at high, {wave}",
+                 k4, ref, rows, certify,
+                 " (borderline, and K4 is its walk replayed one thread at "
+                 "a time with K15's block tests, in every bit)")
+        c = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                 mt_precision="high", planes=planes)
+        sharing[wave] = dict(
+            lanes_per_block=c["mt_tests"] / max(1, c["distinct_blocks"]),
+            blocks_per_round=c["distinct_blocks"] / max(1, c["drain_rounds"]),
+            **c)
+        print(f"  K4 high warp drain, {wave}: {c['mt_tests']} block tests "
+              f"in {c['drain_rounds']} drain rounds on "
+              f"{c['distinct_blocks']} distinct blocks: "
+              f"{sharing[wave]['blocks_per_round']:.3f} distinct blocks per "
+              f"round, {sharing[wave]['lanes_per_block']:.3f} lanes per "
+              f"distinct block", flush=True)
+    return sharing
 
 
 def phase_raystream(ctx):
@@ -1447,8 +1631,8 @@ def phase_bf(ctx):
               f"kernel ms " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items())
               + f" (sum {sum(ms.values()):.3f}); plain ms "
               + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items())
-              + f"; K14's yardstick (scatter_reduce amin) {lib_ms:.3f} ms",
-              flush=True)
+              + f"; amin over pre-gathered keys (routing and gathers "
+              f"untimed) {lib_ms:.3f} ms", flush=True)
         check(seg["traces"] == 1 or lost == 0, f"{wave}: pairs lost")
         for k in BF_ROWS:
             nbytes, flops = work[k]
@@ -1460,8 +1644,7 @@ def phase_bf(ctx):
             row = dict(ms=ms[k], plain_ms=plain_ms[k],
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
-                       max_abs_err=0.0,
-                       library_ms=lib_ms if k == "bwd" else None)
+                       max_abs_err=0.0, library_ms=None)
             if wave == "bounce" and k != "mt":
                 rows[k] = row
             if k == "mt" and wave in ("bounce", "shadow"):
@@ -1695,6 +1878,62 @@ HEADLINE = dict(width=512, height=512, max_bounces=8, kernel="mis",
                 instancing="off", compact_plan="auto")
 
 
+def _syncs_per_spp(renderer):
+    """4c: host syncs (torch's sync debug mode) and make_tracers calls of
+    one spp, before and after the tracer pair was built once per
+    start_render: the sample through integrator.render_step_n without
+    `tracers=` (a pair built for the sample, as Renderer.render did
+    before), then through Renderer.render (the pair start_render built).
+    The renderer's accumulator is restored."""
+    import warnings
+
+    from platinum_tpu_torch.render import integrator
+
+    calls = []
+    real = integrator.make_tracers
+
+    def counted(flat, settings):
+        calls.append(1)
+        return real(flat, settings)
+
+    def before():
+        integrator.render_step_n(renderer.flat, renderer.settings,
+                                 renderer._accum, 0, 1,
+                                 features=renderer._features)
+
+    def after():
+        renderer._accumulated = renderer.settings.spp - 1
+        renderer.render()
+
+    saved = (renderer._accum, renderer._accumulated)
+    out = {}
+    integrator.make_tracers = counted
+    try:
+        for label, step in (("before", before), ("after", after)):
+            calls.clear()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                step()
+            torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            out[label] = dict(syncs=sum("synchroniz" in str(w.message)
+                                        for w in caught),
+                              make_tracers=len(calls))
+    finally:
+        integrator.make_tracers = real
+        renderer._accum, renderer._accumulated = saved
+    print(f"  per spp, host syncs (torch's sync debug mode) and make_tracers "
+          f"calls: before (a pair per sample) {out['before']['syncs']} syncs, "
+          f"{out['before']['make_tracers']} make_tracers; after (the pair of "
+          f"start_render) {out['after']['syncs']} syncs, "
+          f"{out['after']['make_tracers']} make_tracers", flush=True)
+    check(out["after"]["make_tracers"] == 0,
+          "Renderer.render built a tracer pair")
+    return out
+
+
 def phase_headline_compact(scene, cam):
     from platinum_tpu_torch.render.types import RenderSettings
 
@@ -1704,6 +1943,7 @@ def phase_headline_compact(scene, cam):
     check(isinstance(renderer.settings.compact_plan, tuple),
           f"compact_plan not resolved: {renderer.settings.compact_plan}")
     _only("the headline", launches, ("closest", "any"))
+    _syncs_per_spp(renderer)
     return launches, mean, renderer
 
 
@@ -1714,7 +1954,9 @@ def phase_mt3_knob(scene, cam, head_mean):
     settings = RenderSettings(spp=4, mt_precision="high", **HEADLINE)
     _, launches, mean = _render_path("sponza_class_512_mt3_knob", scene, cam,
                                      settings)
-    _only("the mt3 knob", launches, ("closest+high", "any"))
+    _only("the mt3 knob", launches, ("closest+high", "any", "split_planes"))
+    check(launches["split_planes"] == 1,
+          f"the mt3 knob split the blocks {launches['split_planes']} times")
     rel = abs(mean / head_mean - 1.0)
     print(f"  image mean {mean:.5f} against 4c's {head_mean:.5f} "
           f"(rel {rel:.2e})", flush=True)
@@ -1755,14 +1997,14 @@ def phase_exact_options(scene, cam):
     k1, _, base = _render_path("headline at 2 spp (K1)", scene, cam,
                                RenderSettings(spp=2, **HEADLINE))
     out["image"] = k1.readback()
-    for label, opt, key in (("two_phase", dict(mt_precision="two_phase"),
-                             "closest+two_phase"),
-                            ("oct_order", dict(oct_order=True),
-                             "closest+oct")):
+    for label, opt, keys in (("two_phase", dict(mt_precision="two_phase"),
+                              ("closest+two_phase", "split_planes")),
+                             ("oct_order", dict(oct_order=True),
+                              ("closest+oct",))):
         _, launches, mean = _render_path(
             f"headline at 2 spp with {label}", scene, cam,
             RenderSettings(spp=2, **opt, **HEADLINE))
-        _only(f"the {label} headline", launches, (key, "any"))
+        _only(f"the {label} headline", launches, (*keys, "any"))
         rel = abs(mean / base - 1.0)
         print(f"  image mean {mean:.5f} against K1's {base:.5f} "
               f"(rel {rel:.2e})", flush=True)
@@ -2095,7 +2337,8 @@ def main():
     prof = phase_profile(ctx, k12)
     lap("3g-3i K8, K9, ablation")
     k15 = phase_raystream(ctx)
-    lap("3j K15")
+    _hold_high_to_raystream(ctx)
+    lap("3j K15, K4 against it")
     kbf = phase_bf(ctx)
     lap("3k K10-K14")
     k6 = phase_stream(scene, cam, dev, ctx["pts"])
@@ -2138,6 +2381,8 @@ def main():
              ("wide_trace closest mt_precision=two_phase (K5)",
               f"{pallas}:416", k457["K5"],
               exact_launches["two_phase"]["closest+two_phase"]),
+             ("wide_trace split_planes (K4/K5 pre-split planes)",
+              f"{pallas}:194", k457["planes"], knob_launches["split_planes"]),
              ("wide_trace streamed closest (K6)", f"{pallas}:559",
               k6["closest"], bistro_launches["stream+closest"]),
              ("wide_trace streamed any-hit (K6)", f"{pallas}:559",

@@ -1,20 +1,26 @@
 // Moller-Trumbore test of one ray against one 64-triangle coefficient
-// block, at every precision tier: the code both traversal kernels share.
+// block, at every precision tier: the code the traversal kernels share.
 //
 // Included by wide_trace.cu (the depth-first packet-tracer port, K1-K9),
 // stream_mt.cu (the leaf-pair kernel of the breadth-first ray-stream
 // tracer, K15) and bf_stream.cu (the MT kernel of the breadth-first
 // pipeline, K13), so that a (ray, triangle) pair gets the same t, to the
 // bit, from each: the ray features are formed by `ray_features` with its
-// products and FMAs spelled out, and the dots, accept tests and divisions
-// below are one piece of code. `kShared` reads the block from shared
-// memory (K13 stages it there once per tile) instead of through the
-// read-only cache; the arithmetic is the same.
+// products and FMAs spelled out, and each triangle's dots, accept tests
+// and divisions below are one sequence of operations, whether one thread
+// tests a whole block (`block_closest`, K13 and K15) or a warp tests it
+// two triangles a lane (`lane_dots_split`, `lane_dots`, `lane_closest`:
+// K1-K9's reduced tiers and two_phase). `kShared` reads the block from
+// shared memory (K13 stages it there once per tile) instead of through
+// the read-only cache; the arithmetic is the same.
 //
 // Layout (platinum_tpu/accel/wide.py): a block is (10, 256) f32, columns
 // [det x64 | u*det x64 | v*det x64 | t*det x64] of 64 triangles, rows the
 // ray features F = [d, o x d, o, 1]; each output is a 10-term dot of a
-// column with F.
+// column with F. Its pre-split planes (wide_trace.cu `split_planes`) are
+// (2, 10, 256) bf16, h = bf16(c) then l = bf16(c - h), the same 10,240 B:
+// read as 32-bit words, word k*128 + q*32 + w of a plane holds output q of
+// triangles 2w (low half) and 2w + 1 (high half) in row k.
 //
 // Tiers. "highest": fp32 FMAs on the CUDA cores, no TF32, no tensor cores.
 // "high": the TPU kernel's bf16x3 `mt_dot` (pallas_trace.py:187-204,
@@ -35,6 +41,8 @@ namespace mt_block {
 constexpr int kBlockTris = 64;
 constexpr int kBlockFloats = 10 * 4 * kBlockTris;  // 2560
 constexpr unsigned kBlockBytes = kBlockFloats * 4;  // 10,240
+constexpr int kPlaneWords = kBlockFloats / 2;       // one bf16 plane, 1,280
+constexpr int kSplitWords = 2 * kPlaneWords;        // h and l, 10,240 B
 constexpr float kDetEps = 1e-12f;
 
 // MT precision tiers, the wrappers' codes (ops/packet_trace.py PRECISIONS)
@@ -101,19 +109,16 @@ __device__ __forceinline__ void block_dots(const float* __restrict__ blk,
 
 // The same outputs at a reduced tier, out[q*4 + j] for output q of
 // triangle s0+j, from the features' split (fh, fl) and each coefficient's
-// split as it is loaded: kHigh and kTwoPhase sum h*h, h*l and l*h in
-// three accumulators and add them in that order; kDefault forms h*h alone.
-// kTwoPhase also returns the magnitude dots mag = |h|*|h| (the 1-pass bf16
-// product of |blk| and |feat|, bf16 rounding being symmetric).
+// split as it is loaded: kHigh sums h*h, h*l and l*h in three accumulators
+// and adds them in that order; kDefault forms h*h alone.
 template <int kPrec, bool kShared = false>
 __device__ __forceinline__ void block_dots_split(
     const float* __restrict__ blk, const float* fh, const float* fl, int s0,
-    float out[16], float mag[16]) {
+    float out[16]) {
   float hh[16], hl[16], lh[16];
 #pragma unroll
   for (int i = 0; i < 16; ++i) {
     hh[i] = 0.f; hl[i] = 0.f; lh[i] = 0.f;
-    if (kPrec == kTwoPhase) mag[i] = 0.f;
   }
 #pragma unroll
   for (int k = 0; k < 10; ++k) {
@@ -134,7 +139,6 @@ __device__ __forceinline__ void block_dots_split(
           hl[i] = fmaf(ch, flk, hl[i]);
           lh[i] = fmaf(cl, fhk, lh[i]);
         }
-        if (kPrec == kTwoPhase) mag[i] = fmaf(fabsf(ch), fabsf(fhk), mag[i]);
       }
     }
   }
@@ -158,8 +162,8 @@ __device__ __forceinline__ void block_outputs(
     vd[0] = a[2].x; vd[1] = a[2].y; vd[2] = a[2].z; vd[3] = a[2].w;
     td[0] = a[3].x; td[1] = a[3].y; td[2] = a[3].z; td[3] = a[3].w;
   } else {
-    float out[16], mag[16];
-    block_dots_split<kPrec, kShared>(blk, fh, fl, s0, out, mag);
+    float out[16];
+    block_dots_split<kPrec, kShared>(blk, fh, fl, s0, out);
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       det[j] = out[j]; ud[j] = out[4 + j];
@@ -230,6 +234,110 @@ __device__ __forceinline__ bool block_closest(
     return true;
   }
   return false;
+}
+
+
+// ---------------------------------------------------------------------
+// Warp-wide block tests (wide_trace.cu): lane w of a warp forms the dots
+// of triangles 2w and 2w + 1 of the block the warp tests, out[q*2 + j] for
+// output q of triangle 2w + j. Each dot is the per-thread code's sequence
+// of fmaf over k = 0..9, so a triangle's outputs are the same bits either
+// way.
+
+__device__ __forceinline__ float bf16_low(unsigned w) {
+  return __int_as_float(static_cast<int>(w << 16));
+}
+__device__ __forceinline__ float bf16_high(unsigned w) {
+  return __int_as_float(static_cast<int>(w & 0xffff0000u));
+}
+
+// From the pre-split planes `pl` of one block (kSplitWords words): kHigh
+// and kTwoPhase sum h*h, h*l, l*h in three accumulators added (hh + hl) +
+// lh, kDefault forms h*h alone; kTwoPhase also returns the magnitude dots
+// mag = |h|*|h|. Each (row, output) is one 128-byte line of each plane for
+// the warp.
+template <int kPrec>
+__device__ __forceinline__ void lane_dots_split(
+    const unsigned* __restrict__ pl, int lane, const float* fh,
+    const float* fl, float out[8], float mag[8]) {
+  float hh[8], hl[8], lh[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    hh[i] = 0.f; hl[i] = 0.f; lh[i] = 0.f;
+    if (kPrec == kTwoPhase) mag[i] = 0.f;
+  }
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    const float fhk = fh[k];
+    const float flk = kPrec == kDefault ? 0.f : fl[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const unsigned wh = __ldg(pl + k * 128 + q * 32 + lane);
+      const unsigned wl =
+          kPrec == kDefault ? 0u
+                            : __ldg(pl + kPlaneWords + k * 128 + q * 32 + lane);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int i = q * 2 + j;
+        const float ch = j ? bf16_high(wh) : bf16_low(wh);
+        hh[i] = fmaf(ch, fhk, hh[i]);
+        if (kPrec != kDefault) {
+          const float cl = j ? bf16_high(wl) : bf16_low(wl);
+          hl[i] = fmaf(ch, flk, hl[i]);
+          lh[i] = fmaf(cl, fhk, lh[i]);
+        }
+        if (kPrec == kTwoPhase) mag[i] = fmaf(fabsf(ch), fabsf(fhk), mag[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+    out[i] = kPrec == kDefault ? hh[i] : (hh[i] + hl[i]) + lh[i];
+}
+
+// From the fp32 block `blk` with fp32 features: block_dots' sums
+__device__ __forceinline__ void lane_dots(const float* __restrict__ blk,
+                                          int lane, const float* f,
+                                          float out[8]) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i) out[i] = 0.f;
+#pragma unroll
+  for (int k = 0; k < 10; ++k) {
+    const float fk = f[k];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float2 c = __ldg(reinterpret_cast<const float2*>(
+          blk + k * 256 + q * kBlockTris + 2 * lane));
+      out[q * 2] += c.x * fk;
+      out[q * 2 + 1] += c.y * fk;
+    }
+  }
+}
+
+// block_closest's accept test and choice over the lane's two triangles:
+// against the best `best0` at the block's start, the least t (ties to the
+// lower slot) with its us, vs, ad; slot -1 and t = +inf where neither is
+// accepted.
+__device__ __forceinline__ void lane_closest(const float out[8], int lane,
+                                             float tmin, float best0,
+                                             float& tb, int& slot, float& us,
+                                             float& vs, float& ad) {
+  tb = __int_as_float(0x7f800000);
+  slot = -1;
+  us = vs = ad = 0.f;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float s = out[j] >= 0.f ? 1.f : -1.f;
+    const float a = out[j] * s, u = out[2 + j] * s, v = out[4 + j] * s,
+                ts = out[6 + j] * s;
+    if (a > kDetEps && u >= 0.f && v >= 0.f && u + v <= a &&
+        ts > tmin * a && ts < best0 * a) {
+      const float t = ts / fmaxf(a, 1e-37f);
+      if (t < tb) {
+        tb = t; slot = 2 * lane + j; us = u; vs = v; ad = a;
+      }
+    }
+  }
 }
 
 }  // namespace mt_block

@@ -66,10 +66,12 @@
 // three products h*h, h*l, l*h are summed in three fp32 accumulators and
 // added in that order. A product of two bf16 values is exact in fp32, so
 // the CUDA cores form them exactly (FMA contraction changes nothing). The
-// features split once per ray (per instance entry in the two-level mode),
-// the coefficients as they are loaded. "default" forms h*h alone, the TPU's
-// 1-pass bf16. Any hit stays exact fp32 under every tier
-// (pallas_trace.py:390), so the any-hit modes are K2's.
+// features split once per ray (per instance entry in the two-level mode);
+// the coefficients are split once per tracer, into the pre-split planes
+// (`split_planes` below), which the reduced tiers read in place of the
+// fp32 blocks. "default" forms h*h alone, the TPU's 1-pass bf16. Any hit
+// stays exact fp32 under every tier (pallas_trace.py:390), so the any-hit
+// modes are K2's.
 // "two_phase" (K5), per ray (pallas_trace.py:416-481, 744-781): each
 // visited block gets the bf16x3 dots and the magnitude dots |h|*|h|; error
 // bounds e = 1.25e-4 * magnitude give loose and strict accept sets; the
@@ -89,34 +91,57 @@
 // barycentrics and (outside exact-t ties) the id are then K1's on every
 // ray.
 //
-// Queued walks (kQueue: stream, near-first order, or both). The node's 16
-// children are slab-tested first, against the best at the pop; inner hits
-// are pushed and leaf hits queued with their entry distance. The queue is
-// then drained: oldest first (stream; slot order, as K1 visits leaves), or
-// nearest first under the octant order (the order pushes far-to-near, so
-// the stack top is the nearest inner child too). A queued leaf whose entry
-// distance now exceeds the running best is skipped, and each block is
-// tested against the running best with K1's block code. That makes the
-// streamed walk visit leaves and blocks in K1's order with K1's culls, so
-// its results are K1's bit for bit; it only pushes some inner children K1
-// culls, whose own children then all fail their slab tests (a child's box
-// lies inside its parent's). The TPU kernel tests its drain against a
-// superstep snapshot of the best so that the drained matmuls are
-// independent; one thread has no such batch. The queue holds one node's
-// leaf children and is drained before the next pop, so 16 entries always
-// suffice; the TPU kernel's queue (accel.wide.KERNEL_LEAFQ blocks) spans
-// the pops of a superstep. The modes without stream or octant order keep
-// the walk that tests each leaf as it is found: timed against it
-// (tools/torch_time_waves.py, PERF.md), the queued walk is faster on
-// camera and shadow waves but slower on bounce waves, twice as slow on the
-// 1M-triangle tree's, so neither walk replaces the other yet.
+// Warp-wide block tests (the closest hit of the reduced tiers: K4, K5, and
+// K6-K8 at those tiers). One thread per ray that tests whole blocks, as
+// the fp32 modes do, splits each of a block's 2,560 coefficients again for
+// every ray and reads the block as 640 scattered 16-byte loads: lanes on
+// different blocks touch 32 lines per load and use 16 bytes of each. Here
+// the walk stays one ray per lane, in the queued form below, and each
+// node's leaf blocks are tested by the whole warp: the lanes' queues are
+// drained lane after lane, each lane's entries in its own queue order; the
+// drained lane's features are broadcast (__shfl_sync), every lane forms
+// the dots of two of the block's 64 triangles from the pre-split planes
+// (one 128-byte line per plane, row and output, read once), and a warp
+// reduction keeps the least (t, slot), or for the two_phase broad phase
+// the least loose t, strict bound and lower bound. The lane that holds the
+// winner forms u and v, and the drained lane commits with the strict <
+// against the best it had when the block started, so the hit set, t, ids
+// and barycentrics are those of the per-thread code, bit for bit. K5's
+// refine and its exact re-walk take the same drain over the fp32 blocks
+// with K1's per-triangle code (mt_block.cuh `lane_dots`). Every lane runs
+// every warp collective: lanes whose ray is done or lies past the wave
+// stay in the loops with empty queues.
+
+// Queued walks (kQueue: stream, near-first order, or both; every
+// warp-wide walk). The node's 16 children are slab-tested first, against
+// the best at the pop; inner hits are pushed and leaf hits queued with
+// their entry distance. The queue is then drained: oldest first (slot
+// order, as K1 visits leaves), or nearest first under the octant order
+// (the order pushes far-to-near, so the stack top is the nearest inner
+// child too). A queued leaf whose entry distance now exceeds the running
+// best is skipped, and each block is tested against the running best with
+// K1's block code. That makes the queued walk visit leaves and blocks in
+// K1's order with K1's culls, so its results are K1's bit for bit; it only
+// pushes some inner children K1 culls, whose own children then all fail
+// their slab tests (a child's box lies inside its parent's). The TPU
+// kernel tests its drain against a superstep snapshot of the best so that
+// the drained matmuls are independent; one thread has no such batch. The
+// queue holds one node's leaf children and is drained before the next
+// pop, so 16 entries always suffice; the TPU kernel's queue
+// (accel.wide.KERNEL_LEAFQ blocks) spans the pops of a superstep. The fp32
+// modes without stream or octant order keep the walk that tests each leaf
+// as it is found: timed against it (tools/torch_time_waves.py, PERF.md),
+// the queued walk is faster on camera and shadow waves but slower on
+// bounce waves, twice as slow on the 1M-triangle tree's, so neither walk
+// replaces the other yet.
 //
 // Streamed blocks (K6). On the TPU the stream mode exists because the
 // blocks do not fit VMEM: each enqueue starts an HBM->VMEM copy and the
 // drain waits on it. On the card every block is in device memory anyway;
 // the counterpart of "start the copy at enqueue, wait at drain" is one
-// cp.async.bulk.prefetch.L2 per queued block, issued while the rest of the
-// node is expanded, so the block is on its way to L2 before its first
+// cp.async.bulk.prefetch.L2 per queued block (of its pre-split planes at a
+// reduced tier, the h plane alone at "default"), issued while the rest of
+// the node is expanded, so the block is on its way to L2 before its first
 // load. The blocks are read in their (B, 10, 256) layout, unpadded (the
 // TPU's 16-row padding is a Mosaic tiling artefact). Block offsets are
 // computed in size_t: the 1M-triangle colonnade's 24,501 blocks are
@@ -125,9 +150,12 @@
 // A counting instantiation (kCount) also writes, per ray, the node pops,
 // the (ray, block) MT tests (broad-phase tests for two_phase), the
 // instance entries (T F products), the fp32 block tests of two_phase's
-// refine and exact re-walk, and whether the ray walked again;
-// chip_smoke.py reads them to compute each mode's least possible time. It
-// is a separate entry point and never on the render path.
+// refine and exact re-walk, and whether the ray walked again; and, on lane
+// 0 of each warp, the warp-wide drain rounds that tested a block and the
+// distinct blocks they tested (the tensor-core question: how many lanes
+// want one block at once). chip_smoke.py reads them to compute each mode's
+// least possible time. It is a separate entry point and never on the
+// render path.
 //
 // What bounds it on the card: dependent global-memory loads. Every pop reads
 // a 512-byte node and every leaf a 10 KB block, and the next load's address
@@ -135,10 +163,10 @@
 // than the H100's 50 MB L2, so incoherent waves miss to HBM. This version
 // relies on the wrapper's octant + Morton ray sort to keep a warp's rays on
 // the same nodes (one broadcast load per warp) and on the L1/L2 caches.
-// The reduced tiers spend 4-9x K1's arithmetic per block on the CUDA cores
-// (splits and three products), where the TPU forms them on its matrix
-// unit; staging blocks in shared memory, packet traversal per warp and
-// tensor-core products are later work.
+// The reduced tiers form three (two_phase: four) products per term on the
+// CUDA cores, where the TPU forms them on its matrix unit; a block staged
+// in shared memory for the lanes that share it, and tensor-core products
+// over such lanes, are later work.
 //
 // Floating point: nvcc's default contraction (--fmad=true) is kept, so the
 // feature cross products and the fp32 10-term dots use FMAs where the XLA
@@ -159,6 +187,7 @@ constexpr int kPipeQ = 256;         // backlog entries of the pipelined walk
 constexpr int kPipeDrain = 4;       // its block tests per iteration
 constexpr int kMaxPops = 1 << 22;   // guard against malformed trees
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
 // walks (kWalk)
 constexpr int kClassic = 0;   // each leaf tested as it is found (K1)
@@ -199,10 +228,20 @@ __device__ __forceinline__ void object_features(
   }
 }
 
-__device__ __forceinline__ void prefetch_l2(const float* p) {
+__device__ __forceinline__ void prefetch_l2(const void* p, unsigned bytes) {
   asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;"
-               :: "l"(__cvta_generic_to_global(p)), "r"(kBlockBytes)
+               :: "l"(__cvta_generic_to_global(p)), "r"(bytes)
                : "memory");
+}
+
+// A float's 32-bit key in the floats' order (any non-NaN value), -0 as +0:
+// the warp reductions take the least key with one __reduce_min_sync
+__device__ __forceinline__ unsigned order_key(float x) {
+  const unsigned u = __float_as_uint(x + 0.f);
+  return (u & 0x80000000u) ? ~u : u | 0x80000000u;
+}
+__device__ __forceinline__ float key_value(unsigned k) {
+  return __uint_as_float((k & 0x80000000u) ? k & 0x7fffffffu : ~k);
 }
 
 struct Ray {
@@ -220,49 +259,51 @@ struct Candidates {
   int b1, b2;
 };
 
-// Broad phase of one block (pallas_trace.py:416-481): bf16x3 dots, error
-// bounds from the magnitude dots, loose and strict accept sets; the
-// block's least loose t competes for the two candidate slots (strict <,
-// so a tie keeps the earlier block), its least sound strict-hit bound
-// tightens the cull bound. Beyond the TPU kernel, the block also carries
-// tLo, a sound lower bound of the t of any hit it can hold ((ts - e_t) /
-// (ad + e_det) over its loose triangles; -inf where that is not
-// positive or the determinant's sign is unreliable), and a block that
-// leaves or never enters the two slots lowers `evicted` to its tLo.
-__device__ __forceinline__ void block_broad(const float* __restrict__ blk,
-                                            int tag, const float* fh,
-                                            const float* fl, float tmin,
-                                            Candidates& cd) {
+// Broad phase of one block for the lane's two triangles
+// (pallas_trace.py:416-481): bf16x3 dots and the magnitude dots, error
+// bounds from them, loose and strict accept sets; tL the least loose t,
+// tS the least sound upper bound of a strict hit, and, beyond the TPU
+// kernel, tLo a sound lower bound of the t of any hit the triangles can
+// hold ((ts - e_t) / (ad + e_det) over the loose ones; -inf where that is
+// not positive or the determinant's sign is unreliable). The warp then
+// takes each one's least over its lanes.
+__device__ __forceinline__ void lane_broad(const float out[8],
+                                           const float mag[8], float tmin,
+                                           float& tL, float& tS, float& tLo) {
   const float inf = __int_as_float(0x7f800000);
-  float tL = inf, tS = inf, tLo = inf;
-  for (int s0 = 0; s0 < kBlockTris; s0 += 4) {
-    float out[16], mag[16];
-    block_dots_split<kTwoPhase>(blk, fh, fl, s0, out, mag);
+  tL = inf; tS = inf; tLo = inf;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float det = out[j];
-      const float s = det >= 0.f ? 1.f : -1.f;
-      const float ad = det * s, us = out[4 + j] * s, vs = out[8 + j] * s,
-                  ts = out[12 + j] * s;
-      const float e_det = kTpK * mag[j], e_u = kTpK * mag[4 + j],
-                  e_v = kTpK * mag[8 + j], e_t = kTpK * mag[12 + j];
-      const bool unrel = ad <= e_det && mag[j] > 0.f;
-      const bool solid = ad > e_det;
-      const bool loose =
-          unrel || (solid && us >= -e_u && vs >= -e_v &&
-                    us + vs <= ad + e_u + e_v + e_det &&
-                    ts > tmin * ad - tmin * e_det - e_t - kTpAbs);
-      const bool strict = solid && us >= e_u && vs >= e_v &&
-                          us + vs <= ad - e_u - e_v - e_det &&
-                          ts > tmin * ad + tmin * e_det + e_t + kTpAbs;
-      if (loose) {
-        tL = fminf(tL, unrel ? 3e36f : ts * (1.0f / fmaxf(ad, 1e-37f)));
-        const float num = ts - e_t;
-        tLo = fminf(tLo, unrel || num < 0.f ? -inf : num / (ad + e_det));
-      }
-      if (strict) tS = fminf(tS, (ts + e_t) / fmaxf(ad - e_det, 1e-37f));
+  for (int j = 0; j < 2; ++j) {
+    const float det = out[j];
+    const float s = det >= 0.f ? 1.f : -1.f;
+    const float ad = det * s, us = out[2 + j] * s, vs = out[4 + j] * s,
+                ts = out[6 + j] * s;
+    const float e_det = kTpK * mag[j], e_u = kTpK * mag[2 + j],
+                e_v = kTpK * mag[4 + j], e_t = kTpK * mag[6 + j];
+    const bool unrel = ad <= e_det && mag[j] > 0.f;
+    const bool solid = ad > e_det;
+    const bool loose =
+        unrel || (solid && us >= -e_u && vs >= -e_v &&
+                  us + vs <= ad + e_u + e_v + e_det &&
+                  ts > tmin * ad - tmin * e_det - e_t - kTpAbs);
+    const bool strict = solid && us >= e_u && vs >= e_v &&
+                        us + vs <= ad - e_u - e_v - e_det &&
+                        ts > tmin * ad + tmin * e_det + e_t + kTpAbs;
+    if (loose) {
+      tL = fminf(tL, unrel ? 3e36f : ts * (1.0f / fmaxf(ad, 1e-37f)));
+      const float num = ts - e_t;
+      tLo = fminf(tLo, unrel || num < 0.f ? -inf : num / (ad + e_det));
     }
+    if (strict) tS = fminf(tS, (ts + e_t) / fmaxf(ad - e_det, 1e-37f));
   }
+}
+
+// A block's broad-phase result folded into the ray's candidates: its
+// least loose t competes for the two slots (strict <, so a tie keeps the
+// earlier block), a block that leaves or never enters them lowers
+// `evicted` to its tLo, and its least strict bound tightens the cull bound.
+__device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
+                                           int tag, Candidates& cd) {
   if (tL < 3e37f) {
     if (tL < cd.t1) {
       cd.evicted = fminf(cd.evicted, cd.lo2);
@@ -282,17 +323,19 @@ __device__ __forceinline__ void block_broad(const float* __restrict__ blk,
 }
 
 // One instantiation per mode. kAnyHit, kInst, kPrec and kCount as above;
-// kWalk picks the walk, kProf an ablation mode of the classic and queued
-// walks, and kPaired takes closest or any hit per thread from its ray
-// index (K8): rays below n_split are a closest-hit wave, the others an
-// any-hit wave. n_split is a multiple of the block size, so no warp holds
-// rays of both waves.
+// kWalk picks the walk of the per-thread modes, kProf an ablation mode of
+// the classic and queued walks, and kPaired takes closest or any hit per
+// thread from its ray index (K8): rays below n_split are a closest-hit
+// wave, the others an any-hit wave. n_split is a multiple of the block
+// size, so no warp holds rays of both waves. Closest hit at a reduced tier
+// (kSplit) always takes the warp-wide queued walk.
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf, bool kPaired>
 __global__ void __launch_bounds__(kThreads)
 wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
                   const float* __restrict__ nodes,
                   const float* __restrict__ blocks,
+                  const unsigned* __restrict__ planes,
                   const int* __restrict__ meta,
                   const float* __restrict__ inst_feat,
                   const int* __restrict__ worder, int prefetch,
@@ -303,17 +346,28 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
+  const int lane = threadIdx.x & 31;
   const bool any_hit = kPaired ? i >= n_split : kAnyHit;
+  // the warp-wide modes keep every lane of the warp: one past the wave
+  // runs as a dead ray (tmax < tmin)
+  const bool warp_wide = kSplit && !any_hit;
+  const bool in_wave = i < n_rays;
+  if (!in_wave && !warp_wide) return;
   Ray r;
-  r.ox = rays[i];
-  r.oy = rays[n_rays + i];
-  r.oz = rays[2 * n_rays + i];
-  const float dx = rays[3 * n_rays + i];
-  const float dy = rays[4 * n_rays + i];
-  const float dz = rays[5 * n_rays + i];
-  r.tmin = rays[6 * n_rays + i];
-  r.tmax = rays[7 * n_rays + i];
+  float dx = 0.f, dy = 0.f, dz = 0.f;
+  r.ox = r.oy = r.oz = 0.f;
+  r.tmin = 0.f;
+  r.tmax = -1.f;
+  if (in_wave) {
+    r.ox = rays[i];
+    r.oy = rays[n_rays + i];
+    r.oz = rays[2 * n_rays + i];
+    dx = rays[3 * n_rays + i];
+    dy = rays[4 * n_rays + i];
+    dz = rays[5 * n_rays + i];
+    r.tmin = rays[6 * n_rays + i];
+    r.tmax = rays[7 * n_rays + i];
+  }
   r.ix = guarded_inv(dx);
   r.iy = guarded_inv(dy);
   r.iz = guarded_inv(dz);
@@ -325,10 +379,11 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   bool occluded = false;
   const float inf = __int_as_float(0x7f800000);
   Candidates cd{r.tmax, kTpNone, kTpNone, inf, inf, inf, -1, -1};
-  // two_phase: the broad phase, then (for rays whose candidates may miss
-  // the winner) an exact fp32 walk
+  // two_phase: the broad phase, then the exact fp32 refine (and, for rays
+  // whose candidates may miss the winner, an exact walk); warp-uniform
   bool broad = kPrec == kTwoPhase;
   int n_pops = 0, n_tests = 0, n_xforms = 0, n_refine = 0;
+  int n_rounds = 0, n_distinct = 0;   // warp-uniform (kCount)
   // instanced: object-space features of instance cur_inst (and their split)
   float fo[10], foh[10], fol[10];
   int cur_inst = -1;
@@ -341,37 +396,28 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
     return best;
   };
 
-  // test block b of instance inst (an any-hit ray sets `occluded`)
+  // test block b of instance inst, one thread (fp32; an any-hit ray sets
+  // `occluded`)
   auto visit_block = [&](int inst, int b) {
     if (kProf == kProfNoMt) return;
     const float* f = r.f;
-    const float* fh = r.fh;
-    const float* fl = r.fl;
     if (kInst) {
       if (inst != cur_inst) {
         object_features(inst_feat, inst, r.f, fo);
-        if (kSplit) split_features(fo, foh, fol);
         cur_inst = inst;
         if (kCount) ++n_xforms;
       }
-      f = fo; fh = foh; fl = fol;
+      f = fo;
     }
     const float* blk = blocks + (size_t)b * kBlockFloats;
-    if (kCount) {
-      if (kPrec == kTwoPhase && !broad) ++n_refine; else ++n_tests;
-    }
+    if (kCount) ++n_tests;
     if (any_hit) {
       if (block_any<kHighest>(blk, f, nullptr, nullptr, r.tmin, r.tmax))
         occluded = true;
-    } else if (kPrec == kTwoPhase) {
-      if (broad)
-        block_broad(blk, kInst ? (inst << 14 | b) : b, fh, fl, r.tmin, cd);
-      else if (block_closest<kHighest>(blk, b, f, fh, fl, r.tmin, best, sid,
-                                       bu, bv))
+    } else if constexpr (!kSplit) {
+      if (block_closest<kHighest>(blk, b, f, nullptr, nullptr, r.tmin, best,
+                                  sid, bu, bv))
         best_inst = inst;
-    } else if (block_closest<kPrec>(blk, b, f, fh, fl, r.tmin, best, sid,
-                                    bu, bv)) {
-      best_inst = inst;
     }
   };
 
@@ -401,6 +447,51 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   };
 
   const int octant = (dx < 0.f) + 2 * (dy < 0.f) + 4 * (dz < 0.f);
+
+  // Slab-test the 16 children of node n against the bound at the pop: push
+  // the inner hits, queue the leaf hits (qv, qt) in the order found
+  // (worder: the near-first order), prefetching their blocks if asked.
+  auto expand = [&](int n, int* stack, int& sp, int* qv, float* qt,
+                    int& q) {
+    const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
+    const int* mrow = meta + n * kWidth;
+    int w0 = 0, w1 = 0;
+    if (worder != nullptr) {
+      w0 = __ldg(worder + (n * 8 + octant) * 2);
+      w1 = __ldg(worder + (n * 8 + octant) * 2 + 1);
+    }
+    const float cull0 = cull_now();
+    for (int j = 0; j < kWidth; ++j) {
+      const int c =
+          worder != nullptr ? ((j < 8 ? w0 : w1) >> (4 * (j & 7))) & 15 : j;
+      const int mc = __ldg(mrow + c);
+      if (mc == -1) continue;  // empty slot: bounds are placeholders
+      float tnear;
+      if (!slab(rec, c, cull0, tnear)) continue;
+      if (mc >= 0) {
+        stack[sp < kStack ? sp : kStack - 1] = mc;
+        sp = sp < kStack ? sp + 1 : kStack;
+        continue;
+      }
+      const int val = -mc - 2;
+      qv[q] = val;
+      qt[q] = tnear;
+      ++q;
+      if (prefetch) {
+        const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
+        for (int k = 0; k < (val & 31); ++k) {
+          if (kSplit && !any_hit)   // "default" reads the h plane alone
+            prefetch_l2(planes + (size_t)(b0 + k) * kSplitWords,
+                        kPrec == kDefault ? kBlockBytes / 2 : kBlockBytes);
+          else
+            prefetch_l2(blocks + (size_t)(b0 + k) * kBlockFloats,
+                        kBlockBytes);
+        }
+      }
+    }
+  };
+
+  // The per-thread walks of the fp32 modes and of any hit.
   auto walk = [&]() {
     int stack[kStack];
     int sp = 0;
@@ -411,51 +502,32 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
       if (kProf == kProfFix64 && sp == 0) continue;
       const int n = stack[--sp];
       if (kSteps) ++n_pops;
-      const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
-      const int* mrow = meta + n * kWidth;
-      // queued walks: leaf hits of this node, in the order found
-      int qv[kQueue ? kWidth : 1];
-      float qt[kQueue ? kWidth : 1];
-      int q = 0;
-      int w0 = 0, w1 = 0;
-      if (kQueue && worder != nullptr) {
-        w0 = __ldg(worder + (n * 8 + octant) * 2);
-        w1 = __ldg(worder + (n * 8 + octant) * 2 + 1);
-      }
-      const float cull0 = cull_now();
-      for (int j = 0; j < kWidth; ++j) {
-        int c = j;
-        if (kQueue && worder != nullptr)
-          c = ((j < 8 ? w0 : w1) >> (4 * (j & 7))) & 15;
-        const int mc = __ldg(mrow + c);
-        if (mc == -1) continue;  // empty slot: bounds are placeholders
-        float tnear;
-        if (!slab(rec, c, kQueue ? cull0 : cull_now(), tnear)) continue;
-        if (mc >= 0) {
-          stack[sp < kStack ? sp : kStack - 1] = mc;
-          sp = sp < kStack ? sp + 1 : kStack;
-          continue;
-        }
-        const int val = -mc - 2;
-        if (!kQueue) {
-          visit_leaf(val);
-          if (any_hit && occluded) break;
-          continue;
-        }
-        qv[q] = val;
-        qt[q] = tnear;
-        ++q;
-        if (prefetch) {
-          const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
-          for (int k = 0; k < (val & 31); ++k)
-            prefetch_l2(blocks + (size_t)(b0 + k) * kBlockFloats);
-        }
-      }
       if (kQueue) {
+        int qv[kWidth];
+        float qt[kWidth];
+        int q = 0;
+        expand(n, stack, sp, qv, qt, q);
         for (int k = 0; k < q; ++k) {
           const int e = worder != nullptr ? q - 1 - k : k;
           if (!(qt[e] <= cull_now())) continue;
           visit_leaf(qv[e]);
+          if (any_hit && occluded) break;
+        }
+      } else {
+        const float4* rec =
+            reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
+        const int* mrow = meta + n * kWidth;
+        for (int c = 0; c < kWidth; ++c) {
+          const int mc = __ldg(mrow + c);
+          if (mc == -1) continue;  // empty slot: bounds are placeholders
+          float tnear;
+          if (!slab(rec, c, cull_now(), tnear)) continue;
+          if (mc >= 0) {
+            stack[sp < kStack ? sp : kStack - 1] = mc;
+            sp = sp < kStack ? sp + 1 : kStack;
+            continue;
+          }
+          visit_leaf(-mc - 2);
           if (any_hit && occluded) break;
         }
       }
@@ -556,57 +628,241 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
     }
   };
 
+  // ---- the warp-wide modes (kSplit closest hit) ----------------------
+  // Every lambda below is entered by all 32 lanes together, and every
+  // branch around a warp collective is warp-uniform: it depends only on
+  // values broadcast from one lane or reduced over the warp.
+
+  // One block b (of instance inst) tested by the warp for lane L's ray,
+  // whose features the lanes hold broadcast (of: the split h, or the fp32
+  // features in the exact phase; ofl: the split l), against the bound ob
+  // (L's best; two_phase's broad phase: L's raw cull bound), which it
+  // updates as L's own state is updated.
+  auto warp_block = [&](int L, int b, int inst, const float* of,
+                        const float* ofl, float o_tmin, float& ob) {
+    const bool exact = kPrec == kTwoPhase && !broad;
+    float out[8], mag[8];
+    if (exact)
+      lane_dots(blocks + (size_t)b * kBlockFloats, lane, of, out);
+    else
+      lane_dots_split<kPrec>(planes + (size_t)b * kSplitWords, lane, of, ofl,
+                             out, mag);
+    if (kCount && lane == L) {
+      if (exact) ++n_refine; else ++n_tests;
+    }
+    if (kPrec == kTwoPhase && !exact) {
+      float tL, tS, tLo;
+      lane_broad(out, mag, o_tmin, tL, tS, tLo);
+      tL = key_value(__reduce_min_sync(kFull, order_key(tL)));
+      tS = key_value(__reduce_min_sync(kFull, order_key(tS)));
+      tLo = key_value(__reduce_min_sync(kFull, order_key(tLo)));
+      if (lane == L) fold_broad(tL, tS, tLo, kInst ? (inst << 14 | b) : b, cd);
+      if (tS < 3e37f && tS + kTpAbs < ob) ob = tS + kTpAbs;
+      return;
+    }
+    float tl, us, vs, ad;
+    int sl;
+    lane_closest(out, lane, o_tmin, ob, tl, sl, us, vs, ad);
+    const unsigned key = order_key(tl);
+    const unsigned least = __reduce_min_sync(kFull, key);
+    if (least == order_key(inf)) return;   // nothing accepted
+    // the least t, ties to the lowest slot: the lowest lane holding it
+    const int w = __ffs(__ballot_sync(kFull, key == least)) - 1;
+    const float tb = __shfl_sync(kFull, tl, w);
+    const int slot = __shfl_sync(kFull, sl, w);
+    if (!(tb < ob)) return;
+    float ub = 0.f, vb = 0.f;
+    if (lane == w) {
+      const float iad = 1.0f / fmaxf(ad, 1e-37f);
+      ub = us * iad;
+      vb = vs * iad;
+    }
+    ub = __shfl_sync(kFull, ub, w);
+    vb = __shfl_sync(kFull, vb, w);
+    ob = tb;
+    if (lane == L) {
+      best = tb;
+      sid = b * kBlockTris + slot;
+      bu = ub;
+      bv = vb;
+      best_inst = inst;
+    }
+  };
+
+  // lane L's current features, broadcast (split, or fp32 in the exact
+  // phase; the instance's object features in the two-level mode)
+  auto broadcast_features = [&](int L, float* of, float* ofl) {
+    const bool exact = kPrec == kTwoPhase && !broad;
+    const float* h = exact ? (kInst ? fo : r.f) : (kInst ? foh : r.fh);
+    const float* l = kInst ? fol : r.fl;
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+      of[k] = __shfl_sync(kFull, h[k], L);
+      if (!exact && kPrec != kDefault) ofl[k] = __shfl_sync(kFull, l[k], L);
+    }
+  };
+
+  // lane L (only) enters instance inst's object space
+  auto enter_instance = [&](int L, int inst) {
+    if (lane != L || inst == cur_inst) return;
+    object_features(inst_feat, inst, r.f, fo);
+    if (!(kPrec == kTwoPhase && !broad)) split_features(fo, foh, fol);
+    cur_inst = inst;
+    if (kCount) ++n_xforms;
+  };
+
+  // whether this lane tested block b in the current drain round (kCount:
+  // the distinct blocks of a round)
+  auto tested_block = [&](int b, const int* qv, int q, unsigned tested) {
+    for (int e = 0; e < q; ++e) {
+      if (!((tested >> e) & 1u)) continue;
+      const int b0 = kInst ? (qv[e] >> 5) & 0x3FFF : qv[e] >> 5;
+      if (b >= b0 && b < b0 + (qv[e] & 31)) return true;
+    }
+    return false;
+  };
+
+  // Drain every lane's queue (q entries qv, qt), lane after lane, each in
+  // its own queue order (newest first under the octant order); an entry
+  // whose distance exceeds the drained lane's bound is skipped.
+  auto drain = [&](const int* qv, const float* qt, int q) {
+    const bool exact = kPrec == kTwoPhase && !broad;
+    unsigned tested = 0;
+    int round_tests = 0, round_distinct = 0;
+    for (unsigned pend = __ballot_sync(kFull, q > 0); pend;
+         pend &= pend - 1) {
+      const int L = __ffs(pend) - 1;
+      const int nq = __shfl_sync(kFull, q, L);
+      const float o_tmin = __shfl_sync(kFull, r.tmin, L);
+      float ob = __shfl_sync(
+          kFull, kPrec == kTwoPhase && !exact ? cd.cull : best, L);
+      float of[10], ofl[10];
+      int o_inst = -1;
+      if (!kInst) broadcast_features(L, of, ofl);
+      for (int e = 0; e < nq; ++e) {
+        const int ee = worder != nullptr ? nq - 1 - e : e;
+        const int val = __shfl_sync(kFull, ee < q ? qv[ee] : 0, L);
+        const float tn = __shfl_sync(kFull, ee < q ? qt[ee] : 0.f, L);
+        const float bound = kPrec == kTwoPhase && !exact
+                                ? ob * (1.0f + kTpRel) + kTpAbs
+                                : ob;
+        if (!(tn <= bound)) continue;
+        if (kCount && lane == L) tested |= 1u << ee;
+        const int nb = val & 31;
+        const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
+        const int inst = kInst ? val >> 19 : 0;
+        if (kInst && inst != o_inst) {
+          enter_instance(L, inst);
+          broadcast_features(L, of, ofl);
+          o_inst = inst;
+        }
+        for (int j = 0; j < nb; ++j) {
+          if (kCount && !exact) {
+            const bool seen = __any_sync(
+                kFull, lane < L && tested_block(b0 + j, qv, q, tested));
+            round_distinct += !seen;
+            ++round_tests;
+          }
+          warp_block(L, b0 + j, inst, of, ofl, o_tmin, ob);
+        }
+      }
+    }
+    if (kCount && round_tests > 0) {
+      ++n_rounds;
+      n_distinct += round_distinct;
+    }
+  };
+
+  // The warp-wide walk: each lane with a ray to walk (`start`) pops one
+  // node and queues its leaves, then the warp drains the queues, until no
+  // lane has a node left.
+  auto warp_walk = [&](bool start) {
+    int stack[kStack];
+    int sp = 0, pops = 0;
+    if (start) stack[sp++] = 0;
+    while (__any_sync(kFull, sp > 0 && pops < kMaxPops)) {
+      int qv[kWidth];
+      float qt[kWidth];
+      int q = 0;
+      if (sp > 0 && pops < kMaxPops) {
+        const int n = stack[--sp];
+        ++pops;
+        if (kSteps) ++n_pops;
+        expand(n, stack, sp, qv, qt, q);
+      }
+      drain(qv, qt, q);
+    }
+  };
+
+  // two_phase's refine, warp-wide: each lane's distinct candidates in
+  // ascending (instance, block) order, exact fp32, from best = tmax
+  auto warp_refine = [&](bool has_ray) {
+    const int lo = cd.b1 < cd.b2 ? cd.b1 : cd.b2;
+    const int hi = cd.b1 < cd.b2 ? cd.b2 : cd.b1;
+    const int c0 = has_ray ? lo : -1;
+    const int c1 = has_ray && hi != lo ? hi : -1;
+    for (unsigned pend = __ballot_sync(kFull, c0 >= 0 || c1 >= 0); pend;
+         pend &= pend - 1) {
+      const int L = __ffs(pend) - 1;
+      const float o_tmin = __shfl_sync(kFull, r.tmin, L);
+      float ob = __shfl_sync(kFull, best, L);
+      float of[10], ofl[10];
+      if (!kInst) broadcast_features(L, of, ofl);
+      for (int k = 0; k < 2; ++k) {
+        const int tag = __shfl_sync(kFull, k == 0 ? c0 : c1, L);
+        if (tag < 0) continue;
+        const int b = kInst ? tag & 0x3FFF : tag;
+        const int inst = kInst ? tag >> 14 : 0;
+        if (kInst) {
+          if (lane == L) {
+            object_features(inst_feat, inst, r.f, fo);
+            cur_inst = inst;
+            if (kCount) ++n_xforms;
+          }
+          broadcast_features(L, of, ofl);
+        }
+        warp_block(L, b, inst, of, ofl, o_tmin, ob);
+      }
+    }
+  };
+
   // A ray with tmax <= tmin (dead lanes carry tmax = tmin - 1) can accept
   // no triangle: skip the walk.
+  const bool live = kProf != kProfEmpty && r.tmax > r.tmin;
   bool fell_back = false;
-  if (kProf != kProfEmpty && r.tmax > r.tmin) {
+  if (warp_wide) {
+    if constexpr (kSplit) {
+      warp_walk(live);
+      if (kPrec == kTwoPhase) {
+        if (live) {
+          best = r.tmax;
+          sid = -1;
+          bu = bv = 0.f;
+          best_inst = 0;
+        }
+        broad = false;
+        warp_refine(live);
+        // A block that left (or never entered) the two slots holds no hit
+        // nearer than its lower bound; if that bound falls below the
+        // refined best, the winner may be among them (loose phantoms near
+        // tmin crowd the slots on rays that leave a surface): walk again
+        // with K1's exact blocks, from tmax.
+        fell_back = live && cd.evicted < best;
+        if (fell_back) {
+          best = r.tmax;
+          sid = -1;
+          bu = bv = 0.f;
+          best_inst = 0;
+        }
+        warp_walk(fell_back);
+      }
+    }
+  } else if (live) {
     if constexpr (kWalk == kPipe || kWalk == kPipeFlat) walk_pipe();
     else walk();
   }
 
-  if (kPrec == kTwoPhase && !any_hit && r.tmax > r.tmin) {
-    // refine: the distinct candidates in ascending order, exact fp32
-    best = r.tmax;
-    sid = -1;
-    bu = bv = 0.f;
-    best_inst = 0;
-    const int lo = cd.b1 < cd.b2 ? cd.b1 : cd.b2;
-    const int hi = cd.b1 < cd.b2 ? cd.b2 : cd.b1;
-    for (int k = 0; k < 2; ++k) {
-      const int tag = k == 0 ? lo : hi;
-      if (tag < 0 || (k == 1 && tag == lo)) continue;
-      int b = tag, inst = 0;
-      const float* f = r.f;
-      if (kInst) {
-        b = tag & 0x3FFF;
-        inst = tag >> 14;
-        object_features(inst_feat, inst, r.f, fo);
-        cur_inst = inst;
-        f = fo;
-        if (kCount) ++n_xforms;
-      }
-      if (kCount) ++n_refine;
-      if (block_closest<kHighest>(blocks + (size_t)b * kBlockFloats, b, f,
-                                  nullptr, nullptr, r.tmin, best, sid, bu,
-                                  bv))
-        best_inst = inst;
-    }
-    // A block that left (or never entered) the two slots holds no hit
-    // nearer than its lower bound; if that bound falls below the refined
-    // best, the winner may be among them (loose phantoms near tmin crowd
-    // the slots on rays that leave a surface): walk again with K1's exact
-    // blocks, from tmax.
-    if (cd.evicted < best) {
-      fell_back = true;
-      broad = false;
-      best = r.tmax;
-      sid = -1;
-      bu = bv = 0.f;
-      best_inst = 0;
-      walk();
-    }
-  }
-
+  if (!in_wave) return;
   t_out[i] = any_hit ? r.tmax : best;
   sid_out[i] = any_hit ? (occluded ? 1 : -1) : sid;
   u_out[i] = kProf == kProfCount ? static_cast<float>(n_pops) : bu;
@@ -618,7 +874,28 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
     counts[2 * n_rays + i] = n_xforms;
     counts[3 * n_rays + i] = n_refine;
     counts[4 * n_rays + i] = fell_back;
+    counts[5 * n_rays + i] = lane == 0 ? n_rounds : 0;
+    counts[6 * n_rays + i] = lane == 0 ? n_distinct : 0;
   }
+}
+
+// The pre-split planes of the coefficient blocks: h = bf16(c) and
+// l = bf16(c - h), round to nearest even, one thread per coefficient, as
+// (B, 2, 10, 256) bf16 (the TPU kernel splits the coefficients inside
+// `mt_dot` at every block visit, pallas_trace.py:194-197; the split
+// depends only on the scene, so it is done once per tracer). Bound by
+// bytes: 4 read and 4 written per coefficient.
+__global__ void __launch_bounds__(256)
+split_planes_kernel(const float* __restrict__ blocks, int n_blocks,
+                    unsigned short* __restrict__ planes) {
+  const size_t c = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= (size_t)n_blocks * kBlockFloats) return;
+  const size_t b = c / kBlockFloats, k = c % kBlockFloats;
+  const float x = blocks[c];
+  const __nv_bfloat16 h = __float2bfloat16_rn(x);
+  const __nv_bfloat16 l = __float2bfloat16_rn(x - __bfloat162float(h));
+  planes[b * 2 * kBlockFloats + k] = __bfloat16_as_ushort(h);
+  planes[b * 2 * kBlockFloats + kBlockFloats + k] = __bfloat16_as_ushort(l);
 }
 
 struct Launch {
@@ -629,6 +906,7 @@ struct Launch {
   int n_split;
   const float* nodes;
   const float* blocks;
+  const unsigned* planes;
   const int* meta;
   const float* inst_feat;
   const int* worder;
@@ -646,14 +924,15 @@ template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
 void launch(const Launch& l) {
   wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>
       <<<l.grid, kThreads, 0, l.stream>>>(
-          l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.meta,
+          l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
           l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
           l.v_out, l.inst_out, l.counts);
 }
 
 constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
-// K1-K7: the classic or queued walk at a tier
+// K1-K7: the classic or queued walk at a tier; closest hit at a reduced
+// tier always takes the warp-wide queued walk (one instantiation)
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
@@ -662,9 +941,11 @@ int by_precision(int prec, const Launch& l) {
   } else {
     switch (prec) {
       case kHighest: launch<false, kInst, kCount, kHighest, kWalk>(l); break;
-      case kHigh: launch<false, kInst, kCount, kHigh, kWalk>(l); break;
-      case kDefault: launch<false, kInst, kCount, kDefault, kWalk>(l); break;
-      case kTwoPhase: launch<false, kInst, kCount, kTwoPhase, kWalk>(l); break;
+      case kHigh: launch<false, kInst, kCount, kHigh, kQueued>(l); break;
+      case kDefault: launch<false, kInst, kCount, kDefault, kQueued>(l); break;
+      case kTwoPhase:
+        launch<false, kInst, kCount, kTwoPhase, kQueued>(l);
+        break;
       default: return kBadMode;
     }
   }
@@ -687,8 +968,9 @@ int by_mode(int any_hit, int prec, bool queue, const Launch& l) {
 }
 
 // K8: one launch over a closest-hit and an any-hit wave, one tree level,
-// the classic or the streamed walk, the closest half at any tier. The
-// counting instantiation exists at the fp32 tier.
+// the classic or the streamed walk for the any-hit half (and the fp32
+// closest half), the closest half at any tier. The counting instantiation
+// exists at the fp32 tier.
 template <bool kCount, int kWalk>
 int paired(int prec, const Launch& l) {
   switch (prec) {
@@ -800,18 +1082,23 @@ extern "C" {
 // any-hit wave, over one tree level, with the classic or the streamed
 // walk. inst_feat non-null selects the two-level mode, which also writes
 // inst_out in closest-hit mode. mt_prec: 0 highest, 1 high, 2 default,
-// 3 two_phase (closest hit only). worder non-null selects the near-first
+// 3 two_phase (closest hit only); closest hit at a tier below highest reads
+// the blocks' pre-split planes `planes` (wide_trace_split_planes), which
+// must then be given. worder non-null selects the near-first
 // octant order; stream != 0 queues and prefetches the leaf blocks. walk:
 // 0 the classic or queued walk, 1 the pipelined walk (K9), 2 the same
 // with the flat push (single-block leaves only); both fp32, without
 // stream or octant order. profile: 0 none, 1 empty, 2 nomt, 3 fix64,
 // 4 count, on the one-level fp32 walk (empty and nomt also with stream).
-// counts non-null selects the counting instantiation: (5, n_rays) i32 rows
+// counts non-null selects the counting instantiation: (7, n_rays) i32 rows
 // of node pops, MT block tests, instance entries, fp32 refine / re-walk
-// block tests and re-walks. Allocates nothing and does not synchronise.
+// block tests, re-walks, and on lane 0 of each warp its warp-wide drain
+// rounds that tested a block and the distinct blocks of those rounds.
+// Allocates nothing and does not synchronise.
 int wide_trace_launch(const float* rays, int n_rays, int n_split,
                       const float* nodes, const float* blocks,
-                      const int* meta, const float* inst_feat,
+                      const void* planes, const int* meta,
+                      const float* inst_feat,
                       const int* worder, int any_hit, int mt_prec,
                       int stream, int walk, int profile, float* t_out,
                       int* sid_out, float* u_out, float* v_out,
@@ -820,16 +1107,33 @@ int wide_trace_launch(const float* rays, int n_rays, int n_split,
       (mt_prec == kTwoPhase && stream) || any_hit < 0 || any_hit > 2 ||
       walk < 0 || walk > 2 || profile < kProfNone || profile > kProfCount ||
       (any_hit == 2 && (n_split < 0 || n_split > n_rays ||
-                        n_split % kThreads != 0)))
+                        n_split % kThreads != 0)) ||
+      (any_hit != 1 && mt_prec != kHighest && planes == nullptr))
     return kBadMode;
   const Launch l{dim3((n_rays + kThreads - 1) / kThreads),
                  static_cast<cudaStream_t>(cuda_stream), rays, n_rays,
-                 n_split, nodes, blocks, meta, inst_feat, worder, stream,
+                 n_split, nodes, blocks,
+                 static_cast<const unsigned*>(planes), meta, inst_feat,
+                 worder, stream,
                  t_out, sid_out, u_out, v_out, inst_out, counts};
   const int rc = counts != nullptr
                      ? dispatch<true>(any_hit, mt_prec, stream, walk, profile, l)
                      : dispatch<false>(any_hit, mt_prec, stream, walk, profile, l);
   if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Writes the (n_blocks, 2, 10, 256) bf16 pre-split planes of the
+// (n_blocks, 10, 256) f32 blocks on `stream`; returns cudaGetLastError().
+int wide_trace_split_planes(const float* blocks, int n_blocks, void* planes,
+                            void* cuda_stream) {
+  const size_t n = (size_t)n_blocks * kBlockFloats;
+  if (n_blocks < 0) return kBadMode;
+  if (n == 0) return 0;
+  const dim3 grid((unsigned)((n + 255) / 256));
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  split_planes_kernel<<<grid, 256, 0, stream>>>(
+      blocks, n_blocks, static_cast<unsigned short*>(planes));
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,7 +12,9 @@ closest hits map kernel slot ids to triangle ids through `wslot`.
 `_make_kernel_pipe` in every mode: closest hit and any hit over one tree
 (K1, K2) and over the two-level instanced tree of accel/tlas.py (K3,
 given `inst_feat`); the Moller-Trumbore precision tiers "high" /
-"default" (K4) and "two_phase" (K5) of closest hit; streamed leaf blocks
+"default" (K4) and "two_phase" (K5) of closest hit, which a warp tests
+block by block from the blocks' pre-split bf16 planes (`split_planes`,
+built once per tracer by the same source's split kernel); streamed leaf blocks
 (K6, `stream`) and the near-first octant order (K7, `worder`); the
 pipelined walk with its flat push (K9, `pipe`, `flat_walk`) and the
 ablation modes (`profile`). `trace_wide_paired` launches a closest-hit and
@@ -83,6 +85,7 @@ PROFILES = {"none": 0, "empty": 1, "nomt": 2, "fix64": 3, "count": 4}
 PROFILE = "none"      # make_packet_tracer's default ablation mode
 PAIR_ALIGN = 128      # the kernel's block size: K8's any-hit rays start at
                       # a multiple of it, so no warp holds both waves
+COUNT_ROWS = 7        # rows of the counting instantiation's table
 
 
 def launch_key(any_hit: bool, instanced: bool = False,
@@ -132,6 +135,7 @@ LAUNCHES.update({launch_key(a, stream=s, profile=m): 0
                  for a in (False, True) for m in PROFILES if m != "none"
                  for s in ((False, True) if m in ("empty", "nomt")
                            else (False,))})
+LAUNCHES["split_planes"] = 0   # the pre-split planes of the reduced tiers
 
 _libs = {}
 _lib_lock = threading.Lock()
@@ -194,8 +198,10 @@ def load_library(name: str, declare):
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.wide_trace_launch.restype = i
-    lib.wide_trace_launch.argtypes = [p, i, i, p, p, p, p, p, i, i, i, i, i,
-                                      p, p, p, p, p, p, p]
+    lib.wide_trace_launch.argtypes = [p, i, i, p, p, p, p, p, p, i, i, i,
+                                      i, i, p, p, p, p, p, p, p]
+    lib.wide_trace_split_planes.restype = i
+    lib.wide_trace_split_planes.argtypes = [p, i, p, p]
     lib.wide_trace_error_string.restype = ctypes.c_char_p
     lib.wide_trace_error_string.argtypes = [i]
 
@@ -258,14 +264,53 @@ def _single_block_leaves(meta) -> bool:
     return bool((((-m - 2) & 31) == 1).all())
 
 
+def split_planes_plain(blocks):
+    """The pre-split planes of the (B, 10, 256) f32 coefficient blocks:
+    (B, 2, 10, 256) bf16, h = bf16(c) and l = bf16(c - h), each rounded to
+    nearest even (c - h is exact in fp32): the split of the TPU kernel's
+    `mt_dot` (pallas_trace.py:194-197), done once for the scene."""
+    h = blocks.to(torch.bfloat16)
+    low = (blocks - h.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack([h, low], dim=1).contiguous()
+
+
+def split_planes(blocks):
+    """`split_planes_plain`'s table, from the kernel's split kernel on CUDA
+    tensors (counted in LAUNCHES["split_planes"]); CPU tensors take the
+    plain version. The reduced tiers' closest hit reads these planes in
+    place of the fp32 blocks."""
+    if blocks.device.type == "cpu":
+        return split_planes_plain(blocks)
+    if blocks.device.type != "cuda":
+        raise ValueError(f"split_planes: unsupported device {blocks.device}")
+    _check("blocks", blocks, torch.float32, (blocks.shape[0], 10, 256),
+           blocks.device)
+    planes = torch.empty((blocks.shape[0], 2, 10, 256), dtype=torch.bfloat16,
+                         device=blocks.device)
+    if blocks.shape[0] == 0:
+        return planes
+    lib = _library()
+    with torch.cuda.device(blocks.device):
+        rc = lib.wide_trace_split_planes(
+            blocks.data_ptr(), blocks.shape[0], planes.data_ptr(),
+            torch.cuda.current_stream(blocks.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("split_planes kernel launch failed: "
+                           + lib.wide_trace_error_string(rc).decode())
+    LAUNCHES["split_planes"] += 1
+    return planes
+
+
 def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
             worder=None, mt_precision="highest", stream=False, walk=0,
-            profile="none", n_split=0):
+            profile="none", n_split=0, planes=None):
     """Check the inputs, allocate the outputs and launch one wave of the
     kernel on the current stream. any_hit: False, True, or 2 for the
     paired launch (rays below `n_split` closest hit, the others any hit);
     walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
-    push. Returns (t, sid, u, v, inst, counts); inst is None outside the
+    push; `planes`: the blocks' pre-split planes, which closest hit at a
+    reduced tier reads and which must then be given.
+    Returns (t, sid, u, v, inst, counts); inst is None outside the
     instanced closest-hit mode, counts None unless `count`. The caller
     has checked the mode (`check_mode`); the C entry refuses a bad one
     again."""
@@ -284,13 +329,25 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
         _check("worder", worder, torch.int32, (nodes.shape[0] * 16,), dev)
         if worder.shape[0] != nodes.shape[0] * 16:
             raise ValueError("worder must hold 16 words per node")
+    if any_hit is True or mt_precision == "highest":
+        planes = None           # no closest hit at a reduced tier
+    elif planes is None:
+        raise ValueError(f"closest hit at mt_precision={mt_precision!r} "
+                         f"reads the blocks' pre-split planes: pass "
+                         f"planes=split_planes(blocks), which a tracer "
+                         f"builds once")
+    else:
+        _check("planes", planes, torch.bfloat16,
+               (blocks.shape[0], 2, 10, 256), dev)
+        if planes.shape[0] != blocks.shape[0]:
+            raise ValueError("planes must hold one block's planes per block")
     t = torch.empty(r, dtype=torch.float32, device=dev)
     sid = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
     v = torch.empty(r, dtype=torch.float32, device=dev)
     inst = (torch.empty(r, dtype=torch.int32, device=dev)
             if inst_feat is not None and any_hit is False else None)
-    counts = (torch.empty((5, r), dtype=torch.int32, device=dev)
+    counts = (torch.empty((COUNT_ROWS, r), dtype=torch.int32, device=dev)
               if count else None)
     if r == 0:
         return t, sid, u, v, inst, counts
@@ -299,6 +356,7 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
         cuda_stream = torch.cuda.current_stream(dev).cuda_stream
         rc = lib.wide_trace_launch(
             rays.data_ptr(), r, n_split, nodes.data_ptr(), blocks.data_ptr(),
+            planes.data_ptr() if planes is not None else None,
             meta.data_ptr(),
             inst_feat.data_ptr() if inst_feat is not None else None,
             worder.data_ptr() if worder is not None else None,
@@ -327,7 +385,7 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
                worder=None, mt_precision: str = "highest",
                stream: bool = False, pipe: bool = False,
                flat_walk: bool = False, profile: str = "none",
-               checked: bool = False):
+               checked: bool = False, planes=None):
     """Trace one wave over the wide BVH.
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
@@ -342,7 +400,11 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     tree's leaves up on every call (a device sync) unless the caller says
     it has `checked` that each owns one block, as `make_packet_tracer`
     does once; `profile` is an ablation mode of the one-level fp32 walk
-    (PROFILES: wrong results by design). Returns (t, sid, u, v), each (R,): t = best t (tmax on a
+    (PROFILES: wrong results by design); `planes` ((B, 2, 10, 256) bf16,
+    `split_planes(blocks)`) are what closest hit reads at a reduced tier,
+    required there on CUDA tensors (a tracer builds them once; the plain
+    version forms the split itself).
+    Returns (t, sid, u, v), each (R,): t = best t (tmax on a
     miss), sid = block*64 + slot of the hit (-1 on a miss; any-hit: 1 if
     occluded), barycentrics u, v; the instanced closest-hit mode adds
     inst, the instance of the hit. CPU tensors take the plain version;
@@ -366,7 +428,7 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
         raise ValueError(f"trace_wide: unsupported device {rays.device}")
     t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, bool(any_hit),
                                     inst_feat, False, worder, prec, stream,
-                                    walk, profile)
+                                    walk, profile, planes=planes)
     if rays.shape[1]:       # an empty wave launches nothing
         LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
                             worder is not None, stream, pipe, flat_walk,
@@ -381,7 +443,7 @@ def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
                          mt_precision: str = "highest",
                          stream: bool = False, pipe: bool = False,
                          flat_walk: bool = False, profile: str = "none",
-                         checked: bool = False):
+                         checked: bool = False, planes=None):
     """The plain PyTorch version of the kernel mode `trace_wide` would
     launch with these arguments, on any device, with its outputs:
     `trace_wide_profile_plain` for an ablation mode,
@@ -389,7 +451,8 @@ def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
     `trace_wide_plain` / `trace_wide_inst_plain` at the closest-hit tier.
     The walk (`worder`, `stream`, `pipe`, `flat_walk`, `checked`) changes
     how the kernel visits blocks, not what it computes, so it selects
-    nothing here."""
+    nothing here; `planes` hold the split the plain versions form
+    themselves."""
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
     prec = "highest" if any_hit else mt_precision
     if profile != "none":
@@ -442,7 +505,8 @@ def pair_rays(rays_c, rays_a):
 
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
-                      mt_precision: str = "highest", stream: bool = False):
+                      mt_precision: str = "highest", stream: bool = False,
+                      planes=None):
     """Trace a closest-hit wave and an independent any-hit wave in ONE
     kernel launch (K8, pallas_trace.py `trace_paired`): one grid covers
     both waves and each thread takes its mode from its ray index. One tree
@@ -450,7 +514,8 @@ def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
     any-hit rays stay exact fp32. Either wave may be longer, or empty.
     Returns ((t, sid, u, v) of the closest wave, the any-hit wave's sid:
     1 occluded, -1 not): the same walks as `trace_wide`, so bit for bit
-    its results. CPU tensors take the two plain versions."""
+    its results; `planes` as in `trace_wide`. CPU tensors take the two
+    plain versions."""
     check_mode(mt_precision, stream)
     if rays_c.device.type == "cpu":
         return (trace_wide_reference(rays_c, nodes, blocks, meta, False,
@@ -465,7 +530,8 @@ def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
     nc = rays_c.shape[1]
     rays, n_split = pair_rays(rays_c, rays_a)
     t, sid, u, v, _, _ = _launch(rays, nodes, blocks, meta, 2, None, False,
-                                 None, mt_precision, stream, n_split=n_split)
+                                 None, mt_precision, stream, n_split=n_split,
+                                 planes=planes)
     if rays.shape[1]:
         LAUNCHES[launch_key(False, mt_precision=mt_precision, stream=stream,
                             paired=True)] += 1
@@ -473,9 +539,11 @@ def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
 
 
 def _count_sums(counts) -> dict:
-    pops, tests, xforms, refine, rewalks = counts.long().sum(dim=1).tolist()
+    (pops, tests, xforms, refine, rewalks, rounds,
+     distinct) = counts.long().sum(dim=1).tolist()
     return {"pops": pops, "mt_tests": tests, "inst_entries": xforms,
-            "refine_tests": refine, "rewalks": rewalks}
+            "refine_tests": refine, "rewalks": rewalks,
+            "drain_rounds": rounds, "distinct_blocks": distinct}
 
 
 def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
@@ -483,21 +551,27 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
                       mt_precision: str = "highest",
                       stream: bool = False, pipe: bool = False,
                       flat_walk: bool = False, profile: str = "none",
-                      per_ray: bool = False, checked: bool = False):
+                      per_ray: bool = False, checked: bool = False,
+                      planes=None):
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
     entries (T F products), two_phase's fp32 block tests (refine and
-    exact re-walk) and its re-walked rays. With `per_ray`, the (5, R) i32
-    table of these per ray instead of their sums. Of the ablation modes
-    "nomt" and "fix64" have a counting instantiation."""
+    exact re-walk), its re-walked rays, and for the warp-wide modes
+    (closest hit at a reduced tier) the drain rounds that tested a block
+    and the distinct blocks tested in them, summed over the warps (so MT
+    tests / distinct blocks is the lanes that tested one block in one
+    round). With `per_ray`, the (7, R) i32 table instead of the sums, the
+    last two rows on each warp's lane 0. Of the ablation modes "nomt" and
+    "fix64" have a counting instantiation. `planes` as in `trace_wide`."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
     counts = _launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      True, worder, "highest" if any_hit else mt_precision,
                      stream, _walk_code(meta, pipe or flat_walk, flat_walk,
-                                        checked), profile)[5]
+                                        checked), profile,
+                     planes=planes)[5]
     return counts if per_ray else _count_sums(counts)
 
 
@@ -945,7 +1019,10 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     (its refusal there rests on TPU measurements and a Mosaic reduce
     fault, pallas_trace.py:1383-1397). `trace_fn` traces one (8, R) wave
     with trace_wide's arguments: the kernel wrapper `trace_wide`, or
-    `trace_wide_reference` to hold a render to the plain version.
+    `trace_wide_reference` to hold a render to the plain version. At a
+    reduced tier the blocks' pre-split planes (`split_planes`) are built
+    once, here, and passed with every wave (`trace_closest.planes`; None
+    at "highest"; the plain versions ignore them).
 
     `trace_closest.paired(oc, dc, tminc, tmaxc, oa, da, tmina, tmaxa,
     active_c=None, active_a=None)` traces a closest-hit wave and an
@@ -990,6 +1067,9 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         sort = n_nodes > SORT_MIN_NODES
 
     scene_lo, inv_extent = sort_frame(nodes)
+    # the reduced tiers' closest hit reads the blocks' pre-split planes:
+    # split once, here, for every wave this tracer traces
+    planes = split_planes(blocks) if mt_precision != "highest" else None
     walk_opts = {}
     if pipe:
         walk_opts.update(pipe=True, flat_walk=flat_walk, checked=flat_walk)
@@ -1037,7 +1117,8 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         rays, perm = _sorted_wave(o, d, tmin, tmax, active)
         out = trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
                        worder=None if any_hit else worder,
-                       mt_precision=mt_precision, stream=stream, **walk_opts)
+                       mt_precision=mt_precision, stream=stream,
+                       planes=planes, **walk_opts)
         t, sid, u, v, inst = _unsort(
             perm, [*out[:4], out[4] if len(out) > 4 else None])
         if any_hit:
@@ -1065,16 +1146,20 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         rays_a, perm_a = _sorted_wave(oa, da, tmina, tmaxa, active_a)
         if trace_fn is trace_wide:
             (t, sid, u, v), occ = trace_wide_paired(
-                rays_c, rays_a, nodes, blocks, meta, mt_precision, stream)
+                rays_c, rays_a, nodes, blocks, meta, mt_precision, stream,
+                planes=planes)
         else:
             t, sid, u, v = trace_fn(rays_c, nodes, blocks, meta, False, None,
-                                    mt_precision=mt_precision, stream=stream)
+                                    mt_precision=mt_precision, stream=stream,
+                                    planes=planes)
             occ = trace_fn(rays_a, nodes, blocks, meta, True, None,
-                           mt_precision=mt_precision, stream=stream)[1]
+                           mt_precision=mt_precision, stream=stream,
+                           planes=planes)[1]
         rec = _record(*_unsort(perm_c, [t, sid, u, v]))
         return rec, _unsort(perm_a, [occ])[0] >= 0
 
-    # the paired entry rides as an attribute so that the (closest, any)
-    # pair stays what callers unpack
+    # the paired entry and the planes ride as attributes so that the
+    # (closest, any) pair stays what callers unpack
     trace_closest.paired = trace_paired
+    trace_closest.planes = planes
     return trace_closest, trace_any

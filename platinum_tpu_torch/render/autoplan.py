@@ -30,10 +30,13 @@ MIN_COMPACT_N = 8192  # below this the static plan does not compact either
 
 
 def measure_live_fractions(flat, settings: RenderSettings,
-                           probe_spp: int = 1) -> np.ndarray:
+                           probe_spp: int = 1, *,
+                           tracers=None) -> np.ndarray:
     """(max_bounces,) mean fraction of lanes still active after each
     bounce, over `probe_spp` samples of a strided pixel subset run through
-    the bounce body without compaction, with the scene's own feature set."""
+    the bounce body without compaction, with the scene's own feature set;
+    `tracers` is the (trace_closest, trace_any) pair to use (built for
+    the probe when None)."""
     from platinum_tpu_torch.render import integrator
     from platinum_tpu_torch.render.flatten import analyze_features
 
@@ -43,7 +46,7 @@ def measure_live_fractions(flat, settings: RenderSettings,
     npx = settings.num_pixels
     stride = max(1, npx // PROBE_LANES)
     ids = torch.arange(0, npx, stride, device=flat.camera.position.device)
-    body = integrator.make_bounce_body(flat, probe, feats)
+    body = integrator.make_bounce_body(flat, probe, feats, tracers)
 
     fr = np.zeros(settings.max_bounces, np.float64)
     for si in range(probe_spp):
@@ -108,16 +111,17 @@ def validate_plan(plan, n: int, max_bounces: int) -> None:
 
 
 def resolve_auto_plan(flat, settings: RenderSettings,
-                      probe_spp: int = 1) -> RenderSettings:
+                      probe_spp: int = 1, *, tracers=None) -> RenderSettings:
     """settings with compact_plan="auto" replaced by a measured plan (or
     by None where the static rules would not compact); other settings are
-    returned as they are."""
+    returned as they are. `tracers` as in measure_live_fractions."""
     if settings.compact_plan != "auto":
         return settings
     n_lanes = settings.num_pixels * max(1, settings.spp_batch)
     if (not settings.compact or n_lanes < MIN_COMPACT_N
             or settings.max_bounces <= 3):
         return replace(settings, compact_plan=None)
-    live = measure_live_fractions(flat, settings, probe_spp=probe_spp)
+    live = measure_live_fractions(flat, settings, probe_spp=probe_spp,
+                                  tracers=tracers)
     plan = plan_from_live(live, n_lanes, settings.max_bounces)
     return replace(settings, compact_plan=plan)

@@ -312,21 +312,30 @@ def flatten_scene(
     scene: Scene,
     camera_node_id: int | None = None,
     settings: RenderSettings | None = None,
+    build_accel: bool = True,
     accel_min_tris: int = 32,
-    device="cuda",
+    accel_max_leaf: int | None = None,
     host_accel_out: dict | None = None,
+    *,
+    device="cuda",
 ) -> FlatScene:
     """Compile `scene` to a FlatScene of tensors on `device` (the card by
-    default; raises when there is none). `host_accel_out`, when a dict,
-    receives the host-side instanced structure ({"ibvh", "mesh_wides",
-    "mesh_tri_base", "instances"}) so that the Renderer can refit an
-    instance's transform without a rebuild.
+    default; raises when there is none). The JAX package's parameters in
+    its order: `build_accel=False` builds no BVH (and no instancing), a
+    scene below `accel_min_tris` triangles gets none either, and
+    `accel_max_leaf` (default settings.accel_max_leaf) is the BVH's
+    leaf size. `host_accel_out`, when a dict, receives the host-side
+    instanced structure ({"ibvh", "mesh_wides", "mesh_tri_base",
+    "instances"}) so that the Renderer can refit an instance's transform
+    without a rebuild.
 
     Leaf for leaf the same arrays as the JAX package's flatten_scene on the
     baked path. Scenes textured (atlas) flatten fine but are refused by
     the integrator until ops/texturing.py is ported."""
     device = resolve_device(device)
     settings = settings or RenderSettings()
+    if accel_max_leaf is None:
+        accel_max_leaf = settings.accel_max_leaf
     working = cs.get_colorspace(settings.working_space)
     idt = cs.transform(cs.BT709, working)
 
@@ -360,10 +369,11 @@ def flatten_scene(
 
     # Two-level instancing decision (JAX flatten.py:378-395)
     n_unique = len({id(i.mesh) for i in instances}) if instances else 0
-    use_instancing = settings.tracer in ("packet", "auto") and (
-        settings.instancing == "on"
-        or (settings.instancing == "auto" and len(instances) > n_unique)
-    )
+    use_instancing = (
+        build_accel and settings.tracer in ("packet", "auto")
+        and (settings.instancing == "on"
+             or (settings.instancing == "auto"
+                 and len(instances) > n_unique)))
     if use_instancing:
         total_tris = sum(i.mesh.num_triangles for i in instances)
         use_instancing = total_tris >= accel_min_tris
@@ -375,7 +385,8 @@ def flatten_scene(
     if use_instancing:
         return _flatten_instanced(
             scene, camera_node_id, settings, instances, material_row,
-            texture_entry, mat_ids, tex_assets, idt, device, host_accel_out)
+            texture_entry, mat_ids, tex_assets, idt, accel_max_leaf, device,
+            host_accel_out)
 
     # Geometry: bake instances into world space
     positions, normals, tangents, uvs, indices, tri_mats = [], [], [], [], [], []
@@ -420,12 +431,12 @@ def flatten_scene(
     # Acceleration structure: BVH build + leaf-contiguous triangle order
     bvh_arrays = {}
     bvh_host = None
-    if len(indices) >= accel_min_tris:
+    if build_accel and len(indices) >= accel_min_tris:
         bvh = bvh_host = get_builder()(
             positions[indices[:, 0]],
             positions[indices[:, 1]],
             positions[indices[:, 2]],
-            max_leaf=settings.accel_max_leaf,
+            max_leaf=accel_max_leaf,
         )
         indices = indices[bvh.tri_order]
         tri_mats = tri_mats[bvh.tri_order]
@@ -522,7 +533,7 @@ def flatten_scene(
 
 def _flatten_instanced(scene, camera_node_id, settings, instances,
                        material_row, texture_entry, mat_ids, tex_assets,
-                       idt, device, host_accel_out=None):
+                       idt, accel_max_leaf, device, host_accel_out=None):
     """Two-level TLAS/BLAS flatten (JAX `_flatten_instanced`): geometry is
     an object-space library of the unique meshes (stored once), each
     instance adds world-space BLAS node rows and a feature-transform
@@ -544,7 +555,7 @@ def _flatten_instanced(scene, camera_node_id, settings, instances,
         p = mesh.positions
         idx = mesh.indices.astype(np.int64)
         bvh = builder(p[idx[:, 0]], p[idx[:, 1]], p[idx[:, 2]],
-                      max_leaf=settings.accel_max_leaf)
+                      max_leaf=accel_max_leaf)
         idxm = idx[bvh.tri_order]
         positions.append(p.astype(F))
         normals.append(mesh.normals.astype(F))

@@ -83,8 +83,9 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
     tracer for "packet"/"auto" when the scene has one (with the octant
     order, streamed blocks and MT tier of JAX integrator.py:92-101); for
     "bf" the breadth-first tracer's closest hit at the tier beside the
-    packet tracer's any hit (JAX integrator.py:66-85: two_phase maps to
-    "highest" there, and the breadth-first tracer refuses it); else brute
+    packet tracer's any hit, which is fp32 under every tier (JAX
+    integrator.py:66-85; the breadth-first tracer refuses two_phase); else
+    brute
     force. Options raise where they cannot be honoured: an unknown tier,
     two_phase over streamed blocks or with "bf", oct_order without octant
     orders, "bf" over an instanced or partitioned scene, and a tier or
@@ -101,10 +102,10 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
             flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
             mt_precision=settings.mt_precision,
             depth=settings.bf_depth or None)
+        # any hit is the fp32 test under every tier: no planes to split
         _, pk_a = make_packet_tracer(
             flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
-            mt_precision=("highest" if settings.mt_precision == "two_phase"
-                          else settings.mt_precision))
+            mt_precision="highest")
         return bf_c, pk_a
     if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
         if settings.oct_order and flat.wbvh_order is None:
@@ -567,11 +568,15 @@ def _compaction_plan(n: int, settings: RenderSettings):
 
 
 def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
-                  tracers=None, return_stats: bool = False,
+                  pixel_ids=None, tracers=None, return_stats: bool = False,
                   features: frozenset = bsdf_mod.ALL_FEATURES):
     """Trace one sample per pixel; returns (R, 3) radiance. With
     return_stats also the number of rays traced (closest + shadow).
-    `tracers` overrides the (trace_closest, trace_any) pair. With
+    `pixel_ids` (a subset of the pixels, which the JAX package's
+    multi-device path shards) is not ported yet: any value but None
+    raises NotImplementedError. `tracers` overrides the
+    (trace_closest, trace_any) pair, which is otherwise built for this
+    call (the Renderer builds it once per start_render). With
     settings.compact the wave shrinks between the plan's segments; lane
     selection keys on PRNGKey(0) folded with the sample index, then with
     the segment index, as in the JAX package.
@@ -582,17 +587,21 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     indices sample_idx .. sample_idx + B - 1 draw, and the radiance
     returned is the per-pixel SUM of the B samples (callers divide by
     their spp count as usual)."""
+    if pixel_ids is not None:
+        raise NotImplementedError(
+            "render_sample(pixel_ids=...) belongs to the multi-device path, "
+            "not ported to platinum_tpu_torch yet (ROADMAP queue 1)")
     fused = _fuse_shadow_active(settings, features)
     dev = flat.camera.position.device
     batch = max(1, settings.spp_batch)
     if batch > 1:
         npx = settings.num_pixels
-        pixel_ids = torch.arange(npx, device=dev).repeat(batch)
+        lane_pixels = torch.arange(npx, device=dev).repeat(batch)
         lane_idx = int(sample_idx) + torch.arange(
             batch, device=dev).repeat_interleave(npx)
-        state = init_path_state(flat, settings, lane_idx, pixel_ids,
+        state = init_path_state(flat, settings, lane_idx, lane_pixels,
                                 with_shadow_state=fused)
-        state["slot"] = pixel_ids.to(torch.int32)
+        state["slot"] = lane_pixels.to(torch.int32)
     else:
         state = init_path_state(flat, settings, sample_idx,
                                 with_shadow_state=fused)
@@ -669,17 +678,19 @@ def render(flat: FlatScene, settings: RenderSettings,
            features: frozenset = bsdf_mod.ALL_FEATURES,
            spp_per_call: int = 8) -> torch.Tensor:
     """Render settings.spp samples; (H, W, 3) linear working-space radiance.
-    compact_plan="auto" is resolved here first (render/autoplan.py)."""
+    compact_plan="auto" is resolved here first (render/autoplan.py). The
+    tracer pair is built once, for the probe and every sample."""
+    tracers = make_tracers(flat, settings)
     if settings.compact_plan == "auto":
         from platinum_tpu_torch.render import autoplan
 
-        settings = autoplan.resolve_auto_plan(flat, settings)
+        settings = autoplan.resolve_auto_plan(flat, settings, tracers=tracers)
     accum = torch.zeros((settings.num_pixels, 3),
                         device=flat.camera.position.device)
     done = 0
     while done < settings.spp:
         n = min(spp_per_call, settings.spp - done)
         accum = render_step_n(flat, settings, accum, done, n,
-                              features=features)
+                              features=features, tracers=tracers)
         done += n
     return accum.reshape(settings.height, settings.width, 3)

@@ -1,15 +1,17 @@
 """Progressive renderer API, torch edition.
 
 Port of the library entry point of platinum_tpu/render/renderer.py
-(README "Library API"): `Renderer(scene)`, `start_render` latches settings
-and flattens the scene onto the device (resolving compact_plan="auto"),
-`render()` advances one progressive sample, `status` reports
+(README "Library API"): `Renderer(scene)`, `start_render` latches settings,
+flattens the scene onto the device, builds the (trace_closest, trace_any)
+pair once (for the auto plan's probe and every sample) and resolves
+compact_plan="auto", `render()` advances one progressive sample, `status`
+reports
 Ready/Busy/Done, `readback()` pulls the image to the host, `export_exr`
 writes it through io/exr.py, and `update_instance_transform` refits an
 instanced scene after a transform edit. GMoN buckets raise; the preview
-ladder, checkpoints, progress and timing properties, `export_png` (post
-stack and tonemap) and the partitioned branch of the transform edit are
-not ported yet.
+ladder, checkpoints, progress and timing properties, `export_png` and the
+post stack (`post_options`) and the partitioned branch of the transform
+edit are not ported yet.
 """
 
 from __future__ import annotations
@@ -34,14 +36,21 @@ class RenderStatus(enum.IntFlag):
 
 
 class Renderer:
-    def __init__(self, scene, device="cuda"):
-        """`device`: where the scene and the accumulator live (default:
-        the current CUDA device; raises when there is none, and runs on
-        the CPU only when asked with device="cpu")."""
+    def __init__(self, scene, post_options=None, *, device="cuda"):
+        """`post_options` (the JAX Renderer's post stack) is not ported
+        yet: any value but None raises NotImplementedError. `device`:
+        where the scene and the accumulator live (default: the current
+        CUDA device; raises when there is none, and runs on the CPU only
+        when asked with device="cpu")."""
+        if post_options is not None:
+            raise NotImplementedError(
+                "Renderer(post_options=...): the post stack is not ported "
+                "to platinum_tpu_torch yet (ROADMAP queue 1)")
         self.scene = scene
         self.device = resolve_device(device)
         self.settings: RenderSettings | None = None
         self.flat: FlatScene | None = None
+        self._tracers = None
         self._accum = None
         self._accumulated = 0
 
@@ -69,9 +78,10 @@ class Renderer:
             self.settings = dataclasses.replace(
                 self.settings,
                 bf_depth=_tree_depth(self.flat.wbvh_meta.cpu().numpy()))
+        self._tracers = integrator.make_tracers(self.flat, self.settings)
         if self.settings.compact_plan == "auto":
-            self.settings = autoplan.resolve_auto_plan(self.flat,
-                                                       self.settings)
+            self.settings = autoplan.resolve_auto_plan(
+                self.flat, self.settings, tracers=self._tracers)
         self._accum = torch.zeros((self.settings.num_pixels, 3),
                                   device=self.device)
         self._accumulated = 0
@@ -84,15 +94,16 @@ class Renderer:
         batch = max(1, self.settings.spp_batch)
         self._accum = integrator.render_step_n(
             self.flat, self.settings, self._accum, self._accumulated,
-            batch, features=self._features)
+            batch, features=self._features, tracers=self._tracers)
         self._accumulated += batch
 
     def update_instance_transform(self, node_id: int, transform=None):
         """Apply a transform edit without rebuilding the BVH (instanced
         scenes; the JAX Renderer's single-structure branch): the
         instance's world-space BLAS rows and feature matrix are recomputed,
-        the TLAS is refit in place, the changed tables are uploaded and
-        accumulation restarts. Raises for a scene that is not instanced."""
+        the TLAS is refit in place, the changed tables are uploaded, the
+        tracer pair is built again over them and accumulation restarts.
+        Raises for a scene that is not instanced."""
         if not self._host_accel or self.flat.instances is None:
             raise ValueError("scene is not instanced; call start_render()")
         if transform is not None:
@@ -116,6 +127,7 @@ class Renderer:
             wbvh_nodes=torch.from_numpy(ibvh.nodes).to(self.device),
             instances=dataclasses.replace(self.flat.instances, rows=rows,
                                           feat=feat))
+        self._tracers = integrator.make_tracers(self.flat, self.settings)
         self._accum = torch.zeros_like(self._accum)
         self._accumulated = 0
 

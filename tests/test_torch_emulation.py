@@ -8,7 +8,10 @@ is held here: every mode of wide_trace.cu that computes K1's function
 and without the flat push, the paired launch) gives K1's / K2's results
 bit for bit, on one tree level and on the instanced tree; K1, K2 and the
 reduced tiers agree with their plain versions under the bars of
-tests/test_torch_gpu.py; the ablation modes do what they must; the
+tests/test_torch_gpu.py; the reduced tiers' warp-wide drain over the
+pre-split planes (built by the split kernel, bit for bit their plain
+version) gives the per-thread code's results; the ablation modes do what
+they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit; and the five kernels of bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
@@ -82,7 +85,8 @@ def test_emulated_k1_k2_match_plain_versions(emulation, soup, any_hit):
 def test_emulated_tier_matches_its_plain_version(emulation, soup, tier):
     nodes, blocks, meta, _ = soup
     with emulation:
-        k = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+        k = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier,
+                           planes=pt.split_planes(blocks))
     p = pt.trace_wide_reference(RC, nodes, blocks, meta, False,
                                 mt_precision=tier)
     if tier == "high":
@@ -106,12 +110,14 @@ def test_emulated_mode_is_k1_and_k2_bit_for_bit(emulation, soup, name):
     kw = dict(MODES[name])
     if kw.pop("oct", False):
         kw["worder"] = worder
+    if "mt_precision" in kw:
+        kw["planes"] = pt.split_planes(blocks)
     with emulation:
         k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
         k = emu.trace_wide(RC, nodes, blocks, meta, False, **kw)
         assert emu.same_bits(k, k1) and (k1[1] >= 0).sum() > 100
-        kw.pop("worder", None)
-        kw.pop("mt_precision", None)
+        for key in ("worder", "mt_precision", "planes"):
+            kw.pop(key, None)
         k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
         assert emu.same_bits(emu.trace_wide(RA, nodes, blocks, meta, True,
                                             **kw), k2)
@@ -185,6 +191,8 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
 def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
     nodes, blocks, meta, _ = soup
     rc, ra = RC[:, :n_c].contiguous(), RA[:, :n_a].contiguous()
+    if "mt_precision" in mode:
+        mode = dict(mode, planes=pt.split_planes(blocks))
     with emulation:
         closest, occ = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
                                              **mode)
@@ -261,6 +269,117 @@ def test_emulated_instanced_modes(emulation, instanced):
     assert torch.equal(k3[4][same], p[4][same])
 
 
+@pytest.fixture(scope="module")
+def multi_block():
+    """A soup whose leaves hold up to four blocks: one node's queue holds
+    more than 16 blocks."""
+    return emu.soup_tree(n_tris=3000, seed=5, leaf_cap=256)
+
+
+def _per_thread_closest(rays, blocks, tier):
+    """Closest hit of every ray over every block through the emulated
+    leaf-pair kernel (K15: one thread tests one (ray, block) pair with
+    csrc/mt_block.cuh's per-triangle arithmetic), reduced per ray: (t, id,
+    u, v, tied), tied where another block gives the same least t."""
+    n, nb = rays.shape[1], blocks.shape[0]
+    pair_ray = torch.arange(n, dtype=torch.int32).repeat_interleave(nb)
+    pair_block = torch.arange(nb, dtype=torch.int32).repeat(n)
+    t, slot, u, v = (x.view(n, nb) for x in emu.stream_mt(
+        rays, rays[7].contiguous(), pair_ray, pair_block, blocks, False,
+        tier))
+    tb, arg = t.min(dim=1)
+    tied = (t == tb[:, None]).sum(dim=1) > 1
+    pick = arg[:, None]
+    return (tb, slot.gather(1, pick)[:, 0], u.gather(1, pick)[:, 0],
+            v.gather(1, pick)[:, 0], tied)
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "instanced"])
+def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
+                                                   multi_block, instanced,
+                                                   tree):
+    """The split kernel's planes are its plain version's in every bit, and
+    the warp-wide "high" drain over them gives the per-thread code's
+    results: on one-level trees, queues of more than 16 blocks included,
+    those of the leaf-pair kernel run on every (ray, block) pair (hit set
+    and t in every bit; id, u and v too except at exact-t ties between
+    blocks, which the walk breaks by visiting order); on the instanced
+    tree the plain version's, t to HIGH_T_RTOL and instance ids equal.
+    The counting instantiation's drain rounds and distinct blocks bracket
+    its tests."""
+    nodes, blocks, meta, feat = (instanced if tree == "instanced" else
+                                 {"soup": soup, "multi_block": multi_block}[
+                                     tree][:3] + (None,))
+    with emulation:
+        planes = emu.split_planes(blocks)
+        k4 = emu.trace_wide(RC, nodes, blocks, meta, False, inst_feat=feat,
+                            mt_precision="high", planes=planes)
+        counts = emu.trace_wide(RC, nodes, blocks, meta, False,
+                                inst_feat=feat, mt_precision="high",
+                                planes=planes, count=True)
+        if feat is None:
+            ref = _per_thread_closest(RC, blocks, "high")
+    assert torch.equal(planes.view(torch.int16),
+                       pt.split_planes_plain(blocks).view(torch.int16))
+    rows = meta.long().view(-1, 16)
+    nb = torch.where(rows <= -2, (-rows - 2) & 31, 0).sum(1)
+    assert int(nb.max()) > 16 or tree != "multi_block"
+    tests, rounds, distinct = (int(counts[r].sum()) for r in (1, 5, 6))
+    assert 0 < rounds <= distinct <= tests
+    hit = k4[1] >= 0
+    assert hit.sum() > 100
+    if feat is None:
+        assert torch.equal(ref[1] >= 0, hit)
+        assert emu.same_bits((k4[0][hit],), (ref[0][hit],))
+        keep = hit & ~ref[4]
+        assert keep.sum() > 100
+        assert torch.equal(k4[1][keep], ref[1][keep])
+        assert emu.same_bits((k4[2][keep], k4[3][keep]),
+                             (ref[2][keep], ref[3][keep]))
+    else:
+        p = pt.trace_wide_inst_plain(RC, nodes, blocks, meta, False, feat,
+                                     mt_precision="high")
+        _hold_to_plain(k4, p, rtol=HIGH_T_RTOL, atol=0.0)
+        same = hit & (k4[1] == p[1])
+        assert torch.equal(k4[4][same], p[4][same])
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block"])
+def test_replayed_walk_is_emulated_k4(emulation, soup, multi_block, tree):
+    """chip_smoke.py's `_replay_walk` (3j's certificate: K4's walk for one
+    ray, one thread's way, on the host, each block tested by K15) gives
+    the emulated K4 "high"'s t, id and barycentrics in every bit, hits
+    and misses alike."""
+    import chip_smoke
+
+    nodes, blocks, meta, _ = {"soup": soup, "multi_block": multi_block}[tree]
+    rays = RC[:, :256].contiguous()
+    one = torch.zeros(1, dtype=torch.int32)
+    with emulation:
+        k4 = emu.trace_wide(rays, nodes, blocks, meta, False,
+                            mt_precision="high",
+                            planes=pt.split_planes(blocks))
+        got = []
+        for i in range(rays.shape[1]):
+            ray = rays[:, i:i + 1].contiguous()
+
+            def test_block(b, best, ray=ray):
+                limit = torch.tensor([best], dtype=torch.float32)
+                out = emu.stream_mt(ray, limit, one, one + b, blocks, False,
+                                    "high")
+                return [x.item() for x in out]
+
+            got.append(chip_smoke._replay_walk(ray[:, 0].double().numpy(),
+                                               nodes.numpy(), meta.numpy(),
+                                               test_block))
+    t, sid, u, v = (np.array(c) for c in zip(*got))
+    assert (sid >= 0).sum() > 50
+    assert np.array_equal(sid, k4[1].numpy())
+    for a, b in ((t, k4[0]), (u, k4[2]), (v, k4[3])):
+        assert np.array_equal(a.astype(np.float32).view(np.int32),
+                              b.numpy().view(np.int32))
+
+
 @pytest.mark.parametrize("tier", ["highest", "high", "default"])
 def test_emulated_stream_mt_matches_plain_version(emulation, soup, tier):
     """K15 on every level's real pairs, closest and any hit."""
@@ -310,7 +429,8 @@ def test_emulated_stream_tracer_is_the_packet_tracer_bit_for_bit(
                                      mt_precision=tier, mt_fn=emu.stream_mt)
         rec = pair[0](RC[0:3].T, RC[3:6].T, 1e-3, float("inf"))
         occ = pair[1](RA[0:3].T, RA[3:6].T, 1e-3, RA[7])
-        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier,
+                            planes=pt.split_planes(blocks))
         k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
     hit = k1[1] >= 0
     assert torch.equal(rec.hit, hit) and hit.sum() > 100
@@ -377,7 +497,8 @@ def test_emulated_bf_tracer_is_the_packet_tracer_bit_for_bit(emulation, soup,
     with emulation:
         rec, _ = _bf_levels(emu.BF_STEPS, soup, tier, False, RC)
         occ, _ = _bf_levels(emu.BF_STEPS, soup, "highest", True, RA)
-        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier)
+        k1 = emu.trace_wide(RC, nodes, blocks, meta, False, mt_precision=tier,
+                            planes=pt.split_planes(blocks))
         k2 = emu.trace_wide(RA, nodes, blocks, meta, True)
     hit = k1[1] >= 0
     assert torch.equal(rec.hit, hit) and hit.sum() > 100

@@ -1,7 +1,9 @@
 """The CUDA wide-BVH kernel on the card: one-level (K1, K2) and two-level
 (K3) modes, the MT tiers (K4, K5), streamed blocks (K6) and the octant
 order (K7) against their plain PyTorch versions and, for the modes that
-compute K1's function, against K1 bit for bit; the paired launch (K8), the
+compute K1's function, against K1 bit for bit; the split kernel's
+pre-split planes against their plain version, and K4 against the
+ray-stream tracer at its tier bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the leaf-pair
 kernel (K15) against its plain version and the ray-stream tracer against
 K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
@@ -203,6 +205,8 @@ def test_variant_matches_plain_and_k1(soup_on_card, mode):
     oct_on = kw.pop("oct", False)
     key = pt.launch_key(False, False, kw.get("mt_precision", "highest"),
                         oct_on, kw.get("stream", False))
+    if "mt_precision" in kw:
+        kw["planes"] = pt.split_planes(blocks)
     before = pt.LAUNCHES[key]
     k = pt.trace_wide(rays, nodes, blocks, meta, False,
                       worder=worder if oct_on else None, **kw)
@@ -217,8 +221,49 @@ def test_variant_matches_plain_and_k1(soup_on_card, mode):
     if tier in ("highest", "two_phase") or oct_on:
         base = pt.trace_wide(rays, nodes, blocks, meta, False,
                              mt_precision="high" if tier == "high"
-                             else "highest")
+                             else "highest", planes=kw.get("planes"))
         _bitwise(k, base, key)
+
+
+def test_split_planes_kernel_is_its_plain_version(soup_on_card):
+    """The pre-split planes from the split kernel: the plain version's
+    table in every bit, one counted launch; a packet tracer at a reduced
+    tier splits once, when it is made, and never per wave."""
+    nodes, blocks, meta, _ = soup_on_card
+    before = pt.LAUNCHES["split_planes"]
+    planes = pt.split_planes(blocks)
+    torch.cuda.synchronize()
+    assert pt.LAUNCHES["split_planes"] == before + 1
+    assert planes.shape == (blocks.shape[0], 2, 10, 256)
+    assert torch.equal(planes.view(torch.int16),
+                       pt.split_planes_plain(blocks).view(torch.int16))
+    tc, _ = pt.make_packet_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                  mt_precision="high")
+    assert torch.equal(tc.planes.view(torch.int16), planes.view(torch.int16))
+    rays = _rays(1024, np.inf, nodes.device)
+    tc(rays[0:3].T, rays[3:6].T, TMIN, float("inf"))
+    tc(rays[0:3].T, rays[3:6].T, TMIN, float("inf"))
+    assert pt.LAUNCHES["split_planes"] == before + 2
+
+
+@pytest.mark.parametrize("tier", ["high", "default"])
+def test_reduced_tier_is_the_stream_tracer_bit_for_bit(soup_on_card, tier):
+    """K4 tests blocks warp-wide over the pre-split planes, the ray-stream
+    tracer's leaf-pair kernel (K15) one (ray, block) pair per thread; both
+    form each triangle's t with csrc/mt_block.cuh's arithmetic, so the
+    two tracers agree at the tier in every bit: hit set, t, ids and
+    barycentrics (the soup has no exact-t ties across blocks)."""
+    nodes, blocks, meta, _ = soup_on_card
+    sc, _ = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                  mt_precision=tier)
+    pc, _ = pt.make_packet_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                  mt_precision=tier)
+    rays = _rays(4096, np.inf, nodes.device)
+    o, d = rays[0:3].T, rays[3:6].T
+    rec, ref = sc(o, d, TMIN, float("inf")), pc(o, d, TMIN, float("inf"))
+    assert torch.equal(rec.hit, ref.hit) and ref.hit.sum() > 100
+    assert torch.equal(rec.t.view(torch.int32), ref.t.view(torch.int32))
+    assert torch.equal(rec.tri, ref.tri) and torch.equal(rec.bary, ref.bary)
 
 
 def test_streamed_any_hit_equals_k2(soup_on_card):
@@ -240,6 +285,8 @@ def test_instanced_variant_matches_plain_and_k3(instanced_on_card, mode):
     rays = _rays(4096, np.inf, nodes.device)
     kw = dict(mode)
     oct_on = kw.pop("oct", False)
+    if "mt_precision" in kw:
+        kw["planes"] = pt.split_planes(blocks)
     k = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
                       worder=worder if oct_on else None, **kw)
     p = pt.trace_wide_reference(rays, nodes, blocks, meta, False, feat, **kw)
@@ -275,6 +322,12 @@ def test_modes_that_cannot_run_raise(soup_on_card):
         pt.trace_wide(rays, nodes, blocks, meta, False, mt_precision="low")
     with pytest.raises(ValueError, match="worder"):
         pt.trace_wide(rays, nodes, blocks, meta, False, worder=worder[:-16])
+    for tier in ("high", "default", "two_phase"):
+        with pytest.raises(ValueError, match="planes"):
+            pt.trace_wide(rays, nodes, blocks, meta, False, mt_precision=tier)
+        with pytest.raises(ValueError, match="planes"):
+            pt.trace_wide_paired(rays, rays, nodes, blocks, meta,
+                                 mt_precision=tier)
     assert pt.LAUNCHES == before
     # the C entry refuses the same combinations by itself
     lib = pt._library()
@@ -282,14 +335,17 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     sid = torch.empty(256, dtype=torch.int32, device=nodes.device)
     # (any_hit, tier, stream, walk, profile, n_split): an unknown tier,
     # two_phase streamed, pipe with a tier / with stream / with a profile,
-    # a profile with a tier, fix64 streamed, a paired split inside a block
+    # a profile with a tier, fix64 streamed, a paired split inside a
+    # block, a reduced tier's closest hit (and paired) without the planes
     for any_hit, prec, stream, walk, prof, split in (
+            (0, 1, 0, 0, 0, 0), (0, 2, 0, 0, 0, 0), (2, 3, 0, 0, 0, 128),
             (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
             (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
             (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128)):
         rc = lib.wide_trace_launch(
             rays.data_ptr(), 256, split, nodes.data_ptr(), blocks.data_ptr(),
-            meta.data_ptr(), None, None, any_hit, prec, stream, walk, prof,
+            None, meta.data_ptr(), None, None, any_hit, prec, stream, walk,
+            prof,
             out.data_ptr(), sid.data_ptr(), out.data_ptr(), out.data_ptr(),
             None, None, torch.cuda.current_stream().cuda_stream)
         assert rc != 0, (any_hit, prec, stream, walk, prof, split)
@@ -311,18 +367,21 @@ def test_modes_that_cannot_run_raise(soup_on_card):
 def test_paired_launch_is_k1_and_k2_bit_for_bit(soup_on_card, n_c, n_a, mode):
     """K8: one launch, the closest half bit for bit the unpaired closest
     mode at the tier / stream, the any-hit half bit for bit K2; either
-    wave longer, or empty."""
+    wave longer, or empty. A reduced tier reads the blocks' pre-split
+    planes, split beforehand, as a tracer does once."""
     nodes, blocks, meta, _ = soup_on_card
     rc = _rays(4096, np.inf, nodes.device)[:, :n_c].contiguous()
     ra = _rays(4096, 8.0, nodes.device).flip(1)[:, :n_a].contiguous()
     key = pt.launch_key(False, paired=True, **mode)
+    kw = (dict(mode, planes=pt.split_planes(blocks))
+          if "mt_precision" in mode else mode)
     before = dict(pt.LAUNCHES)
-    closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta, **mode)
+    closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta, **kw)
     torch.cuda.synchronize()
     after = dict(pt.LAUNCHES)
     assert after.pop(key) == before.pop(key) + 1 and after == before
-    ref_c = pt.trace_wide(rc, nodes, blocks, meta, False, **mode)
-    ref_a = pt.trace_wide(ra, nodes, blocks, meta, True, **mode)
+    ref_c = pt.trace_wide(rc, nodes, blocks, meta, False, **kw)
+    ref_a = pt.trace_wide(ra, nodes, blocks, meta, True, **kw)
     for a, b in zip(closest, ref_c):
         assert torch.equal(a, b)
     assert torch.equal(occ, ref_a[1])

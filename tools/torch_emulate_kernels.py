@@ -7,18 +7,19 @@ say nothing about the CUDA sources themselves: a wrong stack index, a
 backlog that overflows or a mode that dispatches to the wrong
 instantiation shows only on the card. This tool compiles
 platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
-headers (the qualifiers as empty macros, `float4`, `dim3`, `__ldg`,
-`__int_as_float`, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
+headers (the qualifiers as empty macros, `float2`, `float4`, `dim3`,
+`__ldg`, the bit casts, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
 thread-local `blockIdx` / `threadIdx`, `__shared__` as a static), with
 the L2 prefetch `asm` removed and every `<<<grid, block>>>` launch
 rewritten into a call of `emu_launch`, which runs the blocks one after
-another and the threads of a block as coroutines (ucontext), so that
-`__syncthreads`, `__ballot_sync` and `__shfl_up_sync` act as on the card
-(a barrier only part of the block reaches makes the launch report an
-error), and binds the result with the wrappers' own ctypes
-declarations. g++ gets `-ffp-contract=fast -march=native`, so products
-and sums contract to FMAs as nvcc contracts them where the host has FMA
-instructions. It says nothing about registers, memory traffic or time.
+another and the threads of a block as coroutines, so that
+`__syncthreads` and the warp collectives (`__ballot_sync`, `__any_sync`,
+`__shfl_sync`, `__shfl_up_sync`, `__reduce_min_sync`) act as on the card (a
+barrier or collective that only part of the block or warp reaches makes
+the launch report an error), and binds the result with the wrappers' own
+ctypes declarations. g++ gets `-ffp-contract=fast -march=native`, so
+products and sums contract to FMAs as nvcc contracts them where the host
+has FMA instructions. It says nothing about registers, memory traffic or time.
 
 As a module: `build(out_dir)` returns {source name: library path};
 `Emulation(out_dir)` is a context manager in which `trace_wide`,
@@ -52,6 +53,7 @@ from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
 
 SHIM_RUNTIME = r"""
 #pragma once
+#include <setjmp.h>
 #include <ucontext.h>
 #include <algorithm>
 #include <cmath>
@@ -70,6 +72,7 @@ using std::min;
 #define __launch_bounds__(x)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
+struct float2 { float x, y; };
 struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
@@ -103,6 +106,16 @@ inline float __int_as_float(int i) {
   std::memcpy(&f, &i, 4);
   return f;
 }
+inline float __uint_as_float(unsigned i) {
+  float f;
+  std::memcpy(&f, &i, 4);
+  return f;
+}
+inline unsigned __float_as_uint(float f) {
+  unsigned i;
+  std::memcpy(&i, &f, 4);
+  return i;
+}
 // a rounded product that the compiler may not contract into an FMA
 inline float __fmul_rn(float a, float b) {
   volatile float r = a * b;
@@ -110,22 +123,29 @@ inline float __fmul_rn(float a, float b) {
 }
 inline size_t __cvta_generic_to_global(const void* p) { return (size_t)p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
+inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
 extern thread_local dim3 blockIdx, threadIdx, blockDim;
 
-// The threads of a block run as coroutines (ucontext), one after another:
-// a thread runs until it returns or reaches __syncthreads() or a warp
-// collective, and the scheduler releases a barrier once every thread of
-// the block (of the warp, for a collective) has reached it, computing a
-// collective's results for all its lanes before any lane goes on. A
-// barrier that some threads reach while others have returned or wait
-// elsewhere is a fault, as on the card: the block is abandoned and the
-// launch reports an error.
+// The threads of a block run as coroutines, one after another: a thread
+// runs until it returns or reaches __syncthreads() or a warp collective,
+// and the scheduler releases a barrier once every thread of the block (of
+// the warp, for a collective) has reached it, computing a collective's
+// results for all its lanes before any lane goes on. A barrier that some
+// threads reach while others have returned or wait elsewhere, or a warp
+// whose lanes reach different collectives, is a fault, as on the card: the
+// block is abandoned and the launch reports an error. A thread starts on
+// its own stack through ucontext and then switches with _setjmp /
+// _longjmp, which save no signal mask (no system call per switch).
 struct EmuThread {
   ucontext_t ctx;
+  jmp_buf jb;
+  bool started;
   int state;       // 0 runnable, 1 at __syncthreads, 2 at a collective, 3 done
-  int op, val, arg;  // the collective (0 ballot, 1 shfl_up) and its operands
-  int res;
+  int op, arg;     // the collective (EmuOp) and its lane operand
+  unsigned val;    // its value operand
+  unsigned res;
 };
+enum EmuOp { kBallot, kShflUp, kShfl, kReduceMin };
 inline std::vector<EmuThread>& emu_threads() {
   static std::vector<EmuThread> t;
   return t;
@@ -134,9 +154,9 @@ inline int& emu_cur() {
   static int c = 0;
   return c;
 }
-inline ucontext_t& emu_sched() {
-  static ucontext_t c;
-  return c;
+inline jmp_buf& emu_sched() {
+  static jmp_buf j;
+  return j;
 }
 inline std::function<void()>& emu_body() {
   static std::function<void()> f;
@@ -145,23 +165,51 @@ inline std::function<void()>& emu_body() {
 inline void emu_trampoline() {
   emu_body()();
   emu_threads()[emu_cur()].state = 3;
-  swapcontext(&emu_threads()[emu_cur()].ctx, &emu_sched());
+  _longjmp(emu_sched(), 1);
 }
-inline int emu_wait(int state, int op = 0, int val = 0, int arg = 0) {
+inline unsigned emu_wait(int state, int op = 0, unsigned val = 0,
+                         int arg = 0) {
   EmuThread& t = emu_threads()[emu_cur()];
   t.state = state;
   t.op = op;
   t.val = val;
   t.arg = arg;
-  swapcontext(&t.ctx, &emu_sched());
+  if (!_setjmp(t.jb)) _longjmp(emu_sched(), 1);
   return emu_threads()[emu_cur()].res;
 }
+// run thread i until it waits or returns
+__attribute__((noinline)) inline void emu_run(int i) {
+  EmuThread& t = emu_threads()[i];
+  if (_setjmp(emu_sched())) return;
+  if (!t.started) {
+    t.started = true;
+    setcontext(&t.ctx);
+  }
+  _longjmp(t.jb, 1);
+}
 inline void __syncthreads() { emu_wait(1); }
+// Warp collectives. Every lane of the warp must reach the same one (the
+// kernels pass the full mask).
 inline unsigned __ballot_sync(unsigned, int pred) {
-  return (unsigned)emu_wait(2, 0, pred != 0);
+  return emu_wait(2, kBallot, pred != 0);
+}
+inline int __any_sync(unsigned m, int pred) {
+  return __ballot_sync(m, pred) != 0;
 }
 inline int __shfl_up_sync(unsigned, int v, int delta) {
-  return emu_wait(2, 1, v, delta);
+  return (int)emu_wait(2, kShflUp, (unsigned)v, delta);
+}
+inline unsigned __shfl_sync(unsigned, unsigned v, int src) {
+  return emu_wait(2, kShfl, v, src);
+}
+inline int __shfl_sync(unsigned m, int v, int src) {
+  return (int)__shfl_sync(m, (unsigned)v, src);
+}
+inline float __shfl_sync(unsigned m, float v, int src) {
+  return __uint_as_float(__shfl_sync(m, __float_as_uint(v), src));
+}
+inline unsigned __reduce_min_sync(unsigned, unsigned v) {
+  return emu_wait(2, kReduceMin, v);
 }
 // one scheduling round's barrier releases; false on a fault
 inline bool emu_release(int threads, bool& released, bool& finished) {
@@ -173,15 +221,23 @@ inline bool emu_release(int threads, bool& released, bool& finished) {
     for (int i = lo; i < hi; ++i) at += th[i].state == 2;
     if (at == 0) continue;
     if (at != hi - lo) return false;
+    unsigned bits = 0, least = 0xffffffffu;
+    for (int j = lo; j < hi; ++j) {
+      if (th[j].op != th[lo].op) return false;
+      bits |= (th[j].val != 0u) << (j - lo);
+      least = std::min(least, th[j].val);
+    }
     for (int i = lo; i < hi; ++i) {
-      if (th[i].op != th[lo].op) return false;
-      if (th[i].op == 0) {
-        int bits = 0;
-        for (int j = lo; j < hi; ++j) bits |= th[j].val << (j - lo);
-        th[i].res = bits;
-      } else {
-        const int src = i - th[i].arg;
-        th[i].res = src >= lo ? th[src].val : th[i].val;
+      switch (th[i].op) {
+        case kBallot: th[i].res = bits; break;
+        case kShflUp: {
+          const int src = i - th[i].arg;
+          th[i].res = src >= lo ? th[src].val : th[i].val;
+          break;
+        }
+        case kShfl: th[i].res = th[lo + (th[i].arg & 31) % (hi - lo)].val;
+          break;
+        case kReduceMin: th[i].res = least; break;
       }
     }
     for (int i = lo; i < hi; ++i) th[i].state = 0;
@@ -218,6 +274,7 @@ void emu_launch(dim3 grid, int threads, F f, A... a) {
       th[i].ctx.uc_stack.ss_size = kStack;
       th[i].ctx.uc_link = nullptr;
       makecontext(&th[i].ctx, emu_trampoline, 0);
+      th[i].started = false;
       th[i].state = 0;
     }
     for (;;) {
@@ -225,7 +282,7 @@ void emu_launch(dim3 grid, int threads, F f, A... a) {
         if (th[i].state == 0) {
           emu_cur() = i;
           threadIdx = dim3(i);
-          swapcontext(&emu_sched(), &th[i].ctx);
+          emu_run(i);
         }
       bool released, finished = false;
       if (!emu_release(threads, released, finished)) {
@@ -250,6 +307,7 @@ inline __nv_bfloat16 __float2bfloat16_rn(float x) {
   u += 0x7fff + ((u >> 16) & 1);
   return {(uint16_t)(u >> 16)};
 }
+inline unsigned short __bfloat16_as_ushort(__nv_bfloat16 b) { return b.v; }
 inline float __bfloat162float(__nv_bfloat16 b) {
   uint32_t u = (uint32_t)b.v << 16;
   float f;
@@ -303,6 +361,7 @@ def compile_source(name: str, text: str, out_dir: str) -> str:
     lib = os.path.join(out_dir, name + "_host.so")
     proc = subprocess.run(
         ["g++", "-std=c++17", "-O2", "-ffp-contract=fast", "-march=native",
+         "-U_FORTIFY_SOURCE",
          "-shared", "-fPIC", "-I", os.path.join(out_dir, "shim"), "-I",
          out_dir, "-o", lib, cpp], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -357,30 +416,43 @@ class Emulation(contextlib.AbstractContextManager):
         return False
 
 
+def split_planes(blocks):
+    """`packet_trace.split_planes` through the emulated split kernel."""
+    planes = torch.empty((blocks.shape[0], 2, 10, 256), dtype=torch.bfloat16)
+    rc = pt._libs["wide_trace"].wide_trace_split_planes(
+        blocks.data_ptr(), blocks.shape[0], planes.data_ptr(), None)
+    if rc != 0:
+        raise RuntimeError(f"emulated split_planes refused: {rc}")
+    return planes
+
+
 def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
                worder=None, mt_precision="highest", stream=False,
-               pipe=False, flat_walk=False, profile="none", count=False):
-    """`packet_trace.trace_wide` (or, with `count`, the (5, R) table of
-    `trace_wide_counts(per_ray=True)`) through the emulated kernel."""
+               pipe=False, flat_walk=False, profile="none", count=False,
+               planes=None):
+    """`packet_trace.trace_wide` (or, with `count`, the (7, R) table of
+    `trace_wide_counts(per_ray=True)`) through the emulated kernel; a
+    reduced tier's closest hit reads `planes`, which it then needs."""
     pt.check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    prec = "highest" if any_hit else mt_precision
     out = pt._launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
-                     count, worder, "highest" if any_hit else mt_precision,
-                     stream, pt._walk_code(meta, pipe or flat_walk, flat_walk,
-                                           checked=False), profile)
+                     count, worder, prec, stream,
+                     pt._walk_code(meta, pipe or flat_walk, flat_walk,
+                                   checked=False), profile, planes=planes)
     if count:
         return out[5]
     return out[:5] if out[4] is not None else out[:4]
 
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
-                      mt_precision="highest", stream=False):
+                      mt_precision="highest", stream=False, planes=None):
     """`packet_trace.trace_wide_paired` through the emulated kernel."""
     pt.check_mode(mt_precision, stream)
     nc = rays_c.shape[1]
     rays, n_split = pt.pair_rays(rays_c, rays_a)
     t, sid, u, v, _, _ = pt._launch(rays, nodes, blocks, meta, 2, None,
                                     False, None, mt_precision, stream,
-                                    n_split=n_split)
+                                    n_split=n_split, planes=planes)
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
 
 
@@ -458,7 +530,8 @@ def main():
         c1 = trace_wide(rc, nodes, blocks, meta, False, count=True)
         for label, kw in (("stream", dict(stream=True)),
                           ("oct_order", dict(worder=worder)),
-                          ("two_phase", dict(mt_precision="two_phase")),
+                          ("two_phase", dict(mt_precision="two_phase",
+                                             planes=split_planes(blocks))),
                           ("pipe", dict(pipe=True)),
                           ("flat_walk", dict(flat_walk=True))):
             k = trace_wide(rc, nodes, blocks, meta, False, **kw)

@@ -3,14 +3,17 @@ as it is found) and the streamed mode (K6: each node's leaves queued and
 drained after its slab tests, each queued block prefetched into L2) on
 the waves chip_smoke.py builds for the headline colonnade (271k triangles,
 512x512) and for bistro_class_studio's tree (the colonnade at 24x12, 1.08M
-triangles, 960x540).
+triangles, 960x540); with --tiers also the closest hit of the reduced MT
+tiers on the headline tree (K4 "high" and "default", K5 "two_phase"),
+given the blocks' pre-split planes where the checkout has them.
 
-    python3 tools/torch_time_waves.py
+    python3 tools/torch_time_waves.py [--tiers] [--headline]
     python3 tools/torch_time_waves.py --root OTHER_CHECKOUT
 
 `--root` imports platinum_tpu_torch and chip_smoke.py (its `_wave_points`,
 `_waves`, `JOBS` and `_time_ms`) from another checkout, so two versions of
-the kernel can be timed in turns within one call on one card. Prints one
+the kernel can be timed in turns within one call on one card; --headline
+skips the bistro tree. Prints one
 JSON line: the card and its power limit, and per tree, wave and mode the
 kernel's ms per wave (CUDA events around --reps launches after one
 warm-up). Needs a CUDA device.
@@ -27,6 +30,7 @@ import sys
 TREES = (("headline", {}, (512, 512)),
          ("bistro", dict(columns=24, rows=12), (960, 540)))
 MODES = (("k1", {}), ("stream", dict(stream=True)))
+TIERS = ("high", "default", "two_phase")
 
 
 def main():
@@ -34,6 +38,8 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
+    ap.add_argument("--tiers", action="store_true")
+    ap.add_argument("--headline", action="store_true")
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
@@ -58,7 +64,8 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), root=args.root, ms={})
-    for tree, scene_kw, (width, height) in TREES:
+    for tree, scene_kw, (width, height) in (
+            TREES[:1] if args.headline else TREES):
         scene, cam = make_colonnade_scene(**scene_kw)
         flat = flatten_scene(scene, cam, RenderSettings(
             width=width, height=height, tracer="packet", instancing="off",
@@ -67,8 +74,15 @@ def main():
         blocks, meta = flat.wbvh_tris, flat.wbvh_meta
         waves = cs._waves(cs._wave_points(flat, dev, width, height), nodes,
                           dev)
+        modes = list(MODES)
+        if args.tiers and tree == "headline":
+            split = ({"planes": pt.split_planes(blocks)}
+                     if hasattr(pt, "split_planes") else {})
+            modes += [(t, dict(mt_precision=t, **split)) for t in TIERS]
         for _, wave, any_hit in cs.JOBS:
-            for mode, kw in MODES:
+            for mode, kw in modes:
+                if any_hit and "mt_precision" in kw:
+                    continue           # any hit is K2 under every tier
                 out["ms"][f"{tree} {wave} {mode}"] = cs._time_ms(
                     lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
                                           any_hit, **kw), args.reps)
