@@ -14,7 +14,9 @@ Phases, one printed block each (any failure exits non-zero):
      points and a wave of shadow segments to light points; then each
      whole 262,144-ray wave, timed and counted (node pops, MT tests) for
      the kernel's least possible time. Every disagreeing ray must be
-     certified borderline in float64 (`_borderline`, `_fp32_ambiguous`)
+     certified borderline in float64 (`_borderline`, `_fp32_ambiguous`).
+     K1 (like K6 closest) tests each leaf block with the whole warp over
+     the fp32 blocks; K2 keeps the per-thread walk
   3b. K3 vs plain: the same for the two-level modes on the colonnade
      flattened with instancing="on"
   3c. the pre-split planes of the colonnade's blocks (the split kernel
@@ -40,7 +42,10 @@ Phases, one printed block each (any failure exits non-zero):
      16,384-ray subsets of its own 960x540 waves (the plain version takes
      about a minute a whole wave), timed and counted on the whole
      518,400-ray waves, and bit for bit against K1/K2 on all three whole
-     waves of the same tree (K1/K2 timed there too); the instanced stream
+     waves of the same tree (K1/K2 timed there too; closest hit with no
+     exception); K1 and K6 closest against K9 `pipe` on the camera,
+     bounce and shadow waves as closest hit, with no exception, and the
+     drain's lanes per distinct block on each; the instanced stream
      modes on the colonnade flattened with instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
@@ -82,13 +87,19 @@ Phases, one printed block each (any failure exits non-zero):
      `trace_closest.paired` entry, which is the path that counts its
      launches
   3h. K9, the pipelined walk, with and without the flat push: closest and
-     any hit against K1/K2 as 3d holds K5 and K7, and on the instanced
+     any hit against K1/K2 as 3d holds K5 and K7 (closest hit, where K1
+     is warp-wide and K9 the per-thread walk, with no exception); K1
+     against the per-thread walk on the camera, bounce and shadow waves
+     as closest hit, with the drain's rounds, distinct blocks and lanes
+     per distinct block on each; and on the instanced
      colonnade against K3, with counts and times; against the plain
      version on the 16,384-ray subsets; both timed and held to K1/K2 on
      the bistro tree's whole waves too
-  3i. the ablation modes: "empty" and "nomt" miss everything, "nomt" pops
-     no fewer nodes than K1 and tests no block, "count" is K1 with u = the
-     ray's pops, "fix64" is K1 on every ray whose walk ends within 64
+  3i. the ablation modes, on the per-thread walk: "empty" and "nomt"
+     miss everything, "nomt" pops no fewer nodes than K1 and tests no
+     block, "count" is K1 with u = the per-thread walk's pops (fix64's
+     count up to 64; no more than K1's warp-wide walk pops, K2's exactly),
+     "fix64" is K1 on every ray whose walk ends within 64
      pops; launch floor / walk / MT split of each headline wave and the
      bistro bounce wave, on the classic and the queued walk; through
      make_packet_tracer(profile=...), the path that counts their launches
@@ -119,7 +130,7 @@ Phases, one printed block each (any failure exits non-zero):
      PyTorch call computes K14's function, so its library entry is null)
   4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
      Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
-     and K2 may launch, the image within RMSE BF_RMSE of 4f's K1 render at
+     and K2 may launch, the image within RMSE IMAGE_RMSE of 4f's K1 render at
      the same 2 spp; launches per spp and per kernel
   3c also times K4 at mt_precision="default" on the bounce wave, with its
      bound (one bf16 product per block test), and launches it once
@@ -130,7 +141,8 @@ Phases, one printed block each (any failure exits non-zero):
   4i. sponza_class_512's settings with the pipelined packet tracer
      (pipe=True, then flat_walk=True) as `tracers=`, 2 spp each through
      integrator.render_step_n; only the K9 modes may launch; image mean
-     within MEAN_RTOL of 4f's K1 render at the same 2 spp
+     within MEAN_RTOL of 4f's K1 render at the same 2 spp, and the image
+     within RMSE IMAGE_RMSE of it
   4h. sponza_class_512 at 4 spp with fuse_shadow, with spp_batch=2 and
      with chunk_shade=65536, against 4c: image mean to MEAN_RTOL, largest
      per-pixel difference printed, trace launches and all kernel launches
@@ -640,7 +652,9 @@ def _bitwise(name, k, ref, rays, certify, caveat=""):
     bit: hit set (occlusion) and t equal on every ray, ids (and
     instances) equal except at exact-t ties, where the two walks may meet
     the tied blocks in another order. Every other ray is printed and must
-    be certified by `certify`."""
+    be certified by `certify`; with `certify` None there must be none."""
+    if certify is None:
+        certify, caveat = (lambda ray: False), " (none allowed)"
     hk, hr = k[1] >= 0, ref[1] >= 0
     both = hk & hr
     t_diff = both & (k[0].view(torch.int32) != ref[0].view(torch.int32))
@@ -988,12 +1002,16 @@ def phase_paired(ctx, k12):
         ms, _, cc, ca = _paired_waves(
             f"paired({wave}, shadow)", nodes, blocks, meta, waves[wave],
             shadow, outs[wave], outs["shadow"])
-    # the bounds are K1's and K2's: the paired launch does their work
-    for got, ref in ((cc, k12["closest"]["counts"]),
-                     (ca, k12["any"]["counts"])):
-        check(got["pops"] == ref["pops"]
-              and got["mt_tests"] == ref["mt_tests"],
-              f"the paired launch's counts {got} differ from {ref}")
+    # the paired launch does K1's and K2's work on the per-thread walk:
+    # their MT block tests and K2's pops; K1's warp-wide walk, which
+    # slab-tests a node's 16 children against the best at the pop, pops
+    # no fewer nodes than the per-thread walk
+    ref_c, ref_a = k12["closest"]["counts"], k12["any"]["counts"]
+    check(cc["mt_tests"] == ref_c["mt_tests"] and cc["pops"] <= ref_c["pops"]
+          and ca["mt_tests"] == ref_a["mt_tests"]
+          and ca["pops"] == ref_a["pops"] and not cc["drain_rounds"],
+          f"the paired launch's counts {cc}, {ca} against K1's {ref_c} "
+          f"and K2's {ref_a}")
     cut = shadow[:, :100_000].contiguous()
     _paired_waves("paired(bounce, shadow cut to 100,000)", nodes, blocks,
                   meta, waves["bounce"], cut, outs["bounce"], outs["shadow"])
@@ -1040,9 +1058,12 @@ def phase_pipe(ctx, k12):
             key, nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
             ctx["pts"]["sample"], certify, mode=mode, whole_plain=False,
             plain_rows=k12)
-        for _, wave, _ in JOBS:
+        # closest hit: K1 (warp-wide) and K9 (per-thread) must agree
+        # with no exception
+        for _, wave, any_hit in JOBS:
             _bitwise(f"{key} against K1/K2, {wave}", outs[wave],
-                     ctx["outs"][wave], waves[wave], certify)
+                     ctx["outs"][wave], waves[wave],
+                     certify if any_hit else None)
         for kind in ("closest", "any"):
             got, ref = rows[key][kind]["counts"], k12[kind]["counts"]
             print(f"  {key} {kind} (bounce / shadow wave): "
@@ -1052,7 +1073,45 @@ def phase_pipe(ctx, k12):
                   f"{ref['mt_tests']} "
                   f"({got['mt_tests'] / ref['mt_tests'] - 1:+.2%})",
                   flush=True)
+    _k1_against_per_thread("headline", nodes, flat.wbvh_tris,
+                           flat.wbvh_meta, waves)
     return rows
+
+
+def _k1_against_per_thread(label, nodes, blocks, meta, waves, stream=False):
+    """K1 (and with `stream` K6 closest), the warp-wide drain over the fp32
+    blocks, against K9 `pipe`, the per-thread walk, on the camera, bounce
+    and shadow waves, all traced as closest hit: hit set and t bit for bit
+    on every ray, no exception allowed; id differences (exact-t ties
+    between blocks, which the walks may meet in another order) printed.
+    Also each wave's drain rounds, distinct blocks and lanes per distinct
+    block (MT block tests / distinct blocks) from the counting
+    instantiation."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    modes = [("K1", {})] + ([("K6 closest", dict(stream=True))]
+                            if stream else [])
+    print(f"K1 against the per-thread walk on the {label} tree:",
+          flush=True)
+    for wave in ("camera", "bounce", "shadow"):
+        rays = waves[wave]
+        pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
+        for name, mode in modes:
+            got = pt.trace_wide(rays, nodes, blocks, meta, False, **mode)
+            _bitwise(f"{name} against the per-thread walk (K9 pipe), "
+                     f"{label} {wave} as closest hit", got, pipe, rays,
+                     None)
+            c = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                     **mode)
+            check(0 < c["drain_rounds"] <= c["distinct_blocks"]
+                  <= c["mt_tests"], f"{name} {wave}: drain counts {c}")
+            print(f"  {name} {label} {wave}: {c['mt_tests']} MT block tests "
+                  f"in {c['drain_rounds']} warp drain rounds, "
+                  f"{c['distinct_blocks']} distinct blocks: "
+                  f"{c['mt_tests'] / c['distinct_blocks']:.2f} lanes per "
+                  f"distinct block, "
+                  f"{c['distinct_blocks'] / c['drain_rounds']:.2f} distinct "
+                  f"blocks a round", flush=True)
 
 
 PROFILE_MODES = ("empty", "nomt", "fix64", "count")
@@ -1060,16 +1119,21 @@ PROFILE_MODES = ("empty", "nomt", "fix64", "count")
 
 def _profile_times(label, nodes, blocks, meta, rays, any_hit):
     """Launch floor / walk / MT split of one wave: the times of "empty",
-    "nomt" and the full walk, on the classic and the queued walk."""
+    "nomt" and the full walk, on the classic and the queued per-thread
+    walk. "empty" and "nomt" are the per-thread walk's; the full closest
+    hit is K1 / K6 on the warp-wide drain, so its MT share is K1's time
+    less the per-thread walk's."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     for walk, stream in (("classic", False), ("queued", True)):
         ms = {prof: _time_ms(lambda prof=prof: pt.trace_wide(
             rays, nodes, blocks, meta, any_hit, stream=stream, profile=prof),
             20) for prof in ("empty", "nomt", "none")}
+        full = ("per-thread" if any_hit else
+                "K6 warp-wide" if stream else "K1 warp-wide")
         print(f"  {label}, {walk} walk: empty {ms['empty']:.3f} ms, nomt "
-              f"{ms['nomt']:.3f} ms, full {ms['none']:.3f} ms -> launch "
-              f"floor {ms['empty']:.3f}, walk "
+              f"{ms['nomt']:.3f} ms, full ({full}) {ms['none']:.3f} ms -> "
+              f"launch floor {ms['empty']:.3f}, walk "
               f"{ms['nomt'] - ms['empty']:.3f}, MT "
               f"{ms['none'] - ms['nomt']:.3f} ms", flush=True)
 
@@ -1114,19 +1178,30 @@ def phase_profile(ctx, k12):
         check(torch.equal(count[0], k1[0]) and torch.equal(count[1], k1[1])
               and torch.equal(count[3], k1[3]),
               f"profile=count on the {wave} wave: t, id or v differ from K1")
-        check(torch.equal(count[2], pops.float()),
-              f"profile=count on the {wave} wave: u is not the ray's pops")
+        # count's u: the per-thread walk's pops, which fix64's counting
+        # instantiation counts up to 64; K2 takes that walk, K1's
+        # warp-wide walk pops no fewer nodes
+        thread_pops = count[2].int()
+        fix_pops = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                        profile="fix64", per_ray=True)[0]
+        check(torch.equal(fix_pops, thread_pops.clamp(max=64))
+              and (pops >= thread_pops).all()
+              and (not any_hit or torch.equal(pops, thread_pops)),
+              f"profile=count on the {wave} wave: u is not the per-thread "
+              f"walk's pops")
         fix = pt.trace_wide(rays, nodes, blocks, meta, any_hit,
                             profile="fix64")
-        short = pops <= 64
+        short = thread_pops <= 64
         check(all(torch.equal(a[short], b[short]) for a, b in zip(fix, k1)),
               f"profile=fix64 on the {wave} wave differs from K1 on a ray "
               f"whose walk ends within 64 pops")
         print(f"  {name}: empty and nomt miss everything; nomt pops "
               f"{nomt['pops']} nodes (K1/K2 {int(pops.sum())}) and tests no "
-              f"block; count's t, id, v are K1's and u the ray's pops (max "
-              f"{int(pops.max())}); fix64 is K1 on the {int(short.sum())} of "
-              f"{n} rays that end within 64 pops", flush=True)
+              f"block; count's t, id, v are K1's and u the per-thread "
+              f"walk's pops ({int(thread_pops.sum())}, max "
+              f"{int(thread_pops.max())}); fix64 is K1 on the "
+              f"{int(short.sum())} of {n} rays that end within 64 pops",
+              flush=True)
         _profile_times(name, nodes, blocks, meta, rays, any_hit)
         if wave != "bounce":
             continue
@@ -1139,7 +1214,8 @@ def phase_profile(ctx, k12):
         # instantiation: no more pops than K1's capped at 64 a ray
         walked = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                                       profile="fix64")
-        check(0 < walked["pops"] <= int(torch.clamp(pops, max=64).sum())
+        check(0 < walked["pops"] <= int(torch.clamp(thread_pops,
+                                                    max=64).sum())
               and 0 < walked["mt_tests"] <= kind["counts"]["mt_tests"],
               f"profile=fix64 counts {walked} against K1's "
               f"{kind['counts']}")
@@ -1159,7 +1235,8 @@ def phase_profile(ctx, k12):
                    float((k[1] != p[1]).float().max()))
             counts = {"empty": dict(kind["counts"], pops=0, mt_tests=0),
                       "nomt": nomt, "fix64": walked,
-                      "count": kind["counts"]}[prof]
+                      "count": dict(kind["counts"],
+                                    pops=int(thread_pops.sum()))}[prof]
             bms, by, flops, nbytes = _bound(counts, n, in_bytes[prof], 16)
             print(f"  profile={prof} on the bounce wave: {ms:.3f} ms; "
                   f"{counts['pops']} pops, {counts['mt_tests']} MT block "
@@ -1709,7 +1786,7 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
         print(f"  K1/K2 time per {waves[wave].shape[1]}-ray wave on the "
               f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
         _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
-                 waves[wave], certify)
+                 waves[wave], certify if any_hit else None)
     print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(meta))):
@@ -1722,10 +1799,13 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
 
             kms = _time_ms(k9, 20)
             _bitwise(f"K9 {key} against K1/K2, bistro {wave}", got["k"],
-                     refs[wave], waves[wave], certify)
+                     refs[wave], waves[wave],
+                     certify if any_hit else None)
             print(f"  K9 {key} time per {waves[wave].shape[1]}-ray wave on "
                   f"the bistro tree, {name}: {kms:.3f} ms (K1/K2 "
                   f"{ref_ms[wave]:.3f} ms)", flush=True)
+    _k1_against_per_thread("bistro", nodes, blocks, meta, waves,
+                           stream=True)
     print("K8 with stream=True against K6 on the bistro tree (3g):",
           flush=True)
     _paired_waves("bistro paired(bounce, shadow), stream=True", nodes, blocks,
@@ -2048,7 +2128,7 @@ def phase_raystream_render(scene, cam, base_mean):
     return launches
 
 
-BF_RMSE = 1e-3    # 4j against the packet render (ROADMAP's image bar)
+IMAGE_RMSE = 1e-3  # 4i, 4j against 4f's K1 render (ROADMAP's image bar)
 
 
 def phase_bf_render(scene, cam, base_img):
@@ -2081,15 +2161,16 @@ def phase_bf_render(scene, cam, base_img):
           f"{depth}, so {depth + 1} launches of K10, K11, K12, K14 and one "
           f"of K13 per closest wave; bf.LAUNCHES {dict(bf.LAUNCHES)}",
           flush=True)
-    check(rmse <= BF_RMSE, f"the bf render is {rmse:.3e} RMSE off K1's")
+    check(rmse <= IMAGE_RMSE, f"the bf render is {rmse:.3e} RMSE off K1's")
     return launches
 
 
-def phase_pipe_render(scene, cam, base_mean):
+def phase_pipe_render(scene, cam, base_mean, base_img):
     """4i: sponza_class_512's settings at 2 spp through
     integrator.render_step_n with the pipelined packet tracer as
-    `tracers=`, without and with the flat push. Returns {"pipe" /
-    "flat_walk": launch counts}."""
+    `tracers=`, without and with the flat push; each image held to 4f's
+    K1 render by its mean and by RMSE. Returns {"pipe" / "flat_walk":
+    launch counts}."""
     from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.render import autoplan, integrator
     from platinum_tpu_torch.render.flatten import (analyze_features,
@@ -2117,13 +2198,19 @@ def phase_pipe_render(scene, cam, base_mean):
         img = img.cpu().numpy()
         check(bool(np.isfinite(img).all()), f"the {key} render is not finite")
         rel = abs(float(img.mean()) / base_mean - 1.0)
+        img = img.reshape(base_img.shape)
+        rmse = float(np.sqrt(np.mean((img - base_img) ** 2)))
         ran = {k: v for k, v in launches.items() if v}
         print(f"headline through the packet tracer with {key}=True (4i): "
               f"512x512 x 2 spp in {ms:.1f} ms ({ms / 2:.1f} ms/spp), mean "
               f"{img.mean():.5f} against K1's {base_mean:.5f} at the same 2 "
-              f"spp (rel {rel:.2e}), plan {settings.compact_plan}, launches "
-              f"{ran}", flush=True)
+              f"spp (rel {rel:.2e}), RMSE {rmse:.3e} against 4f's K1 render "
+              f"(largest per-pixel difference "
+              f"{float(np.abs(img - base_img).max()):.3e}), plan "
+              f"{settings.compact_plan}, launches {ran}", flush=True)
         check(rel <= MEAN_RTOL, f"the {key} render's mean is off K1's")
+        check(rmse <= IMAGE_RMSE,
+              f"the {key} render is {rmse:.3e} RMSE off K1's")
         out[key] = launches
     return out
 
@@ -2356,7 +2443,8 @@ def main():
     bistro_launches = phase_bistro()
     exact_launches, base_mean = phase_exact_options(scene, cam)
     stream_launches = phase_raystream_render(scene, cam, base_mean)
-    pipe_launches = phase_pipe_render(scene, cam, base_mean)
+    pipe_launches = phase_pipe_render(scene, cam, base_mean,
+                                      exact_launches["image"])
     lap("4d-4g, 4i renders")
     bf_launches = phase_bf_render(scene, cam, exact_launches.pop("image"))
     lap("4j bf render")

@@ -91,49 +91,56 @@
 // barycentrics and (outside exact-t ties) the id are then K1's on every
 // ray.
 //
-// Warp-wide block tests (the closest hit of the reduced tiers: K4, K5, and
-// K6-K8 at those tiers). One thread per ray that tests whole blocks, as
-// the fp32 modes do, splits each of a block's 2,560 coefficients again for
-// every ray and reads the block as 640 scattered 16-byte loads: lanes on
-// different blocks touch 32 lines per load and use 16 bytes of each. Here
-// the walk stays one ray per lane, in the queued form below, and each
-// node's leaf blocks are tested by the whole warp: the lanes' queues are
-// drained lane after lane, each lane's entries in its own queue order; the
-// drained lane's features are broadcast (__shfl_sync), every lane forms
-// the dots of two of the block's 64 triangles from the pre-split planes
-// (one 128-byte line per plane, row and output, read once), and a warp
+// Warp-wide block tests. Taken by closest hit at the reduced tiers (K4,
+// K5, and K6-K8 at those tiers) and by fp32 closest hit over one tree
+// level without the octant order: K1 and K6 closest (walk kWarpQ; the
+// prefetch flag tells them apart). One thread per ray that tests whole blocks reads each block as
+// 640 scattered 16-byte loads (a reduced tier also splits each of its
+// 2,560 coefficients again for every ray): lanes on different blocks
+// touch 32 lines per load and use 16 bytes of each, and lanes whose leaves
+// hold fewer blocks wait for the others. Here the walk stays one ray per
+// lane, in the queued form below, and each node's leaf blocks are tested
+// by the whole warp: the lanes' queues are drained lane after lane, each
+// lane's entries in its own queue order; the drained lane's features are
+// broadcast (__shfl_sync), every lane forms the dots of two of the block's
+// 64 triangles (per row and output one 128-byte line of each pre-split
+// plane, or two of the fp32 block, read once), and a warp
 // reduction keeps the least (t, slot), or for the two_phase broad phase
 // the least loose t, strict bound and lower bound. The lane that holds the
 // winner forms u and v, and the drained lane commits with the strict <
 // against the best it had when the block started, so the hit set, t, ids
-// and barycentrics are those of the per-thread code, bit for bit. K5's
-// refine and its exact re-walk take the same drain over the fp32 blocks
-// with K1's per-triangle code (mt_block.cuh `lane_dots`). Every lane runs
-// every warp collective: lanes whose ray is done or lies past the wave
-// stay in the loops with empty queues.
+// and barycentrics are those of the per-thread code, bit for bit. The fp32
+// drain (K1, K6, and K5's refine and exact re-walk) uses K1's
+// per-triangle code (mt_block.cuh `lane_dots`, block_dots' sum order).
+// Every lane runs every warp collective: lanes whose ray is done or lies
+// past the wave stay in the loops with empty queues.
+//
+// The per-thread walks stay, for now, where fp32 closest hit is not K1 or
+// K6 and for every any hit: K2 and K6 any hit, K3 (instanced), the octant
+// order (K7, also streamed), the paired launch (K8), the pipelined walks
+// (K9) and the ablation modes, which split the per-thread walk's time.
+// They are the next candidates for the drain, and meanwhile the
+// per-thread references the warp-wide K1 and K6 are held to.
 
-// Queued walks (kQueue: stream, near-first order, or both; every
-// warp-wide walk). The node's 16 children are slab-tested first, against
-// the best at the pop; inner hits are pushed and leaf hits queued with
-// their entry distance. The queue is then drained: oldest first (slot
-// order, as K1 visits leaves), or nearest first under the octant order
-// (the order pushes far-to-near, so the stack top is the nearest inner
-// child too). A queued leaf whose entry distance now exceeds the running
-// best is skipped, and each block is tested against the running best with
-// K1's block code. That makes the queued walk visit leaves and blocks in
-// K1's order with K1's culls, so its results are K1's bit for bit; it only
-// pushes some inner children K1 culls, whose own children then all fail
-// their slab tests (a child's box lies inside its parent's). The TPU
-// kernel tests its drain against a superstep snapshot of the best so that
-// the drained matmuls are independent; one thread has no such batch. The
-// queue holds one node's leaf children and is drained before the next
-// pop, so 16 entries always suffice; the TPU kernel's queue
-// (accel.wide.KERNEL_LEAFQ blocks) spans the pops of a superstep. The fp32
-// modes without stream or octant order keep the walk that tests each leaf
-// as it is found: timed against it (tools/torch_time_waves.py, PERF.md),
-// the queued walk is faster on camera and shadow waves but slower on
-// bounce waves, twice as slow on the 1M-triangle tree's, so neither walk
-// replaces the other yet.
+// Queued walks (kQueue: stream or near-first order on the per-thread
+// walk; every warp-wide walk). The node's 16 children are slab-tested
+// first, against the best at the pop; inner hits are pushed and leaf hits
+// queued with their entry distance. The queue is then drained: oldest
+// first (slot order, as the classic walk visits leaves), or nearest first
+// under the octant order (the order pushes far-to-near, so the stack top
+// is the nearest inner child too). A queued leaf whose entry distance now
+// exceeds the running best is skipped, and each block is tested against
+// the running best with K1's block code. That makes the queued walk visit
+// leaves and blocks in the classic walk's order with its culls, so its
+// results are the classic walk's bit for bit; it only pushes some inner
+// children the classic walk culls, whose own children then all fail their
+// slab tests (a child's box lies inside its parent's): its node pops may
+// rise a little, its MT block tests do not. The TPU kernel tests its
+// drain against a superstep snapshot of the best so that the drained
+// matmuls are independent; one thread has no such batch. The queue holds
+// one node's leaf children and is drained before the next pop, so 16
+// entries always suffice; the TPU kernel's queue (accel.wide.KERNEL_LEAFQ
+// blocks) spans the pops of a superstep.
 //
 // Streamed blocks (K6). On the TPU the stream mode exists because the
 // blocks do not fit VMEM: each enqueue starts an HBM->VMEM copy and the
@@ -190,10 +197,11 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // walks (kWalk)
-constexpr int kClassic = 0;   // each leaf tested as it is found (K1)
-constexpr int kQueued = 1;    // per-node leaf queue (K6, K7)
+constexpr int kClassic = 0;   // each leaf tested as it is found (K2, K3)
+constexpr int kQueued = 1;    // per-node leaf queue (K6 any hit, K7)
 constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9)
 constexpr int kPipeFlat = 3;  // K9 with 16 predicated pushes per node
+constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1, K6)
 // ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
 constexpr int kProfNone = 0;
 constexpr int kProfEmpty = 1;   // no walk
@@ -328,21 +336,30 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 // thread from its ray index (K8): rays below n_split are a closest-hit
 // wave, the others an any-hit wave. n_split is a multiple of the block
 // size, so no warp holds rays of both waves. Closest hit at a reduced tier
-// (kSplit) always takes the warp-wide queued walk.
+// (kSplit) always takes the warp-wide queued walk; fp32 closest hit takes
+// it as kWarpQ (one tree level, no octant order: K1 and K6). The kernels
+// below wrap it.
+#define WIDE_TRACE_PARAMS                                                 \
+  const float* __restrict__ rays, int n_rays, int n_split,                \
+      const float* __restrict__ nodes, const float* __restrict__ blocks,  \
+      const unsigned* __restrict__ planes, const int* __restrict__ meta,  \
+      const float* __restrict__ inst_feat, const int* __restrict__ worder, \
+      int prefetch, float* __restrict__ t_out, int* __restrict__ sid_out, \
+      float* __restrict__ u_out, float* __restrict__ v_out,               \
+      int* __restrict__ inst_out, int* __restrict__ counts
+#define WIDE_TRACE_ARGS                                                   \
+  rays, n_rays, n_split, nodes, blocks, planes, meta, inst_feat, worder,  \
+      prefetch, t_out, sid_out, u_out, v_out, inst_out, counts
+
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf, bool kPaired>
-__global__ void __launch_bounds__(kThreads)
-wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
-                  const float* __restrict__ nodes,
-                  const float* __restrict__ blocks,
-                  const unsigned* __restrict__ planes,
-                  const int* __restrict__ meta,
-                  const float* __restrict__ inst_feat,
-                  const int* __restrict__ worder, int prefetch,
-                  float* __restrict__ t_out, int* __restrict__ sid_out,
-                  float* __restrict__ u_out, float* __restrict__ v_out,
-                  int* __restrict__ inst_out, int* __restrict__ counts) {
+__device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
+  static_assert(kWalk != kWarpQ || (kPrec == kHighest && !kAnyHit &&
+                                    !kInst && kProf == kProfNone &&
+                                    !kPaired),
+                "kWarpQ is the one-level fp32 closest hit");
+  constexpr bool kWarpWide = kSplit || kWalk == kWarpQ;
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -350,7 +367,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   const bool any_hit = kPaired ? i >= n_split : kAnyHit;
   // the warp-wide modes keep every lane of the warp: one past the wave
   // runs as a dead ray (tmax < tmin)
-  const bool warp_wide = kSplit && !any_hit;
+  const bool warp_wide = kWarpWide && !any_hit;
   const bool in_wave = i < n_rays;
   if (!in_wave && !warp_wide) return;
   Ray r;
@@ -628,10 +645,12 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
     }
   };
 
-  // ---- the warp-wide modes (kSplit closest hit) ----------------------
+  // ---- the warp-wide modes (kSplit and kWarpQ closest hit) -----------
   // Every lambda below is entered by all 32 lanes together, and every
   // branch around a warp collective is warp-uniform: it depends only on
-  // values broadcast from one lane or reduced over the warp.
+  // values broadcast from one lane or reduced over the warp. `exact`: the
+  // block is tested over the fp32 blocks (kWarpQ, and two_phase's refine
+  // and re-walk, `refine`), not over the planes.
 
   // One block b (of instance inst) tested by the warp for lane L's ray,
   // whose features the lanes hold broadcast (of: the split h, or the fp32
@@ -640,7 +659,8 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   // updates as L's own state is updated.
   auto warp_block = [&](int L, int b, int inst, const float* of,
                         const float* ofl, float o_tmin, float& ob) {
-    const bool exact = kPrec == kTwoPhase && !broad;
+    const bool refine = kPrec == kTwoPhase && !broad;
+    const bool exact = kPrec == kHighest || refine;
     float out[8], mag[8];
     if (exact)
       lane_dots(blocks + (size_t)b * kBlockFloats, lane, of, out);
@@ -648,7 +668,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
       lane_dots_split<kPrec>(planes + (size_t)b * kSplitWords, lane, of, ofl,
                              out, mag);
     if (kCount && lane == L) {
-      if (exact) ++n_refine; else ++n_tests;
+      if (refine) ++n_refine; else ++n_tests;
     }
     if (kPrec == kTwoPhase && !exact) {
       float tL, tS, tLo;
@@ -692,7 +712,15 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   // lane L's current features, broadcast (split, or fp32 in the exact
   // phase; the instance's object features in the two-level mode)
   auto broadcast_features = [&](int L, float* of, float* ofl) {
-    const bool exact = kPrec == kTwoPhase && !broad;
+    if (kPrec == kHighest && !kInst) {
+      // K1, K6: lane L's ray broadcast, its features formed as lane L
+      // formed them (six shuffles; no lane holds r.f across the walk)
+      ray_features(__shfl_sync(kFull, r.ox, L), __shfl_sync(kFull, r.oy, L),
+                   __shfl_sync(kFull, r.oz, L), __shfl_sync(kFull, dx, L),
+                   __shfl_sync(kFull, dy, L), __shfl_sync(kFull, dz, L), of);
+      return;
+    }
+    const bool exact = kPrec == kHighest || (kPrec == kTwoPhase && !broad);
     const float* h = exact ? (kInst ? fo : r.f) : (kInst ? foh : r.fh);
     const float* l = kInst ? fol : r.fl;
 #pragma unroll
@@ -726,7 +754,8 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   // its own queue order (newest first under the octant order); an entry
   // whose distance exceeds the drained lane's bound is skipped.
   auto drain = [&](const int* qv, const float* qt, int q) {
-    const bool exact = kPrec == kTwoPhase && !broad;
+    const bool refine = kPrec == kTwoPhase && !broad;
+    const bool wide_cull = kPrec == kTwoPhase && broad;
     unsigned tested = 0;
     int round_tests = 0, round_distinct = 0;
     for (unsigned pend = __ballot_sync(kFull, q > 0); pend;
@@ -734,8 +763,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
       const int L = __ffs(pend) - 1;
       const int nq = __shfl_sync(kFull, q, L);
       const float o_tmin = __shfl_sync(kFull, r.tmin, L);
-      float ob = __shfl_sync(
-          kFull, kPrec == kTwoPhase && !exact ? cd.cull : best, L);
+      float ob = __shfl_sync(kFull, wide_cull ? cd.cull : best, L);
       float of[10], ofl[10];
       int o_inst = -1;
       if (!kInst) broadcast_features(L, of, ofl);
@@ -743,9 +771,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
         const int ee = worder != nullptr ? nq - 1 - e : e;
         const int val = __shfl_sync(kFull, ee < q ? qv[ee] : 0, L);
         const float tn = __shfl_sync(kFull, ee < q ? qt[ee] : 0.f, L);
-        const float bound = kPrec == kTwoPhase && !exact
-                                ? ob * (1.0f + kTpRel) + kTpAbs
-                                : ob;
+        const float bound = wide_cull ? ob * (1.0f + kTpRel) + kTpAbs : ob;
         if (!(tn <= bound)) continue;
         if (kCount && lane == L) tested |= 1u << ee;
         const int nb = val & 31;
@@ -757,7 +783,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
           o_inst = inst;
         }
         for (int j = 0; j < nb; ++j) {
-          if (kCount && !exact) {
+          if (kCount && !refine) {
             const bool seen = __any_sync(
                 kFull, lane < L && tested_block(b0 + j, qv, q, tested));
             round_distinct += !seen;
@@ -831,7 +857,7 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   const bool live = kProf != kProfEmpty && r.tmax > r.tmin;
   bool fell_back = false;
   if (warp_wide) {
-    if constexpr (kSplit) {
+    if constexpr (kWarpWide) {
       warp_walk(live);
       if (kPrec == kTwoPhase) {
         if (live) {
@@ -879,6 +905,25 @@ wide_trace_kernel(const float* __restrict__ rays, int n_rays, int n_split,
   }
 }
 
+template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
+          int kProf, bool kPaired>
+__global__ void __launch_bounds__(kThreads)
+wide_trace_kernel(WIDE_TRACE_PARAMS) {
+  wide_trace<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>(
+      WIDE_TRACE_ARGS);
+}
+
+// K1 and K6 closest (the render instantiation of kWarpQ). Left to its
+// default, ptxas fits it in 64 registers and spills; asking for 6 blocks
+// of 128 threads an SM lets it take up to 85, and it keeps its ~80 in
+// registers. The other instantiations keep the default: a minimum of
+// blocks makes ptxas take as many registers as the limit allows.
+__global__ void __launch_bounds__(kThreads, 6)
+wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
+  wide_trace<false, false, false, kHighest, kWarpQ, kProfNone, false>(
+      WIDE_TRACE_ARGS);
+}
+
 // The pre-split planes of the coefficient blocks: h = bf16(c) and
 // l = bf16(c - h), round to nearest even, one thread per coefficient, as
 // (B, 2, 10, 256) bf16 (the TPU kernel splits the coefficients inside
@@ -922,17 +967,25 @@ struct Launch {
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf = kProfNone, bool kPaired = false>
 void launch(const Launch& l) {
-  wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>
-      <<<l.grid, kThreads, 0, l.stream>>>(
-          l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
-          l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
-          l.v_out, l.inst_out, l.counts);
+  if constexpr (kWalk == kWarpQ && !kCount)
+    wide_trace_warp_kernel<<<l.grid, kThreads, 0, l.stream>>>(
+        l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
+        l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
+        l.v_out, l.inst_out, l.counts);
+  else
+    wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>
+        <<<l.grid, kThreads, 0, l.stream>>>(
+            l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
+            l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
+            l.v_out, l.inst_out, l.counts);
 }
 
 constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
 // K1-K7: the classic or queued walk at a tier; closest hit at a reduced
-// tier always takes the warp-wide queued walk (one instantiation)
+// tier always takes the warp-wide queued walk (one instantiation), and so
+// does fp32 closest hit over one tree level without the octant order (K1,
+// K6; the prefetch flag tells them apart)
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
@@ -940,7 +993,13 @@ int by_precision(int prec, const Launch& l) {
     launch<true, kInst, kCount, kHighest, kWalk>(l);
   } else {
     switch (prec) {
-      case kHighest: launch<false, kInst, kCount, kHighest, kWalk>(l); break;
+      case kHighest:
+        // one tree level without the octant order: the warp-wide walk
+        if constexpr (kInst) launch<false, true, kCount, kHighest, kWalk>(l);
+        else if (l.worder != nullptr)
+          launch<false, false, kCount, kHighest, kQueued>(l);
+        else launch<false, false, kCount, kHighest, kWarpQ>(l);
+        break;
       case kHigh: launch<false, kInst, kCount, kHigh, kQueued>(l); break;
       case kDefault: launch<false, kInst, kCount, kDefault, kQueued>(l); break;
       case kTwoPhase:
@@ -1010,9 +1069,9 @@ int piped(int any_hit, const Launch& l) {
   return 0;
 }
 
-// The ablation modes of K1/K2 (and of the queued walk, for "empty" and
-// "nomt"): one tree level, fp32. "nomt" and "fix64" have counting
-// instantiations.
+// The ablation modes of the per-thread walk, classic (and queued, for
+// "empty" and "nomt"): one tree level, fp32. "nomt" and "fix64" have
+// counting instantiations.
 template <bool kAnyHit, bool kCount, int kWalk>
 int profiled(int prof, const Launch& l) {
   switch (prof) {

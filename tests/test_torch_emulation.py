@@ -8,10 +8,10 @@ is held here: every mode of wide_trace.cu that computes K1's function
 and without the flat push, the paired launch) gives K1's / K2's results
 bit for bit, on one tree level and on the instanced tree; K1, K2 and the
 reduced tiers agree with their plain versions under the bars of
-tests/test_torch_gpu.py; the reduced tiers' warp-wide drain over the
-pre-split planes (built by the split kernel, bit for bit their plain
-version) gives the per-thread code's results; the ablation modes do what
-they must; the
+tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
+and K6 closest) and over the pre-split planes of the reduced tiers (built
+by the split kernel, bit for bit their plain version), gives the
+per-thread code's results; the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit; and the five kernels of bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
@@ -206,7 +206,7 @@ def test_emulated_profile_modes_do_what_they_must(emulation, soup):
     nodes, blocks, meta, _ = soup
     with emulation:
         k1 = emu.trace_wide(RC, nodes, blocks, meta, False)
-        pops = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)[0]
+        k1c = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)
         for any_hit, rays in ((False, RC), (True, RA)):
             for stream in (False, True):
                 for prof in ("empty", "nomt"):
@@ -215,22 +215,25 @@ def test_emulated_profile_modes_do_what_they_must(emulation, soup):
                     p = pt.trace_wide_profile_plain(rays, nodes, blocks, meta,
                                                     any_hit, prof)
                     assert all(torch.equal(a, b) for a, b in zip(k, p))
+        cnt = emu.trace_wide(RC, nodes, blocks, meta, False, profile="count")
+        assert emu.same_bits((cnt[0], cnt[1], cnt[3]), (k1[0], k1[1], k1[3]))
+        pops = cnt[2].int()       # the per-thread walk's pops, per ray
         nomt = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
                               profile="nomt")
         assert not nomt[1].any() and int(nomt[0].sum()) >= int(pops.sum())
-        cnt = emu.trace_wide(RC, nodes, blocks, meta, False, profile="count")
-        assert emu.same_bits((cnt[0], cnt[1], cnt[3]), (k1[0], k1[1], k1[3]))
-        assert torch.equal(cnt[2], pops.float())
         fix = emu.trace_wide(RC, nodes, blocks, meta, False, profile="fix64")
         short = pops <= 64
         assert short.all() and emu.same_bits(fix, k1)
         fixc = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
                               profile="fix64")
-        k1c = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)
-        assert torch.equal(fixc, k1c)   # every walk here ends within 64
         with pytest.raises(RuntimeError, match="launch failed"):
             emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
                            profile="count")     # no such instantiation
+    # every walk here ends within 64 pops, so fix64 counts the per-thread
+    # walk: count's pops, and K1's (warp-wide, queued) MT block tests; K1
+    # pops no fewer nodes and fills the drain rows
+    assert torch.equal(fixc[0], pops) and torch.equal(fixc[1:5], k1c[1:5])
+    assert not fixc[5:].any() and (k1c[0] >= pops).all()
 
 
 @pytest.fixture(scope="module")
@@ -342,6 +345,58 @@ def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
         _hold_to_plain(k4, p, rtol=HIGH_T_RTOL, atol=0.0)
         same = hit & (k4[1] == p[1])
         assert torch.equal(k4[4][same], p[4][same])
+
+
+def _ragged_wave():
+    """1,013 rays (not a multiple of 32), every fifth one dead (tmax below
+    tmin): dead lanes inside warps and a last warp past the wave."""
+    rays = RC[:, :1013].clone()
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    return rays
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
+def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
+                                                    multi_block, tree):
+    """K1 and K6 closest (stream=True) take the warp-wide drain over the
+    fp32 blocks: every output equal, bit for bit, to the per-thread
+    pipelined walk's (K9 pipe), on the soup, on a tree whose nodes queue
+    more than 16 blocks, and on a ragged wave with dead lanes; hit set and
+    t in every bit those of the leaf-pair kernel on every (ray, block) pair,
+    id, u and v too outside exact-t ties between blocks. The counting
+    instantiation tests K1's blocks (those of the per-thread classic walk,
+    fix64's count where every walk ends within 64 pops; no fewer than the
+    pipelined walk's, which drops stale backlog entries) and fills the
+    drain rows: 0 < rounds <= distinct blocks <= tests."""
+    nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
+    rays = _ragged_wave() if tree == "ragged" else RC
+    with emulation:
+        pipe = emu.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
+        k1 = emu.trace_wide(rays, nodes, blocks, meta, False)
+        k6 = emu.trace_wide(rays, nodes, blocks, meta, False, stream=True)
+        c1, c6, c9, cf = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                         count=True, **kw)
+                          for kw in (dict(), dict(stream=True),
+                                     dict(pipe=True), dict(profile="fix64")))
+        ref = _per_thread_closest(rays, blocks, "highest")
+    assert emu.same_bits(k1, pipe) and emu.same_bits(k6, pipe)
+    hit = k1[1] >= 0
+    assert hit.sum() > 100
+    if tree == "ragged":
+        dead = rays[7] < rays[6]
+        assert not hit[dead].any() and (hit & ~dead).sum() > 100
+        assert emu.same_bits((k1[0][dead],), (rays[7][dead],))
+    assert torch.equal(ref[1] >= 0, hit)
+    assert emu.same_bits((k1[0][hit],), (ref[0][hit],))
+    keep = hit & ~ref[4]
+    assert keep.sum() > 100 and torch.equal(k1[1][keep], ref[1][keep])
+    assert emu.same_bits((k1[2][keep], k1[3][keep]),
+                         (ref[2][keep], ref[3][keep]))
+    assert torch.equal(c1, c6) and int(cf[0].max()) < 64
+    assert torch.equal(c1[1], cf[1]) and (c1[0] >= cf[0]).all()
+    tests, rounds, distinct = (int(c1[r].sum()) for r in (1, 5, 6))
+    assert 0 < rounds <= distinct <= tests
+    assert int(c1[1].sum()) >= int(c9[1].sum()) > 0
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block"])

@@ -423,6 +423,26 @@ def test_pipelined_walk_is_k1_and_k2_bit_for_bit(soup_on_card, walk):
         assert counts["pops"] > 0 and counts["mt_tests"] > 0
 
 
+def test_fp32_closest_hit_drains_warp_wide(soup_on_card):
+    """K1 and K6 closest take the warp-wide drain over the fp32 blocks: on
+    a wave of 4,001 rays (not a multiple of 32), every fifth one dead
+    (tmax below tmin), every output is the per-thread pipelined walk's bit
+    for bit, and the counting instantiation fills the drain rows
+    (0 < rounds <= distinct blocks <= MT tests), the same for both."""
+    nodes, blocks, meta, _ = soup_on_card
+    rays = _rays(4001, np.inf, nodes.device)
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
+    for stream in (False, True):
+        k = pt.trace_wide(rays, nodes, blocks, meta, False, stream=stream)
+        _bitwise(k, pipe, f"stream={stream}")
+        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 300
+    c1, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                   stream=stream) for stream in (False, True))
+    assert c1 == c6
+    assert 0 < c1["drain_rounds"] <= c1["distinct_blocks"] <= c1["mt_tests"]
+
+
 @pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
 def test_instanced_pipelined_walk_is_k3_bit_for_bit(instanced_on_card, walk):
     nodes, blocks, meta, feat, _ = instanced_on_card
@@ -467,14 +487,18 @@ def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
 
 def test_profile_modes_do_what_they_must(soup_on_card):
     """ "empty" and "nomt" miss everything; "nomt" pops no fewer nodes
-    than K1 and tests no block; "count" is K1 with u = the ray's pops;
-    "fix64" runs."""
+    than the per-thread walk and tests no block; "count" is K1 with u =
+    the per-thread walk's pops; "fix64" runs, and counts that walk (K1's
+    MT block tests; K1's warp-wide walk pops no fewer nodes) where it ends
+    within 64 pops."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4096, np.inf, nodes.device)
     shadow = _rays(4096, 8.0, nodes.device)
     k1 = pt.trace_wide(rays, nodes, blocks, meta, False)
-    pops = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
-                                per_ray=True)
+    k1c = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                               per_ray=True)
+    c = pt.trace_wide(rays, nodes, blocks, meta, False, profile="count")
+    pops = c[2].int()
     for prof in ("empty", "nomt"):
         for any_hit, wave in ((False, rays), (True, shadow)):
             for stream in (False, True):
@@ -490,21 +514,21 @@ def test_profile_modes_do_what_they_must(soup_on_card):
                 assert (k[1] == -1).all()
     nomt = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                                 profile="nomt")
-    assert nomt["mt_tests"] == 0 and nomt["pops"] >= int(pops[0].sum())
-    c = pt.trace_wide(rays, nodes, blocks, meta, False, profile="count")
+    assert nomt["mt_tests"] == 0 and nomt["pops"] >= int(pops.sum())
     assert torch.equal(c[0], k1[0]) and torch.equal(c[1], k1[1])
     assert torch.equal(c[3], k1[3])
-    assert torch.equal(c[2], pops[0].float())
+    assert (pops > 0).all() and (k1c[0] >= pops).all()
     f = pt.trace_wide(rays, nodes, blocks, meta, False, profile="fix64")
     torch.cuda.synchronize()
     assert f[0].shape == k1[0].shape
-    short = pops[0] <= 64
+    short = pops <= 64
     for x, y in zip(f, k1):
         assert torch.equal(x[short], y[short])
     fc = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                               profile="fix64", per_ray=True)
-    assert torch.equal(fc[:, short], pops[:, short])
-    assert (fc[0] <= 64).all() and (fc[1][~short] <= pops[1][~short]).all()
+    assert torch.equal(fc[0][short], pops[short])
+    assert torch.equal(fc[1:5][:, short], k1c[1:5][:, short])
+    assert (fc[0] <= 64).all() and (fc[1][~short] <= k1c[1][~short]).all()
     with pytest.raises(RuntimeError, match="launch failed"):
         pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                              profile="count")

@@ -69,7 +69,7 @@ using std::min;
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
-#define __launch_bounds__(x)
+#define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
 struct float2 { float x, y; };
@@ -543,9 +543,13 @@ def main():
         print(f"paired: closest half K1 {same_bits(pc, k1)}, any-hit half "
               f"K2 {torch.equal(pa, k2[1])}")
         cnt = trace_wide(rc, nodes, blocks, meta, False, profile="count")
+        fix = trace_wide(rc, nodes, blocks, meta, False, count=True,
+                         profile="fix64")[0]
         print(f"profile=count: t, id K1's "
-              f"{same_bits((cnt[0], cnt[1]), (k1[0], k1[1]))}, u = pops "
-              f"{torch.equal(cnt[2], c1[0].float())}")
+              f"{same_bits((cnt[0], cnt[1]), (k1[0], k1[1]))}, u = the "
+              f"per-thread walk's pops (fix64's count up to 64) "
+              f"{torch.equal(cnt[2].int().clamp(max=64), fix)}: "
+              f"{int(cnt[2].sum())} (K1's warp-wide walk {int(c1[0].sum())})")
         pair = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta,
                                      mt_fn=stream_mt)
         rec = pair[0](rc[0:3].T.contiguous(), rc[3:6].T.contiguous(), 1e-3,

@@ -1,11 +1,13 @@
-"""Time the wide-BVH kernel per wave on the GPU: K1/K2 (each leaf tested
-as it is found) and the streamed mode (K6: each node's leaves queued and
-drained after its slab tests, each queued block prefetched into L2) on
-the waves chip_smoke.py builds for the headline colonnade (271k triangles,
-512x512) and for bistro_class_studio's tree (the colonnade at 24x12, 1.08M
-triangles, 960x540); with --tiers also the closest hit of the reduced MT
-tiers on the headline tree (K4 "high" and "default", K5 "two_phase"),
-given the blocks' pre-split planes where the checkout has them.
+"""Time the wide-BVH kernel per wave on the GPU: K1/K2, the streamed mode
+(K6: each node's leaves queued and drained after its slab tests, each
+queued block prefetched into L2) and the per-thread pipelined walk (K9
+`pipe`) on the waves chip_smoke.py builds for the headline colonnade (271k
+triangles, 512x512) and for bistro_class_studio's tree (the colonnade at
+24x12, 1.08M triangles, 960x540): the camera and bounce waves as closest
+hit, the shadow wave as any hit and as closest hit; with --tiers also the
+closest hit of the reduced MT tiers on the headline tree (K4 "high" and
+"default", K5 "two_phase"), given the blocks' pre-split planes where the
+checkout has them.
 
     python3 tools/torch_time_waves.py [--tiers] [--headline]
     python3 tools/torch_time_waves.py --root OTHER_CHECKOUT
@@ -29,7 +31,8 @@ import sys
 
 TREES = (("headline", {}, (512, 512)),
          ("bistro", dict(columns=24, rows=12), (960, 540)))
-MODES = (("k1", {}), ("stream", dict(stream=True)))
+MODES = (("k1", {}), ("stream", dict(stream=True)),
+         ("pipe", dict(pipe=True)))
 TIERS = ("high", "default", "two_phase")
 
 
@@ -79,11 +82,12 @@ def main():
             split = ({"planes": pt.split_planes(blocks)}
                      if hasattr(pt, "split_planes") else {})
             modes += [(t, dict(mt_precision=t, **split)) for t in TIERS]
-        for _, wave, any_hit in cs.JOBS:
+        for _, wave, any_hit in (*cs.JOBS, ("", "shadow", False)):
             for mode, kw in modes:
                 if any_hit and "mt_precision" in kw:
                     continue           # any hit is K2 under every tier
-                out["ms"][f"{tree} {wave} {mode}"] = cs._time_ms(
+                kind = " closest" if wave == "shadow" and not any_hit else ""
+                out["ms"][f"{tree} {wave}{kind} {mode}"] = cs._time_ms(
                     lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
                                           any_hit, **kw), args.reps)
         del flat, nodes, blocks, meta, waves
