@@ -15,10 +15,18 @@ Phases, one printed block each (any failure exits non-zero):
      whole 262,144-ray wave, timed and counted (node pops, MT tests) for
      the kernel's least possible time. Every disagreeing ray must be
      certified borderline in float64 (`_borderline`, `_fp32_ambiguous`).
-     K1 (like K6 closest) tests each leaf block with the whole warp over
-     the fp32 blocks; K2 keeps the per-thread walk
+     K1 (like K3 closest and K6) tests each leaf block with the whole warp
+     over the fp32 blocks; K2 keeps the per-thread walk
   3b. K3 vs plain: the same for the two-level modes on the colonnade
-     flattened with instancing="on"
+     flattened with instancing="on" (K3 closest's bound counts the
+     instance entries of K9 `pipe`, the per-thread walk, on the same
+     wave: the drain re-enters an instance per round); then K3 closest
+     (the warp-wide drain,
+     ten lanes forming each drained ray's object features) against K9
+     `pipe` with the instance features, the per-thread walk, on the whole
+     camera, bounce and shadow waves (shadow traced as closest hit):
+     every output, the instance id included, bit for bit, no exception;
+     instance entries per drain round and lanes per distinct block on each
   3c. the pre-split planes of the colonnade's blocks (the split kernel
      against its plain version in every bit, both timed), then K4
      ("high"), K5 ("two_phase") and K7 (octant order), K4 and K5 over
@@ -42,9 +50,12 @@ Phases, one printed block each (any failure exits non-zero):
      16,384-ray subsets of its own 960x540 waves (the plain version takes
      about a minute a whole wave), timed and counted on the whole
      518,400-ray waves, and bit for bit against K1/K2 on all three whole
-     waves of the same tree (K1/K2 timed there too; closest hit with no
-     exception); K1 and K6 closest against K9 `pipe` on the camera,
-     bounce and shadow waves as closest hit, with no exception, and the
+     waves of the same tree (K1/K2 timed there too; no exception); K6 any
+     hit, the warp-wide any-hit drain, against K2 on the whole shadow
+     wave: every output bit for bit and per ray K2's node pops and MT block
+     tests, with its drain counts; K1 and K6 closest against K9 `pipe` on
+     the camera, bounce and shadow waves as closest hit, with no
+     exception, and the
      drain's lanes per distinct block on each; the instanced stream
      modes on the colonnade flattened with instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
@@ -549,7 +560,7 @@ def _synced_ms(fn):
 
 def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
                inst_feat=None, mode=None, jobs=JOBS, whole_plain=True,
-               plain_rows=None):
+               plain_rows=None, inst_need=None):
     """Hold one kernel mode (`mode`: trace_wide's worder / mt_precision /
     stream / pipe / flat_walk) on one tree to its plain version:
     16,384-ray subsets, then the whole waves, each timed and counted, and
@@ -557,7 +568,11 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
     to the plain version there too. Without it the row's plain time is `plain_rows`' (the rows of a mode with the same
     plain version, measured on the same whole waves in this run) or, with
     no such rows, the plain version's time on the 16,384-ray subset
-    (`plain_rays` then says so). "high" holds t to HIGH_T_RTOL. Returns
+    (`plain_rays` then says so). With `inst_need` (trace_wide's keywords
+    of a per-thread walk), the closest-hit bound counts that walk's
+    instance entries on the same wave: the fp32 drain (K3 closest) enters
+    an instance once per drained lane, instance and round, more often than
+    the function needs. "high" holds t to HIGH_T_RTOL. Returns
     ({"closest"/"any": row fields}, {wave: kernel outputs on the whole
     wave})."""
     from platinum_tpu_torch.ops import packet_trace as pt
@@ -614,8 +629,15 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
             plain = f"plain {pms:.1f} ms on the {N_CMP}-ray subset"
         counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                       inst_feat, **mode)
+        need, entries = counts, f"{counts['inst_entries']} instance entries"
+        if inst_need is not None and not any_hit:
+            walk = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+                                        inst_feat, **inst_need)
+            need = dict(counts, inst_entries=walk["inst_entries"])
+            entries += (f" (the drain's; the bound counts the per-thread "
+                        f"walk's {walk['inst_entries']})")
         out_bytes = 16 + (4 if inst_feat is not None and not any_hit else 0)
-        bms, by, flops, nbytes = _bound(counts, rays.shape[1], in_bytes,
+        bms, by, flops, nbytes = _bound(need, rays.shape[1], in_bytes,
                                         out_bytes,
                                         "highest" if any_hit else tier)
         outs[wave] = out["k"]
@@ -625,7 +647,7 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
         print(f"  {label} time per {rays.shape[1]}-ray wave, {name}: kernel "
               f"{kms:.3f} ms, {plain}; "
               f"{counts['pops']} pops, {counts['mt_tests']} MT block tests, "
-              f"{drain}{counts['inst_entries']} instance entries, "
+              f"{drain}{entries}, "
               f"{counts['refine_tests']} fp32 refine / re-walk tests, "
               f"{counts['rewalks']} rays walked again -> "
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
@@ -760,7 +782,8 @@ def phase_k3(scene, cam, dev, pts):
     certify = _instanced_certify(flat, host)
     rows, outs = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta,
                             waves, pts["sample"], certify,
-                            inst_feat=flat.instances.feat)
+                            inst_feat=flat.instances.feat,
+                            inst_need=dict(pipe=True))
     print("K9, the pipelined walk, on the instanced colonnade (3h):",
           flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
@@ -772,6 +795,9 @@ def phase_k3(scene, cam, dev, pts):
         for _, wave, _ in JOBS:
             _bitwise(f"K9 {key} instanced against K3, {wave}",
                      pipe_outs[wave], outs[wave], waves[wave], certify)
+    _drain_against_per_thread("instanced colonnade", nodes, flat.wbvh_tris,
+                              flat.wbvh_meta, waves,
+                              inst_feat=flat.instances.feat)
     return rows
 
 
@@ -931,9 +957,9 @@ def _default_tier_row(ctx):
 
 
 def _exact(name, got, ref):
-    """Every output equal bit for bit: the same walk."""
-    for a, b in zip(got, ref):
-        check(torch.equal(a, b), f"{name}: differs from the unpaired kernel")
+    """Every output equal bit for bit."""
+    for a, b in zip(got, ref, strict=True):
+        check(torch.equal(a, b), f"{name}: an output differs in its bits")
 
 
 def _paired_waves(label, nodes, blocks, meta, closest, shadow, ref_c, ref_a,
@@ -1073,45 +1099,84 @@ def phase_pipe(ctx, k12):
                   f"{ref['mt_tests']} "
                   f"({got['mt_tests'] / ref['mt_tests'] - 1:+.2%})",
                   flush=True)
-    _k1_against_per_thread("headline", nodes, flat.wbvh_tris,
-                           flat.wbvh_meta, waves)
+    _drain_against_per_thread("headline", nodes, flat.wbvh_tris,
+                              flat.wbvh_meta, waves)
     return rows
 
 
-def _k1_against_per_thread(label, nodes, blocks, meta, waves, stream=False):
-    """K1 (and with `stream` K6 closest), the warp-wide drain over the fp32
-    blocks, against K9 `pipe`, the per-thread walk, on the camera, bounce
-    and shadow waves, all traced as closest hit: hit set and t bit for bit
-    on every ray, no exception allowed; id differences (exact-t ties
-    between blocks, which the walks may meet in another order) printed.
-    Also each wave's drain rounds, distinct blocks and lanes per distinct
-    block (MT block tests / distinct blocks) from the counting
-    instantiation."""
+def _drain_counts(name, c):
+    """Check and print the drain rows of one wave's counts: 0 < rounds <=
+    distinct blocks <= MT block tests; lanes per distinct block (MT block
+    tests / distinct blocks), distinct blocks a round and, on an instanced
+    tree, instance entries a round."""
+    check(0 < c["drain_rounds"] <= c["distinct_blocks"] <= c["mt_tests"],
+          f"{name}: drain counts {c}")
+    entries = (f", {c['inst_entries']} instance entries: "
+               f"{c['inst_entries'] / c['drain_rounds']:.2f} a round"
+               if c["inst_entries"] else "")
+    print(f"  {name}: {c['pops']} pops, {c['mt_tests']} MT block tests in "
+          f"{c['drain_rounds']} warp drain rounds, {c['distinct_blocks']} "
+          f"distinct blocks: {c['mt_tests'] / c['distinct_blocks']:.2f} "
+          f"lanes per distinct block, "
+          f"{c['distinct_blocks'] / c['drain_rounds']:.2f} distinct blocks "
+          f"a round{entries}", flush=True)
+
+
+def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
+                              inst_feat=None):
+    """K1 (and with `stream` K6 closest), or with `inst_feat` K3, the
+    warp-wide drain over the fp32 blocks, against K9 `pipe`, the
+    per-thread walk, on the camera, bounce and shadow waves, all traced as
+    closest hit: hit set and t bit for bit on every ray, no exception
+    allowed; id differences (exact-t ties between blocks, which the walks
+    may meet in another order) printed for K1 / K6, and for K3 none
+    allowed: every output, the instance id included, bit for bit. Also
+    each wave's drain counts (`_drain_counts`)."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    modes = [("K1", {})] + ([("K6 closest", dict(stream=True))]
-                            if stream else [])
-    print(f"K1 against the per-thread walk on the {label} tree:",
+    modes = ([("K3", {})] if inst_feat is not None else
+             [("K1", {})] + ([("K6 closest", dict(stream=True))]
+                             if stream else []))
+    print(f"{modes[0][0]} against the per-thread walk on the {label} tree:",
           flush=True)
     for wave in ("camera", "bounce", "shadow"):
         rays = waves[wave]
-        pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
+        pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
+                             pipe=True)
         for name, mode in modes:
-            got = pt.trace_wide(rays, nodes, blocks, meta, False, **mode)
-            _bitwise(f"{name} against the per-thread walk (K9 pipe), "
-                     f"{label} {wave} as closest hit", got, pipe, rays,
-                     None)
-            c = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
-                                     **mode)
-            check(0 < c["drain_rounds"] <= c["distinct_blocks"]
-                  <= c["mt_tests"], f"{name} {wave}: drain counts {c}")
-            print(f"  {name} {label} {wave}: {c['mt_tests']} MT block tests "
-                  f"in {c['drain_rounds']} warp drain rounds, "
-                  f"{c['distinct_blocks']} distinct blocks: "
-                  f"{c['mt_tests'] / c['distinct_blocks']:.2f} lanes per "
-                  f"distinct block, "
-                  f"{c['distinct_blocks'] / c['drain_rounds']:.2f} distinct "
-                  f"blocks a round", flush=True)
+            got = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
+                                **mode)
+            what = (f"{name} against the per-thread walk (K9 pipe), "
+                    f"{label} {wave} as closest hit")
+            _bitwise(what, got, pipe, rays, None)
+            if inst_feat is not None:
+                _exact(what, got, pipe)
+            _drain_counts(f"{name} {label} {wave}", pt.trace_wide_counts(
+                rays, nodes, blocks, meta, False, inst_feat, **mode))
+
+
+def _any_drain_against_k2(label, nodes, blocks, meta, rays, k6, k2):
+    """K6 any hit, the warp-wide any-hit drain, against K2, the per-thread
+    classic walk, on one whole shadow wave: every output bit for bit (the
+    occlusion flag on every ray, no exception), and per ray the same node
+    pops and MT block tests (both cull nodes by the constant tmax and visit
+    leaves in the same order); with its drain counts."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    name = f"K6 any hit against K2, {label} shadow"
+    _exact(name, k6, k2)
+    c6, c2 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                   stream=stream, per_ray=True)
+              for stream in (True, False))
+    check(torch.equal(c6[:2], c2[:2]),
+          f"{name}: pops or MT block tests differ from K2's on "
+          f"{int((c6[:2] != c2[:2]).any(0).sum())} rays")
+    print(f"  {name}: the flag and every output bit for bit on all "
+          f"{rays.shape[1]} rays ({int((k2[1] > 0).sum())} occluded), node "
+          f"pops and MT block tests K2's on every ray", flush=True)
+    _drain_counts(f"K6 any hit {label} shadow",
+                  pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                       stream=True))
 
 
 PROFILE_MODES = ("empty", "nomt", "fix64", "count")
@@ -1121,16 +1186,17 @@ def _profile_times(label, nodes, blocks, meta, rays, any_hit):
     """Launch floor / walk / MT split of one wave: the times of "empty",
     "nomt" and the full walk, on the classic and the queued per-thread
     walk. "empty" and "nomt" are the per-thread walk's; the full closest
-    hit is K1 / K6 on the warp-wide drain, so its MT share is K1's time
-    less the per-thread walk's."""
+    hit is K1 / K6 on the warp-wide drain, and so is the full streamed any
+    hit (K6), so their MT share is the drain's time less the per-thread
+    walk's."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     for walk, stream in (("classic", False), ("queued", True)):
         ms = {prof: _time_ms(lambda prof=prof: pt.trace_wide(
             rays, nodes, blocks, meta, any_hit, stream=stream, profile=prof),
             20) for prof in ("empty", "nomt", "none")}
-        full = ("per-thread" if any_hit else
-                "K6 warp-wide" if stream else "K1 warp-wide")
+        full = ("K6 warp-wide" if stream else
+                "per-thread K2" if any_hit else "K1 warp-wide")
         print(f"  {label}, {walk} walk: empty {ms['empty']:.3f} ms, nomt "
               f"{ms['nomt']:.3f} ms, full ({full}) {ms['none']:.3f} ms -> "
               f"launch floor {ms['empty']:.3f}, walk "
@@ -1786,7 +1852,9 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
         print(f"  K1/K2 time per {waves[wave].shape[1]}-ray wave on the "
               f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
         _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
-                 waves[wave], certify if any_hit else None)
+                 waves[wave], None)
+    _any_drain_against_k2("bistro", nodes, blocks, meta, waves["shadow"],
+                          outs["shadow"], refs["shadow"])
     print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(meta))):
@@ -1804,8 +1872,8 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
             print(f"  K9 {key} time per {waves[wave].shape[1]}-ray wave on "
                   f"the bistro tree, {name}: {kms:.3f} ms (K1/K2 "
                   f"{ref_ms[wave]:.3f} ms)", flush=True)
-    _k1_against_per_thread("bistro", nodes, blocks, meta, waves,
-                           stream=True)
+    _drain_against_per_thread("bistro", nodes, blocks, meta, waves,
+                              stream=True)
     print("K8 with stream=True against K6 on the bistro tree (3g):",
           flush=True)
     _paired_waves("bistro paired(bounce, shadow), stream=True", nodes, blocks,
@@ -1828,7 +1896,7 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
     inst_rows, inst_outs = _hold_tree(
         "K6 instanced", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
         pts_small["sample"], inst_certify, inst_feat=flat.instances.feat,
-        mode=dict(stream=True))
+        mode=dict(stream=True), inst_need=dict(pipe=True))
     for _, wave, any_hit in JOBS:
         ref = pt.trace_wide(waves[wave], nodes, flat.wbvh_tris,
                             flat.wbvh_meta, any_hit, flat.instances.feat)

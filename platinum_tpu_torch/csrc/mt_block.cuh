@@ -9,10 +9,10 @@
 // products and FMAs spelled out, and each triangle's dots, accept tests
 // and divisions below are one sequence of operations, whether one thread
 // tests a whole block (`block_closest`, K13 and K15) or a warp tests it
-// two triangles a lane (`lane_dots_split`, `lane_dots`, `lane_closest`:
-// K1-K9's reduced tiers and two_phase). `kShared` reads the block from
-// shared memory (K13 stages it there once per tile) instead of through
-// the read-only cache; the arithmetic is the same.
+// two triangles a lane (`lane_dots_split`, `lane_dots`, `lane_closest`,
+// `lane_any`: the warp-wide modes of wide_trace.cu). `kShared` reads the
+// block from shared memory (K13 stages it there once per tile) instead of
+// through the read-only cache; the arithmetic is the same.
 //
 // Layout (platinum_tpu/accel/wide.py): a block is (10, 256) f32, columns
 // [det x64 | u*det x64 | v*det x64 | t*det x64] of 64 triangles, rows the
@@ -312,6 +312,22 @@ __device__ __forceinline__ void lane_dots(const float* __restrict__ blk,
       out[q * 2 + 1] += c.y * fk;
     }
   }
+}
+
+// block_any's division-free accept test over the lane's two triangles
+// (from lane_dots: block_dots' sums, so each accept is the same bit)
+__device__ __forceinline__ bool lane_any(const float out[8], float tmin,
+                                         float tmax) {
+  bool hit = false;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const float s = out[j] >= 0.f ? 1.f : -1.f;
+    const float a = out[j] * s, u = out[2 + j] * s, v = out[4 + j] * s,
+                ts = out[6 + j] * s;
+    hit |= a > kDetEps && u >= 0.f && v >= 0.f && u + v <= a &&
+           ts > tmin * a && ts < tmax * a;
+  }
+  return hit;
 }
 
 // block_closest's accept test and choice over the lane's two triangles:

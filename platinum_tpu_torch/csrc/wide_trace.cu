@@ -14,7 +14,8 @@
 //   K5 closest hit at mt_prec="two_phase" (bf16x3 broad phase keeping each
 //      ray's top-2 candidate blocks, exact fp32 refine of those blocks);
 //   K6 stream=True: leaf blocks queued per node, each block's 10,240 B
-//      prefetched into L2 as it is queued, the queue drained oldest first;
+//      prefetched into L2 as it is queued (closest hit), the queue drained
+//      oldest first;
 //   K7 oct_order: children visited in a per-(node, octant) near-first
 //      order (accel.wide.build_octant_orders);
 //   K8 the paired launch (`trace_paired`): one grid over a closest-hit
@@ -53,9 +54,10 @@
 // Two-level mode (K3). The TLAS rows and every instance's copy of its
 // mesh's BLAS rows are world-space node rows of one tree, so the walk and
 // its slab tests are K1's, in world space. A leaf names its instance; on
-// entering a leaf of another instance than the last, the thread computes
-// the 10 object-space features F_obj = T F_world (100 fp32 FMAs) and keeps
-// them while the following leaves belong to the same instance. The MT
+// entering a leaf of another instance than the last, the ray's 10
+// object-space features F_obj = T F_world are formed (100 fp32 FMAs; in
+// the fp32 drain once per drained lane and instance, by ten lanes) and
+// kept while the following leaves belong to the same instance. The MT
 // blocks are the mesh library's, shared by all instances of a mesh. t is
 // invariant under the transform, so the running best culls across
 // instances unchanged; closest hit also writes the instance of the hit.
@@ -92,11 +94,13 @@
 // ray.
 //
 // Warp-wide block tests. Taken by closest hit at the reduced tiers (K4,
-// K5, and K6-K8 at those tiers) and by fp32 closest hit over one tree
-// level without the octant order: K1 and K6 closest (walk kWarpQ; the
-// prefetch flag tells them apart). One thread per ray that tests whole blocks reads each block as
-// 640 scattered 16-byte loads (a reduced tier also splits each of its
-// 2,560 coefficients again for every ray): lanes on different blocks
+// K5, and K6-K8 at those tiers), by fp32 closest hit without the octant
+// order over one tree level or two (K1, K3, K6 closest; walk kWarpQ, the
+// prefetch flag telling the streamed mode apart) and by streamed any hit
+// over one tree level (K6 any hit, kWarpQ too). One thread per ray that
+// tests whole blocks reads each block as 640 scattered 16-byte loads (a
+// reduced tier also splits each of its 2,560 coefficients again for every
+// ray): lanes on different blocks
 // touch 32 lines per load and use 16 bytes of each, and lanes whose leaves
 // hold fewer blocks wait for the others. Here the walk stays one ray per
 // lane, in the queued form below, and each node's leaf blocks are tested
@@ -110,17 +114,29 @@
 // winner forms u and v, and the drained lane commits with the strict <
 // against the best it had when the block started, so the hit set, t, ids
 // and barycentrics are those of the per-thread code, bit for bit. The fp32
-// drain (K1, K6, and K5's refine and exact re-walk) uses K1's
+// drain (K1, K3, K6, and K5's refine and exact re-walk) uses K1's
 // per-triangle code (mt_block.cuh `lane_dots`, block_dots' sum order).
-// Every lane runs every warp collective: lanes whose ray is done or lies
-// past the wave stay in the loops with empty queues.
+// In the two-level fp32 drain (K3) the drained lane's ray is broadcast and
+// lanes 0-9 each form one row of its object features T F, in
+// object_features' order, which are then broadcast: ten lanes do the
+// instance entry that one thread did. Any hit (K6 any) tests each block
+// with block_any's accept test over each lane's two triangles
+// (`lane_any`); one __any_sync decides, and an occluded lane's remaining
+// queue and stack are dropped. Its node cull is the constant tmax, so it
+// pops the nodes and tests the blocks of the per-thread walk, in its
+// order, and its flag is K2's. Every lane runs every warp collective:
+// lanes whose ray is done or lies past the wave stay in the loops with
+// empty queues.
 //
-// The per-thread walks stay, for now, where fp32 closest hit is not K1 or
-// K6 and for every any hit: K2 and K6 any hit, K3 (instanced), the octant
-// order (K7, also streamed), the paired launch (K8), the pipelined walks
-// (K9) and the ablation modes, which split the per-thread walk's time.
-// They are the next candidates for the drain, and meanwhile the
-// per-thread references the warp-wide K1 and K6 are held to.
+// The per-thread walks stay, for now, for any hit without streamed blocks
+// (K2, the reference K6 any hit is held to), for any hit over the
+// two-level tree (K3 any hit), for the octant order (K7, also streamed:
+// its near-first queue order is the per-thread walk's), for the paired
+// launch (K8: its any-hit half shares the grid with a closest-hit half),
+// the pipelined walks (K9, whose backlog outlives a node and so has no
+// per-node queue to drain) and the ablation modes, which split the
+// per-thread walk's time. They are the next candidates for the drain, and
+// meanwhile the per-thread references the warp-wide modes are held to.
 
 // Queued walks (kQueue: stream or near-first order on the per-thread
 // walk; every warp-wide walk). The node's 16 children are slab-tested
@@ -149,14 +165,17 @@
 // cp.async.bulk.prefetch.L2 per queued block (of its pre-split planes at a
 // reduced tier, the h plane alone at "default"), issued while the rest of
 // the node is expanded, so the block is on its way to L2 before its first
-// load. The blocks are read in their (B, 10, 256) layout, unpadded (the
+// load (closest hit; K6's any-hit drain prefetches nothing, see expand).
+// The blocks are read in their (B, 10, 256) layout, unpadded (the
 // TPU's 16-row padding is a Mosaic tiling artefact). Block offsets are
 // computed in size_t: the 1M-triangle colonnade's 24,501 blocks are
 // 250.9 MB.
 //
 // A counting instantiation (kCount) also writes, per ray, the node pops,
 // the (ray, block) MT tests (broad-phase tests for two_phase), the
-// instance entries (T F products), the fp32 block tests of two_phase's
+// instance entries (T F products; in the fp32 drain over two levels, K3
+// closest, one per drained lane, instance and round, more than the walk's
+// switches of instance), the fp32 block tests of two_phase's
 // refine and exact re-walk, and whether the ray walked again; and, on lane
 // 0 of each warp, the warp-wide drain rounds that tested a block and the
 // distinct blocks they tested (the tensor-core question: how many lanes
@@ -197,11 +216,14 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // walks (kWalk)
-constexpr int kClassic = 0;   // each leaf tested as it is found (K2, K3)
-constexpr int kQueued = 1;    // per-node leaf queue (K6 any hit, K7)
+constexpr int kClassic = 0;   // each leaf tested as it is found (K2, K3
+                              // any hit)
+constexpr int kQueued = 1;    // per-node leaf queue (K7, streamed K3 any
+                              // hit and K8; the reduced tiers)
 constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9)
 constexpr int kPipeFlat = 3;  // K9 with 16 predicated pushes per node
-constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1, K6)
+constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1,
+                              // K3 closest, K6)
 // ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
 constexpr int kProfNone = 0;
 constexpr int kProfEmpty = 1;   // no walk
@@ -336,9 +358,10 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 // thread from its ray index (K8): rays below n_split are a closest-hit
 // wave, the others an any-hit wave. n_split is a multiple of the block
 // size, so no warp holds rays of both waves. Closest hit at a reduced tier
-// (kSplit) always takes the warp-wide queued walk; fp32 closest hit takes
-// it as kWarpQ (one tree level, no octant order: K1 and K6). The kernels
-// below wrap it.
+// (kSplit) always takes the warp-wide queued walk; fp32 closest hit
+// without the octant order takes it as kWarpQ (K1, K3, K6 closest), and so
+// does streamed any hit over one tree level (K6 any hit). The kernels below
+// wrap it.
 #define WIDE_TRACE_PARAMS                                                 \
   const float* __restrict__ rays, int n_rays, int n_split,                \
       const float* __restrict__ nodes, const float* __restrict__ blocks,  \
@@ -355,10 +378,10 @@ template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf, bool kPaired>
 __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
-  static_assert(kWalk != kWarpQ || (kPrec == kHighest && !kAnyHit &&
-                                    !kInst && kProf == kProfNone &&
-                                    !kPaired),
-                "kWarpQ is the one-level fp32 closest hit");
+  static_assert(kWalk != kWarpQ || (kPrec == kHighest &&
+                                    !(kAnyHit && kInst) &&
+                                    kProf == kProfNone && !kPaired),
+                "kWarpQ is fp32 closest hit and one-level any hit");
   constexpr bool kWarpWide = kSplit || kWalk == kWarpQ;
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
@@ -366,8 +389,9 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   const int lane = threadIdx.x & 31;
   const bool any_hit = kPaired ? i >= n_split : kAnyHit;
   // the warp-wide modes keep every lane of the warp: one past the wave
-  // runs as a dead ray (tmax < tmin)
-  const bool warp_wide = kWarpWide && !any_hit;
+  // runs as a dead ray (tmax < tmin); K8's any-hit half (kSplit with
+  // kPaired) walks one thread per ray
+  const bool warp_wide = kWarpWide && (kWalk == kWarpQ || !any_hit);
   const bool in_wave = i < n_rays;
   if (!in_wave && !warp_wide) return;
   Ray r;
@@ -494,7 +518,10 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       qv[q] = val;
       qt[q] = tnear;
       ++q;
-      if (prefetch) {
+      // the any-hit drain prefetches nothing: an occluded lane skips the
+      // rest of its queue, and the prefetch of blocks no lane reads cost
+      // it a third of its time on the bistro shadow wave (PERF.md §6)
+      if (prefetch && !(kAnyHit && kWalk == kWarpQ)) {
         const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
         for (int k = 0; k < (val & 31); ++k) {
           if (kSplit && !any_hit)   // "default" reads the h plane alone
@@ -645,7 +672,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // ---- the warp-wide modes (kSplit and kWarpQ closest hit) -----------
+  // ---- the warp-wide modes (kSplit, and kWarpQ) ----------------------
   // Every lambda below is entered by all 32 lanes together, and every
   // branch around a warp collective is warp-uniform: it depends only on
   // values broadcast from one lane or reduced over the warp. `exact`: the
@@ -655,10 +682,11 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // One block b (of instance inst) tested by the warp for lane L's ray,
   // whose features the lanes hold broadcast (of: the split h, or the fp32
   // features in the exact phase; ofl: the split l), against the bound ob
-  // (L's best; two_phase's broad phase: L's raw cull bound), which it
-  // updates as L's own state is updated.
+  // (L's best, which is its tmax in any hit; two_phase's broad phase: L's
+  // raw cull bound), which it updates as L's own state is updated. Returns
+  // true where the block ends L's walk (an any-hit occlusion).
   auto warp_block = [&](int L, int b, int inst, const float* of,
-                        const float* ofl, float o_tmin, float& ob) {
+                        const float* ofl, float o_tmin, float& ob) -> bool {
     const bool refine = kPrec == kTwoPhase && !broad;
     const bool exact = kPrec == kHighest || refine;
     float out[8], mag[8];
@@ -670,6 +698,11 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     if (kCount && lane == L) {
       if (refine) ++n_refine; else ++n_tests;
     }
+    if constexpr (kAnyHit) {
+      if (!__any_sync(kFull, lane_any(out, o_tmin, ob))) return false;
+      if (lane == L) occluded = true;
+      return true;
+    }
     if (kPrec == kTwoPhase && !exact) {
       float tL, tS, tLo;
       lane_broad(out, mag, o_tmin, tL, tS, tLo);
@@ -678,19 +711,19 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       tLo = key_value(__reduce_min_sync(kFull, order_key(tLo)));
       if (lane == L) fold_broad(tL, tS, tLo, kInst ? (inst << 14 | b) : b, cd);
       if (tS < 3e37f && tS + kTpAbs < ob) ob = tS + kTpAbs;
-      return;
+      return false;
     }
     float tl, us, vs, ad;
     int sl;
     lane_closest(out, lane, o_tmin, ob, tl, sl, us, vs, ad);
     const unsigned key = order_key(tl);
     const unsigned least = __reduce_min_sync(kFull, key);
-    if (least == order_key(inf)) return;   // nothing accepted
+    if (least == order_key(inf)) return false;   // nothing accepted
     // the least t, ties to the lowest slot: the lowest lane holding it
     const int w = __ffs(__ballot_sync(kFull, key == least)) - 1;
     const float tb = __shfl_sync(kFull, tl, w);
     const int slot = __shfl_sync(kFull, sl, w);
-    if (!(tb < ob)) return;
+    if (!(tb < ob)) return false;
     float ub = 0.f, vb = 0.f;
     if (lane == w) {
       const float iad = 1.0f / fmaxf(ad, 1e-37f);
@@ -707,17 +740,23 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       bv = vb;
       best_inst = inst;
     }
+    return false;
+  };
+
+  // lane L's ray broadcast and its (world-space) fp32 features formed as
+  // lane L formed them: six shuffles (kWarpQ: no lane holds r.f across
+  // the walk)
+  auto broadcast_ray = [&](int L, float* of) {
+    ray_features(__shfl_sync(kFull, r.ox, L), __shfl_sync(kFull, r.oy, L),
+                 __shfl_sync(kFull, r.oz, L), __shfl_sync(kFull, dx, L),
+                 __shfl_sync(kFull, dy, L), __shfl_sync(kFull, dz, L), of);
   };
 
   // lane L's current features, broadcast (split, or fp32 in the exact
   // phase; the instance's object features in the two-level mode)
   auto broadcast_features = [&](int L, float* of, float* ofl) {
-    if (kPrec == kHighest && !kInst) {
-      // K1, K6: lane L's ray broadcast, its features formed as lane L
-      // formed them (six shuffles; no lane holds r.f across the walk)
-      ray_features(__shfl_sync(kFull, r.ox, L), __shfl_sync(kFull, r.oy, L),
-                   __shfl_sync(kFull, r.oz, L), __shfl_sync(kFull, dx, L),
-                   __shfl_sync(kFull, dy, L), __shfl_sync(kFull, dz, L), of);
+    if (kWalk == kWarpQ) {   // K1, K6
+      broadcast_ray(L, of);
       return;
     }
     const bool exact = kPrec == kHighest || (kPrec == kTwoPhase && !broad);
@@ -730,7 +769,27 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // lane L (only) enters instance inst's object space
+  // K3 (kWarpQ): lane L's ray enters instance inst's object space, its
+  // object features of = T F broadcast. Lane k < 10 forms row k from the
+  // broadcast world features with object_features' fmaf chain (the same
+  // bits), and the ten rows are broadcast: ten FMAs and ten loads a lane
+  // where one thread did a hundred of each while the warp waited.
+  auto warp_object_features = [&](int L, int inst, float* of) {
+    float wf[10];
+    broadcast_ray(L, wf);
+    float row = 0.f;
+    if (lane < 10) {
+      const float* tm = inst_feat + ((size_t)inst * 10 + lane) * 128;
+#pragma unroll
+      for (int j = 0; j < 10; ++j) row = fmaf(__ldg(tm + j), wf[j], row);
+    }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) of[k] = __shfl_sync(kFull, row, k);
+    if (kCount && lane == L) ++n_xforms;
+  };
+
+  // lane L (only) enters instance inst's object space (the reduced tiers
+  // and two_phase's exact phases)
   auto enter_instance = [&](int L, int inst) {
     if (lane != L || inst == cur_inst) return;
     object_features(inst_feat, inst, r.f, fo);
@@ -752,7 +811,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
 
   // Drain every lane's queue (q entries qv, qt), lane after lane, each in
   // its own queue order (newest first under the octant order); an entry
-  // whose distance exceeds the drained lane's bound is skipped.
+  // whose distance exceeds the drained lane's bound is skipped, and an
+  // occluded lane's remaining entries too (any hit).
   auto drain = [&](const int* qv, const float* qt, int q) {
     const bool refine = kPrec == kTwoPhase && !broad;
     const bool wide_cull = kPrec == kTwoPhase && broad;
@@ -767,7 +827,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       float of[10], ofl[10];
       int o_inst = -1;
       if (!kInst) broadcast_features(L, of, ofl);
-      for (int e = 0; e < nq; ++e) {
+      bool done = false;
+      for (int e = 0; e < nq && !done; ++e) {
         const int ee = worder != nullptr ? nq - 1 - e : e;
         const int val = __shfl_sync(kFull, ee < q ? qv[ee] : 0, L);
         const float tn = __shfl_sync(kFull, ee < q ? qt[ee] : 0.f, L);
@@ -778,18 +839,22 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
         const int inst = kInst ? val >> 19 : 0;
         if (kInst && inst != o_inst) {
-          enter_instance(L, inst);
-          broadcast_features(L, of, ofl);
+          if (kWalk == kWarpQ) {
+            warp_object_features(L, inst, of);
+          } else {
+            enter_instance(L, inst);
+            broadcast_features(L, of, ofl);
+          }
           o_inst = inst;
         }
-        for (int j = 0; j < nb; ++j) {
+        for (int j = 0; j < nb && !done; ++j) {
           if (kCount && !refine) {
             const bool seen = __any_sync(
                 kFull, lane < L && tested_block(b0 + j, qv, q, tested));
             round_distinct += !seen;
             ++round_tests;
           }
-          warp_block(L, b0 + j, inst, of, ofl, o_tmin, ob);
+          done = warp_block(L, b0 + j, inst, of, ofl, o_tmin, ob);
         }
       }
     }
@@ -817,6 +882,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         expand(n, stack, sp, qv, qt, q);
       }
       drain(qv, qt, q);
+      if (kAnyHit && occluded) sp = 0;
     }
   };
 
@@ -913,14 +979,18 @@ wide_trace_kernel(WIDE_TRACE_PARAMS) {
       WIDE_TRACE_ARGS);
 }
 
-// K1 and K6 closest (the render instantiation of kWarpQ). Left to its
-// default, ptxas fits it in 64 registers and spills; asking for 6 blocks
-// of 128 threads an SM lets it take up to 85, and it keeps its ~80 in
-// registers. The other instantiations keep the default: a minimum of
-// blocks makes ptxas take as many registers as the limit allows.
+// The render instantiations of kWarpQ: K1 and K6 closest (kInst false),
+// K3 closest, also streamed (kInst), and K6 any hit (kAnyHit). Left to its
+// default, ptxas fits K1's in 64 registers and spills; asking for 6 blocks
+// of 128 threads an SM lets each take up to 85, and each keeps 80 without
+// spills. 7 (K3) and 8 (K6 any) blocks fit in 72 and 64 registers without
+// spills too, and ran slower on the card. The other instantiations keep
+// the default: a minimum of blocks makes ptxas take as many registers as
+// the limit allows.
+template <bool kAnyHit, bool kInst>
 __global__ void __launch_bounds__(kThreads, 6)
 wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
-  wide_trace<false, false, false, kHighest, kWarpQ, kProfNone, false>(
+  wide_trace<kAnyHit, kInst, false, kHighest, kWarpQ, kProfNone, false>(
       WIDE_TRACE_ARGS);
 }
 
@@ -968,7 +1038,7 @@ template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf = kProfNone, bool kPaired = false>
 void launch(const Launch& l) {
   if constexpr (kWalk == kWarpQ && !kCount)
-    wide_trace_warp_kernel<<<l.grid, kThreads, 0, l.stream>>>(
+    wide_trace_warp_kernel<kAnyHit, kInst><<<l.grid, kThreads, 0, l.stream>>>(
         l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
         l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
         l.v_out, l.inst_out, l.counts);
@@ -984,21 +1054,22 @@ constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
 // K1-K7: the classic or queued walk at a tier; closest hit at a reduced
 // tier always takes the warp-wide queued walk (one instantiation), and so
-// does fp32 closest hit over one tree level without the octant order (K1,
-// K6; the prefetch flag tells them apart)
+// does fp32 closest hit without the octant order (K1, K3, K6 closest; the
+// prefetch flag tells the streamed mode apart), and streamed any hit over
+// one tree level without it (K6 any hit)
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
     // any hit is exact fp32 under every tier (pallas_trace.py:390)
-    launch<true, kInst, kCount, kHighest, kWalk>(l);
+    if (!kInst && kWalk == kQueued && l.worder == nullptr)
+      launch<true, false, kCount, kHighest, kWarpQ>(l);
+    else launch<true, kInst, kCount, kHighest, kWalk>(l);
   } else {
     switch (prec) {
       case kHighest:
-        // one tree level without the octant order: the warp-wide walk
-        if constexpr (kInst) launch<false, true, kCount, kHighest, kWalk>(l);
-        else if (l.worder != nullptr)
-          launch<false, false, kCount, kHighest, kQueued>(l);
-        else launch<false, false, kCount, kHighest, kWarpQ>(l);
+        if (l.worder != nullptr)
+          launch<false, kInst, kCount, kHighest, kQueued>(l);
+        else launch<false, kInst, kCount, kHighest, kWarpQ>(l);
         break;
       case kHigh: launch<false, kInst, kCount, kHigh, kQueued>(l); break;
       case kDefault: launch<false, kInst, kCount, kDefault, kQueued>(l); break;

@@ -394,8 +394,9 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     (accel.tlas), or None for a one-level tree. `worder` ((N*16,) i32,
     accel.wide.build_octant_orders) walks children near-first (K7);
     `mt_precision` is the closest-hit tier (PRECISIONS; any hit is exact
-    fp32 under every tier); `stream` queues each node's leaf blocks and
-    prefetches them into L2 before they are tested (K6); `pipe` takes the
+    fp32 under every tier); `stream` queues each node's leaf blocks,
+    prefetching them into L2 for closest hit, before they are tested
+    (K6); `pipe` takes the
     pipelined walk and `flat_walk` its flat push (K9), which looks the
     tree's leaves up on every call (a device sync) unless the caller says
     it has `checked` that each owns one block, as `make_packet_tracer`
@@ -556,9 +557,13 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
-    entries (T F products), two_phase's fp32 block tests (refine and
+    entries (T F products: one per switch of instance along a ray's walk,
+    but in the fp32 drain over the two-level tree, K3 closest, one per
+    drained lane, instance and drain round, which re-enters an instance
+    the walk already entered), two_phase's fp32 block tests (refine and
     exact re-walk), its re-walked rays, and for the warp-wide modes
-    (closest hit at a reduced tier) the drain rounds that tested a block
+    (closest hit at a reduced tier, fp32 closest hit without the octant
+    order, streamed one-level any hit) the drain rounds that tested a block
     and the distinct blocks tested in them, summed over the warps (so MT
     tests / distinct blocks is the lanes that tested one block in one
     round). With `per_ray`, the (7, R) i32 table instead of the sums, the

@@ -11,7 +11,9 @@ reduced tiers agree with their plain versions under the bars of
 tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
 and K6 closest) and over the pre-split planes of the reduced tiers (built
 by the split kernel, bit for bit their plain version), gives the
-per-thread code's results; the ablation modes do what they must; the
+per-thread code's results, as do the two-level fp32 drain (K3 closest)
+and the streamed any-hit drain (K6 any hit: K2's flag and counts); the
+ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit; and the five kernels of bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
@@ -297,6 +299,13 @@ def _per_thread_closest(rays, blocks, tier):
             v.gather(1, pick)[:, 0], tied)
 
 
+def _drain_counts_bracket(counts):
+    """The drain rows of a counting table: 0 < rounds <= distinct blocks
+    <= MT block tests."""
+    tests, rounds, distinct = (int(counts[r].sum()) for r in (1, 5, 6))
+    assert 0 < rounds <= distinct <= tests
+
+
 @pytest.mark.parametrize("tree", ["soup", "multi_block", "instanced"])
 def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
                                                    multi_block, instanced,
@@ -327,8 +336,7 @@ def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
     rows = meta.long().view(-1, 16)
     nb = torch.where(rows <= -2, (-rows - 2) & 31, 0).sum(1)
     assert int(nb.max()) > 16 or tree != "multi_block"
-    tests, rounds, distinct = (int(counts[r].sum()) for r in (1, 5, 6))
-    assert 0 < rounds <= distinct <= tests
+    _drain_counts_bracket(counts)
     hit = k4[1] >= 0
     assert hit.sum() > 100
     if feat is None:
@@ -347,56 +355,98 @@ def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
         assert torch.equal(k4[4][same], p[4][same])
 
 
-def _ragged_wave():
+def _ragged_wave(rays=RC):
     """1,013 rays (not a multiple of 32), every fifth one dead (tmax below
     tmin): dead lanes inside warps and a last warp past the wave."""
-    rays = RC[:, :1013].clone()
+    rays = rays[:, :1013].clone()
     rays[7, ::5] = rays[6, ::5] - 1.0
     return rays
 
 
-@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
+                                  "instanced", "instanced_ragged"])
 def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
-                                                    multi_block, tree):
-    """K1 and K6 closest (stream=True) take the warp-wide drain over the
-    fp32 blocks: every output equal, bit for bit, to the per-thread
-    pipelined walk's (K9 pipe), on the soup, on a tree whose nodes queue
-    more than 16 blocks, and on a ragged wave with dead lanes; hit set and
-    t in every bit those of the leaf-pair kernel on every (ray, block) pair,
-    id, u and v too outside exact-t ties between blocks. The counting
-    instantiation tests K1's blocks (those of the per-thread classic walk,
-    fix64's count where every walk ends within 64 pops; no fewer than the
-    pipelined walk's, which drops stale backlog entries) and fills the
-    drain rows: 0 < rounds <= distinct blocks <= tests."""
-    nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
-    rays = _ragged_wave() if tree == "ragged" else RC
+                                                    multi_block, instanced,
+                                                    tree):
+    """K1 and K6 closest (stream=True), and on the instanced tree K3
+    closest and its streamed mode, take the warp-wide drain over the fp32
+    blocks: every output, the instance id included, equal bit for bit to
+    the per-thread pipelined walk's (K9 pipe), on the soup, on a tree
+    whose nodes queue more than 16 blocks, on the instanced scene (ten
+    lanes forming each drained ray's object features) and on ragged waves
+    with dead lanes. On one tree level, hit set and t in every bit those
+    of the leaf-pair kernel on every (ray, block) pair, id, u and v too
+    outside exact-t ties between blocks. The counting instantiation fills
+    the drain rows (0 < rounds <= distinct blocks <= tests), the same
+    with and without streamed blocks; on one level it tests K1's blocks
+    (those of the per-thread classic walk, fix64's count where every walk
+    ends within 64 pops; no fewer than the pipelined walk's, which drops
+    stale backlog entries), on the instanced tree it enters instances."""
+    feat = None
+    if tree.startswith("instanced"):
+        nodes, blocks, meta, feat = instanced
+    else:
+        nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
+    rays = _ragged_wave() if tree.endswith("ragged") else RC
     with emulation:
-        pipe = emu.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
-        k1 = emu.trace_wide(rays, nodes, blocks, meta, False)
-        k6 = emu.trace_wide(rays, nodes, blocks, meta, False, stream=True)
-        c1, c6, c9, cf = (emu.trace_wide(rays, nodes, blocks, meta, False,
-                                         count=True, **kw)
-                          for kw in (dict(), dict(stream=True),
-                                     dict(pipe=True), dict(profile="fix64")))
-        ref = _per_thread_closest(rays, blocks, "highest")
+        pipe, k1, k6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                       inst_feat=feat, **kw)
+                        for kw in (dict(pipe=True), dict(), dict(stream=True)))
+        c1, c6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                 inst_feat=feat, count=True, stream=stream)
+                  for stream in (False, True))
+        if feat is None:
+            c9, cf = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                     count=True, **kw)
+                      for kw in (dict(pipe=True), dict(profile="fix64")))
+            ref = _per_thread_closest(rays, blocks, "highest")
     assert emu.same_bits(k1, pipe) and emu.same_bits(k6, pipe)
     hit = k1[1] >= 0
-    assert hit.sum() > 100
-    if tree == "ragged":
+    enough = 100 if feat is None else 50    # the instanced scene is small
+    assert hit.sum() > enough
+    if tree.endswith("ragged"):
         dead = rays[7] < rays[6]
-        assert not hit[dead].any() and (hit & ~dead).sum() > 100
+        assert not hit[dead].any() and (hit & ~dead).sum() > enough
         assert emu.same_bits((k1[0][dead],), (rays[7][dead],))
+    assert torch.equal(c1, c6)
+    _drain_counts_bracket(c1)
+    if feat is not None:
+        assert len(k1) == 5 and len(torch.unique(k1[4][hit])) > 1
+        assert int(c1[2].sum()) > 0 and not c1[3:5].any()
+        return
     assert torch.equal(ref[1] >= 0, hit)
     assert emu.same_bits((k1[0][hit],), (ref[0][hit],))
     keep = hit & ~ref[4]
     assert keep.sum() > 100 and torch.equal(k1[1][keep], ref[1][keep])
     assert emu.same_bits((k1[2][keep], k1[3][keep]),
                          (ref[2][keep], ref[3][keep]))
-    assert torch.equal(c1, c6) and int(cf[0].max()) < 64
+    assert int(cf[0].max()) < 64
     assert torch.equal(c1[1], cf[1]) and (c1[0] >= cf[0]).all()
-    tests, rounds, distinct = (int(c1[r].sum()) for r in (1, 5, 6))
-    assert 0 < rounds <= distinct <= tests
     assert int(c1[1].sum()) >= int(c9[1].sum()) > 0
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
+def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block, tree):
+    """Streamed any hit over one tree level (K6 any hit) takes the
+    warp-wide any-hit drain: its outputs are K2's (the per-thread classic
+    walk) bit for bit on the soup, on a tree whose nodes queue more than
+    16 blocks and on a ragged wave with dead lanes. With the constant
+    tmax as its node cull it pops the nodes and tests the blocks of K2's
+    walk, ray by ray, and fills the drain rows."""
+    nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
+    rays = _ragged_wave(RA) if tree == "ragged" else RA
+    with emulation:
+        k2 = emu.trace_wide(rays, nodes, blocks, meta, True)
+        k6 = emu.trace_wide(rays, nodes, blocks, meta, True, stream=True)
+        c2, c6 = (emu.trace_wide(rays, nodes, blocks, meta, True, count=True,
+                                 stream=stream) for stream in (False, True))
+    assert emu.same_bits(k6, k2)
+    occluded = k2[1] > 0
+    assert occluded.sum() > 50 and (~occluded).sum() > 50
+    if tree == "ragged":
+        assert not occluded[rays[7] < rays[6]].any()
+    assert torch.equal(c6[:5], c2[:5]) and not c6[2:5].any()
+    _drain_counts_bracket(c6)
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block"])

@@ -4,8 +4,10 @@ order (K7) against their plain PyTorch versions and, for the modes that
 compute K1's function, against K1 bit for bit; the split kernel's
 pre-split planes against their plain version, and K4 against the
 ray-stream tracer at its tier bit for bit; the paired launch (K8), the
-pipelined walk (K9) and the ablation modes against K1/K2/K3; the leaf-pair
-kernel (K15) against its plain version and the ray-stream tracer against
+pipelined walk (K9) and the ablation modes against K1/K2/K3; the
+warp-wide drains of K3 closest and K6 any hit against K9 `pipe` and K2;
+the leaf-pair kernel (K15) against its plain version and the ray-stream
+tracer against
 K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
 against their plain versions level by level and its tracer against K1/K2
 bit for bit, with its capacities forced small; the wrappers' input checks
@@ -441,6 +443,53 @@ def test_fp32_closest_hit_drains_warp_wide(soup_on_card):
                                    stream=stream) for stream in (False, True))
     assert c1 == c6
     assert 0 < c1["drain_rounds"] <= c1["distinct_blocks"] <= c1["mt_tests"]
+
+
+def test_instanced_fp32_closest_hit_drains_warp_wide(instanced_on_card):
+    """K3 closest and its streamed mode take the warp-wide drain over the
+    fp32 blocks: on a 4,001-ray wave with every fifth ray dead, every
+    output, the instance id included, is the per-thread pipelined walk's
+    bit for bit; each launch is counted under its own key, and the
+    counting instantiation enters instances and fills the drain rows,
+    the same for both."""
+    nodes, blocks, meta, feat, _ = instanced_on_card
+    rays = _rays(4001, np.inf, nodes.device)
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
+                         pipe=True)
+    for stream in (False, True):
+        key = pt.launch_key(False, True, stream=stream)
+        before = pt.LAUNCHES[key]
+        k = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
+                          stream=stream)
+        assert pt.LAUNCHES[key] == before + 1
+        _bitwise(k, pipe, key)
+        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 100
+    c3, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, False, feat,
+                                   stream=stream) for stream in (False, True))
+    assert c3 == c6 and c3["inst_entries"] > 0
+    assert 0 < c3["drain_rounds"] <= c3["distinct_blocks"] <= c3["mt_tests"]
+
+
+def test_streamed_any_hit_drains_warp_wide(soup_on_card):
+    """K6 any hit takes the warp-wide any-hit drain: on a 4,001-ray shadow
+    wave with every fifth ray dead its outputs are K2's bit for bit, and
+    per ray it pops K2's nodes and tests K2's blocks; the drain rows are
+    filled."""
+    nodes, blocks, meta, _ = soup_on_card
+    rays = _rays(4001, 8.0, nodes.device)
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    k2 = pt.trace_wide(rays, nodes, blocks, meta, True)
+    k6 = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
+    for a, b in zip(k6, k2):
+        assert torch.equal(a, b)
+    assert not (k2[1][::5] > 0).any() and (k2[1] > 0).sum() > 300
+    c2, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                   stream=stream, per_ray=True)
+              for stream in (False, True))
+    assert torch.equal(c6[:5], c2[:5]) and not c2[5:].any()
+    rounds, distinct = int(c6[5].sum()), int(c6[6].sum())
+    assert 0 < rounds <= distinct <= int(c6[1].sum())
 
 
 @pytest.mark.parametrize("walk", ["pipe", "flat_walk"])

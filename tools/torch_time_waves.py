@@ -1,9 +1,12 @@
 """Time the wide-BVH kernel per wave on the GPU: K1/K2, the streamed mode
 (K6: each node's leaves queued and drained after its slab tests, each
-queued block prefetched into L2) and the per-thread pipelined walk (K9
+queued block prefetched into L2 for closest hit) and the per-thread
+pipelined walk (K9
 `pipe`) on the waves chip_smoke.py builds for the headline colonnade (271k
 triangles, 512x512) and for bistro_class_studio's tree (the colonnade at
-24x12, 1.08M triangles, 960x540): the camera and bounce waves as closest
+24x12, 1.08M triangles, 960x540), and K3 and K9 `pipe` (`k1` and `pipe`
+given the instance features) on the headline's waves over the colonnade
+flattened with instancing="on": the camera and bounce waves as closest
 hit, the shadow wave as any hit and as closest hit; with --tiers also the
 closest hit of the reduced MT tiers on the headline tree (K4 "high" and
 "default", K5 "two_phase"), given the blocks' pre-split planes where the
@@ -29,8 +32,10 @@ import os
 import subprocess
 import sys
 
-TREES = (("headline", {}, (512, 512)),
-         ("bistro", dict(columns=24, rows=12), (960, 540)))
+# (name, make_colonnade_scene's arguments, size, instancing)
+TREES = (("headline", {}, (512, 512), "off"),
+         ("instanced", {}, (512, 512), "on"),
+         ("bistro", dict(columns=24, rows=12), (960, 540), "off"))
 MODES = (("k1", {}), ("stream", dict(stream=True)),
          ("pipe", dict(pipe=True)))
 TIERS = ("high", "default", "two_phase")
@@ -67,17 +72,34 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True,
         text=True).stdout.strip(), root=args.root, ms={})
-    for tree, scene_kw, (width, height) in (
-            TREES[:1] if args.headline else TREES):
+    by_name = {t[0]: t for t in TREES}
+    pts_of = {}
+
+    def flatten(tree, instancing):
+        _, scene_kw, (width, height), _ = by_name[tree]
         scene, cam = make_colonnade_scene(**scene_kw)
-        flat = flatten_scene(scene, cam, RenderSettings(
-            width=width, height=height, tracer="packet", instancing="off",
-            stream="auto"), device=dev)
+        return flatten_scene(scene, cam, RenderSettings(
+            width=width, height=height, tracer="packet",
+            instancing=instancing, stream="auto"), device=dev)
+
+    def points(tree, flat=None):
+        """The wave points of one-level tree `tree` (from its `flat`, or
+        flattened here)."""
+        if tree not in pts_of:
+            if flat is None:
+                flat = flatten(tree, "off")
+            pts_of[tree] = cs._wave_points(flat, dev, *by_name[tree][2])
+        return pts_of[tree]
+
+    for tree, _, _, instancing in TREES[:2] if args.headline else TREES:
+        flat = flatten(tree, instancing)
         nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
         blocks, meta = flat.wbvh_tris, flat.wbvh_meta
-        waves = cs._waves(cs._wave_points(flat, dev, width, height), nodes,
-                          dev)
-        modes = list(MODES)
+        inst = flat.instances.feat if instancing == "on" else None
+        # the instanced tree takes the headline's points
+        pts = points(tree, flat) if inst is None else points("headline")
+        waves = cs._waves(pts, nodes, dev)
+        modes = [m for m in MODES if inst is None or m[0] != "stream"]
         if args.tiers and tree == "headline":
             split = ({"planes": pt.split_planes(blocks)}
                      if hasattr(pt, "split_planes") else {})
@@ -89,8 +111,8 @@ def main():
                 kind = " closest" if wave == "shadow" and not any_hit else ""
                 out["ms"][f"{tree} {wave}{kind} {mode}"] = cs._time_ms(
                     lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
-                                          any_hit, **kw), args.reps)
-        del flat, nodes, blocks, meta, waves
+                                          any_hit, inst, **kw), args.reps)
+        del flat, nodes, blocks, meta, waves, inst
         torch.cuda.empty_cache()
     print(json.dumps(out), flush=True)
 
