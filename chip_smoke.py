@@ -15,18 +15,23 @@ Phases, one printed block each (any failure exits non-zero):
      whole 262,144-ray wave, timed and counted (node pops, MT tests) for
      the kernel's least possible time. Every disagreeing ray must be
      certified borderline in float64 (`_borderline`, `_fp32_ambiguous`).
-     K1 (like K3 closest and K6) tests each leaf block with the whole warp
-     over the fp32 blocks; K2 keeps the per-thread walk
+     K1 (like K3 closest and K6 closest) tests each leaf block with the
+     whole warp over the fp32 blocks, K2 (like K3 and K6 any hit) on the
+     warp-wide any-hit drain
   3b. K3 vs plain: the same for the two-level modes on the colonnade
-     flattened with instancing="on" (K3 closest's bound counts the
-     instance entries of K9 `pipe`, the per-thread walk, on the same
-     wave: the drain re-enters an instance per round); then K3 closest
+     flattened with instancing="on" (K3's bounds count the instance
+     entries of K9 `pipe`, the per-thread walk, on the same wave: the
+     drain re-enters an instance per round); then K3 closest
      (the warp-wide drain,
      ten lanes forming each drained ray's object features) against K9
      `pipe` with the instance features, the per-thread walk, on the whole
      camera, bounce and shadow waves (shadow traced as closest hit):
      every output, the instance id included, bit for bit, no exception;
-     instance entries per drain round and lanes per distinct block on each
+     instance entries per drain round and lanes per distinct block on each;
+     and K3 any hit (the any-hit drain, resident and with stream=True)
+     against K9 `pipe` on the whole shadow wave: every output bit for bit,
+     per ray that nothing occludes K9's pops and MT block tests, with its
+     drain counts
   3c. the pre-split planes of the colonnade's blocks (the split kernel
      against its plain version in every bit, both timed), then K4
      ("high"), K5 ("two_phase") and K7 (octant order), K4 and K5 over
@@ -50,14 +55,15 @@ Phases, one printed block each (any failure exits non-zero):
      16,384-ray subsets of its own 960x540 waves (the plain version takes
      about a minute a whole wave), timed and counted on the whole
      518,400-ray waves, and bit for bit against K1/K2 on all three whole
-     waves of the same tree (K1/K2 timed there too; no exception); K6 any
-     hit, the warp-wide any-hit drain, against K2 on the whole shadow
-     wave: every output bit for bit and per ray K2's node pops and MT block
-     tests, with its drain counts; K1 and K6 closest against K9 `pipe` on
-     the camera, bounce and shadow waves as closest hit, with no
-     exception, and the
-     drain's lanes per distinct block on each; the instanced stream
-     modes on the colonnade flattened with instancing="on", stream="on"
+     waves of the same tree (K1/K2 timed there too; no exception); K2 and
+     K6 any hit, the warp-wide any-hit drain, against K8's any-hit half,
+     the per-thread classic walk, on the whole shadow wave: the flag on
+     every ray, t tmax, u and v 0, and per ray that walk's node pops and MT
+     block tests, with their drain counts; K1 and K6 closest against K9
+     `pipe` on the camera, bounce and shadow waves as closest hit, with
+     no exception, and the drain's lanes per distinct block on each; the
+     instanced stream modes on the colonnade flattened with
+     instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
      modes must launch
@@ -93,7 +99,10 @@ Phases, one printed block each (any failure exits non-zero):
   3g. K8, the paired launch: paired(camera wave, shadow wave) and
      paired(bounce wave, shadow wave) bit for bit K1 / K2 on the whole
      waves, once with the any-hit wave cut to 100,000 rays, timed against
-     K1 and K2 launched one after the other, counted per wave; on the
+     K1 and K2 launched one after the other, counted per wave; K2 (the
+     any-hit drain) against the paired launch's any-hit half (the
+     per-thread classic walk) on the whole shadow wave: the flag on every
+     ray and per ray the node pops and MT block tests; on the
      bistro tree with stream=True against K6; through the tracer's
      `trace_closest.paired` entry, which is the path that counts its
      launches
@@ -569,10 +578,10 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
     plain version, measured on the same whole waves in this run) or, with
     no such rows, the plain version's time on the 16,384-ray subset
     (`plain_rays` then says so). With `inst_need` (trace_wide's keywords
-    of a per-thread walk), the closest-hit bound counts that walk's
-    instance entries on the same wave: the fp32 drain (K3 closest) enters
-    an instance once per drained lane, instance and round, more often than
-    the function needs. "high" holds t to HIGH_T_RTOL. Returns
+    of a per-thread walk), the bound counts that walk's instance entries
+    on the same wave: the fp32 and any-hit drains (K3) enter an instance
+    once per drained lane, instance and round, more often than the
+    function needs. "high" holds t to HIGH_T_RTOL. Returns
     ({"closest"/"any": row fields}, {wave: kernel outputs on the whole
     wave})."""
     from platinum_tpu_torch.ops import packet_trace as pt
@@ -630,8 +639,8 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
         counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                       inst_feat, **mode)
         need, entries = counts, f"{counts['inst_entries']} instance entries"
-        if inst_need is not None and not any_hit:
-            walk = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
+        if inst_need is not None:
+            walk = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                         inst_feat, **inst_need)
             need = dict(counts, inst_entries=walk["inst_entries"])
             entries += (f" (the drain's; the bound counts the per-thread "
@@ -798,6 +807,11 @@ def phase_k3(scene, cam, dev, pts):
     _drain_against_per_thread("instanced colonnade", nodes, flat.wbvh_tris,
                               flat.wbvh_meta, waves,
                               inst_feat=flat.instances.feat)
+    print("K3 any hit against the per-thread walk on the instanced colonnade "
+          "tree:", flush=True)
+    _inst_any_against_pipe("instanced colonnade", nodes, flat.wbvh_tris,
+                           flat.wbvh_meta, waves["shadow"],
+                           flat.instances.feat)
     return rows
 
 
@@ -1029,7 +1043,8 @@ def phase_paired(ctx, k12):
             f"paired({wave}, shadow)", nodes, blocks, meta, waves[wave],
             shadow, outs[wave], outs["shadow"])
     # the paired launch does K1's and K2's work on the per-thread walk:
-    # their MT block tests and K2's pops; K1's warp-wide walk, which
+    # their MT block tests and K2's pops (K2's any-hit drain pops the
+    # per-thread walk's nodes); K1's warp-wide walk, which
     # slab-tests a node's 16 children against the best at the pop, pops
     # no fewer nodes than the per-thread walk
     ref_c, ref_a = k12["closest"]["counts"], k12["any"]["counts"]
@@ -1038,6 +1053,10 @@ def phase_paired(ctx, k12):
           and ca["pops"] == ref_a["pops"] and not cc["drain_rounds"],
           f"the paired launch's counts {cc}, {ca} against K1's {ref_c} "
           f"and K2's {ref_a}")
+    # K2's any-hit drain against the paired launch's any-hit half, which
+    # keeps the per-thread classic walk, ray by ray
+    _any_drain_against_paired("headline", nodes, blocks, meta, shadow,
+                              {"K2": outs["shadow"]})
     cut = shadow[:, :100_000].contiguous()
     _paired_waves("paired(bounce, shadow cut to 100,000)", nodes, blocks,
                   meta, waves["bounce"], cut, outs["bounce"], outs["shadow"])
@@ -1155,28 +1174,73 @@ def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
                 rays, nodes, blocks, meta, False, inst_feat, **mode))
 
 
-def _any_drain_against_k2(label, nodes, blocks, meta, rays, k6, k2):
-    """K6 any hit, the warp-wide any-hit drain, against K2, the per-thread
-    classic walk, on one whole shadow wave: every output bit for bit (the
-    occlusion flag on every ray, no exception), and per ray the same node
-    pops and MT block tests (both cull nodes by the constant tmax and visit
-    leaves in the same order); with its drain counts."""
+def _any_drain_against_paired(label, nodes, blocks, meta, rays, outs):
+    """The warp-wide any-hit drain against K8's any-hit half, the
+    per-thread classic walk that no unpaired any-hit mode takes any more,
+    on one whole shadow wave; `outs`: {name: (t, sid, u, v) of that mode
+    on the wave}, K2 (resident) and K6 any hit (streamed) taking the drain
+    alike. The flag on every ray (no exception), t tmax and u, v 0 (what
+    the paired half writes), and per ray the same node pops and MT block
+    tests (both cull nodes by the constant tmax and visit a node's leaves
+    in slot order); with each mode's drain counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    name = f"K6 any hit against K2, {label} shadow"
-    _exact(name, k6, k2)
-    c6, c2 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
-                                   stream=stream, per_ray=True)
-              for stream in (True, False))
-    check(torch.equal(c6[:2], c2[:2]),
-          f"{name}: pops or MT block tests differ from K2's on "
-          f"{int((c6[:2] != c2[:2]).any(0).sum())} rays")
-    print(f"  {name}: the flag and every output bit for bit on all "
-          f"{rays.shape[1]} rays ({int((k2[1] > 0).sum())} occluded), node "
-          f"pops and MT block tests K2's on every ray", flush=True)
-    _drain_counts(f"K6 any hit {label} shadow",
-                  pt.trace_wide_counts(rays, nodes, blocks, meta, True,
-                                       stream=True))
+    empty = rays[:, :0].contiguous()
+    occ = pt.trace_wide_paired(empty, rays, nodes, blocks, meta)[1]
+    ref = pt.trace_wide_paired_counts(empty, rays, nodes, blocks, meta,
+                                      per_ray=True)[1]
+    for name, got in outs.items():
+        what = f"{name} against K8's any-hit half, {label} shadow"
+        _exact(what, got, (rays[7], occ, torch.zeros_like(rays[7]),
+                           torch.zeros_like(rays[7])))
+        stream = name.startswith("K6")
+        c = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                 stream=stream, per_ray=True)
+        check(torch.equal(c[:2], ref[:2]),
+              f"{what}: pops or MT block tests differ from the per-thread "
+              f"walk's on {int((c[:2] != ref[:2]).any(0).sum())} rays")
+        print(f"  {what}: the flag and every output bit for bit on all "
+              f"{rays.shape[1]} rays ({int((occ > 0).sum())} occluded), node "
+              f"pops and MT block tests the per-thread walk's on every ray",
+              flush=True)
+        _drain_counts(f"{name} {label} shadow",
+                      pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                           stream=stream))
+
+
+def _inst_any_against_pipe(label, nodes, blocks, meta, rays, inst_feat):
+    """K3 any hit, the any-hit drain with the ten-lane instance entry,
+    resident and with stream=True (the same drain), against K9 `pipe`, the
+    per-thread walk, on one whole shadow wave: every output bit for bit,
+    no exception; per ray that nothing occludes K9's node pops and MT
+    block tests (a walk under the constant tmax visits the same nodes and
+    blocks in any order); with its drain counts."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat,
+                         pipe=True)
+    ref = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
+                               pipe=True, per_ray=True)
+    free = pipe[1] < 0
+    for name, mode in (("K3 any hit", {}),
+                       ("K3 any hit stream=True", dict(stream=True))):
+        what = f"{name} against the per-thread walk (K9 pipe), {label} shadow"
+        _exact(what, pt.trace_wide(rays, nodes, blocks, meta, True,
+                                   inst_feat, **mode), pipe)
+        c = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
+                                 per_ray=True, **mode)
+        check(torch.equal(c[:2, free], ref[:2, free]),
+              f"{what}: pops or MT block tests of an unoccluded ray differ "
+              f"from K9's")
+        print(f"  {what}: every output bit for bit on all {rays.shape[1]} "
+              f"rays ({int((~free).sum())} occluded); K9's pops and MT block "
+              f"tests on the {int(free.sum())} unoccluded rays; on the "
+              f"occluded ones {int(c[0, ~free].sum())} pops and "
+              f"{int(c[1, ~free].sum())} MT block tests against K9's "
+              f"{int(ref[0, ~free].sum())} and {int(ref[1, ~free].sum())}",
+              flush=True)
+        _drain_counts(f"{name} {label} shadow", pt.trace_wide_counts(
+            rays, nodes, blocks, meta, True, inst_feat, **mode))
 
 
 PROFILE_MODES = ("empty", "nomt", "fix64", "count")
@@ -1186,8 +1250,8 @@ def _profile_times(label, nodes, blocks, meta, rays, any_hit):
     """Launch floor / walk / MT split of one wave: the times of "empty",
     "nomt" and the full walk, on the classic and the queued per-thread
     walk. "empty" and "nomt" are the per-thread walk's; the full closest
-    hit is K1 / K6 on the warp-wide drain, and so is the full streamed any
-    hit (K6), so their MT share is the drain's time less the per-thread
+    hit is K1 / K6 on the warp-wide drain, and so is the full any hit (K2,
+    K6), so their MT share is the drain's time less the per-thread
     walk's."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
@@ -1196,7 +1260,7 @@ def _profile_times(label, nodes, blocks, meta, rays, any_hit):
             rays, nodes, blocks, meta, any_hit, stream=stream, profile=prof),
             20) for prof in ("empty", "nomt", "none")}
         full = ("K6 warp-wide" if stream else
-                "per-thread K2" if any_hit else "K1 warp-wide")
+                "K2 warp-wide" if any_hit else "K1 warp-wide")
         print(f"  {label}, {walk} walk: empty {ms['empty']:.3f} ms, nomt "
               f"{ms['nomt']:.3f} ms, full ({full}) {ms['none']:.3f} ms -> "
               f"launch floor {ms['empty']:.3f}, walk "
@@ -1245,8 +1309,8 @@ def phase_profile(ctx, k12):
               and torch.equal(count[3], k1[3]),
               f"profile=count on the {wave} wave: t, id or v differ from K1")
         # count's u: the per-thread walk's pops, which fix64's counting
-        # instantiation counts up to 64; K2 takes that walk, K1's
-        # warp-wide walk pops no fewer nodes
+        # instantiation counts up to 64; K2's any-hit drain pops exactly
+        # that walk's nodes, K1's warp-wide walk no fewer
         thread_pops = count[2].int()
         fix_pops = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                         profile="fix64", per_ray=True)[0]
@@ -1853,8 +1917,9 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
               f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
         _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
                  waves[wave], None)
-    _any_drain_against_k2("bistro", nodes, blocks, meta, waves["shadow"],
-                          outs["shadow"], refs["shadow"])
+    _any_drain_against_paired("bistro", nodes, blocks, meta, waves["shadow"],
+                              {"K2": refs["shadow"],
+                               "K6 any hit": outs["shadow"]})
     print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(meta))):
@@ -2463,6 +2528,28 @@ def phase_end_to_end(scene, cam, dev):
     return out
 
 
+def _design(name):
+    """How the kernel row `name` of the kernel table walks and tests:
+    which of wide_trace.cu's walks, or the breadth-first kernels' step."""
+    if "(K1)" in name or "closest (K3)" in name:
+        walk = "warp-wide fp32 drain"
+    elif any(f"any-hit (K{k})" in name for k in (2, 3, 6)):
+        walk = "warp-wide any-hit drain"
+    elif "(K4)" in name or "(K5)" in name:
+        walk = "warp-wide drain over the pre-split planes"
+    elif "(K6)" in name:
+        walk = "warp-wide fp32 drain, L2 prefetch at enqueue"
+    elif "split_planes" in name:
+        return "one thread per coefficient"
+    elif "bf_" in name:
+        return "breadth-first level step"
+    elif "(K9" in name:
+        walk = "per-thread pipelined walk"
+    else:                       # K7, K8, the ablation modes
+        walk = "per-thread walk"
+    return walk + (", ten-lane instance entry" if "(K3)" in name else "")
+
+
 def main():
     t_start = time.perf_counter()
     laps = [t_start]
@@ -2574,8 +2661,8 @@ def main():
         row = kbf[key]
         table.append((name, bf_src, f"{bfj}:{line}", row,
                       row.get("launches", bf_launches[f"bf {key}"])))
-    kernels = [dict(name=name, route="cuda", source=source,
-                    replaces=replaces, launches=launches,
+    kernels = [dict(name=name, route="cuda", design=_design(name),
+                    source=source, replaces=replaces, launches=launches,
                     max_abs_err=row["max_abs_err"], ms=row["ms"],
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
@@ -2587,7 +2674,8 @@ def main():
     for kind, mode in (("closest", "closest"), ("any", "any-hit")):
         row = k15[kind]
         kernels.append(dict(
-            name=f"stream_mt {mode} (K15)", route="cuda", source=stream_src,
+            name=f"stream_mt {mode} (K15)", route="cuda",
+            design="one thread per (ray, block) pair", source=stream_src,
             replaces="platinum_tpu/ops/raystream.py:214",
             launches=stream_launches[f"stream_mt {kind}"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],

@@ -94,10 +94,10 @@
 // ray.
 //
 // Warp-wide block tests. Taken by closest hit at the reduced tiers (K4,
-// K5, and K6-K8 at those tiers), by fp32 closest hit without the octant
-// order over one tree level or two (K1, K3, K6 closest; walk kWarpQ, the
-// prefetch flag telling the streamed mode apart) and by streamed any hit
-// over one tree level (K6 any hit, kWarpQ too). One thread per ray that
+// K5, and K6-K8 at those tiers), and by fp32 closest hit and any hit
+// without the octant order over one tree level or two (K1, K2, K3, K6;
+// walk kWarpQ, the prefetch flag telling the streamed closest hit apart).
+// One thread per ray that
 // tests whole blocks reads each block as 640 scattered 16-byte loads (a
 // reduced tier also splits each of its 2,560 coefficients again for every
 // ray): lanes on different blocks
@@ -119,24 +119,26 @@
 // In the two-level fp32 drain (K3) the drained lane's ray is broadcast and
 // lanes 0-9 each form one row of its object features T F, in
 // object_features' order, which are then broadcast: ten lanes do the
-// instance entry that one thread did. Any hit (K6 any) tests each block
-// with block_any's accept test over each lane's two triangles
-// (`lane_any`); one __any_sync decides, and an occluded lane's remaining
-// queue and stack are dropped. Its node cull is the constant tmax, so it
-// pops the nodes and tests the blocks of the per-thread walk, in its
-// order, and its flag is K2's. Every lane runs every warp collective:
-// lanes whose ray is done or lies past the wave stay in the loops with
-// empty queues.
+// instance entry that one thread did. Any hit (K2, K3 any hit, K6 any
+// hit; resident and streamed blocks take the same drain, which prefetches
+// nothing) tests each block with block_any's accept test over each lane's
+// two triangles (`lane_any`); one __any_sync decides, and an occluded
+// lane's remaining queue and stack are dropped. Over two levels the
+// drained lane enters an instance with K3 closest's ten lanes. Its node
+// cull is the constant tmax and expand queues a node's leaves in slot
+// order, so it pops the nodes and tests the blocks of the per-thread
+// classic walk, in its order, and its flag is that walk's. Every lane runs
+// every warp collective: lanes whose ray is done or lies past the wave
+// stay in the loops with empty queues.
 //
-// The per-thread walks stay, for now, for any hit without streamed blocks
-// (K2, the reference K6 any hit is held to), for any hit over the
-// two-level tree (K3 any hit), for the octant order (K7, also streamed:
-// its near-first queue order is the per-thread walk's), for the paired
-// launch (K8: its any-hit half shares the grid with a closest-hit half),
-// the pipelined walks (K9, whose backlog outlives a node and so has no
-// per-node queue to drain) and the ablation modes, which split the
-// per-thread walk's time. They are the next candidates for the drain, and
-// meanwhile the per-thread references the warp-wide modes are held to.
+// The per-thread walks stay for the octant order (K7, also streamed: its
+// near-first queue order is the per-thread walk's), for the paired launch
+// (K8: its any-hit half shares the grid with a closest-hit half and keeps
+// the classic walk), the pipelined walks (K9, whose backlog outlives a
+// node and so has no per-node queue to drain) and the ablation modes,
+// which split the per-thread walk's time. They are the per-thread
+// references the warp-wide modes are held to: K8's any-hit half for K2,
+// K9 `pipe` for K1, K3 and the instanced any hit.
 
 // Queued walks (kQueue: stream or near-first order on the per-thread
 // walk; every warp-wide walk). The node's 16 children are slab-tested
@@ -165,7 +167,7 @@
 // cp.async.bulk.prefetch.L2 per queued block (of its pre-split planes at a
 // reduced tier, the h plane alone at "default"), issued while the rest of
 // the node is expanded, so the block is on its way to L2 before its first
-// load (closest hit; K6's any-hit drain prefetches nothing, see expand).
+// load (closest hit; the any-hit drain prefetches nothing, see expand).
 // The blocks are read in their (B, 10, 256) layout, unpadded (the
 // TPU's 16-row padding is a Mosaic tiling artefact). Block offsets are
 // computed in size_t: the 1M-triangle colonnade's 24,501 blocks are
@@ -174,8 +176,8 @@
 // A counting instantiation (kCount) also writes, per ray, the node pops,
 // the (ray, block) MT tests (broad-phase tests for two_phase), the
 // instance entries (T F products; in the fp32 drain over two levels, K3
-// closest, one per drained lane, instance and round, more than the walk's
-// switches of instance), the fp32 block tests of two_phase's
+// and its any hit, one per drained lane, instance and round, more than
+// the walk's switches of instance), the fp32 block tests of two_phase's
 // refine and exact re-walk, and whether the ray walked again; and, on lane
 // 0 of each warp, the warp-wide drain rounds that tested a block and the
 // distinct blocks they tested (the tensor-core question: how many lanes
@@ -216,14 +218,14 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // walks (kWalk)
-constexpr int kClassic = 0;   // each leaf tested as it is found (K2, K3
-                              // any hit)
-constexpr int kQueued = 1;    // per-node leaf queue (K7, streamed K3 any
-                              // hit and K8; the reduced tiers)
+constexpr int kClassic = 0;   // each leaf tested as it is found (K8's
+                              // any-hit half, the ablation modes)
+constexpr int kQueued = 1;    // per-node leaf queue (K7, streamed K8; the
+                              // reduced tiers)
 constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9)
 constexpr int kPipeFlat = 3;  // K9 with 16 predicated pushes per node
 constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1,
-                              // K3 closest, K6)
+                              // K2, K3, K6)
 // ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
 constexpr int kProfNone = 0;
 constexpr int kProfEmpty = 1;   // no walk
@@ -358,10 +360,9 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 // thread from its ray index (K8): rays below n_split are a closest-hit
 // wave, the others an any-hit wave. n_split is a multiple of the block
 // size, so no warp holds rays of both waves. Closest hit at a reduced tier
-// (kSplit) always takes the warp-wide queued walk; fp32 closest hit
-// without the octant order takes it as kWarpQ (K1, K3, K6 closest), and so
-// does streamed any hit over one tree level (K6 any hit). The kernels below
-// wrap it.
+// (kSplit) always takes the warp-wide queued walk; fp32 closest hit and
+// any hit without the octant order take it as kWarpQ (K1, K2, K3, K6),
+// over one tree level or two. The kernels below wrap it.
 #define WIDE_TRACE_PARAMS                                                 \
   const float* __restrict__ rays, int n_rays, int n_split,                \
       const float* __restrict__ nodes, const float* __restrict__ blocks,  \
@@ -379,9 +380,8 @@ template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
 __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
   static_assert(kWalk != kWarpQ || (kPrec == kHighest &&
-                                    !(kAnyHit && kInst) &&
                                     kProf == kProfNone && !kPaired),
-                "kWarpQ is fp32 closest hit and one-level any hit");
+                "kWarpQ is fp32 closest hit and fp32 any hit");
   constexpr bool kWarpWide = kSplit || kWalk == kWarpQ;
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
@@ -980,9 +980,10 @@ wide_trace_kernel(WIDE_TRACE_PARAMS) {
 }
 
 // The render instantiations of kWarpQ: K1 and K6 closest (kInst false),
-// K3 closest, also streamed (kInst), and K6 any hit (kAnyHit). Left to its
-// default, ptxas fits K1's in 64 registers and spills; asking for 6 blocks
-// of 128 threads an SM lets each take up to 85, and each keeps 80 without
+// K3 closest, also streamed (kInst), K2 and K6 any hit (kAnyHit), and the
+// instanced any hit, also streamed (both). Left to its default, ptxas
+// fits K1's in 64 registers and spills; asking for 6 blocks of 128
+// threads an SM lets each take up to 85, and each keeps 80 without
 // spills. 7 (K3) and 8 (K6 any) blocks fit in 72 and 64 registers without
 // spills too, and ran slower on the card. The other instantiations keep
 // the default: a minimum of blocks makes ptxas take as many registers as
@@ -1054,16 +1055,18 @@ constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
 // K1-K7: the classic or queued walk at a tier; closest hit at a reduced
 // tier always takes the warp-wide queued walk (one instantiation), and so
-// does fp32 closest hit without the octant order (K1, K3, K6 closest; the
-// prefetch flag tells the streamed mode apart), and streamed any hit over
-// one tree level without it (K6 any hit)
+// do fp32 closest hit and any hit without the octant order, over one tree
+// level or two (K1, K2, K3, K6; the prefetch flag tells the streamed
+// closest hit apart)
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
-    // any hit is exact fp32 under every tier (pallas_trace.py:390)
-    if (!kInst && kWalk == kQueued && l.worder == nullptr)
-      launch<true, false, kCount, kHighest, kWarpQ>(l);
-    else launch<true, kInst, kCount, kHighest, kWalk>(l);
+    // any hit is exact fp32 under every tier (pallas_trace.py:390); the
+    // classic walk never has an octant order, so it always drains
+    if (kWalk == kClassic || l.worder == nullptr)
+      launch<true, kInst, kCount, kHighest, kWarpQ>(l);
+    else if constexpr (kWalk == kQueued)
+      launch<true, kInst, kCount, kHighest, kQueued>(l);
   } else {
     switch (prec) {
       case kHighest:

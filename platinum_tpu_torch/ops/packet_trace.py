@@ -396,7 +396,9 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     `mt_precision` is the closest-hit tier (PRECISIONS; any hit is exact
     fp32 under every tier); `stream` queues each node's leaf blocks,
     prefetching them into L2 for closest hit, before they are tested
-    (K6); `pipe` takes the
+    (K6; fp32 any hit without `worder` drains each node's leaf queues
+    warp-wide with or without it, so streamed and resident any hit are
+    one mode); `pipe` takes the
     pipelined walk and `flat_walk` its flat push (K9), which looks the
     tree's leaves up on every call (a device sync) unless the caller says
     it has `checked` that each owns one block, as `make_packet_tracer`
@@ -558,16 +560,16 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
     entries (T F products: one per switch of instance along a ray's walk,
-    but in the fp32 drain over the two-level tree, K3 closest, one per
-    drained lane, instance and drain round, which re-enters an instance
-    the walk already entered), two_phase's fp32 block tests (refine and
-    exact re-walk), its re-walked rays, and for the warp-wide modes
-    (closest hit at a reduced tier, fp32 closest hit without the octant
-    order, streamed one-level any hit) the drain rounds that tested a block
-    and the distinct blocks tested in them, summed over the warps (so MT
-    tests / distinct blocks is the lanes that tested one block in one
-    round). With `per_ray`, the (7, R) i32 table instead of the sums, the
-    last two rows on each warp's lane 0. Of the ablation modes "nomt" and
+    but in the fp32 drain over the two-level tree, K3 and its any hit, one
+    per drained lane, instance and drain round, which re-enters an
+    instance the walk already entered), two_phase's fp32 block tests
+    (refine and exact re-walk), its re-walked rays, and for the warp-wide
+    modes (closest hit at a reduced tier, fp32 closest hit and any hit
+    without the octant order, over one tree level or two) the drain
+    rounds that tested a block and the distinct blocks tested in them,
+    summed over the warps (so MT tests / distinct blocks is the lanes that
+    tested one block in one round). With `per_ray`, the (7, R) i32 table
+    instead of the sums, the last two rows on each warp's lane 0. Of the ablation modes "nomt" and
     "fix64" have a counting instantiation. `planes` as in `trace_wide`."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
@@ -580,17 +582,29 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
     return counts if per_ray else _count_sums(counts)
 
 
+def split_paired_counts(counts, n_closest: int, n_split: int,
+                        per_ray: bool = False):
+    """The paired launch's (7, n) counting table split by wave: (closest
+    wave, any-hit wave), as sums or, with `per_ray`, as the two (7, R)
+    tables."""
+    halves = (counts[:, :n_closest], counts[:, n_split:])
+    return halves if per_ray else tuple(_count_sums(c) for c in halves)
+
+
 def trace_wide_paired_counts(rays_c, rays_a, nodes, blocks, meta,
-                             stream: bool = False):
+                             stream: bool = False, per_ray: bool = False):
     """`trace_wide_counts` of the paired launch at the fp32 tier, split by
-    wave: (counts of the closest wave, counts of the any-hit wave)."""
+    wave: (counts of the closest wave, counts of the any-hit wave), sums
+    or, with `per_ray`, the (7, R) tables of `trace_wide_counts(per_ray=
+    True)`. The any-hit half keeps the per-thread classic (or, with
+    `stream`, queued) walk, so its per-ray node pops and MT block tests
+    are the reference the any-hit drain is held to."""
     if rays_c.device.type != "cuda":
         raise ValueError("trace_wide_paired_counts runs the CUDA kernel only")
     rays, n_split = pair_rays(rays_c, rays_a)
     counts = _launch(rays, nodes, blocks, meta, 2, None, True, None,
                      "highest", stream, n_split=n_split)[5]
-    return (_count_sums(counts[:, :rays_c.shape[1]]),
-            _count_sums(counts[:, n_split:]))
+    return split_paired_counts(counts, rays_c.shape[1], n_split, per_ray)
 
 
 def ray_features(rays: torch.Tensor) -> torch.Tensor:

@@ -12,8 +12,9 @@ tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
 and K6 closest) and over the pre-split planes of the reduced tiers (built
 by the split kernel, bit for bit their plain version), gives the
 per-thread code's results, as do the two-level fp32 drain (K3 closest)
-and the streamed any-hit drain (K6 any hit: K2's flag and counts); the
-ablation modes do what they must; the
+and the any-hit drain (K2 and K6 any hit: the flag and counts of K8's
+per-thread any-hit half; the instanced any hit: K9 `pipe`'s outputs);
+the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit; and the five kernels of bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
@@ -425,28 +426,74 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
     assert int(c1[1].sum()) >= int(c9[1].sum()) > 0
 
 
-@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
-def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block, tree):
-    """Streamed any hit over one tree level (K6 any hit) takes the
-    warp-wide any-hit drain: its outputs are K2's (the per-thread classic
-    walk) bit for bit on the soup, on a tree whose nodes queue more than
-    16 blocks and on a ragged wave with dead lanes. With the constant
-    tmax as its node cull it pops the nodes and tests the blocks of K2's
-    walk, ray by ray, and fills the drain rows."""
-    nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
-    rays = _ragged_wave(RA) if tree == "ragged" else RA
+def _k8_any_half(rays, nodes, blocks, meta, count=False):
+    """The any-hit half of the paired launch (K8) over the whole wave (an
+    empty closest-hit wave, so n_split = 0): the per-thread classic walk,
+    which no unpaired any-hit mode takes any more. Its (t, sid, u, v), or
+    with `count` its (7, R) counting table."""
+    out = pt._launch(rays, nodes, blocks, meta, 2, None, count, n_split=0)
+    return out[5] if count else out[:4]
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
+                                  "instanced", "instanced_ragged"])
+def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
+                                      instanced, tree):
+    """fp32 any hit without the octant order takes the warp-wide any-hit
+    drain, with resident blocks (K2, K3 any hit) and streamed ones (K6
+    any hit), the two giving the same outputs and counts in every bit.
+    On one tree level its outputs are those of the per-thread classic walk
+    (K8's any-hit half) bit for bit, on the soup, on a tree whose nodes
+    queue more than 16 blocks and on a ragged wave with dead lanes; with
+    the constant tmax as its node cull it pops that walk's nodes and tests
+    its blocks, ray by ray, and fills the drain rows. On the instanced
+    tree (ten lanes forming each drained ray's object features) its
+    outputs are the per-thread pipelined walk's (K9 `pipe`) bit for bit,
+    and its flag the plain version's, whole and ragged; it enters
+    instances, fills the drain rows and, on every ray nothing occludes,
+    pops K9's nodes and tests its blocks."""
+    feat = None
+    if tree.startswith("instanced"):
+        nodes, blocks, meta, feat = instanced
+    else:
+        nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
+    rays = _ragged_wave(RA) if tree.endswith("ragged") else RA
     with emulation:
-        k2 = emu.trace_wide(rays, nodes, blocks, meta, True)
-        k6 = emu.trace_wide(rays, nodes, blocks, meta, True, stream=True)
-        c2, c6 = (emu.trace_wide(rays, nodes, blocks, meta, True, count=True,
-                                 stream=stream) for stream in (False, True))
-    assert emu.same_bits(k6, k2)
+        k2, k6 = (emu.trace_wide(rays, nodes, blocks, meta, True,
+                                 inst_feat=feat, stream=stream)
+                  for stream in (False, True))
+        c2, c6 = (emu.trace_wide(rays, nodes, blocks, meta, True,
+                                 inst_feat=feat, count=True, stream=stream)
+                  for stream in (False, True))
+        if feat is None:
+            ref, cref = (_k8_any_half(rays, nodes, blocks, meta, count)
+                         for count in (False, True))
+        else:
+            ref, cref = (emu.trace_wide(rays, nodes, blocks, meta, True,
+                                        inst_feat=feat, pipe=True,
+                                        count=count)
+                         for count in (False, True))
+    assert emu.same_bits(k2, ref) and emu.same_bits(k6, k2)
+    assert torch.equal(c6, c2)
     occluded = k2[1] > 0
-    assert occluded.sum() > 50 and (~occluded).sum() > 50
-    if tree == "ragged":
+    enough = 50 if feat is None else 20     # the instanced scene is small
+    assert occluded.sum() > enough and (~occluded).sum() > enough
+    if tree.endswith("ragged"):
         assert not occluded[rays[7] < rays[6]].any()
-    assert torch.equal(c6[:5], c2[:5]) and not c6[2:5].any()
-    _drain_counts_bracket(c6)
+    _drain_counts_bracket(c2)
+    assert not c2[3:5].any()
+    if feat is None:
+        assert torch.equal(c2[:2], cref[:2]) and not c2[2].any()
+        assert not cref[2:].any()
+    else:
+        plain = pt.trace_wide_inst_plain(rays, nodes, blocks, meta, True,
+                                         feat)
+        assert torch.equal(k2[1], plain[1])
+        assert int(c2[2].sum()) > 0
+        # a ray that nothing occludes walks the whole tree under tmax, in
+        # any order: the pipelined walk's pops and block tests
+        free = ~occluded
+        assert torch.equal(c2[:2, free], cref[:2, free])
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block"])

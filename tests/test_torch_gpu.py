@@ -5,7 +5,8 @@ compute K1's function, against K1 bit for bit; the split kernel's
 pre-split planes against their plain version, and K4 against the
 ray-stream tracer at its tier bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the
-warp-wide drains of K3 closest and K6 any hit against K9 `pipe` and K2;
+warp-wide drains of K3 closest and the instanced any hit against K9
+`pipe`, and of K2 and K6 any hit against K8's per-thread any-hit half;
 the leaf-pair kernel (K15) against its plain version and the ray-stream
 tracer against
 K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
@@ -268,13 +269,29 @@ def test_reduced_tier_is_the_stream_tracer_bit_for_bit(soup_on_card, tier):
     assert torch.equal(rec.tri, ref.tri) and torch.equal(rec.bary, ref.bary)
 
 
+def _k8_any_half(rays, nodes, blocks, meta, per_ray=False):
+    """The flag of K8's any-hit half over the whole wave (an empty
+    closest-hit wave beside it), the per-thread classic walk that no
+    unpaired any-hit mode takes any more; with `per_ray` its (7, R)
+    counting table instead."""
+    empty = rays[:, :0].contiguous()
+    if per_ray:
+        return pt.trace_wide_paired_counts(empty, rays, nodes, blocks, meta,
+                                           per_ray=True)[1]
+    return pt.trace_wide_paired(empty, rays, nodes, blocks, meta)[1]
+
+
 def test_streamed_any_hit_equals_k2(soup_on_card):
+    """K6 any hit, counted under its own key, is K2 in every output (both
+    take the any-hit drain), and its flag is that of K8's any-hit half,
+    the per-thread classic walk, on every ray."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4096, 8.0, nodes.device)
     before = pt.LAUNCHES["stream+any"]
     k = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
     assert pt.LAUNCHES["stream+any"] == before + 1
     _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, True), "stream+any")
+    assert torch.equal(k[1], _k8_any_half(rays, nodes, blocks, meta))
 
 
 @pytest.mark.parametrize("mode", [dict(mt_precision="high"),
@@ -472,24 +489,66 @@ def test_instanced_fp32_closest_hit_drains_warp_wide(instanced_on_card):
 
 
 def test_streamed_any_hit_drains_warp_wide(soup_on_card):
-    """K6 any hit takes the warp-wide any-hit drain: on a 4,001-ray shadow
-    wave with every fifth ray dead its outputs are K2's bit for bit, and
-    per ray it pops K2's nodes and tests K2's blocks; the drain rows are
-    filled."""
+    """K2 and K6 any hit take the warp-wide any-hit drain, one counted
+    launch a wave each: on a 4,001-ray shadow wave with every fifth ray
+    dead their flag is that of K8's any-hit half, the per-thread classic
+    walk, on every ray, t is tmax and u, v are 0; per ray they pop that
+    walk's nodes and test its blocks; the drain rows are filled, the same
+    for both."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4001, 8.0, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    k2 = pt.trace_wide(rays, nodes, blocks, meta, True)
-    k6 = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
-    for a, b in zip(k6, k2):
-        assert torch.equal(a, b)
-    assert not (k2[1][::5] > 0).any() and (k2[1] > 0).sum() > 300
+    occ = _k8_any_half(rays, nodes, blocks, meta)
+    for stream in (False, True):
+        key = pt.launch_key(True, stream=stream)
+        before = pt.LAUNCHES[key]
+        k = pt.trace_wide(rays, nodes, blocks, meta, True, stream=stream)
+        assert pt.LAUNCHES[key] == before + 1
+        assert torch.equal(k[1], occ), key
+        assert torch.equal(k[0].view(torch.int32), rays[7].view(torch.int32))
+        assert not k[2].any() and not k[3].any()
+    assert not (occ[::5] > 0).any() and (occ > 0).sum() > 300
     c2, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                    stream=stream, per_ray=True)
               for stream in (False, True))
-    assert torch.equal(c6[:5], c2[:5]) and not c2[5:].any()
-    rounds, distinct = int(c6[5].sum()), int(c6[6].sum())
-    assert 0 < rounds <= distinct <= int(c6[1].sum())
+    c8 = _k8_any_half(rays, nodes, blocks, meta, per_ray=True)
+    assert torch.equal(c2, c6) and torch.equal(c2[:2], c8[:2])
+    assert not c2[2:5].any() and not c8[2:].any()
+    rounds, distinct = int(c2[5].sum()), int(c2[6].sum())
+    assert 0 < rounds <= distinct <= int(c2[1].sum())
+
+
+def test_instanced_any_hit_drains_warp_wide(instanced_on_card):
+    """The instanced any hit and its streamed mode take the warp-wide
+    any-hit drain with the ten-lane instance entry, one counted launch a
+    wave each: on a 4,001-ray shadow wave with every fifth ray dead every
+    output is the per-thread pipelined walk's (K9 `pipe`) bit for bit, the
+    flag agrees with the plain version's on >= 99.5% of rays; the
+    counting instantiation enters instances and fills the drain rows, the
+    same for both, and on every ray that nothing occludes pops K9's nodes
+    and tests its blocks."""
+    nodes, blocks, meta, feat, _ = instanced_on_card
+    rays = _rays(4001, 6.0, nodes.device)
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat=feat,
+                         pipe=True)
+    for stream in (False, True):
+        key = pt.launch_key(True, True, stream=stream)
+        before = pt.LAUNCHES[key]
+        k = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat=feat,
+                          stream=stream)
+        assert pt.LAUNCHES[key] == before + 1
+        _bitwise(k, pipe, key)
+    occ = pipe[1] > 0
+    assert not occ[::5].any() and occ.sum() > 100 and (~occ).sum() > 100
+    p = pt.trace_wide_inst_plain(rays, nodes, blocks, meta, True, feat)
+    assert (k[1] == p[1]).float().mean() > 0.995
+    c3, c6, c9 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True, feat,
+                                       per_ray=True, **kw)
+                  for kw in (dict(), dict(stream=True), dict(pipe=True)))
+    assert torch.equal(c3, c6) and int(c3[2].sum()) > 0
+    assert 0 < int(c3[5].sum()) <= int(c3[6].sum()) <= int(c3[1].sum())
+    assert torch.equal(c3[:2, ~occ], c9[:2, ~occ])
 
 
 @pytest.mark.parametrize("walk", ["pipe", "flat_walk"])

@@ -445,14 +445,19 @@ def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
 
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
-                      mt_precision="highest", stream=False, planes=None):
-    """`packet_trace.trace_wide_paired` through the emulated kernel."""
+                      mt_precision="highest", stream=False, planes=None,
+                      count=False):
+    """`packet_trace.trace_wide_paired` (or, with `count`, the two (7, R)
+    tables of `trace_wide_paired_counts(per_ray=True)`) through the
+    emulated kernel."""
     pt.check_mode(mt_precision, stream)
     nc = rays_c.shape[1]
     rays, n_split = pt.pair_rays(rays_c, rays_a)
-    t, sid, u, v, _, _ = pt._launch(rays, nodes, blocks, meta, 2, None,
-                                    False, None, mt_precision, stream,
-                                    n_split=n_split, planes=planes)
+    t, sid, u, v, _, counts = pt._launch(rays, nodes, blocks, meta, 2, None,
+                                         count, None, mt_precision, stream,
+                                         n_split=n_split, planes=planes)
+    if count:
+        return pt.split_paired_counts(counts, nc, n_split, per_ray=True)
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
 
 

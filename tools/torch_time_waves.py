@@ -13,7 +13,8 @@ closest hit of the reduced MT tiers on the headline tree (K4 "high" and
 checkout has them.
 
     python3 tools/torch_time_waves.py [--tiers] [--headline]
-    python3 tools/torch_time_waves.py --root OTHER_CHECKOUT
+    python3 tools/torch_time_waves.py --root OTHER_CHECKOUT --counts A.pt
+    python3 tools/torch_time_waves.py --compare A.pt B.pt
 
 `--root` imports platinum_tpu_torch and chip_smoke.py (its `_wave_points`,
 `_waves`, `JOBS` and `_time_ms`) from another checkout, so two versions of
@@ -22,6 +23,14 @@ skips the bistro tree. Prints one
 JSON line: the card and its power limit, and per tree, wave and mode the
 kernel's ms per wave (CUDA events around --reps launches after one
 warm-up). Needs a CUDA device.
+
+`--counts FILE` also saves, per tree, the per-ray counting table of the
+any-hit trace of the shadow wave (`trace_wide_counts(per_ray=True)`: K2
+on the headline tree, the instanced any hit, K6 any hit on the bistro
+tree) with torch.save; `--compare A B` (no device needed) prints, for two
+such files from two checkouts, the rays whose node pops, MT block tests or
+instance entries differ and the totals of each, so that a redesigned walk
+is held ray by ray to the walk it replaces.
 """
 
 from __future__ import annotations
@@ -48,7 +57,12 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--tiers", action="store_true")
     ap.add_argument("--headline", action="store_true")
+    ap.add_argument("--counts")
+    ap.add_argument("--compare", nargs=2)
     args = ap.parse_args()
+    if args.compare:
+        compare(*args.compare)
+        return
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
 
@@ -74,6 +88,7 @@ def main():
         text=True).stdout.strip(), root=args.root, ms={})
     by_name = {t[0]: t for t in TREES}
     pts_of = {}
+    counts = {}
 
     def flatten(tree, instancing):
         _, scene_kw, (width, height), _ = by_name[tree]
@@ -112,9 +127,40 @@ def main():
                 out["ms"][f"{tree} {wave}{kind} {mode}"] = cs._time_ms(
                     lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
                                           any_hit, inst, **kw), args.reps)
+        if args.counts:
+            counts[f"{tree} shadow any"] = pt.trace_wide_counts(
+                waves["shadow"], nodes, blocks, meta, True, inst,
+                per_ray=True).cpu()
         del flat, nodes, blocks, meta, waves, inst
         torch.cuda.empty_cache()
+    if args.counts:
+        import torch
+
+        torch.save(counts, args.counts)
     print(json.dumps(out), flush=True)
+
+
+ROWS = ("pops", "MT block tests", "instance entries")
+
+
+def compare(path_a, path_b):
+    """Per tree, the rays whose pops, MT block tests or instance entries
+    differ between two `--counts` files, and each file's totals."""
+    import torch
+
+    a, b = torch.load(path_a), torch.load(path_b)
+    for key in a:
+        if key not in b:
+            continue
+        ca, cb = a[key], b[key]
+        if ca.shape != cb.shape:
+            print(f"{key}: {tuple(ca.shape)} against {tuple(cb.shape)} rays")
+            continue
+        parts = [f"{name}: {int(ca[r].sum())} / {int(cb[r].sum())}, "
+                 f"{int((ca[r] != cb[r]).sum())} rays differ"
+                 for r, name in enumerate(ROWS)]
+        print(f"{key}, {ca.shape[1]} rays, {path_a} / {path_b}: "
+              + "; ".join(parts), flush=True)
 
 
 if __name__ == "__main__":
