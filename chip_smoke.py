@@ -19,19 +19,18 @@ Phases, one printed block each (any failure exits non-zero):
      whole warp over the fp32 blocks, K2 (like K3 and K6 any hit) on the
      warp-wide any-hit drain
   3b. K3 vs plain: the same for the two-level modes on the colonnade
-     flattened with instancing="on" (K3's bounds count the instance
-     entries of K9 `pipe`, the per-thread walk, on the same wave: the
-     drain re-enters an instance per round); then K3 closest
-     (the warp-wide drain,
-     ten lanes forming each drained ray's object features) against K9
-     `pipe` with the instance features, the per-thread walk, on the whole
-     camera, bounce and shadow waves (shadow traced as closest hit):
-     every output, the instance id included, bit for bit, no exception;
-     instance entries per drain round and lanes per distinct block on each;
-     and K3 any hit (the any-hit drain, resident and with stream=True)
-     against K9 `pipe` on the whole shadow wave: every output bit for bit,
-     per ray that nothing occludes K9's pops and MT block tests, with its
-     drain counts
+     flattened with instancing="on" (K3's and K9's bounds count the
+     instance entries of the per-thread pipelined walk, `pipe=True,
+     per_thread=True`, on the same wave: the drains re-enter an instance
+     per round); then K3 closest (the warp-wide drain, ten lanes forming
+     each drained ray's object features) against the per-thread pipelined
+     walk with the instance features on the whole camera, bounce and
+     shadow waves (shadow traced as closest hit): every output, the
+     instance id included, bit for bit, no exception; instance entries
+     per drain round and lanes per distinct block on each; and K3 any hit
+     (the any-hit drain, resident and with stream=True) against the same
+     walk on the whole shadow wave: every output bit for bit, per ray that
+     nothing occludes its pops and MT block tests, with its drain counts
   3c. the pre-split planes of the colonnade's blocks (the split kernel
      against its plain version in every bit, both timed), then K4
      ("high"), K5 ("two_phase") and K7 (octant order), K4 and K5 over
@@ -44,7 +43,12 @@ Phases, one printed block each (any failure exits non-zero):
      a few fp32 ulps, wherever the ids agree)
   3d. K5 and K7 against K1 on the whole waves (K5 also on the shadow
      wave, traced as closest hit): hit set and t bit for bit, ids equal
-     outside exact-t ties; every exception printed and certified
+     outside exact-t ties; every exception printed and certified. Then
+     K7 (the fp32 drain, each lane's queue newest first) against the
+     per-thread queued walk under the same octant order (`per_thread=
+     True`) on the whole camera, bounce and shadow waves as closest hit:
+     every output bit for bit and per ray the same node pops and MT block
+     tests, no exception
   3e. K4 against K1 on the whole waves with the bars of
      tests/test_pallas_trace.py:209-220, held on the camera wave (rays from
      free space, as in that test) and printed for the bounce wave; on both
@@ -59,9 +63,11 @@ Phases, one printed block each (any failure exits non-zero):
      K6 any hit, the warp-wide any-hit drain, against K8's any-hit half,
      the per-thread classic walk, on the whole shadow wave: the flag on
      every ray, t tmax, u and v 0, and per ray that walk's node pops and MT
-     block tests, with their drain counts; K1 and K6 closest against K9
-     `pipe` on the camera, bounce and shadow waves as closest hit, with
-     no exception, and the drain's lanes per distinct block on each; the
+     block tests, with their drain counts; K1 and K6 closest against the
+     per-thread pipelined walk on the camera, bounce and shadow waves as
+     closest hit, with no exception, and the drain's lanes per distinct
+     block on each; K9 (pipe, flat_walk) against the per-thread pipelined
+     walk on the three whole waves as 3h holds it; the
      instanced stream modes on the colonnade flattened with
      instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
@@ -106,14 +112,17 @@ Phases, one printed block each (any failure exits non-zero):
      bistro tree with stream=True against K6; through the tracer's
      `trace_closest.paired` entry, which is the path that counts its
      launches
-  3h. K9, the pipelined walk, with and without the flat push: closest and
-     any hit against K1/K2 as 3d holds K5 and K7 (closest hit, where K1
-     is warp-wide and K9 the per-thread walk, with no exception); K1
-     against the per-thread walk on the camera, bounce and shadow waves
-     as closest hit, with the drain's rounds, distinct blocks and lanes
-     per distinct block on each; and on the instanced
-     colonnade against K3, with counts and times; against the plain
-     version on the 16,384-ray subsets; both timed and held to K1/K2 on
+  3h. K9, the pipelined drain, with and without the flat push: closest
+     and any hit against K1/K2 as 3d holds K5 and K7 (closest hit with no
+     exception); against the per-thread pipelined walk it keeps lane by
+     lane (`per_thread=True`) on the camera, bounce (closest hit) and
+     shadow (any hit) waves: every output bit for bit, per ray the same
+     node pops and MT block tests, with its drain counts; K1 against the
+     per-thread pipelined walk on the three waves as closest hit, with the
+     drain's rounds, distinct blocks and lanes per distinct block on each;
+     and on the instanced colonnade against K3 and the per-thread walk,
+     with counts and times; against the plain version on the 16,384-ray
+     subsets; both timed and held to K1/K2 and to the per-thread walk on
      the bistro tree's whole waves too
   3i. the ablation modes, on the per-thread walk: "empty" and "nomt"
      miss everything, "nomt" pops no fewer nodes than K1 and tests no
@@ -789,21 +798,26 @@ def phase_k3(scene, cam, dev, pts):
     nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
     waves = _waves(pts, nodes, dev)
     certify = _instanced_certify(flat, host)
+    per_thread = dict(pipe=True, per_thread=True)
     rows, outs = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta,
                             waves, pts["sample"], certify,
                             inst_feat=flat.instances.feat,
-                            inst_need=dict(pipe=True))
-    print("K9, the pipelined walk, on the instanced colonnade (3h):",
+                            inst_need=per_thread)
+    print("K9, the pipelined drain, on the instanced colonnade (3h):",
           flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(flat.wbvh_meta))):
         _, pipe_outs = _hold_tree(
             f"K9 {key} instanced", nodes, flat.wbvh_tris, flat.wbvh_meta,
             waves, pts["sample"], certify, inst_feat=flat.instances.feat,
-            mode=mode, whole_plain=False, plain_rows=rows)
-        for _, wave, _ in JOBS:
+            mode=mode, whole_plain=False, plain_rows=rows,
+            inst_need=dict(mode, per_thread=True))
+        for _, wave, any_hit in JOBS:
             _bitwise(f"K9 {key} instanced against K3, {wave}",
                      pipe_outs[wave], outs[wave], waves[wave], certify)
+            _against_its_walk(f"K9 {key} instanced {wave}", waves[wave],
+                              nodes, flat.wbvh_tris, flat.wbvh_meta, any_hit,
+                              flat.instances.feat, **mode)
     _drain_against_per_thread("instanced colonnade", nodes, flat.wbvh_tris,
                               flat.wbvh_meta, waves,
                               inst_feat=flat.instances.feat)
@@ -903,6 +917,11 @@ def phase_variants(ctx):
                      lambda ray: _borderline(ray, tri64)
                      or _fp32_ambiguous(ray, fp32),
                      caveat if key == "K5" else "")
+    print("K7 against the per-thread queued walk under the octant order "
+          "(3d):", flush=True)
+    for wave in ("camera", "bounce", "shadow"):
+        _against_its_walk(f"K7 {wave} (closest hit)", waves[wave], nodes,
+                          blocks, meta, False, worder=flat.wbvh_order)
     # and K5 on the third wave, the shadow segments traced as closest hit
     shadow = waves["shadow"]
     _bitwise("K5 shadow (traced as closest hit)",
@@ -1096,19 +1115,22 @@ def phase_pipe(ctx, k12):
         return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
 
     rows = {}
-    print("K9, the pipelined walk (3h):", flush=True)
+    print("K9, the pipelined drain (3h):", flush=True)
     for key, mode in (("K9 pipe", dict(pipe=True)),
                       ("K9 flat_walk", _flat_mode(flat.wbvh_meta))):
         rows[key], outs = _hold_tree(
             key, nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
             ctx["pts"]["sample"], certify, mode=mode, whole_plain=False,
             plain_rows=k12)
-        # closest hit: K1 (warp-wide) and K9 (per-thread) must agree
-        # with no exception
+        # closest hit: K1 and K9 (two drains of the same function) must
+        # agree with no exception; K9 is its per-thread walk lane by lane
         for _, wave, any_hit in JOBS:
             _bitwise(f"{key} against K1/K2, {wave}", outs[wave],
                      ctx["outs"][wave], waves[wave],
                      certify if any_hit else None)
+            _against_its_walk(f"{key} {wave}", waves[wave], nodes,
+                              flat.wbvh_tris, flat.wbvh_meta, any_hit,
+                              **mode)
         for kind in ("closest", "any"):
             got, ref = rows[key][kind]["counts"], k12[kind]["counts"]
             print(f"  {key} {kind} (bounce / shadow wave): "
@@ -1141,11 +1163,47 @@ def _drain_counts(name, c):
           f"a round{entries}", flush=True)
 
 
+def _against_its_walk(name, rays, nodes, blocks, meta, any_hit,
+                      inst_feat=None, **mode):
+    """A drain that keeps a per-thread walk lane by lane (K7: the queued
+    walk under the octant order; K9: the pipelined walk) against that
+    walk (`per_thread=True`) on one whole wave: every output in every
+    bit, no exception, and per ray the same node pops and MT block tests;
+    the drain's counts, and on an instanced tree both walks' instance
+    entries (the drain's once per drained lane, instance and round)."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
+    got = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat,
+                        **mode)
+    ref = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat,
+                        per_thread=True, **mode)
+    check(len(got) == len(ref) and all(
+        torch.equal(a.view(torch.int32), b.view(torch.int32))
+        for a, b in zip(got, ref)),
+          f"{name}: an output differs in its bits from the per-thread walk")
+    c, cref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                    inst_feat, per_ray=True, per_thread=r,
+                                    **mode) for r in (False, True))
+    differ = int((c[:2] != cref[:2]).any(0).sum())
+    check(differ == 0, f"{name}: node pops or MT block tests differ from "
+                       f"the per-thread walk's on {differ} rays")
+    hits = int((got[1] > 0).sum() if any_hit else (got[1] >= 0).sum())
+    print(f"  {name} against the per-thread walk: every output bit for bit "
+          f"on all {rays.shape[1]} rays ({hits} "
+          f"{'occluded' if any_hit else 'hits'}), node pops and MT block "
+          f"tests the same on every ray"
+          + (f"; instance entries {int(c[2].sum())} against the walk's "
+             f"{int(cref[2].sum())}" if inst_feat is not None else ""),
+          flush=True)
+    _drain_counts(name, pt._count_sums(c))
+
+
 def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
                               inst_feat=None):
     """K1 (and with `stream` K6 closest), or with `inst_feat` K3, the
-    warp-wide drain over the fp32 blocks, against K9 `pipe`, the
-    per-thread walk, on the camera, bounce and shadow waves, all traced as
+    warp-wide drain over the fp32 blocks, against the per-thread
+    pipelined walk (`pipe=True, per_thread=True`, the walk K9's drain
+    keeps) on the camera, bounce and shadow waves, all traced as
     closest hit: hit set and t bit for bit on every ray, no exception
     allowed; id differences (exact-t ties between blocks, which the walks
     may meet in another order) printed for K1 / K6, and for K3 none
@@ -1161,11 +1219,11 @@ def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
     for wave in ("camera", "bounce", "shadow"):
         rays = waves[wave]
         pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
-                             pipe=True)
+                             pipe=True, per_thread=True)
         for name, mode in modes:
             got = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
                                 **mode)
-            what = (f"{name} against the per-thread walk (K9 pipe), "
+            what = (f"{name} against the per-thread pipelined walk, "
                     f"{label} {wave} as closest hit")
             _bitwise(what, got, pipe, rays, None)
             if inst_feat is not None:
@@ -1210,33 +1268,35 @@ def _any_drain_against_paired(label, nodes, blocks, meta, rays, outs):
 
 def _inst_any_against_pipe(label, nodes, blocks, meta, rays, inst_feat):
     """K3 any hit, the any-hit drain with the ten-lane instance entry,
-    resident and with stream=True (the same drain), against K9 `pipe`, the
-    per-thread walk, on one whole shadow wave: every output bit for bit,
-    no exception; per ray that nothing occludes K9's node pops and MT
-    block tests (a walk under the constant tmax visits the same nodes and
-    blocks in any order); with its drain counts."""
+    resident and with stream=True (the same drain), against the
+    per-thread pipelined walk (`pipe=True, per_thread=True`) on one whole
+    shadow wave: every output bit for bit, no exception; per ray that
+    nothing occludes that walk's node pops and MT block tests (a walk
+    under the constant tmax visits the same nodes and blocks in any
+    order); with its drain counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat,
-                         pipe=True)
+                         pipe=True, per_thread=True)
     ref = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
-                               pipe=True, per_ray=True)
+                               pipe=True, per_ray=True, per_thread=True)
     free = pipe[1] < 0
     for name, mode in (("K3 any hit", {}),
                        ("K3 any hit stream=True", dict(stream=True))):
-        what = f"{name} against the per-thread walk (K9 pipe), {label} shadow"
+        what = (f"{name} against the per-thread pipelined walk, {label} "
+                f"shadow")
         _exact(what, pt.trace_wide(rays, nodes, blocks, meta, True,
                                    inst_feat, **mode), pipe)
         c = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
                                  per_ray=True, **mode)
         check(torch.equal(c[:2, free], ref[:2, free]),
               f"{what}: pops or MT block tests of an unoccluded ray differ "
-              f"from K9's")
+              f"from the walk's")
         print(f"  {what}: every output bit for bit on all {rays.shape[1]} "
-              f"rays ({int((~free).sum())} occluded); K9's pops and MT block "
+              f"rays ({int((~free).sum())} occluded); its pops and MT block "
               f"tests on the {int(free.sum())} unoccluded rays; on the "
               f"occluded ones {int(c[0, ~free].sum())} pops and "
-              f"{int(c[1, ~free].sum())} MT block tests against K9's "
+              f"{int(c[1, ~free].sum())} MT block tests against its "
               f"{int(ref[0, ~free].sum())} and {int(ref[1, ~free].sum())}",
               flush=True)
         _drain_counts(f"{name} {label} shadow", pt.trace_wide_counts(
@@ -1937,6 +1997,8 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
             print(f"  K9 {key} time per {waves[wave].shape[1]}-ray wave on "
                   f"the bistro tree, {name}: {kms:.3f} ms (K1/K2 "
                   f"{ref_ms[wave]:.3f} ms)", flush=True)
+            _against_its_walk(f"K9 {key} bistro {wave}", waves[wave], nodes,
+                              blocks, meta, any_hit, **mode)
     _drain_against_per_thread("bistro", nodes, blocks, meta, waves,
                               stream=True)
     print("K8 with stream=True against K6 on the bistro tree (3g):",
@@ -1961,7 +2023,7 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
     inst_rows, inst_outs = _hold_tree(
         "K6 instanced", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
         pts_small["sample"], inst_certify, inst_feat=flat.instances.feat,
-        mode=dict(stream=True), inst_need=dict(pipe=True))
+        mode=dict(stream=True), inst_need=dict(pipe=True, per_thread=True))
     for _, wave, any_hit in JOBS:
         ref = pt.trace_wide(waves[wave], nodes, flat.wbvh_tris,
                             flat.wbvh_meta, any_hit, flat.instances.feat)
@@ -2539,13 +2601,16 @@ def _design(name):
         walk = "warp-wide drain over the pre-split planes"
     elif "(K6)" in name:
         walk = "warp-wide fp32 drain, L2 prefetch at enqueue"
+    elif "(K7)" in name:
+        walk = "warp-wide fp32 drain, near-first queues newest first"
     elif "split_planes" in name:
         return "one thread per coefficient"
     elif "bf_" in name:
         return "breadth-first level step"
     elif "(K9" in name:
-        walk = "per-thread pipelined walk"
-    else:                       # K7, K8, the ablation modes
+        walk = ("warp-wide pipelined drain (per-lane backlog, up to "
+                "kPipeDrain blocks a lane a round)")
+    else:                       # K8, the ablation modes
         walk = "per-thread walk"
     return walk + (", ten-lane instance entry" if "(K3)" in name else "")
 

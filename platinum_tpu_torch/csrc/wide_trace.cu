@@ -17,12 +17,13 @@
 //      prefetched into L2 as it is queued (closest hit), the queue drained
 //      oldest first;
 //   K7 oct_order: children visited in a per-(node, octant) near-first
-//      order (accel.wide.build_octant_orders);
+//      order (accel.wide.build_octant_orders), each node's leaf queue
+//      drained newest first;
 //   K8 the paired launch (`trace_paired`): one grid over a closest-hit
 //      wave and an any-hit wave, each thread taking its mode from its ray
 //      index (kPaired, at the kernel below);
-//   K9 pipe / flat_walk (`_make_kernel_pipe`): the pipelined walk
-//      (walk_pipe below);
+//   K9 pipe / flat_walk (`_make_kernel_pipe`): the pipelined walk, a
+//      backlog of leaf blocks that outlives a node (warp_pipe below);
 //   the ablation modes of `profile=` ("empty", "nomt", "fix64", "count":
 //      wrong results by design, for splitting a wave's time into launch
 //      floor, walk and block tests; kProf).
@@ -94,9 +95,11 @@
 // ray.
 //
 // Warp-wide block tests. Taken by closest hit at the reduced tiers (K4,
-// K5, and K6-K8 at those tiers), and by fp32 closest hit and any hit
-// without the octant order over one tree level or two (K1, K2, K3, K6;
-// walk kWarpQ, the prefetch flag telling the streamed closest hit apart).
+// K5, and K6-K8 at those tiers), by fp32 closest hit over one tree level
+// or two, with or without the octant order (K1, K3, K6, K7; walk kWarpQ,
+// the prefetch flag telling the streamed closest hit apart), by fp32 any
+// hit without it (K2, K3 any hit, K6 any hit; kWarpQ too) and by the
+// pipelined walk (K9, closest and any hit; kWarpPipe, kWarpFlat).
 // One thread per ray that
 // tests whole blocks reads each block as 640 scattered 16-byte loads (a
 // reduced tier also splits each of its 2,560 coefficients again for every
@@ -114,8 +117,10 @@
 // winner forms u and v, and the drained lane commits with the strict <
 // against the best it had when the block started, so the hit set, t, ids
 // and barycentrics are those of the per-thread code, bit for bit. The fp32
-// drain (K1, K3, K6, and K5's refine and exact re-walk) uses K1's
+// drain (K1, K3, K6, K7, K9, and K5's refine and exact re-walk) uses K1's
 // per-triangle code (mt_block.cuh `lane_dots`, block_dots' sum order).
+// Under the octant order (K7) each lane's queue is drained newest first,
+// the per-thread queued walk's near-first order.
 // In the two-level fp32 drain (K3) the drained lane's ray is broadcast and
 // lanes 0-9 each form one row of its object features T F, in
 // object_features' order, which are then broadcast: ten lanes do the
@@ -127,18 +132,22 @@
 // drained lane enters an instance with K3 closest's ten lanes. Its node
 // cull is the constant tmax and expand queues a node's leaves in slot
 // order, so it pops the nodes and tests the blocks of the per-thread
-// classic walk, in its order, and its flag is that walk's. Every lane runs
-// every warp collective: lanes whose ray is done or lies past the wave
-// stay in the loops with empty queues.
+// classic walk, in its order, and its flag is that walk's. The pipelined
+// drain (K9) keeps the per-thread pipe's schedule lane by lane (see
+// warp_pipe). Every lane runs every warp collective: lanes whose ray is
+// done or lies past the wave stay in the loops with empty queues.
 //
-// The per-thread walks stay for the octant order (K7, also streamed: its
-// near-first queue order is the per-thread walk's), for the paired launch
-// (K8: its any-hit half shares the grid with a closest-hit half and keeps
-// the classic walk), the pipelined walks (K9, whose backlog outlives a
-// node and so has no per-node queue to drain) and the ablation modes,
-// which split the per-thread walk's time. They are the per-thread
-// references the warp-wide modes are held to: K8's any-hit half for K2,
-// K9 `pipe` for K1, K3 and the instanced any hit.
+// The per-thread walks stay for the paired launch (K8: its any-hit half
+// shares the grid with a closest-hit half and keeps the classic walk),
+// the any hit under the octant order (the packet tracer never asks it:
+// the JAX kernel orders closest hit only, pallas_trace.py:1459) and the
+// ablation modes, which split the per-thread walk's time; and as the
+// references the drains are held to, reached only through the launch's
+// per-thread flag (`kPerThread`, never on a render path): the per-thread
+// pipelined walk (walk_pipe, both pushes, closest and any hit, one level
+// and two) for K1, K3, K9 and the instanced any hit, the per-thread
+// queued walk under the octant order (closest hit, one level and two,
+// resident and streamed) for K7; K8's any-hit half for K2.
 
 // Queued walks (kQueue: stream or near-first order on the per-thread
 // walk; every warp-wide walk). The node's 16 children are slab-tested
@@ -220,12 +229,24 @@ constexpr unsigned kFull = 0xffffffffu;
 // walks (kWalk)
 constexpr int kClassic = 0;   // each leaf tested as it is found (K8's
                               // any-hit half, the ablation modes)
-constexpr int kQueued = 1;    // per-node leaf queue (K7, streamed K8; the
-                              // reduced tiers)
-constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9)
-constexpr int kPipeFlat = 3;  // K9 with 16 predicated pushes per node
+constexpr int kQueued = 1;    // per-node leaf queue (streamed K8, the any
+                              // hit under the octant order, K7's
+                              // reference; the reduced tiers)
+constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9's
+                              // per-thread reference)
+constexpr int kPipeFlat = 3;  // the same with 16 predicated pushes a node
 constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1,
-                              // K2, K3, K6)
+                              // K2, K3, K6, K7)
+constexpr int kWarpPipe = 5;  // the warp-wide pipelined drain (K9 pipe)
+constexpr int kWarpFlat = 6;  // the same with the flat push (K9 flat_walk)
+// the walks that drain fp32 blocks warp-wide, each with its own render
+// kernel (wide_trace_warp_kernel)
+__host__ __device__ constexpr bool fp32_drain(int walk) {
+  return walk == kWarpQ || walk == kWarpPipe || walk == kWarpFlat;
+}
+// the launch's walk code: 0 the default walk, 1 pipe, 2 flat_walk, plus
+// kPerThread for the per-thread reference of the mode (wide_trace_launch)
+constexpr int kPerThread = 4;
 // ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
 constexpr int kProfNone = 0;
 constexpr int kProfEmpty = 1;   // no walk
@@ -355,14 +376,15 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 }
 
 // One instantiation per mode. kAnyHit, kInst, kPrec and kCount as above;
-// kWalk picks the walk of the per-thread modes, kProf an ablation mode of
-// the classic and queued walks, and kPaired takes closest or any hit per
-// thread from its ray index (K8): rays below n_split are a closest-hit
-// wave, the others an any-hit wave. n_split is a multiple of the block
-// size, so no warp holds rays of both waves. Closest hit at a reduced tier
-// (kSplit) always takes the warp-wide queued walk; fp32 closest hit and
-// any hit without the octant order take it as kWarpQ (K1, K2, K3, K6),
-// over one tree level or two. The kernels below wrap it.
+// kWalk picks the walk, kProf an ablation mode of the classic and queued
+// walks, and kPaired takes closest or any hit per thread from its ray
+// index (K8): rays below n_split are a closest-hit wave, the others an
+// any-hit wave. n_split is a multiple of the block size, so no warp holds
+// rays of both waves. Closest hit at a reduced tier (kSplit) always takes
+// the warp-wide queued walk; fp32 closest hit, with or without the octant
+// order, and fp32 any hit without it take it as kWarpQ (K1, K2, K3, K6,
+// K7), over one tree level or two; the pipelined walk drains as kWarpPipe
+// and kWarpFlat (K9). The kernels below wrap it.
 #define WIDE_TRACE_PARAMS                                                 \
   const float* __restrict__ rays, int n_rays, int n_split,                \
       const float* __restrict__ nodes, const float* __restrict__ blocks,  \
@@ -379,10 +401,12 @@ template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf, bool kPaired>
 __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
-  static_assert(kWalk != kWarpQ || (kPrec == kHighest &&
-                                    kProf == kProfNone && !kPaired),
-                "kWarpQ is fp32 closest hit and fp32 any hit");
-  constexpr bool kWarpWide = kSplit || kWalk == kWarpQ;
+  constexpr bool kFp32Drain = fp32_drain(kWalk);
+  constexpr bool kWarpPipes = kWalk == kWarpPipe || kWalk == kWarpFlat;
+  static_assert(!kFp32Drain || (kPrec == kHighest && kProf == kProfNone &&
+                                !kPaired),
+                "the fp32 drains are fp32 closest hit and fp32 any hit");
+  constexpr bool kWarpWide = kSplit || kFp32Drain;
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -391,7 +415,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // the warp-wide modes keep every lane of the warp: one past the wave
   // runs as a dead ray (tmax < tmin); K8's any-hit half (kSplit with
   // kPaired) walks one thread per ray
-  const bool warp_wide = kWarpWide && (kWalk == kWarpQ || !any_hit);
+  const bool warp_wide = kWarpWide && (kFp32Drain || !any_hit);
   const bool in_wave = i < n_rays;
   if (!in_wave && !warp_wide) return;
   Ray r;
@@ -535,7 +559,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // The per-thread walks of the fp32 modes and of any hit.
+  // The per-thread classic and queued walks: K8's halves, the ablation
+  // modes, the any hit under the octant order and K7's reference.
   auto walk = [&]() {
     int stack[kStack];
     int sp = 0;
@@ -593,10 +618,69 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // only falls, so a stale bound admits more nodes and loses no hit); a
   // backlog entry whose entry distance has fallen behind the running best
   // is dropped untested, and each block is tested against the running
-  // best with K1's block code, so hit set and t are K1's. kPipeFlat
-  // pushes the 16 children by predicated writes with no inner loop (a
-  // write not taken lands in a dump slot past the end), which needs
-  // single-block leaves.
+  // best with K1's block code, so hit set and t are K1's. The flat push
+  // (kPipeFlat, kWarpFlat) pushes the 16 children by predicated writes
+  // with no inner loop (a write not taken lands in a dump slot past the
+  // end), which needs single-block leaves.
+  //
+  // One pop: node n's children slab-tested against `stale`, the inner
+  // hits pushed, each leaf hit's blocks appended to the backlog (lqv, lqt)
+  // while it has room. What a leaf cannot place there (only a node whose
+  // leaves hold more than kLeafQ blocks: no tree of accel.wide) is handed
+  // on as its blocks k..nb-1 to `spill(tag, k, nb, tnear)`; once the
+  // backlog is full every later leaf of the node goes there whole. The
+  // per-thread walk tests them at once, the warp queues them; a true
+  // return (an any-hit occlusion) ends the expansion.
+  auto pipe_pop = [&](int n, float stale, int* stack, int& sp, int* lqv,
+                      float* lqt, int& lq, auto&& spill) -> bool {
+    const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
+    const int* mrow = meta + n * kWidth;
+    if (kWalk == kPipeFlat || kWalk == kWarpFlat) {
+#pragma unroll
+      for (int c = 0; c < kWidth; ++c) {
+        const int mc = __ldg(mrow + c);
+        float tnear;
+        const bool take = slab(rec, c, stale, tnear) && mc != -1;
+        const bool inner = take && mc >= 0;
+        const bool leaf = take && mc <= -2;
+        stack[inner ? (sp < kStack ? sp : kStack - 1) : kStack] = mc;
+        sp += inner && sp < kStack;
+        const int val = -mc - 2;
+        const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
+                              : val >> 5;
+        lqv[leaf ? lq : kPipeQ] = tag;
+        lqt[leaf ? lq : kPipeQ] = tnear;
+        lq += leaf;
+      }
+      return false;
+    }
+    for (int c = 0; c < kWidth; ++c) {
+      const int mc = __ldg(mrow + c);
+      if (mc == -1) continue;
+      float tnear;
+      if (!slab(rec, c, stale, tnear)) continue;
+      if (mc >= 0) {
+        stack[sp < kStack ? sp : kStack - 1] = mc;
+        sp = sp < kStack ? sp + 1 : kStack;
+        continue;
+      }
+      const int val = -mc - 2;
+      const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
+                            : val >> 5;
+      const int nb = val & 31;
+      int k = 0;
+      for (; k < nb && lq < kPipeQ; ++k) {
+        lqv[lq] = tag + k;
+        lqt[lq] = tnear;
+        ++lq;
+      }
+      if (k < nb && spill(tag, k, nb, tnear)) return true;
+    }
+    return false;
+  };
+
+  // The per-thread pipelined walk: the reference the pipelined drain is
+  // held to (kPipe, kPipeFlat; reached through kPerThread only)
   auto walk_pipe = [&]() {
     int stack[kStack + 1];
     int lqv[kPipeQ + 1];
@@ -604,62 +688,21 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     int sp = 0, lq = 0;
     stack[sp++] = 0;
     float stale = cull_now();
+    // what the backlog cannot take is tested now, so that no block is lost
+    auto test_now = [&](int tag, int k, int nb, float tnear) -> bool {
+      for (; k < nb; ++k) {
+        if (!(tnear <= cull_now())) continue;
+        visit_block(kInst ? tag >> 14 : 0, (kInst ? tag & 0x3FFF : tag) + k);
+        if (any_hit && occluded) return true;
+      }
+      return false;
+    };
     for (int it = 0; (sp > 0 || lq > 0) && it < kMaxPops; ++it) {
       const float snap = cull_now();
       if (sp > 0 && lq <= kPipeQ - kLeafQ) {
         const int n = stack[--sp];
         if (kCount) ++n_pops;
-        const float4* rec =
-            reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
-        const int* mrow = meta + n * kWidth;
-        if (kWalk == kPipeFlat) {
-#pragma unroll
-          for (int c = 0; c < kWidth; ++c) {
-            const int mc = __ldg(mrow + c);
-            float tnear;
-            const bool take = slab(rec, c, stale, tnear) && mc != -1;
-            const bool inner = take && mc >= 0;
-            const bool leaf = take && mc <= -2;
-            stack[inner ? (sp < kStack ? sp : kStack - 1) : kStack] = mc;
-            sp += inner && sp < kStack;
-            const int val = -mc - 2;
-            const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
-                                  : val >> 5;
-            lqv[leaf ? lq : kPipeQ] = tag;
-            lqt[leaf ? lq : kPipeQ] = tnear;
-            lq += leaf;
-          }
-        } else {
-          for (int c = 0; c < kWidth; ++c) {
-            const int mc = __ldg(mrow + c);
-            if (mc == -1) continue;
-            float tnear;
-            if (!slab(rec, c, stale, tnear)) continue;
-            if (mc >= 0) {
-              stack[sp < kStack ? sp : kStack - 1] = mc;
-              sp = sp < kStack ? sp + 1 : kStack;
-              continue;
-            }
-            const int val = -mc - 2;
-            const int tag = kInst ? (val >> 19) << 14 | ((val >> 5) & 0x3FFF)
-                                  : val >> 5;
-            for (int k = 0; k < (val & 31); ++k) {
-              if (lq == kPipeQ) {
-                // a node whose leaves hold more than kLeafQ blocks (no
-                // tree of accel.wide): test now what the backlog cannot
-                // take, so that no block is lost
-                if (!(tnear <= cull_now())) continue;
-                visit_block(kInst ? tag >> 14 : 0,
-                            (kInst ? tag & 0x3FFF : tag) + k);
-                if (any_hit && occluded) return;
-                continue;
-              }
-              lqv[lq] = tag + k;
-              lqt[lq] = tnear;
-              ++lq;
-            }
-          }
-        }
+        if (pipe_pop(n, stale, stack, sp, lqv, lqt, lq, test_now)) return;
       }
       for (int k = 0; k < kPipeDrain && lq > 0; ++k) {
         --lq;
@@ -672,12 +715,12 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // ---- the warp-wide modes (kSplit, and kWarpQ) ----------------------
+  // ---- the warp-wide modes (kSplit, and the fp32 drains) ------------
   // Every lambda below is entered by all 32 lanes together, and every
   // branch around a warp collective is warp-uniform: it depends only on
   // values broadcast from one lane or reduced over the warp. `exact`: the
-  // block is tested over the fp32 blocks (kWarpQ, and two_phase's refine
-  // and re-walk, `refine`), not over the planes.
+  // block is tested over the fp32 blocks (the fp32 drains, and two_phase's
+  // refine and re-walk, `refine`), not over the planes.
 
   // One block b (of instance inst) tested by the warp for lane L's ray,
   // whose features the lanes hold broadcast (of: the split h, or the fp32
@@ -744,8 +787,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   };
 
   // lane L's ray broadcast and its (world-space) fp32 features formed as
-  // lane L formed them: six shuffles (kWarpQ: no lane holds r.f across
-  // the walk)
+  // lane L formed them: six shuffles (the fp32 drains: no lane holds r.f
+  // across the walk)
   auto broadcast_ray = [&](int L, float* of) {
     ray_features(__shfl_sync(kFull, r.ox, L), __shfl_sync(kFull, r.oy, L),
                  __shfl_sync(kFull, r.oz, L), __shfl_sync(kFull, dx, L),
@@ -755,7 +798,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // lane L's current features, broadcast (split, or fp32 in the exact
   // phase; the instance's object features in the two-level mode)
   auto broadcast_features = [&](int L, float* of, float* ofl) {
-    if (kWalk == kWarpQ) {   // K1, K6
+    if (kFp32Drain) {   // K1, K6, K7, K9
       broadcast_ray(L, of);
       return;
     }
@@ -769,11 +812,12 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // K3 (kWarpQ): lane L's ray enters instance inst's object space, its
-  // object features of = T F broadcast. Lane k < 10 forms row k from the
-  // broadcast world features with object_features' fmaf chain (the same
-  // bits), and the ten rows are broadcast: ten FMAs and ten loads a lane
-  // where one thread did a hundred of each while the warp waited.
+  // The fp32 drains over two levels: lane L's ray enters instance inst's
+  // object space, its object features of = T F broadcast. Lane k < 10
+  // forms row k from the broadcast world features with object_features'
+  // fmaf chain (the same bits), and the ten rows are broadcast: ten FMAs
+  // and ten loads a lane where one thread did a hundred of each while the
+  // warp waited.
   auto warp_object_features = [&](int L, int inst, float* of) {
     float wf[10];
     broadcast_ray(L, wf);
@@ -812,8 +856,10 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // Drain every lane's queue (q entries qv, qt), lane after lane, each in
   // its own queue order (newest first under the octant order); an entry
   // whose distance exceeds the drained lane's bound is skipped, and an
-  // occluded lane's remaining entries too (any hit).
-  auto drain = [&](const int* qv, const float* qt, int q) {
+  // occluded lane's remaining entries too (any hit). With `each_block`
+  // the distance is checked again before each block of an entry (the
+  // pipelined walk culls block by block).
+  auto drain = [&](const int* qv, const float* qt, int q, bool each_block) {
     const bool refine = kPrec == kTwoPhase && !broad;
     const bool wide_cull = kPrec == kTwoPhase && broad;
     unsigned tested = 0;
@@ -839,7 +885,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
         const int inst = kInst ? val >> 19 : 0;
         if (kInst && inst != o_inst) {
-          if (kWalk == kWarpQ) {
+          if (kFp32Drain) {
             warp_object_features(L, inst, of);
           } else {
             enter_instance(L, inst);
@@ -848,6 +894,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
           o_inst = inst;
         }
         for (int j = 0; j < nb && !done; ++j) {
+          if (each_block && !(tn <= ob)) break;
           if (kCount && !refine) {
             const bool seen = __any_sync(
                 kFull, lane < L && tested_block(b0 + j, qv, q, tested));
@@ -881,8 +928,107 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         if (kSteps) ++n_pops;
         expand(n, stack, sp, qv, qt, q);
       }
-      drain(qv, qt, q);
+      drain(qv, qt, q, false);
       if (kAnyHit && occluded) sp = 0;
+    }
+  };
+
+  // The pipelined drain (K9): each lane keeps the per-thread pipe's
+  // schedule, its own stack and backlog, and every iteration the lanes
+  // with work pop at most one node each, while their backlogs have kLeafQ
+  // room, and expand it (pipe_pop, the flat push included); the warp then
+  // tests what an overfull node spilled (`drain` with each block culled:
+  // the per-thread walk tests those blocks at once, in the same order,
+  // before its drain) and drains up to kPipeDrain entries from the top of
+  // each lane's backlog, lane after lane (pipe_drain). Each lane sees the
+  // per-thread walk's sequence of pops, culls and block tests, so every
+  // output and its pops and MT block tests are that walk's; only instance
+  // entries (once per drained lane, instance and round) rise. An occluded
+  // any-hit lane's backlog and stack are dropped; done lanes stay in every
+  // collective with nothing to drain.
+  auto pipe_drain = [&](const int* lqv, const float* lqt, int& lq,
+                        bool active) {
+    int round_tests = 0, round_distinct = 0;
+    int mine[kPipeDrain];   // kCount: the blocks this lane tested this round
+    int n_mine = 0;
+    for (unsigned pend = __ballot_sync(kFull, active && lq > 0); pend;
+         pend &= pend - 1) {
+      const int L = __ffs(pend) - 1;
+      const int nl = __shfl_sync(kFull, lq, L);
+      const int take = nl < kPipeDrain ? nl : kPipeDrain;
+      const float o_tmin = __shfl_sync(kFull, r.tmin, L);
+      float ob = __shfl_sync(kFull, best, L);   // any hit: its tmax
+      float of[10];
+      int o_inst = -1;
+      if (!kInst) broadcast_ray(L, of);
+      bool done = false;
+      // a skipped stale entry is one of the lane's kPipeDrain, as in
+      // walk_pipe
+      for (int k = 0; k < take && !done; ++k) {
+        const int e = nl - 1 - k;
+        const int tag = __shfl_sync(kFull, lane == L ? lqv[e] : 0, L);
+        const float tn = __shfl_sync(kFull, lane == L ? lqt[e] : 0.f, L);
+        if (!(tn <= ob)) continue;
+        const int b = kInst ? tag & 0x3FFF : tag;
+        const int inst = kInst ? tag >> 14 : 0;
+        if (kInst && inst != o_inst) {
+          warp_object_features(L, inst, of);
+          o_inst = inst;
+        }
+        if (kCount) {
+          bool had = false;
+          for (int m = 0; m < n_mine; ++m) had |= mine[m] == b;
+          round_distinct += !__any_sync(kFull, lane < L && had);
+          ++round_tests;
+          if (lane == L) mine[n_mine++] = b;
+        }
+        done = warp_block(L, b, inst, of, nullptr, o_tmin, ob);
+      }
+      if (lane == L) lq = done ? 0 : nl - take;
+    }
+    if (kCount && round_tests > 0) {
+      ++n_rounds;
+      n_distinct += round_distinct;
+    }
+  };
+
+  auto warp_pipe = [&](bool start) {
+    int stack[kStack + 1];
+    int lqv[kPipeQ + 1];
+    float lqt[kPipeQ + 1];
+    int sp = 0, lq = 0, it = 0;
+    if (start) stack[sp++] = 0;
+    float stale = cull_now();
+    for (;;) {
+      const bool active = (sp > 0 || lq > 0) && it < kMaxPops;
+      if (!__any_sync(kFull, active)) break;
+      const float snap = cull_now();
+      // what an overfull node's leaves could not place in the backlog, as
+      // leaf entries (inst << 19 | block << 5 | n) in the order found
+      int ov[kWidth];
+      float ot[kWidth];
+      int no = 0;
+      if (active && sp > 0 && lq <= kPipeQ - kLeafQ) {
+        const int n = stack[--sp];
+        if (kCount) ++n_pops;
+        pipe_pop(n, stale, stack, sp, lqv, lqt, lq,
+                 [&](int tag, int k, int nb, float tnear) -> bool {
+                   const int b = (kInst ? tag & 0x3FFF : tag) + k;
+                   ov[no] = (kInst ? (tag >> 14) << 19 : 0) | b << 5 |
+                            (nb - k);
+                   ot[no] = tnear;
+                   ++no;
+                   return false;
+                 });
+      }
+      drain(ov, ot, no, true);
+      if (kAnyHit && occluded) sp = lq = 0;
+      pipe_drain(lqv, lqt, lq, active);
+      if (kAnyHit && occluded) sp = 0;
+      if (active) {
+        ++it;
+        stale = snap;
+      }
     }
   };
 
@@ -923,7 +1069,9 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   const bool live = kProf != kProfEmpty && r.tmax > r.tmin;
   bool fell_back = false;
   if (warp_wide) {
-    if constexpr (kWarpWide) {
+    if constexpr (kWarpPipes) {
+      warp_pipe(live);
+    } else if constexpr (kWarpWide) {
       warp_walk(live);
       if (kPrec == kTwoPhase) {
         if (live) {
@@ -979,19 +1127,20 @@ wide_trace_kernel(WIDE_TRACE_PARAMS) {
       WIDE_TRACE_ARGS);
 }
 
-// The render instantiations of kWarpQ: K1 and K6 closest (kInst false),
-// K3 closest, also streamed (kInst), K2 and K6 any hit (kAnyHit), and the
-// instanced any hit, also streamed (both). Left to its default, ptxas
-// fits K1's in 64 registers and spills; asking for 6 blocks of 128
-// threads an SM lets each take up to 85, and each keeps 80 without
-// spills. 7 (K3) and 8 (K6 any) blocks fit in 72 and 64 registers without
-// spills too, and ran slower on the card. The other instantiations keep
-// the default: a minimum of blocks makes ptxas take as many registers as
-// the limit allows.
-template <bool kAnyHit, bool kInst>
+// The render instantiations of the fp32 drains: kWarpQ's K1, K6 and K7
+// closest (kInst false), K3 closest, also streamed and octant-ordered
+// (kInst), K2 and K6 any hit (kAnyHit), and the instanced any hit, also
+// streamed (both); kWarpPipe and kWarpFlat's K9 in the same four modes.
+// Left to its default, ptxas fits K1's in 64 registers and spills; asking
+// for 6 blocks of 128 threads an SM lets each take up to 85, and each
+// keeps 80 without spills. 7 (K3) and 8 (K6 any) blocks fit in 72 and 64
+// registers without spills too, and ran slower on the card. The other
+// instantiations keep the default: a minimum of blocks makes ptxas take
+// as many registers as the limit allows.
+template <bool kAnyHit, bool kInst, int kWalk>
 __global__ void __launch_bounds__(kThreads, 6)
 wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
-  wide_trace<kAnyHit, kInst, false, kHighest, kWarpQ, kProfNone, false>(
+  wide_trace<kAnyHit, kInst, false, kHighest, kWalk, kProfNone, false>(
       WIDE_TRACE_ARGS);
 }
 
@@ -1027,6 +1176,7 @@ struct Launch {
   const float* inst_feat;
   const int* worder;
   int prefetch;
+  bool per_thread;   // the per-thread reference of the mode (kPerThread)
   float* t_out;
   int* sid_out;
   float* u_out;
@@ -1038,8 +1188,9 @@ struct Launch {
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
           int kProf = kProfNone, bool kPaired = false>
 void launch(const Launch& l) {
-  if constexpr (kWalk == kWarpQ && !kCount)
-    wide_trace_warp_kernel<kAnyHit, kInst><<<l.grid, kThreads, 0, l.stream>>>(
+  if constexpr (fp32_drain(kWalk) && !kCount)
+    wide_trace_warp_kernel<kAnyHit, kInst, kWalk>
+        <<<l.grid, kThreads, 0, l.stream>>>(
         l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
         l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
         l.v_out, l.inst_out, l.counts);
@@ -1055,9 +1206,11 @@ constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
 // K1-K7: the classic or queued walk at a tier; closest hit at a reduced
 // tier always takes the warp-wide queued walk (one instantiation), and so
-// do fp32 closest hit and any hit without the octant order, over one tree
-// level or two (K1, K2, K3, K6; the prefetch flag tells the streamed
-// closest hit apart)
+// do fp32 closest hit, with or without the octant order, and fp32 any hit
+// without it, over one tree level or two (K1, K2, K3, K6, K7; the prefetch
+// flag tells the streamed closest hit apart). The per-thread queued walk
+// stays for the any hit under the octant order (the packet tracer never
+// asks it) and, with `per_thread`, as K7's reference.
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
@@ -1070,7 +1223,7 @@ int by_precision(int prec, const Launch& l) {
   } else {
     switch (prec) {
       case kHighest:
-        if (l.worder != nullptr)
+        if (l.per_thread)
           launch<false, kInst, kCount, kHighest, kQueued>(l);
         else launch<false, kInst, kCount, kHighest, kWarpQ>(l);
         break;
@@ -1132,7 +1285,9 @@ int paired(int prec, const Launch& l) {
   return kBadMode;
 }
 
-// K9: the pipelined walk, fp32, with or without the flat push
+// K9: the pipelined walk, fp32, with or without the flat push: the
+// pipelined drain (kWarpPipe, kWarpFlat), or its per-thread reference
+// (kPipe, kPipeFlat)
 template <bool kCount, int kWalk>
 int piped(int any_hit, const Launch& l) {
   const bool inst = l.inst_feat != nullptr;
@@ -1180,7 +1335,8 @@ int dispatch(int any_hit, int prec, int stream, int walk, int prof,
   const bool inst = l.inst_feat != nullptr;
   const bool queue = l.worder != nullptr || stream != 0;
   if (any_hit == 2) {
-    if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone)
+    if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone ||
+        l.per_thread)
       return kBadMode;
     return stream ? paired<kCount, kQueued>(prec, l)
                   : paired<kCount, kClassic>(prec, l);
@@ -1188,9 +1344,16 @@ int dispatch(int any_hit, int prec, int stream, int walk, int prof,
   if (walk != 0) {
     if (queue || prof != kProfNone || (!any_hit && prec != kHighest))
       return kBadMode;
-    return walk == 2 ? piped<kCount, kPipeFlat>(any_hit, l)
-                     : piped<kCount, kPipe>(any_hit, l);
+    if (l.per_thread)
+      return walk == 2 ? piped<kCount, kPipeFlat>(any_hit, l)
+                       : piped<kCount, kPipe>(any_hit, l);
+    return walk == 2 ? piped<kCount, kWarpFlat>(any_hit, l)
+                     : piped<kCount, kWarpPipe>(any_hit, l);
   }
+  // the per-thread reference of the default walk: K7's, fp32 closest hit
+  // under the octant order
+  if (l.per_thread && (l.worder == nullptr || any_hit || prec != kHighest))
+    return kBadMode;
   if (prof != kProfNone) {
     if (inst || l.worder != nullptr || (!any_hit && prec != kHighest))
       return kBadMode;
@@ -1221,8 +1384,12 @@ extern "C" {
 // octant order; stream != 0 queues and prefetches the leaf blocks. walk:
 // 0 the classic or queued walk, 1 the pipelined walk (K9), 2 the same
 // with the flat push (single-block leaves only); both fp32, without
-// stream or octant order. profile: 0 none, 1 empty, 2 nomt, 3 fix64,
-// 4 count, on the one-level fp32 walk (empty and nomt also with stream).
+// stream or octant order; plus 4 (kPerThread), the mode's per-thread
+// reference, never on a render path: with 1 or 2 the per-thread
+// pipelined walk, with 0 the per-thread queued walk of fp32 closest hit
+// under the octant order (worder given). profile: 0 none, 1 empty,
+// 2 nomt, 3 fix64, 4 count, on the one-level fp32 walk (empty and nomt
+// also with stream).
 // counts non-null selects the counting instantiation: (7, n_rays) i32 rows
 // of node pops, MT block tests, instance entries, fp32 refine / re-walk
 // block tests, re-walks, and on lane 0 of each warp its warp-wide drain
@@ -1238,7 +1405,8 @@ int wide_trace_launch(const float* rays, int n_rays, int n_split,
                       int* inst_out, int* counts, void* cuda_stream) {
   if (mt_prec < kHighest || mt_prec > kTwoPhase ||
       (mt_prec == kTwoPhase && stream) || any_hit < 0 || any_hit > 2 ||
-      walk < 0 || walk > 2 || profile < kProfNone || profile > kProfCount ||
+      walk < 0 || (walk & ~kPerThread) > 2 || profile < kProfNone ||
+      profile > kProfCount ||
       (any_hit == 2 && (n_split < 0 || n_split > n_rays ||
                         n_split % kThreads != 0)) ||
       (any_hit != 1 && mt_prec != kHighest && planes == nullptr))
@@ -1247,8 +1415,9 @@ int wide_trace_launch(const float* rays, int n_rays, int n_split,
                  static_cast<cudaStream_t>(cuda_stream), rays, n_rays,
                  n_split, nodes, blocks,
                  static_cast<const unsigned*>(planes), meta, inst_feat,
-                 worder, stream,
+                 worder, stream, (walk & kPerThread) != 0,
                  t_out, sid_out, u_out, v_out, inst_out, counts};
+  walk &= ~kPerThread;
   const int rc = counts != nullptr
                      ? dispatch<true>(any_hit, mt_prec, stream, walk, profile, l)
                      : dispatch<false>(any_hit, mt_prec, stream, walk, profile, l);

@@ -17,7 +17,10 @@ block by block from the blocks' pre-split bf16 planes (`split_planes`,
 built once per tracer by the same source's split kernel); streamed leaf blocks
 (K6, `stream`) and the near-first octant order (K7, `worder`); the
 pipelined walk with its flat push (K9, `pipe`, `flat_walk`) and the
-ablation modes (`profile`). `trace_wide_paired` launches a closest-hit and
+ablation modes (`profile`). Every fp32 mode but K8 and the ablation modes
+tests its blocks warp-wide; `per_thread=True` reaches the per-thread walks
+the drains are held to (the pipelined walk, and K7's queued walk), which
+no render path takes. `trace_wide_paired` launches a closest-hit and
 an any-hit wave as one grid (K8). On CUDA tensors they launch the kernel
 or raise; on CPU tensors they run the plain PyTorch version
 (`trace_wide_plain`, `trace_wide_inst_plain`,
@@ -86,20 +89,23 @@ PROFILE = "none"      # make_packet_tracer's default ablation mode
 PAIR_ALIGN = 128      # the kernel's block size: K8's any-hit rays start at
                       # a multiple of it, so no warp holds both waves
 COUNT_ROWS = 7        # rows of the counting instantiation's table
+PER_THREAD = 4        # walk-code flag: the mode's per-thread reference
 
 
 def launch_key(any_hit: bool, instanced: bool = False,
                mt_precision: str = "highest", oct_order: bool = False,
                stream: bool = False, pipe: bool = False,
                flat_walk: bool = False, profile: str = "none",
-               paired: bool = False) -> str:
+               paired: bool = False, per_thread: bool = False) -> str:
     """LAUNCHES key of one kernel mode: "closest" / "any" (K1, K2), an
     "inst_" prefix for the two-level tree (K3), a "stream+" prefix for
     streamed blocks (K6), a "+<tier>" suffix for closest hit below
     "highest" (K4, K5) and "+oct" for the octant order (K7; the packet
     tracer asks it for closest hit only); "paired" in place of closest /
     any for the paired launch (K8); a "pipe+" or "flat+" prefix for the
-    pipelined walk (K9); an "@<mode>" suffix for an ablation mode."""
+    pipelined walk (K9); an "@<mode>" suffix for an ablation mode; a
+    "+per_thread" suffix for a per-thread reference (`trace_wide`'s
+    `per_thread`)."""
     key = "paired" if paired else (
         ("inst_" if instanced else "") + ("any" if any_hit else "closest"))
     if stream:
@@ -114,6 +120,8 @@ def launch_key(any_hit: bool, instanced: bool = False,
         key += "+oct"
     if profile != "none":
         key += "@" + profile
+    if per_thread:
+        key += "+per_thread"
     return key
 
 
@@ -128,9 +136,12 @@ LAUNCHES = {launch_key(a, i, p, o, s): 0
 LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True): 0
                  for p in PRECISIONS for s in (False, True)
                  if not (s and p == "two_phase")})
-LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f): 0
+LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f, per_thread=r): 0
                  for a in (False, True) for i in (False, True)
-                 for f in (False, True)})
+                 for f in (False, True) for r in (False, True)})
+LAUNCHES.update({launch_key(False, i, oct_order=True, stream=s,
+                            per_thread=True): 0
+                 for i in (False, True) for s in (False, True)})
 LAUNCHES.update({launch_key(a, stream=s, profile=m): 0
                  for a in (False, True) for m in PROFILES if m != "none"
                  for s in ((False, True) if m in ("empty", "nomt")
@@ -303,13 +314,15 @@ def split_planes(blocks):
 
 def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
             worder=None, mt_precision="highest", stream=False, walk=0,
-            profile="none", n_split=0, planes=None):
+            profile="none", n_split=0, planes=None, per_thread=False):
     """Check the inputs, allocate the outputs and launch one wave of the
     kernel on the current stream. any_hit: False, True, or 2 for the
     paired launch (rays below `n_split` closest hit, the others any hit);
     walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
-    push; `planes`: the blocks' pre-split planes, which closest hit at a
-    reduced tier reads and which must then be given.
+    push; `per_thread`: the mode's per-thread reference walk (walk 1 or
+    2, or closest hit with `worder`); `planes`: the blocks' pre-split
+    planes, which closest hit at a reduced tier reads and which must then
+    be given.
     Returns (t, sid, u, v, inst, counts); inst is None outside the
     instanced closest-hit mode, counts None unless `count`. The caller
     has checked the mode (`check_mode`); the C entry refuses a bad one
@@ -360,8 +373,8 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
             meta.data_ptr(),
             inst_feat.data_ptr() if inst_feat is not None else None,
             worder.data_ptr() if worder is not None else None,
-            int(any_hit), PRECISIONS[mt_precision], int(bool(stream)), walk,
-            PROFILES[profile],
+            int(any_hit), PRECISIONS[mt_precision], int(bool(stream)),
+            walk | (PER_THREAD if per_thread else 0), PROFILES[profile],
             t.data_ptr(), sid.data_ptr(), u.data_ptr(), v.data_ptr(),
             inst.data_ptr() if inst is not None else None,
             counts.data_ptr() if counts is not None else None, cuda_stream)
@@ -381,11 +394,21 @@ def _walk_code(meta, pipe: bool, flat_walk: bool, checked: bool) -> int:
     return 2 if flat_walk else int(bool(pipe))
 
 
+def _check_per_thread(any_hit, worder, pipe, mt_precision):
+    """`per_thread` names a per-thread reference walk: the pipelined
+    walk's (`pipe` / `flat_walk`) or the octant order's fp32 closest
+    hit's."""
+    if not (pipe or (worder is not None and not any_hit
+                     and mt_precision == "highest")):
+        raise ValueError("per_thread reaches the per-thread walk of pipe / "
+                         "flat_walk, or of fp32 closest hit with worder")
+
+
 def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
                worder=None, mt_precision: str = "highest",
                stream: bool = False, pipe: bool = False,
                flat_walk: bool = False, profile: str = "none",
-               checked: bool = False, planes=None):
+               checked: bool = False, planes=None, per_thread: bool = False):
     """Trace one wave over the wide BVH.
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
@@ -406,7 +429,14 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     (PROFILES: wrong results by design); `planes` ((B, 2, 10, 256) bf16,
     `split_planes(blocks)`) are what closest hit reads at a reduced tier,
     required there on CUDA tensors (a tracer builds them once; the plain
-    version forms the split itself).
+    version forms the split itself). `per_thread` launches, in place of
+    the warp-wide drain, the per-thread walk it is held to: the pipelined
+    walk (with `pipe` / `flat_walk`, closest and any hit, one level or
+    two) or the queued walk under the octant order (fp32 closest hit with
+    `worder`, resident or streamed). It exists to hold the drains to
+    (tests, chip_smoke.py), `make_packet_tracer` never passes it, and its
+    launches count under their own keys (`launch_key(..., per_thread=
+    True)`); other modes refuse it.
     Returns (t, sid, u, v), each (R,): t = best t (tmax on a
     miss), sid = block*64 + slot of the hit (-1 on a miss; any-hit: 1 if
     occluded), barycentrics u, v; the instanced closest-hit mode adds
@@ -421,6 +451,8 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     if pipe and worder is not None:
         raise ValueError("the pipelined walk takes no octant order "
                          "(pallas_trace.py:1459)")
+    if per_thread:
+        _check_per_thread(any_hit, worder, pipe, mt_precision)
     walk = _walk_code(meta, pipe, flat_walk, checked)
     prec = "highest" if any_hit else mt_precision
     if rays.device.type == "cpu":
@@ -431,11 +463,12 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
         raise ValueError(f"trace_wide: unsupported device {rays.device}")
     t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, bool(any_hit),
                                     inst_feat, False, worder, prec, stream,
-                                    walk, profile, planes=planes)
+                                    walk, profile, planes=planes,
+                                    per_thread=per_thread)
     if rays.shape[1]:       # an empty wave launches nothing
         LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
                             worder is not None, stream, pipe, flat_walk,
-                            profile)] += 1
+                            profile, per_thread=per_thread)] += 1
     if inst_feat is not None and not any_hit:
         return t, sid, u, v, inst
     return t, sid, u, v
@@ -555,7 +588,7 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
                       stream: bool = False, pipe: bool = False,
                       flat_walk: bool = False, profile: str = "none",
                       per_ray: bool = False, checked: bool = False,
-                      planes=None):
+                      planes=None, per_thread: bool = False):
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
@@ -564,21 +597,24 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
     per drained lane, instance and drain round, which re-enters an
     instance the walk already entered), two_phase's fp32 block tests
     (refine and exact re-walk), its re-walked rays, and for the warp-wide
-    modes (closest hit at a reduced tier, fp32 closest hit and any hit
-    without the octant order, over one tree level or two) the drain
-    rounds that tested a block and the distinct blocks tested in them,
-    summed over the warps (so MT tests / distinct blocks is the lanes that
-    tested one block in one round). With `per_ray`, the (7, R) i32 table
-    instead of the sums, the last two rows on each warp's lane 0. Of the ablation modes "nomt" and
-    "fix64" have a counting instantiation. `planes` as in `trace_wide`."""
+    modes (closest hit at a reduced tier, fp32 closest hit, fp32 any hit
+    without the octant order and the pipelined walk, over one tree level
+    or two) the drain rounds that tested a block and the distinct blocks
+    tested in them, summed over the warps (so MT tests / distinct blocks
+    is the lanes that tested one block in one round). With `per_ray`, the
+    (7, R) i32 table instead of the sums, the last two rows on each warp's
+    lane 0. Of the ablation modes "nomt" and "fix64" have a counting
+    instantiation. `planes` and `per_thread` as in `trace_wide`."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    if per_thread:
+        _check_per_thread(any_hit, worder, pipe or flat_walk, mt_precision)
     counts = _launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      True, worder, "highest" if any_hit else mt_precision,
                      stream, _walk_code(meta, pipe or flat_walk, flat_walk,
                                         checked), profile,
-                     planes=planes)[5]
+                     planes=planes, per_thread=per_thread)[5]
     return counts if per_ray else _count_sums(counts)
 
 

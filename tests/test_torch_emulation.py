@@ -11,9 +11,12 @@ reduced tiers agree with their plain versions under the bars of
 tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
 and K6 closest) and over the pre-split planes of the reduced tiers (built
 by the split kernel, bit for bit their plain version), gives the
-per-thread code's results, as do the two-level fp32 drain (K3 closest)
-and the any-hit drain (K2 and K6 any hit: the flag and counts of K8's
-per-thread any-hit half; the instanced any hit: K9 `pipe`'s outputs);
+per-thread code's results, as do the two-level fp32 drain (K3 closest),
+the any-hit drain (K2 and K6 any hit: the flag and counts of K8's
+per-thread any-hit half; the instanced any hit: the per-thread pipelined
+walk's outputs), the octant-ordered drain (K7: the per-thread queued walk
+under the octant order) and the pipelined drain (K9: the per-thread
+pipelined walk), the last two also in their pops and block tests per ray;
 the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit; and the five kernels of bf_stream.cu (with their block scans,
@@ -129,7 +132,8 @@ def test_emulated_mode_is_k1_and_k2_bit_for_bit(emulation, soup, name):
 def test_emulated_pipelined_walk_counts(emulation, soup):
     """A stale bound admits more pops; a backlog entry behind the running
     best is dropped untested, so no more blocks are tested than K1's
-    walk tests; per ray the counts are those `profile="count"` reports."""
+    walk tests; per ray the counts are those `profile="count"` reports.
+    The pipelined drain fills the drain rows."""
     nodes, blocks, meta, _ = soup
     with emulation:
         c1 = emu.trace_wide(RC, nodes, blocks, meta, False, count=True)
@@ -140,7 +144,8 @@ def test_emulated_pipelined_walk_counts(emulation, soup):
     assert int(c9[0].sum()) >= int(c1[0].sum()) > 0
     assert 0 < int(c9[1].sum()) <= int(c1[1].sum())
     assert torch.equal(c9, cf)        # the flat push changes no count
-    assert not c9[2:].any()           # no instance entry, refine or re-walk
+    assert not c9[2:5].any()          # no instance entry, refine or re-walk
+    _drain_counts_bracket(c9)
 
 
 def test_emulated_pipelined_walk_over_multi_block_leaves(emulation):
@@ -164,7 +169,9 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
     leaves own 24 blocks each (overlapping ranges of the soup's blocks),
     384 against a backlog of 256. What does not fit is tested at once, so
     closest hit and occlusion stay K1's / K2's bit for bit, and the plain
-    version's where it is not borderline."""
+    version's where it is not borderline; the pipelined drain tests what
+    the backlog could not take as a warp, and per ray pops and tests the
+    per-thread walk's nodes and blocks."""
     _, blocks, _, _ = soup
     blocks = blocks[:15 * 7 + 24].contiguous()
     nodes = torch.zeros((1, 16, 8))
@@ -181,6 +188,12 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
             emu.trace_wide(RA, nodes, blocks, meta, True, pipe=True), k2)
         tests = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
                                pipe=True)[1]
+        for rays, any_hit in ((RC[:, :256], False), (RA[:, :256], True)):
+            rays = rays.contiguous()
+            c, ref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                     count=True, pipe=True, per_thread=r)
+                      for r in (False, True))
+            assert torch.equal(c[:2], ref[:2])
     assert int(tests.max()) == 384     # every block of the node, none lost
     _hold_to_plain(k1, pt.trace_wide_plain(RC, nodes, blocks, meta, False))
 
@@ -240,15 +253,20 @@ def test_emulated_profile_modes_do_what_they_must(emulation, soup):
 
 
 @pytest.fixture(scope="module")
-def instanced():
+def instanced_flat():
     from instanced_scenes import instanced_scene
     from platinum_tpu_torch.render.flatten import flatten_scene
     from platinum_tpu_torch.render.types import RenderSettings
 
     scene, cam = instanced_scene("platinum_tpu_torch")
-    flat = flatten_scene(scene, cam, RenderSettings(
+    return flatten_scene(scene, cam, RenderSettings(
         width=16, height=16, instancing="on", tracer="packet"),
         accel_min_tris=1, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def instanced(instanced_flat):
+    flat = instanced_flat
     return (flat.wbvh_nodes.reshape(-1, 16, 8).contiguous(), flat.wbvh_tris,
             flat.wbvh_meta, flat.instances.feat)
 
@@ -372,7 +390,8 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
     """K1 and K6 closest (stream=True), and on the instanced tree K3
     closest and its streamed mode, take the warp-wide drain over the fp32
     blocks: every output, the instance id included, equal bit for bit to
-    the per-thread pipelined walk's (K9 pipe), on the soup, on a tree
+    the per-thread pipelined walk's (`pipe=True, per_thread=True`, the
+    walk K9 drains), on the soup, on a tree
     whose nodes queue more than 16 blocks, on the instanced scene (ten
     lanes forming each drained ray's object features) and on ragged waves
     with dead lanes. On one tree level, hit set and t in every bit those
@@ -392,14 +411,16 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
     with emulation:
         pipe, k1, k6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
                                        inst_feat=feat, **kw)
-                        for kw in (dict(pipe=True), dict(), dict(stream=True)))
+                        for kw in (dict(pipe=True, per_thread=True), dict(),
+                                   dict(stream=True)))
         c1, c6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
                                  inst_feat=feat, count=True, stream=stream)
                   for stream in (False, True))
         if feat is None:
             c9, cf = (emu.trace_wide(rays, nodes, blocks, meta, False,
                                      count=True, **kw)
-                      for kw in (dict(pipe=True), dict(profile="fix64")))
+                      for kw in (dict(pipe=True, per_thread=True),
+                                 dict(profile="fix64")))
             ref = _per_thread_closest(rays, blocks, "highest")
     assert emu.same_bits(k1, pipe) and emu.same_bits(k6, pipe)
     hit = k1[1] >= 0
@@ -448,7 +469,8 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
     the constant tmax as its node cull it pops that walk's nodes and tests
     its blocks, ray by ray, and fills the drain rows. On the instanced
     tree (ten lanes forming each drained ray's object features) its
-    outputs are the per-thread pipelined walk's (K9 `pipe`) bit for bit,
+    outputs are the per-thread pipelined walk's (`pipe=True,
+    per_thread=True`) bit for bit,
     and its flag the plain version's, whole and ragged; it enters
     instances, fills the drain rows and, on every ray nothing occludes,
     pops K9's nodes and tests its blocks."""
@@ -471,7 +493,7 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
         else:
             ref, cref = (emu.trace_wide(rays, nodes, blocks, meta, True,
                                         inst_feat=feat, pipe=True,
-                                        count=count)
+                                        per_thread=True, count=count)
                          for count in (False, True))
     assert emu.same_bits(k2, ref) and emu.same_bits(k6, k2)
     assert torch.equal(c6, c2)
@@ -494,6 +516,114 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
         # any order: the pipelined walk's pops and block tests
         free = ~occluded
         assert torch.equal(c2[:2, free], cref[:2, free])
+
+
+@pytest.fixture(scope="module")
+def dense():
+    """A soup of 20,000 triangles in the same cube: deeper walks, whose
+    backlogs hold entries a found hit has made stale."""
+    return emu.soup_tree(n_tris=20000, seed=6)
+
+
+def _tree(tree, soup, multi_block, instanced, instanced_flat, dense=None):
+    """(nodes, blocks, meta, inst_feat, worder) of a named tree: the soup,
+    the soup whose leaves hold up to four blocks, the dense soup, or the
+    instanced scene (inst_feat None on one level)."""
+    if tree.startswith("instanced"):
+        return (*instanced, instanced_flat.wbvh_order)
+    nodes, blocks, meta, worder = {"multi_block": multi_block,
+                                   "dense": dense}.get(tree, soup)
+    return nodes, blocks, meta, None, worder
+
+
+def _hold_per_ray(got, ref, counts, ref_counts, inst):
+    """A drain against its per-thread reference: every output in every
+    bit, node pops and MT block tests equal ray by ray, the drain rows
+    filled (the reference fills none); on two levels the drain enters
+    instances (once per drained lane, instance and round)."""
+    assert emu.same_bits(got, ref) and len(got) == len(ref)
+    assert torch.equal(counts[:2], ref_counts[:2])
+    assert not counts[3:5].any() and not ref_counts[3:].any()
+    _drain_counts_bracket(counts)
+    assert (int(counts[2].sum()) > 0) == inst
+    assert (int(ref_counts[2].sum()) > 0) == inst
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
+                                  "streamed", "instanced",
+                                  "instanced_ragged", "instanced_streamed"])
+def test_emulated_oct_order_drain_is_the_per_thread_walk(
+        emulation, soup, multi_block, instanced, instanced_flat, tree):
+    """K7, fp32 closest hit under the octant order, takes the fp32 drain
+    (each lane's queue drained newest first), resident and streamed, on
+    one tree level and two: every output, the instance id included, bit
+    for bit the per-thread queued walk's under the same order (reached
+    through `per_thread=True`), and per ray the same node pops and MT
+    block tests; on the soup, on a tree whose nodes queue more than 16
+    blocks, on the instanced scene and on ragged waves with dead lanes.
+    The near-first order is not the slot order: the outputs differ from
+    K1's walk in the order of exact-t ties only, and its counts differ."""
+    nodes, blocks, meta, feat, worder = _tree(tree, soup, multi_block,
+                                              instanced, instanced_flat)
+    rays = _ragged_wave() if tree.endswith("ragged") else RC
+    kw = dict(inst_feat=feat, worder=worder, stream=tree.endswith("streamed"))
+    with emulation:
+        k7, ref = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                  per_thread=r, **kw) for r in (False, True))
+        c7, cref = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                   per_thread=r, count=True, **kw)
+                    for r in (False, True))
+        c1 = emu.trace_wide(rays, nodes, blocks, meta, False, count=True,
+                            inst_feat=feat)
+    _hold_per_ray(k7, ref, c7, cref, feat is not None)
+    hit = k7[1] >= 0
+    assert hit.sum() > (50 if feat is not None else 100)
+    if tree.endswith("ragged"):
+        assert not hit[rays[7] < rays[6]].any()
+    assert not torch.equal(c7[:2], c1[:2])     # another order than K1's
+
+
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
+                                  "instanced", "dense"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
+def test_emulated_pipelined_drain_is_the_per_thread_pipe(
+        emulation, soup, multi_block, instanced, instanced_flat, dense, walk,
+        any_hit, tree):
+    """K9, closest and any hit, with and without the flat push, takes the
+    pipelined drain: every lane keeps the per-thread pipe's schedule and
+    the warp tests up to kPipeDrain of each lane's backlog entries a
+    round. Every output (t, id, u, v, instance, occlusion flag) is the
+    per-thread pipelined walk's (`per_thread=True`) in every bit, and per
+    ray the node pops and MT block tests are equal; on the soup, on a
+    tree whose leaves hold up to four blocks (which the flat push refuses,
+    both walks alike), on a ragged wave with dead lanes, on the instanced
+    scene and on a dense soup, where a hit makes backlog entries stale
+    that still count as one of their lane's kPipeDrain."""
+    nodes, blocks, meta, feat, _ = _tree(tree, soup, multi_block, instanced,
+                                         instanced_flat, dense)
+    rays = RA if any_hit else RC
+    if tree == "ragged":
+        rays = _ragged_wave(rays)
+    kw = dict(inst_feat=feat, **{walk: True})
+    with emulation:
+        if walk == "flat_walk" and not pt._single_block_leaves(meta):
+            for r in (False, True):
+                with pytest.raises(ValueError, match="exactly one MT block"):
+                    emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                   per_thread=r, **kw)
+            assert tree == "multi_block"
+            return
+        k9, ref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                  per_thread=r, **kw) for r in (False, True))
+        c9, cref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                   per_thread=r, count=True, **kw)
+                    for r in (False, True))
+    _hold_per_ray(k9, ref, c9, cref, feat is not None)
+    hit = k9[1] >= 0 if not any_hit else k9[1] > 0
+    assert hit.sum() > (20 if feat is not None else 50)
+    if tree == "ragged":
+        assert not hit[rays[7] < rays[6]].any()
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block"])

@@ -5,8 +5,10 @@ compute K1's function, against K1 bit for bit; the split kernel's
 pre-split planes against their plain version, and K4 against the
 ray-stream tracer at its tier bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the
-warp-wide drains of K3 closest and the instanced any hit against K9
-`pipe`, and of K2 and K6 any hit against K8's per-thread any-hit half;
+warp-wide drains of K1, K3 closest and the instanced any hit against the
+per-thread pipelined walk (`per_thread=True`), of K2 and K6 any hit
+against K8's per-thread any-hit half, and of K7 and K9 against their
+per-thread walks in every output bit and per-ray count;
 the leaf-pair kernel (K15) against its plain version and the ray-stream
 tracer against
 K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
@@ -356,11 +358,16 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     # two_phase streamed, pipe with a tier / with stream / with a profile,
     # a profile with a tier, fix64 streamed, a paired split inside a
     # block, a reduced tier's closest hit (and paired) without the planes
+    # ... and the per-thread flag (4) of the default walk, which only fp32
+    # closest hit with worder has (none given here), beside a profile, on
+    # the paired launch, and an unknown walk
     for any_hit, prec, stream, walk, prof, split in (
             (0, 1, 0, 0, 0, 0), (0, 2, 0, 0, 0, 0), (2, 3, 0, 0, 0, 128),
             (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
             (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
-            (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128)):
+            (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128),
+            (0, 0, 0, 4, 0, 0), (1, 0, 0, 4, 0, 0), (0, 0, 0, 5, 2, 0),
+            (2, 0, 0, 5, 0, 128), (0, 0, 0, 3, 0, 0), (0, 0, 0, 7, 0, 0)):
         rc = lib.wide_trace_launch(
             rays.data_ptr(), 256, split, nodes.data_ptr(), blocks.data_ptr(),
             None, meta.data_ptr(), None, None, any_hit, prec, stream, walk,
@@ -374,6 +381,11 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     with pytest.raises(ValueError, match="default walk"):
         pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
                       stream=True)
+    for any_hit, kw in ((False, {}), (True, dict(worder=worder)),
+                        (False, dict(worder=worder, mt_precision="high"))):
+        with pytest.raises(ValueError, match="per_thread"):
+            pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                          per_thread=True, **kw)
     assert pt.LAUNCHES == before
 
 
@@ -451,7 +463,8 @@ def test_fp32_closest_hit_drains_warp_wide(soup_on_card):
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4001, np.inf, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True)
+    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
+                         per_thread=True)
     for stream in (False, True):
         k = pt.trace_wide(rays, nodes, blocks, meta, False, stream=stream)
         _bitwise(k, pipe, f"stream={stream}")
@@ -473,7 +486,7 @@ def test_instanced_fp32_closest_hit_drains_warp_wide(instanced_on_card):
     rays = _rays(4001, np.inf, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
     pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
-                         pipe=True)
+                         pipe=True, per_thread=True)
     for stream in (False, True):
         key = pt.launch_key(False, True, stream=stream)
         before = pt.LAUNCHES[key]
@@ -522,16 +535,17 @@ def test_instanced_any_hit_drains_warp_wide(instanced_on_card):
     """The instanced any hit and its streamed mode take the warp-wide
     any-hit drain with the ten-lane instance entry, one counted launch a
     wave each: on a 4,001-ray shadow wave with every fifth ray dead every
-    output is the per-thread pipelined walk's (K9 `pipe`) bit for bit, the
-    flag agrees with the plain version's on >= 99.5% of rays; the
-    counting instantiation enters instances and fills the drain rows, the
-    same for both, and on every ray that nothing occludes pops K9's nodes
-    and tests its blocks."""
+    output is the per-thread pipelined walk's (`pipe=True,
+    per_thread=True`) bit for bit, the flag agrees with the plain
+    version's on >= 99.5% of rays; the counting instantiation enters
+    instances and fills the drain rows, the same for both, and on every
+    ray that nothing occludes pops that walk's nodes and tests its
+    blocks."""
     nodes, blocks, meta, feat, _ = instanced_on_card
     rays = _rays(4001, 6.0, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
     pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat=feat,
-                         pipe=True)
+                         pipe=True, per_thread=True)
     for stream in (False, True):
         key = pt.launch_key(True, True, stream=stream)
         before = pt.LAUNCHES[key]
@@ -545,10 +559,97 @@ def test_instanced_any_hit_drains_warp_wide(instanced_on_card):
     assert (k[1] == p[1]).float().mean() > 0.995
     c3, c6, c9 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True, feat,
                                        per_ray=True, **kw)
-                  for kw in (dict(), dict(stream=True), dict(pipe=True)))
+                  for kw in (dict(), dict(stream=True),
+                             dict(pipe=True, per_thread=True)))
     assert torch.equal(c3, c6) and int(c3[2].sum()) > 0
     assert 0 < int(c3[5].sum()) <= int(c3[6].sum()) <= int(c3[1].sum())
     assert torch.equal(c3[:2, ~occ], c9[:2, ~occ])
+
+
+def _same_bits(k, ref, mode):
+    """Every output equal in every bit, misses included."""
+    assert len(k) == len(ref), mode
+    for a, b in zip(k, ref):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32)), mode
+
+
+def _drain_against_per_thread(rays, nodes, blocks, meta, any_hit, kw, key,
+                              inst):
+    """One counted launch of a drained mode under its launch key, every
+    output bit for bit its per-thread reference's, node pops and MT block
+    tests equal ray by ray, the drain rows filled (the reference fills
+    none), instance entries on an instanced tree. Returns the outputs."""
+    before = dict(pt.LAUNCHES)
+    k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, **kw)
+    after = dict(pt.LAUNCHES)
+    assert after.pop(key) == before.pop(key) + 1 and after == before, key
+    ref = pt.trace_wide(rays, nodes, blocks, meta, any_hit, per_thread=True,
+                        **kw)
+    _same_bits(k, ref, key)
+    c, cref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                    per_ray=True, per_thread=r, **kw)
+               for r in (False, True))
+    assert torch.equal(c[:2], cref[:2]), key
+    assert not c[3:5].any() and not cref[3:].any(), key
+    assert 0 < int(c[5].sum()) <= int(c[6].sum()) <= int(c[1].sum()), key
+    assert (int(c[2].sum()) > 0) == inst, key
+    return k
+
+
+@pytest.mark.parametrize("tree", ["soup", "instanced"])
+def test_oct_order_closest_hit_drains_warp_wide(soup_on_card,
+                                                instanced_on_card, tree):
+    """K7, fp32 closest hit under the octant order, resident and streamed,
+    takes the fp32 drain with each lane's queue drained newest first: on a
+    4,001-ray wave with every fifth ray dead, one counted launch under its
+    key, every output (the instance id included) bit for bit the
+    per-thread queued walk's under the same order, and per ray its node
+    pops and MT block tests."""
+    if tree == "soup":
+        (nodes, blocks, meta, worder), feat = soup_on_card, None
+    else:
+        nodes, blocks, meta, feat, worder = instanced_on_card
+    rays = _rays(4001, np.inf, nodes.device)
+    rays[7, ::5] = rays[6, ::5] - 1.0
+    for stream in (False, True):
+        key = pt.launch_key(False, feat is not None, oct_order=True,
+                            stream=stream)
+        k = _drain_against_per_thread(
+            rays, nodes, blocks, meta, False,
+            dict(inst_feat=feat, worder=worder, stream=stream), key,
+            feat is not None)
+        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 100
+
+
+@pytest.mark.parametrize("tree", ["soup", "instanced"])
+@pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
+def test_pipelined_walk_drains_warp_wide(soup_on_card, instanced_on_card,
+                                         walk, tree):
+    """K9, closest and any hit, with and without the flat push, takes the
+    pipelined drain: on 4,001-ray waves with every fifth ray dead, one
+    counted launch under its key, every output bit for bit the per-thread
+    pipelined walk's, and per ray its node pops and MT block tests."""
+    if tree == "soup":
+        (nodes, blocks, meta, _), feat = soup_on_card, None
+    else:
+        nodes, blocks, meta, feat, _ = instanced_on_card
+    if walk == "flat_walk" and not pt._single_block_leaves(meta):
+        for r in (False, True):
+            with pytest.raises(ValueError, match="exactly one MT block"):
+                pt.trace_wide(_rays(64, np.inf, nodes.device), nodes, blocks,
+                              meta, False, inst_feat=feat, flat_walk=True,
+                              per_thread=r)
+        return
+    for any_hit, tmax in ((False, np.inf), (True, 8.0 if feat is None else 6.0)):
+        rays = _rays(4001, tmax, nodes.device)
+        rays[7, ::5] = rays[6, ::5] - 1.0
+        key = pt.launch_key(any_hit, feat is not None, pipe=True,
+                            flat_walk=walk == "flat_walk")
+        k = _drain_against_per_thread(
+            rays, nodes, blocks, meta, any_hit,
+            dict(inst_feat=feat, **{walk: True}), key, feat is not None)
+        hit = k[1] > 0 if any_hit else k[1] >= 0
+        assert not hit[::5].any() and hit.sum() > 100, key
 
 
 @pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
@@ -571,7 +672,7 @@ def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
     """One root whose 16 leaves own 24 blocks each: 384 against a backlog
     of 256 (no tree of accel.wide holds more than 64 under a node). What
     does not fit is tested at once: K1 / K2 bit for bit, every block
-    tested."""
+    tested, per ray the pops and tests of the per-thread walk."""
     _, blocks, _, _ = soup_on_card
     dev = blocks.device
     step = (blocks.shape[0] - 24) // 15      # overlapping 24-block ranges
@@ -591,6 +692,12 @@ def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
     tests = pt.trace_wide_counts(_rays(4096, np.inf, dev), nodes, blocks,
                                  meta, False, pipe=True, per_ray=True)[1]
     assert int(tests.max()) == 384
+    for any_hit, tmax in ((False, np.inf), (True, 8.0)):
+        rays = _rays(4096, tmax, dev)
+        c, ref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                                       pipe=True, per_ray=True, per_thread=r)
+                  for r in (False, True))
+        assert torch.equal(c[:2], ref[:2])
 
 
 def test_profile_modes_do_what_they_must(soup_on_card):

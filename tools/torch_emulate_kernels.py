@@ -66,6 +66,7 @@ SHIM_RUNTIME = r"""
 using std::max;
 using std::min;
 #define __device__
+#define __host__
 #define __global__
 #define __forceinline__ inline
 #define __restrict__
@@ -429,16 +430,21 @@ def split_planes(blocks):
 def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
                worder=None, mt_precision="highest", stream=False,
                pipe=False, flat_walk=False, profile="none", count=False,
-               planes=None):
+               planes=None, per_thread=False):
     """`packet_trace.trace_wide` (or, with `count`, the (7, R) table of
     `trace_wide_counts(per_ray=True)`) through the emulated kernel; a
-    reduced tier's closest hit reads `planes`, which it then needs."""
+    reduced tier's closest hit reads `planes`, which it then needs;
+    `per_thread` takes the mode's per-thread reference walk."""
     pt.check_mode(mt_precision, stream, pipe, flat_walk, profile)
+    if per_thread:
+        pt._check_per_thread(any_hit, worder, pipe or flat_walk,
+                             mt_precision)
     prec = "highest" if any_hit else mt_precision
     out = pt._launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      count, worder, prec, stream,
                      pt._walk_code(meta, pipe or flat_walk, flat_walk,
-                                   checked=False), profile, planes=planes)
+                                   checked=False), profile, planes=planes,
+                     per_thread=per_thread)
     if count:
         return out[5]
     return out[:5] if out[4] is not None else out[:4]

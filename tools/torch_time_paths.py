@@ -18,7 +18,9 @@ stream="auto": streamed blocks, K6), `fuse_shadow`, `spp_batch2` and
 `chunk_shade` = headline_compact with fuse_shadow=True, spp_batch=2 (each
 step renders two samples; times and launches are per spp) or
 chunk_shade=65536, `raystream` = headline_compact traced by the
-breadth-first ray-stream pair (K15) as `tracers=`, stepped through
+breadth-first ray-stream pair (K15) as `tracers=`, `pipe` =
+headline_compact traced by the packet tracer with the pipelined walk
+(K9, make_packet_tracer(pipe=True)) as `tracers=`, each stepped through
 integrator.render_step_n. `--root` imports platinum_tpu_torch
 from another checkout, so two versions can be timed in turns within one
 call on one card; a checkout whose port has no scenes module of its own
@@ -55,7 +57,10 @@ CONFIGS = {
     "spp_batch2": dict(HEADLINE, spp_batch=2),
     "chunk_shade": dict(HEADLINE, chunk_shade=65536),
     "raystream": HEADLINE,
+    "pipe": HEADLINE,
 }
+# the configs traced by a tracer pair of their own (`tracers=`)
+TRACERS = ("raystream", "pipe")
 SCENES = {"bistro": dict(columns=24, rows=12)}   # make_colonnade_scene's
 
 
@@ -99,12 +104,14 @@ def main():
     batch = max(1, getattr(s, "spp_batch", 1))
     tracers = None
     steps = []
-    if args.config == "raystream":
+    if args.config in TRACERS:
+        from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
         from platinum_tpu_torch.ops.raystream import make_stream_tracer
 
         f = r.flat
-        tracers = make_stream_tracer(f.wbvh_nodes, f.wbvh_tris, f.wbvh_meta,
-                                     f.wbvh_slot)
+        tree = (f.wbvh_nodes, f.wbvh_tris, f.wbvh_meta, f.wbvh_slot)
+        tracers = (make_stream_tracer(*tree) if args.config == "raystream"
+                   else make_packet_tracer(*tree, pipe=True))
         accum = torch.zeros((s.num_pixels, 3), device="cuda")
         for i in range(s.spp):
             t0 = time.perf_counter()

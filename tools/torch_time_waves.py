@@ -1,16 +1,17 @@
 """Time the wide-BVH kernel per wave on the GPU: K1/K2, the streamed mode
 (K6: each node's leaves queued and drained after its slab tests, each
-queued block prefetched into L2 for closest hit) and the per-thread
-pipelined walk (K9
-`pipe`) on the waves chip_smoke.py builds for the headline colonnade (271k
-triangles, 512x512) and for bistro_class_studio's tree (the colonnade at
-24x12, 1.08M triangles, 960x540), and K3 and K9 `pipe` (`k1` and `pipe`
-given the instance features) on the headline's waves over the colonnade
-flattened with instancing="on": the camera and bounce waves as closest
-hit, the shadow wave as any hit and as closest hit; with --tiers also the
-closest hit of the reduced MT tiers on the headline tree (K4 "high" and
-"default", K5 "two_phase"), given the blocks' pre-split planes where the
-checkout has them.
+queued block prefetched into L2 for closest hit), the octant order's
+closest hit (K7, `oct`) and the pipelined walk (K9 `pipe`, and `flat`
+with the flat push) on the waves chip_smoke.py builds for the headline
+colonnade (271k triangles, 512x512) and for bistro_class_studio's tree
+(the colonnade at 24x12, 1.08M triangles, 960x540), and K3, K7 and K9
+(`k1`, `oct`, `pipe`, `flat` given the instance features) on the
+headline's waves over the colonnade flattened with instancing="on": the
+camera and bounce waves as closest hit, the shadow wave as any hit (not
+`oct`: the packet tracer orders closest hit only) and as closest hit;
+with --tiers also the closest hit of the reduced MT tiers on the
+headline tree (K4 "high" and "default", K5 "two_phase"), given the
+blocks' pre-split planes where the checkout has them.
 
     python3 tools/torch_time_waves.py [--tiers] [--headline]
     python3 tools/torch_time_waves.py --root OTHER_CHECKOUT --counts A.pt
@@ -24,13 +25,15 @@ JSON line: the card and its power limit, and per tree, wave and mode the
 kernel's ms per wave (CUDA events around --reps launches after one
 warm-up). Needs a CUDA device.
 
-`--counts FILE` also saves, per tree, the per-ray counting table of the
-any-hit trace of the shadow wave (`trace_wide_counts(per_ray=True)`: K2
-on the headline tree, the instanced any hit, K6 any hit on the bistro
-tree) with torch.save; `--compare A B` (no device needed) prints, for two
-such files from two checkouts, the rays whose node pops, MT block tests or
-instance entries differ and the totals of each, so that a redesigned walk
-is held ray by ray to the walk it replaces.
+`--counts FILE` also saves, per tree, the node pops, MT block tests and
+instance entries per ray (rows 0-2 of `trace_wide_counts(per_ray=True)`)
+of the any-hit trace of the shadow wave (K2 on the headline tree, the
+instanced any hit, K6 any hit on the bistro tree), of `oct` on the bounce
+wave and of `pipe` and `flat` on the bounce (closest hit) and shadow (any
+hit) waves, with torch.save; `--compare A B` (no device needed) prints,
+for two such files from two checkouts, the rays whose node pops, MT block
+tests or instance entries differ and the totals of each, so that a
+redesigned walk is held ray by ray to the walk it replaces.
 """
 
 from __future__ import annotations
@@ -45,8 +48,12 @@ import sys
 TREES = (("headline", {}, (512, 512), "off"),
          ("instanced", {}, (512, 512), "on"),
          ("bistro", dict(columns=24, rows=12), (960, 540), "off"))
-MODES = (("k1", {}), ("stream", dict(stream=True)),
-         ("pipe", dict(pipe=True)))
+MODES = (("k1", {}), ("stream", dict(stream=True)), ("oct", None),
+         ("pipe", dict(pipe=True)), ("flat", dict(flat_walk=True,
+                                                  checked=True)))
+COUNTED = (("bounce", False, "oct"), ("bounce", False, "pipe"),
+           ("shadow", True, "pipe"), ("bounce", False, "flat"),
+           ("shadow", True, "flat"))
 TIERS = ("high", "default", "two_phase")
 
 
@@ -114,15 +121,17 @@ def main():
         # the instanced tree takes the headline's points
         pts = points(tree, flat) if inst is None else points("headline")
         waves = cs._waves(pts, nodes, dev)
-        modes = [m for m in MODES if inst is None or m[0] != "stream"]
+        modes = [(m, dict(worder=flat.wbvh_order) if m == "oct" else kw)
+                 for m, kw in MODES if inst is None or m != "stream"]
         if args.tiers and tree == "headline":
             split = ({"planes": pt.split_planes(blocks)}
                      if hasattr(pt, "split_planes") else {})
             modes += [(t, dict(mt_precision=t, **split)) for t in TIERS]
         for _, wave, any_hit in (*cs.JOBS, ("", "shadow", False)):
             for mode, kw in modes:
-                if any_hit and "mt_precision" in kw:
-                    continue           # any hit is K2 under every tier
+                if any_hit and ("mt_precision" in kw or "worder" in kw):
+                    continue           # any hit: K2 under every tier,
+                                       # not ordered by the tracer
                 kind = " closest" if wave == "shadow" and not any_hit else ""
                 out["ms"][f"{tree} {wave}{kind} {mode}"] = cs._time_ms(
                     lambda: pt.trace_wide(waves[wave], nodes, blocks, meta,
@@ -130,7 +139,13 @@ def main():
         if args.counts:
             counts[f"{tree} shadow any"] = pt.trace_wide_counts(
                 waves["shadow"], nodes, blocks, meta, True, inst,
-                per_ray=True).cpu()
+                per_ray=True)[:3].cpu()
+            kws = dict(modes)
+            for wave, any_hit, mode in COUNTED:
+                counts[f"{tree} {wave}{' any' if any_hit else ''} {mode}"] = (
+                    pt.trace_wide_counts(waves[wave], nodes, blocks, meta,
+                                         any_hit, inst, per_ray=True,
+                                         **kws[mode])[:3].cpu())
         del flat, nodes, blocks, meta, waves, inst
         torch.cuda.empty_cache()
     if args.counts:
