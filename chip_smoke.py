@@ -132,8 +132,13 @@ Phases, one printed block each (any failure exits non-zero):
      pops; launch floor / walk / MT split of each headline wave and the
      bistro bounce wave, on the classic and the queued walk; through
      make_packet_tracer(profile=...), the path that counts their launches
-  3j. K15, the leaf-pair kernel: against its plain version on every
-     level's real pairs of the camera, bounce and shadow waves; the whole
+  3j. K15, the leaf-pair kernel: on every leaf level's real pairs of the
+     camera, bounce and shadow waves, the chunked kernel (each block
+     staged once per CTA, several pairs a thread) against its
+     one-thread-per-pair reference (`per_pair=True`) in every output bit
+     at "highest", "high" and "default", both timed there in device time
+     (`_device_ms`: calls queued behind a sleep, so the host's launch
+     overhead does not count); against its plain version; the whole
      ray-stream tracer against K1/K2 bit for bit on the whole waves; every
      level's pair and leaf-pair counts beside the JAX module's static caps;
      time per wave split into kernel and host glue. Then K4 "high" against
@@ -150,10 +155,12 @@ Phases, one printed block each (any failure exits non-zero):
      any-hit mode on shadow) bit for bit K1/K2; then every level's K10,
      K11 + K12 (on fresh buffers), K13 and, deepest first, K14 against
      their plain versions on the recorded inputs, every output in every
-     bit; per level its tiles, nodes, live pairs and MT tiles against the
+     bit (K11: its scan block and its fill grid, the tables, every lane of
+     the pair lists and the status row); per level its tiles, nodes, live
+     pairs and MT tiles against the
      capacities and the pairs lost; per wave the tracer's time, the host
      syncs torch's sync debug mode counts, the launches, each kernel's
-     time summed over the levels beside its plain version's and its
+     device time summed over the levels beside its plain version's and its
      bound, and one scatter_reduce "amin" of packed (t, slot) keys per
      level over K14's pre-gathered edges (routing and gathers untimed: no
      PyTorch call computes K14's function, so its library entry is null)
@@ -535,6 +542,33 @@ def _time_ms(fn, reps, warm=True):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_ms(fn, reps):
+    """Device ms of one call of `fn`: CUDA events around `reps` calls
+    queued behind a sleep on the stream, so that the host's time to launch
+    them (argument checks, allocation, ctypes: tens of microseconds a
+    call, more than a small level's kernel) does not count. Fails where
+    the queue ran dry before the last call was queued."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    sleep_s = 4.0 * reps * (time.perf_counter() - t0) + 2e-3
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * 2.0e9))       # cycles at <= 2 GHz
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    queued_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    check(queued_s <= sleep_s, f"queued {reps} calls in {queued_s:.4f} s: "
+                               f"the sleep may not have covered them")
     return start.elapsed_time(stop) / reps
 
 
@@ -1626,6 +1660,30 @@ def phase_raystream(ctx):
                (res.t, res.tri, res.bary[:, 0], res.bary[:, 1]))
         _bitwise(f"ray-stream tracer against K1/K2, {wave}", got,
                  ctx["outs"][wave], rays, certify)
+        # every level's pairs: the chunked kernel against its
+        # one-thread-per-pair reference at every tier, every output bit,
+        # and both timed on the card (device time)
+        dev_ms = {}
+        for tier in rs.TIERS:
+            for per_pair in (False, True):
+                key = f"{tier}{' per pair' if per_pair else ''}"
+                dev_ms[key] = 0.0
+                for (w, limit, pr, pb), _, _, _ in levels:
+                    args = (w, limit, pr, pb, blocks, any_hit, tier)
+                    if not per_pair:
+                        got = rs.stream_mt(*args)
+                        ref = rs.stream_mt(*args, per_pair=True)
+                        check(all(_bits(a, b) for a, b in zip(got, ref)),
+                              f"3j {wave}, {pr.shape[0]} pairs: the chunked "
+                              f"K15 differs from the per-pair kernel at "
+                              f"{tier!r}")
+                    dev_ms[key] += _device_ms(
+                        lambda: rs.stream_mt(*args, per_pair=per_pair), 10)
+        print(f"  K15 {name}, {len(levels)} leaf levels: the chunked kernel "
+              f"is the per-pair kernel in every output bit at every tier; "
+              f"device ms per wave "
+              + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()),
+              flush=True)
         # every level's pairs against the plain version
         err, plain_ms, n_pairs, flops, nbytes = 0.0, 0.0, 0, 0, 36 * n
         for lvl, ((w, limit, pr, pb), out, _, _) in enumerate(levels):
@@ -1654,15 +1712,16 @@ def phase_raystream(ctx):
                   f"static caps", flush=True)
         t_ops, t_bytes = flops / PEAK_FP32, nbytes / PEAK_BYTES
         print(f"  ray-stream tracer per {n}-ray wave, {name}: "
-              f"{wall_ms:.1f} ms in all, {kernel_ms:.3f} ms of it in "
-              f"{len(levels)} K15 launches over {n_pairs} pairs "
+              f"{wall_ms:.1f} ms in all, {kernel_ms:.3f} ms of it between "
+              f"the events around {len(levels)} K15 calls (host launch "
+              f"gaps included) over {n_pairs} pairs "
               f"({n_pairs / n:.2f} R), {wall_ms - kernel_ms:.1f} ms host "
               f"glue and torch ops; plain version {plain_ms:.1f} ms; "
               f"{flops / 1e9:.2f} GFLOP, {nbytes / 1e6:.1f} MB, bound "
               f"{max(t_ops, t_bytes) * 1e3:.4f} ms", flush=True)
         if wave != "camera":
             rows["any" if any_hit else "closest"] = dict(
-                ms=kernel_ms, plain_ms=plain_ms,
+                ms=dev_ms["highest"], plain_ms=plain_ms,
                 bound_ms=max(t_ops, t_bytes) * 1e3,
                 bound_by="operations" if t_ops >= t_bytes else "bytes",
                 max_abs_err=err)
@@ -1748,7 +1807,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         n = int(seg["stat"][lvl, 0])
         args = (lv["units"], stat[lvl], lv["pairs"], rays, nodes)
         got = bf.bf_expand(*args)
-        ms["expand"] += _time_ms(lambda: bf.bf_expand(*args), reps)
+        ms["expand"] += _device_ms(lambda: bf.bf_expand(*args), reps)
         ref, pms = _synced_ms(lambda: bf.bf_expand_plain(*args))
         plain_ms["expand"] += pms
         check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, ref)),
@@ -1765,8 +1824,8 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
                      out[1], bufs[0], bufs[1])
             _, t_e = _synced_ms(lambda: emit(*eargs))
             if key == "kernel":
-                ms["prefix"] += _time_ms(lambda: prefix(*pargs), reps)
-                ms["emit"] += _time_ms(lambda: emit(*eargs), reps)
+                ms["prefix"] += _device_ms(lambda: prefix(*pargs), reps)
+                ms["emit"] += _device_ms(lambda: emit(*eargs), reps)
             else:
                 plain_ms["prefix"] += t_p
                 plain_ms["emit"] += t_e
@@ -1785,7 +1844,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     margs = (mtr["mt_pairs"], mtr["mt_units"], stat[-1], rays, blocks,
              any_hit)
     got = bf.bf_mt(*margs)
-    ms["mt"] = _time_ms(lambda: bf.bf_mt(*margs), reps)
+    ms["mt"] = _device_ms(lambda: bf.bf_mt(*margs), reps)
     ref, plain_ms["mt"] = _synced_ms(lambda: bf.bf_mt_plain(*margs))
     k = n_mt * 128
     check(all(_bits(a[:k], b[:k]) for a, b in zip(got, ref)),
@@ -1798,7 +1857,8 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         bargs = (lv["masks"], stat[lvl], lv["dn"], lv["uoff"], lv["base"])
         child = res_k
         res_k = bf.bf_bwd(*bargs, child, got)
-        ms["bwd"] += _time_ms(lambda: bf.bf_bwd(*bargs, child, got), reps)
+        ms["bwd"] += _device_ms(lambda: bf.bf_bwd(*bargs, child, got),
+                                reps)
         res_p, pms = _synced_ms(lambda: bf.bf_bwd_plain(*bargs, res_p, ref))
         plain_ms["bwd"] += pms
         check(all(_bits(a[:n * 128], b[:n * 128])
@@ -1820,8 +1880,8 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
             -1, 16, -1)[sel]
         out = torch.full((n * 128,), torch.iinfo(torch.int64).max,
                          dtype=torch.int64, device=dev)
-        lib_ms += _time_ms(lambda: out.scatter_reduce_(0, lane, keys, "amin"),
-                           reps)
+        lib_ms += _device_ms(
+            lambda: out.scatter_reduce_(0, lane, keys, "amin"), reps)
         hit = res_k[1][:n * 128] >= 0
         check(torch.equal(out[hit] & 0xFFFFFFFF,
                           res_k[1][:n * 128][hit].long()),
@@ -2340,8 +2400,8 @@ def phase_bf_render(scene, cam, base_img):
     check(renderer.settings.bf_depth == depth,
           f"the Renderer set bf_depth={renderer.settings.bf_depth}, the "
           f"tree's depth is {depth}")
-    allowed = ("bf expand", "bf prefix", "bf emit", "bf bwd",
-               "bf mt closest", "any")
+    allowed = ("bf expand", "bf prefix", "bf prefix fill", "bf emit",
+               "bf bwd", "bf mt closest", "any")
     _only("the bf headline", launches, allowed)
     img = renderer.readback()
     rmse = float(np.sqrt(np.mean((img - base_img) ** 2)))
@@ -2353,8 +2413,9 @@ def phase_bf_render(scene, cam, base_img):
           f"{float(np.abs(img - base_img).max()):.3e}); trace launches per "
           f"spp {per_spp} (the auto plan's probe apart: "
           f"{ {k: renderer.probe_launches[k] for k in allowed} }); depth "
-          f"{depth}, so {depth + 1} launches of K10, K11, K12, K14 and one "
-          f"of K13 per closest wave; bf.LAUNCHES {dict(bf.LAUNCHES)}",
+          f"{depth}, so {depth + 1} launches of K10, K11's scan and fill, "
+          f"K12, K14 and one of K13 per closest wave; bf.LAUNCHES "
+          f"{dict(bf.LAUNCHES)}",
           flush=True)
     check(rmse <= IMAGE_RMSE, f"the bf render is {rmse:.3e} RMSE off K1's")
     return launches
@@ -2605,8 +2666,15 @@ def _design(name):
         walk = "warp-wide fp32 drain, near-first queues newest first"
     elif "split_planes" in name:
         return "one thread per coefficient"
+    elif "bf_prefix" in name:
+        return ("one scan block, every item in registers, then a grid of "
+                "fill warps (two launches)")
     elif "bf_" in name:
         return "breadth-first level step"
+    elif "stream_mt" in name:
+        return ("512 block-sorted pairs a CTA, each run's block staged once "
+                "in shared memory (cp.async, one round ahead), 2 pairs a "
+                "thread (4 at default)")
     elif "(K9" in name:
         walk = ("warp-wide pipelined drain (per-lane backlog, up to "
                 "kPipeDrain blocks a lane a round)")
@@ -2724,6 +2792,8 @@ def main():
                             ("mt any", "bf_mt any-hit (K13)", 706),
                             ("bwd", "bf_bwd (K14)", 850)):
         row = kbf[key]
+        if key == "prefix":
+            row["fill_launches"] = bf_launches["bf prefix fill"]
         table.append((name, bf_src, f"{bfj}:{line}", row,
                       row.get("launches", bf_launches[f"bf {key}"])))
     kernels = [dict(name=name, route="cuda", design=_design(name),
@@ -2732,15 +2802,15 @@ def main():
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     library_ms=row.get("library_ms"),
-                    **({"plain_rays": row["plain_rays"]}
-                       if "plain_rays" in row else {}))
+                    **{k: row[k] for k in ("plain_rays", "fill_launches")
+                       if k in row})
                for name, source, replaces, row, launches in table]
     stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"
     for kind, mode in (("closest", "closest"), ("any", "any-hit")):
         row = k15[kind]
         kernels.append(dict(
             name=f"stream_mt {mode} (K15)", route="cuda",
-            design="one thread per (ray, block) pair", source=stream_src,
+            design=_design("stream_mt"), source=stream_src,
             replaces="platinum_tpu/ops/raystream.py:214",
             launches=stream_launches[f"stream_mt {kind}"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],

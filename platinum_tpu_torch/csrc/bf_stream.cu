@@ -30,15 +30,17 @@
 //   K12 and K14 launch one 128-thread block per unit of the level's
 //   capacity and the blocks past the count return at once, so a wave
 //   needs no host sync until its end.
-// - K11 is a scan over the level in one block of 1024 threads: distinct
-//   nodes, per-child prefix sums, then the regions of the children in
-//   node order, child by child, with the MT cursor running on across
-//   levels. It allocates by prefix: children are taken while their
-//   regions fit the capacity, and the tiles and pairs the level needs are
-//   reported beside what it took, so that the host can size a trace again
-//   (ops/bfstream.py never drops a pair). The TPU kernel skips a child
-//   that does not fit and goes on; the two agree whenever nothing
-//   overflows.
+// - K11 is a scan over the level in one block of 1024 threads, every item
+//   in registers (distinct nodes, per-child prefix sums, then the regions
+//   of the children in node order, child by child, with the MT cursor
+//   running on across levels), then a fill over the grid: a warp per 32
+//   (node, child) entries writes each region's unit-table entries and
+//   dead tail lanes, coalesced. It allocates by prefix: children are taken
+//   while their regions fit the capacity, and the tiles and pairs the
+//   level needs are reported beside what it took, so that the host can
+//   size a trace again (ops/bfstream.py never drops a pair). The TPU
+//   kernel skips a child that does not fit and goes on; the two agree
+//   whenever nothing overflows.
 // - K13 stages the unit's 64-triangle block in shared memory once and
 //   tests each lane's ray against it with mt_block.cuh's block test,
 //   forming the features itself from the gathered ray, so that a (ray,
@@ -51,10 +53,10 @@
 // What bounds them on this card: K13 does the work (5,120 FLOP per live
 // pair at "highest" against a 10 KB block read once per tile); K10 reads
 // a 512 B node per tile and 32 B per lane and does 16 slab tests of 12
-// FLOP per lane; K12 and K14 move 4 B and 16 B per pair and child; K11 is
-// one block, latency-bound by its serial passes over the level (a few
-// thousand units and a few thousand distinct nodes at the headline's
-// widths). None is tuned yet.
+// FLOP per lane; K12 and K14 move 4 B and 16 B per pair and child; K11
+// moves a few MB (its bound is ~1 us) but its scan is one block whose
+// passes are chains of barriers and dependent reads (on an H100 about 20
+// us a level, 13 of them the scan, even for a level of one node).
 
 #include "mt_block.cuh"
 
@@ -66,8 +68,15 @@ constexpr int kLanes = 128;        // pairs per tile = threads per unit block
 constexpr int kChildren = 16;
 constexpr int kWarps = kLanes / 32;
 constexpr int kMtTag = 1 << 30;    // base-table tag of a leaf child's region
-constexpr int kScanThreads = 1024;  // K11's one block
-constexpr int kGroups = kScanThreads / kChildren;
+constexpr int kScanThreads = 1024;  // K11's scan block
+constexpr int kScanWarps = kScanThreads / 32;
+// units a thread holds of its child in phase 2: 64 groups x 16 = a pass
+constexpr int kUnitItems = kChildren;
+static_assert(kUnitItems * (kScanThreads / kChildren) == kScanThreads,
+              "phase 2 covers phase 1's units");
+constexpr int kEntryItems = 4;      // (node, child) entries a thread a pass
+constexpr int kFillThreads = 256;   // K11's fill blocks
+constexpr int kFillBlocks = 264;    // at most: two an SM
 constexpr unsigned kFull = 0xffffffffu;
 
 // A level's status row (int32), written by K11 and read on the device by
@@ -142,164 +151,290 @@ bf_expand_kernel(const int* __restrict__ units, const int* __restrict__ level,
 }
 
 // ---------------------------------------------------------------------------
-// K11: one block scans the level.
+// K11: one block scans the level (bf_prefix_scan_kernel), then the grid
+// fills the regions it allocated (bf_prefix_fill_kernel).
 // ---------------------------------------------------------------------------
 
-// Exclusive prefix sum of v over the block's threads in thread order;
-// *total gets the sum. Every thread of the block calls it.
-__device__ int block_exclusive_scan(int v, int* scratch, int* total) {
+// Exclusive prefix sums of kC channels at once over the block's threads in
+// thread order (thread t's v[c] is item t of channel c); total[c] gets each
+// channel's sum. Every thread of the block calls it; `scratch` holds
+// kScanWarps x kC ints and `tot` kC.
+template <int kC>
+__device__ __forceinline__ void scan_channels(const int (&v)[kC],
+                                              int (&excl)[kC],
+                                              int (&total)[kC],
+                                              int (*scratch)[kC], int* tot) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_warps = blockDim.x >> 5;
-  int x = v;
+  int x[kC];
 #pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, x, o);
-    if (lane >= o) x += y;
-  }
-  if (lane == 31) scratch[warp] = x;
-  __syncthreads();
-  if (warp == 0) {
-    int w = lane < n_warps ? scratch[lane] : 0;
+  for (int c = 0; c < kC; ++c) {
+    x[c] = v[c];
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(kFull, w, o);
-      if (lane >= o) w += y;
+      const int y = __shfl_up_sync(kFull, x[c], o);
+      if (lane >= o) x[c] += y;
     }
-    scratch[lane] = w;
+    if (lane == 31) scratch[warp][c] = x[c];
   }
   __syncthreads();
-  const int before = warp ? scratch[warp - 1] : 0;
-  *total = scratch[31];
+  for (int c = warp; c < kC; c += kScanWarps) {
+    const int w = lane < kScanWarps ? scratch[lane][c] : 0;
+    int y = w;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int z = __shfl_up_sync(kFull, y, o);
+      if (lane >= o) y += z;
+    }
+    if (lane < kScanWarps) scratch[lane][c] = y - w;
+    if (lane == 31) tot[c] = y;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < kC; ++c) {
+    excl[c] = scratch[warp][c] + x[c] - v[c];
+    total[c] = tot[c];
+  }
   __syncthreads();   // scratch is reused by the next scan
-  return before + x - v;
 }
 
-// Units [lo, hi) of thread part `part` out of `parts` equal parts of n.
-__device__ __forceinline__ void part_range(int n, int part, int parts,
-                                           int& lo, int& hi) {
-  const int per = (n + parts - 1) / parts;
-  lo = min(part * per, n);
-  hi = min(lo + per, n);
-}
-
-// The arrays this kernel writes and reads again (dn, uoff, node_id,
-// node_base) are plain pointers: a read through the read-only cache would
-// not see the block's own writes.
+// The scan: one block of kScanThreads threads walks the level in passes
+// of kScanThreads units, then kScanThreads * kEntryItems (node, child)
+// entries, every item in registers:
+//   1. distinct nodes: a unit starts one where its node differs from the
+//      unit before; a scan of those flags gives dn[u] and node_id[d]
+//   2. per child c, the exclusive prefix of its counts over all units:
+//      thread (g, c) holds kUnitItems units' counts of child c, a scan over
+//      the groups g gives each its start; node_base[d][c] is the prefix at
+//      node d's first unit, uoff[u][c] a unit's prefix minus its node's
+//   3. per entry (d, c) with cnt = node_base[d + 1][c] - node_base[d][c]
+//      pairs: ceil(cnt / 128) tiles in the next level's list (inner child)
+//      or the MT list (leaf child, after the cursor); a scan of the tiles
+//      over the entries in order gives each region's first tile, and a
+//      region is taken while it fits its list (allocation by prefix):
+//      base[e] is its first tile (| kMtTag in the MT list) or -1
+// and writes the status row. The tables of the regions taken and their
+// dead tail lanes are the fill kernel's. node_id and node_base are written
+// and read again by the block, so they are plain pointers (a read through
+// the read-only cache would not see the block's own writes).
 __global__ void __launch_bounds__(kScanThreads)
-bf_prefix_kernel(const int* __restrict__ units, const int* __restrict__ level,
-                 const int* __restrict__ counts, const int* __restrict__ meta,
-                 int n_nodes, int cap_next,
-                 int mt_cap, int* dn, int* base, int* uoff, int* node_id,
-                 int* node_base, int* units_next, int* pairs_next,
-                 int* mt_units, int* mt_pairs, int* stat_out) {
-  __shared__ int scratch[32];
-  __shared__ int group_sum[kGroups][kChildren];
-  const int t = threadIdx.x;
+bf_prefix_scan_kernel(const int* __restrict__ units,
+                      const int* __restrict__ level,
+                      const int* __restrict__ counts,
+                      const int* __restrict__ meta, int n_nodes, int cap_next,
+                      int mt_cap, int* dn, int* base, int* uoff, int* node_id,
+                      int* node_base, int* stat_out) {
+  __shared__ int scratch[kScanWarps * kChildren];
+  __shared__ int tot[kChildren];
+  __shared__ int s_new[kScanThreads];
+  __shared__ int s_dn[kScanThreads];
+  __shared__ int carry[kChildren];
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const int n = level[kNext];
   const int mt0 = level[kMtCur];
-  int lo, hi;
-
-  // 1. distinct nodes in unit order: dn[u] and the node of each
-  part_range(n, t, kScanThreads, lo, hi);
-  int news = 0;
-  for (int u = lo; u < hi; ++u) news += (u == 0 || units[u] != units[u - 1]);
-  int n_distinct;
-  int d = block_exclusive_scan(news, scratch, &n_distinct) - 1;
-  for (int u = lo; u < hi; ++u) {
-    if (u == 0 || units[u] != units[u - 1]) node_id[++d] = units[u];
-    dn[u] = d;
-  }
-  __syncthreads();
-
-  // 2. per child c: the exclusive prefix of its counts over all units;
-  // node_base[d][c] is that prefix at node d's first unit, and a unit's
-  // offset into the child's region is its prefix minus its node's
   const int c = t & (kChildren - 1), g = t >> 4;
-  part_range(n, g, kGroups, lo, hi);
-  int sum = 0;
-  for (int u = lo; u < hi; ++u) sum += counts[(size_t)u * kChildren + c];
-  group_sum[g][c] = sum;
-  __syncthreads();
-  if (t < kChildren) {
-    int run = 0;
-    for (int k = 0; k < kGroups; ++k) {
-      const int x = group_sum[k][t];
-      group_sum[k][t] = run;
-      run += x;
-    }
-    node_base[(size_t)n_distinct * kChildren + t] = run;
-  }
-  __syncthreads();
-  int run = group_sum[g][c];
-  for (int u = lo; u < hi; ++u) {
-    if (u == 0 || units[u] != units[u - 1])
-      node_base[(size_t)dn[u] * kChildren + c] = run;
-    uoff[(size_t)u * kChildren + c] = run;
-    run += counts[(size_t)u * kChildren + c];
-  }
-  __syncthreads();
-  for (int u = lo; u < hi; ++u)
-    uoff[(size_t)u * kChildren + c] -= node_base[(size_t)dn[u] * kChildren + c];
+  if (t < kChildren) carry[t] = 0;
+  int n_distinct = 0;
 
-  // 3. regions of the children (d, c) in that order: inner children in the
-  // next level's list, leaf children in the MT list after its cursor; a
-  // region is ceil(count / 128) tiles and the lanes past the count are dead
-  const int n_entries = n_distinct * kChildren;
-  part_range(n_entries, t, kScanThreads, lo, hi);
-  int need_next = 0, need_mt = 0;
-  for (int e = lo; e < hi; ++e) {
-    const int dd = e >> 4, cc = e & (kChildren - 1);
-    const int cnt = node_base[(size_t)(dd + 1) * kChildren + cc] -
-                    node_base[(size_t)dd * kChildren + cc];
-    if (cnt <= 0) continue;
-    const int node = min(max(node_id[dd], 0), n_nodes - 1);
-    const int tiles = (cnt + kLanes - 1) / kLanes;
-    if (meta[(size_t)node * kChildren + cc] >= 0) need_next += tiles;
-    else need_mt += tiles;
-  }
-  int total_next, total_mt;
-  int p = block_exclusive_scan(need_next, scratch, &total_next);
-  int m = mt0 + block_exclusive_scan(need_mt, scratch, &total_mt);
-  int took_next = 0, took_mt = 0, lost = 0, live_next = 0, live_mt = 0;
-  for (int e = lo; e < hi; ++e) {
-    const int dd = e >> 4, cc = e & (kChildren - 1);
-    const int cnt = node_base[(size_t)(dd + 1) * kChildren + cc] -
-                    node_base[(size_t)dd * kChildren + cc];
-    base[e] = -1;
-    if (cnt <= 0) continue;
-    const int node = min(max(node_id[dd], 0), n_nodes - 1);
-    const int meta_c = meta[(size_t)node * kChildren + cc];
-    const int tiles = (cnt + kLanes - 1) / kLanes;
-    const int rem = cnt - (tiles - 1) * kLanes;
-    const bool inner = meta_c >= 0;
-    const int at = inner ? p : m;
-    if (at + tiles <= (inner ? cap_next : mt_cap)) {
-      base[e] = inner ? at : (kMtTag | at);
-      const int val = inner ? meta_c : (-meta_c - 2) >> 5;
-      int* table = inner ? units_next : mt_units;
-      for (int k = 0; k < tiles; ++k) table[at + k] = val;
-      int* tail = (inner ? pairs_next : mt_pairs) +
-                  (size_t)(at + tiles - 1) * kLanes;
-      for (int l = rem; l < kLanes; ++l) tail[l] = -1;
-      (inner ? took_next : took_mt) += tiles;
-      (inner ? live_next : live_mt) += cnt;
-    } else {
-      lost += cnt;
+  for (int u0 = 0; u0 < n; u0 += kScanThreads) {
+    // this pass's loads first, so that they overlap: thread (g, c) holds
+    // units u0 + g * kUnitItems + i of child c
+    int cnt[kUnitItems];
+    int sum = 0;
+#pragma unroll
+    for (int i = 0; i < kUnitItems; ++i) {
+      const int v = u0 + g * kUnitItems + i;
+      cnt[i] = v < n ? counts[(size_t)v * kChildren + c] : 0;
+      sum += cnt[i];
     }
-    (inner ? p : m) += tiles;
+    // 1. distinct nodes of this pass's units (unit u0 + t)
+    const int u = u0 + t;
+    const int unit = u < n ? units[u] : 0;
+    int is_new[1] = {u < n && (u == 0 || unit != units[u - 1])};
+    int d[1], nd[1];
+    scan_channels<1>(is_new, d, nd,
+                     reinterpret_cast<int (*)[1]>(scratch), tot);
+    const int du = n_distinct + d[0] + is_new[0] - 1;   // unit u's node
+    if (u < n) {
+      dn[u] = du;
+      if (is_new[0]) node_id[du] = unit;
+    }
+    s_new[t] = is_new[0];
+    s_dn[t] = du;
+    n_distinct += nd[0];
+
+    // 2. per-child prefixes: the groups' sums of child c, scanned in group
+    // order; lanes l and l + 16 of a warp are two groups, the warps'
+    // totals a second level
+    const int up = __shfl_up_sync(kFull, sum, kChildren);
+    const int incl = sum + (lane >= kChildren ? up : 0);
+    if (lane >= kChildren) scratch[warp * kChildren + c] = incl;
+    __syncthreads();
+    if (warp < kChildren) {
+      const int w = lane < kScanWarps ? scratch[lane * kChildren + warp] : 0;
+      int y = w;
+#pragma unroll
+      for (int o = 1; o < 32; o <<= 1) {
+        const int z = __shfl_up_sync(kFull, y, o);
+        if (lane >= o) y += z;
+      }
+      if (lane < kScanWarps) scratch[lane * kChildren + warp] = y - w;
+      if (lane == 31) tot[warp] = y;
+    }
+    __syncthreads();
+    int run = carry[c] + scratch[warp * kChildren + c] + incl - sum;
+    int pre[kUnitItems];
+#pragma unroll
+    for (int i = 0; i < kUnitItems; ++i) {
+      const int k = g * kUnitItems + i;
+      pre[i] = run;
+      if (u0 + k < n && s_new[k])
+        node_base[(size_t)s_dn[k] * kChildren + c] = run;
+      run += cnt[i];
+    }
+    __syncthreads();   // node_base of every node begun so far is written
+    if (t < kChildren) carry[t] += tot[t];
+    int base_c = 0;
+    if (u0 + g * kUnitItems < n)
+      base_c = node_base[(size_t)s_dn[g * kUnitItems] * kChildren + c];
+#pragma unroll
+    for (int i = 0; i < kUnitItems; ++i) {
+      const int k = g * kUnitItems + i;
+      if (u0 + k < n) {
+        if (s_new[k]) base_c = pre[i];
+        uoff[(size_t)(u0 + k) * kChildren + c] = pre[i] - base_c;
+      }
+    }
+    __syncthreads();   // s_new, s_dn, scratch and carry are used again
   }
-  int sums[5];
-  const int parts[5] = {took_next, took_mt, lost, live_next, live_mt};
-  for (int k = 0; k < 5; ++k) block_exclusive_scan(parts[k], scratch, &sums[k]);
+  if (t < kChildren) node_base[(size_t)n_distinct * kChildren + t] = carry[t];
+  __syncthreads();
+
+  // 3. the regions of the entries (d, c) in that order
+  const int n_entries = n_distinct * kChildren;
+  int at_next = 0, at_mt = mt0;
+  int sums[5] = {0, 0, 0, 0, 0};   // took next, took mt, lost, live next,
+                                   // live mt
+  for (int e0 = 0; e0 < n_entries; e0 += kScanThreads * kEntryItems) {
+    int cnt[kEntryItems], tiles[kEntryItems], mc[kEntryItems];
+    int need[2] = {0, 0};
+#pragma unroll
+    for (int i = 0; i < kEntryItems; ++i) {
+      const int e = e0 + t * kEntryItems + i;
+      cnt[i] = 0;
+      tiles[i] = 0;
+      mc[i] = 0;
+      if (e < n_entries) {
+        const int de = e >> 4, ce = e & (kChildren - 1);
+        cnt[i] = node_base[(size_t)(de + 1) * kChildren + ce] -
+                 node_base[(size_t)de * kChildren + ce];
+        if (cnt[i] > 0) {
+          const int node = min(max(node_id[de], 0), n_nodes - 1);
+          mc[i] = meta[(size_t)node * kChildren + ce];
+          tiles[i] = (cnt[i] + kLanes - 1) / kLanes;
+          if (mc[i] >= 0) need[0] += tiles[i];
+          else need[1] += tiles[i];
+        }
+      }
+    }
+    int at[2], total[2];
+    scan_channels<2>(need, at, total,
+                     reinterpret_cast<int (*)[2]>(scratch), tot);
+    int p = at_next + at[0], m = at_mt + at[1];
+#pragma unroll
+    for (int i = 0; i < kEntryItems; ++i) {
+      const int e = e0 + t * kEntryItems + i;
+      if (e >= n_entries) continue;
+      int rec = -1;
+      if (cnt[i] > 0) {
+        if (mc[i] >= 0) {
+          if (p + tiles[i] <= cap_next) {
+            rec = p;
+            sums[0] += tiles[i];
+            sums[3] += cnt[i];
+          } else {
+            sums[2] += cnt[i];
+          }
+          p += tiles[i];
+        } else {
+          if (m + tiles[i] <= mt_cap) {
+            rec = kMtTag | m;
+            sums[1] += tiles[i];
+            sums[4] += cnt[i];
+          } else {
+            sums[2] += cnt[i];
+          }
+          m += tiles[i];
+        }
+      }
+      base[e] = rec;
+    }
+    at_next += total[0];
+    at_mt += total[1];
+  }
+  int unused[5], all[5];
+  scan_channels<5>(sums, unused, all,
+                   reinterpret_cast<int (*)[5]>(scratch), tot);
   if (t == 0) {
-    stat_out[kNext] = sums[0];
-    stat_out[kMtCur] = mt0 + sums[1];
-    stat_out[kLost] = sums[2];
-    stat_out[kNeedNext] = total_next;
-    stat_out[kNeedMt] = mt0 + total_mt;
-    stat_out[kLiveNext] = sums[3];
-    stat_out[kLiveMt] = sums[4];
+    stat_out[kNext] = all[0];
+    stat_out[kMtCur] = mt0 + all[1];
+    stat_out[kLost] = all[2];
+    stat_out[kNeedNext] = at_next;
+    stat_out[kNeedMt] = at_mt;
+    stat_out[kLiveNext] = all[3];
+    stat_out[kLiveMt] = all[4];
     stat_out[kDistinct] = n_distinct;
+  }
+}
+
+// The fill: a warp takes 32 entries (d, c) at a time, grid-stride over the
+// level's entries; for each entry whose region was taken, the whole warp
+// writes the region's unit-table entries (the child's node in the next
+// level's list, its block in the MT list) and, in its last tile, the dead
+// lanes past the count (-1), one lane a store.
+__global__ void __launch_bounds__(kFillThreads)
+bf_prefix_fill_kernel(const int* __restrict__ meta, int n_nodes,
+                      const int* __restrict__ base,
+                      const int* __restrict__ node_id,
+                      const int* __restrict__ node_base,
+                      const int* __restrict__ stat_out,
+                      int* __restrict__ units_next,
+                      int* __restrict__ pairs_next,
+                      int* __restrict__ mt_units,
+                      int* __restrict__ mt_pairs) {
+  const int lane = threadIdx.x & 31;
+  const int warps = gridDim.x * (kFillThreads / 32);
+  const int n_entries = stat_out[kDistinct] * kChildren;
+  for (int e0 = (blockIdx.x * (kFillThreads / 32) + (threadIdx.x >> 5)) * 32;
+       e0 < n_entries; e0 += warps * 32) {
+    const int e = e0 + lane;
+    const int rec = e < n_entries ? base[e] : -1;
+    int at = 0, tiles = 0, rem = 0, val = 0;
+    if (rec >= 0) {
+      const int d = e >> 4, c = e & (kChildren - 1);
+      const int cnt = node_base[(size_t)(d + 1) * kChildren + c] -
+                      node_base[(size_t)d * kChildren + c];
+      const int node = min(max(node_id[d], 0), n_nodes - 1);
+      const int mc = meta[(size_t)node * kChildren + c];
+      at = rec & (kMtTag - 1);
+      tiles = (cnt + kLanes - 1) / kLanes;
+      rem = cnt - (tiles - 1) * kLanes;
+      val = rec < kMtTag ? mc : (-mc - 2) >> 5;
+    }
+    unsigned work = __ballot_sync(kFull, rec >= 0);
+    while (work) {
+      const int src = __ffs(work) - 1;
+      work &= work - 1;
+      const int r_at = __shfl_sync(kFull, at, src);
+      const int r_tiles = __shfl_sync(kFull, tiles, src);
+      const int r_rem = __shfl_sync(kFull, rem, src);
+      const int r_val = __shfl_sync(kFull, val, src);
+      const bool inner = __shfl_sync(kFull, rec, src) < kMtTag;
+      int* table = inner ? units_next : mt_units;
+      for (int k = lane; k < r_tiles; k += 32) table[r_at + k] = r_val;
+      int* tail = (inner ? pairs_next : mt_pairs) +
+                  (size_t)(r_at + r_tiles - 1) * kLanes;
+      for (int l = r_rem + lane; l < kLanes; l += 32) tail[l] = -1;
+    }
   }
 }
 
@@ -524,18 +659,27 @@ int bf_expand_launch(const int* units, const int* level, int cap_t,
 // 1 << 30 in the MT list, -1 for none; uoff (cap_t, 16); units_next
 // (cap_next,) and mt_units (mt_cap,) over the regions taken; the dead tail
 // lanes of each region in pairs_next / mt_pairs. node_id (cap_t,) and
-// node_base ((cap_t + 1) * 16,) are scratch.
+// node_base ((cap_t + 1) * 16,) are scratch. Two launches: the scan block,
+// then the fill, a grid sized for the level's cap_t * 16 entries.
 int bf_prefix_launch(const int* units, const int* level, const int* counts,
-                     const int* meta, int n_nodes, int cap_next, int mt_cap,
-                     int* dn, int* base, int* uoff, int* node_id,
+                     const int* meta, int n_nodes, int cap_t, int cap_next,
+                     int mt_cap, int* dn, int* base, int* uoff, int* node_id,
                      int* node_base, int* units_next, int* pairs_next,
                      int* mt_units, int* mt_pairs, int* stat_out,
                      void* cuda_stream) {
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_prefix_kernel<<<1, kScanThreads, 0, stream>>>(
+  bf_prefix_scan_kernel<<<1, kScanThreads, 0, stream>>>(
       units, level, counts, meta, n_nodes, cap_next, mt_cap, dn, base, uoff,
-      node_id, node_base, units_next, pairs_next, mt_units, mt_pairs,
-      stat_out);
+      node_id, node_base, stat_out);
+  const int rc = static_cast<int>(cudaGetLastError());
+  if (rc != 0) return rc;
+  // a warp a 32 entries: enough blocks for the level's cap_t * 16 entries
+  const int fill = min(kFillBlocks,
+                       max(1, (cap_t * kChildren + kFillThreads - 1) /
+                                  kFillThreads));
+  bf_prefix_fill_kernel<<<fill, kFillThreads, 0, stream>>>(
+      meta, n_nodes, base, node_id, node_base, stat_out, units_next,
+      pairs_next, mt_units, mt_pairs);
   return static_cast<int>(cudaGetLastError());
 }
 

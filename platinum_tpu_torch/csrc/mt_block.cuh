@@ -8,10 +8,11 @@
 // bit, from each: the ray features are formed by `ray_features` with its
 // products and FMAs spelled out, and each triangle's dots, accept tests
 // and divisions below are one sequence of operations, whether one thread
-// tests a whole block (`block_closest`, K13 and K15) or a warp tests it
+// tests a whole block (`block_closest`, K13 and K15's per-pair reference),
+// one thread several rays at once (`rays_dots`: K15) or a warp one ray
 // two triangles a lane (`lane_dots_split`, `lane_dots`, `lane_closest`,
 // `lane_any`: the warp-wide modes of wide_trace.cu). `kShared` reads the
-// block from shared memory (K13 stages it there once per tile) instead of
+// block from shared memory (K13 and K15 stage it there) instead of
 // through the read-only cache; the arithmetic is the same.
 //
 // Layout (platinum_tpu/accel/wide.py): a block is (10, 256) f32, columns
@@ -169,6 +170,85 @@ __device__ __forceinline__ void block_outputs(
       det[j] = out[j]; ud[j] = out[4 + j];
       vd[j] = out[8 + j]; td[j] = out[12 + j];
     }
+  }
+}
+
+// block_dots and block_dots_split for R rays at once (the leaf-pair kernel's
+// register blocking, stream_mt.cu): each coefficient loaded once feeds the
+// R rays' products, and each ray's sums are block_dots' (kHighest) or
+// block_dots_split's (kHigh, kDefault) sequence of operations, so a (ray,
+// triangle) pair gets the same bits. out[r][q*4 + j] is output q of
+// triangle s0+j for ray r; f, fh, fl hold each ray's features.
+template <int kPrec, int R, bool kShared>
+__device__ __forceinline__ void rays_dots(const float* __restrict__ blk,
+                                          const float (*f)[10],
+                                          const float (*fh)[10],
+                                          const float (*fl)[10], int s0,
+                                          float (*out)[16]) {
+  if constexpr (kPrec == kHighest) {
+    float4 a[R][4];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) a[r][q] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 c =
+            load_coef<kShared>(blk + k * 256 + q * kBlockTris + s0);
+#pragma unroll
+        for (int r = 0; r < R; ++r) {
+          const float fk = f[r][k];
+          a[r][q].x += c.x * fk; a[r][q].y += c.y * fk;
+          a[r][q].z += c.z * fk; a[r][q].w += c.w * fk;
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        out[r][q * 4] = a[r][q].x; out[r][q * 4 + 1] = a[r][q].y;
+        out[r][q * 4 + 2] = a[r][q].z; out[r][q * 4 + 3] = a[r][q].w;
+      }
+  } else {
+    float hh[R][16], hl[R][16], lh[R][16];
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        hh[r][i] = 0.f; hl[r][i] = 0.f; lh[r][i] = 0.f;
+      }
+#pragma unroll
+    for (int k = 0; k < 10; ++k) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        const float4 c =
+            load_coef<kShared>(blk + k * 256 + q * kBlockTris + s0);
+        const float cv[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int i = q * 4 + j;
+          const float ch = bf16_rn(cv[j]);
+          const float cl = kPrec == kDefault ? 0.f : bf16_rn(cv[j] - ch);
+#pragma unroll
+          for (int r = 0; r < R; ++r) {
+            hh[r][i] = fmaf(ch, fh[r][k], hh[r][i]);
+            if (kPrec != kDefault) {
+              hl[r][i] = fmaf(ch, fl[r][k], hl[r][i]);
+              lh[r][i] = fmaf(cl, fh[r][k], lh[r][i]);
+            }
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        out[r][i] = kPrec == kDefault ? hh[r][i]
+                                      : (hh[r][i] + hl[r][i]) + lh[r][i];
   }
 }
 

@@ -18,11 +18,27 @@
 // What is computed is the TPU kernel's per-pair function, not its
 // schedule. The TPU kernel walks the distinct blocks of a 128-pair chunk
 // and multiplies each (10, 256) block with the (10, 128) features of the
-// whole chunk on its matrix unit, masking the lanes of other blocks; here
-// one thread takes one pair and reads its own block, which is the same
-// function. Pairs are sorted by block, so the threads of a warp mostly
-// read the same 10 KB block (one broadcast load each) and a block is
-// fetched from L2 once per run of its pairs.
+// whole chunk on its matrix unit, masking the lanes of other blocks. Here
+// (`stream_mt_chunk_kernel`) a 128-thread CTA takes a chunk of 512
+// consecutive pairs of the block-sorted list (256 or 128 where a level's
+// chunks would not fill the card) and finds its runs (the pairs that
+// share a block) by neighbour compares and a block scan. Each
+// run's block is staged once in shared memory, in a ring of kSlots slots,
+// by cp.async one round ahead of its use, and the run's pairs are cut into
+// tasks of R consecutive pairs (2; 4 at "default"), one thread a task, so
+// that every coefficient a thread reads from shared memory feeds R rays'
+// products (mt_block.cuh `rays_dots`, each ray's sequence of operations
+// that of `block_dots` / `block_dots_split`). Tasks go to the threads in
+// rounds of up to 128 over at most kSlots - 1 runs; a round of fewer
+// tasks splits each task's 64 triangles over g = 2-16 threads (aligned
+// lanes of one warp), whose partial results are combined by shuffles,
+// the lower triangles winning ties, so the choice is `block_closest`'s
+// (least t, ties to the smallest slot). A chunk whose runs average fewer
+// than kMinRun pairs (thin waves deep in a render) stages nothing: each
+// thread tests its pairs one at a time through the read-only cache, the
+// per-pair code. The one-thread-per-pair kernel
+// (`stream_mt_kernel`) stays as the reference, behind its own entry
+// (`stream_mt_per_pair_launch`).
 //
 // The pair names its ray by index and the kernel gathers the ray (origin,
 // direction, tmin) and its limit, then forms the ten features itself with
@@ -36,10 +52,13 @@
 // mode runs at the tier too, as raystream.py:156 does.
 //
 // What bounds it on the card: at "highest" 5,120 FLOP per pair on the CUDA
-// cores against 8 B of pair ids, a 32 B ray gather and 16 B of results;
-// staging each block in shared memory for the 128 pairs that share it and
-// forming the products on the tensor cores is later work, for which the
-// sorted (ray, block) layout is the starting point.
+// cores against 8 B of pair ids, a 32 B ray gather, 16 B of results and
+// 10 KB per distinct block: the operations. The one-thread-per-pair kernel
+// read its block through the read-only cache, one 16-byte load per four
+// FMAs; staging the block once per CTA and blocking R rays per thread cuts
+// the loads per FMA R-fold and takes them from shared memory. What is
+// left is the accept test, ~16 instructions per (ray, triangle) beside its
+// 40 FMAs, and each round's barriers.
 
 #include "mt_block.cuh"
 
@@ -48,22 +67,43 @@ namespace {
 using namespace mt_block;
 
 constexpr int kThreads = 128;
+constexpr unsigned kFull = 0xffffffffu;
 
+// The chunked kernel: pairs per CTA, pairs each thread scans for run
+// boundaries, the ring of staged blocks (40 KB of shared memory with the
+// padding that puts two slots' equal offsets in different banks).
+constexpr int kChunk = 512;
+constexpr int kPerThread = kChunk / kThreads;
+constexpr int kSlots = 4;
+constexpr int kSlotFloats = kBlockFloats + 4;
+constexpr int kMaxSplit = 16;      // threads a task's triangles may span
+constexpr int kMinRun = 32;        // pairs a run on average to stage blocks
+constexpr int kResident = 4 * 132;  // CTAs an H100 holds at once (4 an SM)
+
+// Pairs a CTA takes: kChunk, halved (down to kThreads) while the level's
+// chunks would not fill the card, so that a small level still spreads
+// over every SM.
+__host__ __device__ __forceinline__ int chunk_pairs(int n_pairs) {
+  int chunk = kChunk;
+  while (chunk > kThreads && n_pairs < chunk * kResident) chunk /= 2;
+  return chunk;
+}
+constexpr int kQuads = kBlockFloats / 4;   // float4 loads a block
+
+__device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
+
+// One pair, one thread: the ray against its block through the read-only
+// cache, block_any / block_closest's tests; the results are written.
 template <bool kAnyHit, int kPrec>
-__global__ void __launch_bounds__(kThreads)
-stream_mt_kernel(const float* __restrict__ rays, int n_rays,
-                 const float* __restrict__ limit,
-                 const int* __restrict__ pair_ray,
-                 const int* __restrict__ pair_block, int n_pairs,
-                 const float* __restrict__ blocks, int n_blocks,
-                 float* __restrict__ t_out, int* __restrict__ slot_out,
-                 float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_pairs) return;
-  const float inf = __int_as_float(0x7f800000);
+__device__ __forceinline__ void test_pair(
+    int i, const float* __restrict__ rays, int n_rays,
+    const float* __restrict__ limit, const int* __restrict__ pair_ray,
+    const int* __restrict__ pair_block, const float* __restrict__ blocks,
+    int n_blocks, float* __restrict__ t_out, int* __restrict__ slot_out,
+    float* __restrict__ u_out, float* __restrict__ v_out) {
   const int b = __ldg(pair_block + i);
   const int ray = __ldg(pair_ray + i);
-  float t = inf, u = 0.f, v = 0.f;
+  float t = inf_f(), u = 0.f, v = 0.f;
   int slot = -1;
   if (b >= 0 && b < n_blocks && ray >= 0 && ray < n_rays) {
     float f[10], fh[10], fl[10];
@@ -93,8 +133,364 @@ stream_mt_kernel(const float* __restrict__ rays, int n_rays,
   v_out[i] = v;
 }
 
+// The one-thread-per-pair kernel: the reference of the chunked kernel.
+template <bool kAnyHit, int kPrec>
+__global__ void __launch_bounds__(kThreads)
+stream_mt_kernel(const float* __restrict__ rays, int n_rays,
+                 const float* __restrict__ limit,
+                 const int* __restrict__ pair_ray,
+                 const int* __restrict__ pair_block, int n_pairs,
+                 const float* __restrict__ blocks, int n_blocks,
+                 float* __restrict__ t_out, int* __restrict__ slot_out,
+                 float* __restrict__ u_out, float* __restrict__ v_out) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n_pairs)
+    test_pair<kAnyHit, kPrec>(i, rays, n_rays, limit, pair_ray, pair_block,
+                              blocks, n_blocks, t_out, slot_out, u_out,
+                              v_out);
+}
+
+// Exclusive prefix sum of v over the CTA's threads in thread order; *total
+// gets the sum. Every thread calls it.
+__device__ int cta_exclusive_scan(int v, int* scratch, int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(kFull, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) scratch[warp] = x;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kThreads / 32; ++w) {
+    const int s = scratch[w];
+    before += w < warp ? s : 0;
+    sum += s;
+  }
+  *total = sum;
+  __syncthreads();   // scratch is reused by the next scan
+  return before + x - v;
+}
+
+__device__ __forceinline__ bool valid_block(int b, int n_blocks) {
+  return b >= 0 && b < n_blocks;
+}
+
+// The closest-hit choice of one ray over some triangles of a block:
+// block_closest's least t below the limit, ties to the smallest slot.
+struct Pick {
+  float tb, us, vs, ad;
+  int slot;
+};
+
+// Triangles [s_lo, s_hi) of the staged block `blk` against the R rays of a
+// task: closest hit folds each accepted triangle into pick[r] in ascending
+// slots (strict <), any hit sets hit[r] and stops once every ray has one.
+template <bool kAnyHit, int kPrec, int R>
+__device__ __forceinline__ void test_rays(const float* blk, int s_lo,
+                                          int s_hi, const float (*f)[10],
+                                          const float (*fh)[10],
+                                          const float (*fl)[10],
+                                          const float* tmin, const float* lim,
+                                          Pick* pick, bool* hit) {
+  for (int s0 = s_lo; s0 < s_hi; s0 += 4) {
+    float out[R][16];
+    rays_dots<kPrec, R, true>(blk, f, fh, fl, s0, out);
+    bool all = true;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float det = out[r][j];
+        const float s = det >= 0.f ? 1.f : -1.f;
+        const float ad = det * s, us = out[r][4 + j] * s,
+                    vs = out[r][8 + j] * s, ts = out[r][12 + j] * s;
+        if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
+            ts > tmin[r] * ad && ts < lim[r] * ad) {
+          if (kAnyHit) {
+            hit[r] = true;
+          } else {
+            const float t = ts / fmaxf(ad, 1e-37f);
+            if (t < pick[r].tb) {
+              pick[r].tb = t; pick[r].slot = s0 + j;
+              pick[r].us = us; pick[r].vs = vs; pick[r].ad = ad;
+            }
+          }
+        }
+      }
+      all = all && hit[r];
+    }
+    if (kAnyHit && all) break;
+  }
+}
+
+// cp.async: 16 bytes from device to shared memory without a register, in
+// groups that are committed and waited for. Without __CUDA_ARCH__ (the
+// host emulation of this source) the copy is made at once.
+__device__ __forceinline__ void copy16_async(float* smem, const float* gmem) {
+#if defined(__CUDA_ARCH__)
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem) : "memory");
+#else
+  memcpy(smem, gmem, 16);
+#endif
+}
+
+__device__ __forceinline__ void copy_commit() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+#endif
+}
+
+// wait until at most N of this thread's committed groups are in flight
+template <int N>
+__device__ __forceinline__ void copy_wait() {
+#if defined(__CUDA_ARCH__)
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+#endif
+}
+
+// Issue the copies of runs [r0, r1)'s blocks (those in range) into their
+// slots, r % kSlots, 16 bytes a thread at a time; the caller commits them.
+__device__ __forceinline__ void stage_runs(float (*slot_blk)[kSlotFloats],
+                                           const int* run_block, int r0,
+                                           int r1, const float* blocks,
+                                           int n_blocks) {
+  for (int q = threadIdx.x; q < (r1 - r0) * kQuads; q += kThreads) {
+    const int rr = r0 + q / kQuads, e = q - (q / kQuads) * kQuads;
+    const int b = run_block[rr];
+    if (valid_block(b, n_blocks))
+      copy16_async(slot_blk[rr % kSlots] + 4 * e,
+                   blocks + (size_t)b * kBlockFloats + 4 * e);
+  }
+}
+
+template <bool kAnyHit, int kPrec>
+__global__ void __launch_bounds__(kThreads)
+stream_mt_chunk_kernel(const float* __restrict__ rays, int n_rays,
+                       const float* __restrict__ limit,
+                       const int* __restrict__ pair_ray,
+                       const int* __restrict__ pair_block, int n_pairs,
+                       const float* __restrict__ blocks, int n_blocks,
+                       float* __restrict__ t_out, int* __restrict__ slot_out,
+                       float* __restrict__ u_out, float* __restrict__ v_out) {
+  // pairs a task: 4 at "default", where each coefficient's bf16 split
+  // serves four rays; 2 at "highest" and "high" (on an H100, four rays at
+  // "highest" took 168 registers, three CTAs an SM, and ran 15-20% slower
+  // than two rays at 120 registers and four CTAs)
+  constexpr int R = kPrec == kDefault ? 4 : 2;
+  __shared__ __align__(16) float slot_blk[kSlots][kSlotFloats];
+  __shared__ int run_start[kChunk + 1];
+  __shared__ int run_block[kChunk];
+  __shared__ int task_off[kChunk + 1];
+  __shared__ int scratch[kThreads / 32];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int chunk = chunk_pairs(n_pairs);
+  const int c0 = blockIdx.x * chunk;
+  const int len = min(chunk, n_pairs - c0);
+  const float inf = inf_f();
+
+  // 1. the chunk's runs: pair i starts one where its block differs from
+  // pair i - 1's (or i = 0); pairs of a block out of range miss here
+  int bid[kPerThread];
+  int starts = 0;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = tid * kPerThread + j;
+    bid[j] = i < len ? __ldg(pair_block + c0 + i) : -1;
+    const int prev = j ? bid[j - 1]
+                       : (i > 0 && i <= len ? __ldg(pair_block + c0 + i - 1)
+                                            : 0);
+    starts += i < len && (i == 0 || bid[j] != prev);
+    if (i < len && !valid_block(bid[j], n_blocks)) {
+      t_out[c0 + i] = inf;
+      slot_out[c0 + i] = -1;
+      u_out[c0 + i] = 0.f;
+      v_out[c0 + i] = 0.f;
+    }
+  }
+  int n_runs;
+  int k = cta_exclusive_scan(starts, scratch, &n_runs);
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int i = tid * kPerThread + j;
+    const int prev = j ? bid[j - 1]
+                       : (i > 0 && i <= len ? __ldg(pair_block + c0 + i - 1)
+                                            : 0);
+    if (i < len && (i == 0 || bid[j] != prev)) {
+      run_start[k] = i;
+      run_block[k] = bid[j];
+      ++k;
+    }
+  }
+  if (tid == 0) run_start[n_runs] = len;
+  __syncthreads();
+  if (n_runs * kMinRun > len) {
+    // runs shorter than kMinRun pairs on average: staging a block would
+    // serve too few pairs, and rounds of at most kSlots - 1 runs too few
+    // tasks; each thread tests its pairs one at a time through the
+    // read-only cache, neighbours mostly reading one block
+    for (int i = tid; i < len; i += kThreads)
+      test_pair<kAnyHit, kPrec>(c0 + i, rays, n_rays, limit, pair_ray,
+                                pair_block, blocks, n_blocks, t_out,
+                                slot_out, u_out, v_out);
+    return;
+  }
+
+  // 2. tasks: ceil(run length / R) a run whose block is in range
+  int tasks = 0;
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int r = tid * kPerThread + j;
+    if (r < n_runs && valid_block(run_block[r], n_blocks))
+      tasks += (run_start[r + 1] - run_start[r] + R - 1) / R;
+  }
+  int n_tasks;
+  int at = cta_exclusive_scan(tasks, scratch, &n_tasks);
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    const int r = tid * kPerThread + j;
+    if (r < n_runs) {
+      task_off[r] = at;
+      if (valid_block(run_block[r], n_blocks))
+        at += (run_start[r + 1] - run_start[r] + R - 1) / R;
+    }
+  }
+  if (tid == 0) task_off[n_runs] = n_tasks;
+  __syncthreads();
+
+  // 3. rounds of up to kThreads tasks over the chunk's task list. A round
+  // spans at most kSlots - 1 runs; run r's block sits in slot r % kSlots.
+  // Each round first issues the copies (cp.async) of the blocks it needs
+  // that are not staged yet, then those of the runs after it while their
+  // slots are free (their run kSlots before is done), so that the next
+  // round's blocks arrive while this one tests
+  int ra = 0;        // the run of the round's first task
+  int staged = 0;    // runs [0, staged) are staged or on their way
+  for (int t0 = 0; t0 < n_tasks;) {
+    while (task_off[ra + 1] <= t0) ++ra;
+    const int rem = task_off[min(n_runs, ra + kSlots - 1)] - t0;
+    // fewer than kThreads tasks: split each task's triangles over g threads
+    int g = 1;
+    while (g < kMaxSplit && rem * g * 2 <= kThreads) g *= 2;
+    const int count = min(rem, kThreads / g);
+    int rb = ra;       // the run of the round's last task
+    while (task_off[rb + 1] < t0 + count) ++rb;
+    const int ahead = min(n_runs, ra + kSlots);
+    stage_runs(slot_blk, run_block, staged, rb + 1, blocks, n_blocks);
+    copy_commit();
+    stage_runs(slot_blk, run_block, max(staged, rb + 1), ahead, blocks,
+               n_blocks);
+    copy_commit();
+    staged = max(staged, ahead);
+    copy_wait<1>();   // every copy but the look-ahead's
+    __syncthreads();
+    {
+      const int part = tid & (g - 1);
+      const bool has = tid / g < count;
+      const int task = t0 + tid / g;
+      int r = ra, first = 0, cnt = 0, b = 0;
+      if (has) {
+        while (task_off[r + 1] <= task) ++r;
+        first = run_start[r] + (task - task_off[r]) * R;
+        cnt = min(R, run_start[r + 1] - first);
+        b = run_block[r];
+      }
+      float f[R][10], fh[R][10], fl[R][10], tmin[R], lim[R];
+      int ray[R];
+      Pick pick[R];
+      bool hit[R];
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        ray[j] = j < cnt ? __ldg(pair_ray + c0 + first + j) : -1;
+        const bool live = ray[j] >= 0 && ray[j] < n_rays;
+        const int rr = live ? ray[j] : 0;
+        if (live) {
+          ray_features(__ldg(rays + rr), __ldg(rays + n_rays + rr),
+                       __ldg(rays + 2 * n_rays + rr),
+                       __ldg(rays + 3 * n_rays + rr),
+                       __ldg(rays + 4 * n_rays + rr),
+                       __ldg(rays + 5 * n_rays + rr), f[j]);
+          tmin[j] = __ldg(rays + 6 * n_rays + rr);
+          lim[j] = __ldg(limit + rr);
+        } else {
+#pragma unroll
+          for (int q = 0; q < 10; ++q) f[j][q] = 0.f;
+          tmin[j] = 0.f;
+          lim[j] = -inf;
+        }
+        if (kPrec != kHighest) split_features(f[j], fh[j], fl[j]);
+        pick[j] = Pick{inf, 0.f, 0.f, 0.f, -1};
+        hit[j] = !live;    // a dead ray stops no any-hit test early
+      }
+      if (has) {
+        const int span = kBlockTris / g;
+        test_rays<kAnyHit, kPrec, R>(slot_blk[r % kSlots], part * span,
+                                     part * span + span, f, fh, fl, tmin,
+                                     lim, pick, hit);
+      }
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        const bool live = ray[j] >= 0 && ray[j] < n_rays;
+        if (kAnyHit) hit[j] = hit[j] && live;
+      }
+      // combine the g partial results of a task: lane `part` and its
+      // partner hold adjacent ranges of triangles; the lower range wins
+      // ties
+      for (int m = 1; m < g; m <<= 1) {
+        const int src = lane ^ m;
+        const bool upper = (part & m) != 0;
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if (kAnyHit) {
+            hit[j] = __shfl_sync(kFull, (int)hit[j], src) || hit[j];
+          } else {
+            const float tb = __shfl_sync(kFull, pick[j].tb, src);
+            const int sl = __shfl_sync(kFull, pick[j].slot, src);
+            const float us = __shfl_sync(kFull, pick[j].us, src);
+            const float vs = __shfl_sync(kFull, pick[j].vs, src);
+            const float ad = __shfl_sync(kFull, pick[j].ad, src);
+            if (upper ? tb <= pick[j].tb : tb < pick[j].tb)
+              pick[j] = Pick{tb, us, vs, ad, sl};
+          }
+        }
+      }
+      if (has && part == 0) {
+#pragma unroll
+        for (int j = 0; j < R; ++j) {
+          if (j >= cnt) break;
+          const int i = c0 + first + j;
+          float t = inf, u = 0.f, v = 0.f;
+          int slot = -1;
+          if (kAnyHit) {
+            if (hit[j]) {
+              t = 0.f;
+              slot = 1;
+            }
+          } else if (pick[j].slot >= 0 && pick[j].tb < lim[j]) {
+            const float iad = 1.0f / fmaxf(pick[j].ad, 1e-37f);
+            t = pick[j].tb;
+            slot = b * kBlockTris + pick[j].slot;
+            u = pick[j].us * iad;
+            v = pick[j].vs * iad;
+          }
+          t_out[i] = t;
+          slot_out[i] = slot;
+          u_out[i] = u;
+          v_out[i] = v;
+        }
+      }
+    }
+    t0 += count;
+    __syncthreads();   // the round's slots may be staged again
+  }
+  copy_wait<0>();
+}
+
 struct Launch {
-  dim3 grid;
   cudaStream_t stream;
   const float* rays;
   int n_rays;
@@ -111,49 +507,78 @@ struct Launch {
 };
 
 template <bool kAnyHit, int kPrec>
-void launch(const Launch& l) {
-  stream_mt_kernel<kAnyHit, kPrec>
-      <<<l.grid, kThreads, 0, l.stream>>>(
-          l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
-          l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
+void launch(const Launch& l, bool per_pair) {
+  if (per_pair)
+    stream_mt_kernel<kAnyHit, kPrec>
+        <<<(l.n_pairs + kThreads - 1) / kThreads, kThreads, 0, l.stream>>>(
+            l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
+            l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
+  else
+    stream_mt_chunk_kernel<kAnyHit, kPrec>
+        <<<(l.n_pairs + chunk_pairs(l.n_pairs) - 1) / chunk_pairs(l.n_pairs),
+           kThreads, 0, l.stream>>>(
+            l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
+            l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
 }
 
 template <bool kAnyHit>
-int by_precision(int prec, const Launch& l) {
+int by_precision(int prec, const Launch& l, bool per_pair) {
   switch (prec) {
-    case kHighest: launch<kAnyHit, kHighest>(l); return 0;
-    case kHigh: launch<kAnyHit, kHigh>(l); return 0;
-    case kDefault: launch<kAnyHit, kDefault>(l); return 0;
+    case kHighest: launch<kAnyHit, kHighest>(l, per_pair); return 0;
+    case kHigh: launch<kAnyHit, kHigh>(l, per_pair); return 0;
+    case kDefault: launch<kAnyHit, kDefault>(l, per_pair); return 0;
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_mt(const float* rays, int n_rays, const float* limit,
+              const int* pair_ray, const int* pair_block, int n_pairs,
+              const float* blocks, int n_blocks, int any_hit, int mt_prec,
+              float* t_out, int* slot_out, float* u_out, float* v_out,
+              void* cuda_stream, bool per_pair) {
+  const Launch l{static_cast<cudaStream_t>(cuda_stream), rays, n_rays, limit,
+                 pair_ray, pair_block, n_pairs, blocks, n_blocks, t_out,
+                 slot_out, u_out, v_out};
+  const int rc = any_hit ? by_precision<true>(mt_prec, l, per_pair)
+                         : by_precision<false>(mt_prec, l, per_pair);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Tests n_pairs (ray, block) pairs on `stream` and returns
-// cudaGetLastError() (0 on success; cudaErrorInvalidValue for an unknown
-// tier). rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]
-// (tmax is not read); limit: (n_rays,) f32, the t below which a hit
-// counts (the ray's best so far; tmax for any hit); pair_ray, pair_block:
-// (n_pairs,) i32, block -1 = padding; blocks: (n_blocks, 10, 256) f32.
-// Outputs (n_pairs,) each: t, slot (closest: block*64 + slot or -1; any
-// hit: 1 or -1), u, v. mt_prec: 0 highest, 1 high, 2 default. Allocates
-// nothing and does not synchronise.
+// Tests n_pairs (ray, block) pairs on `stream` with the chunked kernel and
+// returns cudaGetLastError() (0 on success; cudaErrorInvalidValue for an
+// unknown tier). rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy, dz,
+// tmin, tmax] (tmax is not read); limit: (n_rays,) f32, the t below which
+// a hit counts (the ray's best so far; tmax for any hit); pair_ray,
+// pair_block: (n_pairs,) i32, sorted by block (any order gives the same
+// results, more slowly), block -1 = padding; blocks: (n_blocks, 10, 256)
+// f32. Outputs (n_pairs,) each: t, slot (closest: block*64 + slot or -1;
+// any hit: 1 or -1), u, v. mt_prec: 0 highest, 1 high, 2 default.
+// Allocates nothing and does not synchronise.
 int stream_mt_launch(const float* rays, int n_rays, const float* limit,
                      const int* pair_ray, const int* pair_block, int n_pairs,
                      const float* blocks, int n_blocks, int any_hit,
                      int mt_prec, float* t_out, int* slot_out, float* u_out,
                      float* v_out, void* cuda_stream) {
-  const Launch l{dim3((n_pairs + kThreads - 1) / kThreads),
-                 static_cast<cudaStream_t>(cuda_stream), rays, n_rays, limit,
-                 pair_ray, pair_block, n_pairs, blocks, n_blocks, t_out,
-                 slot_out, u_out, v_out};
-  const int rc = any_hit ? by_precision<true>(mt_prec, l)
-                         : by_precision<false>(mt_prec, l);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return launch_mt(rays, n_rays, limit, pair_ray, pair_block, n_pairs,
+                   blocks, n_blocks, any_hit, mt_prec, t_out, slot_out,
+                   u_out, v_out, cuda_stream, false);
+}
+
+// The same through the one-thread-per-pair reference kernel.
+int stream_mt_per_pair_launch(const float* rays, int n_rays,
+                              const float* limit, const int* pair_ray,
+                              const int* pair_block, int n_pairs,
+                              const float* blocks, int n_blocks, int any_hit,
+                              int mt_prec, float* t_out, int* slot_out,
+                              float* u_out, float* v_out, void* cuda_stream) {
+  return launch_mt(rays, n_rays, limit, pair_ray, pair_block, n_pairs,
+                   blocks, n_blocks, any_hit, mt_prec, t_out, slot_out,
+                   u_out, v_out, cuda_stream, true);
 }
 
 const char* stream_mt_error_string(int code) {

@@ -13,8 +13,10 @@ segments of `seg_rays` rays, and each segment is traced level by level:
     K11 prefix  one block scans the level: distinct nodes, per-unit
                 offsets into each child's region, 128-aligned regions in
                 the next level's list (inner children) or the MT list
-                (leaf children, cursor running across levels), the next
-                level's unit table and the MT unit table, dead tail lanes
+                (leaf children, cursor running across levels); then a
+                grid fills the next level's unit table, the MT unit table
+                and the regions' dead tail lanes (two launches, counted
+                as "prefix" and "prefix fill")
     K12 emit    per unit: each surviving (ray, child) pair to its lane of
                 the child's region
   then K13 mt   per MT unit (one leaf block x one tile): the 64-triangle
@@ -98,8 +100,9 @@ PLAIN_TILES = 256         # MT tiles per product of the plain version
 
 def launch_key(kernel: str, any_hit: bool = False,
                mt_precision: str = "highest") -> str:
-    """LAUNCHES key: "expand", "prefix", "emit", "bwd", or "mt closest" /
-    "mt any" with a "+<tier>" suffix below "highest"."""
+    """LAUNCHES key: "expand", "prefix" (K11's scan), "prefix fill" (K11's
+    fill), "emit", "bwd", or "mt closest" / "mt any" with a "+<tier>"
+    suffix below "highest"."""
     if kernel != "mt":
         return kernel
     key = "mt any" if any_hit else "mt closest"
@@ -108,7 +111,8 @@ def launch_key(kernel: str, any_hit: bool = False,
 
 # Kernel launches per kernel and mode, counted where a wrapper launches and
 # nowhere else
-LAUNCHES = {k: 0 for k in ("expand", "prefix", "emit", "bwd")}
+LAUNCHES = {k: 0 for k in ("expand", "prefix", "prefix fill", "emit",
+                           "bwd")}
 LAUNCHES.update({launch_key("mt", a, p): 0 for a in (False, True)
                  for p in TIERS})
 
@@ -132,8 +136,8 @@ def _check_tier(mt_precision: str):
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.bf_expand_launch.argtypes = [p, p, i, p, p, i, p, i, p, p, p]
-    lib.bf_prefix_launch.argtypes = [p, p, p, p, i, i, i, p, p, p, p, p, p,
-                                     p, p, p, p, p]
+    lib.bf_prefix_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p,
+                                     p, p, p, p, p, p]
     lib.bf_emit_launch.argtypes = [p, p, p, i, p, p, p, p, p, p]
     lib.bf_mt_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p, p, p]
     lib.bf_bwd_launch.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p,
@@ -265,7 +269,8 @@ def bf_prefix(units, level, counts, meta, cap_next, mt_cap, pairs_next,
                                pairs_next, mt_pairs, mt_units, stat_out)
     out = prefix_kernel(units, level, counts, meta, cap_next, mt_cap,
                         pairs_next, mt_pairs, mt_units, stat_out)
-    LAUNCHES["prefix"] += 1
+    LAUNCHES["prefix"] += 1         # the scan
+    LAUNCHES["prefix fill"] += 1    # the fill
     return out
 
 
@@ -294,7 +299,7 @@ def prefix_kernel(units, level, counts, meta, cap_next, mt_cap, pairs_next,
                             device=dev)
     units_next = torch.empty(max(cap_next, 1), dtype=torch.int32, device=dev)
     _launch("prefix", dev, units, level, counts, meta,
-            meta.shape[0] // CHILDREN, cap_next, mt_cap, dn, base, uoff,
+            meta.shape[0] // CHILDREN, cap, cap_next, mt_cap, dn, base, uoff,
             node_id, node_base, units_next, pairs_next, mt_units, mt_pairs,
             stat_out)
     return dn, base, uoff, units_next

@@ -10,7 +10,8 @@ of the tree per phase, as dense torch ops plus one CUDA kernel:
     4. surviving inner children -> next level's pairs;
        surviving leaf children -> (ray, MT block) pairs, sorted by block
     5. the leaf-pair kernel (K15, csrc/stream_mt.cu, wrapper `stream_mt`):
-       per pair the ray against the block's 64 triangles
+       per pair the ray against the block's 64 triangles, each block
+       staged once per CTA in shared memory for the pairs that share it
     6. per-ray closest-hit reduction and best-t update [scatter amin]
 
 The contract is the JAX module's: closest hits are exact minima of t,
@@ -55,16 +56,21 @@ TIERS = ("highest", "high", "default")
 PLAIN_CHUNK = 1 << 15     # pairs per einsum of the plain version
 
 
-def launch_key(any_hit: bool, mt_precision: str = "highest") -> str:
+def launch_key(any_hit: bool, mt_precision: str = "highest",
+               per_pair: bool = False) -> str:
     """LAUNCHES key of one kernel mode: "closest" / "any", with a
-    "+<tier>" suffix below "highest"."""
+    "+<tier>" suffix below "highest" and "+per_pair" for the
+    one-thread-per-pair reference kernel."""
     key = "any" if any_hit else "closest"
-    return key if mt_precision == "highest" else f"{key}+{mt_precision}"
+    if mt_precision != "highest":
+        key += f"+{mt_precision}"
+    return key + "+per_pair" if per_pair else key
 
 
 # Kernel launches per mode, counted where `stream_mt` launches and nowhere
 # else
-LAUNCHES = {launch_key(a, p): 0 for a in (False, True) for p in TIERS}
+LAUNCHES = {launch_key(a, p, r): 0 for r in (False, True)
+            for a in (False, True) for p in TIERS}
 
 
 def _tree_depth(meta: np.ndarray) -> int:
@@ -91,9 +97,10 @@ def _all_leaves_single_block(meta: np.ndarray) -> bool:
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.stream_mt_launch.restype = i
-    lib.stream_mt_launch.argtypes = [p, i, p, p, p, i, p, i, i, i,
-                                     p, p, p, p, p]
+    for name in ("stream_mt_launch", "stream_mt_per_pair_launch"):
+        getattr(lib, name).restype = i
+        getattr(lib, name).argtypes = [p, i, p, p, p, i, p, i, i, i,
+                                       p, p, p, p, p]
     lib.stream_mt_error_string.restype = ctypes.c_char_p
     lib.stream_mt_error_string.argtypes = [i]
 
@@ -105,7 +112,7 @@ def _check_tier(mt_precision: str):
 
 
 def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit: bool,
-              mt_precision: str = "highest"):
+              mt_precision: str = "highest", per_pair: bool = False):
     """Test P (ray, block) pairs, sorted by block id (K15).
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax] (tmax is
@@ -116,7 +123,10 @@ def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit: bool,
     miss), slot = block*64 + slot of it (ties to the smallest slot; -1 on
     a miss) and its barycentrics; any hit slot = 1 where some triangle is
     accepted, else -1 (t = 0 / +inf). CPU tensors take the plain version;
-    CUDA tensors the kernel."""
+    CUDA tensors the kernel: each CTA stages the blocks of a chunk of
+    pairs in shared memory and tests several pairs a thread against each
+    coefficient it reads, or with `per_pair` the one-thread-per-pair
+    reference kernel (the same outputs in every bit)."""
     _check_tier(mt_precision)
     dev = rays.device
     if dev.type == "cpu":
@@ -141,7 +151,9 @@ def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit: bool,
         return t, slot, u, v
     lib = load_library("stream_mt", _declare)
     with torch.cuda.device(dev):
-        rc = lib.stream_mt_launch(
+        entry = (lib.stream_mt_per_pair_launch if per_pair
+                 else lib.stream_mt_launch)
+        rc = entry(
             rays.data_ptr(), r, limit.data_ptr(), pair_ray.data_ptr(),
             pair_block.data_ptr(), n, blocks.data_ptr(), blocks.shape[0],
             int(bool(any_hit)), PRECISIONS[mt_precision], t.data_ptr(),
@@ -150,7 +162,7 @@ def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit: bool,
     if rc != 0:
         raise RuntimeError("stream_mt kernel launch failed: "
                            + lib.stream_mt_error_string(rc).decode())
-    LAUNCHES[launch_key(any_hit, mt_precision)] += 1
+    LAUNCHES[launch_key(any_hit, mt_precision, per_pair)] += 1
     return t, slot, u, v
 
 

@@ -19,7 +19,10 @@ under the octant order) and the pipelined drain (K9: the per-thread
 pipelined walk), the last two also in their pops and block tests per ray;
 the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
-the bit; and the five kernels of bf_stream.cu (with their block scans,
+the bit, and its chunked schedule gives its one-thread-per-pair
+reference's outputs in every bit; the redesigned level prefix (K11) gives
+its plain version's tables on synthetic levels; and the five kernels of
+bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
 versions' tables and results in every bit and the breadth-first tracer
 K1's. Skips where there is no g++.
@@ -35,8 +38,10 @@ import torch
 
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "tools"))
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 import torch_emulate_kernels as emu  # noqa: E402
+import torch_kernel_cases as kc  # noqa: E402
 from platinum_tpu_torch.ops import bfstream as bf  # noqa: E402
 from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
@@ -696,6 +701,90 @@ def test_emulated_stream_mt_matches_plain_version(emulation, soup, tier):
                           else (1e-4, 1e-5))
             torch.testing.assert_close(k[0][both][same], p[0][both][same],
                                        rtol=rtol, atol=atol)
+
+
+@pytest.fixture(scope="module")
+def level_pairs(soup):
+    """The largest level's (ray, block) pairs of the ray-stream tracer on
+    the soup, per mode: (wave, limit, pair cases)."""
+    nodes, blocks, meta, _ = soup
+    out = {}
+    for any_hit, rays in ((False, RC), (True, RA)):
+        calls = []
+
+        def capture(*args):
+            calls.append(args[:4])
+            return rs.stream_mt_plain(*args)
+
+        pair = rs.make_stream_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                     mt_fn=capture)
+        pair[int(any_hit)](rays[0:3].T, rays[3:6].T, 1e-3, rays[7])
+        wave, limit, pair_ray, pair_block = max(
+            calls, key=lambda c: c[2].shape[0])
+        out[any_hit] = (wave, limit, kc.pair_cases(
+            pair_ray, pair_block, wave.shape[1], blocks.shape[0]))
+    return out
+
+
+@pytest.mark.parametrize("case", ["real", "cross_chunk", "single",
+                                  "one_block", "padding", "tied"])
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_emulated_chunked_stream_mt_is_the_per_pair_kernel(
+        emulation, soup, level_pairs, tier, any_hit, case):
+    """The chunked K15 (each block staged once per CTA, R pairs a thread,
+    a last round's tasks split over up to 16 threads) gives the
+    one-thread-per-pair kernel's t, slot, u and v in every bit: on the
+    soup's real pairs, runs longer than a chunk, runs of one pair, one
+    block for every pair, padding and ids out of range, and the long runs
+    against blocks whose every hit has an exact-t twin in the other half
+    (the lower slot wins, also across the lanes of a split task). Chunks
+    of runs shorter than 32 pairs on average ("single", some of "real")
+    take the per-pair path inside the chunked kernel."""
+    _, blocks, _, _ = soup
+    wave, limit, cases = level_pairs[any_hit]
+    pair_ray, pair_block = cases["cross_chunk" if case == "tied" else case]
+    if case == "tied":
+        blocks = kc.tied_blocks(blocks)
+    with emulation:
+        k = emu.stream_mt(wave, limit, pair_ray, pair_block, blocks, any_hit,
+                          tier)
+        p = emu.stream_mt(wave, limit, pair_ray, pair_block, blocks, any_hit,
+                          tier, per_pair=True)
+    assert emu.same_bits(k, p)
+    assert (k[1] >= 0).sum() > (10 if case == "single" else 100)
+    if case == "padding":
+        dead = ((pair_block < 0) | (pair_block >= blocks.shape[0])
+                | (pair_ray < 0) | (pair_ray >= wave.shape[1]))
+        assert dead.sum() > 600 and (k[1][dead] == -1).all()
+
+
+@pytest.mark.parametrize("case", kc.PREFIX_CASES)
+def test_emulated_level_prefix_is_its_plain_version(emulation, case):
+    """The redesigned K11 (a scan block with every item in registers,
+    then a grid of fill warps) writes bf_prefix_plain's distinct nodes,
+    offsets, regions, unit tables, every lane of the pair lists and the
+    status row, in every bit: on a level of 5,000 units and 1,300
+    distinct nodes (five passes of the scan, 264 fill blocks), the same
+    with both capacities at half its need, an empty level, and regions of
+    exactly 128 lanes."""
+    lv = kc.prefix_level(case)
+    got, ref = kc.prefix_buffers(lv), kc.prefix_buffers(lv)
+    with emulation:
+        k = bf.prefix_kernel(*kc.prefix_args(lv, got))
+    p = bf.bf_prefix_plain(*kc.prefix_args(lv, ref))
+    assert kc.same_prefix(k, got, p, ref, int(lv["level"][0])) == []
+    stat = got[3].tolist()
+    if case == "overflow":
+        assert stat[bf.LOST] > 0 and stat[bf.NEED_NEXT] > stat[bf.NEXT]
+    elif case == "empty":
+        assert stat == [0, 37, 0, 0, 37, 0, 0, 0]
+    else:
+        assert stat[bf.LOST] == 0 and stat[bf.DISTINCT] > 250
+    if case == "exact128":
+        assert (got[0] != -1).all() and (got[1] != -1).all()
+    elif case != "empty":
+        assert (got[0] == -1).sum() > 1000 and (got[1] == -1).sum() > 1000
 
 
 @pytest.mark.parametrize("tier", ["highest", "high"])

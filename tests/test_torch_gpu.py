@@ -9,15 +9,20 @@ warp-wide drains of K1, K3 closest and the instanced any hit against the
 per-thread pipelined walk (`per_thread=True`), of K2 and K6 any hit
 against K8's per-thread any-hit half, and of K7 and K9 against their
 per-thread walks in every output bit and per-ray count;
-the leaf-pair kernel (K15) against its plain version and the ray-stream
-tracer against
-K1/K2 bit for bit; the breadth-first pipeline's five kernels (K10-K14)
+the leaf-pair kernel (K15) against its plain version, its chunked
+schedule against its one-thread-per-pair reference bit for bit, and the
+ray-stream tracer against K1/K2 bit for bit; the redesigned level prefix
+(K11) against its plain version on synthetic levels; the breadth-first
+pipeline's five kernels (K10-K14)
 against their plain versions level by level and its tracer against K1/K2
 bit for bit, with its capacities forced small; the wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
 installed (`python -m pytest tests/test_torch_gpu.py -m gpu`)."""
+
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -29,6 +34,9 @@ from platinum_tpu_torch.ops import bfstream as bf
 from platinum_tpu_torch.ops import packet_trace as pt
 from platinum_tpu_torch.ops import raystream as rs
 from platinum_tpu_torch.ops import threefry
+
+sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+import torch_kernel_cases as kc  # noqa: E402
 
 pytestmark = pytest.mark.gpu
 TMIN = 1e-3
@@ -792,6 +800,60 @@ def test_stream_mt_kernel_matches_plain_version(soup_on_card, tier):
                                        rtol=rtol, atol=atol)
 
 
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_chunked_stream_mt_is_the_per_pair_kernel(soup_on_card, tier):
+    """The chunked K15 against its one-thread-per-pair reference on the
+    card, t, slot, u and v in every bit: every level's real pairs, and the
+    largest level's pairs rearranged (tests/torch_kernel_cases.py) into
+    runs longer than a chunk, runs of one pair, one block for all and a
+    wave with dead pairs (block -1, ids out of range); one counted launch
+    of each kernel per call."""
+    nodes, blocks, meta, _ = soup_on_card
+    args = (nodes.reshape(-1, 128), blocks, meta)
+    for any_hit, tmax in ((False, float("inf")), (True, 8.0)):
+        rays = _rays(4096, tmax, nodes.device)
+        key, ref_key = (rs.launch_key(any_hit, tier, r) for r in (False, True))
+        calls = _level_pairs(args, rays, any_hit, tmax)
+        wave, limit, pair_ray, pair_block = max(
+            calls, key=lambda c: c[2].shape[0])
+        lists = [c[2:] for c in calls] + [
+            (r.to(wave.device), b.to(wave.device)) for r, b in
+            kc.pair_cases(pair_ray, pair_block, wave.shape[1],
+                          blocks.shape[0]).values()]
+        for pr, pb in lists:
+            before = (rs.LAUNCHES[key], rs.LAUNCHES[ref_key])
+            k = rs.stream_mt(wave, limit, pr, pb, blocks, any_hit, tier)
+            p = rs.stream_mt(wave, limit, pr, pb, blocks, any_hit, tier,
+                             per_pair=True)
+            torch.cuda.synchronize()
+            assert (rs.LAUNCHES[key], rs.LAUNCHES[ref_key]) == (
+                before[0] + 1, before[1] + 1)
+            assert all(_bits(a, b) for a, b in zip(k, p))
+        assert (k[1] >= 0).sum() > 100
+
+
+@pytest.mark.parametrize("case", kc.PREFIX_CASES)
+def test_level_prefix_is_its_plain_version(case):
+    """The redesigned K11 (scan block, then the fill grid) on the card
+    against bf_prefix_plain on synthetic levels: 5,000 units of 1,300
+    distinct nodes, the same overflowing both capacities, an empty level,
+    regions of exactly 128 lanes; every table, tail lane and status word
+    bitwise; one counted launch of the scan and of the fill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    lv = kc.prefix_level(case)
+    got = kc.prefix_buffers(lv, "cuda")
+    ref = kc.prefix_buffers(lv, "cuda")
+    before = (bf.LAUNCHES["prefix"], bf.LAUNCHES["prefix fill"])
+    k = bf.bf_prefix(*kc.prefix_args(lv, got, "cuda"))
+    torch.cuda.synchronize()
+    assert (bf.LAUNCHES["prefix"], bf.LAUNCHES["prefix fill"]) == (
+        before[0] + 1, before[1] + 1)
+    p = bf.bf_prefix_plain(*kc.prefix_args(lv, ref, "cuda"))
+    assert kc.same_prefix(k, got, p, ref, int(lv["level"][0])) == []
+    assert (int(got[3][bf.LOST]) > 0) == (case == "overflow")
+
+
 def test_stream_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
     """The ray-stream tracer on the card against the packet tracer: hit
     set and t bit for bit, ids equal (the soup has no exact-t ties
@@ -905,8 +967,8 @@ def test_bf_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
     rec, segs = tc.with_levels(o, d, TMIN, float("inf"))
     levels = segs[0]["stat"].shape[0] - 1
     ran = {k: v - before[k] for k, v in bf.LAUNCHES.items() if v != before[k]}
-    assert ran == {"expand": levels, "prefix": levels, "emit": levels,
-                   "bwd": levels, "mt closest": 1}
+    assert ran == {"expand": levels, "prefix": levels, "prefix fill": levels,
+                   "emit": levels, "bwd": levels, "mt closest": 1}
     ref = pc(o, d, TMIN, float("inf"))
     assert torch.equal(rec.hit, ref.hit) and ref.hit.sum() > 100
     assert _bits(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)

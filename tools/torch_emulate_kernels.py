@@ -9,7 +9,8 @@ instantiation shows only on the card. This tool compiles
 platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
 headers (the qualifiers as empty macros, `float2`, `float4`, `dim3`,
 `__ldg`, the bit casts, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
-thread-local `blockIdx` / `threadIdx`, `__shared__` as a static), with
+thread-local `blockIdx` / `threadIdx` / `blockDim` / `gridDim`, `__shared__`
+as a static), with
 the L2 prefetch `asm` removed and every `<<<grid, block>>>` launch
 rewritten into a call of `emu_launch`, which runs the blocks one after
 another and the threads of a block as coroutines, so that
@@ -125,7 +126,7 @@ inline float __fmul_rn(float a, float b) {
 inline size_t __cvta_generic_to_global(const void* p) { return (size_t)p; }
 inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs((int)x); }
-extern thread_local dim3 blockIdx, threadIdx, blockDim;
+extern thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;
 
 // The threads of a block run as coroutines, one after another: a thread
 // runs until it returns or reaches __syncthreads() or a warp collective,
@@ -265,6 +266,7 @@ void emu_launch(dim3 grid, int threads, F f, A... a) {
   auto& th = emu_threads();
   th.assign(threads, EmuThread{});
   blockDim = dim3(threads);
+  gridDim = grid;
   emu_body() = [&]() { f(a...); };
   for (unsigned b = 0; b < grid.x; ++b) {
     blockIdx = dim3(b);
@@ -333,7 +335,8 @@ def host_source(text: str) -> str:
         raise ValueError("no kernel launch found to rewrite")
     return text.replace(
         "namespace {",
-        "thread_local dim3 blockIdx, threadIdx, blockDim;\nnamespace {", 1)
+        "thread_local dim3 blockIdx, threadIdx, blockDim, gridDim;\n"
+        "namespace {", 1)
 
 
 def _write_headers(out_dir: str) -> str:
@@ -468,13 +471,17 @@ def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
 
 
 def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit,
-              mt_precision="highest"):
-    """`raystream.stream_mt` through the emulated kernel."""
+              mt_precision="highest", per_pair=False):
+    """`raystream.stream_mt` through the emulated kernel (`per_pair`: the
+    one-thread-per-pair reference kernel)."""
     n = pair_ray.shape[0]
     t, u, v = (torch.empty(n) for _ in range(3))
     slot = torch.empty(n, dtype=torch.int32)
     if n:
-        rc = pt._libs["stream_mt"].stream_mt_launch(
+        lib = pt._libs["stream_mt"]
+        entry = (lib.stream_mt_per_pair_launch if per_pair
+                 else lib.stream_mt_launch)
+        rc = entry(
             rays.data_ptr(), rays.shape[1], limit.data_ptr(),
             pair_ray.data_ptr(), pair_block.data_ptr(), n, blocks.data_ptr(),
             blocks.shape[0], int(bool(any_hit)), pt.PRECISIONS[mt_precision],

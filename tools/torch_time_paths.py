@@ -21,7 +21,8 @@ chunk_shade=65536, `raystream` = headline_compact traced by the
 breadth-first ray-stream pair (K15) as `tracers=`, `pipe` =
 headline_compact traced by the packet tracer with the pipelined walk
 (K9, make_packet_tracer(pipe=True)) as `tracers=`, each stepped through
-integrator.render_step_n. `--root` imports platinum_tpu_torch
+integrator.render_step_n, `bf` = headline_compact with tracer="bf" (the
+breadth-first pipeline, K10-K14, for closest hit). `--root` imports platinum_tpu_torch
 from another checkout, so two versions can be timed in turns within one
 call on one card; a checkout whose port has no scenes module of its own
 takes the colonnade from that checkout's JAX package scenes module (numpy
@@ -58,6 +59,7 @@ CONFIGS = {
     "chunk_shade": dict(HEADLINE, chunk_shade=65536),
     "raystream": HEADLINE,
     "pipe": HEADLINE,
+    "bf": dict(HEADLINE, tracer="bf"),
 }
 # the configs traced by a tracer pair of their own (`tracers=`)
 TRACERS = ("raystream", "pipe")
@@ -170,7 +172,7 @@ def _profile(integrator, r, s, feats, tracers, batch):
             continue
         dt = ev.self_device_time_total
         device_us += dt
-        if "wide_trace" in ev.key or "stream_mt" in ev.key:
+        if any(k in ev.key for k in ("wide_trace", "stream_mt", "bf_")):
             trace_us[ev.key[:160]] = [dt / 1e3 / batch, ev.count / batch]
     device_ms = device_us / 1e3 / batch
     return dict(profiled_wall_ms=wall, device_kernel_ms=device_ms,
