@@ -163,11 +163,14 @@ Phases, one printed block each (any failure exits non-zero):
      device time summed over the levels beside its plain version's and its
      bound, and one scatter_reduce "amin" of packed (t, slot) keys per
      level over K14's pre-gathered edges (routing and gathers untimed: no
-     PyTorch call computes K14's function, so its library entry is null)
+     PyTorch call computes K14's function, so its library entry is null);
+     the redesigned K13 at every tier and K14 on every level against the
+     kernels they were before (`per_tile=True`, `per_unit=True`) in every
+     bit, each timed beside them, and the MT tiles by live lanes
   4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
      Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
-     and K2 may launch, the image within RMSE IMAGE_RMSE of 4f's K1 render at
-     the same 2 spp; launches per spp and per kernel
+     and K2 may launch, the image K1's (RMSE 0 against 4f's render at the
+     same 2 spp); launches per spp and per kernel
   3c also times K4 at mt_precision="default" on the bounce wave, with its
      bound (one bf16 product per block test), and launches it once
      through make_packet_tracer
@@ -1776,12 +1779,25 @@ def _bf_work(seg, any_hit, occluded=0):
     return work
 
 
+def _live_histogram(mt_pairs, n_tiles, n_rays):
+    """Tiles of the MT list by live lanes: {range: tiles}."""
+    r = mt_pairs[:n_tiles * 128].view(n_tiles, 128)
+    live = ((r >= 0) & (r < n_rays)).sum(dim=1)
+    edges = (0, 1, 2, 17, 33, 65, 97, 128, 129)
+    return {(f"{lo}" if hi == lo + 1 else f"{lo}-{hi - 1}"):
+            int(((live >= lo) & (live < hi)).sum())
+            for lo, hi in zip(edges[:-1], edges[1:])}
+
+
 def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     """Every kernel of one traced wave (one segment) against its plain
     version on the same inputs, on the card: integer outputs and K13's /
     K14's results in every bit (the plain versions sum in the kernels'
-    order). Returns ({kernel: kernel ms summed over the wave's levels},
-    {kernel: plain ms}, K14's yardstick ms): each kernel timed over
+    order); K13 at every tier and K14 on every level against the kernels
+    they were before their redesign (`per_tile=True`, `per_unit=True`),
+    in every bit. Returns ({kernel: kernel ms summed over the wave's
+    levels}, {kernel: plain ms}, K14's yardstick ms, {K13 / K14 and their
+    references, K13 at "high" and "default": ms}): each kernel timed over
     `reps` launches on its recorded inputs, the yardstick being one
     torch.scatter_reduce("amin") of packed (t, slot) int64 keys per
     level."""
@@ -1849,6 +1865,17 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     k = n_mt * 128
     check(all(_bits(a[:k], b[:k]) for a, b in zip(got, ref)),
           f"{label}: K13 differs from its plain version")
+    redesign = {"K14": 0.0, "K14 per_unit": 0.0}
+    for tier in ("highest", "high", "default"):
+        targs = (*margs, tier)
+        new = bf.bf_mt(*targs)
+        old = bf.bf_mt(*targs, per_tile=True)
+        check(all(_bits(a[:k], b[:k]) for a, b in zip(new, old)),
+              f"{label}: K13 at {tier!r} differs from its per-tile "
+              f"reference")
+        redesign[f"K13 {tier}"] = _device_ms(lambda: bf.bf_mt(*targs), reps)
+        redesign[f"K13 {tier} per_tile"] = _device_ms(
+            lambda: bf.bf_mt(*targs, per_tile=True), reps)
     res_k = res_p = None
     lib_ms = 0.0
     for lvl in range(len(levels) - 2, -1, -1):
@@ -1864,6 +1891,14 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         check(all(_bits(a[:n * 128], b[:n * 128])
                   for a, b in zip(res_k, res_p)),
               f"{label} level {lvl}: K14 differs from its plain version")
+        old = bf.bf_bwd(*bargs, child, got, per_unit=True)
+        check(all(_bits(a[:n * 128], b[:n * 128])
+                  for a, b in zip(res_k, old)),
+              f"{label} level {lvl}: K14 differs from its per-unit "
+              f"reference")
+        redesign["K14"] = ms["bwd"]
+        redesign["K14 per_unit"] += _device_ms(
+            lambda: bf.bf_bwd(*bargs, child, got, per_unit=True), reps)
         # the yardstick: the same per-pair minimum as one scatter_reduce
         # of packed (t, slot) keys over the level's (pair, child) edges
         sel, pos, in_mt = bf._routes(lv["masks"], n, lv["dn"], lv["uoff"],
@@ -1886,7 +1921,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         check(torch.equal(out[hit] & 0xFFFFFFFF,
                           res_k[1][:n * 128][hit].long()),
               f"{label} level {lvl}: the yardstick's minimum is not K14's")
-    return ms, plain_ms, lib_ms
+    return ms, plain_ms, lib_ms, redesign
 
 
 def phase_bf(ctx):
@@ -1904,8 +1939,9 @@ def phase_bf(ctx):
     def certify(ray):
         return _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32)
 
-    print("K10-K14, the breadth-first pipeline, and its tracer (3k):",
-          flush=True)
+    grids = bf.resident_grids(blocks.device)
+    print(f"K10-K14, the breadth-first pipeline, and its tracer (3k); the "
+          f"CTAs K13 and K14 launch: {grids}", flush=True)
     tc, ta = bf.make_bf_tracer(flat.wbvh_nodes, blocks, meta)
     rows = {}
     for name, wave, any_hit in JOBS:
@@ -1947,8 +1983,16 @@ def phase_bf(ctx):
         syncs = len(where)
         wave_ms = _time_ms(lambda: trace(o, d, rays[6], rays[7]), 5)
         occluded = int(res.sum()) if any_hit else 0
-        ms, plain_ms, lib_ms = _bf_hold_wave(
+        ms, plain_ms, lib_ms, redesign = _bf_hold_wave(
             f"3k {wave}", seg, nodes, meta, blocks, any_hit)
+        mtr = seg["levels"][-1]
+        print(f"    {wave}: MT tiles by live lanes "
+              f"{_live_histogram(mtr['mt_pairs'], st[-1][1], n)}; device "
+              f"ms, the redesigned K13 (every tier) and K14 beside the "
+              f"kernels before (per_tile, per_unit), each held to them in "
+              f"every bit: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in redesign.items()),
+              flush=True)
         work = _bf_work(seg, any_hit, occluded)
         print(f"  bf tracer per {n}-ray wave, {name}: {wave_ms:.3f} ms "
               f"({wall_ms:.1f} ms with the level records), traced "
@@ -1972,6 +2016,10 @@ def phase_bf(ctx):
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        max_abs_err=0.0, library_ms=None)
+            if k in ("mt", "bwd"):
+                # the kernel before the redesign on the same inputs
+                row["reference_ms"] = redesign[
+                    "K13 highest per_tile" if k == "mt" else "K14 per_unit"]
             if wave == "bounce" and k != "mt":
                 rows[k] = row
             if k == "mt" and wave in ("bounce", "shadow"):
@@ -2418,6 +2466,8 @@ def phase_bf_render(scene, cam, base_img):
           f"{dict(bf.LAUNCHES)}",
           flush=True)
     check(rmse <= IMAGE_RMSE, f"the bf render is {rmse:.3e} RMSE off K1's")
+    # K10-K14 compute K1's closest hits to the bit on these waves (3k)
+    check(rmse == 0.0, f"the bf render is not K1's: RMSE {rmse:.3e}")
     return launches
 
 
@@ -2669,6 +2719,15 @@ def _design(name):
     elif "bf_prefix" in name:
         return ("one scan block, every item in registers, then a grid of "
                 "fill warps (two launches)")
+    elif "bf_mt" in name:
+        return ("CTAs the card holds, CTA c taking MT tiles c, c + grid, "
+                "...; a tile's live lanes 2 rays a thread (4 at default), "
+                "split over up to 16 lanes where few; rays and blocks "
+                "staged ahead (cp.async)")
+    elif "bf_bwd" in name:
+        return ("CTAs the card holds striding over the units; a lane's "
+                "(t, slot) gathers issued together, u, v for the winner "
+                "alone")
     elif "bf_" in name:
         return "breadth-first level step"
     elif "stream_mt" in name:
@@ -2802,8 +2861,8 @@ def main():
                     plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
                     bound_by=row["bound_by"],
                     library_ms=row.get("library_ms"),
-                    **{k: row[k] for k in ("plain_rays", "fill_launches")
-                       if k in row})
+                    **{k: row[k] for k in ("plain_rays", "fill_launches",
+                                           "reference_ms") if k in row})
                for name, source, replaces, row, launches in table]
     stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"
     for kind, mode in (("closest", "closest"), ("any", "any-hit")):

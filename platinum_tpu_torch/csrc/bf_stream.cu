@@ -26,10 +26,11 @@
 //   exclusive prefix of that child's counts over the earlier units of the
 //   same node, and K12 / K14 units run independently. Ranks within a tile
 //   come from warp ballots and popcounts, not a triangular product.
-// - The level's unit count stays on the device (K11's status row): K10,
-//   K12 and K14 launch one 128-thread block per unit of the level's
-//   capacity and the blocks past the count return at once, so a wave
-//   needs no host sync until its end.
+// - The level's unit count stays on the device (K11's status row): K10
+//   and K12 launch one 128-thread block per unit of the level's capacity
+//   and the blocks past the count return at once; K13 and K14 launch the
+//   CTAs the card holds at once, which read the count and take the units
+//   below it. A wave needs no host sync until its end.
 // - K11 is a scan over the level in one block of 1024 threads, every item
 //   in registers (distinct nodes, per-child prefix sums, then the regions
 //   of the children in node order, child by child, with the MT cursor
@@ -41,24 +42,36 @@
 //   size a trace again (ops/bfstream.py never drops a pair). The TPU
 //   kernel skips a child that does not fit and goes on; the two agree
 //   whenever nothing overflows.
-// - K13 stages the unit's 64-triangle block in shared memory once and
-//   tests each lane's ray against it with mt_block.cuh's block test,
-//   forming the features itself from the gathered ray, so that a (ray,
-//   triangle) pair's t is the packet kernel's to the bit.
+// - K13: the CTAs the card holds take the MT list's tiles in turn. A
+//   tile's live lanes (found by ballot: a region's last tile has a dead
+//   tail) are cut into tasks of R rays a thread, split over up to 16
+//   lanes when they are few, and tested against the tile's block, staged
+//   in shared memory by cp.async with the tile's rays while the tiles
+//   before are tested (mt_chunk.cuh, K15's task code). Each ray's
+//   features are formed by mt_block.cuh's code from the gathered ray, and
+//   each (ray, triangle) pair keeps its sequence of operations, so its t
+//   is the packet kernel's to the bit.
 // - K14 gathers, for each pair, its children's results by the same ranks
 //   and offsets and keeps the least (t, slot id) pair: a gather, no
-//   atomics, deterministic. Level 0's pairs are the segment's rays in
+//   atomics, deterministic. It issues every selected child's (t, slot id)
+//   loads together, then reduces them in child order, then reads u and v
+//   of the winner alone. Level 0's pairs are the segment's rays in
 //   order, so its results are the segment's.
+// - The kernels before the redesign of K13 and K14 stay as their
+//   references, each behind an entry of its own (`bf_mt_per_tile_launch`,
+//   `bf_bwd_per_unit_launch`).
 //
 // What bounds them on this card: K13 does the work (5,120 FLOP per live
-// pair at "highest" against a 10 KB block read once per tile); K10 reads
-// a 512 B node per tile and 32 B per lane and does 16 slab tests of 12
-// FLOP per lane; K12 and K14 move 4 B and 16 B per pair and child; K11
+// pair at "highest" against a 10 KB block read once per tile; the accept
+// test beside the 40 FMAs of a (ray, triangle) pair caps FFMA issue near
+// 60%); K10 reads a 512 B node per tile and 32 B per lane and does 16
+// slab tests of 12 FLOP per lane; K12 and K14 move 4 B and 16 B per pair
+// and child (K14's three dependent loads a unit bound it in practice); K11
 // moves a few MB (its bound is ~1 us) but its scan is one block whose
 // passes are chains of barriers and dependent reads (on an H100 about 20
 // us a level, 13 of them the scan, even for a level of one node).
 
-#include "mt_block.cuh"
+#include "mt_chunk.cuh"
 
 namespace {
 
@@ -444,30 +457,41 @@ bf_prefix_fill_kernel(const int* __restrict__ meta, int n_nodes,
 // the lanes below it in the tile with the same bit.
 // ---------------------------------------------------------------------------
 
-struct Ranks {
-  int below[kChildren];   // lanes of the warp below this one with bit c
-};
-
-// Warp ballots of every child bit; the per-warp counts go to `warp_count`
-// (the caller synchronises before reading them).
-__device__ __forceinline__ void tile_ranks(int mask, Ranks& rk,
-                                           int (*warp_count)[kWarps]) {
-  const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
-  const unsigned lower = (1u << wl) - 1u;
+// Ranks within the warp from one ballot per child; the warp's per-child
+// counts go to cnt[warp] packed, child c in byte c % 4 of word c / 4 (a
+// count is at most 32, so three lower warps' words add bytewise without a
+// carry). The caller synchronises, then `add_lower_warps` completes the
+// ranks: one prefix of the packed counts per tile, not a loop per child.
+__device__ __forceinline__ void warp_ranks(int mask, int (&below)[kChildren],
+                                           int4* cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const unsigned lower = (1u << lane) - 1u;
+  unsigned w[4] = {0u, 0u, 0u, 0u};
 #pragma unroll
   for (int c = 0; c < kChildren; ++c) {
     const unsigned b = __ballot_sync(kFull, (mask >> c) & 1);
-    rk.below[c] = __popc(b & lower);
-    if (wl == 0) warp_count[c][warp] = __popc(b);
+    below[c] = __popc(b & lower);
+    w[c >> 2] |= static_cast<unsigned>(__popc(b)) << (8 * (c & 3));
   }
+  if (lane == 0)
+    cnt[warp] = make_int4(static_cast<int>(w[0]), static_cast<int>(w[1]),
+                          static_cast<int>(w[2]), static_cast<int>(w[3]));
 }
 
-__device__ __forceinline__ int tile_rank(const Ranks& rk,
-                                         int (*warp_count)[kWarps], int c) {
+__device__ __forceinline__ void add_lower_warps(int (&below)[kChildren],
+                                                const int4* cnt) {
   const int warp = threadIdx.x >> 5;
-  int rank = rk.below[c];
-  for (int w = 0; w < warp; ++w) rank += warp_count[c][w];
-  return rank;
+  unsigned s[4] = {0u, 0u, 0u, 0u};
+  for (int w = 0; w < warp; ++w) {
+    const int4 x = cnt[w];
+    s[0] += static_cast<unsigned>(x.x);
+    s[1] += static_cast<unsigned>(x.y);
+    s[2] += static_cast<unsigned>(x.z);
+    s[3] += static_cast<unsigned>(x.w);
+  }
+#pragma unroll
+  for (int c = 0; c < kChildren; ++c)
+    below[c] += static_cast<int>((s[c >> 2] >> (8 * (c & 3))) & 0xffu);
 }
 
 __global__ void __launch_bounds__(kLanes)
@@ -478,12 +502,13 @@ bf_emit_kernel(const int* __restrict__ pairs, const int* __restrict__ masks,
   const int u = blockIdx.x;
   if (u >= level[kNext]) return;
   const int lane = threadIdx.x;
-  __shared__ int warp_count[kChildren][kWarps];
+  __shared__ int4 cnt[kWarps];
   const int mask = masks[(size_t)u * kLanes + lane];
   const int r = pairs[(size_t)u * kLanes + lane];
-  Ranks rk;
-  tile_ranks(mask, rk, warp_count);
+  int below[kChildren];
+  warp_ranks(mask, below, cnt);
   __syncthreads();
+  add_lower_warps(below, cnt);
   const int d = dn[u];
 #pragma unroll
   for (int c = 0; c < kChildren; ++c) {
@@ -491,15 +516,71 @@ bf_emit_kernel(const int* __restrict__ pairs, const int* __restrict__ masks,
     const int rec = base[(size_t)d * kChildren + c];
     if (rec < 0) continue;
     const size_t pos = (size_t)(rec & (kMtTag - 1)) * kLanes +
-                       uoff[(size_t)u * kChildren + c] +
-                       tile_rank(rk, warp_count, c);
+                       uoff[(size_t)u * kChildren + c] + below[c];
     (rec >= kMtTag ? mt_pairs : pairs_next)[pos] = r;
   }
 }
 
+// CTAs of `kKernel` (kThreads threads) that the card holds at once, with
+// the largest shared-memory carveout: the grid of a persistent kernel,
+// asked of the runtime once
+template <auto kKernel, int kThreads>
+int resident_ctas() {
+  static const int ctas = [] {
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaFuncSetAttribute(kKernel,
+                         cudaFuncAttributePreferredSharedMemoryCarveout,
+                         cudaSharedmemCarveoutMaxShared);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kKernel, kThreads,
+                                                  0);
+    return max(1, sms * per_sm);
+  }();
+  return ctas;
+}
+
+__device__ __forceinline__ int clamp_block(int b, int n_blocks) {
+  return min(max(b, 0), n_blocks - 1);
+}
+
 // ---------------------------------------------------------------------------
-// K13: one block per MT unit (a leaf block x a tile of its pairs).
+// K13: persistent CTAs, CTA c taking tiles c, c + G, c + 2G, ... of the
+// MT list (G the grid), so that each takes a like share of full and
+// part-live tiles (on an H100, contiguous ranges of tiles ran 7% faster
+// on the headline's bounce wave and 36% slower on a render's thin waves).
+// A tile's live lanes are found by ballot and cut into tasks of R rays a
+// thread (mt_chunk.cuh `test_rays`), split over g lanes where they are
+// few. The loads run ahead of the tests (cp.async): the next tile's rays
+// into shared memory, the blocks two tiles ahead into a ring of three
+// slots, the pairs and block ids in registers a round or two ahead.
 // ---------------------------------------------------------------------------
+
+constexpr int kRing = 3;                        // staged blocks
+constexpr int kSlotFloats = kBlockFloats + 4;   // the slots' equal offsets
+                                                // in other banks
+
+// Issue the cp.async copies of block b into `dst`, 16 bytes a thread at a
+// time; the caller commits them.
+__device__ __forceinline__ void stage_block(float* dst,
+                                            const float* __restrict__ blocks,
+                                            int b) {
+  const float* src = blocks + (size_t)b * kBlockFloats;
+  for (int q = threadIdx.x; q < kBlockFloats / 4; q += kLanes)
+    copy16_async(dst + 4 * q, src + 4 * q);
+}
+
+// Issue the cp.async copies of this thread's lane's ray (pair r) into
+// column threadIdx.x of `dst` (its eight rows), where the lane is live;
+// the caller commits them.
+__device__ __forceinline__ void stage_ray(float (*dst)[kLanes], int r,
+                                          const float* __restrict__ rays,
+                                          int n_rays) {
+  if (r < 0 || r >= n_rays) return;
+#pragma unroll
+  for (int k = 0; k < 8; ++k)
+    copy4_async(&dst[k][threadIdx.x], rays + (size_t)k * n_rays + r);
+}
 
 template <bool kAnyHit, int kPrec>
 __global__ void __launch_bounds__(kLanes)
@@ -508,11 +589,161 @@ bf_mt_kernel(const int* __restrict__ mt_pairs, const int* __restrict__ mt_units,
              int n_rays, const float* __restrict__ blocks, int n_blocks,
              float* __restrict__ t_out, int* __restrict__ sid_out,
              float* __restrict__ u_out, float* __restrict__ v_out) {
+  constexpr int R = task_rays<kPrec>();
+  __shared__ __align__(16) float blk[kRing][kSlotFloats];
+  // a tile's rays by lane, and its live lanes, warp w's at [w * 32, w * 32
+  // + count) with each warp's count; two of each, the tile's and the next
+  // one's
+  __shared__ float s_rays[2][8][kLanes];
+  __shared__ int s_lane[2][kLanes];
+  __shared__ int s_live[2][kWarps];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const float inf = __int_as_float(0x7f800000);
+  const int n = level[kMtCur], step = gridDim.x, first = blockIdx.x;
+  if (first >= n) return;
+  // the pipeline as tile u sees it: the pairs of tiles u and u + step, the
+  // blocks of tiles u and u + step with their slots, the block id of
+  // u + 2 step
+  int r0 = mt_pairs[(size_t)first * kLanes + tid];
+  int r1 = first + step < n
+               ? mt_pairs[(size_t)(first + step) * kLanes + tid] : -1;
+  int b0 = clamp_block(mt_units[first], n_blocks);
+  int b1 = first + step < n ? clamp_block(mt_units[first + step], n_blocks)
+                            : b0;
+  int next_id = first + 2 * step < n ? mt_units[first + 2 * step] : 0;
+  int s0 = 0, s1 = b1 == b0 ? 0 : 1;
+  stage_block(blk[0], blocks, b0);
+  stage_ray(s_rays[0], r0, rays, n_rays);
+  copy_commit();
+  if (s1 != s0) stage_block(blk[s1], blocks, b1);
+  copy_commit();
+  for (int u = first, it = 0; u < n; u += step, ++it) {
+    const int p = it & 1;
+    const size_t i = (size_t)u * kLanes + tid;
+    const bool live = r0 >= 0 && r0 < n_rays;
+    if (!live) {
+      t_out[i] = inf;
+      sid_out[i] = -1;
+      u_out[i] = 0.f;
+      v_out[i] = 0.f;
+    }
+    const unsigned bal = __ballot_sync(kFull, live);
+    if (live) s_lane[p][warp * 32 + __popc(bal & ((1u << lane) - 1u))] = tid;
+    if (lane == 0) s_live[p][warp] = __popc(bal);
+    copy_wait<1>();     // this tile's rays and block
+    __syncthreads();    // every thread is past the tile before
+    // the next tile's rays, then the block two tiles ahead into the next
+    // slot of the ring where it differs from the next tile's (that slot
+    // was last read two distinct blocks ago); each a group
+    if (u + step < n) stage_ray(s_rays[p ^ 1], r1, rays, n_rays);
+    copy_commit();
+    int b2 = b1, s2 = s1;
+    if (u + 2 * step < n) {
+      b2 = clamp_block(next_id, n_blocks);
+      if (b2 != b1) {
+        s2 = s1 == kRing - 1 ? 0 : s1 + 1;
+        stage_block(blk[s2], blocks, b2);
+      }
+    }
+    copy_commit();
+    const int r2 =
+        u + 2 * step < n ? mt_pairs[(size_t)(u + 2 * step) * kLanes + tid]
+                         : -1;
+    next_id = u + 3 * step < n ? mt_units[u + 3 * step] : 0;
+
+    const int c0 = s_live[p][0], c1 = s_live[p][1], c2 = s_live[p][2];
+    const int n_live = c0 + c1 + c2 + s_live[p][3];
+    const int tasks = (n_live + R - 1) / R;
+    const int g = split_lanes(tasks, kLanes);
+    const int task = tid / g, part = tid & (g - 1);
+    const bool has = task < tasks;
+    float f[R][10], fh[R][10], fl[R][10], tmin[R], lim[R];
+    int dst[R];
+    Pick pick[R];
+    bool hit[R];
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int k = task * R + j;     // the task's j-th live lane
+      dst[j] = -1;
+      if (has && k < n_live) {
+        const int w = (k >= c0) + (k >= c0 + c1) + (k >= c0 + c1 + c2);
+        const int ln = s_lane[p][w * 32 + k - (w > 0 ? c0 : 0) -
+                                 (w > 1 ? c1 : 0) - (w > 2 ? c2 : 0)];
+        const float(*ray)[kLanes] = s_rays[p];
+        dst[j] = ln;
+        ray_features(ray[0][ln], ray[1][ln], ray[2][ln], ray[3][ln],
+                     ray[4][ln], ray[5][ln], f[j]);
+        tmin[j] = ray[6][ln];
+        lim[j] = ray[7][ln];
+      } else {
+#pragma unroll
+        for (int q = 0; q < 10; ++q) f[j][q] = 0.f;
+        tmin[j] = 0.f;
+        lim[j] = -inf;
+      }
+      if (kPrec != kHighest) split_features(f[j], fh[j], fl[j]);
+      pick[j] = Pick{inf, 0.f, 0.f, 0.f, -1};
+      hit[j] = dst[j] < 0;     // no ray stops no any-hit test early
+    }
+    if (has)
+      test_rays<kAnyHit, kPrec, R>(blk[s0], 4 * part, 4 * g, f, fh, fl,
+                                   tmin, lim, pick, hit);
+#pragma unroll
+    for (int j = 0; j < R; ++j)
+      if (kAnyHit) hit[j] = hit[j] && dst[j] >= 0;
+    combine_split<kAnyHit, R>(g, pick, hit);
+    if (has && part == 0) {
+#pragma unroll
+      for (int j = 0; j < R; ++j) {
+        if (dst[j] < 0) break;
+        const size_t o = (size_t)u * kLanes + dst[j];
+        float t = inf, bu = 0.f, bv = 0.f;
+        int sid = -1;
+        if (kAnyHit) {
+          if (hit[j]) {
+            t = 0.f;
+            sid = 0;
+          }
+        } else if (pick[j].slot >= 0 && pick[j].tb < lim[j]) {
+          const float iad = 1.0f / fmaxf(pick[j].ad, 1e-37f);
+          t = pick[j].tb;
+          sid = b0 * kBlockTris + pick[j].slot;
+          bu = pick[j].us * iad;
+          bv = pick[j].vs * iad;
+        }
+        t_out[o] = t;
+        sid_out[o] = sid;
+        u_out[o] = bu;
+        v_out[o] = bv;
+      }
+    }
+    r0 = r1;
+    r1 = r2;
+    b0 = b1;
+    b1 = b2;
+    s0 = s1;
+    s1 = s2;
+  }
+  copy_wait<0>();
+}
+
+// The reference of bf_mt_kernel (the kernel before the redesign): one CTA
+// per MT unit of the capacity, the block copied into shared memory, one
+// lane one ray through block_closest / block_any.
+template <bool kAnyHit, int kPrec>
+__global__ void __launch_bounds__(kLanes)
+bf_mt_per_tile_kernel(const int* __restrict__ mt_pairs,
+                      const int* __restrict__ mt_units,
+                      const int* __restrict__ level,
+                      const float* __restrict__ rays, int n_rays,
+                      const float* __restrict__ blocks, int n_blocks,
+                      float* __restrict__ t_out, int* __restrict__ sid_out,
+                      float* __restrict__ u_out, float* __restrict__ v_out) {
   const int u = blockIdx.x;
   if (u >= level[kMtCur]) return;
   const int lane = threadIdx.x;
   __shared__ __align__(16) float blk[kBlockFloats];
-  const int b = min(max(mt_units[u], 0), n_blocks - 1);
+  const int b = clamp_block(mt_units[u], n_blocks);
   const float4* src =
       reinterpret_cast<const float4*>(blocks + (size_t)b * kBlockFloats);
   for (int i = lane; i < kBlockFloats / 4; i += kLanes)
@@ -548,9 +779,8 @@ bf_mt_kernel(const int* __restrict__ mt_pairs, const int* __restrict__ mt_units,
 }
 
 // ---------------------------------------------------------------------------
-// K14: one block per unit; each lane keeps the least (t, slot id) of its
-// children's results, inner children from the level below, leaf children
-// from K13.
+// K14: each lane of a unit keeps the least (t, slot id) of its children's
+// results, inner children from the level below, leaf children from K13.
 // ---------------------------------------------------------------------------
 
 struct Results {
@@ -560,12 +790,117 @@ struct Results {
   const float* v;
 };
 
+// CTAs stride over the level's units, a grid sized to the card. Per unit:
+// the ranks (warp_ranks, one barrier, add_lower_warps), the unit's region
+// and offset rows in vector loads, then every selected child's (t, sid)
+// gathered at once, reduced in child order (strict < on t, then the
+// smaller sid: the reference's choice), and u, v gathered for the winner
+// alone.
 __global__ void __launch_bounds__(kLanes)
 bf_bwd_kernel(const int* __restrict__ masks, const int* __restrict__ level,
               const int* __restrict__ dn, const int* __restrict__ uoff,
               const int* __restrict__ base, Results child, Results mt,
               float* __restrict__ t_out, int* __restrict__ sid_out,
               float* __restrict__ u_out, float* __restrict__ v_out) {
+  __shared__ int4 cnt[2][kWarps];   // this unit's and the next one's
+  const int lane = threadIdx.x;
+  const int n = level[kNext];
+  for (int u = blockIdx.x, it = 0; u < n; u += gridDim.x, ++it) {
+    const size_t i = (size_t)u * kLanes + lane;
+    const int mask = masks[i];
+    const int d = dn[u];
+    int below[kChildren];
+    warp_ranks(mask, below, cnt[it & 1]);
+    int rec[kChildren], off[kChildren];
+#pragma unroll
+    for (int q = 0; q < kChildren / 4; ++q) {
+      const int4 x = reinterpret_cast<const int4*>(
+          base + (size_t)d * kChildren)[q];
+      const int4 y = reinterpret_cast<const int4*>(
+          uoff + (size_t)u * kChildren)[q];
+      rec[4 * q] = x.x; rec[4 * q + 1] = x.y;
+      rec[4 * q + 2] = x.z; rec[4 * q + 3] = x.w;
+      off[4 * q] = y.x; off[4 * q + 1] = y.y;
+      off[4 * q + 2] = y.z; off[4 * q + 3] = y.w;
+    }
+    __syncthreads();
+    add_lower_warps(below, cnt[it & 1]);
+    float tn[kChildren];
+    int sn[kChildren], pos[kChildren];
+#pragma unroll
+    for (int c = 0; c < kChildren; ++c) {
+      pos[c] = (rec[c] & (kMtTag - 1)) * kLanes + off[c] + below[c];
+      tn[c] = 0.f;
+      sn[c] = 0;
+      if (((mask >> c) & 1) && rec[c] >= 0) {
+        const bool in_mt = rec[c] >= kMtTag;
+        tn[c] = __ldg((in_mt ? mt.t : child.t) + pos[c]);
+        sn[c] = __ldg((in_mt ? mt.sid : child.sid) + pos[c]);
+      }
+    }
+    float best = __int_as_float(0x7f800000);
+    int bs = -1, wpos = 0;
+    bool won = false, wmt = false;
+#pragma unroll
+    for (int c = 0; c < kChildren; ++c) {
+      if (!((mask >> c) & 1) || rec[c] < 0) continue;
+      if (tn[c] < best || (tn[c] == best && sn[c] < bs)) {
+        best = tn[c];
+        bs = sn[c];
+        wpos = pos[c];
+        wmt = rec[c] >= kMtTag;
+        won = true;
+      }
+    }
+    float bu = 0.f, bv = 0.f;
+    if (won) {
+      bu = __ldg((wmt ? mt.u : child.u) + wpos);
+      bv = __ldg((wmt ? mt.v : child.v) + wpos);
+    }
+    t_out[i] = best;
+    sid_out[i] = bs;
+    u_out[i] = bu;
+    v_out[i] = bv;
+  }
+}
+
+// The reference of bf_bwd_kernel (the kernel before the redesign): one
+// CTA per unit of the capacity, the rank of each selected child summed
+// over the lower warps, each child's results gathered as the fold
+// reaches it.
+struct Ranks {
+  int below[kChildren];   // lanes of the warp below this one with bit c
+};
+
+__device__ __forceinline__ void tile_ranks(int mask, Ranks& rk,
+                                           int (*warp_count)[kWarps]) {
+  const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
+  const unsigned lower = (1u << wl) - 1u;
+#pragma unroll
+  for (int c = 0; c < kChildren; ++c) {
+    const unsigned b = __ballot_sync(kFull, (mask >> c) & 1);
+    rk.below[c] = __popc(b & lower);
+    if (wl == 0) warp_count[c][warp] = __popc(b);
+  }
+}
+
+__device__ __forceinline__ int tile_rank(const Ranks& rk,
+                                         int (*warp_count)[kWarps], int c) {
+  const int warp = threadIdx.x >> 5;
+  int rank = rk.below[c];
+  for (int w = 0; w < warp; ++w) rank += warp_count[c][w];
+  return rank;
+}
+
+__global__ void __launch_bounds__(kLanes)
+bf_bwd_per_unit_kernel(const int* __restrict__ masks,
+                       const int* __restrict__ level,
+                       const int* __restrict__ dn,
+                       const int* __restrict__ uoff,
+                       const int* __restrict__ base, Results child,
+                       Results mt, float* __restrict__ t_out,
+                       int* __restrict__ sid_out, float* __restrict__ u_out,
+                       float* __restrict__ v_out) {
   const int u = blockIdx.x;
   if (u >= level[kNext]) return;
   const int lane = threadIdx.x;
@@ -602,43 +937,68 @@ bf_bwd_kernel(const int* __restrict__ masks, const int* __restrict__ level,
   v_out[i] = bv;
 }
 
+struct MtLaunch {
+  cudaStream_t stream;
+  int mt_cap;
+  const int* mt_pairs;
+  const int* mt_units;
+  const int* level;
+  const float* rays;
+  int n_rays;
+  const float* blocks;
+  int n_blocks;
+  float* t;
+  int* sid;
+  float* u;
+  float* v;
+};
+
+template <bool kAnyHit, int kPrec>
+void launch_mt(const MtLaunch& l, bool per_tile) {
+  if (per_tile) {
+    bf_mt_per_tile_kernel<kAnyHit, kPrec><<<l.mt_cap, kLanes, 0, l.stream>>>(
+        l.mt_pairs, l.mt_units, l.level, l.rays, l.n_rays, l.blocks,
+        l.n_blocks, l.t, l.sid, l.u, l.v);
+  } else {
+    const int grid = min(
+        l.mt_cap, resident_ctas<bf_mt_kernel<kAnyHit, kPrec>, kLanes>());
+    bf_mt_kernel<kAnyHit, kPrec><<<grid, kLanes, 0, l.stream>>>(
+        l.mt_pairs, l.mt_units, l.level, l.rays, l.n_rays, l.blocks,
+        l.n_blocks, l.t, l.sid, l.u, l.v);
+  }
+}
+
 template <bool kAnyHit>
-int launch_mt(int prec, dim3 grid, cudaStream_t stream, const int* mt_pairs,
-              const int* mt_units, const int* level, const float* rays,
-              int n_rays, const float* blocks, int n_blocks, float* t,
-              int* sid, float* u, float* v) {
+int mt_by_precision(int prec, const MtLaunch& l, bool per_tile) {
   switch (prec) {
-    case kHighest:
-      bf_mt_kernel<kAnyHit, kHighest><<<grid, kLanes, 0, stream>>>(
-          mt_pairs, mt_units, level, rays, n_rays, blocks, n_blocks, t, sid,
-          u, v);
-      return 0;
-    case kHigh:
-      bf_mt_kernel<kAnyHit, kHigh><<<grid, kLanes, 0, stream>>>(
-          mt_pairs, mt_units, level, rays, n_rays, blocks, n_blocks, t, sid,
-          u, v);
-      return 0;
-    case kDefault:
-      bf_mt_kernel<kAnyHit, kDefault><<<grid, kLanes, 0, stream>>>(
-          mt_pairs, mt_units, level, rays, n_rays, blocks, n_blocks, t, sid,
-          u, v);
-      return 0;
+    case kHighest: launch_mt<kAnyHit, kHighest>(l, per_tile); return 0;
+    case kHigh: launch_mt<kAnyHit, kHigh>(l, per_tile); return 0;
+    case kDefault: launch_mt<kAnyHit, kDefault>(l, per_tile); return 0;
   }
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+int mt_launch(const MtLaunch& l, int any_hit, int mt_prec, bool per_tile) {
+  const int rc = any_hit ? mt_by_precision<true>(mt_prec, l, per_tile)
+                         : mt_by_precision<false>(mt_prec, l, per_tile);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 extern "C" {
 
-// Every entry launches one kernel on `cuda_stream` and returns
+// Every entry launches its kernels on `cuda_stream` and returns
 // cudaGetLastError() (0 on success); none allocates or synchronises. The
 // unit counts stay on the device: `level` points to the status row of the
 // level before (kStatWords int32; for level 0 a row holding the tile count
 // and MT cursor 0), whose kNext word is this level's unit count and kMtCur
-// word the MT cursor so far. Grids cover the capacity and blocks past the
-// count return. Pairs are int32 ray indices into rays (8, n_rays) f32
-// [ox, oy, oz, dx, dy, dz, tmin, tmax], -1 in a dead lane.
+// word the MT cursor so far. K10 and K12 launch a block per unit of the
+// capacity and the blocks past the count return; K13 and K14 launch the
+// CTAs the card holds at once (at most the capacity), which take the
+// units up to the count. Pairs are int32 ray indices into rays (8,
+// n_rays) f32 [ox, oy, oz, dx, dy, dz, tmin, tmax], -1 in a dead lane.
 
 // K10. units (cap_t,) node ids; pairs (cap_t, 128); nodes (n_nodes, 128)
 // f32 rows of 16 children x [lo, hi, meta, pad]. Writes masks (cap_t,
@@ -703,17 +1063,22 @@ int bf_mt_launch(const int* mt_pairs, const int* mt_units, const int* level,
                  int mt_cap, const float* rays, int n_rays,
                  const float* blocks, int n_blocks, int any_hit, int mt_prec,
                  float* t, int* sid, float* u, float* v, void* cuda_stream) {
-  const dim3 grid(mt_cap);
-  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  const int rc =
-      any_hit ? launch_mt<true>(mt_prec, grid, stream, mt_pairs, mt_units,
-                                level, rays, n_rays, blocks, n_blocks, t, sid,
-                                u, v)
-              : launch_mt<false>(mt_prec, grid, stream, mt_pairs, mt_units,
-                                 level, rays, n_rays, blocks, n_blocks, t,
-                                 sid, u, v);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return mt_launch(MtLaunch{static_cast<cudaStream_t>(cuda_stream), mt_cap,
+                            mt_pairs, mt_units, level, rays, n_rays, blocks,
+                            n_blocks, t, sid, u, v},
+                   any_hit, mt_prec, false);
+}
+
+// The same through the reference kernel, a CTA per unit of the capacity.
+int bf_mt_per_tile_launch(const int* mt_pairs, const int* mt_units,
+                          const int* level, int mt_cap, const float* rays,
+                          int n_rays, const float* blocks, int n_blocks,
+                          int any_hit, int mt_prec, float* t, int* sid,
+                          float* u, float* v, void* cuda_stream) {
+  return mt_launch(MtLaunch{static_cast<cudaStream_t>(cuda_stream), mt_cap,
+                            mt_pairs, mt_units, level, rays, n_rays, blocks,
+                            n_blocks, t, sid, u, v},
+                   any_hit, mt_prec, true);
 }
 
 // K14. child_*: the results of the level below (any valid pointers where
@@ -729,8 +1094,34 @@ int bf_bwd_launch(const int* masks, const int* level, int cap_t,
   const Results child{child_t, child_sid, child_u, child_v};
   const Results mt{mt_t, mt_sid, mt_u, mt_v};
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_bwd_kernel<<<cap_t, kLanes, 0, stream>>>(
+  const int grid = min(cap_t, resident_ctas<bf_bwd_kernel, kLanes>());
+  bf_bwd_kernel<<<grid, kLanes, 0, stream>>>(
       masks, level, dn, uoff, base, child, mt, t, sid, u, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same through the reference kernel, a block per unit of the capacity.
+int bf_bwd_per_unit_launch(const int* masks, const int* level, int cap_t,
+                           const int* dn, const int* uoff, const int* base,
+                           const float* child_t, const int* child_sid,
+                           const float* child_u, const float* child_v,
+                           const float* mt_t, const int* mt_sid,
+                           const float* mt_u, const float* mt_v, float* t,
+                           int* sid, float* u, float* v, void* cuda_stream) {
+  const Results child{child_t, child_sid, child_u, child_v};
+  const Results mt{mt_t, mt_sid, mt_u, mt_v};
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  bf_bwd_per_unit_kernel<<<cap_t, kLanes, 0, stream>>>(
+      masks, level, dn, uoff, base, child, mt, t, sid, u, v);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The grids of the persistent kernels on this card: out[0], out[1] K13
+// closest and any hit at "highest", out[2] K14.
+int bf_resident_grids(int* out) {
+  out[0] = resident_ctas<bf_mt_kernel<false, kHighest>, kLanes>();
+  out[1] = resident_ctas<bf_mt_kernel<true, kHighest>, kLanes>();
+  out[2] = resident_ctas<bf_bwd_kernel, kLanes>();
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -31,9 +31,11 @@
 // that of `block_dots` / `block_dots_split`). Tasks go to the threads in
 // rounds of up to 128 over at most kSlots - 1 runs; a round of fewer
 // tasks splits each task's 64 triangles over g = 2-16 threads (aligned
-// lanes of one warp), whose partial results are combined by shuffles,
-// the lower triangles winning ties, so the choice is `block_closest`'s
-// (least t, ties to the smallest slot). A chunk whose runs average fewer
+// lanes of one warp, each every g-th group of four), whose partial
+// results are combined by shuffles, the lower slot winning ties, so the
+// choice is `block_closest`'s (least t, ties to the smallest slot);
+// mt_chunk.cuh holds the task test, the combine and the cp.async helpers,
+// which K13 shares. A chunk whose runs average fewer
 // than kMinRun pairs (thin waves deep in a render) stages nothing: each
 // thread tests its pairs one at a time through the read-only cache, the
 // per-pair code. The one-thread-per-pair kernel
@@ -60,7 +62,7 @@
 // left is the accept test, ~16 instructions per (ray, triangle) beside its
 // 40 FMAs, and each round's barriers.
 
-#include "mt_block.cuh"
+#include "mt_chunk.cuh"
 
 namespace {
 
@@ -76,7 +78,6 @@ constexpr int kChunk = 512;
 constexpr int kPerThread = kChunk / kThreads;
 constexpr int kSlots = 4;
 constexpr int kSlotFloats = kBlockFloats + 4;
-constexpr int kMaxSplit = 16;      // threads a task's triangles may span
 constexpr int kMinRun = 32;        // pairs a run on average to stage blocks
 constexpr int kResident = 4 * 132;  // CTAs an H100 holds at once (4 an SM)
 
@@ -178,81 +179,6 @@ __device__ __forceinline__ bool valid_block(int b, int n_blocks) {
   return b >= 0 && b < n_blocks;
 }
 
-// The closest-hit choice of one ray over some triangles of a block:
-// block_closest's least t below the limit, ties to the smallest slot.
-struct Pick {
-  float tb, us, vs, ad;
-  int slot;
-};
-
-// Triangles [s_lo, s_hi) of the staged block `blk` against the R rays of a
-// task: closest hit folds each accepted triangle into pick[r] in ascending
-// slots (strict <), any hit sets hit[r] and stops once every ray has one.
-template <bool kAnyHit, int kPrec, int R>
-__device__ __forceinline__ void test_rays(const float* blk, int s_lo,
-                                          int s_hi, const float (*f)[10],
-                                          const float (*fh)[10],
-                                          const float (*fl)[10],
-                                          const float* tmin, const float* lim,
-                                          Pick* pick, bool* hit) {
-  for (int s0 = s_lo; s0 < s_hi; s0 += 4) {
-    float out[R][16];
-    rays_dots<kPrec, R, true>(blk, f, fh, fl, s0, out);
-    bool all = true;
-#pragma unroll
-    for (int r = 0; r < R; ++r) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float det = out[r][j];
-        const float s = det >= 0.f ? 1.f : -1.f;
-        const float ad = det * s, us = out[r][4 + j] * s,
-                    vs = out[r][8 + j] * s, ts = out[r][12 + j] * s;
-        if (ad > kDetEps && us >= 0.f && vs >= 0.f && us + vs <= ad &&
-            ts > tmin[r] * ad && ts < lim[r] * ad) {
-          if (kAnyHit) {
-            hit[r] = true;
-          } else {
-            const float t = ts / fmaxf(ad, 1e-37f);
-            if (t < pick[r].tb) {
-              pick[r].tb = t; pick[r].slot = s0 + j;
-              pick[r].us = us; pick[r].vs = vs; pick[r].ad = ad;
-            }
-          }
-        }
-      }
-      all = all && hit[r];
-    }
-    if (kAnyHit && all) break;
-  }
-}
-
-// cp.async: 16 bytes from device to shared memory without a register, in
-// groups that are committed and waited for. Without __CUDA_ARCH__ (the
-// host emulation of this source) the copy is made at once.
-__device__ __forceinline__ void copy16_async(float* smem, const float* gmem) {
-#if defined(__CUDA_ARCH__)
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem) : "memory");
-#else
-  memcpy(smem, gmem, 16);
-#endif
-}
-
-__device__ __forceinline__ void copy_commit() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-#endif
-}
-
-// wait until at most N of this thread's committed groups are in flight
-template <int N>
-__device__ __forceinline__ void copy_wait() {
-#if defined(__CUDA_ARCH__)
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-#endif
-}
-
 // Issue the copies of runs [r0, r1)'s blocks (those in range) into their
 // slots, r % kSlots, 16 bytes a thread at a time; the caller commits them.
 __device__ __forceinline__ void stage_runs(float (*slot_blk)[kSlotFloats],
@@ -277,17 +203,13 @@ stream_mt_chunk_kernel(const float* __restrict__ rays, int n_rays,
                        const float* __restrict__ blocks, int n_blocks,
                        float* __restrict__ t_out, int* __restrict__ slot_out,
                        float* __restrict__ u_out, float* __restrict__ v_out) {
-  // pairs a task: 4 at "default", where each coefficient's bf16 split
-  // serves four rays; 2 at "highest" and "high" (on an H100, four rays at
-  // "highest" took 168 registers, three CTAs an SM, and ran 15-20% slower
-  // than two rays at 120 registers and four CTAs)
-  constexpr int R = kPrec == kDefault ? 4 : 2;
+  constexpr int R = task_rays<kPrec>();   // pairs a task
   __shared__ __align__(16) float slot_blk[kSlots][kSlotFloats];
   __shared__ int run_start[kChunk + 1];
   __shared__ int run_block[kChunk];
   __shared__ int task_off[kChunk + 1];
   __shared__ int scratch[kThreads / 32];
-  const int tid = threadIdx.x, lane = tid & 31;
+  const int tid = threadIdx.x;
   const int chunk = chunk_pairs(n_pairs);
   const int c0 = blockIdx.x * chunk;
   const int len = min(chunk, n_pairs - c0);
@@ -374,8 +296,7 @@ stream_mt_chunk_kernel(const float* __restrict__ rays, int n_rays,
     while (task_off[ra + 1] <= t0) ++ra;
     const int rem = task_off[min(n_runs, ra + kSlots - 1)] - t0;
     // fewer than kThreads tasks: split each task's triangles over g threads
-    int g = 1;
-    while (g < kMaxSplit && rem * g * 2 <= kThreads) g *= 2;
+    const int g = split_lanes(rem, kThreads);
     const int count = min(rem, kThreads / g);
     int rb = ra;       // the run of the round's last task
     while (task_off[rb + 1] < t0 + count) ++rb;
@@ -427,37 +348,15 @@ stream_mt_chunk_kernel(const float* __restrict__ rays, int n_rays,
         hit[j] = !live;    // a dead ray stops no any-hit test early
       }
       if (has) {
-        const int span = kBlockTris / g;
-        test_rays<kAnyHit, kPrec, R>(slot_blk[r % kSlots], part * span,
-                                     part * span + span, f, fh, fl, tmin,
-                                     lim, pick, hit);
+        test_rays<kAnyHit, kPrec, R>(slot_blk[r % kSlots], 4 * part, 4 * g,
+                                     f, fh, fl, tmin, lim, pick, hit);
       }
 #pragma unroll
       for (int j = 0; j < R; ++j) {
         const bool live = ray[j] >= 0 && ray[j] < n_rays;
         if (kAnyHit) hit[j] = hit[j] && live;
       }
-      // combine the g partial results of a task: lane `part` and its
-      // partner hold adjacent ranges of triangles; the lower range wins
-      // ties
-      for (int m = 1; m < g; m <<= 1) {
-        const int src = lane ^ m;
-        const bool upper = (part & m) != 0;
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          if (kAnyHit) {
-            hit[j] = __shfl_sync(kFull, (int)hit[j], src) || hit[j];
-          } else {
-            const float tb = __shfl_sync(kFull, pick[j].tb, src);
-            const int sl = __shfl_sync(kFull, pick[j].slot, src);
-            const float us = __shfl_sync(kFull, pick[j].us, src);
-            const float vs = __shfl_sync(kFull, pick[j].vs, src);
-            const float ad = __shfl_sync(kFull, pick[j].ad, src);
-            if (upper ? tb <= pick[j].tb : tb < pick[j].tb)
-              pick[j] = Pick{tb, us, vs, ad, sl};
-          }
-        }
-      }
+      combine_split<kAnyHit, R>(g, pick, hit);
       if (has && part == 0) {
 #pragma unroll
         for (int j = 0; j < R; ++j) {

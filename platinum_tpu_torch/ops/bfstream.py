@@ -98,23 +98,31 @@ STAT_WORDS = 8
 PLAIN_TILES = 256         # MT tiles per product of the plain version
 
 
+# the suffix of a LAUNCHES key of the reference kernel that K13 / K14 keep
+# from before their redesign
+REFERENCE = {"mt": "+per_tile", "bwd": "+per_unit"}
+
+
 def launch_key(kernel: str, any_hit: bool = False,
-               mt_precision: str = "highest") -> str:
+               mt_precision: str = "highest", reference: bool = False) -> str:
     """LAUNCHES key: "expand", "prefix" (K11's scan), "prefix fill" (K11's
     fill), "emit", "bwd", or "mt closest" / "mt any" with a "+<tier>"
-    suffix below "highest"."""
-    if kernel != "mt":
-        return kernel
-    key = "mt any" if any_hit else "mt closest"
-    return key if mt_precision == "highest" else f"{key}+{mt_precision}"
+    suffix below "highest"; `reference` adds "+per_tile" (K13) or
+    "+per_unit" (K14) for the kernel kept from before the redesign."""
+    key = kernel
+    if kernel == "mt":
+        key = "mt any" if any_hit else "mt closest"
+        if mt_precision != "highest":
+            key += f"+{mt_precision}"
+    return key + REFERENCE[kernel] if reference else key
 
 
 # Kernel launches per kernel and mode, counted where a wrapper launches and
 # nowhere else
 LAUNCHES = {k: 0 for k in ("expand", "prefix", "prefix fill", "emit",
-                           "bwd")}
-LAUNCHES.update({launch_key("mt", a, p): 0 for a in (False, True)
-                 for p in TIERS})
+                           "bwd", "bwd+per_unit")}
+LAUNCHES.update({launch_key("mt", a, p, r): 0 for r in (False, True)
+                 for a in (False, True) for p in TIERS})
 
 
 def _all_leaves_single_block(meta: np.ndarray, n_blocks: int) -> bool:
@@ -139,11 +147,18 @@ def _declare(lib):
     lib.bf_prefix_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p,
                                      p, p, p, p, p, p]
     lib.bf_emit_launch.argtypes = [p, p, p, i, p, p, p, p, p, p]
-    lib.bf_mt_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p, p, p]
-    lib.bf_bwd_launch.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p,
-                                  p, p, p, p, p]
-    for name in ("expand", "prefix", "emit", "mt", "bwd"):
+    for name in ("mt", "mt_per_tile"):
+        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, p, i, p, i, p, i,
+                                                      i, i, p, p, p, p, p]
+    for name in ("bwd", "bwd_per_unit"):
+        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, i, p, p, p, p, p,
+                                                      p, p, p, p, p, p, p, p,
+                                                      p, p, p]
+    for name in ("expand", "prefix", "emit", "mt", "mt_per_tile", "bwd",
+                 "bwd_per_unit"):
         getattr(lib, f"bf_{name}_launch").restype = i
+    lib.bf_resident_grids.argtypes = [p]
+    lib.bf_resident_grids.restype = i
     lib.bf_error_string.restype = ctypes.c_char_p
     lib.bf_error_string.argtypes = [i]
 
@@ -159,6 +174,20 @@ def _launch(kernel: str, dev, *args):
     if rc != 0:
         raise RuntimeError(f"bf_stream {kernel} kernel launch failed: "
                            + lib.bf_error_string(rc).decode())
+
+
+def resident_grids(dev) -> dict:
+    """The CTAs the persistent kernels launch on `dev` (a CUDA device): the
+    card's SMs times the CTAs an SM holds of K13 (closest and any hit, at
+    "highest") and of K14."""
+    lib = load_library("bf_stream", _declare)
+    out = (ctypes.c_int * 3)()
+    with torch.cuda.device(dev):
+        rc = lib.bf_resident_grids(out)
+    if rc != 0:
+        raise RuntimeError("bf_stream occupancy query failed: "
+                           + lib.bf_error_string(rc).decode())
+    return {"mt closest": out[0], "mt any": out[1], "bwd": out[2]}
 
 
 def _device(x, name):
@@ -435,7 +464,7 @@ def bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
 # ---------------------------------------------------------------------------
 
 def bf_mt(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
-          mt_precision: str = "highest"):
+          mt_precision: str = "highest", per_tile: bool = False):
     """Test each MT unit's lanes against its block's 64 triangles (K13).
     mt_pairs (mt_cap * 128,) i32 ray indices; mt_units (mt_cap,) block
     ids; level (8,) the last level's status row, whose MT_CUR word is the
@@ -444,19 +473,22 @@ def bf_mt(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
     (+inf on a miss), sid = block*64 + slot (ties to the smallest slot; -1
     on a miss) and its barycentrics; any hit t = 0, sid = 0 when some
     triangle is accepted. The tier's products are mt_block.cuh's. Units
-    past the count are not written."""
+    past the count are not written. CUDA tensors take the kernel (the
+    CTAs the card holds take the tiles in turn, a tile's live lanes two
+    rays a thread), or with `per_tile` its reference, a CTA per tile (the
+    same outputs in every bit)."""
     if _device(rays, "mt") == "cpu":
         return bf_mt_plain(mt_pairs, mt_units, level, rays, blocks, any_hit,
                            mt_precision)
     out = mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit,
-                    mt_precision)
-    LAUNCHES[launch_key("mt", any_hit, mt_precision)] += 1
+                    mt_precision, per_tile)
+    LAUNCHES[launch_key("mt", any_hit, mt_precision, per_tile)] += 1
     return out
 
 
 def mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
-              mt_precision: str = "highest"):
-    """`bf_mt` through the kernel, uncounted."""
+              mt_precision: str = "highest", per_tile: bool = False):
+    """`bf_mt` through the kernel (`per_tile`: its reference), uncounted."""
     _check_tier(mt_precision)
     dev = rays.device
     cap = mt_units.shape[0]
@@ -471,8 +503,9 @@ def mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
     sid = torch.empty(cap * LANES, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    _launch("mt", dev, mt_pairs, mt_units, level, cap, rays, rays.shape[1],
-            blocks, blocks.shape[0], int(bool(any_hit)),
+    _launch("mt_per_tile" if per_tile else "mt", dev, mt_pairs, mt_units,
+            level, cap, rays, rays.shape[1], blocks, blocks.shape[0],
+            int(bool(any_hit)),
             PRECISIONS[mt_precision], t, sid, u, v)
     return t, sid, u, v
 
@@ -580,22 +613,27 @@ def bf_mt_plain(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
 # K14 bwd
 # ---------------------------------------------------------------------------
 
-def bf_bwd(masks, level, dn, uoff, base, child, mt):
+def bf_bwd(masks, level, dn, uoff, base, child, mt, per_unit: bool = False):
     """Each lane of the level's units keeps the least (t, sid) of its
     children's results (K14): inner children from `child` (the level
     below's (t, sid, u, v), or None where the level has no inner child),
     leaf children from `mt` (K13's). Returns (t, sid, u, v), each
     (cap * 128,): +inf / -1 / 0 / 0 for a lane without a result; units
-    past the count are not written."""
+    past the count are not written. CUDA tensors take the kernel (CTAs
+    the card holds striding over the units, a lane's loads issued
+    together), or with `per_unit` its reference, a CTA per unit (the same
+    outputs in every bit)."""
     if _device(masks, "bwd") == "cpu":
         return bf_bwd_plain(masks, level, dn, uoff, base, child, mt)
-    out = bwd_kernel(masks, level, dn, uoff, base, child, mt)
-    LAUNCHES["bwd"] += 1
+    out = bwd_kernel(masks, level, dn, uoff, base, child, mt, per_unit)
+    LAUNCHES[launch_key("bwd", reference=per_unit)] += 1
     return out
 
 
-def bwd_kernel(masks, level, dn, uoff, base, child, mt):
-    """`bf_bwd` through the kernel, uncounted."""
+def bwd_kernel(masks, level, dn, uoff, base, child, mt,
+               per_unit: bool = False):
+    """`bf_bwd` through the kernel (`per_unit`: its reference),
+    uncounted."""
     dev = masks.device
     cap = masks.shape[0]
     _check("masks", masks, torch.int32, (cap, LANES), dev)
@@ -613,8 +651,8 @@ def bwd_kernel(masks, level, dn, uoff, base, child, mt):
     sid = torch.empty(cap * LANES, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    _launch("bwd", dev, masks, level, cap, dn, uoff, base, *child, *mt, t,
-            sid, u, v)
+    _launch("bwd_per_unit" if per_unit else "bwd", dev, masks, level, cap,
+            dn, uoff, base, *child, *mt, t, sid, u, v)
     return t, sid, u, v
 
 

@@ -61,7 +61,9 @@ DEAD_KEY = 1 << 30     # sort key of inactive rays (to the back)
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
-CSRC_SHARED = (os.path.join(CSRC_DIR, "mt_block.cuh"),)  # every source's
+# the headers the sources share (every source's build hash covers them)
+CSRC_SHARED = tuple(os.path.join(CSRC_DIR, h)
+                    for h in ("mt_block.cuh", "mt_chunk.cuh"))
 BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # --split-compile=0: the optimiser runs over the template instantiations
 # on every CPU thread

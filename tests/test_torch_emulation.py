@@ -21,11 +21,14 @@ the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit, and its chunked schedule gives its one-thread-per-pair
 reference's outputs in every bit; the redesigned level prefix (K11) gives
-its plain version's tables on synthetic levels; and the five kernels of
+its plain version's tables on synthetic levels; the five kernels of
 bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
 versions' tables and results in every bit and the breadth-first tracer
-K1's. Skips where there is no g++.
+K1's; and the redesigned MT kernel (K13) and backward fold (K14) write
+the kernels they were before (`per_tile`, `per_unit`) in every bit, on
+real lists and on their corner cases (tests/torch_kernel_cases.py), and
+nothing past the count. Skips where there is no g++.
 """
 
 import os
@@ -877,6 +880,126 @@ def test_emulated_bf_tracer_is_the_packet_tracer_bit_for_bit(emulation, soup,
                           rec.bary[hit, 1]),
                          (k1[0][hit], k1[1][hit], k1[2][hit], k1[3][hit]))
     assert torch.equal(occ, k2[1] > 0)
+
+
+@pytest.fixture(scope="module")
+def mt_lists(soup):
+    """The soup's real MT lists (plain versions, first segment), per mode:
+    (ray table, mt_pairs, mt_units, count, level records, status rows)."""
+    out = {}
+    for any_hit, rays in ((False, RC), (True, RA)):
+        _, segs = _bf_levels(None, soup, "highest", any_hit, rays)
+        seg = segs[0]
+        rec = seg["levels"][-1]
+        out[any_hit] = (seg["rays"], rec["mt_pairs"], rec["mt_units"],
+                        int(seg["stat"][-1, bf.MT_CUR]), seg["levels"],
+                        seg["stat"])
+    return out
+
+
+SENTINEL = -7
+
+
+def _filled(kernel, n_lanes, *args):
+    """bf_stream.cu's entry `bf_<kernel>_launch(*args, t, sid, u, v)`
+    into outputs of n_lanes filled with SENTINEL, so that a lane the
+    kernel does not write shows."""
+    out = (torch.full((n_lanes,), float(SENTINEL)),
+           torch.full((n_lanes,), SENTINEL, dtype=torch.int32),
+           torch.full((n_lanes,), float(SENTINEL)),
+           torch.full((n_lanes,), float(SENTINEL)))
+    bf._launch(kernel, torch.device("cpu"), *args, *out)
+    return out
+
+
+def _mt_filled(per_tile, pairs, units, count, rays, blocks, any_hit, tier):
+    level = torch.zeros(8, dtype=torch.int32)
+    level[bf.MT_CUR] = count
+    cap = units.shape[0]
+    return _filled("mt_per_tile" if per_tile else "mt", cap * 128, pairs,
+                   units, level, cap, rays, rays.shape[1], blocks,
+                   blocks.shape[0], int(any_hit), pt.PRECISIONS[tier])
+
+
+@pytest.mark.parametrize("case", kc.MT_CASES)
+@pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_emulated_bf_mt_is_the_per_tile_kernel(emulation, soup, mt_lists,
+                                               tier, any_hit, case):
+    """The redesigned K13 (CTAs over ranges of tiles, a tile's live lanes
+    R a thread, split over lanes where few, blocks staged a tile ahead)
+    writes its per-tile reference's t, slot id, u and v in every bit over
+    every lane of the tiles below the count, and nothing past it: on the
+    soup's real MT list, a full tile, tiles of 1, 2 and 33 live lanes,
+    a region of several tiles of one block, tiles of alternating blocks,
+    dead lanes and block ids out of range, and blocks whose every hit has
+    an exact-t twin in their other half (the lower slot wins across the
+    lanes of a split task); both equal bf_mt_plain."""
+    _, blocks, _, _ = soup
+    rays, mt_pairs, mt_units, n = mt_lists[any_hit][:4]
+    pairs, units, count = kc.mt_cases(mt_pairs, mt_units, n, rays.shape[1],
+                                      blocks.shape[0])[case]
+    if case == "tied":
+        blocks = kc.tied_blocks(blocks)
+    args = (pairs, units, count, rays, blocks, any_hit, tier)
+    with emulation:
+        k = _mt_filled(False, *args)
+        p = _mt_filled(True, *args)
+    assert emu.same_bits(k, p)
+    lanes = count * 128
+    assert (k[1][:lanes] != SENTINEL).all()
+    assert (k[1][lanes:] == SENTINEL).all()
+    level = torch.zeros(8, dtype=torch.int32)
+    level[bf.MT_CUR] = count
+    ref = bf.bf_mt_plain(pairs, units, level, rays, blocks, any_hit, tier)
+    assert emu.same_bits([x[:lanes] for x in k], [x[:lanes] for x in ref])
+    assert (k[1][:lanes] >= 0).sum() > 0
+
+
+@pytest.mark.parametrize("case", ["closest", "any", "synthetic"])
+def test_emulated_bf_bwd_is_the_per_unit_kernel(emulation, mt_lists, case):
+    """The redesigned K14 (CTAs striding over the units, every selected
+    child's (t, slot id) gathered at once, u and v for the winner alone,
+    ranks from one prefix of packed warp counts) writes its per-unit
+    reference's and bf_bwd_plain's results in every bit on every level
+    of the soup's closest and any-hit waves, deepest first, and on a
+    synthetic level (every child selected, none, inner and MT children
+    mixed, equal t under different slot ids), and nothing past the
+    count."""
+    if case == "synthetic":
+        lv = kc.bwd_level()
+        steps = [(lv["masks"], lv["level"], lv["dn"], lv["uoff"],
+                  lv["base"], lv["child"], lv["mt"])]
+    else:
+        rays, mt_pairs, mt_units, _, levels, stat = mt_lists[case == "any"]
+        mt = levels[-1]["mt"]
+        steps, child = [], None
+        for lvl in range(len(levels) - 2, -1, -1):
+            rec = levels[lvl]
+            args = (rec["masks"], stat[lvl], rec["dn"], rec["uoff"],
+                    rec["base"])
+            steps.append((*args, child, mt))
+            child = bf.bf_bwd_plain(*args, child, mt)
+    ties = 0
+    for masks, level, dn, uoff, base, child, mt in steps:
+        cap, n = masks.shape[0], int(level[bf.NEXT])
+        args = (masks, level, cap, dn, uoff, base,
+                *(mt if child is None else child), *mt)
+        with emulation:
+            k = _filled("bwd", cap * 128, *args)
+            p = _filled("bwd_per_unit", cap * 128, *args)
+        assert emu.same_bits(k, p)
+        lanes = n * 128
+        assert (k[1][lanes:] == SENTINEL).all()
+        ref = bf.bf_bwd_plain(masks, level, dn, uoff, base, child, mt)
+        assert emu.same_bits([x[:lanes] for x in k],
+                             [x[:lanes] for x in ref])
+        assert (k[1][:lanes] >= 0).sum() > 0
+        ties += int((k[0][:lanes] == 1.0).sum())
+    if case == "synthetic":
+        assert (k[1][:4 * 128] >= 0).all()            # every child
+        assert (k[1][4 * 128:8 * 128] == -1).all()    # none
+        assert ties > 1000
 
 
 def test_emulated_bf_tracer_retraces_an_overflow(emulation, soup,

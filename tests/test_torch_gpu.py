@@ -14,8 +14,10 @@ schedule against its one-thread-per-pair reference bit for bit, and the
 ray-stream tracer against K1/K2 bit for bit; the redesigned level prefix
 (K11) against its plain version on synthetic levels; the breadth-first
 pipeline's five kernels (K10-K14)
-against their plain versions level by level and its tracer against K1/K2
-bit for bit, with its capacities forced small; the wrappers' input checks
+against their plain versions level by level, the redesigned K13 and K14
+against their references (`per_tile`, `per_unit`) bit for bit, and its
+tracer against K1/K2 bit for bit, with its capacities forced small; the
+wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
@@ -978,6 +980,118 @@ def test_bf_tracer_is_k1_and_k2_bit_for_bit(soup_on_card):
     occ = ta(o, d, TMIN, 8.0, active=act)
     assert torch.equal(occ, pa(o, d, TMIN, 8.0, active=act))
     assert not occ[~act].any()
+
+
+def _real_lists(soup_on_card):
+    """The soup's first segment of a closest and an any-hit wave of 4,096
+    rays (dead tail lanes, part-live tiles), per mode."""
+    nodes, blocks, meta, _ = soup_on_card
+    out = {}
+    for any_hit, tmax in ((False, float("inf")), (True, 8.0)):
+        trace = bf.make_bf_tracer(nodes.reshape(-1, 128), blocks, meta,
+                                  seg_rays=2048)[int(any_hit)]
+        rays = _rays(4096, tmax, nodes.device)
+        _, segs = trace.with_levels(rays[0:3].T, rays[3:6].T, TMIN, tmax)
+        out[any_hit] = segs[0]
+    return out
+
+
+SENTINEL = -7
+
+
+def _filled(kernel, dev, n_lanes, *args):
+    """bf_stream.cu's entry `bf_<kernel>_launch(*args, t, sid, u, v)`
+    (uncounted) into outputs filled with SENTINEL."""
+    out = (torch.full((n_lanes,), float(SENTINEL), device=dev),
+           torch.full((n_lanes,), SENTINEL, dtype=torch.int32, device=dev),
+           torch.full((n_lanes,), float(SENTINEL), device=dev),
+           torch.full((n_lanes,), float(SENTINEL), device=dev))
+    bf._launch(kernel, dev, *args, *out)
+    torch.cuda.synchronize()
+    return out
+
+
+@pytest.mark.parametrize("tier", ["highest", "high", "default"])
+def test_bf_mt_is_the_per_tile_kernel(soup_on_card, tier):
+    """The redesigned K13 against its per-tile reference on the card,
+    t, slot id, u and v in every bit over the tiles below the count: the
+    real MT lists of a closest and an any-hit wave and their corner cases
+    (tests/torch_kernel_cases.py: full tiles, 1, 2 and 33 live lanes, a
+    region of one block, alternating blocks, dead lanes and block ids out
+    of range, exact-t twins); one counted launch of each per call, and
+    nothing written past the count."""
+    nodes, blocks, meta, _ = soup_on_card
+    dev = nodes.device
+    for any_hit, seg in _real_lists(soup_on_card).items():
+        rec, rays = seg["levels"][-1], seg["rays"]
+        n = int(seg["stat"][-1, bf.MT_CUR])
+        key, ref_key = (bf.launch_key("mt", any_hit, tier, r)
+                        for r in (False, True))
+        cases = kc.mt_cases(rec["mt_pairs"], rec["mt_units"], n,
+                            rays.shape[1], blocks.shape[0])
+        for name, (pairs, units, count) in cases.items():
+            blk = kc.tied_blocks(blocks) if name == "tied" else blocks
+            level = torch.zeros(8, dtype=torch.int32, device=dev)
+            level[bf.MT_CUR] = count
+            args = (pairs.to(dev), units.to(dev), level, rays, blk, any_hit,
+                    tier)
+            before = (bf.LAUNCHES[key], bf.LAUNCHES[ref_key])
+            k = bf.bf_mt(*args)
+            p = bf.bf_mt(*args, per_tile=True)
+            torch.cuda.synchronize()
+            assert (bf.LAUNCHES[key], bf.LAUNCHES[ref_key]) == (
+                before[0] + 1, before[1] + 1)
+            lanes = count * 128
+            assert all(_bits(a[:lanes], b[:lanes]) for a, b in zip(k, p)), \
+                name
+            assert (k[1][:lanes] >= 0).sum() > 0
+        cap = units.shape[0]
+        got = _filled("mt", dev, cap * 128, args[0], args[1], level, cap,
+                      rays, rays.shape[1], blocks, blocks.shape[0],
+                      int(any_hit), pt.PRECISIONS[tier])
+        assert (got[1][lanes:] == SENTINEL).all()
+        assert (got[1][:lanes] != SENTINEL).all()
+
+
+def test_bf_bwd_is_the_per_unit_kernel(soup_on_card):
+    """The redesigned K14 against its per-unit reference and
+    bf_bwd_plain on the card, every output bit: every level of a closest
+    and an any-hit wave, deepest first, and a synthetic level (every
+    child selected, none, inner and MT children mixed, equal t under
+    different slot ids); one counted launch of each per call, and nothing
+    written past the count."""
+    dev = soup_on_card[0].device
+    steps = []
+    for seg in _real_lists(soup_on_card).values():
+        levels, stat = seg["levels"], seg["stat"].to(dev)
+        mt, child = levels[-1]["mt"], None
+        for lvl in range(len(levels) - 2, -1, -1):
+            rec = levels[lvl]
+            args = (rec["masks"], stat[lvl], rec["dn"], rec["uoff"],
+                    rec["base"])
+            steps.append((*args, child, mt))
+            child = bf.bf_bwd_plain(*args, child, mt)
+    lv = kc.bwd_level()
+    cuda = lambda x: tuple(y.to(dev) for y in x)
+    synthetic = (*cuda((lv["masks"], lv["level"], lv["dn"], lv["uoff"],
+                        lv["base"])), cuda(lv["child"]), cuda(lv["mt"]))
+    steps.append(synthetic)
+    for step in steps:
+        n = int(step[1][bf.NEXT]) * 128
+        before = (bf.LAUNCHES["bwd"], bf.LAUNCHES["bwd+per_unit"])
+        k = bf.bf_bwd(*step)
+        p = bf.bf_bwd(*step, per_unit=True)
+        torch.cuda.synchronize()
+        assert (bf.LAUNCHES["bwd"], bf.LAUNCHES["bwd+per_unit"]) == (
+            before[0] + 1, before[1] + 1)
+        ref = bf.bf_bwd_plain(*step)
+        assert all(_bits(a[:n], b[:n]) for a, b in zip(k, p))
+        assert all(_bits(a[:n], b[:n]) for a, b in zip(k, ref))
+    masks, level, dn, uoff, base, child, mt = synthetic
+    cap, n = masks.shape[0], int(level[bf.NEXT]) * 128
+    got = _filled("bwd", dev, cap * 128, masks, level, cap, dn, uoff, base,
+                  *child, *mt)
+    assert (got[1][n:] == SENTINEL).all() and (got[1][:n] != SENTINEL).all()
 
 
 def test_bf_overflow_retraces_on_the_card(soup_on_card, monkeypatch):

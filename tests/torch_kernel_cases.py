@@ -1,7 +1,8 @@
 """Inputs that drive the leaf-pair kernel (K15) and the breadth-first
-level prefix (K11) through their corner cases, made from a seed with
-numpy, for tests/test_torch_emulation.py (the CUDA sources on the CPU)
-and tests/test_torch_gpu.py (on the card).
+level prefix (K11), MT kernel (K13) and backward fold (K14) through their
+corner cases, made from a seed with numpy, for
+tests/test_torch_emulation.py (the CUDA sources on the CPU) and
+tests/test_torch_gpu.py (on the card).
 
 `pair_cases` rearranges a level's real (ray, block) pairs, sorted by
 block, into the shapes the chunked K15 must get right: runs longer than a
@@ -11,6 +12,12 @@ other half. `prefix_level` builds one level of the breadth-first pipeline
 (its units, per-child counts, the tree's child metas and the list
 capacities) with a chosen number of units and distinct nodes, regions of
 exactly 128 lanes among them, and capacities that fit or overflow.
+`mt_cases` rearranges a real MT list (K13's input: 128-lane tiles of one
+leaf block each) into full tiles, tiles of 1, 2 and 33 live lanes,
+regions of several tiles of one block, neighbouring tiles of alternating
+blocks, and dead lanes and block ids out of range; `bwd_level` builds one
+level of K14's inputs with every child selected, none, inner and MT
+children mixed and equal t under different slot ids.
 """
 
 import numpy as np
@@ -169,3 +176,115 @@ def same_prefix(a, bufs_a, b, bufs_b, n):
         ("mt_units", bufs_a[2], bufs_b[2]), ("stat", bufs_a[3], bufs_b[3]))
         if not torch.equal(x.cpu(), y.cpu())]
     return bad
+
+
+MT_CASES = ("real", "full", "sparse", "one_block", "alternating", "dead",
+            "tied")
+PAST = 2          # tiles / units past the count in every K13 / K14 case
+
+
+def mt_cases(mt_pairs, mt_units, n, n_rays, n_blocks, seed=13):
+    """{case: (mt_pairs (cap * 128,), mt_units (cap,), count)} int32 CPU
+    tensors from a real MT list of n tiles, each with PAST tiles past the
+    count (live lanes of a real block, which K13 must not write): "real"
+    and "tied" (for `tied_blocks`) as given; "full" one tile of 128 live
+    lanes; "sparse" tiles of 1, 2 and 33 live lanes at random places (odd
+    task tails, the split path); "one_block" five full tiles and one of
+    37 live lanes of the most frequent block (a region staged once);
+    "alternating" tiles of two blocks in turn; "dead" the real list with
+    ray ids -1 and past the wave in some lanes and block ids -5 and past
+    the table in some tiles (clamped as the reference clamps them)."""
+    rng = np.random.default_rng(seed)
+    pairs = mt_pairs[:n * LANES].cpu().numpy().reshape(n, LANES).astype(
+        np.int32)
+    units = mt_units[:n].cpu().numpy().astype(np.int32)
+    live = (pairs >= 0) & (pairs < n_rays)
+    rays_of = {}
+    for t in range(n):
+        rays_of.setdefault(int(units[t]), []).extend(pairs[t][live[t]])
+    by_size = sorted(rays_of, key=lambda b: -len(rays_of[b]))
+    a, b = by_size[0], by_size[1]
+
+    def tile(block, k, spread=False):
+        """One tile of block `block` with k live lanes (its rays cycled),
+        at the front or at random places."""
+        src = np.resize(np.asarray(rays_of[block], np.int32), k)
+        row = np.full(LANES, -1, np.int32)
+        at = np.sort(rng.choice(LANES, k, replace=False)) if spread \
+            else np.arange(k)
+        row[at] = src
+        return row, block
+
+    cases = {"real": (pairs, units), "tied": (pairs, units)}
+    cases["full"] = [tile(a, LANES)]
+    cases["sparse"] = [tile(by_size[i % len(by_size)], k, spread=True)
+                       for i, k in enumerate((1, 2, 33) * 8)]
+    cases["one_block"] = [tile(a, LANES)] * 5 + [tile(a, 37)]
+    cases["alternating"] = [tile((a, b)[i % 2], 100 - 7 * i)
+                            for i in range(8)]
+    dead = pairs.copy()
+    dead[rng.random(dead.shape) < 0.05] = -1
+    dead[rng.random(dead.shape) < 0.05] = n_rays + 3
+    bad = units.copy()
+    bad[rng.choice(n, max(2, n // 10), replace=False)] = -5
+    bad[rng.choice(n, max(2, n // 10), replace=False)] = n_blocks + 7
+    cases["dead"] = (dead, bad)
+    out = {}
+    extra = np.stack([tile(a, LANES)[0]] * PAST)
+    for name, case in cases.items():
+        if isinstance(case, list):
+            case = (np.stack([row for row, _ in case]),
+                    np.array([blk for _, blk in case], np.int32))
+        p, u = case
+        count = p.shape[0]
+        p = np.concatenate([p, extra]).reshape(-1)
+        u = np.r_[u, np.full(PAST, a, np.int32)]
+        out[name] = (torch.from_numpy(np.ascontiguousarray(p, np.int32)),
+                     torch.from_numpy(np.ascontiguousarray(u, np.int32)),
+                     count)
+    return out
+
+
+BWD_CASES = ("synthetic",)
+
+
+def bwd_level(seed=17):
+    """One synthetic level of K14's inputs, a dict: masks (cap, 128), level
+    (8,) [unit count, 0...], dn (cap,), uoff (cap, 16), base (cap * 16,)
+    int32, and child / mt results (t, sid, u, v) of (tiles + 8) * 128
+    lanes each, as misses (+inf, -1, 0, 0) or hits at t in {1, 2, 3}
+    with random slot ids, so that many children tie in t and the slot id
+    decides. 40 units of 12 distinct nodes, PAST units past the count;
+    units 0-3 select every child on every lane, units 4-7 none, the rest
+    random children; regions are missing (-1), inner or in the MT list
+    (| MT_TAG), mixed in each node."""
+    rng = np.random.default_rng(seed)
+    n, nd, tiles = 40, 12, 20
+    cap = n + PAST
+    masks = rng.integers(0, 1 << CHILDREN, (cap, LANES)) & rng.integers(
+        0, 1 << CHILDREN, (cap, LANES))
+    masks[0:4] = (1 << CHILDREN) - 1
+    masks[4:8] = 0
+    dn = np.sort(rng.integers(0, nd, cap))
+    dn[n:] = 0
+    pick = rng.random((nd, CHILDREN))
+    region = rng.integers(0, tiles, (nd, CHILDREN))
+    base = np.where(pick < 0.15, -1, np.where(pick < 0.55, region,
+                                              (1 << 30) | region))
+    base = np.r_[base.reshape(-1), np.full((cap - nd) * CHILDREN, -1)]
+    uoff = rng.integers(0, 3 * LANES, (cap, CHILDREN))
+
+    def results():
+        m = (tiles + 8) * LANES
+        hit = rng.random(m) < 0.7
+        t = np.where(hit, rng.integers(1, 4, m), np.inf).astype(np.float32)
+        sid = np.where(hit, rng.integers(0, 500, m), -1).astype(np.int32)
+        u = np.where(hit, rng.random(m), 0).astype(np.float32)
+        v = np.where(hit, rng.random(m), 0).astype(np.float32)
+        return tuple(torch.from_numpy(x) for x in (t, sid, u, v))
+
+    level = np.zeros(8, np.int32)
+    level[0] = n
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))
+    return dict(masks=t(masks), level=t(level), dn=t(dn), uoff=t(uoff),
+                base=t(base), child=results(), mt=results())

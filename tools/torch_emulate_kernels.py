@@ -7,10 +7,11 @@ say nothing about the CUDA sources themselves: a wrong stack index, a
 backlog that overflows or a mode that dispatches to the wrong
 instantiation shows only on the card. This tool compiles
 platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
-headers (the qualifiers as empty macros, `float2`, `float4`, `dim3`,
-`__ldg`, the bit casts, `__fmul_rn`, a nearest-even `__float2bfloat16_rn`,
-thread-local `blockIdx` / `threadIdx` / `blockDim` / `gridDim`, `__shared__`
-as a static), with
+headers (the qualifiers as empty macros, `float2`, `float4`, `int4`,
+`dim3`, `__ldg`, the bit casts, `__fmul_rn`, a nearest-even
+`__float2bfloat16_rn`, thread-local `blockIdx` / `threadIdx` / `blockDim` /
+`gridDim`, `__shared__` as a static, and a card of 3 SMs that holds 2 CTAs
+of any kernel for the grids sized to the card), with
 the L2 prefetch `asm` removed and every `<<<grid, block>>>` launch
 rewritten into a call of `emu_launch`, which runs the blocks one after
 another and the threads of a block as coroutines, so that
@@ -79,6 +80,8 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct int4 { int x, y, z, w; };
+inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct dim3 {
   unsigned x, y, z;
   dim3(unsigned a = 1, unsigned b = 1, unsigned c = 1) : x(a), y(b), z(c) {}
@@ -101,6 +104,29 @@ inline const char* cudaGetErrorString(int c) {
   return c == 2 ? "emulated threads broke a barrier (a thread skipped "
                   "__syncthreads or a warp collective)"
                 : (c ? "invalid value" : "no error");
+}
+// a small card: 3 SMs holding 2 CTAs of any kernel, so that each CTA of a
+// grid sized to the card (a persistent kernel) takes several units
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16 };
+inline int cudaGetDevice(int* d) {
+  *d = 0;
+  return 0;
+}
+inline int cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
+  *v = 3;
+  return 0;
+}
+enum cudaFuncAttribute { cudaFuncAttributePreferredSharedMemoryCarveout };
+enum { cudaSharedmemCarveoutMaxShared = 100 };
+template <class F>
+inline int cudaFuncSetAttribute(F, cudaFuncAttribute, int) {
+  return 0;
+}
+template <class F>
+inline int cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int,
+                                                         size_t) {
+  *n = 2;
+  return 0;
 }
 template <class T> inline T __ldg(const T* p) { return *p; }
 inline float __int_as_float(int i) {
