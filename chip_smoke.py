@@ -163,10 +163,13 @@ Phases, one printed block each (any failure exits non-zero):
      device time summed over the levels beside its plain version's and its
      bound, and one scatter_reduce "amin" of packed (t, slot) keys per
      level over K14's pre-gathered edges (routing and gathers untimed: no
-     PyTorch call computes K14's function, so its library entry is null);
-     the redesigned K13 at every tier and K14 on every level against the
-     kernels they were before (`per_tile=True`, `per_unit=True`) in every
-     bit, each timed beside them, and the MT tiles by live lanes
+     PyTorch call computes K14's function, so its library entry is null)
+     and one index_put_ of the live lanes' ray ids at K12's pre-formed
+     positions per level (K12's library entry, marked as part of its work:
+     the routing is untimed); the redesigned K10 and K12 on every level,
+     K13 at every tier and K14 on every level against the kernels they
+     were before (`per_block=True`, `per_tile=True`, `per_unit=True`) in
+     every bit, each timed beside them, and the MT tiles by live lanes
   4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
      Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
      and K2 may launch, the image K1's (RMSE 0 against 4f's render at the
@@ -1795,12 +1798,14 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     K14's results in every bit (the plain versions sum in the kernels'
     order); K13 at every tier and K14 on every level against the kernels
     they were before their redesign (`per_tile=True`, `per_unit=True`),
-    in every bit. Returns ({kernel: kernel ms summed over the wave's
-    levels}, {kernel: plain ms}, K14's yardstick ms, {K13 / K14 and their
-    references, K13 at "high" and "default": ms}): each kernel timed over
-    `reps` launches on its recorded inputs, the yardstick being one
-    torch.scatter_reduce("amin") of packed (t, slot) int64 keys per
-    level."""
+    and K10 and K12 on every level against theirs (`per_block=True`), in
+    every bit. Returns ({kernel: kernel ms summed over the wave's
+    levels}, {kernel: plain ms}, {"bwd", "emit": yardstick ms}, {K10,
+    K12, K13, K14 and their references, K13 at "high" and "default":
+    ms}): each kernel timed over `reps` launches on its recorded inputs,
+    K14's yardstick being one torch.scatter_reduce("amin") of packed (t,
+    slot) int64 keys per level, K12's one index_put_ of the live lanes'
+    ray ids at their pre-formed positions in both lists per level."""
     from platinum_tpu_torch.ops import bfstream as bf
 
     rays, levels = seg["rays"], seg["levels"]
@@ -1810,6 +1815,9 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     mt_cap = mtr["mt_units"].shape[0]
     ms = {k: 0.0 for k in BF_ROWS}
     plain_ms = {k: 0.0 for k in BF_ROWS}
+    redesign = {k: 0.0 for k in ("K10", "K10 per_block", "K12",
+                                 "K12 per_block", "K14", "K14 per_unit")}
+    lib_ms = {"bwd": 0.0, "emit": 0.0}
 
     def fresh(cap_next):
         return [torch.full((max(cap_next, 1) * 128,), -2, dtype=torch.int32,
@@ -1828,6 +1836,12 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         plain_ms["expand"] += pms
         check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, ref)),
               f"{label} level {lvl}: K10 differs from its plain version")
+        old = bf.bf_expand(*args, per_block=True)
+        check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, old)),
+              f"{label} level {lvl}: K10 differs from its per-block "
+              f"reference")
+        redesign["K10 per_block"] += _device_ms(
+            lambda: bf.bf_expand(*args, per_block=True), reps)
         outs = []
         for prefix, emit, key in ((bf.bf_prefix, bf.bf_emit, "kernel"),
                                   (bf.bf_prefix_plain, bf.bf_emit_plain,
@@ -1838,10 +1852,22 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
             out, t_p = _synced_ms(lambda: prefix(*pargs))
             eargs = (lv["pairs"], lv["masks"], stat[lvl], out[0], out[2],
                      out[1], bufs[0], bufs[1])
+            if key == "kernel":
+                # the reference into copies of the lists as K11 left them
+                rargs = (*eargs[:6], bufs[0].clone(), bufs[1].clone())
+                bf.bf_emit(*rargs, per_block=True)
             _, t_e = _synced_ms(lambda: emit(*eargs))
             if key == "kernel":
                 ms["prefix"] += _device_ms(lambda: prefix(*pargs), reps)
                 ms["emit"] += _device_ms(lambda: emit(*eargs), reps)
+                check(torch.equal(bufs[0], rargs[6])
+                      and torch.equal(bufs[1], rargs[7]),
+                      f"{label} level {lvl}: K12 differs from its "
+                      f"per-block reference")
+                redesign["K12 per_block"] += _device_ms(
+                    lambda: bf.bf_emit(*rargs, per_block=True), reps)
+                lib_ms["emit"] += _emit_yardstick(label, lvl, n, lv,
+                                                  out, bufs, reps)
             else:
                 plain_ms["prefix"] += t_p
                 plain_ms["emit"] += t_e
@@ -1865,7 +1891,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     k = n_mt * 128
     check(all(_bits(a[:k], b[:k]) for a, b in zip(got, ref)),
           f"{label}: K13 differs from its plain version")
-    redesign = {"K14": 0.0, "K14 per_unit": 0.0}
+    redesign["K10"], redesign["K12"] = ms["expand"], ms["emit"]
     for tier in ("highest", "high", "default"):
         targs = (*margs, tier)
         new = bf.bf_mt(*targs)
@@ -1877,7 +1903,6 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         redesign[f"K13 {tier} per_tile"] = _device_ms(
             lambda: bf.bf_mt(*targs, per_tile=True), reps)
     res_k = res_p = None
-    lib_ms = 0.0
     for lvl in range(len(levels) - 2, -1, -1):
         lv = levels[lvl]
         n = int(seg["stat"][lvl, 0])
@@ -1915,13 +1940,32 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
             -1, 16, -1)[sel]
         out = torch.full((n * 128,), torch.iinfo(torch.int64).max,
                          dtype=torch.int64, device=dev)
-        lib_ms += _device_ms(
+        lib_ms["bwd"] += _device_ms(
             lambda: out.scatter_reduce_(0, lane, keys, "amin"), reps)
         hit = res_k[1][:n * 128] >= 0
         check(torch.equal(out[hit] & 0xFFFFFFFF,
                           res_k[1][:n * 128][hit].long()),
               f"{label} level {lvl}: the yardstick's minimum is not K14's")
     return ms, plain_ms, lib_ms, redesign
+
+
+def _emit_yardstick(label, lvl, n, lv, out, bufs, reps):
+    """K12's partial yardstick on one level, device ms: one index_put_ of
+    the live lanes' ray ids at the positions K12 routes them to, formed
+    beforehand (untimed) and offset into one tensor for both lists; held
+    to K12's entries."""
+    from platinum_tpu_torch.ops import bfstream as bf
+
+    sel, pos, in_mt = bf._routes(lv["masks"], n, out[0], out[2], out[1])
+    nxt = bufs[0].shape[0]
+    idx = torch.where(in_mt, pos + nxt, pos)[sel]
+    vals = lv["pairs"][:n][:, None, :].expand(-1, 16, -1)[sel]
+    dest = torch.full((nxt + bufs[1].shape[0],), -2, dtype=torch.int32,
+                      device=idx.device)
+    t = _device_ms(lambda: dest.index_put_((idx,), vals), reps)
+    check(torch.equal(dest[idx], torch.cat([bufs[0], bufs[1]])[idx]),
+          f"{label} level {lvl}: the index_put_ yardstick is not K12's")
+    return t
 
 
 def phase_bf(ctx):
@@ -1941,7 +1985,9 @@ def phase_bf(ctx):
 
     grids = bf.resident_grids(blocks.device)
     print(f"K10-K14, the breadth-first pipeline, and its tracer (3k); the "
-          f"CTAs K13 and K14 launch: {grids}", flush=True)
+          f"CTAs the card holds of K13, K14 and K12 (K12 launches at most "
+          f"one per four units of a level's capacity): "
+          f"{grids}", flush=True)
     tc, ta = bf.make_bf_tracer(flat.wbvh_nodes, blocks, meta)
     rows = {}
     for name, wave, any_hit in JOBS:
@@ -1988,9 +2034,9 @@ def phase_bf(ctx):
         mtr = seg["levels"][-1]
         print(f"    {wave}: MT tiles by live lanes "
               f"{_live_histogram(mtr['mt_pairs'], st[-1][1], n)}; device "
-              f"ms, the redesigned K13 (every tier) and K14 beside the "
-              f"kernels before (per_tile, per_unit), each held to them in "
-              f"every bit: " + ", ".join(f"{k} {v:.4f}"
+              f"ms, the redesigned K10, K12, K13 (every tier) and K14 "
+              f"beside the kernels before (per_block, per_tile, per_unit), "
+              f"each held to them in every bit: " + ", ".join(f"{k} {v:.4f}"
                                          for k, v in redesign.items()),
               flush=True)
         work = _bf_work(seg, any_hit, occluded)
@@ -2003,7 +2049,9 @@ def phase_bf(ctx):
               + f" (sum {sum(ms.values()):.3f}); plain ms "
               + ", ".join(f"{k} {v:.1f}" for k, v in plain_ms.items())
               + f"; amin over pre-gathered keys (routing and gathers "
-              f"untimed) {lib_ms:.3f} ms", flush=True)
+              f"untimed) {lib_ms['bwd']:.3f} ms; index_put_ at pre-formed "
+              f"positions (routing untimed) {lib_ms['emit']:.4f} ms",
+              flush=True)
         check(seg["traces"] == 1 or lost == 0, f"{wave}: pairs lost")
         for k in BF_ROWS:
             nbytes, flops = work[k]
@@ -2016,10 +2064,18 @@ def phase_bf(ctx):
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        max_abs_err=0.0, library_ms=None)
-            if k in ("mt", "bwd"):
+            if k in ("expand", "emit", "mt", "bwd"):
                 # the kernel before the redesign on the same inputs
-                row["reference_ms"] = redesign[
-                    "K13 highest per_tile" if k == "mt" else "K14 per_unit"]
+                row["reference_ms"] = redesign[{
+                    "expand": "K10 per_block", "emit": "K12 per_block",
+                    "mt": "K13 highest per_tile", "bwd": "K14 per_unit"}[k]]
+            if k == "emit":
+                # one index_put_ at positions formed beforehand: a part of
+                # K12's work, not its function
+                row["library_ms"] = lib_ms["emit"]
+                row["library_part"] = ("index_put_ of the live lanes' ray "
+                                       "ids at pre-formed positions; the "
+                                       "routing untimed")
             if wave == "bounce" and k != "mt":
                 rows[k] = row
             if k == "mt" and wave in ("bounce", "shadow"):
@@ -2716,6 +2772,15 @@ def _design(name):
         walk = "warp-wide fp32 drain, near-first queues newest first"
     elif "split_planes" in name:
         return "one thread per coefficient"
+    elif "bf_expand" in name:
+        return ("a block per unit, a thread per lane; the lane's ray loaded "
+                "with the node row, before the barrier; only the node's "
+                "non-empty children tested (a full node unrolled)")
+    elif "bf_emit" in name:
+        return ("CTAs the card holds, a warp per unit, four lanes a thread; "
+                "ranks from the warp's four ballots of each child some lane "
+                "has; the unit's offset and region rows in one load, the "
+                "next unit's loads ahead")
     elif "bf_prefix" in name:
         return ("one scan block, every item in registers, then a grid of "
                 "fill warps (two launches)")
@@ -2862,7 +2927,8 @@ def main():
                     bound_by=row["bound_by"],
                     library_ms=row.get("library_ms"),
                     **{k: row[k] for k in ("plain_rays", "fill_launches",
-                                           "reference_ms") if k in row})
+                                           "reference_ms", "library_part")
+                       if k in row})
                for name, source, replaces, row, launches in table]
     stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"
     for kind, mode in (("closest", "closest"), ("any", "any-hit")):

@@ -27,10 +27,16 @@
 //   same node, and K12 / K14 units run independently. Ranks within a tile
 //   come from warp ballots and popcounts, not a triangular product.
 // - The level's unit count stays on the device (K11's status row): K10
-//   and K12 launch one 128-thread block per unit of the level's capacity
-//   and the blocks past the count return at once; K13 and K14 launch the
-//   CTAs the card holds at once, which read the count and take the units
-//   below it. A wave needs no host sync until its end.
+//   launches one 128-thread block per unit of the level's capacity and
+//   the blocks past the count return at once; K12, K13 and K14 launch the
+//   CTAs the card holds at once (never more than the level's capacity
+//   needs), which read the count and take the units below it. A wave
+//   needs no host sync until its end.
+// - K10 tests a unit's node's children that are not empty slots, once per
+//   child for the block, and loads a lane's ray with the node row; K12
+//   gives each unit a warp, thread t lanes t + 32k, so that no CTA barrier
+//   and no shared table stands between a unit's loads and its stores, and
+//   ranks only the children that some lane of the unit has.
 // - K11 is a scan over the level in one block of 1024 threads, every item
 //   in registers (distinct nodes, per-child prefix sums, then the regions
 //   of the children in node order, child by child, with the MT cursor
@@ -57,16 +63,19 @@
 //   loads together, then reduces them in child order, then reads u and v
 //   of the winner alone. Level 0's pairs are the segment's rays in
 //   order, so its results are the segment's.
-// - The kernels before the redesign of K13 and K14 stay as their
-//   references, each behind an entry of its own (`bf_mt_per_tile_launch`,
-//   `bf_bwd_per_unit_launch`).
+// - The kernels before the redesign of K10, K12, K13 and K14 stay as
+//   their references, each behind an entry of its own
+//   (`bf_expand_per_block_launch`, `bf_emit_per_block_launch`,
+//   `bf_mt_per_tile_launch`, `bf_bwd_per_unit_launch`).
 //
 // What bounds them on this card: K13 does the work (5,120 FLOP per live
 // pair at "highest" against a 10 KB block read once per tile; the accept
 // test beside the 40 FMAs of a (ray, triangle) pair caps FFMA issue near
-// 60%); K10 reads a 512 B node per tile and 32 B per lane and does 16
-// slab tests of 12 FLOP per lane; K12 and K14 move 4 B and 16 B per pair
-// and child (K14's three dependent loads a unit bound it in practice); K11
+// 60%); K10 reads a 512 B node per tile and 32 B per lane and does up
+// to 16 slab tests of 12 FLOP per lane (with their 10 min / max and 3-4
+// compares at half the FMA rate, the tests bound it on full levels); K12
+// and K14 move 4 B and 16 B per pair and child (K14's three dependent
+// loads a unit bound it in practice); K11
 // moves a few MB (its bound is ~1 us) but its scan is one block whose
 // passes are chains of barriers and dependent reads (on an H100 about 20
 // us a level, 13 of them the scan, even for a level of one node).
@@ -106,16 +115,109 @@ __device__ __forceinline__ float inv_dir(float v) {
 }
 
 // ---------------------------------------------------------------------------
-// K10: one block per unit (a node x a tile of its pairs); each thread
-// slab-tests its lane's ray against the node's 16 children.
+// K10: a block per unit (a node x a tile of its pairs), a thread per lane:
+// each thread slab-tests its lane's ray against the node's children.
 // ---------------------------------------------------------------------------
 
+// The slab test of one ray against one child's box (a: lo x, y, z, hi x;
+// b: hi y, z, meta); the TPU kernel's operations in its order. Its meta
+// test is the caller's, once per child.
+__device__ __forceinline__ bool box_hit(float4 a, float4 b, float ox,
+                                        float oy, float oz, float ix,
+                                        float iy, float iz, float tmin,
+                                        float tmax) {
+  const float t0x = (a.x - ox) * ix, t1x = (a.w - ox) * ix;
+  const float t0y = (a.y - oy) * iy, t1y = (b.x - oy) * iy;
+  const float t0z = (a.z - oz) * iz, t1z = (b.y - oz) * iz;
+  const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
+                         fminf(t0z, t1z));
+  const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
+                         fmaxf(t0z, t1z));
+  return tn <= tf && tf >= tmin && tn <= tmax && tmax >= tmin;
+}
+
+// On an H100 the slab tests bound K10 on full levels (the min / max and
+// compares run at half the FMA rate), so it keeps a thread per lane and the
+// occupancy that gives: a warp per unit (four lanes a thread, the CTAs the
+// card holds, the next unit's loads ahead) ran 15-50% slower than the
+// kernel before on the headline waves and 60-70% slower on a render's thin
+// ones, and the CTAs the card holds striding over the units 3% slower on
+// the render (PERF.md). What it
+// changes: the lane's pair and its ray's eight floats are loaded before
+// the node's barrier, with the node row, so a unit waits for one round of
+// loads after its unit id; and a unit's node is the same for its 128
+// lanes, so the meta test is made once per child (lane c of each warp, a
+// ballot) and the block slab-tests only the children that are not empty
+// slots (2-16 of 16, 5.2 on average in the headline colonnade's nodes):
+// the same masks as testing all 16. A full node takes the unrolled loop.
 __global__ void __launch_bounds__(kLanes)
 bf_expand_kernel(const int* __restrict__ units, const int* __restrict__ level,
                  const int* __restrict__ pairs,
                  const float* __restrict__ rays, int n_rays,
                  const float* __restrict__ nodes, int n_nodes,
                  int* __restrict__ masks, int* __restrict__ counts) {
+  const int u = blockIdx.x;
+  if (u >= level[kNext]) return;
+  const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
+  __shared__ __align__(16) float rec[kChildren * 8];
+  __shared__ int warp_count[kWarps][kChildren];
+  const int node = min(max(units[u], 0), n_nodes - 1);
+  const int r = pairs[(size_t)u * kLanes + lane];
+  const bool live = r >= 0 && r < n_rays;
+  const float* ray = rays + (live ? r : 0);
+  const size_t nr = n_rays;
+  float g[8];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) g[j] = live ? ray[j * nr] : 0.f;
+  rec[lane] = nodes[(size_t)node * kLanes + lane];
+  __syncthreads();
+  const float meta = rec[(wl & (kChildren - 1)) * 8 + 6];
+  const unsigned kids =
+      __ballot_sync(kFull, wl < kChildren && (meta >= 0.f || meta <= -1.5f));
+  int mask = 0;
+  if (live) {
+    const float ix = inv_dir(g[3]), iy = inv_dir(g[4]), iz = inv_dir(g[5]);
+    const float4* q = reinterpret_cast<const float4*>(rec);
+    if (kids == (1u << kChildren) - 1u) {
+#pragma unroll
+      for (int c = 0; c < kChildren; ++c)
+        if (box_hit(q[2 * c], q[2 * c + 1], g[0], g[1], g[2], ix, iy, iz,
+                    g[6], g[7]))
+          mask |= 1 << c;
+    } else {
+      for (unsigned w = kids; w; w &= w - 1) {
+        const int c = __ffs(w) - 1;
+        if (box_hit(q[2 * c], q[2 * c + 1], g[0], g[1], g[2], ix, iy, iz,
+                    g[6], g[7]))
+          mask |= 1 << c;
+      }
+    }
+  }
+  masks[(size_t)u * kLanes + lane] = mask;
+#pragma unroll
+  for (int c = 0; c < kChildren; ++c) {
+    const unsigned b = __ballot_sync(kFull, (mask >> c) & 1);
+    if (wl == 0) warp_count[warp][c] = __popc(b);
+  }
+  __syncthreads();
+  if (lane < kChildren) {
+    int n = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) n += warp_count[w][lane];
+    counts[(size_t)u * kChildren + lane] = n;
+  }
+}
+
+// The reference of bf_expand_kernel (the kernel before the redesign): the
+// same block per unit, its pair read after the node's barrier and its
+// ray after that, all 16 children tested.
+__global__ void __launch_bounds__(kLanes)
+bf_expand_per_block_kernel(const int* __restrict__ units,
+                           const int* __restrict__ level,
+                           const int* __restrict__ pairs,
+                           const float* __restrict__ rays, int n_rays,
+                           const float* __restrict__ nodes, int n_nodes,
+                           int* __restrict__ masks, int* __restrict__ counts) {
   const int u = blockIdx.x;
   if (u >= level[kNext]) return;
   const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
@@ -494,11 +596,96 @@ __device__ __forceinline__ void add_lower_warps(int (&below)[kChildren],
     below[c] += static_cast<int>((s[c >> 2] >> (8 * (c & 3))) & 0xffu);
 }
 
+constexpr int kPerThread = kLanes / 32;   // K12: lanes of a unit a thread
+
+// K12: a warp per unit on the CTAs the card holds (thread t: lanes t +
+// 32k). Lanes 0-15 load the unit's 16 offsets and lanes 16-31 its
+// distinct node's 16 regions, one coalesced load a unit, into the warp's
+// slice of shared memory, read back by broadcast. For each
+// child that some lane has (an OR over the warp) and that has a region,
+// its four ballots b_0..b_3 rank lane t + 32k at popc(b_k & lanes below
+// t) + the popcounts of b_j, j < k: the ranks of warp_ranks and
+// add_lower_warps without a barrier. The next unit's masks, pairs and
+// distinct node are loaded before this unit's ballots, its two rows while
+// this unit's stores go out.
 __global__ void __launch_bounds__(kLanes)
 bf_emit_kernel(const int* __restrict__ pairs, const int* __restrict__ masks,
                const int* __restrict__ level, const int* __restrict__ dn,
                const int* __restrict__ uoff, const int* __restrict__ base,
                int* __restrict__ pairs_next, int* __restrict__ mt_pairs) {
+  __shared__ int s_row[kWarps][2 * kChildren];   // offsets, then regions
+  const int t = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int step = gridDim.x * kWarps, n = level[kNext];
+  int u = blockIdx.x * kWarps + warp;
+  if (u >= n) return;
+  const unsigned lower = (1u << t) - 1u;
+  int* row = s_row[warp];
+  int m[kPerThread], r[kPerThread];
+#pragma unroll
+  for (int k = 0; k < kPerThread; ++k) {
+    m[k] = masks[(size_t)u * kLanes + t + 32 * k];
+    r[k] = pairs[(size_t)u * kLanes + t + 32 * k];
+  }
+  int d = dn[u];
+  int v = t < kChildren ? uoff[(size_t)u * kChildren + t]
+                        : base[(size_t)d * kChildren + t - kChildren];
+  for (;;) {
+    const int un = u + step;
+    const bool more = un < n;
+    int mn[kPerThread], rn[kPerThread];
+    if (more) {
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        mn[k] = masks[(size_t)un * kLanes + t + 32 * k];
+        rn[k] = pairs[(size_t)un * kLanes + t + 32 * k];
+      }
+      d = dn[un];
+    }
+    row[t] = v;
+    __syncwarp();       // the unit's rows are in the slice
+    // the children some lane has, with a region (the ranks of a child
+    // without one matter to no lane)
+    for (unsigned w = __reduce_or_sync(kFull, m[0] | m[1] | m[2] | m[3]);
+         w; w &= w - 1) {
+      const int c = __ffs(w) - 1;
+      const int rec = row[kChildren + c];
+      if (rec < 0) continue;
+      const size_t at = (size_t)(rec & (kMtTag - 1)) * kLanes + row[c];
+      int* dst = rec >= kMtTag ? mt_pairs : pairs_next;
+      int below = 0;
+#pragma unroll
+      for (int k = 0; k < kPerThread; ++k) {
+        const bool bit = (m[k] >> c) & 1;
+        const unsigned b = __ballot_sync(kFull, bit);
+        if (bit) dst[at + below + __popc(b & lower)] = r[k];
+        below += __popc(b);
+      }
+    }
+    if (!more) break;
+    v = t < kChildren ? uoff[(size_t)un * kChildren + t]
+                      : base[(size_t)d * kChildren + t - kChildren];
+    __syncwarp();       // every lane has read the slice
+    u = un;
+#pragma unroll
+    for (int k = 0; k < kPerThread; ++k) {
+      m[k] = mn[k];
+      r[k] = rn[k];
+    }
+  }
+}
+
+// The reference of bf_emit_kernel (the kernel before the redesign): one
+// block per unit of the capacity, a thread per lane, ranks completed over
+// the lower warps' packed counts after a barrier.
+__global__ void __launch_bounds__(kLanes)
+bf_emit_per_block_kernel(const int* __restrict__ pairs,
+                         const int* __restrict__ masks,
+                         const int* __restrict__ level,
+                         const int* __restrict__ dn,
+                         const int* __restrict__ uoff,
+                         const int* __restrict__ base,
+                         int* __restrict__ pairs_next,
+                         int* __restrict__ mt_pairs) {
   const int u = blockIdx.x;
   if (u >= level[kNext]) return;
   const int lane = threadIdx.x;
@@ -539,6 +726,9 @@ int resident_ctas() {
   }();
   return ctas;
 }
+
+// CTAs of kWarps warps that a warp per unit needs for cap_t units
+int unit_ctas(int cap_t) { return max(1, (cap_t + kWarps - 1) / kWarps); }
 
 __device__ __forceinline__ int clamp_block(int b, int n_blocks) {
   return min(max(b, 0), n_blocks - 1);
@@ -994,11 +1184,12 @@ extern "C" {
 // unit counts stay on the device: `level` points to the status row of the
 // level before (kStatWords int32; for level 0 a row holding the tile count
 // and MT cursor 0), whose kNext word is this level's unit count and kMtCur
-// word the MT cursor so far. K10 and K12 launch a block per unit of the
-// capacity and the blocks past the count return; K13 and K14 launch the
-// CTAs the card holds at once (at most the capacity), which take the
-// units up to the count. Pairs are int32 ray indices into rays (8,
-// n_rays) f32 [ox, oy, oz, dx, dy, dz, tmin, tmax], -1 in a dead lane.
+// word the MT cursor so far. K10 and the references of K10 and K12
+// launch a block per unit of the capacity and the blocks past the count
+// return; K12, K13 and K14 launch the CTAs the card holds at once (at most
+// what the capacity needs), which take the units up to the count. Pairs
+// are int32 ray indices into rays (8, n_rays) f32 [ox, oy, oz, dx, dy, dz,
+// tmin, tmax], -1 in a dead lane.
 
 // K10. units (cap_t,) node ids; pairs (cap_t, 128); nodes (n_nodes, 128)
 // f32 rows of 16 children x [lo, hi, meta, pad]. Writes masks (cap_t,
@@ -1010,6 +1201,17 @@ int bf_expand_launch(const int* units, const int* level, int cap_t,
                      void* cuda_stream) {
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   bf_expand_kernel<<<cap_t, kLanes, 0, stream>>>(
+      units, level, pairs, rays, n_rays, nodes, n_nodes, masks, counts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same through the reference kernel.
+int bf_expand_per_block_launch(const int* units, const int* level, int cap_t,
+                               const int* pairs, const float* rays,
+                               int n_rays, const float* nodes, int n_nodes,
+                               int* masks, int* counts, void* cuda_stream) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  bf_expand_per_block_kernel<<<cap_t, kLanes, 0, stream>>>(
       units, level, pairs, rays, n_rays, nodes, n_nodes, masks, counts);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1049,7 +1251,21 @@ int bf_emit_launch(const int* pairs, const int* masks, const int* level,
                    int cap_t, const int* dn, const int* uoff, const int* base,
                    int* pairs_next, int* mt_pairs, void* cuda_stream) {
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_emit_kernel<<<cap_t, kLanes, 0, stream>>>(
+  const int grid = min(unit_ctas(cap_t),
+                       resident_ctas<bf_emit_kernel, kLanes>());
+  bf_emit_kernel<<<grid, kLanes, 0, stream>>>(
+      pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The same through the reference kernel, a block per unit of the capacity.
+int bf_emit_per_block_launch(const int* pairs, const int* masks,
+                             const int* level, int cap_t, const int* dn,
+                             const int* uoff, const int* base,
+                             int* pairs_next, int* mt_pairs,
+                             void* cuda_stream) {
+  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
+  bf_emit_per_block_kernel<<<cap_t, kLanes, 0, stream>>>(
       pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1117,11 +1333,13 @@ int bf_bwd_per_unit_launch(const int* masks, const int* level, int cap_t,
 }
 
 // The grids of the persistent kernels on this card: out[0], out[1] K13
-// closest and any hit at "highest", out[2] K14.
+// closest and any hit at "highest", out[2] K14, out[3] K12 (each launch
+// takes at most the CTAs its capacity needs).
 int bf_resident_grids(int* out) {
   out[0] = resident_ctas<bf_mt_kernel<false, kHighest>, kLanes>();
   out[1] = resident_ctas<bf_mt_kernel<true, kHighest>, kLanes>();
   out[2] = resident_ctas<bf_bwd_kernel, kLanes>();
+  out[3] = resident_ctas<bf_emit_kernel, kLanes>();
   return static_cast<int>(cudaGetLastError());
 }
 

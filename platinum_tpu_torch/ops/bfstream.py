@@ -98,17 +98,19 @@ STAT_WORDS = 8
 PLAIN_TILES = 256         # MT tiles per product of the plain version
 
 
-# the suffix of a LAUNCHES key of the reference kernel that K13 / K14 keep
-# from before their redesign
-REFERENCE = {"mt": "+per_tile", "bwd": "+per_unit"}
+# the suffix of a LAUNCHES key of the reference kernel that K10 / K12 /
+# K13 / K14 keep from before their redesign
+REFERENCE = {"expand": "+per_block", "emit": "+per_block", "mt": "+per_tile",
+             "bwd": "+per_unit"}
 
 
 def launch_key(kernel: str, any_hit: bool = False,
                mt_precision: str = "highest", reference: bool = False) -> str:
     """LAUNCHES key: "expand", "prefix" (K11's scan), "prefix fill" (K11's
     fill), "emit", "bwd", or "mt closest" / "mt any" with a "+<tier>"
-    suffix below "highest"; `reference` adds "+per_tile" (K13) or
-    "+per_unit" (K14) for the kernel kept from before the redesign."""
+    suffix below "highest"; `reference` adds "+per_block" (K10, K12),
+    "+per_tile" (K13) or "+per_unit" (K14) for the kernel kept from before
+    the redesign."""
     key = kernel
     if kernel == "mt":
         key = "mt any" if any_hit else "mt closest"
@@ -119,8 +121,9 @@ def launch_key(kernel: str, any_hit: bool = False,
 
 # Kernel launches per kernel and mode, counted where a wrapper launches and
 # nowhere else
-LAUNCHES = {k: 0 for k in ("expand", "prefix", "prefix fill", "emit",
-                           "bwd", "bwd+per_unit")}
+LAUNCHES = {k: 0 for k in ("expand", "expand+per_block", "prefix",
+                           "prefix fill", "emit", "emit+per_block", "bwd",
+                           "bwd+per_unit")}
 LAUNCHES.update({launch_key("mt", a, p, r): 0 for r in (False, True)
                  for a in (False, True) for p in TIERS})
 
@@ -143,10 +146,14 @@ def _check_tier(mt_precision: str):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.bf_expand_launch.argtypes = [p, p, i, p, p, i, p, i, p, p, p]
+    for name in ("expand", "expand_per_block"):
+        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, i, p, p, i, p, i,
+                                                      p, p, p]
     lib.bf_prefix_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p,
                                      p, p, p, p, p, p]
-    lib.bf_emit_launch.argtypes = [p, p, p, i, p, p, p, p, p, p]
+    for name in ("emit", "emit_per_block"):
+        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, p, i, p, p, p, p,
+                                                      p, p]
     for name in ("mt", "mt_per_tile"):
         getattr(lib, f"bf_{name}_launch").argtypes = [p, p, p, i, p, i, p, i,
                                                       i, i, p, p, p, p, p]
@@ -154,8 +161,8 @@ def _declare(lib):
         getattr(lib, f"bf_{name}_launch").argtypes = [p, p, i, p, p, p, p, p,
                                                       p, p, p, p, p, p, p, p,
                                                       p, p, p]
-    for name in ("expand", "prefix", "emit", "mt", "mt_per_tile", "bwd",
-                 "bwd_per_unit"):
+    for name in ("expand", "expand_per_block", "prefix", "emit",
+                 "emit_per_block", "mt", "mt_per_tile", "bwd", "bwd_per_unit"):
         getattr(lib, f"bf_{name}_launch").restype = i
     lib.bf_resident_grids.argtypes = [p]
     lib.bf_resident_grids.restype = i
@@ -179,15 +186,17 @@ def _launch(kernel: str, dev, *args):
 def resident_grids(dev) -> dict:
     """The CTAs the persistent kernels launch on `dev` (a CUDA device): the
     card's SMs times the CTAs an SM holds of K13 (closest and any hit, at
-    "highest") and of K14."""
+    "highest"), K14 and K12 (which launches at most a CTA per four units
+    of the capacity)."""
     lib = load_library("bf_stream", _declare)
-    out = (ctypes.c_int * 3)()
+    out = (ctypes.c_int * 4)()
     with torch.cuda.device(dev):
         rc = lib.bf_resident_grids(out)
     if rc != 0:
         raise RuntimeError("bf_stream occupancy query failed: "
                            + lib.bf_error_string(rc).decode())
-    return {"mt closest": out[0], "mt any": out[1], "bwd": out[2]}
+    return {"mt closest": out[0], "mt any": out[1], "bwd": out[2],
+            "emit": out[3]}
 
 
 def _device(x, name):
@@ -211,23 +220,27 @@ def _inv_dir(d):
 # K10 expand
 # ---------------------------------------------------------------------------
 
-def bf_expand(units, level, pairs, rays, nodes):
+def bf_expand(units, level, pairs, rays, nodes, per_block: bool = False):
     """Slab-test every lane of the level's units against its node's 16
     children (K10). units (cap,) i32 node ids; level (8,) i32 the status
     row whose NEXT word is the unit count; pairs (cap, 128) i32 ray
     indices (-1 dead); rays (8, R) f32; nodes (N, 16, 8) f32. Returns
     masks (cap, 128) i32 (bit c: child c's box is hit within [tmin, tmax]
     and the slot is not empty) and counts (cap, 16) i32, for the units
-    below the count (the rest are not written)."""
+    below the count (the rest are not written). CUDA tensors take the
+    kernel (a block per unit, each lane's ray loaded with the node row,
+    only the node's non-empty children tested), or with `per_block` its
+    reference, the kernel before (the same outputs in every bit)."""
     if _device(rays, "expand") == "cpu":
         return bf_expand_plain(units, level, pairs, rays, nodes)
-    out = expand_kernel(units, level, pairs, rays, nodes)
-    LAUNCHES["expand"] += 1
+    out = expand_kernel(units, level, pairs, rays, nodes, per_block)
+    LAUNCHES[launch_key("expand", reference=per_block)] += 1
     return out
 
 
-def expand_kernel(units, level, pairs, rays, nodes):
-    """`bf_expand` through the kernel, uncounted: check, allocate, launch."""
+def expand_kernel(units, level, pairs, rays, nodes, per_block: bool = False):
+    """`bf_expand` through the kernel (`per_block`: its reference),
+    uncounted: check, allocate, launch."""
     dev = rays.device
     cap = units.shape[0]
     _check("units", units, torch.int32, (cap,), dev)
@@ -237,8 +250,9 @@ def expand_kernel(units, level, pairs, rays, nodes):
     _check("nodes", nodes, torch.float32, (nodes.shape[0], 16, 8), dev)
     masks = torch.empty((cap, LANES), dtype=torch.int32, device=dev)
     counts = torch.empty((cap, CHILDREN), dtype=torch.int32, device=dev)
-    _launch("expand", dev, units, level, cap, pairs, rays, rays.shape[1],
-            nodes, nodes.shape[0], masks, counts)
+    _launch("expand_per_block" if per_block else "expand", dev, units, level,
+            cap, pairs, rays, rays.shape[1], nodes, nodes.shape[0], masks,
+            counts)
     return masks, counts
 
 
@@ -420,19 +434,27 @@ def _routes(masks, n, dn, uoff, base):
     return (bits > 0) & (rec >= 0), pos, rec >= MT_TAG
 
 
-def bf_emit(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
+def bf_emit(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
+            per_block: bool = False):
     """Write each surviving (ray, child) pair's ray index into its child's
     region (K12), in place into pairs_next / mt_pairs: lane base + uoff +
-    rank, rank = the lanes below it in the tile with the same child bit."""
+    rank, rank = the lanes below it in the tile with the same child bit.
+    CUDA tensors take the kernel (the CTAs the card holds, a warp per
+    unit, ranks from the warp's four ballots of each child some lane has),
+    or with `per_block` its reference, a block per unit of the capacity
+    (the same entries in every bit)."""
     if _device(pairs, "emit") == "cpu":
         return bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next,
                              mt_pairs)
-    emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs)
-    LAUNCHES["emit"] += 1
+    emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
+                per_block)
+    LAUNCHES[launch_key("emit", reference=per_block)] += 1
 
 
-def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
-    """`bf_emit` through the kernel, uncounted."""
+def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
+                per_block: bool = False):
+    """`bf_emit` through the kernel (`per_block`: its reference),
+    uncounted."""
     dev = pairs.device
     cap = pairs.shape[0]
     _check("pairs", pairs, torch.int32, (cap, LANES), dev)
@@ -443,8 +465,8 @@ def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
     _check("base", base, torch.int32, (cap * CHILDREN,), dev)
     for name, x in (("pairs_next", pairs_next), ("mt_pairs", mt_pairs)):
         _check(name, x, torch.int32, (x.shape[0],), dev)
-    _launch("emit", dev, pairs, masks, level, cap, dn, uoff, base,
-            pairs_next, mt_pairs)
+    _launch("emit_per_block" if per_block else "emit", dev, pairs, masks,
+            level, cap, dn, uoff, base, pairs_next, mt_pairs)
 
 
 def bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):

@@ -25,10 +25,12 @@ its plain version's tables on synthetic levels; the five kernels of
 bf_stream.cu (with their block scans,
 warp ballots and barriers, run as cooperating threads) give the plain
 versions' tables and results in every bit and the breadth-first tracer
-K1's; and the redesigned MT kernel (K13) and backward fold (K14) write
-the kernels they were before (`per_tile`, `per_unit`) in every bit, on
-real lists and on their corner cases (tests/torch_kernel_cases.py), and
-nothing past the count. Skips where there is no g++.
+K1's; and the redesigned expand (K10), emit (K12), MT kernel (K13) and
+backward fold (K14) write the kernels they were before (`per_block`,
+`per_tile`, `per_unit`) in every bit, on real lists and on their corner
+cases (tests/torch_kernel_cases.py), and nothing past the count; the
+shim's `__syncwarp` is a barrier of the warp. Skips where there is no
+g++.
 """
 
 import os
@@ -1002,6 +1004,116 @@ def test_emulated_bf_bwd_is_the_per_unit_kernel(emulation, mt_lists, case):
         assert ties > 1000
 
 
+@pytest.fixture(scope="module")
+def real_levels(soup):
+    """Every segment of the soup's closest and any-hit waves through the
+    plain versions: (ray table, status rows, level records, MT capacity)
+    per segment."""
+    out = []
+    for any_hit, rays in ((False, RC), (True, RA)):
+        _, segs = _bf_levels(None, soup, "highest", any_hit, rays)
+        out += [(seg["rays"], seg["stat"], seg["levels"],
+                 seg["levels"][-1]["mt_units"].shape[0]) for seg in segs]
+    return out
+
+
+def _expand_filled(kernel, units, level, pairs, rays, nodes):
+    """bf_stream.cu's entry `bf_<kernel>_launch` of K10 into masks and
+    counts filled with SENTINEL."""
+    cap = units.shape[0]
+    masks = torch.full((cap, 128), SENTINEL, dtype=torch.int32)
+    counts = torch.full((cap, 16), SENTINEL, dtype=torch.int32)
+    bf._launch(kernel, torch.device("cpu"), units, level, cap, pairs, rays,
+               rays.shape[1], nodes, nodes.shape[0], masks, counts)
+    return masks, counts
+
+
+@pytest.mark.parametrize("case", ["real", *kc.EXPAND_CASES])
+def test_emulated_bf_expand_is_the_per_block_kernel(emulation, soup,
+                                                    real_levels, case):
+    """The redesigned K10 (a warp per unit on the CTAs the card holds, four
+    lanes a thread, the next unit's node row and rays staged while the
+    current one is tested) writes its per-block reference's masks and
+    counts in every bit and bf_expand_plain's, and nothing past the count:
+    on every level of the soup's closest and any-hit waves, a full level
+    whose warps take several units each, a count far below the capacity,
+    dead tiles and tiles of one live lane or of lanes 96-127 alone, ray
+    and node ids out of range, zero direction components and empty-slot
+    metas."""
+    if case == "real":
+        nodes = soup[0]
+        steps = [(lv["units"], stat[lvl], lv["pairs"], rays, nodes)
+                 for rays, stat, levels, _ in real_levels
+                 for lvl, lv in enumerate(levels[:-1])]
+    else:
+        lv = kc.expand_level(case)
+        steps = [(lv["units"], lv["level"], lv["pairs"], lv["rays"],
+                  lv["nodes"])]
+    hits = 0
+    for step in steps:
+        n = int(step[1][bf.NEXT])
+        with emulation:
+            k = _expand_filled("expand", *step)
+            p = _expand_filled("expand_per_block", *step)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        assert all((x[n:] == SENTINEL).all() for x in k)
+        ref = bf.bf_expand_plain(*step)
+        assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, ref))
+        assert torch.equal(k[1][:n], torch.stack([
+            ((k[0][:n] >> c) & 1).sum(1) for c in range(16)], 1).int())
+        hits += int(k[1][:n].sum())
+    assert hits > 500
+
+
+def _emit_filled(kernel, pairs, masks, level, dn, uoff, base, next_lanes,
+                 mt_lanes):
+    """bf_stream.cu's entry `bf_<kernel>_launch` of K12 (or, for "plain",
+    bf_emit_plain) into lists of next_lanes and mt_lanes entries filled
+    with -2, as 3k's fresh buffers are."""
+    out = (torch.full((next_lanes,), -2, dtype=torch.int32),
+           torch.full((mt_lanes,), -2, dtype=torch.int32))
+    args = (pairs, masks, level, dn, uoff, base, *out)
+    if kernel == "plain":
+        bf.bf_emit_plain(*args)
+    else:
+        bf._launch(kernel, torch.device("cpu"), pairs, masks, level,
+                   pairs.shape[0], dn, uoff, base, *out)
+    return out
+
+
+@pytest.mark.parametrize("case", ["real", *kc.EMIT_CASES])
+def test_emulated_bf_emit_is_the_per_block_kernel(emulation, real_levels,
+                                                  case):
+    """The redesigned K12 (K10's grid and lanes, ranks from the warp's
+    four ballots a child, the unit's offset and region rows in one load)
+    writes its per-block reference's and bf_emit_plain's entries of both
+    lists in every bit (every other entry left at -2): on every level of
+    the soup's closest and any-hit waves, and on levels with every bit
+    set, one child in lane 127 alone, regions in both lists, a region not
+    taken between two taken, many units of one node and many units past
+    the count."""
+    if case == "real":
+        steps = [(lv["pairs"], lv["masks"], stat[lvl], lv["dn"], lv["uoff"],
+                  lv["base"], max(lv["cap_next"], 1) * 128, mt_cap * 128)
+                 for _, stat, levels, mt_cap in real_levels
+                 for lvl, lv in enumerate(levels[:-1])]
+    else:
+        lv = kc.emit_level(case)
+        steps = [(lv["pairs"], lv["masks"], lv["level"], lv["dn"],
+                  lv["uoff"], lv["base"], lv["next_lanes"], lv["mt_lanes"])]
+    written = [0, 0]
+    for step in steps:
+        with emulation:
+            k = _emit_filled("emit", *step)
+            p = _emit_filled("emit_per_block", *step)
+        ref = _emit_filled("plain", *step)
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        assert all(torch.equal(a, b) for a, b in zip(k, ref))
+        written = [w + int((x != -2).sum()) for w, x in zip(written, k)]
+    assert min(written) > 0 or case == "lane127"
+    assert sum(written) > 0
+
+
 def test_emulated_bf_tracer_retraces_an_overflow(emulation, soup,
                                                  monkeypatch):
     """With the capacities forced small the emulated kernels report the
@@ -1064,6 +1176,52 @@ def test_emulated_collectives_and_barrier_faults(emulation, tmp_path):
     ballot = torch.tensor([-1, 0xFF], dtype=torch.int64).repeat_interleave(32)
     expect = (torch.arange(64) - lane) * (lane + 1) + lane * (lane + 1) // 2
     assert torch.equal(out.long(), (expect + ballot).to(torch.int32).long())
+
+
+SYNCWARP = r"""
+#include <cuda_runtime.h>
+namespace {
+__global__ void exchange(int* out) {
+  __shared__ int s[64];
+  s[threadIdx.x] = threadIdx.x;
+  __syncwarp();
+  out[threadIdx.x] = s[threadIdx.x ^ 31];
+}
+__global__ void half_syncwarp(int* out) {
+  if (threadIdx.x & 1) __syncwarp();
+  out[threadIdx.x] = 1;
+}
+__global__ void mixed(int* out) {
+  if (threadIdx.x & 1) __syncwarp();
+  else out[threadIdx.x] = __ballot_sync(0xffffffffu, 1);
+}
+}  // namespace
+extern "C" int run(int which, int* out) {
+  if (which == 0) exchange<<<1, 64, 0, nullptr>>>(out);
+  if (which == 1) half_syncwarp<<<1, 64, 0, nullptr>>>(out);
+  if (which == 2) mixed<<<1, 64, 0, nullptr>>>(out);
+  return cudaGetLastError();
+}
+"""
+
+
+def test_emulated_syncwarp_is_a_warp_barrier(emulation, tmp_path):
+    """`__syncwarp` releases a warp once all 32 lanes reach it (each lane
+    then reads what another lane of its warp wrote before it), and a
+    launch whose lanes leave it to part of the warp, or meet another
+    collective there, reports an error."""
+    import ctypes
+
+    emu._write_headers(str(tmp_path))
+    lib = ctypes.CDLL(emu.compile_source("syncwarp", SYNCWARP,
+                                         str(tmp_path)))
+    lib.run.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    out = torch.zeros(64, dtype=torch.int32)
+    assert lib.run(0, out.data_ptr()) == 0
+    lane = torch.arange(64)
+    assert torch.equal(out.long(), lane - lane % 32 + (31 - lane % 32))
+    assert lib.run(1, out.data_ptr()) != 0
+    assert lib.run(2, out.data_ptr()) != 0
 
 
 def test_host_source_rewrites_every_launch():

@@ -14,8 +14,9 @@ schedule against its one-thread-per-pair reference bit for bit, and the
 ray-stream tracer against K1/K2 bit for bit; the redesigned level prefix
 (K11) against its plain version on synthetic levels; the breadth-first
 pipeline's five kernels (K10-K14)
-against their plain versions level by level, the redesigned K13 and K14
-against their references (`per_tile`, `per_unit`) bit for bit, and its
+against their plain versions level by level, the redesigned K10, K12,
+K13 and K14 against their references (`per_block`, `per_tile`,
+`per_unit`) bit for bit, and its
 tracer against K1/K2 bit for bit, with its capacities forced small; the
 wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU. Every test
@@ -1092,6 +1093,101 @@ def test_bf_bwd_is_the_per_unit_kernel(soup_on_card):
     got = _filled("bwd", dev, cap * 128, masks, level, cap, dn, uoff, base,
                   *child, *mt)
     assert (got[1][n:] == SENTINEL).all() and (got[1][:n] != SENTINEL).all()
+
+
+def _synthetic(make, cases, keys, dev):
+    """Each case of a tests/torch_kernel_cases.py level builder on `dev`,
+    "full" / "both_lists" also at the size where warps take several
+    units each."""
+    out = []
+    for case in cases:
+        for big in ((False, True) if case in ("full", "both_lists")
+                    else (False,)):
+            lv = make(case, big=big)
+            out.append(tuple(lv[k].to(dev) if isinstance(lv[k], torch.Tensor)
+                             else lv[k] for k in keys))
+    return out
+
+
+def test_bf_expand_is_the_per_block_kernel(soup_on_card):
+    """The redesigned K10 against its per-block reference and
+    bf_expand_plain on the card, masks and counts in every bit: every
+    level of a closest and an any-hit wave (dead tail lanes, levels far
+    below their capacity) and the synthetic levels (a full level of
+    12,000 units, a count far below the capacity, dead tiles, ids out of
+    range, zero direction components, empty slots); one counted launch of
+    each per call, and nothing written past the count."""
+    nodes = soup_on_card[0]
+    dev = nodes.device
+    steps = []
+    for seg in _real_lists(soup_on_card).values():
+        stat = seg["stat"].to(dev)
+        steps += [(lv["units"], stat[lvl], lv["pairs"], seg["rays"], nodes)
+                  for lvl, lv in enumerate(seg["levels"][:-1])]
+    steps += _synthetic(kc.expand_level, kc.EXPAND_CASES,
+                        ("units", "level", "pairs", "rays", "nodes"), dev)
+    for step in steps:
+        n = int(step[1][bf.NEXT])
+        before = (bf.LAUNCHES["expand"], bf.LAUNCHES["expand+per_block"])
+        k = bf.bf_expand(*step)
+        p = bf.bf_expand(*step, per_block=True)
+        torch.cuda.synchronize()
+        assert (bf.LAUNCHES["expand"], bf.LAUNCHES["expand+per_block"]) == (
+            before[0] + 1, before[1] + 1)
+        ref = bf.bf_expand_plain(*step)
+        assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, p))
+        assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, ref))
+        assert int(k[1][:n].sum()) > 0
+    units, level, pairs, rays, nodes = steps[-5]          # "sparse"
+    cap, n = units.shape[0], int(level[bf.NEXT])
+    assert cap > 10 * n
+    masks = torch.full((cap, 128), SENTINEL, dtype=torch.int32, device=dev)
+    counts = torch.full((cap, 16), SENTINEL, dtype=torch.int32, device=dev)
+    bf._launch("expand", dev, units, level, cap, pairs, rays, rays.shape[1],
+               nodes, nodes.shape[0], masks, counts)
+    torch.cuda.synchronize()
+    assert (masks[n:] == SENTINEL).all() and (counts[n:] == SENTINEL).all()
+    assert (counts[:n] != SENTINEL).all()
+
+
+def test_bf_emit_is_the_per_block_kernel(soup_on_card):
+    """The redesigned K12 against its per-block reference and
+    bf_emit_plain on the card, every entry of both lists (filled with -2
+    beforehand): every level of a closest and an any-hit wave and the
+    synthetic levels (every bit set, one child in lane 127 alone,
+    regions in both lists, a region not taken between two taken, many
+    units of one node, many units past the count, a level of 12,000
+    units); one counted launch of each per call."""
+    dev = soup_on_card[0].device
+    steps = []
+    for seg in _real_lists(soup_on_card).values():
+        stat, levels = seg["stat"].to(dev), seg["levels"]
+        mt_lanes = levels[-1]["mt_units"].shape[0] * 128
+        steps += [(lv["pairs"], lv["masks"], stat[lvl], lv["dn"], lv["uoff"],
+                   lv["base"], max(lv["cap_next"], 1) * 128, mt_lanes)
+                  for lvl, lv in enumerate(levels[:-1])]
+    steps += _synthetic(kc.emit_level, kc.EMIT_CASES,
+                        ("pairs", "masks", "level", "dn", "uoff", "base",
+                         "next_lanes", "mt_lanes"), dev)
+    for *args, next_lanes, mt_lanes in steps:
+        outs = []
+        for emit in (bf.bf_emit, lambda *a: bf.bf_emit(*a, per_block=True),
+                     bf.bf_emit_plain):
+            lists = (torch.full((next_lanes,), -2, dtype=torch.int32,
+                                device=dev),
+                     torch.full((mt_lanes,), -2, dtype=torch.int32,
+                                device=dev))
+            before = (bf.LAUNCHES["emit"], bf.LAUNCHES["emit+per_block"])
+            emit(*args, *lists)
+            torch.cuda.synchronize()
+            ran = (bf.LAUNCHES["emit"] - before[0],
+                   bf.LAUNCHES["emit+per_block"] - before[1])
+            assert ran == ((1, 0), (0, 1), (0, 0))[len(outs)]
+            outs.append(lists)
+        (k, p, ref) = outs
+        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        assert all(torch.equal(a, b) for a, b in zip(k, ref))
+        assert sum(int((x != -2).sum()) for x in k) > 0
 
 
 def test_bf_overflow_retraces_on_the_card(soup_on_card, monkeypatch):

@@ -17,7 +17,14 @@ leaf block each) into full tiles, tiles of 1, 2 and 33 live lanes,
 regions of several tiles of one block, neighbouring tiles of alternating
 blocks, and dead lanes and block ids out of range; `bwd_level` builds one
 level of K14's inputs with every child selected, none, inner and MT
-children mixed and equal t under different slot ids.
+children mixed and equal t under different slot ids. `expand_level` builds
+one level of K10's inputs (a full level whose warps each take several
+units, a count far below the capacity, dead tiles and tiles of one live
+lane or of lanes 96-127 alone, ray and node ids out of range, zero
+direction components, empty-slot metas) and `emit_level` one of K12's,
+whose regions K11's plain version allocates (every bit set, one child in
+lane 127 alone, regions in both lists, a region not taken between two
+taken, many units of one node, many units past the count).
 """
 
 import numpy as np
@@ -288,3 +295,144 @@ def bwd_level(seed=17):
     t = lambda x: torch.from_numpy(np.ascontiguousarray(x, np.int32))
     return dict(masks=t(masks), level=t(level), dn=t(dn), uoff=t(uoff),
                 base=t(base), child=results(), mt=results())
+
+
+EXPAND_CASES = ("full", "sparse", "dead", "clamps", "zero_dir", "empty_meta")
+
+
+def _boxes(rng, n_nodes, empty=0.1):
+    """(n_nodes, 16, 8) f32 node rows [lo, hi, meta, 0] of random boxes in
+    [-4, 4]^3: inner children (meta >= 0), leaves (meta <= -2) and, with
+    probability `empty`, empty slots (meta -1)."""
+    c = rng.uniform(-4, 4, (n_nodes, CHILDREN, 3))
+    h = rng.uniform(0.2, 1.5, (n_nodes, CHILDREN, 3))
+    kind = rng.random((n_nodes, CHILDREN))
+    meta = np.where(kind < empty, -1,
+                    np.where(kind < 0.55, rng.integers(0, n_nodes,
+                                                       kind.shape),
+                             -((rng.integers(0, 500, kind.shape) << 5) | 1)
+                             - 2))
+    rows = np.concatenate([c - h, c + h, meta[..., None],
+                           np.zeros((n_nodes, CHILDREN, 1))], -1)
+    return rows.astype(np.float32)
+
+
+def _aimed_rays(rng, n, tmax=np.inf):
+    """(8, n) f32 rays from [-6, 6]^3 aimed at points of [-4, 4]^3 (so
+    that many enter some box), tmin 1e-3, tmax as given."""
+    o = rng.uniform(-6, 6, (n, 3))
+    d = rng.uniform(-4, 4, (n, 3)) - o
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    return np.concatenate([o.T, d.T, np.full((1, n), 1e-3),
+                           np.full((1, n), tmax)]).astype(np.float32)
+
+
+def expand_level(case, seed=19, big=False):
+    """One level's inputs for `bfstream.bf_expand`, a dict: units (cap,)
+    node ids, level (8,) [unit count, 0...], pairs (cap, 128) ray ids,
+    rays (8, R), nodes (N, 16, 8); int32 / f32 CPU tensors. The units
+    past the count hold live lanes of real nodes (nothing may be written
+    for them). "full": every lane live and count = capacity, 100 units
+    (12,000 with `big`, more than the card's warps); "sparse": 7 units of
+    a capacity of 300; "dead": tiles with no live lane, one live lane, or
+    live lanes in 96-127 alone; "clamps": ray ids -5, -1, R and past it
+    and node ids below 0 and past the table among real ones; "zero_dir":
+    rays with one or two direction components +0, -0 or below 1e-20, and
+    finite tmax; "empty_meta": half the children empty slots."""
+    rng = np.random.default_rng(seed + EXPAND_CASES.index(case))
+    n_nodes, n_rays = 40, 700
+    n, cap = {"full": (12000, 12000) if big else (100, 100),
+              "sparse": (7, 300)}.get(case, (50, 50 + PAST))
+    nodes = _boxes(rng, n_nodes, empty=0.5 if case == "empty_meta" else 0.1)
+    rays = _aimed_rays(rng, n_rays,
+                       tmax=6.0 if case == "zero_dir" else np.inf)
+    units = np.repeat(rng.integers(0, n_nodes, -(-cap // 3)), 3)[:cap]
+    pairs = rng.integers(0, n_rays, (cap, LANES))
+    if case != "full":
+        pairs[rng.random((cap, LANES)) < 0.2] = -1
+    if case == "dead":
+        pairs[0:10] = -1
+        pairs[10:20] = -1
+        pairs[np.arange(10, 20), rng.integers(0, LANES, 10)] = \
+            rng.integers(0, n_rays, 10)
+        pairs[20:30, :96] = -1
+    if case == "clamps":
+        bad = rng.random((cap, LANES))
+        pairs[bad < 0.05] = -5
+        pairs[(bad >= 0.05) & (bad < 0.1)] = n_rays
+        pairs[(bad >= 0.1) & (bad < 0.15)] = n_rays + 1000
+        units[rng.choice(n, 8, replace=False)] = -3
+        units[rng.choice(n, 8, replace=False)] = n_nodes
+        units[rng.choice(n, 4, replace=False)] = n_nodes + 50
+    if case == "zero_dir":
+        lanes = rng.choice(n_rays, n_rays // 2, replace=False)
+        for i, r in enumerate(lanes):
+            axes = rng.choice(3, 1 + i % 2, replace=False)
+            rays[3 + axes, r] = (0.0, -0.0, 1e-25, -3e-21)[i % 4]
+    level = np.zeros(8, np.int32)
+    level[0] = n
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    return dict(units=t(units), level=t(level), pairs=t(pairs),
+                rays=torch.from_numpy(np.ascontiguousarray(rays)),
+                nodes=torch.from_numpy(np.ascontiguousarray(nodes)))
+
+
+EMIT_CASES = ("all16", "lane127", "both_lists", "hole", "same_node",
+              "past_count")
+
+
+def emit_level(case, seed=23, big=False):
+    """One level's inputs for `bfstream.bf_emit`, a dict: pairs, masks
+    (cap, 128), level (8,) [unit count, 0...], dn (cap,), uoff (cap, 16),
+    base (cap * 16,) int32 CPU tensors, and the list sizes next_lanes,
+    mt_lanes. dn, uoff and base are what `bf_prefix_plain` allocates for
+    the masks' counts (children inner or leaf at random, so that regions
+    lie in both lists); the units past the count have every bit set (a
+    kernel that routed them would overwrite the first regions). "all16":
+    every bit of every lane; "lane127": one child in lane 127 alone;
+    "both_lists": random bits, 100 units (12,000 with `big`); "hole": the
+    same with one region taken (base >= 0) set to -1 between two taken
+    ones; "same_node": 60 units of one node, then 20 of another;
+    "past_count": 6 units of a capacity of 200."""
+    from platinum_tpu_torch.ops import bfstream as bf
+
+    rng = np.random.default_rng(seed + EMIT_CASES.index(case))
+    n_nodes = 30
+    n = {"both_lists": 12000 if big else 100, "hole": 100, "same_node": 80,
+         "past_count": 6}.get(case, 40)
+    cap = 200 if case == "past_count" else n + PAST
+    runs = (np.r_[np.zeros(60, int), np.ones(20, int)] if case == "same_node"
+            else np.repeat(np.arange(-(-n // 4)), 4)[:n])
+    ids = rng.permutation(n_nodes)
+    units = np.zeros(cap, np.int64)
+    units[:n] = ids[runs % n_nodes]        # neighbouring runs differ
+    bits = rng.random((cap, LANES, CHILDREN))
+    on = bits < {"all16": 2.0, "lane127": -1.0}.get(case, 0.3)
+    if case == "lane127":
+        on[np.arange(cap), 127, rng.integers(0, CHILDREN, cap)] = True
+    on[n:] = True
+    masks = (on.astype(np.int64) << np.arange(CHILDREN)).sum(-1)
+    pairs = rng.integers(0, 100000, (cap, LANES))
+    kind = rng.random((n_nodes, CHILDREN)) < 0.5
+    meta = np.where(kind, rng.integers(0, n_nodes, kind.shape),
+                    -((rng.integers(0, 500, kind.shape) << 5) | 1) - 2)
+    counts = on.sum(1)
+    counts[n:] = 0
+    level = np.zeros(8, np.int32)
+    level[0] = n
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.int32))
+    cap_next = mt_cap = CHILDREN * n + 8
+    scratch = [torch.empty(cap_next * LANES, dtype=torch.int32),
+               torch.empty(mt_cap * LANES, dtype=torch.int32),
+               torch.empty(mt_cap, dtype=torch.int32),
+               torch.zeros(8, dtype=torch.int32)]
+    dn, base, uoff, _ = bf.bf_prefix_plain(t(units), t(level), t(counts),
+                                           t(meta.reshape(-1)), cap_next,
+                                           mt_cap, *scratch)
+    assert int(scratch[3][bf.LOST]) == 0
+    if case == "hole":
+        taken = torch.nonzero(base >= 0).squeeze(1)
+        base[taken[len(taken) // 2]] = -1
+    return dict(pairs=t(pairs), masks=t(masks), level=t(level), dn=dn,
+                uoff=uoff, base=base, next_lanes=cap_next * LANES,
+                mt_lanes=mt_cap * LANES)

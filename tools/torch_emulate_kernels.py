@@ -15,10 +15,11 @@ of any kernel for the grids sized to the card), with
 the L2 prefetch `asm` removed and every `<<<grid, block>>>` launch
 rewritten into a call of `emu_launch`, which runs the blocks one after
 another and the threads of a block as coroutines, so that
-`__syncthreads` and the warp collectives (`__ballot_sync`, `__any_sync`,
-`__shfl_sync`, `__shfl_up_sync`, `__reduce_min_sync`) act as on the card (a
-barrier or collective that only part of the block or warp reaches makes
-the launch report an error), and binds the result with the wrappers' own
+`__syncthreads`, `__syncwarp` and the warp collectives (`__ballot_sync`,
+`__any_sync`, `__shfl_sync`, `__shfl_up_sync`, `__reduce_min_sync`,
+`__reduce_or_sync`) act as
+on the card (a barrier or collective that only part of the block or warp
+reaches makes the launch report an error), and binds the result with the wrappers' own
 ctypes declarations. g++ gets `-ffp-contract=fast -march=native`, so
 products and sums contract to FMAs as nvcc contracts them where the host
 has FMA instructions. It says nothing about registers, memory traffic or time.
@@ -173,7 +174,7 @@ struct EmuThread {
   unsigned val;    // its value operand
   unsigned res;
 };
-enum EmuOp { kBallot, kShflUp, kShfl, kReduceMin };
+enum EmuOp { kBallot, kShflUp, kShfl, kReduceMin, kReduceOr, kSyncWarp };
 inline std::vector<EmuThread>& emu_threads() {
   static std::vector<EmuThread> t;
   return t;
@@ -216,6 +217,8 @@ __attribute__((noinline)) inline void emu_run(int i) {
   _longjmp(t.jb, 1);
 }
 inline void __syncthreads() { emu_wait(1); }
+// the barrier of a warp's 32 threads: a collective without a value
+inline void __syncwarp(unsigned = 0xffffffffu) { emu_wait(2, kSyncWarp); }
 // Warp collectives. Every lane of the warp must reach the same one (the
 // kernels pass the full mask).
 inline unsigned __ballot_sync(unsigned, int pred) {
@@ -239,6 +242,9 @@ inline float __shfl_sync(unsigned m, float v, int src) {
 inline unsigned __reduce_min_sync(unsigned, unsigned v) {
   return emu_wait(2, kReduceMin, v);
 }
+inline unsigned __reduce_or_sync(unsigned, unsigned v) {
+  return emu_wait(2, kReduceOr, v);
+}
 // one scheduling round's barrier releases; false on a fault
 inline bool emu_release(int threads, bool& released, bool& finished) {
   auto& th = emu_threads();
@@ -249,11 +255,12 @@ inline bool emu_release(int threads, bool& released, bool& finished) {
     for (int i = lo; i < hi; ++i) at += th[i].state == 2;
     if (at == 0) continue;
     if (at != hi - lo) return false;
-    unsigned bits = 0, least = 0xffffffffu;
+    unsigned bits = 0, least = 0xffffffffu, any = 0u;
     for (int j = lo; j < hi; ++j) {
       if (th[j].op != th[lo].op) return false;
       bits |= (th[j].val != 0u) << (j - lo);
       least = std::min(least, th[j].val);
+      any |= th[j].val;
     }
     for (int i = lo; i < hi; ++i) {
       switch (th[i].op) {
@@ -266,6 +273,8 @@ inline bool emu_release(int threads, bool& released, bool& finished) {
         case kShfl: th[i].res = th[lo + (th[i].arg & 31) % (hi - lo)].val;
           break;
         case kReduceMin: th[i].res = least; break;
+        case kReduceOr: th[i].res = any; break;
+        case kSyncWarp: th[i].res = 0; break;
       }
     }
     for (int i = lo; i < hi; ++i) th[i].state = 0;

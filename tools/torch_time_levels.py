@@ -1,18 +1,23 @@
 """Time the breadth-first tracers' level kernels on the GPU, level by level:
 K15 (the ray-stream tracer's leaf-pair kernel, `raystream.stream_mt`) on
-each leaf level's recorded (ray, block) pairs, and K11, K13 and K14 (the
-breadth-first pipeline's level prefix `bf_prefix`, MT kernel `bf_mt` and
-backward fold `bf_bwd`) on each level's recorded inputs, on the headline
+each leaf level's recorded (ray, block) pairs, and K10, K11, K12, K13 and
+K14 (the breadth-first pipeline's expand `bf_expand`, level prefix
+`bf_prefix`, emit `bf_emit`, MT kernel `bf_mt` and backward fold
+`bf_bwd`) on each level's recorded inputs, on the headline
 colonnade's (271k triangles, 512x512) camera and bounce waves as closest
 hit and shadow wave as any hit, the waves chip_smoke.py builds.
 
     python3 tools/torch_time_levels.py [--root OTHER_CHECKOUT] [--reps N]
-        [--kernels K15,K11,K13,K14]
+        [--kernels K15,K10,K11,K12,K13,K14]
 
 K15 runs at "highest" on the pairs its tracer recorded and at "high" and
 "default" on the same pairs, and, where the checkout has it, its
-one-thread-per-pair reference (`per_pair=True`) beside it; K11 on each
-level's recorded inputs, writing into buffers of the level's capacities;
+one-thread-per-pair reference (`per_pair=True`) beside it; K10 on each
+level's recorded inputs and K12 on each level's recorded inputs and
+regions, writing into lists of the level's capacities, each beside the
+kernel before its redesign (`per_block=True`) where the checkout has it;
+K11 on each level's recorded inputs, writing into buffers of the level's
+capacities;
 K13 at every tier on the whole recorded MT list (the tracer's one launch
 a wave) and on each level's slice of it (the tiles between two MT
 cursors), and K14 on each level's recorded inputs (deepest first, each
@@ -79,7 +84,7 @@ def main():
     ap.add_argument("--root", default=os.path.dirname(
         os.path.dirname(os.path.abspath(__file__))))
     ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--kernels", default="K15,K11,K13,K14",
+    ap.add_argument("--kernels", default="K15,K10,K11,K12,K13,K14",
                     help="the kernels to time, comma-separated")
     args = ap.parse_args()
     kernels = set(args.kernels.split(","))
@@ -119,6 +124,7 @@ def main():
     per_pair = "per_pair" in inspect.signature(rs.stream_mt).parameters
     per_tile = "per_tile" in inspect.signature(bf.bf_mt).parameters
     per_unit = "per_unit" in inspect.signature(bf.bf_bwd).parameters
+    per_block = "per_block" in inspect.signature(bf.bf_expand).parameters
 
     def timed(fn):
         return device_ms(torch, fn, args.reps)
@@ -149,6 +155,35 @@ def main():
         out["pairs"][f"{name} K15"] = [int(lv[2].shape[0]) for lv in levels]
         out["blocks"][f"{name} K15"] = [
             int(torch.unique(lv[3]).numel()) for lv in levels]
+
+    def k10_k12_levels(name, seg, stat, which):
+        """K10 (`which` "K10") or K12 ("K12") on each level's recorded
+        inputs, and the kernel before the redesign where there is one."""
+        mt_cap = seg["levels"][-1]["mt_units"].shape[0]
+        kinds = [("", {})] + ([("+per_block", dict(per_block=True))]
+                              if per_block else [])
+        for kind, kw in kinds:
+            per_level = []
+            for lvl, lv in enumerate(seg["levels"][:-1]):
+                if which == "K10":
+                    fn = (lambda lv=lv, lvl=lvl, kw=kw: bf.bf_expand(
+                        lv["units"], stat[lvl], lv["pairs"], seg["rays"],
+                        nodes, **kw))
+                else:
+                    lists = (torch.empty(max(lv["cap_next"], 1) * 128,
+                                         dtype=torch.int32, device=dev),
+                             torch.empty(mt_cap * 128, dtype=torch.int32,
+                                         device=dev))
+                    fn = (lambda lv=lv, lvl=lvl, kw=kw, lists=lists:
+                          bf.bf_emit(lv["pairs"], lv["masks"], stat[lvl],
+                                     lv["dn"], lv["uoff"], lv["base"],
+                                     *lists, **kw))
+                per_level.append(timed(fn))
+            out["ms"][f"{name} {which}{kind}"] = sum(per_level)
+            out["levels"][f"{name} {which}{kind}"] = per_level
+        out["launches"][f"{name} {which}"] = len(seg["levels"]) - 1
+        out["pairs"][f"{name} units"] = [
+            int(r[0]) for r in seg["stat"].tolist()[:-1]]
 
     def k11_levels(name, seg, stat):
         """K11 on each level's recorded inputs."""
@@ -229,6 +264,9 @@ def main():
         stat = seg["stat"].to(dev)
         if "K15" in kernels:
             k15_levels(name, any_hit, o, d, rays)
+        for which in ("K10", "K12"):
+            if which in kernels:
+                k10_k12_levels(name, seg, stat, which)
         if "K11" in kernels:
             k11_levels(name, seg, stat)
         if "K13" in kernels:
