@@ -60,14 +60,14 @@ Phases, one printed block each (any failure exits non-zero):
      about a minute a whole wave), timed and counted on the whole
      518,400-ray waves, and bit for bit against K1/K2 on all three whole
      waves of the same tree (K1/K2 timed there too; no exception); K2 and
-     K6 any hit, the warp-wide any-hit drain, against K8's any-hit half,
-     the per-thread classic walk, on the whole shadow wave: the flag on
-     every ray, t tmax, u and v 0, and per ray that walk's node pops and MT
-     block tests, with their drain counts; K1 and K6 closest against the
-     per-thread pipelined walk on the camera, bounce and shadow waves as
-     closest hit, with no exception, and the drain's lanes per distinct
-     block on each; K9 (pipe, flat_walk) against the per-thread pipelined
-     walk on the three whole waves as 3h holds it; the
+     K6 any hit, the warp-wide any-hit drain, against its per-thread
+     reference, the classic any-hit walk (`per_thread=True`), on the whole
+     shadow wave: every output on every ray, and per ray that walk's node
+     pops and MT block tests, with their drain counts; K1 and K6 closest
+     against the per-thread pipelined walk on the camera, bounce and shadow
+     waves as closest hit, with no exception, and the drain's lanes per
+     distinct block on each; K9 (pipe, flat_walk) against the per-thread
+     pipelined walk on the three whole waves as 3h holds it; the
      instanced stream modes on the colonnade flattened with
      instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
@@ -102,16 +102,19 @@ Phases, one printed block each (any failure exits non-zero):
      ops/threefry.uniform on the card bitwise equal to the CPU
   5c. the same per new mode at 64x64 x 1 spp: "high", "two_phase",
      oct_order, and stream="on" on the headline colonnade
-  3g. K8, the paired launch: paired(camera wave, shadow wave) and
-     paired(bounce wave, shadow wave) bit for bit K1 / K2 on the whole
-     waves, once with the any-hit wave cut to 100,000 rays, timed against
-     K1 and K2 launched one after the other, counted per wave; K2 (the
-     any-hit drain) against the paired launch's any-hit half (the
-     per-thread classic walk) on the whole shadow wave: the flag on every
-     ray and per ray the node pops and MT block tests; on the
-     bistro tree with stream=True against K6; through the tracer's
-     `trace_closest.paired` entry, which is the path that counts its
-     launches
+  3g. K8, the paired launch (each 128-ray CTA on its half's unpaired
+     drain): paired(camera wave, shadow wave) and paired(bounce wave,
+     shadow wave) bit for bit K1 / K2 on the whole waves, and so is K8's
+     per-thread reference (`per_thread=True`), then with either wave cut
+     to 100,000 rays; each pair timed in turns against that reference and
+     K1 and K2 launched one after the other; the counting tables of both
+     halves row for row K1's and K2's (drain rows included); (bounce, shadow) at "high",
+     "default" and "two_phase" against K4 / K5 and K2 the same way, timed;
+     K2 (the any-hit drain) against its per-thread reference, the classic
+     any-hit walk, on the whole shadow wave: every output on every ray and
+     per ray the node pops and MT block tests; on the bistro tree with
+     stream=True against K6; through the tracer's `trace_closest.paired`
+     entry, which is the path that counts its launches
   3h. K9, the pipelined drain, with and without the flat push: closest
      and any hit against K1/K2 as 3d holds K5 and K7 (closest hit with no
      exception); against the per-thread pipelined walk it keeps lane by
@@ -1036,39 +1039,72 @@ def _exact(name, got, ref):
 
 
 def _paired_waves(label, nodes, blocks, meta, closest, shadow, ref_c, ref_a,
-                  stream=False):
+                  **mode):
     """One paired launch over two whole waves: bit for bit the unpaired
-    modes' outputs `ref_c` / `ref_a`, timed against those two modes
-    launched one after the other, and counted per wave. Returns (paired
-    ms, apart ms, counts of the closest wave, counts of the any-hit
-    wave)."""
+    modes' outputs `ref_c` / `ref_a`, as is K8's per-thread reference
+    (`per_thread=True`); timed against that reference and those two modes
+    launched one after the other, each variant twice, in turns
+    (reference, paired, apart, then back). At the fp32 tier the counting tables of the two halves must be
+    the unpaired drains' (K1 or K6 closest, K2) row for row, drain rows
+    included. `mode`: the tier (with its `planes`) or `stream`. Returns
+    {variant: ms (the mean of its two readings)} and, at fp32, the counts
+    of the closest and the any-hit wave."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     res = {}
+    stream = mode.get("stream", False)
+    tier = mode.get("mt_precision", "highest")
 
-    def paired():
-        res["k"] = pt.trace_wide_paired(closest, shadow, nodes, blocks, meta,
-                                        stream=stream)
+    def paired(**kw):
+        def run():
+            res[tuple(kw.items())] = pt.trace_wide_paired(
+                closest, shadow, nodes, blocks, meta, **mode, **kw)
+        return run
 
     def apart():
-        pt.trace_wide(closest, nodes, blocks, meta, False, stream=stream)
+        pt.trace_wide(closest, nodes, blocks, meta, False, **mode)
         pt.trace_wide(shadow, nodes, blocks, meta, True, stream=stream)
 
-    ms = _time_ms(paired, 20)
-    ms_apart = _time_ms(apart, 20)
-    got_c, occ = res["k"]
-    _exact(f"{label} closest half", got_c, ref_c)
-    check(torch.equal(occ, ref_a[1][:occ.shape[0]]),
-          f"{label}: the any-hit half differs from the unpaired kernel")
-    cc, ca = pt.trace_wide_paired_counts(closest, shadow, nodes, blocks, meta,
-                                         stream=stream)
-    print(f"  {label}: {closest.shape[1]} + {shadow.shape[1]} rays bit for "
-          f"bit the unpaired modes; one paired launch {ms:.3f} ms, the two "
-          f"modes one after the other {ms_apart:.3f} ms; closest wave "
-          f"{cc['pops']} pops, {cc['mt_tests']} MT block tests, any-hit "
-          f"wave {ca['pops']} pops, {ca['mt_tests']} MT block tests",
-          flush=True)
-    return ms, ms_apart, cc, ca
+    variants = {"per-thread reference": paired(per_thread=True),
+                "paired": paired(), "apart": apart}
+    turns = list(variants) + list(reversed(variants))
+    readings = {v: [] for v in variants}
+    for v in turns:
+        readings[v].append(_time_ms(variants[v], 20))
+    ms = {v: sum(r) / len(r) for v, r in readings.items()}
+    for kw, (got_c, occ) in res.items():
+        _exact(f"{label} closest half {dict(kw)}", got_c, ref_c)
+        check(torch.equal(occ, ref_a[1][:occ.shape[0]]),
+              f"{label} {dict(kw)}: the any-hit half differs from the "
+              f"unpaired kernel")
+    times = ", ".join(f"{v} {r[0]:.3f} / {r[1]:.3f}"
+                      for v, r in readings.items())
+    print(f"  {label}{'' if tier == 'highest' else ' at ' + tier}: "
+          f"{closest.shape[1]} + {shadow.shape[1]} rays bit for bit the "
+          f"unpaired modes, and so is the per-thread reference; ms per "
+          f"call, two readings each: {times}; paired {ms['paired']:.3f} ms "
+          f"against the per-thread reference "
+          f"{ms['per-thread reference']:.3f} and the two modes apart "
+          f"{ms['apart']:.3f}", flush=True)
+    if tier != "highest":
+        return ms, None, None
+    cc, ca = pt.trace_wide_paired_counts(closest, shadow, nodes, blocks,
+                                         meta, stream=stream, per_ray=True)
+    check(torch.equal(cc, pt.trace_wide_counts(
+              closest, nodes, blocks, meta, False, stream=stream,
+              per_ray=True))
+          and torch.equal(ca, pt.trace_wide_counts(
+              shadow, nodes, blocks, meta, True, stream=stream,
+              per_ray=True)),
+          f"{label}: the paired counting tables differ from the unpaired "
+          f"drains'")
+    cc, ca = (pt._count_sums(c) for c in (cc, ca))
+    print(f"    counting tables, row for row the unpaired "
+          f"drains': closest wave {cc['pops']} pops, {cc['mt_tests']} MT "
+          f"block tests, {cc['drain_rounds']} drain rounds; any-hit wave "
+          f"{ca['pops']} pops, {ca['mt_tests']} MT block tests, "
+          f"{ca['drain_rounds']} drain rounds", flush=True)
+    return ms, cc, ca
 
 
 def phase_paired(ctx, k12):
@@ -1098,31 +1134,33 @@ def phase_paired(ctx, k12):
                  True, sub_a, certify))
     shadow = waves["shadow"]
     for wave in ("camera", "bounce"):
-        ms, _, cc, ca = _paired_waves(
+        ms, cc, ca = _paired_waves(
             f"paired({wave}, shadow)", nodes, blocks, meta, waves[wave],
             shadow, outs[wave], outs["shadow"])
-    # the paired launch does K1's and K2's work on the per-thread walk:
-    # their MT block tests and K2's pops (K2's any-hit drain pops the
-    # per-thread walk's nodes); K1's warp-wide walk, which
-    # slab-tests a node's 16 children against the best at the pop, pops
-    # no fewer nodes than the per-thread walk
+    # each CTA runs K1's or K2's drain, so the halves do K1's and K2's
+    # work: their counts on the bounce and shadow waves, drain rows too
     ref_c, ref_a = k12["closest"]["counts"], k12["any"]["counts"]
-    check(cc["mt_tests"] == ref_c["mt_tests"] and cc["pops"] <= ref_c["pops"]
-          and ca["mt_tests"] == ref_a["mt_tests"]
-          and ca["pops"] == ref_a["pops"] and not cc["drain_rounds"],
+    check(cc == ref_c and ca == ref_a,
           f"the paired launch's counts {cc}, {ca} against K1's {ref_c} "
           f"and K2's {ref_a}")
-    # K2's any-hit drain against the paired launch's any-hit half, which
-    # keeps the per-thread classic walk, ray by ray
-    _any_drain_against_paired("headline", nodes, blocks, meta, shadow,
-                              {"K2": outs["shadow"]})
+    # K2's any-hit drain against its per-thread reference, the classic
+    # walk, ray by ray
+    _any_drain_against_per_thread("headline", nodes, blocks, meta, shadow,
+                                  {"K2": outs["shadow"]})
     cut = shadow[:, :100_000].contiguous()
     _paired_waves("paired(bounce, shadow cut to 100,000)", nodes, blocks,
                   meta, waves["bounce"], cut, outs["bounce"], outs["shadow"])
     _paired_waves("paired(camera cut to 100,000, shadow)", nodes, blocks,
                   meta, waves["camera"][:, :100_000].contiguous(), shadow,
                   [x[:100_000] for x in outs["camera"]], outs["shadow"])
-
+    # the closest half at the reduced tiers and two_phase: K4's and K5's
+    # drains beside K2's
+    for tier in ("high", "default", "two_phase"):
+        mode = dict(mt_precision=tier, planes=ctx["planes"])
+        _paired_waves("paired(bounce, shadow)", nodes, blocks, meta,
+                      waves["bounce"], shadow,
+                      pt.trace_wide(waves["bounce"], nodes, blocks, meta,
+                                    False, **mode), outs["shadow"], **mode)
     # the path: the tracer's own entry, on the same two waves
     tc, ta = pt.make_packet_tracer(flat.wbvh_nodes, blocks, meta,
                                    flat.wbvh_slot)
@@ -1140,10 +1178,11 @@ def phase_paired(ctx, k12):
           f"({launches['paired']}), equal to trace_closest and trace_any",
           flush=True)
     c, a = k12["closest"], k12["any"]
-    return dict(ms=ms, plain_ms=c["plain_ms"] + a["plain_ms"],
+    return dict(ms=ms["paired"], plain_ms=c["plain_ms"] + a["plain_ms"],
                 bound_ms=c["bound_ms"] + a["bound_ms"],
                 bound_by=c["bound_by"], max_abs_err=err,
-                launches=launches["paired"])
+                launches=launches["paired"],
+                reference_ms=ms["per-thread reference"])
 
 
 def phase_pipe(ctx, k12):
@@ -1272,35 +1311,32 @@ def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
                 rays, nodes, blocks, meta, False, inst_feat, **mode))
 
 
-def _any_drain_against_paired(label, nodes, blocks, meta, rays, outs):
-    """The warp-wide any-hit drain against K8's any-hit half, the
-    per-thread classic walk that no unpaired any-hit mode takes any more,
-    on one whole shadow wave; `outs`: {name: (t, sid, u, v) of that mode
-    on the wave}, K2 (resident) and K6 any hit (streamed) taking the drain
-    alike. The flag on every ray (no exception), t tmax and u, v 0 (what
-    the paired half writes), and per ray the same node pops and MT block
-    tests (both cull nodes by the constant tmax and visit a node's leaves
-    in slot order); with each mode's drain counts."""
+def _any_drain_against_per_thread(label, nodes, blocks, meta, rays, outs):
+    """The warp-wide any-hit drain against its per-thread reference, the
+    classic any-hit walk (`trace_wide(..., True, per_thread=True)`), on
+    one whole shadow wave; `outs`: {name: (t, sid, u, v) of that mode on
+    the wave}, K2 (resident) and K6 any hit (streamed) taking the drain
+    alike. Every output on every ray (no exception: the flag, t tmax and
+    u, v 0), and per ray the same node pops and MT block tests (both cull
+    nodes by the constant tmax and visit a node's leaves in slot order);
+    with each mode's drain counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    empty = rays[:, :0].contiguous()
-    occ = pt.trace_wide_paired(empty, rays, nodes, blocks, meta)[1]
-    ref = pt.trace_wide_paired_counts(empty, rays, nodes, blocks, meta,
-                                      per_ray=True)[1]
+    ref = pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)
+    cref = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                per_ray=True, per_thread=True)
     for name, got in outs.items():
-        what = f"{name} against K8's any-hit half, {label} shadow"
-        _exact(what, got, (rays[7], occ, torch.zeros_like(rays[7]),
-                           torch.zeros_like(rays[7])))
+        what = f"{name} against the per-thread any-hit walk, {label} shadow"
+        _exact(what, got, ref)
         stream = name.startswith("K6")
         c = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                  stream=stream, per_ray=True)
-        check(torch.equal(c[:2], ref[:2]),
+        check(torch.equal(c[:2], cref[:2]),
               f"{what}: pops or MT block tests differ from the per-thread "
-              f"walk's on {int((c[:2] != ref[:2]).any(0).sum())} rays")
-        print(f"  {what}: the flag and every output bit for bit on all "
-              f"{rays.shape[1]} rays ({int((occ > 0).sum())} occluded), node "
-              f"pops and MT block tests the per-thread walk's on every ray",
-              flush=True)
+              f"walk's on {int((c[:2] != cref[:2]).any(0).sum())} rays")
+        print(f"  {what}: every output bit for bit on all {rays.shape[1]} "
+              f"rays ({int((ref[1] > 0).sum())} occluded), node pops and MT "
+              f"block tests the per-thread walk's on every ray", flush=True)
         _drain_counts(f"{name} {label} shadow",
                       pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                            stream=stream))
@@ -2141,9 +2177,10 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
               f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
         _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
                  waves[wave], None)
-    _any_drain_against_paired("bistro", nodes, blocks, meta, waves["shadow"],
-                              {"K2": refs["shadow"],
-                               "K6 any hit": outs["shadow"]})
+    _any_drain_against_per_thread("bistro", nodes, blocks, meta,
+                                  waves["shadow"],
+                                  {"K2": refs["shadow"],
+                                   "K6 any hit": outs["shadow"]})
     print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(meta))):
@@ -2802,7 +2839,11 @@ def _design(name):
     elif "(K9" in name:
         walk = ("warp-wide pipelined drain (per-lane backlog, up to "
                 "kPipeDrain blocks a lane a round)")
-    else:                       # K8, the ablation modes
+    elif "(K8)" in name:
+        return ("each 128-ray CTA on its half's unpaired drain (K1's / "
+                "K6's fp32 drain, K4's, K5's; K2's any-hit drain), "
+                "closest-hit CTAs first")
+    else:                       # the ablation modes
         walk = "per-thread walk"
     return walk + (", ten-lane instance entry" if "(K3)" in name else "")
 

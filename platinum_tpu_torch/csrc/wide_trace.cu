@@ -20,8 +20,9 @@
 //      order (accel.wide.build_octant_orders), each node's leaf queue
 //      drained newest first;
 //   K8 the paired launch (`trace_paired`): one grid over a closest-hit
-//      wave and an any-hit wave, each thread taking its mode from its ray
-//      index (kPaired, at the kernel below);
+//      wave and an any-hit wave, each CTA running for its 128 rays the
+//      drain of the unpaired mode that computes its half
+//      (wide_trace_paired below);
 //   K9 pipe / flat_walk (`_make_kernel_pipe`): the pipelined walk, a
 //      backlog of leaf blocks that outlives a node (warp_pipe below);
 //   the ablation modes of `profile=` ("empty", "nomt", "fix64", "count":
@@ -95,11 +96,12 @@
 // ray.
 //
 // Warp-wide block tests. Taken by closest hit at the reduced tiers (K4,
-// K5, and K6-K8 at those tiers), by fp32 closest hit over one tree level
-// or two, with or without the octant order (K1, K3, K6, K7; walk kWarpQ,
-// the prefetch flag telling the streamed closest hit apart), by fp32 any
-// hit without it (K2, K3 any hit, K6 any hit; kWarpQ too) and by the
-// pipelined walk (K9, closest and any hit; kWarpPipe, kWarpFlat).
+// K5, and K6 and K7 at those tiers), by fp32 closest hit over one tree
+// level or two, with or without the octant order (K1, K3, K6, K7; walk
+// kWarpQ, the prefetch flag telling the streamed closest hit apart), by
+// fp32 any hit without it (K2, K3 any hit, K6 any hit; kWarpQ too), by
+// both halves of the paired launch (K8, each CTA on its half's drain) and
+// by the pipelined walk (K9, closest and any hit; kWarpPipe, kWarpFlat).
 // One thread per ray that
 // tests whole blocks reads each block as 640 scattered 16-byte loads (a
 // reduced tier also splits each of its 2,560 coefficients again for every
@@ -137,17 +139,19 @@
 // warp_pipe). Every lane runs every warp collective: lanes whose ray is
 // done or lies past the wave stay in the loops with empty queues.
 //
-// The per-thread walks stay for the paired launch (K8: its any-hit half
-// shares the grid with a closest-hit half and keeps the classic walk),
-// the any hit under the octant order (the packet tracer never asks it:
-// the JAX kernel orders closest hit only, pallas_trace.py:1459) and the
-// ablation modes, which split the per-thread walk's time; and as the
-// references the drains are held to, reached only through the launch's
-// per-thread flag (`kPerThread`, never on a render path): the per-thread
-// pipelined walk (walk_pipe, both pushes, closest and any hit, one level
-// and two) for K1, K3, K9 and the instanced any hit, the per-thread
-// queued walk under the octant order (closest hit, one level and two,
-// resident and streamed) for K7; K8's any-hit half for K2.
+// The per-thread walks stay for the any hit under the octant order (the
+// packet tracer never asks it: the JAX kernel orders closest hit only,
+// pallas_trace.py:1459) and the ablation modes, which split the
+// per-thread walk's time; and as the references the drains are held to,
+// reached only through the launch's per-thread flag (`kPerThread`, never
+// on a render path): the per-thread pipelined walk (walk_pipe, both
+// pushes, closest and any hit, one level and two) for K1, K3, K9 and the
+// instanced any hit, the per-thread queued walk under the octant order
+// (closest hit, one level and two, resident and streamed) for K7, the
+// per-thread classic any-hit walk over one level (resident or streamed
+// alike) for K2 and K6 any hit, and the per-thread paired kernel
+// (kPaired: each thread takes its mode from its ray index, the any-hit
+// half on the classic or queued walk) for K8.
 
 // Queued walks (kQueue: stream or near-first order on the per-thread
 // walk; every warp-wide walk). The node's 16 children are slab-tested
@@ -227,11 +231,11 @@ constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
 // walks (kWalk)
-constexpr int kClassic = 0;   // each leaf tested as it is found (K8's
-                              // any-hit half, the ablation modes)
-constexpr int kQueued = 1;    // per-node leaf queue (streamed K8, the any
-                              // hit under the octant order, K7's
-                              // reference; the reduced tiers)
+constexpr int kClassic = 0;   // each leaf tested as it is found (K2's
+                              // and K8's references, the ablation modes)
+constexpr int kQueued = 1;    // per-node leaf queue (K8's streamed
+                              // reference, the any hit under the octant
+                              // order, K7's reference; the reduced tiers)
 constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9's
                               // per-thread reference)
 constexpr int kPipeFlat = 3;  // the same with 16 predicated pushes a node
@@ -378,13 +382,14 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 // One instantiation per mode. kAnyHit, kInst, kPrec and kCount as above;
 // kWalk picks the walk, kProf an ablation mode of the classic and queued
 // walks, and kPaired takes closest or any hit per thread from its ray
-// index (K8): rays below n_split are a closest-hit wave, the others an
-// any-hit wave. n_split is a multiple of the block size, so no warp holds
-// rays of both waves. Closest hit at a reduced tier (kSplit) always takes
-// the warp-wide queued walk; fp32 closest hit, with or without the octant
-// order, and fp32 any hit without it take it as kWarpQ (K1, K2, K3, K6,
-// K7), over one tree level or two; the pipelined walk drains as kWarpPipe
-// and kWarpFlat (K9). The kernels below wrap it.
+// index (K8's per-thread reference): rays below n_split are a closest-hit
+// wave, the others an any-hit wave. n_split is a multiple of the block
+// size, so no warp holds rays of both waves. Closest hit at a reduced
+// tier (kSplit) always takes the warp-wide queued walk; fp32 closest hit,
+// with or without the octant order, and fp32 any hit without it take it
+// as kWarpQ (K1, K2, K3, K6, K7), over one tree level or two; the
+// pipelined walk drains as kWarpPipe and kWarpFlat (K9). The kernels
+// below wrap it.
 #define WIDE_TRACE_PARAMS                                                 \
   const float* __restrict__ rays, int n_rays, int n_split,                \
       const float* __restrict__ nodes, const float* __restrict__ blocks,  \
@@ -413,8 +418,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   const int lane = threadIdx.x & 31;
   const bool any_hit = kPaired ? i >= n_split : kAnyHit;
   // the warp-wide modes keep every lane of the warp: one past the wave
-  // runs as a dead ray (tmax < tmin); K8's any-hit half (kSplit with
-  // kPaired) walks one thread per ray
+  // runs as a dead ray (tmax < tmin); the any-hit half of K8's
+  // per-thread reference (kSplit with kPaired) walks one thread per ray
   const bool warp_wide = kWarpWide && (kFp32Drain || !any_hit);
   const bool in_wave = i < n_rays;
   if (!in_wave && !warp_wide) return;
@@ -559,8 +564,9 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // The per-thread classic and queued walks: K8's halves, the ablation
-  // modes, the any hit under the octant order and K7's reference.
+  // The per-thread classic and queued walks: K2's and K8's references,
+  // the ablation modes, the any hit under the octant order and K7's
+  // reference.
   auto walk = [&]() {
     int stack[kStack];
     int sp = 0;
@@ -1144,6 +1150,48 @@ wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
       WIDE_TRACE_ARGS);
 }
 
+// K8, the paired launch, on the drains of the unpaired modes. n_split is a
+// multiple of the 128-thread CTA, so each CTA's 128 rays lie in one wave:
+// a closest-hit CTA runs exactly the unpaired closest-hit mode's code for
+// its rays (K1's fp32 drain, which prefetches when the launch streams as
+// K6 closest does; K4's drain over the pre-split planes; K5's broad phase,
+// refine and exact re-walk), an any-hit CTA K2's any-hit drain (which
+// prefetches nothing, as K6 any hit). Any-hit ray j sits at index
+// n_split + j, so every warp holds the rays the unpaired launch's warp
+// holds, lanes past the wave included: outputs, counts and each warp's
+// drain rounds are the unpaired modes', bit for bit. The CTAs keep the
+// layout order, closest-hit tiles first; an order that interleaved the
+// two halves' tiles (the JAX kernel's mix, pallas_trace.py:1545-1550) was
+// within 1% of it on the H100 where the closest-hit wave is coherent
+// (camera rays) and 3-23% slower on every other pair timed (PERF.md §6).
+template <int kPrec, bool kCount>
+__device__ __forceinline__ void wide_trace_paired(WIDE_TRACE_PARAMS) {
+  if (static_cast<int>(blockIdx.x) * kThreads >= n_split)
+    wide_trace<true, false, kCount, kHighest, kWarpQ, kProfNone, false>(
+        WIDE_TRACE_ARGS);
+  else
+    wide_trace<false, false, kCount, kPrec,
+               kPrec == kHighest ? kWarpQ : kQueued, kProfNone, false>(
+        WIDE_TRACE_ARGS);
+}
+
+// Blocks of 128 threads an SM each paired kernel asks ptxas to fit. Left
+// to its default, ptxas gives the union of the two halves' code fewer
+// registers than either unpaired kernel takes, and spills (72 registers
+// and 28 B of spill stores at "high" and "default"); so each asks for
+// about its unpaired closest-hit kernel's occupancy: fp32 6 (K1's and
+// K2's drains keep 80 registers), "high" 5 (K4's 95), "default" 6,
+// two_phase and the counting instantiation 4 (128 registers).
+__host__ __device__ constexpr int paired_min_blocks(int prec, bool count) {
+  return count || prec == kTwoPhase ? 4 : prec == kHigh ? 5 : 6;
+}
+
+template <int kPrec, bool kCount>
+__global__ void __launch_bounds__(kThreads, paired_min_blocks(kPrec, kCount))
+wide_trace_paired_kernel(WIDE_TRACE_PARAMS) {
+  wide_trace_paired<kPrec, kCount>(WIDE_TRACE_ARGS);
+}
+
 // The pre-split planes of the coefficient blocks: h = bf16(c) and
 // l = bf16(c - h), round to nearest even, one thread per coefficient, as
 // (B, 2, 10, 256) bf16 (the TPU kernel splits the coefficients inside
@@ -1202,6 +1250,15 @@ void launch(const Launch& l) {
             l.v_out, l.inst_out, l.counts);
 }
 
+// K8 on the drains
+template <int kPrec, bool kCount>
+void launch_paired(const Launch& l) {
+  wide_trace_paired_kernel<kPrec, kCount><<<l.grid, kThreads, 0, l.stream>>>(
+      l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
+      l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out, l.v_out,
+      l.inst_out, l.counts);
+}
+
 constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 
 // K1-K7: the classic or queued walk at a tier; closest hit at a reduced
@@ -1254,11 +1311,37 @@ int by_mode(int any_hit, int prec, bool queue, const Launch& l) {
 }
 
 // K8: one launch over a closest-hit and an any-hit wave, one tree level,
-// the classic or the streamed walk for the any-hit half (and the fp32
-// closest half), the closest half at any tier. The counting instantiation
-// exists at the fp32 tier.
-template <bool kCount, int kWalk>
+// the closest half at any tier, resident or streamed (not two_phase); the
+// counting instantiation exists at the fp32 tier. Each CTA runs the drain
+// of the unpaired mode of its half (wide_trace_paired_kernel), one
+// instantiation per tier: the streamed closest hit differs from the
+// resident one by the prefetch flag alone, and any hit ignores it.
+template <bool kCount>
 int paired(int prec, const Launch& l) {
+  switch (prec) {
+    case kHighest:
+      launch_paired<kHighest, kCount>(l);
+      return 0;
+    case kHigh:
+    case kDefault:
+    case kTwoPhase:
+      if constexpr (!kCount) {
+        if (prec == kHigh) launch_paired<kHigh, false>(l);
+        else if (prec == kDefault) launch_paired<kDefault, false>(l);
+        else launch_paired<kTwoPhase, false>(l);
+        return 0;
+      }
+      return kBadMode;
+  }
+  return kBadMode;
+}
+
+// K8's per-thread reference (kPerThread): the kernel before the drains,
+// one thread per ray, each taking its mode from its ray index; the any-hit
+// half (and the fp32 closest half) on the classic or, streamed, the queued
+// walk
+template <bool kCount, int kWalk>
+int paired_per_thread(int prec, const Launch& l) {
   switch (prec) {
     case kHighest:
       launch<false, false, kCount, kHighest, kWalk, kProfNone, true>(l);
@@ -1335,11 +1418,11 @@ int dispatch(int any_hit, int prec, int stream, int walk, int prof,
   const bool inst = l.inst_feat != nullptr;
   const bool queue = l.worder != nullptr || stream != 0;
   if (any_hit == 2) {
-    if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone ||
-        l.per_thread)
+    if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone)
       return kBadMode;
-    return stream ? paired<kCount, kQueued>(prec, l)
-                  : paired<kCount, kClassic>(prec, l);
+    if (!l.per_thread) return paired<kCount>(prec, l);
+    return stream ? paired_per_thread<kCount, kQueued>(prec, l)
+                  : paired_per_thread<kCount, kClassic>(prec, l);
   }
   if (walk != 0) {
     if (queue || prof != kProfNone || (!any_hit && prec != kHighest))
@@ -1350,9 +1433,15 @@ int dispatch(int any_hit, int prec, int stream, int walk, int prof,
     return walk == 2 ? piped<kCount, kWarpFlat>(any_hit, l)
                      : piped<kCount, kWarpPipe>(any_hit, l);
   }
-  // the per-thread reference of the default walk: K7's, fp32 closest hit
-  // under the octant order
-  if (l.per_thread && (l.worder == nullptr || any_hit || prec != kHighest))
+  // the per-thread references of the default walk: K2's and K6 any
+  // hit's, the classic any-hit walk over one level without the octant
+  // order (streamed or not); K7's, fp32 closest hit under the octant order
+  if (l.per_thread && any_hit) {
+    if (inst || l.worder != nullptr || prof != kProfNone) return kBadMode;
+    launch<true, false, kCount, kHighest, kClassic>(l);
+    return 0;
+  }
+  if (l.per_thread && (l.worder == nullptr || prec != kHighest))
     return kBadMode;
   if (prof != kProfNone) {
     if (inst || l.worder != nullptr || (!any_hit && prec != kHighest))
@@ -1375,21 +1464,22 @@ extern "C" {
 // rays: (8, n_rays) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; outputs
 // (n_rays,) each. any_hit: 0 closest, 1 any hit, 2 paired (K8): rays below
 // n_split, a multiple of 128, are a closest-hit wave and the others an
-// any-hit wave, over one tree level, with the classic or the streamed
-// walk. inst_feat non-null selects the two-level mode, which also writes
-// inst_out in closest-hit mode. mt_prec: 0 highest, 1 high, 2 default,
-// 3 two_phase (closest hit only); closest hit at a tier below highest reads
-// the blocks' pre-split planes `planes` (wide_trace_split_planes), which
-// must then be given. worder non-null selects the near-first
-// octant order; stream != 0 queues and prefetches the leaf blocks. walk:
-// 0 the classic or queued walk, 1 the pipelined walk (K9), 2 the same
-// with the flat push (single-block leaves only); both fp32, without
-// stream or octant order; plus 4 (kPerThread), the mode's per-thread
-// reference, never on a render path: with 1 or 2 the per-thread
-// pipelined walk, with 0 the per-thread queued walk of fp32 closest hit
-// under the octant order (worder given). profile: 0 none, 1 empty,
-// 2 nomt, 3 fix64, 4 count, on the one-level fp32 walk (empty and nomt
-// also with stream).
+// any-hit wave, over one tree level, resident or streamed, each CTA on
+// its half's drain. inst_feat non-null selects the two-level mode, which
+// also writes inst_out in closest-hit mode. mt_prec: 0 highest, 1 high,
+// 2 default, 3 two_phase (closest hit only); closest hit at a tier below
+// highest reads the blocks' pre-split planes `planes`
+// (wide_trace_split_planes), which must then be given. worder non-null
+// selects the near-first octant order; stream != 0 queues and prefetches
+// the leaf blocks. walk: 0 the classic or queued walk, 1 the pipelined
+// walk (K9), 2 the same with the flat push (single-block leaves only);
+// both fp32, without stream or octant order; plus 4 (kPerThread), the
+// mode's per-thread reference, never on a render path: with 1 or 2 the
+// per-thread pipelined walk, with 0 the per-thread queued walk of fp32
+// closest hit under the octant order (worder given), the per-thread
+// classic walk of one-level any hit without it, or the per-thread paired
+// kernel. profile: 0 none, 1 empty, 2 nomt, 3 fix64, 4 count, on the
+// one-level fp32 walk (empty and nomt also with stream).
 // counts non-null selects the counting instantiation: (7, n_rays) i32 rows
 // of node pops, MT block tests, instance entries, fp32 refine / re-walk
 // block tests, re-walks, and on lane 0 of each warp its warp-wide drain

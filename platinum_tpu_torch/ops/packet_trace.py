@@ -17,11 +17,13 @@ block by block from the blocks' pre-split bf16 planes (`split_planes`,
 built once per tracer by the same source's split kernel); streamed leaf blocks
 (K6, `stream`) and the near-first octant order (K7, `worder`); the
 pipelined walk with its flat push (K9, `pipe`, `flat_walk`) and the
-ablation modes (`profile`). Every fp32 mode but K8 and the ablation modes
-tests its blocks warp-wide; `per_thread=True` reaches the per-thread walks
-the drains are held to (the pipelined walk, and K7's queued walk), which
-no render path takes. `trace_wide_paired` launches a closest-hit and
-an any-hit wave as one grid (K8). On CUDA tensors they launch the kernel
+ablation modes (`profile`). Every mode but the ablation modes tests its
+blocks warp-wide; `per_thread=True` reaches the per-thread walks the
+drains are held to (the pipelined walk, K7's queued walk, K2's classic
+any-hit walk), which no render path takes. `trace_wide_paired` launches a
+closest-hit and an any-hit wave as one grid (K8), each CTA on the drain
+of its half's unpaired mode; its `per_thread=True` is the per-thread
+paired kernel. On CUDA tensors they launch the kernel
 or raise; on CPU tensors they run the plain PyTorch version
 (`trace_wide_plain`, `trace_wide_inst_plain`,
 `trace_wide_two_phase_plain`, `trace_wide_profile_plain`): a brute force
@@ -135,15 +137,18 @@ LAUNCHES = {launch_key(a, i, p, o, s): 0
             for p in (PRECISIONS if not a else ("highest",))
             for o in (False, True)
             for s in (False, True) if not (s and p == "two_phase")}
-LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True): 0
+LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True,
+                            per_thread=r): 0
                  for p in PRECISIONS for s in (False, True)
-                 if not (s and p == "two_phase")})
+                 for r in (False, True) if not (s and p == "two_phase")})
 LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f, per_thread=r): 0
                  for a in (False, True) for i in (False, True)
                  for f in (False, True) for r in (False, True)})
 LAUNCHES.update({launch_key(False, i, oct_order=True, stream=s,
                             per_thread=True): 0
                  for i in (False, True) for s in (False, True)})
+LAUNCHES.update({launch_key(True, stream=s, per_thread=True): 0
+                 for s in (False, True)})
 LAUNCHES.update({launch_key(a, stream=s, profile=m): 0
                  for a in (False, True) for m in PROFILES if m != "none"
                  for s in ((False, True) if m in ("empty", "nomt")
@@ -321,10 +326,10 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
     kernel on the current stream. any_hit: False, True, or 2 for the
     paired launch (rays below `n_split` closest hit, the others any hit);
     walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
-    push; `per_thread`: the mode's per-thread reference walk (walk 1 or
-    2, or closest hit with `worder`); `planes`: the blocks' pre-split
-    planes, which closest hit at a reduced tier reads and which must then
-    be given.
+    push; `per_thread`: the mode's per-thread reference walk (walk 1 or 2, closest hit with
+    `worder`, one-level any hit, the paired launch); `planes`: the blocks'
+    pre-split planes, which closest hit at a reduced tier reads and which
+    must then be given.
     Returns (t, sid, u, v, inst, counts); inst is None outside the
     instanced closest-hit mode, counts None unless `count`. The caller
     has checked the mode (`check_mode`); the C entry refuses a bad one
@@ -396,14 +401,17 @@ def _walk_code(meta, pipe: bool, flat_walk: bool, checked: bool) -> int:
     return 2 if flat_walk else int(bool(pipe))
 
 
-def _check_per_thread(any_hit, worder, pipe, mt_precision):
+def _check_per_thread(any_hit, worder, pipe, mt_precision, instanced):
     """`per_thread` names a per-thread reference walk: the pipelined
-    walk's (`pipe` / `flat_walk`) or the octant order's fp32 closest
-    hit's."""
+    walk's (`pipe` / `flat_walk`), the octant order's fp32 closest hit's,
+    or the classic walk of any hit over one tree level without the octant
+    order (K2's and K6 any hit's)."""
     if not (pipe or (worder is not None and not any_hit
-                     and mt_precision == "highest")):
+                     and mt_precision == "highest")
+            or (any_hit and worder is None and not instanced)):
         raise ValueError("per_thread reaches the per-thread walk of pipe / "
-                         "flat_walk, or of fp32 closest hit with worder")
+                         "flat_walk, of fp32 closest hit with worder, or of "
+                         "one-level any hit without worder")
 
 
 def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
@@ -434,8 +442,10 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     version forms the split itself). `per_thread` launches, in place of
     the warp-wide drain, the per-thread walk it is held to: the pipelined
     walk (with `pipe` / `flat_walk`, closest and any hit, one level or
-    two) or the queued walk under the octant order (fp32 closest hit with
-    `worder`, resident or streamed). It exists to hold the drains to
+    two), the queued walk under the octant order (fp32 closest hit with
+    `worder`, resident or streamed) or the classic walk of any hit over
+    one tree level without `worder` (K2's and, with `stream`, K6 any
+    hit's: the same walk). It exists to hold the drains to
     (tests, chip_smoke.py), `make_packet_tracer` never passes it, and its
     launches count under their own keys (`launch_key(..., per_thread=
     True)`); other modes refuse it.
@@ -454,7 +464,8 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
         raise ValueError("the pipelined walk takes no octant order "
                          "(pallas_trace.py:1459)")
     if per_thread:
-        _check_per_thread(any_hit, worder, pipe, mt_precision)
+        _check_per_thread(any_hit, worder, pipe, mt_precision,
+                          inst_feat is not None)
     walk = _walk_code(meta, pipe, flat_walk, checked)
     prec = "highest" if any_hit else mt_precision
     if rays.device.type == "cpu":
@@ -544,16 +555,19 @@ def pair_rays(rays_c, rays_a):
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
                       mt_precision: str = "highest", stream: bool = False,
-                      planes=None):
+                      planes=None, per_thread: bool = False):
     """Trace a closest-hit wave and an independent any-hit wave in ONE
     kernel launch (K8, pallas_trace.py `trace_paired`): one grid covers
-    both waves and each thread takes its mode from its ray index. One tree
-    level only; `stream` and the closest-hit tier are honoured, the
-    any-hit rays stay exact fp32. Either wave may be longer, or empty.
-    Returns ((t, sid, u, v) of the closest wave, the any-hit wave's sid:
-    1 occluded, -1 not): the same walks as `trace_wide`, so bit for bit
-    its results; `planes` as in `trace_wide`. CPU tensors take the two
-    plain versions."""
+    both waves, and each 128-ray CTA runs the drain of the unpaired mode
+    that computes its half (`trace_wide` closest hit at the tier and
+    `stream`, and any hit, exact fp32), the closest-hit CTAs first. One
+    tree level only. Either wave may be longer, or empty. `per_thread`
+    launches K8's per-thread reference in place of the drains (each
+    thread taking its mode from its ray index; counted under its own
+    key), which no tracer passes. Returns ((t, sid, u, v) of the closest wave, the any-hit
+    wave's sid: 1 occluded, -1 not): bit for bit `trace_wide`'s results;
+    `planes` as in `trace_wide`. CPU tensors take the two plain
+    versions."""
     check_mode(mt_precision, stream)
     if rays_c.device.type == "cpu":
         return (trace_wide_reference(rays_c, nodes, blocks, meta, False,
@@ -568,11 +582,12 @@ def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
     nc = rays_c.shape[1]
     rays, n_split = pair_rays(rays_c, rays_a)
     t, sid, u, v, _, _ = _launch(rays, nodes, blocks, meta, 2, None, False,
-                                 None, mt_precision, stream, n_split=n_split,
-                                 planes=planes)
+                                 None, mt_precision, stream,
+                                 PER_THREAD if per_thread else 0,
+                                 n_split=n_split, planes=planes)
     if rays.shape[1]:
         LAUNCHES[launch_key(False, mt_precision=mt_precision, stream=stream,
-                            paired=True)] += 1
+                            paired=True, per_thread=per_thread)] += 1
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
 
 
@@ -611,7 +626,8 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
     if per_thread:
-        _check_per_thread(any_hit, worder, pipe or flat_walk, mt_precision)
+        _check_per_thread(any_hit, worder, pipe or flat_walk, mt_precision,
+                          inst_feat is not None)
     counts = _launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      True, worder, "highest" if any_hit else mt_precision,
                      stream, _walk_code(meta, pipe or flat_walk, flat_walk,
@@ -630,18 +646,22 @@ def split_paired_counts(counts, n_closest: int, n_split: int,
 
 
 def trace_wide_paired_counts(rays_c, rays_a, nodes, blocks, meta,
-                             stream: bool = False, per_ray: bool = False):
+                             stream: bool = False, per_ray: bool = False,
+                             per_thread: bool = False):
     """`trace_wide_counts` of the paired launch at the fp32 tier, split by
     wave: (counts of the closest wave, counts of the any-hit wave), sums
     or, with `per_ray`, the (7, R) tables of `trace_wide_counts(per_ray=
-    True)`. The any-hit half keeps the per-thread classic (or, with
-    `stream`, queued) walk, so its per-ray node pops and MT block tests
-    are the reference the any-hit drain is held to."""
+    True)`. Each CTA runs its half's unpaired drain, so the two tables are
+    those of K1 (K6 closest with `stream`) and K2 on the two waves, drain
+    rows included; `per_thread` counts K8's per-thread reference (the
+    classic or, with `stream`, queued walk in both halves; no drain
+    rows)."""
     if rays_c.device.type != "cuda":
         raise ValueError("trace_wide_paired_counts runs the CUDA kernel only")
     rays, n_split = pair_rays(rays_c, rays_a)
     counts = _launch(rays, nodes, blocks, meta, 2, None, True, None,
-                     "highest", stream, n_split=n_split)[5]
+                     "highest", stream, PER_THREAD if per_thread else 0,
+                     n_split=n_split)[5]
     return split_paired_counts(counts, rays_c.shape[1], n_split, per_ray)
 
 

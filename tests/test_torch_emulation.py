@@ -12,12 +12,14 @@ tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
 and K6 closest) and over the pre-split planes of the reduced tiers (built
 by the split kernel, bit for bit their plain version), gives the
 per-thread code's results, as do the two-level fp32 drain (K3 closest),
-the any-hit drain (K2 and K6 any hit: the flag and counts of K8's
-per-thread any-hit half; the instanced any hit: the per-thread pipelined
-walk's outputs), the octant-ordered drain (K7: the per-thread queued walk
-under the octant order) and the pipelined drain (K9: the per-thread
-pipelined walk), the last two also in their pops and block tests per ray;
-the ablation modes do what they must; the
+the any-hit drain (K2 and K6 any hit: the flag and counts of the
+per-thread classic any-hit walk, itself K8's per-thread any-hit half; the
+instanced any hit: the per-thread pipelined walk's outputs), the paired
+launch (K8: each CTA on its half's unpaired drain, outputs and counts
+those modes', resident and streamed at every tier), the octant-ordered drain (K7: the
+per-thread queued walk under the octant order) and the pipelined drain
+(K9: the per-thread pipelined walk), the last two also in their pops and
+block tests per ray; the ablation modes do what they must; the
 leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
 the bit, and its chunked schedule gives its one-thread-per-pair
 reference's outputs in every bit; the redesigned level prefix (K11) gives
@@ -212,20 +214,45 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
                                      (0, 1200), (1536, 0)])
 @pytest.mark.parametrize("mode", [dict(), dict(mt_precision="high"),
                                   dict(mt_precision="two_phase"),
-                                  dict(stream=True)],
+                                  dict(stream=True),
+                                  dict(mt_precision="default"),
+                                  dict(mt_precision="high", stream=True),
+                                  dict(mt_precision="default", stream=True)],
                          ids=lambda m: "+".join(m) or "fp32")
 def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
+    """K8 in every mode, resident and streamed: each CTA runs its half's
+    unpaired drain, so the closest half is the unpaired closest-hit mode
+    at the tier (and stream) and the any-hit half K2, in every output's
+    bits, and so is K8's per-thread reference (`per_thread=True`); either
+    wave longer, or empty. At fp32, resident and streamed, the counting
+    tables of both halves are the unpaired K1 / K6 closest and K2 drains'
+    row for row, drain rounds and distinct blocks included (the warps hold
+    the same rays)."""
     nodes, blocks, meta, _ = soup
     rc, ra = RC[:, :n_c].contiguous(), RA[:, :n_a].contiguous()
     if "mt_precision" in mode:
         mode = dict(mode, planes=pt.split_planes(blocks))
+    stream = mode.get("stream", False)
     with emulation:
-        closest, occ = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
-                                             **mode)
+        got = emu.trace_wide_paired(rc, ra, nodes, blocks, meta, **mode)
+        ref = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
+                                    per_thread=True, **mode)
         ref_c = emu.trace_wide(rc, nodes, blocks, meta, False, **mode)
-        ref_a = emu.trace_wide(ra, nodes, blocks, meta, True,
-                               stream=mode.get("stream", False))
-    assert emu.same_bits(closest, ref_c) and torch.equal(occ, ref_a[1])
+        ref_a = emu.trace_wide(ra, nodes, blocks, meta, True, stream=stream)
+        if "mt_precision" not in mode:
+            cc, ca = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
+                                           count=True, **mode)
+            c1 = emu.trace_wide(rc, nodes, blocks, meta, False, count=True,
+                                stream=stream)
+            c2 = emu.trace_wide(ra, nodes, blocks, meta, True, count=True,
+                                stream=stream)
+    for closest, occ in (got, ref):
+        assert emu.same_bits(closest, ref_c) and torch.equal(occ, ref_a[1])
+    if "mt_precision" not in mode:
+        assert torch.equal(cc, c1) and torch.equal(ca, c2)
+        if n_c and n_a:
+            _drain_counts_bracket(c1)
+            _drain_counts_bracket(c2)
 
 
 def test_emulated_profile_modes_do_what_they_must(emulation, soup):
@@ -457,13 +484,34 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
     assert int(c1[1].sum()) >= int(c9[1].sum()) > 0
 
 
-def _k8_any_half(rays, nodes, blocks, meta, count=False):
-    """The any-hit half of the paired launch (K8) over the whole wave (an
-    empty closest-hit wave, so n_split = 0): the per-thread classic walk,
-    which no unpaired any-hit mode takes any more. Its (t, sid, u, v), or
-    with `count` its (7, R) counting table."""
-    out = pt._launch(rays, nodes, blocks, meta, 2, None, count, n_split=0)
-    return out[5] if count else out[:4]
+@pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
+def test_emulated_per_thread_any_hit_is_k8s_any_half(emulation, soup,
+                                                     multi_block, tree):
+    """K2's per-thread reference (`trace_wide(..., True, per_thread=True)`,
+    the classic any-hit walk, resident and streamed alike) is the any-hit
+    half of K8's per-thread reference (`per_thread=True` with an empty
+    closest-hit wave, so n_split = 0): every output in every bit and the
+    whole counting table, resident and streamed (that half's queued walk
+    culls by the constant tmax and visits a node's leaves in slot order,
+    so it pops the classic walk's nodes and tests its blocks)."""
+    nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
+    rays = _ragged_wave(RA) if tree == "ragged" else RA
+    empty = rays[:, :0].contiguous()
+    with emulation:
+        for stream in (False, True):
+            got = emu.trace_wide(rays, nodes, blocks, meta, True,
+                                 stream=stream, per_thread=True)
+            c = emu.trace_wide(rays, nodes, blocks, meta, True, count=True,
+                               stream=stream, per_thread=True)
+            occ = emu.trace_wide_paired(empty, rays, nodes, blocks, meta,
+                                        stream=stream, per_thread=True)[1]
+            c8 = emu.trace_wide_paired(empty, rays, nodes, blocks, meta,
+                                       stream=stream, per_thread=True,
+                                       count=True)[1]
+            assert emu.same_bits(got, (rays[7], occ, torch.zeros_like(
+                rays[7]), torch.zeros_like(rays[7])))
+            assert torch.equal(c, c8) and not c[2:].any()
+            assert (occ > 0).sum() > 50 and (occ < 0).sum() > 50
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
@@ -474,7 +522,7 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
     drain, with resident blocks (K2, K3 any hit) and streamed ones (K6
     any hit), the two giving the same outputs and counts in every bit.
     On one tree level its outputs are those of the per-thread classic walk
-    (K8's any-hit half) bit for bit, on the soup, on a tree whose nodes
+    (`per_thread=True`) bit for bit, on the soup, on a tree whose nodes
     queue more than 16 blocks and on a ragged wave with dead lanes; with
     the constant tmax as its node cull it pops that walk's nodes and tests
     its blocks, ray by ray, and fills the drain rows. On the instanced
@@ -497,14 +545,11 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
         c2, c6 = (emu.trace_wide(rays, nodes, blocks, meta, True,
                                  inst_feat=feat, count=True, stream=stream)
                   for stream in (False, True))
-        if feat is None:
-            ref, cref = (_k8_any_half(rays, nodes, blocks, meta, count)
-                         for count in (False, True))
-        else:
-            ref, cref = (emu.trace_wide(rays, nodes, blocks, meta, True,
-                                        inst_feat=feat, pipe=True,
-                                        per_thread=True, count=count)
-                         for count in (False, True))
+        walk = dict(pipe=True) if feat is not None else {}
+        ref, cref = (emu.trace_wide(rays, nodes, blocks, meta, True,
+                                    inst_feat=feat, per_thread=True,
+                                    count=count, **walk)
+                     for count in (False, True))
     assert emu.same_bits(k2, ref) and emu.same_bits(k6, k2)
     assert torch.equal(c6, c2)
     occluded = k2[1] > 0

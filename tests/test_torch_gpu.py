@@ -7,8 +7,10 @@ ray-stream tracer at its tier bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the
 warp-wide drains of K1, K3 closest and the instanced any hit against the
 per-thread pipelined walk (`per_thread=True`), of K2 and K6 any hit
-against K8's per-thread any-hit half, and of K7 and K9 against their
-per-thread walks in every output bit and per-ray count;
+against the per-thread classic any-hit walk (`per_thread=True`), and of
+K7 and K9 against their per-thread walks in every output bit and per-ray
+count; K8's halves against the unpaired drains in outputs and counts and
+against its per-thread reference;
 the leaf-pair kernel (K15) against its plain version, its chunked
 schedule against its one-thread-per-pair reference bit for bit, and the
 ray-stream tracer against K1/K2 bit for bit; the redesigned level prefix
@@ -282,29 +284,27 @@ def test_reduced_tier_is_the_stream_tracer_bit_for_bit(soup_on_card, tier):
     assert torch.equal(rec.tri, ref.tri) and torch.equal(rec.bary, ref.bary)
 
 
-def _k8_any_half(rays, nodes, blocks, meta, per_ray=False):
-    """The flag of K8's any-hit half over the whole wave (an empty
-    closest-hit wave beside it), the per-thread classic walk that no
-    unpaired any-hit mode takes any more; with `per_ray` its (7, R)
-    counting table instead."""
-    empty = rays[:, :0].contiguous()
+def _per_thread_any(rays, nodes, blocks, meta, per_ray=False):
+    """The flag of the per-thread classic any-hit walk over the whole wave
+    (`per_thread=True`, the reference of K2 and K6 any hit); with
+    `per_ray` its (7, R) counting table instead."""
     if per_ray:
-        return pt.trace_wide_paired_counts(empty, rays, nodes, blocks, meta,
-                                           per_ray=True)[1]
-    return pt.trace_wide_paired(empty, rays, nodes, blocks, meta)[1]
+        return pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                    per_ray=True, per_thread=True)
+    return pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)[1]
 
 
 def test_streamed_any_hit_equals_k2(soup_on_card):
     """K6 any hit, counted under its own key, is K2 in every output (both
-    take the any-hit drain), and its flag is that of K8's any-hit half,
-    the per-thread classic walk, on every ray."""
+    take the any-hit drain), and its flag is that of the per-thread
+    classic walk on every ray."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4096, 8.0, nodes.device)
     before = pt.LAUNCHES["stream+any"]
     k = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
     assert pt.LAUNCHES["stream+any"] == before + 1
     _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, True), "stream+any")
-    assert torch.equal(k[1], _k8_any_half(rays, nodes, blocks, meta))
+    assert torch.equal(k[1], _per_thread_any(rays, nodes, blocks, meta))
 
 
 @pytest.mark.parametrize("mode", [dict(mt_precision="high"),
@@ -369,15 +369,16 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     # two_phase streamed, pipe with a tier / with stream / with a profile,
     # a profile with a tier, fix64 streamed, a paired split inside a
     # block, a reduced tier's closest hit (and paired) without the planes
-    # ... and the per-thread flag (4) of the default walk, which only fp32
-    # closest hit with worder has (none given here), beside a profile, on
-    # the paired launch, and an unknown walk
+    # ... and the per-thread flag (4) of the default walk, which fp32
+    # closest hit has only with worder (none given here), beside a
+    # profile (any hit too), on the paired launch's pipelined walk, and an
+    # unknown walk
     for any_hit, prec, stream, walk, prof, split in (
             (0, 1, 0, 0, 0, 0), (0, 2, 0, 0, 0, 0), (2, 3, 0, 0, 0, 128),
             (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
             (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
             (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128),
-            (0, 0, 0, 4, 0, 0), (1, 0, 0, 4, 0, 0), (0, 0, 0, 5, 2, 0),
+            (0, 0, 0, 4, 0, 0), (1, 0, 0, 4, 2, 0), (0, 0, 0, 5, 2, 0),
             (2, 0, 0, 5, 0, 128), (0, 0, 0, 3, 0, 0), (0, 0, 0, 7, 0, 0)):
         rc = lib.wide_trace_launch(
             rays.data_ptr(), 256, split, nodes.data_ptr(), blocks.data_ptr(),
@@ -398,33 +399,59 @@ def test_modes_that_cannot_run_raise(soup_on_card):
             pt.trace_wide(rays, nodes, blocks, meta, any_hit,
                           per_thread=True, **kw)
     assert pt.LAUNCHES == before
+    # any hit without worder has a per-thread reference (the classic walk,
+    # K2's and K6 any hit's): it launches, under its own key
+    pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)
+    assert pt.LAUNCHES["any+per_thread"] == before["any+per_thread"] + 1
 
 
 @pytest.mark.parametrize("n_c,n_a", [(4096, 4096), (1000, 4096),
                                      (4096, 300), (0, 2048), (2048, 0)])
 @pytest.mark.parametrize("mode", [dict(), dict(mt_precision="high"),
                                   dict(mt_precision="two_phase"),
-                                  dict(stream=True)],
+                                  dict(stream=True),
+                                  dict(mt_precision="default"),
+                                  dict(mt_precision="high", stream=True),
+                                  dict(mt_precision="default", stream=True)],
                          ids=lambda m: "+".join(m) or "fp32")
 def test_paired_launch_is_k1_and_k2_bit_for_bit(soup_on_card, n_c, n_a, mode):
-    """K8: one launch, the closest half bit for bit the unpaired closest
-    mode at the tier / stream, the any-hit half bit for bit K2; either
-    wave longer, or empty. A reduced tier reads the blocks' pre-split
-    planes, split beforehand, as a tracer does once."""
+    """K8 in every mode, resident and streamed: one launch, each CTA on
+    its half's unpaired drain: the closest half bit for bit the unpaired
+    closest mode at the tier / stream, the any-hit half bit for bit K2,
+    and both K8's per-thread reference's (`per_thread=True`, counted under
+    its own key); either wave longer, or empty. At fp32, resident and streamed,
+    the counting tables of the halves are the unpaired K1 / K6 closest and
+    K2 drains' row for row, drain rows included. A reduced tier reads the
+    blocks' pre-split planes, split beforehand, as a tracer does once."""
     nodes, blocks, meta, _ = soup_on_card
     rc = _rays(4096, np.inf, nodes.device)[:, :n_c].contiguous()
     ra = _rays(4096, 8.0, nodes.device).flip(1)[:, :n_a].contiguous()
     key = pt.launch_key(False, paired=True, **mode)
     kw = (dict(mode, planes=pt.split_planes(blocks))
           if "mt_precision" in mode else mode)
+    stream = mode.get("stream", False)
+    ref_c = pt.trace_wide(rc, nodes, blocks, meta, False, **kw)
+    ref_a = pt.trace_wide(ra, nodes, blocks, meta, True, **kw)
     before = dict(pt.LAUNCHES)
     closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta, **kw)
     torch.cuda.synchronize()
     after = dict(pt.LAUNCHES)
     assert after.pop(key) == before.pop(key) + 1 and after == before
-    ref_c = pt.trace_wide(rc, nodes, blocks, meta, False, **kw)
-    ref_a = pt.trace_wide(ra, nodes, blocks, meta, True, **kw)
-    for a, b in zip(closest, ref_c):
+    for a, b in zip(closest, ref_c, strict=True):
+        assert torch.equal(a, b)
+    assert torch.equal(occ, ref_a[1])
+    if "mt_precision" not in mode:
+        cc, ca = pt.trace_wide_paired_counts(rc, ra, nodes, blocks, meta,
+                                             stream=stream, per_ray=True)
+        assert torch.equal(cc, pt.trace_wide_counts(
+            rc, nodes, blocks, meta, False, stream=stream, per_ray=True))
+        assert torch.equal(ca, pt.trace_wide_counts(
+            ra, nodes, blocks, meta, True, stream=stream, per_ray=True))
+    before = pt.LAUNCHES[key + "+per_thread"]
+    closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta,
+                                        per_thread=True, **kw)
+    assert pt.LAUNCHES[key + "+per_thread"] == before + 1
+    for a, b in zip(closest, ref_c, strict=True):
         assert torch.equal(a, b)
     assert torch.equal(occ, ref_a[1])
     if n_c == n_a:
@@ -515,14 +542,15 @@ def test_instanced_fp32_closest_hit_drains_warp_wide(instanced_on_card):
 def test_streamed_any_hit_drains_warp_wide(soup_on_card):
     """K2 and K6 any hit take the warp-wide any-hit drain, one counted
     launch a wave each: on a 4,001-ray shadow wave with every fifth ray
-    dead their flag is that of K8's any-hit half, the per-thread classic
-    walk, on every ray, t is tmax and u, v are 0; per ray they pop that
+    dead their flag is that of the per-thread classic walk
+    (`per_thread=True`) on every ray, t is tmax and u, v are 0; per ray
+    they pop that
     walk's nodes and test its blocks; the drain rows are filled, the same
     for both."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4001, 8.0, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    occ = _k8_any_half(rays, nodes, blocks, meta)
+    occ = _per_thread_any(rays, nodes, blocks, meta)
     for stream in (False, True):
         key = pt.launch_key(True, stream=stream)
         before = pt.LAUNCHES[key]
@@ -535,9 +563,9 @@ def test_streamed_any_hit_drains_warp_wide(soup_on_card):
     c2, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                    stream=stream, per_ray=True)
               for stream in (False, True))
-    c8 = _k8_any_half(rays, nodes, blocks, meta, per_ray=True)
-    assert torch.equal(c2, c6) and torch.equal(c2[:2], c8[:2])
-    assert not c2[2:5].any() and not c8[2:].any()
+    cref = _per_thread_any(rays, nodes, blocks, meta, per_ray=True)
+    assert torch.equal(c2, c6) and torch.equal(c2[:2], cref[:2])
+    assert not c2[2:5].any() and not cref[2:].any()
     rounds, distinct = int(c2[5].sum()), int(c2[6].sum())
     assert 0 < rounds <= distinct <= int(c2[1].sum())
 

@@ -476,7 +476,7 @@ def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
     pt.check_mode(mt_precision, stream, pipe, flat_walk, profile)
     if per_thread:
         pt._check_per_thread(any_hit, worder, pipe or flat_walk,
-                             mt_precision)
+                             mt_precision, inst_feat is not None)
     prec = "highest" if any_hit else mt_precision
     out = pt._launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      count, worder, prec, stream,
@@ -490,16 +490,19 @@ def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
                       mt_precision="highest", stream=False, planes=None,
-                      count=False):
+                      count=False, per_thread=False):
     """`packet_trace.trace_wide_paired` (or, with `count`, the two (7, R)
     tables of `trace_wide_paired_counts(per_ray=True)`) through the
-    emulated kernel."""
+    emulated kernel; `per_thread` takes K8's per-thread reference
+    kernel."""
     pt.check_mode(mt_precision, stream)
+    walk = pt.PER_THREAD if per_thread else 0
     nc = rays_c.shape[1]
     rays, n_split = pt.pair_rays(rays_c, rays_a)
     t, sid, u, v, _, counts = pt._launch(rays, nodes, blocks, meta, 2, None,
                                          count, None, mt_precision, stream,
-                                         n_split=n_split, planes=planes)
+                                         walk, n_split=n_split,
+                                         planes=planes)
     if count:
         return pt.split_paired_counts(counts, nc, n_split, per_ray=True)
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
