@@ -194,6 +194,31 @@ Phases, one printed block each (any failure exits non-zero):
      per spp printed beside 4c's
   5d. kernel path against plain path at 64x64 x 1 spp for pipe, flat_walk
      and the ray-stream pair
+  6. sponza_class_512 as bench.py runs it (bench.py:149-181, 231-242): the
+     colonnade written by tools/foreign_glb.py and read back by io/gltf.py
+     (camera physics and environment carried over), 4 spp through the
+     Renderer; the loaded world triangles within TRI_RTOL of the direct
+     build's, only K1/K2 launch, the image mean within MEAN_Z standard errors of the
+     per-pixel difference from 4c's image (the file carries no tangents:
+     the loader makes them with mikktspace, so a few paths fork); the
+     .glb's size and the export and load seconds
+  6b. metalrough_spheres (bench.py:254-264) through the foreign GLB at
+     512x512, 6 bounces, 4 spp: only K1/K2 launch; on the camera wave's
+     hits sample_material_textures and sample_normal_map on the card
+     against the same calls on the CPU to TEX_ATOL
+  6c. metalrough_spheres_gmon (bench.py:266-292): 8 GMoN buckets cut to
+     16 spp; Renderer to DONE, readback; gmon_combine of the card's
+     buckets against the CPU to GMON_ATOL, the window's buckets equal
+  6d. studio_loop (bench.py:310-346): the colonnade at 960x540 through
+     the Renderer with the preview ladder (4 frames at 1/4 the size, each
+     render + readback timed: interact_ms_per_frame), then 2 spp; the post
+     stack on the card against the CPU for agx, khronos_pbr and flim to
+     POST_ATOL; export_png read back: the size, and the iCCP profile is
+     io/icc.profile_for("sRGB")
+  6e. the port's CLI in the process: `render <6b's .glb> --spp 4 --size
+     512x512 --gmon 4 -o <png>` on the card writes a 512x512 PNG through
+     K1 (the file alone has no light: the image is black and no shadow ray
+     is traced)
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -260,15 +285,24 @@ def check(cond, msg):
         raise RuntimeError(f"chip_smoke: {msg}")
 
 
-def phase_device():
-    check(torch.cuda.is_available(), "no CUDA device (this script needs a GPU)")
-    smi = subprocess.run(
+def _card():
+    """The card's name and power limit, as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
-    print(smi, flush=True)
+
+
+def phase_device():
+    check(torch.cuda.is_available(), "no CUDA device (this script needs a GPU)")
+    print(_card(), flush=True)
+    try:
+        import PIL
+        pillow = f"Pillow {PIL.__version__} imports"
+    except ImportError:
+        pillow = "Pillow does not import (io/png.py needs none)"
     print(f"device: torch {torch.__version__}, cuda {torch.version.cuda}, "
-          f"{torch.cuda.device_count()} visible", flush=True)
+          f"{torch.cuda.device_count()} visible; {pillow}", flush=True)
     return torch.device("cuda", 0)
 
 
@@ -2269,6 +2303,7 @@ def _render_path(label, scene, cam, settings, renderer_device=None):
     rays_spp = float(integrator.render_sample(
         renderer.flat, s, 0, return_stats=True, features=feats)[1]) / batch
     ms_spp = float(np.mean(steps[1:])) * 1e3 / batch
+    renderer.ms_per_spp = ms_spp
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "render.exr")
         renderer.export_exr(path)
@@ -2374,14 +2409,15 @@ def _syncs_per_spp(renderer):
 
     def before():
         integrator.render_step_n(renderer.flat, renderer.settings,
-                                 renderer._accum, 0, 1,
+                                 renderer._buckets[0], 0, 1,
                                  features=renderer._features)
 
     def after():
-        renderer._accumulated = renderer.settings.spp - 1
+        # not the last step, whose end-of-render synchronise would count
+        renderer._accumulated = renderer.settings.spp - 2
         renderer.render()
 
-    saved = (renderer._accum, renderer._accumulated)
+    saved = (list(renderer._buckets), renderer._accumulated)
     out = {}
     integrator.make_tracers = counted
     try:
@@ -2399,7 +2435,7 @@ def _syncs_per_spp(renderer):
                               make_tracers=len(calls))
     finally:
         integrator.make_tracers = real
-        renderer._accum, renderer._accumulated = saved
+        renderer._buckets, renderer._accumulated = saved
     print(f"  per spp, host syncs (torch's sync debug mode) and make_tracers "
           f"calls: before (a pair per sample) {out['before']['syncs']} syncs, "
           f"{out['before']['make_tracers']} make_tracers; after (the pair of "
@@ -2457,8 +2493,8 @@ def phase_bistro():
     print(f"  {flat.geometry.indices.shape[0]} triangles, "
           f"{flat.wbvh_tris.shape[0]} MT blocks "
           f"({flat.wbvh_tris.numel() * 4 / 1e6:.1f} MB), wbvh_stream "
-          f"{flat.wbvh_stream}; interact_ms_per_frame (the edit-loop "
-          f"cadence) not measured: it needs the preview ladder, not ported",
+          f"{flat.wbvh_stream}; the edit-loop cadence "
+          f"(interact_ms_per_frame) is measured on studio_loop's scene (6d)",
           flush=True)
     _only("the bistro", launches, ("stream+closest", "stream+any"))
     return launches
@@ -2793,6 +2829,273 @@ def phase_end_to_end(scene, cam, dev):
           ("stream_mt closest", "stream_mt any"))
     return out
 
+# ---------------------------------------------------------------------------
+# 6-6e: the user's render path, from a glTF file to a tonemapped PNG
+# ---------------------------------------------------------------------------
+
+COLONNADE_TRIS = 271_010
+TRI_RTOL = 1e-6     # 6: world triangle corners, loaded against built
+MEAN_Z = 4.0        # 6: |mean difference| within this many standard errors
+TEX_ATOL = 1e-6     # 6b: texture samples on the card against the CPU
+GMON_ATOL = 1e-6    # 6c: gmon_combine on the card against the CPU
+POST_ATOL = 1e-5    # 6d: the post stack on the card against the CPU
+SPHERES = dict(width=512, height=512, max_bounces=6, kernel="mis",
+               sampler="halton", tracer="packet", compact=True,
+               compact_plan="auto")
+
+
+def _via_foreign_glb(scene, cam, path):
+    """bench.py's _via_foreign_glb (bench.py:149-181) on the port: write the
+    scene with tools/foreign_glb.py, read it back with io/gltf.py, carry
+    the camera's physics and the environment over. Returns (scene, camera
+    node, export s, load s)."""
+    import copy
+
+    from platinum_tpu_torch.core.scene import Scene
+    from platinum_tpu_torch.io.gltf import load_gltf
+    from platinum_tpu_torch.tools.foreign_glb import export_glb_foreign
+
+    t0 = time.perf_counter()
+    export_glb_foreign(scene, path)
+    t1 = time.perf_counter()
+    loaded = Scene()
+    load_gltf(loaded, path)
+    t2 = time.perf_counter()
+    node_id = loaded.get_cameras()[0][0]
+    loaded.node(node_id).camera = copy.copy(scene.node(cam).camera)
+    loaded.environment = copy.copy(scene.environment)
+    tid = scene.environment.texture_id
+    if tid is not None:
+        loaded.environment.texture_id = loaded.add_asset(scene.asset(tid),
+                                                         retained=True)
+    print(f"  {os.path.basename(path)}: {os.path.getsize(path) / 1e6:.3f} MB, "
+          f"exported in {t1 - t0:.2f} s, loaded in {t2 - t1:.2f} s",
+          flush=True)
+    return loaded, node_id
+
+
+def _world_triangles(scene):
+    tris = []
+    for inst in scene.get_instances():
+        m = np.asarray(inst.transform, np.float32)
+        p = inst.mesh.positions @ m[:3, :3].T + m[:3, 3]
+        tris.append(p[inst.mesh.indices.astype(np.int64)])
+    return np.concatenate(tris)
+
+
+def phase_glb_headline(tmp, scene, cam, head_img):
+    """6: sponza_class_512 as bench.py runs it, through the foreign GLB."""
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    loaded, lcam = _via_foreign_glb(scene, cam,
+                                    os.path.join(tmp, "sponza.glb"))
+    a, b = _world_triangles(scene), _world_triangles(loaded)
+    check(a.shape == b.shape == (COLONNADE_TRIS, 3, 3),
+          f"the loaded colonnade has {b.shape[0]} triangles, not {a.shape[0]}")
+    # the file holds each instance's transform as translation, quaternion
+    # and scale: the world positions come back within a few ulps
+    tri_err = float(np.abs(a - b).max())
+    check(np.allclose(a, b, rtol=TRI_RTOL, atol=TRI_RTOL),
+          f"the loaded triangles differ from the build by {tri_err}")
+    renderer, launches, mean = _render_path(
+        "sponza_class_512 through the foreign GLB (6)", loaded, lcam,
+        RenderSettings(spp=4, **HEADLINE))
+    _only("the GLB headline", launches, ("closest", "any"))
+    # the GLB carries no tangents: the loader makes them with mikktspace
+    # where the direct build has the primitives' own, so paths that sample
+    # around a tangent fork; the means agree within their noise
+    diff = (renderer.readback() - head_img).mean(-1).reshape(-1)
+    se = float(diff.std() / np.sqrt(diff.size))
+    z = float(diff.mean()) / max(se, 1e-30)
+    rel = mean / float(head_img.mean()) - 1.0
+    forked = float((np.abs(renderer.readback() - head_img).max(-1)
+                    > 1e-4).mean())
+    print(f"  world triangles within {tri_err:.3g} of the direct build's "
+          f"(bar rtol = atol = {TRI_RTOL}); image mean {mean:.5f} "
+          f"against 4c's {head_img.mean():.5f} (rel {rel:.2e}, "
+          f"{z:+.2f} standard errors of the per-pixel difference; "
+          f"{forked:.2%} of pixels differ by > 1e-4)", flush=True)
+    check(abs(z) <= MEAN_Z, "the GLB headline's mean is off 4c's")
+    return renderer.ms_per_spp
+
+
+def phase_glb_spheres(tmp):
+    """6b: metalrough_spheres (bench.py:254-264) through the foreign GLB,
+    cut to 4 spp; the texture lookups on the camera wave's hits on the
+    card against the same calls on the CPU."""
+    from platinum_tpu_torch.app.scenes import make_spheres_scene
+    from platinum_tpu_torch.ops import texturing as tx
+    from platinum_tpu_torch.ops.hitdata import interpolate_hit
+    from platinum_tpu_torch.render.integrator import init_path_state
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    path = os.path.join(tmp, "spheres.glb")
+    loaded, cam = _via_foreign_glb(*make_spheres_scene(), path)
+    renderer, launches, _ = _render_path(
+        "metalrough_spheres through the foreign GLB (6b)", loaded, cam,
+        RenderSettings(spp=4, **SPHERES))
+    _only("metalrough_spheres", launches, ("closest", "any"))
+    flat, s = renderer.flat, renderer.settings
+    check(flat.atlas is not None, "the loaded spheres have no atlas")
+    st = init_path_state(flat, s, 0)
+    rec = renderer._tracers[0](st["o"], st["d"], 1e-3, float("inf"))
+    hd = interpolate_hit(flat.geometry, rec, st["o"], st["d"],
+                         instances=flat.instances)
+    uv, rows = hd.uv[rec.hit], flat.materials.textures[hd.mat_idx[rec.hit]
+                                                       .long()]
+    args = (flat.atlas, flat.atlas_table, rows, uv)
+    cpu = [a.cpu() for a in args]
+    card = tx.sample_material_textures(*args)
+    host = tx.sample_material_textures(*cpu)
+    errs = {f: float((getattr(card, f).cpu().float()
+                      - getattr(host, f).float()).abs().max())
+            for f in card.__dataclass_fields__}
+    has_nm, nm = tx.sample_normal_map(*args)
+    has_nm_h, nm_h = tx.sample_normal_map(*cpu)
+    errs["normal_map"] = float((nm.cpu() - nm_h).abs().max())
+    check(torch.equal(has_nm.cpu(), has_nm_h), "normal-map slots differ")
+    worst = max(errs.values())
+    print(f"  camera wave: {int(rec.hit.sum())} hits, "
+          f"{int(has_nm.sum())} normal-mapped; sample_material_textures and "
+          f"sample_normal_map on the card against the CPU: largest "
+          f"difference {worst:.3g} (bar {TEX_ATOL})", flush=True)
+    check(int(has_nm.sum()) > 0, "no camera hit samples the normal map")
+    check(worst <= TEX_ATOL, f"texture samples differ: {errs}")
+    return path, renderer.ms_per_spp
+
+
+def phase_gmon():
+    """6c: metalrough_spheres_gmon (bench.py:266-292), 8 buckets, cut to
+    16 spp (2 a bucket); gmon_combine on the card against the CPU."""
+    from platinum_tpu_torch.app.scenes import make_spheres_scene
+    from platinum_tpu_torch.ops.gmon import gmon_combine, gmon_window
+    from platinum_tpu_torch.render.types import FLAG_GMON, RenderSettings
+
+    settings = RenderSettings(spp=16, flags=1 | FLAG_GMON, gmon_buckets=8,
+                              **SPHERES)
+    renderer, launches, _ = _render_path(
+        "metalrough_spheres_gmon (6c)", *make_spheres_scene(), settings)
+    ran = {k for k, v in launches.items() if v}
+    check(ran and ran <= {"closest", "any", "inst_closest", "inst_any"},
+          f"the GMoN render launched {sorted(ran)}")
+    buckets = torch.stack(renderer._buckets)
+    cap = renderer.settings.gmon_cap or 1.0
+    card = renderer._combined().cpu()
+    host = gmon_combine(buckets.cpu(), 8, cap)
+    err = float((card - host).abs().max())
+    (oc, wc), (oh, wh) = (gmon_window(b, 8, cap)
+                          for b in (buckets, buckets.cpu()))
+    chosen_c = torch.sort(torch.where(wc, oc, -1), dim=0).values.cpu()
+    chosen_h = torch.sort(torch.where(wh, oh, -1), dim=0).values
+    same = bool(torch.equal(chosen_c, chosen_h))
+    trimmed = float((wh.sum(0) < 8).float().mean())
+    print(f"  gmon_combine of the card's 8 buckets against the CPU: largest "
+          f"difference {err:.3g} (bar {GMON_ATOL}), chosen buckets equal "
+          f"{same}; {trimmed:.2%} of pixels trimmed", flush=True)
+    check(same, "the GMoN window chose other buckets on the card")
+    check(err <= GMON_ATOL, "gmon_combine differs on the card")
+    return renderer.ms_per_spp
+
+
+def phase_studio_post(tmp):
+    """6d: studio_loop (bench.py:310-346): the colonnade at 960x540,
+    accumulated 2 spp, then the post stack on the card against the CPU for
+    three tonemappers and the PNG export read back; the preview ladder's
+    cadence (bench.py's _edit_loop_cadence) on the way."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.io import png
+    from platinum_tpu_torch.io.icc import profile_for
+    from platinum_tpu_torch.post.options import (PostProcessOptions,
+                                                 TonemapOptions)
+    from platinum_tpu_torch.post.pipeline import postprocess_image
+    from platinum_tpu_torch.render.renderer import Renderer
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene()
+    settings = RenderSettings(width=960, height=540, spp=8, max_bounces=6,
+                              kernel="mis", sampler="halton",
+                              tracer="packet", compact=True)
+    r = Renderer(scene)
+    _zero_launches()
+    r.start_render(cam, settings, preview_scale=4, preview_spp=4)
+    frames = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        r.render()
+        r.readback()
+        frames.append((time.perf_counter() - t0) * 1e3)
+    steps = []
+    for _ in range(2):
+        t0 = time.perf_counter()
+        r.render()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in _launches().items() if v}
+    check(r.completed_spp == 2, f"{r.completed_spp} spp accumulated")
+    img = r._combined().reshape(settings.height, settings.width, 3)
+    errs = {}
+    for tm in ("agx", "khronos_pbr", "flim"):
+        opt = PostProcessOptions(tonemap=TonemapOptions(tonemapper=tm))
+        t0 = time.perf_counter()
+        card = postprocess_image(img, opt, settings.working_space,
+                                 settings.output_space)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        host = postprocess_image(img.cpu(), opt, settings.working_space,
+                                 settings.output_space)
+        errs[tm] = (float((card.cpu() - host).abs().max()), ms)
+    path = os.path.join(tmp, "studio.png")
+    t0 = time.perf_counter()
+    r.export_png(path)
+    t_png = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        data = f.read()
+    back = png.decode_png(data)
+    print(f"studio_loop (6d): {settings.width}x{settings.height}, preview "
+          f"frames at 1/4 the size "
+          f"{[round(t, 1) for t in frames]} ms (median "
+          f"{sorted(frames)[len(frames) // 2]:.1f} ms: "
+          f"interact_ms_per_frame), 2 spp at "
+          f"{[round(t, 1) for t in steps]} ms; post on the card against "
+          f"the CPU, largest difference (card ms): "
+          f"{ {k: (f'{e:.3g}', round(m, 2)) for k, (e, m) in errs.items()} } "
+          f"(bar {POST_ATOL}); export_png {t_png * 1e3:.1f} ms, "
+          f"{len(data)} bytes; launches {launches}", flush=True)
+    check(all(e <= POST_ATOL for e, _ in errs.values()),
+          f"the post stack differs on the card: {errs}")
+    check(back.shape == (settings.height, settings.width, 4),
+          f"the PNG reads back as {back.shape}")
+    check(png.icc_profile(data) == profile_for("sRGB"),
+          "the PNG's iCCP profile is not profile_for('sRGB')")
+    return float(np.mean(steps))
+
+
+def phase_cli(tmp, glb):
+    """6e: the README's quick start, through the port's CLI in-process."""
+    from platinum_tpu_torch.app import cli
+    from platinum_tpu_torch.io.png import read_png
+
+    out = os.path.join(tmp, "cli.png")
+    _zero_launches()
+    t0 = time.perf_counter()
+    cli.main(["render", glb, "--spp", "4", "--size", "512x512", "--gmon",
+              "4", "-o", out])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in _launches().items() if v}
+    img = read_png(out)
+    # a .glb carries no environment, and the spheres scene's only light is
+    # its environment: the CLI's image of the file alone is black
+    print(f"cli (6e): render {os.path.basename(glb)} --spp 4 --size 512x512 "
+          f"--gmon 4 (50 bounces, no compaction): {dt:.2f} s with the load, "
+          f"{img.shape[1]}x{img.shape[0]} PNG, mean {img[..., :3].mean():.2f}"
+          f" (no light in the file); launches {launches}", flush=True)
+    check(img.shape == (512, 512, 4), f"the CLI's PNG is {img.shape}")
+    # no light: no shadow ray, so K2 has nothing to trace
+    check("closest" in launches and set(launches) <= {"closest", "any"},
+          f"the CLI render launched {sorted(launches)}")
+    return dt
+
 
 def _design(name):
     """How the kernel row `name` of the kernel table walks and tests:
@@ -2888,6 +3191,7 @@ def main():
     inst_launches = phase_instanced(scene, cam, dev)
     scene, cam = make_colonnade_scene()   # the column moved above
     head_launches, head_mean, head = phase_headline_compact(scene, cam)
+    head_img = head.readback()
     lap("4-4c renders")
     phase_wave_modes(scene, cam, head, head_launches)
     del head
@@ -2903,6 +3207,21 @@ def main():
     lap("4j bf render")
     phase_end_to_end(scene, cam, dev)
     lap("5-5d end to end")
+    with tempfile.TemporaryDirectory() as tmp:
+        ms6 = {}
+        t6 = time.perf_counter()
+        ms6["6"] = phase_glb_headline(tmp, scene, cam, head_img)
+        lap("6 GLB headline")
+        glb, ms6["6b"] = phase_glb_spheres(tmp)
+        lap("6b GLB spheres")
+        ms6["6c"] = phase_gmon()
+        lap("6c GMoN")
+        ms6["6d"] = phase_studio_post(tmp)
+        lap("6d studio post")
+        ms6["6e (s, the load included)"] = phase_cli(tmp, glb)
+        lap("6e CLI")
+    print(f"phases 6-6e on {_card()}: {time.perf_counter() - t6:.1f} s; "
+          f"ms/spp {ms6}", flush=True)
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"

@@ -1,5 +1,9 @@
 """Copy of platinum_tpu/core/mikkt.py, kept in step with it: platinum_tpu_torch
-imports nothing of the JAX package.
+imports nothing of the JAX package. One addition: `generate_tangents_mikkt`
+remembers its last results by the bytes of its inputs, because a glTF file
+repeats a shared mesh once per material binding (tools/foreign_glb.py writes
+the spheres scene's 49 spheres as 49 equal meshes) and this pure-Python
+pass takes about a second a sphere.
 
 MikkTSpace tangent generation (faithful reimplementation, triangles only).
 
@@ -78,11 +82,28 @@ def _project(v: np.ndarray, n: np.ndarray) -> np.ndarray:
     return _normalize(w)
 
 
+_MEMO: dict = {}
+_MEMO_SIZE = 8
+
+
 def generate_tangents_mikkt(positions: np.ndarray, normals: np.ndarray,
                             uvs: np.ndarray, indices: np.ndarray,
                             angular_threshold_deg: float = 180.0
                             ) -> np.ndarray:
-    """(V, 4) mikktspace tangents over an indexed triangle mesh."""
+    """(V, 4) mikktspace tangents over an indexed triangle mesh; equal
+    inputs (byte for byte) give a copy of the result remembered."""
+    key = tuple(np.ascontiguousarray(a, t).tobytes() for a, t in (
+        (positions, np.float32), (normals, np.float32), (uvs, np.float32),
+        (indices, np.int64))) + (float(angular_threshold_deg),)
+    if key not in _MEMO:
+        if len(_MEMO) >= _MEMO_SIZE:
+            del _MEMO[next(iter(_MEMO))]
+        _MEMO[key] = _mikkt(positions, normals, uvs, indices,
+                            angular_threshold_deg)
+    return _MEMO[key].copy()
+
+
+def _mikkt(positions, normals, uvs, indices, angular_threshold_deg):
     P = np.ascontiguousarray(positions, np.float32)
     N = np.ascontiguousarray(normals, np.float32)
     UV = np.ascontiguousarray(uvs, np.float32)

@@ -6,8 +6,8 @@ smooth, thick and thin, Turquin compensation), opaque dielectric (GGX +
 energy-compensated diffuse) and clearcoat, with anisotropy rotation and
 the per-material energy rows or the LUTs. The estimator and its documented
 deviations from the Metal reference are the JAX package's (see its module
-docstring). Textured materials are refused by the integrator until
-ops/texturing.py is ported, so the context here reads untextured rows.
+docstring). `make_shading_context` samples the material textures of
+ops/texturing.py when the scene has an atlas.
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from platinum_tpu_torch.ops import lookup
 from platinum_tpu_torch.ops import luts as luts_mod
 from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops.frame import dot, norm
+from platinum_tpu_torch.ops.texturing import sample_material_textures
 from platinum_tpu_torch.render.types import (
     MAT_ANISOTROPIC,
     MAT_EMISSIVE,
@@ -59,6 +60,7 @@ class ShadingContext:
     energy: torch.Tensor | None = None        # (M, K, 6)
     energy_avg: torch.Tensor | None = None    # (M, 4)
     mat_idx: torch.Tensor | None = None       # (R,)
+    tex_rows: torch.Tensor | None = None      # (R, 6) atlas entries
     energy_avg_row: torch.Tensor | None = None  # (R, 4)
 
     @property
@@ -76,25 +78,50 @@ class ShadingContext:
         return (self.flags & MAT_THIN) != 0
 
 
-def make_shading_context(materials: MaterialTable,
-                         mat_idx: torch.Tensor) -> ShadingContext:
-    """Material parameters per ray from the packed material rows."""
+def make_shading_context(materials: MaterialTable, mat_idx: torch.Tensor,
+                         uv: torch.Tensor | None = None, atlas=None,
+                         atlas_table=None, slots=None) -> ShadingContext:
+    """Material parameters per ray from the packed material rows, with the
+    texture lookups applied when an atlas is present: a base-colour
+    texture replaces the base colour, emission, roughness and metallic
+    textures multiply their factors, transmission and clearcoat textures
+    replace theirs (JAX bsdf.py:132-143)."""
     row = lookup.rows(materials.packed, mat_idx)
+    albedo = row[..., 0:3]
+    emission = row[..., 4:7]
+    roughness = row[..., 7]
+    metallic = row[..., 8]
+    transmission = row[..., 9]
+    clearcoat = row[..., 13]
+    tex_rows = None
+    if atlas is not None and atlas_table is not None:
+        tex_rows = lookup.rows(materials.textures, mat_idx)
+        tex = sample_material_textures(atlas, atlas_table, tex_rows, uv,
+                                       slots=slots)
+        albedo = torch.where(tex.has_base[:, None], tex.base_rgb, albedo)
+        emission = emission * torch.where(tex.has_emission[:, None],
+                                          tex.emission_rgb, 1.0)
+        roughness = roughness * torch.where(tex.has_rm, tex.rough, 1.0)
+        metallic = metallic * torch.where(tex.has_rm, tex.metal, 1.0)
+        transmission = torch.where(tex.has_transmission, tex.transmission,
+                                   transmission)
+        clearcoat = torch.where(tex.has_clearcoat, tex.clearcoat, clearcoat)
     return ShadingContext(
-        albedo=row[..., 0:3],
-        emission=row[..., 4:7],
-        roughness=row[..., 7],
-        metallic=row[..., 8],
-        transmission=row[..., 9],
+        albedo=albedo,
+        emission=emission,
+        roughness=roughness,
+        metallic=metallic,
+        transmission=transmission,
         ior=row[..., 10],
         anisotropy=row[..., 11],
         anisotropy_rotation=row[..., 12],
-        clearcoat=row[..., 13],
+        clearcoat=clearcoat,
         clearcoat_roughness=row[..., 14],
         flags=row[..., 15].to(torch.int32),
         energy=materials.energy,
         energy_avg=materials.energy_avg,
         mat_idx=mat_idx,
+        tex_rows=tex_rows,
         energy_avg_row=(lookup.rows(materials.energy_avg, mat_idx)
                         if materials.energy_avg is not None else None),
     )

@@ -330,8 +330,7 @@ def flatten_scene(
     without a rebuild.
 
     Leaf for leaf the same arrays as the JAX package's flatten_scene on the
-    baked path. Scenes textured (atlas) flatten fine but are refused by
-    the integrator until ops/texturing.py is ported."""
+    baked path, the texture atlas included."""
     device = resolve_device(device)
     settings = settings or RenderSettings()
     if accel_max_leaf is None:

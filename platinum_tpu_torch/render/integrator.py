@@ -33,11 +33,15 @@ ops/bfstream.py (K10-K14) and any-hit waves with the packet kernel (K2),
 as the JAX make_tracers does; a scene without a wide BVH falls through to
 the brute tracer there too.
 
+Textured scenes sample the atlas in shading (ops/texturing.py): the
+material textures in `make_shading_context` and, where a material binds
+one, the normal map, which tilts the shading frame (JAX
+integrator.py:306-339).
+
 Not ported yet, each raising NotImplementedError until its own change:
 the binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
 ops/raystream.py is reached through `tracers=`, as in the JAX package),
-alpha-tested materials, textures, the Z-sampler and partitioned
-structures.
+alpha-tested materials, the Z-sampler and partitioned structures.
 """
 
 from __future__ import annotations
@@ -47,14 +51,17 @@ import dataclasses
 import numpy as np
 import torch
 
+from platinum_tpu_torch.core.material import TextureSlot
 from platinum_tpu_torch.models import bsdf as bsdf_mod
 from platinum_tpu_torch.models import lights as lights_mod
 from platinum_tpu_torch.models.camera_rays import spawn_camera_rays
 from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops import threefry
-from platinum_tpu_torch.ops.frame import normalize
+from platinum_tpu_torch.ops.frame import (from_normal, norm, normalize,
+                                          world_to_local)
 from platinum_tpu_torch.ops.hitdata import interpolate_hit
 from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
+from platinum_tpu_torch.ops.texturing import sample_normal_map
 from platinum_tpu_torch.render.types import FlatScene, RenderSettings
 
 RAY_EPS = 1e-3
@@ -68,8 +75,6 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
         todo.append("tracer='bvh'")
     if "alpha" in features:
         todo.append("alpha-tested (cutout) materials")
-    if flat.atlas is not None:
-        todo.append("textures (ops/texturing.py)")
     if flat.wbvh_parts is not None:
         todo.append("partitioned wide BVHs (accel/partition.py)")
     if todo:
@@ -200,6 +205,10 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
 
     alpha_on = "alpha" in features
     fuse_shadow = _fuse_shadow_active(settings, features)
+    tex_slots = frozenset(
+        int(f[len("texslot"):]) for f in features if f.startswith("texslot"))
+    normal_map = (flat.atlas is not None
+                  and int(TextureSlot.NORMAL) in tex_slots)
 
     def body(s):
         o, d, atten, L, active = s["o"], s["d"], s["atten"], s["L"], s["active"]
@@ -291,7 +300,11 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                         hit=hit, inst=ls.get("rec_inst"))
 
         hd = interpolate_hit(geom, rec, o, d, instances=flat.instances)
-        ctx = bsdf_mod.make_shading_context(mats, hd.mat_idx)
+        ctx = bsdf_mod.make_shading_context(
+            mats, hd.mat_idx, hd.uv, flat.atlas, flat.atlas_table,
+            slots=tex_slots)
+        if normal_map:
+            hd = _apply_normal_map(hd, flat, ctx.tex_rows, d)
 
         # emission on hit (MIS against NEE)
         le = bsdf_mod.emitted_radiance(ctx, hd.wo, luts, features=features)
@@ -427,6 +440,26 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
 
     body.resolve_pending = resolve_pending
     return body
+
+
+def _apply_normal_map(hd, flat: FlatScene, tex_rows, d):
+    """Tilt the shading frame by the normal map where the material binds
+    one (JAX integrator.py:314-339): the tangent-space normal to world
+    space, normalised as jnp.linalg.norm does (sqrt of the sum of squares,
+    clamped at 1e-20), and a frame built from it alone."""
+    has_nm, nm = sample_normal_map(flat.atlas, flat.atlas_table, tex_rows,
+                                   hd.uv)
+    mapped = (hd.frame_t * nm[..., 0:1] + hd.frame_b * nm[..., 1:2]
+              + hd.normal * nm[..., 2:3])
+    mapped = mapped / torch.clamp(norm(mapped, keepdim=True), min=1e-20)
+    nt, nb, nn = from_normal(mapped)
+    sel = has_nm[:, None]
+    return dataclasses.replace(
+        hd,
+        normal=torch.where(sel, nn, hd.normal),
+        wo=torch.where(sel, world_to_local((nt, nb, nn), -d), hd.wo),
+        frame_t=torch.where(sel, nt, hd.frame_t),
+        frame_b=torch.where(sel, nb, hd.frame_b))
 
 
 def _put_lanes(dst, src, off: int, n: int):

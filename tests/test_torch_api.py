@@ -5,8 +5,9 @@ package's positional parameters in its order; what only the port has
 (`device`) comes after them, keyword-only. `build_accel=False` builds no
 BVH, as in JAX. The Renderer builds its (trace_closest, trace_any) pair
 once per `start_render` (for the auto plan's probe and every step) and
-once per `update_instance_transform`, not once per sample. Parameters
-whose module is not ported yet raise NotImplementedError.
+once per `update_instance_transform`, not once per sample. The
+Renderer takes the post stack's options and exports a PNG through them;
+`pixel_ids`, whose module is not ported yet, raises NotImplementedError.
 """
 
 import inspect
@@ -22,6 +23,9 @@ from platinum_tpu.render.renderer import Renderer as JRenderer
 from platinum_tpu.render.types import RenderSettings as JSettings
 from platinum_tpu_torch.app import scenes
 from platinum_tpu_torch.core.transform import Transform
+from platinum_tpu_torch.post.options import (ExposureOptions,
+                                             PostProcessOptions,
+                                             TonemapOptions)
 from platinum_tpu_torch.render import autoplan, integrator
 from platinum_tpu_torch.render.flatten import flatten_scene
 from platinum_tpu_torch.render.renderer import Renderer
@@ -72,10 +76,31 @@ def test_build_accel_false_builds_no_bvh_as_jax():
     assert with_bvh.wbvh_nodes is not None
 
 
+def test_renderer_takes_post_options_and_exports_png(tmp_path):
+    """Renderer(scene, post_options) renders and exports through them."""
+    import numpy as np
+    from PIL import Image
+
+    scene, cam = scenes.make_cornell_scene()
+    post = PostProcessOptions(exposure=ExposureOptions(exposure=1.0),
+                              tonemap=TonemapOptions(tonemapper="flim"))
+    r = Renderer(scene, post, device="cpu")
+    assert r.post_options is post
+    r.start_render(cam, RenderSettings(width=12, height=10, spp=2,
+                                       max_bounces=2))
+    r.render_all()
+    path = str(tmp_path / "cornell.png")
+    r.export_png(path)
+    img = np.asarray(Image.open(path))
+    assert img.shape == (10, 12, 3) and img.mean() > 0
+    default = Renderer(scene, device="cpu").post_options
+    assert default == PostProcessOptions()
+    assert not np.array_equal(r.output_image(),
+                              r.output_image(PostProcessOptions()))
+
+
 def test_unported_parameters_raise():
     scene, cam = scenes.make_cornell_scene()
-    with pytest.raises(NotImplementedError, match="post stack"):
-        Renderer(scene, object(), device="cpu")
     flat = flatten_scene(scene, cam, RenderSettings(width=4, height=4),
                          device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):

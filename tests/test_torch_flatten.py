@@ -26,6 +26,10 @@ SCENES = {
     "colonnade_small": ("make_colonnade_scene", dict(sphere_res=(12, 16)),
                         dict(width=32, height=32, tracer="packet",
                              instancing="off")),
+    # procedural: the helmet under its sky array, the spheres with a
+    # normal-mapped ground whose texture goes into the atlas
+    "helmet": ("make_helmet_scene", {}, dict(width=32, height=32)),
+    "spheres": ("make_spheres_scene", {}, dict(width=32, height=32)),
 }
 
 
@@ -71,6 +75,8 @@ def test_flatten_matches_jax_leaf_for_leaf(scene_pair):
     if name == "colonnade_small":
         assert flat.geometry.indices.shape[0] == 29_090
         assert flat.wbvh_nodes.shape[0] == 139
+    if name == "spheres":
+        assert flat.atlas is not None
     assert analyze_features(flat) == janalyze(ref)
 
 

@@ -2,7 +2,12 @@
 
 - No module of platinum_tpu_torch, and not chip_smoke.py, imports JAX or
   anything of the JAX package (read with `ast`, one case per file).
-- The port imports and renders with the JAX package hidden.
+- The port imports and renders with the JAX package hidden, and its CLI
+  runs `info cornell` so.
+- The record of copied modules (COPIES): each copy names the JAX file it
+  copies in its docstring, no other module of the port claims to be a
+  copy, and a copy marked verbatim is its original statement for statement
+  (the docstring and the package name aside).
 - Renderer(scene) and flatten_scene default to the card: without one they
   raise instead of falling back to the CPU.
 - The port's copies of the scene graph and the BVH builders give bitwise
@@ -10,6 +15,7 @@
 """
 
 import ast
+import json
 import os
 import subprocess
 import sys
@@ -85,17 +91,89 @@ def test_every_cuda_source_is_package_data():
         assert f"csrc/*{ext}" in text, f"csrc/*{ext} is not package data"
 
 
+# The port's copies of JAX modules: True where the copy is its original
+# statement for statement (docstring and package name aside), else what
+# differs.
+COPIES = {
+    "accel/__init__.py": True,
+    "accel/bvh.py": True,
+    "accel/native.py": "builds the library under a private name, renames",
+    "accel/tlas.py": "without partition_instanced",
+    "accel/wide.py": True,
+    "app/scenes.py": "three function docstrings reworded",
+    "core/camera.py": True,
+    "core/colorspace.py": True,
+    "core/environment.py": True,
+    "core/material.py": True,
+    "core/mesh.py": True,
+    "core/mikkt.py": "remembers its last results by input bytes",
+    "core/primitives.py": True,
+    "core/scene.py": True,
+    "core/texture.py": True,
+    "core/transform.py": True,
+    "io/exr.py": True,
+    "io/gltf.py": "decodes textures through io/png.py",
+    "io/icc.py": True,
+    "post/options.py": True,
+    "tools/foreign_glb.py": "encodes textures through io/png.py",
+    "utils/matrices.py": True,
+    "utils/telemetry.py": True,
+}
+
+
+def _statements(path, package):
+    with open(path) as f:
+        tree = ast.parse(f.read())
+    if ast.get_docstring(tree) is not None:
+        tree.body = tree.body[1:]
+    return ast.dump(tree).replace(package, "platinum_tpu")
+
+
+def test_copy_record_is_complete():
+    claimed = set()
+    for path in _sources():
+        with open(os.path.join(REPO, path)) as f:
+            if f.read().startswith('"""Copy of platinum_tpu/'):
+                claimed.add(os.path.relpath(path, "platinum_tpu_torch"))
+    assert claimed == set(COPIES)
+
+
+@pytest.mark.parametrize("rel", sorted(COPIES))
+def test_copy_names_its_original(rel):
+    with open(os.path.join(PORT, rel)) as f:
+        head = f.readline()
+    assert head.startswith(f'"""Copy of platinum_tpu/{rel}, kept in step')
+    assert os.path.exists(os.path.join(REPO, "platinum_tpu", rel))
+
+
+@pytest.mark.parametrize("rel", sorted(r for r, v in COPIES.items()
+                                       if v is True))
+def test_verbatim_copy_is_its_original(rel):
+    assert _statements(os.path.join(PORT, rel), "platinum_tpu_torch") == \
+        _statements(os.path.join(REPO, "platinum_tpu", rel), "platinum_tpu")
+
+
+BLOCK_JAX = (
+    "import importlib, importlib.abc, pkgutil, sys\n"
+    "class Block(importlib.abc.MetaPathFinder):\n"
+    "    def find_spec(self, name, path=None, target=None):\n"
+    "        if name.split('.')[0] in ('jax', 'jaxlib', 'platinum_tpu'):\n"
+    "            raise ImportError(f'blocked: {name}')\n"
+    "sys.meta_path.insert(0, Block())\n")
+
+
+def _run_hidden(code):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    return subprocess.run([sys.executable, "-c", BLOCK_JAX + code], cwd=REPO,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
 def test_port_runs_with_the_jax_package_hidden():
     """A fresh interpreter in which importing `platinum_tpu` or `jax`
     fails imports every module of the port, flattens Cornell with the
     port's own scenes module and renders one small sample on the CPU."""
     code = (
-        "import importlib, importlib.abc, pkgutil, sys\n"
-        "class Block(importlib.abc.MetaPathFinder):\n"
-        "    def find_spec(self, name, path=None, target=None):\n"
-        "        if name.split('.')[0] in ('jax', 'jaxlib', 'platinum_tpu'):\n"
-        "            raise ImportError(f'blocked: {name}')\n"
-        "sys.meta_path.insert(0, Block())\n"
         "import platinum_tpu_torch\n"
         "for m in pkgutil.walk_packages(platinum_tpu_torch.__path__,"
         " 'platinum_tpu_torch.'):\n"
@@ -111,11 +189,16 @@ def test_port_runs_with_the_jax_package_hidden():
         "r.render()\n"
         "img = r.readback()\n"
         "print(img.shape, bool((img >= 0).all()), img.mean() > 0)\n")
-    env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                          capture_output=True, text=True, timeout=300)
+    proc = _run_hidden(code)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == "(8, 8, 3) True True"
+
+
+def test_cli_info_runs_with_the_jax_package_hidden():
+    proc = _run_hidden("from platinum_tpu_torch.app import cli\n"
+                       "cli.main(['info', 'cornell'])\n")
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert json.loads(proc.stdout)["triangles"] == 12
 
 
 def test_entry_points_default_to_the_card():
