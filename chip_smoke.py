@@ -219,6 +219,33 @@ Phases, one printed block each (any failure exits non-zero):
      512x512 --gmon 4 -o <png>` on the card writes a 512x512 PNG through
      K1 (the file alone has no light: the image is black and no shadow ray
      is traced)
+  7. alpha cutout at full width: sponza_class_512's settings
+     (bench.py:231-242) on the colonnade with tests/test_golden.py:88-94's
+     checker texture, alpha and all, on its `column` material, cut to 4
+     spp: only K1 launches (K2 never: shadow rays trace closest hits
+     through the cutouts); K1's launches per spp and ms/spp printed; then
+     its kernel path against the plain tracer pair at 64x64 x 1 spp, held
+     per pixel as 5 holds the headline, the means printed (the column
+     bases are coplanar with the floor, and the tracers break that exact
+     tie apart), and every closest-hit call of the kernel path traced
+     again by the plain pair: each disagreeing ray a tie or borderline
+  7b. the cutout_shadows golden config (128x128, 32 spp) as
+     tests/test_golden.py renders it; its RMSE against
+     tests/goldens/cutout_shadows.exr printed beside the 1e-3 bar, not
+     held
+  7c. the Z-sampler: ZStream's index and draws on the card bitwise the
+     CPU's over a 512x512 wave; the headline at 2 spp with sampler="z"
+     (K1/K2 only), ms/spp printed
+  7d. the colonnade saved through the port's Store.save_as (.ptscene) and
+     opened again: every flattened tensor and the 512x512 x 1 spp image
+     bit for bit the original's
+  7e. the studio: StudioRenderer at 960x540 on the colonnade, ms per
+     frame (only K3 closest launches: the studio flattens with
+     instancing="auto", as the JAX studio does, and the colonnade's reused
+     meshes go instanced); its ids and colours against the plain tracer pair; a
+     pick; the CLI's `preview` of 7d's .ptscene with a pick, and a short
+     `preview --interactive` session in the process (pick, orbit, zoom,
+     select, frame, render 2, save, quit)
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -3097,6 +3124,414 @@ def phase_cli(tmp, glb):
     return dt
 
 
+# ---------------------------------------------------------------------------
+# 7-7e: alpha cutout, the Z-sampler, the scene formats and the studio
+# ---------------------------------------------------------------------------
+
+GOLDEN_RMSE = 1e-3  # 7b: tests/test_golden.py's bar, printed beside, not held
+STUDIO_ATOL = 1e-5  # 7e: studio colours, kernel against plain, same stencil
+CHECKER = 32        # texels a side of the golden's checker
+
+
+def _checker_texture():
+    """tests/test_golden.py:88-94's checker: opaque white, every other 4x4
+    square cut out (alpha 0)."""
+    from platinum_tpu_torch.core.texture import Texture, TextureFormat
+
+    rgba = np.full((CHECKER, CHECKER, 4), 255, np.uint8)
+    yy, xx = np.mgrid[0:CHECKER, 0:CHECKER]
+    rgba[(yy // 4 + xx // 4) % 2 == 0, 3] = 0
+    return Texture(data=rgba, format=TextureFormat.SRGB_RGBA, name="checker",
+                   has_alpha=True)
+
+
+def _checker_columns():
+    """The colonnade with the checker bound to the base colour of its
+    `column` material: the columns become cutouts."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.core.material import Material, TextureSlot
+
+    scene, cam = make_colonnade_scene()
+    tex_id = scene.add_asset(_checker_texture(), retained=True)
+    cols = [d for _, d, *_ in scene.all_assets()
+            if isinstance(d, Material) and d.name == "column"]
+    check(len(cols) == 1, f"{len(cols)} column materials")
+    cols[0].textures[TextureSlot.BASE_COLOR] = tex_id
+    return scene, cam
+
+
+def _cutout_scene():
+    """tests/test_golden.py:70-117's cutout_scene: a checker-cut quad
+    shadowing a Lambert floor under a bright panel."""
+    from platinum_tpu_torch.core import primitives
+    from platinum_tpu_torch.core.camera import Camera
+    from platinum_tpu_torch.core.material import Material, TextureSlot
+    from platinum_tpu_torch.core.scene import Scene
+    from platinum_tpu_torch.core.transform import Transform
+
+    scene = Scene()
+    fl = scene.create_node("floor")
+    scene.set_mesh(fl.id, scene.add_asset(primitives.plane(8.0)))
+    scene.set_material(fl.id, 0, scene.add_asset(Material(
+        name="floor", base_color=(0.7, 0.7, 0.7, 1), roughness=1.0)))
+    tex_id = scene.add_asset(_checker_texture(), retained=True)
+    mat = Material(name="cutout", base_color=(0.9, 0.3, 0.2, 1))
+    mat.textures[TextureSlot.BASE_COLOR] = tex_id
+    q = scene.create_node("cutout")
+    scene.set_mesh(q.id, scene.add_asset(primitives.plane(3.0)))
+    scene.set_material(q.id, 0, scene.add_asset(mat))
+    q.transform = Transform(translation=[0, 1.5, 0])
+    p = scene.create_node("panel")
+    scene.set_mesh(p.id, scene.add_asset(primitives.cube(1.0)))
+    scene.set_material(p.id, 0, scene.add_asset(Material(
+        name="light", base_color=(0, 0, 0, 1), emission=(1, 1, 1),
+        emission_strength=25.0)))
+    p.transform = Transform(translation=[0, 3.5, 0], scale=[1.0, 0.05, 1.0])
+    cam = scene.create_node("cam")
+    cam.camera = Camera.with_focal_length(35.0)
+    cam.camera.focus_distance = 6.0
+    cam.transform = Transform(translation=[3.5, 4.0, 3.5],
+                              target=[0, 0.8, 0], track=True)
+    return scene, cam.id
+
+
+def phase_alpha(dev):
+    """7: sponza_class_512's settings on the colonnade with cutout columns,
+    cut to 4 spp; then its kernel path against the plain tracer pair at
+    64x64 x 1 spp."""
+    from platinum_tpu_torch.render.flatten import flatten_scene
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = _checker_columns()
+    settings = RenderSettings(spp=4, **HEADLINE)
+    renderer, launches, mean = _render_path(
+        "sponza_class_512 with cutout columns (7)", scene, cam, settings)
+    check("alpha" in renderer._features, "the columns are not alpha-tested")
+    _only("the alpha headline", launches, ("closest",))
+    check(launches["any"] == 0, "K2 launched under alpha")
+    k1_spp = (launches["closest"]
+              - renderer.probe_launches["closest"]) / settings.spp
+    print(f"  K1 launches per spp under alpha {k1_spp:.1f} (the auto plan's "
+          f"probe {renderer.probe_launches['closest']} more), "
+          f"{renderer.ms_per_spp:.1f} ms/spp", flush=True)
+    small = RenderSettings(width=64, height=64, spp=1, max_bounces=8,
+                           kernel="mis", sampler="halton", tracer="packet",
+                           instancing="off")
+    _alpha_end_to_end(flatten_scene(scene, cam, small, device=dev), small)
+    return renderer.ms_per_spp, k1_spp
+
+
+def _alpha_end_to_end(flat, settings):
+    """7: one sample through the kernel pair against the plain pair, as 5
+    holds it, with one change. The column bases are coplanar with the
+    floor, and under alpha a ray that passes a cut-out column meets both
+    at one t: the two tracers break that exact tie apart (the kernel by
+    its walk, the plain version by block order), the cap's alpha draw or
+    the floor's opacity follows, and the path forks. So the image means
+    are printed beside MEAN_RTOL, not held; instead every closest-hit call
+    of the kernel path is traced again by the plain pair on the same
+    inputs, and each ray they disagree on must be an exact-t tie (ids
+    apart) or certified borderline in float64, as 3 holds whole waves."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.flatten import analyze_features
+    from platinum_tpu_torch.render.integrator import (make_tracers,
+                                                      render_sample)
+
+    feats = analyze_features(flat)
+    kernel = make_tracers(flat, settings)
+    plain = pt.make_packet_tracer(
+        flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+        trace_fn=pt.trace_wide_reference)
+    _zero_launches()
+    img_k = render_sample(flat, settings, 0, tracers=kernel,
+                          features=feats).cpu().numpy()
+    launches = {k: v for k, v in _launches().items() if v}
+    _only("the alpha end to end", launches, ("closest",))
+    img_p = render_sample(flat, settings, 0, tracers=plain,
+                          features=feats).cpu().numpy()
+    close = np.isclose(img_k, img_p, rtol=PIX_RTOL, atol=PIX_ATOL).all(-1)
+    rel = abs(img_k.mean() / img_p.mean() - 1.0)
+
+    g = flat.geometry
+    pos = g.positions.double().cpu().numpy()
+    idx = g.indices.cpu().numpy()
+    v0 = pos[idx[:, 0]]
+    tri64 = np.concatenate([v0, pos[idx[:, 1]] - v0, pos[idx[:, 2]] - v0], 1)
+    stats = dict(calls=0, rays=0, ties=0, borderline=0, uncertified=[])
+
+    def checked(o, d, tmin, tmax, active=None):
+        rk = kernel[0](o, d, tmin, tmax, active=active)
+        rp = plain[0](o, d, tmin, tmax, active=active)
+        act = active if active is not None else torch.ones_like(rk.hit)
+        hk, hp = rk.hit & act, rp.hit & act
+        tie = torch.isclose(rk.t, rp.t, rtol=TIE_RTOL, atol=TIE_ATOL)
+        apart = hk & hp & (rk.tri != rp.tri)
+        stats["calls"] += 1
+        stats["rays"] += int(act.sum())
+        stats["ties"] += int((apart & tie).sum())
+        bad = torch.nonzero((hk != hp) | (apart & ~tie)).squeeze(1)
+        if len(bad):
+            host = torch.stack([*o.T, *d.T, torch.full_like(o[:, 0], tmin),
+                                torch.broadcast_to(torch.as_tensor(
+                                    tmax, device=o.device), o[:, 0].shape)])
+            host = host.double().cpu().numpy()
+            for i in bad.cpu().numpy():
+                if _borderline(host[:, i], tri64):
+                    stats["borderline"] += 1
+                else:
+                    stats["uncertified"].append(int(i))
+        return rk
+
+    render_sample(flat, settings, 0, tracers=(checked, kernel[1]),
+                  features=feats)
+    print(f"end to end alpha K1 {settings.width}x{settings.height}x1: "
+          f"{close.mean():.4%} of pixels within rtol={PIX_RTOL} "
+          f"atol={PIX_ATOL} ({int((~close).sum())} outside), mean "
+          f"{img_k.mean():.5f} vs {img_p.mean():.5f} (rel {rel:.2e}, "
+          f"MEAN_RTOL {MEAN_RTOL} printed, not held), kernel launches "
+          f"{launches}; the kernel path's {stats['calls']} closest-hit calls "
+          f"({stats['rays']} rays) traced again by the plain pair: "
+          f"{stats['ties']} exact-t ties with the ids apart, "
+          f"{stats['borderline']} borderline, "
+          f"{len(stats['uncertified'])} uncertified", flush=True)
+    check(bool(np.isfinite(img_k).all()), "7: kernel render not finite")
+    check(close.mean() >= AGREE, "7: renders differ per pixel")
+    check(not stats["uncertified"],
+          f"7: rays {stats['uncertified'][:8]} disagree without a tie or a "
+          f"borderline triangle")
+
+
+def phase_cutout_golden():
+    """7b: the cutout_shadows golden config as tests/test_golden.py renders
+    it (128x128, 32 spp, flatten with accel_min_tris=32: the brute
+    tracer); RMSE against tests/goldens/cutout_shadows.exr beside the bar."""
+    from platinum_tpu_torch.io.exr import read_exr
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.integrator import render
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = _cutout_scene()
+    settings = RenderSettings(width=128, height=128, spp=32, max_bounces=4,
+                              kernel="mis", sampler="halton")
+    _zero_launches()
+    t0 = time.perf_counter()
+    flat = flatten_scene(scene, cam, settings, accel_min_tris=32)
+    img = render(flat, settings, features=analyze_features(flat))
+    img = img.cpu().numpy()
+    dt = time.perf_counter() - t0
+    launches = {k: v for k, v in _launches().items() if v}
+    golden = read_exr(os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests", "goldens", "cutout_shadows.exr"))[..., :3]
+    check(img.shape == golden.shape, f"7b: image {img.shape}")
+    check(bool(np.isfinite(img).all()), "7b: non-finite values")
+    rmse = float(np.sqrt(np.mean((img - golden) ** 2)))
+    print(f"cutout_shadows golden (7b): 128x128 x 32 spp in {dt:.2f} s, "
+          f"mean {img.mean():.5f} vs the golden's {golden.mean():.5f}, RMSE "
+          f"{rmse:.3e} (tests/test_golden.py's bar {GOLDEN_RMSE}, not held "
+          f"here); kernel launches {launches} (16 triangles: the brute "
+          f"tracer)", flush=True)
+    return rmse
+
+
+def phase_zsampler(scene, cam, dev):
+    """7c: ZStream's draws on the card bitwise the CPU's over a 512x512
+    wave; the headline at 2 spp with sampler="z"."""
+    from platinum_tpu_torch.ops.zsampler import ZStream
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    n = 512
+    draws = []
+    for where in (dev, "cpu"):
+        pix = torch.arange(n * n, device=where)
+        st = ZStream.create(pix % n, pix // n, 1, n, n, 2)
+        out = [st.z]
+        for _ in range(4):
+            st, u = st.next_2d()
+            out.append(u.view(torch.int32))
+            st, u = st.next_1d()
+            out.append(u.view(torch.int32))
+        draws.append([o.cpu() for o in out])
+    same = all(torch.equal(a, b) for a, b in zip(*draws))
+    print(f"Z-sampler (7c): {n * n} lanes, the index and 8 dimensions on the "
+          f"card bitwise the CPU's: {same}", flush=True)
+    check(same, "ZStream draws on the card differ from the CPU")
+    settings = RenderSettings(spp=2, **dict(HEADLINE, sampler="z"))
+    renderer, launches, _ = _render_path("sponza_class_512 with sampler='z' "
+                                         "(7c)", scene, cam, settings)
+    _only("the Z-sampler headline", launches, ("closest", "any"))
+    return renderer.ms_per_spp
+
+
+def _flat_leaves(a, b, path="flat"):
+    """(name, a leaf, b leaf) over two FlatScenes' tensors, recursively."""
+    import dataclasses
+
+    for f in dataclasses.fields(a):
+        x, y = getattr(a, f.name), getattr(b, f.name)
+        if dataclasses.is_dataclass(x):
+            yield from _flat_leaves(x, y, f"{path}.{f.name}")
+        elif isinstance(x, torch.Tensor):
+            yield f"{path}.{f.name}", x, y
+        else:
+            check(x == y, f"{path}.{f.name}: {x!r} != {y!r}")
+
+
+def phase_ptscene(tmp, scene, cam, dev):
+    """7d: the colonnade saved by Store.save_as and opened again: the
+    flattened arrays and a 1-spp image bit for bit the original's."""
+    from platinum_tpu_torch.app.store import Store
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.integrator import render_sample
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    path = os.path.join(tmp, "colonnade.ptscene")
+    t0 = time.perf_counter()
+    Store(scene).save_as(path)
+    t_save = time.perf_counter() - t0
+    store = Store()
+    t0 = time.perf_counter()
+    store.open(path)
+    t_open = time.perf_counter() - t0
+    loaded = store.scene
+    check([c[0] for c in loaded.get_cameras()] == [cam],
+          "the loaded scene's camera node")
+    settings = RenderSettings(width=512, height=512, spp=1, max_bounces=8,
+                              kernel="mis", sampler="halton",
+                              tracer="packet", instancing="off")
+    a = flatten_scene(scene, cam, settings, device=dev)
+    b = flatten_scene(loaded, cam, settings, device=dev)
+    n = 0
+    for name, x, y in _flat_leaves(a, b):
+        # bit for bit: some float tables carry integer bits (NaN patterns)
+        check(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+            x.reshape(-1).view(torch.uint8), y.reshape(-1).view(torch.uint8)),
+            f"7d: {name} differs after the .ptscene round trip")
+        n += 1
+    _zero_launches()
+    img = render_sample(a, settings, 0, features=analyze_features(a))
+    launches = {k: v for k, v in _launches().items() if v}
+    img_b = render_sample(b, settings, 0, features=analyze_features(b))
+    same = torch.equal(img, img_b)
+    sizes = sum(os.path.getsize(os.path.join(tmp, f)) for f in
+                ("colonnade.ptscene", "colonnade_data.bin"))
+    print(f".ptscene (7d): {sizes} bytes, save {t_save:.2f} s, open "
+          f"{t_open:.2f} s; {n} flattened tensors bit for bit; the 512x512 "
+          f"x 1 spp image bit for bit: {same}; launches {launches}",
+          flush=True)
+    check(same, "7d: the reloaded scene renders differently")
+    _only("the .ptscene render", launches, ("closest", "any"))
+    return path
+
+
+def phase_studio(tmp, scene, cam, dev, ptscene):
+    """7e: StudioRenderer at 960x540 on the colonnade (K1 only), its ids
+    and colours against the plain tracer pair, a pick, the CLI's preview
+    of the .ptscene and a short interactive session in the process."""
+    import contextlib
+    import io
+
+    from platinum_tpu_torch.app import cli
+    from platinum_tpu_torch.io.png import read_png
+    from platinum_tpu_torch.ops import packet_trace as pt
+    from platinum_tpu_torch.render.studio import StudioRenderer, _studio_pass
+
+    studio = StudioRenderer(scene, width=960, height=540)
+    m = scene.world_transform(cam)
+    studio.camera_to(m[:3, 3], m[:3, 3] - m[:3, 2] * 10.0)
+    t0 = time.perf_counter()
+    studio.render()
+    t_first = time.perf_counter() - t0
+    ids0 = studio._ids
+    vals, counts = torch.unique(ids0[ids0 >= 0], return_counts=True)
+    sel = int(vals[torch.argmax(counts)])
+    _zero_launches()
+    frames = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        studio.render(selected_node=sel)
+        frames.append((time.perf_counter() - t0) * 1e3)
+    launches = {k: v for k, v in _launches().items() if v}
+    flat = studio._flat
+    # the studio's settings keep instancing="auto", as the JAX studio's do:
+    # the colonnade's reused meshes flatten instanced, and K3 traces them
+    mode = "inst_closest" if flat.instances is not None else "closest"
+    _only("the studio", launches, (mode,))
+    plain = pt.make_packet_tracer(
+        flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
+        trace_fn=pt.trace_wide_reference,
+        inst_feat=flat.instances.feat if flat.instances is not None else None)
+    col_k, ids_k = _studio_pass(flat, studio.settings, sel, studio._gizmos,
+                                studio._tracers)
+    col_p, ids_p = _studio_pass(flat, studio.settings, sel, studio._gizmos,
+                                plain)
+    differ = ids_k != ids_p
+    stencil = differ.clone()
+    for sh in ((0, 1), (0, -1), (1, 0), (-1, 0)):
+        stencil |= torch.roll(differ, sh, dims=(0, 1))
+    err = float((col_k - col_p).abs().amax(-1)[~stencil].max())
+    agree = 1.0 - float(differ.float().mean())
+    w, h = studio.settings.width, studio.settings.height
+    # pick the middle pixel of the selected node's
+    at = torch.nonzero((ids_k == sel).reshape(-1)).squeeze(1)
+    y, x = divmod(int(at[len(at) // 2]), w)
+    picked = studio.readback_object_id_at(x, y)
+    print(f"studio (7e): {w}x{h}, the first frame {t_first * 1e3:.1f} ms "
+          f"(flatten, tracer pair), then "
+          f"{[round(f, 1) for f in frames]} ms (median "
+          f"{sorted(frames)[2]:.1f} ms a frame), launches {launches}; ids "
+          f"against the plain tracer pair: {agree:.4%} equal, colours off by "
+          f"{err:.3g} outside their stencil (bar {STUDIO_ATOL}); "
+          f"pick ({x},{y}) -> {picked}, selected {sel}", flush=True)
+    check(agree >= AGREE, "7e: studio ids differ from the plain pair's")
+    check(err <= STUDIO_ATOL, "7e: studio colours differ")
+    check(picked == int(ids_k[y, x]) == sel,
+          "7e: the pick is not the id AOV's")
+
+    out = os.path.join(tmp, "preview.png")
+    buf = io.StringIO()
+    _zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        cli.main(["preview", ptscene, "--size", f"{w}x{h}", "--pick",
+                  f"{x},{y}", "-o", out])
+    t_cli = time.perf_counter() - t0
+    lines = buf.getvalue().split("\n")
+    check(lines[0] == f"node at ({x},{y}): {sel}", f"7e: {lines[0]!r}")
+    check(read_png(out).shape == (h, w, 4), "7e: the preview PNG")
+    cli_launches = {k: v for k, v in _launches().items() if v}
+    script = "\n".join([f"pick {x // 2} {y // 2}", "orbit 0.3 0.1",
+                        "zoom 1", f"select {sel}", "frame", "render 2",
+                        f"save {os.path.join(tmp, 'kept.png')}", "quit"])
+    buf = io.StringIO()
+    stdin = sys.stdin
+    sys.stdin = io.StringIO(script + "\n")
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            cli.main(["preview", ptscene, "--interactive", "--size",
+                      f"{w // 2}x{h // 2}", "-o",
+                      os.path.join(tmp, "session.png")])
+    finally:
+        sys.stdin = stdin
+    t_session = time.perf_counter() - t0
+    said = buf.getvalue()
+    print(f"  cli preview {os.path.basename(ptscene)} --size {w}x{h} "
+          f"--pick: {lines[0]!r}, {t_cli:.2f} s with the load, launches "
+          f"{cli_launches}; preview --interactive ({w // 2}x{h // 2}: pick, "
+          f"orbit, zoom, select, frame, render 2, save, quit) "
+          f"{t_session:.2f} s: "
+          f"{said.count('frame ')} frames, "
+          f"{[ln for ln in said.splitlines() if ln.startswith('rendered')]}",
+          flush=True)
+    for word in ("ready", "picked", "preview frame 4", "rendered 2 spp",
+                 "saved", "bye"):
+        check(word in said, f"7e: the session did not say {word!r}")
+    check("error:" not in said, "7e: the session reported an error")
+    return sorted(frames)[2], t_cli, t_session
+
+
 def _design(name):
     """How the kernel row `name` of the kernel table walks and tests:
     which of wide_trace.cu's walks, or the breadth-first kernels' step."""
@@ -3222,6 +3657,24 @@ def main():
         lap("6e CLI")
     print(f"phases 6-6e on {_card()}: {time.perf_counter() - t6:.1f} s; "
           f"ms/spp {ms6}", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t7 = time.perf_counter()
+        ms7 = {}
+        ms7["7"], k1_spp = phase_alpha(dev)
+        lap("7 alpha")
+        rmse7b = phase_cutout_golden()
+        lap("7b cutout golden")
+        ms7["7c"] = phase_zsampler(scene, cam, dev)
+        lap("7c Z-sampler")
+        ptscene = phase_ptscene(tmp, scene, cam, dev)
+        lap("7d .ptscene")
+        studio = phase_studio(tmp, scene, cam, dev, ptscene)
+        lap("7e studio")
+    print(f"phases 7-7e on {_card()}: {time.perf_counter() - t7:.1f} s; "
+          f"ms/spp {ms7}, K1 launches per spp under alpha {k1_spp:.1f}; "
+          f"cutout_shadows RMSE {rmse7b:.3e} (bar {GOLDEN_RMSE}, not held); "
+          f"studio ms a frame {studio[0]:.1f}, cli preview {studio[1]:.2f} s, "
+          f"session {studio[2]:.2f} s", flush=True)
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"

@@ -1,18 +1,24 @@
 """Command-line interface of the port.
 
-Port of the `render` and `info` commands of platinum_tpu/app/cli.py:
+Port of platinum_tpu/app/cli.py's commands:
 
-  render     render a scene (.gltf/.glb or a builtin) to PNG/EXR
+  render     render a scene (.gltf/.glb/.ptscene/.json or a builtin) to
+             PNG/EXR
+  preview    a studio viewport frame (optionally a pick at a pixel), or
+             with --interactive the stdin-driven editor session
   info       inspect a scene
 
 Usage: python -m platinum_tpu_torch.app.cli render scene.glb --spp 64 \\
            --gmon 4 --tonemap agx -o out.png
+       python -m platinum_tpu_torch.app.cli preview scene.ptscene \\
+           --pick 480,270 -o view.png
 
-It renders on the card (`--device cuda`, the default) and raises where
-there is none; `--device cpu` runs on the CPU. What is not ported raises
-NotImplementedError naming its ROADMAP queue-1 item: `.ptscene` / `.json`
-scenes (item 10), `--mesh` (item 11), `--sampler z` (item 8), and the
-`preview` (item 9) and `bake-luts` (item 12) commands.
+`render` and `preview` run on the card (`--device cuda`, the default) and
+raise where there is none; `--device cpu` runs on the CPU. `.ptscene` and
+`.json` scenes load through io/sceneio.py, or through io/refscene.py when
+the file is the reference app's format. What is not ported raises
+NotImplementedError naming its ROADMAP queue-1 item: `--mesh` (item 11)
+and the `bake-luts` command (item 12).
 """
 
 from __future__ import annotations
@@ -52,7 +58,22 @@ def _load_scene(path: str):
         cams = scene.get_cameras()
         return scene, (cams[0][0] if cams else None)
     if path.endswith((".ptscene", ".json")):
-        raise _unported(f"loading {path}", 10, "io/{sceneio,refscene,hdr}.py")
+        from platinum_tpu_torch.io.refscene import (is_reference_scene,
+                                                    load_reference_scene)
+
+        if is_reference_scene(path):
+            # a scene saved by the reference app (scene.cpp:536-627 JSON +
+            # _data.bin sidecar) loads directly
+            from platinum_tpu_torch.core.scene import Scene
+
+            scene = Scene()
+            load_reference_scene(scene, path)
+        else:
+            from platinum_tpu_torch.io.sceneio import load_scene
+
+            scene = load_scene(path)
+        cams = scene.get_cameras()
+        return scene, (cams[0][0] if cams else None)
     raise SystemExit(f"unknown scene: {path}")
 
 
@@ -96,8 +117,6 @@ def cmd_render(args):
     if args.mesh:
         raise _unported("--mesh (multi-device rendering)", 11,
                         "parallel/{mesh,shard,geometry,multihost}.py")
-    if args.sampler == "z":
-        raise _unported("--sampler z", 8, "ops/zsampler.py")
     scene, cam_id = _load_scene(args.scene)
     cam_id = _ensure_camera(scene, cam_id if args.camera < 0 else args.camera,
                             args)
@@ -193,7 +212,269 @@ def cmd_info(args):
 
 
 def cmd_preview(args):
-    raise _unported("the preview command", 9, "render/studio.py")
+    """Studio viewport preview: shaded frame + optional pick at a pixel."""
+    if args.interactive:
+        return cmd_preview_interactive(args)
+    from platinum_tpu_torch.io.png import write_png
+    from platinum_tpu_torch.render.studio import StudioRenderer
+
+    scene, cam_id = _load_scene(args.scene)
+    w, h = (int(v) for v in args.size.split("x"))
+    studio = StudioRenderer(scene, width=w, height=h, device=args.device)
+    if cam_id is not None:
+        m = scene.world_transform(cam_id)
+        studio.camera_to(m[:3, 3], m[:3, 3] - m[:3, 2] * 10.0)
+    img = studio.render(selected_node=args.select)
+    if args.pick:
+        x, y = (int(v) for v in args.pick.split(","))
+        print(f"node at ({x},{y}): {studio.readback_object_id_at(x, y)}")
+    write_png(args.output, img)
+    print(args.output)
+
+
+def cmd_preview_interactive(args):
+    """Interactive editor session (the capability of the reference's main
+    loop, frontend.cpp:183-285, and the Store's deferred actions): stdin
+    commands drive the studio camera, picking and selection between
+    frames, and `render` runs a progressive path-traced render from the
+    current view, restarted on any edit. Commands:
+
+      orbit DX DY | pan DX DY | zoom D     camera controls
+      pick X Y                             object id under a pixel
+      select ID                            queue selection (outlined; applied
+                                           between frames)
+      remove ID [recursive|to_parent|to_root]  queue node removal
+      move ID X Y Z                        set a node's translation
+      mat ID [slot=N] key=value ...        edit the node's material
+                                           (roughness/metallic/ior/...;
+                                           base_color/emission take r,g,b)
+      env PATH [S] | env color R,G,B [S]   set the environment map / constant
+                                           colour with strength S
+      cam key=value ...                    edit the render camera
+                                           (focal_length/aperture/
+                                           focus_distance/...), applied at
+                                           render
+      add KIND [NAME]                      add a primitive under the selection
+                                           (plane|cube|sphere|cornell)
+      import PATH                          glTF import under the selection
+      savescene PATH                       write the scene as .ptscene
+      frame                                write a studio frame
+      spp N                                set progressive sample budget
+      render [N]                           progressive render (N spp),
+                                           writing the image as it converges
+      save PATH                            write the current image
+      quit                                 exit
+
+    Scene edits (select/remove/import) go through the Store's deferred-
+    action queue (app/store.py, reference store.cpp:56-67): they latch on
+    the store and apply between frames, never mid-frame.
+    """
+    import numpy as np
+
+    from platinum_tpu_torch.app.store import NodeAction, Store
+    from platinum_tpu_torch.core import primitives
+    from platinum_tpu_torch.core.camera import Camera
+    from platinum_tpu_torch.core.material import Material
+    from platinum_tpu_torch.core.scene import RemoveMode
+    from platinum_tpu_torch.io.png import write_png
+    from platinum_tpu_torch.render.renderer import Renderer, RenderStatus
+    from platinum_tpu_torch.render.studio import StudioRenderer
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam_id = _load_scene(args.scene)
+    cam_id = _ensure_camera(scene, cam_id, args)
+    w, h = (int(v) for v in args.size.split("x"))
+    store = Store(scene)
+    studio = StudioRenderer(scene, width=w, height=h, device=args.device)
+    m = scene.world_transform(cam_id)
+    studio.camera_to(m[:3, 3], m[:3, 3] - m[:3, 2] * 10.0)
+    spp = 16
+    last = None
+    cam_overrides: dict = {}
+    env_owned_tid = None  # texture asset imported by this session's `env`
+
+    def emit(img):
+        nonlocal last
+        last = img
+        write_png(args.output, img)
+        print(f"frame {args.output}", flush=True)
+
+    def step_frame(scene_dirty: bool = False):
+        """Apply deferred store actions, then render one studio frame."""
+        action, _ = store.update()
+        if action == NodeAction.REMOVE or scene_dirty:
+            studio.invalidate()
+        sel = store.selected_node if store.selected_node is not None else -1
+        emit(studio.render(selected_node=sel))
+
+    step_frame()
+    print("ready", flush=True)
+    for line in sys.stdin:
+        parts = line.split()
+        if not parts:
+            continue
+        cmd, rest = parts[0], parts[1:]
+        try:
+            if cmd == "quit":
+                break
+            elif cmd == "orbit":
+                studio.handle_orbit(float(rest[0]), float(rest[1]))
+                step_frame()
+            elif cmd == "pan":
+                studio.handle_pan(float(rest[0]), float(rest[1]))
+                step_frame()
+            elif cmd == "zoom":
+                studio.handle_zoom(float(rest[0]))
+                step_frame()
+            elif cmd == "pick":
+                nid = studio.readback_object_id_at(int(rest[0]), int(rest[1]))
+                print(f"picked {nid}", flush=True)
+            elif cmd == "select":
+                store.select_node(int(rest[0]))
+                step_frame()
+            elif cmd == "remove":
+                mode = {"recursive": RemoveMode.RECURSIVE,
+                        "to_parent": RemoveMode.MOVE_TO_PARENT,
+                        "to_root": RemoveMode.MOVE_TO_ROOT}[
+                    rest[1] if len(rest) > 1 else "recursive"]
+                store.remove_node(int(rest[0]), mode)
+                step_frame()
+                print(f"removed {rest[0]}", flush=True)
+            elif cmd == "move":
+                node = scene.node(int(rest[0]))
+                node.transform.translation = np.asarray(
+                    [float(v) for v in rest[1:4]], np.float32)
+                studio.invalidate()
+                step_frame()
+                print(f"moved {rest[0]}", flush=True)
+            elif cmd == "mat":
+                node = scene.node(int(rest[0]))
+                kv = dict(p.split("=", 1) for p in rest[1:])
+                slot = int(kv.pop("slot", 0))
+                mid = node.material_ids[slot]
+                if mid is None:
+                    # default-material slot: materialise one so the edit
+                    # has something to land on
+                    mid = scene.add_asset(Material(name=f"mat_{rest[0]}"))
+                    scene.set_material(node.id, slot, mid)
+                mat = scene.asset(mid)
+                for key, val in kv.items():
+                    cur = getattr(mat, key)  # AttributeError for bad names
+                    if isinstance(cur, tuple):
+                        vals = tuple(float(v) for v in val.split(","))
+                        setattr(mat, key, vals + cur[len(vals):])
+                    elif isinstance(cur, bool):
+                        setattr(mat, key, val.lower() in ("1", "true", "on"))
+                    else:
+                        setattr(mat, key, type(cur)(val))
+                studio.invalidate()
+                step_frame()
+                print(f"mat {mid} " + " ".join(sorted(kv)), flush=True)
+            elif cmd == "env":
+                env = scene.environment
+                if rest[0] == "color":
+                    rgb = tuple(float(v) for v in rest[1].split(","))
+                    if len(rgb) != 3:
+                        raise ValueError(
+                            f"env color takes exactly R,G,B "
+                            f"(got {len(rgb)} components)")
+                    env.set_texture(None)
+                    env.constant_color = rgb
+                    new_tid = None
+                    strength = rest[2:3]
+                else:
+                    # hdr inferred from the extension: .exr/.hdr load as
+                    # linear float, LDR images decode sRGB -> linear
+                    new_tid = store.import_texture(rest[0])
+                    scene.retain_asset(new_tid)
+                    env.set_texture(
+                        new_tid, scene.asset(new_tid).as_float_rgba())
+                    strength = rest[1:2]
+                # release the previously imported map so replaced env
+                # textures don't accumulate in the scene / saved .ptscene
+                if env_owned_tid is not None and env_owned_tid != new_tid:
+                    scene.release_asset(env_owned_tid)
+                env_owned_tid = new_tid
+                if strength:
+                    env.strength = float(strength[0])
+                print(f"env {rest[0]}", flush=True)
+            elif cmd == "cam":
+                # scalar numeric fields only (sensor_size is a tuple); the
+                # values take the field's own type, applied all or nothing
+                probe = Camera()
+                pending = {}
+                for p in rest:
+                    k, v = p.split("=", 1)
+                    cur = getattr(probe, k, None)
+                    if not isinstance(cur, (int, float)):
+                        raise KeyError(
+                            f"unknown or non-scalar camera attribute {k!r}")
+                    pending[k] = type(cur)(float(v))
+                cam_overrides.update(pending)
+                print("cam " + " ".join(sorted(cam_overrides)), flush=True)
+            elif cmd == "add":
+                kind = rest[0]
+                mesh = {"plane": primitives.plane, "cube": primitives.cube,
+                        "sphere": primitives.sphere,
+                        "cornell": primitives.cornell_box}[kind]()
+                name = rest[1] if len(rest) > 1 else kind
+                nid = store.create_primitive(name, mesh)
+                step_frame(scene_dirty=True)
+                print(f"added {kind} {nid}", flush=True)
+            elif cmd == "import":
+                roots = store.import_gltf(rest[0])
+                step_frame(scene_dirty=True)
+                print(f"imported {rest[0]} nodes {roots}", flush=True)
+            elif cmd == "savescene":
+                store.save_as(rest[0])
+                print(f"scene saved {rest[0]}", flush=True)
+            elif cmd == "frame":
+                step_frame()
+            elif cmd == "spp":
+                spp = int(rest[0])
+                print(f"spp {spp}", flush=True)
+            elif cmd == "save":
+                if last is not None:
+                    write_png(rest[0], last)
+                print(f"saved {rest[0]}", flush=True)
+            elif cmd == "render":
+                n = int(rest[0]) if rest else spp
+                cam_node = studio.camera.attach(scene)
+                for k, v in cam_overrides.items():
+                    setattr(scene.node(cam_node).camera, k, v)
+                renderer = Renderer(scene, device=args.device)
+                # the preview ladder: the first frames render at 1/4 the
+                # size and are upscaled while the full-resolution
+                # accumulation converges underneath
+                renderer.start_render(cam_node, RenderSettings(
+                    width=w, height=h, spp=n, max_bounces=8,
+                    sampler="pcg4d", compact_plan="auto"),
+                    preview_scale=4, preview_spp=4)
+                while renderer._pv is not None and \
+                        renderer._pv["done"] < renderer._pv["spp"]:
+                    t0 = time.perf_counter()
+                    renderer.render()
+                    emit(renderer.readback())
+                    print(f"preview frame {renderer._pv['done']} "
+                          f"{(time.perf_counter() - t0) * 1e3:.0f} ms",
+                          flush=True)
+                step = max(1, n // 4)
+                while not (renderer.status & RenderStatus.DONE):
+                    for _ in range(step):
+                        renderer.render()
+                        if renderer.status & RenderStatus.DONE:
+                            break
+                    emit(renderer.readback())
+                    print(f"progress {renderer.render_progress:.2f}",
+                          flush=True)
+                print(f"rendered {n} spp in {renderer.render_time:.2f}s",
+                      flush=True)
+            else:
+                print(f"unknown command: {cmd}", flush=True)
+        except (ValueError, IndexError, KeyError, OSError,
+                AttributeError, TypeError) as e:
+            print(f"error: {e}", flush=True)
+    print("bye", flush=True)
 
 
 def cmd_bake_luts(args):
@@ -205,7 +486,7 @@ def build_parser():
     sub = p.add_subparsers(dest="cmd", required=True)
 
     r = sub.add_parser("render", help="render a scene to PNG/EXR")
-    r.add_argument("scene", help=".gltf/.glb path or 'cornell'")
+    r.add_argument("scene", help=".gltf/.glb/.ptscene path or 'cornell'")
     r.add_argument("-o", "--output", default="render.png")
     r.add_argument("--device", default="cuda",
                    help="torch device to render on (default cuda; cpu for "
@@ -268,14 +549,18 @@ def build_parser():
     r.add_argument("--progress", action="store_true")
     r.set_defaults(func=cmd_render)
 
-    pv = sub.add_parser("preview", help="studio viewport preview frame "
-                                        "(not ported yet)")
+    pv = sub.add_parser("preview", help="studio viewport preview frame")
     pv.add_argument("scene")
     pv.add_argument("-o", "--output", default="preview.png")
+    pv.add_argument("--device", default="cuda",
+                    help="torch device to trace on (default cuda; cpu for "
+                         "tests)")
     pv.add_argument("--size", default="960x540")
     pv.add_argument("--select", type=int, default=-1)
     pv.add_argument("--pick", default=None, help="x,y pixel to pick")
-    pv.add_argument("--interactive", action="store_true")
+    pv.add_argument("--interactive", action="store_true",
+                    help="stdin-driven editor session (orbit/pan/zoom/"
+                         "pick/select/render)")
     pv.set_defaults(func=cmd_preview)
 
     b = sub.add_parser("bake-luts", help="regenerate GGX energy LUTs (not "

@@ -77,7 +77,11 @@ def interpolate_hit(geometry: Geometry, rec: HitRecord, o: torch.Tensor,
                               flat_ids)[..., 0].to(torch.int32)
 
     t = torch.where(rec.hit, rec.t, 0.0)
-    pos = o + d * t[..., None]
+    # XLA fuses o + d * t into one multiply-add: formed in float64 (the
+    # product of two float32 values is exact there) and rounded once, the
+    # hit point is the JAX package's, and so are the coplanar ties that
+    # its 1-ulp differences would otherwise break the other way
+    pos = (o.double() + d.double() * t.double()[..., None]).float()
     fr = frame_ops.from_nt(normal, tangent, sign)
     wo = frame_ops.world_to_local(fr, -d)
     return HitData(pos=pos, normal=fr[2], gnormal=gnormal, uv=uv, wo=wo,

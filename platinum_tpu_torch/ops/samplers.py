@@ -1,6 +1,7 @@
 """Counter-based QMC/RNG samplers and sampling warps, on torch tensors.
 
-Port of platinum_tpu/ops/samplers.py:58-235. Every value drawn for
+Port of platinum_tpu/ops/samplers.py:58-235 (the Z-sampler is in
+ops/zsampler.py). Every value drawn for
 (pixel, sample_index, dimension) is a pure function of those integers, as
 in the JAX package, and equal to it bit for bit: the uint32 hash
 arithmetic runs in int64 with `& 0xFFFFFFFF` after every multiply and add
@@ -162,16 +163,21 @@ class PCG4DStream:
         return PCG4DStream(x, y, z, w), u
 
 
-def make_stream(kind: str, pixel_x, pixel_y, sample_index):
+def make_stream(kind: str, pixel_x, pixel_y, sample_index,
+                width: int = 4096, height: int = 4096, spp: int = 4096):
+    """The sampler stream of `kind` for each (pixel, sample index); the
+    Z-sampler also takes the image size and the sample budget, which set
+    its Morton and sample digits."""
     kind = kind.lower()
     if kind == "halton":
         return HaltonStream.create(pixel_x, pixel_y, sample_index)
     if kind in ("pcg4d", "pcg"):
         return PCG4DStream.create(pixel_x, pixel_y, sample_index)
     if kind in ("z", "zsampler", "sobol"):
-        raise NotImplementedError(
-            "the Z-sampler (ops/zsampler.py) is not ported yet (ROADMAP "
-            "queue 1); use sampler='halton' or 'pcg4d'")
+        from platinum_tpu_torch.ops.zsampler import ZStream
+
+        return ZStream.create(pixel_x, pixel_y, sample_index, width, height,
+                              spp)
     raise ValueError(f"unknown sampler kind: {kind}")
 
 

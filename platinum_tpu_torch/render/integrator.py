@@ -38,10 +38,17 @@ material textures in `make_shading_context` and, where a material binds
 one, the normal map, which tilts the shading frame (JAX
 integrator.py:306-339).
 
+Alpha-tested (cutout) materials take the JAX package's stochastic
+pass-through loops (`ALPHA_HOPS`): a path segment re-traces from a cutout
+hit that passes its draw, testing each hit once, and a shadow segment
+traces closest hits up to ALPHA_HOPS + 1 times instead of one any-hit
+wave. Under alpha only the closest-hit mode of the tracer launches;
+`fuse_shadow` and `chunk_shade` stay off, as in the JAX package.
+
 Not ported yet, each raising NotImplementedError until its own change:
 the binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
-ops/raystream.py is reached through `tracers=`, as in the JAX package),
-alpha-tested materials, the Z-sampler and partitioned structures.
+ops/raystream.py is reached through `tracers=`, as in the JAX package)
+and partitioned structures.
 """
 
 from __future__ import annotations
@@ -61,10 +68,31 @@ from platinum_tpu_torch.ops.frame import (from_normal, norm, normalize,
                                           world_to_local)
 from platinum_tpu_torch.ops.hitdata import interpolate_hit
 from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
-from platinum_tpu_torch.ops.texturing import sample_normal_map
-from platinum_tpu_torch.render.types import FlatScene, RenderSettings
+from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
+                                              sample_normal_map)
+from platinum_tpu_torch.render.types import (MAT_USES_ALPHA, FlatScene,
+                                             RenderSettings)
 
 RAY_EPS = 1e-3
+# Alpha-cutout layers crossed per segment without consuming a bounce (the
+# reference's bounded any-hit loop, intersections.metal:8-39): path
+# segments re-test at most ALPHA_HOPS stacked cutout surfaces (deeper
+# stacks shade the last hit as opaque); shadow segments resolve
+# ALPHA_HOPS + 1 layers and treat anything still unresolved as occluded.
+ALPHA_HOPS = 2
+
+
+def _alpha_value(flat: FlatScene, mat_idx, uv):
+    """Opacity at a hit: the material's base alpha times its base-colour
+    texture's alpha; 1 for materials without the USES_ALPHA flag."""
+    packed = flat.materials.packed[mat_idx.long()]
+    base_a = packed[:, 3]
+    flags = packed[:, 15].to(torch.int32)
+    if flat.atlas is not None:
+        tex_rows = flat.materials.textures[mat_idx.long()]
+        base_a = base_a * sample_base_alpha(flat.atlas, flat.atlas_table,
+                                            tex_rows, uv)
+    return torch.where((flags & MAT_USES_ALPHA) != 0, base_a, 1.0)
 
 
 def _check_supported(flat: FlatScene, settings: RenderSettings,
@@ -72,11 +100,9 @@ def _check_supported(flat: FlatScene, settings: RenderSettings,
     """Refuse, by name, every option whose path is not ported yet."""
     todo = []
     if settings.tracer == "bvh":
-        todo.append("tracer='bvh'")
-    if "alpha" in features:
-        todo.append("alpha-tested (cutout) materials")
+        todo.append("tracer='bvh' (item 12)")
     if flat.wbvh_parts is not None:
-        todo.append("partitioned wide BVHs (accel/partition.py)")
+        todo.append("partitioned wide BVHs (accel/partition.py, item 11)")
     if todo:
         raise NotImplementedError(
             "not ported to platinum_tpu_torch yet (see ROADMAP queue 1): "
@@ -134,7 +160,7 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
             "instancing='off' for the brute tracer")
     if settings.tracer == "bvh":
         raise NotImplementedError(
-            "tracer='bvh' is not ported yet (ROADMAP queue 1, item 11)")
+            "tracer='bvh' is not ported yet (ROADMAP queue 1, item 12)")
     return make_brute_tracer(flat.geometry)
 
 
@@ -165,7 +191,8 @@ def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
     px = pix % settings.width
     py = pix // settings.width
 
-    stream = smp.make_stream(settings.sampler, px, py, sample_idx)
+    stream = smp.make_stream(settings.sampler, px, py, sample_idx,
+                             settings.width, settings.height, settings.spp)
     stream, pixel_jitter = stream.next_2d()
     stream, lens_u = stream.next_2d()
     o, d = spawn_camera_rays(flat.camera, px, py, pixel_jitter, lens_u)
@@ -234,6 +261,33 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             L = L + torch.where(sh_clear[:, None], s["sh_ld"], 0.0)
         else:
             rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
+        stream = s["stream"]
+        o_eff = o
+        if alpha_on:
+            # a hit on a cutout surface passes through stochastically
+            # without consuming a bounce: trace again from the hit point,
+            # at most ALPHA_HOPS times. Each hit is tested once: one that
+            # fails its draw is settled (shades as opaque) and never drawn
+            # for again
+            settled = torch.zeros_like(rec.hit)
+            for _ in range(ALPHA_HOPS):
+                stream, u_a = stream.next_1d()
+                cand = rec.hit & active & ~settled
+                hd_l = interpolate_hit(geom, rec, o_eff, d,
+                                       instances=flat.instances)
+                pas = cand & (u_a >= _alpha_value(flat, hd_l.mat_idx,
+                                                  hd_l.uv))
+                settled = settled | (cand & ~pas)
+                o_eff = torch.where(pas[:, None], hd_l.pos, o_eff)
+                rec2 = trace_closest(o_eff, d, RAY_EPS, float("inf"),
+                                     active=pas)
+                rec = HitRecord(
+                    t=torch.where(pas, rec2.t, rec.t),
+                    tri=torch.where(pas, rec2.tri, rec.tri),
+                    bary=torch.where(pas[:, None], rec2.bary, rec.bary),
+                    hit=torch.where(pas, rec2.hit, rec.hit),
+                    inst=(torch.where(pas, rec2.inst, rec.inst)
+                          if rec.inst is not None else None))
         hit = rec.hit & active
         miss = active & ~rec.hit
 
@@ -255,9 +309,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             2.0 if use_mis else 1.0)
 
         lane_state = dict(
-            o=o, d=d, atten=atten, L=L, hit=hit,
+            o=o, d=d, atten=atten, L=L, hit=hit, o_eff=o_eff,
             prev_pdf=s["prev_pdf"], prev_spec=s["prev_spec"],
-            stream=s["stream"], slot=s["slot"], bounce=bounce,
+            stream=stream, slot=s["slot"], bounce=bounce,
             rec_t=rec.t, rec_tri=rec.tri, rec_bary=rec.bary,
             **({"rec_inst": rec.inst} if rec.inst is not None else {}))
 
@@ -270,8 +324,10 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             upd = _shade_lanes(lane_state)
 
         # NEE occlusion: an any-hit wave right away, unless deferred onto
-        # the next bounce's closest wave (fuse_shadow)
-        if use_mis and (env_on or lights_on) and not fuse_shadow:
+        # the next bounce's closest wave (fuse_shadow) or resolved by the
+        # alpha loop in shading
+        if (use_mis and (env_on or lights_on) and not fuse_shadow
+                and not alpha_on):
             occ = trace_any(upd["sh_org"], upd["sh_dir"], RAY_EPS,
                             upd["sh_dist"] - RAY_EPS, active=upd["sh_do"])
             upd["L"] = upd["L"] + torch.where(
@@ -299,7 +355,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         rec = HitRecord(t=ls["rec_t"], tri=ls["rec_tri"], bary=ls["rec_bary"],
                         hit=hit, inst=ls.get("rec_inst"))
 
-        hd = interpolate_hit(geom, rec, o, d, instances=flat.instances)
+        # from the last alpha hop's origin (o itself without alpha)
+        hd = interpolate_hit(geom, rec, ls["o_eff"], d,
+                             instances=flat.instances)
         ctx = bsdf_mod.make_shading_context(
             mats, hd.mat_idx, hd.uv, flat.atlas, flat.atlas_table,
             slots=tex_slots)
@@ -310,6 +368,8 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         le = bsdf_mod.emitted_radiance(ctx, hd.wo, luts, features=features)
         if use_mis and lights_on:
             cos_hit = torch.abs(torch.sum(d * hd.gnormal, dim=-1))
+            # the distance from the previous path vertex, not from the
+            # last alpha hop's origin: the pdf NEE would have used
             dist2_hit = torch.sum((hd.pos - o) ** 2, dim=-1)
             light_pdf_hit = (
                 (1.0 - p_inf)
@@ -378,10 +438,19 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                 do_nee = do_nee & (has_lights | has_env)
             ld = (li * ev.f * torch.abs(wi_local[..., 2:3])
                   / torch.clamp(p_light * l_pdf + ev.pdf, min=1e-20)[..., None])
-            sh_next = dict(sh_org=hd.pos, sh_dir=wi_world,
-                           sh_dist=torch.where(do_nee, dist, 0.0),
-                           sh_ld=torch.where(do_nee[:, None], atten * ld, 0.0),
-                           sh_do=do_nee)
+            if alpha_on:
+                # shadow segments run the alpha loop here: cutout surfaces
+                # block stochastically, closest hit after closest hit
+                occluded, stream = _alpha_shadow(
+                    hd.pos, wi_world, dist - RAY_EPS, do_nee, stream)
+                L = L + torch.where((do_nee & ~occluded)[:, None],
+                                    atten * ld, 0.0)
+            else:
+                sh_next = dict(
+                    sh_org=hd.pos, sh_dir=wi_world,
+                    sh_dist=torch.where(do_nee, dist, 0.0),
+                    sh_ld=torch.where(do_nee[:, None], atten * ld, 0.0),
+                    sh_do=do_nee)
         if sh_next is None:
             sh_next = _empty_shadow(n, dev)
 
@@ -424,6 +493,31 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             slot=ls["slot"],
             **sh_next,
         )
+
+    def _alpha_shadow(org, wi, rem, do_nee, stream):
+        """(occluded, stream) of shadow segments through cutout surfaces
+        (JAX integrator.py:427-452): up to ALPHA_HOPS + 1 closest-hit
+        traces over each lane's remaining length `rem`, one draw per hop
+        after its trace; a hit blocks with its opacity, else the segment
+        goes on from it, and a lane still unresolved after the budget is
+        occluded."""
+        occluded = torch.zeros_like(do_nee)
+        clear = torch.zeros_like(do_nee)
+        for _ in range(ALPHA_HOPS + 1):
+            qry = do_nee & ~occluded & ~clear
+            srec = trace_closest(org, wi, RAY_EPS, rem, active=qry)
+            shit = srec.hit & qry
+            clear = clear | (qry & ~srec.hit)
+            hd_s = interpolate_hit(geom, srec, org, wi,
+                                   instances=flat.instances)
+            a_s = _alpha_value(flat, hd_s.mat_idx, hd_s.uv)
+            stream, u_s = stream.next_1d()
+            blocked = shit & (u_s < a_s)
+            occluded = occluded | blocked
+            pas = shit & ~blocked
+            org = torch.where(pas[:, None], hd_s.pos, org)
+            rem = torch.where(pas, rem - srec.t, rem)
+        return occluded | (do_nee & ~clear & ~occluded), stream
 
     def resolve_pending(s):
         """Settle the deferred shadow rays still pending (at the end of

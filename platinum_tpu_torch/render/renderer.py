@@ -16,10 +16,14 @@ instanced scene after a transform edit. With PLATINUM_TPU_LOG set it emits
 the JAX Renderer's telemetry events (utils/telemetry.py).
 
 One difference from the JAX Renderer: the preview ladder renders from the
-full-resolution flatten and tracer pair with the camera constants of the
-preview size (JAX flattens the scene a second time at that size; the
-arrays are the same but the camera's). The partitioned branch of the
-transform edit is not ported (partitioned scenes do not flatten yet).
+full-resolution flatten with the camera constants of the preview size
+(JAX flattens the scene a second time at that size; the arrays are the
+same but the camera's). The preview keeps that scene and its own tracer
+pair, the one start_render built over the same arrays, in `_pv`: a
+transform edit during the ladder replaces `self.flat` and the main pair
+but not the preview's, which stays stale but consistent, as the JAX
+preview does. The partitioned branch of the transform edit is not ported
+(partitioned scenes do not flatten yet).
 """
 
 from __future__ import annotations
@@ -137,6 +141,8 @@ class Renderer:
                 self.scene, camera_node_id, pv_settings, self.device))
             self._pv = dict(
                 flat=pv_flat, settings=pv_settings, scale=preview_scale,
+                # pv_flat's arrays are self.flat's: the pair traces them
+                tracers=self._tracers,
                 accum=torch.zeros((pv_settings.num_pixels, 3),
                                   device=self.device),
                 done=0, spp=preview_spp)
@@ -156,7 +162,7 @@ class Renderer:
             pv["accum"] = integrator.render_step(
                 pv["flat"], pv["settings"], pv["accum"], pv["done"],
                 sample_seed=pv["done"], features=self._features,
-                tracers=self._tracers)
+                tracers=pv["tracers"])
             pv["done"] += 1
             if telemetry.enabled():
                 if pv["accum"].is_cuda:

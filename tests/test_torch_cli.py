@@ -4,7 +4,8 @@ within a mean absolute difference of 1 (u8) of the JAX CLI's, with the
 output space's ICC profile; `info` prints the JAX CLI's JSON; `render`
 without `--device` runs on the card and raises where there is none; every
 option that is not ported raises NotImplementedError naming its ROADMAP
-queue-1 item."""
+queue-1 item; the options ported since (a `.ptscene` scene, the reference
+app's `.json`, `--sampler z`, `preview`) write the JAX CLI's image."""
 
 import json
 
@@ -54,11 +55,7 @@ def test_render_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["render", "scene.ptscene"], 10),
-    (["render", "scene.json"], 10),
     (["render", "cornell", "--mesh", "sample=2"], 11),
-    (["render", "cornell", "--sampler", "z"], 8),
-    (["preview", "cornell"], 9),
     (["bake-luts"], 12),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
@@ -68,3 +65,44 @@ def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
     with pytest.raises(NotImplementedError,
                        match=rf"ROADMAP queue 1, item {item}\b"):
         cli.main(argv + out)
+
+
+def _ported_case(case, tmp_path):
+    """(argv) of a formerly refused option, its scene files written."""
+    if case == "ptscene":
+        from platinum_tpu.app.scenes import make_cornell_scene
+        from platinum_tpu.io.sceneio import save_scene
+
+        path = str(tmp_path / "cornell.ptscene")
+        save_scene(make_cornell_scene()[0], path)
+        return RENDER[:1] + [path] + RENDER[2:]
+    if case == "refjson":
+        from test_refscene import _write_fixture
+
+        path, _ = _write_fixture(str(tmp_path))
+        return ["render", path, "--spp", "2", "--size", "16x16", "--sampler",
+                "pcg4d", "--bounces", "2"]
+    if case == "sampler_z":
+        return RENDER + ["--sampler", "z"]
+    return ["preview", "colonnade-small", "--size", "24x16", "--pick", "12,8"]
+
+
+@pytest.mark.parametrize("case", ["ptscene", "refjson", "sampler_z",
+                                  "preview"])
+def test_formerly_unported_options_write_the_jax_clis_image(case, tmp_path,
+                                                            capsys):
+    """Each option that raised NotImplementedError before its module was
+    ported now runs, and writes the JAX CLI's image (mean absolute
+    difference <= 1 of 255); preview also prints the JAX CLI's pick."""
+    argv = _ported_case(case, tmp_path)
+    jpath, path = str(tmp_path / "jax.png"), str(tmp_path / "port.png")
+    jcli.main(argv + ["-o", jpath])
+    jout = capsys.readouterr().out.split()
+    cli.main(argv + ["--device", "cpu", "-o", path])
+    out = capsys.readouterr().out.split()
+    assert out[:-1] == jout[:-1] and out[-1] == path
+    a = np.asarray(Image.open(jpath), np.int16)
+    b = np.asarray(Image.open(path), np.int16)
+    assert a.shape == b.shape
+    assert np.abs(a - b).mean() <= 1.0
+    assert b.mean() > 0

@@ -101,6 +101,8 @@ COPIES = {
     "accel/tlas.py": "without partition_instanced",
     "accel/wide.py": True,
     "app/scenes.py": "three function docstrings reworded",
+    "app/store.py": "import_texture decodes PNGs through io/png.py, "
+                    "not Pillow",
     "core/camera.py": True,
     "core/colorspace.py": True,
     "core/environment.py": True,
@@ -113,7 +115,10 @@ COPIES = {
     "core/transform.py": True,
     "io/exr.py": True,
     "io/gltf.py": "decodes textures through io/png.py",
+    "io/hdr.py": True,
     "io/icc.py": True,
+    "io/refscene.py": True,
+    "io/sceneio.py": True,
     "post/options.py": True,
     "tools/foreign_glb.py": "encodes textures through io/png.py",
     "utils/matrices.py": True,

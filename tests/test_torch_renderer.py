@@ -3,7 +3,8 @@
 - the spheres scene (normal-mapped ground, textured through the atlas)
   at 32x32, 2 bounces, 4 spp;
 - Cornell with FLAG_GMON and 4 GMoN buckets at 8 spp;
-- Cornell through the preview ladder (preview_scale=2).
+- Cornell through the preview ladder (preview_scale=2);
+- Cornell with a fully cut-out (alpha-tested) material.
 
 After every render() call: `completed_spp`, `render_progress` and `status`
 equal, and `readback()` within RMSE 1e-3 of the JAX image (the bar of
@@ -158,23 +159,38 @@ def test_gmon_with_spp_batch_raises_as_jax():
 
 
 def test_alpha_cutout_still_raises_by_name():
-    """Textured scenes render; an alpha-tested (cutout) material is still
-    refused, naming it (ROADMAP queue 1, item 7)."""
+    """(The name is from when the port refused cutouts.) A Cornell box
+    whose first instance takes a fully cut-out textured material renders
+    through the port's Renderer as through the JAX Renderer, to the
+    Renderer's RMSE bar."""
+    from platinum_tpu.core.material import Material as JMaterial
+    from platinum_tpu.core.material import TextureSlot as JSlot
+    from platinum_tpu.core.texture import Texture as JTexture
+    from platinum_tpu.core.texture import TextureFormat as JFormat
     from platinum_tpu_torch.core.material import Material, TextureSlot
     from platinum_tpu_torch.core.texture import Texture, TextureFormat
 
-    scene, cam = scenes.make_cornell_scene()
     rgba = np.full((4, 4, 4), 200, np.uint8)
     rgba[..., 3] = 0                                  # fully cut out
-    tid = scene.add_asset(Texture(data=rgba, format=TextureFormat.SRGB_RGBA,
+    kw = dict(width=8, height=8, spp=2, max_bounces=3)
+    out = []
+    for sc, Mat, Slot, Tex, Fmt, R, S in (
+            (jscenes, JMaterial, JSlot, JTexture, JFormat, JRenderer,
+             JSettings),
+            (scenes, Material, TextureSlot, Texture, TextureFormat,
+             Renderer, RenderSettings)):
+        scene, cam = sc.make_cornell_scene()
+        tid = scene.add_asset(Tex(data=rgba, format=Fmt.SRGB_RGBA,
                                   has_alpha=True))
-    mid = scene.add_asset(Material(name="leaf",
-                                   textures={TextureSlot.BASE_COLOR: tid}))
-    inst = scene.get_instances()[0]
-    scene.set_material(inst.node_id, 0, mid)
-    r = Renderer(scene, device="cpu")
-    r.start_render(cam, RenderSettings(width=4, height=4, spp=1,
-                                       max_bounces=2))
-    assert r.flat.atlas is not None
-    with pytest.raises(NotImplementedError, match="alpha"):
-        r.render()
+        mid = scene.add_asset(Mat(name="leaf",
+                                  textures={Slot.BASE_COLOR: tid}))
+        scene.set_material(scene.get_instances()[0].node_id, 0, mid)
+        r = R(scene) if R is JRenderer else R(scene, device="cpu")
+        r.start_render(cam, S(**kw))
+        r.render_all()
+        out.append(r)
+    jr, r = out
+    assert r.flat.atlas is not None and "alpha" in r._features
+    img, ref = r.readback(), np.asarray(jr.readback())
+    assert np.isfinite(img).all() and img.mean() > 0
+    assert float(np.sqrt(np.mean((img - ref) ** 2))) <= RMSE

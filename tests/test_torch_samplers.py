@@ -81,6 +81,17 @@ def test_warps_match(warp):
 
 
 def test_z_sampler_raises_until_ported():
-    z = torch.zeros(4, dtype=torch.int64)
-    with pytest.raises(NotImplementedError, match="zsampler"):
-        tsmp.make_stream("z", z, z, 0)
+    """(The name is from when the port refused the Z-sampler.) Every name
+    of it gives a ZStream whose draws are JAX's bit for bit, at
+    make_stream's default size and budget."""
+    px, py = _pixels()
+    for kind in ("z", "zsampler", "sobol"):
+        ref = jsmp.make_stream(kind, jnp.asarray(px), jnp.asarray(py), 5)
+        got = tsmp.make_stream(kind, torch.from_numpy(px.astype(np.int64)),
+                               torch.from_numpy(py.astype(np.int64)), 5)
+        assert type(got).__name__ == "ZStream"
+        for _ in range(3):
+            ref, ju = ref.next_2d()
+            got, tu = got.next_2d()
+            assert np.array_equal(tu.numpy().view(np.uint32),
+                                  np.asarray(ju).view(np.uint32))

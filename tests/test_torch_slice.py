@@ -6,7 +6,7 @@ render_step_n: the small colonnade through the packet tracer (JAX: the
 Pallas kernel in interpret mode; port: the kernel's plain version) and
 the helmet (HDR environment, clearcoat, anisotropic metal) through the
 packet tracer, and Cornell through the brute tracer (also with the
-`simple` kernel and the pcg4d sampler). Bars: per pixel rtol=2e-3, atol=2e-3
+`simple` kernel and the pcg4d sampler, and with the Z-sampler). Bars: per pixel rtol=2e-3, atol=2e-3
 (tests/test_pallas_trace.py:271) on >= 99.5% of pixels; the image means
 agree to 1e-3 relative. A pixel may only leave the per-pixel bar where a
 borderline hit flip split its path; the test prints how many did.
@@ -62,6 +62,11 @@ CONFIGS = {
         make_cornell_scene,
         dict(width=32, height=32, spp=2, max_bounces=8, kernel="simple",
              sampler="pcg4d", tracer="brute")),
+    # the Z-sampler: make_stream takes the image size and the spp budget
+    "cornell_z": (
+        make_cornell_scene,
+        dict(width=32, height=32, spp=2, max_bounces=8, kernel="mis",
+             sampler="z", tracer="brute")),
 }
 
 
@@ -144,8 +149,7 @@ def test_renderer_api_matches_jax_renderer(tmp_path):
     np.testing.assert_array_equal(read_exr(path)[..., :3], img)
 
 
-@pytest.mark.parametrize("override", [
-    dict(tracer="bvh"), dict(sampler="z")])
+@pytest.mark.parametrize("override", [dict(tracer="bvh")])
 def test_unported_options_raise(override):
     scene, cam = make_cornell_scene()
     settings = RenderSettings(width=8, height=8, spp=1, max_bounces=2,
@@ -153,6 +157,12 @@ def test_unported_options_raise(override):
     flat = flat_from_numpy(jax.tree.map(np.asarray, jflatten(
         scene, cam, JSettings(width=8, height=8), accel_min_tris=1)), "cpu")
     assert flat.wbvh_nodes is not None
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match=r"item 12\b"):
         integrator.render_step(flat, settings, torch.zeros((64, 3)), 0,
                                features=analyze_features(flat))
+    # a scene without a wide BVH reaches make_tracers' own refusal
+    brute = flat_from_numpy(jax.tree.map(np.asarray, jflatten(
+        scene, cam, JSettings(width=8, height=8))), "cpu")
+    assert brute.wbvh_nodes is None
+    with pytest.raises(NotImplementedError, match=r"item 12\b"):
+        integrator.make_tracers(brute, settings)
