@@ -246,6 +246,47 @@ Phases, one printed block each (any failure exits non-zero):
      pick; the CLI's `preview` of 7d's .ptscene with a pick, and a short
      `preview --interactive` session in the process (pick, orbit, zoom,
      select, frame, render 2, save, quit)
+  8. partitioned baked: bistro_class_studio (bench.py:348-380) with
+     stream="off", so it flattens into partitions of partition_tris =
+     350,000 (their count printed), 2 spp through the Renderer: only
+     K1/K2 launch (once per partition a wave; launches per spp and per
+     partition printed), ms/spp beside 4e's streamed (K6) reading; on
+     the camera wave and a bounce wave the sequential partitioned tracer
+     against 4e's streamed single structure: ids equal on >= PART_AGREE,
+     each other ray an exact-t tie or certified borderline in float64;
+     shadow occlusion likewise; the image mean against the streamed
+     structure's render of the same 2 samples within MEAN_RTOL and
+     MEAN_Z standard errors
+  8b. partitioned instanced: sponza_instanced_512 (bench.py:302-308) cut
+     to 2 spp with stream="off" and partition_bytes lowered to
+     INST_PART_BYTES (a test scaffold: the colonnade's instanced
+     structure fits the default budget) so partition_instanced splits it;
+     K3 runs per partition; one update_instance_transform on a column;
+     then the renderer's partitioned tracer against the unpartitioned
+     instanced structure of the moved scene on a bounce wave: ids
+     (triangle and instance) equal on >= PART_AGREE
+  8c. render_sample(pixel_ids=) and the tile / sample mesh on the card:
+     two ranks on a gloo group share cuda:0 (spawned, a FileStore in a
+     temporary directory); sponza_class_512 (512x512, 8 bounces, the auto
+     plan, and again with compact=False) for 2 spp on a tile=2 mesh, then
+     a sample=2 mesh: each rank's shard bitwise a single-process
+     render_sample(pixel_ids=) of its pixels; the assembled image within
+     GEOM_ATOL of the single-device render, except the tile mesh with
+     compaction (lanes drop differently on a subset), whose mean holds by
+     6's z-test; one more step on a one-rank NCCL group in this process
+     (bitwise render_sample); the backend of each group and which
+     collectives gloo takes on CUDA tensors printed
+  8d. geometry sharding: two gloo ranks on cuda:0 with geom=2 on 8's
+     partitioned bistro at 960x540: the geom-sharded tracer's hits and
+     occlusion on 8's bounce and shadow waves bitwise 8's sequential
+     tracer's (the rays whose ranks' bests nearly tie, traced again in
+     rank order, counted); both ranks' 1-spp radiance bitwise equal (the
+     same-wave check) and within GEOM_ATOL of 8's at the same sample
+     index
+  8e. the CLI on a mesh: `python -m torch.distributed.run --standalone
+     --nproc-per-node 2 -m platinum_tpu_torch.app.cli render colonnade
+     --size 512x512 --spp 2 --mesh tile=2 -o out.png`: exit 0, the
+     stderr mesh line with its seconds, one file written (rank 0's)
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -282,6 +323,7 @@ MEAN_TIER_RTOL = 0.01              # 4d: image mean of "high" vs "highest"
 HIGH_T_RTOL = 1e-6
 TIER_DIFF_MIN = 0.9
 BISTRO = dict(columns=24, rows=12)  # bench.py's bistro_class_studio scene
+COLONNADE = {}                      # bench.py's sponza_class_512 scene
 # bf16 split products per MT dot term of each tier, and the bound on what
 # the "high" split drops per term, relative to |c| |F| (l*l and the split
 # residuals, <= 2^-16, taken with 4x headroom). "default" (1-pass bf16) is
@@ -2524,7 +2566,7 @@ def phase_bistro():
           f"(interact_ms_per_frame) is measured on studio_loop's scene (6d)",
           flush=True)
     _only("the bistro", launches, ("stream+closest", "stream+any"))
-    return launches
+    return launches, renderer
 
 
 def phase_exact_options(scene, cam):
@@ -3532,6 +3574,562 @@ def phase_studio(tmp, scene, cam, dev, ptscene):
     return sorted(frames)[2], t_cli, t_session
 
 
+PART_AGREE = 0.999     # 8, 8b: ids equal on at least this share of a wave
+GEOM_ATOL = 1e-5       # 8c, 8d: image bar (tests/test_multichip.py:47)
+# 8b: a test scaffold. The instanced colonnade's one structure (~1.9 MB)
+# fits the default budget; at this budget partition_instanced splits it
+INST_PART_BYTES = 1_600_000
+
+
+def _t64(ray, tri):
+    """(t, smallest barycentric) of the ray against one (9,) float64
+    triangle (v0, e1, e2), Moller-Trumbore in float64; None where the
+    determinant is 0."""
+    o, d = ray[0:3], ray[3:6]
+    v0, e1, e2 = tri[0:3], tri[3:6], tri[6:9]
+    pv = np.cross(d, e2)
+    det = float(e1 @ pv)
+    if det == 0.0:
+        return None
+    sv = o - v0
+    qv = np.cross(sv, e1)
+    u, v = float(sv @ pv) / det, float(d @ qv) / det
+    return float(e2 @ qv) / det, min(u, v, 1.0 - u - v)
+
+
+def _exact_tie64(pair, eps=5e-4):
+    """True when, in float64, the ray meets both triangles of `pair`
+    ([(ray in the triangle's frame, (9,) triangle)] x 2) inside their
+    edges (to eps) at t equal within TIE_RTOL / TIE_ATOL: an exact-t tie,
+    which either tracer may break its own way."""
+    hits = [_t64(ray, tri) for ray, tri in pair]
+    if any(h is None or h[1] < -eps for h in hits):
+        return False
+    (ta, _), (tb, _) = hits
+    return abs(ta - tb) <= TIE_ATOL + TIE_RTOL * abs(tb)
+
+
+def _ids_against(label, got, ref, o, d, tmin, tmax, frame, certify):
+    """`got`'s hits against `ref`'s on one wave: ids (the triangle, and
+    the instance where there is one) equal on >= PART_AGREE of the rays,
+    t bit for bit where they are (the same per-triangle arithmetic);
+    every other ray certified in float64, as 7 holds its rays: an exact-t
+    tie (both hit, t within TIE_RTOL / TIE_ATOL, and `_exact_tie64` on
+    the two triangles) or borderline (`certify(ray)`).
+    frame(ray, tri, inst) -> (the ray in that triangle's frame, (9,)
+    float64 triangle)."""
+    inst = got.inst is not None
+    ids_eq = got.tri == ref.tri
+    if inst:
+        ids_eq = ids_eq & (got.inst == ref.inst)
+    same = (got.hit == ref.hit) & (~ref.hit | ids_eq)
+    close = (got.hit & ref.hit & ~ids_eq
+             & torch.isclose(got.t, ref.t, rtol=TIE_RTOL, atol=TIE_ATOL))
+    bad = torch.nonzero(~same).squeeze(1)
+    ties = border = 0
+    if len(bad):
+        r = o.shape[0]
+        host = torch.stack([*o.T, *d.T,
+                            torch.full((r,), tmin, device=o.device),
+                            torch.broadcast_to(torch.as_tensor(
+                                tmax, device=o.device), (r,))])
+        host = host.double().cpu().numpy()
+        cols = [close, got.tri, ref.tri]
+        if inst:
+            cols += [got.inst, ref.inst]
+        cols = [c[bad].cpu().numpy() for c in cols]
+        for j, i in enumerate(bad.cpu().numpy()):
+            ray = host[:, i]
+            ia, ib = (cols[3][j], cols[4][j]) if inst else (None, None)
+            if cols[0][j] and _exact_tie64([frame(ray, cols[1][j], ia),
+                                            frame(ray, cols[2][j], ib)]):
+                ties += 1
+            elif certify(ray):
+                border += 1
+    share = same.float().mean().item()
+    t_bits = bool(torch.equal(got.t[same & ref.hit], ref.t[same & ref.hit]))
+    print(f"  {label}: ids equal on {share:.5%} of {o.shape[0]} rays, "
+          f"t bit for bit where they are: {t_bits}; of the "
+          f"{len(bad)} others {ties} exact-t ties certified in float64, "
+          f"{border} borderline, {len(bad) - ties - border} uncertified",
+          flush=True)
+    check(share >= PART_AGREE, f"{label}: ids equal on {share:.5%}")
+    check(t_bits, f"{label}: t differs where the ids agree")
+    check(ties + border == len(bad), f"{label}: "
+          f"{len(bad) - ties - border} rays disagree without a tie or a "
+          f"borderline triangle")
+
+
+def _tri64(flat):
+    g = flat.geometry
+    pos = g.positions.double().cpu().numpy()
+    idx = g.indices.cpu().numpy()
+    v0 = pos[idx[:, 0]]
+    return np.concatenate([v0, pos[idx[:, 1]] - v0, pos[idx[:, 2]] - v0], 1)
+
+
+def _mean_z(a, b):
+    """(relative mean difference, z) of two images: the mean per-pixel
+    difference in standard errors, as 6 holds its means."""
+    diff = (a - b).mean(-1).reshape(-1)
+    se = float(diff.std() / np.sqrt(diff.size))
+    return (float(a.mean() / b.mean() - 1.0),
+            float(diff.mean()) / max(se, 1e-30))
+
+
+def phase_partitioned(dev, streamed):
+    """8: bistro_class_studio with stream="off": the partitioned path,
+    held to 4e's streamed single structure (`streamed`, 4e's renderer)."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene(**BISTRO)
+    settings = RenderSettings(width=960, height=540, spp=2, max_bounces=4,
+                              kernel="mis", sampler="halton",
+                              tracer="packet", compact=True,
+                              instancing="off", stream="off")
+    renderer, launches, mean = _render_path(
+        "bistro_class_studio partitioned (8)", scene, cam, settings)
+    flat = renderer.flat
+    n_parts = len(flat.wbvh_parts or ())
+    check(n_parts >= 2, f"the bistro flattened into {n_parts} partitions")
+    _only("the partitioned bistro", launches, ("closest", "any"))
+    per_spp = {k: launches[k] / settings.spp for k in ("closest", "any")}
+    blocks = [int(p[1].shape[0]) for p in flat.wbvh_parts]
+    print(f"  {n_parts} partitions of {blocks} MT blocks; K1 "
+          f"{per_spp['closest']:.1f} + K2 {per_spp['any']:.1f} launches "
+          f"per spp ({per_spp['closest'] / n_parts:.1f} + "
+          f"{per_spp['any'] / n_parts:.1f} per partition); "
+          f"{renderer.ms_per_spp:.1f} ms/spp against 4e's streamed (K6) "
+          f"{streamed.ms_per_spp:.1f}", flush=True)
+
+    pts = _wave_points(flat, dev, settings.width, settings.height)
+    tri64 = _tri64(flat)
+
+    def frame(ray, tri, _inst):
+        return ray, tri64[tri]
+
+    def certify(ray):
+        return _borderline(ray, tri64)
+
+    seq_c, seq_a = renderer._tracers
+    str_c, str_a = streamed._tracers
+    for label, o, d in (("camera wave", pts["cam_o"], pts["cam_d"]),
+                        ("bounce wave", pts["p"], pts["d"])):
+        _ids_against(f"8 {label}, partitioned against streamed",
+                     seq_c(o, d, RAY_EPS, float("inf")),
+                     str_c(o, d, RAY_EPS, float("inf")),
+                     o, d, RAY_EPS, float("inf"), frame, certify)
+    tmax = pts["dist"] - RAY_EPS
+    occ_p = seq_a(pts["p"], pts["seg"], RAY_EPS, tmax)
+    occ_s = str_a(pts["p"], pts["seg"], RAY_EPS, tmax)
+    occ_agree = (occ_p == occ_s).float().mean().item()
+    print(f"  8 shadow wave: occlusion equal on {occ_agree:.5%}", flush=True)
+    check(occ_agree >= PART_AGREE, "8: occlusion differs from streamed")
+
+    feats = renderer._features
+    zero = torch.zeros((settings.num_pixels, 3), device=dev)
+    img_s = integrator.render_step_n(
+        streamed.flat, renderer.settings, zero, 0, settings.spp,
+        features=feats, tracers=streamed._tracers).cpu().numpy()
+    img_p = renderer.readback().reshape(-1, 3)
+    rel, z = _mean_z(img_p, img_s)
+    print(f"  image mean {img_p.mean():.6f} against the streamed structure's "
+          f"{img_s.mean():.6f} at the same {settings.spp} spp (rel {rel:.2e}, "
+          f"bar {MEAN_RTOL}; {z:+.2f} standard errors, bar {MEAN_Z}; largest "
+          f"pixel difference {np.abs(img_p - img_s).max():.3g})", flush=True)
+    check(abs(rel) <= MEAN_RTOL and abs(z) <= MEAN_Z,
+          "8: the partitioned image's mean is off the streamed one's")
+    return dict(renderer=renderer, pts=pts, launches=launches,
+                n_parts=n_parts)
+
+
+def phase_partitioned_instanced(dev):
+    """8b: sponza_instanced_512 with its instanced structure split into
+    partitions; a transform edit; ids against one structure."""
+    import dataclasses
+
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.core.transform import Transform
+    from platinum_tpu_torch.render.flatten import flatten_scene
+    from platinum_tpu_torch.render.integrator import RAY_EPS, make_tracers
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene()
+    settings = RenderSettings(width=512, height=512, spp=2, max_bounces=8,
+                              kernel="mis", sampler="halton",
+                              tracer="packet", compact=True, instancing="on",
+                              stream="off", partition_bytes=INST_PART_BYTES)
+    renderer, launches, _ = _render_path(
+        "sponza_instanced_512 partitioned (8b)", scene, cam, settings)
+    n_parts = len(renderer.flat.wbvh_parts or ())
+    check(n_parts >= 2, f"8b: {n_parts} partitions")
+    _only("the partitioned instanced colonnade", launches,
+          ("inst_closest", "inst_any"))
+    node = next(scene.node(i.node_id) for i in scene.get_instances()
+                if scene.node(i.node_id).name == MOVED_NODE)
+    old = node.transform
+    t0 = time.perf_counter()
+    renderer.update_instance_transform(node.id, Transform(
+        translation=np.asarray(old.translation) + [1.0, 0, 0.5],
+        rotation=old.rotation, scale=old.scale))
+    t_edit = time.perf_counter() - t0
+    renderer.render()
+    img = renderer.readback()
+    check(bool(np.isfinite(img).all()) and img.mean() > 0,
+          "8b: render after the transform edit")
+    one = dataclasses.replace(settings, stream="auto",
+                              partition_bytes=RenderSettings.partition_bytes)
+    host = {}
+    fresh = flatten_scene(scene, cam, one, device=dev, host_accel_out=host)
+    check(fresh.wbvh_parts is None, "8b: the reference is not one structure")
+    print(f"  {n_parts} partitions (partition_bytes {INST_PART_BYTES}), K3 "
+          f"{launches['inst_closest'] / settings.spp:.1f} + "
+          f"{launches['inst_any'] / settings.spp:.1f} launches per spp, "
+          f"{renderer.ms_per_spp:.1f} ms/spp; transform edit (one partition "
+          f"refit) {t_edit * 1e3:.1f} ms", flush=True)
+    lib64 = fresh.geometry.tri_geo[:, 0:9].double().cpu().numpy()
+    to_object = []
+    for inst in host["instances"]:
+        m = np.asarray(inst.transform, np.float64)
+        to_object.append((np.linalg.inv(m[:3, :3]), m[:3, 3]))
+
+    def frame(ray, tri, inst):
+        b, tr = to_object[inst]
+        obj = ray.copy()
+        obj[0:3] = b @ (ray[0:3] - tr)
+        obj[3:6] = b @ ray[3:6]
+        return obj, lib64[tri]
+
+    pts = _wave_points(fresh, dev)
+    o, d = pts["p"], pts["d"]
+    _ids_against("8b bounce wave, partitioned after the edit against the "
+                 "moved scene's one structure",
+                 renderer._tracers[0](o, d, RAY_EPS, float("inf")),
+                 make_tracers(fresh, one)[0](o, d, RAY_EPS, float("inf")),
+                 o, d, RAY_EPS, float("inf"), frame,
+                 _instanced_certify(fresh, host))
+    return launches, renderer.ms_per_spp
+
+
+def _spawn(fn, nprocs, tmp, *args):
+    """Run fn(rank, nprocs, store, tmp, *args) in `nprocs` spawned ranks
+    (a FileStore under `tmp`); each rank saves its results to
+    tmp/rank{r}.pt; returns them in rank order. Raises if a rank fails."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(fn, args=(nprocs, os.path.join(tmp, "store"), tmp,
+                                 *args),
+                       nprocs=nprocs, start_method="spawn")
+    return [torch.load(os.path.join(tmp, f"rank{r}.pt"), weights_only=False)
+            for r in range(nprocs)]
+
+
+def _gloo_takes_cuda(dev):
+    """Which collectives the installed gloo runs on CUDA tensors (every
+    rank calls this together; a refusal is local, before any traffic)."""
+    import torch.distributed as dist
+
+    took = {}
+    n = dist.get_world_size()
+    for name in ("all_reduce", "all_gather", "broadcast"):
+        x = torch.ones(4, device=dev)
+        try:
+            if name == "all_reduce":
+                dist.all_reduce(x)
+            elif name == "all_gather":
+                dist.all_gather([torch.empty_like(x) for _ in range(n)], x)
+            else:
+                dist.broadcast(x, 0)
+            torch.cuda.synchronize(dev)
+            took[name] = "takes CUDA tensors"
+        except (RuntimeError, ValueError) as e:
+            took[name] = f"refuses them: {str(e)[:100]}"
+    return took
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _rank_mesh(rank, world, store, tmp, device, scene_kw, settings_c,
+               settings_p):
+    """8c, one rank: the colonnade flattened here, 2 spp on a tile=2 and
+    a sample=2 mesh, with and without compaction."""
+    import torch.distributed as dist
+
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.parallel.mesh import join, mesh_of
+    from platinum_tpu_torch.parallel.shard import (gather_image,
+                                                   make_sharded_step)
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.integrator import make_tracers
+
+    dev = join(rank, world, store=dist.FileStore(store, world),
+               device=device)
+    out = dict(backend=dist.get_backend(), device=str(dev))
+    scene, cam = make_colonnade_scene(**scene_kw)
+    flat = flatten_scene(scene, cam, settings_c, device=dev)
+    feats = analyze_features(flat)
+    tracers = make_tracers(flat, settings_c)
+    for axes in ({"tile": 2}, {"sample": 2}):
+        mesh = mesh_of(axes)
+        name = ",".join(f"{a}={n}" for a, n in axes.items())
+        for key, s in (("compact", settings_c), ("plain", settings_p)):
+            step = make_sharded_step(flat, s, mesh, features=feats,
+                                     tracers=tracers)
+            acc = torch.zeros((s.num_pixels // mesh.shape.get("tile", 1), 3),
+                              device=dev)
+            steps = -(-s.spp // mesh.shape.get("sample", 1))
+            _sync(dev)
+            t0 = time.perf_counter()
+            for i in range(steps):
+                acc = step(acc, i)
+            _sync(dev)
+            ms = (time.perf_counter() - t0) * 1e3 / s.spp
+            out[name, key] = dict(shard=acc.cpu(), ms=ms,
+                                  img=gather_image(acc, s, mesh).cpu())
+    out["gloo"] = _gloo_takes_cuda(dev) if dev.type == "cuda" else {}
+    torch.save(out, os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def phase_mesh(dev, tmp):
+    """8c: pixel_ids and the tile / sample mesh on the card."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.parallel.mesh import join, mesh_of
+    from platinum_tpu_torch.parallel.shard import (gather_image,
+                                                   make_sharded_step)
+    from platinum_tpu_torch.render import autoplan
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.integrator import (make_tracers,
+                                                      render_sample)
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    scene, cam = make_colonnade_scene(**COLONNADE)   # as each rank does
+    settings = RenderSettings(spp=2, **HEADLINE)
+    flat = flatten_scene(scene, cam, settings, device=dev)
+    feats = analyze_features(flat)
+    tracers = make_tracers(flat, settings)
+    settings_c = autoplan.resolve_auto_plan(flat, settings, tracers=tracers)
+    settings_p = dataclasses.replace(settings_c, compact=False,
+                                     compact_plan=None)
+    t0 = time.perf_counter()
+    ranks = _spawn(_rank_mesh, 2, tmp, str(dev), COLONNADE, settings_c,
+                   settings_p)
+    t_ranks = time.perf_counter() - t0
+
+    def sample(s, i, ids=None):
+        return render_sample(flat, s, i, pixel_ids=ids, tracers=tracers,
+                             features=feats)
+
+    n = settings.num_pixels
+    rows = []
+    for key, s in (("compact", settings_c), ("plain", settings_p)):
+        single = torch.zeros((n, 3), device=dev)
+        for i in range(s.spp):
+            single = (single * float(i) + sample(s, i)) / (i + 1.0)
+        single = single.cpu()
+        for name in ("tile=2", "sample=2"):
+            for r, got in enumerate(ranks):
+                if name == "tile=2":
+                    ids = r * (n // 2) + torch.arange(n // 2, device=dev)
+                    want = torch.zeros((n // 2, 3), device=dev)
+                    for i in range(s.spp):
+                        want = ((want * float(i) + sample(s, i, ids))
+                                / (i + 1.0))
+                else:
+                    ids = torch.arange(n, device=dev)
+                    both = (sample(s, 0, ids) + sample(s, 1, ids)) / 2.0
+                    want = (torch.zeros_like(both) * 0.0 + both) / 1.0
+                check(torch.equal(got[name, key]["shard"], want.cpu()),
+                      f"8c {name} {key}: rank {r}'s shard is not "
+                      f"render_sample(pixel_ids=) bit for bit")
+            img = ranks[0][name, key]["img"].reshape(-1, 3)
+            check(torch.equal(img, ranks[1][name, key]["img"].reshape(-1, 3)),
+                  f"8c {name} {key}: the ranks assembled other images")
+            err = float((img - single).abs().max())
+            rel, z = _mean_z(img.numpy(), single.numpy())
+            zheld = name == "tile=2" and key == "compact"
+            ms = ranks[0][name, key]["ms"]
+            rows.append(f"{name} {key}: {ms:.1f} ms/spp "
+                        f"(two ranks time-share the card), max abs "
+                        f"{err:.3g} from one device, mean rel {rel:.2e}, "
+                        f"z {z:+.2f}" + (" (held by z)" if zheld else ""))
+            if zheld:
+                check(abs(z) <= MEAN_Z, f"8c {name} {key}: mean off, z {z}")
+            else:
+                check(err <= GEOM_ATOL, f"8c {name} {key}: max abs {err}")
+
+    # one more step on a one-rank NCCL group: the collectives on the card
+    with tempfile.TemporaryDirectory() as ntmp:
+        join(0, 1, store=dist.FileStore(os.path.join(ntmp, "store"), 1),
+             device=dev)
+        try:
+            backend = dist.get_backend()
+            mesh = mesh_of({"sample": 1, "tile": 1})
+            step = make_sharded_step(flat, settings_c, mesh, features=feats,
+                                     tracers=tracers)
+            acc = step(torch.zeros((n, 3), device=dev), 0)
+            img = gather_image(acc, settings_c, mesh).reshape(-1, 3)
+            want = (torch.zeros((n, 3), device=dev) * 0.0
+                    + sample(settings_c, 0)) / 1.0
+            nccl_ok = torch.equal(img, want)
+        finally:
+            dist.destroy_process_group()
+    print("8c (sponza_class_512 at 2 spp on a mesh of two gloo ranks on "
+          f"{ranks[0]['device']}, backends {[r['backend'] for r in ranks]}; "
+          f"{t_ranks:.1f} s with the spawn): every shard bit for bit "
+          "render_sample(pixel_ids=); " + "; ".join(rows), flush=True)
+    print(f"  gloo on CUDA tensors (torch {torch.__version__}): "
+          f"{ranks[0]['gloo']}; the one-rank {backend} group's step bit for "
+          f"bit render_sample: {nccl_ok}", flush=True)
+    check(backend == ("nccl" if dev.type == "cuda" else "gloo"),
+          f"8c: the one-rank group ran {backend}")
+    check(nccl_ok, "8c: the NCCL step is not render_sample bit for bit")
+    check(all(r["backend"] == "gloo" for r in ranks),
+          "8c: two ranks on one card must run gloo")
+
+
+def _rank_geom(rank, world, store, tmp, device, settings):
+    """8d, one rank: the bistro flattened here, geom=2."""
+    import torch.distributed as dist
+
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.parallel.geometry import (make_geom_sharded_step,
+                                                      make_geom_sharded_tracer)
+    from platinum_tpu_torch.parallel.mesh import join, mesh_of
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+
+    dev = join(rank, world, store=dist.FileStore(store, world),
+               device=device)
+    scene, cam = make_colonnade_scene(**BISTRO)
+    flat = flatten_scene(scene, cam, settings, device=dev)
+    mesh = mesh_of({"geom": 2, "sample": 1, "tile": 1})
+    w = {k: v.to(dev) for k, v in torch.load(
+        os.path.join(tmp, "wave.pt")).items()}
+    tc, ta = make_geom_sharded_tracer(flat.wbvh_parts, mesh)
+    rec = tc(w["p"], w["d"], RAY_EPS, float("inf"))
+    occ = ta(w["p"], w["seg"], RAY_EPS, w["dist"] - RAY_EPS)
+    step = make_geom_sharded_step(flat, settings, mesh,
+                                  features=analyze_features(flat))
+    _sync(dev)
+    t0 = time.perf_counter()
+    acc = step(torch.zeros((settings.num_pixels, 3), device=dev), 0)
+    _sync(dev)
+    torch.save(dict(t=rec.t.cpu(), tri=rec.tri.cpu(), bary=rec.bary.cpu(),
+                    hit=rec.hit.cpu(), occ=occ.cpu(), img=acc.cpu(),
+                    ms=(time.perf_counter() - t0) * 1e3,
+                    retraced=tc.retraced, parts=len(flat.wbvh_parts),
+                    backend=dist.get_backend()),
+               os.path.join(tmp, f"rank{rank}.pt"))
+    dist.destroy_process_group()
+
+
+def _float_merge_apart(parts, pts, ref):
+    """Rays on which geometry sharding's merge without the re-trace (each
+    half of the partitions folded from the wave's tmax, the halves merged
+    with a float `<`, as the JAX package merges) differs from the
+    sequential tracer's `ref`, here in one process."""
+    from platinum_tpu_torch.ops.intersect import fold_partition_tracers
+    from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
+    from platinum_tpu_torch.render.integrator import RAY_EPS
+
+    k = -(-len(parts) // 2)
+    halves = [fold_partition_tracers(
+        [make_packet_tracer(*q[:4])[0] for q in parts[g * k:(g + 1) * k]],
+        [None] * k, pts["p"], pts["d"], RAY_EPS, float("inf"))
+        for g in (0, 1)]
+    closer = halves[1].hit & (halves[1].t < halves[0].t)
+    tri = torch.where(closer, halves[1].tri, halves[0].tri)
+    t = torch.where(closer, halves[1].t, halves[0].t)
+    hit = halves[0].hit | closer
+    return int(((hit != ref.hit) | (hit & ((tri != ref.tri)
+                                           | (t != ref.t)))).sum())
+
+
+def phase_geom(part, tmp):
+    """8d: geometry sharding over two ranks on 8's partitioned bistro."""
+    import dataclasses
+
+    from platinum_tpu_torch.render.integrator import RAY_EPS, render_sample
+
+    renderer, pts = part["renderer"], part["pts"]
+    settings = dataclasses.replace(renderer.settings, spp=1)
+    torch.save({k: pts[k].cpu() for k in ("p", "d", "seg", "dist")},
+               os.path.join(tmp, "wave.pt"))
+    t0 = time.perf_counter()
+    ranks = _spawn(_rank_geom, 2, tmp, str(renderer.device), settings)
+    t_ranks = time.perf_counter() - t0
+    seq_c, seq_a = renderer._tracers
+    ref = seq_c(pts["p"], pts["d"], RAY_EPS, float("inf"))
+    occ = seq_a(pts["p"], pts["seg"], RAY_EPS, pts["dist"] - RAY_EPS).cpu()
+    apart = _float_merge_apart(renderer.flat.wbvh_parts, pts, ref)
+    img = render_sample(renderer.flat, settings, 0, tracers=renderer._tracers,
+                        features=renderer._features).cpu()
+    for r, got in enumerate(ranks):
+        for k in ("t", "tri", "bary", "hit"):
+            check(torch.equal(got[k], getattr(ref, k).cpu()),
+                  f"8d: rank {r}'s {k} is not the sequential tracer's")
+        check(torch.equal(got["occ"], occ),
+              f"8d: rank {r}'s occlusion is not the sequential tracer's")
+    same_wave = torch.equal(ranks[0]["img"], ranks[1]["img"])
+    err = float((ranks[0]["img"] - img).abs().max())
+    print(f"8d (geom=2 on two gloo ranks, {ranks[0]['parts']} partitions, "
+          f"{-(-ranks[0]['parts'] // 2)} a rank; {t_ranks:.1f} s with the "
+          f"spawn and each rank's flatten): hits and occlusion on the "
+          f"{pts['p'].shape[0]}-ray bounce and shadow waves bit for bit the "
+          f"sequential tracer's ({ranks[0]['retraced']} bounce rays whose "
+          f"ranks' bests nearly tie traced again in rank order; the float "
+          f"merge alone leaves {apart} rays apart from the sequential "
+          f"tracer); the two ranks' radiance bit for bit equal: "
+          f"{same_wave}; max abs {err:.3g} from 8's 1-spp image (bar "
+          f"{GEOM_ATOL}); {ranks[0]['ms']:.1f} ms for the spp", flush=True)
+    check(same_wave, "8d: the geom ranks traced different waves")
+    check(err <= GEOM_ATOL, f"8d: image off 8's by {err}")
+
+
+def phase_mesh_cli(tmp):
+    """8e: `render --mesh tile=2` under torch.distributed.run."""
+    out_dir = os.path.join(tmp, "cli8e")
+    os.makedirs(out_dir)
+    out = os.path.join(out_dir, "out.png")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (repo, os.environ.get("PYTHONPATH")) if p))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", "2", "-m", "platinum_tpu_torch.app.cli",
+           "render", "colonnade", "--size", "512x512", "--spp", "2",
+           "--mesh", "tile=2", "-o", out]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=out_dir, env=env, capture_output=True,
+                          text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    line = next((ln for ln in proc.stderr.splitlines()
+                 if ln.startswith("rendered 2 spp on mesh")), None)
+    print(f"8e: {' '.join(cmd[1:])}: exit {proc.returncode} in {wall:.1f} s; "
+          f"stderr {line!r}; files {sorted(os.listdir(out_dir))}", flush=True)
+    check(proc.returncode == 0, f"8e: exit {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    check(line is not None and "{'tile': 2} in " in line
+          and line.endswith("s"), "8e: no mesh line with its seconds")
+    check(sorted(os.listdir(out_dir)) == ["out.png"],
+          "8e: not exactly one file written")
+    check(proc.stdout.split() == [out], f"8e: stdout {proc.stdout!r}")
+    return wall
+
+
 def _design(name):
     """How the kernel row `name` of the kernel table walks and tests:
     which of wide_trace.cu's walks, or the breadth-first kernels' step."""
@@ -3632,7 +4230,7 @@ def main():
     del head
     lap("4h wave modes")
     knob_launches = phase_mt3_knob(scene, cam, head_mean)
-    bistro_launches = phase_bistro()
+    bistro_launches, bistro = phase_bistro()
     exact_launches, base_mean = phase_exact_options(scene, cam)
     stream_launches = phase_raystream_render(scene, cam, base_mean)
     pipe_launches = phase_pipe_render(scene, cam, base_mean,
@@ -3675,6 +4273,26 @@ def main():
           f"cutout_shadows RMSE {rmse7b:.3e} (bar {GOLDEN_RMSE}, not held); "
           f"studio ms a frame {studio[0]:.1f}, cli preview {studio[1]:.2f} s, "
           f"session {studio[2]:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        t8 = time.perf_counter()
+        part = phase_partitioned(dev, bistro)
+        ms8 = {"8": part["renderer"].ms_per_spp,
+               "4e streamed": bistro.ms_per_spp}
+        del bistro
+        lap("8 partitioned bistro")
+        _, ms8["8b"] = phase_partitioned_instanced(dev)
+        lap("8b partitioned instanced")
+        os.makedirs(os.path.join(tmp, "8c"))
+        phase_mesh(dev, os.path.join(tmp, "8c"))
+        lap("8c tile / sample mesh")
+        os.makedirs(os.path.join(tmp, "8d"))
+        phase_geom(part, os.path.join(tmp, "8d"))
+        del part
+        lap("8d geometry sharding")
+        cli8 = phase_mesh_cli(tmp)
+        lap("8e CLI on a mesh")
+    print(f"phases 8-8e on {_card()}: {time.perf_counter() - t8:.1f} s; "
+          f"ms/spp {ms8}; the CLI on a mesh {cli8:.1f} s", flush=True)
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"

@@ -1,7 +1,5 @@
 """Copy of platinum_tpu/accel/tlas.py, kept in step with it: platinum_tpu_torch
-imports nothing of the JAX package. `partition_instanced` (beyond-budget
-instanced scenes split into several structures) is not copied: the port
-raises for partitioned structures (ROADMAP queue 1).
+imports nothing of the JAX package.
 
 Two-level (TLAS over instanced BLAS) acceleration structure.
 
@@ -133,6 +131,96 @@ def _wide_depth(wide: WideBVH) -> int:
             if c >= 0:
                 depth[c] = depth[wid] + 1
     return int(depth.max(initial=0))
+
+
+def _morton3(p: np.ndarray) -> np.ndarray:
+    """(N, 3) unit-cube points -> 30-bit Morton codes (host-side, for
+    spatial instance grouping)."""
+    q = np.clip((p * 1024.0).astype(np.int64), 0, 1023)
+
+    def spread(x):
+        x = (x | (x << 16)) & 0x030000FF
+        x = (x | (x << 8)) & 0x0300F00F
+        x = (x | (x << 4)) & 0x030C30C3
+        x = (x | (x << 2)) & 0x09249249
+        return x
+
+    return spread(q[:, 0]) | (spread(q[:, 1]) << 1) | (spread(q[:, 2]) << 2)
+
+
+def partition_instanced(mesh_wides: list[WideBVH],
+                        mesh_tri_base: list[int],
+                        instances: list[tuple[int, np.ndarray]],
+                        budget_bytes: int,
+                        ) -> list[tuple[InstancedBVH, np.ndarray, list[int]]]:
+    """Split an instanced scene whose stitched structure exceeds the VMEM
+    budget into spatially-grouped sub-structures, each a standalone
+    InstancedBVH over a subset of the instances.
+
+    Instances are ordered along a Morton curve of their world-AABB centroid
+    and packed greedily: spatial grouping keeps partitions compact so the
+    sequential carried-best-t traversal (accel.partition) culls later ones.
+    A mesh used by instances in k groups has its triangle blocks resident in
+    all k (the price of spatial over per-mesh grouping; per-mesh grouping
+    would make every partition overlap the whole scene and defeat culling).
+
+    Returns [(ibvh, global_instance_ids, used_mesh_ids), ...] where ibvh's
+    LOCAL instance ids i map to global ids global_instance_ids[i] (shading
+    tables — InstanceTable rows/slot_mat — stay globally indexed) and
+    used_mesh_ids[k] is the global mesh index of the partition's compacted
+    library slot k (needed to refit the partition on a transform edit).
+    """
+    n_inst = len(instances)
+    inst_mesh = [mi for mi, _ in instances]
+    obj_bounds = {mi: _object_aabb(mesh_wides[mi]) for mi in set(inst_mesh)}
+    centers = np.zeros((n_inst, 3), np.float64)
+    for i, (mi, m) in enumerate(instances):
+        lo, hi = transform_aabb(*obj_bounds[mi], m)
+        centers[i] = (lo.astype(np.float64) + hi) * 0.5
+    span = centers.max(0) - centers.min(0)
+    unit = (centers - centers.min(0)) / np.where(span > 0, span, 1.0)
+    order = np.argsort(_morton3(unit), kind="stable")
+
+    # projected VMEM cost of a group: shared blocks once per unique mesh +
+    # per-instance BLAS node-row copies + a TLAS row per ~8 instances +
+    # per-instance feature matrices
+    blk_bytes = {m: w.tri_blocks.nbytes for m, w in enumerate(mesh_wides)}
+    node_bytes = {m: w.nodes.nbytes for m, w in enumerate(mesh_wides)}
+    groups: list[list[int]] = []
+    cur: list[int] = []
+    cur_meshes: set[int] = set()
+    cur_cost = 0
+    for gi in order:
+        gi = int(gi)
+        mi = inst_mesh[gi]
+        add = node_bytes[mi] + 10 * 128 * 4 + 512 + (
+            blk_bytes[mi] if mi not in cur_meshes else 0)
+        if cur and cur_cost + add > budget_bytes:
+            groups.append(cur)
+            cur, cur_meshes, cur_cost = [], set(), 0
+            # recost against the EMPTY group: the freshly-flushed
+            # partition owns none of mi's shared blocks, so the stale
+            # `add` would undercount by blk_bytes[mi] and let the new
+            # partition blow the VMEM budget
+            add = node_bytes[mi] + 10 * 128 * 4 + 512 + blk_bytes[mi]
+        cur.append(gi)
+        cur_meshes.add(mi)
+        cur_cost += add
+    if cur:
+        groups.append(cur)
+
+    parts = []
+    for g in groups:
+        # compact the mesh library to the meshes this group uses (keeps the
+        # shared-block array — the dominant VMEM term — group-local)
+        used = sorted({inst_mesh[i] for i in g})
+        remap = {m: k for k, m in enumerate(used)}
+        sub_wides = [mesh_wides[m] for m in used]
+        sub_base = [mesh_tri_base[m] for m in used]
+        sub_insts = [(remap[inst_mesh[i]], instances[i][1]) for i in g]
+        ibvh = build_instanced_bvh(sub_wides, sub_base, sub_insts)
+        parts.append((ibvh, np.asarray(g, np.int64), used))
+    return parts
 
 
 def build_instanced_bvh(mesh_wides: list[WideBVH],

@@ -16,15 +16,22 @@ Usage: python -m platinum_tpu_torch.app.cli render scene.glb --spp 64 \\
 `render` and `preview` run on the card (`--device cuda`, the default) and
 raise where there is none; `--device cpu` runs on the CPU. `.ptscene` and
 `.json` scenes load through io/sceneio.py, or through io/refscene.py when
-the file is the reference app's format. What is not ported raises
-NotImplementedError naming its ROADMAP queue-1 item: `--mesh` (item 11)
-and the `bake-luts` command (item 12).
+the file is the reference app's format.
+
+`render --mesh sample=2,tile=2[,geom=2]` renders on a mesh of ranks
+(parallel/): start one process per rank with torchrun, e.g.
+`python -m torch.distributed.run --standalone --nproc-per-node 2 -m
+platinum_tpu_torch.app.cli render colonnade --mesh tile=2 -o out.png`;
+the world size must equal the product of the axes. Rank 0 writes the
+file. What is not ported raises NotImplementedError naming its ROADMAP
+queue-1 item: the `bake-luts` command (item 12).
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -114,9 +121,6 @@ def cmd_render(args):
                                                  FLAG_MULTISCATTER_GGX,
                                                  RenderSettings)
 
-    if args.mesh:
-        raise _unported("--mesh (multi-device rendering)", 11,
-                        "parallel/{mesh,shard,geometry,multihost}.py")
     scene, cam_id = _load_scene(args.scene)
     cam_id = _ensure_camera(scene, cam_id if args.camera < 0 else args.camera,
                             args)
@@ -146,6 +150,9 @@ def cmd_render(args):
             flim=FLIM_PRESETS[args.flim_preset],
         ),
     )
+
+    if args.mesh:
+        return _render_on_mesh(args, scene, cam_id, settings, post)
 
     renderer = Renderer(scene, post, device=args.device)
     renderer.start_render(cam_id, settings,
@@ -179,6 +186,116 @@ def cmd_render(args):
         renderer.export_exr(out)
     else:
         renderer.export_png(out)
+    print(out)
+
+
+def _mesh_axes(spec: str) -> dict:
+    axes = {}
+    for part in spec.split(","):
+        name, _, size = part.partition("=")
+        name = name.strip()
+        if not name or not size.strip().isdigit() or int(size) < 1:
+            raise SystemExit(f"--mesh: bad axis spec {part!r} "
+                             f"(expected name=N, e.g. sample=2,tile=4)")
+        if name in axes:
+            raise SystemExit(f"--mesh: duplicate axis {name!r}")
+        axes[name] = int(size)
+    return axes
+
+
+def _render_on_mesh(args, scene, cam_id, settings, post):
+    """Multi-device render (JAX `_render_on_mesh`): `--mesh
+    sample=2,tile=4[,geom=N]` lays the ranks of the process group
+    (parallel/multihost.py `initialize`, from torchrun's environment) out
+    as a named mesh and renders through parallel/shard.py, or with a
+    "geom" axis parallel/geometry.py, which spreads the scene's partitions
+    over the ranks. Every rank flattens the scene; rank 0 writes the
+    image."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from platinum_tpu_torch.parallel import multihost
+    from platinum_tpu_torch.parallel.mesh import mesh_of, rank_device
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.types import FLAG_GMON
+
+    axes = _mesh_axes(args.mesh)
+    geom = "geom" in axes
+    if geom:
+        # the 3-axis step names geom, sample and tile; absent ray axes
+        # have size 1
+        axes.setdefault("sample", 1)
+        axes.setdefault("tile", 1)
+    n_need = int(np.prod(list(axes.values())))
+    multihost.initialize(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != n_need:
+        raise SystemExit(f"--mesh needs {n_need} devices, found {world}")
+    device = rank_device(args.device, int(os.environ.get("LOCAL_RANK", "0")))
+    mesh = mesh_of(axes)
+    if geom and settings.stream != "off":
+        # streaming replaces partitioning (one structure, no wbvh_parts),
+        # and geometry sharding spreads resident partitions
+        settings = dataclasses.replace(settings, stream="off")
+        if multihost.is_coordinator():
+            print("note: --mesh geom=N implies --stream off "
+                  "(geometry sharding distributes resident partitions)",
+                  file=sys.stderr)
+    flat = flatten_scene(scene, cam_id, settings, device=device)
+    if settings.compact_plan == "auto":
+        from platinum_tpu_torch.render.autoplan import resolve_auto_plan
+
+        settings = resolve_auto_plan(flat, settings)
+    feats = analyze_features(flat)
+    gmon = bool(settings.flags & FLAG_GMON)
+    t0 = time.perf_counter()
+    if geom:
+        from platinum_tpu_torch.parallel.geometry import render_geom_sharded
+
+        if flat.wbvh_parts is None:
+            raise SystemExit(
+                "--mesh geom=N needs a partitioned scene (the whole BVH "
+                "fits one device; lower --partition-tris or drop the geom "
+                "axis)")
+        if gmon:
+            raise SystemExit("--gmon is not supported with a geom mesh "
+                             "axis yet; drop one of the two")
+        img = render_geom_sharded(flat, settings, mesh, features=feats)
+    elif gmon:
+        from platinum_tpu_torch.parallel.shard import render_sharded_gmon
+
+        img = render_sharded_gmon(flat, settings, mesh,
+                                  cap=settings.gmon_cap, features=feats)
+    else:
+        from platinum_tpu_torch.parallel.shard import render_sharded
+
+        img = render_sharded(flat, settings, mesh, features=feats)
+    if img.is_cuda:
+        torch.cuda.synchronize(img.device)
+    dt = time.perf_counter() - t0
+    coordinator = multihost.is_coordinator()
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    if not coordinator:
+        return
+    print(f"rendered {settings.spp} spp on mesh {mesh.shape} "
+          f"in {dt:.2f}s", file=sys.stderr)
+    out = args.output
+    if out.endswith(".exr"):
+        from platinum_tpu_torch.io.exr import write_exr
+
+        write_exr(out, img.cpu().numpy())
+    else:
+        from platinum_tpu_torch.io.png import write_png
+        from platinum_tpu_torch.post.pipeline import postprocess_jit
+
+        write_png(out, postprocess_jit(img, post, settings.working_space,
+                                       settings.output_space).cpu().numpy(),
+                  output_space=settings.output_space)
     print(out)
 
 
@@ -516,14 +633,18 @@ def build_parser():
                         "and upscale while full-resolution accumulation "
                         "converges underneath (final image identical)")
     r.add_argument("--mesh", metavar="AXES", default=None,
-                   help="multi-device render over a named mesh (not "
-                        "ported yet)")
+                   help="multi-device render over a named mesh of ranks "
+                        "(start them with torchrun), e.g. "
+                        "'sample=2,tile=4' or 'sample=2,tile=2,geom=2' "
+                        "(geom spreads the scene's partitions over ranks)")
     r.add_argument("--instancing", choices=["auto", "on", "off"],
                    default="auto",
                    help="two-level TLAS/BLAS instancing (auto: on when "
                         "meshes are reused)")
     r.add_argument("--partition-tris", type=int, default=None,
-                   help="per-partition triangle budget (default 350k)")
+                   help="per-partition triangle budget (default 350k; "
+                        "lower it to force partitioning, e.g. for --mesh "
+                        "geom=N)")
     r.add_argument("--stream", choices=["off", "auto", "on"], default="auto",
                    help="streamed leaf blocks: scenes over the resident "
                         "budget trace as one structure (K6)")

@@ -36,8 +36,8 @@ def _convert(src, cls, device):
         if f.name in _NESTED and v is not None:
             kw[f.name] = _convert(v, _NESTED[f.name], device)
         elif f.name == "wbvh_parts" and v is not None:
-            raise NotImplementedError(
-                "FlatScene.wbvh_parts (partitioned BVHs) is not ported yet")
+            kw[f.name] = tuple(tuple(_leaf(a, device) for a in part)
+                               for part in v)
         else:
             kw[f.name] = _leaf(v, device)
     return cls(**kw)

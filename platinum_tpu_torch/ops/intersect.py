@@ -1,6 +1,7 @@
 """Ray-triangle intersection: hit records and the brute-force tracer.
 
-Port of platinum_tpu/ops/intersect.py: `HitRecord`, `fold_closest`, the
+Port of platinum_tpu/ops/intersect.py: `HitRecord`, `fold_closest` and
+`fold_partition_tracers` (the partition tracers' shared fold), the
 vectorised Möller-Trumbore test and `make_brute_tracer` (every ray against
 every triangle in chunks; the tracer scenes below `accel_min_tris` use,
 Cornell among them, and the correctness oracle of the packet tracer).
@@ -30,17 +31,55 @@ class HitRecord:
     inst: torch.Tensor | None = None
 
 
-def fold_closest(best: HitRecord, rec: HitRecord) -> HitRecord:
-    """Carried-best-t fold: strict `<` keeps the earlier record on ties."""
+def fold_closest(best: HitRecord, rec: HitRecord,
+                 inst_override=None) -> HitRecord:
+    """Carried-best-t fold shared by every sequential partition tracer
+    (accel/partition.py, parallel/geometry.py): strict `<` keeps the
+    earlier record on exact ties, the tie-breaking the bit-exact tests
+    pin. `inst_override` stands in for rec.inst (partition-local instance
+    ids remapped to global ones)."""
     closer = rec.hit & (rec.t < best.t)
+    inst = best.inst
+    if best.inst is not None:
+        src = inst_override if inst_override is not None else rec.inst
+        inst = torch.where(closer, src, best.inst)
     return HitRecord(
         t=torch.where(closer, rec.t, best.t),
         tri=torch.where(closer, rec.tri, best.tri),
         bary=torch.where(closer[:, None], rec.bary, best.bary),
         hit=best.hit | closer,
-        inst=(torch.where(closer, rec.inst, best.inst)
-              if best.inst is not None else None),
+        inst=inst,
     )
+
+
+def fold_partition_tracers(tracers, inst_maps, o, d, tmin, tmax,
+                           active=None, instanced=False) -> HitRecord:
+    """Carried-best-t fold over a list of partition tracers: the one inner
+    loop of accel/partition.py's sequential tracer and of
+    parallel/geometry.py's per-rank shard, so their tie-breaking cannot
+    drift. Each tracer is culled by the running best t; partition-local
+    instance ids are clipped and remapped through the matching `inst_maps`
+    entry (None: no remap). Returns the raw fold: best.t still carries
+    tmax on a miss (callers apply INF, or merge across ranks first)."""
+    r = o.shape[0]
+    dev = o.device
+    best = HitRecord(
+        t=torch.as_tensor(tmax, dtype=torch.float32, device=dev)
+        .expand(r).clone(),
+        tri=torch.full((r,), -1, dtype=torch.int32, device=dev),
+        bary=torch.zeros((r, 2), device=dev),
+        hit=torch.zeros((r,), dtype=torch.bool, device=dev),
+        inst=(torch.zeros((r,), dtype=torch.int32, device=dev)
+              if instanced else None),
+    )
+    for tc, imap in zip(tracers, inst_maps):
+        rec = tc(o, d, tmin, best.t, active=active)
+        override = None
+        if imap is not None:
+            local = torch.clamp(rec.inst, 0, imap.shape[0] - 1).long()
+            override = imap[local].to(torch.int32)
+        best = fold_closest(best, rec, inst_override=override)
+    return best
 
 
 def _moller_trumbore(o, d, v0, e1, e2, tmin, tmax):

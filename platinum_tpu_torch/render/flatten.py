@@ -5,8 +5,10 @@ two-level instanced path (`_flatten_instanced`, :587-780) and
 `analyze_features` (:811). The host work is the same numpy code over this
 package's copies of the scene graph (core/), the BVH builders, the 16-wide
 packer and the TLAS assembler (accel/); the result is a FlatScene of
-tensors on the card, or on the CPU when asked. Partitioned beyond-budget
-structures (accel/partition.py) raise NotImplementedError.
+tensors on the card, or on the CPU when asked. Under stream="off" a scene
+over the budget flattens into partitions (FlatScene.wbvh_parts): baked
+ones by accel/partition.py's partition_bvh (JAX flatten.py:525-551),
+instanced ones by accel/tlas.py's partition_instanced (:660-676, :757-804).
 """
 
 from __future__ import annotations
@@ -15,7 +17,9 @@ import numpy as np
 import torch
 
 from platinum_tpu_torch.accel import get_builder
-from platinum_tpu_torch.accel.tlas import build_instanced_bvh
+from platinum_tpu_torch.accel.partition import partition_bvh
+from platinum_tpu_torch.accel.tlas import (build_instanced_bvh,
+                                           partition_instanced)
 from platinum_tpu_torch.accel.wide import build_octant_orders, build_wide_bvh
 from platinum_tpu_torch.core import colorspace as cs
 from platinum_tpu_torch.core.environment import build_alias_table
@@ -496,16 +500,32 @@ def flatten_scene(
         if stream:
             bvh_arrays["wbvh_stream"] = True
         if not stream and len(tri_geo) > settings.partition_tris:
-            raise NotImplementedError(
-                "partitioned wide BVHs (accel/partition.py) are not ported "
-                "yet; use RenderSettings(stream='auto') for one structure")
-        wide = build_wide_bvh(bvh_host, tri_geo,
-                              leaf_cap=settings.wide_leaf_cap)
-        bvh_arrays["wbvh_nodes"] = _t(wide.nodes, device)
-        bvh_arrays["wbvh_tris"] = _t(wide.tri_blocks, device)
-        bvh_arrays["wbvh_meta"] = _t(wide.meta, device)
-        bvh_arrays["wbvh_slot"] = _t(wide.tri_of_slot.astype(np.int32), device)
-        bvh_arrays["wbvh_order"] = _t(build_octant_orders(wide.nodes), device)
+            # beyond the budget: resident partitions traced in turn
+            # (accel/partition.py), each a one-level wide BVH whose slot
+            # map carries global triangle ids
+            parts = []
+            for part in partition_bvh(bvh_host, settings.partition_tris):
+                w = build_wide_bvh(
+                    part.bvh,
+                    tri_geo[part.tri_base:part.tri_base + part.tri_count],
+                    leaf_cap=settings.wide_leaf_cap)
+                slot_g = np.where(w.tri_of_slot >= 0,
+                                  w.tri_of_slot + part.tri_base, -1)
+                parts.append((_t(w.nodes, device), _t(w.tri_blocks, device),
+                              _t(w.meta, device),
+                              _t(slot_g.astype(np.int32), device),
+                              _t(build_octant_orders(w.nodes), device)))
+            bvh_arrays["wbvh_parts"] = tuple(parts)
+        else:
+            wide = build_wide_bvh(bvh_host, tri_geo,
+                                  leaf_cap=settings.wide_leaf_cap)
+            bvh_arrays["wbvh_nodes"] = _t(wide.nodes, device)
+            bvh_arrays["wbvh_tris"] = _t(wide.tri_blocks, device)
+            bvh_arrays["wbvh_meta"] = _t(wide.meta, device)
+            bvh_arrays["wbvh_slot"] = _t(wide.tri_of_slot.astype(np.int32),
+                                         device)
+            bvh_arrays["wbvh_order"] = _t(build_octant_orders(wide.nodes),
+                                          device)
 
     return FlatScene(
         geometry=Geometry(
@@ -596,21 +616,24 @@ def _flatten_instanced(scene, camera_node_id, settings, instances,
                    if s < len(inst.material_ids) else None)
             slot_mat[i, s] = material_row(mid)
 
-    # one resident structure; a projected size over the budget would need
-    # the partitioned structures of accel/partition.py, not ported yet
+    # one resident structure, or, with stream="off" over the budget,
+    # spatial instance groups traced in turn (accel/tlas.py
+    # partition_instanced); the projected size of one structure decides
     projected = (sum(w.tri_blocks.nbytes for w in mesh_wides)
                  + sum(mesh_wides[mi].nodes.nbytes + 10 * 128 * 4
                        for mi, _ in inst_mesh_mat))
     inst_stream = settings.stream == "on" or (
         settings.stream == "auto" and projected > settings.partition_bytes)
+    ibvh = ibvh_parts = None
     if projected > settings.partition_bytes and not inst_stream:
-        raise NotImplementedError(
-            "partitioned instanced structures (accel/tlas.py "
-            "partition_instanced, accel/partition.py) are not ported yet; "
-            "use RenderSettings(stream='auto') for one structure")
-    ibvh = build_instanced_bvh(mesh_wides, mesh_tri_base, inst_mesh_mat)
+        ibvh_parts = partition_instanced(mesh_wides, mesh_tri_base,
+                                         inst_mesh_mat,
+                                         settings.partition_bytes)
+    else:
+        ibvh = build_instanced_bvh(mesh_wides, mesh_tri_base, inst_mesh_mat)
     if host_accel_out is not None:
-        host_accel_out.update(ibvh=ibvh, mesh_wides=mesh_wides,
+        host_accel_out.update(ibvh=ibvh, ibvh_parts=ibvh_parts,
+                              mesh_wides=mesh_wides,
                               mesh_tri_base=list(mesh_tri_base),
                               instances=list(instances))
 
@@ -684,12 +707,16 @@ def _flatten_instanced(scene, camera_node_id, settings, instances,
         atlas=_t(atlas, device) if atlas is not None else None,
         atlas_table=_t(atlas_table, device) if atlas_table is not None else None,
         luts=luts_mod.load_luts(device),
-        wbvh_stream=inst_stream,
-        **_instanced_accel_arrays(ibvh, device),
+        **(dict(_instanced_accel_arrays(ibvh, device),
+                wbvh_stream=inst_stream)
+           if ibvh is not None
+           else dict(wbvh_parts=tuple(
+               _instanced_part_arrays(part, gids, device)
+               for part, gids, _ in ibvh_parts))),
         instances=InstanceTable(
             rows=_t(inst_rows, device),
             slot_mat=_t(slot_mat, device),
-            feat=_t(ibvh.inst_feat, device),
+            feat=_t(_global_inst_feat(ibvh, ibvh_parts, n_inst), device),
         ),
     )
 
@@ -703,6 +730,30 @@ def _instanced_accel_arrays(ibvh, device) -> dict:
         wbvh_slot=_t(ibvh.tri_of_slot.astype(np.int32), device),
         wbvh_order=_t(build_octant_orders(np.asarray(ibvh.nodes)), device),
     )
+
+
+def _instanced_part_arrays(ibvh, global_ids, device) -> tuple:
+    """One instanced partition's 7-tuple for
+    accel/partition.make_partitioned_tracer: (nodes, tris, meta, slot,
+    worder, inst_feat, local -> global instance map)."""
+    return (_t(ibvh.nodes, device),
+            _t(ibvh.tri_blocks, device),
+            _t(ibvh.meta, device),
+            _t(ibvh.tri_of_slot.astype(np.int32), device),
+            _t(build_octant_orders(np.asarray(ibvh.nodes)), device),
+            _t(ibvh.inst_feat, device),
+            _t(np.asarray(global_ids).astype(np.int32), device))
+
+
+def _global_inst_feat(ibvh, ibvh_parts, n_inst):
+    """Globally indexed (I, 10, 128) feature transforms: the single
+    structure's, or scattered from each partition's local rows."""
+    if ibvh is not None:
+        return ibvh.inst_feat
+    feat = np.zeros((n_inst, 10, 128), F)
+    for part, gids, _ in ibvh_parts:
+        feat[gids] = part.inst_feat
+    return feat
 
 
 def analyze_features(flat: FlatScene) -> frozenset:

@@ -45,10 +45,14 @@ traces closest hits up to ALPHA_HOPS + 1 times instead of one any-hit
 wave. Under alpha only the closest-hit mode of the tracer launches;
 `fuse_shadow` and `chunk_shade` stay off, as in the JAX package.
 
-Not ported yet, each raising NotImplementedError until its own change:
-the binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
-ops/raystream.py is reached through `tracers=`, as in the JAX package)
-and partitioned structures.
+Partitioned structures (FlatScene.wbvh_parts) trace through
+accel/partition.py's sequential tracer, one packet tracer pair per
+partition. `render_sample(pixel_ids=)` renders a subset of the pixels,
+the shard a rank of the multi-device path (parallel/) renders.
+
+Not ported yet, raising NotImplementedError until its own change: the
+binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
+ops/raystream.py is reached through `tracers=`, as in the JAX package).
 """
 
 from __future__ import annotations
@@ -98,15 +102,10 @@ def _alpha_value(flat: FlatScene, mat_idx, uv):
 def _check_supported(flat: FlatScene, settings: RenderSettings,
                      features: frozenset):
     """Refuse, by name, every option whose path is not ported yet."""
-    todo = []
     if settings.tracer == "bvh":
-        todo.append("tracer='bvh' (item 12)")
-    if flat.wbvh_parts is not None:
-        todo.append("partitioned wide BVHs (accel/partition.py, item 11)")
-    if todo:
         raise NotImplementedError(
             "not ported to platinum_tpu_torch yet (see ROADMAP queue 1): "
-            + ", ".join(todo))
+            "tracer='bvh' (item 12)")
 
 
 def make_tracers(flat: FlatScene, settings: RenderSettings):
@@ -115,17 +114,21 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
     order, streamed blocks and MT tier of JAX integrator.py:92-101); for
     "bf" the breadth-first tracer's closest hit at the tier beside the
     packet tracer's any hit, which is fp32 under every tier (JAX
-    integrator.py:66-85; the breadth-first tracer refuses two_phase); else
-    brute
-    force. Options raise where they cannot be honoured: an unknown tier,
-    two_phase over streamed blocks or with "bf", oct_order without octant
-    orders, "bf" over an instanced or partitioned scene, and a tier or
-    order asked of the brute tracer."""
+    integrator.py:66-85; the breadth-first tracer refuses two_phase); over
+    partitions (FlatScene.wbvh_parts) the sequential partitioned tracer
+    (accel/partition.py), taken before the single structure as in JAX
+    integrator.py:86-89; else brute force. Options raise where they
+    cannot be honoured: an unknown tier, two_phase over streamed blocks or
+    with "bf", oct_order without octant orders, "bf" over an instanced or
+    partitioned scene, and a tier or order asked of the brute tracer."""
     from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
 
-    if settings.tracer == "bf" and flat.wbvh_nodes is not None:
+    if settings.tracer == "bf" and (flat.wbvh_nodes is not None
+                                    or flat.wbvh_parts is not None):
         from platinum_tpu_torch.ops.bfstream import make_bf_tracer
 
+        # a partitioned scene has no wbvh_nodes: refuse it here, not by
+        # falling through to the brute tracer
         if flat.instances is not None or flat.wbvh_parts is not None:
             raise ValueError("tracer='bf' requires a plain resident tree: "
                              "instancing='off', no partitioning")
@@ -138,6 +141,12 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
             flat.wbvh_nodes, flat.wbvh_tris, flat.wbvh_meta, flat.wbvh_slot,
             mt_precision="highest")
         return bf_c, pk_a
+    if settings.tracer in ("packet", "auto") and flat.wbvh_parts is not None:
+        from platinum_tpu_torch.accel.partition import make_partitioned_tracer
+
+        return make_partitioned_tracer(flat.wbvh_parts,
+                                       oct_order=settings.oct_order,
+                                       mt_precision=settings.mt_precision)
     if settings.tracer in ("packet", "auto") and flat.wbvh_nodes is not None:
         if settings.oct_order and flat.wbvh_order is None:
             raise ValueError("oct_order=True needs the scene's octant "
@@ -697,11 +706,11 @@ def _compaction_plan(n: int, settings: RenderSettings):
 def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
                   pixel_ids=None, tracers=None, return_stats: bool = False,
                   features: frozenset = bsdf_mod.ALL_FEATURES):
-    """Trace one sample per pixel; returns (R, 3) radiance. With
-    return_stats also the number of rays traced (closest + shadow).
-    `pixel_ids` (a subset of the pixels, which the JAX package's
-    multi-device path shards) is not ported yet: any value but None
-    raises NotImplementedError. `tracers` overrides the
+    """Trace one sample per pixel; returns (R, 3) radiance, R the number
+    of pixels or len(pixel_ids). With return_stats also the number of rays
+    traced (closest + shadow). `pixel_ids` renders those pixels alone, in
+    that order (a rank's shard on the multi-device path, parallel/); the
+    sample batch is then 1, as in the JAX package. `tracers` overrides the
     (trace_closest, trace_any) pair, which is otherwise built for this
     call (the Renderer builds it once per start_render). With
     settings.compact the wave shrinks between the plan's segments; lane
@@ -714,13 +723,9 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     indices sample_idx .. sample_idx + B - 1 draw, and the radiance
     returned is the per-pixel SUM of the B samples (callers divide by
     their spp count as usual)."""
-    if pixel_ids is not None:
-        raise NotImplementedError(
-            "render_sample(pixel_ids=...) belongs to the multi-device path, "
-            "not ported to platinum_tpu_torch yet (ROADMAP queue 1)")
     fused = _fuse_shadow_active(settings, features)
     dev = flat.camera.position.device
-    batch = max(1, settings.spp_batch)
+    batch = max(1, settings.spp_batch) if pixel_ids is None else 1
     if batch > 1:
         npx = settings.num_pixels
         lane_pixels = torch.arange(npx, device=dev).repeat(batch)
@@ -730,14 +735,17 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
                                 with_shadow_state=fused)
         state["slot"] = lane_pixels.to(torch.int32)
     else:
-        state = init_path_state(flat, settings, sample_idx,
+        state = init_path_state(flat, settings, sample_idx, pixel_ids,
                                 with_shadow_state=fused)
     body = make_bounce_body(flat, settings, features, tracers)
     n = state["o"].shape[0]
     plan = _compaction_plan(n, settings)
     out = None
     if len(plan) > 1 or batch > 1:
-        out = torch.zeros((settings.num_pixels, 3), device=dev)
+        # batched lanes bank into their pixels; otherwise lane i is row i
+        # (len(pixel_ids) rows for a shard)
+        out = torch.zeros((settings.num_pixels if batch > 1 else n, 3),
+                          device=dev)
     if len(plan) > 1:
         base_key = threefry.fold_in(threefry.PRNGKey(0), int(sample_idx))
     for si, (cap, blimit) in enumerate(plan):

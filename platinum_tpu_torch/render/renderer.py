@@ -22,8 +22,8 @@ same but the camera's). The preview keeps that scene and its own tracer
 pair, the one start_render built over the same arrays, in `_pv`: a
 transform edit during the ladder replaces `self.flat` and the main pair
 but not the preview's, which stays stale but consistent, as the JAX
-preview does. The partitioned branch of the transform edit is not ported
-(partitioned scenes do not flatten yet).
+preview does. Over a partitioned instanced scene the transform edit
+refits the owning partition alone (JAX renderer.py:237-260).
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ from platinum_tpu_torch.post.options import PostProcessOptions
 from platinum_tpu_torch.post.pipeline import postprocess_jit
 from platinum_tpu_torch.render import autoplan, integrator
 from platinum_tpu_torch.render.flatten import (_camera_constants,
+                                               _instanced_part_arrays,
                                                analyze_features, flatten_scene)
 from platinum_tpu_torch.render.types import (FLAG_GMON, FlatScene,
                                              RenderSettings, resolve_device)
@@ -213,11 +214,13 @@ class Renderer:
 
     def update_instance_transform(self, node_id: int, transform=None):
         """Apply a transform edit without rebuilding the BVH (instanced
-        scenes; the JAX Renderer's single-structure branch): the
-        instance's world-space BLAS rows and feature matrix are recomputed,
-        the TLAS is refit in place, the changed tables are uploaded, the
-        tracer pair is built again over them and accumulation restarts.
-        Raises for a scene that is not instanced."""
+        scenes): the instance's world-space BLAS rows and feature matrix
+        are recomputed, the TLAS is refit in place, the changed tables are
+        uploaded, the tracer pair is built again over them and
+        accumulation restarts. Over partitions (accel/tlas.py
+        partition_instanced) only the owning partition is refit, against
+        its compacted mesh library, and its 7-tuple formed again. Raises
+        for a scene that is not instanced."""
         if not self._host_accel or self.flat.instances is None:
             raise ValueError("scene is not instanced; call start_render()")
         if transform is not None:
@@ -227,18 +230,38 @@ class Renderer:
         if idx is None:
             raise KeyError(f"node {node_id} is not a mesh instance")
         ibvh = self._host_accel["ibvh"]
+        wides = self._host_accel["mesh_wides"]
         m = self.scene.world_transform(node_id)
-        update_instance_transform(ibvh, self._host_accel["mesh_wides"], idx, m)
+        if ibvh is not None:
+            update_instance_transform(ibvh, wides, idx, m)
+            feat_row = ibvh.inst_feat[idx]
+            accel = dict(wbvh_nodes=torch.from_numpy(ibvh.nodes).to(
+                self.device))
+        else:
+            parts = list(self.flat.wbvh_parts)
+            for pi, (part, gids, used) in enumerate(
+                    self._host_accel["ibvh_parts"]):
+                where = np.nonzero(np.asarray(gids) == idx)[0]
+                if not len(where):
+                    continue
+                local = int(where[0])
+                update_instance_transform(part, [wides[u] for u in used],
+                                          local, m)
+                feat_row = part.inst_feat[local]
+                parts[pi] = _instanced_part_arrays(part, gids, self.device)
+                break
+            else:
+                raise KeyError(f"instance {idx} not in any partition")
+            accel = dict(wbvh_parts=tuple(parts))
         a = np.asarray(m[:3, :3], np.float64)
         rows = self.flat.instances.rows.clone()
         rows[idx, 0:9] = torch.from_numpy(a.reshape(-1).astype(np.float32))
         rows[idx, 9:18] = torch.from_numpy(
             np.linalg.inv(a).T.reshape(-1).astype(np.float32))
         feat = self.flat.instances.feat.clone()
-        feat[idx] = torch.from_numpy(ibvh.inst_feat[idx]).to(self.device)
+        feat[idx] = torch.from_numpy(feat_row).to(self.device)
         self.flat = dataclasses.replace(
-            self.flat,
-            wbvh_nodes=torch.from_numpy(ibvh.nodes).to(self.device),
+            self.flat, **accel,
             instances=dataclasses.replace(self.flat.instances, rows=rows,
                                           feat=feat))
         self._tracers = integrator.make_tracers(self.flat, self.settings)

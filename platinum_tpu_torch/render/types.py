@@ -37,16 +37,17 @@ def resolve_device(device) -> torch.device:
 
 
 def _move(x, device):
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, (torch.Tensor, TensorStruct)):
         return x.to(device)
-    if isinstance(x, TensorStruct):
-        return x.to(device)
+    if isinstance(x, tuple):
+        # FlatScene.wbvh_parts: a tuple of per-partition tensor tuples
+        return tuple(_move(v, device) for v in x)
     return x
 
 
 class TensorStruct:
     """Mixin for frozen dataclasses of tensors: `.to(device)` moves every
-    tensor leaf, nested structs included."""
+    tensor leaf, nested structs and tuples of tensors included."""
 
     def to(self, device):
         return dataclasses.replace(self, **{
@@ -149,8 +150,13 @@ class InstanceTable(TensorStruct):
 @dataclass(frozen=True)
 class FlatScene(TensorStruct):
     """The flattened scene: same fields as the JAX package's FlatScene.
-    `wbvh_parts` (partitioned structures) stays None in this package until
-    its tracer is ported."""
+
+    `wbvh_parts` holds a scene's partitioned structures (stream="off"
+    over the budget; accel/partition.py) in place of the single wide BVH:
+    a tuple with one tuple of tensors per partition, a baked partition a
+    5-tuple (nodes, tris, meta, slot_global, worder) and an instanced one
+    a 7-tuple that adds inst_feat and inst_map (partition-local ->
+    global instance ids; accel/tlas.py partition_instanced)."""
 
     geometry: Geometry
     materials: MaterialTable
@@ -198,9 +204,10 @@ class RenderSettings:
     time whether a scene over `partition_tris` (baked) or
     `partition_bytes` (instanced) traces as one structure with streamed
     leaf blocks (K6, FlatScene.wbvh_stream): "auto" and "on" stream
-    ("on" always), "off" would partition, which is not ported yet and
-    raises. two_phase over a streamed structure raises, as in the JAX
-    package."""
+    ("on" always); "off" splits such a scene into partitions
+    (FlatScene.wbvh_parts), traced one after the other with the best t
+    carried (accel/partition.py). two_phase over a streamed structure
+    raises, as in the JAX package."""
 
     width: int = 512
     height: int = 512

@@ -6,8 +6,10 @@ package's positional parameters in its order; what only the port has
 BVH, as in JAX. The Renderer builds its (trace_closest, trace_any) pair
 once per `start_render` (for the auto plan's probe and every step) and
 once per `update_instance_transform`, not once per sample. The
-Renderer takes the post stack's options and exports a PNG through them;
-`pixel_ids`, whose module is not ported yet, raises NotImplementedError.
+Renderer takes the post stack's options and exports a PNG through them.
+`render_sample(pixel_ids=)` renders those pixels' rows (ported with the
+multi-device path); `tracer="bvh"`, whose module is not ported yet,
+raises NotImplementedError naming its ROADMAP item.
 """
 
 import inspect
@@ -100,12 +102,18 @@ def test_renderer_takes_post_options_and_exports_png(tmp_path):
 
 
 def test_unported_parameters_raise():
+    """`pixel_ids`, which raised until the multi-device path was ported,
+    renders those pixels' rows; `tracer="bvh"` still raises (item 12)."""
     scene, cam = scenes.make_cornell_scene()
-    flat = flatten_scene(scene, cam, RenderSettings(width=4, height=4),
-                         device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        integrator.render_sample(flat, RenderSettings(width=4, height=4), 0,
-                                 torch.arange(4))
+    s = RenderSettings(width=4, height=4, max_bounces=2)
+    flat = flatten_scene(scene, cam, s, device="cpu")
+    ids = torch.tensor([13, 2, 7, 0])
+    rows = integrator.render_sample(flat, s, 0, ids)
+    assert rows.shape == (4, 3)
+    assert torch.equal(rows, integrator.render_sample(flat, s, 0)[ids])
+    with pytest.raises(NotImplementedError, match=r"item 12\b"):
+        integrator.render_sample(flat, RenderSettings(
+            width=4, height=4, tracer="bvh"), 0)
 
 
 @pytest.fixture

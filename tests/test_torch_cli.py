@@ -5,7 +5,8 @@ output space's ICC profile; `info` prints the JAX CLI's JSON; `render`
 without `--device` runs on the card and raises where there is none; every
 option that is not ported raises NotImplementedError naming its ROADMAP
 queue-1 item; the options ported since (a `.ptscene` scene, the reference
-app's `.json`, `--sampler z`, `preview`) write the JAX CLI's image."""
+app's `.json`, `--sampler z`, `--mesh`, `preview`) write the JAX CLI's
+image."""
 
 import json
 
@@ -55,7 +56,6 @@ def test_render_defaults_to_the_card(tmp_path):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["render", "cornell", "--mesh", "sample=2"], 11),
     (["bake-luts"], 12),
 ])
 def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
@@ -84,11 +84,15 @@ def _ported_case(case, tmp_path):
                 "pcg4d", "--bounces", "2"]
     if case == "sampler_z":
         return RENDER + ["--sampler", "z"]
+    if case == "mesh":
+        # one process: a one-rank mesh (tests/test_torch_parallel.py runs
+        # two ranks under torch.distributed.run)
+        return RENDER + ["--mesh", "sample=1,tile=1"]
     return ["preview", "colonnade-small", "--size", "24x16", "--pick", "12,8"]
 
 
 @pytest.mark.parametrize("case", ["ptscene", "refjson", "sampler_z",
-                                  "preview"])
+                                  "mesh", "preview"])
 def test_formerly_unported_options_write_the_jax_clis_image(case, tmp_path,
                                                             capsys):
     """Each option that raised NotImplementedError before its module was

@@ -87,14 +87,17 @@ def test_flat_from_numpy_matches_jax_leaf_for_leaf(scene_pair):
 
 def test_instanced_flatten_raises_naming_the_roadmap_item():
     """Two-level instancing flattens; an instanced structure over the
-    resident budget would need the partitioned structures, which are not
-    ported, and raises naming them."""
+    resident budget, which raised until accel/tlas.py's
+    partition_instanced was ported, flattens into partitions (each a
+    7-tuple; tests/test_torch_partition.py holds them to JAX's)."""
     scene, cam = scenes.make_colonnade_scene(columns=2, rows=2,
                                              sphere_res=(6, 8))
     flat = flatten_scene(scene, cam, RenderSettings(
         tracer="packet", instancing="auto"), device="cpu")
-    assert flat.instances is not None
-    with pytest.raises(NotImplementedError, match="partition"):
-        flatten_scene(scene, cam, RenderSettings(
-            tracer="packet", instancing="auto", stream="off",
-            partition_bytes=1 << 16), device="cpu")
+    assert flat.instances is not None and flat.wbvh_parts is None
+    parts = flatten_scene(scene, cam, RenderSettings(
+        tracer="packet", instancing="auto", stream="off",
+        partition_bytes=1 << 16), device="cpu")
+    assert parts.wbvh_nodes is None and len(parts.wbvh_parts) >= 2
+    assert all(len(p) == 7 for p in parts.wbvh_parts)
+    assert torch.equal(parts.instances.feat, flat.instances.feat)

@@ -98,7 +98,9 @@ COPIES = {
     "accel/__init__.py": True,
     "accel/bvh.py": True,
     "accel/native.py": "builds the library under a private name, renames",
-    "accel/tlas.py": "without partition_instanced",
+    "accel/partition.py": "make_partitioned_tracer is torch, over the "
+                          "port's packet tracer",
+    "accel/tlas.py": True,
     "accel/wide.py": True,
     "app/scenes.py": "three function docstrings reworded",
     "app/store.py": "import_texture decodes PNGs through io/png.py, "
