@@ -6,6 +6,7 @@ Port of platinum_tpu/app/cli.py's commands:
              PNG/EXR
   preview    a studio viewport frame (optionally a pick at a pixel), or
              with --interactive the stdin-driven editor session
+  bake-luts  regenerate the GGX energy LUT bundle (MultiscatterLutGenerator)
   info       inspect a scene
 
 Usage: python -m platinum_tpu_torch.app.cli render scene.glb --spp 64 \\
@@ -23,8 +24,11 @@ the file is the reference app's format.
 `python -m torch.distributed.run --standalone --nproc-per-node 2 -m
 platinum_tpu_torch.app.cli render colonnade --mesh tile=2 -o out.png`;
 the world size must equal the product of the axes. Rank 0 writes the
-file. What is not ported raises NotImplementedError naming its ROADMAP
-queue-1 item: the `bake-luts` command (item 12).
+file.
+
+`bake-luts [--spp N] [--exr] [--device cpu]` bakes the GGX energy LUT
+bundle (tools/lut_baker.py) into the port's resources, on the card
+unless given the CPU.
 """
 
 from __future__ import annotations
@@ -34,12 +38,6 @@ import json
 import os
 import sys
 import time
-
-
-def _unported(what: str, item: int, modules: str):
-    return NotImplementedError(
-        f"{what} is not ported to platinum_tpu_torch yet (ROADMAP queue 1, "
-        f"item {item}: {modules})")
 
 
 def _load_scene(path: str):
@@ -595,7 +593,10 @@ def cmd_preview_interactive(args):
 
 
 def cmd_bake_luts(args):
-    raise _unported("the bake-luts command", 12, "tools/lut_baker.py")
+    from platinum_tpu_torch.tools.lut_baker import bake_all
+
+    bake_all(spp_2d=args.spp, spp_avg=args.spp * 2, spp_3d=args.spp // 2,
+             write_exr_slices=args.exr, device=args.device)
 
 
 def build_parser():
@@ -684,10 +685,12 @@ def build_parser():
                          "pick/select/render)")
     pv.set_defaults(func=cmd_preview)
 
-    b = sub.add_parser("bake-luts", help="regenerate GGX energy LUTs (not "
-                                         "ported yet)")
+    b = sub.add_parser("bake-luts", help="regenerate GGX energy LUTs")
     b.add_argument("--spp", type=int, default=8192)
-    b.add_argument("--exr", action="store_true")
+    b.add_argument("--exr", action="store_true", help="also write EXR slices")
+    b.add_argument("--device", default="cuda",
+                   help="torch device to bake on (default cuda; cpu for "
+                        "the CPU)")
     b.set_defaults(func=cmd_bake_luts)
 
     i = sub.add_parser("info", help="inspect a scene")

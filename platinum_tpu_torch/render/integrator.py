@@ -50,9 +50,12 @@ accel/partition.py's sequential tracer, one packet tracer pair per
 partition. `render_sample(pixel_ids=)` renders a subset of the pixels,
 the shard a rank of the multi-device path (parallel/) renders.
 
-Not ported yet, raising NotImplementedError until its own change: the
-binary-BVH tracer (`tracer="bvh"`; the ray-stream tracer of
-ops/raystream.py is reached through `tracers=`, as in the JAX package).
+`tracer="bvh"` (and "auto" on a scene with a binary BVH and no wide one)
+traces with the binary-BVH walk of ops/traverse.py, as in the JAX
+package; the ray-stream tracer of ops/raystream.py is reached through
+`tracers=`. `render_sample_stepped` is the JAX package's host-driven
+bounce loop (one `bounce_step` a bounce, stopping once no lane is
+active).
 """
 
 from __future__ import annotations
@@ -99,15 +102,6 @@ def _alpha_value(flat: FlatScene, mat_idx, uv):
     return torch.where((flags & MAT_USES_ALPHA) != 0, base_a, 1.0)
 
 
-def _check_supported(flat: FlatScene, settings: RenderSettings,
-                     features: frozenset):
-    """Refuse, by name, every option whose path is not ported yet."""
-    if settings.tracer == "bvh":
-        raise NotImplementedError(
-            "not ported to platinum_tpu_torch yet (see ROADMAP queue 1): "
-            "tracer='bvh' (item 12)")
-
-
 def make_tracers(flat: FlatScene, settings: RenderSettings):
     """(trace_closest, trace_any) for the scene: the wide-BVH packet
     tracer for "packet"/"auto" when the scene has one (with the octant
@@ -120,7 +114,11 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
     integrator.py:86-89; else brute force. Options raise where they
     cannot be honoured: an unknown tier, two_phase over streamed blocks or
     with "bf", oct_order without octant orders, "bf" over an instanced or
-    partitioned scene, and a tier or order asked of the brute tracer."""
+    partitioned scene, and a tier or order asked of the bvh or brute
+    tracer (JAX ignores them there). Past the packet tracer come, in JAX's
+    order (integrator.py:102-111), the refusal of an instanced scene, the
+    binary-BVH tracer (ops/traverse.py) for "bvh" / "auto" where the
+    scene has a binary BVH, and brute force."""
     from platinum_tpu_torch.ops.packet_trace import make_packet_tracer
 
     if settings.tracer == "bf" and (flat.wbvh_nodes is not None
@@ -157,19 +155,22 @@ def make_tracers(flat: FlatScene, settings: RenderSettings):
                        if flat.instances is not None else None),
             worder=flat.wbvh_order if settings.oct_order else None,
             stream=flat.wbvh_stream, mt_precision=settings.mt_precision)
+    bvh = settings.tracer in ("bvh", "auto") and flat.bvh_skip is not None
     if settings.oct_order or settings.mt_precision != "highest":
         raise ValueError(
             f"oct_order / mt_precision={settings.mt_precision!r} are "
             f"options of the packet kernel, and this scene traces with the "
-            f"brute tracer (tracer={settings.tracer!r}, no wide BVH)")
+            f"{'bvh' if bvh else 'brute'} tracer "
+            f"(tracer={settings.tracer!r}, no wide BVH in use)")
     if flat.instances is not None:
         raise ValueError(
             "instanced FlatScene requires the packet tracer "
             "(settings.tracer='packet'/'auto'); rebuild with "
-            "instancing='off' for the brute tracer")
-    if settings.tracer == "bvh":
-        raise NotImplementedError(
-            "tracer='bvh' is not ported yet (ROADMAP queue 1, item 12)")
+            "instancing='off' for the brute/bvh tracers")
+    if bvh:
+        from platinum_tpu_torch.ops.traverse import make_bvh_tracer
+
+        return make_bvh_tracer(flat, max_leaf=settings.accel_max_leaf)
     return make_brute_tracer(flat.geometry)
 
 
@@ -225,7 +226,6 @@ def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
 def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                      features: frozenset, tracers=None):
     """body(state) -> state for ONE bounce of the wavefront loop."""
-    _check_supported(flat, settings, features)
     trace_closest, trace_any = tracers or make_tracers(flat, settings)
     geom, mats, lights, env = flat.geometry, flat.materials, flat.lights, flat.env
     luts = flat.luts
@@ -765,6 +765,38 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     if return_stats:
         return out, state["rays"]
     return out
+
+
+def bounce_step(flat: FlatScene, settings: RenderSettings, state,
+                features: frozenset = bsdf_mod.ALL_FEATURES, tracers=None):
+    """One bounce as its own call (render_sample_stepped's step): the JAX
+    package's `bounce_step_jit` (integrator.py:781-786), which runs a
+    bounce as one XLA program. Nothing is jitted here: every op of the
+    port already runs as it is called. `tracers` as in render_sample."""
+    return make_bounce_body(flat, settings, features, tracers)(state)
+
+
+def render_sample_stepped(flat: FlatScene, settings: RenderSettings,
+                          sample_idx,
+                          features: frozenset = bsdf_mod.ALL_FEATURES,
+                          return_stats: bool = False):
+    """Host-driven bounce loop (JAX integrator.py:794-813): fuse_shadow
+    off, camera rays and a fresh path state for every pixel, then one
+    bounce_step a bounce up to max_bounces, stopping once no lane is
+    active; no compaction and one sample per lane. Returns (H*W, 3)
+    radiance, and with return_stats the rays traced. The tracer pair is
+    built once for the sample."""
+    if settings.fuse_shadow:
+        settings = dataclasses.replace(settings, fuse_shadow=False)
+    tracers = make_tracers(flat, settings)
+    state = init_path_state(flat, settings, int(sample_idx))
+    for _ in range(settings.max_bounces):
+        state = bounce_step(flat, settings, state, features, tracers)
+        if not bool(state["active"].any()):
+            break
+    if return_stats:
+        return state["L"], state["rays"]
+    return state["L"]
 
 
 def render_step(flat: FlatScene, settings: RenderSettings,

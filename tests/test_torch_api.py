@@ -8,12 +8,13 @@ once per `start_render` (for the auto plan's probe and every step) and
 once per `update_instance_transform`, not once per sample. The
 Renderer takes the post stack's options and exports a PNG through them.
 `render_sample(pixel_ids=)` renders those pixels' rows (ported with the
-multi-device path); `tracer="bvh"`, whose module is not ported yet,
-raises NotImplementedError naming its ROADMAP item.
+multi-device path); `tracer="bvh"` (ported with ROADMAP item 12) renders
+the JAX package's sample.
 """
 
 import inspect
 
+import numpy as np
 import pytest
 import torch
 
@@ -103,7 +104,8 @@ def test_renderer_takes_post_options_and_exports_png(tmp_path):
 
 def test_unported_parameters_raise():
     """`pixel_ids`, which raised until the multi-device path was ported,
-    renders those pixels' rows; `tracer="bvh"` still raises (item 12)."""
+    renders those pixels' rows; `tracer="bvh"`, which raised until item
+    12 was ported, renders the JAX package's sample."""
     scene, cam = scenes.make_cornell_scene()
     s = RenderSettings(width=4, height=4, max_bounces=2)
     flat = flatten_scene(scene, cam, s, device="cpu")
@@ -111,9 +113,16 @@ def test_unported_parameters_raise():
     rows = integrator.render_sample(flat, s, 0, ids)
     assert rows.shape == (4, 3)
     assert torch.equal(rows, integrator.render_sample(flat, s, 0)[ids])
-    with pytest.raises(NotImplementedError, match=r"item 12\b"):
-        integrator.render_sample(flat, RenderSettings(
-            width=4, height=4, tracer="bvh"), 0)
+    # tracer="bvh", which raised until its module was ported (item 12),
+    # renders JAX's sample through the same positional parameters
+    kw = dict(width=4, height=4, max_bounces=2, tracer="bvh")
+    jflat = jflatten(*jscenes.make_cornell_scene(), JSettings(**kw), True, 1)
+    ref = np.asarray(jrender_sample(jflat, JSettings(**kw), 0))
+    flat = flatten_scene(scene, cam, RenderSettings(**kw), True, 1,
+                         device="cpu")
+    assert flat.bvh_skip is not None
+    img = integrator.render_sample(flat, RenderSettings(**kw), 0).numpy()
+    np.testing.assert_allclose(img, ref, rtol=2e-3, atol=2e-3)
 
 
 @pytest.fixture

@@ -2,11 +2,11 @@
 package's: `render cornell --spp 2 --size 16x16 --device cpu` writes a PNG
 within a mean absolute difference of 1 (u8) of the JAX CLI's, with the
 output space's ICC profile; `info` prints the JAX CLI's JSON; `render`
-without `--device` runs on the card and raises where there is none; every
-option that is not ported raises NotImplementedError naming its ROADMAP
-queue-1 item; the options ported since (a `.ptscene` scene, the reference
-app's `.json`, `--sampler z`, `--mesh`, `preview`) write the JAX CLI's
-image."""
+without `--device` runs on the card and raises where there is none; the
+options that raised NotImplementedError until their module was ported (a
+`.ptscene` scene, the reference app's `.json`, `--sampler z`, `--mesh`,
+`preview`) write the JAX CLI's image, and `bake-luts` writes the JAX
+CLI's bundle."""
 
 import json
 
@@ -58,13 +58,38 @@ def test_render_defaults_to_the_card(tmp_path):
 @pytest.mark.parametrize("argv,item", [
     (["bake-luts"], 12),
 ])
-def test_unported_options_raise_naming_their_item(argv, item, tmp_path):
-    out = ["-o", str(tmp_path / "x.png")] if argv[0] != "bake-luts" else []
-    if argv[0] == "render":
-        out += ["--device", "cpu"]
-    with pytest.raises(NotImplementedError,
-                       match=rf"ROADMAP queue 1, item {item}\b"):
-        cli.main(argv + out)
+def test_unported_options_raise_naming_their_item(argv, item, tmp_path,
+                                                  monkeypatch):
+    """The commands that raised NotImplementedError naming their ROADMAP
+    queue-1 item until it was ported (`bake-luts`, item 12) now run as
+    the JAX CLI's: `bake-luts --spp 8 --exr --device cpu`, every table
+    cut to size 4 and the bundle path and RESOURCE_DIR moved into
+    tmp_path in both packages, writes the bundle and the EXR slices JAX's
+    writes, each table held (and any texel outside the bar traced to its
+    samples) as tests/test_torch_lut_baker.py holds bake_all."""
+    from platinum_tpu.tools import lut_baker as jbaker
+    from platinum_tpu_torch.tools import lut_baker as baker
+    from platinum_tpu_torch.ops.luts import LUT_NAMES
+    from test_torch_lut_baker import (_capture, _hold, bundle_paths,
+                                      small_bakes)
+
+    assert item == 12
+    paths, vals = {}, {}
+    for module, sub in ((jbaker, "jax"), (baker, "port")):
+        small_bakes(monkeypatch, module)
+        paths[sub] = bundle_paths(monkeypatch, module, tmp_path / sub)
+        _capture(monkeypatch, module, vals.setdefault(sub, []))
+    argv = argv + ["--spp", "8", "--exr"]
+    jcli.main(argv)
+    cli.main(argv + ["--device", "cpu"])
+    ref, got = np.load(paths["jax"]), np.load(paths["port"])
+    assert sorted(got.files) == sorted(ref.files) == sorted(LUT_NAMES)
+    # bake_all bakes the tables in LUT_NAMES' order
+    for k, name in enumerate(LUT_NAMES):
+        _hold(got[name], ref[name], name, vals["port"][k], vals["jax"][k])
+    exr = [sorted(p.name for p in (tmp_path / sub / "lut").glob("*.exr"))
+           for sub in ("jax", "port")]
+    assert exr[0] == exr[1] and len(exr[1]) == 17
 
 
 def _ported_case(case, tmp_path):

@@ -1,7 +1,9 @@
 """Guards on the port's independence from the JAX package.
 
-- No module of platinum_tpu_torch, and not chip_smoke.py, imports JAX or
-  anything of the JAX package (read with `ast`, one case per file).
+- No module of platinum_tpu_torch, not chip_smoke.py and not
+  tests/golden_configs.py (the goldens' configurations chip_smoke.py
+  renders) imports JAX or anything of the JAX package (read with `ast`,
+  one case per file).
 - The port imports and renders with the JAX package hidden, and its CLI
   runs `info cornell` so.
 - The record of copied modules (COPIES): each copy names the JAX file it
@@ -30,7 +32,8 @@ FORBIDDEN = ("jax", "jaxlib", "platinum_tpu")
 
 
 def _sources():
-    out = [os.path.join(REPO, "chip_smoke.py")]
+    out = [os.path.join(REPO, "chip_smoke.py"),
+           os.path.join(REPO, "tests", "golden_configs.py")]
     for root, _, files in os.walk(PORT):
         out += [os.path.join(root, f) for f in files if f.endswith(".py")]
     return sorted(os.path.relpath(p, REPO) for p in out)
@@ -123,6 +126,8 @@ COPIES = {
     "io/sceneio.py": True,
     "post/options.py": True,
     "tools/foreign_glb.py": "encodes textures through io/png.py",
+    "tools/gltf_export.py": "encodes textures through io/png.py",
+    "tools/import_luts.py": True,
     "utils/matrices.py": True,
     "utils/telemetry.py": True,
 }

@@ -151,18 +151,28 @@ def test_renderer_api_matches_jax_renderer(tmp_path):
 
 @pytest.mark.parametrize("override", [dict(tracer="bvh")])
 def test_unported_options_raise(override):
+    """The options that raised NotImplementedError until their module was
+    ported (tracer="bvh", ROADMAP queue 1 item 12) now render as the JAX
+    package does: render_step over the same FlatScene (the JAX flatten
+    carried across) per pixel within this module's bars; on a scene
+    without a binary BVH both packages fall through to brute force."""
     scene, cam = make_cornell_scene()
-    settings = RenderSettings(width=8, height=8, spp=1, max_bounces=2,
-                              **override)
-    flat = flat_from_numpy(jax.tree.map(np.asarray, jflatten(
-        scene, cam, JSettings(width=8, height=8), accel_min_tris=1)), "cpu")
-    assert flat.wbvh_nodes is not None
-    with pytest.raises(NotImplementedError, match=r"item 12\b"):
-        integrator.render_step(flat, settings, torch.zeros((64, 3)), 0,
-                               features=analyze_features(flat))
-    # a scene without a wide BVH reaches make_tracers' own refusal
+    kw = dict(width=8, height=8, spp=1, max_bounces=2, **override)
+    jflat = jflatten(scene, cam, JSettings(**kw), accel_min_tris=1)
+    assert jflat.bvh_skip is not None
+    ref = np.asarray(jintegrator.render_step(
+        jflat, JSettings(**kw), jnp.zeros((64, 3)), jnp.int32(0),
+        features=janalyze(jflat)))
+    flat = flat_from_numpy(jax.tree.map(np.asarray, jflat), "cpu")
+    tracers = integrator.make_tracers(flat, RenderSettings(**kw))
+    assert tracers[0].__module__ == "platinum_tpu_torch.ops.traverse"
+    img = integrator.render_step(flat, RenderSettings(**kw),
+                                 torch.zeros((64, 3)), 0,
+                                 features=analyze_features(flat)).numpy()
+    _hold(img, ref, "cornell tracer=bvh")
+    # a scene without a binary BVH takes the brute tracer
     brute = flat_from_numpy(jax.tree.map(np.asarray, jflatten(
-        scene, cam, JSettings(width=8, height=8))), "cpu")
-    assert brute.wbvh_nodes is None
-    with pytest.raises(NotImplementedError, match=r"item 12\b"):
-        integrator.make_tracers(brute, settings)
+        scene, cam, JSettings(**kw))), "cpu")
+    assert brute.bvh_skip is None
+    assert integrator.make_tracers(brute, RenderSettings(**kw))[0] \
+        .__module__ == "platinum_tpu_torch.ops.intersect"
