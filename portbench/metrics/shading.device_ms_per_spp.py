@@ -1,0 +1,9 @@
+"""shading.device_ms_per_spp: device time of every kernel that is not a
+trace kernel (trace_kernels.txt) in the profiled window, per sample."""
+
+
+def read(rec):
+    p = rec.get("profile")
+    if not p or not rec.get("spp") or p["other_kernel_s"] <= 0:
+        return None
+    return p["other_kernel_s"] * 1e3 / rec["spp"]

@@ -1,0 +1,58 @@
+"""No module of the benchmark imports JAX or the JAX package, and the plain
+reference imports nothing of the program either (top-level names compared
+whole: the program's name begins with the JAX package's)."""
+
+import ast
+import os
+
+from portbench.conftest import HERE
+
+NEVER = {"jax", "jaxlib", "flax", "platinum_tpu", "bench", "chip_smoke",
+         "tools", "tests"}
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+
+
+def _sources(sub=""):
+    for d, _, files in os.walk(os.path.join(HERE, sub)):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+
+
+def test_nothing_imports_jax_or_the_jax_package():
+    seen = set()
+    for path in _sources():
+        tops = set(_imports(path))
+        assert not tops & NEVER, (path, tops & NEVER)
+        seen |= tops
+    assert "platinum_tpu_torch" in seen      # the harness does drive the port
+
+
+def test_the_reference_imports_nothing_of_the_program():
+    for path in list(_sources("reference")) + [
+            os.path.join(HERE, f) for f in ("compare.py", "scenes.py",
+                                            "control.py")]:
+        tops = set(_imports(path))
+        assert "platinum_tpu_torch" not in tops and not tops & NEVER, path
+
+
+def test_the_check_compares_whole_top_level_names():
+    from portbench.harness import FORBIDDEN
+    import sys
+    import types
+
+    sys.modules["platinum_tpu_torch_lookalike"] = types.ModuleType("x")
+    try:
+        from portbench.harness import forbidden_modules
+        assert "platinum_tpu_torch_lookalike" not in forbidden_modules()
+        assert "platinum_tpu_torch" not in FORBIDDEN
+    finally:
+        del sys.modules["platinum_tpu_torch_lookalike"]
