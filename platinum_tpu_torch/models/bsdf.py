@@ -29,6 +29,7 @@ from platinum_tpu_torch.render.types import (
     MAT_THIN,
     MaterialTable,
 )
+from platinum_tpu_torch.utils import telemetry
 
 # Sample flag bits (parity with bsdf::SampleFlags)
 SAMPLE_REFLECTED = 1
@@ -499,6 +500,7 @@ def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
     t = ctx.transmission
     c = ctx.clearcoat
     zero3 = torch.zeros_like(wo)
+    telemetry.count("sync.bsdf_const")
     up = zero3 + torch.tensor([0.0, 0.0, 1.0], device=dev)
 
     # lobe-selection probabilities (bsdf.metal:229-252)
@@ -557,6 +559,7 @@ def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
         f_ss = fresnel.fresnel_dielectric(torch.abs(dot_wo_wm), ior_t)
         reflecting = rz < f_ss
         wi_refl = ggx.reflect(-wo, wm)
+        telemetry.count("sync.bsdf_const")
         wi_thin = wi_refl * torch.tensor([1.0, 1.0, -1.0], device=dev)
         wm_signed = wm * torch.where(dot_wo_wm[..., None] < 0, -1.0, 1.0)
         wi_refr = ggx.refract(-wo, wm_signed, 1.0 / ior_t)

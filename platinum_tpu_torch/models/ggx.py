@@ -13,6 +13,7 @@ import torch
 
 from platinum_tpu_torch.ops.frame import cross, dot, norm, normalize
 from platinum_tpu_torch.ops.samplers import sample_disk
+from platinum_tpu_torch.utils import telemetry
 
 SMOOTH_ALPHA = 1e-3
 
@@ -66,6 +67,7 @@ def vmdf(alpha, w, wm):
 
 
 def _const(v, like):
+    telemetry.count("sync.ggx_const")
     return torch.tensor(v, dtype=like.dtype, device=like.device).expand(like.shape)
 
 
@@ -115,6 +117,7 @@ def reflect(i, n):
 def refract(i, n, eta):
     """Metal-convention refract; 0-vector on total internal reflection.
     eta = n_incident / n_transmitted."""
+    telemetry.count("sync.refract_eta", not torch.is_tensor(eta))
     eta = torch.broadcast_to(torch.as_tensor(eta, dtype=i.dtype,
                                              device=i.device),
                              i.shape[:-1])[..., None]

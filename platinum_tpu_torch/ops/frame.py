@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from platinum_tpu_torch.utils import telemetry
+
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
@@ -41,6 +43,7 @@ def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
 
 
 def _const(v, like: torch.Tensor) -> torch.Tensor:
+    telemetry.count("sync.frame_const")
     return torch.tensor(v, dtype=like.dtype, device=like.device).expand(like.shape)
 
 

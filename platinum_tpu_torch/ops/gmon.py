@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from platinum_tpu_torch.utils import telemetry
+
 LUMA = (0.2126, 0.7152, 0.0722)
 
 
@@ -28,6 +30,7 @@ def gmon_window(buckets: torch.Tensor, n_full: int, cap: float = 1.0):
     idx = torch.arange(b, device=dev)[:, None]
     valid = idx < n_full
 
+    telemetry.count("sync.gmon_const", 2)      # LUMA and n below
     luma = torch.sum(buckets * torch.tensor(LUMA, device=dev), dim=-1)
     luma_sortkey = torch.where(valid, luma, float("inf"))
     order = torch.sort(luma_sortkey, dim=0, stable=True).indices

@@ -15,6 +15,7 @@ import torch
 
 from platinum_tpu_torch.ops.frame import cross, dot
 from platinum_tpu_torch.render.types import Geometry
+from platinum_tpu_torch.utils import telemetry
 
 INF = float("inf")
 DET_EPS = 1e-12
@@ -63,6 +64,7 @@ def fold_partition_tracers(tracers, inst_maps, o, d, tmin, tmax,
     tmax on a miss (callers apply INF, or merge across ranks first)."""
     r = o.shape[0]
     dev = o.device
+    telemetry.count("sync.partition_bounds", not torch.is_tensor(tmax))
     best = HitRecord(
         t=torch.as_tensor(tmax, dtype=torch.float32, device=dev)
         .expand(r).clone(),
@@ -115,6 +117,8 @@ def _chunk_triangles(geometry: Geometry, chunk: int):
 
 def _ray_bounds(o, tmin, tmax, active):
     r = o.shape[0]
+    telemetry.count("sync.brute_bounds", (not torch.is_tensor(tmin))
+                    + (not torch.is_tensor(tmax)))
     tmin = torch.as_tensor(tmin, dtype=torch.float32, device=o.device)
     tmax = torch.as_tensor(tmax, dtype=torch.float32, device=o.device)
     if active is not None:

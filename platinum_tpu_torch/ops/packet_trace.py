@@ -55,6 +55,7 @@ from concurrent.futures import ThreadPoolExecutor
 import torch
 
 from platinum_tpu_torch.ops.intersect import INF, HitRecord
+from platinum_tpu_torch.utils import telemetry
 
 DET_EPS = 1e-12
 SORT_MIN_RAYS = 1024   # the JAX tracer sorts waves of >= 2 x 4 x 128 rays
@@ -207,7 +208,8 @@ def load_library(name: str, declare):
     `declare(lib)` sets the argument types of its entry points once."""
     with _lib_lock:
         if name not in _libs:
-            lib = ctypes.CDLL(build_kernel(name))
+            with telemetry.span("kernels.build"):
+                lib = ctypes.CDLL(build_kernel(name))
             declare(lib)
             _libs[name] = lib
         return _libs[name]
@@ -1158,6 +1160,8 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         that sorted it (None if it was not sorted)."""
         r = o.shape[0]
         dev = o.device
+        telemetry.count("sync.wave_bounds", (not torch.is_tensor(tmin))
+                        + (not torch.is_tensor(tmax)))
         tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
         tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
         if active is not None:

@@ -17,6 +17,8 @@ from dataclasses import dataclass, replace
 import numpy as np
 import torch
 
+from platinum_tpu_torch.utils import telemetry
+
 MASK32 = 0xFFFFFFFF
 ONE_MINUS_EPS = float(np.float32(1.0 - 2 ** -24))
 _INV_2_32 = float(np.float32(2.3283064365386963e-10))  # 2^-32
@@ -120,6 +122,7 @@ class HaltonStream:
     def create(pixel_x, pixel_y, sample_index) -> "HaltonStream":
         px = _u32(pixel_x)
         py = _u32(pixel_y)
+        telemetry.count("sync.sample_index", not torch.is_tensor(sample_index))
         s = torch.broadcast_to(
             _u32(torch.as_tensor(sample_index, device=px.device)), px.shape)
         seed = torch.stack([px, py, s, (px + py) & MASK32], dim=-1)
@@ -149,6 +152,7 @@ class PCG4DStream:
     def create(pixel_x, pixel_y, sample_index) -> "PCG4DStream":
         px = _u32(pixel_x)
         py = _u32(pixel_y)
+        telemetry.count("sync.sample_index", not torch.is_tensor(sample_index))
         s = torch.broadcast_to(
             _u32(torch.as_tensor(sample_index, device=px.device)), px.shape)
         return PCG4DStream(*pcg4d_parts(px, py, s, (px + py) & MASK32))

@@ -20,6 +20,7 @@ from platinum_tpu_torch.ops.frame import rdiv
 from platinum_tpu_torch.ops.texturing import mul3
 from platinum_tpu_torch.post.options import (FlimOptions, KhronosPbrOptions,
                                              LiftGammaGain, TonemapOptions)
+from platinum_tpu_torch.utils import telemetry
 
 LUMA = (0.2126, 0.7152, 0.0722)
 
@@ -40,6 +41,7 @@ _AGX_MAX_EV = 4.026069
 
 def _t(x, like):
     """A host constant as an f32 tensor on `like`'s device."""
+    telemetry.count("sync.tonemap_const")
     return torch.as_tensor(np.asarray(x, np.float32), device=like.device)
 
 

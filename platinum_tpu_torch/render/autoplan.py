@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from platinum_tpu_torch.render.types import RenderSettings
+from platinum_tpu_torch.utils import telemetry
 
 PROBE_LANES = 16384   # strided pixel subset for the live fractions
 MIN_COMPACT_N = 8192  # below this the static plan does not compact either
@@ -53,6 +54,7 @@ def measure_live_fractions(flat, settings: RenderSettings,
         state = integrator.init_path_state(flat, probe, si, ids)
         for b in range(settings.max_bounces):
             state = body(state)
+            telemetry.count("sync.probe_live")
             fr[b] += float(state["active"].to(torch.float32).mean())
     return fr / probe_spp
 

@@ -79,6 +79,7 @@ from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
                                               sample_normal_map)
 from platinum_tpu_torch.render.types import (MAT_USES_ALPHA, FlatScene,
                                              RenderSettings)
+from platinum_tpu_torch.utils import telemetry
 
 RAY_EPS = 1e-3
 # Alpha-cutout layers crossed per segment without consuming a bounce (the
@@ -195,6 +196,8 @@ def init_path_state(flat: FlatScene, settings: RenderSettings, sample_idx,
     with `sample_idx` one index per lane). `with_shadow_state` adds the
     empty deferred-shadow state of `fuse_shadow`."""
     dev = flat.camera.position.device
+    if pixel_ids is not None:
+        telemetry.count("sync.pixel_ids", not torch.is_tensor(pixel_ids))
     pix = (torch.arange(settings.num_pixels, device=dev) if pixel_ids is None
            else torch.as_tensor(pixel_ids, device=dev).long())
     n = pix.shape[0]
@@ -247,56 +250,62 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                   and int(TextureSlot.NORMAL) in tex_slots)
 
     def body(s):
+        with telemetry.span("integrator.bounce", bounce=s["bounce"],
+                            lanes=s["o"].shape[0]):
+            return _bounce(s)
+
+    def _bounce(s):
         o, d, atten, L, active = s["o"], s["d"], s["atten"], s["L"], s["active"]
         bounce = s["bounce"]
         n = o.shape[0]
         dev = o.device
 
-        if fuse_shadow:
-            # last bounce's shadow rays ride this closest wave as n more
-            # lanes: a shadow lane is clear when nothing is hit before
-            # its light
-            rec2 = trace_closest(
-                torch.cat([o, s["sh_org"]]), torch.cat([d, s["sh_dir"]]),
-                RAY_EPS,
-                torch.cat([torch.full((n,), float("inf"), device=dev),
-                           s["sh_dist"] - RAY_EPS]),
-                active=torch.cat([active, s["sh_do"]]))
-            rec = HitRecord(t=rec2.t[:n], tri=rec2.tri[:n],
-                            bary=rec2.bary[:n], hit=rec2.hit[:n],
-                            inst=(rec2.inst[:n] if rec2.inst is not None
-                                  else None))
-            sh_clear = s["sh_do"] & ~rec2.hit[n:]
-            L = L + torch.where(sh_clear[:, None], s["sh_ld"], 0.0)
-        else:
-            rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
-        stream = s["stream"]
-        o_eff = o
-        if alpha_on:
-            # a hit on a cutout surface passes through stochastically
-            # without consuming a bounce: trace again from the hit point,
-            # at most ALPHA_HOPS times. Each hit is tested once: one that
-            # fails its draw is settled (shades as opaque) and never drawn
-            # for again
-            settled = torch.zeros_like(rec.hit)
-            for _ in range(ALPHA_HOPS):
-                stream, u_a = stream.next_1d()
-                cand = rec.hit & active & ~settled
-                hd_l = interpolate_hit(geom, rec, o_eff, d,
-                                       instances=flat.instances)
-                pas = cand & (u_a >= _alpha_value(flat, hd_l.mat_idx,
-                                                  hd_l.uv))
-                settled = settled | (cand & ~pas)
-                o_eff = torch.where(pas[:, None], hd_l.pos, o_eff)
-                rec2 = trace_closest(o_eff, d, RAY_EPS, float("inf"),
-                                     active=pas)
-                rec = HitRecord(
-                    t=torch.where(pas, rec2.t, rec.t),
-                    tri=torch.where(pas, rec2.tri, rec.tri),
-                    bary=torch.where(pas[:, None], rec2.bary, rec.bary),
-                    hit=torch.where(pas, rec2.hit, rec.hit),
-                    inst=(torch.where(pas, rec2.inst, rec.inst)
-                          if rec.inst is not None else None))
+        with telemetry.span("integrator.trace_closest"):
+            if fuse_shadow:
+                # last bounce's shadow rays ride this closest wave as n more
+                # lanes: a shadow lane is clear when nothing is hit before
+                # its light
+                rec2 = trace_closest(
+                    torch.cat([o, s["sh_org"]]), torch.cat([d, s["sh_dir"]]),
+                    RAY_EPS,
+                    torch.cat([torch.full((n,), float("inf"), device=dev),
+                               s["sh_dist"] - RAY_EPS]),
+                    active=torch.cat([active, s["sh_do"]]))
+                rec = HitRecord(t=rec2.t[:n], tri=rec2.tri[:n],
+                                bary=rec2.bary[:n], hit=rec2.hit[:n],
+                                inst=(rec2.inst[:n] if rec2.inst is not None
+                                      else None))
+                sh_clear = s["sh_do"] & ~rec2.hit[n:]
+                L = L + torch.where(sh_clear[:, None], s["sh_ld"], 0.0)
+            else:
+                rec = trace_closest(o, d, RAY_EPS, float("inf"), active=active)
+            stream = s["stream"]
+            o_eff = o
+            if alpha_on:
+                # a hit on a cutout surface passes through stochastically
+                # without consuming a bounce: trace again from the hit point,
+                # at most ALPHA_HOPS times. Each hit is tested once: one that
+                # fails its draw is settled (shades as opaque) and never drawn
+                # for again
+                settled = torch.zeros_like(rec.hit)
+                for _ in range(ALPHA_HOPS):
+                    stream, u_a = stream.next_1d()
+                    cand = rec.hit & active & ~settled
+                    hd_l = interpolate_hit(geom, rec, o_eff, d,
+                                           instances=flat.instances)
+                    pas = cand & (u_a >= _alpha_value(flat, hd_l.mat_idx,
+                                                      hd_l.uv))
+                    settled = settled | (cand & ~pas)
+                    o_eff = torch.where(pas[:, None], hd_l.pos, o_eff)
+                    rec2 = trace_closest(o_eff, d, RAY_EPS, float("inf"),
+                                         active=pas)
+                    rec = HitRecord(
+                        t=torch.where(pas, rec2.t, rec.t),
+                        tri=torch.where(pas, rec2.tri, rec.tri),
+                        bary=torch.where(pas[:, None], rec2.bary, rec.bary),
+                        hit=torch.where(pas, rec2.hit, rec.hit),
+                        inst=(torch.where(pas, rec2.inst, rec.inst)
+                              if rec.inst is not None else None))
         hit = rec.hit & active
         miss = active & ~rec.hit
 
@@ -314,8 +323,10 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             L = L + torch.where((miss & has_env)[:, None],
                                 atten * env_le * w_env[:, None], 0.0)
 
-        rays_new = s["rays"] + torch.sum(active.to(torch.float32)) * (
-            2.0 if use_mis else 1.0)
+        live = torch.sum(active.to(torch.float32))
+        telemetry.count("integrator.wave_lanes", n)
+        telemetry.count_device("integrator.live_lanes", live)
+        rays_new = s["rays"] + live * (2.0 if use_mis else 1.0)
 
         lane_state = dict(
             o=o, d=d, atten=atten, L=L, hit=hit, o_eff=o_eff,
@@ -324,23 +335,25 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             rec_t=rec.t, rec_tri=rec.tri, rec_bary=rec.bary,
             **({"rec_inst": rec.inst} if rec.inst is not None else {}))
 
-        if (settings.chunk_shade and not alpha_on
-                and n > settings.chunk_shade
-                and n % settings.chunk_shade == 0):
-            upd = _chunked_shade(lane_state, _shade_lanes,
-                                 settings.chunk_shade)
-        else:
-            upd = _shade_lanes(lane_state)
+        with telemetry.span("integrator.shade"):
+            if (settings.chunk_shade and not alpha_on
+                    and n > settings.chunk_shade
+                    and n % settings.chunk_shade == 0):
+                upd = _chunked_shade(lane_state, _shade_lanes,
+                                     settings.chunk_shade)
+            else:
+                upd = _shade_lanes(lane_state)
 
         # NEE occlusion: an any-hit wave right away, unless deferred onto
         # the next bounce's closest wave (fuse_shadow) or resolved by the
         # alpha loop in shading
         if (use_mis and (env_on or lights_on) and not fuse_shadow
                 and not alpha_on):
-            occ = trace_any(upd["sh_org"], upd["sh_dir"], RAY_EPS,
-                            upd["sh_dist"] - RAY_EPS, active=upd["sh_do"])
-            upd["L"] = upd["L"] + torch.where(
-                (upd["sh_do"] & ~occ)[:, None], upd["sh_ld"], 0.0)
+            with telemetry.span("integrator.trace_shadow"):
+                occ = trace_any(upd["sh_org"], upd["sh_dir"], RAY_EPS,
+                                upd["sh_dist"] - RAY_EPS, active=upd["sh_do"])
+                upd["L"] = upd["L"] + torch.where(
+                    (upd["sh_do"] & ~occ)[:, None], upd["sh_ld"], 0.0)
 
         out = dict(
             o=upd["o"], d=upd["d"], L=upd["L"], atten=upd["atten"],
@@ -533,8 +546,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         the loop, and before compaction drops lanes)."""
         if not fuse_shadow:
             return s
-        occ = trace_any(s["sh_org"], s["sh_dir"], RAY_EPS,
-                        s["sh_dist"] - RAY_EPS, active=s["sh_do"])
+        with telemetry.span("integrator.trace_shadow"):
+            occ = trace_any(s["sh_org"], s["sh_dir"], RAY_EPS,
+                            s["sh_dist"] - RAY_EPS, active=s["sh_do"])
         s = dict(s)
         s["L"] = s["L"] + torch.where((s["sh_do"] & ~occ)[:, None],
                                       s["sh_ld"], 0.0)
@@ -602,6 +616,7 @@ def _chunked_shade(ls, shade_fn, chunk: int):
     inv = torch.empty_like(perm)
     inv[perm] = torch.arange(n, device=dev)
     srt = {k: _take_lanes(v, perm, n) for k, v in ls.items()}
+    telemetry.count("sync.shade_hits")
     nch = -(-int(ls["hit"].sum()) // chunk)
 
     out = dict(
@@ -722,7 +737,23 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     The per-lane sampler streams draw what B separate calls with sample
     indices sample_idx .. sample_idx + B - 1 draw, and the radiance
     returned is the per-pixel SUM of the B samples (callers divide by
-    their spp count as usual)."""
+    their spp count as usual).
+
+    Spans (utils/telemetry.py): `integrator.sample` around the call, with
+    `integrator.compact` (attr `cap`) between segments, one
+    `integrator.bounce` (attrs `bounce`, `lanes`) a bounce with its
+    `integrator.trace_closest`, `integrator.shade` and
+    `integrator.trace_shadow`, and `integrator.live_check` around each
+    test for a live lane (`sync.live_check`). Counters:
+    `integrator.wave_lanes` (lanes a bounce) and `integrator.live_lanes`
+    (live lanes a bounce, summed on the device)."""
+    with telemetry.span("integrator.sample"):
+        return _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
+                              return_stats, features)
+
+
+def _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
+                   return_stats, features):
     fused = _fuse_shadow_active(settings, features)
     dev = flat.camera.position.device
     batch = max(1, settings.spp_batch) if pixel_ids is None else 1
@@ -750,12 +781,13 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
         base_key = threefry.fold_in(threefry.PRNGKey(0), int(sample_idx))
     for si, (cap, blimit) in enumerate(plan):
         if cap < state["o"].shape[0]:
-            # pending deferred shadows must settle before lanes drop
-            state = body.resolve_pending(state)
-            out.index_add_(0, state["slot"], state["L"])
-            state = _compact_state(state, cap,
-                                   threefry.fold_in(base_key, si))
-        while state["bounce"] < blimit and bool(state["active"].any()):
+            with telemetry.span("integrator.compact", cap=cap):
+                # pending deferred shadows must settle before lanes drop
+                state = body.resolve_pending(state)
+                out.index_add_(0, state["slot"], state["L"])
+                state = _compact_state(state, cap,
+                                       threefry.fold_in(base_key, si))
+        while state["bounce"] < blimit and _any_live(state):
             state = body(state)
     state = body.resolve_pending(state)
     if out is None:
@@ -765,6 +797,13 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     if return_stats:
         return out, state["rays"]
     return out
+
+
+def _any_live(state) -> bool:
+    """Whether a lane is still active: a host read of the device."""
+    with telemetry.span("integrator.live_check"):
+        telemetry.count("sync.live_check")
+        return bool(state["active"].any())
 
 
 def bounce_step(flat: FlatScene, settings: RenderSettings, state,
@@ -792,7 +831,7 @@ def render_sample_stepped(flat: FlatScene, settings: RenderSettings,
     state = init_path_state(flat, settings, int(sample_idx))
     for _ in range(settings.max_bounces):
         state = bounce_step(flat, settings, state, features, tracers)
-        if not bool(state["active"].any()):
+        if not _any_live(state):
             break
     if return_stats:
         return state["L"], state["rays"]

@@ -13,7 +13,15 @@ buckets, or during the preview ladder the low-resolution frame upscaled);
 result, `save_checkpoint` / `load_checkpoint` keep the accumulators in the
 JAX package's `.npz` keys, and `update_instance_transform` refits an
 instanced scene after a transform edit. With PLATINUM_TPU_LOG set it emits
-the JAX Renderer's telemetry events (utils/telemetry.py).
+the JAX Renderer's telemetry events (utils/telemetry.py), then, after
+`render_done`, one `spans` event of the port's own spans and counters.
+
+Spans (while tracing is on, utils/telemetry.py): `renderer.start_render`
+with its phases `renderer.flatten`, `renderer.tracers` and
+`renderer.autoplan`; `renderer.step` for each `render()` (its step is the
+sample index it starts at; `preview` on ladder steps); and
+`renderer.readback`, `renderer.post` and `renderer.combine` on the way
+out. Each copy to the host counts under a `sync.<site>` counter.
 
 One difference from the JAX Renderer: the preview ladder renders from the
 full-resolution flatten with the camera constants of the preview size
@@ -101,11 +109,20 @@ class Renderer:
             # the JAX Renderer finds this out at its last batch
             raise ValueError(f"settings.spp ({self.settings.spp}) must be a "
                              f"multiple of spp_batch ({batch})")
+        with telemetry.span("renderer.start_render"):
+            self._start_render(camera_node_id, n_buckets, preview_scale,
+                               preview_spp)
+        self._start_time = time.perf_counter()
+        self._end_time = None
+
+    def _start_render(self, camera_node_id, n_buckets, preview_scale,
+                      preview_spp):
         self._host_accel = {}
-        self.flat = flatten_scene(self.scene, camera_node_id, self.settings,
-                                  device=self.device,
-                                  host_accel_out=self._host_accel)
-        self._features = analyze_features(self.flat)
+        with telemetry.span("renderer.flatten"):
+            self.flat = flatten_scene(self.scene, camera_node_id,
+                                      self.settings, device=self.device,
+                                      host_accel_out=self._host_accel)
+            self._features = analyze_features(self.flat)
         if self.settings.tracer == "bf" and self.flat.wbvh_meta is not None:
             # the tree's depth once, here, as the JAX Renderer does
             # (renderer.py:78-85); make_tracers hands it to the tracer
@@ -114,10 +131,12 @@ class Renderer:
             self.settings = dataclasses.replace(
                 self.settings,
                 bf_depth=_tree_depth(self.flat.wbvh_meta.cpu().numpy()))
-        self._tracers = integrator.make_tracers(self.flat, self.settings)
+        with telemetry.span("renderer.tracers"):
+            self._tracers = integrator.make_tracers(self.flat, self.settings)
         if self.settings.compact_plan == "auto":
-            self.settings = autoplan.resolve_auto_plan(
-                self.flat, self.settings, tracers=self._tracers)
+            with telemetry.span("renderer.autoplan"):
+                self.settings = autoplan.resolve_auto_plan(
+                    self.flat, self.settings, tracers=self._tracers)
         # one device accumulator per bucket: a step updates one of them
         self._buckets = [torch.zeros((self.settings.num_pixels, 3),
                                      device=self.device)
@@ -147,49 +166,51 @@ class Renderer:
                 accum=torch.zeros((pv_settings.num_pixels, 3),
                                   device=self.device),
                 done=0, spp=preview_spp)
-        self._start_time = time.perf_counter()
-        self._end_time = None
 
     def render(self):
         """One progressive step: one sample per pixel into its GMoN bucket,
         or spp_batch samples per pixel in one sample-batched wavefront.
         During the preview ladder a step advances the low-resolution
-        accumulator instead; full-resolution sample indices are untouched."""
+        accumulator instead; full-resolution sample indices are untouched.
+
+        The `preview_frame` event's `ms` is the step's host time, the
+        interval of its `renderer.step` span: it does not wait for the
+        device."""
         if self.flat is None or self.status & RenderStatus.DONE:
             return
         if self._pv is not None and self._pv["done"] < self._pv["spp"]:
             pv = self._pv
             t0 = time.perf_counter()
-            pv["accum"] = integrator.render_step(
-                pv["flat"], pv["settings"], pv["accum"], pv["done"],
-                sample_seed=pv["done"], features=self._features,
-                tracers=pv["tracers"])
+            with telemetry.span("renderer.step", step=pv["done"],
+                                preview=True):
+                pv["accum"] = integrator.render_step(
+                    pv["flat"], pv["settings"], pv["accum"], pv["done"],
+                    sample_seed=pv["done"], features=self._features,
+                    tracers=pv["tracers"])
+            ms = (time.perf_counter() - t0) * 1e3
             pv["done"] += 1
             if telemetry.enabled():
-                if pv["accum"].is_cuda:
-                    torch.cuda.synchronize(pv["accum"].device)
                 telemetry.log_event("preview_frame", frame=pv["done"],
-                                    scale=pv["scale"],
-                                    ms=(time.perf_counter() - t0) * 1e3)
+                                    scale=pv["scale"], ms=ms)
             return
         s = self.settings
         n_buckets = len(self._buckets)
         batch = max(1, s.spp_batch)
-        if batch > 1:
-            self._buckets[0] = integrator.render_step_n(
-                self.flat, s, self._buckets[0], self._accumulated, batch,
-                features=self._features, tracers=self._tracers)
-            self._accumulated += batch
-        else:
-            samples_per_bucket = -(-s.spp // n_buckets)
-            bucket = min(self._accumulated // samples_per_bucket,
-                         n_buckets - 1)
-            local_idx = self._accumulated % samples_per_bucket
-            self._buckets[bucket] = integrator.render_step(
-                self.flat, s, self._buckets[bucket], local_idx,
-                sample_seed=self._accumulated, features=self._features,
-                tracers=self._tracers)
-            self._accumulated += 1
+        with telemetry.span("renderer.step", step=self._accumulated):
+            if batch > 1:
+                self._buckets[0] = integrator.render_step_n(
+                    self.flat, s, self._buckets[0], self._accumulated, batch,
+                    features=self._features, tracers=self._tracers)
+            else:
+                samples_per_bucket = -(-s.spp // n_buckets)
+                bucket = min(self._accumulated // samples_per_bucket,
+                             n_buckets - 1)
+                local_idx = self._accumulated % samples_per_bucket
+                self._buckets[bucket] = integrator.render_step(
+                    self.flat, s, self._buckets[bucket], local_idx,
+                    sample_seed=self._accumulated, features=self._features,
+                    tracers=self._tracers)
+        self._accumulated += batch
         if telemetry.enabled():
             now = time.perf_counter()
             if self._accumulated == s.spp or now - self._last_log > 2.0:
@@ -203,10 +224,12 @@ class Renderer:
                     progress=self._accumulated / s.spp)
         if self._accumulated >= s.spp:
             if self.device.type == "cuda":
+                telemetry.count("sync.render_done")
                 torch.cuda.synchronize(self.device)
             self._end_time = time.perf_counter()
             telemetry.log_event("render_done", spp=s.spp,
                                 elapsed_s=self._end_time - self._start_time)
+            telemetry.log_spans()
 
     def render_all(self):
         while not (self.status & RenderStatus.DONE):
@@ -308,7 +331,8 @@ class Renderer:
             (self._accumulated + samples_per_bucket - 1) // samples_per_bucket,
             n_buckets))
         cap = self.settings.gmon_cap or 1.0
-        return gmon_combine(torch.stack(self._buckets), full, cap)
+        with telemetry.span("renderer.combine"):
+            return gmon_combine(torch.stack(self._buckets), full, cap)
 
     def _preview_active(self) -> bool:
         """Show the upscaled preview until the full-resolution accumulator
@@ -323,24 +347,30 @@ class Renderer:
         preview ladder this is the low-resolution frame upscaled
         (nearest-neighbour) to the full output size."""
         s = self.settings
-        if self._preview_active():
-            pv = self._pv
-            ps = pv["settings"]
-            img = pv["accum"].cpu().numpy().reshape(ps.height, ps.width, 3)
-            k = pv["scale"]
-            img = np.repeat(np.repeat(img, k, axis=0), k, axis=1)
-            return img[:s.height, :s.width]
-        return self._combined().cpu().numpy().reshape(s.height, s.width, 3)
+        with telemetry.span("renderer.readback"):
+            telemetry.count("sync.readback")
+            if self._preview_active():
+                pv = self._pv
+                ps = pv["settings"]
+                img = pv["accum"].cpu().numpy().reshape(ps.height, ps.width,
+                                                        3)
+                k = pv["scale"]
+                img = np.repeat(np.repeat(img, k, axis=0), k, axis=1)
+                return img[:s.height, :s.width]
+            return self._combined().cpu().numpy().reshape(s.height, s.width,
+                                                          3)
 
     def output_image(self, post_options: PostProcessOptions | None = None
                      ) -> np.ndarray:
         """Display-encoded (H, W, 3) float in the output colorspace; the
         post stack runs on the accumulator's device."""
         s = self.settings
-        img = self._combined().reshape(s.height, s.width, 3)
-        out = postprocess_jit(img, post_options or self.post_options,
-                              s.working_space, s.output_space)
-        return out.cpu().numpy()
+        with telemetry.span("renderer.post"):
+            img = self._combined().reshape(s.height, s.width, 3)
+            out = postprocess_jit(img, post_options or self.post_options,
+                                  s.working_space, s.output_space)
+            telemetry.count("sync.post")
+            return out.cpu().numpy()
 
     def export_png(self, path: str, post_options=None):
         from platinum_tpu_torch.io.png import write_png

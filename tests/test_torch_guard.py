@@ -129,7 +129,9 @@ COPIES = {
     "tools/gltf_export.py": "encodes textures through io/png.py",
     "tools/import_luts.py": True,
     "utils/matrices.py": True,
-    "utils/telemetry.py": True,
+    "utils/telemetry.py": "adds the port's spans and counters (span, count, "
+                          "count_device, start, stop, drain, summary, "
+                          "log_spans)",
 }
 
 

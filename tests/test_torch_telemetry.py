@@ -1,0 +1,394 @@
+"""The port's spans and counters (platinum_tpu_torch/utils/telemetry.py),
+on the CPU:
+
+- with tracing off, `span` is the shared no-op context and nothing is
+  recorded, allocated, timed or touched;
+- spans nest, carry their parent and step, and self times add up to the
+  root's total; counters add, device counters are summed at drain;
+- a Renderer run on Cornell gives the documented spans per bounce, and
+  `renderer.readback` / `renderer.post` / `renderer.combine` on the way
+  out; with PLATINUM_TPU_LOG set, `render_done` is followed by one
+  `spans` event;
+- `integrator.live_lanes` is `rays / 2` of `return_stats` on an mis
+  render, and `sync.live_check` counts the bounce loop's tests;
+- the `sync.*` counters add up to every call of the render path that
+  reads the device on the host or makes a device tensor from a host
+  value (counted here by wrapping those torch entry points);
+- under a CPU torch.profiler the spans sit in portbench's host table, and
+  an idle gap is named by its covering span;
+- tools/torch_trace_cell.py's readings of recorded drains.
+"""
+
+import collections
+import io
+import json
+import os
+import sys
+import tracemalloc
+
+import pytest
+import torch
+
+from platinum_tpu_torch.app import scenes
+from platinum_tpu_torch.render import integrator
+from platinum_tpu_torch.render.flatten import analyze_features, flatten_scene
+from platinum_tpu_torch.render.renderer import Renderer, RenderStatus
+from platinum_tpu_torch.render.types import FLAG_GMON, RenderSettings
+from platinum_tpu_torch.utils import telemetry
+from portbench import profiling
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "tools"))
+
+import torch_trace_cell as tc  # noqa: E402
+
+torch.set_num_threads(1)
+
+BOUNCE_CHILDREN = ["integrator.trace_closest", "integrator.shade",
+                   "integrator.trace_shadow"]
+
+
+@pytest.fixture
+def tracing():
+    telemetry.drain()
+    telemetry.start()
+    yield
+    telemetry.stop()
+    telemetry.drain()
+
+
+def _settings(**kw):
+    base = dict(width=8, height=8, spp=2, max_bounces=3, kernel="mis")
+    base.update(kw)
+    return RenderSettings(**base)
+
+
+def test_off_is_one_shared_noop_and_records_nothing(monkeypatch):
+    assert not telemetry._ON
+    telemetry.drain()
+
+    def no_clock():
+        raise AssertionError("a clock was read with tracing off")
+
+    monkeypatch.setattr(telemetry.time, "perf_counter_ns", no_clock)
+
+    class Untouchable:
+        def __getattr__(self, name):
+            raise AssertionError(f"{name} read with tracing off")
+
+    dev = Untouchable()
+    assert telemetry.span("a") is telemetry.span("b", bounce=1, lanes=2,
+                                                 cap=3, step=4)
+    tracemalloc.start()
+    try:
+        before = tracemalloc.take_snapshot()
+        for i in range(256):        # small ints: no new int objects
+            with telemetry.span("integrator.bounce", bounce=i, lanes=64):
+                telemetry.count("sync.live_check")
+                telemetry.count_device("integrator.live_lanes", dev)
+        after = tracemalloc.take_snapshot()
+    finally:
+        tracemalloc.stop()
+    here = (os.path.abspath(__file__), os.path.abspath(telemetry.__file__))
+    grown = [d for d in after.compare_to(before, "filename")
+             if d.traceback[0].filename in here and d.count_diff > 0]
+    assert grown == []
+    assert telemetry.drain() == dict(spans=[], counters={})
+
+
+def test_spans_nest_with_parent_step_and_self_time(tracing):
+    with telemetry.span("root", step=5):
+        with telemetry.span("a", bounce=1, lanes=64):
+            with telemetry.span("a.inner", cap=512):
+                pass
+        with telemetry.span("b", preview=True):
+            telemetry.count("n")
+            telemetry.count("n", 2)
+            telemetry.count_device("d", torch.tensor(1.5))
+            telemetry.count_device("d", torch.tensor(2.0))
+    with telemetry.span("open"):
+        first = telemetry.drain()
+        with telemetry.span("late"):
+            pass
+    second = telemetry.drain()
+
+    spans = first["spans"]
+    assert [s["name"] for s in spans] == ["root", "a", "a.inner", "b"]
+    assert [s["parent"] for s in spans] == [None, 0, 1, 0]
+    assert [s["step"] for s in spans] == [5, 5, 5, 5]
+    assert spans[1]["bounce"] == 1 and spans[1]["lanes"] == 64
+    assert spans[2]["cap"] == 512 and spans[3]["preview"] is True
+    assert "bounce" not in spans[0]
+    assert all(s["start_ns"] <= s["end_ns"] for s in spans)
+    assert first["counters"] == {"n": 3, "d": 3.5}
+
+    summ = telemetry.summary(spans)
+    total = spans[0]["end_ns"] - spans[0]["start_ns"]
+    assert sum(v["self_ms"] for v in summ.values()) == pytest.approx(
+        total * 1e-6, abs=1e-9)
+    assert summ["a"]["self_ms"] == pytest.approx(
+        summ["a"]["total_ms"] - summ["a.inner"]["total_ms"], abs=1e-9)
+    assert all(v["count"] == 1 for v in summ.values())
+    # the span open at the first drain comes with the second, its child
+    # there pointing at it
+    assert [s["name"] for s in second["spans"]] == ["open", "late"]
+    assert second["spans"][1]["parent"] == 0
+    assert telemetry.drain() == dict(spans=[], counters={})
+
+
+def test_renderer_spans_per_bounce(tracing):
+    scene, cam = scenes.make_cornell_scene()
+    r = Renderer(scene, device="cpu")
+    r.start_render(cam, _settings())
+    setup = telemetry.drain()["spans"]
+    assert [s["name"] for s in setup] == [
+        "renderer.start_render", "renderer.flatten", "renderer.tracers"]
+    assert [s["parent"] for s in setup] == [None, 0, 0]
+
+    r.render()
+    d = telemetry.drain()
+    spans = d["spans"]
+    names = [s["name"] for s in spans]
+    assert names[:2] == ["renderer.step", "integrator.sample"]
+    assert all(s["step"] == 0 for s in spans)
+    bounces = [i for i, n in enumerate(names) if n == "integrator.bounce"]
+    assert [spans[i]["bounce"] for i in bounces] == list(range(len(bounces)))
+    assert all(spans[i]["lanes"] == 64 for i in bounces)
+    for i in bounces:
+        kids = [s["name"] for s in spans if s["parent"] == i]
+        assert kids == BOUNCE_CHILDREN
+        assert spans[i]["parent"] == 1
+    checks = [s for s in spans if s["name"] == "integrator.live_check"]
+    assert all(s["parent"] == 1 for s in checks)
+    assert d["counters"]["sync.live_check"] == len(checks)
+    assert d["counters"]["integrator.wave_lanes"] == 64 * len(bounces)
+
+    r.readback()
+    r.output_image()
+    out = [s["name"] for s in telemetry.drain()["spans"]]
+    assert out == ["renderer.readback", "renderer.post"]
+
+
+def test_gmon_combine_and_preview_steps(tracing):
+    scene, cam = scenes.make_cornell_scene()
+    r = Renderer(scene, device="cpu")
+    r.start_render(cam, _settings(spp=4, flags=1 | FLAG_GMON,
+                                  gmon_buckets=2),
+                   preview_scale=2, preview_spp=1)
+    telemetry.drain()
+    r.render()
+    r.render()
+    r.readback()
+    steps = [s for s in telemetry.drain()["spans"]
+             if s["name"] == "renderer.step"]
+    assert [(s["step"], s.get("preview")) for s in steps] == [(0, True),
+                                                              (0, None)]
+    r.render()
+    r.readback()
+    names = [s["name"] for s in telemetry.drain()["spans"]]
+    assert names[-2:] == ["renderer.readback", "renderer.combine"]
+
+
+def test_log_emits_spans_after_render_done(monkeypatch, tracing):
+    buf = io.StringIO()
+    monkeypatch.setattr(telemetry, "_CHECKED", True)
+    monkeypatch.setattr(telemetry, "_DEST", buf)
+    scene, cam = scenes.make_cornell_scene()
+    r = Renderer(scene, device="cpu")
+    r.start_render(cam, _settings())
+    while not r.status & RenderStatus.DONE:
+        r.render()
+    events = [json.loads(x) for x in buf.getvalue().splitlines()]
+    assert [e["event"] for e in events][-2:] == ["render_done", "spans"]
+    spans = events[-1]["spans"]
+    assert spans["renderer.step"]["count"] == 2
+    assert spans["renderer.start_render"]["count"] == 1
+    assert set(spans["integrator.bounce"]) == {"count", "total_ms",
+                                               "self_ms"}
+    assert events[-1]["counters"]["sync.live_check"] >= 2
+    assert telemetry.drain() == dict(spans=[], counters={})
+
+
+def _flat(settings):
+    scene, cam = scenes.make_cornell_scene()
+    flat = flatten_scene(scene, cam, settings, device="cpu")
+    return flat, analyze_features(flat)
+
+
+def test_live_lanes_are_half_the_mis_rays(tracing):
+    s = _settings(width=16, height=16, max_bounces=6)
+    flat, feats = _flat(s)
+    telemetry.drain()
+    _, rays = integrator.render_sample(flat, s, 3, return_stats=True,
+                                       features=feats)
+    c = telemetry.drain()["counters"]
+    assert c["integrator.live_lanes"] == float(rays) / 2
+    assert 0 < c["integrator.live_lanes"] <= c["integrator.wave_lanes"]
+
+
+def test_live_check_counts_the_loop_tests(tracing):
+    s = _settings(width=16, height=16, max_bounces=64)
+    flat, feats = _flat(s)
+    telemetry.drain()
+    integrator.render_sample(flat, s, 0, features=feats)
+    d = telemetry.drain()
+    bounces = sum(1 for x in d["spans"] if x["name"] == "integrator.bounce")
+    # every lane dies before 64 bounces: each bounce was preceded by a
+    # test, and one more test found no lane
+    assert bounces < 64
+    assert d["counters"]["sync.live_check"] == bounces + 1
+
+
+BLOCKING_METHODS = ("__bool__", "__int__", "__float__", "__index__", "item",
+                    "tolist", "cpu", "nonzero", "numpy")
+
+
+def _count_blocking(monkeypatch):
+    """Wrap the torch entry points that wait for the device on a GPU: a
+    host read of a tensor, and a tensor made from host data for a
+    device."""
+    seen = collections.Counter()
+    on = [False]
+
+    def method(name):
+        orig = getattr(torch.Tensor, name)
+
+        def wrapped(self, *a, **k):
+            if on[0]:
+                seen[name] += 1
+            return orig(self, *a, **k)
+        monkeypatch.setattr(torch.Tensor, name, wrapped)
+
+    for name in BLOCKING_METHODS:
+        method(name)
+    for name in ("tensor", "as_tensor"):
+        orig = getattr(torch, name)
+
+        def make(data, *a, _orig=orig, _name=name, **k):
+            if on[0] and k.get("device") is not None and not torch.is_tensor(
+                    data):
+                seen[_name] += 1
+            return _orig(data, *a, **k)
+        monkeypatch.setattr(torch, name, make)
+    return seen, on
+
+
+@pytest.mark.parametrize("kw", [
+    dict(kernel="mis", max_bounces=3),
+    dict(kernel="mis", max_bounces=3, flags=1 | FLAG_GMON, gmon_buckets=2,
+         spp=4),
+    dict(kernel="mis", max_bounces=8, compact=True, width=96, height=96,
+         compact_plan=((9216, 2), (4608, 8))),
+], ids=["mis", "gmon", "compact"])
+def test_sync_counters_cover_every_blocking_call(monkeypatch, tracing, kw):
+    scene, cam = scenes.make_cornell_scene()
+    r = Renderer(scene, device="cpu")
+    r.start_render(cam, _settings(**kw))
+    r.render()
+    telemetry.drain()
+    seen, on = _count_blocking(monkeypatch)
+    on[0] = True
+    r.render()
+    r.readback()
+    r.output_image()
+    on[0] = False
+    c = telemetry.drain()["counters"]
+    syncs = {k: v for k, v in c.items() if k.startswith("sync.") and v}
+    # the output path's .cpu() then .numpy() is one copy: numpy() of a
+    # host tensor reads nothing of the device
+    assert sum(syncs.values()) == sum(seen.values()) - seen["numpy"], (
+        syncs, dict(seen))
+    assert {"sync.live_check", "sync.readback", "sync.post"} <= set(syncs)
+
+
+def test_spans_sit_in_the_profilers_host_table(tracing):
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    scene, cam = scenes.make_cornell_scene()
+    r = Renderer(scene, device="cpu")
+    r.start_render(cam, _settings())
+    telemetry.drain()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function(profiling.WINDOW):
+            r.render()
+    device, host = profiling.from_profiler(prof)
+    names = {n for n, _, _ in host}
+    assert {"renderer.step", "integrator.sample", "integrator.bounce",
+            *BOUNCE_CHILDREN} <= names
+    recorded = telemetry.drain()["spans"]
+    ev = {n: (s, e) for n, s, e in host if n == "renderer.step"}
+    s0, s1 = ev["renderer.step"]
+    # the profiler's interval of a span holds that of its first child
+    kids = [(s, e) for n, s, e in host if n == "integrator.sample"]
+    assert kids and s0 <= kids[0][0] <= kids[0][1] <= s1
+    assert len([x for x in recorded if x["name"] == "renderer.step"]) == 1
+    assert not [n for n, _, _ in device if n in names]
+
+
+GAP_TABLE = dict(
+    device=[("k1", 0.0, 10.0), ("k2", 60.0, 70.0), ("k3", 90.0, 100.0)],
+    host=[(profiling.WINDOW, 0.0, 100.0),
+          ("integrator.bounce", 5.0, 95.0),
+          ("integrator.shade", 8.0, 65.0),
+          ("aten::select", 30.0, 40.0),
+          ("integrator.trace_shadow", 66.0, 94.0)])
+
+
+def test_summarize_names_a_gap_by_its_covering_span():
+    s = profiling.summarize(GAP_TABLE["device"], GAP_TABLE["host"], ("k",))
+    assert s["idle_gaps"][0][0] == "aten::select"
+    assert s["idle_gaps"][1][0] == "integrator.trace_shadow"
+    names = {"integrator.bounce", "integrator.shade",
+             "integrator.trace_shadow"}
+    gaps = tc.name_gaps(GAP_TABLE["device"], GAP_TABLE["host"], names,
+                        (0.0, 100.0))
+    assert [g[0] for g in gaps] == ["integrator.shade / aten::select",
+                                    "integrator.trace_shadow"]
+    assert [round(g[1] * 1e6) for g in gaps] == [50, 20]
+
+
+def test_syncs_are_put_down_to_their_span():
+    host = GAP_TABLE["host"] + [("cudaStreamSynchronize", 31.0, 32.0),
+                                ("cudaMemcpy", 70.0, 71.0),
+                                ("cudaStreamSynchronize", 96.0, 97.0),
+                                ("cudaStreamSynchronize", 101.0, 102.0)]
+    names = {"integrator.bounce", "integrator.shade",
+             "integrator.trace_shadow"}
+    assert tc.syncs_by_span(host, names, (0.0, 100.0)) == {
+        "integrator.shade": 1, "integrator.trace_shadow": 1,
+        "(no span)": 1}
+
+
+def _drain(name, ms, parent=None):
+    return dict(name=name, start_ns=0, end_ns=int(ms * 1e6), parent=parent,
+                step=None)
+
+
+def test_readings_of_recorded_drains():
+    setup = dict(spans=[_drain("renderer.start_render", 9000),
+                        _drain("renderer.flatten", 4000, 0),
+                        _drain("renderer.tracers", 250, 0),
+                        _drain("renderer.autoplan", 1500, 0)], counters={})
+    plain = dict(plain_spp=4, spans=[
+        _drain("integrator.shade", 100), _drain("integrator.shade", 60),
+        _drain("integrator.trace_closest", 30),
+        _drain("integrator.trace_shadow", 10)],
+        counters={"integrator.wave_lanes": 1000,
+                  "integrator.live_lanes": 250.0})
+    profiled = dict(spp=2, spans=[], counters={
+        "sync.live_check": 16, "sync.wave_bounds": 48, "sync.post": 0,
+        "integrator.wave_lanes": 10})
+    got = tc.readings(setup, plain, profiled)
+    assert got == pytest.approx({
+        "setup.flatten_s": 4.0, "setup.tracer_build_s": 0.25,
+        "setup.autoplan_s": 1.5, "integrator.sync_sites_per_spp": 32.0,
+        "integrator.live_lane_pct": 25.0,
+        "dispatch.shade_host_ms_per_spp": 40.0,
+        "dispatch.trace_host_ms_per_spp": 10.0})
+    # a static plan has no probe: no autoplan reading, and no lanes
+    # counted reads no live share
+    setup["spans"].pop()
+    plain["counters"] = {}
+    got = tc.readings(setup, plain, profiled)
+    assert "setup.autoplan_s" not in got
+    assert "integrator.live_lane_pct" not in got

@@ -1,0 +1,291 @@
+"""One benchmark cell of `portbench/` run with the port's own spans and
+counters on (platinum_tpu_torch/utils/telemetry.py), drained phase by
+phase, on the GPU.
+
+    python3 tools/torch_trace_cell.py --workload sponza_class.final_1080p \
+        --seed 3037000493 --seconds 20 [--tracing 0] [--out F]
+
+The phases are the harness's (portbench/harness.py): set-up (scene,
+`Renderer.start_render`, a warm step, the resume at sample
+1 + seed % 64), a closed-loop window of `--seconds` of `render()` steps
+(`ms_per_spp`), a plain stretch of `render_sample(...,
+return_stats=True)` calls outside the profiler, then two steps under
+torch.profiler. Tracing is on from before the Renderer is built and the
+records are drained after each phase. Prints one JSON line: the card and
+its power limit, set-up by part, `ms_per_spp` over the window, span
+totals per phase (count, total and self ms), the counters, the seven
+span and counter readings (setup.flatten_s, setup.tracer_build_s,
+setup.autoplan_s, integrator.sync_sites_per_spp, integrator.live_lane_pct,
+dispatch.shade_host_ms_per_spp, dispatch.trace_host_ms_per_spp), the
+profiler's launches and synchronising calls over the same two steps, the
+synchronising calls by the innermost program span they were made in, and
+the ten longest device idle gaps, each named by the innermost program
+span and the innermost operator at its middle.
+
+`--tracing 0` runs set-up and the window alone with tracing off.
+`--turns N` measures the cost of tracing: after a set-up with tracing
+off, 2N windows of `--seconds` in one process, tracing off and on in
+turns (off, on, on, off, ...), each with its `ms_per_spp`. Needs a CUDA
+device.
+"""
+
+from __future__ import annotations
+
+import time
+
+T_START = time.perf_counter()
+
+import argparse  # noqa: E402
+import collections  # noqa: E402
+import io  # noqa: E402
+import json  # noqa: E402
+import os  # noqa: E402
+import subprocess  # noqa: E402
+import sys  # noqa: E402
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PLAIN_SECONDS = 2.0
+PROFILED_STEPS = 2
+TRACE_SPANS = ("integrator.trace_closest", "integrator.trace_shadow")
+
+
+def _span_ms(spans, names) -> float:
+    return sum(s["end_ns"] - s["start_ns"] for s in spans
+               if s["name"] in names) * 1e-6
+
+
+def readings(setup, plain, profiled) -> dict:
+    """The seven readings of three drains: set-up, the plain stretch
+    (with `plain_spp` samples) and the profiled window (with `spp`)."""
+    out = {}
+    for key, name in (("setup.flatten_s", "renderer.flatten"),
+                      ("setup.tracer_build_s", "renderer.tracers"),
+                      ("setup.autoplan_s", "renderer.autoplan")):
+        if any(s["name"] == name for s in setup["spans"]):
+            out[key] = _span_ms(setup["spans"], (name,)) * 1e-3
+    c = profiled["counters"]
+    out["integrator.sync_sites_per_spp"] = sum(
+        v for k, v in c.items() if k.startswith("sync.")) / profiled["spp"]
+    c = plain["counters"]
+    if c.get("integrator.wave_lanes"):
+        out["integrator.live_lane_pct"] = (
+            100.0 * c["integrator.live_lanes"] / c["integrator.wave_lanes"])
+    n = plain["plain_spp"]
+    out["dispatch.shade_host_ms_per_spp"] = _span_ms(
+        plain["spans"], ("integrator.shade",)) / n
+    out["dispatch.trace_host_ms_per_spp"] = _span_ms(
+        plain["spans"], TRACE_SPANS) / n
+    return out
+
+
+def name_gaps(device, host, span_names, window, top: int = 10) -> list:
+    """The `top` longest device idle gaps of the window, each named
+    "<innermost program span> / <innermost other host event>" at its
+    middle (portbench/profiling.py's rule for the second part)."""
+    from portbench import profiling
+
+    w0, w1 = window
+    busy = profiling._union([(max(s, w0), min(e, w1)) for _, s, e in device
+                             if e > w0 and s < w1])
+    edges = [[w0, w0]] + busy + [[w1, w1]]
+    gaps = sorted(((a[1], b[0]) for a, b in zip(edges, edges[1:])
+                   if b[0] > a[1]), key=lambda g: g[0] - g[1])[:top]
+    calls = [(n, s, e) for n, s, e in host
+             if w0 <= s <= w1 and n != profiling.WINDOW]
+    out = []
+    for g0, g1 in gaps:
+        mid = 0.5 * (g0 + g1)
+        cover = [(e - s, n) for n, s, e in calls if s <= mid <= e]
+        spans = [c for c in cover if c[1] in span_names]
+        ops = [c for c in cover if c[1] not in span_names]
+        name = " / ".join(x for x in (min(spans)[1] if spans else None,
+                                      min(ops)[1] if ops else None) if x)
+        out.append([name or "python (no operator)", (g1 - g0) * 1e-6])
+    return out
+
+
+def syncs_by_span(host, span_names, window) -> dict:
+    """{innermost program span: count} of the synchronising runtime calls
+    (portbench/profiling.py's SYNCS) made inside the window."""
+    from portbench import profiling
+
+    w0, w1 = window
+    spans = [(e - s, n, s, e) for n, s, e in host if n in span_names]
+    out = collections.Counter()
+    for n, s, _ in host:
+        if n in profiling.SYNCS and w0 <= s <= w1:
+            cover = [c for c in spans if c[2] <= s <= c[3]]
+            out[min(cover)[1] if cover else "(no span)"] += 1
+    return dict(out.most_common())
+
+
+def trace_cell(spec: dict, seed: int, seconds: float, tracing: bool,
+               device: str = "cuda", turns: int = 0) -> dict:
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.flatten import analyze_features
+    from platinum_tpu_torch.render.renderer import Renderer
+    from platinum_tpu_torch.render.types import RenderSettings
+    from platinum_tpu_torch.utils import telemetry
+    from portbench import harness, profiling, scenes
+
+    cuda = device != "cpu"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize()
+
+    parts = dict(imports_s=time.perf_counter() - T_START)
+    if tracing:
+        telemetry.start()
+    traffic, config = spec["traffic"], spec["config"]
+    t = time.perf_counter()
+    arrays = scenes.make(config)
+    settings = RenderSettings(width=traffic["width"],
+                              height=traffic["height"], spp=1 << 30,
+                              **config["settings"])
+    scene, cam = harness.port_scene(arrays)
+    parts["scene_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r = Renderer(scene, device=device)
+    r.start_render(cam, settings)
+    sync()
+    parts["start_render_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    r.render()                                  # warm step: sample 0
+    sync()
+    parts["warm_step_s"] = time.perf_counter() - t
+    t = time.perf_counter()
+    first = 1 + seed % harness.FIRST_SAMPLES
+    buf = io.BytesIO()
+    np.savez(buf, buckets=r.readback().reshape(1, -1, 3), accumulated=first)
+    buf.seek(0)
+    r.load_checkpoint(buf)
+    sync()
+    parts["resume_s"] = time.perf_counter() - t
+    parts["setup_s"] = time.perf_counter() - T_START
+    out = dict(workload=spec["cell"]["name"], seed=seed, tracing=tracing,
+               setup=parts)
+    if tracing:
+        setup = telemetry.drain()
+        out["setup_spans"] = telemetry.summary(setup["spans"])
+        out["setup_counters"] = setup["counters"]
+
+    def window():
+        steps = 0
+        w0 = time.perf_counter()
+        while True:
+            r.render()
+            steps += 1
+            if time.perf_counter() - w0 >= seconds:
+                break
+        sync()
+        return time.perf_counter() - w0, steps
+
+    if turns:
+        out["turns"] = []
+        for on in [False, True, True, False] * (turns // 2) + [
+                False, True] * (turns % 2):
+            (telemetry.start if on else telemetry.stop)()
+            window_s, steps = window()
+            telemetry.stop()
+            telemetry.drain()
+            out["turns"].append([on, window_s * 1e3 / steps, steps])
+        return out
+    window_s, steps = window()
+    out.update(window_s=window_s, window_steps=steps,
+               ms_per_spp=window_s * 1e3 / steps)
+    if not tracing:
+        return out
+    win = telemetry.drain()
+    out["window_spans"] = telemetry.summary(win["spans"])
+    out["window_counters"] = win["counters"]
+
+    tracers = integrator.make_tracers(r.flat, r.settings)
+    feats = analyze_features(r.flat)
+    nxt = first + steps
+    telemetry.drain()
+    rays, n = 0.0, 0
+    sync()
+    p0 = time.perf_counter()
+    while n < 2 or time.perf_counter() - p0 < PLAIN_SECONDS:
+        _, k = integrator.render_sample(r.flat, r.settings, nxt + n,
+                                        tracers=tracers, return_stats=True,
+                                        features=feats)
+        rays += float(k)
+        n += 1
+    sync()
+    plain = telemetry.drain()
+    plain.update(plain_spp=n, plain_s=time.perf_counter() - p0, rays=rays)
+    out["plain"] = dict(spp=n, seconds=plain["plain_s"], rays=rays,
+                        spans=telemetry.summary(plain["spans"]),
+                        counters=plain["counters"])
+    del tracers
+
+    acts = [ProfilerActivity.CPU]
+    if cuda:
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        with record_function(profiling.WINDOW):
+            for _ in range(PROFILED_STEPS):
+                r.render()
+            sync()
+    profiled = telemetry.drain()
+    profiled["spp"] = PROFILED_STEPS
+    out["profiled_counters"] = profiled["counters"]
+    out["profiled_spans"] = telemetry.summary(profiled["spans"])
+    dev, host = profiling.from_profiler(prof)
+    summ = profiling.summarize(dev, host, profiling.trace_patterns())
+    names = {s["name"] for s in profiled["spans"]}
+    win_ev = [(s, e) for n_, s, e in host if n_ == profiling.WINDOW][0]
+    out["profile"] = dict(
+        launches_per_spp=summ["launches"] / PROFILED_STEPS,
+        syncs_per_spp=summ["syncs"] / PROFILED_STEPS,
+        idle_pct=100.0 * (1.0 - summ["busy_s"] / summ["window_s"]),
+        syncs_by_span=syncs_by_span(host, names, win_ev),
+        idle_gaps_by_span=name_gaps(dev, host, names, win_ev),
+        idle_gaps_harness=summ["idle_gaps"])
+    out["readings"] = readings(setup, plain, profiled)
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--workload", required=True)
+    ap.add_argument("--seed", type=int, default=3037000493)
+    ap.add_argument("--seconds", type=float, default=20.0)
+    ap.add_argument("--tracing", type=int, choices=(0, 1), default=1)
+    ap.add_argument("--turns", type=int, default=0)
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    os.chdir(ROOT)
+    sys.path.insert(0, ROOT)
+
+    import torch
+
+    from portbench import harness
+
+    if not torch.cuda.is_available():
+        print("torch_trace_cell: needs a CUDA device", file=sys.stderr)
+        return 2
+    spec = harness.find_cell(harness.load_json("BENCHMARK.json"),
+                             args.workload)
+    out = trace_cell(spec, args.seed, args.seconds, bool(args.tracing),
+                     turns=args.turns)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True)
+    out["card"] = smi.stdout.strip()
+    line = json.dumps(out)
+    if args.out:
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
