@@ -21,7 +21,7 @@ from platinum_tpu_torch.models import fresnel, ggx
 from platinum_tpu_torch.ops import lookup
 from platinum_tpu_torch.ops import luts as luts_mod
 from platinum_tpu_torch.ops import samplers as smp
-from platinum_tpu_torch.ops.frame import dot, norm
+from platinum_tpu_torch.ops.frame import const_like, dot, norm
 from platinum_tpu_torch.ops.texturing import sample_material_textures
 from platinum_tpu_torch.render.types import (
     MAT_ANISOTROPIC,
@@ -29,7 +29,6 @@ from platinum_tpu_torch.render.types import (
     MAT_THIN,
     MaterialTable,
 )
-from platinum_tpu_torch.utils import telemetry
 
 # Sample flag bits (parity with bsdf::SampleFlags)
 SAMPLE_REFLECTED = 1
@@ -500,8 +499,7 @@ def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
     t = ctx.transmission
     c = ctx.clearcoat
     zero3 = torch.zeros_like(wo)
-    telemetry.count("sync.bsdf_const")
-    up = zero3 + torch.tensor([0.0, 0.0, 1.0], device=dev)
+    up = zero3 + const_like((0.0, 0.0, 1.0), zero3)
 
     # lobe-selection probabilities (bsdf.metal:229-252)
     if has_coat:
@@ -559,8 +557,7 @@ def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
         f_ss = fresnel.fresnel_dielectric(torch.abs(dot_wo_wm), ior_t)
         reflecting = rz < f_ss
         wi_refl = ggx.reflect(-wo, wm)
-        telemetry.count("sync.bsdf_const")
-        wi_thin = wi_refl * torch.tensor([1.0, 1.0, -1.0], device=dev)
+        wi_thin = wi_refl * const_like((1.0, 1.0, -1.0), wi_refl)
         wm_signed = wm * torch.where(dot_wo_wm[..., None] < 0, -1.0, 1.0)
         wi_refr = ggx.refract(-wo, wm_signed, 1.0 / ior_t)
         wi_tr = torch.where(reflecting[..., None], wi_refl,

@@ -4,8 +4,6 @@ from __future__ import annotations
 
 import torch
 
-from platinum_tpu_torch.utils import telemetry
-
 
 def schlick(f0: torch.Tensor, cos_theta: torch.Tensor) -> torch.Tensor:
     """Schlick approximation; f0 (..., 3) or (...,), cos_theta (...,)."""
@@ -21,8 +19,12 @@ def fresnel_dielectric(cos_theta: torch.Tensor, ior) -> torch.Tensor:
     """Exact unpolarized dielectric reflectance; ior = n_t / n_i (a tensor
     or a float). Total internal reflection -> 1."""
     cos_theta = torch.clamp(cos_theta, 0.0, 1.0)
-    telemetry.count("sync.fresnel_ior", not torch.is_tensor(ior))
-    ior = torch.as_tensor(ior, dtype=cos_theta.dtype, device=cos_theta.device)
+    if torch.is_tensor(ior):
+        ior = ior.to(dtype=cos_theta.dtype, device=cos_theta.device)
+    else:
+        # a fill, not a copy from the host
+        ior = torch.full((), ior, dtype=cos_theta.dtype,
+                         device=cos_theta.device)
     sin2_t = (1.0 - cos_theta * cos_theta) / torch.clamp(ior * ior, min=1e-20)
     cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=0.0))
     parallel = (ior * cos_theta - cos_t) / torch.clamp(

@@ -11,9 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from platinum_tpu_torch.ops.frame import cross, dot, norm, normalize
+from platinum_tpu_torch.ops.frame import (const_like, cross, dot, norm,
+                                          normalize)
 from platinum_tpu_torch.ops.samplers import sample_disk
-from platinum_tpu_torch.utils import telemetry
 
 SMOOTH_ALPHA = 1e-3
 
@@ -66,11 +66,6 @@ def vmdf(alpha, w, wm):
             * mdf(alpha, wm) * torch.abs(dot(w, wm)))
 
 
-def _const(v, like):
-    telemetry.count("sync.ggx_const")
-    return torch.tensor(v, dtype=like.dtype, device=like.device).expand(like.shape)
-
-
 def sample_vmdf(alpha, w, u):
     """Sample a visible microfacet normal (spherical-cap method)."""
     wh = torch.stack([w[..., 0] * alpha[..., 0], w[..., 1] * alpha[..., 1],
@@ -78,11 +73,11 @@ def sample_vmdf(alpha, w, u):
     wh = normalize(wh)
     wh = wh * torch.where(wh[..., 2:3] < 0.0, -1.0, 1.0)
 
-    b_raw = cross(_const([0.0, 0.0, 1.0], wh), wh)
+    b_raw = cross(const_like((0.0, 0.0, 1.0), wh), wh)
     b_len = norm(b_raw, keepdim=True)
     b = torch.where(wh[..., 2:3] < 0.9999,
                     b_raw / torch.clamp(b_len, min=1e-20),
-                    _const([1.0, 0.0, 0.0], wh))
+                    const_like((1.0, 0.0, 0.0), wh))
     t = cross(wh, b)
 
     p = sample_disk(u)
@@ -117,9 +112,10 @@ def reflect(i, n):
 def refract(i, n, eta):
     """Metal-convention refract; 0-vector on total internal reflection.
     eta = n_incident / n_transmitted."""
-    telemetry.count("sync.refract_eta", not torch.is_tensor(eta))
-    eta = torch.broadcast_to(torch.as_tensor(eta, dtype=i.dtype,
-                                             device=i.device),
+    if not torch.is_tensor(eta):
+        # a fill, not a copy from the host
+        eta = torch.full((), eta, dtype=i.dtype, device=i.device)
+    eta = torch.broadcast_to(eta.to(dtype=i.dtype, device=i.device),
                              i.shape[:-1])[..., None]
     cos_i = torch.sum(n * i, dim=-1, keepdim=True)
     k = 1.0 - eta * eta * (1.0 - cos_i * cos_i)

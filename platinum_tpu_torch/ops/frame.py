@@ -10,8 +10,6 @@ from __future__ import annotations
 
 import torch
 
-from platinum_tpu_torch.utils import telemetry
-
 
 def dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.sum(a * b, dim=-1)
@@ -42,14 +40,29 @@ def rdiv(c: float, t: torch.Tensor) -> torch.Tensor:
     return torch.full_like(t, c) / t
 
 
-def _const(v, like: torch.Tensor) -> torch.Tensor:
-    telemetry.count("sync.frame_const")
-    return torch.tensor(v, dtype=like.dtype, device=like.device).expand(like.shape)
+_CONSTS: dict = {}
+
+
+def const_like(values: tuple, like: torch.Tensor) -> torch.Tensor:
+    """The vector `values` in `like`'s dtype on its device, expanded to
+    `like`'s shape. The vector is made once per (values, dtype, device)
+    by fills and kept: no copy from the host, so no sync, and nothing a
+    CUDA graph capture refuses. One made while the current stream is
+    capturing belongs to that graph and is not kept."""
+    key = (values, like.dtype, like.device)
+    c = _CONSTS.get(key)
+    if c is None:
+        c = torch.stack([torch.full((), v, dtype=like.dtype,
+                                    device=like.device) for v in values])
+        if not (like.is_cuda and torch.cuda.is_current_stream_capturing()):
+            _CONSTS[key] = c
+    return c.expand(like.shape)
 
 
 def from_normal(n: torch.Tensor):
     a = torch.where((torch.abs(n[..., 0]) > 0.5)[..., None],
-                    _const([0.0, 0.0, 1.0], n), _const([1.0, 0.0, 0.0], n))
+                    const_like((0.0, 0.0, 1.0), n),
+                    const_like((1.0, 0.0, 0.0), n))
     b = normalize(cross(n, a))
     t = cross(n, b)
     return t, b, n

@@ -1106,7 +1106,9 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     `trace_closest.paired(oc, dc, tminc, tmaxc, oa, da, tmina, tmaxa,
     active_c=None, active_a=None)` traces a closest-hit wave and an
     any-hit wave in one launch (K8) and returns (HitRecord, occluded);
-    one tree level only."""
+    one tree level only. Both functions carry `capturable`, True when
+    `trace_fn` is `trace_wide`: their waves then neither read the device
+    on the host nor copy from it, so a CUDA graph may capture them."""
     pipe = bool(pipe) or flat_walk
     profile = PROFILE if profile is None else profile
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
@@ -1160,10 +1162,12 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
         that sorted it (None if it was not sorted)."""
         r = o.shape[0]
         dev = o.device
-        telemetry.count("sync.wave_bounds", (not torch.is_tensor(tmin))
-                        + (not torch.is_tensor(tmax)))
-        tmin = torch.as_tensor(tmin, dtype=torch.float32, device=dev).expand(r)
-        tmax = torch.as_tensor(tmax, dtype=torch.float32, device=dev).expand(r)
+        # a Python bound becomes a fill, not a copy from the host
+        tmin, tmax = (
+            torch.full((r,), x, dtype=torch.float32, device=dev)
+            if not torch.is_tensor(x)
+            else x.to(dtype=torch.float32, device=dev).expand(r)
+            for x in (tmin, tmax))
         if active is not None:
             tmax = torch.where(active, tmax, tmin - 1.0)
         perm = None
@@ -1243,4 +1247,5 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     # (closest, any) pair stays what callers unpack
     trace_closest.paired = trace_paired
     trace_closest.planes = planes
+    trace_closest.capturable = trace_any.capturable = trace_fn is trace_wide
     return trace_closest, trace_any

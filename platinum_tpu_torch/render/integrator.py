@@ -77,6 +77,7 @@ from platinum_tpu_torch.ops.hitdata import interpolate_hit
 from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
 from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
                                               sample_normal_map)
+from platinum_tpu_torch.render.graphs import BounceGraphs, graphs_engage
 from platinum_tpu_torch.render.types import (MAT_USES_ALPHA, FlatScene,
                                              RenderSettings)
 from platinum_tpu_torch.utils import telemetry
@@ -720,7 +721,8 @@ def _compaction_plan(n: int, settings: RenderSettings):
 
 def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
                   pixel_ids=None, tracers=None, return_stats: bool = False,
-                  features: frozenset = bsdf_mod.ALL_FEATURES):
+                  features: frozenset = bsdf_mod.ALL_FEATURES, *,
+                  graphs: BounceGraphs | None = None):
     """Trace one sample per pixel; returns (R, 3) radiance, R the number
     of pixels or len(pixel_ids). With return_stats also the number of rays
     traced (closest + shadow). `pixel_ids` renders those pixels alone, in
@@ -746,14 +748,20 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     `integrator.trace_shadow`, and `integrator.live_check` around each
     test for a live lane (`sync.live_check`). Counters:
     `integrator.wave_lanes` (lanes a bounce) and `integrator.live_lanes`
-    (live lanes a bounce, summed on the device)."""
+    (live lanes a bounce, summed on the device).
+
+    `graphs` (render/graphs.py, the Renderer's) runs each bounce as a
+    captured CUDA graph where `graphs_engage` allows it: the same
+    kernels, the same output. A replayed bounce's span is
+    `integrator.bounce_graph` (attrs `bounce`, `lanes`), without
+    children. Without `graphs` every bounce runs eagerly."""
     with telemetry.span("integrator.sample"):
         return _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
-                              return_stats, features)
+                              return_stats, features, graphs)
 
 
 def _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
-                   return_stats, features):
+                   return_stats, features, graphs):
     fused = _fuse_shadow_active(settings, features)
     dev = flat.camera.position.device
     batch = max(1, settings.spp_batch) if pixel_ids is None else 1
@@ -768,7 +776,11 @@ def _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
     else:
         state = init_path_state(flat, settings, sample_idx, pixel_ids,
                                 with_shadow_state=fused)
-    body = make_bounce_body(flat, settings, features, tracers)
+    body = step = make_bounce_body(flat, settings, features, tracers)
+    captured = graphs is not None and graphs_engage(dev, tracers, settings,
+                                                    features)
+    if captured:
+        step = graphs.bind(body, (features, *map(id, tracers), settings))
     n = state["o"].shape[0]
     plan = _compaction_plan(n, settings)
     out = None
@@ -788,14 +800,15 @@ def _render_sample(flat, settings, sample_idx, pixel_ids, tracers,
                 state = _compact_state(state, cap,
                                        threefry.fold_in(base_key, si))
         while state["bounce"] < blimit and _any_live(state):
-            state = body(state)
+            state = step(state)
     state = body.resolve_pending(state)
     if out is None:
-        out = state["L"]
+        # a graph's output is overwritten by its next replay
+        out = state["L"].clone() if captured else state["L"]
     else:
         out.index_add_(0, state["slot"], state["L"])
     if return_stats:
-        return out, state["rays"]
+        return out, (state["rays"].clone() if captured else state["rays"])
     return out
 
 
@@ -842,9 +855,11 @@ def render_step(flat: FlatScene, settings: RenderSettings,
                 accum: torch.Tensor, accum_count: int,
                 sample_seed: int | None = None,
                 features: frozenset = bsdf_mod.ALL_FEATURES,
-                tracers=None) -> torch.Tensor:
+                tracers=None, *,
+                graphs: BounceGraphs | None = None) -> torch.Tensor:
     """One progressive spp step: running mean into the (H*W, 3)
-    accumulator. `sample_seed` (default accum_count) seeds the sampler."""
+    accumulator. `sample_seed` (default accum_count) seeds the sampler;
+    `tracers` and `graphs` as in render_sample."""
     if settings.spp_batch > 1:
         # render_sample would sum spp_batch samples while this step's
         # running mean assumes exactly one
@@ -853,7 +868,7 @@ def render_step(flat: FlatScene, settings: RenderSettings,
     if sample_seed is None:
         sample_seed = accum_count
     radiance = render_sample(flat, settings, sample_seed, tracers=tracers,
-                             features=features)
+                             features=features, graphs=graphs)
     k = float(accum_count)
     return (accum * k + radiance) / (k + 1.0)
 
@@ -861,12 +876,14 @@ def render_step(flat: FlatScene, settings: RenderSettings,
 def render_step_n(flat: FlatScene, settings: RenderSettings,
                   accum: torch.Tensor, accum_count: int, count: int,
                   features: frozenset = bsdf_mod.ALL_FEATURES,
-                  tracers=None) -> torch.Tensor:
+                  tracers=None, *,
+                  graphs: BounceGraphs | None = None) -> torch.Tensor:
     """`count` progressive spp steps; the same running-mean formula as the
     JAX render_step_n (sum of the samples, then one blend). With
     settings.spp_batch = B every render_sample sums B samples, so the
     loop runs count / B times (count must be a multiple of B). `tracers`
-    overrides the (trace_closest, trace_any) pair, as in render_sample."""
+    overrides the (trace_closest, trace_any) pair and `graphs` runs the
+    bounces as captured graphs, as in render_sample."""
     batch = max(1, settings.spp_batch)
     if count % batch != 0:
         raise ValueError(f"count={count} not a multiple of "
@@ -875,7 +892,8 @@ def render_step_n(flat: FlatScene, settings: RenderSettings,
     for i in range(count // batch):
         total = total + render_sample(flat, settings,
                                       accum_count + i * batch,
-                                      tracers=tracers, features=features)
+                                      tracers=tracers, features=features,
+                                      graphs=graphs)
     k = float(accum_count)
     return (accum * k + total) / (k + float(count))
 

@@ -6,7 +6,9 @@ latches settings, flattens the scene onto the device, builds the
 (trace_closest, trace_any) pair once (for the auto plan's probe and every
 sample) and resolves compact_plan="auto"; `render()` advances one
 progressive sample (or `spp_batch` samples) into the GMoN bucket it belongs
-to; `status`, `completed_spp`, `render_progress` and `render_time` report
+to, its bounces replayed as CUDA graphs where render/graphs.py allows
+(captured on the first step, dropped with the scene or the tracer pair);
+`status`, `completed_spp`, `render_progress` and `render_time` report
 progress; `readback()` pulls the image to the host (the GMoN combine of the
 buckets, or during the preview ladder the low-resolution frame upscaled);
 `output_image` runs the post stack, `export_png` / `export_exr` write the
@@ -51,6 +53,7 @@ from platinum_tpu_torch.render import autoplan, integrator
 from platinum_tpu_torch.render.flatten import (_camera_constants,
                                                _instanced_part_arrays,
                                                analyze_features, flatten_scene)
+from platinum_tpu_torch.render.graphs import BounceGraphs
 from platinum_tpu_torch.render.types import (FLAG_GMON, FlatScene,
                                              RenderSettings, resolve_device)
 from platinum_tpu_torch.utils import telemetry
@@ -76,6 +79,7 @@ class Renderer:
         self.settings: RenderSettings | None = None
         self.flat: FlatScene | None = None
         self._tracers = None
+        self._graphs = None         # the final render's bounce graphs
         self._buckets = None        # list of B (H*W, 3) accumulators
         self._accumulated = 0
         self._pv = None
@@ -133,6 +137,8 @@ class Renderer:
                 bf_depth=_tree_depth(self.flat.wbvh_meta.cpu().numpy()))
         with telemetry.span("renderer.tracers"):
             self._tracers = integrator.make_tracers(self.flat, self.settings)
+        # graphs read the scene's and the pair's tensors by address
+        self._graphs = BounceGraphs()
         if self.settings.compact_plan == "auto":
             with telemetry.span("renderer.autoplan"):
                 self.settings = autoplan.resolve_auto_plan(
@@ -200,7 +206,8 @@ class Renderer:
             if batch > 1:
                 self._buckets[0] = integrator.render_step_n(
                     self.flat, s, self._buckets[0], self._accumulated, batch,
-                    features=self._features, tracers=self._tracers)
+                    features=self._features, tracers=self._tracers,
+                    graphs=self._graphs)
             else:
                 samples_per_bucket = -(-s.spp // n_buckets)
                 bucket = min(self._accumulated // samples_per_bucket,
@@ -209,7 +216,7 @@ class Renderer:
                 self._buckets[bucket] = integrator.render_step(
                     self.flat, s, self._buckets[bucket], local_idx,
                     sample_seed=self._accumulated, features=self._features,
-                    tracers=self._tracers)
+                    tracers=self._tracers, graphs=self._graphs)
         self._accumulated += batch
         if telemetry.enabled():
             now = time.perf_counter()
@@ -239,7 +246,8 @@ class Renderer:
         """Apply a transform edit without rebuilding the BVH (instanced
         scenes): the instance's world-space BLAS rows and feature matrix
         are recomputed, the TLAS is refit in place, the changed tables are
-        uploaded, the tracer pair is built again over them and
+        uploaded, the tracer pair is built again over them, the bounce
+        graphs are dropped (the next step captures them again) and
         accumulation restarts. Over partitions (accel/tlas.py
         partition_instanced) only the owning partition is refit, against
         its compacted mesh library, and its 7-tuple formed again. Raises
@@ -288,6 +296,7 @@ class Renderer:
             instances=dataclasses.replace(self.flat.instances, rows=rows,
                                           feat=feat))
         self._tracers = integrator.make_tracers(self.flat, self.settings)
+        self._graphs = BounceGraphs()
         self._buckets = [torch.zeros_like(b) for b in self._buckets]
         self._accumulated = 0
         self._start_time = time.perf_counter()

@@ -24,11 +24,14 @@ in the profiler's host table on the device trace's clock. That record is
 the host-only kind (`_RecordFunctionFast`): `record_function` would also
 leave a copy of the span on the device timeline, which a reader of the
 trace would count as device work. Records stay in memory until `drain()`
-returns and clears them.
+returns and clears them. Inside `capture()` (a CUDA graph capture) spans
+record nothing and the counters go to a `Recording`, tracing on or off,
+which each replay of the graph adds again.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import sys
@@ -77,6 +80,12 @@ _SPANS: list = []       # [name, start_ns, end_ns, parent record, step, attrs]
 _OPEN: list = []        # the records of the spans entered and not left
 _COUNTS: dict = {}
 _DEVICE: dict = {}      # name -> [0-d tensors]
+_REC = None             # a Recording while a stretch is captured
+
+
+def tracing() -> bool:
+    """Whether spans and counters record now."""
+    return _ON and _REC is None
 
 
 def start() -> None:
@@ -140,7 +149,7 @@ def span(name: str, *, step=None, bounce=None, lanes=None, cap=None,
     shared no-op context. `step` names the step the span belongs to (a
     span without one takes its parent's); `bounce`, `lanes`, `cap` and
     `preview` are kept as attrs where given."""
-    if not _ON:
+    if not _ON or _REC is not None:
         return _NULL
     attrs = {k: v for k, v in (("bounce", bounce), ("lanes", lanes),
                                ("cap", cap), ("preview", preview))
@@ -151,7 +160,10 @@ def span(name: str, *, step=None, bounce=None, lanes=None, cap=None,
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the host counter `name` while tracing is on."""
     if _ON and n:
-        _COUNTS[name] = _COUNTS.get(name, 0) + n
+        if _REC is not None:
+            _REC.counts.append((name, n))
+        else:
+            _COUNTS[name] = _COUNTS.get(name, 0) + n
 
 
 def count_device(name: str, t) -> None:
@@ -159,7 +171,45 @@ def count_device(name: str, t) -> None:
     on: no launch and no synchronise here; `drain()` sums the tensors."""
     if not _ON:
         return
-    _DEVICE.setdefault(name, []).append(t)
+    if _REC is not None:
+        _REC.device.append((name, t))
+    else:
+        _DEVICE.setdefault(name, []).append(t)
+
+
+class Recording:
+    """What a captured stretch counted: `counts` [(name, n)] and `device`
+    [(name, 0-d tensor)], in order. `replay()` adds them as the stretch
+    would have, each device tensor copied (its memory is the capture's,
+    which the next replay overwrites)."""
+
+    def __init__(self):
+        self.counts = []
+        self.device = []
+
+    def replay(self) -> None:
+        if not tracing():
+            return
+        for name, n in self.counts:
+            count(name, n)
+        for name, t in self.device:
+            count_device(name, t.clone())
+
+
+@contextlib.contextmanager
+def capture():
+    """A context in which spans record nothing and the counters go to the
+    Recording it yields, whether tracing is on or off; the counters
+    recorded before are untouched. For a CUDA graph capture: the work
+    runs later, on each replay, and `Recording.replay()` counts it
+    then."""
+    global _ON, _REC
+    was_on, rec = _ON, Recording()
+    _ON, _REC = True, rec
+    try:
+        yield rec
+    finally:
+        _ON, _REC = was_on, None
 
 
 def drain() -> dict:

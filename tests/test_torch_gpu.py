@@ -21,7 +21,10 @@ K13 and K14 against their references (`per_block`, `per_tile`,
 `per_unit`) bit for bit, and its
 tracer against K1/K2 bit for bit, with its capacities forced small; the
 wrappers' input checks
-and refusals, and the threefry draws on the card against the CPU. Every test
+and refusals, and the threefry draws on the card against the CPU; the
+final render's bounces as captured CUDA graphs (render/graphs.py) against
+the eager bounces bit for bit, counters and launches included, and their
+capture again after an instance edit. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
 installed (`python -m pytest tests/test_torch_gpu.py -m gpu`)."""
@@ -1262,3 +1265,113 @@ def test_threefry_on_card_matches_cpu():
         gpu = threefry.uniform(key, n, "cuda").cpu()
         cpu = threefry.uniform(key, n, "cpu")
         assert torch.equal(gpu.view(torch.int32), cpu.view(torch.int32))
+
+
+def _colonnade_on_card(**kw):
+    """The reduced colonnade (6 x 3 columns) at 320 x 180 on the card:
+    flat, settings (the auto plan resolved), features, tracer pair."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.render import autoplan, integrator
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = RenderSettings(**dict(dict(
+        width=320, height=180, spp=8, max_bounces=6, kernel="mis",
+        sampler="halton", tracer="packet", instancing="off"), **kw))
+    scene, cam = make_colonnade_scene(columns=6, rows=3, sphere_res=(18, 26))
+    flat = flatten_scene(scene, cam, s, device="cuda")
+    tracers = integrator.make_tracers(flat, s)
+    if s.compact_plan == "auto":
+        s = autoplan.resolve_auto_plan(flat, s, tracers=tracers)
+    return flat, s, analyze_features(flat), tracers
+
+
+@pytest.mark.parametrize("kw", [
+    dict(compact=True, compact_plan="auto"),
+    dict(compact=True, stream="on"),
+    dict(fuse_shadow=True),
+], ids=["auto_plan", "streamed_static_plan", "fuse_shadow"])
+def test_bounce_graphs_are_the_eager_bounces_bit_for_bit(kw):
+    """Three consecutive samples through captured bounce graphs (the
+    first captures, the others replay) against the eager path: radiance
+    and rays bit for bit, the same kernel launches, lanes and live
+    lanes, and each returned tensor unchanged by the samples after it."""
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.graphs import BounceGraphs
+    from platinum_tpu_torch.utils import telemetry
+
+    flat, s, feats, tracers = _colonnade_on_card(**kw)
+    assert integrator.graphs_engage(flat.camera.position.device, tracers, s,
+                                    feats)
+    graphs = BounceGraphs()
+    got = {}
+    telemetry.drain()
+    telemetry.start()
+    try:
+        for path in ("eager", "graphs"):
+            before = dict(pt.LAUNCHES)
+            runs = [integrator.render_sample(
+                flat, s, 11 + i, tracers=tracers, return_stats=True,
+                features=feats, graphs=graphs if path == "graphs" else None)
+                for i in range(3)]
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in pt.LAUNCHES.items()
+                        if v != before[k]}
+            got[path] = (runs, launched, telemetry.drain()["counters"])
+    finally:
+        telemetry.stop()
+        telemetry.drain()
+    (eager, e_launch, e_count), (graph, g_launch, g_count) = (
+        got["eager"], got["graphs"])
+    for (a, ra), (b, rb) in zip(eager, graph):
+        assert torch.equal(a, b) and torch.equal(ra, rb)
+    assert g_launch == e_launch and e_launch
+    for k in ("integrator.wave_lanes", "integrator.live_lanes"):
+        assert g_count[k] == e_count[k]
+    assert g_count["integrator.graph_captures"] == len(graphs) > 0
+    assert g_count["integrator.graph_replays"] >= len(graphs)
+    if "stream" in kw:
+        assert "stream+closest" in g_launch
+
+
+def test_an_instance_edit_recaptures_the_bounce_graphs():
+    """Renderer steps replay bounce graphs; an instance edit drops them,
+    the next step captures them anew, and the image after the edit is bit
+    for bit the eager path's over the edited scene."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.core.transform import Transform
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.renderer import Renderer
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    scene, cam = make_colonnade_scene(columns=6, rows=3, sphere_res=(18, 26))
+    s = RenderSettings(width=320, height=180, spp=16, max_bounces=6,
+                       kernel="mis", sampler="halton", tracer="packet",
+                       compact=True, instancing="on")
+    r = Renderer(scene, device="cuda")
+    r.start_render(cam, s)
+    r.render()
+    r.render()
+    first = r._graphs
+    assert len(first) > 0 and all(f.capturable for f in r._tracers)
+    node = next(scene.node(i.node_id) for i in scene.get_instances()
+                if scene.node(i.node_id).name.startswith("col_"))
+    old = node.transform
+    r.update_instance_transform(node.id, Transform(
+        translation=np.asarray(old.translation) + [0.5, 0.0, 0.25],
+        rotation=old.rotation, scale=old.scale))
+    assert r._graphs is not first and len(r._graphs) == 0
+    for _ in range(3):
+        r.render()
+    assert len(r._graphs) > 0
+    accum = torch.zeros_like(r._buckets[0])
+    for i in range(3):
+        accum = integrator.render_step(r.flat, r.settings, accum, i,
+                                       features=r._features,
+                                       tracers=r._tracers)
+    assert torch.equal(accum, r._buckets[0])

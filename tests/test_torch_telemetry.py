@@ -16,10 +16,16 @@ on the CPU:
   value (counted here by wrapping those torch entry points);
 - under a CPU torch.profiler the spans sit in portbench's host table, and
   an idle gap is named by its covering span;
-- tools/torch_trace_cell.py's readings of recorded drains.
+- tools/torch_trace_cell.py's readings of recorded drains;
+- `telemetry.capture()` records counters for each replay; a bounce
+  neither copies from the host nor reads the device (the syncs of a
+  sample on the colonnade are its index and the live checks); the rule
+  that engages CUDA graphs; the graph path's plumbing against the eager
+  path, with a deferred stand-in for the capture.
 """
 
 import collections
+import dataclasses
 import io
 import json
 import os
@@ -392,3 +398,172 @@ def test_readings_of_recorded_drains():
     got = tc.readings(setup, plain, profiled)
     assert "setup.autoplan_s" not in got
     assert "integrator.live_lane_pct" not in got
+
+
+def test_capture_records_counters_for_each_replay(tracing):
+    telemetry.count("before", 2)
+    with telemetry.capture() as rec:
+        assert telemetry.span("integrator.bounce") is telemetry._NULL
+        assert not telemetry.tracing()
+        telemetry.count("integrator.wave_lanes", 64)
+        telemetry.count_device("integrator.live_lanes", torch.tensor(5.0))
+    assert telemetry.tracing()
+    assert telemetry.drain() == dict(spans=[], counters={"before": 2})
+    rec.replay()
+    rec.replay()
+    assert telemetry.drain()["counters"] == {
+        "integrator.wave_lanes": 128, "integrator.live_lanes": 10.0}
+    # recorded with tracing off, counted only where a replay traces
+    telemetry.stop()
+    with telemetry.capture() as rec:
+        telemetry.count("integrator.wave_lanes", 64)
+    assert not telemetry._ON
+    rec.replay()
+    telemetry.start()
+    rec.replay()
+    assert telemetry.drain()["counters"] == {"integrator.wave_lanes": 64}
+
+
+def _small_colonnade(**kw):
+    s = RenderSettings(**dict(dict(width=16, height=16, spp=1, max_bounces=3,
+                                   kernel="mis", tracer="packet",
+                                   instancing="off"), **kw))
+    scene, cam = scenes.make_colonnade_scene(sphere_res=(12, 16))
+    flat = flatten_scene(scene, cam, s, device="cpu")
+    return flat, s, analyze_features(flat)
+
+
+def test_a_sample_syncs_only_to_test_for_live_lanes(monkeypatch, tracing):
+    """No bounce copies a constant from the host (the wave bounds, the
+    frame, GGX and BSDF vectors) or reads the device: a sample's only
+    syncs are the sampler's index and the live checks between bounces."""
+    flat, s, feats = _small_colonnade()
+    tracers = integrator.make_tracers(flat, s)
+    assert all(f.capturable for f in tracers)
+    telemetry.drain()
+    seen, on = _count_blocking(monkeypatch)
+    on[0] = True
+    integrator.render_sample(flat, s, 5, tracers=tracers, features=feats)
+    on[0] = False
+    c = telemetry.drain()["counters"]
+    syncs = {k: v for k, v in c.items() if k.startswith("sync.") and v}
+    assert set(syncs) == {"sync.live_check", "sync.sample_index"}
+    assert syncs["sync.sample_index"] == 1
+    assert sum(syncs.values()) == sum(seen.values())
+
+
+def test_graphs_engage_only_where_a_capture_is_sound():
+    flat, s, feats = _small_colonnade()
+    packet = integrator.make_tracers(flat, s)
+    cuda = torch.device("cuda")
+    engage = integrator.graphs_engage
+    assert engage(cuda, packet, s, feats)
+    assert not engage("cpu", packet, s, feats)
+    assert not engage(cuda, None, s, feats)
+    assert not engage(cuda, packet, dataclasses.replace(s, chunk_shade=64),
+                      feats)
+    assert not engage(cuda, packet, s, feats | {"alpha"})
+    for tracer in ("bf", "bvh"):
+        t = dataclasses.replace(s, tracer=tracer)
+        assert not engage(cuda, integrator.make_tracers(flat, t), t, feats)
+    brute = integrator.make_tracers(flat, dataclasses.replace(s,
+                                                              tracer="brute"))
+    assert not engage(cuda, brute, s, feats)
+    # the kernel's pair alone: held to its plain version, no capture
+    from platinum_tpu_torch.ops import packet_trace as pt
+    plain = pt.make_packet_tracer(flat.wbvh_nodes, flat.wbvh_tris,
+                                  flat.wbvh_meta, flat.wbvh_slot,
+                                  trace_fn=pt.trace_wide_reference)
+    assert not engage(cuda, plain, s, feats)
+
+
+class _DeferredGraph:
+    """A stand-in for a CUDA graph on the CPU: the capture runs the
+    function once, for its outputs; a replay runs it again on the same
+    inputs, counting nothing, and copies the results into those outputs
+    and into the device counters the capture recorded."""
+
+    def __init__(self, fn, inputs):
+        self.fn, self.inputs = fn, inputs
+        self.rec = telemetry._REC
+        self.out = fn(inputs)
+        self.replays = 0
+
+    def replay(self):
+        from platinum_tpu_torch.render import graphs
+
+        with telemetry.capture() as rec:
+            new = self.fn(self.inputs)
+        mine, fresh = [], []
+        graphs._skeleton(self.out, mine)
+        graphs._skeleton(new, fresh)
+        mine += [t for _, t in self.rec.device]
+        fresh += [t for _, t in rec.device]
+        for dst, src in zip(mine, fresh):
+            dst.copy_(src)
+        self.replays += 1
+
+
+@pytest.mark.parametrize("kw", [
+    dict(),
+    dict(compact=True, compact_plan=((9216, 2), (4608, 4)), width=96,
+         height=96),
+    dict(fuse_shadow=True),
+], ids=["plain", "compact", "fuse_shadow"])
+def test_replayed_bounces_are_the_eager_bounces(monkeypatch, tracing, kw):
+    """The graph path's plumbing on the CPU, a deferred stand-in for the
+    capture: the same radiance, rays and counters as the eager path over
+    consecutive samples, one capture per bounce key, and a returned
+    tensor that the next sample leaves alone."""
+    from platinum_tpu_torch.render import graphs
+
+    made = []
+
+    def capture(fn, inputs, pool):
+        made.append(_DeferredGraph(fn, inputs))
+        return made[-1], made[-1].out
+
+    monkeypatch.setattr(graphs, "_capture_graph", capture)
+    monkeypatch.setattr(torch.cuda, "graph_pool_handle", lambda: None)
+    monkeypatch.setattr(integrator, "graphs_engage", lambda *a: True)
+    s = _settings(**dict(dict(width=16, height=16, max_bounces=4), **kw))
+    flat, feats = _flat(s)
+    tracers = integrator.make_tracers(flat, s)
+    g = graphs.BounceGraphs()
+    telemetry.drain()
+    counters = []
+    for path in ("eager", "graphs"):
+        runs = []
+        for i in range(3):
+            runs.append(integrator.render_sample(
+                flat, s, 7 + i, tracers=tracers, return_stats=True,
+                features=feats, graphs=g if path == "graphs" else None))
+        counters.append(telemetry.drain()["counters"])
+        if path == "eager":
+            eager = [(a.clone(), b.clone()) for a, b in runs]
+            continue
+        for (a, b), (ea, eb) in zip(runs, eager):
+            assert torch.equal(a, ea) and torch.equal(b, eb)
+    assert 0 < len(g) == counters[1]["integrator.graph_captures"] == len(
+        made)
+    assert counters[1]["integrator.graph_replays"] == sum(
+        x.replays for x in made) > 0
+    for k in ("integrator.wave_lanes", "integrator.live_lanes",
+              "sync.live_check"):
+        assert counters[1][k] == counters[0][k]
+
+
+def test_graph_bounce_share_of_recorded_drains():
+    setup = dict(spans=[], counters={})
+    plain = dict(plain_spp=1, spans=[], counters={})
+    profiled = dict(spp=2, spans=[_drain("integrator.bounce", 1)] * 2
+                    + [_drain("integrator.bounce_graph", 1)] * 14,
+                    counters={"integrator.graph_replays": 14})
+    got = tc.readings(setup, plain, profiled)
+    assert got["integrator.graph_bounce_pct"] == pytest.approx(87.5)
+    profiled["spans"] = profiled["spans"][2:]
+    assert tc.readings(setup, plain, profiled)[
+        "integrator.graph_bounce_pct"] == 100.0
+    profiled.update(spans=[], counters={})
+    assert "integrator.graph_bounce_pct" not in tc.readings(setup, plain,
+                                                            profiled)

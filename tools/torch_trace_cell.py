@@ -13,10 +13,12 @@ return_stats=True)` calls outside the profiler, then two steps under
 torch.profiler. Tracing is on from before the Renderer is built and the
 records are drained after each phase. Prints one JSON line: the card and
 its power limit, set-up by part, `ms_per_spp` over the window, span
-totals per phase (count, total and self ms), the counters, the seven
+totals per phase (count, total and self ms), the counters, the eight
 span and counter readings (setup.flatten_s, setup.tracer_build_s,
 setup.autoplan_s, integrator.sync_sites_per_spp, integrator.live_lane_pct,
-dispatch.shade_host_ms_per_spp, dispatch.trace_host_ms_per_spp), the
+dispatch.shade_host_ms_per_spp, dispatch.trace_host_ms_per_spp,
+integrator.graph_bounce_pct: the profiled window's bounces replayed as
+CUDA graphs, `integrator.bounce_graph` spans, over all its bounces), the
 profiler's launches and synchronising calls over the same two steps, the
 synchronising calls by the innermost program span they were made in, and
 the ten longest device idle gaps, each named by the innermost program
@@ -55,7 +57,7 @@ def _span_ms(spans, names) -> float:
 
 
 def readings(setup, plain, profiled) -> dict:
-    """The seven readings of three drains: set-up, the plain stretch
+    """The eight readings of three drains: set-up, the plain stretch
     (with `plain_spp` samples) and the profiled window (with `spp`)."""
     out = {}
     for key, name in (("setup.flatten_s", "renderer.flatten"),
@@ -66,6 +68,11 @@ def readings(setup, plain, profiled) -> dict:
     c = profiled["counters"]
     out["integrator.sync_sites_per_spp"] = sum(
         v for k, v in c.items() if k.startswith("sync.")) / profiled["spp"]
+    replays = c.get("integrator.graph_replays", 0)
+    bounces = replays + sum(1 for s in profiled["spans"]
+                            if s["name"] == "integrator.bounce")
+    if bounces:
+        out["integrator.graph_bounce_pct"] = 100.0 * replays / bounces
     c = plain["counters"]
     if c.get("integrator.wave_lanes"):
         out["integrator.live_lane_pct"] = (
