@@ -2,7 +2,11 @@
 
 After the window the program's accumulated image (and, in a cell that
 displays, its last display image) is held against the plain reference at
-pixels drawn from the seed. The reference renders those pixels at every
+pixels drawn from the seed. The reference is the module the cell's
+configuration names (reference/<name>.py, `pathtracer` by default): its
+`radiance(arrays, width, height, max_bounces, pixels, samples,
+light_rows, device, dtype)` returns ((P, S, 3) float32 radiance, the
+light_rows gap). It renders those pixels at every
 sample index the run rendered (the warm step's sample 0 and the window's
 s0 .. s0 + n - 1), blends them with the Renderer's running-mean formula
 (the warm image resumed as s0 samples, then one sample a step), and, in a
@@ -26,7 +30,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .reference import pathtracer, post
+from .reference import post
 
 
 def draw_pixels(seed: int, n_pixels: int, count: int) -> np.ndarray:
@@ -46,17 +50,15 @@ def expected(rad: torch.Tensor, first: int) -> torch.Tensor:
     return acc
 
 
-def reference_image(arrays, settings, pixels, first, steps, light_rows,
-                    device, dtype=torch.float32):
-    """(accumulated radiance (P, 3), display (P, 3), light_rows gap)."""
-    scene = pathtracer.compile_scene(arrays, settings["width"],
-                                     settings["height"])
-    order, gap = pathtracer.match_lights(scene, light_rows)
-    rows, total = pathtracer.light_table(scene, order)
-    tables = pathtracer.device_tables(scene, rows, total, device, dtype)
+def reference_image(reference, arrays, settings, pixels, first, steps,
+                    light_rows, device, dtype=torch.float32):
+    """(accumulated radiance (P, 3), display (P, 3), light_rows gap) of
+    the reference module `reference`."""
     samples = [0] + list(range(first, first + steps))
-    rad = pathtracer.render_pixels(tables, pixels, samples,
-                                   settings["max_bounces"], dtype)
+    rad, gap = reference.radiance(arrays, settings["width"],
+                                  settings["height"],
+                                  settings["max_bounces"], pixels, samples,
+                                  light_rows, device, dtype)
     acc = expected(rad, first)
     return acc, post.display(acc), gap
 

@@ -3,11 +3,15 @@ stretches of a `--trace 1` run, and the comparison with the reference.
 
 Everything a cell needs is found by name: the cell in BENCHMARK.json
 names a configuration (its `file`, with the scene generator, the
-RenderSettings and the sizes) and a traffic mix (traffic/<traffic>.json:
-the image size and whether every frame is displayed); the comparison's
+RenderSettings, the sizes and, optionally, `"reference"`) and a traffic
+mix (traffic/<traffic>.json: the image size and whether every frame is
+displayed); the scene comes from the generator (scenes.py's GENERATORS
+or generators/<name>.py), the plain reference is
+reference/<reference>.py (default `pathtracer`), the comparison's
 tolerances and limits are in checks/<cell>.json, and each per-layer
-metric is read by metrics/<metric>.py. A new cell is new files and a new
-entry; nothing here names a cell, a configuration or a metric.
+metric is read by metrics/<metric>.py. A new cell, even of a scene with
+textures and an environment, is new files and a new entry; nothing here
+names a cell, a configuration or a metric.
 
 The loop is closed: a step starts once the last has returned. A final
 render runs `Renderer.render()` steps back to back; a displaying mix
@@ -25,7 +29,6 @@ sample count). The seed also draws the pixels the comparison reads.
 from __future__ import annotations
 
 import gc
-import importlib.util
 import io
 import json
 import os
@@ -50,8 +53,9 @@ def load_json(path):
 
 
 def find_cell(bench: dict, name: str, root: str = ROOT) -> dict:
-    """The cell's entry, configuration file, traffic mix, check file and
-    metric lists, all found by name."""
+    """The cell's entry, configuration file, traffic mix, check file,
+    metric lists, generators' folder and reference module, all found by
+    name."""
     cells = {w["name"]: w for w in bench["workloads"]}
     if name not in cells:
         raise KeyError(f"no workload {name!r} in BENCHMARK.json")
@@ -62,32 +66,36 @@ def find_cell(bench: dict, name: str, root: str = ROOT) -> dict:
     def applies(m):
         return "workloads" not in m or name in m["workloads"]
 
+    config = load_json(os.path.join(root, cfg["file"]))
     return dict(
-        cell=cell, config=load_json(os.path.join(root, cfg["file"])),
+        cell=cell, config=config,
         traffic=load_json(os.path.join(here, "traffic",
                                        cell["traffic"] + ".json")),
         check=load_json(os.path.join(here, "checks", name + ".json")),
         end_to_end=[m for m in bench["end_to_end"] if applies(m)],
         per_layer=[m for m in bench["per_layer"] if applies(m)],
-        metrics_dir=os.path.join(here, "metrics"))
+        metrics_dir=os.path.join(here, "metrics"),
+        generators_dir=os.path.join(here, "generators"),
+        reference=scenes.load_file(
+            os.path.join(here, "reference",
+                         config.get("reference", "pathtracer") + ".py"),
+            "portbench_reference_"))
 
 
 def reader(metrics_dir: str, name: str):
     """metrics/<name>.py's `read`."""
-    path = os.path.join(metrics_dir, name + ".py")
-    spec = importlib.util.spec_from_file_location(
-        "portbench_metric_" + name.replace(".", "_"), path)
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read
+    return scenes.load_file(os.path.join(metrics_dir, name + ".py"),
+                            "portbench_metric_").read
 
 
 def port_scene(arrays: dict):
-    """The program's Scene (and camera node) of the generator's arrays."""
+    """The program's Scene (and camera node) of the generator's arrays,
+    built through its public API (scenes.py lists the keys)."""
     from platinum_tpu_torch.core.camera import Camera
-    from platinum_tpu_torch.core.material import Material
+    from platinum_tpu_torch.core.material import Material, TextureSlot
     from platinum_tpu_torch.core.mesh import Mesh
     from platinum_tpu_torch.core.scene import Scene
+    from platinum_tpu_torch.core.texture import Texture, TextureFormat
     from platinum_tpu_torch.core.transform import Transform
 
     scene = Scene()
@@ -95,7 +103,18 @@ def port_scene(arrays: dict):
                                         m["normals"], m["tangents"], m["uvs"],
                                         name=k), retained=True)
                 for k, m in arrays["meshes"].items()}
-    mat_ids = {k: scene.add_asset(Material(name=k, **v))
+    tex_ids = {k: scene.add_asset(Texture(data=t["data"],
+                                          format=TextureFormat(t["format"]),
+                                          name=k), retained=True)
+               for k, t in arrays.get("textures", {}).items()}
+
+    def material(name, keys):
+        keys = dict(keys)
+        slots = keys.pop("textures", {})
+        return Material(name=name, **keys, textures={
+            TextureSlot[slot.upper()]: tex_ids[t] for slot, t in slots.items()})
+
+    mat_ids = {k: scene.add_asset(material(k, v))
                for k, v in arrays["materials"].items()}
     for name, mesh, mat, t, r, s in arrays["instances"]:
         node = scene.create_node(name)
@@ -109,6 +128,14 @@ def port_scene(arrays: dict):
     cam.camera.focus_distance = c["focus_distance"]
     cam.transform = Transform(translation=c["position"], target=c["target"],
                               track=True)
+    if "environment" in arrays:
+        e = arrays["environment"]
+        env = scene.environment
+        env.constant_color = tuple(e["constant_color"])
+        env.strength = e["strength"]
+        if e.get("texture") is not None:
+            tid = tex_ids[e["texture"]]
+            env.set_texture(tid, scene.asset(tid).as_float_rgba())
     return scene, cam.id
 
 
@@ -136,7 +163,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.synchronize()
 
-    arrays = scenes.make(config)
+    arrays = scenes.make(config, spec["generators_dir"])
     settings = RenderSettings(width=traffic["width"],
                               height=traffic["height"], spp=1 << 30,
                               **config["settings"])
@@ -189,7 +216,8 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool,
 
     peak = int(torch.cuda.max_memory_allocated()) if cuda else 0
     acc_prog = r.readback().reshape(-1, 3)
-    lights = r.flat.lights.packed[:, :9].cpu().numpy()
+    n_lights = int(r.flat.lights.count)
+    lights = r.flat.lights.packed[:n_lights, :9].cpu().numpy()
     del r
     gc.collect()
     if cuda:
@@ -198,7 +226,7 @@ def run(bench: dict, name: str, seed: int, seconds: float, trace: bool,
     ref0 = time.perf_counter()
     pixels = compare.draw_pixels(seed, settings.num_pixels, check["pixels"])
     acc_ref, disp_ref, light_gap = compare.reference_image(
-        arrays, dict(width=settings.width, height=settings.height,
+        spec["reference"], arrays, dict(width=settings.width, height=settings.height,
                      max_bounces=settings.max_bounces),
         pixels, first, steps, lights, device)
     disp_prog = (np.asarray(img).reshape(-1, 3)[pixels] if display

@@ -8,9 +8,15 @@ reads, ggx_energy.npz), the emissive-triangle table with its alias pick
 and the Halton sampler are all worked out here again. It traces by brute
 force over instance bounding boxes (no BVH) and covers the lobes the
 benchmark's scenes use: opaque dielectric (GGX + energy-compensated
-diffuse) and metal, multiscatter on, area lights with NEE and MIS, no
-environment, textures, transmission, clearcoat or anisotropy; a scene
-with any of those is refused.
+diffuse) and metal, multiscatter on, area lights with NEE and MIS (none
+at all gives a black image), no environment, textures, transmission,
+clearcoat or anisotropy; a scene with any of those is refused.
+
+`radiance` is the entry the harness and the control call (compare.py
+names its arguments). A configuration that needs more brings its own
+reference module beside this one, with the same entry, and may import
+this module's parts (the scene compile, the light table, the sampler,
+GGX and the energy rows, the tracer).
 
 One thing is taken from the program, and checked: the order of its
 emissive triangles, which its BVH build sets and which decides the light a
@@ -128,12 +134,18 @@ def compile_scene(arrays: dict, width: int, height: int) -> dict:
     material rows with their GGX energy rows, the emissive triangles and
     the camera constants, as numpy arrays."""
     f32 = np.float32
+    env = arrays.get("environment")
+    if arrays.get("textures") or (env is not None and (
+            env.get("texture") is not None
+            or max(env["constant_color"]) * env["strength"] > 0)):
+        raise ValueError("the reference covers scenes without textures or "
+                         "a lit environment only")
     mat_names = list(arrays["materials"])
     mats = [dict(MATERIAL_DEFAULTS, **arrays["materials"][k])
             for k in mat_names]
     for m in mats:
         if (m["transmission"] or m["anisotropy"] or m["clearcoat"]
-                or (m["roughness"] ** 2 < 1e-3)):
+                or m.get("textures") or (m["roughness"] ** 2 < 1e-3)):
             raise ValueError("the reference covers opaque rough dielectric "
                              "and metal lobes only")
     idt = _bt709_identity()
@@ -225,8 +237,8 @@ def match_lights(scene: dict, program_rows: np.ndarray):
     """The program's emissive-triangle order: for each row (v0, e1, e2) of
     the program's light table, the reference's emissive triangle with the
     same corners. Returns (triangle ids in the program's order, the
-    widest corner gap); raises unless the rows are a permutation of the
-    reference's emissive triangles."""
+    widest corner gap, 0 with no emissive triangle); raises unless the
+    rows are a permutation of the reference's emissive triangles."""
     lt = scene["light_tris"]
     ours = np.concatenate([scene["v0"][lt], scene["e1"][lt], scene["e2"][lt]],
                           -1).astype(np.float64)
@@ -234,6 +246,8 @@ def match_lights(scene: dict, program_rows: np.ndarray):
     if theirs.shape[0] != len(lt):
         raise ValueError(f"the program has {theirs.shape[0]} emissive "
                          f"triangles, the reference {len(lt)}")
+    if len(lt) == 0:
+        return lt, 0.0
     gap = np.abs(theirs[:, None, :] - ours[None, :, :]).max(-1)
     pick = gap.argmin(1)
     if len(np.unique(pick)) != len(lt):
@@ -244,7 +258,10 @@ def match_lights(scene: dict, program_rows: np.ndarray):
 
 def light_table(scene: dict, order: np.ndarray) -> np.ndarray:
     """(L, 16) rows [v0 e1 e2 emission area p_light alias_p alias] over
-    the emissive triangles in `order`."""
+    the emissive triangles in `order`, and their total power (L may be
+    0)."""
+    if len(order) == 0:
+        return np.zeros((0, 16), np.float32), np.float32(0.0)
     v0, e1, e2 = scene["v0"][order], scene["e1"][order], scene["e2"][order]
     le = scene["emission"][scene["tri_mat"][order]]
     area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
@@ -732,6 +749,9 @@ def _frame(n, tg, sign):
 def _sample_light(t, pos, u_sel, u2):
     rows = t["lights"]
     n = rows.shape[0]
+    if n == 0:                          # no emitter: nothing to sample
+        z = torch.zeros_like(pos)
+        return z, z, z[:, 0], z[:, 0], z[:, 0]
     scaled = u_sel * n
     slot = torch.clamp(scaled.long(), max=n - 1)
     frac = torch.clamp(scaled - slot.to(scaled.dtype), 0.0, 1.0)
@@ -877,3 +897,28 @@ def render_pixels(t: dict, pixels: np.ndarray, samples, max_bounces: int,
             t, tracer, p % w, p // w, lane_smp[a:a + lanes_per_call],
             max_bounces, dtype)
     return out.reshape(len(pix), len(smp), 3)
+
+
+def scene_lights(scene: dict, light_rows, dtype):
+    """(light table rows, total power, light_rows gap) over the program's
+    emissive-triangle order, `light_rows` (L, >= 9; v0 e1 e2), with the
+    widest corner gap to the scene's (match_lights); `light_rows` None
+    takes the reference's own order, and the gap is then that of the rows
+    as held in `dtype` to the exact ones (0 in float32)."""
+    if light_rows is not None:
+        order, gap = match_lights(scene, light_rows)
+        return (*light_table(scene, order), gap)
+    rows, total = light_table(scene, scene["light_tris"])
+    held = torch.from_numpy(rows[:, :9]).to(dtype).float().numpy()
+    gap = float(np.abs(held - rows[:, :9]).max()) if len(rows) else 0.0
+    return rows, total, gap
+
+
+def radiance(arrays: dict, width: int, height: int, max_bounces: int,
+             pixels, samples, light_rows, device, dtype=torch.float32):
+    """((P, S, 3) float32 radiance of `pixels` (flat ids) at every sample
+    index in `samples`, light_rows gap as scene_lights gives it)."""
+    scene = compile_scene(arrays, width, height)
+    rows, total, gap = scene_lights(scene, light_rows, dtype)
+    tables = device_tables(scene, rows, total, device, dtype)
+    return render_pixels(tables, pixels, samples, max_bounces, dtype), gap

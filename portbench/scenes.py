@@ -8,13 +8,40 @@ the scene as arrays: the benchmark builds the program's Scene from them
 (harness.py) and the plain reference reads the same arrays
 (reference/pathtracer.py).
 
-A generator is found by the name a configuration file gives
-(`"generator": "colonnade"`) in GENERATORS.
+A configuration file names its generator (`"scene": {"generator": name,
+**parameters}`). `make` looks the name up in GENERATORS first; any other
+name is the file generators/<name>.py, loaded by path, whose
+`make(**parameters)` returns the arrays. Such a file is frozen like
+`colonnade` and imports only numpy and this module's primitives.
+
+The arrays of a scene:
+- "meshes": {name: {"positions", "normals", "tangents", "uvs", "indices"}};
+- "materials": {name: keyword dict of the program's Material}; its
+  optional "textures" is {slot: texture name}, the slot a TextureSlot
+  name in lower case ("base_color", "roughness_metallic", "transmission",
+  "clearcoat", "emission", "normal"), and every other key goes to
+  Material as it is (clearcoat, anisotropy, transmission, ...);
+- "instances": (name, mesh, material, translation, rotation, scale) in
+  creation order;
+- "camera": position, target, focal_length, sensor_size, focus_distance;
+- "textures" (optional): {name: {"data": ndarray (H, W[, C]), uint8 or
+  float32, "format": a TextureFormat value: "srgb_rgba", "linear_rgba",
+  "mono", "rough_metal" or "hdr"}};
+- "environment" (optional): {"constant_color": [r, g, b], "strength": s,
+  "texture": a texture name or None (an equirectangular map)}.
+An absent optional key leaves the program's default: no texture, and the
+Scene's own environment (black).
 """
 
 from __future__ import annotations
 
+import importlib.util
+import os
+
 import numpy as np
+
+GENERATORS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                              "generators")
 
 F = np.float32
 
@@ -143,8 +170,24 @@ def colonnade(columns: int = 12, rows: int = 6, sphere_res=(36, 52)) -> dict:
 GENERATORS = {"colonnade": colonnade}
 
 
-def make(config: dict) -> dict:
+def load_file(path: str, prefix: str):
+    """The module in the Python file `path`, loaded by path under a name
+    made from `prefix` and the file's stem."""
+    stem = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(
+        prefix + stem.replace(".", "_"), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def make(config: dict, generators_dir: str = GENERATORS_DIR) -> dict:
     """The scene arrays of a configuration file's "scene" entry:
-    {"generator": name, **parameters}."""
+    {"generator": name, **parameters}, the name from GENERATORS or the
+    file generators_dir/<name>.py."""
     spec = dict(config["scene"])
-    return GENERATORS[spec.pop("generator")](**spec)
+    name = spec.pop("generator")
+    if name in GENERATORS:
+        return GENERATORS[name](**spec)
+    path = os.path.join(generators_dir, name + ".py")
+    return load_file(path, "portbench_generator_").make(**spec)

@@ -27,6 +27,7 @@ def test_cell_found_by_name(cell):
                                             "light_rows"}
     for m in spec["per_layer"]:
         assert callable(harness.reader(spec["metrics_dir"], m["name"]))
+    assert callable(spec["reference"].radiance)
     assert {m["name"] for m in spec["end_to_end"]} >= {"setup_s", "ms_per_spp"}
 
 

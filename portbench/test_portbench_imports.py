@@ -1,9 +1,12 @@
 """No module of the benchmark imports JAX or the JAX package, and the plain
-reference imports nothing of the program either (top-level names compared
-whole: the program's name begins with the JAX package's)."""
+references and the scene generators import nothing of the program either
+(top-level names compared whole: the program's name begins with the JAX
+package's)."""
 
 import ast
 import os
+
+import pytest
 
 from portbench.conftest import HERE
 
@@ -36,12 +39,34 @@ def test_nothing_imports_jax_or_the_jax_package():
     assert "platinum_tpu_torch" in seen      # the harness does drive the port
 
 
+def _importing_the_program(paths):
+    """The files among `paths` that import the program, JAX or the JAX
+    package."""
+    return [p for p in paths
+            if set(_imports(p)) & (NEVER | {"platinum_tpu_torch"})]
+
+
 def test_the_reference_imports_nothing_of_the_program():
-    for path in list(_sources("reference")) + [
-            os.path.join(HERE, f) for f in ("compare.py", "scenes.py",
-                                            "control.py")]:
-        tops = set(_imports(path))
-        assert "platinum_tpu_torch" not in tops and not tops & NEVER, path
+    """Every reference module, every generator file (generators/ and the
+    test cell's) and what they share: the yardstick."""
+    paths = (list(_sources("reference")) + list(_sources("generators"))
+             + list(_sources("testcell"))
+             + [os.path.join(HERE, f) for f in ("compare.py", "scenes.py",
+                                                "control.py")])
+    assert any(p.endswith(os.path.join("generators", "studio.py"))
+               for p in paths)
+    assert _importing_the_program(paths) == []
+
+
+@pytest.mark.parametrize("line", [
+    "import platinum_tpu_torch.app.scenes",
+    "from platinum_tpu_torch.core import primitives",
+    "import numpy as np, jax",
+])
+def test_a_generator_importing_the_program_is_found(tmp_path, line):
+    path = tmp_path / "scratch_generator.py"
+    path.write_text(f"{line}\n\n\ndef make():\n    return {{}}\n")
+    assert _importing_the_program([str(path)]) == [str(path)]
 
 
 def test_the_check_compares_whole_top_level_names():
