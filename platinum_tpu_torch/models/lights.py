@@ -2,7 +2,10 @@
 
 Port of platinum_tpu/models/lights.py: alias-table area-light picks with a
 uniform point on the triangle (solid-angle pdf), the equirect environment
-with its alias table and true solid-angle density, and pInfinite.
+with its alias table and true solid-angle density, and pInfinite. Unlike
+the JAX package, an emitter with an emission texture emits the factor
+times the texel in NEE too (glTF's emitted radiance), not the factor
+alone.
 """
 
 from __future__ import annotations
@@ -15,7 +18,10 @@ import torch
 from platinum_tpu_torch.ops import lookup
 from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops.frame import cross, dot, normalize
-from platinum_tpu_torch.render.types import EnvironmentLight, Geometry, LightTable
+from platinum_tpu_torch.ops.texturing import sample_atlas
+from platinum_tpu_torch.render.types import (LIGHT_ROW_TEXTURED,
+                                             EnvironmentLight, Geometry,
+                                             LightTable)
 
 ENV_DISTANCE = 1e7
 
@@ -108,8 +114,17 @@ def sample_env_light(env: EnvironmentLight, u2) -> LightSample:
 
 
 def sample_area_light(geometry: Geometry, lights: LightTable, hit_pos,
-                      u_select, u2) -> LightSample:
-    """Power-proportional alias pick + uniform point on the triangle."""
+                      u_select, u2, atlas=None,
+                      atlas_table=None) -> LightSample:
+    """Power-proportional alias pick + uniform point on the triangle.
+
+    Where the rows carry uvs and an emission-texture entry (types.
+    LIGHT_ROW_TEXTURED, and an atlas is given) the emitted radiance is
+    the factor times the texel at the sampled point, as glTF defines it:
+    the point's uv is interpolated with the barycentrics that place it,
+    and the texel is a bilinear atlas tap (ops/texturing.sample_atlas).
+    The pick stays the factor's power. Rows without a texture (entry -1)
+    give the factor alone."""
     n = lights.packed.shape[0]
     scaled = u_select * n
     slot = torch.clamp(scaled.long(), max=n - 1)
@@ -135,7 +150,23 @@ def sample_area_light(geometry: Geometry, lights: LightTable, hit_pos,
     wi = delta / torch.clamp(dist[..., None], min=1e-20)
     cos_l = torch.abs(dot(nrm, wi))
     pdf = dist2 / torch.clamp(cos_l * area, min=1e-20)
+    if atlas is not None and row.shape[-1] == LIGHT_ROW_TEXTURED:
+        emission = emission * _emission_texel(row, b, atlas, atlas_table)
     return LightSample(li=emission, wi=wi, dist=dist, pdf=pdf, p_light=p_light)
+
+
+def _emission_texel(row, b, atlas, atlas_table):
+    """(R, 3) linear emission texel of light rows at barycentrics b; 1
+    where a row binds no texture."""
+    w = 1.0 - b[..., 0:1] - b[..., 1:2]
+    uv = row[..., 16:18] * w + row[..., 18:20] * b[..., 0:1] \
+        + row[..., 20:22] * b[..., 1:2]
+    tid = row[..., 22].long()   # value float, see flatten
+    has = tid >= 0
+    entry = torch.where(has[..., None],
+                        atlas_table[torch.clamp(tid, min=0)], 0)
+    texel = sample_atlas(atlas, entry, uv)[..., :3]
+    return torch.where(has[..., None], texel, 1.0)
 
 
 def p_infinite(lights: LightTable, env: EnvironmentLight) -> torch.Tensor:

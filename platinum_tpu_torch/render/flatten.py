@@ -13,6 +13,8 @@ instanced ones by accel/tlas.py's partition_instanced (:660-676, :757-804).
 
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -28,6 +30,7 @@ from platinum_tpu_torch.core.scene import Scene
 from platinum_tpu_torch.core.texture import Texture
 from platinum_tpu_torch.ops import luts as luts_mod
 from platinum_tpu_torch.render.types import (
+    LIGHT_ROW_TEXTURED,
     MAT_ANISOTROPIC,
     MAT_EMISSIVE,
     MAT_THIN,
@@ -42,6 +45,7 @@ from platinum_tpu_torch.render.types import (
     RenderSettings,
     resolve_device,
 )
+from platinum_tpu_torch.utils import telemetry
 
 F = np.float32
 
@@ -95,9 +99,18 @@ def _camera_constants(scene: Scene, camera_node_id: int,
 def _pack_atlas(textures: list) -> tuple:
     """Shelf-pack texture images into one atlas (JAX `_pack_atlas`):
     (atlas, table) with table[k] = (x, y, w, h, srgb_flag); uint8 storage
-    when every source is 8-bit, float32 otherwise."""
+    when every source is 8-bit, float32 otherwise. Span `renderer.atlas`,
+    counter `flatten.atlas_bytes`."""
     if not textures:
         return None, None
+    with telemetry.span("renderer.atlas"):
+        atlas, table = _pack_atlas_images(textures)
+    telemetry.count("flatten.atlas_bytes", atlas.nbytes)
+    return atlas, table
+
+
+def _pack_atlas_images(textures: list) -> tuple:
+    """The shelf packing of `_pack_atlas`, for a non-empty list."""
     u8 = [t.as_u8_rgba() for t in textures]
     use_u8 = all(x is not None for x in u8)
     if use_u8:
@@ -244,11 +257,27 @@ def _material_arrays(scene, mat_ids, idt, texture_entry, device):
         energy_avg=_t(energy_avg, device),
         packed=_t(mat_packed, device),
     )
-    return table, flags, emission
+    return table, flags, emission, tex_table
 
 
-def _light_table(lv0, le1, le2, l_emission, device) -> LightTable:
-    """Emissive-triangle table with power CDF + alias pick."""
+def _emission_uvtex(tex_table, light_mats, tri_uvs):
+    """(L, 7) [uv0 uv1 uv2 entry] of emissive triangles: each one's three
+    uvs (tri_uvs (L, 3, 2)) and its material's emission-texture atlas
+    entry; None when no light binds an emission texture."""
+    entry = tex_table[light_mats, int(TextureSlot.EMISSION)]
+    if not (entry >= 0).any():
+        return None
+    return np.concatenate([tri_uvs.reshape(-1, 6),
+                           entry[:, None].astype(F)], -1).astype(F)
+
+
+def _light_table(lv0, le1, le2, l_emission, device,
+                 l_uvtex=None) -> LightTable:
+    """Emissive-triangle table with power CDF + alias pick. The power,
+    and with it the pick, is the emission factor's. With `l_uvtex`
+    (`_emission_uvtex`) each row goes on with the triangle's uvs and its
+    emission-texture entry (types.LIGHT_ROW_TEXTURED columns), which NEE
+    reads to multiply the factor by the texel it lands on."""
     if len(lv0):
         area = 0.5 * np.linalg.norm(np.cross(le1, le2), axis=-1)
         le = l_emission
@@ -256,7 +285,8 @@ def _light_table(lv0, le1, le2, l_emission, device) -> LightTable:
         cum = np.cumsum(power, dtype=np.float64).astype(F)
         _, lp, lalias = build_alias_table(power)
         n_l = len(lv0)
-        lpacked = np.zeros((n_l, 16), F)
+        lpacked = np.zeros((n_l, 16 if l_uvtex is None
+                            else LIGHT_ROW_TEXTURED), F)
         lpacked[:, 0:3] = lv0
         lpacked[:, 3:6] = le1
         lpacked[:, 6:9] = le2
@@ -265,6 +295,8 @@ def _light_table(lv0, le1, le2, l_emission, device) -> LightTable:
         lpacked[:, 13] = power / max(float(cum[-1]), 1e-20)
         lpacked[:, 14] = lp
         lpacked[:, 15] = lalias.astype(F)
+        if l_uvtex is not None:
+            lpacked[:, 16:23] = l_uvtex
         return LightTable(
             tri=_t(np.zeros(n_l, np.int32), device),
             emission=_t(le, device),
@@ -293,8 +325,11 @@ def _light_table(lv0, le1, le2, l_emission, device) -> LightTable:
 
 
 def _environment_light(scene, idt, device) -> EnvironmentLight:
+    """The environment's pixels and alias table; a map's table is built
+    inside the span `renderer.env_table` (attr `texels`)."""
     env = scene.environment
-    if env.has_texture and scene.asset(env.texture_id) is not None:
+    mapped = env.has_texture and scene.asset(env.texture_id) is not None
+    if mapped:
         tex: Texture = scene.asset(env.texture_id)
         px = tex.as_float_rgba()[..., :3]
     else:
@@ -302,7 +337,9 @@ def _environment_light(scene, idt, device) -> EnvironmentLight:
     px = (px @ idt.T * F(env.strength)).astype(F)
     has_env = bool(px.max() > 0.0)
     luma = np.maximum(px @ cs.luminance_weights(cs.BT709), 0.0).reshape(-1)
-    pdf, p, alias = build_alias_table(luma)
+    with (telemetry.span("renderer.env_table", texels=luma.shape[0])
+          if mapped else contextlib.nullcontext()):
+        pdf, p, alias = build_alias_table(luma)
     return EnvironmentLight(
         pixels=_t(px, device),
         pdf=_t(pdf, device),
@@ -452,7 +489,7 @@ def flatten_scene(
             bvh_tri_count=_t(bvh.tri_count, device),
         )
 
-    materials, flags, emission = _material_arrays(
+    materials, flags, emission, tex_table = _material_arrays(
         scene, mat_ids, idt, texture_entry, device)
 
     emissive_rows = np.nonzero(flags & MAT_EMISSIVE)[0]
@@ -461,7 +498,9 @@ def flatten_scene(
     lv0 = positions[tri_l[:, 0]]
     lights = _light_table(lv0, positions[tri_l[:, 1]] - lv0,
                           positions[tri_l[:, 2]] - lv0,
-                          emission[tri_mats[light_tris]], device)
+                          emission[tri_mats[light_tris]], device,
+                          _emission_uvtex(tex_table, tri_mats[light_tris],
+                                          uvs[tri_l]))
     env_light = _environment_light(scene, idt, device)
 
     atlas, atlas_table = _pack_atlas(tex_assets)
@@ -637,11 +676,11 @@ def _flatten_instanced(scene, camera_node_id, settings, instances,
                               mesh_tri_base=list(mesh_tri_base),
                               instances=list(instances))
 
-    materials, flags, emission = _material_arrays(
+    materials, flags, emission, tex_table = _material_arrays(
         scene, mat_ids, idt, texture_entry, device)
 
     # lights: world-space emissive triangles, per instance
-    lv0, le1, le2, lem = [], [], [], []
+    lv0, le1, le2, lem, lmat, luv = [], [], [], [], [], []
     for i, inst in enumerate(instances):
         mi = mesh_index[id(inst.mesh)]
         base = mesh_tri_base[mi]
@@ -659,10 +698,14 @@ def _flatten_instanced(scene, camera_node_id, settings, instances,
         le1.append(wp[:, 1] - wp[:, 0])
         le2.append(wp[:, 2] - wp[:, 0])
         lem.append(emission[rows[em]])
+        lmat.append(rows[em])
+        luv.append(uvs[tr])
     if lv0:
         lights = _light_table(np.concatenate(lv0), np.concatenate(le1),
                               np.concatenate(le2), np.concatenate(lem),
-                              device)
+                              device,
+                              _emission_uvtex(tex_table, np.concatenate(lmat),
+                                              np.concatenate(luv)))
     else:
         z = np.zeros((0, 3), F)
         lights = _light_table(z, z, z, z, device)

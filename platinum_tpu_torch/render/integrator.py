@@ -78,7 +78,8 @@ from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
 from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
                                               sample_normal_map)
 from platinum_tpu_torch.render.graphs import BounceGraphs, graphs_engage
-from platinum_tpu_torch.render.types import (MAT_USES_ALPHA, FlatScene,
+from platinum_tpu_torch.render.types import (LIGHT_ROW_TEXTURED,
+                                             MAT_USES_ALPHA, FlatScene,
                                              RenderSettings)
 from platinum_tpu_torch.utils import telemetry
 
@@ -249,6 +250,14 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         int(f[len("texslot"):]) for f in features if f.startswith("texslot"))
     normal_map = (flat.atlas is not None
                   and int(TextureSlot.NORMAL) in tex_slots)
+    emission_tex = (flat.atlas is not None
+                    and int(TextureSlot.EMISSION) in tex_slots)
+    light_tex = (flat.atlas is not None and use_mis and lights_on
+                 and lights.packed.shape[-1] == LIGHT_ROW_TEXTURED)
+    # bilinear taps a shaded lane makes (4 a bound slot, 4 for the
+    # emitter's texel), known from the shapes alone
+    taps_per_lane = (4 * (len(tex_slots) + light_tex)
+                     if flat.atlas is not None else 0)
 
     def body(s):
         with telemetry.span("integrator.bounce", bounce=s["bounce"],
@@ -323,6 +332,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                 w_env = torch.ones((n,), device=dev)
             L = L + torch.where((miss & has_env)[:, None],
                                 atten * env_le * w_env[:, None], 0.0)
+            telemetry.count_device("integrator.env_escapes", miss)
 
         live = torch.sum(active.to(torch.float32))
         telemetry.count("integrator.wave_lanes", n)
@@ -384,6 +394,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         ctx = bsdf_mod.make_shading_context(
             mats, hd.mat_idx, hd.uv, flat.atlas, flat.atlas_table,
             slots=tex_slots)
+        telemetry.count("integrator.texture_taps", n * taps_per_lane)
         if normal_map:
             hd = _apply_normal_map(hd, flat, ctx.tex_rows, d)
 
@@ -394,9 +405,10 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             # the distance from the previous path vertex, not from the
             # last alpha hop's origin: the pdf NEE would have used
             dist2_hit = torch.sum((hd.pos - o) ** 2, dim=-1)
+            em_g = _picked_emission(ctx, mats, hd.mat_idx, emission_tex)
             light_pdf_hit = (
                 (1.0 - p_inf)
-                * (ctx.emission[:, 1] * np.pi
+                * (em_g * np.pi
                    / torch.clamp(lights.total_power, min=1e-20))
                 * dist2_hit / torch.clamp(cos_hit, min=1e-20))
             w_emit = torch.where(
@@ -430,7 +442,8 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                     (u_sel - p_inf) / torch.clamp(1.0 - p_inf, min=1e-20), 0.0)
                 ls_env = lights_mod.sample_env_light(env, u_nee2)
                 ls_area = lights_mod.sample_area_light(
-                    geom, lights, hd.pos, u_area, u_nee2)
+                    geom, lights, hd.pos, u_area, u_nee2, flat.atlas,
+                    flat.atlas_table)
                 sel = use_env_light[:, None]
                 li = torch.where(sel, ls_env.li, ls_area.li)
                 wi_world = torch.where(sel, ls_env.wi, ls_area.wi)
@@ -444,7 +457,8 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                 p_light = torch.ones((n,), device=dev)
             else:
                 lsmp = lights_mod.sample_area_light(geom, lights, hd.pos,
-                                                    u_sel, u_nee2)
+                                                    u_sel, u_nee2, flat.atlas,
+                                                    flat.atlas_table)
                 li, wi_world, dist, l_pdf = lsmp.li, lsmp.wi, lsmp.dist, lsmp.pdf
                 p_light = lsmp.p_light
 
@@ -459,6 +473,10 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             do_nee = hit & bsdf_mod.wants_nee(ctx) & f_nonzero
             if env_on and lights_on:
                 do_nee = do_nee & (has_lights | has_env)
+                telemetry.count_device("integrator.env_nee",
+                                       do_nee & use_env_light)
+            elif env_on:
+                telemetry.count_device("integrator.env_nee", do_nee)
             ld = (li * ev.f * torch.abs(wi_local[..., 2:3])
                   / torch.clamp(p_light * l_pdf + ev.pdf, min=1e-20)[..., None])
             if alpha_on:
@@ -558,6 +576,18 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
 
     body.resolve_pending = resolve_pending
     return body
+
+
+def _picked_emission(ctx, mats, mat_idx, emission_tex: bool):
+    """(R,) green emission of the hit's material as the light table's
+    power has it: the factor, without the emission texel (glTF's texel
+    scales what is emitted, not the power NEE picks a light by), so that
+    NEE's pdf and a BSDF hit's MIS weight agree. `emission_tex`: some
+    material binds an emission texture; else the shading context's
+    emission is the factor already."""
+    if not emission_tex:
+        return ctx.emission[:, 1]
+    return mats.packed[mat_idx.long(), 5]
 
 
 def _apply_normal_map(hd, flat: FlatScene, tex_rows, d):
@@ -748,7 +778,12 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     `integrator.trace_shadow`, and `integrator.live_check` around each
     test for a live lane (`sync.live_check`). Counters:
     `integrator.wave_lanes` (lanes a bounce) and `integrator.live_lanes`
-    (live lanes a bounce, summed on the device).
+    (live lanes a bounce, summed on the device); in a sky-lit scene
+    `integrator.env_escapes` (lanes that miss and take the sky) and
+    `integrator.env_nee` (NEE samples that chose the sky), both summed on
+    the device; in a textured one `integrator.texture_taps` (a shaded
+    lane's bilinear taps: 4 for each bound slot and 4 for the emitter's
+    texel, from the shapes).
 
     `graphs` (render/graphs.py, the Renderer's) runs each bounce as a
     captured CUDA graph where `graphs_engage` allows it: the same

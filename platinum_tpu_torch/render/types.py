@@ -20,6 +20,12 @@ MAT_EMISSIVE = 2
 MAT_THIN = 4
 MAT_USES_ALPHA = 8
 
+# Width of a light row (LightTable.packed) when some emitter binds an
+# emission texture: the 16 columns, then uv0 uv1 uv2 (16:22) and the
+# emission texture's atlas entry (22, -1 for none), and a pad. A port-only
+# layout: the JAX package's rows are 16 wide and carry the factor alone.
+LIGHT_ROW_TEXTURED = 24
+
 # Renderer flag bits (platinum_tpu/render/types.py:31-32)
 FLAG_MULTISCATTER_GGX = 1
 FLAG_GMON = 2
@@ -104,7 +110,7 @@ class LightTable(TensorStruct):
     count: torch.Tensor       # () i32
     alias_p: torch.Tensor | None = None     # (L,)
     alias_idx: torch.Tensor | None = None   # (L,) i32
-    packed: torch.Tensor | None = None      # (L, 16) [v0 e1 e2 emission area p/total alias_p alias]
+    packed: torch.Tensor | None = None      # (L, 16) [v0 e1 e2 emission area p/total alias_p alias], or (L, LIGHT_ROW_TEXTURED)
 
 
 @dataclass(frozen=True)

@@ -144,15 +144,16 @@ class _Span:
 
 
 def span(name: str, *, step=None, bounce=None, lanes=None, cap=None,
-         preview=None):
+         preview=None, texels=None):
     """A context that records one span while tracing is on, else the
     shared no-op context. `step` names the step the span belongs to (a
-    span without one takes its parent's); `bounce`, `lanes`, `cap` and
-    `preview` are kept as attrs where given."""
+    span without one takes its parent's); `bounce`, `lanes`, `cap`,
+    `preview` and `texels` are kept as attrs where given."""
     if not _ON or _REC is not None:
         return _NULL
     attrs = {k: v for k, v in (("bounce", bounce), ("lanes", lanes),
-                               ("cap", cap), ("preview", preview))
+                               ("cap", cap), ("preview", preview),
+                               ("texels", texels))
              if v is not None}
     return _Span([name, 0, 0, None, step, attrs])
 
@@ -168,9 +169,13 @@ def count(name: str, n: int = 1) -> None:
 
 def count_device(name: str, t) -> None:
     """Keep the 0-d tensor `t` for the counter `name` while tracing is
-    on: no launch and no synchronise here; `drain()` sums the tensors."""
+    on: no synchronise here; `drain()` sums the tensors. A tensor of
+    more dimensions (a lane mask) is summed here first, one launch, and
+    only then: with tracing off nothing is launched."""
     if not _ON:
         return
+    if t.dim():
+        t = t.sum()
     if _REC is not None:
         _REC.device.append((name, t))
     else:

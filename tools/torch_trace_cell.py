@@ -13,12 +13,16 @@ return_stats=True)` calls outside the profiler, then two steps under
 torch.profiler. Tracing is on from before the Renderer is built and the
 records are drained after each phase. Prints one JSON line: the card and
 its power limit, set-up by part, `ms_per_spp` over the window, span
-totals per phase (count, total and self ms), the counters, the eight
+totals per phase (count, total and self ms), the counters, the
 span and counter readings (setup.flatten_s, setup.tracer_build_s,
 setup.autoplan_s, integrator.sync_sites_per_spp, integrator.live_lane_pct,
 dispatch.shade_host_ms_per_spp, dispatch.trace_host_ms_per_spp,
 integrator.graph_bounce_pct: the profiled window's bounces replayed as
-CUDA graphs, `integrator.bounce_graph` spans, over all its bounces), the
+CUDA graphs, `integrator.bounce_graph` spans, over all its bounces; and
+where the scene has a sky or textures, setup.env_table_s and
+setup.atlas_s, the spans of the sky's alias table and of the atlas,
+integrator.env_escape_pct, the profiled window's lanes that took the
+sky over its wave lanes, and integrator.texture_taps_per_spp), the
 profiler's launches and synchronising calls over the same two steps, the
 synchronising calls by the innermost program span they were made in, and
 the ten longest device idle gaps, each named by the innermost program
@@ -57,12 +61,15 @@ def _span_ms(spans, names) -> float:
 
 
 def readings(setup, plain, profiled) -> dict:
-    """The eight readings of three drains: set-up, the plain stretch
-    (with `plain_spp` samples) and the profiled window (with `spp`)."""
+    """The readings of three drains: set-up, the plain stretch (with
+    `plain_spp` samples) and the profiled window (with `spp`); a reading
+    whose span or counter was not recorded is left out."""
     out = {}
     for key, name in (("setup.flatten_s", "renderer.flatten"),
                       ("setup.tracer_build_s", "renderer.tracers"),
-                      ("setup.autoplan_s", "renderer.autoplan")):
+                      ("setup.autoplan_s", "renderer.autoplan"),
+                      ("setup.env_table_s", "renderer.env_table"),
+                      ("setup.atlas_s", "renderer.atlas")):
         if any(s["name"] == name for s in setup["spans"]):
             out[key] = _span_ms(setup["spans"], (name,)) * 1e-3
     c = profiled["counters"]
@@ -73,6 +80,12 @@ def readings(setup, plain, profiled) -> dict:
                             if s["name"] == "integrator.bounce")
     if bounces:
         out["integrator.graph_bounce_pct"] = 100.0 * replays / bounces
+    if "integrator.env_escapes" in c and c.get("integrator.wave_lanes"):
+        out["integrator.env_escape_pct"] = (
+            100.0 * c["integrator.env_escapes"] / c["integrator.wave_lanes"])
+    if c.get("integrator.texture_taps"):
+        out["integrator.texture_taps_per_spp"] = (
+            c["integrator.texture_taps"] / profiled["spp"])
     c = plain["counters"]
     if c.get("integrator.wave_lanes"):
         out["integrator.live_lane_pct"] = (
