@@ -5,9 +5,10 @@
 Phases, one printed block each (any failure exits non-zero):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit
-  2. build: compiles the three kernel sources (csrc/wide_trace.cu,
-     csrc/stream_mt.cu, csrc/bf_stream.cu; one nvcc each, started
-     together) and the native BVH construction library from the checkout
+  2. build: compiles the four kernel sources (csrc/wide_trace.cu,
+     csrc/stream_mt.cu, csrc/bf_stream.cu, csrc/bsdf_shade.cu; one nvcc
+     each, started together) and the native BVH construction library
+     from the checkout
   3. K1/K2 vs plain: the kernel's closest-hit and any-hit modes against
      the plain PyTorch version on the full colonnade (271k triangles), on
      16,384 rays each of a camera wave, a bounce-like wave from surface
@@ -313,6 +314,15 @@ Phases, one printed block each (any failure exits non-zero):
      render_sample(pixel_ids=) on the card and on the CPU, held per pixel
      by phase 5's bars (and, where the Renderer did not compact, its
      image's crop too)
+  10. the BSDF kernel (csrc/bsdf_shade.cu, which replaces no TPU kernel):
+     sponza_class.final_1080p's first step through the Renderer, its first
+     bounce's full 2,073,600-lane wave handed, as the integrator hands it,
+     to both entry points and to the plain functions (bsdf.sample_plain,
+     bsdf.evaluate_plain) on the same tensors: lanes off rtol 1e-5 /
+     atol 1e-6 at most BSDF_SHARE, device ms of each beside the plain
+     version's ms and the byte bound (each input read once, each output
+     written once, at 3.35 TB/s); then the kernel's launches in the two
+     steps, every sampled and evaluated lane shaded by it
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -4455,6 +4465,128 @@ def phase_bench_configs(tmp):
     return out
 
 
+BSDF_SHARE = 1e-4   # 10: lanes that may leave rtol 1e-5 / atol 1e-6 (a
+                    # branch decided within an ulp of its threshold)
+BSDF_SIZE = (1920, 1080)   # 10: sponza_class.final_1080p's wave
+
+
+def _bsdf_bytes(entry, ctx, luts, mode, n):
+    """Bytes of one BSDF launch over n lanes: each input the kernel reads
+    once (the eleven material floats, flags, wo, then r4 and rc or wi; on
+    the rows path the material index, the energy-average row and the
+    energy table, else the LUTs), each output written once (wi, f, pdf,
+    flags or f, pdf)."""
+    import dataclasses
+
+    from platinum_tpu_torch.models import bsdf
+    from platinum_tpu_torch.ops.luts import Luts
+
+    lane = 4 * 11 + 4 + 12 + (24 if entry == "sample" else 12)
+    lane += 32 if entry == "sample" else 16
+    if mode & bsdf.MODE_ROWS:
+        lane += ctx.mat_idx.element_size() + 16
+        tables = ctx.energy.numel() * 4
+    else:
+        tables = sum(getattr(luts, f.name).numel() * 4
+                     for f in dataclasses.fields(Luts))
+    return lane * n + tables
+
+
+def _bsdf_row(entry, kernel, plain, ctx, luts, mode, n):
+    """10: one entry point on the wave: held to the plain function on the
+    same tensors, both timed; the launches it made here are not
+    counted."""
+    from platinum_tpu_torch.models import bsdf
+
+    saved = dict(bsdf.LAUNCHES)
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    names = ("wi", "f", "pdf") if entry == "sample" else ("f", "pdf")
+    off = torch.zeros(n, dtype=torch.bool, device=want.pdf.device)
+    if entry == "sample":
+        off |= got.flags != want.flags
+    err = 0.0
+    for k in names:
+        a, b = getattr(got, k).reshape(n, -1), getattr(want, k).reshape(n, -1)
+        off |= ((a - b).abs() > 1e-6 + 1e-5 * b.abs()).any(-1)
+        off |= (a.isnan() != b.isnan()).any(-1)
+        fin = torch.isfinite(a) & torch.isfinite(b)
+        err = max(err, float((a - b).abs()[fin].max()))
+    check(int(off.sum()) <= BSDF_SHARE * n,
+          f"bsdf {entry}: {int(off.sum())} of {n} lanes off the plain one")
+    ms = _device_ms(kernel, 20)
+    plain_ms = _time_ms(plain, 3)
+    nbytes = _bsdf_bytes(entry, ctx, luts, mode, n)
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    bsdf.LAUNCHES.update(saved)
+    print(f"  bsdf_shade {entry}: {n} lanes, mode {mode:#x}, {ms:.4f} ms "
+          f"(plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms by bytes "
+          f"({nbytes / n:.1f} B a lane), {int(off.sum())} lanes off rtol "
+          f"1e-5, max |err| {err:.3g}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", max_abs_err=err, lanes_off=int(off.sum()))
+
+
+def phase_bsdf(dev):
+    """10: the BSDF kernel on sponza_class.final_1080p's first wave."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.models import bsdf
+    from platinum_tpu_torch.render.renderer import Renderer
+    from platinum_tpu_torch.render.types import RenderSettings
+    from platinum_tpu_torch.utils import telemetry
+
+    scene, cam = make_colonnade_scene(**COLONNADE)
+    settings = RenderSettings(spp=2, **{**HEADLINE, "width": BSDF_SIZE[0],
+                                        "height": BSDF_SIZE[1]})
+    n = settings.num_pixels
+    calls = {"sample": bsdf.sample, "evaluate": bsdf.evaluate}
+    plains = {"sample": bsdf.sample_plain, "evaluate": bsdf.evaluate_plain}
+    rows = {}
+
+    def hook(entry):
+        def wrapped(ctx, wo, *args, **kw):
+            if (entry not in rows and wo.shape[0] == n
+                    and not torch.cuda.is_current_stream_capturing()):
+                luts = args[-1] if entry == "evaluate" else args[2]
+                mode = bsdf._mode(ctx, kw["features"], kw["multiscatter"],
+                                  kw.get("mixture_pdf", False))
+                rows[entry] = _bsdf_row(
+                    entry, lambda: calls[entry](ctx, wo, *args, **kw),
+                    lambda: plains[entry](ctx, wo, *args, **kw), ctx, luts,
+                    mode, n)
+            return calls[entry](ctx, wo, *args, **kw)
+        return wrapped
+
+    renderer = Renderer(scene)
+    renderer.start_render(cam, settings)
+    for k in bsdf.LAUNCHES:
+        bsdf.LAUNCHES[k] = 0
+    bsdf.sample, bsdf.evaluate = hook("sample"), hook("evaluate")
+    telemetry.drain()
+    telemetry.start()
+    try:
+        for _ in range(settings.spp):
+            renderer.render()
+        torch.cuda.synchronize()
+        counters = telemetry.drain()["counters"]
+    finally:
+        telemetry.stop()
+        bsdf.sample, bsdf.evaluate = calls["sample"], calls["evaluate"]
+    check(set(rows) == {"sample", "evaluate"},
+          f"bsdf: the full wave reached only {sorted(rows)}")
+    pct = 100.0 * counters.get("bsdf.kernel_lanes", 0) / counters["bsdf.lanes"]
+    check(pct == 100.0, f"bsdf: the kernel shaded {pct:.2f}% of the lanes")
+    launches = dict(bsdf.LAUNCHES)
+    check(launches["sample"] > 0 and launches["evaluate"] > 0,
+          f"bsdf: launches {launches}")
+    print(f"  bsdf_shade launches in {settings.spp} steps {launches}, "
+          f"{counters['bsdf.lanes']} lanes, {pct:.1f}% shaded by the kernel",
+          flush=True)
+    for entry in rows:
+        rows[entry]["launches"] = launches[entry]
+    return rows
+
+
 def _design(name):
     """How the kernel row `name` of the kernel table walks and tests:
     which of wide_trace.cu's walks, or the breadth-first kernels' step."""
@@ -4493,6 +4625,10 @@ def _design(name):
                 "alone")
     elif "bf_" in name:
         return "breadth-first level step"
+    elif "bsdf_shade" in name:
+        return ("a thread per lane, every lobe in one pass, the scene's "
+                "features a mask; inputs read where they lie, the LUTs "
+                "and energy rows through the read-only cache")
     elif "stream_mt" in name:
         return ("512 block-sorted pairs a CTA, each run's block staged once "
                 "in shared memory (cp.async, one round ahead), 2 pairs a "
@@ -4629,6 +4765,8 @@ def main():
           f"bvh tracer {bvh9}; goldens {gold9}; bake-luts --spp "
           f"{BAKE_CLI_SPP} {bake9['bake_s']:.2f} s; bench configs {bench9}",
           flush=True)
+    kbsdf = phase_bsdf(dev)
+    lap("10 BSDF kernel")
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"
@@ -4707,6 +4845,14 @@ def main():
             launches=stream_launches[f"stream_mt {kind}"],
             max_abs_err=row["max_abs_err"], ms=row["ms"],
             plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
+            bound_by=row["bound_by"], library_ms=None))
+    for entry, row in kbsdf.items():
+        kernels.append(dict(
+            name=f"bsdf_shade {entry}", route="cuda",
+            design=_design("bsdf_shade"),
+            source="platinum_tpu_torch/csrc/bsdf_shade.cu", replaces=None,
+            launches=row["launches"], max_abs_err=row["max_abs_err"],
+            ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")

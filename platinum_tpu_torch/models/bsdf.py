@@ -8,10 +8,20 @@ the per-material energy rows or the LUTs. The estimator and its documented
 deviations from the Metal reference are the JAX package's (see its module
 docstring). `make_shading_context` samples the material textures of
 ops/texturing.py when the scene has an atlas.
+
+`sample` and `evaluate` launch the hand-written CUDA kernel of
+csrc/bsdf_shade.cu on CUDA tensors (one pass a lane over every lobe and
+switch, the scene's features as a bit mask: `feature_mask`) and raise on
+what it does not take; on CPU tensors they run `sample_plain` and
+`evaluate_plain`, the plain PyTorch code the kernel is held to.
+`LAUNCHES` counts the launches; counter `bsdf.kernel_lanes` the lanes
+they shaded and `bsdf.lanes` the lanes both functions were given.
 """
 
 from __future__ import annotations
 
+import ctypes
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -29,6 +39,7 @@ from platinum_tpu_torch.render.types import (
     MAT_THIN,
     MaterialTable,
 )
+from platinum_tpu_torch.utils import telemetry
 
 # Sample flag bits (parity with bsdf::SampleFlags)
 SAMPLE_REFLECTED = 1
@@ -360,8 +371,11 @@ def _zeros(shape, like):
     return torch.zeros(shape, dtype=like.dtype, device=like.device)
 
 
-def evaluate(ctx: ShadingContext, wo, wi, luts, multiscatter: bool = True,
-             features: frozenset = ALL_FEATURES) -> BSDFEval:
+def evaluate_plain(ctx: ShadingContext, wo, wi, luts,
+                   multiscatter: bool = True,
+                   features: frozenset = ALL_FEATURES) -> BSDFEval:
+    """`evaluate` in plain PyTorch: what CPU tensors run, and the
+    reference the kernel is held to."""
     shape = tuple(wo.shape[:-1])
 
     if "aniso" in features:
@@ -472,10 +486,12 @@ def _flag(v, shape, like):
     return torch.full(shape, v, dtype=torch.int32, device=like.device)
 
 
-def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
-           features: frozenset = ALL_FEATURES,
-           mixture_pdf: bool = True) -> BSDFSample:
-    """Importance-sample the BSDF (see the JAX `sample` docstring for the
+def sample_plain(ctx: ShadingContext, wo, r4, rc, luts,
+                 multiscatter: bool = True,
+                 features: frozenset = ALL_FEATURES,
+                 mixture_pdf: bool = True) -> BSDFSample:
+    """`sample` in plain PyTorch: what CPU tensors run, and the reference
+    the kernel is held to (see the JAX `sample` docstring for the
     mixture-pdf estimator)."""
     shape = tuple(wo.shape[:-1])
     dev = wo.device
@@ -716,13 +732,183 @@ def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
         wi = _rotate_xy(wi, cos_a, sin_a)
 
     if mixture_pdf:
-        ev = evaluate(ctx, wo_in, wi, luts, multiscatter=multiscatter,
-                      features=features)
+        ev = evaluate_plain(ctx, wo_in, wi, luts, multiscatter=multiscatter,
+                            features=features)
         keep = (dead | ((flags & SAMPLE_SPECULAR) != 0)
                 | (wo_in[..., 2] * wi[..., 2] <= 0.0) | (ev.pdf <= 0.0))
         f = torch.where(keep[..., None], f, ev.f)
         pdf = torch.where(keep, pdf, ev.pdf)
     return BSDFSample(wi=wi, f=f, pdf=pdf, flags=flags)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel (csrc/bsdf_shade.cu) and the dispatch
+# ---------------------------------------------------------------------------
+
+# The features the BSDF reads, each the kernel's bit of `mode`
+FEATURE_BITS = {"metallic": 1, "transparent": 2, "clearcoat": 4,
+                "smooth": 8, "aniso": 16, "thin": 32, "tex_rough": 64}
+MODE_MULTISCATTER = 256
+MODE_MIXTURE_PDF = 512
+MODE_ROWS = 1024      # the per-material energy rows (`_use_rows`)
+
+# Kernel launches per entry, counted where the wrappers launch
+LAUNCHES = {"sample": 0, "evaluate": 0}
+
+_CTX_FIELDS = (("albedo", 3), ("roughness", 1), ("metallic", 1),
+               ("transmission", 1), ("ior", 1), ("anisotropy", 1),
+               ("anisotropy_rotation", 1), ("clearcoat", 1),
+               ("clearcoat_roughness", 1))
+
+
+def feature_mask(features) -> int:
+    """The kernel's bits of the features the BSDF reads."""
+    return sum(b for name, b in FEATURE_BITS.items() if name in features)
+
+
+def mask_features(mask: int) -> frozenset:
+    """The features whose bits `mask` holds (`feature_mask`'s inverse on
+    the features the BSDF reads)."""
+    return frozenset(name for name, b in FEATURE_BITS.items() if mask & b)
+
+
+def _declare(lib):
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.bsdf_shade_launch.restype = i
+    lib.bsdf_shade_launch.argtypes = [i, i, i, p, i, p]
+    lib.bsdf_shade_error_string.restype = ctypes.c_char_p
+    lib.bsdf_shade_error_string.argtypes = [i]
+
+
+def _words(name, t, n, k, dev, dtype=torch.float32):
+    """(pointer, lane stride, component stride) of a (n,) or (n, k)
+    field, read where it lies; raises on what the kernel does not take."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, wo on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    shape = (n,) if k == 1 else (n, k)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    return [t.data_ptr(), t.stride(0), t.stride(1) if k > 1 else 0]
+
+
+def _table(name, t, dev):
+    if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous float32 table on "
+                         f"{dev}")
+    return t.data_ptr()
+
+
+def _launch(entry: int, ctx: ShadingContext, wo, a, b, luts, mode: int):
+    """One launch of csrc/bsdf_shade.cu over the lanes of `wo` (n, 3):
+    entry 0 samples (a = r4 (n, 4), b = rc (n, 2); returns wi, f, pdf,
+    flags), entry 1 evaluates (a = wi (n, 3); returns f, pdf). Outputs
+    are allocated here; the kernel allocates nothing and does not
+    synchronise."""
+    from platinum_tpu_torch.ops.packet_trace import load_library
+
+    dev = wo.device
+    if wo.dim() != 2:
+        raise ValueError(f"wo must be (n, 3), got {tuple(wo.shape)}")
+    n = wo.shape[0]
+    words = []
+    for name, k in _CTX_FIELDS:
+        words += _words(name, getattr(ctx, name), n, k, dev)
+    rows = bool(mode & MODE_ROWS)
+    if rows:
+        words += _words("energy_avg_row", ctx.energy_avg_row, n, 4, dev)
+    else:
+        words += [0, 0, 0]
+    words += _words("flags", ctx.flags, n, 1, dev, torch.int32)
+    if rows:
+        words += _words("mat_idx", ctx.mat_idx, n, 1, dev, torch.int32)
+    else:
+        words += [0, 0, 0]
+    words += _words("wo", wo, n, 3, dev)
+    if entry == 0:
+        words += _words("r4", a, n, 4, dev) + _words("rc", b, n, 2, dev)
+    else:
+        words += _words("wi", a, n, 3, dev) + [0, 0, 0]
+    if rows:
+        m, k, w = ctx.energy.shape
+        if w != 6:
+            raise ValueError(f"energy rows must be (M, K, 6), got "
+                             f"{tuple(ctx.energy.shape)}")
+        words += [_table("energy", ctx.energy, dev), k, m * k]
+    else:
+        words += [0, 0, 0]
+    for f in dataclasses.fields(luts_mod.Luts):
+        if rows:
+            words += [0, 1, 1, 1, 1]
+            continue
+        if luts is None:
+            raise ValueError("the LUT path needs the Luts")
+        t = getattr(luts, f.name)
+        words += [_table(f.name, t, dev)] + list(t.shape) + [1] * (
+            4 - t.dim())
+    f_out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    pdf = torch.empty((n,), dtype=torch.float32, device=dev)
+    if entry == 0:
+        wi = torch.empty((n, 3), dtype=torch.float32, device=dev)
+        flags = torch.empty((n,), dtype=torch.int32, device=dev)
+        words += [wi.data_ptr(), f_out.data_ptr(), pdf.data_ptr(),
+                  flags.data_ptr()]
+    else:
+        words += [0, f_out.data_ptr(), pdf.data_ptr(), 0]
+    if n:
+        lib = load_library("bsdf_shade", _declare)
+        args = (ctypes.c_longlong * len(words))(*words)
+        with torch.cuda.device(dev):
+            rc = lib.bsdf_shade_launch(
+                entry, n, mode, args, len(words),
+                torch.cuda.current_stream(dev).cuda_stream)
+        if rc != 0:
+            raise RuntimeError(
+                "bsdf_shade launch failed: "
+                f"{lib.bsdf_shade_error_string(rc).decode()} ({rc})")
+        LAUNCHES["sample" if entry == 0 else "evaluate"] += 1
+        telemetry.count("bsdf.kernel_lanes", n)
+    return (wi, f_out, pdf, flags) if entry == 0 else (f_out, pdf)
+
+
+def _mode(ctx, features, multiscatter, mixture_pdf=False) -> int:
+    return (feature_mask(features)
+            | (MODE_MULTISCATTER if multiscatter else 0)
+            | (MODE_MIXTURE_PDF if mixture_pdf else 0)
+            | (MODE_ROWS if _use_rows(ctx, features) else 0))
+
+
+def sample(ctx: ShadingContext, wo, r4, rc, luts, multiscatter: bool = True,
+           features: frozenset = ALL_FEATURES,
+           mixture_pdf: bool = True) -> BSDFSample:
+    """Importance-sample the BSDF: wi, f, pdf and flags for each lane of
+    `wo` (n, 3) from r4 (n, 4) and rc (n, 2). CUDA tensors launch the
+    kernel (csrc/bsdf_shade.cu) or raise; CPU tensors run
+    `sample_plain`."""
+    telemetry.count("bsdf.lanes", wo.shape[:-1].numel())
+    if not wo.is_cuda:
+        return sample_plain(ctx, wo, r4, rc, luts, multiscatter=multiscatter,
+                            features=features, mixture_pdf=mixture_pdf)
+    wi, f, pdf, flags = _launch(
+        0, ctx, wo, r4, rc, luts,
+        _mode(ctx, features, multiscatter, mixture_pdf))
+    return BSDFSample(wi=wi, f=f, pdf=pdf, flags=flags)
+
+
+def evaluate(ctx: ShadingContext, wo, wi, luts, multiscatter: bool = True,
+             features: frozenset = ALL_FEATURES) -> BSDFEval:
+    """f and pdf of the BSDF for each lane's (wo, wi), both (n, 3). CUDA
+    tensors launch the kernel (csrc/bsdf_shade.cu) or raise; CPU tensors
+    run `evaluate_plain`."""
+    telemetry.count("bsdf.lanes", wo.shape[:-1].numel())
+    if not wo.is_cuda:
+        return evaluate_plain(ctx, wo, wi, luts, multiscatter=multiscatter,
+                              features=features)
+    f, pdf = _launch(1, ctx, wo, wi, None, luts,
+                     _mode(ctx, features, multiscatter))
+    return BSDFEval(f=f, pdf=pdf)
 
 
 def emitted_radiance(ctx: ShadingContext, wo, luts,

@@ -72,6 +72,9 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # on every CPU thread
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
+# flags a source adds to NVCC_FLAGS: the BSDF kernel rounds each product
+# apart, as the plain PyTorch code it is held to does
+SOURCE_FLAGS = {"bsdf_shade": ["-fmad=false"]}
 
 # Moller-Trumbore precision tiers of the closest-hit modes, with the
 # kernel's codes (pallas_trace.py `mt_dot`): "highest" fp32 (K1), "high"
@@ -173,7 +176,8 @@ def build_kernel(name: str = "wide_trace") -> str:
     source and the headers it shares (reused when present) and return its
     path. Raises on failure."""
     source = os.path.join(CSRC_DIR, name + ".cu")
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    flags = NVCC_FLAGS + SOURCE_FLAGS.get(name, [])
+    digest = hashlib.sha256(" ".join(flags).encode())
     for path in (source, *CSRC_SHARED):
         with open(path, "rb") as f:
             digest.update(f.read())
@@ -184,7 +188,7 @@ def build_kernel(name: str = "wide_trace") -> str:
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
     try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, source],
+        proc = subprocess.run([_nvcc(), *flags, "-o", tmp, source],
                               capture_output=True, text=True)
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {name}.cu "
@@ -196,7 +200,8 @@ def build_kernel(name: str = "wide_trace") -> str:
     return out
 
 
-def build_kernels(names=("wide_trace", "stream_mt", "bf_stream")) -> dict:
+def build_kernels(names=("wide_trace", "stream_mt", "bf_stream",
+                         "bsdf_shade")) -> dict:
     """Build several kernel sources at once, one nvcc each, all started
     together; {name: library path}. Raises if any build fails."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:

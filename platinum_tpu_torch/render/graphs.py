@@ -28,7 +28,8 @@ bounce function it captured, and with it the tensors that function
 made.
 
 A capture counts nothing itself. What the bounce counts (telemetry
-counters, the packet kernel's LAUNCHES) is recorded at capture and
+counters, the packet kernel's and the BSDF kernel's LAUNCHES) is
+recorded at capture and
 added on each replay, beside `integrator.graph_captures` and
 `integrator.graph_replays` (one a bounce each) and a span
 `integrator.bounce_graph` (attrs `bounce`, `lanes`) around the replay.
@@ -45,8 +46,12 @@ import dataclasses
 
 import torch
 
+from platinum_tpu_torch.models import bsdf
 from platinum_tpu_torch.ops import packet_trace
 from platinum_tpu_torch.utils import telemetry
+
+# the launch counters a bounce adds to, each captured and replayed
+_LAUNCH_TABLES = (packet_trace.LAUNCHES, bsdf.LAUNCHES)
 
 
 def graphs_engage(device, tracers, settings, features) -> bool:
@@ -125,8 +130,9 @@ class _Bounce:
             dst.copy_(src)
         self.graph.replay()
         self.rec.replay()
-        for k, n in self.launches.items():
-            packet_trace.LAUNCHES[k] += n
+        for table, launches in zip(_LAUNCH_TABLES, self.launches):
+            for k, n in launches.items():
+                table[k] += n
         telemetry.count("integrator.graph_replays")
         return _build(self.out_skel, iter(self.outputs))
 
@@ -165,18 +171,19 @@ class BounceGraphs:
         if self._pool is None:
             self._pool = torch.cuda.graph_pool_handle()
         inputs = [t.clone() for t in leaves]
-        before = dict(packet_trace.LAUNCHES)
+        before = [dict(t) for t in _LAUNCH_TABLES]
         try:
             with telemetry.capture() as rec:
                 graph, out = _capture_graph(
                     lambda xs: body(_build(skel, iter(xs))), inputs,
                     self._pool)
-            launches = {k: n - before.get(k, 0)
-                        for k, n in packet_trace.LAUNCHES.items()
-                        if n != before.get(k, 0)}
+            launches = [{k: n - b.get(k, 0) for k, n in t.items()
+                         if n != b.get(k, 0)}
+                        for t, b in zip(_LAUNCH_TABLES, before)]
         finally:
             # the captured launches run on replay, and count there
-            packet_trace.LAUNCHES.update(before)
+            for t, b in zip(_LAUNCH_TABLES, before):
+                t.update(b)
         outputs = []
         out_skel = _skeleton(out, outputs)
         telemetry.count("integrator.graph_captures")

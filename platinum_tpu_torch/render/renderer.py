@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from platinum_tpu_torch.accel.tlas import update_instance_transform
+from platinum_tpu_torch.ops import packet_trace
 from platinum_tpu_torch.ops.gmon import gmon_combine
 from platinum_tpu_torch.post.options import PostProcessOptions
 from platinum_tpu_torch.post.pipeline import postprocess_jit
@@ -136,6 +137,15 @@ class Renderer:
                 self.settings,
                 bf_depth=_tree_depth(self.flat.wbvh_meta.cpu().numpy()))
         with telemetry.span("renderer.tracers"):
+            if self.device.type == "cuda":
+                # the kernel sources a render launches, one nvcc each, all
+                # started together (a source built before is reused)
+                with telemetry.span("kernels.build"):
+                    packet_trace.build_kernels(
+                        ("wide_trace", "bsdf_shade")
+                        if self.flat.wbvh_nodes is not None
+                        or self.flat.wbvh_parts is not None
+                        else ("bsdf_shade",))
             self._tracers = integrator.make_tracers(self.flat, self.settings)
         # graphs read the scene's and the pair's tensors by address
         self._graphs = BounceGraphs()

@@ -16,7 +16,8 @@ on the CPU:
   value (counted here by wrapping those torch entry points);
 - under a CPU torch.profiler the spans sit in portbench's host table, and
   an idle gap is named by its covering span;
-- tools/torch_trace_cell.py's readings of recorded drains;
+- tools/torch_trace_cell.py's readings of recorded drains, the BSDF
+  kernel's share of the lanes among them;
 - `telemetry.capture()` records counters for each replay; a bounce
   neither copies from the host nor reads the device (the syncs of a
   sample on the colonnade are its index and the live checks); the rule
@@ -398,6 +399,23 @@ def test_readings_of_recorded_drains():
     got = tc.readings(setup, plain, profiled)
     assert "setup.autoplan_s" not in got
     assert "integrator.live_lane_pct" not in got
+
+
+def test_bsdf_kernel_pct_reads_kernel_lanes_over_bsdf_lanes():
+    setup = dict(spans=[], counters={})
+    plain = dict(plain_spp=1, spans=[], counters={})
+    profiled = dict(spp=2, spans=[], counters={
+        "bsdf.lanes": 8000, "bsdf.kernel_lanes": 6000})
+    got = tc.readings(setup, plain, profiled)
+    assert got["integrator.bsdf_kernel_pct"] == pytest.approx(75.0)
+    # the CPU runs the plain code: no lane shaded by the kernel
+    del profiled["counters"]["bsdf.kernel_lanes"]
+    assert tc.readings(setup, plain, profiled)[
+        "integrator.bsdf_kernel_pct"] == 0.0
+    # no BSDF call recorded, no reading
+    profiled["counters"] = {}
+    assert "integrator.bsdf_kernel_pct" not in tc.readings(setup, plain,
+                                                           profiled)
 
 
 def test_capture_records_counters_for_each_replay(tracing):

@@ -22,11 +22,13 @@ on the card (a barrier or collective that only part of the block or warp
 reaches makes the launch report an error), and binds the result with the wrappers' own
 ctypes declarations. g++ gets `-ffp-contract=fast -march=native`, so
 products and sums contract to FMAs as nvcc contracts them where the host
-has FMA instructions. It says nothing about registers, memory traffic or time.
+has FMA instructions (bsdf_shade.cu, built with nvcc's -fmad=false, gets
+-ffp-contract=off). It says nothing about registers, memory traffic or time.
 
 As a module: `build(out_dir)` returns {source name: library path};
 `Emulation(out_dir)` is a context manager in which `trace_wide`,
-`trace_wide_paired`, `trace_wide_counts` and `stream_mt` of this module
+`trace_wide_paired`, `trace_wide_counts` and `stream_mt` of this module,
+`models/bsdf._launch` (the BSDF kernel's launch)
 and `make_bf_tracer(..., steps=BF_STEPS)` run the emulated kernels on CPU
 tensors (through the wrappers' own argument checks). Run as a script it
 holds every mode of wide_trace.cu and stream_mt.cu to its plain version,
@@ -50,6 +52,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from platinum_tpu_torch.models import bsdf  # noqa: E402
 from platinum_tpu_torch.ops import bfstream as bf  # noqa: E402
 from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
@@ -354,7 +357,11 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 }
 """
 
-SOURCES = ("wide_trace", "stream_mt", "bf_stream")
+SOURCES = ("wide_trace", "stream_mt", "bf_stream", "bsdf_shade")
+# g++ flags a source adds to the common ones: bsdf_shade.cu is built with
+# nvcc's -fmad=false (each product rounded apart, as the plain code rounds
+# it), so its host version contracts nothing either
+HOST_FLAGS = {"bsdf_shade": ("-ffp-contract=off",)}
 
 
 def host_source(text: str) -> str:
@@ -400,7 +407,7 @@ def compile_source(name: str, text: str, out_dir: str) -> str:
     lib = os.path.join(out_dir, name + "_host.so")
     proc = subprocess.run(
         ["g++", "-std=c++17", "-O2", "-ffp-contract=fast", "-march=native",
-         "-U_FORTIFY_SOURCE",
+         *HOST_FLAGS.get(name, ()), "-U_FORTIFY_SOURCE",
          "-shared", "-fPIC", "-I", os.path.join(out_dir, "shim"), "-I",
          out_dir, "-o", lib, cpp], capture_output=True, text=True)
     if proc.returncode != 0:
@@ -408,18 +415,19 @@ def compile_source(name: str, text: str, out_dir: str) -> str:
     return lib
 
 
-def build(out_dir: str) -> dict:
-    """Compile the host versions of csrc/*.cu into `out_dir` with g++, one
-    process per source, all started together; {source name: shared
-    library path}. Raises where g++ is missing or refuses a source."""
+def build(out_dir: str, sources=SOURCES) -> dict:
+    """Compile the host versions of csrc/<source>.cu into `out_dir` with
+    g++, one process per source, all started together; {source name:
+    shared library path}. Raises where g++ is missing or refuses a
+    source."""
     _write_headers(out_dir)
 
     def one(name):
         with open(os.path.join(pt.CSRC_DIR, name + ".cu")) as f:
             return compile_source(name, f.read(), out_dir)
 
-    with ThreadPoolExecutor(max_workers=len(SOURCES)) as pool:
-        return dict(zip(SOURCES, pool.map(one, SOURCES)))
+    with ThreadPoolExecutor(max_workers=len(sources)) as pool:
+        return dict(zip(sources, pool.map(one, sources)))
 
 
 class _NoStream:
@@ -430,17 +438,21 @@ class Emulation(contextlib.AbstractContextManager):
     """Inside the context the wrappers' launch code reaches the emulated
     libraries: their library table holds them, and the two torch.cuda
     calls it makes (the device guard and the current stream) are
-    stand-ins. Outside it everything is as before."""
+    stand-ins. Outside it everything is as before. `sources` names the
+    sources to build and bind (all by default)."""
 
-    def __init__(self, out_dir: str):
-        self.libs = build(out_dir)
+    def __init__(self, out_dir: str, sources=SOURCES):
+        self.libs = build(out_dir, sources)
 
     def __enter__(self):
         self._saved = (dict(pt._libs), torch.cuda.device,
                        torch.cuda.current_stream)
         for name, declare in (("wide_trace", pt._declare),
                               ("stream_mt", rs._declare),
-                              ("bf_stream", bf._declare)):
+                              ("bf_stream", bf._declare),
+                              ("bsdf_shade", bsdf._declare)):
+            if name not in self.libs:
+                continue
             lib = ctypes.CDLL(self.libs[name])
             declare(lib)
             pt._libs[name] = lib

@@ -1,6 +1,7 @@
 """Registers, stack frame and spills of every kernel instantiation.
 
     python3 tools/torch_kernel_resources.py [wide_trace] [stream_mt] [bf_stream]
+        [bsdf_shade]
 
 Compiles each source of platinum_tpu_torch/csrc with the package's nvcc
 flags plus `--resource-usage` into a temporary file and prints, per
@@ -28,7 +29,8 @@ def resources(name: str):
     with tempfile.TemporaryDirectory() as tmp:
         t0 = time.perf_counter()
         proc = subprocess.run(
-            [pt._nvcc(), *pt.NVCC_FLAGS, "--resource-usage", "-o",
+            [pt._nvcc(), *pt.NVCC_FLAGS, *pt.SOURCE_FLAGS.get(name, []),
+             "--resource-usage", "-o",
              os.path.join(tmp, name + ".so"), source],
             capture_output=True, text=True)
         seconds = time.perf_counter() - t0
@@ -61,7 +63,8 @@ def demangle(names):
 
 
 def main():
-    for name in sys.argv[1:] or ("wide_trace", "stream_mt", "bf_stream"):
+    for name in sys.argv[1:] or ("wide_trace", "stream_mt", "bf_stream",
+                                 "bsdf_shade"):
         rows, seconds = resources(name)
         for label, (_, r) in zip(demangle([k for k, _ in rows]), rows):
             print(f"{label}: {r.get('registers')} registers, "

@@ -22,7 +22,10 @@ CUDA graphs, `integrator.bounce_graph` spans, over all its bounces; and
 where the scene has a sky or textures, setup.env_table_s and
 setup.atlas_s, the spans of the sky's alias table and of the atlas,
 integrator.env_escape_pct, the profiled window's lanes that took the
-sky over its wave lanes, and integrator.texture_taps_per_spp), the
+sky over its wave lanes, and integrator.texture_taps_per_spp;
+integrator.bsdf_kernel_pct, the profiled window's lanes the BSDF kernel
+shaded, `bsdf.kernel_lanes`, over the lanes `bsdf.sample` and
+`bsdf.evaluate` were given, `bsdf.lanes`), the
 profiler's launches and synchronising calls over the same two steps, the
 synchronising calls by the innermost program span they were made in, and
 the ten longest device idle gaps, each named by the innermost program
@@ -86,6 +89,9 @@ def readings(setup, plain, profiled) -> dict:
     if c.get("integrator.texture_taps"):
         out["integrator.texture_taps_per_spp"] = (
             c["integrator.texture_taps"] / profiled["spp"])
+    if c.get("bsdf.lanes"):
+        out["integrator.bsdf_kernel_pct"] = (
+            100.0 * c.get("bsdf.kernel_lanes", 0) / c["bsdf.lanes"])
     c = plain["counters"]
     if c.get("integrator.wave_lanes"):
         out["integrator.live_lane_pct"] = (
