@@ -8,7 +8,8 @@ Phases, one printed block each (any failure exits non-zero):
   2. build: compiles the four kernel sources (csrc/wide_trace.cu,
      csrc/stream_mt.cu, csrc/bf_stream.cu, csrc/bsdf_shade.cu; one nvcc
      each, started together) and the native BVH construction library
-     from the checkout
+     from the checkout; each library's `*_launch` entries (one per
+     function: no `*_per_*_launch`)
   3. K1/K2 vs plain: the kernel's closest-hit and any-hit modes against
      the plain PyTorch version on the full colonnade (271k triangles), on
      16,384 rays each of a camera wave, a bounce-like wave from surface
@@ -21,17 +22,17 @@ Phases, one printed block each (any failure exits non-zero):
      warp-wide any-hit drain
   3b. K3 vs plain: the same for the two-level modes on the colonnade
      flattened with instancing="on" (K3's and K9's bounds count the
-     instance entries of the per-thread pipelined walk, `pipe=True,
-     per_thread=True`, on the same wave: the drains re-enter an instance
-     per round); then K3 closest (the warp-wide drain, ten lanes forming
-     each drained ray's object features) against the per-thread pipelined
-     walk with the instance features on the whole camera, bounce and
-     shadow waves (shadow traced as closest hit): every output, the
-     instance id included, bit for bit, no exception; instance entries
-     per drain round and lanes per distinct block on each; and K3 any hit
-     (the any-hit drain, resident and with stream=True) against the same
-     walk on the whole shadow wave: every output bit for bit, per ray that
-     nothing occludes its pops and MT block tests, with its drain counts
+     drains' own instance entries, which re-enter an instance per round);
+     K9 against K3 on the three whole waves, every output bit for bit;
+     then K3 closest (the warp-wide drain, ten lanes forming each drained
+     ray's object features) against K9 (`pipe=True`, the pipelined
+     drain) on the whole camera, bounce and shadow waves (shadow traced
+     as closest hit): every output, the instance id included, bit for
+     bit, no exception; instance entries per drain round and lanes per
+     distinct block on each; and K3 any hit (the any-hit drain, resident
+     and with stream=True) against K9 any hit on the whole shadow wave:
+     every output bit for bit, per ray that nothing occludes its pops and
+     MT block tests, with its drain counts
   3c. the pre-split planes of the colonnade's blocks (the split kernel
      against its plain version in every bit, both timed), then K4
      ("high"), K5 ("two_phase") and K7 (octant order), K4 and K5 over
@@ -44,12 +45,9 @@ Phases, one printed block each (any failure exits non-zero):
      a few fp32 ulps, wherever the ids agree)
   3d. K5 and K7 against K1 on the whole waves (K5 also on the shadow
      wave, traced as closest hit): hit set and t bit for bit, ids equal
-     outside exact-t ties; every exception printed and certified. Then
-     K7 (the fp32 drain, each lane's queue newest first) against the
-     per-thread queued walk under the same octant order (`per_thread=
-     True`) on the whole camera, bounce and shadow waves as closest hit:
-     every output bit for bit and per ray the same node pops and MT block
-     tests, no exception
+     outside exact-t ties; every exception printed and certified; K5 and
+     K7 (the fp32 drain, each lane's queue newest first) also on the
+     shadow wave as closest hit, and K7's drain counts on all three
   3e. K4 against K1 on the whole waves with the bars of
      tests/test_pallas_trace.py:209-220, held on the camera wave (rays from
      free space, as in that test) and printed for the bounce wave; on both
@@ -61,15 +59,16 @@ Phases, one printed block each (any failure exits non-zero):
      about a minute a whole wave), timed and counted on the whole
      518,400-ray waves, and bit for bit against K1/K2 on all three whole
      waves of the same tree (K1/K2 timed there too; no exception); K2 and
-     K6 any hit, the warp-wide any-hit drain, against its per-thread
-     reference, the classic any-hit walk (`per_thread=True`), on the whole
-     shadow wave: every output on every ray, and per ray that walk's node
-     pops and MT block tests, with their drain counts; K1 and K6 closest
-     against the per-thread pipelined walk on the camera, bounce and shadow
-     waves as closest hit, with no exception, and the drain's lanes per
-     distinct block on each; K9 (pipe, flat_walk) against the per-thread
-     pipelined walk on the three whole waves as 3h holds it; the
-     instanced stream modes on the colonnade flattened with
+     K6 any hit, the warp-wide any-hit drain, against the per-thread
+     classic any-hit walk (`profile="count"`: the whole walk, its pops in
+     u; `profile="fix64"`'s counts where it ends within 64 pops) on the
+     whole shadow wave: the flag on every ray, and per ray that walk's
+     node pops (and MT block tests where it ends within 64 pops), with
+     their drain counts; K6 closest and K9 against K1 on the camera,
+     bounce and shadow waves as closest hit, every output bit for bit,
+     and the drain's lanes per distinct block on each; K9 (pipe,
+     flat_walk) against K1/K2 on the three whole waves, with its drain
+     counts; the instanced stream modes on the colonnade flattened with
      instancing="on", stream="on"
   4. the headline without compaction: Renderer(scene).start_render at
      512x512, 2 spp, 8 bounces, mis, halton, the packet tracer; both K1/K2
@@ -105,29 +104,25 @@ Phases, one printed block each (any failure exits non-zero):
      oct_order, and stream="on" on the headline colonnade
   3g. K8, the paired launch (each 128-ray CTA on its half's unpaired
      drain): paired(camera wave, shadow wave) and paired(bounce wave,
-     shadow wave) bit for bit K1 / K2 on the whole waves, and so is K8's
-     per-thread reference (`per_thread=True`), then with either wave cut
-     to 100,000 rays; each pair timed in turns against that reference and
-     K1 and K2 launched one after the other; the counting tables of both
-     halves row for row K1's and K2's (drain rows included); (bounce, shadow) at "high",
-     "default" and "two_phase" against K4 / K5 and K2 the same way, timed;
-     K2 (the any-hit drain) against its per-thread reference, the classic
-     any-hit walk, on the whole shadow wave: every output on every ray and
-     per ray the node pops and MT block tests; on the bistro tree with
+     shadow wave) bit for bit K1 / K2 on the whole waves, then with either
+     wave cut to 100,000 rays; each pair timed in turns against K1 and K2
+     launched one after the other; the counting tables of both halves row
+     for row K1's and K2's (drain rows included); (bounce, shadow) at
+     "high", "default" and "two_phase" against K4 / K5 and K2 the same
+     way, timed; K2 (the any-hit drain) against the per-thread classic
+     any-hit walk on the whole shadow wave as 3f holds it; on the bistro
+     tree with
      stream=True against K6; through the tracer's `trace_closest.paired`
      entry, which is the path that counts its launches
   3h. K9, the pipelined drain, with and without the flat push: closest
      and any hit against K1/K2 as 3d holds K5 and K7 (closest hit with no
-     exception); against the per-thread pipelined walk it keeps lane by
-     lane (`per_thread=True`) on the camera, bounce (closest hit) and
-     shadow (any hit) waves: every output bit for bit, per ray the same
-     node pops and MT block tests, with its drain counts; K1 against the
-     per-thread pipelined walk on the three waves as closest hit, with the
-     drain's rounds, distinct blocks and lanes per distinct block on each;
-     and on the instanced colonnade against K3 and the per-thread walk,
-     with counts and times; against the plain version on the 16,384-ray
-     subsets; both timed and held to K1/K2 and to the per-thread walk on
-     the bistro tree's whole waves too
+     exception) on the camera, bounce (closest hit) and shadow (any hit)
+     waves, with its drain counts; K1 against K9 on the three waves as
+     closest hit, every output bit for bit, with the drain's rounds,
+     distinct blocks and lanes per distinct block on each; and on the
+     instanced colonnade against K3 in every bit, with counts and times;
+     against the plain version on the 16,384-ray subsets; both timed and
+     held to K1/K2 on the bistro tree's whole waves too
   3i. the ablation modes, on the per-thread walk: "empty" and "nomt"
      miss everything, "nomt" pops no fewer nodes than K1 and tests no
      block, "count" is K1 with u = the per-thread walk's pops (fix64's
@@ -138,9 +133,9 @@ Phases, one printed block each (any failure exits non-zero):
      make_packet_tracer(profile=...), the path that counts their launches
   3j. K15, the leaf-pair kernel: on every leaf level's real pairs of the
      camera, bounce and shadow waves, the chunked kernel (each block
-     staged once per CTA, several pairs a thread) against its
-     one-thread-per-pair reference (`per_pair=True`) in every output bit
-     at "highest", "high" and "default", both timed there in device time
+     staged once per CTA, several pairs a thread) against its own per-pair
+     path (the same pairs, each in a run of its own) in every output bit
+     at "highest", "high" and "default", timed there in device time
      (`_device_ms`: calls queued behind a sleep, so the host's launch
      overhead does not count); against its plain version; the whole
      ray-stream tracer against K1/K2 bit for bit on the whole waves; every
@@ -170,10 +165,9 @@ Phases, one printed block each (any failure exits non-zero):
      PyTorch call computes K14's function, so its library entry is null)
      and one index_put_ of the live lanes' ray ids at K12's pre-formed
      positions per level (K12's library entry, marked as part of its work:
-     the routing is untimed); the redesigned K10 and K12 on every level,
-     K13 at every tier and K14 on every level against the kernels they
-     were before (`per_block=True`, `per_tile=True`, `per_unit=True`) in
-     every bit, each timed beside them, and the MT tiles by live lanes
+     the routing is untimed); K13 at every tier against K15 on its (ray,
+     block) pairs in every bit, each timed, and the MT tiles by live
+     lanes
   4j. sponza_class_512's settings with tracer="bf" at 2 spp through the
      Renderer: the Renderer fills bf_depth, only K10-K14 (closest mode)
      and K2 may launch, the image K1's (RMSE 0 against 4f's render at the
@@ -330,6 +324,7 @@ line is {"ok": true, "device": {...}}.
 
 from __future__ import annotations
 
+import importlib
 import json
 import os
 import shutil
@@ -434,10 +429,24 @@ def phase_build():
     t_kernels = time.perf_counter() - t0
     check(native_available(), "the native BVH builder did not build")
     counts = {k: _instantiations(v) for k, v in paths.items()}
+    # one kernel per function: no library keeps a second entry
+    entries = {k: _launch_entries(v) for k, v in paths.items()}
+    check(all(entries.values()), f"no launch entry found: {entries}")
+    extra = [e for v in entries.values() for e in v if "_per_" in e]
+    check(not extra, f"a library exports {extra}")
     print(f"build: the kernel sources in {t_kernels:.2f} s (one nvcc each, "
-          f"started together), instantiations {counts}; with the native "
+          f"started together), instantiations {counts}, launch entries "
+          f"{entries}; with the native "
           f"BVH library {time.perf_counter() - t0:.2f} s -> "
           f"{[os.path.relpath(v) for v in paths.values()]}", flush=True)
+
+
+def _launch_entries(path):
+    """The `*_launch` symbols a built library exports (nm -D)."""
+    out = subprocess.run(["nm", "-D", "--defined-only", path],
+                         capture_output=True, text=True, check=True).stdout
+    return sorted(line.split()[-1] for line in out.splitlines()
+                  if line.split() and line.split()[-1].endswith("_launch"))
 
 
 def _zero_launches():
@@ -760,7 +769,7 @@ def _synced_ms(fn):
 
 def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
                inst_feat=None, mode=None, jobs=JOBS, whole_plain=True,
-               plain_rows=None, inst_need=None):
+               plain_rows=None):
     """Hold one kernel mode (`mode`: trace_wide's worder / mt_precision /
     stream / pipe / flat_walk) on one tree to its plain version:
     16,384-ray subsets, then the whole waves, each timed and counted, and
@@ -768,11 +777,11 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
     to the plain version there too. Without it the row's plain time is `plain_rows`' (the rows of a mode with the same
     plain version, measured on the same whole waves in this run) or, with
     no such rows, the plain version's time on the 16,384-ray subset
-    (`plain_rays` then says so). With `inst_need` (trace_wide's keywords
-    of a per-thread walk), the bound counts that walk's instance entries
-    on the same wave: the fp32 and any-hit drains (K3) enter an instance
-    once per drained lane, instance and round, more often than the
-    function needs. "high" holds t to HIGH_T_RTOL. Returns
+    (`plain_rays` then says so). On an instanced tree the bound counts
+    the mode's own instance entries: the fp32 and any-hit drains (K3)
+    enter an instance once per drained lane, instance and round, more
+    often than the function needs, so their bound is that much loose.
+    "high" holds t to HIGH_T_RTOL. Returns
     ({"closest"/"any": row fields}, {wave: kernel outputs on the whole
     wave})."""
     from platinum_tpu_torch.ops import packet_trace as pt
@@ -829,15 +838,9 @@ def _hold_tree(label, nodes, blocks, meta, waves, sample, certify,
             plain = f"plain {pms:.1f} ms on the {N_CMP}-ray subset"
         counts = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
                                       inst_feat, **mode)
-        need, entries = counts, f"{counts['inst_entries']} instance entries"
-        if inst_need is not None:
-            walk = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
-                                        inst_feat, **inst_need)
-            need = dict(counts, inst_entries=walk["inst_entries"])
-            entries += (f" (the drain's; the bound counts the per-thread "
-                        f"walk's {walk['inst_entries']})")
+        entries = f"{counts['inst_entries']} instance entries"
         out_bytes = 16 + (4 if inst_feat is not None and not any_hit else 0)
-        bms, by, flops, nbytes = _bound(need, rays.shape[1], in_bytes,
+        bms, by, flops, nbytes = _bound(counts, rays.shape[1], in_bytes,
                                         out_bytes,
                                         "highest" if any_hit else tier)
         outs[wave] = out["k"]
@@ -961,6 +964,7 @@ def phase_k1k2(scene, cam, dev):
 
 
 def phase_k3(scene, cam, dev, pts):
+    from platinum_tpu_torch.ops import packet_trace as pt
     from platinum_tpu_torch.render.flatten import flatten_scene
     from platinum_tpu_torch.render.types import RenderSettings
 
@@ -980,11 +984,9 @@ def phase_k3(scene, cam, dev, pts):
     nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
     waves = _waves(pts, nodes, dev)
     certify = _instanced_certify(flat, host)
-    per_thread = dict(pipe=True, per_thread=True)
     rows, outs = _hold_tree("K3", nodes, flat.wbvh_tris, flat.wbvh_meta,
                             waves, pts["sample"], certify,
-                            inst_feat=flat.instances.feat,
-                            inst_need=per_thread)
+                            inst_feat=flat.instances.feat)
     print("K9, the pipelined drain, on the instanced colonnade (3h):",
           flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
@@ -992,22 +994,20 @@ def phase_k3(scene, cam, dev, pts):
         _, pipe_outs = _hold_tree(
             f"K9 {key} instanced", nodes, flat.wbvh_tris, flat.wbvh_meta,
             waves, pts["sample"], certify, inst_feat=flat.instances.feat,
-            mode=mode, whole_plain=False, plain_rows=rows,
-            inst_need=dict(mode, per_thread=True))
+            mode=mode, whole_plain=False, plain_rows=rows)
         for _, wave, any_hit in JOBS:
-            _bitwise(f"K9 {key} instanced against K3, {wave}",
-                     pipe_outs[wave], outs[wave], waves[wave], certify)
-            _against_its_walk(f"K9 {key} instanced {wave}", waves[wave],
-                              nodes, flat.wbvh_tris, flat.wbvh_meta, any_hit,
-                              flat.instances.feat, **mode)
-    _drain_against_per_thread("instanced colonnade", nodes, flat.wbvh_tris,
-                              flat.wbvh_meta, waves,
-                              inst_feat=flat.instances.feat)
-    print("K3 any hit against the per-thread walk on the instanced colonnade "
-          "tree:", flush=True)
-    _inst_any_against_pipe("instanced colonnade", nodes, flat.wbvh_tris,
-                           flat.wbvh_meta, waves["shadow"],
-                           flat.instances.feat)
+            what = f"K9 {key} instanced against K3, {wave}"
+            _exact(what, pipe_outs[wave], outs[wave])
+            print(f"  {what}: every output bit for bit", flush=True)
+            _drain_counts(f"K9 {key} instanced {wave}", pt.trace_wide_counts(
+                waves[wave], nodes, flat.wbvh_tris, flat.wbvh_meta, any_hit,
+                flat.instances.feat, **mode))
+    _drains_agree("instanced colonnade", nodes, flat.wbvh_tris,
+                  flat.wbvh_meta, waves, inst_feat=flat.instances.feat)
+    print("K3 any hit against K9 any hit on the instanced colonnade tree:",
+          flush=True)
+    _inst_any_against_k9("instanced colonnade", nodes, flat.wbvh_tris,
+                         flat.wbvh_meta, waves["shadow"], flat.instances.feat)
     return rows
 
 
@@ -1092,24 +1092,29 @@ def phase_variants(ctx):
     caveat = (" (two_phase keeps two candidate blocks; a third inside the "
               "bf16x3 bound of the winner is the tier's documented caveat, "
               "pallas_trace.py:174-177)")
-    for key in ("K5", "K7"):
-        for _, wave, _ in closest:
-            _bitwise(f"{key} {wave}", outs[key][wave], ctx["outs"][wave],
-                     waves[wave],
-                     lambda ray: _borderline(ray, tri64)
-                     or _fp32_ambiguous(ray, fp32),
-                     caveat if key == "K5" else "")
-    print("K7 against the per-thread queued walk under the octant order "
-          "(3d):", flush=True)
-    for wave in ("camera", "bounce", "shadow"):
-        _against_its_walk(f"K7 {wave} (closest hit)", waves[wave], nodes,
-                          blocks, meta, False, worder=flat.wbvh_order)
-    # and K5 on the third wave, the shadow segments traced as closest hit
+    for _, wave, _ in closest:
+        _bitwise(f"K5 {wave}", outs["K5"][wave], ctx["outs"][wave],
+                 waves[wave],
+                 lambda ray: _borderline(ray, tri64)
+                 or _fp32_ambiguous(ray, fp32), caveat)
+    # and K5 and K7 on the third wave, the shadow segments traced as
+    # closest hit; K7 and K1 run the same fp32 block test, so they agree
+    # with no exception but ids at exact-t ties
     shadow = waves["shadow"]
+    k1_shadow = pt.trace_wide(shadow, nodes, blocks, meta, False)
+    outs["K7"]["shadow"] = pt.trace_wide(shadow, nodes, blocks, meta, False,
+                                         worder=flat.wbvh_order)
+    refs = dict(ctx["outs"], shadow=k1_shadow)
+    for wave in ("camera", "bounce", "shadow"):
+        _bitwise(f"K7 {wave}", outs["K7"][wave], refs[wave], waves[wave],
+                 None)
+        _outside_ties(f"K7 {wave}", outs["K7"][wave], refs[wave])
+        _drain_counts(f"K7 {wave} (closest hit)", pt.trace_wide_counts(
+            waves[wave], nodes, blocks, meta, False, worder=flat.wbvh_order))
     _bitwise("K5 shadow (traced as closest hit)",
              pt.trace_wide(shadow, nodes, blocks, meta, False,
                            mt_precision="two_phase", planes=planes),
-             pt.trace_wide(shadow, nodes, blocks, meta, False), shadow,
+             k1_shadow, shadow,
              lambda ray: _borderline(ray, tri64) or _fp32_ambiguous(ray, fp32),
              caveat)
     print("K4 against K1 on the whole waves (3e):", flush=True)
@@ -1177,13 +1182,23 @@ def _exact(name, got, ref):
         check(torch.equal(a, b), f"{name}: an output differs in its bits")
 
 
+def _outside_ties(name, got, ref):
+    """Every output (t, id, u, v) bit for bit on the rays whose ids agree:
+    all but the exact-t ties `_bitwise` counts."""
+    same = got[1] == ref[1]
+    for a, b in zip(got, ref, strict=True):
+        check(torch.equal(a[same], b[same]),
+              f"{name}: an output differs in its bits where the ids agree")
+    print(f"  {name}: every output bit for bit on the {int(same.sum())} of "
+          f"{same.numel()} rays whose ids agree", flush=True)
+
+
 def _paired_waves(label, nodes, blocks, meta, closest, shadow, ref_c, ref_a,
                   **mode):
     """One paired launch over two whole waves: bit for bit the unpaired
-    modes' outputs `ref_c` / `ref_a`, as is K8's per-thread reference
-    (`per_thread=True`); timed against that reference and those two modes
-    launched one after the other, each variant twice, in turns
-    (reference, paired, apart, then back). At the fp32 tier the counting tables of the two halves must be
+    modes' outputs `ref_c` / `ref_a`; timed against those two modes
+    launched one after the other, each variant twice, in turns (paired,
+    apart, then back). At the fp32 tier the counting tables of the two halves must be
     the unpaired drains' (K1 or K6 closest, K2) row for row, drain rows
     included. `mode`: the tier (with its `planes`) or `stream`. Returns
     {variant: ms (the mean of its two readings)} and, at fp32, the counts
@@ -1194,36 +1209,30 @@ def _paired_waves(label, nodes, blocks, meta, closest, shadow, ref_c, ref_a,
     stream = mode.get("stream", False)
     tier = mode.get("mt_precision", "highest")
 
-    def paired(**kw):
-        def run():
-            res[tuple(kw.items())] = pt.trace_wide_paired(
-                closest, shadow, nodes, blocks, meta, **mode, **kw)
-        return run
+    def paired():
+        res["paired"] = pt.trace_wide_paired(closest, shadow, nodes, blocks,
+                                             meta, **mode)
 
     def apart():
         pt.trace_wide(closest, nodes, blocks, meta, False, **mode)
         pt.trace_wide(shadow, nodes, blocks, meta, True, stream=stream)
 
-    variants = {"per-thread reference": paired(per_thread=True),
-                "paired": paired(), "apart": apart}
+    variants = {"paired": paired, "apart": apart}
     turns = list(variants) + list(reversed(variants))
     readings = {v: [] for v in variants}
     for v in turns:
         readings[v].append(_time_ms(variants[v], 20))
     ms = {v: sum(r) / len(r) for v, r in readings.items()}
-    for kw, (got_c, occ) in res.items():
-        _exact(f"{label} closest half {dict(kw)}", got_c, ref_c)
-        check(torch.equal(occ, ref_a[1][:occ.shape[0]]),
-              f"{label} {dict(kw)}: the any-hit half differs from the "
-              f"unpaired kernel")
+    got_c, occ = res["paired"]
+    _exact(f"{label} closest half", got_c, ref_c)
+    check(torch.equal(occ, ref_a[1][:occ.shape[0]]),
+          f"{label}: the any-hit half differs from the unpaired kernel")
     times = ", ".join(f"{v} {r[0]:.3f} / {r[1]:.3f}"
                       for v, r in readings.items())
     print(f"  {label}{'' if tier == 'highest' else ' at ' + tier}: "
           f"{closest.shape[1]} + {shadow.shape[1]} rays bit for bit the "
-          f"unpaired modes, and so is the per-thread reference; ms per "
-          f"call, two readings each: {times}; paired {ms['paired']:.3f} ms "
-          f"against the per-thread reference "
-          f"{ms['per-thread reference']:.3f} and the two modes apart "
+          f"unpaired modes; ms per call, two readings each: {times}; "
+          f"paired {ms['paired']:.3f} ms against the two modes apart "
           f"{ms['apart']:.3f}", flush=True)
     if tier != "highest":
         return ms, None, None
@@ -1282,10 +1291,9 @@ def phase_paired(ctx, k12):
     check(cc == ref_c and ca == ref_a,
           f"the paired launch's counts {cc}, {ca} against K1's {ref_c} "
           f"and K2's {ref_a}")
-    # K2's any-hit drain against its per-thread reference, the classic
-    # walk, ray by ray
-    _any_drain_against_per_thread("headline", nodes, blocks, meta, shadow,
-                                  {"K2": outs["shadow"]})
+    # K2's any-hit drain against the per-thread classic walk, ray by ray
+    _any_drain_against_classic("headline", nodes, blocks, meta, shadow,
+                               {"K2": outs["shadow"]})
     cut = shadow[:, :100_000].contiguous()
     _paired_waves("paired(bounce, shadow cut to 100,000)", nodes, blocks,
                   meta, waves["bounce"], cut, outs["bounce"], outs["shadow"])
@@ -1320,12 +1328,13 @@ def phase_paired(ctx, k12):
     return dict(ms=ms["paired"], plain_ms=c["plain_ms"] + a["plain_ms"],
                 bound_ms=c["bound_ms"] + a["bound_ms"],
                 bound_by=c["bound_by"], max_abs_err=err,
-                launches=launches["paired"],
-                reference_ms=ms["per-thread reference"])
+                launches=launches["paired"])
 
 
 def phase_pipe(ctx, k12):
     """3h: K9 on the headline tree, with and without the flat push."""
+    from platinum_tpu_torch.ops import packet_trace as pt
+
     flat, nodes, waves = ctx["flat"], ctx["nodes"], ctx["waves"]
     tri64, fp32 = ctx["tri64"], ctx["fp32"]
 
@@ -1340,15 +1349,16 @@ def phase_pipe(ctx, k12):
             key, nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
             ctx["pts"]["sample"], certify, mode=mode, whole_plain=False,
             plain_rows=k12)
-        # closest hit: K1 and K9 (two drains of the same function) must
-        # agree with no exception; K9 is its per-thread walk lane by lane
+        # K9 and K1 / K2 are two drains of the same function: every
+        # output in every bit, closest and any hit
         for _, wave, any_hit in JOBS:
-            _bitwise(f"{key} against K1/K2, {wave}", outs[wave],
-                     ctx["outs"][wave], waves[wave],
-                     certify if any_hit else None)
-            _against_its_walk(f"{key} {wave}", waves[wave], nodes,
-                              flat.wbvh_tris, flat.wbvh_meta, any_hit,
-                              **mode)
+            what = f"{key} against K1/K2, {wave}"
+            _exact(what, outs[wave], ctx["outs"][wave])
+            print(f"  {what}: every output bit for bit on all "
+                  f"{waves[wave].shape[1]} rays", flush=True)
+            _drain_counts(f"{key} {wave}", pt.trace_wide_counts(
+                waves[wave], nodes, flat.wbvh_tris, flat.wbvh_meta, any_hit,
+                **mode))
         for kind in ("closest", "any"):
             got, ref = rows[key][kind]["counts"], k12[kind]["counts"]
             print(f"  {key} {kind} (bounce / shadow wave): "
@@ -1358,8 +1368,7 @@ def phase_pipe(ctx, k12):
                   f"{ref['mt_tests']} "
                   f"({got['mt_tests'] / ref['mt_tests'] - 1:+.2%})",
                   flush=True)
-    _drain_against_per_thread("headline", nodes, flat.wbvh_tris,
-                              flat.wbvh_meta, waves)
+    _drains_agree("headline", nodes, flat.wbvh_tris, flat.wbvh_meta, waves)
     return rows
 
 
@@ -1381,137 +1390,103 @@ def _drain_counts(name, c):
           f"a round{entries}", flush=True)
 
 
-def _against_its_walk(name, rays, nodes, blocks, meta, any_hit,
-                      inst_feat=None, **mode):
-    """A drain that keeps a per-thread walk lane by lane (K7: the queued
-    walk under the octant order; K9: the pipelined walk) against that
-    walk (`per_thread=True`) on one whole wave: every output in every
-    bit, no exception, and per ray the same node pops and MT block tests;
-    the drain's counts, and on an instanced tree both walks' instance
-    entries (the drain's once per drained lane, instance and round)."""
+def _drains_agree(label, nodes, blocks, meta, waves, stream=False,
+                  inst_feat=None):
+    """K1, or with `inst_feat` K3, the warp-wide drain over the fp32
+    blocks, against the other drains of the same function: K9 (`pipe=
+    True`, the pipelined drain) and with `stream` K6 closest, on the
+    camera, bounce and shadow waves, all traced as closest hit: every
+    output, the instance id included, bit for bit, no exception. Also each
+    wave's drain counts (`_drain_counts`)."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    got = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat,
-                        **mode)
-    ref = pt.trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat,
-                        per_thread=True, **mode)
-    check(len(got) == len(ref) and all(
-        torch.equal(a.view(torch.int32), b.view(torch.int32))
-        for a, b in zip(got, ref)),
-          f"{name}: an output differs in its bits from the per-thread walk")
-    c, cref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
-                                    inst_feat, per_ray=True, per_thread=r,
-                                    **mode) for r in (False, True))
-    differ = int((c[:2] != cref[:2]).any(0).sum())
-    check(differ == 0, f"{name}: node pops or MT block tests differ from "
-                       f"the per-thread walk's on {differ} rays")
-    hits = int((got[1] > 0).sum() if any_hit else (got[1] >= 0).sum())
-    print(f"  {name} against the per-thread walk: every output bit for bit "
-          f"on all {rays.shape[1]} rays ({hits} "
-          f"{'occluded' if any_hit else 'hits'}), node pops and MT block "
-          f"tests the same on every ray"
-          + (f"; instance entries {int(c[2].sum())} against the walk's "
-             f"{int(cref[2].sum())}" if inst_feat is not None else ""),
-          flush=True)
-    _drain_counts(name, pt._count_sums(c))
-
-
-def _drain_against_per_thread(label, nodes, blocks, meta, waves, stream=False,
-                              inst_feat=None):
-    """K1 (and with `stream` K6 closest), or with `inst_feat` K3, the
-    warp-wide drain over the fp32 blocks, against the per-thread
-    pipelined walk (`pipe=True, per_thread=True`, the walk K9's drain
-    keeps) on the camera, bounce and shadow waves, all traced as
-    closest hit: hit set and t bit for bit on every ray, no exception
-    allowed; id differences (exact-t ties between blocks, which the walks
-    may meet in another order) printed for K1 / K6, and for K3 none
-    allowed: every output, the instance id included, bit for bit. Also
-    each wave's drain counts (`_drain_counts`)."""
-    from platinum_tpu_torch.ops import packet_trace as pt
-
-    modes = ([("K3", {})] if inst_feat is not None else
-             [("K1", {})] + ([("K6 closest", dict(stream=True))]
-                             if stream else []))
-    print(f"{modes[0][0]} against the per-thread walk on the {label} tree:",
-          flush=True)
+    base = "K3" if inst_feat is not None else "K1"
+    modes = [("K9 pipe", dict(pipe=True))] + (
+        [("K6 closest", dict(stream=True))] if stream else [])
+    print(f"{base} against the other drains on the {label} tree:", flush=True)
     for wave in ("camera", "bounce", "shadow"):
         rays = waves[wave]
-        pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
-                             pipe=True, per_thread=True)
+        ref = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat)
         for name, mode in modes:
-            got = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat,
-                                **mode)
-            what = (f"{name} against the per-thread pipelined walk, "
-                    f"{label} {wave} as closest hit")
-            _bitwise(what, got, pipe, rays, None)
-            if inst_feat is not None:
-                _exact(what, got, pipe)
-            _drain_counts(f"{name} {label} {wave}", pt.trace_wide_counts(
-                rays, nodes, blocks, meta, False, inst_feat, **mode))
+            what = f"{name} against {base}, {label} {wave} as closest hit"
+            _exact(what, pt.trace_wide(rays, nodes, blocks, meta, False,
+                                       inst_feat, **mode), ref)
+            print(f"  {what}: every output bit for bit on all "
+                  f"{rays.shape[1]} rays", flush=True)
+        _drain_counts(f"{base} {label} {wave}", pt.trace_wide_counts(
+            rays, nodes, blocks, meta, False, inst_feat))
 
 
-def _any_drain_against_per_thread(label, nodes, blocks, meta, rays, outs):
-    """The warp-wide any-hit drain against its per-thread reference, the
-    classic any-hit walk (`trace_wide(..., True, per_thread=True)`), on
-    one whole shadow wave; `outs`: {name: (t, sid, u, v) of that mode on
-    the wave}, K2 (resident) and K6 any hit (streamed) taking the drain
-    alike. Every output on every ray (no exception: the flag, t tmax and
-    u, v 0), and per ray the same node pops and MT block tests (both cull
-    nodes by the constant tmax and visit a node's leaves in slot order);
-    with each mode's drain counts."""
+def _any_drain_against_classic(label, nodes, blocks, meta, rays, outs):
+    """The warp-wide any-hit drain against the per-thread classic any-hit
+    walk on one whole shadow wave, reached through the ablation modes:
+    `profile="count"` walks every ray whole (its u the ray's pops) and
+    `profile="fix64"`'s counts are the walk's where it ends within 64
+    pops. `outs`: {name: (t, sid, u, v) of that mode on the wave}, K2
+    (resident) and K6 any hit (streamed) taking the drain alike. The flag
+    on every ray (no exception; t tmax and u, v 0), and per ray the same
+    node pops, and the same MT block tests on every ray whose walk ends
+    within 64 pops (both cull nodes by the constant tmax and visit a
+    node's leaves in slot order); with each mode's drain counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
-    ref = pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)
-    cref = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
-                                per_ray=True, per_thread=True)
+    walk = pt.trace_wide(rays, nodes, blocks, meta, True, profile="count")
+    pops = walk[2].int()
+    short = pops < 64
+    fix = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                               profile="fix64", per_ray=True)
     for name, got in outs.items():
         what = f"{name} against the per-thread any-hit walk, {label} shadow"
-        _exact(what, got, ref)
+        _exact(what, (got[0], got[1], got[3]), (walk[0], walk[1], walk[3]))
+        check(not got[2].any(), f"{what}: u is not 0")
         stream = name.startswith("K6")
         c = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                  stream=stream, per_ray=True)
-        check(torch.equal(c[:2], cref[:2]),
-              f"{what}: pops or MT block tests differ from the per-thread "
-              f"walk's on {int((c[:2] != cref[:2]).any(0).sum())} rays")
-        print(f"  {what}: every output bit for bit on all {rays.shape[1]} "
-              f"rays ({int((ref[1] > 0).sum())} occluded), node pops and MT "
-              f"block tests the per-thread walk's on every ray", flush=True)
+        check(torch.equal(c[0], pops),
+              f"{what}: node pops differ from the walk's on "
+              f"{int((c[0] != pops).sum())} rays")
+        check(torch.equal(c[1][short], fix[1][short]),
+              f"{what}: MT block tests differ from the walk's on "
+              f"{int((c[1][short] != fix[1][short]).sum())} rays")
+        print(f"  {what}: the flag, t, u and v on all {rays.shape[1]} rays "
+              f"({int((walk[1] > 0).sum())} occluded), node pops the walk's "
+              f"on every ray, MT block tests on the "
+              f"{int(short.sum())} whose walk ends within 64 pops",
+              flush=True)
         _drain_counts(f"{name} {label} shadow",
                       pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                            stream=stream))
 
 
-def _inst_any_against_pipe(label, nodes, blocks, meta, rays, inst_feat):
+def _inst_any_against_k9(label, nodes, blocks, meta, rays, inst_feat):
     """K3 any hit, the any-hit drain with the ten-lane instance entry,
-    resident and with stream=True (the same drain), against the
-    per-thread pipelined walk (`pipe=True, per_thread=True`) on one whole
-    shadow wave: every output bit for bit, no exception; per ray that
-    nothing occludes that walk's node pops and MT block tests (a walk
-    under the constant tmax visits the same nodes and blocks in any
-    order); with its drain counts."""
+    resident and with stream=True (the same drain), against K9 any hit
+    (`pipe=True`, the pipelined drain) on one whole shadow wave: every
+    output bit for bit, no exception; per ray that nothing occludes K9's
+    node pops and MT block tests (a walk under the constant tmax visits
+    the same nodes and blocks in any order); with its drain counts."""
     from platinum_tpu_torch.ops import packet_trace as pt
 
     pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat,
-                         pipe=True, per_thread=True)
+                         pipe=True)
     ref = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
-                               pipe=True, per_ray=True, per_thread=True)
+                               pipe=True, per_ray=True)
     free = pipe[1] < 0
     for name, mode in (("K3 any hit", {}),
                        ("K3 any hit stream=True", dict(stream=True))):
-        what = (f"{name} against the per-thread pipelined walk, {label} "
-                f"shadow")
+        what = f"{name} against K9 any hit, {label} shadow"
         _exact(what, pt.trace_wide(rays, nodes, blocks, meta, True,
                                    inst_feat, **mode), pipe)
         c = pt.trace_wide_counts(rays, nodes, blocks, meta, True, inst_feat,
                                  per_ray=True, **mode)
         check(torch.equal(c[:2, free], ref[:2, free]),
               f"{what}: pops or MT block tests of an unoccluded ray differ "
-              f"from the walk's")
+              f"from K9's")
         print(f"  {what}: every output bit for bit on all {rays.shape[1]} "
               f"rays ({int((~free).sum())} occluded); its pops and MT block "
               f"tests on the {int(free.sum())} unoccluded rays; on the "
               f"occluded ones {int(c[0, ~free].sum())} pops and "
-              f"{int(c[1, ~free].sum())} MT block tests against its "
+              f"{int(c[1, ~free].sum())} MT block tests against K9's "
               f"{int(ref[0, ~free].sum())} and {int(ref[1, ~free].sum())}",
               flush=True)
         _drain_counts(f"{name} {label} shadow", pt.trace_wide_counts(
@@ -1776,14 +1751,14 @@ def _hold_high_to_raystream(ctx):
         c = pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                                  mt_precision="high", planes=planes)
         sharing[wave] = dict(
-            lanes_per_block=c["mt_tests"] / max(1, c["distinct_blocks"]),
+            lanes_a_block=c["mt_tests"] / max(1, c["distinct_blocks"]),
             blocks_per_round=c["distinct_blocks"] / max(1, c["drain_rounds"]),
             **c)
         print(f"  K4 high warp drain, {wave}: {c['mt_tests']} block tests "
               f"in {c['drain_rounds']} drain rounds on "
               f"{c['distinct_blocks']} distinct blocks: "
               f"{sharing[wave]['blocks_per_round']:.3f} distinct blocks per "
-              f"round, {sharing[wave]['lanes_per_block']:.3f} lanes per "
+              f"round, {sharing[wave]['lanes_a_block']:.3f} lanes per "
               f"distinct block", flush=True)
     return sharing
 
@@ -1841,27 +1816,24 @@ def phase_raystream(ctx):
                (res.t, res.tri, res.bary[:, 0], res.bary[:, 1]))
         _bitwise(f"ray-stream tracer against K1/K2, {wave}", got,
                  ctx["outs"][wave], rays, certify)
-        # every level's pairs: the chunked kernel against its
-        # one-thread-per-pair reference at every tier, every output bit,
-        # and both timed on the card (device time)
+        # every level's pairs: the chunked kernel against its own per-pair
+        # path (the same pairs, each in a run of its own) at every tier,
+        # every output bit, and timed on the card (device time)
         dev_ms = {}
         for tier in rs.TIERS:
-            for per_pair in (False, True):
-                key = f"{tier}{' per pair' if per_pair else ''}"
-                dev_ms[key] = 0.0
-                for (w, limit, pr, pb), _, _, _ in levels:
-                    args = (w, limit, pr, pb, blocks, any_hit, tier)
-                    if not per_pair:
-                        got = rs.stream_mt(*args)
-                        ref = rs.stream_mt(*args, per_pair=True)
-                        check(all(_bits(a, b) for a, b in zip(got, ref)),
-                              f"3j {wave}, {pr.shape[0]} pairs: the chunked "
-                              f"K15 differs from the per-pair kernel at "
-                              f"{tier!r}")
-                    dev_ms[key] += _device_ms(
-                        lambda: rs.stream_mt(*args, per_pair=per_pair), 10)
+            dev_ms[tier] = 0.0
+            for (w, limit, pr, pb), _, _, _ in levels:
+                args = (w, limit, pr, pb, blocks, any_hit, tier)
+                got = rs.stream_mt(*args)
+                one = _from_tests("torch_kernel_cases").one_pair_runs(
+                    pr, pb, blocks.shape[0])
+                ref = rs.stream_mt(w, limit, *one, blocks, any_hit, tier)
+                check(all(_bits(a, b[0::2]) for a, b in zip(got, ref)),
+                      f"3j {wave}, {pr.shape[0]} pairs: the chunked K15 "
+                      f"differs from its per-pair path at {tier!r}")
+                dev_ms[tier] += _device_ms(lambda: rs.stream_mt(*args), 10)
         print(f"  K15 {name}, {len(levels)} leaf levels: the chunked kernel "
-              f"is the per-pair kernel in every output bit at every tier; "
+              f"is its per-pair path in every output bit at every tier; "
               f"device ms per wave "
               + ", ".join(f"{k} {v:.4f}" for k, v in dev_ms.items()),
               flush=True)
@@ -1971,17 +1943,16 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     """Every kernel of one traced wave (one segment) against its plain
     version on the same inputs, on the card: integer outputs and K13's /
     K14's results in every bit (the plain versions sum in the kernels'
-    order); K13 at every tier and K14 on every level against the kernels
-    they were before their redesign (`per_tile=True`, `per_unit=True`),
-    and K10 and K12 on every level against theirs (`per_block=True`), in
+    order); K13 at every tier against K15 on its (ray, block) pairs, in
     every bit. Returns ({kernel: kernel ms summed over the wave's
-    levels}, {kernel: plain ms}, {"bwd", "emit": yardstick ms}, {K10,
-    K12, K13, K14 and their references, K13 at "high" and "default":
-    ms}): each kernel timed over `reps` launches on its recorded inputs,
+    levels}, {kernel: plain ms}, {"bwd", "emit": yardstick ms}, {K13 at
+    every tier: ms}): each kernel timed over `reps` launches on its
+    recorded inputs,
     K14's yardstick being one torch.scatter_reduce("amin") of packed (t,
     slot) int64 keys per level, K12's one index_put_ of the live lanes'
     ray ids at their pre-formed positions in both lists per level."""
     from platinum_tpu_torch.ops import bfstream as bf
+    from platinum_tpu_torch.ops import raystream as rs
 
     rays, levels = seg["rays"], seg["levels"]
     dev = rays.device
@@ -1990,8 +1961,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     mt_cap = mtr["mt_units"].shape[0]
     ms = {k: 0.0 for k in BF_ROWS}
     plain_ms = {k: 0.0 for k in BF_ROWS}
-    redesign = {k: 0.0 for k in ("K10", "K10 per_block", "K12",
-                                 "K12 per_block", "K14", "K14 per_unit")}
+    tiers = {}
     lib_ms = {"bwd": 0.0, "emit": 0.0}
 
     def fresh(cap_next):
@@ -2011,12 +1981,6 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         plain_ms["expand"] += pms
         check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, ref)),
               f"{label} level {lvl}: K10 differs from its plain version")
-        old = bf.bf_expand(*args, per_block=True)
-        check(all(torch.equal(a[:n], b[:n]) for a, b in zip(got, old)),
-              f"{label} level {lvl}: K10 differs from its per-block "
-              f"reference")
-        redesign["K10 per_block"] += _device_ms(
-            lambda: bf.bf_expand(*args, per_block=True), reps)
         outs = []
         for prefix, emit, key in ((bf.bf_prefix, bf.bf_emit, "kernel"),
                                   (bf.bf_prefix_plain, bf.bf_emit_plain,
@@ -2027,20 +1991,10 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
             out, t_p = _synced_ms(lambda: prefix(*pargs))
             eargs = (lv["pairs"], lv["masks"], stat[lvl], out[0], out[2],
                      out[1], bufs[0], bufs[1])
-            if key == "kernel":
-                # the reference into copies of the lists as K11 left them
-                rargs = (*eargs[:6], bufs[0].clone(), bufs[1].clone())
-                bf.bf_emit(*rargs, per_block=True)
             _, t_e = _synced_ms(lambda: emit(*eargs))
             if key == "kernel":
                 ms["prefix"] += _device_ms(lambda: prefix(*pargs), reps)
                 ms["emit"] += _device_ms(lambda: emit(*eargs), reps)
-                check(torch.equal(bufs[0], rargs[6])
-                      and torch.equal(bufs[1], rargs[7]),
-                      f"{label} level {lvl}: K12 differs from its "
-                      f"per-block reference")
-                redesign["K12 per_block"] += _device_ms(
-                    lambda: bf.bf_emit(*rargs, per_block=True), reps)
                 lib_ms["emit"] += _emit_yardstick(label, lvl, n, lv,
                                                   out, bufs, reps)
             else:
@@ -2066,17 +2020,15 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
     k = n_mt * 128
     check(all(_bits(a[:k], b[:k]) for a, b in zip(got, ref)),
           f"{label}: K13 differs from its plain version")
-    redesign["K10"], redesign["K12"] = ms["expand"], ms["emit"]
     for tier in ("highest", "high", "default"):
         targs = (*margs, tier)
         new = bf.bf_mt(*targs)
-        old = bf.bf_mt(*targs, per_tile=True)
-        check(all(_bits(a[:k], b[:k]) for a, b in zip(new, old)),
-              f"{label}: K13 at {tier!r} differs from its per-tile "
-              f"reference")
-        redesign[f"K13 {tier}"] = _device_ms(lambda: bf.bf_mt(*targs), reps)
-        redesign[f"K13 {tier} per_tile"] = _device_ms(
-            lambda: bf.bf_mt(*targs, per_tile=True), reps)
+        k15 = _from_tests("torch_kernel_cases").k15_of_tiles(
+            rs.stream_mt, mtr["mt_pairs"], mtr["mt_units"], n_mt, rays,
+            blocks, any_hit, tier)
+        check(all(_bits(a[:k], b) for a, b in zip(new, k15)),
+              f"{label}: K13 at {tier!r} differs from K15 on its pairs")
+        tiers[f"K13 {tier}"] = _device_ms(lambda: bf.bf_mt(*targs), reps)
     res_k = res_p = None
     for lvl in range(len(levels) - 2, -1, -1):
         lv = levels[lvl]
@@ -2091,14 +2043,6 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         check(all(_bits(a[:n * 128], b[:n * 128])
                   for a, b in zip(res_k, res_p)),
               f"{label} level {lvl}: K14 differs from its plain version")
-        old = bf.bf_bwd(*bargs, child, got, per_unit=True)
-        check(all(_bits(a[:n * 128], b[:n * 128])
-                  for a, b in zip(res_k, old)),
-              f"{label} level {lvl}: K14 differs from its per-unit "
-              f"reference")
-        redesign["K14"] = ms["bwd"]
-        redesign["K14 per_unit"] += _device_ms(
-            lambda: bf.bf_bwd(*bargs, child, got, per_unit=True), reps)
         # the yardstick: the same per-pair minimum as one scatter_reduce
         # of packed (t, slot) keys over the level's (pair, child) edges
         sel, pos, in_mt = bf._routes(lv["masks"], n, lv["dn"], lv["uoff"],
@@ -2121,7 +2065,7 @@ def _bf_hold_wave(label, seg, nodes, meta, blocks, any_hit, reps=10):
         check(torch.equal(out[hit] & 0xFFFFFFFF,
                           res_k[1][:n * 128][hit].long()),
               f"{label} level {lvl}: the yardstick's minimum is not K14's")
-    return ms, plain_ms, lib_ms, redesign
+    return ms, plain_ms, lib_ms, tiers
 
 
 def _emit_yardstick(label, lvl, n, lv, out, bufs, reps):
@@ -2204,15 +2148,14 @@ def phase_bf(ctx):
         syncs = len(where)
         wave_ms = _time_ms(lambda: trace(o, d, rays[6], rays[7]), 5)
         occluded = int(res.sum()) if any_hit else 0
-        ms, plain_ms, lib_ms, redesign = _bf_hold_wave(
+        ms, plain_ms, lib_ms, tiers = _bf_hold_wave(
             f"3k {wave}", seg, nodes, meta, blocks, any_hit)
         mtr = seg["levels"][-1]
         print(f"    {wave}: MT tiles by live lanes "
               f"{_live_histogram(mtr['mt_pairs'], st[-1][1], n)}; device "
-              f"ms, the redesigned K10, K12, K13 (every tier) and K14 "
-              f"beside the kernels before (per_block, per_tile, per_unit), "
-              f"each held to them in every bit: " + ", ".join(f"{k} {v:.4f}"
-                                         for k, v in redesign.items()),
+              f"ms of K13 at every tier, each held to K15 on its pairs in "
+              f"every bit: " + ", ".join(f"{k} {v:.4f}"
+                                         for k, v in tiers.items()),
               flush=True)
         work = _bf_work(seg, any_hit, occluded)
         print(f"  bf tracer per {n}-ray wave, {name}: {wave_ms:.3f} ms "
@@ -2239,11 +2182,6 @@ def phase_bf(ctx):
                        bound_ms=max(t_ops, t_bytes) * 1e3,
                        bound_by="operations" if t_ops >= t_bytes else "bytes",
                        max_abs_err=0.0, library_ms=None)
-            if k in ("expand", "emit", "mt", "bwd"):
-                # the kernel before the redesign on the same inputs
-                row["reference_ms"] = redesign[{
-                    "expand": "K10 per_block", "emit": "K12 per_block",
-                    "mt": "K13 highest per_tile", "bwd": "K14 per_unit"}[k]]
             if k == "emit":
                 # one index_put_ at positions formed beforehand: a part of
                 # K12's work, not its function
@@ -2316,10 +2254,10 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
               f"bistro tree, {name}: {ref_ms[wave]:.3f} ms", flush=True)
         _bitwise(f"K6 against K1/K2, bistro {wave}", outs[wave], refs[wave],
                  waves[wave], None)
-    _any_drain_against_per_thread("bistro", nodes, blocks, meta,
-                                  waves["shadow"],
-                                  {"K2": refs["shadow"],
-                                   "K6 any hit": outs["shadow"]})
+    _any_drain_against_classic("bistro", nodes, blocks, meta,
+                               waves["shadow"],
+                               {"K2": refs["shadow"],
+                                "K6 any hit": outs["shadow"]})
     print("K9 against K1/K2 on the bistro tree (3h):", flush=True)
     for key, mode in (("pipe", dict(pipe=True)),
                       ("flat_walk", _flat_mode(meta))):
@@ -2331,16 +2269,16 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
                                          any_hit, **mode)
 
             kms = _time_ms(k9, 20)
-            _bitwise(f"K9 {key} against K1/K2, bistro {wave}", got["k"],
-                     refs[wave], waves[wave],
-                     certify if any_hit else None)
+            what = f"K9 {key} against K1/K2, bistro {wave}"
+            _exact(what, got["k"], refs[wave])
+            print(f"  {what}: every output bit for bit on all "
+                  f"{waves[wave].shape[1]} rays", flush=True)
             print(f"  K9 {key} time per {waves[wave].shape[1]}-ray wave on "
                   f"the bistro tree, {name}: {kms:.3f} ms (K1/K2 "
                   f"{ref_ms[wave]:.3f} ms)", flush=True)
-            _against_its_walk(f"K9 {key} bistro {wave}", waves[wave], nodes,
-                              blocks, meta, any_hit, **mode)
-    _drain_against_per_thread("bistro", nodes, blocks, meta, waves,
-                              stream=True)
+            _drain_counts(f"K9 {key} bistro {wave}", pt.trace_wide_counts(
+                waves[wave], nodes, blocks, meta, any_hit, **mode))
+    _drains_agree("bistro", nodes, blocks, meta, waves, stream=True)
     print("K8 with stream=True against K6 on the bistro tree (3g):",
           flush=True)
     _paired_waves("bistro paired(bounce, shadow), stream=True", nodes, blocks,
@@ -2363,7 +2301,7 @@ def phase_stream(scene_small, cam_small, dev, pts_small):
     inst_rows, inst_outs = _hold_tree(
         "K6 instanced", nodes, flat.wbvh_tris, flat.wbvh_meta, waves,
         pts_small["sample"], inst_certify, inst_feat=flat.instances.feat,
-        mode=dict(stream=True), inst_need=dict(pipe=True, per_thread=True))
+        mode=dict(stream=True))
     for _, wave, any_hit in JOBS:
         ref = pt.trace_wide(waves[wave], nodes, flat.wbvh_tris,
                             flat.wbvh_meta, any_hit, flat.instances.feat)
@@ -4110,14 +4048,13 @@ BVH_GOLDENS = (("cornell", 1), ("spheres", 32))  # 9b: (golden, min tris)
 BAKE_CLI_SPP = 1024                 # 9c: bake-luts --spp
 
 
-def _golden_configs():
-    """tests/golden_configs.py (imports no JAX) from the checkout."""
+def _from_tests(name):
+    """A module of tests/ that imports no JAX (golden_configs,
+    torch_kernel_cases) from the checkout."""
     tests = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
     if tests not in sys.path:
         sys.path.insert(0, tests)
-    import golden_configs
-
-    return golden_configs
+    return importlib.import_module(name)
 
 
 def _kernel_count(fn):
@@ -4224,7 +4161,7 @@ def phase_goldens():
     under GMoN), each held to RMSE <= 1e-3 (test_golden.py's bar) against
     tests/goldens/<name>.exr; then cornell (accel_min_tris=1, so it has a
     binary BVH) and spheres with tracer="bvh", held to the same bar."""
-    gc = _golden_configs()
+    gc = _from_tests("golden_configs")
     runs = [(name, None, 32) for name in gc.NAMES]
     runs += [(name, "bvh", min_tris) for name, min_tris in BVH_GOLDENS]
     out = {}
@@ -4832,7 +4769,7 @@ def main():
                     bound_by=row["bound_by"],
                     library_ms=row.get("library_ms"),
                     **{k: row[k] for k in ("plain_rays", "fill_launches",
-                                           "reference_ms", "library_part")
+                                           "library_part")
                        if k in row})
                for name, source, replaces, row, launches in table]
     stream_src = "platinum_tpu_torch/csrc/stream_mt.cu"

@@ -63,10 +63,6 @@
 //   loads together, then reduces them in child order, then reads u and v
 //   of the winner alone. Level 0's pairs are the segment's rays in
 //   order, so its results are the segment's.
-// - The kernels before the redesign of K10, K12, K13 and K14 stay as
-//   their references, each behind an entry of its own
-//   (`bf_expand_per_block_launch`, `bf_emit_per_block_launch`,
-//   `bf_mt_per_tile_launch`, `bf_bwd_per_unit_launch`).
 //
 // What bounds them on this card: K13 does the work (5,120 FLOP per live
 // pair at "highest" against a 10 KB block read once per tile; the accept
@@ -139,11 +135,11 @@ __device__ __forceinline__ bool box_hit(float4 a, float4 b, float ox,
 // On an H100 the slab tests bound K10 on full levels (the min / max and
 // compares run at half the FMA rate), so it keeps a thread per lane and the
 // occupancy that gives: a warp per unit (four lanes a thread, the CTAs the
-// card holds, the next unit's loads ahead) ran 15-50% slower than the
-// kernel before on the headline waves and 60-70% slower on a render's thin
+// card holds, the next unit's loads ahead) ran 15-50% slower than a block
+// per unit on the headline waves and 60-70% slower on a render's thin
 // ones, and the CTAs the card holds striding over the units 3% slower on
-// the render (PERF.md). What it
-// changes: the lane's pair and its ray's eight floats are loaded before
+// the render (PERF.md). Beyond a plain block per unit: the lane's pair
+// and its ray's eight floats are loaded before
 // the node's barrier, with the node row, so a unit waits for one round of
 // loads after its unit id; and a unit's node is the same for its 128
 // lanes, so the meta test is made once per child (lane c of each warp, a
@@ -191,63 +187,6 @@ bf_expand_kernel(const int* __restrict__ units, const int* __restrict__ level,
                     g[6], g[7]))
           mask |= 1 << c;
       }
-    }
-  }
-  masks[(size_t)u * kLanes + lane] = mask;
-#pragma unroll
-  for (int c = 0; c < kChildren; ++c) {
-    const unsigned b = __ballot_sync(kFull, (mask >> c) & 1);
-    if (wl == 0) warp_count[warp][c] = __popc(b);
-  }
-  __syncthreads();
-  if (lane < kChildren) {
-    int n = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) n += warp_count[w][lane];
-    counts[(size_t)u * kChildren + lane] = n;
-  }
-}
-
-// The reference of bf_expand_kernel (the kernel before the redesign): the
-// same block per unit, its pair read after the node's barrier and its
-// ray after that, all 16 children tested.
-__global__ void __launch_bounds__(kLanes)
-bf_expand_per_block_kernel(const int* __restrict__ units,
-                           const int* __restrict__ level,
-                           const int* __restrict__ pairs,
-                           const float* __restrict__ rays, int n_rays,
-                           const float* __restrict__ nodes, int n_nodes,
-                           int* __restrict__ masks, int* __restrict__ counts) {
-  const int u = blockIdx.x;
-  if (u >= level[kNext]) return;
-  const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
-  __shared__ float rec[kChildren * 8];
-  __shared__ int warp_count[kWarps][kChildren];
-  const int node = min(max(units[u], 0), n_nodes - 1);
-  rec[lane] = nodes[(size_t)node * kLanes + lane];
-  __syncthreads();
-  const int r = pairs[(size_t)u * kLanes + lane];
-  int mask = 0;
-  if (r >= 0 && r < n_rays) {
-    const float ox = rays[r], oy = rays[n_rays + r], oz = rays[2 * n_rays + r];
-    const float ix = inv_dir(rays[3 * n_rays + r]);
-    const float iy = inv_dir(rays[4 * n_rays + r]);
-    const float iz = inv_dir(rays[5 * n_rays + r]);
-    const float tmin = rays[6 * n_rays + r], tmax = rays[7 * n_rays + r];
-#pragma unroll
-    for (int c = 0; c < kChildren; ++c) {
-      const float* q = rec + c * 8;
-      const float t0x = (q[0] - ox) * ix, t1x = (q[3] - ox) * ix;
-      const float t0y = (q[1] - oy) * iy, t1y = (q[4] - oy) * iy;
-      const float t0z = (q[2] - oz) * iz, t1z = (q[5] - oz) * iz;
-      const float tn = fmaxf(fmaxf(fminf(t0x, t1x), fminf(t0y, t1y)),
-                             fminf(t0z, t1z));
-      const float tf = fminf(fminf(fmaxf(t0x, t1x), fmaxf(t0y, t1y)),
-                             fmaxf(t0z, t1z));
-      const float meta = q[6];
-      if (tn <= tf && tf >= tmin && tn <= tmax && tmax >= tmin &&
-          (meta >= 0.f || meta <= -1.5f))
-        mask |= 1 << c;
     }
   }
   masks[(size_t)u * kLanes + lane] = mask;
@@ -674,40 +613,6 @@ bf_emit_kernel(const int* __restrict__ pairs, const int* __restrict__ masks,
   }
 }
 
-// The reference of bf_emit_kernel (the kernel before the redesign): one
-// block per unit of the capacity, a thread per lane, ranks completed over
-// the lower warps' packed counts after a barrier.
-__global__ void __launch_bounds__(kLanes)
-bf_emit_per_block_kernel(const int* __restrict__ pairs,
-                         const int* __restrict__ masks,
-                         const int* __restrict__ level,
-                         const int* __restrict__ dn,
-                         const int* __restrict__ uoff,
-                         const int* __restrict__ base,
-                         int* __restrict__ pairs_next,
-                         int* __restrict__ mt_pairs) {
-  const int u = blockIdx.x;
-  if (u >= level[kNext]) return;
-  const int lane = threadIdx.x;
-  __shared__ int4 cnt[kWarps];
-  const int mask = masks[(size_t)u * kLanes + lane];
-  const int r = pairs[(size_t)u * kLanes + lane];
-  int below[kChildren];
-  warp_ranks(mask, below, cnt);
-  __syncthreads();
-  add_lower_warps(below, cnt);
-  const int d = dn[u];
-#pragma unroll
-  for (int c = 0; c < kChildren; ++c) {
-    if (!((mask >> c) & 1)) continue;
-    const int rec = base[(size_t)d * kChildren + c];
-    if (rec < 0) continue;
-    const size_t pos = (size_t)(rec & (kMtTag - 1)) * kLanes +
-                       uoff[(size_t)u * kChildren + c] + below[c];
-    (rec >= kMtTag ? mt_pairs : pairs_next)[pos] = r;
-  }
-}
-
 // CTAs of `kKernel` (kThreads threads) that the card holds at once, with
 // the largest shared-memory carveout: the grid of a persistent kernel,
 // asked of the runtime once
@@ -917,57 +822,6 @@ bf_mt_kernel(const int* __restrict__ mt_pairs, const int* __restrict__ mt_units,
   copy_wait<0>();
 }
 
-// The reference of bf_mt_kernel (the kernel before the redesign): one CTA
-// per MT unit of the capacity, the block copied into shared memory, one
-// lane one ray through block_closest / block_any.
-template <bool kAnyHit, int kPrec>
-__global__ void __launch_bounds__(kLanes)
-bf_mt_per_tile_kernel(const int* __restrict__ mt_pairs,
-                      const int* __restrict__ mt_units,
-                      const int* __restrict__ level,
-                      const float* __restrict__ rays, int n_rays,
-                      const float* __restrict__ blocks, int n_blocks,
-                      float* __restrict__ t_out, int* __restrict__ sid_out,
-                      float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int u = blockIdx.x;
-  if (u >= level[kMtCur]) return;
-  const int lane = threadIdx.x;
-  __shared__ __align__(16) float blk[kBlockFloats];
-  const int b = clamp_block(mt_units[u], n_blocks);
-  const float4* src =
-      reinterpret_cast<const float4*>(blocks + (size_t)b * kBlockFloats);
-  for (int i = lane; i < kBlockFloats / 4; i += kLanes)
-    reinterpret_cast<float4*>(blk)[i] = __ldg(src + i);
-  __syncthreads();
-  const size_t i = (size_t)u * kLanes + lane;
-  const int r = mt_pairs[i];
-  float t = __int_as_float(0x7f800000), bu = 0.f, bv = 0.f;
-  int sid = -1;
-  if (r >= 0 && r < n_rays) {
-    float f[10], fh[10], fl[10];
-    ray_features(rays[r], rays[n_rays + r], rays[2 * n_rays + r],
-                 rays[3 * n_rays + r], rays[4 * n_rays + r],
-                 rays[5 * n_rays + r], f);
-    if (kPrec != kHighest) split_features(f, fh, fl);
-    const float tmin = rays[6 * n_rays + r], tmax = rays[7 * n_rays + r];
-    if (kAnyHit) {
-      if (block_any<kPrec, true>(blk, f, fh, fl, tmin, tmax)) {
-        t = 0.f;
-        sid = 0;
-      }
-    } else {
-      float best = tmax;
-      if (block_closest<kPrec, true>(blk, b, f, fh, fl, tmin, best, sid, bu,
-                                     bv))
-        t = best;
-    }
-  }
-  t_out[i] = t;
-  sid_out[i] = sid;
-  u_out[i] = bu;
-  v_out[i] = bv;
-}
-
 // ---------------------------------------------------------------------------
 // K14: each lane of a unit keeps the least (t, slot id) of its children's
 // results, inner children from the level below, leaf children from K13.
@@ -984,7 +838,7 @@ struct Results {
 // the ranks (warp_ranks, one barrier, add_lower_warps), the unit's region
 // and offset rows in vector loads, then every selected child's (t, sid)
 // gathered at once, reduced in child order (strict < on t, then the
-// smaller sid: the reference's choice), and u, v gathered for the winner
+// smaller sid: bf_bwd_plain's choice), and u, v gathered for the winner
 // alone.
 __global__ void __launch_bounds__(kLanes)
 bf_bwd_kernel(const int* __restrict__ masks, const int* __restrict__ level,
@@ -1054,79 +908,6 @@ bf_bwd_kernel(const int* __restrict__ masks, const int* __restrict__ level,
   }
 }
 
-// The reference of bf_bwd_kernel (the kernel before the redesign): one
-// CTA per unit of the capacity, the rank of each selected child summed
-// over the lower warps, each child's results gathered as the fold
-// reaches it.
-struct Ranks {
-  int below[kChildren];   // lanes of the warp below this one with bit c
-};
-
-__device__ __forceinline__ void tile_ranks(int mask, Ranks& rk,
-                                           int (*warp_count)[kWarps]) {
-  const int lane = threadIdx.x, warp = lane >> 5, wl = lane & 31;
-  const unsigned lower = (1u << wl) - 1u;
-#pragma unroll
-  for (int c = 0; c < kChildren; ++c) {
-    const unsigned b = __ballot_sync(kFull, (mask >> c) & 1);
-    rk.below[c] = __popc(b & lower);
-    if (wl == 0) warp_count[c][warp] = __popc(b);
-  }
-}
-
-__device__ __forceinline__ int tile_rank(const Ranks& rk,
-                                         int (*warp_count)[kWarps], int c) {
-  const int warp = threadIdx.x >> 5;
-  int rank = rk.below[c];
-  for (int w = 0; w < warp; ++w) rank += warp_count[c][w];
-  return rank;
-}
-
-__global__ void __launch_bounds__(kLanes)
-bf_bwd_per_unit_kernel(const int* __restrict__ masks,
-                       const int* __restrict__ level,
-                       const int* __restrict__ dn,
-                       const int* __restrict__ uoff,
-                       const int* __restrict__ base, Results child,
-                       Results mt, float* __restrict__ t_out,
-                       int* __restrict__ sid_out, float* __restrict__ u_out,
-                       float* __restrict__ v_out) {
-  const int u = blockIdx.x;
-  if (u >= level[kNext]) return;
-  const int lane = threadIdx.x;
-  __shared__ int warp_count[kChildren][kWarps];
-  const int mask = masks[(size_t)u * kLanes + lane];
-  Ranks rk;
-  tile_ranks(mask, rk, warp_count);
-  __syncthreads();
-  const int d = dn[u];
-  float best = __int_as_float(0x7f800000), bu = 0.f, bv = 0.f;
-  int bs = -1;
-#pragma unroll
-  for (int c = 0; c < kChildren; ++c) {
-    if (!((mask >> c) & 1)) continue;
-    const int rec = base[(size_t)d * kChildren + c];
-    if (rec < 0) continue;
-    const size_t pos = (size_t)(rec & (kMtTag - 1)) * kLanes +
-                       uoff[(size_t)u * kChildren + c] +
-                       tile_rank(rk, warp_count, c);
-    const Results& src = rec >= kMtTag ? mt : child;
-    const float tn = src.t[pos];
-    const int sn = src.sid[pos];
-    if (tn < best || (tn == best && sn < bs)) {
-      best = tn;
-      bs = sn;
-      bu = src.u[pos];
-      bv = src.v[pos];
-    }
-  }
-  const size_t i = (size_t)u * kLanes + lane;
-  t_out[i] = best;
-  sid_out[i] = bs;
-  u_out[i] = bu;
-  v_out[i] = bv;
-}
-
 struct MtLaunch {
   cudaStream_t stream;
   int mt_cap;
@@ -1144,35 +925,22 @@ struct MtLaunch {
 };
 
 template <bool kAnyHit, int kPrec>
-void launch_mt(const MtLaunch& l, bool per_tile) {
-  if (per_tile) {
-    bf_mt_per_tile_kernel<kAnyHit, kPrec><<<l.mt_cap, kLanes, 0, l.stream>>>(
-        l.mt_pairs, l.mt_units, l.level, l.rays, l.n_rays, l.blocks,
-        l.n_blocks, l.t, l.sid, l.u, l.v);
-  } else {
-    const int grid = min(
-        l.mt_cap, resident_ctas<bf_mt_kernel<kAnyHit, kPrec>, kLanes>());
-    bf_mt_kernel<kAnyHit, kPrec><<<grid, kLanes, 0, l.stream>>>(
-        l.mt_pairs, l.mt_units, l.level, l.rays, l.n_rays, l.blocks,
-        l.n_blocks, l.t, l.sid, l.u, l.v);
-  }
+void launch_mt(const MtLaunch& l) {
+  const int grid = min(
+      l.mt_cap, resident_ctas<bf_mt_kernel<kAnyHit, kPrec>, kLanes>());
+  bf_mt_kernel<kAnyHit, kPrec><<<grid, kLanes, 0, l.stream>>>(
+      l.mt_pairs, l.mt_units, l.level, l.rays, l.n_rays, l.blocks,
+      l.n_blocks, l.t, l.sid, l.u, l.v);
 }
 
 template <bool kAnyHit>
-int mt_by_precision(int prec, const MtLaunch& l, bool per_tile) {
+int mt_by_precision(int prec, const MtLaunch& l) {
   switch (prec) {
-    case kHighest: launch_mt<kAnyHit, kHighest>(l, per_tile); return 0;
-    case kHigh: launch_mt<kAnyHit, kHigh>(l, per_tile); return 0;
-    case kDefault: launch_mt<kAnyHit, kDefault>(l, per_tile); return 0;
+    case kHighest: launch_mt<kAnyHit, kHighest>(l); return 0;
+    case kHigh: launch_mt<kAnyHit, kHigh>(l); return 0;
+    case kDefault: launch_mt<kAnyHit, kDefault>(l); return 0;
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int mt_launch(const MtLaunch& l, int any_hit, int mt_prec, bool per_tile) {
-  const int rc = any_hit ? mt_by_precision<true>(mt_prec, l, per_tile)
-                         : mt_by_precision<false>(mt_prec, l, per_tile);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -1184,9 +952,8 @@ extern "C" {
 // unit counts stay on the device: `level` points to the status row of the
 // level before (kStatWords int32; for level 0 a row holding the tile count
 // and MT cursor 0), whose kNext word is this level's unit count and kMtCur
-// word the MT cursor so far. K10 and the references of K10 and K12
-// launch a block per unit of the capacity and the blocks past the count
-// return; K12, K13 and K14 launch the CTAs the card holds at once (at most
+// word the MT cursor so far. K10 launches a block per unit of the
+// capacity and the blocks past the count return; K12, K13 and K14 launch the CTAs the card holds at once (at most
 // what the capacity needs), which take the units up to the count. Pairs
 // are int32 ray indices into rays (8, n_rays) f32 [ox, oy, oz, dx, dy, dz,
 // tmin, tmax], -1 in a dead lane.
@@ -1201,17 +968,6 @@ int bf_expand_launch(const int* units, const int* level, int cap_t,
                      void* cuda_stream) {
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   bf_expand_kernel<<<cap_t, kLanes, 0, stream>>>(
-      units, level, pairs, rays, n_rays, nodes, n_nodes, masks, counts);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same through the reference kernel.
-int bf_expand_per_block_launch(const int* units, const int* level, int cap_t,
-                               const int* pairs, const float* rays,
-                               int n_rays, const float* nodes, int n_nodes,
-                               int* masks, int* counts, void* cuda_stream) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_expand_per_block_kernel<<<cap_t, kLanes, 0, stream>>>(
       units, level, pairs, rays, n_rays, nodes, n_nodes, masks, counts);
   return static_cast<int>(cudaGetLastError());
 }
@@ -1258,18 +1014,6 @@ int bf_emit_launch(const int* pairs, const int* masks, const int* level,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The same through the reference kernel, a block per unit of the capacity.
-int bf_emit_per_block_launch(const int* pairs, const int* masks,
-                             const int* level, int cap_t, const int* dn,
-                             const int* uoff, const int* base,
-                             int* pairs_next, int* mt_pairs,
-                             void* cuda_stream) {
-  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_emit_per_block_kernel<<<cap_t, kLanes, 0, stream>>>(
-      pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs);
-  return static_cast<int>(cudaGetLastError());
-}
-
 // K13. mt_pairs (mt_cap, 128), mt_units (mt_cap,) block ids, `level` the
 // last level's status row (its MT cursor); blocks (n_blocks, 10, 256) f32.
 // Per pair: closest hit t (+inf on a miss), slot id block*64 + slot (-1),
@@ -1279,22 +1023,13 @@ int bf_mt_launch(const int* mt_pairs, const int* mt_units, const int* level,
                  int mt_cap, const float* rays, int n_rays,
                  const float* blocks, int n_blocks, int any_hit, int mt_prec,
                  float* t, int* sid, float* u, float* v, void* cuda_stream) {
-  return mt_launch(MtLaunch{static_cast<cudaStream_t>(cuda_stream), mt_cap,
-                            mt_pairs, mt_units, level, rays, n_rays, blocks,
-                            n_blocks, t, sid, u, v},
-                   any_hit, mt_prec, false);
-}
-
-// The same through the reference kernel, a CTA per unit of the capacity.
-int bf_mt_per_tile_launch(const int* mt_pairs, const int* mt_units,
-                          const int* level, int mt_cap, const float* rays,
-                          int n_rays, const float* blocks, int n_blocks,
-                          int any_hit, int mt_prec, float* t, int* sid,
-                          float* u, float* v, void* cuda_stream) {
-  return mt_launch(MtLaunch{static_cast<cudaStream_t>(cuda_stream), mt_cap,
-                            mt_pairs, mt_units, level, rays, n_rays, blocks,
-                            n_blocks, t, sid, u, v},
-                   any_hit, mt_prec, true);
+  const MtLaunch l{static_cast<cudaStream_t>(cuda_stream), mt_cap, mt_pairs,
+                   mt_units, level, rays, n_rays, blocks, n_blocks, t, sid,
+                   u, v};
+  const int rc = any_hit ? mt_by_precision<true>(mt_prec, l)
+                         : mt_by_precision<false>(mt_prec, l);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K14. child_*: the results of the level below (any valid pointers where
@@ -1312,22 +1047,6 @@ int bf_bwd_launch(const int* masks, const int* level, int cap_t,
   const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
   const int grid = min(cap_t, resident_ctas<bf_bwd_kernel, kLanes>());
   bf_bwd_kernel<<<grid, kLanes, 0, stream>>>(
-      masks, level, dn, uoff, base, child, mt, t, sid, u, v);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The same through the reference kernel, a block per unit of the capacity.
-int bf_bwd_per_unit_launch(const int* masks, const int* level, int cap_t,
-                           const int* dn, const int* uoff, const int* base,
-                           const float* child_t, const int* child_sid,
-                           const float* child_u, const float* child_v,
-                           const float* mt_t, const int* mt_sid,
-                           const float* mt_u, const float* mt_v, float* t,
-                           int* sid, float* u, float* v, void* cuda_stream) {
-  const Results child{child_t, child_sid, child_u, child_v};
-  const Results mt{mt_t, mt_sid, mt_u, mt_v};
-  const cudaStream_t stream = static_cast<cudaStream_t>(cuda_stream);
-  bf_bwd_per_unit_kernel<<<cap_t, kLanes, 0, stream>>>(
       masks, level, dn, uoff, base, child, mt, t, sid, u, v);
   return static_cast<int>(cudaGetLastError());
 }

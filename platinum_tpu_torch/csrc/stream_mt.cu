@@ -38,9 +38,8 @@
 // which K13 shares. A chunk whose runs average fewer
 // than kMinRun pairs (thin waves deep in a render) stages nothing: each
 // thread tests its pairs one at a time through the read-only cache, the
-// per-pair code. The one-thread-per-pair kernel
-// (`stream_mt_kernel`) stays as the reference, behind its own entry
-// (`stream_mt_per_pair_launch`).
+// per-pair code (`test_pair`), which the tests reach by putting every
+// pair in a run of its own.
 //
 // The pair names its ray by index and the kernel gathers the ray (origin,
 // direction, tmin) and its limit, then forms the ten features itself with
@@ -55,10 +54,10 @@
 //
 // What bounds it on the card: at "highest" 5,120 FLOP per pair on the CUDA
 // cores against 8 B of pair ids, a 32 B ray gather, 16 B of results and
-// 10 KB per distinct block: the operations. The one-thread-per-pair kernel
-// read its block through the read-only cache, one 16-byte load per four
-// FMAs; staging the block once per CTA and blocking R rays per thread cuts
-// the loads per FMA R-fold and takes them from shared memory. What is
+// 10 KB per distinct block: the operations. A pair tested alone reads its
+// block through the read-only cache, one 16-byte load per four FMAs;
+// staging the block once per CTA and blocking R rays per thread cuts the
+// loads per FMA R-fold and takes them from shared memory. What is
 // left is the accept test, ~16 instructions per (ray, triangle) beside its
 // 40 FMAs, and each round's barriers.
 
@@ -132,23 +131,6 @@ __device__ __forceinline__ void test_pair(
   slot_out[i] = slot;
   u_out[i] = u;
   v_out[i] = v;
-}
-
-// The one-thread-per-pair kernel: the reference of the chunked kernel.
-template <bool kAnyHit, int kPrec>
-__global__ void __launch_bounds__(kThreads)
-stream_mt_kernel(const float* __restrict__ rays, int n_rays,
-                 const float* __restrict__ limit,
-                 const int* __restrict__ pair_ray,
-                 const int* __restrict__ pair_block, int n_pairs,
-                 const float* __restrict__ blocks, int n_blocks,
-                 float* __restrict__ t_out, int* __restrict__ slot_out,
-                 float* __restrict__ u_out, float* __restrict__ v_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n_pairs)
-    test_pair<kAnyHit, kPrec>(i, rays, n_rays, limit, pair_ray, pair_block,
-                              blocks, n_blocks, t_out, slot_out, u_out,
-                              v_out);
 }
 
 // Exclusive prefix sum of v over the CTA's threads in thread order; *total
@@ -406,42 +388,22 @@ struct Launch {
 };
 
 template <bool kAnyHit, int kPrec>
-void launch(const Launch& l, bool per_pair) {
-  if (per_pair)
-    stream_mt_kernel<kAnyHit, kPrec>
-        <<<(l.n_pairs + kThreads - 1) / kThreads, kThreads, 0, l.stream>>>(
-            l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
-            l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
-  else
-    stream_mt_chunk_kernel<kAnyHit, kPrec>
-        <<<(l.n_pairs + chunk_pairs(l.n_pairs) - 1) / chunk_pairs(l.n_pairs),
-           kThreads, 0, l.stream>>>(
-            l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
-            l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
+void launch(const Launch& l) {
+  stream_mt_chunk_kernel<kAnyHit, kPrec>
+      <<<(l.n_pairs + chunk_pairs(l.n_pairs) - 1) / chunk_pairs(l.n_pairs),
+         kThreads, 0, l.stream>>>(
+          l.rays, l.n_rays, l.limit, l.pair_ray, l.pair_block, l.n_pairs,
+          l.blocks, l.n_blocks, l.t_out, l.slot_out, l.u_out, l.v_out);
 }
 
 template <bool kAnyHit>
-int by_precision(int prec, const Launch& l, bool per_pair) {
+int by_precision(int prec, const Launch& l) {
   switch (prec) {
-    case kHighest: launch<kAnyHit, kHighest>(l, per_pair); return 0;
-    case kHigh: launch<kAnyHit, kHigh>(l, per_pair); return 0;
-    case kDefault: launch<kAnyHit, kDefault>(l, per_pair); return 0;
+    case kHighest: launch<kAnyHit, kHighest>(l); return 0;
+    case kHigh: launch<kAnyHit, kHigh>(l); return 0;
+    case kDefault: launch<kAnyHit, kDefault>(l); return 0;
   }
   return static_cast<int>(cudaErrorInvalidValue);
-}
-
-int launch_mt(const float* rays, int n_rays, const float* limit,
-              const int* pair_ray, const int* pair_block, int n_pairs,
-              const float* blocks, int n_blocks, int any_hit, int mt_prec,
-              float* t_out, int* slot_out, float* u_out, float* v_out,
-              void* cuda_stream, bool per_pair) {
-  const Launch l{static_cast<cudaStream_t>(cuda_stream), rays, n_rays, limit,
-                 pair_ray, pair_block, n_pairs, blocks, n_blocks, t_out,
-                 slot_out, u_out, v_out};
-  const int rc = any_hit ? by_precision<true>(mt_prec, l, per_pair)
-                         : by_precision<false>(mt_prec, l, per_pair);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -463,21 +425,13 @@ int stream_mt_launch(const float* rays, int n_rays, const float* limit,
                      const float* blocks, int n_blocks, int any_hit,
                      int mt_prec, float* t_out, int* slot_out, float* u_out,
                      float* v_out, void* cuda_stream) {
-  return launch_mt(rays, n_rays, limit, pair_ray, pair_block, n_pairs,
-                   blocks, n_blocks, any_hit, mt_prec, t_out, slot_out,
-                   u_out, v_out, cuda_stream, false);
-}
-
-// The same through the one-thread-per-pair reference kernel.
-int stream_mt_per_pair_launch(const float* rays, int n_rays,
-                              const float* limit, const int* pair_ray,
-                              const int* pair_block, int n_pairs,
-                              const float* blocks, int n_blocks, int any_hit,
-                              int mt_prec, float* t_out, int* slot_out,
-                              float* u_out, float* v_out, void* cuda_stream) {
-  return launch_mt(rays, n_rays, limit, pair_ray, pair_block, n_pairs,
-                   blocks, n_blocks, any_hit, mt_prec, t_out, slot_out,
-                   u_out, v_out, cuda_stream, true);
+  const Launch l{static_cast<cudaStream_t>(cuda_stream), rays, n_rays, limit,
+                 pair_ray, pair_block, n_pairs, blocks, n_blocks, t_out,
+                 slot_out, u_out, v_out};
+  const int rc = any_hit ? by_precision<true>(mt_prec, l)
+                         : by_precision<false>(mt_prec, l);
+  if (rc != 0) return rc;
+  return static_cast<int>(cudaGetLastError());
 }
 
 const char* stream_mt_error_string(int code) {

@@ -118,11 +118,12 @@
 // the least loose t, strict bound and lower bound. The lane that holds the
 // winner forms u and v, and the drained lane commits with the strict <
 // against the best it had when the block started, so the hit set, t, ids
-// and barycentrics are those of the per-thread code, bit for bit. The fp32
+// and barycentrics are those of one thread testing the block, bit for
+// bit. The fp32
 // drain (K1, K3, K6, K7, K9, and K5's refine and exact re-walk) uses K1's
 // per-triangle code (mt_block.cuh `lane_dots`, block_dots' sum order).
 // Under the octant order (K7) each lane's queue is drained newest first,
-// the per-thread queued walk's near-first order.
+// the queued walk's near-first order.
 // In the two-level fp32 drain (K3) the drained lane's ray is broadcast and
 // lanes 0-9 each form one row of its object features T F, in
 // object_features' order, which are then broadcast: ten lanes do the
@@ -135,23 +136,18 @@
 // cull is the constant tmax and expand queues a node's leaves in slot
 // order, so it pops the nodes and tests the blocks of the per-thread
 // classic walk, in its order, and its flag is that walk's. The pipelined
-// drain (K9) keeps the per-thread pipe's schedule lane by lane (see
+// drain (K9) keeps each ray's pipelined schedule lane by lane (see
 // warp_pipe). Every lane runs every warp collective: lanes whose ray is
 // done or lies past the wave stay in the loops with empty queues.
 //
-// The per-thread walks stay for the any hit under the octant order (the
-// packet tracer never asks it: the JAX kernel orders closest hit only,
-// pallas_trace.py:1459) and the ablation modes, which split the
-// per-thread walk's time; and as the references the drains are held to,
-// reached only through the launch's per-thread flag (`kPerThread`, never
-// on a render path): the per-thread pipelined walk (walk_pipe, both
-// pushes, closest and any hit, one level and two) for K1, K3, K9 and the
-// instanced any hit, the per-thread queued walk under the octant order
-// (closest hit, one level and two, resident and streamed) for K7, the
-// per-thread classic any-hit walk over one level (resident or streamed
-// alike) for K2 and K6 any hit, and the per-thread paired kernel
-// (kPaired: each thread takes its mode from its ray index, the any-hit
-// half on the classic or queued walk) for K8.
+// The per-thread classic and queued walks (walk) stay for two uses only:
+// the any hit under the octant order (the packet tracer never asks it:
+// the JAX kernel orders closest hit only, pallas_trace.py:1459) and the
+// ablation modes, which split the per-thread walk's time. Every other
+// mode has one kernel, its drain. The drains are held to the plain
+// versions, to the ray-stream kernel's per-pair test on every (ray,
+// block) pair, to the classic walk under profile "fix64" and to each
+// other (tests/test_torch_emulation.py).
 
 // Queued walks (kQueue: stream or near-first order on the per-thread
 // walk; every warp-wide walk). The node's 16 children are slab-tested
@@ -230,15 +226,14 @@ constexpr int kMaxPops = 1 << 22;   // guard against malformed trees
 constexpr int kThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-// walks (kWalk)
-constexpr int kClassic = 0;   // each leaf tested as it is found (K2's
-                              // and K8's references, the ablation modes)
-constexpr int kQueued = 1;    // per-node leaf queue (K8's streamed
-                              // reference, the any hit under the octant
-                              // order, K7's reference; the reduced tiers)
-constexpr int kPipe = 2;      // persistent backlog, bounded drain (K9's
-                              // per-thread reference)
-constexpr int kPipeFlat = 3;  // the same with 16 predicated pushes a node
+// walks (kWalk); the values name the render kernels'
+// wide_trace_warp_kernel instantiations, so 2 and 3 stay unused
+constexpr int kClassic = 0;   // each leaf tested as it is found (the
+                              // ablation modes)
+constexpr int kQueued = 1;    // per-node leaf queue (the reduced tiers'
+                              // warp-wide walk; per thread, the any hit
+                              // under the octant order and the ablation
+                              // modes over streamed blocks)
 constexpr int kWarpQ = 4;     // the warp-wide queued walk at fp32 (K1,
                               // K2, K3, K6, K7)
 constexpr int kWarpPipe = 5;  // the warp-wide pipelined drain (K9 pipe)
@@ -248,9 +243,6 @@ constexpr int kWarpFlat = 6;  // the same with the flat push (K9 flat_walk)
 __host__ __device__ constexpr bool fp32_drain(int walk) {
   return walk == kWarpQ || walk == kWarpPipe || walk == kWarpFlat;
 }
-// the launch's walk code: 0 the default walk, 1 pipe, 2 flat_walk, plus
-// kPerThread for the per-thread reference of the mode (wide_trace_launch)
-constexpr int kPerThread = 4;
 // ablation modes (kProf), the wrapper's codes (ops/packet_trace.py PROFILES)
 constexpr int kProfNone = 0;
 constexpr int kProfEmpty = 1;   // no walk
@@ -380,16 +372,12 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
 }
 
 // One instantiation per mode. kAnyHit, kInst, kPrec and kCount as above;
-// kWalk picks the walk, kProf an ablation mode of the classic and queued
-// walks, and kPaired takes closest or any hit per thread from its ray
-// index (K8's per-thread reference): rays below n_split are a closest-hit
-// wave, the others an any-hit wave. n_split is a multiple of the block
-// size, so no warp holds rays of both waves. Closest hit at a reduced
-// tier (kSplit) always takes the warp-wide queued walk; fp32 closest hit,
-// with or without the octant order, and fp32 any hit without it take it
-// as kWarpQ (K1, K2, K3, K6, K7), over one tree level or two; the
-// pipelined walk drains as kWarpPipe and kWarpFlat (K9). The kernels
-// below wrap it.
+// kWalk picks the walk and kProf an ablation mode of the classic and
+// queued walks. Closest hit at a reduced tier (kSplit) always takes the
+// warp-wide queued walk; fp32 closest hit, with or without the octant
+// order, and fp32 any hit without it take it as kWarpQ (K1, K2, K3, K6,
+// K7), over one tree level or two; the pipelined walk drains as kWarpPipe
+// and kWarpFlat (K9). The kernels below wrap it.
 #define WIDE_TRACE_PARAMS                                                 \
   const float* __restrict__ rays, int n_rays, int n_split,                \
       const float* __restrict__ nodes, const float* __restrict__ blocks,  \
@@ -403,26 +391,22 @@ __device__ __forceinline__ void fold_broad(float tL, float tS, float tLo,
       prefetch, t_out, sid_out, u_out, v_out, inst_out, counts
 
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
-          int kProf, bool kPaired>
+          int kProf>
 __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   constexpr bool kSplit = kPrec != kHighest && !kAnyHit;
   constexpr bool kFp32Drain = fp32_drain(kWalk);
   constexpr bool kWarpPipes = kWalk == kWarpPipe || kWalk == kWarpFlat;
-  static_assert(!kFp32Drain || (kPrec == kHighest && kProf == kProfNone &&
-                                !kPaired),
+  static_assert(!kFp32Drain || (kPrec == kHighest && kProf == kProfNone),
                 "the fp32 drains are fp32 closest hit and fp32 any hit");
+  // the warp-wide modes keep every lane of the warp: one past the wave
+  // runs as a dead ray (tmax < tmin)
   constexpr bool kWarpWide = kSplit || kFp32Drain;
   constexpr bool kQueue = kWalk == kQueued;
   constexpr bool kSteps = kCount || kProf == kProfCount;
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int lane = threadIdx.x & 31;
-  const bool any_hit = kPaired ? i >= n_split : kAnyHit;
-  // the warp-wide modes keep every lane of the warp: one past the wave
-  // runs as a dead ray (tmax < tmin); the any-hit half of K8's
-  // per-thread reference (kSplit with kPaired) walks one thread per ray
-  const bool warp_wide = kWarpWide && (kFp32Drain || !any_hit);
   const bool in_wave = i < n_rays;
-  if (!in_wave && !warp_wide) return;
+  if (!in_wave && !kWarpWide) return;
   Ray r;
   float dx = 0.f, dy = 0.f, dz = 0.f;
   r.ox = r.oy = r.oz = 0.f;
@@ -461,7 +445,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // the node-test bound: the running best (closest), tmax (any hit), or
   // the widened cull bound (two_phase broad phase)
   auto cull_now = [&]() -> float {
-    if (any_hit) return r.tmax;
+    if (kAnyHit) return r.tmax;
     if (kPrec == kTwoPhase && broad) return cd.cull * (1.0f + kTpRel) + kTpAbs;
     return best;
   };
@@ -481,7 +465,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
     const float* blk = blocks + (size_t)b * kBlockFloats;
     if (kCount) ++n_tests;
-    if (any_hit) {
+    if (kAnyHit) {
       if (block_any<kHighest>(blk, f, nullptr, nullptr, r.tmin, r.tmax))
         occluded = true;
     } else if constexpr (!kSplit) {
@@ -498,7 +482,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     const int inst = kInst ? val >> 19 : 0;
     for (int j = 0; j < nb; ++j) {
       visit_block(inst, b0 + j);
-      if (any_hit && occluded) return;
+      if (kAnyHit && occluded) return;
     }
   };
 
@@ -553,7 +537,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       if (prefetch && !(kAnyHit && kWalk == kWarpQ)) {
         const int b0 = kInst ? (val >> 5) & 0x3FFF : val >> 5;
         for (int k = 0; k < (val & 31); ++k) {
-          if (kSplit && !any_hit)   // "default" reads the h plane alone
+          if (kSplit)   // "default" reads the h plane alone
             prefetch_l2(planes + (size_t)(b0 + k) * kSplitWords,
                         kPrec == kDefault ? kBlockBytes / 2 : kBlockBytes);
           else
@@ -564,9 +548,8 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // The per-thread classic and queued walks: K2's and K8's references,
-  // the ablation modes, the any hit under the octant order and K7's
-  // reference.
+  // The per-thread classic and queued walks: the ablation modes and the
+  // any hit under the octant order.
   auto walk = [&]() {
     int stack[kStack];
     int sp = 0;
@@ -586,7 +569,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
           const int e = worder != nullptr ? q - 1 - k : k;
           if (!(qt[e] <= cull_now())) continue;
           visit_leaf(qv[e]);
-          if (any_hit && occluded) break;
+          if (kAnyHit && occluded) break;
         }
       } else {
         const float4* rec =
@@ -603,10 +586,10 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
             continue;
           }
           visit_leaf(-mc - 2);
-          if (any_hit && occluded) break;
+          if (kAnyHit && occluded) break;
         }
       }
-      if (any_hit && occluded) {
+      if (kAnyHit && occluded) {
         if (kProf != kProfFix64) break;
         sp = 0;
       }
@@ -625,7 +608,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // backlog entry whose entry distance has fallen behind the running best
   // is dropped untested, and each block is tested against the running
   // best with K1's block code, so hit set and t are K1's. The flat push
-  // (kPipeFlat, kWarpFlat) pushes the 16 children by predicated writes
+  // (kWarpFlat) pushes the 16 children by predicated writes
   // with no inner loop (a write not taken lands in a dump slot past the
   // end), which needs single-block leaves.
   //
@@ -633,15 +616,14 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // hits pushed, each leaf hit's blocks appended to the backlog (lqv, lqt)
   // while it has room. What a leaf cannot place there (only a node whose
   // leaves hold more than kLeafQ blocks: no tree of accel.wide) is handed
-  // on as its blocks k..nb-1 to `spill(tag, k, nb, tnear)`; once the
-  // backlog is full every later leaf of the node goes there whole. The
-  // per-thread walk tests them at once, the warp queues them; a true
-  // return (an any-hit occlusion) ends the expansion.
+  // on as its blocks k..nb-1 to `spill(tag, k, nb, tnear)`, which queues
+  // them for the warp; once the backlog is full every later leaf of the
+  // node goes there whole.
   auto pipe_pop = [&](int n, float stale, int* stack, int& sp, int* lqv,
-                      float* lqt, int& lq, auto&& spill) -> bool {
+                      float* lqt, int& lq, auto&& spill) {
     const float4* rec = reinterpret_cast<const float4*>(nodes) + n * 2 * kWidth;
     const int* mrow = meta + n * kWidth;
-    if (kWalk == kPipeFlat || kWalk == kWarpFlat) {
+    if (kWalk == kWarpFlat) {
 #pragma unroll
       for (int c = 0; c < kWidth; ++c) {
         const int mc = __ldg(mrow + c);
@@ -658,7 +640,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         lqt[leaf ? lq : kPipeQ] = tnear;
         lq += leaf;
       }
-      return false;
+      return;
     }
     for (int c = 0; c < kWidth; ++c) {
       const int mc = __ldg(mrow + c);
@@ -680,44 +662,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         lqt[lq] = tnear;
         ++lq;
       }
-      if (k < nb && spill(tag, k, nb, tnear)) return true;
-    }
-    return false;
-  };
-
-  // The per-thread pipelined walk: the reference the pipelined drain is
-  // held to (kPipe, kPipeFlat; reached through kPerThread only)
-  auto walk_pipe = [&]() {
-    int stack[kStack + 1];
-    int lqv[kPipeQ + 1];
-    float lqt[kPipeQ + 1];
-    int sp = 0, lq = 0;
-    stack[sp++] = 0;
-    float stale = cull_now();
-    // what the backlog cannot take is tested now, so that no block is lost
-    auto test_now = [&](int tag, int k, int nb, float tnear) -> bool {
-      for (; k < nb; ++k) {
-        if (!(tnear <= cull_now())) continue;
-        visit_block(kInst ? tag >> 14 : 0, (kInst ? tag & 0x3FFF : tag) + k);
-        if (any_hit && occluded) return true;
-      }
-      return false;
-    };
-    for (int it = 0; (sp > 0 || lq > 0) && it < kMaxPops; ++it) {
-      const float snap = cull_now();
-      if (sp > 0 && lq <= kPipeQ - kLeafQ) {
-        const int n = stack[--sp];
-        if (kCount) ++n_pops;
-        if (pipe_pop(n, stale, stack, sp, lqv, lqt, lq, test_now)) return;
-      }
-      for (int k = 0; k < kPipeDrain && lq > 0; ++k) {
-        --lq;
-        if (!(lqt[lq] <= cull_now())) continue;
-        const int tag = lqv[lq];
-        visit_block(kInst ? tag >> 14 : 0, kInst ? tag & 0x3FFF : tag);
-        if (any_hit && occluded) return;
-      }
-      stale = snap;
+      if (k < nb) spill(tag, k, nb, tnear);
     }
   };
 
@@ -939,19 +884,18 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
     }
   };
 
-  // The pipelined drain (K9): each lane keeps the per-thread pipe's
-  // schedule, its own stack and backlog, and every iteration the lanes
-  // with work pop at most one node each, while their backlogs have kLeafQ
-  // room, and expand it (pipe_pop, the flat push included); the warp then
-  // tests what an overfull node spilled (`drain` with each block culled:
-  // the per-thread walk tests those blocks at once, in the same order,
-  // before its drain) and drains up to kPipeDrain entries from the top of
-  // each lane's backlog, lane after lane (pipe_drain). Each lane sees the
-  // per-thread walk's sequence of pops, culls and block tests, so every
-  // output and its pops and MT block tests are that walk's; only instance
-  // entries (once per drained lane, instance and round) rise. An occluded
-  // any-hit lane's backlog and stack are dropped; done lanes stay in every
-  // collective with nothing to drain.
+  // The pipelined drain (K9): each lane keeps its ray's pipelined schedule,
+  // its own stack and backlog, and every iteration the lanes with work pop
+  // at most one node each, while their backlogs have kLeafQ room, and
+  // expand it (pipe_pop, the flat push included); the warp then tests what
+  // an overfull node spilled (`drain` with each block culled, in the order
+  // found) and drains up to kPipeDrain entries from the top of each lane's
+  // backlog, lane after lane (pipe_drain). Each lane sees the sequence of
+  // pops, culls and block tests that one thread walking its ray alone
+  // would, so the warp changes no output and no per-ray pop or MT block
+  // test; only instance entries (once per drained lane, instance and
+  // round) rise. An occluded any-hit lane's backlog and stack are dropped;
+  // done lanes stay in every collective with nothing to drain.
   auto pipe_drain = [&](const int* lqv, const float* lqt, int& lq,
                         bool active) {
     int round_tests = 0, round_distinct = 0;
@@ -968,8 +912,7 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
       int o_inst = -1;
       if (!kInst) broadcast_ray(L, of);
       bool done = false;
-      // a skipped stale entry is one of the lane's kPipeDrain, as in
-      // walk_pipe
+      // a skipped stale entry is one of the lane's kPipeDrain
       for (int k = 0; k < take && !done; ++k) {
         const int e = nl - 1 - k;
         const int tag = __shfl_sync(kFull, lane == L ? lqv[e] : 0, L);
@@ -1018,13 +961,12 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
         const int n = stack[--sp];
         if (kCount) ++n_pops;
         pipe_pop(n, stale, stack, sp, lqv, lqt, lq,
-                 [&](int tag, int k, int nb, float tnear) -> bool {
+                 [&](int tag, int k, int nb, float tnear) {
                    const int b = (kInst ? tag & 0x3FFF : tag) + k;
                    ov[no] = (kInst ? (tag >> 14) << 19 : 0) | b << 5 |
                             (nb - k);
                    ot[no] = tnear;
                    ++no;
-                   return false;
                  });
       }
       drain(ov, ot, no, true);
@@ -1074,43 +1016,40 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
   // no triangle: skip the walk.
   const bool live = kProf != kProfEmpty && r.tmax > r.tmin;
   bool fell_back = false;
-  if (warp_wide) {
-    if constexpr (kWarpPipes) {
-      warp_pipe(live);
-    } else if constexpr (kWarpWide) {
-      warp_walk(live);
-      if (kPrec == kTwoPhase) {
-        if (live) {
-          best = r.tmax;
-          sid = -1;
-          bu = bv = 0.f;
-          best_inst = 0;
-        }
-        broad = false;
-        warp_refine(live);
-        // A block that left (or never entered) the two slots holds no hit
-        // nearer than its lower bound; if that bound falls below the
-        // refined best, the winner may be among them (loose phantoms near
-        // tmin crowd the slots on rays that leave a surface): walk again
-        // with K1's exact blocks, from tmax.
-        fell_back = live && cd.evicted < best;
-        if (fell_back) {
-          best = r.tmax;
-          sid = -1;
-          bu = bv = 0.f;
-          best_inst = 0;
-        }
-        warp_walk(fell_back);
+  if constexpr (kWarpPipes) {
+    warp_pipe(live);
+  } else if constexpr (kWarpWide) {
+    warp_walk(live);
+    if (kPrec == kTwoPhase) {
+      if (live) {
+        best = r.tmax;
+        sid = -1;
+        bu = bv = 0.f;
+        best_inst = 0;
       }
+      broad = false;
+      warp_refine(live);
+      // A block that left (or never entered) the two slots holds no hit
+      // nearer than its lower bound; if that bound falls below the
+      // refined best, the winner may be among them (loose phantoms near
+      // tmin crowd the slots on rays that leave a surface): walk again
+      // with K1's exact blocks, from tmax.
+      fell_back = live && cd.evicted < best;
+      if (fell_back) {
+        best = r.tmax;
+        sid = -1;
+        bu = bv = 0.f;
+        best_inst = 0;
+      }
+      warp_walk(fell_back);
     }
   } else if (live) {
-    if constexpr (kWalk == kPipe || kWalk == kPipeFlat) walk_pipe();
-    else walk();
+    walk();
   }
 
   if (!in_wave) return;
-  t_out[i] = any_hit ? r.tmax : best;
-  sid_out[i] = any_hit ? (occluded ? 1 : -1) : sid;
+  t_out[i] = kAnyHit ? r.tmax : best;
+  sid_out[i] = kAnyHit ? (occluded ? 1 : -1) : sid;
   u_out[i] = kProf == kProfCount ? static_cast<float>(n_pops) : bu;
   v_out[i] = bv;
   if (kInst && !kAnyHit) inst_out[i] = best_inst;
@@ -1126,11 +1065,10 @@ __device__ __forceinline__ void wide_trace(WIDE_TRACE_PARAMS) {
 }
 
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
-          int kProf, bool kPaired>
+          int kProf>
 __global__ void __launch_bounds__(kThreads)
 wide_trace_kernel(WIDE_TRACE_PARAMS) {
-  wide_trace<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>(
-      WIDE_TRACE_ARGS);
+  wide_trace<kAnyHit, kInst, kCount, kPrec, kWalk, kProf>(WIDE_TRACE_ARGS);
 }
 
 // The render instantiations of the fp32 drains: kWarpQ's K1, K6 and K7
@@ -1146,7 +1084,7 @@ wide_trace_kernel(WIDE_TRACE_PARAMS) {
 template <bool kAnyHit, bool kInst, int kWalk>
 __global__ void __launch_bounds__(kThreads, 6)
 wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
-  wide_trace<kAnyHit, kInst, false, kHighest, kWalk, kProfNone, false>(
+  wide_trace<kAnyHit, kInst, false, kHighest, kWalk, kProfNone>(
       WIDE_TRACE_ARGS);
 }
 
@@ -1167,11 +1105,11 @@ wide_trace_warp_kernel(WIDE_TRACE_PARAMS) {
 template <int kPrec, bool kCount>
 __device__ __forceinline__ void wide_trace_paired(WIDE_TRACE_PARAMS) {
   if (static_cast<int>(blockIdx.x) * kThreads >= n_split)
-    wide_trace<true, false, kCount, kHighest, kWarpQ, kProfNone, false>(
+    wide_trace<true, false, kCount, kHighest, kWarpQ, kProfNone>(
         WIDE_TRACE_ARGS);
   else
     wide_trace<false, false, kCount, kPrec,
-               kPrec == kHighest ? kWarpQ : kQueued, kProfNone, false>(
+               kPrec == kHighest ? kWarpQ : kQueued, kProfNone>(
         WIDE_TRACE_ARGS);
 }
 
@@ -1224,7 +1162,6 @@ struct Launch {
   const float* inst_feat;
   const int* worder;
   int prefetch;
-  bool per_thread;   // the per-thread reference of the mode (kPerThread)
   float* t_out;
   int* sid_out;
   float* u_out;
@@ -1234,7 +1171,7 @@ struct Launch {
 };
 
 template <bool kAnyHit, bool kInst, bool kCount, int kPrec, int kWalk,
-          int kProf = kProfNone, bool kPaired = false>
+          int kProf = kProfNone>
 void launch(const Launch& l) {
   if constexpr (fp32_drain(kWalk) && !kCount)
     wide_trace_warp_kernel<kAnyHit, kInst, kWalk>
@@ -1243,7 +1180,7 @@ void launch(const Launch& l) {
         l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
         l.v_out, l.inst_out, l.counts);
   else
-    wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf, kPaired>
+    wide_trace_kernel<kAnyHit, kInst, kCount, kPrec, kWalk, kProf>
         <<<l.grid, kThreads, 0, l.stream>>>(
             l.rays, l.n_rays, l.n_split, l.nodes, l.blocks, l.planes, l.meta,
             l.inst_feat, l.worder, l.prefetch, l.t_out, l.sid_out, l.u_out,
@@ -1267,7 +1204,7 @@ constexpr int kBadMode = static_cast<int>(cudaErrorInvalidValue);
 // without it, over one tree level or two (K1, K2, K3, K6, K7; the prefetch
 // flag tells the streamed closest hit apart). The per-thread queued walk
 // stays for the any hit under the octant order (the packet tracer never
-// asks it) and, with `per_thread`, as K7's reference.
+// asks it).
 template <bool kAnyHit, bool kInst, bool kCount, int kWalk>
 int by_precision(int prec, const Launch& l) {
   if constexpr (kAnyHit) {
@@ -1279,11 +1216,7 @@ int by_precision(int prec, const Launch& l) {
       launch<true, kInst, kCount, kHighest, kQueued>(l);
   } else {
     switch (prec) {
-      case kHighest:
-        if (l.per_thread)
-          launch<false, kInst, kCount, kHighest, kQueued>(l);
-        else launch<false, kInst, kCount, kHighest, kWarpQ>(l);
-        break;
+      case kHighest: launch<false, kInst, kCount, kHighest, kWarpQ>(l); break;
       case kHigh: launch<false, kInst, kCount, kHigh, kQueued>(l); break;
       case kDefault: launch<false, kInst, kCount, kDefault, kQueued>(l); break;
       case kTwoPhase:
@@ -1336,41 +1269,8 @@ int paired(int prec, const Launch& l) {
   return kBadMode;
 }
 
-// K8's per-thread reference (kPerThread): the kernel before the drains,
-// one thread per ray, each taking its mode from its ray index; the any-hit
-// half (and the fp32 closest half) on the classic or, streamed, the queued
-// walk
-template <bool kCount, int kWalk>
-int paired_per_thread(int prec, const Launch& l) {
-  switch (prec) {
-    case kHighest:
-      launch<false, false, kCount, kHighest, kWalk, kProfNone, true>(l);
-      return 0;
-    case kHigh:
-      if constexpr (!kCount) {
-        launch<false, false, false, kHigh, kWalk, kProfNone, true>(l);
-        return 0;
-      }
-      return kBadMode;
-    case kDefault:
-      if constexpr (!kCount) {
-        launch<false, false, false, kDefault, kWalk, kProfNone, true>(l);
-        return 0;
-      }
-      return kBadMode;
-    case kTwoPhase:
-      if constexpr (!kCount && kWalk == kClassic) {
-        launch<false, false, false, kTwoPhase, kClassic, kProfNone, true>(l);
-        return 0;
-      }
-      return kBadMode;
-  }
-  return kBadMode;
-}
-
 // K9: the pipelined walk, fp32, with or without the flat push: the
-// pipelined drain (kWarpPipe, kWarpFlat), or its per-thread reference
-// (kPipe, kPipeFlat)
+// pipelined drain (kWarpPipe, kWarpFlat)
 template <bool kCount, int kWalk>
 int piped(int any_hit, const Launch& l) {
   const bool inst = l.inst_feat != nullptr;
@@ -1420,29 +1320,14 @@ int dispatch(int any_hit, int prec, int stream, int walk, int prof,
   if (any_hit == 2) {
     if (inst || l.worder != nullptr || walk != 0 || prof != kProfNone)
       return kBadMode;
-    if (!l.per_thread) return paired<kCount>(prec, l);
-    return stream ? paired_per_thread<kCount, kQueued>(prec, l)
-                  : paired_per_thread<kCount, kClassic>(prec, l);
+    return paired<kCount>(prec, l);
   }
   if (walk != 0) {
     if (queue || prof != kProfNone || (!any_hit && prec != kHighest))
       return kBadMode;
-    if (l.per_thread)
-      return walk == 2 ? piped<kCount, kPipeFlat>(any_hit, l)
-                       : piped<kCount, kPipe>(any_hit, l);
     return walk == 2 ? piped<kCount, kWarpFlat>(any_hit, l)
                      : piped<kCount, kWarpPipe>(any_hit, l);
   }
-  // the per-thread references of the default walk: K2's and K6 any
-  // hit's, the classic any-hit walk over one level without the octant
-  // order (streamed or not); K7's, fp32 closest hit under the octant order
-  if (l.per_thread && any_hit) {
-    if (inst || l.worder != nullptr || prof != kProfNone) return kBadMode;
-    launch<true, false, kCount, kHighest, kClassic>(l);
-    return 0;
-  }
-  if (l.per_thread && (l.worder == nullptr || prec != kHighest))
-    return kBadMode;
   if (prof != kProfNone) {
     if (inst || l.worder != nullptr || (!any_hit && prec != kHighest))
       return kBadMode;
@@ -1473,12 +1358,8 @@ extern "C" {
 // selects the near-first octant order; stream != 0 queues and prefetches
 // the leaf blocks. walk: 0 the classic or queued walk, 1 the pipelined
 // walk (K9), 2 the same with the flat push (single-block leaves only);
-// both fp32, without stream or octant order; plus 4 (kPerThread), the
-// mode's per-thread reference, never on a render path: with 1 or 2 the
-// per-thread pipelined walk, with 0 the per-thread queued walk of fp32
-// closest hit under the octant order (worder given), the per-thread
-// classic walk of one-level any hit without it, or the per-thread paired
-// kernel. profile: 0 none, 1 empty, 2 nomt, 3 fix64, 4 count, on the
+// both fp32, without stream or octant order; any other walk is refused.
+// profile: 0 none, 1 empty, 2 nomt, 3 fix64, 4 count, on the
 // one-level fp32 walk (empty and nomt also with stream).
 // counts non-null selects the counting instantiation: (7, n_rays) i32 rows
 // of node pops, MT block tests, instance entries, fp32 refine / re-walk
@@ -1495,7 +1376,7 @@ int wide_trace_launch(const float* rays, int n_rays, int n_split,
                       int* inst_out, int* counts, void* cuda_stream) {
   if (mt_prec < kHighest || mt_prec > kTwoPhase ||
       (mt_prec == kTwoPhase && stream) || any_hit < 0 || any_hit > 2 ||
-      walk < 0 || (walk & ~kPerThread) > 2 || profile < kProfNone ||
+      walk < 0 || walk > 2 || profile < kProfNone ||
       profile > kProfCount ||
       (any_hit == 2 && (n_split < 0 || n_split > n_rays ||
                         n_split % kThreads != 0)) ||
@@ -1505,9 +1386,8 @@ int wide_trace_launch(const float* rays, int n_rays, int n_split,
                  static_cast<cudaStream_t>(cuda_stream), rays, n_rays,
                  n_split, nodes, blocks,
                  static_cast<const unsigned*>(planes), meta, inst_feat,
-                 worder, stream, (walk & kPerThread) != 0,
-                 t_out, sid_out, u_out, v_out, inst_out, counts};
-  walk &= ~kPerThread;
+                 worder, stream, t_out, sid_out, u_out, v_out, inst_out,
+                 counts};
   const int rc = counts != nullptr
                      ? dispatch<true>(any_hit, mt_prec, stream, walk, profile, l)
                      : dispatch<false>(any_hit, mt_prec, stream, walk, profile, l);

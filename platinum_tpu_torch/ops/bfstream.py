@@ -98,33 +98,23 @@ STAT_WORDS = 8
 PLAIN_TILES = 256         # MT tiles per product of the plain version
 
 
-# the suffix of a LAUNCHES key of the reference kernel that K10 / K12 /
-# K13 / K14 keep from before their redesign
-REFERENCE = {"expand": "+per_block", "emit": "+per_block", "mt": "+per_tile",
-             "bwd": "+per_unit"}
-
-
 def launch_key(kernel: str, any_hit: bool = False,
-               mt_precision: str = "highest", reference: bool = False) -> str:
+               mt_precision: str = "highest") -> str:
     """LAUNCHES key: "expand", "prefix" (K11's scan), "prefix fill" (K11's
     fill), "emit", "bwd", or "mt closest" / "mt any" with a "+<tier>"
-    suffix below "highest"; `reference` adds "+per_block" (K10, K12),
-    "+per_tile" (K13) or "+per_unit" (K14) for the kernel kept from before
-    the redesign."""
+    suffix below "highest"."""
     key = kernel
     if kernel == "mt":
         key = "mt any" if any_hit else "mt closest"
         if mt_precision != "highest":
             key += f"+{mt_precision}"
-    return key + REFERENCE[kernel] if reference else key
+    return key
 
 
 # Kernel launches per kernel and mode, counted where a wrapper launches and
 # nowhere else
-LAUNCHES = {k: 0 for k in ("expand", "expand+per_block", "prefix",
-                           "prefix fill", "emit", "emit+per_block", "bwd",
-                           "bwd+per_unit")}
-LAUNCHES.update({launch_key("mt", a, p, r): 0 for r in (False, True)
+LAUNCHES = {k: 0 for k in ("expand", "prefix", "prefix fill", "emit", "bwd")}
+LAUNCHES.update({launch_key("mt", a, p): 0
                  for a in (False, True) for p in TIERS})
 
 
@@ -146,23 +136,14 @@ def _check_tier(mt_precision: str):
 
 def _declare(lib):
     p, i = ctypes.c_void_p, ctypes.c_int
-    for name in ("expand", "expand_per_block"):
-        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, i, p, p, i, p, i,
-                                                      p, p, p]
+    lib.bf_expand_launch.argtypes = [p, p, i, p, p, i, p, i, p, p, p]
     lib.bf_prefix_launch.argtypes = [p, p, p, p, i, i, i, i, p, p, p, p, p,
                                      p, p, p, p, p, p]
-    for name in ("emit", "emit_per_block"):
-        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, p, i, p, p, p, p,
-                                                      p, p]
-    for name in ("mt", "mt_per_tile"):
-        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, p, i, p, i, p, i,
-                                                      i, i, p, p, p, p, p]
-    for name in ("bwd", "bwd_per_unit"):
-        getattr(lib, f"bf_{name}_launch").argtypes = [p, p, i, p, p, p, p, p,
-                                                      p, p, p, p, p, p, p, p,
-                                                      p, p, p]
-    for name in ("expand", "expand_per_block", "prefix", "emit",
-                 "emit_per_block", "mt", "mt_per_tile", "bwd", "bwd_per_unit"):
+    lib.bf_emit_launch.argtypes = [p, p, p, i, p, p, p, p, p, p]
+    lib.bf_mt_launch.argtypes = [p, p, p, i, p, i, p, i, i, i, p, p, p, p, p]
+    lib.bf_bwd_launch.argtypes = [p, p, i, p, p, p, p, p, p, p, p, p, p, p,
+                                  p, p, p, p, p]
+    for name in ("expand", "prefix", "emit", "mt", "bwd"):
         getattr(lib, f"bf_{name}_launch").restype = i
     lib.bf_resident_grids.argtypes = [p]
     lib.bf_resident_grids.restype = i
@@ -220,7 +201,7 @@ def _inv_dir(d):
 # K10 expand
 # ---------------------------------------------------------------------------
 
-def bf_expand(units, level, pairs, rays, nodes, per_block: bool = False):
+def bf_expand(units, level, pairs, rays, nodes):
     """Slab-test every lane of the level's units against its node's 16
     children (K10). units (cap,) i32 node ids; level (8,) i32 the status
     row whose NEXT word is the unit count; pairs (cap, 128) i32 ray
@@ -229,18 +210,17 @@ def bf_expand(units, level, pairs, rays, nodes, per_block: bool = False):
     and the slot is not empty) and counts (cap, 16) i32, for the units
     below the count (the rest are not written). CUDA tensors take the
     kernel (a block per unit, each lane's ray loaded with the node row,
-    only the node's non-empty children tested), or with `per_block` its
-    reference, the kernel before (the same outputs in every bit)."""
+    only the node's non-empty children tested)."""
     if _device(rays, "expand") == "cpu":
         return bf_expand_plain(units, level, pairs, rays, nodes)
-    out = expand_kernel(units, level, pairs, rays, nodes, per_block)
-    LAUNCHES[launch_key("expand", reference=per_block)] += 1
+    out = expand_kernel(units, level, pairs, rays, nodes)
+    LAUNCHES["expand"] += 1
     return out
 
 
-def expand_kernel(units, level, pairs, rays, nodes, per_block: bool = False):
-    """`bf_expand` through the kernel (`per_block`: its reference),
-    uncounted: check, allocate, launch."""
+def expand_kernel(units, level, pairs, rays, nodes):
+    """`bf_expand` through the kernel, uncounted: check, allocate,
+    launch."""
     dev = rays.device
     cap = units.shape[0]
     _check("units", units, torch.int32, (cap,), dev)
@@ -250,7 +230,7 @@ def expand_kernel(units, level, pairs, rays, nodes, per_block: bool = False):
     _check("nodes", nodes, torch.float32, (nodes.shape[0], 16, 8), dev)
     masks = torch.empty((cap, LANES), dtype=torch.int32, device=dev)
     counts = torch.empty((cap, CHILDREN), dtype=torch.int32, device=dev)
-    _launch("expand_per_block" if per_block else "expand", dev, units, level,
+    _launch("expand", dev, units, level,
             cap, pairs, rays, rays.shape[1], nodes, nodes.shape[0], masks,
             counts)
     return masks, counts
@@ -434,27 +414,22 @@ def _routes(masks, n, dn, uoff, base):
     return (bits > 0) & (rec >= 0), pos, rec >= MT_TAG
 
 
-def bf_emit(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
-            per_block: bool = False):
+def bf_emit(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
     """Write each surviving (ray, child) pair's ray index into its child's
     region (K12), in place into pairs_next / mt_pairs: lane base + uoff +
     rank, rank = the lanes below it in the tile with the same child bit.
     CUDA tensors take the kernel (the CTAs the card holds, a warp per
-    unit, ranks from the warp's four ballots of each child some lane has),
-    or with `per_block` its reference, a block per unit of the capacity
-    (the same entries in every bit)."""
+    unit, ranks from the warp's four ballots of each child some lane
+    has)."""
     if _device(pairs, "emit") == "cpu":
         return bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next,
                              mt_pairs)
-    emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
-                per_block)
-    LAUNCHES[launch_key("emit", reference=per_block)] += 1
+    emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs)
+    LAUNCHES["emit"] += 1
 
 
-def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
-                per_block: bool = False):
-    """`bf_emit` through the kernel (`per_block`: its reference),
-    uncounted."""
+def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
+    """`bf_emit` through the kernel, uncounted."""
     dev = pairs.device
     cap = pairs.shape[0]
     _check("pairs", pairs, torch.int32, (cap, LANES), dev)
@@ -465,8 +440,8 @@ def emit_kernel(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs,
     _check("base", base, torch.int32, (cap * CHILDREN,), dev)
     for name, x in (("pairs_next", pairs_next), ("mt_pairs", mt_pairs)):
         _check(name, x, torch.int32, (x.shape[0],), dev)
-    _launch("emit_per_block" if per_block else "emit", dev, pairs, masks,
-            level, cap, dn, uoff, base, pairs_next, mt_pairs)
+    _launch("emit", dev, pairs, masks, level, cap, dn, uoff, base,
+            pairs_next, mt_pairs)
 
 
 def bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
@@ -486,7 +461,7 @@ def bf_emit_plain(pairs, masks, level, dn, uoff, base, pairs_next, mt_pairs):
 # ---------------------------------------------------------------------------
 
 def bf_mt(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
-          mt_precision: str = "highest", per_tile: bool = False):
+          mt_precision: str = "highest"):
     """Test each MT unit's lanes against its block's 64 triangles (K13).
     mt_pairs (mt_cap * 128,) i32 ray indices; mt_units (mt_cap,) block
     ids; level (8,) the last level's status row, whose MT_CUR word is the
@@ -497,20 +472,19 @@ def bf_mt(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
     triangle is accepted. The tier's products are mt_block.cuh's. Units
     past the count are not written. CUDA tensors take the kernel (the
     CTAs the card holds take the tiles in turn, a tile's live lanes two
-    rays a thread), or with `per_tile` its reference, a CTA per tile (the
-    same outputs in every bit)."""
+    rays a thread)."""
     if _device(rays, "mt") == "cpu":
         return bf_mt_plain(mt_pairs, mt_units, level, rays, blocks, any_hit,
                            mt_precision)
     out = mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit,
-                    mt_precision, per_tile)
-    LAUNCHES[launch_key("mt", any_hit, mt_precision, per_tile)] += 1
+                    mt_precision)
+    LAUNCHES[launch_key("mt", any_hit, mt_precision)] += 1
     return out
 
 
 def mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
-              mt_precision: str = "highest", per_tile: bool = False):
-    """`bf_mt` through the kernel (`per_tile`: its reference), uncounted."""
+              mt_precision: str = "highest"):
+    """`bf_mt` through the kernel, uncounted."""
     _check_tier(mt_precision)
     dev = rays.device
     cap = mt_units.shape[0]
@@ -525,9 +499,8 @@ def mt_kernel(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
     sid = torch.empty(cap * LANES, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    _launch("mt_per_tile" if per_tile else "mt", dev, mt_pairs, mt_units,
-            level, cap, rays, rays.shape[1], blocks, blocks.shape[0],
-            int(bool(any_hit)),
+    _launch("mt", dev, mt_pairs, mt_units, level, cap, rays, rays.shape[1],
+            blocks, blocks.shape[0], int(bool(any_hit)),
             PRECISIONS[mt_precision], t, sid, u, v)
     return t, sid, u, v
 
@@ -635,7 +608,7 @@ def bf_mt_plain(mt_pairs, mt_units, level, rays, blocks, any_hit: bool,
 # K14 bwd
 # ---------------------------------------------------------------------------
 
-def bf_bwd(masks, level, dn, uoff, base, child, mt, per_unit: bool = False):
+def bf_bwd(masks, level, dn, uoff, base, child, mt):
     """Each lane of the level's units keeps the least (t, sid) of its
     children's results (K14): inner children from `child` (the level
     below's (t, sid, u, v), or None where the level has no inner child),
@@ -643,19 +616,16 @@ def bf_bwd(masks, level, dn, uoff, base, child, mt, per_unit: bool = False):
     (cap * 128,): +inf / -1 / 0 / 0 for a lane without a result; units
     past the count are not written. CUDA tensors take the kernel (CTAs
     the card holds striding over the units, a lane's loads issued
-    together), or with `per_unit` its reference, a CTA per unit (the same
-    outputs in every bit)."""
+    together)."""
     if _device(masks, "bwd") == "cpu":
         return bf_bwd_plain(masks, level, dn, uoff, base, child, mt)
-    out = bwd_kernel(masks, level, dn, uoff, base, child, mt, per_unit)
-    LAUNCHES[launch_key("bwd", reference=per_unit)] += 1
+    out = bwd_kernel(masks, level, dn, uoff, base, child, mt)
+    LAUNCHES["bwd"] += 1
     return out
 
 
-def bwd_kernel(masks, level, dn, uoff, base, child, mt,
-               per_unit: bool = False):
-    """`bf_bwd` through the kernel (`per_unit`: its reference),
-    uncounted."""
+def bwd_kernel(masks, level, dn, uoff, base, child, mt):
+    """`bf_bwd` through the kernel, uncounted."""
     dev = masks.device
     cap = masks.shape[0]
     _check("masks", masks, torch.int32, (cap, LANES), dev)
@@ -673,8 +643,8 @@ def bwd_kernel(masks, level, dn, uoff, base, child, mt,
     sid = torch.empty(cap * LANES, dtype=torch.int32, device=dev)
     u = torch.empty_like(t)
     v = torch.empty_like(t)
-    _launch("bwd_per_unit" if per_unit else "bwd", dev, masks, level, cap,
-            dn, uoff, base, *child, *mt, t, sid, u, v)
+    _launch("bwd", dev, masks, level, cap, dn, uoff, base, *child, *mt, t,
+            sid, u, v)
     return t, sid, u, v
 
 

@@ -18,12 +18,9 @@ built once per tracer by the same source's split kernel); streamed leaf blocks
 (K6, `stream`) and the near-first octant order (K7, `worder`); the
 pipelined walk with its flat push (K9, `pipe`, `flat_walk`) and the
 ablation modes (`profile`). Every mode but the ablation modes tests its
-blocks warp-wide; `per_thread=True` reaches the per-thread walks the
-drains are held to (the pipelined walk, K7's queued walk, K2's classic
-any-hit walk), which no render path takes. `trace_wide_paired` launches a
-closest-hit and an any-hit wave as one grid (K8), each CTA on the drain
-of its half's unpaired mode; its `per_thread=True` is the per-thread
-paired kernel. On CUDA tensors they launch the kernel
+blocks warp-wide. `trace_wide_paired` launches a closest-hit and an
+any-hit wave as one grid (K8), each CTA on the drain of its half's
+unpaired mode. On CUDA tensors they launch the kernel
 or raise; on CPU tensors they run the plain PyTorch version
 (`trace_wide_plain`, `trace_wide_inst_plain`,
 `trace_wide_two_phase_plain`, `trace_wide_profile_plain`): a brute force
@@ -97,23 +94,20 @@ PROFILE = "none"      # make_packet_tracer's default ablation mode
 PAIR_ALIGN = 128      # the kernel's block size: K8's any-hit rays start at
                       # a multiple of it, so no warp holds both waves
 COUNT_ROWS = 7        # rows of the counting instantiation's table
-PER_THREAD = 4        # walk-code flag: the mode's per-thread reference
 
 
 def launch_key(any_hit: bool, instanced: bool = False,
                mt_precision: str = "highest", oct_order: bool = False,
                stream: bool = False, pipe: bool = False,
                flat_walk: bool = False, profile: str = "none",
-               paired: bool = False, per_thread: bool = False) -> str:
+               paired: bool = False) -> str:
     """LAUNCHES key of one kernel mode: "closest" / "any" (K1, K2), an
     "inst_" prefix for the two-level tree (K3), a "stream+" prefix for
     streamed blocks (K6), a "+<tier>" suffix for closest hit below
     "highest" (K4, K5) and "+oct" for the octant order (K7; the packet
     tracer asks it for closest hit only); "paired" in place of closest /
     any for the paired launch (K8); a "pipe+" or "flat+" prefix for the
-    pipelined walk (K9); an "@<mode>" suffix for an ablation mode; a
-    "+per_thread" suffix for a per-thread reference (`trace_wide`'s
-    `per_thread`)."""
+    pipelined walk (K9); an "@<mode>" suffix for an ablation mode."""
     key = "paired" if paired else (
         ("inst_" if instanced else "") + ("any" if any_hit else "closest"))
     if stream:
@@ -128,8 +122,6 @@ def launch_key(any_hit: bool, instanced: bool = False,
         key += "+oct"
     if profile != "none":
         key += "@" + profile
-    if per_thread:
-        key += "+per_thread"
     return key
 
 
@@ -141,18 +133,12 @@ LAUNCHES = {launch_key(a, i, p, o, s): 0
             for p in (PRECISIONS if not a else ("highest",))
             for o in (False, True)
             for s in (False, True) if not (s and p == "two_phase")}
-LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True,
-                            per_thread=r): 0
+LAUNCHES.update({launch_key(False, mt_precision=p, stream=s, paired=True): 0
                  for p in PRECISIONS for s in (False, True)
-                 for r in (False, True) if not (s and p == "two_phase")})
-LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f, per_thread=r): 0
+                 if not (s and p == "two_phase")})
+LAUNCHES.update({launch_key(a, i, pipe=True, flat_walk=f): 0
                  for a in (False, True) for i in (False, True)
-                 for f in (False, True) for r in (False, True)})
-LAUNCHES.update({launch_key(False, i, oct_order=True, stream=s,
-                            per_thread=True): 0
-                 for i in (False, True) for s in (False, True)})
-LAUNCHES.update({launch_key(True, stream=s, per_thread=True): 0
-                 for s in (False, True)})
+                 for f in (False, True)})
 LAUNCHES.update({launch_key(a, stream=s, profile=m): 0
                  for a in (False, True) for m in PROFILES if m != "none"
                  for s in ((False, True) if m in ("empty", "nomt")
@@ -272,9 +258,8 @@ def check_mode(mt_precision: str, stream: bool, pipe: bool = False,
     if stream and pipe:
         raise ValueError("streamed leaf blocks run on the default walk "
                          "only: not with pipe / flat_walk")
-    if stream and profile in ("fix64", "count"):
-        raise ValueError(f"profile={profile!r} exists on the classic walk "
-                         f"only, not over streamed blocks")
+    if profile in ("fix64", "count"):
+        _check_profile(profile, None, None, stream)
     if pipe and mt_precision != "highest":
         raise ValueError(f"the pipelined walk (pipe / flat_walk) is fp32: "
                          f"it has no mt_precision={mt_precision!r}")
@@ -326,24 +311,13 @@ def split_planes(blocks):
     return planes
 
 
-def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
-            worder=None, mt_precision="highest", stream=False, walk=0,
-            profile="none", n_split=0, planes=None, per_thread=False):
-    """Check the inputs, allocate the outputs and launch one wave of the
-    kernel on the current stream. any_hit: False, True, or 2 for the
-    paired launch (rays below `n_split` closest hit, the others any hit);
-    walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
-    push; `per_thread`: the mode's per-thread reference walk (walk 1 or 2, closest hit with
-    `worder`, one-level any hit, the paired launch); `planes`: the blocks'
-    pre-split planes, which closest hit at a reduced tier reads and which
-    must then be given.
-    Returns (t, sid, u, v, inst, counts); inst is None outside the
-    instanced closest-hit mode, counts None unless `count`. The caller
-    has checked the mode (`check_mode`); the C entry refuses a bad one
-    again."""
-    dev = rays.device
-    r = rays.shape[1]
-    _check("rays", rays, torch.float32, (8, r), dev)
+def _check_tree(dev, nodes, blocks, meta, inst_feat=None, worder=None,
+                planes=None, closest_tier="highest"):
+    """Check the tensors of the tree a wave is traced over, for rays on
+    `dev`: devices, dtypes, shapes, contiguity and alignment. `planes`, the
+    blocks' pre-split planes, are what closest hit at a reduced tier
+    (`closest_tier`) reads, and must then be given. `trace_wide` checks
+    them with every wave, a packet tracer once."""
     _check("nodes", nodes, torch.float32, (nodes.shape[0], 16, 8), dev)
     _check("blocks", blocks, torch.float32, (blocks.shape[0], 10, 256), dev)
     _check("meta", meta, torch.int32, (nodes.shape[0] * 16,), dev)
@@ -356,18 +330,39 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
         _check("worder", worder, torch.int32, (nodes.shape[0] * 16,), dev)
         if worder.shape[0] != nodes.shape[0] * 16:
             raise ValueError("worder must hold 16 words per node")
-    if any_hit is True or mt_precision == "highest":
-        planes = None           # no closest hit at a reduced tier
-    elif planes is None:
-        raise ValueError(f"closest hit at mt_precision={mt_precision!r} "
+    if closest_tier == "highest":
+        return
+    if planes is None:
+        raise ValueError(f"closest hit at mt_precision={closest_tier!r} "
                          f"reads the blocks' pre-split planes: pass "
                          f"planes=split_planes(blocks), which a tracer "
                          f"builds once")
-    else:
-        _check("planes", planes, torch.bfloat16,
-               (blocks.shape[0], 2, 10, 256), dev)
-        if planes.shape[0] != blocks.shape[0]:
-            raise ValueError("planes must hold one block's planes per block")
+    _check("planes", planes, torch.bfloat16, (blocks.shape[0], 2, 10, 256),
+           dev)
+    if planes.shape[0] != blocks.shape[0]:
+        raise ValueError("planes must hold one block's planes per block")
+
+
+def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
+            worder=None, mt_precision="highest", stream=False, walk=0,
+            profile="none", n_split=0, planes=None):
+    """Check the rays, allocate the outputs and launch one wave of the
+    kernel on the current stream. any_hit: False, True, or 2 for the
+    paired launch (rays below `n_split` closest hit, the others any hit);
+    walk: 0 classic or queued, 1 pipelined, 2 pipelined with the flat
+    push; `planes`: the blocks' pre-split planes, which closest hit at a
+    reduced tier reads.
+    Returns (t, sid, u, v, inst, counts); inst is None outside the
+    instanced closest-hit mode, counts None unless `count`. The caller
+    has checked the mode (`check_mode`) and the tree's tensors
+    (`_check_tree`); the C entry refuses a bad mode again."""
+    dev = rays.device
+    r = rays.shape[1]
+    _check("rays", rays, torch.float32, (8, r), dev)
+    if nodes.device != dev:
+        raise ValueError(f"nodes is on {nodes.device}, rays on {dev}")
+    if any_hit is True or mt_precision == "highest":
+        planes = None           # no closest hit at a reduced tier
     t = torch.empty(r, dtype=torch.float32, device=dev)
     sid = torch.empty(r, dtype=torch.int32, device=dev)
     u = torch.empty(r, dtype=torch.float32, device=dev)
@@ -387,8 +382,8 @@ def _launch(rays, nodes, blocks, meta, any_hit, inst_feat, count,
             meta.data_ptr(),
             inst_feat.data_ptr() if inst_feat is not None else None,
             worder.data_ptr() if worder is not None else None,
-            int(any_hit), PRECISIONS[mt_precision], int(bool(stream)),
-            walk | (PER_THREAD if per_thread else 0), PROFILES[profile],
+            int(any_hit), PRECISIONS[mt_precision], int(bool(stream)), walk,
+            PROFILES[profile],
             t.data_ptr(), sid.data_ptr(), u.data_ptr(), v.data_ptr(),
             inst.data_ptr() if inst is not None else None,
             counts.data_ptr() if counts is not None else None, cuda_stream)
@@ -408,24 +403,26 @@ def _walk_code(meta, pipe: bool, flat_walk: bool, checked: bool) -> int:
     return 2 if flat_walk else int(bool(pipe))
 
 
-def _check_per_thread(any_hit, worder, pipe, mt_precision, instanced):
-    """`per_thread` names a per-thread reference walk: the pipelined
-    walk's (`pipe` / `flat_walk`), the octant order's fp32 closest hit's,
-    or the classic walk of any hit over one tree level without the octant
-    order (K2's and K6 any hit's)."""
-    if not (pipe or (worder is not None and not any_hit
-                     and mt_precision == "highest")
-            or (any_hit and worder is None and not instanced)):
-        raise ValueError("per_thread reaches the per-thread walk of pipe / "
-                         "flat_walk, of fp32 closest hit with worder, or of "
-                         "one-level any hit without worder")
+def _check_profile(profile: str, inst_feat, worder, stream: bool = False):
+    """The ablation modes exist on the one-level walk without the octant
+    order, and not over streamed blocks where `stream` is set: never for
+    "fix64" and "count" (`check_mode`), and for none in a packet tracer,
+    as in the JAX package (the kernel times "empty" and "nomt" there)."""
+    if profile == "none":
+        return
+    if inst_feat is not None or worder is not None:
+        raise ValueError("the profile modes exist on the one-level walk "
+                         "without the octant order")
+    if stream:
+        raise ValueError(f"profile={profile!r} exists on the classic walk "
+                         f"only, not over streamed blocks")
 
 
 def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
                worder=None, mt_precision: str = "highest",
                stream: bool = False, pipe: bool = False,
                flat_walk: bool = False, profile: str = "none",
-               checked: bool = False, planes=None, per_thread: bool = False):
+               checked: bool = False, planes=None):
     """Trace one wave over the wide BVH.
 
     rays: (8, R) f32 rows [ox, oy, oz, dx, dy, dz, tmin, tmax]; nodes:
@@ -446,16 +443,7 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     (PROFILES: wrong results by design); `planes` ((B, 2, 10, 256) bf16,
     `split_planes(blocks)`) are what closest hit reads at a reduced tier,
     required there on CUDA tensors (a tracer builds them once; the plain
-    version forms the split itself). `per_thread` launches, in place of
-    the warp-wide drain, the per-thread walk it is held to: the pipelined
-    walk (with `pipe` / `flat_walk`, closest and any hit, one level or
-    two), the queued walk under the octant order (fp32 closest hit with
-    `worder`, resident or streamed) or the classic walk of any hit over
-    one tree level without `worder` (K2's and, with `stream`, K6 any
-    hit's: the same walk). It exists to hold the drains to
-    (tests, chip_smoke.py), `make_packet_tracer` never passes it, and its
-    launches count under their own keys (`launch_key(..., per_thread=
-    True)`); other modes refuse it.
+    version forms the split itself).
     Returns (t, sid, u, v), each (R,): t = best t (tmax on a
     miss), sid = block*64 + slot of the hit (-1 on a miss; any-hit: 1 if
     occluded), barycentrics u, v; the instanced closest-hit mode adds
@@ -463,33 +451,39 @@ def trace_wide(rays, nodes, blocks, meta, any_hit: bool, inst_feat=None,
     CUDA tensors the kernel."""
     # also for any hit, as JAX does
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
-    if profile != "none" and (inst_feat is not None or worder is not None):
-        raise ValueError("the profile modes exist on the one-level walk "
-                         "without the octant order")
+    _check_profile(profile, inst_feat, worder)
     pipe = pipe or flat_walk
     if pipe and worder is not None:
         raise ValueError("the pipelined walk takes no octant order "
                          "(pallas_trace.py:1459)")
-    if per_thread:
-        _check_per_thread(any_hit, worder, pipe, mt_precision,
-                          inst_feat is not None)
     walk = _walk_code(meta, pipe, flat_walk, checked)
+    if rays.device.type == "cuda":
+        _check_tree(rays.device, nodes, blocks, meta, inst_feat, worder,
+                    planes, "highest" if any_hit else mt_precision)
+    return _trace_wave(rays, nodes, blocks, meta, any_hit, inst_feat, worder,
+                       mt_precision, stream, walk, profile, planes)
+
+
+def _trace_wave(rays, nodes, blocks, meta, any_hit, inst_feat, worder,
+                mt_precision, stream, walk, profile, planes):
+    """`trace_wide` after its checks of the mode and, on CUDA tensors, of
+    the tree (a packet tracer makes them once and traces every wave
+    here): the plain version on CPU tensors, else the kernel, counted in
+    LAUNCHES. `walk` is `_walk_code`'s."""
     prec = "highest" if any_hit else mt_precision
     if rays.device.type == "cpu":
-        return trace_wide_reference(rays, nodes, blocks, meta, any_hit,
-                                    inst_feat, worder, mt_precision, stream,
-                                    pipe, flat_walk, profile)
+        return _reference(rays, nodes, blocks, meta, any_hit, inst_feat,
+                          prec, profile)
     if rays.device.type != "cuda":
         raise ValueError(f"trace_wide: unsupported device {rays.device}")
     t, sid, u, v, inst, _ = _launch(rays, nodes, blocks, meta, bool(any_hit),
                                     inst_feat, False, worder, prec, stream,
-                                    walk, profile, planes=planes,
-                                    per_thread=per_thread)
+                                    walk, profile, planes=planes)
     if rays.shape[1]:       # an empty wave launches nothing
         LAUNCHES[launch_key(any_hit, inst_feat is not None, prec,
-                            worder is not None, stream, pipe, flat_walk,
-                            profile, per_thread=per_thread)] += 1
-    if inst_feat is not None and not any_hit:
+                            worder is not None, stream, walk > 0, walk == 2,
+                            profile)] += 1
+    if inst is not None:
         return t, sid, u, v, inst
     return t, sid, u, v
 
@@ -510,7 +504,12 @@ def trace_wide_reference(rays, nodes, blocks, meta, any_hit: bool,
     nothing here; `planes` hold the split the plain versions form
     themselves."""
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
-    prec = "highest" if any_hit else mt_precision
+    return _reference(rays, nodes, blocks, meta, any_hit, inst_feat,
+                      "highest" if any_hit else mt_precision, profile)
+
+
+def _reference(rays, nodes, blocks, meta, any_hit, inst_feat, prec, profile):
+    """`trace_wide_reference` of a checked mode at the wave's tier `prec`."""
     if profile != "none":
         return trace_wide_profile_plain(rays, nodes, blocks, meta, any_hit,
                                         profile)
@@ -562,39 +561,44 @@ def pair_rays(rays_c, rays_a):
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
                       mt_precision: str = "highest", stream: bool = False,
-                      planes=None, per_thread: bool = False):
+                      planes=None):
     """Trace a closest-hit wave and an independent any-hit wave in ONE
     kernel launch (K8, pallas_trace.py `trace_paired`): one grid covers
     both waves, and each 128-ray CTA runs the drain of the unpaired mode
     that computes its half (`trace_wide` closest hit at the tier and
     `stream`, and any hit, exact fp32), the closest-hit CTAs first. One
-    tree level only. Either wave may be longer, or empty. `per_thread`
-    launches K8's per-thread reference in place of the drains (each
-    thread taking its mode from its ray index; counted under its own
-    key), which no tracer passes. Returns ((t, sid, u, v) of the closest wave, the any-hit
-    wave's sid: 1 occluded, -1 not): bit for bit `trace_wide`'s results;
-    `planes` as in `trace_wide`. CPU tensors take the two plain
-    versions."""
+    tree level only. Either wave may be longer, or empty. Returns ((t,
+    sid, u, v) of the closest wave, the any-hit wave's sid: 1 occluded,
+    -1 not): bit for bit `trace_wide`'s results; `planes` as in
+    `trace_wide`. CPU tensors take the two plain versions."""
     check_mode(mt_precision, stream)
+    if rays_c.device.type == "cuda":
+        _check_tree(rays_c.device, nodes, blocks, meta, planes=planes,
+                    closest_tier=mt_precision)
+    return _paired_wave(rays_c, rays_a, nodes, blocks, meta, mt_precision,
+                        stream, planes)
+
+
+def _paired_wave(rays_c, rays_a, nodes, blocks, meta, mt_precision, stream,
+                 planes):
+    """`trace_wide_paired` after its checks (a packet tracer's paired
+    waves come here)."""
     if rays_c.device.type == "cpu":
-        return (trace_wide_reference(rays_c, nodes, blocks, meta, False,
-                                     mt_precision=mt_precision,
-                                     stream=stream),
-                trace_wide_reference(rays_a, nodes, blocks, meta, True,
-                                     mt_precision=mt_precision,
-                                     stream=stream)[1])
+        return (_reference(rays_c, nodes, blocks, meta, False, None,
+                           mt_precision, "none"),
+                _reference(rays_a, nodes, blocks, meta, True, None,
+                           "highest", "none")[1])
     if rays_c.device.type != "cuda":
         raise ValueError(f"trace_wide_paired: unsupported device "
                          f"{rays_c.device}")
     nc = rays_c.shape[1]
     rays, n_split = pair_rays(rays_c, rays_a)
     t, sid, u, v, _, _ = _launch(rays, nodes, blocks, meta, 2, None, False,
-                                 None, mt_precision, stream,
-                                 PER_THREAD if per_thread else 0,
-                                 n_split=n_split, planes=planes)
+                                 None, mt_precision, stream, n_split=n_split,
+                                 planes=planes)
     if rays.shape[1]:
         LAUNCHES[launch_key(False, mt_precision=mt_precision, stream=stream,
-                            paired=True, per_thread=per_thread)] += 1
+                            paired=True)] += 1
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
 
 
@@ -612,7 +616,7 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
                       stream: bool = False, pipe: bool = False,
                       flat_walk: bool = False, profile: str = "none",
                       per_ray: bool = False, checked: bool = False,
-                      planes=None, per_thread: bool = False):
+                      planes=None):
     """The work one wave of `trace_wide` does, from the kernel's counting
     instantiation (CUDA tensors only; not counted in LAUNCHES): total node
     pops, (ray, block) MT tests (two_phase: broad-phase tests), instance
@@ -628,18 +632,17 @@ def trace_wide_counts(rays, nodes, blocks, meta, any_hit: bool,
     is the lanes that tested one block in one round). With `per_ray`, the
     (7, R) i32 table instead of the sums, the last two rows on each warp's
     lane 0. Of the ablation modes "nomt" and "fix64" have a counting
-    instantiation. `planes` and `per_thread` as in `trace_wide`."""
+    instantiation. `planes` as in `trace_wide`."""
     if rays.device.type != "cuda":
         raise ValueError("trace_wide_counts runs the CUDA kernel only")
     check_mode(mt_precision, stream, pipe, flat_walk, profile)
-    if per_thread:
-        _check_per_thread(any_hit, worder, pipe or flat_walk, mt_precision,
-                          inst_feat is not None)
+    prec = "highest" if any_hit else mt_precision
+    _check_tree(rays.device, nodes, blocks, meta, inst_feat, worder, planes,
+                prec)
     counts = _launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
-                     True, worder, "highest" if any_hit else mt_precision,
-                     stream, _walk_code(meta, pipe or flat_walk, flat_walk,
-                                        checked), profile,
-                     planes=planes, per_thread=per_thread)[5]
+                     True, worder, prec, stream,
+                     _walk_code(meta, pipe or flat_walk, flat_walk, checked),
+                     profile, planes=planes)[5]
     return counts if per_ray else _count_sums(counts)
 
 
@@ -653,22 +656,19 @@ def split_paired_counts(counts, n_closest: int, n_split: int,
 
 
 def trace_wide_paired_counts(rays_c, rays_a, nodes, blocks, meta,
-                             stream: bool = False, per_ray: bool = False,
-                             per_thread: bool = False):
+                             stream: bool = False, per_ray: bool = False):
     """`trace_wide_counts` of the paired launch at the fp32 tier, split by
     wave: (counts of the closest wave, counts of the any-hit wave), sums
     or, with `per_ray`, the (7, R) tables of `trace_wide_counts(per_ray=
     True)`. Each CTA runs its half's unpaired drain, so the two tables are
     those of K1 (K6 closest with `stream`) and K2 on the two waves, drain
-    rows included; `per_thread` counts K8's per-thread reference (the
-    classic or, with `stream`, queued walk in both halves; no drain
-    rows)."""
+    rows included."""
     if rays_c.device.type != "cuda":
         raise ValueError("trace_wide_paired_counts runs the CUDA kernel only")
+    _check_tree(rays_c.device, nodes, blocks, meta)
     rays, n_split = pair_rays(rays_c, rays_a)
     counts = _launch(rays, nodes, blocks, meta, 2, None, True, None,
-                     "highest", stream, PER_THREAD if per_thread else 0,
-                     n_split=n_split)[5]
+                     "highest", stream, n_split=n_split)[5]
     return split_paired_counts(counts, rays_c.shape[1], n_split, per_ray)
 
 
@@ -1122,14 +1122,9 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     blocks = wtris.contiguous()
     meta = wmeta.to(torch.int32).contiguous()
     slot_map = wslot.long() if wslot is not None else None
-    if flat_walk:
-        # once, here: raises on a multi-block leaf
-        _walk_code(meta, True, True, checked=False)
-    if profile != "none" and (inst_feat is not None or stream
-                              or worder is not None):
-        raise ValueError("the profile modes exist on the classic one-level "
-                         "walk only: not with an instanced tree, streamed "
-                         "blocks or the octant order")
+    # once, here: raises on a multi-block leaf under the flat push
+    walk = _walk_code(meta, pipe, flat_walk, checked=False)
+    _check_profile(profile, inst_feat, worder, stream)
     if worder is not None:
         worder = worder.to(torch.int32).contiguous()
         if worder.shape != (n_nodes * 16,):
@@ -1156,11 +1151,31 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     # the reduced tiers' closest hit reads the blocks' pre-split planes:
     # split once, here, for every wave this tracer traces
     planes = split_planes(blocks) if mt_precision != "highest" else None
-    walk_opts = {}
-    if pipe:
-        walk_opts.update(pipe=True, flat_walk=flat_walk, checked=flat_walk)
-    if profile != "none":
-        walk_opts.update(profile=profile)
+    capturable = trace_fn is trace_wide
+    if capturable:
+        # the mode was checked above and the tree is checked here, once:
+        # each wave checks its rays alone
+        if nodes.device.type == "cuda":
+            _check_tree(nodes.device, nodes, blocks, meta, inst_feat, worder,
+                        planes, mt_precision)
+
+        def trace_wave(rays, any_hit):
+            return _trace_wave(rays, nodes, blocks, meta, any_hit, inst_feat,
+                               None if any_hit else worder, mt_precision,
+                               stream, walk, profile, planes)
+    else:
+        walk_opts = {}
+        if pipe:
+            walk_opts.update(pipe=True, flat_walk=flat_walk,
+                             checked=flat_walk)
+        if profile != "none":
+            walk_opts.update(profile=profile)
+
+        def trace_wave(rays, any_hit):
+            return trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
+                            worder=None if any_hit else worder,
+                            mt_precision=mt_precision, stream=stream,
+                            planes=planes, **walk_opts)
 
     def _sorted_wave(o, d, tmin, tmax, active):
         """One wave as (8, R) rows in kernel order, and the permutation
@@ -1205,10 +1220,7 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
 
     def _run(o, d, tmin, tmax, active, any_hit):
         rays, perm = _sorted_wave(o, d, tmin, tmax, active)
-        out = trace_fn(rays, nodes, blocks, meta, any_hit, inst_feat,
-                       worder=None if any_hit else worder,
-                       mt_precision=mt_precision, stream=stream,
-                       planes=planes, **walk_opts)
+        out = trace_wave(rays, any_hit)
         t, sid, u, v, inst = _unsort(
             perm, [*out[:4], out[4] if len(out) > 4 else None])
         if any_hit:
@@ -1234,10 +1246,10 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
             raise ValueError("paired tracing has no profile modes")
         rays_c, perm_c = _sorted_wave(oc, dc, tminc, tmaxc, active_c)
         rays_a, perm_a = _sorted_wave(oa, da, tmina, tmaxa, active_a)
-        if trace_fn is trace_wide:
-            (t, sid, u, v), occ = trace_wide_paired(
+        if capturable:
+            (t, sid, u, v), occ = _paired_wave(
                 rays_c, rays_a, nodes, blocks, meta, mt_precision, stream,
-                planes=planes)
+                planes)
         else:
             t, sid, u, v = trace_fn(rays_c, nodes, blocks, meta, False, None,
                                     mt_precision=mt_precision, stream=stream,
@@ -1252,5 +1264,5 @@ def make_packet_tracer(wnodes, wtris, wmeta, wslot=None,
     # (closest, any) pair stays what callers unpack
     trace_closest.paired = trace_paired
     trace_closest.planes = planes
-    trace_closest.capturable = trace_any.capturable = trace_fn is trace_wide
+    trace_closest.capturable = trace_any.capturable = capturable
     return trace_closest, trace_any

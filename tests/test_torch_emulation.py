@@ -8,34 +8,32 @@ is held here: every mode of wide_trace.cu that computes K1's function
 and without the flat push, the paired launch) gives K1's / K2's results
 bit for bit, on one tree level and on the instanced tree; K1, K2 and the
 reduced tiers agree with their plain versions under the bars of
-tests/test_torch_gpu.py; the warp-wide drain, over the fp32 blocks (K1
-and K6 closest) and over the pre-split planes of the reduced tiers (built
-by the split kernel, bit for bit their plain version), gives the
-per-thread code's results, as do the two-level fp32 drain (K3 closest),
-the any-hit drain (K2 and K6 any hit: the flag and counts of the
-per-thread classic any-hit walk, itself K8's per-thread any-hit half; the
-instanced any hit: the per-thread pipelined walk's outputs), the paired
-launch (K8: each CTA on its half's unpaired drain, outputs and counts
-those modes', resident and streamed at every tier), the octant-ordered drain (K7: the
-per-thread queued walk under the octant order) and the pipelined drain
-(K9: the per-thread pipelined walk), the last two also in their pops and
-block tests per ray; the ablation modes do what they must; the
-leaf-pair kernel of stream_mt.cu makes the ray-stream tracer's t K1's to
-the bit, and its chunked schedule gives its one-thread-per-pair
-reference's outputs in every bit; the redesigned level prefix (K11) gives
-its plain version's tables on synthetic levels; the five kernels of
-bf_stream.cu (with their block scans,
-warp ballots and barriers, run as cooperating threads) give the plain
-versions' tables and results in every bit and the breadth-first tracer
-K1's; and the redesigned expand (K10), emit (K12), MT kernel (K13) and
-backward fold (K14) write the kernels they were before (`per_block`,
-`per_tile`, `per_unit`) in every bit, on real lists and on their corner
-cases (tests/torch_kernel_cases.py), and nothing past the count; the
-shim's `__syncwarp` is a barrier of the warp. Skips where there is no
-g++.
+tests/test_torch_gpu.py; the warp-wide drains, over the fp32 blocks (K1,
+K6 and K7 closest) and over the pre-split planes of the reduced tiers
+(built by the split kernel, bit for bit their plain version), give the
+hit set and t of the leaf-pair kernel's per-pair test on every (ray,
+block) pair in every bit, and its ids outside exact-t ties; the any-hit
+drain (K2 and K6 any hit) gives the flag and the per-ray counts of the
+per-thread classic walk (`profile="fix64"`); the two-level drains (K3,
+K7 and K9 over the instanced tree) their plain versions' results and
+K3's; the paired launch (K8: each CTA on its half's unpaired drain,
+outputs and counts those modes', resident and streamed at every tier)
+and the pipelined drain (K9) the unpaired modes' results; the ablation
+modes do what they must; the leaf-pair kernel of stream_mt.cu makes the
+ray-stream tracer's t K1's to the bit, and its chunked schedule gives
+the outputs of its own per-pair path in every bit; the redesigned level
+prefix (K11) gives its plain version's tables on synthetic levels; the
+five kernels of bf_stream.cu (with their block scans, warp ballots and
+barriers, run as cooperating threads) give the plain versions' tables
+and results in every bit and the breadth-first tracer K1's, also on
+their corner cases (tests/torch_kernel_cases.py), writing nothing past
+the count, and the MT kernel (K13) gives K15's results on its pairs; the
+C entry of wide_trace.cu takes walk codes 0-2 alone; the shim's
+`__syncwarp` is a barrier of the warp. Skips where there is no g++.
 """
 
 import os
+import re
 import shutil
 import sys
 
@@ -162,7 +160,8 @@ def test_emulated_pipelined_walk_counts(emulation, soup):
 
 def test_emulated_pipelined_walk_over_multi_block_leaves(emulation):
     """Leaves of several blocks fill the backlog faster; the pipelined
-    walk stays K1 bit for bit, and the flat push refuses such a tree."""
+    walk stays K1 bit for bit, and the flat push refuses such a tree. The
+    C entry takes walk codes 0-2 alone."""
     nodes, blocks, meta, _ = emu.soup_tree(n_tris=1500, seed=4,
                                            leaf_cap=31 * 8)
     assert not pt._single_block_leaves(meta)
@@ -172,6 +171,11 @@ def test_emulated_pipelined_walk_over_multi_block_leaves(emulation):
             emu.trace_wide(RC, nodes, blocks, meta, False, pipe=True), k1)
         with pytest.raises(ValueError, match="exactly one MT block"):
             emu.trace_wide(RC, nodes, blocks, meta, False, flat_walk=True)
+        for any_hit in (False, True):
+            for walk in (3, 4, 5, 6):
+                with pytest.raises(RuntimeError, match="invalid value"):
+                    pt._launch(RC, nodes, blocks, meta, any_hit, None, False,
+                               walk=walk)
 
 
 def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
@@ -182,8 +186,8 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
     384 against a backlog of 256. What does not fit is tested at once, so
     closest hit and occlusion stay K1's / K2's bit for bit, and the plain
     version's where it is not borderline; the pipelined drain tests what
-    the backlog could not take as a warp, and per ray pops and tests the
-    per-thread walk's nodes and blocks."""
+    the backlog could not take as a warp, and its own counts show every
+    block of the node tested."""
     _, blocks, _, _ = soup
     blocks = blocks[:15 * 7 + 24].contiguous()
     nodes = torch.zeros((1, 16, 8))
@@ -200,12 +204,6 @@ def test_emulated_pipelined_walk_loses_no_block_of_an_overfull_node(
             emu.trace_wide(RA, nodes, blocks, meta, True, pipe=True), k2)
         tests = emu.trace_wide(RC, nodes, blocks, meta, False, count=True,
                                pipe=True)[1]
-        for rays, any_hit in ((RC[:, :256], False), (RA[:, :256], True)):
-            rays = rays.contiguous()
-            c, ref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
-                                     count=True, pipe=True, per_thread=r)
-                      for r in (False, True))
-            assert torch.equal(c[:2], ref[:2])
     assert int(tests.max()) == 384     # every block of the node, none lost
     _hold_to_plain(k1, pt.trace_wide_plain(RC, nodes, blocks, meta, False))
 
@@ -223,8 +221,7 @@ def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
     """K8 in every mode, resident and streamed: each CTA runs its half's
     unpaired drain, so the closest half is the unpaired closest-hit mode
     at the tier (and stream) and the any-hit half K2, in every output's
-    bits, and so is K8's per-thread reference (`per_thread=True`); either
-    wave longer, or empty. At fp32, resident and streamed, the counting
+    bits; either wave longer, or empty. At fp32, resident and streamed, the counting
     tables of both halves are the unpaired K1 / K6 closest and K2 drains'
     row for row, drain rounds and distinct blocks included (the warps hold
     the same rays)."""
@@ -235,8 +232,6 @@ def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
     stream = mode.get("stream", False)
     with emulation:
         got = emu.trace_wide_paired(rc, ra, nodes, blocks, meta, **mode)
-        ref = emu.trace_wide_paired(rc, ra, nodes, blocks, meta,
-                                    per_thread=True, **mode)
         ref_c = emu.trace_wide(rc, nodes, blocks, meta, False, **mode)
         ref_a = emu.trace_wide(ra, nodes, blocks, meta, True, stream=stream)
         if "mt_precision" not in mode:
@@ -246,8 +241,8 @@ def test_emulated_paired_launch_is_k1_and_k2(emulation, soup, n_c, n_a, mode):
                                 stream=stream)
             c2 = emu.trace_wide(ra, nodes, blocks, meta, True, count=True,
                                 stream=stream)
-    for closest, occ in (got, ref):
-        assert emu.same_bits(closest, ref_c) and torch.equal(occ, ref_a[1])
+    closest, occ = got
+    assert emu.same_bits(closest, ref_c) and torch.equal(occ, ref_a[1])
     if "mt_precision" not in mode:
         assert torch.equal(cc, c1) and torch.equal(ca, c2)
         if n_c and n_a:
@@ -337,24 +332,6 @@ def multi_block():
     return emu.soup_tree(n_tris=3000, seed=5, leaf_cap=256)
 
 
-def _per_thread_closest(rays, blocks, tier):
-    """Closest hit of every ray over every block through the emulated
-    leaf-pair kernel (K15: one thread tests one (ray, block) pair with
-    csrc/mt_block.cuh's per-triangle arithmetic), reduced per ray: (t, id,
-    u, v, tied), tied where another block gives the same least t."""
-    n, nb = rays.shape[1], blocks.shape[0]
-    pair_ray = torch.arange(n, dtype=torch.int32).repeat_interleave(nb)
-    pair_block = torch.arange(nb, dtype=torch.int32).repeat(n)
-    t, slot, u, v = (x.view(n, nb) for x in emu.stream_mt(
-        rays, rays[7].contiguous(), pair_ray, pair_block, blocks, False,
-        tier))
-    tb, arg = t.min(dim=1)
-    tied = (t == tb[:, None]).sum(dim=1) > 1
-    pick = arg[:, None]
-    return (tb, slot.gather(1, pick)[:, 0], u.gather(1, pick)[:, 0],
-            v.gather(1, pick)[:, 0], tied)
-
-
 def _drain_counts_bracket(counts):
     """The drain rows of a counting table: 0 < rounds <= distinct blocks
     <= MT block tests."""
@@ -386,7 +363,7 @@ def test_emulated_warp_drain_over_pre_split_planes(emulation, soup,
                                 inst_feat=feat, mt_precision="high",
                                 planes=planes, count=True)
         if feat is None:
-            ref = _per_thread_closest(RC, blocks, "high")
+            ref = kc.brute_closest(emu.stream_mt, RC, blocks, "high")
     assert torch.equal(planes.view(torch.int16),
                        pt.split_planes_plain(blocks).view(torch.int16))
     rows = meta.long().view(-1, 16)
@@ -421,24 +398,25 @@ def _ragged_wave(rays=RC):
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
                                   "instanced", "instanced_ragged"])
-def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
-                                                    multi_block, instanced,
-                                                    tree):
+def test_emulated_fp32_drain_is_the_leaf_pair_oracle(emulation, soup,
+                                                     multi_block, instanced,
+                                                     tree):
     """K1 and K6 closest (stream=True), and on the instanced tree K3
     closest and its streamed mode, take the warp-wide drain over the fp32
-    blocks: every output, the instance id included, equal bit for bit to
-    the per-thread pipelined walk's (`pipe=True, per_thread=True`, the
-    walk K9 drains), on the soup, on a tree
-    whose nodes queue more than 16 blocks, on the instanced scene (ten
-    lanes forming each drained ray's object features) and on ragged waves
-    with dead lanes. On one tree level, hit set and t in every bit those
-    of the leaf-pair kernel on every (ray, block) pair, id, u and v too
-    outside exact-t ties between blocks. The counting instantiation fills
-    the drain rows (0 < rounds <= distinct blocks <= tests), the same
-    with and without streamed blocks; on one level it tests K1's blocks
-    (those of the per-thread classic walk, fix64's count where every walk
-    ends within 64 pops; no fewer than the pipelined walk's, which drops
-    stale backlog entries), on the instanced tree it enters instances."""
+    blocks. On one tree level, hit set and t in every bit those of the
+    leaf-pair kernel's per-pair test on every (ray, block) pair
+    (`kc.brute_closest`), id, u and v too outside exact-t ties between
+    blocks; on the instanced scene (ten lanes forming each drained ray's
+    object features) K3 is held to its plain version and its instance ids
+    where the ids agree. K6 and K9 (`pipe=True`) give K1's / K3's every
+    output, the instance id included, in every bit; on the soup, on a tree
+    whose nodes queue more than 16 blocks and on ragged waves with dead
+    lanes. The counting instantiation fills the drain rows (0 < rounds <=
+    distinct blocks <= tests), the same with and without streamed blocks;
+    on one level it tests the blocks of the per-thread classic walk
+    (`profile="fix64"`'s count, where every walk ends within 64 pops; no
+    fewer than the pipelined drain, which drops stale backlog entries), on
+    the instanced tree it enters instances."""
     feat = None
     if tree.startswith("instanced"):
         nodes, blocks, meta, feat = instanced
@@ -446,20 +424,21 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
         nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
     rays = _ragged_wave() if tree.endswith("ragged") else RC
     with emulation:
-        pipe, k1, k6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
-                                       inst_feat=feat, **kw)
-                        for kw in (dict(pipe=True, per_thread=True), dict(),
-                                   dict(stream=True)))
+        k1, k6, k9 = (emu.trace_wide(rays, nodes, blocks, meta, False,
+                                     inst_feat=feat, **kw)
+                      for kw in (dict(), dict(stream=True), dict(pipe=True)))
         c1, c6 = (emu.trace_wide(rays, nodes, blocks, meta, False,
                                  inst_feat=feat, count=True, stream=stream)
                   for stream in (False, True))
         if feat is None:
             c9, cf = (emu.trace_wide(rays, nodes, blocks, meta, False,
                                      count=True, **kw)
-                      for kw in (dict(pipe=True, per_thread=True),
-                                 dict(profile="fix64")))
-            ref = _per_thread_closest(rays, blocks, "highest")
-    assert emu.same_bits(k1, pipe) and emu.same_bits(k6, pipe)
+                      for kw in (dict(pipe=True), dict(profile="fix64")))
+            ref = kc.brute_closest(emu.stream_mt, rays, blocks, "highest")
+        else:
+            whole = emu.trace_wide(RC, nodes, blocks, meta, False,
+                                   inst_feat=feat)
+    assert emu.same_bits(k6, k1) and emu.same_bits(k9, k1)
     hit = k1[1] >= 0
     enough = 100 if feat is None else 50    # the instanced scene is small
     assert hit.sum() > enough
@@ -472,6 +451,15 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
     if feat is not None:
         assert len(k1) == 5 and len(torch.unique(k1[4][hit])) > 1
         assert int(c1[2].sum()) > 0 and not c1[3:5].any()
+        # the whole wave against the plain version; a ragged wave's live
+        # rays get the whole wave's results
+        p = pt.trace_wide_inst_plain(RC, nodes, blocks, meta, False, feat)
+        _hold_to_plain(whole, p)
+        same = (whole[1] >= 0) & (whole[1] == p[1])
+        assert torch.equal(whole[4][same], p[4][same])
+        live = rays[7] >= rays[6]
+        assert emu.same_bits([x[:rays.shape[1]][live] for x in whole],
+                             [x[live] for x in k1])
         return
     assert torch.equal(ref[1] >= 0, hit)
     assert emu.same_bits((k1[0][hit],), (ref[0][hit],))
@@ -485,32 +473,28 @@ def test_emulated_fp32_drain_is_the_per_thread_walk(emulation, soup,
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged"])
-def test_emulated_per_thread_any_hit_is_k8s_any_half(emulation, soup,
-                                                     multi_block, tree):
-    """K2's per-thread reference (`trace_wide(..., True, per_thread=True)`,
-    the classic any-hit walk, resident and streamed alike) is the any-hit
-    half of K8's per-thread reference (`per_thread=True` with an empty
-    closest-hit wave, so n_split = 0): every output in every bit and the
-    whole counting table, resident and streamed (that half's queued walk
-    culls by the constant tmax and visits a node's leaves in slot order,
-    so it pops the classic walk's nodes and tests its blocks)."""
+def test_emulated_paired_any_half_is_k2s_drain(emulation, soup, multi_block,
+                                               tree):
+    """K8's any-hit half alone (an empty closest-hit wave, so n_split = 0)
+    runs K2's any-hit drain: every output in every bit and the whole
+    counting table, drain rows included, resident and streamed."""
     nodes, blocks, meta, _ = multi_block if tree == "multi_block" else soup
     rays = _ragged_wave(RA) if tree == "ragged" else RA
     empty = rays[:, :0].contiguous()
     with emulation:
         for stream in (False, True):
             got = emu.trace_wide(rays, nodes, blocks, meta, True,
-                                 stream=stream, per_thread=True)
+                                 stream=stream)
             c = emu.trace_wide(rays, nodes, blocks, meta, True, count=True,
-                               stream=stream, per_thread=True)
+                               stream=stream)
             occ = emu.trace_wide_paired(empty, rays, nodes, blocks, meta,
-                                        stream=stream, per_thread=True)[1]
+                                        stream=stream)[1]
             c8 = emu.trace_wide_paired(empty, rays, nodes, blocks, meta,
-                                       stream=stream, per_thread=True,
-                                       count=True)[1]
+                                       stream=stream, count=True)[1]
             assert emu.same_bits(got, (rays[7], occ, torch.zeros_like(
                 rays[7]), torch.zeros_like(rays[7])))
-            assert torch.equal(c, c8) and not c[2:].any()
+            assert torch.equal(c, c8) and not c[2:5].any()
+            _drain_counts_bracket(c)
             assert (occ > 0).sum() > 50 and (occ < 0).sum() > 50
 
 
@@ -522,16 +506,15 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
     drain, with resident blocks (K2, K3 any hit) and streamed ones (K6
     any hit), the two giving the same outputs and counts in every bit.
     On one tree level its outputs are those of the per-thread classic walk
-    (`per_thread=True`) bit for bit, on the soup, on a tree whose nodes
-    queue more than 16 blocks and on a ragged wave with dead lanes; with
-    the constant tmax as its node cull it pops that walk's nodes and tests
-    its blocks, ray by ray, and fills the drain rows. On the instanced
-    tree (ten lanes forming each drained ray's object features) its
-    outputs are the per-thread pipelined walk's (`pipe=True,
-    per_thread=True`) bit for bit,
-    and its flag the plain version's, whole and ragged; it enters
-    instances, fills the drain rows and, on every ray nothing occludes,
-    pops K9's nodes and tests its blocks."""
+    bit for bit, reached through `profile="fix64"` where every walk ends
+    within 64 pops (on the soup, on a tree whose nodes queue more than 16
+    blocks and on a ragged wave with dead lanes); with the constant tmax
+    as its node cull it pops that walk's nodes and tests its blocks, ray
+    by ray, and fills the drain rows. On the instanced tree (ten lanes
+    forming each drained ray's object features) its flag is the plain
+    version's and its outputs K9 any hit's (`pipe=True`) bit for bit,
+    whole and ragged; it enters instances, fills the drain rows and, on
+    every ray nothing occludes, pops K9's nodes and tests its blocks."""
     feat = None
     if tree.startswith("instanced"):
         nodes, blocks, meta, feat = instanced
@@ -545,10 +528,9 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
         c2, c6 = (emu.trace_wide(rays, nodes, blocks, meta, True,
                                  inst_feat=feat, count=True, stream=stream)
                   for stream in (False, True))
-        walk = dict(pipe=True) if feat is not None else {}
+        walk = dict(pipe=True) if feat is not None else dict(profile="fix64")
         ref, cref = (emu.trace_wide(rays, nodes, blocks, meta, True,
-                                    inst_feat=feat, per_thread=True,
-                                    count=count, **walk)
+                                    inst_feat=feat, count=count, **walk)
                      for count in (False, True))
     assert emu.same_bits(k2, ref) and emu.same_bits(k6, k2)
     assert torch.equal(c6, c2)
@@ -560,6 +542,7 @@ def test_emulated_any_hit_drain_is_k2(emulation, soup, multi_block,
     _drain_counts_bracket(c2)
     assert not c2[3:5].any()
     if feat is None:
+        assert int(cref[0].max()) < 64     # fix64 walked every ray whole
         assert torch.equal(c2[:2], cref[:2]) and not c2[2].any()
         assert not cref[2:].any()
     else:
@@ -591,50 +574,60 @@ def _tree(tree, soup, multi_block, instanced, instanced_flat, dense=None):
     return nodes, blocks, meta, None, worder
 
 
-def _hold_per_ray(got, ref, counts, ref_counts, inst):
-    """A drain against its per-thread reference: every output in every
-    bit, node pops and MT block tests equal ray by ray, the drain rows
-    filled (the reference fills none); on two levels the drain enters
-    instances (once per drained lane, instance and round)."""
-    assert emu.same_bits(got, ref) and len(got) == len(ref)
-    assert torch.equal(counts[:2], ref_counts[:2])
-    assert not counts[3:5].any() and not ref_counts[3:].any()
+def _drain_rows(counts, inst):
+    """A drain's counting table: no refine test or re-walk, the drain rows
+    filled; on two levels it enters instances (once per drained lane,
+    instance and round)."""
+    assert not counts[3:5].any()
     _drain_counts_bracket(counts)
     assert (int(counts[2].sum()) > 0) == inst
-    assert (int(ref_counts[2].sum()) > 0) == inst
 
 
 @pytest.mark.parametrize("tree", ["soup", "multi_block", "ragged",
                                   "streamed", "instanced",
                                   "instanced_ragged", "instanced_streamed"])
-def test_emulated_oct_order_drain_is_the_per_thread_walk(
+def test_emulated_oct_order_drain_is_the_leaf_pair_oracle_and_k1(
         emulation, soup, multi_block, instanced, instanced_flat, tree):
     """K7, fp32 closest hit under the octant order, takes the fp32 drain
     (each lane's queue drained newest first), resident and streamed, on
-    one tree level and two: every output, the instance id included, bit
-    for bit the per-thread queued walk's under the same order (reached
-    through `per_thread=True`), and per ray the same node pops and MT
-    block tests; on the soup, on a tree whose nodes queue more than 16
-    blocks, on the instanced scene and on ragged waves with dead lanes.
-    The near-first order is not the slot order: the outputs differ from
-    K1's walk in the order of exact-t ties only, and its counts differ."""
+    one tree level and two. On one level its hit set and t are the
+    leaf-pair kernel's on every (ray, block) pair (`kc.brute_closest`) in
+    every bit, its ids too outside exact-t ties; against K1 / K3 its t
+    and hit set are equal in every bit, and every output, the instance id
+    included, wherever the ids agree (elsewhere two blocks tie at t: the
+    near-first order visits another first); on the soup, on a tree whose
+    nodes queue more than 16 blocks, on the instanced scene and on ragged
+    waves with dead lanes. The near-first order is not the slot order:
+    its counts differ from K1's."""
     nodes, blocks, meta, feat, worder = _tree(tree, soup, multi_block,
                                               instanced, instanced_flat)
     rays = _ragged_wave() if tree.endswith("ragged") else RC
     kw = dict(inst_feat=feat, worder=worder, stream=tree.endswith("streamed"))
     with emulation:
-        k7, ref = (emu.trace_wide(rays, nodes, blocks, meta, False,
-                                  per_thread=r, **kw) for r in (False, True))
-        c7, cref = (emu.trace_wide(rays, nodes, blocks, meta, False,
-                                   per_thread=r, count=True, **kw)
-                    for r in (False, True))
+        k7 = emu.trace_wide(rays, nodes, blocks, meta, False, **kw)
+        c7 = emu.trace_wide(rays, nodes, blocks, meta, False, count=True, **kw)
+        k1 = emu.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat)
         c1 = emu.trace_wide(rays, nodes, blocks, meta, False, count=True,
                             inst_feat=feat)
-    _hold_per_ray(k7, ref, c7, cref, feat is not None)
+        if feat is None:
+            ref = kc.brute_closest(emu.stream_mt, rays, blocks, "highest")
+    _drain_rows(c7, feat is not None)
     hit = k7[1] >= 0
     assert hit.sum() > (50 if feat is not None else 100)
     if tree.endswith("ragged"):
         assert not hit[rays[7] < rays[6]].any()
+    assert len(k7) == len(k1) and torch.equal(k1[1] >= 0, hit)
+    assert emu.same_bits((k7[0],), (k1[0],))
+    same = k7[1] == k1[1]
+    assert same.float().mean() > 0.99
+    assert emu.same_bits([x[same] for x in k7], [x[same] for x in k1])
+    if feat is None:
+        assert torch.equal(ref[1] >= 0, hit)
+        assert emu.same_bits((k7[0][hit],), (ref[0][hit],))
+        keep = hit & ~ref[4]
+        assert keep.sum() > 100 and torch.equal(k7[1][keep], ref[1][keep])
+        assert emu.same_bits((k7[2][keep], k7[3][keep]),
+                             (ref[2][keep], ref[3][keep]))
     assert not torch.equal(c7[:2], c1[:2])     # another order than K1's
 
 
@@ -642,19 +635,19 @@ def test_emulated_oct_order_drain_is_the_per_thread_walk(
                                   "instanced", "dense"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("walk", ["pipe", "flat_walk"])
-def test_emulated_pipelined_drain_is_the_per_thread_pipe(
+def test_emulated_pipelined_drain_is_k1_and_k2(
         emulation, soup, multi_block, instanced, instanced_flat, dense, walk,
         any_hit, tree):
     """K9, closest and any hit, with and without the flat push, takes the
-    pipelined drain: every lane keeps the per-thread pipe's schedule and
-    the warp tests up to kPipeDrain of each lane's backlog entries a
-    round. Every output (t, id, u, v, instance, occlusion flag) is the
-    per-thread pipelined walk's (`per_thread=True`) in every bit, and per
-    ray the node pops and MT block tests are equal; on the soup, on a
-    tree whose leaves hold up to four blocks (which the flat push refuses,
-    both walks alike), on a ragged wave with dead lanes, on the instanced
-    scene and on a dense soup, where a hit makes backlog entries stale
-    that still count as one of their lane's kPipeDrain."""
+    pipelined drain: every lane keeps its ray's pipelined schedule and the
+    warp tests up to kPipeDrain of each lane's backlog entries a round.
+    Every output (t, id, u, v, instance, occlusion flag) is K1's / K2's
+    (K3's and K3 any hit's on the instanced tree) in every bit, and the
+    drain rows are filled; on the soup, on a tree whose leaves hold up to
+    four blocks (which the flat push refuses), on a ragged wave with dead
+    lanes, on the instanced scene and on a dense soup, where a hit makes
+    backlog entries stale that still count as one of their lane's
+    kPipeDrain."""
     nodes, blocks, meta, feat, _ = _tree(tree, soup, multi_block, instanced,
                                          instanced_flat, dense)
     rays = RA if any_hit else RC
@@ -663,18 +656,17 @@ def test_emulated_pipelined_drain_is_the_per_thread_pipe(
     kw = dict(inst_feat=feat, **{walk: True})
     with emulation:
         if walk == "flat_walk" and not pt._single_block_leaves(meta):
-            for r in (False, True):
-                with pytest.raises(ValueError, match="exactly one MT block"):
-                    emu.trace_wide(rays, nodes, blocks, meta, any_hit,
-                                   per_thread=r, **kw)
+            with pytest.raises(ValueError, match="exactly one MT block"):
+                emu.trace_wide(rays, nodes, blocks, meta, any_hit, **kw)
             assert tree == "multi_block"
             return
-        k9, ref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
-                                  per_thread=r, **kw) for r in (False, True))
-        c9, cref = (emu.trace_wide(rays, nodes, blocks, meta, any_hit,
-                                   per_thread=r, count=True, **kw)
-                    for r in (False, True))
-    _hold_per_ray(k9, ref, c9, cref, feat is not None)
+        k9 = emu.trace_wide(rays, nodes, blocks, meta, any_hit, **kw)
+        c9 = emu.trace_wide(rays, nodes, blocks, meta, any_hit, count=True,
+                            **kw)
+        k1 = emu.trace_wide(rays, nodes, blocks, meta, any_hit,
+                            inst_feat=feat)
+    assert emu.same_bits(k9, k1) and len(k9) == len(k1)
+    _drain_rows(c9, feat is not None)
     hit = k9[1] >= 0 if not any_hit else k9[1] > 0
     assert hit.sum() > (20 if feat is not None else 50)
     if tree == "ragged":
@@ -780,28 +772,37 @@ def level_pairs(soup):
                                   "one_block", "padding", "tied"])
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("tier", ["highest", "high", "default"])
-def test_emulated_chunked_stream_mt_is_the_per_pair_kernel(
+def test_emulated_chunked_stream_mt_is_its_single_pair_path(
         emulation, soup, level_pairs, tier, any_hit, case):
     """The chunked K15 (each block staged once per CTA, R pairs a thread,
-    a last round's tasks split over up to 16 threads) gives the
-    one-thread-per-pair kernel's t, slot, u and v in every bit: on the
-    soup's real pairs, runs longer than a chunk, runs of one pair, one
-    block for every pair, padding and ids out of range, and the long runs
-    against blocks whose every hit has an exact-t twin in the other half
-    (the lower slot wins, also across the lanes of a split task). Chunks
-    of runs shorter than 32 pairs on average ("single", some of "real")
-    take the per-pair path inside the chunked kernel."""
+    a last round's tasks split over up to 16 threads) gives the t, slot,
+    u and v in every bit that the same kernel gives the same pairs when
+    every chunk takes its per-pair path (`test_pair`, one thread a pair:
+    each pair followed by a padding pair, so that every run holds one
+    pair): on the soup's real pairs, runs longer than a chunk, runs of one
+    pair, one block for every pair, padding and ids out of range, and the
+    long runs against blocks whose every hit has an exact-t twin in the
+    other half (the lower slot wins, also across the lanes of a split
+    task). Chunks of runs shorter than 32 pairs on average ("single", some
+    of "real") take the per-pair path on both sides."""
     _, blocks, _, _ = soup
     wave, limit, cases = level_pairs[any_hit]
     pair_ray, pair_block = cases["cross_chunk" if case == "tied" else case]
     if case == "tied":
         blocks = kc.tied_blocks(blocks)
+    ray1, block1 = kc.one_pair_runs(pair_ray, pair_block, blocks.shape[0])
+    assert not kc.chunks_staged(block1).any()
+    staged = kc.chunks_staged(pair_block)
+    if case in ("cross_chunk", "one_block", "tied"):
+        assert staged[:-1].all()     # a last chunk may hold a few pairs
+    elif case == "single":
+        assert not staged.any()
     with emulation:
         k = emu.stream_mt(wave, limit, pair_ray, pair_block, blocks, any_hit,
                           tier)
-        p = emu.stream_mt(wave, limit, pair_ray, pair_block, blocks, any_hit,
-                          tier, per_pair=True)
-    assert emu.same_bits(k, p)
+        p = emu.stream_mt(wave, limit, ray1, block1, blocks, any_hit, tier)
+    assert (p[1][1::2] == -1).all()
+    assert emu.same_bits(k, [x[0::2] for x in p])
     assert (k[1] >= 0).sum() > (10 if case == "single" else 100)
     if case == "padding":
         dead = ((pair_block < 0) | (pair_block >= blocks.shape[0])
@@ -959,29 +960,31 @@ def _filled(kernel, n_lanes, *args):
     return out
 
 
-def _mt_filled(per_tile, pairs, units, count, rays, blocks, any_hit, tier):
+def _mt_filled(pairs, units, count, rays, blocks, any_hit, tier):
     level = torch.zeros(8, dtype=torch.int32)
     level[bf.MT_CUR] = count
     cap = units.shape[0]
-    return _filled("mt_per_tile" if per_tile else "mt", cap * 128, pairs,
-                   units, level, cap, rays, rays.shape[1], blocks,
-                   blocks.shape[0], int(any_hit), pt.PRECISIONS[tier])
+    return _filled("mt", cap * 128, pairs, units, level, cap, rays,
+                   rays.shape[1], blocks, blocks.shape[0], int(any_hit),
+                   pt.PRECISIONS[tier])
 
 
 @pytest.mark.parametrize("case", kc.MT_CASES)
 @pytest.mark.parametrize("any_hit", [False, True], ids=["closest", "any"])
 @pytest.mark.parametrize("tier", ["highest", "high", "default"])
-def test_emulated_bf_mt_is_the_per_tile_kernel(emulation, soup, mt_lists,
-                                               tier, any_hit, case):
+def test_emulated_bf_mt_is_its_plain_version_and_k15(emulation, soup,
+                                                     mt_lists, tier, any_hit,
+                                                     case):
     """The redesigned K13 (CTAs over ranges of tiles, a tile's live lanes
     R a thread, split over lanes where few, blocks staged a tile ahead)
-    writes its per-tile reference's t, slot id, u and v in every bit over
-    every lane of the tiles below the count, and nothing past it: on the
+    writes bf_mt_plain's t, slot id, u and v in every bit over every lane
+    of the tiles below the count, and nothing past it, and K15's on the
+    same (ray, block) pairs (both run mt_chunk.cuh's task test): on the
     soup's real MT list, a full tile, tiles of 1, 2 and 33 live lanes,
     a region of several tiles of one block, tiles of alternating blocks,
     dead lanes and block ids out of range, and blocks whose every hit has
     an exact-t twin in their other half (the lower slot wins across the
-    lanes of a split task); both equal bf_mt_plain."""
+    lanes of a split task)."""
     _, blocks, _, _ = soup
     rays, mt_pairs, mt_units, n = mt_lists[any_hit][:4]
     pairs, units, count = kc.mt_cases(mt_pairs, mt_units, n, rays.shape[1],
@@ -990,10 +993,10 @@ def test_emulated_bf_mt_is_the_per_tile_kernel(emulation, soup, mt_lists,
         blocks = kc.tied_blocks(blocks)
     args = (pairs, units, count, rays, blocks, any_hit, tier)
     with emulation:
-        k = _mt_filled(False, *args)
-        p = _mt_filled(True, *args)
-    assert emu.same_bits(k, p)
+        k = _mt_filled(*args)
+        k15 = kc.k15_of_tiles(emu.stream_mt, *args)
     lanes = count * 128
+    assert emu.same_bits([x[:lanes] for x in k], k15)
     assert (k[1][:lanes] != SENTINEL).all()
     assert (k[1][lanes:] == SENTINEL).all()
     level = torch.zeros(8, dtype=torch.int32)
@@ -1004,15 +1007,14 @@ def test_emulated_bf_mt_is_the_per_tile_kernel(emulation, soup, mt_lists,
 
 
 @pytest.mark.parametrize("case", ["closest", "any", "synthetic"])
-def test_emulated_bf_bwd_is_the_per_unit_kernel(emulation, mt_lists, case):
+def test_emulated_bf_bwd_is_its_plain_version(emulation, mt_lists, case):
     """The redesigned K14 (CTAs striding over the units, every selected
     child's (t, slot id) gathered at once, u and v for the winner alone,
-    ranks from one prefix of packed warp counts) writes its per-unit
-    reference's and bf_bwd_plain's results in every bit on every level
-    of the soup's closest and any-hit waves, deepest first, and on a
-    synthetic level (every child selected, none, inner and MT children
-    mixed, equal t under different slot ids), and nothing past the
-    count."""
+    ranks from one prefix of packed warp counts) writes bf_bwd_plain's
+    results in every bit on every level of the soup's closest and any-hit
+    waves, deepest first, and on a synthetic level (every child selected,
+    none, inner and MT children mixed, equal t under different slot ids),
+    and nothing past the count."""
     if case == "synthetic":
         lv = kc.bwd_level()
         steps = [(lv["masks"], lv["level"], lv["dn"], lv["uoff"],
@@ -1034,8 +1036,6 @@ def test_emulated_bf_bwd_is_the_per_unit_kernel(emulation, mt_lists, case):
                 *(mt if child is None else child), *mt)
         with emulation:
             k = _filled("bwd", cap * 128, *args)
-            p = _filled("bwd_per_unit", cap * 128, *args)
-        assert emu.same_bits(k, p)
         lanes = n * 128
         assert (k[1][lanes:] == SENTINEL).all()
         ref = bf.bf_bwd_plain(masks, level, dn, uoff, base, child, mt)
@@ -1074,12 +1074,12 @@ def _expand_filled(kernel, units, level, pairs, rays, nodes):
 
 
 @pytest.mark.parametrize("case", ["real", *kc.EXPAND_CASES])
-def test_emulated_bf_expand_is_the_per_block_kernel(emulation, soup,
-                                                    real_levels, case):
-    """The redesigned K10 (a warp per unit on the CTAs the card holds, four
-    lanes a thread, the next unit's node row and rays staged while the
-    current one is tested) writes its per-block reference's masks and
-    counts in every bit and bf_expand_plain's, and nothing past the count:
+def test_emulated_bf_expand_is_its_plain_version(emulation, soup,
+                                                 real_levels, case):
+    """The redesigned K10 (a block per unit, each lane's ray loaded with
+    the node row, only the node's non-empty children tested) writes
+    bf_expand_plain's masks and counts in every bit, and nothing past the
+    count:
     on every level of the soup's closest and any-hit waves, a full level
     whose warps take several units each, a count far below the capacity,
     dead tiles and tiles of one live lane or of lanes 96-127 alone, ray
@@ -1099,8 +1099,6 @@ def test_emulated_bf_expand_is_the_per_block_kernel(emulation, soup,
         n = int(step[1][bf.NEXT])
         with emulation:
             k = _expand_filled("expand", *step)
-            p = _expand_filled("expand_per_block", *step)
-        assert all(torch.equal(a, b) for a, b in zip(k, p))
         assert all((x[n:] == SENTINEL).all() for x in k)
         ref = bf.bf_expand_plain(*step)
         assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, ref))
@@ -1127,12 +1125,12 @@ def _emit_filled(kernel, pairs, masks, level, dn, uoff, base, next_lanes,
 
 
 @pytest.mark.parametrize("case", ["real", *kc.EMIT_CASES])
-def test_emulated_bf_emit_is_the_per_block_kernel(emulation, real_levels,
-                                                  case):
-    """The redesigned K12 (K10's grid and lanes, ranks from the warp's
-    four ballots a child, the unit's offset and region rows in one load)
-    writes its per-block reference's and bf_emit_plain's entries of both
-    lists in every bit (every other entry left at -2): on every level of
+def test_emulated_bf_emit_is_its_plain_version(emulation, real_levels,
+                                               case):
+    """The redesigned K12 (a warp per unit on the CTAs the card holds,
+    ranks from the warp's four ballots a child, the unit's offset and
+    region rows in one load) writes bf_emit_plain's entries of both lists
+    in every bit (every other entry left at -2): on every level of
     the soup's closest and any-hit waves, and on levels with every bit
     set, one child in lane 127 alone, regions in both lists, a region not
     taken between two taken, many units of one node and many units past
@@ -1150,9 +1148,7 @@ def test_emulated_bf_emit_is_the_per_block_kernel(emulation, real_levels,
     for step in steps:
         with emulation:
             k = _emit_filled("emit", *step)
-            p = _emit_filled("emit_per_block", *step)
         ref = _emit_filled("plain", *step)
-        assert all(torch.equal(a, b) for a, b in zip(k, p))
         assert all(torch.equal(a, b) for a, b in zip(k, ref))
         written = [w + int((x != -2).sum()) for w, x in zip(written, k)]
     assert min(written) > 0 or case == "lane127"
@@ -1270,10 +1266,14 @@ def test_emulated_syncwarp_is_a_warp_barrier(emulation, tmp_path):
 
 
 def test_host_source_rewrites_every_launch():
+    """Every launch of every source is rewritten; and each function has
+    one kernel: no source keeps a `*_per_*_launch` entry."""
     for name in emu.SOURCES:
         with open(os.path.join(pt.CSRC_DIR, name + ".cu")) as f:
-            text = emu.host_source(f.read())
+            source = f.read()
+        text = emu.host_source(source)
         assert "<<<" not in text and "asm volatile" not in text
         assert "emu_launch(" in text
+        assert not re.search(r"\b\w+_per_\w+_launch\b", source)
     with pytest.raises(ValueError, match="no kernel launch"):
         emu.host_source("int main() { return 0; }")

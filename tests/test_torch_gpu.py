@@ -5,22 +5,20 @@ compute K1's function, against K1 bit for bit; the split kernel's
 pre-split planes against their plain version, and K4 against the
 ray-stream tracer at its tier bit for bit; the paired launch (K8), the
 pipelined walk (K9) and the ablation modes against K1/K2/K3; the
-warp-wide drains of K1, K3 closest and the instanced any hit against the
-per-thread pipelined walk (`per_thread=True`), of K2 and K6 any hit
-against the per-thread classic any-hit walk (`per_thread=True`), and of
-K7 and K9 against their per-thread walks in every output bit and per-ray
-count; K8's halves against the unpaired drains in outputs and counts and
-against its per-thread reference;
+warp-wide drains of K1 and K7 closest against K15's per-pair test on
+every (ray, block) pair, of K2 and K6 any hit against the per-thread
+classic walk (`profile="fix64"`) in flag and per-ray counts, of K3
+closest against its plain version, and of K6, K7 and K9 against K1/K3
+bit for bit; K8's halves against the unpaired drains in outputs and
+counts; the C entry's refusal of every walk code past 2;
 the leaf-pair kernel (K15) against its plain version, its chunked
-schedule against its one-thread-per-pair reference bit for bit, and the
-ray-stream tracer against K1/K2 bit for bit; the redesigned level prefix
-(K11) against its plain version on synthetic levels; the breadth-first
-pipeline's five kernels (K10-K14)
-against their plain versions level by level, the redesigned K10, K12,
-K13 and K14 against their references (`per_block`, `per_tile`,
-`per_unit`) bit for bit, and its
-tracer against K1/K2 bit for bit, with its capacities forced small; the
-wrappers' input checks
+schedule against its own per-pair path bit for bit, and the ray-stream
+tracer against K1/K2 bit for bit; the redesigned level prefix (K11)
+against its plain version on synthetic levels; the breadth-first
+pipeline's five kernels (K10-K14) against their plain versions level by
+level, K10, K12 and K14 also on their corner cases, K13 against K15 on
+its pairs bit for bit, and its tracer against K1/K2 bit for bit, with
+its capacities forced small; the wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU; the
 final render's bounces as captured CUDA graphs (render/graphs.py) against
 the eager bounces bit for bit, counters and launches included, and their
@@ -287,27 +285,28 @@ def test_reduced_tier_is_the_stream_tracer_bit_for_bit(soup_on_card, tier):
     assert torch.equal(rec.tri, ref.tri) and torch.equal(rec.bary, ref.bary)
 
 
-def _per_thread_any(rays, nodes, blocks, meta, per_ray=False):
-    """The flag of the per-thread classic any-hit walk over the whole wave
-    (`per_thread=True`, the reference of K2 and K6 any hit); with
-    `per_ray` its (7, R) counting table instead."""
-    if per_ray:
-        return pt.trace_wide_counts(rays, nodes, blocks, meta, True,
-                                    per_ray=True, per_thread=True)
-    return pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)[1]
+def _classic_any(rays, nodes, blocks, meta):
+    """The flag and the (7, R) counting table of the per-thread classic
+    any-hit walk, reached through `profile="fix64"`: the whole walk where
+    it ends within 64 pops, which it asserts."""
+    counts = pt.trace_wide_counts(rays, nodes, blocks, meta, True,
+                                  profile="fix64", per_ray=True)
+    assert int(counts[0].max()) < 64
+    return (pt.trace_wide(rays, nodes, blocks, meta, True,
+                          profile="fix64")[1], counts)
 
 
 def test_streamed_any_hit_equals_k2(soup_on_card):
     """K6 any hit, counted under its own key, is K2 in every output (both
     take the any-hit drain), and its flag is that of the per-thread
-    classic walk on every ray."""
+    classic walk (`profile="fix64"`) on every ray."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4096, 8.0, nodes.device)
     before = pt.LAUNCHES["stream+any"]
     k = pt.trace_wide(rays, nodes, blocks, meta, True, stream=True)
     assert pt.LAUNCHES["stream+any"] == before + 1
     _bitwise(k, pt.trace_wide(rays, nodes, blocks, meta, True), "stream+any")
-    assert torch.equal(k[1], _per_thread_any(rays, nodes, blocks, meta))
+    assert torch.equal(k[1], _classic_any(rays, nodes, blocks, meta)[0])
 
 
 @pytest.mark.parametrize("mode", [dict(mt_precision="high"),
@@ -372,40 +371,30 @@ def test_modes_that_cannot_run_raise(soup_on_card):
     # two_phase streamed, pipe with a tier / with stream / with a profile,
     # a profile with a tier, fix64 streamed, a paired split inside a
     # block, a reduced tier's closest hit (and paired) without the planes
-    # ... and the per-thread flag (4) of the default walk, which fp32
-    # closest hit has only with worder (none given here), beside a
-    # profile (any hit too), on the paired launch's pipelined walk, and an
-    # unknown walk
-    for any_hit, prec, stream, walk, prof, split in (
-            (0, 1, 0, 0, 0, 0), (0, 2, 0, 0, 0, 0), (2, 3, 0, 0, 0, 128),
-            (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
-            (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
-            (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128),
-            (0, 0, 0, 4, 0, 0), (1, 0, 0, 4, 2, 0), (0, 0, 0, 5, 2, 0),
-            (2, 0, 0, 5, 0, 128), (0, 0, 0, 3, 0, 0), (0, 0, 0, 7, 0, 0)):
+    # ... and every walk code past 2 (3-7), for closest, any hit and
+    # paired: 4-6 were the per-thread walks' flag on 0-2
+    bad = [(0, 1, 0, 0, 0, 0), (0, 2, 0, 0, 0, 0), (2, 3, 0, 0, 0, 128),
+           (0, 7, 0, 0, 0, 0), (0, 3, 1, 0, 0, 0), (0, 1, 0, 1, 0, 0),
+           (0, 0, 1, 1, 0, 0), (0, 0, 0, 2, 2, 0), (0, 1, 0, 0, 2, 0),
+           (0, 0, 1, 0, 3, 0), (2, 0, 0, 0, 0, 100), (2, 0, 0, 1, 0, 128)]
+    bad += [(a, 0, 0, w, 0, 128 if a == 2 else 0)
+            for a in (0, 1, 2) for w in range(3, 8)]
+    for any_hit, prec, stream, walk, prof, split in bad:
         rc = lib.wide_trace_launch(
             rays.data_ptr(), 256, split, nodes.data_ptr(), blocks.data_ptr(),
             None, meta.data_ptr(), None, None, any_hit, prec, stream, walk,
             prof,
             out.data_ptr(), sid.data_ptr(), out.data_ptr(), out.data_ptr(),
             None, None, torch.cuda.current_stream().cuda_stream)
-        assert rc != 0, (any_hit, prec, stream, walk, prof, split)
+        # cudaErrorInvalidValue
+        assert rc == 1, (any_hit, prec, stream, walk, prof, split)
     with pytest.raises(ValueError, match="fp32"):
         pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
                       mt_precision="high")
     with pytest.raises(ValueError, match="default walk"):
         pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
                       stream=True)
-    for any_hit, kw in ((False, {}), (True, dict(worder=worder)),
-                        (False, dict(worder=worder, mt_precision="high"))):
-        with pytest.raises(ValueError, match="per_thread"):
-            pt.trace_wide(rays, nodes, blocks, meta, any_hit,
-                          per_thread=True, **kw)
     assert pt.LAUNCHES == before
-    # any hit without worder has a per-thread reference (the classic walk,
-    # K2's and K6 any hit's): it launches, under its own key
-    pt.trace_wide(rays, nodes, blocks, meta, True, per_thread=True)
-    assert pt.LAUNCHES["any+per_thread"] == before["any+per_thread"] + 1
 
 
 @pytest.mark.parametrize("n_c,n_a", [(4096, 4096), (1000, 4096),
@@ -420,9 +409,8 @@ def test_modes_that_cannot_run_raise(soup_on_card):
 def test_paired_launch_is_k1_and_k2_bit_for_bit(soup_on_card, n_c, n_a, mode):
     """K8 in every mode, resident and streamed: one launch, each CTA on
     its half's unpaired drain: the closest half bit for bit the unpaired
-    closest mode at the tier / stream, the any-hit half bit for bit K2,
-    and both K8's per-thread reference's (`per_thread=True`, counted under
-    its own key); either wave longer, or empty. At fp32, resident and streamed,
+    closest mode at the tier / stream, the any-hit half bit for bit K2;
+    either wave longer, or empty. At fp32, resident and streamed,
     the counting tables of the halves are the unpaired K1 / K6 closest and
     K2 drains' row for row, drain rows included. A reduced tier reads the
     blocks' pre-split planes, split beforehand, as a tracer does once."""
@@ -450,13 +438,6 @@ def test_paired_launch_is_k1_and_k2_bit_for_bit(soup_on_card, n_c, n_a, mode):
             rc, nodes, blocks, meta, False, stream=stream, per_ray=True))
         assert torch.equal(ca, pt.trace_wide_counts(
             ra, nodes, blocks, meta, True, stream=stream, per_ray=True))
-    before = pt.LAUNCHES[key + "+per_thread"]
-    closest, occ = pt.trace_wide_paired(rc, ra, nodes, blocks, meta,
-                                        per_thread=True, **kw)
-    assert pt.LAUNCHES[key + "+per_thread"] == before + 1
-    for a, b in zip(closest, ref_c, strict=True):
-        assert torch.equal(a, b)
-    assert torch.equal(occ, ref_a[1])
     if n_c == n_a:
         assert (closest[1] >= 0).sum() > 100 and (occ > 0).sum() > 100
 
@@ -498,18 +479,27 @@ def test_pipelined_walk_is_k1_and_k2_bit_for_bit(soup_on_card, walk):
 def test_fp32_closest_hit_drains_warp_wide(soup_on_card):
     """K1 and K6 closest take the warp-wide drain over the fp32 blocks: on
     a wave of 4,001 rays (not a multiple of 32), every fifth one dead
-    (tmax below tmin), every output is the per-thread pipelined walk's bit
-    for bit, and the counting instantiation fills the drain rows
-    (0 < rounds <= distinct blocks <= MT tests), the same for both."""
+    (tmax below tmin), the hit set and t are those of K15's per-pair test
+    on every (ray, block) pair in every bit, the ids, u and v too outside
+    exact-t ties between blocks; K6 and K9 (`pipe=True`) give K1's every
+    output in every bit, and the counting instantiation fills the drain
+    rows (0 < rounds <= distinct blocks <= MT tests), the same for K1 and
+    K6."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4001, np.inf, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, pipe=True,
-                         per_thread=True)
-    for stream in (False, True):
-        k = pt.trace_wide(rays, nodes, blocks, meta, False, stream=stream)
-        _bitwise(k, pipe, f"stream={stream}")
-        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 300
+    k1 = pt.trace_wide(rays, nodes, blocks, meta, False)
+    for kw in (dict(stream=True), dict(pipe=True)):
+        _same_bits(pt.trace_wide(rays, nodes, blocks, meta, False, **kw), k1,
+                   str(kw))
+    hit = k1[1] >= 0
+    assert not hit[::5].any() and hit.sum() > 300
+    ref = kc.brute_closest(rs.stream_mt, rays, blocks, "highest")
+    assert torch.equal(ref[1] >= 0, hit)
+    _same_bits((k1[0][hit],), (ref[0][hit],), "t")
+    keep = hit & ~ref[4]
+    assert keep.sum() > 300
+    _same_bits([x[keep] for x in k1[1:]], [x[keep] for x in ref[1:4]], "ids")
     c1, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, False,
                                    stream=stream) for stream in (False, True))
     assert c1 == c6
@@ -518,24 +508,29 @@ def test_fp32_closest_hit_drains_warp_wide(soup_on_card):
 
 def test_instanced_fp32_closest_hit_drains_warp_wide(instanced_on_card):
     """K3 closest and its streamed mode take the warp-wide drain over the
-    fp32 blocks: on a 4,001-ray wave with every fifth ray dead, every
-    output, the instance id included, is the per-thread pipelined walk's
-    bit for bit; each launch is counted under its own key, and the
-    counting instantiation enters instances and fills the drain rows,
-    the same for both."""
+    fp32 blocks: on a 4,001-ray wave with every fifth ray dead, K3 is held
+    to its plain version (the K1 test's bars, instance ids equal where the
+    ids agree) and K6 and K9 (`pipe=True`) give its every output, the
+    instance id included, bit for bit; each launch is counted under its
+    own key, and the counting instantiation enters instances and fills
+    the drain rows, the same for both."""
     nodes, blocks, meta, feat, _ = instanced_on_card
     rays = _rays(4001, np.inf, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    pipe = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
-                         pipe=True, per_thread=True)
-    for stream in (False, True):
-        key = pt.launch_key(False, True, stream=stream)
+    k3 = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat)
+    for kw in (dict(stream=True), dict(pipe=True)):
+        key = pt.launch_key(False, True, **kw)
         before = pt.LAUNCHES[key]
         k = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat,
-                          stream=stream)
+                          **kw)
         assert pt.LAUNCHES[key] == before + 1
-        _bitwise(k, pipe, key)
-        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 100
+        _same_bits(k, k3, key)
+    hit = k3[1] >= 0
+    assert not hit[::5].any() and hit.sum() > 100
+    p = pt.trace_wide_inst_plain(rays, nodes, blocks, meta, False, feat)
+    _hold_to_plain(k3, p, "inst_closest")
+    same = hit & (k3[1] == p[1])
+    assert torch.equal(k3[4][same], p[4][same])
     c3, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, False, feat,
                                    stream=stream) for stream in (False, True))
     assert c3 == c6 and c3["inst_entries"] > 0
@@ -546,14 +541,13 @@ def test_streamed_any_hit_drains_warp_wide(soup_on_card):
     """K2 and K6 any hit take the warp-wide any-hit drain, one counted
     launch a wave each: on a 4,001-ray shadow wave with every fifth ray
     dead their flag is that of the per-thread classic walk
-    (`per_thread=True`) on every ray, t is tmax and u, v are 0; per ray
-    they pop that
-    walk's nodes and test its blocks; the drain rows are filled, the same
-    for both."""
+    (`profile="fix64"`, where every walk ends within 64 pops) on every
+    ray, t is tmax and u, v are 0; per ray they pop that walk's nodes and
+    test its blocks; the drain rows are filled, the same for both."""
     nodes, blocks, meta, _ = soup_on_card
     rays = _rays(4001, 8.0, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
-    occ = _per_thread_any(rays, nodes, blocks, meta)
+    occ, cref = _classic_any(rays, nodes, blocks, meta)
     for stream in (False, True):
         key = pt.launch_key(True, stream=stream)
         before = pt.LAUNCHES[key]
@@ -566,7 +560,6 @@ def test_streamed_any_hit_drains_warp_wide(soup_on_card):
     c2, c6 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True,
                                    stream=stream, per_ray=True)
               for stream in (False, True))
-    cref = _per_thread_any(rays, nodes, blocks, meta, per_ray=True)
     assert torch.equal(c2, c6) and torch.equal(c2[:2], cref[:2])
     assert not c2[2:5].any() and not cref[2:].any()
     rounds, distinct = int(c2[5].sum()), int(c2[6].sum())
@@ -577,17 +570,16 @@ def test_instanced_any_hit_drains_warp_wide(instanced_on_card):
     """The instanced any hit and its streamed mode take the warp-wide
     any-hit drain with the ten-lane instance entry, one counted launch a
     wave each: on a 4,001-ray shadow wave with every fifth ray dead every
-    output is the per-thread pipelined walk's (`pipe=True,
-    per_thread=True`) bit for bit, the flag agrees with the plain
-    version's on >= 99.5% of rays; the counting instantiation enters
-    instances and fills the drain rows, the same for both, and on every
-    ray that nothing occludes pops that walk's nodes and tests its
+    output is K9 any hit's (`pipe=True`) bit for bit, the flag agrees with
+    the plain version's on >= 99.5% of rays; the counting instantiation
+    enters instances and fills the drain rows, the same for both, and on
+    every ray that nothing occludes pops K9's nodes and tests its
     blocks."""
     nodes, blocks, meta, feat, _ = instanced_on_card
     rays = _rays(4001, 6.0, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
     pipe = pt.trace_wide(rays, nodes, blocks, meta, True, inst_feat=feat,
-                         pipe=True, per_thread=True)
+                         pipe=True)
     for stream in (False, True):
         key = pt.launch_key(True, True, stream=stream)
         before = pt.LAUNCHES[key]
@@ -601,8 +593,7 @@ def test_instanced_any_hit_drains_warp_wide(instanced_on_card):
     assert (k[1] == p[1]).float().mean() > 0.995
     c3, c6, c9 = (pt.trace_wide_counts(rays, nodes, blocks, meta, True, feat,
                                        per_ray=True, **kw)
-                  for kw in (dict(), dict(stream=True),
-                             dict(pipe=True, per_thread=True)))
+                  for kw in (dict(), dict(stream=True), dict(pipe=True)))
     assert torch.equal(c3, c6) and int(c3[2].sum()) > 0
     assert 0 < int(c3[5].sum()) <= int(c3[6].sum()) <= int(c3[1].sum())
     assert torch.equal(c3[:2, ~occ], c9[:2, ~occ])
@@ -615,24 +606,18 @@ def _same_bits(k, ref, mode):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32)), mode
 
 
-def _drain_against_per_thread(rays, nodes, blocks, meta, any_hit, kw, key,
-                              inst):
-    """One counted launch of a drained mode under its launch key, every
-    output bit for bit its per-thread reference's, node pops and MT block
-    tests equal ray by ray, the drain rows filled (the reference fills
-    none), instance entries on an instanced tree. Returns the outputs."""
+def _drained(rays, nodes, blocks, meta, any_hit, kw, key, inst):
+    """One counted launch of a drained mode under its launch key, the
+    drain rows of its counting instantiation filled, no refine test or
+    re-walk, instance entries on an instanced tree. Returns the
+    outputs."""
     before = dict(pt.LAUNCHES)
     k = pt.trace_wide(rays, nodes, blocks, meta, any_hit, **kw)
     after = dict(pt.LAUNCHES)
     assert after.pop(key) == before.pop(key) + 1 and after == before, key
-    ref = pt.trace_wide(rays, nodes, blocks, meta, any_hit, per_thread=True,
-                        **kw)
-    _same_bits(k, ref, key)
-    c, cref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
-                                    per_ray=True, per_thread=r, **kw)
-               for r in (False, True))
-    assert torch.equal(c[:2], cref[:2]), key
-    assert not c[3:5].any() and not cref[3:].any(), key
+    c = pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
+                             per_ray=True, **kw)
+    assert not c[3:5].any(), key
     assert 0 < int(c[5].sum()) <= int(c[6].sum()) <= int(c[1].sum()), key
     assert (int(c[2].sum()) > 0) == inst, key
     return k
@@ -644,23 +629,36 @@ def test_oct_order_closest_hit_drains_warp_wide(soup_on_card,
     """K7, fp32 closest hit under the octant order, resident and streamed,
     takes the fp32 drain with each lane's queue drained newest first: on a
     4,001-ray wave with every fifth ray dead, one counted launch under its
-    key, every output (the instance id included) bit for bit the
-    per-thread queued walk's under the same order, and per ray its node
-    pops and MT block tests."""
+    key; its hit set and t are K1's / K3's in every bit, and so is every
+    output (the instance id included) wherever the ids agree (elsewhere
+    two blocks tie at t); on one level its hit set and t are also K15's
+    per-pair test's on every (ray, block) pair, its ids too outside ties."""
     if tree == "soup":
         (nodes, blocks, meta, worder), feat = soup_on_card, None
     else:
         nodes, blocks, meta, feat, worder = instanced_on_card
     rays = _rays(4001, np.inf, nodes.device)
     rays[7, ::5] = rays[6, ::5] - 1.0
+    k1 = pt.trace_wide(rays, nodes, blocks, meta, False, inst_feat=feat)
+    ref = (kc.brute_closest(rs.stream_mt, rays, blocks, "highest")
+           if feat is None else None)
     for stream in (False, True):
         key = pt.launch_key(False, feat is not None, oct_order=True,
                             stream=stream)
-        k = _drain_against_per_thread(
-            rays, nodes, blocks, meta, False,
-            dict(inst_feat=feat, worder=worder, stream=stream), key,
-            feat is not None)
-        assert not (k[1][::5] >= 0).any() and (k[1] >= 0).sum() > 100
+        k = _drained(rays, nodes, blocks, meta, False,
+                     dict(inst_feat=feat, worder=worder, stream=stream), key,
+                     feat is not None)
+        hit = k[1] >= 0
+        assert not hit[::5].any() and hit.sum() > 100
+        assert torch.equal(hit, k1[1] >= 0)
+        _same_bits((k[0],), (k1[0],), key)
+        same = k[1] == k1[1]
+        assert same.float().mean() > 0.99, key
+        _same_bits([x[same] for x in k], [x[same] for x in k1], key)
+        if ref is not None:
+            keep = hit & ~ref[4]
+            _same_bits((k[0][hit],), (ref[0][hit],), key)
+            assert torch.equal(k[1][keep], ref[1][keep]), key
 
 
 @pytest.mark.parametrize("tree", ["soup", "instanced"])
@@ -669,27 +667,27 @@ def test_pipelined_walk_drains_warp_wide(soup_on_card, instanced_on_card,
                                          walk, tree):
     """K9, closest and any hit, with and without the flat push, takes the
     pipelined drain: on 4,001-ray waves with every fifth ray dead, one
-    counted launch under its key, every output bit for bit the per-thread
-    pipelined walk's, and per ray its node pops and MT block tests."""
+    counted launch under its key, every output bit for bit K1's / K2's
+    (K3's on the instanced tree), and the drain rows filled."""
     if tree == "soup":
         (nodes, blocks, meta, _), feat = soup_on_card, None
     else:
         nodes, blocks, meta, feat, _ = instanced_on_card
     if walk == "flat_walk" and not pt._single_block_leaves(meta):
-        for r in (False, True):
-            with pytest.raises(ValueError, match="exactly one MT block"):
-                pt.trace_wide(_rays(64, np.inf, nodes.device), nodes, blocks,
-                              meta, False, inst_feat=feat, flat_walk=True,
-                              per_thread=r)
+        with pytest.raises(ValueError, match="exactly one MT block"):
+            pt.trace_wide(_rays(64, np.inf, nodes.device), nodes, blocks,
+                          meta, False, inst_feat=feat, flat_walk=True)
         return
     for any_hit, tmax in ((False, np.inf), (True, 8.0 if feat is None else 6.0)):
         rays = _rays(4001, tmax, nodes.device)
         rays[7, ::5] = rays[6, ::5] - 1.0
         key = pt.launch_key(any_hit, feat is not None, pipe=True,
                             flat_walk=walk == "flat_walk")
-        k = _drain_against_per_thread(
-            rays, nodes, blocks, meta, any_hit,
-            dict(inst_feat=feat, **{walk: True}), key, feat is not None)
+        k = _drained(rays, nodes, blocks, meta, any_hit,
+                     dict(inst_feat=feat, **{walk: True}), key,
+                     feat is not None)
+        _same_bits(k, pt.trace_wide(rays, nodes, blocks, meta, any_hit,
+                                    inst_feat=feat), key)
         hit = k[1] > 0 if any_hit else k[1] >= 0
         assert not hit[::5].any() and hit.sum() > 100, key
 
@@ -713,8 +711,8 @@ def test_instanced_pipelined_walk_is_k3_bit_for_bit(instanced_on_card, walk):
 def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
     """One root whose 16 leaves own 24 blocks each: 384 against a backlog
     of 256 (no tree of accel.wide holds more than 64 under a node). What
-    does not fit is tested at once: K1 / K2 bit for bit, every block
-    tested, per ray the pops and tests of the per-thread walk."""
+    does not fit is tested at once: K1 / K2 bit for bit, and the drain's
+    own counts show every block tested."""
     _, blocks, _, _ = soup_on_card
     dev = blocks.device
     step = (blocks.shape[0] - 24) // 15      # overlapping 24-block ranges
@@ -734,12 +732,6 @@ def test_pipelined_walk_loses_no_block_of_an_overfull_node(soup_on_card):
     tests = pt.trace_wide_counts(_rays(4096, np.inf, dev), nodes, blocks,
                                  meta, False, pipe=True, per_ray=True)[1]
     assert int(tests.max()) == 384
-    for any_hit, tmax in ((False, np.inf), (True, 8.0)):
-        rays = _rays(4096, tmax, dev)
-        c, ref = (pt.trace_wide_counts(rays, nodes, blocks, meta, any_hit,
-                                       pipe=True, per_ray=True, per_thread=r)
-                  for r in (False, True))
-        assert torch.equal(c[:2], ref[:2])
 
 
 def test_profile_modes_do_what_they_must(soup_on_card):
@@ -835,18 +827,19 @@ def test_stream_mt_kernel_matches_plain_version(soup_on_card, tier):
 
 
 @pytest.mark.parametrize("tier", ["highest", "high", "default"])
-def test_chunked_stream_mt_is_the_per_pair_kernel(soup_on_card, tier):
-    """The chunked K15 against its one-thread-per-pair reference on the
-    card, t, slot, u and v in every bit: every level's real pairs, and the
-    largest level's pairs rearranged (tests/torch_kernel_cases.py) into
-    runs longer than a chunk, runs of one pair, one block for all and a
-    wave with dead pairs (block -1, ids out of range); one counted launch
-    of each kernel per call."""
+def test_chunked_stream_mt_is_its_single_pair_path(soup_on_card, tier):
+    """The chunked K15 on the card against itself on the same pairs with
+    every pair in a run of its own (a padding pair after each), so that
+    every chunk tests each pair alone (its per-pair code): t, slot, u and
+    v in every bit, on every level's real pairs and on the largest level's
+    pairs rearranged (tests/torch_kernel_cases.py) into runs longer than a
+    chunk, runs of one pair, one block for all and a wave with dead pairs
+    (block -1, ids out of range); one counted launch per call."""
     nodes, blocks, meta, _ = soup_on_card
     args = (nodes.reshape(-1, 128), blocks, meta)
     for any_hit, tmax in ((False, float("inf")), (True, 8.0)):
         rays = _rays(4096, tmax, nodes.device)
-        key, ref_key = (rs.launch_key(any_hit, tier, r) for r in (False, True))
+        key = rs.launch_key(any_hit, tier)
         calls = _level_pairs(args, rays, any_hit, tmax)
         wave, limit, pair_ray, pair_block = max(
             calls, key=lambda c: c[2].shape[0])
@@ -855,14 +848,15 @@ def test_chunked_stream_mt_is_the_per_pair_kernel(soup_on_card, tier):
             kc.pair_cases(pair_ray, pair_block, wave.shape[1],
                           blocks.shape[0]).values()]
         for pr, pb in lists:
-            before = (rs.LAUNCHES[key], rs.LAUNCHES[ref_key])
+            ray1, block1 = kc.one_pair_runs(pr, pb, blocks.shape[0])
+            assert not kc.chunks_staged(block1).any()
+            before = rs.LAUNCHES[key]
             k = rs.stream_mt(wave, limit, pr, pb, blocks, any_hit, tier)
-            p = rs.stream_mt(wave, limit, pr, pb, blocks, any_hit, tier,
-                             per_pair=True)
             torch.cuda.synchronize()
-            assert (rs.LAUNCHES[key], rs.LAUNCHES[ref_key]) == (
-                before[0] + 1, before[1] + 1)
-            assert all(_bits(a, b) for a, b in zip(k, p))
+            assert rs.LAUNCHES[key] == before + 1
+            p = rs.stream_mt(wave, limit, ray1, block1, blocks, any_hit, tier)
+            assert (p[1][1::2] == -1).all()
+            assert all(_bits(a, b[0::2]) for a, b in zip(k, p))
         assert (k[1] >= 0).sum() > 100
 
 
@@ -1044,21 +1038,21 @@ def _filled(kernel, dev, n_lanes, *args):
 
 
 @pytest.mark.parametrize("tier", ["highest", "high", "default"])
-def test_bf_mt_is_the_per_tile_kernel(soup_on_card, tier):
-    """The redesigned K13 against its per-tile reference on the card,
-    t, slot id, u and v in every bit over the tiles below the count: the
-    real MT lists of a closest and an any-hit wave and their corner cases
-    (tests/torch_kernel_cases.py: full tiles, 1, 2 and 33 live lanes, a
-    region of one block, alternating blocks, dead lanes and block ids out
-    of range, exact-t twins); one counted launch of each per call, and
-    nothing written past the count."""
+def test_bf_mt_is_k15(soup_on_card, tier):
+    """The redesigned K13 against K15 on the card (both run
+    mt_chunk.cuh's task test): t, slot id, u and v in every bit over the
+    tiles below the count, K15 given the same (ray, block) pairs and each
+    ray's tmax as its limit: the real MT lists of a closest and an any-hit
+    wave and their corner cases (tests/torch_kernel_cases.py: full tiles,
+    1, 2 and 33 live lanes, a region of one block, alternating blocks,
+    dead lanes and block ids out of range, exact-t twins); one counted
+    launch per call, and nothing written past the count."""
     nodes, blocks, meta, _ = soup_on_card
     dev = nodes.device
     for any_hit, seg in _real_lists(soup_on_card).items():
         rec, rays = seg["levels"][-1], seg["rays"]
         n = int(seg["stat"][-1, bf.MT_CUR])
-        key, ref_key = (bf.launch_key("mt", any_hit, tier, r)
-                        for r in (False, True))
+        key = bf.launch_key("mt", any_hit, tier)
         cases = kc.mt_cases(rec["mt_pairs"], rec["mt_units"], n,
                             rays.shape[1], blocks.shape[0])
         for name, (pairs, units, count) in cases.items():
@@ -1067,15 +1061,14 @@ def test_bf_mt_is_the_per_tile_kernel(soup_on_card, tier):
             level[bf.MT_CUR] = count
             args = (pairs.to(dev), units.to(dev), level, rays, blk, any_hit,
                     tier)
-            before = (bf.LAUNCHES[key], bf.LAUNCHES[ref_key])
+            before = bf.LAUNCHES[key]
             k = bf.bf_mt(*args)
-            p = bf.bf_mt(*args, per_tile=True)
             torch.cuda.synchronize()
-            assert (bf.LAUNCHES[key], bf.LAUNCHES[ref_key]) == (
-                before[0] + 1, before[1] + 1)
+            assert bf.LAUNCHES[key] == before + 1
+            p = kc.k15_of_tiles(rs.stream_mt, args[0], args[1], count, rays,
+                                blk, any_hit, tier)
             lanes = count * 128
-            assert all(_bits(a[:lanes], b[:lanes]) for a, b in zip(k, p)), \
-                name
+            assert all(_bits(a[:lanes], b) for a, b in zip(k, p)), name
             assert (k[1][:lanes] >= 0).sum() > 0
         cap = units.shape[0]
         got = _filled("mt", dev, cap * 128, args[0], args[1], level, cap,
@@ -1085,13 +1078,12 @@ def test_bf_mt_is_the_per_tile_kernel(soup_on_card, tier):
         assert (got[1][:lanes] != SENTINEL).all()
 
 
-def test_bf_bwd_is_the_per_unit_kernel(soup_on_card):
-    """The redesigned K14 against its per-unit reference and
-    bf_bwd_plain on the card, every output bit: every level of a closest
-    and an any-hit wave, deepest first, and a synthetic level (every
-    child selected, none, inner and MT children mixed, equal t under
-    different slot ids); one counted launch of each per call, and nothing
-    written past the count."""
+def test_bf_bwd_is_its_plain_version(soup_on_card):
+    """The redesigned K14 against bf_bwd_plain on the card, every output
+    bit: every level of a closest and an any-hit wave, deepest first, and
+    a synthetic level (every child selected, none, inner and MT children
+    mixed, equal t under different slot ids); one counted launch per
+    call, and nothing written past the count."""
     dev = soup_on_card[0].device
     steps = []
     for seg in _real_lists(soup_on_card).values():
@@ -1110,14 +1102,11 @@ def test_bf_bwd_is_the_per_unit_kernel(soup_on_card):
     steps.append(synthetic)
     for step in steps:
         n = int(step[1][bf.NEXT]) * 128
-        before = (bf.LAUNCHES["bwd"], bf.LAUNCHES["bwd+per_unit"])
+        before = bf.LAUNCHES["bwd"]
         k = bf.bf_bwd(*step)
-        p = bf.bf_bwd(*step, per_unit=True)
         torch.cuda.synchronize()
-        assert (bf.LAUNCHES["bwd"], bf.LAUNCHES["bwd+per_unit"]) == (
-            before[0] + 1, before[1] + 1)
+        assert bf.LAUNCHES["bwd"] == before + 1
         ref = bf.bf_bwd_plain(*step)
-        assert all(_bits(a[:n], b[:n]) for a, b in zip(k, p))
         assert all(_bits(a[:n], b[:n]) for a, b in zip(k, ref))
     masks, level, dn, uoff, base, child, mt = synthetic
     cap, n = masks.shape[0], int(level[bf.NEXT]) * 128
@@ -1140,14 +1129,14 @@ def _synthetic(make, cases, keys, dev):
     return out
 
 
-def test_bf_expand_is_the_per_block_kernel(soup_on_card):
-    """The redesigned K10 against its per-block reference and
-    bf_expand_plain on the card, masks and counts in every bit: every
+def test_bf_expand_is_its_plain_version(soup_on_card):
+    """The redesigned K10 against bf_expand_plain on the card, masks and
+    counts in every bit: every
     level of a closest and an any-hit wave (dead tail lanes, levels far
     below their capacity) and the synthetic levels (a full level of
     12,000 units, a count far below the capacity, dead tiles, ids out of
-    range, zero direction components, empty slots); one counted launch of
-    each per call, and nothing written past the count."""
+    range, zero direction components, empty slots); one counted launch
+    per call, and nothing written past the count."""
     nodes = soup_on_card[0]
     dev = nodes.device
     steps = []
@@ -1159,14 +1148,11 @@ def test_bf_expand_is_the_per_block_kernel(soup_on_card):
                         ("units", "level", "pairs", "rays", "nodes"), dev)
     for step in steps:
         n = int(step[1][bf.NEXT])
-        before = (bf.LAUNCHES["expand"], bf.LAUNCHES["expand+per_block"])
+        before = bf.LAUNCHES["expand"]
         k = bf.bf_expand(*step)
-        p = bf.bf_expand(*step, per_block=True)
         torch.cuda.synchronize()
-        assert (bf.LAUNCHES["expand"], bf.LAUNCHES["expand+per_block"]) == (
-            before[0] + 1, before[1] + 1)
+        assert bf.LAUNCHES["expand"] == before + 1
         ref = bf.bf_expand_plain(*step)
-        assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, p))
         assert all(torch.equal(a[:n], b[:n]) for a, b in zip(k, ref))
         assert int(k[1][:n].sum()) > 0
     units, level, pairs, rays, nodes = steps[-5]          # "sparse"
@@ -1181,14 +1167,13 @@ def test_bf_expand_is_the_per_block_kernel(soup_on_card):
     assert (counts[:n] != SENTINEL).all()
 
 
-def test_bf_emit_is_the_per_block_kernel(soup_on_card):
-    """The redesigned K12 against its per-block reference and
-    bf_emit_plain on the card, every entry of both lists (filled with -2
-    beforehand): every level of a closest and an any-hit wave and the
-    synthetic levels (every bit set, one child in lane 127 alone,
-    regions in both lists, a region not taken between two taken, many
-    units of one node, many units past the count, a level of 12,000
-    units); one counted launch of each per call."""
+def test_bf_emit_is_its_plain_version(soup_on_card):
+    """The redesigned K12 against bf_emit_plain on the card, every entry
+    of both lists (filled with -2 beforehand): every level of a closest
+    and an any-hit wave and the synthetic levels (every bit set, one child
+    in lane 127 alone, regions in both lists, a region not taken between
+    two taken, many units of one node, many units past the count, a level
+    of 12,000 units); one counted launch per call."""
     dev = soup_on_card[0].device
     steps = []
     for seg in _real_lists(soup_on_card).values():
@@ -1202,21 +1187,17 @@ def test_bf_emit_is_the_per_block_kernel(soup_on_card):
                          "next_lanes", "mt_lanes"), dev)
     for *args, next_lanes, mt_lanes in steps:
         outs = []
-        for emit in (bf.bf_emit, lambda *a: bf.bf_emit(*a, per_block=True),
-                     bf.bf_emit_plain):
+        for emit in (bf.bf_emit, bf.bf_emit_plain):
             lists = (torch.full((next_lanes,), -2, dtype=torch.int32,
                                 device=dev),
                      torch.full((mt_lanes,), -2, dtype=torch.int32,
                                 device=dev))
-            before = (bf.LAUNCHES["emit"], bf.LAUNCHES["emit+per_block"])
+            before = bf.LAUNCHES["emit"]
             emit(*args, *lists)
             torch.cuda.synchronize()
-            ran = (bf.LAUNCHES["emit"] - before[0],
-                   bf.LAUNCHES["emit+per_block"] - before[1])
-            assert ran == ((1, 0), (0, 1), (0, 0))[len(outs)]
+            assert bf.LAUNCHES["emit"] - before == (1, 0)[len(outs)]
             outs.append(lists)
-        (k, p, ref) = outs
-        assert all(torch.equal(a, b) for a, b in zip(k, p))
+        (k, ref) = outs
         assert all(torch.equal(a, b) for a, b in zip(k, ref))
         assert sum(int((x != -2).sum()) for x in k) > 0
 

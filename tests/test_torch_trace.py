@@ -135,6 +135,36 @@ def test_packet_tracer_active_mask_and_sorted_waves():
     assert torch.equal(full.tri, ref.tri) and torch.equal(full.t, ref.t)
 
 
+def test_packet_tracer_checks_its_mode_once(monkeypatch):
+    """A packet tracer checks its mode (and on CUDA its tree) once, when it
+    is built: its closed and any-hit waves and its paired waves check
+    nothing more, and trace what the wrapper traces."""
+    calls = []
+    check = pt.check_mode
+
+    def counted(*args, **kw):
+        calls.append(args)
+        return check(*args, **kw)
+
+    monkeypatch.setattr(pt, "check_mode", counted)
+    wide, _ = _build(*_random_soup(t=600, seed=3), leaf_cap=16)
+    tc, ta = _port_packet(wide)
+    assert len(calls) == 1
+    o, d = (torch.from_numpy(x) for x in _rays(seed=5, r=256))
+    recs = [tc(o, d, TMIN, float("inf")) for _ in range(3)]
+    occ = [ta(o, d, TMIN, TMAX_ANY) for _ in range(3)]
+    pair = tc.paired(o, d, TMIN, float("inf"), o, d, TMIN, TMAX_ANY)
+    assert len(calls) == 1
+    ref_c, ref_a = _port_packet(wide, trace_fn=pt.trace_wide_reference)
+    ref = ref_c(o, d, TMIN, float("inf"))
+    # the plain version's tracer checks at its build and with every wave
+    assert len(calls) == 3
+    for rec in (*recs, pair[0]):
+        assert torch.equal(rec.t, ref.t) and torch.equal(rec.tri, ref.tri)
+    for x in (*occ, pair[1]):
+        assert torch.equal(x, ref_a(o, d, TMIN, TMAX_ANY))
+
+
 def test_wrapper_dispatch_by_device():
     """CPU tensors run the plain version; other devices are refused (a
     CUDA tensor launches the kernel or raises)."""

@@ -8,7 +8,12 @@ tests/test_torch_gpu.py (on the card).
 block, into the shapes the chunked K15 must get right: runs longer than a
 chunk, runs of one pair, one block for every pair, and padding or ids out
 of range; `tied_blocks` gives every hit an exact-t twin in the block's
-other half. `prefix_level` builds one level of the breadth-first pipeline
+other half. The oracles built on K15's per-pair code: `one_pair_runs`
+puts every pair in a run of its own, so that the chunked K15 tests each
+alone (`chunks_staged` says which chunks stage their blocks),
+`brute_closest` reduces K15 on every (ray, block) pair to each ray's
+closest hit, and `k15_of_tiles` runs K15 on the pairs of K13's MT
+tiles. `prefix_level` builds one level of the breadth-first pipeline
 (its units, per-child counts, the tree's child metas and the list
 capacities) with a chosen number of units and distinct nodes, regions of
 exactly 128 lanes among them, and capacities that fit or overflow.
@@ -90,6 +95,71 @@ def tied_blocks(blocks):
     out = blocks.clone().view(blocks.shape[0], 10, 4, 64)
     out[..., 32:] = out[..., :32]
     return out.view(blocks.shape)
+
+
+def chunks_staged(pair_block):
+    """Whether each chunk of the chunked K15 stages its blocks: the chunks
+    of csrc/stream_mt.cu `chunk_pairs`, each staging where its runs average
+    kMinRun = 32 pairs or more (else its threads take the per-pair code,
+    `test_pair`)."""
+    b = pair_block.cpu().numpy()
+    n, chunk = b.size, CHUNK
+    while chunk > LANES and n < chunk * FULL_CHUNKS:
+        chunk //= 2
+    starts = np.r_[True, b[1:] != b[:-1]]
+    return np.array([(1 + int(starts[c0 + 1:c0 + chunk].sum())) * 32
+                     <= min(chunk, n - c0) for c0 in range(0, n, chunk)])
+
+
+def one_pair_runs(pair_ray, pair_block, n_blocks):
+    """The pairs with a padding pair (a block past the table, which
+    misses) after each, so that every run holds one pair and every chunk
+    takes the per-pair path; pair i sits at 2i."""
+    pad = max(int(pair_block.max()), n_blocks) + 1
+    ray = torch.stack([pair_ray, torch.zeros_like(pair_ray)], 1).reshape(-1)
+    block = torch.stack([pair_block, torch.full_like(pair_block, pad)],
+                        1).reshape(-1)
+    return ray.contiguous(), block.contiguous()
+
+
+def brute_closest(stream_mt, rays, blocks, tier):
+    """Closest hit of every ray over every block through K15 (`stream_mt`,
+    the wrapper or the emulated kernel) on every (ray, block) pair, reduced
+    per ray: (t, id, u, v, tied), tied where another block gives the same
+    least t. The pairs go ray by ray, so that neighbouring pairs name
+    other blocks and every chunk tests each pair alone (its per-pair code,
+    csrc/mt_block.cuh's block test)."""
+    n, nb = rays.shape[1], blocks.shape[0]
+    dev = rays.device
+    pair_ray = torch.arange(n, dtype=torch.int32,
+                            device=dev).repeat_interleave(nb)
+    pair_block = torch.arange(nb, dtype=torch.int32, device=dev).repeat(n)
+    assert nb > 1 and not chunks_staged(pair_block).any()
+    t, slot, u, v = (x.view(n, nb) for x in stream_mt(
+        rays, rays[7].clone(), pair_ray, pair_block, blocks, False,
+        tier))
+    tb, arg = t.min(dim=1)
+    tied = (t == tb[:, None]).sum(dim=1) > 1
+    pick = arg[:, None]
+    return (tb, slot.gather(1, pick)[:, 0], u.gather(1, pick)[:, 0],
+            v.gather(1, pick)[:, 0], tied)
+
+
+def k15_of_tiles(stream_mt, pairs, units, count, rays, blocks, any_hit,
+                 tier):
+    """K15 (`stream_mt`) on the (ray, block) pairs of K13's first `count`
+    MT tiles, each block id clamped into the table as K13 clamps it and
+    each ray's limit its tmax, in K13's encoding (any hit: sid 0 where
+    occluded)."""
+    lanes = count * LANES
+    block = units[:count].clamp(0, blocks.shape[0] - 1)
+    t, sid, u, v = stream_mt(rays, rays[7].clone(),
+                             pairs[:lanes].contiguous(),
+                             block.repeat_interleave(LANES).contiguous(),
+                             blocks, any_hit, tier)
+    if any_hit:
+        sid = torch.where(sid >= 0, 0, -1).to(torch.int32)
+    return t, sid, u, v
 
 
 PREFIX_CASES = ("large", "overflow", "empty", "exact128")

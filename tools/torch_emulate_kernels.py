@@ -480,21 +480,18 @@ def split_planes(blocks):
 def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
                worder=None, mt_precision="highest", stream=False,
                pipe=False, flat_walk=False, profile="none", count=False,
-               planes=None, per_thread=False):
+               planes=None):
     """`packet_trace.trace_wide` (or, with `count`, the (7, R) table of
     `trace_wide_counts(per_ray=True)`) through the emulated kernel; a
-    reduced tier's closest hit reads `planes`, which it then needs;
-    `per_thread` takes the mode's per-thread reference walk."""
+    reduced tier's closest hit reads `planes`, which it then needs."""
     pt.check_mode(mt_precision, stream, pipe, flat_walk, profile)
-    if per_thread:
-        pt._check_per_thread(any_hit, worder, pipe or flat_walk,
-                             mt_precision, inst_feat is not None)
     prec = "highest" if any_hit else mt_precision
+    pt._check_tree(rays.device, nodes, blocks, meta, inst_feat, worder,
+                   planes, prec)
     out = pt._launch(rays, nodes, blocks, meta, bool(any_hit), inst_feat,
                      count, worder, prec, stream,
                      pt._walk_code(meta, pipe or flat_walk, flat_walk,
-                                   checked=False), profile, planes=planes,
-                     per_thread=per_thread)
+                                   checked=False), profile, planes=planes)
     if count:
         return out[5]
     return out[:5] if out[4] is not None else out[:4]
@@ -502,36 +499,31 @@ def trace_wide(rays, nodes, blocks, meta, any_hit, inst_feat=None,
 
 def trace_wide_paired(rays_c, rays_a, nodes, blocks, meta,
                       mt_precision="highest", stream=False, planes=None,
-                      count=False, per_thread=False):
+                      count=False):
     """`packet_trace.trace_wide_paired` (or, with `count`, the two (7, R)
     tables of `trace_wide_paired_counts(per_ray=True)`) through the
-    emulated kernel; `per_thread` takes K8's per-thread reference
-    kernel."""
+    emulated kernel."""
     pt.check_mode(mt_precision, stream)
-    walk = pt.PER_THREAD if per_thread else 0
+    pt._check_tree(rays_c.device, nodes, blocks, meta, planes=planes,
+                   closest_tier=mt_precision)
     nc = rays_c.shape[1]
     rays, n_split = pt.pair_rays(rays_c, rays_a)
     t, sid, u, v, _, counts = pt._launch(rays, nodes, blocks, meta, 2, None,
                                          count, None, mt_precision, stream,
-                                         walk, n_split=n_split,
-                                         planes=planes)
+                                         n_split=n_split, planes=planes)
     if count:
         return pt.split_paired_counts(counts, nc, n_split, per_ray=True)
     return (t[:nc], sid[:nc], u[:nc], v[:nc]), sid[n_split:]
 
 
 def stream_mt(rays, limit, pair_ray, pair_block, blocks, any_hit,
-              mt_precision="highest", per_pair=False):
-    """`raystream.stream_mt` through the emulated kernel (`per_pair`: the
-    one-thread-per-pair reference kernel)."""
+              mt_precision="highest"):
+    """`raystream.stream_mt` through the emulated kernel."""
     n = pair_ray.shape[0]
     t, u, v = (torch.empty(n) for _ in range(3))
     slot = torch.empty(n, dtype=torch.int32)
     if n:
-        lib = pt._libs["stream_mt"]
-        entry = (lib.stream_mt_per_pair_launch if per_pair
-                 else lib.stream_mt_launch)
-        rc = entry(
+        rc = pt._libs["stream_mt"].stream_mt_launch(
             rays.data_ptr(), rays.shape[1], limit.data_ptr(),
             pair_ray.data_ptr(), pair_block.data_ptr(), n, blocks.data_ptr(),
             blocks.shape[0], int(bool(any_hit)), pt.PRECISIONS[mt_precision],

@@ -11,19 +11,14 @@ hit and shadow wave as any hit, the waves chip_smoke.py builds.
         [--kernels K15,K10,K11,K12,K13,K14]
 
 K15 runs at "highest" on the pairs its tracer recorded and at "high" and
-"default" on the same pairs, and, where the checkout has it, its
-one-thread-per-pair reference (`per_pair=True`) beside it; K10 on each
-level's recorded inputs and K12 on each level's recorded inputs and
-regions, writing into lists of the level's capacities, each beside the
-kernel before its redesign (`per_block=True`) where the checkout has it;
-K11 on each level's recorded inputs, writing into buffers of the level's
-capacities;
-K13 at every tier on the whole recorded MT list (the tracer's one launch
-a wave) and on each level's slice of it (the tiles between two MT
-cursors), and K14 on each level's recorded inputs (deepest first, each
-level's children the results of the level below), each beside the
-kernel before its redesign (`per_tile=True`, `per_unit=True`) where the
-checkout has it.
+"default" on the same pairs; K10 on each level's recorded inputs and K12
+on each level's recorded inputs and regions, writing into lists of the
+level's capacities; K11 on each level's recorded inputs, writing into
+buffers of the level's capacities; K13 at every tier on the whole
+recorded MT list (the tracer's one launch a wave) and on each level's
+slice of it (the tiles between two MT cursors), and K14 on each level's
+recorded inputs (deepest first, each level's children the results of the
+level below).
 Each time is device time: CUDA events around --reps calls queued behind
 a sleep on the stream (`device_ms`), so that the host's launch overhead
 does not count, per level and summed over the wave's levels. `--root`
@@ -39,7 +34,6 @@ tiles per level. Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import os
 import subprocess
@@ -121,10 +115,6 @@ def main():
     nodes = flat.wbvh_nodes.reshape(-1, 16, 8).contiguous()
     blocks, meta = flat.wbvh_tris, flat.wbvh_meta
     waves = cs._waves(cs._wave_points(flat, dev), nodes, dev)
-    per_pair = "per_pair" in inspect.signature(rs.stream_mt).parameters
-    per_tile = "per_tile" in inspect.signature(bf.bf_mt).parameters
-    per_unit = "per_unit" in inspect.signature(bf.bf_bwd).parameters
-    per_block = "per_block" in inspect.signature(bf.bf_expand).parameters
 
     def timed(fn):
         return device_ms(torch, fn, args.reps)
@@ -141,16 +131,11 @@ def main():
         pair = rs.make_stream_tracer(flat.wbvh_nodes, blocks, meta,
                                      mt_fn=record)
         pair[int(any_hit)](o, d, rays[6], rays[7])
-        kinds = [(tier, {}) for tier in TIERS]
-        if per_pair:
-            kinds += [(f"{tier}+per_pair", dict(per_pair=True))
-                      for tier in TIERS]
-        for kind, kw in kinds:
-            tier = kind.split("+")[0]
+        for tier in TIERS:
             per_level = [timed(lambda lv=lv: rs.stream_mt(
-                *lv, blocks, any_hit, tier, **kw)) for lv in levels]
-            out["ms"][f"{name} K15 {kind}"] = sum(per_level)
-            out["levels"][f"{name} K15 {kind}"] = per_level
+                *lv, blocks, any_hit, tier)) for lv in levels]
+            out["ms"][f"{name} K15 {tier}"] = sum(per_level)
+            out["levels"][f"{name} K15 {tier}"] = per_level
         out["launches"][f"{name} K15"] = len(levels)
         out["pairs"][f"{name} K15"] = [int(lv[2].shape[0]) for lv in levels]
         out["blocks"][f"{name} K15"] = [
@@ -158,29 +143,24 @@ def main():
 
     def k10_k12_levels(name, seg, stat, which):
         """K10 (`which` "K10") or K12 ("K12") on each level's recorded
-        inputs, and the kernel before the redesign where there is one."""
+        inputs."""
         mt_cap = seg["levels"][-1]["mt_units"].shape[0]
-        kinds = [("", {})] + ([("+per_block", dict(per_block=True))]
-                              if per_block else [])
-        for kind, kw in kinds:
-            per_level = []
-            for lvl, lv in enumerate(seg["levels"][:-1]):
-                if which == "K10":
-                    fn = (lambda lv=lv, lvl=lvl, kw=kw: bf.bf_expand(
-                        lv["units"], stat[lvl], lv["pairs"], seg["rays"],
-                        nodes, **kw))
-                else:
-                    lists = (torch.empty(max(lv["cap_next"], 1) * 128,
-                                         dtype=torch.int32, device=dev),
-                             torch.empty(mt_cap * 128, dtype=torch.int32,
-                                         device=dev))
-                    fn = (lambda lv=lv, lvl=lvl, kw=kw, lists=lists:
-                          bf.bf_emit(lv["pairs"], lv["masks"], stat[lvl],
-                                     lv["dn"], lv["uoff"], lv["base"],
-                                     *lists, **kw))
-                per_level.append(timed(fn))
-            out["ms"][f"{name} {which}{kind}"] = sum(per_level)
-            out["levels"][f"{name} {which}{kind}"] = per_level
+        per_level = []
+        for lvl, lv in enumerate(seg["levels"][:-1]):
+            if which == "K10":
+                fn = (lambda lv=lv, lvl=lvl: bf.bf_expand(
+                    lv["units"], stat[lvl], lv["pairs"], seg["rays"], nodes))
+            else:
+                lists = (torch.empty(max(lv["cap_next"], 1) * 128,
+                                     dtype=torch.int32, device=dev),
+                         torch.empty(mt_cap * 128, dtype=torch.int32,
+                                     device=dev))
+                fn = (lambda lv=lv, lvl=lvl, lists=lists: bf.bf_emit(
+                    lv["pairs"], lv["masks"], stat[lvl], lv["dn"],
+                    lv["uoff"], lv["base"], *lists))
+            per_level.append(timed(fn))
+        out["ms"][f"{name} {which}"] = sum(per_level)
+        out["levels"][f"{name} {which}"] = per_level
         out["launches"][f"{name} {which}"] = len(seg["levels"]) - 1
         out["pairs"][f"{name} units"] = [
             int(r[0]) for r in seg["stat"].tolist()[:-1]]
@@ -212,15 +192,10 @@ def main():
         # aligned tensors)
         slices = [(mtr["mt_pairs"][a * 128:b * 128].clone(),
                    mtr["mt_units"][a:b].clone()) for a, b in cuts]
-        kinds = [(tier, {}) for tier in TIERS]
-        if per_tile:
-            kinds += [(f"{tier}+per_tile", dict(per_tile=True))
-                      for tier in TIERS]
-        for kind, kw in kinds:
-            tier = kind.split("+")[0]
-            out["ms"][f"{name} K13 {kind}"] = timed(lambda: bf.bf_mt(
+        for tier in TIERS:
+            out["ms"][f"{name} K13 {tier}"] = timed(lambda: bf.bf_mt(
                 mtr["mt_pairs"], mtr["mt_units"], stat[-1], seg["rays"],
-                blocks, any_hit, tier, **kw))
+                blocks, any_hit, tier))
             per_level = []
             for (a, b), (pairs, units) in zip(cuts, slices):
                 row = torch.zeros(8, dtype=torch.int32, device=dev)
@@ -228,8 +203,8 @@ def main():
                 per_level.append(timed(
                     lambda pairs=pairs, units=units, row=row: bf.bf_mt(
                         pairs, units, row, seg["rays"], blocks, any_hit,
-                        tier, **kw)) if b > a else 0.0)
-            out["levels"][f"{name} K13 {kind}"] = per_level
+                        tier)) if b > a else 0.0)
+            out["levels"][f"{name} K13 {tier}"] = per_level
         out["launches"][f"{name} K13"] = 1
         out["pairs"][f"{name} K13 tiles"] = [b - a for a, b in cuts]
 
@@ -238,21 +213,16 @@ def main():
         are shallowest first."""
         levels = seg["levels"]
         mt = levels[-1]["mt"]
-        kinds = [("", {})] + ([("+per_unit", dict(per_unit=True))]
-                              if per_unit else [])
-        per_level = {kind: [] for kind, _ in kinds}
+        per_level = []
         child = None
         for lvl in range(len(levels) - 2, -1, -1):
             lv = levels[lvl]
             a = (lv["masks"], stat[lvl], lv["dn"], lv["uoff"], lv["base"],
                  child, mt)
-            for kind, kw in kinds:
-                per_level[kind].insert(0, timed(
-                    lambda a=a, kw=kw: bf.bf_bwd(*a, **kw)))
+            per_level.insert(0, timed(lambda a=a: bf.bf_bwd(*a)))
             child = bf.bf_bwd(*a)
-        for kind, _ in kinds:
-            out["ms"][f"{name} K14{kind}"] = sum(per_level[kind])
-            out["levels"][f"{name} K14{kind}"] = per_level[kind]
+        out["ms"][f"{name} K14"] = sum(per_level)
+        out["levels"][f"{name} K14"] = per_level
         out["launches"][f"{name} K14"] = len(levels) - 1
 
     tc, ta = bf.make_bf_tracer(flat.wbvh_nodes, blocks, meta)

@@ -30,8 +30,10 @@ only). Prints one JSON line per run: the card and its power limit, the
 per-step wall times (host clock around work that ends in a device
 synchronise; the first step pays first-use set-up), the rays per spp (the
 integrator's own count) and, with --profile, one more spp under
-torch.profiler: device kernel time, busy share, kernel launches and the
-trace kernels' device time by mode. Needs a CUDA device.
+torch.profiler, read by portbench/profiling.py's summary (the benchmark's
+reading): device busy time and share, trace and other kernel time,
+kernel launches, host synchronisations and the device operations that
+took the most time. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ CONFIGS = {
 # the configs traced by a tracer pair of their own (`tracers=`)
 TRACERS = ("raystream", "pipe")
 SCENES = {"bistro": dict(columns=24, rows=12)}   # make_colonnade_scene's
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 def main():
@@ -149,10 +152,14 @@ def main():
 
 
 def _profile(integrator, r, s, feats, tracers, batch):
-    """One render_sample call under torch.profiler; wall time, device
-    time and launches are per sample (the call renders `batch` of them)."""
+    """One render_sample call under torch.profiler, inside the window
+    portbench.profiling.summarize reads; times, launches and syncs are per
+    sample (the call renders `batch` of them)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    sys.path.append(REPO)   # --root's checkout may have no portbench
+    from portbench import profiling
 
     kw = dict(features=feats)
     if tracers is not None:
@@ -160,25 +167,19 @@ def _profile(integrator, r, s, feats, tracers, batch):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        integrator.render_sample(r.flat, s, batch, **kw)
-        torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3 / batch
-    device_us, trace_us, launches = 0.0, {}, 0
-    for ev in prof.key_averages():
-        if ev.key == "cudaLaunchKernel":
-            launches += ev.count
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        dt = ev.self_device_time_total
-        device_us += dt
-        if any(k in ev.key for k in ("wide_trace", "stream_mt", "bf_")):
-            trace_us[ev.key[:160]] = [dt / 1e3 / batch, ev.count / batch]
-    device_ms = device_us / 1e3 / batch
-    return dict(profiled_wall_ms=wall, device_kernel_ms=device_ms,
-                device_busy=device_ms / wall,
-                kernel_launches=launches / batch,
-                trace_kernels_ms_count=trace_us)
+        with record_function(profiling.WINDOW):
+            integrator.render_sample(r.flat, s, batch, **kw)
+            torch.cuda.synchronize()
+    got = profiling.summarize(*profiling.from_profiler(prof),
+                              profiling.trace_patterns())
+    per = 1e3 / batch
+    return dict(profiled_wall_ms=got["window_s"] * per,
+                device_busy_ms=got["busy_s"] * per,
+                device_busy=got["busy_s"] / got["window_s"],
+                trace_kernel_ms=got["trace_kernel_s"] * per,
+                other_kernel_ms=got["other_kernel_s"] * per,
+                kernel_launches=got["launches"] / batch,
+                syncs=got["syncs"] / batch, device_ops=got["device_ops"])
 
 
 if __name__ == "__main__":
