@@ -5,9 +5,9 @@
 Phases, one printed block each (any failure exits non-zero):
   1. device: a CUDA device must be present; prints nvidia-smi's name and
      power limit
-  2. build: compiles the four kernel sources (csrc/wide_trace.cu,
-     csrc/stream_mt.cu, csrc/bf_stream.cu, csrc/bsdf_shade.cu; one nvcc
-     each, started together) and the native BVH construction library
+  2. build: compiles the five kernel sources (csrc/wide_trace.cu,
+     csrc/stream_mt.cu, csrc/bf_stream.cu, csrc/bsdf_shade.cu,
+     csrc/hit_fetch.cu; one nvcc each, started together) and the native BVH construction library
      from the checkout; each library's `*_launch` entries (one per
      function: no `*_per_*_launch`)
   3. K1/K2 vs plain: the kernel's closest-hit and any-hit modes against
@@ -76,7 +76,9 @@ Phases, one printed block each (any failure exits non-zero):
   4b. the instanced main path (bench.py's sponza_instanced_512 cut to
      4 spp): Renderer(scene) on the default device, compact=True,
      instancing="on"; render() until done, readback(), EXR export; only
-     the K3 modes may launch. Then update_instance_transform moves one
+     the K3 modes may launch; the hit fetch kernel must launch, its first
+     eager wave held to the plain code as in 11 (the instance transform,
+     the material slots). Then update_instance_transform moves one
      column, one spp renders, and the refit tree's closest hits on a
      camera wave must match a fresh flatten of the moved scene
   4c. the headline with compaction (bench.py's sponza_class_512 cut to
@@ -317,6 +319,19 @@ Phases, one printed block each (any failure exits non-zero):
      version's ms and the byte bound (each input read once, each output
      written once, at 3.35 TB/s); then the kernel's launches in the two
      steps, every sampled and evaluated lane shaded by it
+  11. the hit fetch (csrc/hit_fetch.cu, which replaces no TPU kernel): the
+     same step's first full 2,073,600-lane fetch and the fetch of its
+     bounce LATE_BOUNCE (incoherent rays), each handed, as the integrator
+     hands it, to `fetch_hit` and to the plain code it replaces
+     (`interpolate_hit` and the material row reads) on the same tensors:
+     the rows, the material index, uv and the hit point bit for bit, the
+     normalised vectors within rtol 1e-5 / atol 1e-6 of the plain code in
+     float64 on all but HIT_SHARE of the lanes; device ms of the kernel
+     beside the plain code's ms and the byte bound (each lane's inputs
+     and each row the wave touches read once, the outputs written once, at
+     3.35 TB/s); then its launches in the two steps, every shaded lane
+     fetched by it. The comparisons and timings of 10 and 11 run with
+     telemetry paused, so the steps' counters count the main path alone
 Each path's kernel launch counts are zeroed just before it and read just
 after. The line before the last is the kernel table as JSON; the last
 line is {"ok": true, "device": {...}}.
@@ -2384,6 +2399,8 @@ def phase_headline_plain(scene, cam, dev):
 
 def phase_instanced(scene, cam, dev):
     from platinum_tpu_torch.core.transform import Transform
+    from platinum_tpu_torch.ops import hitdata
+    from platinum_tpu_torch.render import integrator
     from platinum_tpu_torch.render.flatten import flatten_scene
     from platinum_tpu_torch.render.integrator import (init_path_state,
                                                       make_tracers)
@@ -2392,12 +2409,34 @@ def phase_instanced(scene, cam, dev):
     settings = RenderSettings(width=512, height=512, spp=4, max_bounces=8,
                               kernel="mis", sampler="halton",
                               tracer="packet", compact=True, instancing="on")
-    renderer, launches, _ = _render_path("instanced main path", scene, cam,
-                                         settings)
+    held = []
+
+    def each(k, args, kw):
+        # the first eager fetch: the hit fetch's instance transform and
+        # material slots held to the plain code
+        if k == 0:
+            check(kw.get("instances") is not None
+                  and args[1].inst is not None,
+                  "4b: the fetch is not on the two-level path")
+            held.append(_hold_hit_fetch("4b hit fetch", args, kw)[2:])
+
+    before = hitdata.LAUNCHES["hit_fetch"]
+    integrator.fetch_hit, fetch = _eager_fetches(integrator, each)
+    try:
+        renderer, launches, _ = _render_path("instanced main path", scene,
+                                             cam, settings)
+    finally:
+        integrator.fetch_hit = fetch
+    fetches = hitdata.LAUNCHES["hit_fetch"] - before
     check(launches["inst_closest"] > 0 and launches["inst_any"] > 0,
           f"the instanced render did not launch both K3 modes: {launches}")
     check(launches["closest"] == 0 and launches["any"] == 0,
           f"the instanced render launched K1/K2: {launches}")
+    check(bool(held) and fetches > 0,
+          f"4b: the hit fetch kernel launched {fetches} times")
+    print(f"  hit fetch on the two-level path: {fetches} launches; the "
+          f"first wave's {held[0][0]} lanes off rtol 1e-5 of the float64 "
+          f"plain code, max |err| {held[0][1]:.3g}", flush=True)
 
     # a transform edit: refit in place, one more spp, then the refit tree
     # against a fresh flatten of the moved scene on a camera wave
@@ -4487,10 +4526,15 @@ def phase_bsdf(dev):
                 luts = args[-1] if entry == "evaluate" else args[2]
                 mode = bsdf._mode(ctx, kw["features"], kw["multiscatter"],
                                   kw.get("mixture_pdf", False))
-                rows[entry] = _bsdf_row(
-                    entry, lambda: calls[entry](ctx, wo, *args, **kw),
-                    lambda: plains[entry](ctx, wo, *args, **kw), ctx, luts,
-                    mode, n)
+                # paused: the step's counters count the main path alone
+                telemetry.stop()
+                try:
+                    rows[entry] = _bsdf_row(
+                        entry, lambda: calls[entry](ctx, wo, *args, **kw),
+                        lambda: plains[entry](ctx, wo, *args, **kw), ctx,
+                        luts, mode, n)
+                finally:
+                    telemetry.start()
             return calls[entry](ctx, wo, *args, **kw)
         return wrapped
 
@@ -4522,6 +4566,195 @@ def phase_bsdf(dev):
     for entry in rows:
         rows[entry]["launches"] = launches[entry]
     return rows
+
+
+HIT_SHARE = 1e-4    # 4b, 11: lanes whose normalised vectors may leave
+                    # rtol 1e-5 / atol 1e-6 of float64 (a frame branch
+                    # decided within an ulp of its threshold)
+LATE_BOUNCE = 3     # 11: the bounce whose wave is timed beside the first
+
+
+def _hold_hit_fetch(label, args, kw):
+    """4b, 11: `fetch_hit` on one wave against the plain code it replaces
+    (`interpolate_hit` and the material row reads) on the same tensors:
+    the rows, the material index, uv and the hit point bit for bit, the
+    normalised vectors within rtol 1e-5 / atol 1e-6 of the plain code in
+    float64 on all but HIT_SHARE of the lanes. Returns (HitData, HitRows,
+    lanes off, max |err|); the launches it made are not counted."""
+    from types import SimpleNamespace
+
+    from platinum_tpu_torch.ops import hitdata
+    from platinum_tpu_torch.ops.intersect import HitRecord
+
+    geometry, rec, o, d, materials = args
+    textures, instances = kw.get("textures", False), kw.get("instances")
+    n = d.shape[0]
+    saved = dict(hitdata.LAUNCHES)
+    hd, rows = hitdata.fetch_hit(*args, **kw)
+    want = hitdata.interpolate_hit(geometry, rec, o, d, instances=instances)
+    want_rows = hitdata.material_rows(materials, want.mat_idx, textures)
+    torch.cuda.synchronize()
+    hitdata.LAUNCHES.update(saved)
+    for name in ("pos", "uv", "mat_idx"):
+        a, b = getattr(hd, name), getattr(want, name)
+        check(torch.equal(a.view(torch.int32), b.view(torch.int32)),
+              f"{label}: {name} is not the plain code's bits")
+    for name in ("mat", "energy_avg", "tex"):
+        a, b = getattr(rows, name), getattr(want_rows, name)
+        check((a is None) == (b is None) and (a is None or torch.equal(
+            a.view(torch.int32), b.view(torch.int32))),
+              f"{label}: the {name} rows are not the plain code's")
+    two_level = instances is not None and rec.inst is not None
+    want64 = hitdata.interpolate_hit(
+        SimpleNamespace(tri_shade=geometry.tri_shade.double(),
+                        tri_geo=geometry.tri_geo.double()),
+        HitRecord(t=rec.t.double(), tri=rec.tri, bary=rec.bary.double(),
+                  hit=rec.hit, inst=rec.inst), o.double(), d.double(),
+        instances=(SimpleNamespace(rows=instances.rows.double(),
+                                   slot_mat=instances.slot_mat)
+                   if two_level else None))
+    off = torch.zeros(n, dtype=torch.bool, device=d.device)
+    err = 0.0
+    for name in ("normal", "gnormal", "wo", "frame_t", "frame_b"):
+        a, b = getattr(hd, name).double(), getattr(want64, name)
+        off |= ((a - b).abs() > 1e-6 + 1e-5 * b.abs()).any(-1)
+        err = max(err, float((a - b).abs().max()))
+    check(int(off.sum()) <= HIT_SHARE * n,
+          f"{label}: {int(off.sum())} of {n} lanes off the float64 plain "
+          f"code")
+    return hd, rows, int(off.sum()), err
+
+
+def _hit_fetch_row(label, args, kw):
+    """11: one wave held to the plain code (`_hold_hit_fetch`), then the
+    kernel's device ms beside the plain code's and the byte bound; the
+    launches it made here are not counted."""
+    from platinum_tpu_torch.ops import hitdata
+
+    geometry, rec, o, d, materials = args
+    textures = kw.get("textures", False)
+    n = d.shape[0]
+    hd, rows, off, err = _hold_hit_fetch(label, args, kw)
+    saved = dict(hitdata.LAUNCHES)
+
+    def kernel():
+        return hitdata.fetch_hit(*args, **kw)
+
+    def plain():
+        h = hitdata.interpolate_hit(geometry, rec, o, d,
+                                    instances=kw.get("instances"))
+        return h, hitdata.material_rows(materials, h.mat_idx, textures)
+
+    ms = _device_ms(kernel, 20)
+    plain_ms = _time_ms(plain, 3)
+    hitdata.LAUNCHES.update(saved)
+    # each lane's inputs (tri 4, hit 1, t 4, bary 8, o 12, d 12) and
+    # outputs (seven vectors and the index, 84 B, and its material's rows),
+    # each row the wave touches (its triangles' two, its materials') read
+    # once; `per_lane_ms` reads every lane's rows apart, as the gathers did
+    row_bytes = (geometry.tri_shade.shape[1] + geometry.tri_geo.shape[1]) * 4
+    mat_bytes = sum(r.shape[1] * r.element_size()
+                    for r in (rows.mat, rows.energy_avg, rows.tex)
+                    if r is not None)
+    tris = torch.unique(torch.where(rec.hit, rec.tri, 0)).numel()
+    mats = torch.unique(hd.mat_idx).numel()
+    nbytes = (41 + 84 + mat_bytes) * n + tris * row_bytes + mats * mat_bytes
+    bound_ms = nbytes / PEAK_BYTES * 1e3
+    per_lane_ms = ((41 + row_bytes + 2 * mat_bytes + 84) * n / PEAK_BYTES
+                   * 1e3)
+    print(f"  {label}: {n} lanes, {tris} triangles, {mats} materials, "
+          f"{ms:.4f} ms (plain {plain_ms:.2f} ms), bound {bound_ms:.4f} ms "
+          f"by bytes ({nbytes / n:.1f} B a lane; every lane's rows apart "
+          f"{per_lane_ms:.4f} ms), {off} lanes off rtol 1e-5, max |err| "
+          f"{err:.3g}", flush=True)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by="bytes", max_abs_err=err, lanes_off=off)
+
+
+def _eager_fetches(integrator, each):
+    """A stand-in for integrator.fetch_hit that hands `each` (the call's
+    index among the eager calls, args, kw) every call made outside a graph
+    capture, with telemetry paused, before the call itself runs; and the
+    original to put back."""
+    from platinum_tpu_torch.utils import telemetry
+
+    fetch = integrator.fetch_hit
+    seen = [0]
+
+    def hook(*args, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            on = telemetry.tracing()
+            telemetry.stop()
+            try:
+                each(seen[0], args, kw)
+            finally:
+                if on:
+                    telemetry.start()
+            seen[0] += 1
+        return fetch(*args, **kw)
+
+    return hook, fetch
+
+
+def phase_hit_fetch(dev):
+    """11: the hit fetch on sponza_class.final_1080p's first wave and on
+    the wave of its bounce LATE_BOUNCE (incoherent: its rows spread over
+    the scene), both from the first step's eager bounces."""
+    from platinum_tpu_torch.app.scenes import make_colonnade_scene
+    from platinum_tpu_torch.ops import hitdata
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.renderer import Renderer
+    from platinum_tpu_torch.render.types import RenderSettings
+    from platinum_tpu_torch.utils import telemetry
+
+    scene, cam = make_colonnade_scene(**COLONNADE)
+    settings = RenderSettings(spp=2, **{**HEADLINE, "width": BSDF_SIZE[0],
+                                        "height": BSDF_SIZE[1]})
+    n = settings.num_pixels
+    rows = {}
+
+    def each(k, args, kw):
+        if k == 0:
+            check(args[3].shape[0] == n,
+                  f"hit fetch: the first wave has {args[3].shape[0]} lanes")
+            rows["first"] = _hit_fetch_row("hit_fetch first wave", args, kw)
+        elif k == LATE_BOUNCE:
+            rows["late"] = _hit_fetch_row(
+                f"hit_fetch bounce {LATE_BOUNCE} wave", args, kw)
+
+    renderer = Renderer(scene)
+    renderer.start_render(cam, settings)
+    hitdata.LAUNCHES["hit_fetch"] = 0
+    telemetry.drain()
+    telemetry.start()
+    try:
+        # the first step runs each bounce eagerly before its capture: its
+        # k-th eager fetch is bounce k's
+        integrator.fetch_hit, fetch = _eager_fetches(integrator, each)
+        try:
+            renderer.render()
+        finally:
+            integrator.fetch_hit = fetch
+        for _ in range(settings.spp - 1):
+            renderer.render()
+        torch.cuda.synchronize()
+        counters = telemetry.drain()["counters"]
+    finally:
+        telemetry.stop()
+    check(set(rows) == {"first", "late"},
+          f"hit fetch: the waves that reached fetch_hit: {sorted(rows)}")
+    pct = (100.0 * counters.get("hitfetch.kernel_lanes", 0)
+           / counters["hitfetch.lanes"])
+    check(pct == 100.0, f"hit fetch: the kernel fetched {pct:.2f}% of the "
+                        f"lanes")
+    launches = hitdata.LAUNCHES["hit_fetch"]
+    check(launches > 0, "hit fetch: no launch")
+    print(f"  hit_fetch launches in {settings.spp} steps {launches}, "
+          f"{counters['hitfetch.lanes']} lanes, {pct:.1f}% fetched by the "
+          f"kernel", flush=True)
+    row = rows["first"]
+    row["launches"] = launches
+    return row
 
 
 def _design(name):
@@ -4562,6 +4795,11 @@ def _design(name):
                 "alone")
     elif "bf_" in name:
         return "breadth-first level step"
+    elif "hit_fetch" in name:
+        return ("a thread per lane; the triangle's two rows (and on the "
+                "two-level path, its own instantiation, the instance's "
+                "row), then the material's rows, each as 16-byte loads "
+                "issued together; inputs read where they lie")
     elif "bsdf_shade" in name:
         return ("a thread per lane, every lobe in one pass, the scene's "
                 "features a mask; inputs read where they lie, the LUTs "
@@ -4704,6 +4942,8 @@ def main():
           flush=True)
     kbsdf = phase_bsdf(dev)
     lap("10 BSDF kernel")
+    khit = phase_hit_fetch(dev)
+    lap("11 hit fetch")
 
     src = "platinum_tpu_torch/csrc/wide_trace.cu"
     pallas = "platinum_tpu/ops/pallas_trace.py"
@@ -4791,6 +5031,12 @@ def main():
             launches=row["launches"], max_abs_err=row["max_abs_err"],
             ms=row["ms"], plain_ms=row["plain_ms"], bound_ms=row["bound_ms"],
             bound_by=row["bound_by"], library_ms=None))
+    kernels.append(dict(
+        name="hit_fetch", route="cuda", design=_design("hit_fetch"),
+        source="platinum_tpu_torch/csrc/hit_fetch.cu", replaces=None,
+        launches=khit["launches"], max_abs_err=khit["max_abs_err"],
+        ms=khit["ms"], plain_ms=khit["plain_ms"], bound_ms=khit["bound_ms"],
+        bound_by=khit["bound_by"], library_ms=None))
     check(all(k["launches"] > 0 for k in kernels),
           "a kernel of the main paths was never launched")
     print(f"total wall time {time.perf_counter() - t_start:.1f} s",

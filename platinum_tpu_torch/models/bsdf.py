@@ -90,14 +90,16 @@ class ShadingContext:
 
 
 def make_shading_context(materials: MaterialTable, mat_idx: torch.Tensor,
-                         uv: torch.Tensor | None = None, atlas=None,
+                         rows, uv: torch.Tensor | None = None, atlas=None,
                          atlas_table=None, slots=None) -> ShadingContext:
     """Material parameters per ray from the packed material rows, with the
     texture lookups applied when an atlas is present: a base-colour
     texture replaces the base colour, emission, roughness and metallic
     textures multiply their factors, transmission and clearcoat textures
-    replace theirs (JAX bsdf.py:132-143)."""
-    row = lookup.rows(materials.packed, mat_idx)
+    replace theirs (JAX bsdf.py:132-143). `rows` are the rows of
+    `mat_idx` (ops/hitdata.py `HitRows`, as `fetch_hit` reads them; the
+    atlas entries where there is an atlas)."""
+    row = rows.mat
     albedo = row[..., 0:3]
     emission = row[..., 4:7]
     roughness = row[..., 7]
@@ -106,7 +108,7 @@ def make_shading_context(materials: MaterialTable, mat_idx: torch.Tensor,
     clearcoat = row[..., 13]
     tex_rows = None
     if atlas is not None and atlas_table is not None:
-        tex_rows = lookup.rows(materials.textures, mat_idx)
+        tex_rows = rows.tex
         tex = sample_material_textures(atlas, atlas_table, tex_rows, uv,
                                        slots=slots)
         albedo = torch.where(tex.has_base[:, None], tex.base_rgb, albedo)
@@ -133,8 +135,7 @@ def make_shading_context(materials: MaterialTable, mat_idx: torch.Tensor,
         energy_avg=materials.energy_avg,
         mat_idx=mat_idx,
         tex_rows=tex_rows,
-        energy_avg_row=(lookup.rows(materials.energy_avg, mat_idx)
-                        if materials.energy_avg is not None else None),
+        energy_avg_row=rows.energy_avg,
     )
 
 
@@ -780,20 +781,6 @@ def _declare(lib):
     lib.bsdf_shade_error_string.argtypes = [i]
 
 
-def _words(name, t, n, k, dev, dtype=torch.float32):
-    """(pointer, lane stride, component stride) of a (n,) or (n, k)
-    field, read where it lies; raises on what the kernel does not take."""
-    if t.device != dev:
-        raise ValueError(f"{name} is on {t.device}, wo on {dev}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
-    shape = (n,) if k == 1 else (n, k)
-    if tuple(t.shape) != shape:
-        raise ValueError(f"{name} must have shape {shape}, got "
-                         f"{tuple(t.shape)}")
-    return [t.data_ptr(), t.stride(0), t.stride(1) if k > 1 else 0]
-
-
 def _table(name, t, dev):
     if t.device != dev or t.dtype != torch.float32 or not t.is_contiguous():
         raise ValueError(f"{name} must be a contiguous float32 table on "
@@ -807,7 +794,7 @@ def _launch(entry: int, ctx: ShadingContext, wo, a, b, luts, mode: int):
     flags), entry 1 evaluates (a = wi (n, 3); returns f, pdf). Outputs
     are allocated here; the kernel allocates nothing and does not
     synchronise."""
-    from platinum_tpu_torch.ops.packet_trace import load_library
+    from platinum_tpu_torch.ops.packet_trace import lane_field, load_library
 
     dev = wo.device
     if wo.dim() != 2:
@@ -815,22 +802,23 @@ def _launch(entry: int, ctx: ShadingContext, wo, a, b, luts, mode: int):
     n = wo.shape[0]
     words = []
     for name, k in _CTX_FIELDS:
-        words += _words(name, getattr(ctx, name), n, k, dev)
+        words += lane_field(name, getattr(ctx, name), n, k, dev)
     rows = bool(mode & MODE_ROWS)
     if rows:
-        words += _words("energy_avg_row", ctx.energy_avg_row, n, 4, dev)
+        words += lane_field("energy_avg_row", ctx.energy_avg_row, n, 4, dev)
     else:
         words += [0, 0, 0]
-    words += _words("flags", ctx.flags, n, 1, dev, torch.int32)
+    words += lane_field("flags", ctx.flags, n, 1, dev, torch.int32)
     if rows:
-        words += _words("mat_idx", ctx.mat_idx, n, 1, dev, torch.int32)
+        words += lane_field("mat_idx", ctx.mat_idx, n, 1, dev, torch.int32)
     else:
         words += [0, 0, 0]
-    words += _words("wo", wo, n, 3, dev)
+    words += lane_field("wo", wo, n, 3, dev)
     if entry == 0:
-        words += _words("r4", a, n, 4, dev) + _words("rc", b, n, 2, dev)
+        words += (lane_field("r4", a, n, 4, dev)
+                  + lane_field("rc", b, n, 2, dev))
     else:
-        words += _words("wi", a, n, 3, dev) + [0, 0, 0]
+        words += lane_field("wi", a, n, 3, dev) + [0, 0, 0]
     if rows:
         m, k, w = ctx.energy.shape
         if w != 6:

@@ -59,6 +59,12 @@ SORT_MIN_RAYS = 1024   # the JAX tracer sorts waves of >= 2 x 4 x 128 rays
 SORT_MIN_NODES = 64    # ... over trees of more than 64 nodes
 DEAD_KEY = 1 << 30     # sort key of inactive rays (to the back)
 
+# This module keeps the plumbing of every source in csrc/, the shading
+# kernels' too (models/bsdf.py, ops/hitdata.py import it from here): the
+# nvcc flags, the build (`build_kernel`, `build_kernels`), the loaded
+# libraries (`load_library`) and the per-lane argument words
+# (`lane_field`). One place, so one source's build and its wrapper's
+# marshalling cannot drift from another's.
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 # the headers the sources share (every source's build hash covers them)
@@ -69,9 +75,10 @@ BUILD_DIR = os.path.join(PKG_DIR, "_build")
 # on every CPU thread
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "--split-compile=0"]
-# flags a source adds to NVCC_FLAGS: the BSDF kernel rounds each product
-# apart, as the plain PyTorch code it is held to does
-SOURCE_FLAGS = {"bsdf_shade": ["-fmad=false"]}
+# flags a source adds to NVCC_FLAGS: the shading kernels (the BSDF, the
+# hit fetch) round each product apart, as the plain PyTorch code they are
+# held to does
+SOURCE_FLAGS = {"bsdf_shade": ["-fmad=false"], "hit_fetch": ["-fmad=false"]}
 
 # Moller-Trumbore precision tiers of the closest-hit modes, with the
 # kernel's codes (pallas_trace.py `mt_dot`): "highest" fp32 (K1), "high"
@@ -187,7 +194,7 @@ def build_kernel(name: str = "wide_trace") -> str:
 
 
 def build_kernels(names=("wide_trace", "stream_mt", "bf_stream",
-                         "bsdf_shade")) -> dict:
+                         "bsdf_shade", "hit_fetch")) -> dict:
     """Build several kernel sources at once, one nvcc each, all started
     together; {name: library path}. Raises if any build fails."""
     with ThreadPoolExecutor(max_workers=len(names)) as pool:
@@ -204,6 +211,21 @@ def load_library(name: str, declare):
             declare(lib)
             _libs[name] = lib
         return _libs[name]
+
+
+def lane_field(name, t, n, k, dev, dtype=torch.float32):
+    """(pointer, lane stride, component stride) of a (n,) or (n, k)
+    per-lane field that a shading kernel reads where it lies; raises on
+    what the kernel does not take."""
+    if t.device != dev:
+        raise ValueError(f"{name} is on {t.device}, the lanes on {dev}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype}, got {t.dtype}")
+    shape = (n,) if k == 1 else (n, k)
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name} must have shape {shape}, got "
+                         f"{tuple(t.shape)}")
+    return [t.data_ptr(), t.stride(0), t.stride(1) if k > 1 else 0]
 
 
 def _declare(lib):

@@ -28,11 +28,11 @@ bounce function it captured, and with it the tensors that function
 made.
 
 A capture counts nothing itself. What the bounce counts (telemetry
-counters, the packet kernel's and the BSDF kernel's LAUNCHES) is
-recorded at capture and
-added on each replay, beside `integrator.graph_captures` and
-`integrator.graph_replays` (one a bounce each) and a span
-`integrator.bounce_graph` (attrs `bounce`, `lanes`) around the replay.
+counters, the LAUNCHES of the packet kernel, the BSDF kernel and the
+hit fetch) is recorded at capture and added on each replay, beside
+`integrator.graph_captures` and `integrator.graph_replays` (one a
+bounce each) and a span `integrator.bounce_graph` (attrs `bounce`,
+`lanes`) around the replay.
 
 `graphs_engage` says whether a render may take this path: a CUDA
 device, a tracer pair that says it is capturable (the packet kernel's),
@@ -47,11 +47,11 @@ import dataclasses
 import torch
 
 from platinum_tpu_torch.models import bsdf
-from platinum_tpu_torch.ops import packet_trace
+from platinum_tpu_torch.ops import hitdata, packet_trace
 from platinum_tpu_torch.utils import telemetry
 
 # the launch counters a bounce adds to, each captured and replayed
-_LAUNCH_TABLES = (packet_trace.LAUNCHES, bsdf.LAUNCHES)
+_LAUNCH_TABLES = (packet_trace.LAUNCHES, bsdf.LAUNCHES, hitdata.LAUNCHES)
 
 
 def graphs_engage(device, tracers, settings, features) -> bool:

@@ -33,6 +33,11 @@ ops/bfstream.py (K10-K14) and any-hit waves with the packet kernel (K2),
 as the JAX make_tracers does; a scene without a wide BVH falls through to
 the brute tracer there too.
 
+A shaded bounce fetches its hit data and material rows with
+ops/hitdata.py `fetch_hit` (one CUDA kernel on the card, the two-level
+path's instance transform included); the alpha hops keep
+`interpolate_hit`.
+
 Textured scenes sample the atlas in shading (ops/texturing.py): the
 material textures in `make_shading_context` and, where a material binds
 one, the normal map, which tilts the shading frame (JAX
@@ -73,7 +78,7 @@ from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops import threefry
 from platinum_tpu_torch.ops.frame import (from_normal, norm, normalize,
                                           world_to_local)
-from platinum_tpu_torch.ops.hitdata import interpolate_hit
+from platinum_tpu_torch.ops.hitdata import fetch_hit, interpolate_hit
 from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
 from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
                                               sample_normal_map)
@@ -252,6 +257,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                   and int(TextureSlot.NORMAL) in tex_slots)
     emission_tex = (flat.atlas is not None
                     and int(TextureSlot.EMISSION) in tex_slots)
+    textured = flat.atlas is not None and flat.atlas_table is not None
     light_tex = (flat.atlas is not None and use_mis and lights_on
                  and lights.packed.shape[-1] == LIGHT_ROW_TEXTURED)
     # bilinear taps a shaded lane makes (4 a bound slot, 4 for the
@@ -388,11 +394,12 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         rec = HitRecord(t=ls["rec_t"], tri=ls["rec_tri"], bary=ls["rec_bary"],
                         hit=hit, inst=ls.get("rec_inst"))
 
-        # from the last alpha hop's origin (o itself without alpha)
-        hd = interpolate_hit(geom, rec, ls["o_eff"], d,
-                             instances=flat.instances)
+        # from the last alpha hop's origin (o itself without alpha); the
+        # hit data and the material rows in one fetch
+        hd, rows = fetch_hit(geom, rec, ls["o_eff"], d, mats,
+                             textures=textured, instances=flat.instances)
         ctx = bsdf_mod.make_shading_context(
-            mats, hd.mat_idx, hd.uv, flat.atlas, flat.atlas_table,
+            mats, hd.mat_idx, rows, hd.uv, flat.atlas, flat.atlas_table,
             slots=tex_slots)
         telemetry.count("integrator.texture_taps", n * taps_per_lane)
         if normal_map:

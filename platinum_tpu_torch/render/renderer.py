@@ -142,10 +142,10 @@ class Renderer:
                 # started together (a source built before is reused)
                 with telemetry.span("kernels.build"):
                     packet_trace.build_kernels(
-                        ("wide_trace", "bsdf_shade")
+                        ("wide_trace", "bsdf_shade", "hit_fetch")
                         if self.flat.wbvh_nodes is not None
                         or self.flat.wbvh_parts is not None
-                        else ("bsdf_shade",))
+                        else ("bsdf_shade", "hit_fetch"))
             self._tracers = integrator.make_tracers(self.flat, self.settings)
         # graphs read the scene's and the pair's tensors by address
         self._graphs = BounceGraphs()

@@ -7,8 +7,8 @@ say nothing about the CUDA sources themselves: a wrong stack index, a
 backlog that overflows or a mode that dispatches to the wrong
 instantiation shows only on the card. This tool compiles
 platinum_tpu_torch/csrc/*.cu with g++ against a small shim of the CUDA
-headers (the qualifiers as empty macros, `float2`, `float4`, `int4`,
-`dim3`, `__ldg`, the bit casts, `__fmul_rn`, a nearest-even
+headers (the qualifiers as empty macros, `float2`, `float4`, `int2`,
+`int4`, `dim3`, `__ldg`, the bit casts, `__fmul_rn`, a nearest-even
 `__float2bfloat16_rn`, thread-local `blockIdx` / `threadIdx` / `blockDim` /
 `gridDim`, `__shared__` as a static, and a card of 3 SMs that holds 2 CTAs
 of any kernel for the grids sized to the card), with
@@ -22,14 +22,14 @@ on the card (a barrier or collective that only part of the block or warp
 reaches makes the launch report an error), and binds the result with the wrappers' own
 ctypes declarations. g++ gets `-ffp-contract=fast -march=native`, so
 products and sums contract to FMAs as nvcc contracts them where the host
-has FMA instructions (bsdf_shade.cu, built with nvcc's -fmad=false, gets
--ffp-contract=off). It says nothing about registers, memory traffic or time.
+has FMA instructions (bsdf_shade.cu and hit_fetch.cu, built with nvcc's
+-fmad=false, get -ffp-contract=off). It says nothing about registers, memory traffic or time.
 
 As a module: `build(out_dir)` returns {source name: library path};
 `Emulation(out_dir)` is a context manager in which `trace_wide`,
 `trace_wide_paired`, `trace_wide_counts` and `stream_mt` of this module,
-`models/bsdf._launch` (the BSDF kernel's launch)
-and `make_bf_tracer(..., steps=BF_STEPS)` run the emulated kernels on CPU
+`models/bsdf._launch` (the BSDF kernel's launch), `ops/hitdata._launch`
+(the hit fetch's) and `make_bf_tracer(..., steps=BF_STEPS)` run the emulated kernels on CPU
 tensors (through the wrappers' own argument checks). Run as a script it
 holds every mode of wide_trace.cu and stream_mt.cu to its plain version,
 and the modes that compute K1's function to K1 bit for bit, on a random
@@ -54,6 +54,7 @@ import torch  # noqa: E402
 
 from platinum_tpu_torch.models import bsdf  # noqa: E402
 from platinum_tpu_torch.ops import bfstream as bf  # noqa: E402
+from platinum_tpu_torch.ops import hitdata  # noqa: E402
 from platinum_tpu_torch.ops import packet_trace as pt  # noqa: E402
 from platinum_tpu_torch.ops import raystream as rs  # noqa: E402
 
@@ -84,6 +85,7 @@ struct float4 { float x, y, z, w; };
 inline float4 make_float4(float x, float y, float z, float w) {
   return {x, y, z, w};
 }
+struct int2 { int x, y; };
 struct int4 { int x, y, z, w; };
 inline int4 make_int4(int x, int y, int z, int w) { return {x, y, z, w}; }
 struct dim3 {
@@ -357,11 +359,14 @@ inline float __bfloat162float(__nv_bfloat16 b) {
 }
 """
 
-SOURCES = ("wide_trace", "stream_mt", "bf_stream", "bsdf_shade")
-# g++ flags a source adds to the common ones: bsdf_shade.cu is built with
-# nvcc's -fmad=false (each product rounded apart, as the plain code rounds
-# it), so its host version contracts nothing either
-HOST_FLAGS = {"bsdf_shade": ("-ffp-contract=off",)}
+SOURCES = ("wide_trace", "stream_mt", "bf_stream", "bsdf_shade",
+           "hit_fetch")
+# g++ flags a source adds to the common ones: bsdf_shade.cu and
+# hit_fetch.cu are built with nvcc's -fmad=false (each product rounded
+# apart, as the plain code rounds it), so their host versions contract
+# nothing either
+HOST_FLAGS = {"bsdf_shade": ("-ffp-contract=off",),
+              "hit_fetch": ("-ffp-contract=off",)}
 
 
 def host_source(text: str) -> str:
@@ -450,7 +455,8 @@ class Emulation(contextlib.AbstractContextManager):
         for name, declare in (("wide_trace", pt._declare),
                               ("stream_mt", rs._declare),
                               ("bf_stream", bf._declare),
-                              ("bsdf_shade", bsdf._declare)):
+                              ("bsdf_shade", bsdf._declare),
+                              ("hit_fetch", hitdata._declare)):
             if name not in self.libs:
                 continue
             lib = ctypes.CDLL(self.libs[name])

@@ -1,7 +1,7 @@
 """Registers, stack frame and spills of every kernel instantiation.
 
     python3 tools/torch_kernel_resources.py [wide_trace] [stream_mt] [bf_stream]
-        [bsdf_shade]
+        [bsdf_shade] [hit_fetch]
 
 Compiles each source of platinum_tpu_torch/csrc with the package's nvcc
 flags plus `--resource-usage` into a temporary file and prints, per
@@ -64,7 +64,7 @@ def demangle(names):
 
 def main():
     for name in sys.argv[1:] or ("wide_trace", "stream_mt", "bf_stream",
-                                 "bsdf_shade"):
+                                 "bsdf_shade", "hit_fetch"):
         rows, seconds = resources(name)
         for label, (_, r) in zip(demangle([k for k, _ in rows]), rows):
             print(f"{label}: {r.get('registers')} registers, "

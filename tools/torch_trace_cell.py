@@ -3,7 +3,8 @@ counters on (platinum_tpu_torch/utils/telemetry.py), drained phase by
 phase, on the GPU.
 
     python3 tools/torch_trace_cell.py --workload sponza_class.final_1080p \
-        --seed 3037000493 --seconds 20 [--tracing 0] [--out F]
+        --seed 3037000493 --seconds 20 [--tracing 0] [--gather-sites N]
+        [--out F]
 
 The phases are the harness's (portbench/harness.py): set-up (scene,
 `Renderer.start_render`, a warm step, the resume at sample
@@ -25,11 +26,22 @@ integrator.env_escape_pct, the profiled window's lanes that took the
 sky over its wave lanes, and integrator.texture_taps_per_spp;
 integrator.bsdf_kernel_pct, the profiled window's lanes the BSDF kernel
 shaded, `bsdf.kernel_lanes`, over the lanes `bsdf.sample` and
-`bsdf.evaluate` were given, `bsdf.lanes`), the
+`bsdf.evaluate` were given, `bsdf.lanes`; integrator.hit_fetch_kernel_pct,
+the lanes the hit-fetch kernel fetched, `hitfetch.kernel_lanes`, over the
+lanes `fetch_hit` was given, `hitfetch.lanes`), the
 profiler's launches and synchronising calls over the same two steps, the
 synchronising calls by the innermost program span they were made in, and
 the ten longest device idle gaps, each named by the innermost program
 span and the innermost operator at its middle.
+
+`--gather-sites N` adds N eager steps (`render_sample` without the
+graphs, the same operations) under torch.profiler with a range around
+each call site of the shaded bounce that gathers rows (`fetch_hit`,
+`interpolate_hit`, `make_shading_context`, the light and sky samplers,
+the normal map, compaction, ...), and prints `gather_sites`: the device
+ms a spp of PyTorch's row-gather kernels (`vectorized_gather`, and
+`index_elementwise` for 1-D and odd-width gathers) by the innermost site
+or program span that launched them.
 
 `--tracing 0` runs set-up and the window alone with tracing off.
 `--turns N` measures the cost of tracing: after a set-up with tracing
@@ -92,6 +104,9 @@ def readings(setup, plain, profiled) -> dict:
     if c.get("bsdf.lanes"):
         out["integrator.bsdf_kernel_pct"] = (
             100.0 * c.get("bsdf.kernel_lanes", 0) / c["bsdf.lanes"])
+    if c.get("hitfetch.lanes"):
+        out["integrator.hit_fetch_kernel_pct"] = (
+            100.0 * c.get("hitfetch.kernel_lanes", 0) / c["hitfetch.lanes"])
     c = plain["counters"]
     if c.get("integrator.wave_lanes"):
         out["integrator.live_lane_pct"] = (
@@ -145,8 +160,92 @@ def syncs_by_span(host, span_names, window) -> dict:
     return dict(out.most_common())
 
 
+# (module, attribute, site) of the shaded bounce's calls that gather
+# rows; an attribute the program lacks is skipped, so that one tool
+# splits two versions of it
+GATHER_SITES = (
+    ("platinum_tpu_torch.render.integrator", "fetch_hit", "fetch_hit"),
+    ("platinum_tpu_torch.render.integrator", "interpolate_hit",
+     "interpolate_hit"),
+    ("platinum_tpu_torch.models.bsdf", "make_shading_context",
+     "make_shading_context"),
+    ("platinum_tpu_torch.models.bsdf", "sample_material_textures",
+     "material_textures"),
+    ("platinum_tpu_torch.models.lights", "sample_area_light",
+     "sample_area_light"),
+    ("platinum_tpu_torch.models.lights", "sample_env_light",
+     "sample_env_light"),
+    ("platinum_tpu_torch.render.integrator", "_apply_normal_map",
+     "normal_map"),
+    ("platinum_tpu_torch.render.integrator", "_picked_emission",
+     "picked_emission"),
+    ("platinum_tpu_torch.render.integrator", "_compact_state",
+     "compaction"))
+GATHER_KERNELS = ("vectorized_gather", "index_elementwise")
+
+
+def gather_sites(flat, settings, tracers, feats, first: int,
+                 steps: int) -> dict:
+    """{kernel kind: {site: device ms a spp}} of the row-gather kernels
+    over `steps` eager samples from sample `first`, each kernel given to
+    the innermost site range (GATHER_SITES) or program span whose host
+    operator launched it, "(none)" where neither encloses it."""
+    import functools
+    import importlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from platinum_tpu_torch.render import integrator
+
+    saved = []
+    for mod_name, attr, site in GATHER_SITES:
+        mod = importlib.import_module(mod_name)
+        fn = getattr(mod, attr, None)
+        if fn is None:
+            continue
+
+        def wrapped(*a, _fn=fn, _site=site, **kw):
+            with record_function("site." + _site):
+                return _fn(*a, **kw)
+
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, functools.wraps(fn)(wrapped))
+    try:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for k in range(steps):
+                integrator.render_sample(flat, settings, first + k,
+                                         tracers=tracers, features=feats)
+            torch.cuda.synchronize()
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+    out = {kind: collections.Counter() for kind in GATHER_KERNELS}
+    for e in prof.events():
+        kernels = [k for k in getattr(e, "kernels", ())
+                   if any(kind in k.name for kind in GATHER_KERNELS)]
+        if not kernels:
+            continue
+        p, site = e.cpu_parent, "(none)"
+        while p is not None:
+            if p.name.startswith("site."):
+                site = p.name[len("site."):]
+                break
+            if site == "(none)" and p.name.startswith(
+                    ("integrator.", "renderer.")):
+                site = p.name      # the innermost span, unless a site
+            p = p.cpu_parent
+        for k in kernels:
+            kind = next(x for x in GATHER_KERNELS if x in k.name)
+            out[kind][site] += k.duration * 1e-3 / steps
+    return {kind: dict(c.most_common()) for kind, c in out.items()}
+
+
 def trace_cell(spec: dict, seed: int, seconds: float, tracing: bool,
-               device: str = "cuda", turns: int = 0) -> dict:
+               device: str = "cuda", turns: int = 0,
+               gather_steps: int = 0) -> dict:
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile, record_function
@@ -275,6 +374,11 @@ def trace_cell(spec: dict, seed: int, seconds: float, tracing: bool,
         idle_gaps_by_span=name_gaps(dev, host, names, win_ev),
         idle_gaps_harness=summ["idle_gaps"])
     out["readings"] = readings(setup, plain, profiled)
+    if gather_steps:
+        tracers = integrator.make_tracers(r.flat, r.settings)
+        out["gather_sites"] = gather_sites(
+            r.flat, r.settings, tracers, feats,
+            nxt + n + PROFILED_STEPS, gather_steps)
     return out
 
 
@@ -285,6 +389,7 @@ def main() -> int:
     ap.add_argument("--seconds", type=float, default=20.0)
     ap.add_argument("--tracing", type=int, choices=(0, 1), default=1)
     ap.add_argument("--turns", type=int, default=0)
+    ap.add_argument("--gather-sites", type=int, default=0)
     ap.add_argument("--out", default=None)
     args = ap.parse_args()
     os.chdir(ROOT)
@@ -300,7 +405,7 @@ def main() -> int:
     spec = harness.find_cell(harness.load_json("BENCHMARK.json"),
                              args.workload)
     out = trace_cell(spec, args.seed, args.seconds, bool(args.tracing),
-                     turns=args.turns)
+                     turns=args.turns, gather_steps=args.gather_sites)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True)
