@@ -1,5 +1,9 @@
 """Copy of platinum_tpu/core/texture.py, kept in step with it: platinum_tpu_torch
-imports nothing of the JAX package.
+imports nothing of the JAX package. Where the caller does not give
+`has_alpha`, a texture takes the glTF loader's rule (io/gltf.py): an
+sRGB colour map with a texel of alpha below one is a cutout
+(`scan_alpha`); every other format has none. A value the caller gives is
+kept.
 
 Texture asset (host-side).
 
@@ -39,7 +43,12 @@ class Texture:
     data: np.ndarray          # (H, W, C) uint8 or float32
     format: TextureFormat
     name: str = "texture"
-    has_alpha: bool = False
+    has_alpha: bool | None = None
+
+    def __post_init__(self):
+        if self.has_alpha is None:
+            self.has_alpha = (self.format == TextureFormat.SRGB_RGBA
+                              and scan_alpha(self.data))
 
     @property
     def width(self) -> int:

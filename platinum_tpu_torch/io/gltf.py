@@ -36,7 +36,7 @@ from platinum_tpu_torch.core.camera import Camera
 from platinum_tpu_torch.core.material import Material, TextureSlot
 from platinum_tpu_torch.core.mesh import Mesh
 from platinum_tpu_torch.core.scene import Scene
-from platinum_tpu_torch.core.texture import Texture, TextureFormat, scan_alpha
+from platinum_tpu_torch.core.texture import Texture, TextureFormat
 from platinum_tpu_torch.core.transform import Transform
 from platinum_tpu_torch.io.png import decode_image
 
@@ -247,10 +247,7 @@ class GltfLoader:
         else:
             data = arr
 
-        texture = Texture(
-            data=data, format=fmt, name=name,
-            has_alpha=scan_alpha(arr) if fmt == TextureFormat.SRGB_RGBA else False,
-        )
+        texture = Texture(data=data, format=fmt, name=name)
         asset_id = scene.add_asset(texture)
         self._texture_assets[key] = asset_id
         return asset_id

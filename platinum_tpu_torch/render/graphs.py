@@ -35,9 +35,11 @@ bounce each) and a span `integrator.bounce_graph` (attrs `bounce`,
 `lanes`) around the replay.
 
 `graphs_engage` says whether a render may take this path: a CUDA
-device, a tracer pair that says it is capturable (the packet kernel's),
-no `chunk_shade` (its chunk count is read on the host) and no alpha
-cutouts. Everything else renders eagerly.
+device, a tracer pair that says it is capturable (the packet kernel's)
+and no `chunk_shade` (its chunk count is read on the host). Alpha
+cutouts are captured too: their loops have a fixed trip count, trace
+through the capturable pair and read nothing on the host. Everything
+else renders eagerly.
 """
 
 from __future__ import annotations
@@ -60,8 +62,7 @@ def graphs_engage(device, tracers, settings, features) -> bool:
     return (torch.device(device).type == "cuda"
             and tracers is not None
             and all(getattr(f, "capturable", False) for f in tracers)
-            and not settings.chunk_shade
-            and "alpha" not in features)
+            and not settings.chunk_shade)
 
 
 def _skeleton(x, leaves: list):

@@ -35,8 +35,8 @@ the brute tracer there too.
 
 A shaded bounce fetches its hit data and material rows with
 ops/hitdata.py `fetch_hit` (one CUDA kernel on the card, the two-level
-path's instance transform included); the alpha hops keep
-`interpolate_hit`.
+path's instance transform included), and so does each alpha hop: the
+opacity reads the fetched rows.
 
 Textured scenes sample the atlas in shading (ops/texturing.py): the
 material textures in `make_shading_context` and, where a material binds
@@ -48,7 +48,9 @@ pass-through loops (`ALPHA_HOPS`): a path segment re-traces from a cutout
 hit that passes its draw, testing each hit once, and a shadow segment
 traces closest hits up to ALPHA_HOPS + 1 times instead of one any-hit
 wave. Under alpha only the closest-hit mode of the tracer launches;
-`fuse_shadow` and `chunk_shade` stay off, as in the JAX package.
+`fuse_shadow` and `chunk_shade` stay off, as in the JAX package. The
+loops have a fixed trip count and read nothing on the host, so a bounce
+with them is captured as a CUDA graph like any other (render/graphs.py).
 
 Partitioned structures (FlatScene.wbvh_parts) trace through
 accel/partition.py's sequential tracer, one packet tracer pair per
@@ -78,7 +80,7 @@ from platinum_tpu_torch.ops import samplers as smp
 from platinum_tpu_torch.ops import threefry
 from platinum_tpu_torch.ops.frame import (from_normal, norm, normalize,
                                           world_to_local)
-from platinum_tpu_torch.ops.hitdata import fetch_hit, interpolate_hit
+from platinum_tpu_torch.ops.hitdata import fetch_hit
 from platinum_tpu_torch.ops.intersect import HitRecord, make_brute_tracer
 from platinum_tpu_torch.ops.texturing import (sample_base_alpha,
                                               sample_normal_map)
@@ -97,16 +99,16 @@ RAY_EPS = 1e-3
 ALPHA_HOPS = 2
 
 
-def _alpha_value(flat: FlatScene, mat_idx, uv):
-    """Opacity at a hit: the material's base alpha times its base-colour
-    texture's alpha; 1 for materials without the USES_ALPHA flag."""
-    packed = flat.materials.packed[mat_idx.long()]
-    base_a = packed[:, 3]
-    flags = packed[:, 15].to(torch.int32)
-    if flat.atlas is not None:
-        tex_rows = flat.materials.textures[mat_idx.long()]
+def _alpha_value(flat: FlatScene, rows, uv):
+    """Opacity at a hit from its fetched material rows (ops/hitdata.py
+    `HitRows`): the material's base alpha times its base-colour texture's
+    alpha (where the rows carry the atlas entries); 1 for materials
+    without the USES_ALPHA flag."""
+    base_a = rows.mat[:, 3]
+    flags = rows.mat[:, 15].to(torch.int32)
+    if rows.tex is not None:
         base_a = base_a * sample_base_alpha(flat.atlas, flat.atlas_table,
-                                            tex_rows, uv)
+                                            rows.tex, uv)
     return torch.where((flags & MAT_USES_ALPHA) != 0, base_a, 1.0)
 
 
@@ -298,30 +300,9 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             stream = s["stream"]
             o_eff = o
             if alpha_on:
-                # a hit on a cutout surface passes through stochastically
-                # without consuming a bounce: trace again from the hit point,
-                # at most ALPHA_HOPS times. Each hit is tested once: one that
-                # fails its draw is settled (shades as opaque) and never drawn
-                # for again
-                settled = torch.zeros_like(rec.hit)
-                for _ in range(ALPHA_HOPS):
-                    stream, u_a = stream.next_1d()
-                    cand = rec.hit & active & ~settled
-                    hd_l = interpolate_hit(geom, rec, o_eff, d,
-                                           instances=flat.instances)
-                    pas = cand & (u_a >= _alpha_value(flat, hd_l.mat_idx,
-                                                      hd_l.uv))
-                    settled = settled | (cand & ~pas)
-                    o_eff = torch.where(pas[:, None], hd_l.pos, o_eff)
-                    rec2 = trace_closest(o_eff, d, RAY_EPS, float("inf"),
-                                         active=pas)
-                    rec = HitRecord(
-                        t=torch.where(pas, rec2.t, rec.t),
-                        tri=torch.where(pas, rec2.tri, rec.tri),
-                        bary=torch.where(pas[:, None], rec2.bary, rec.bary),
-                        hit=torch.where(pas, rec2.hit, rec.hit),
-                        inst=(torch.where(pas, rec2.inst, rec.inst)
-                              if rec.inst is not None else None))
+                with telemetry.span("integrator.alpha_hops"):
+                    rec, o_eff, stream, hop_rays, last_pass = _alpha_hops(
+                        rec, o, d, active, stream)
         hit = rec.hit & active
         miss = active & ~rec.hit
 
@@ -343,14 +324,20 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         live = torch.sum(active.to(torch.float32))
         telemetry.count("integrator.wave_lanes", n)
         telemetry.count_device("integrator.live_lanes", live)
-        rays_new = s["rays"] + live * (2.0 if use_mis else 1.0)
+        if alpha_on:
+            # the closest wave and the hops; the shadow waves, which stand
+            # in for the any-hit wave, add their own lanes after shading
+            rays_new = s["rays"] + live + hop_rays
+        else:
+            rays_new = s["rays"] + live * (2.0 if use_mis else 1.0)
 
         lane_state = dict(
             o=o, d=d, atten=atten, L=L, hit=hit, o_eff=o_eff,
             prev_pdf=s["prev_pdf"], prev_spec=s["prev_spec"],
             stream=stream, slot=s["slot"], bounce=bounce,
             rec_t=rec.t, rec_tri=rec.tri, rec_bary=rec.bary,
-            **({"rec_inst": rec.inst} if rec.inst is not None else {}))
+            **({"rec_inst": rec.inst} if rec.inst is not None else {}),
+            **({"alpha_last_pass": last_pass} if alpha_on else {}))
 
         with telemetry.span("integrator.shade"):
             if (settings.chunk_shade and not alpha_on
@@ -372,6 +359,8 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
                 upd["L"] = upd["L"] + torch.where(
                     (upd["sh_do"] & ~occ)[:, None], upd["sh_ld"], 0.0)
 
+        if "alpha_rays" in upd:
+            rays_new = rays_new + upd["alpha_rays"]
         out = dict(
             o=upd["o"], d=upd["d"], L=upd["L"], atten=upd["atten"],
             active=upd["active"], prev_pdf=upd["prev_pdf"],
@@ -402,6 +391,13 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             mats, hd.mat_idx, rows, hd.uv, flat.atlas, flat.atlas_table,
             slots=tex_slots)
         telemetry.count("integrator.texture_taps", n * taps_per_lane)
+        if "alpha_last_pass" in ls and telemetry.counting():
+            # a cutout hit found by the last hop, never tested: shaded as
+            # opaque, out of the hop budget
+            telemetry.count_device(
+                "integrator.alpha_budget_out",
+                ls["alpha_last_pass"] & hit
+                & ((rows.mat[:, 15].to(torch.int32) & MAT_USES_ALPHA) != 0))
         if normal_map:
             hd = _apply_normal_map(hd, flat, ctx.tex_rows, d)
 
@@ -439,6 +435,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
         # next-event estimation: the shadow ray leaves as state; the
         # caller traces it
         sh_next = None
+        shadow_rays = None
         if use_mis and (env_on or lights_on):
             stream, u_nee2 = stream.next_2d()
             stream, u_sel = stream.next_1d()
@@ -489,7 +486,7 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             if alpha_on:
                 # shadow segments run the alpha loop here: cutout surfaces
                 # block stochastically, closest hit after closest hit
-                occluded, stream = _alpha_shadow(
+                occluded, stream, shadow_rays = _alpha_shadow(
                     hd.pos, wi_world, dist - RAY_EPS, do_nee, stream)
                 L = L + torch.where((do_nee & ~occluded)[:, None],
                                     atten * ld, 0.0)
@@ -540,32 +537,81 @@ def make_bounce_body(flat: FlatScene, settings: RenderSettings,
             stream=stream,
             slot=ls["slot"],
             **sh_next,
+            **({} if shadow_rays is None else {"alpha_rays": shadow_rays}),
         )
 
+    def _count_alpha_wave(tested, passed):
+        """The counters of one closest-hit wave traced for alpha: the hits
+        it drew for and those that passed."""
+        telemetry.count_device("integrator.alpha_tested", tested)
+        telemetry.count_device("integrator.alpha_passed", passed)
+
+    def _alpha_hops(rec, o, d, active, stream):
+        """(rec, o_eff, stream, rays, last_pass) of a path segment through
+        cutout surfaces: a hit passes through stochastically without
+        consuming a bounce, and the segment is traced again from the hit
+        point, at most ALPHA_HOPS times. Each hit is tested once: one
+        that fails its draw is settled (shades as opaque) and never drawn
+        for again. `rays` is the hops' queried lanes, summed on the
+        device; `last_pass` the lanes that passed the last hop, whose hit
+        now is one no hop tested."""
+        o_eff = o
+        rays = torch.zeros((), device=o.device)
+        settled = torch.zeros_like(rec.hit)
+        for _ in range(ALPHA_HOPS):
+            stream, u_a = stream.next_1d()
+            cand = rec.hit & active & ~settled
+            hd_l, rows_l = fetch_hit(geom, rec, o_eff, d, mats,
+                                     textures=textured,
+                                     instances=flat.instances)
+            pas = cand & (u_a >= _alpha_value(flat, rows_l, hd_l.uv))
+            settled = settled | (cand & ~pas)
+            o_eff = torch.where(pas[:, None], hd_l.pos, o_eff)
+            rec2 = trace_closest(o_eff, d, RAY_EPS, float("inf"),
+                                 active=pas)
+            _count_alpha_wave(cand, pas)
+            rays = rays + torch.sum(pas.to(torch.float32))
+            rec = HitRecord(
+                t=torch.where(pas, rec2.t, rec.t),
+                tri=torch.where(pas, rec2.tri, rec.tri),
+                bary=torch.where(pas[:, None], rec2.bary, rec.bary),
+                hit=torch.where(pas, rec2.hit, rec.hit),
+                inst=(torch.where(pas, rec2.inst, rec.inst)
+                      if rec.inst is not None else None))
+        return rec, o_eff, stream, rays, pas
+
     def _alpha_shadow(org, wi, rem, do_nee, stream):
-        """(occluded, stream) of shadow segments through cutout surfaces
-        (JAX integrator.py:427-452): up to ALPHA_HOPS + 1 closest-hit
-        traces over each lane's remaining length `rem`, one draw per hop
-        after its trace; a hit blocks with its opacity, else the segment
-        goes on from it, and a lane still unresolved after the budget is
-        occluded."""
-        occluded = torch.zeros_like(do_nee)
-        clear = torch.zeros_like(do_nee)
-        for _ in range(ALPHA_HOPS + 1):
-            qry = do_nee & ~occluded & ~clear
-            srec = trace_closest(org, wi, RAY_EPS, rem, active=qry)
-            shit = srec.hit & qry
-            clear = clear | (qry & ~srec.hit)
-            hd_s = interpolate_hit(geom, srec, org, wi,
-                                   instances=flat.instances)
-            a_s = _alpha_value(flat, hd_s.mat_idx, hd_s.uv)
-            stream, u_s = stream.next_1d()
-            blocked = shit & (u_s < a_s)
-            occluded = occluded | blocked
-            pas = shit & ~blocked
-            org = torch.where(pas[:, None], hd_s.pos, org)
-            rem = torch.where(pas, rem - srec.t, rem)
-        return occluded | (do_nee & ~clear & ~occluded), stream
+        """(occluded, stream, rays) of shadow segments through cutout
+        surfaces (JAX integrator.py:427-452): up to ALPHA_HOPS + 1
+        closest-hit traces over each lane's remaining length `rem`, one
+        draw per hop after its trace; a hit blocks with its opacity, else
+        the segment goes on from it, and a lane still unresolved after
+        the budget is occluded. `rays` is the waves' queried lanes,
+        summed on the device."""
+        with telemetry.span("integrator.alpha_shadow"):
+            occluded = torch.zeros_like(do_nee)
+            clear = torch.zeros_like(do_nee)
+            rays = torch.zeros((), device=org.device)
+            for _ in range(ALPHA_HOPS + 1):
+                qry = do_nee & ~occluded & ~clear
+                srec = trace_closest(org, wi, RAY_EPS, rem, active=qry)
+                shit = srec.hit & qry
+                clear = clear | (qry & ~srec.hit)
+                hd_s, rows_s = fetch_hit(geom, srec, org, wi, mats,
+                                         textures=textured,
+                                         instances=flat.instances)
+                a_s = _alpha_value(flat, rows_s, hd_s.uv)
+                stream, u_s = stream.next_1d()
+                blocked = shit & (u_s < a_s)
+                occluded = occluded | blocked
+                pas = shit & ~blocked
+                org = torch.where(pas[:, None], hd_s.pos, org)
+                rem = torch.where(pas, rem - srec.t, rem)
+                _count_alpha_wave(shit, pas)
+                rays = rays + torch.sum(qry.to(torch.float32))
+            unresolved = do_nee & ~clear & ~occluded
+            telemetry.count_device("integrator.alpha_budget_out", unresolved)
+            return occluded | unresolved, stream, rays
 
     def resolve_pending(s):
         """Settle the deferred shadow rays still pending (at the end of
@@ -762,9 +808,12 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
                   graphs: BounceGraphs | None = None):
     """Trace one sample per pixel; returns (R, 3) radiance, R the number
     of pixels or len(pixel_ids). With return_stats also the number of rays
-    traced (closest + shadow). `pixel_ids` renders those pixels alone, in
-    that order (a rank's shard on the multi-device path, parallel/); the
-    sample batch is then 1, as in the JAX package. `tracers` overrides the
+    traced (closest + shadow: two a live lane under MIS, one else; in a
+    cutout scene one a live lane for the closest wave, and the lanes each
+    path hop and each shadow wave queried).
+    `pixel_ids` renders those pixels alone, in that order (a rank's shard
+    on the multi-device path, parallel/); the sample batch is then 1, as
+    in the JAX package. `tracers` overrides the
     (trace_closest, trace_any) pair, which is otherwise built for this
     call (the Renderer builds it once per start_render). With
     settings.compact the wave shrinks between the plan's segments; lane
@@ -790,7 +839,14 @@ def render_sample(flat: FlatScene, settings: RenderSettings, sample_idx,
     `integrator.env_nee` (NEE samples that chose the sky), both summed on
     the device; in a textured one `integrator.texture_taps` (a shaded
     lane's bilinear taps: 4 for each bound slot and 4 for the emitter's
-    texel, from the shapes).
+    texel, from the shapes). In a cutout scene, spans
+    `integrator.alpha_hops` around a bounce's path hops and
+    `integrator.alpha_shadow` around its shadow waves; counters, summed
+    on the device, `integrator.alpha_tested` (hits drawn for, path and shadow),
+    `integrator.alpha_passed` (those that passed through) and
+    `integrator.alpha_budget_out` (path lanes shading an untested cutout
+    hit after the last hop, shadow lanes unresolved after the last wave
+    and counted occluded).
 
     `graphs` (render/graphs.py, the Renderer's) runs each bounce as a
     captured CUDA graph where `graphs_engage` allows it: the same

@@ -158,6 +158,13 @@ def span(name: str, *, step=None, bounce=None, lanes=None, cap=None,
     return _Span([name, 0, 0, None, step, attrs])
 
 
+def counting() -> bool:
+    """Whether the counters record now: tracing is on, or a stretch is
+    being captured. A caller that must launch work to form a counter's
+    mask asks this first."""
+    return _ON
+
+
 def count(name: str, n: int = 1) -> None:
     """Add `n` to the host counter `name` while tracing is on."""
     if _ON and n:

@@ -10,7 +10,8 @@ tests/test_torch_slice.py (per pixel rtol = atol = 2e-3 on >= 99.5% of
 pixels, the means to 1e-3 relative). Under alpha no any-hit wave is
 traced: the port's tracer pair is given an any-hit half that raises.
 
-Also: `_alpha_value` bitwise JAX's on seeded (material, uv) pairs; the
+Also: `_alpha_value` (over the rows `fetch_hit` gives) bitwise JAX's on
+seeded (material, uv) pairs; the
 sampler's state after every bounce of a sample bitwise JAX's (Halton's
 dimension, PCG4D's four planes, the Z-sampler's dimension: one draw per
 path hop before its trace, one per shadow hop after it). The Renderer
@@ -29,6 +30,7 @@ from platinum_tpu.render.flatten import analyze_features as janalyze
 from platinum_tpu.render.flatten import flatten_scene as jflatten
 from platinum_tpu.render.types import RenderSettings as JSettings
 from platinum_tpu_torch.convert import flat_from_numpy
+from platinum_tpu_torch.ops.hitdata import material_rows
 from platinum_tpu_torch.render import integrator
 from platinum_tpu_torch.render.flatten import analyze_features
 from platinum_tpu_torch.render.types import RenderSettings
@@ -118,7 +120,9 @@ def test_alpha_value_is_jax_bitwise():
         uv[:2000] = np.round(uv[:2000] * 32) / 32     # texel edges
         ref = np.asarray(jintegrator._alpha_value(
             jflat, jnp.asarray(mat), jnp.asarray(uv)))
-        got = integrator._alpha_value(flat, torch.from_numpy(mat),
+        rows = material_rows(flat.materials, torch.from_numpy(mat),
+                             textures=flat.atlas is not None)
+        got = integrator._alpha_value(flat, rows,
                                       torch.from_numpy(uv)).numpy()
         assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
         assert ((ref > 0) & (ref < 1)).any() and (ref == 0).any()

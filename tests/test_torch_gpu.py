@@ -22,7 +22,10 @@ its capacities forced small; the wrappers' input checks
 and refusals, and the threefry draws on the card against the CPU; the
 final render's bounces as captured CUDA graphs (render/graphs.py) against
 the eager bounces bit for bit, counters and launches included, and their
-capture again after an instance edit. Every test
+capture again after an instance edit; the same of the alpha-cutout
+bounces (the small street of portbench's bistro_exterior generator and
+the checker-cut colonnade), and their hops' and shadow waves' fetches
+through the hit-fetch kernel against the plain code bit for bit. Every test
 here needs a CUDA device and skips without one; this module imports no
 JAX and nothing of the JAX package, so it also runs where only PyTorch is
 installed (`python -m pytest tests/test_torch_gpu.py -m gpu`)."""
@@ -1356,3 +1359,135 @@ def test_an_instance_edit_recaptures_the_bounce_graphs():
                                        features=r._features,
                                        tracers=r._tracers)
     assert torch.equal(accum, r._buckets[0])
+
+
+# the small street of portbench/generators/bistro_exterior.py, with more
+# leaves in view than the CPU tests' copy
+EXTERIOR = dict(bays=2, cards=600, bush_cards=150, trees_per_side=4,
+                planters=2, tables=2, strings=3, bulbs_per_string=8,
+                cobble=0.5, balusters=4, leaf=0.3, tex=256, sky_size=(64, 128))
+
+
+def _cutouts_on_card(which):
+    """A cutout scene on the card at 320 x 180, 4-bounce MIS with the auto
+    plan: the small street streamed (K6's closest hit with per-lane far
+    limits in the shadow waves) or the checker-cut colonnade. Returns
+    flat, settings (the plan resolved), features, tracer pair."""
+    import dataclasses
+
+    from platinum_tpu_torch.render import autoplan, integrator
+    from platinum_tpu_torch.render.flatten import (analyze_features,
+                                                   flatten_scene)
+    from platinum_tpu_torch.render.types import RenderSettings
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    s = RenderSettings(width=320, height=180, spp=8, max_bounces=4,
+                       kernel="mis", sampler="halton", tracer="packet",
+                       instancing="off", compact=True, compact_plan="auto")
+    if which == "exterior":
+        from portbench import harness, scenes
+
+        gen = scenes.load_file(os.path.join(
+            os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+            "portbench", "generators", "bistro_exterior.py"), "gpu_street_")
+        scene, cam = harness.port_scene(gen.make(**EXTERIOR))
+        s = dataclasses.replace(s, stream="on")
+    else:
+        from alpha_scenes import checker_columns
+
+        scene, cam = checker_columns("platinum_tpu_torch")
+    flat = flatten_scene(scene, cam, s, device="cuda")
+    tracers = integrator.make_tracers(flat, s)
+    s = autoplan.resolve_auto_plan(flat, s, tracers=tracers)
+    feats = analyze_features(flat)
+    assert "alpha" in feats
+    return flat, s, feats, tracers
+
+
+ALPHA_COUNTERS = ("integrator.wave_lanes", "integrator.live_lanes",
+                  "integrator.alpha_tested", "integrator.alpha_passed",
+                  "integrator.alpha_budget_out", "hitfetch.lanes",
+                  "hitfetch.kernel_lanes")
+
+
+@pytest.mark.parametrize("which", ["exterior", "checker_columns"])
+def test_captured_alpha_bounces_are_the_eager_bounces_bit_for_bit(which):
+    """Three consecutive samples of a cutout scene through captured bounce
+    graphs against eager: radiance and rays bit for bit, the same
+    launches and the same alpha and fetch counts."""
+    from platinum_tpu_torch.ops import hitdata
+    from platinum_tpu_torch.render import integrator
+    from platinum_tpu_torch.render.graphs import BounceGraphs
+    from platinum_tpu_torch.utils import telemetry
+
+    flat, s, feats, tracers = _cutouts_on_card(which)
+    assert integrator.graphs_engage(flat.camera.position.device, tracers, s,
+                                    feats)
+    graphs = BounceGraphs()
+    got = {}
+    telemetry.drain()
+    telemetry.start()
+    try:
+        for path in ("eager", "graphs"):
+            before = dict(pt.LAUNCHES, **hitdata.LAUNCHES)
+            runs = [integrator.render_sample(
+                flat, s, 11 + i, tracers=tracers, return_stats=True,
+                features=feats, graphs=graphs if path == "graphs" else None)
+                for i in range(3)]
+            torch.cuda.synchronize()
+            now = dict(pt.LAUNCHES, **hitdata.LAUNCHES)
+            launched = {k: v - before[k] for k, v in now.items()
+                        if v != before[k]}
+            got[path] = (runs, launched, telemetry.drain()["counters"])
+    finally:
+        telemetry.stop()
+        telemetry.drain()
+    (eager, e_launch, e_count), (graph, g_launch, g_count) = (
+        got["eager"], got["graphs"])
+    for (a, ra), (b, rb) in zip(eager, graph):
+        assert torch.equal(a, b) and torch.equal(ra, rb)
+    assert g_launch == e_launch and e_launch["hit_fetch"] > 0
+    for k in ALPHA_COUNTERS:
+        assert g_count[k] == e_count[k], k
+    assert e_count["integrator.alpha_passed"] > 0
+    assert g_count["hitfetch.kernel_lanes"] == g_count["hitfetch.lanes"]
+    assert g_count["integrator.graph_captures"] == len(graphs) > 0
+    assert g_count["integrator.graph_replays"] >= len(graphs)
+
+
+@pytest.mark.parametrize("which", ["exterior", "checker_columns"])
+def test_alpha_hops_through_fetch_hit_are_interpolate_hit_hops(
+        which, monkeypatch):
+    """The alpha hops and shadow waves fetch through the kernel; the same
+    samples with their fetches made by the plain code (`interpolate_hit`
+    and the material rows it names), the shaded bounce's fetch left to
+    the kernel, give the same image bit for bit."""
+    from platinum_tpu_torch.ops import hitdata
+    from platinum_tpu_torch.render import integrator
+
+    flat, s, feats, tracers = _cutouts_on_card(which)
+    kernel = integrator.fetch_hit
+    plain_calls = [0]
+
+    def plain_in_the_loops(geometry, rec, o, d, materials, textures=False,
+                           instances=None):
+        if sys._getframe(1).f_code.co_name not in ("_alpha_hops",
+                                                   "_alpha_shadow"):
+            return kernel(geometry, rec, o, d, materials, textures,
+                          instances)
+        plain_calls[0] += 1
+        hd = hitdata.interpolate_hit(geometry, rec, o, d,
+                                     instances=instances)
+        return hd, hitdata.material_rows(materials, hd.mat_idx, textures)
+
+    out = []
+    for patch in (False, True):
+        if patch:
+            monkeypatch.setattr(integrator, "fetch_hit", plain_in_the_loops)
+        out.append([integrator.render_sample(flat, s, 5 + i, tracers=tracers,
+                                             features=feats)
+                    for i in range(2)])
+    assert plain_calls[0] >= 2 * (2 * integrator.ALPHA_HOPS + 1)
+    for a, b in zip(*out):
+        assert torch.equal(a, b)

@@ -116,10 +116,13 @@ COPIES = {
     "core/mikkt.py": "remembers its last results by input bytes",
     "core/primitives.py": True,
     "core/scene.py": True,
-    "core/texture.py": True,
+    "core/texture.py": "has_alpha, where the caller does not give it, "
+                       "follows the glTF loader's rule (scan_alpha of an "
+                       "srgb_rgba map)",
     "core/transform.py": True,
     "io/exr.py": True,
-    "io/gltf.py": "decodes textures through io/png.py",
+    "io/gltf.py": "decodes textures through io/png.py; leaves has_alpha "
+                  "to Texture's default, which is its rule",
     "io/hdr.py": True,
     "io/icc.py": True,
     "io/refscene.py": True,

@@ -480,7 +480,7 @@ def test_graphs_engage_only_where_a_capture_is_sound():
     assert not engage(cuda, None, s, feats)
     assert not engage(cuda, packet, dataclasses.replace(s, chunk_shade=64),
                       feats)
-    assert not engage(cuda, packet, s, feats | {"alpha"})
+    assert engage(cuda, packet, s, feats | {"alpha"})
     for tracer in ("bf", "bvh"):
         t = dataclasses.replace(s, tracer=tracer)
         assert not engage(cuda, integrator.make_tracers(flat, t), t, feats)

@@ -28,7 +28,12 @@ integrator.bsdf_kernel_pct, the profiled window's lanes the BSDF kernel
 shaded, `bsdf.kernel_lanes`, over the lanes `bsdf.sample` and
 `bsdf.evaluate` were given, `bsdf.lanes`; integrator.hit_fetch_kernel_pct,
 the lanes the hit-fetch kernel fetched, `hitfetch.kernel_lanes`, over the
-lanes `fetch_hit` was given, `hitfetch.lanes`), the
+lanes `fetch_hit` was given, `hitfetch.lanes`; and where the scene has
+cutouts, integrator.alpha_pass_pct, the hits drawn for in the alpha
+loops that passed through, `integrator.alpha_passed` over
+`integrator.alpha_tested`, integrator.alpha_budget_out_pct, the lanes
+out of the hop budget, `integrator.alpha_budget_out`, over the wave
+lanes), the
 profiler's launches and synchronising calls over the same two steps, the
 synchronising calls by the innermost program span they were made in, and
 the ten longest device idle gaps, each named by the innermost program
@@ -41,7 +46,10 @@ each call site of the shaded bounce that gathers rows (`fetch_hit`,
 the normal map, compaction, ...), and prints `gather_sites`: the device
 ms a spp of PyTorch's row-gather kernels (`vectorized_gather`, and
 `index_elementwise` for 1-D and odd-width gathers) by the innermost site
-or program span that launched them.
+or program span that launched them, and `trace_sites`: the device ms a
+spp of the trace kernels (portbench/trace_kernels.txt) by the innermost
+program span that launched them (`integrator.alpha_hops` and
+`integrator.alpha_shadow` hold the alpha waves).
 
 `--tracing 0` runs set-up and the window alone with tracing off.
 `--turns N` measures the cost of tracing: after a set-up with tracing
@@ -107,6 +115,14 @@ def readings(setup, plain, profiled) -> dict:
     if c.get("hitfetch.lanes"):
         out["integrator.hit_fetch_kernel_pct"] = (
             100.0 * c.get("hitfetch.kernel_lanes", 0) / c["hitfetch.lanes"])
+    if c.get("integrator.alpha_tested"):
+        out["integrator.alpha_pass_pct"] = (
+            100.0 * c.get("integrator.alpha_passed", 0)
+            / c["integrator.alpha_tested"])
+    if "integrator.alpha_budget_out" in c and c.get("integrator.wave_lanes"):
+        out["integrator.alpha_budget_out_pct"] = (
+            100.0 * c["integrator.alpha_budget_out"]
+            / c["integrator.wave_lanes"])
     c = plain["counters"]
     if c.get("integrator.wave_lanes"):
         out["integrator.live_lane_pct"] = (
@@ -189,7 +205,9 @@ def gather_sites(flat, settings, tracers, feats, first: int,
     """{kernel kind: {site: device ms a spp}} of the row-gather kernels
     over `steps` eager samples from sample `first`, each kernel given to
     the innermost site range (GATHER_SITES) or program span whose host
-    operator launched it, "(none)" where neither encloses it."""
+    operator launched it, "(none)" where neither encloses it; and under
+    "trace_sites" the trace kernels' device ms a spp by the innermost
+    program span that launched them."""
     import functools
     import importlib
 
@@ -197,7 +215,9 @@ def gather_sites(flat, settings, tracers, feats, first: int,
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from platinum_tpu_torch.render import integrator
+    from portbench import profiling
 
+    trace_names = profiling.trace_patterns()
     saved = []
     for mod_name, attr, site in GATHER_SITES:
         mod = importlib.import_module(mod_name)
@@ -223,7 +243,18 @@ def gather_sites(flat, settings, tracers, feats, first: int,
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
     out = {kind: collections.Counter() for kind in GATHER_KERNELS}
+    traced = collections.Counter()
     for e in prof.events():
+        for k in getattr(e, "kernels", ()):
+            if not any(x in k.name for x in trace_names):
+                continue
+            # a kernel launched outside a torch operator (the trace
+            # kernels' ctypes launch) is the span's own
+            p = e
+            while p is not None and not p.name.startswith("integrator."):
+                p = p.cpu_parent
+            traced[p.name if p is not None else "(none)"] += (
+                k.duration * 1e-3 / steps)
         kernels = [k for k in getattr(e, "kernels", ())
                    if any(kind in k.name for kind in GATHER_KERNELS)]
         if not kernels:
@@ -240,7 +271,9 @@ def gather_sites(flat, settings, tracers, feats, first: int,
         for k in kernels:
             kind = next(x for x in GATHER_KERNELS if x in k.name)
             out[kind][site] += k.duration * 1e-3 / steps
-    return {kind: dict(c.most_common()) for kind, c in out.items()}
+    out = {kind: dict(c.most_common()) for kind, c in out.items()}
+    out["trace_sites"] = dict(traced.most_common())
+    return out
 
 
 def trace_cell(spec: dict, seed: int, seconds: float, tracing: bool,
